@@ -1,0 +1,91 @@
+"""The port's boundaries: what it imports, where it runs, what it counts."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import tpu3d.config as jax_config
+from tpu3d_torch.config import cfg_from_file, fresh_cfg
+from tpu3d_torch.models import PointRCNN
+from tpu3d_torch.ops import (furthest_point_sample_with_3nn, nearest_k,
+                             three_interpolate)
+from tpu3d_torch.ops import _build
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def test_port_imports_no_jax_and_no_tpu3d():
+    """Every module of tpu3d_torch, imported in a fresh interpreter, loads
+    no jax, flax or tpu3d module."""
+    code = (
+        "import pkgutil, importlib, sys\n"
+        "import tpu3d_torch\n"
+        "for m in pkgutil.walk_packages(tpu3d_torch.__path__, "
+        "'tpu3d_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'tpu3d'))\n"
+        "print('MODULES', len([n for n in sys.modules "
+        "if n.startswith('tpu3d_torch')]))\n"
+        "print('BAD', bad)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "BAD []" in res.stdout, res.stdout
+    n_modules = int(res.stdout.split("MODULES ")[1].split()[0])
+    assert n_modules >= 20
+
+
+def test_entry_point_defaults_to_cuda():
+    """Without device="cpu" an entry point wants the card, and raises on a
+    machine without one instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PointRCNN(fresh_cfg())
+
+
+def test_plain_versions_count_no_launches():
+    """Only a kernel launch adds to the counts: the plain versions, taken
+    for CPU tensors, leave them alone."""
+    _build.reset_launches()
+    xyz = torch.rand(1, 256, 3)
+    _, d2, idx = furthest_point_sample_with_3nn(xyz, 64)
+    nearest_k(xyz[:, :32].contiguous(), xyz, 16, max_radius=0.5)
+    three_interpolate(torch.rand(1, 64, 8), idx, torch.rand(1, 256, 3))
+    assert _build.LAUNCHES == {"fps3nn": 0, "nearest_k": 0,
+                               "three_interpolate": 0}
+
+
+def test_kernel_library_names_follow_sources():
+    """A kernel library's file name carries a hash of its source, so an
+    edited source is rebuilt rather than a stale library loaded."""
+    names = {name: _build._lib_path(name).name for name in _build.KERNELS}
+    assert set(names) == {p.stem for p in _build.CSRC.glob("*.cu")}
+    for name, lib in names.items():
+        assert lib.startswith(name + "-") and lib.endswith(".so")
+
+
+def test_config_copy_matches_tpu3d():
+    """The port's copy of the config loader gives tpu3d's tree, for the
+    defaults and after merging configs/default.yaml."""
+    def same(a, b, path=""):
+        assert set(a) == set(b), path
+        for k in a:
+            if hasattr(a[k], "items"):
+                same(a[k], b[k], f"{path}.{k}")
+            else:
+                np.testing.assert_array_equal(np.asarray(a[k]),
+                                              np.asarray(b[k]),
+                                              err_msg=f"{path}.{k}")
+
+    same(fresh_cfg(), jax_config.fresh_cfg())
+    yaml = str(ROOT / "configs" / "default.yaml")
+    same(cfg_from_file(yaml, fresh_cfg()),
+         jax_config.cfg_from_file(yaml, jax_config.fresh_cfg()))

@@ -1,0 +1,193 @@
+"""PointNet++ MSG backbone in eval mode (counterpart of
+``tpu3d/models/pointnet2.py``).
+
+Channels-last like the JAX package: features are (B, N, C), xyz (B, N, 3).
+Submodules carry the flax names (``sa_0.mlp_1.dense_0``, ``bn_0`` ...), so
+``weights.params_from_jax`` maps the two trees one to one. Only inference is
+ported: BatchNorm always normalises with its running statistics.
+
+Grouping follows the JAX package's eval path. Every SA level runs one
+nearest-k search shared by its radii, and each radius takes a prefix of it
+with ``ball_query_from_nearest``. SA_0 (no features) groups the
+candidates' coordinates directly. The levels with features run the
+pre-group form of the first layer: with W = [W_x | W_f],
+    W @ [xyz[idx] - c ; f[idx]] = (W_x@xyz + W_f@f)[idx] - W_x@c,
+so one per-point matmul and one gather of its output replace the grouped
+copy. It is the form the JAX package takes at every RPN level with
+features, which makes it the one that matches it most closely.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from ..ops import (ball_query_from_nearest, furthest_point_sample_with_3nn,
+                   gather_points, group_points, interpolation_weights,
+                   nearest_k, three_interpolate)
+
+
+class BatchNorm(nn.Module):
+    """Eval-mode BatchNorm over the last axis from running statistics,
+    folded into one per-channel affine as in the JAX package:
+    x·(scale/√(var+ε)) + (bias − mean·scale/√(var+ε))."""
+
+    def __init__(self, features: int, eps: float = 1e-5, device=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+        self.register_buffer("mean", torch.zeros(features, device=device))
+        self.register_buffer("var", torch.ones(features, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        inv = torch.rsqrt(self.var + self.eps)
+        mul = inv * self.scale
+        return x * mul + (self.bias - self.mean * mul)
+
+
+class SharedMLP(nn.Module):
+    """Pointwise Dense(+BN)+ReLU layers over the channel axis."""
+
+    def __init__(self, in_channels: int, channels: Sequence[int],
+                 bn: bool = True, device=None):
+        super().__init__()
+        self.n = len(channels)
+        self.bn = bn
+        for i, ch in enumerate(channels):
+            self.add_module(f"dense_{i}", nn.Linear(
+                in_channels, ch, bias=not bn, device=device))
+            if bn:
+                self.add_module(f"bn_{i}", BatchNorm(ch, device=device))
+            in_channels = ch
+
+    def forward(self, x: torch.Tensor | None,
+                pre0: torch.Tensor | None = None) -> torch.Tensor:
+        """``pre0``, when given, is layer 0's pre-activation, computed by
+        the caller with ``dense_0`` (``x`` is then ignored)."""
+        for i in range(self.n):
+            x = pre0 if (i == 0 and pre0 is not None) else \
+                getattr(self, f"dense_{i}")(x)
+            if self.bn:
+                x = getattr(self, f"bn_{i}")(x)
+            x = torch.relu(x)
+        return x
+
+
+class PointnetSAModuleMSG(nn.Module):
+    """Multi-scale set abstraction: per-radius ball query from one shared
+    nearest-k search, shared MLP, max-pool over the neighbourhood, concat
+    across scales (reference: pointnet2_modules.py:19-96)."""
+
+    def __init__(self, radii: Sequence[float], nsamples: Sequence[int],
+                 mlps: Sequence[Sequence[int]], in_channels: int,
+                 bn: bool = True, device=None):
+        super().__init__()
+        self.radii = tuple(float(r) for r in radii)
+        self.nsamples = tuple(int(s) for s in nsamples)
+        for i, mlp in enumerate(mlps):
+            self.add_module(f"mlp_{i}", SharedMLP(in_channels + 3, mlp, bn=bn,
+                                                  device=device))
+
+    def forward(self, xyz: torch.Tensor, features: torch.Tensor | None,
+                new_xyz: torch.Tensor) -> torch.Tensor:
+        """xyz (B, N, 3), features (B, N, C) or None, new_xyz (B, npoint, 3)
+        -> (B, npoint, ΣC_out)."""
+        B, N, _ = xyz.shape
+        d2, cand = nearest_k(new_xyz, xyz, max(self.nsamples),
+                             max_radius=max(self.radii))
+        if features is None:
+            # the candidates' coordinates, gathered once for every scale
+            safe = cand.clamp(max=N - 1)
+            cand_xyz = group_points(xyz, safe)  # (B, M, K, 3)
+        else:
+            inp = torch.cat([xyz, features], dim=-1)
+        outs = []
+        for i, (radius, nsample) in enumerate(zip(self.radii, self.nsamples)):
+            mlp = getattr(self, f"mlp_{i}")
+            if features is None:
+                # prefix slots, radius hit mask, and the CUDA fill (first
+                # hit, else point 0), all elementwise on the candidates
+                hit = (d2[..., :nsample] < radius * radius) \
+                    & (cand[..., :nsample] < N)
+                c_xyz = cand_xyz[..., :nsample, :]
+                first = torch.where(hit[..., 0:1, None], c_xyz[..., 0:1, :],
+                                    xyz[:, 0][:, None, None, :])
+                grouped = (torch.where(hit[..., None], c_xyz, first)
+                           - new_xyz[:, :, None, :])
+                out = mlp(grouped)
+            else:
+                idx = ball_query_from_nearest(d2, cand, radius, nsample, N)
+                dense0 = mlp.dense_0
+                # a layer-0 bias (no-BN MLPs) rides the gathered term once;
+                # the center term W_x@c carries none
+                x = group_points(dense0(inp), idx)
+                x = x - (new_xyz @ dense0.weight[:, :3].T)[:, :, None, :]
+                out = mlp(None, pre0=x)
+            outs.append(out.amax(dim=2))
+        return torch.cat(outs, dim=-1)
+
+
+class PointnetFPModule(nn.Module):
+    """Feature propagation from the FPS 3-NN cache: inverse-distance
+    interpolation, skip concat, shared MLP (reference:
+    pointnet2_modules.py:122-160)."""
+
+    def __init__(self, in_channels: int, mlp: Sequence[int], bn: bool = True,
+                 device=None):
+        super().__init__()
+        self.mlp = SharedMLP(in_channels, mlp, bn=bn, device=device)
+
+    def forward(self, unknown_feats: torch.Tensor | None,
+                known_feats: torch.Tensor, cached_nn) -> torch.Tensor:
+        d2, idx = cached_nn
+        weight = interpolation_weights(torch.sqrt(torch.clamp(d2, min=0.0)))
+        x = three_interpolate(known_feats, idx, weight)
+        if unknown_feats is not None:
+            x = torch.cat([x, unknown_feats], dim=-1)
+        return self.mlp(x)
+
+
+class Pointnet2MSG(nn.Module):
+    """The RPN backbone: MSG set-abstraction encoders and FP decoders from
+    cfg.RPN.SA_CONFIG / FP_MLPS (reference: lib/net/pointnet2_msg.py)."""
+
+    def __init__(self, npoints, radii, nsamples, sa_mlps, fp_mlps,
+                 input_channels: int = 0, bn: bool = True, device=None):
+        super().__init__()
+        self.npoints = tuple(int(n) for n in npoints)
+        level_c = [input_channels]  # channels of l_features[k]
+        for k in range(len(self.npoints)):
+            self.add_module(f"sa_{k}", PointnetSAModuleMSG(
+                radii[k], nsamples[k], sa_mlps[k], level_c[k], bn=bn,
+                device=device))
+            level_c.append(sum(m[-1] for m in sa_mlps[k]))
+        self.n_fp = len(fp_mlps)
+        for i in range(self.n_fp - 1, -1, -1):
+            known_c = (fp_mlps[i + 1][-1] if i + 1 < self.n_fp
+                       else level_c[i + 1])
+            self.add_module(f"fp_{i}", PointnetFPModule(
+                known_c + level_c[i], fp_mlps[i], bn=bn, device=device))
+
+    def forward(self, pts_input: torch.Tensor):
+        """(B, N, 3 + C) -> (xyz (B, N, 3), features (B, N, C_fp0))."""
+        xyz = pts_input[..., 0:3].contiguous()
+        features = (pts_input[..., 3:].contiguous()
+                    if pts_input.shape[-1] > 3 else None)
+        l_xyz, l_features, cached_nn = [xyz], [features], []
+        for k, npoint in enumerate(self.npoints):
+            # FPS and, riding along, each point's 3 nearest picks: the
+            # three_nn of FP level k
+            fps_idx, nn_d2, nn_idx = furthest_point_sample_with_3nn(
+                l_xyz[k], npoint)
+            new_xyz = gather_points(l_xyz[k], fps_idx)
+            cached_nn.append((nn_d2, nn_idx))
+            l_features.append(getattr(self, f"sa_{k}")(
+                l_xyz[k], l_features[k], new_xyz))
+            l_xyz.append(new_xyz)
+        for i in range(self.n_fp - 1, -1, -1):
+            l_features[i] = getattr(self, f"fp_{i}")(
+                l_features[i], l_features[i + 1], cached_nn[i])
+        return l_xyz[0], l_features[0]
