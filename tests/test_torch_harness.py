@@ -12,7 +12,9 @@ import torch
 import tpu3d.config as jax_config
 from tpu3d_torch.config import cfg_from_file, fresh_cfg
 from tpu3d_torch.models import PointRCNN
-from tpu3d_torch.ops import (furthest_point_sample_with_3nn, nearest_k,
+from tpu3d_torch.ops import (furthest_point_sample,
+                             furthest_point_sample_with_3nn,
+                             fused_gathered_mlp_pool, nearest_k,
                              three_interpolate)
 from tpu3d_torch.ops import _build
 
@@ -51,6 +53,19 @@ def test_entry_point_defaults_to_cuda():
         PointRCNN(fresh_cfg())
 
 
+def test_shipped_config_builds_the_joint_model():
+    """configs/default.yaml as shipped builds the joint model (RPN and
+    RCNN) with no override; it too wants the card unless given
+    device="cpu"."""
+    cfg = cfg_from_file(str(ROOT / "configs" / "default.yaml"), fresh_cfg())
+    assert cfg.RCNN.ENABLED
+    model = PointRCNN(cfg, device="cpu")
+    assert hasattr(model, "rcnn_net")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            PointRCNN(cfg)
+
+
 def test_plain_versions_count_no_launches():
     """Only a kernel launch adds to the counts: the plain versions, taken
     for CPU tensors, leave them alone."""
@@ -59,8 +74,15 @@ def test_plain_versions_count_no_launches():
     _, d2, idx = furthest_point_sample_with_3nn(xyz, 64)
     nearest_k(xyz[:, :32].contiguous(), xyz, 16, max_radius=0.5)
     three_interpolate(torch.rand(1, 64, 8), idx, torch.rand(1, 256, 3))
+    picks = furthest_point_sample(xyz, 32)
+    fused_gathered_mlp_pool(
+        torch.rand(1, 256, 8), idx[:, :32].contiguous(), torch.rand(1, 32, 8),
+        torch.rand(8, 128), torch.rand(128), torch.rand(128, 128),
+        torch.rand(128))
+    assert picks.shape == (1, 32)
     assert _build.LAUNCHES == {"fps3nn": 0, "nearest_k": 0,
-                               "three_interpolate": 0}
+                               "three_interpolate": 0, "fps": 0,
+                               "fused_sa": 0}
 
 
 def test_kernel_library_names_follow_sources():

@@ -20,13 +20,111 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from test_torch_rcnn import run_joint  # noqa: E402
+from test_torch_rcnn_ops import (_boxes5, _pooled_rows,  # noqa: E402
+                                 _scene_and_rois)
 from test_torch_rpn import run_pair  # noqa: E402
 from tpu3d.ops import furthest_point_sample_with_3nn as jax_fps3nn  # noqa
 from tpu3d.ops import three_interpolate as jax_three_interpolate  # noqa
+from tpu3d.ops.fused_sa import fused_gathered_mlp_pool as jax_fused  # noqa
+from tpu3d.ops.fused_sa import fused_mlp_pool_reference  # noqa: E402
 from tpu3d.ops.grouping import nearest_k as jax_nearest_k  # noqa: E402
+from tpu3d.ops.roipool import roipool3d as jax_roipool3d  # noqa: E402
+from tpu3d.ops.rotated_iou import rotated_overlap_bev as jax_overlap  # noqa
+from tpu3d.ops.sampling import _fps_pallas, _fps_xla  # noqa: E402
 from tpu3d_torch.models.proposal import proposal_layer  # noqa: E402
 from tpu3d_torch.ops import (furthest_point_sample_with_3nn,  # noqa: E402
-                             nearest_k, three_interpolate)
+                             nearest_k, roipool3d, rotated_overlap_bev,
+                             three_interpolate)
+from tpu3d_torch.ops.fused_sa import fused_gathered_mlp_pool_plain  # noqa
+from tpu3d_torch.ops.sampling import furthest_point_sample_plain  # noqa
+from tpu3d_torch.tools.eval_rcnn import rcnn_decode_and_nms  # noqa: E402
+
+
+def rcnn_report():
+    """The RCNN stage's modules and the joint path, on the inputs of
+    tests/test_torch_rcnn_ops.py and tests/test_torch_rcnn.py."""
+    for n, npoint in ((512, 128), (128, 32)):
+        xyz = _pooled_rows(np.random.default_rng(n), n)
+        got = furthest_point_sample_plain(torch.from_numpy(xyz), npoint)
+        pal = np.asarray(_fps_pallas(jnp.asarray(xyz), npoint,
+                                     interpret=True))
+        xla = np.asarray(_fps_xla(jnp.asarray(xyz), npoint))
+        print(f"fps ({n} pooled points) -> {npoint}: mismatches against "
+              f"_fps_pallas {(got.numpy() != pal).sum()}, against _fps_xla "
+              f"{(got.numpy() != xla).sum()}")
+
+    rng = np.random.default_rng(9)
+    B, M, S, N, C1, C2, C3 = 2, 4, 16, 128, 128, 128, 256
+    bf16 = lambda a: np.array(jnp.asarray(a, jnp.float32).astype(
+        jnp.bfloat16).astype(jnp.float32))
+    pre = bf16(rng.normal(size=(B, N, C1)))
+    idx = rng.integers(0, N, size=(B, M, S)).astype(np.int32)
+    center = bf16(0.5 * rng.normal(size=(B, M, C1)))
+    w1 = (rng.normal(size=(C1, C2)) / np.sqrt(C1)).astype(np.float32)
+    w2 = (rng.normal(size=(C2, C3)) / np.sqrt(C2)).astype(np.float32)
+    b1 = (0.1 * rng.normal(size=C2)).astype(np.float32)
+    b2 = (0.1 * rng.normal(size=C3)).astype(np.float32)
+    got = fused_gathered_mlp_pool_plain(*(torch.from_numpy(a) for a in (
+        pre, idx, center, w1, b1, w2, b2))).numpy()
+    x0 = np.take_along_axis(pre, idx.reshape(B, M * S)[..., None], axis=1
+                            ).reshape(B, M, S, C1) - center[:, :, None, :]
+    ref = np.asarray(fused_mlp_pool_reference(*(jnp.asarray(a) for a in (
+        x0, w1, b1, w2, b2))))
+    pal = np.asarray(jax_fused(
+        jnp.asarray(pre, jnp.bfloat16), jnp.asarray(idx),
+        jnp.asarray(center, jnp.bfloat16), jnp.asarray(w1), jnp.asarray(b1),
+        jnp.asarray(w2), jnp.asarray(b2), train=False, interpret=True),
+        np.float32)
+    print(f"fused_gathered_mlp_pool_plain C {C1}->{C2}->{C3}: max abs "
+          f"{np.abs(got - ref).max():.3e} against the f32 reference, "
+          f"{np.abs(got - pal).max():.3e} against the bf16 Pallas kernel "
+          f"(max |value| {np.abs(ref).max():.3e})")
+
+    pts, rois = _scene_and_rois(np.random.default_rng(5))
+    feats = np.concatenate([np.broadcast_to(np.arange(2048.0), (2, 2048))[
+        ..., None], rng.normal(size=(2, 2048, 5))], -1).astype(np.float32)
+    px, pf, empty = (t.numpy() for t in roipool3d(
+        torch.from_numpy(pts), torch.from_numpy(feats),
+        torch.from_numpy(rois), 1.0, 64))
+    jx, jf, je = (np.asarray(t) for t in jax_roipool3d(
+        jnp.asarray(pts), jnp.asarray(feats), jnp.asarray(rois), 1.0, 64,
+        split=True))
+    print(f"roipool3d (2 x 2048 points, 12 rois, K 64): id mismatches "
+          f"{(pf[..., 0] != jf[..., 0]).sum()}, empty mismatches "
+          f"{(empty != je).sum()}, values max abs "
+          f"{max(np.abs(px - jx).max(), np.abs(pf - jf).max()):.3e}")
+
+    a, b = _boxes5(np.random.default_rng(11), 40), _boxes5(
+        np.random.default_rng(12), 30)
+    errs = [np.abs(rotated_overlap_bev(torch.from_numpy(a),
+                                       torch.from_numpy(b), c).numpy()
+                   - np.asarray(jax_overlap(jnp.asarray(a), jnp.asarray(b),
+                                            c))).max()
+            for c in (-2, -1, 0, 1)]
+    print("rotated_overlap_bev criteria -2/-1/0/1: max abs "
+          + " / ".join(f"{e:.3e}" for e in errs))
+
+    cfg, model, _, jout, jdec, _ = run_joint()
+    out = model.rcnn_stage(*(torch.tensor(a) for a in (
+        jout["backbone_xyz"], jout["backbone_features"],
+        jout["rpn_cls"][..., 0], jout["rois"])))
+    for key in ("rcnn_cls", "rcnn_reg"):
+        print(f"RCNN stage on tpu3d's rois, {key}: max abs "
+              f"{np.abs(out[key].numpy() - jout[key]).max():.3e} (max "
+              f"|value| {np.abs(jout[key]).max():.3e})")
+    b, m = jout["rois"].shape[:2]
+    got = rcnn_decode_and_nms(
+        cfg, torch.tensor(jout["rois"]),
+        torch.tensor(jout["rcnn_cls"].reshape(b, m)),
+        torch.tensor(jout["rcnn_reg"].reshape(b, m, -1)),
+        torch.tensor(jout["roi_valid"]))
+    print(f"decode + rotated NMS on tpu3d's outputs: final_mask mismatches "
+          f"{(got['final_mask'].numpy() != jdec['final_mask']).sum()} "
+          f"({int(jdec['final_mask'].sum())} kept), final_boxes max abs "
+          f"{np.abs(got['final_boxes'].numpy() - jdec['final_boxes']).max():.3e}"
+          f", final_scores max abs "
+          f"{np.abs(got['final_scores'].numpy() - jdec['final_scores']).max():.3e}")
 
 
 def main():
@@ -75,6 +173,7 @@ def main():
               f"{np.abs(rois - jout['rois']).max():.3e}, roi_valid "
               f"mismatches {(tout['roi_valid'] != jout['roi_valid']).sum()}, "
               f"valid {int(jout['roi_valid'].sum())}/{valid.size}")
+    rcnn_report()
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
-"""PointNet++ MSG backbone in eval mode (counterpart of
-``tpu3d/models/pointnet2.py``).
+"""PointNet++ set abstraction and feature propagation in eval mode
+(counterpart of ``tpu3d/models/pointnet2.py``): the RPN's MSG backbone and
+the RCNN's single-scale levels.
 
 Channels-last like the JAX package: features are (B, N, C), xyz (B, N, 3).
 Submodules carry the flax names (``sa_0.mlp_1.dense_0``, ``bn_0`` ...), so
@@ -14,7 +15,9 @@ pre-group form of the first layer: with W = [W_x | W_f],
     W @ [xyz[idx] - c ; f[idx]] = (W_x@xyz + W_f@f)[idx] - W_x@c,
 so one per-point matmul and one gather of its output replace the grouped
 copy. It is the form the JAX package takes at every RPN level with
-features, which makes it the one that matches it most closely.
+features, and at the RCNN's levels, which makes it the one that matches it
+most closely. At the RCNN's no-BN levels the gather, layers 1-2 and the
+max-pool run as one fused op (``ops/fused_sa.py``).
 """
 
 from __future__ import annotations
@@ -24,9 +27,10 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from ..ops import (ball_query_from_nearest, furthest_point_sample_with_3nn,
-                   gather_points, group_points, interpolation_weights,
-                   nearest_k, three_interpolate)
+from ..ops import (ball_query, ball_query_from_nearest,
+                   furthest_point_sample, furthest_point_sample_with_3nn,
+                   fused_gathered_mlp_pool, gather_points, group_points,
+                   interpolation_weights, nearest_k, three_interpolate)
 
 
 class BatchNorm(nn.Module):
@@ -128,6 +132,51 @@ class PointnetSAModuleMSG(nn.Module):
                 out = mlp(None, pre0=x)
             outs.append(out.amax(dim=2))
         return torch.cat(outs, dim=-1)
+
+
+class PointnetSAModule(nn.Module):
+    """Single-scale set abstraction with its own FPS (reference:
+    pointnet2_modules.py:99-119), or GroupAll when ``npoint`` is None."""
+
+    def __init__(self, npoint: int | None, radius: float, nsample: int,
+                 mlp: Sequence[int], in_channels: int, bn: bool = True,
+                 device=None):
+        super().__init__()
+        self.npoint = npoint
+        self.radius = float(radius)
+        self.nsample = int(nsample)
+        self.mlp_0 = SharedMLP(in_channels + 3, mlp, bn=bn, device=device)
+        self.fused = not bn and len(mlp) == 3
+
+    def group_inputs(self, xyz: torch.Tensor, features: torch.Tensor):
+        """FPS centers, ball query and the pre-group layer 0: (new_xyz
+        (B, npoint, 3), pre (B, N, C1) per-point pre-activations, idx
+        (B, npoint, nsample) i32, center (B, npoint, C1)), where layer 0's
+        pre-activation of slot s of center m is pre[idx[m, s]] - center[m]."""
+        new_xyz = gather_points(xyz, furthest_point_sample(xyz, self.npoint))
+        idx = ball_query(new_xyz, xyz, self.radius, self.nsample)
+        dense0 = self.mlp_0.dense_0
+        pre = dense0(torch.cat([xyz, features], dim=-1))
+        center = new_xyz @ dense0.weight[:, :3].T
+        return new_xyz, pre, idx, center
+
+    def forward(self, xyz: torch.Tensor, features: torch.Tensor):
+        """xyz (B, N, 3), features (B, N, C) -> (new_xyz (B, npoint, 3), or
+        None for GroupAll, and features (B, npoint or 1, C_out))."""
+        if self.npoint is None:
+            grouped = torch.cat([xyz, features], dim=-1)[:, None]
+            return None, self.mlp_0(grouped).amax(dim=2)
+        new_xyz, pre, idx, center = self.group_inputs(xyz, features)
+        if self.fused:
+            m = self.mlp_0
+            out = fused_gathered_mlp_pool(
+                pre, idx, center, m.dense_1.weight.T.contiguous(),
+                m.dense_1.bias, m.dense_2.weight.T.contiguous(),
+                m.dense_2.bias)
+        else:
+            x = group_points(pre, idx) - center[:, :, None, :]
+            out = self.mlp_0(None, pre0=x).amax(dim=2)
+        return new_xyz, out
 
 
 class PointnetFPModule(nn.Module):

@@ -2,7 +2,8 @@
 
 Each ``tpu3d_torch/csrc/<name>.cu`` is compiled by ``nvcc`` into its own
 shared library with a plain C interface, at first use, and loaded with
-``ctypes``. The library's file name carries a hash of its source and flags,
+``ctypes``. Each kernel names its own ``nvcc`` flags beside its C
+signature. The library's file name carries a hash of its source and flags,
 so an edited source is rebuilt and a stale library is never loaded.
 Libraries go to ``build/kernels/`` at the root of the checkout (listed in
 ``.gitignore``). ``build_all`` starts one ``nvcc`` per source at once.
@@ -25,20 +26,26 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-# -fmad=false: every kernel rounds its products and sums one by one, as the
-# plain PyTorch versions do (FPS picks move with one rounding difference)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+# rounds every product and sum one by one, as the plain PyTorch version
+# does: the kernels held to it bit for bit (one rounding difference moves an
+# FPS pick or a neighbour) take it; fused_sa, held to a tolerance, contracts
+# its multiply-adds
+EXACT = ["-fmad=false"]
 
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
-# C signature of each kernel library's entry point: (symbol, argtypes)
+# each kernel library's entry point: (symbol, argtypes, extra nvcc flags)
 KERNELS = {
-    "fps3nn": ("tpu3d_fps3nn", [P, I, I, I, P, P, P, P]),
-    "nearest_k": ("tpu3d_nearest_k", [P, P, I, I, I, I, F, P, P, P]),
+    "fps3nn": ("tpu3d_fps3nn", [P, I, I, I, P, P, P, P], EXACT),
+    "nearest_k": ("tpu3d_nearest_k", [P, P, I, I, I, I, F, P, P, P], EXACT),
     "three_interpolate": ("tpu3d_three_interpolate",
-                          [P, P, P, I, I, I, I, P, P]),
+                          [P, P, P, I, I, I, I, P, P], EXACT),
+    "fps": ("tpu3d_fps", [P, I, I, I, P, P], EXACT),
+    "fused_sa": ("tpu3d_fused_sa",
+                 [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P, P], []),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -60,16 +67,20 @@ def _nvcc() -> str:
                        "CUDA toolkit's nvcc on the machine with the card")
 
 
+def _flags(name: str) -> list[str]:
+    return [*NVCC_FLAGS, *KERNELS[name][2]]
+
+
 def _lib_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(src.read_bytes() + " ".join(_flags(name)).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str, verbose: bool) -> tuple[subprocess.Popen, Path, Path]:
     out = _lib_path(name)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+    cmd = [_nvcc(), *_flags(name), *(["-Xptxas", "-v"] if verbose else []),
            "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
@@ -102,7 +113,7 @@ def kernel(name: str):
         path = _lib_path(name)
         if not path.exists():
             build_all()
-        symbol, argtypes = KERNELS[name]
+        symbol, argtypes, _ = KERNELS[name]
         fn = getattr(ctypes.CDLL(str(path)), symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

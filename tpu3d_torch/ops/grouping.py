@@ -84,6 +84,18 @@ def ball_query_from_nearest(d2: torch.Tensor, idx: torch.Tensor,
     return torch.where(hit, idx, first).to(torch.int32)
 
 
+def ball_query(centers: torch.Tensor, pts: torch.Tensor, radius: float,
+               nsample: int) -> torch.Tensor:
+    """(B, M, 3) centers × (B, N, 3) points -> (B, M, nsample) i32 ids: the
+    ``nsample`` nearest points inside ``radius``, nearest first, ties to the
+    lower id, short rows padded with the first hit, rows without a hit all
+    0. This is tpu3d's "nearest" rule, the one it takes on the CPU; on the
+    TPU it takes the first hits in index order at the RCNN's shapes, which
+    picks another set only when more than ``nsample`` points lie inside."""
+    d2, idx = nearest_k(centers, pts, nsample, max_radius=radius)
+    return ball_query_from_nearest(d2, idx, radius, nsample, pts.shape[1])
+
+
 def group_points(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """(B, N, C) gathered by (B, M, S) -> (B, M, S, C)."""
     B, M, S = idx.shape

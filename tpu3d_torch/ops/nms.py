@@ -1,13 +1,16 @@
-"""Exact greedy BEV NMS over score-sorted candidates, in blocks.
+"""Exact greedy BEV NMS, rotated or axis-aligned.
 
-Counterpart of ``tpu3d/ops/nms.py::nms_blocked_sorted``, which is XLA there
-and plain PyTorch here. Only the axis-aligned ("normal") IoU is ported:
-``RPN.NMS_TYPE`` is ``normal`` in configs/default.yaml.
+Counterpart of ``tpu3d/ops/nms.py`` (``nms_bev``, ``nms_blocked_sorted``),
+which is XLA there and plain PyTorch here. The proposal layer takes the
+axis-aligned IoU (``RPN.NMS_TYPE: normal``), the RCNN's final NMS the
+rotated one.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .rotated_iou import rotated_overlap_bev
 
 
 def _aligned_iou_cross(a5: torch.Tensor, b5: torch.Tensor) -> torch.Tensor:
@@ -42,10 +45,6 @@ def nms_blocked_sorted(boxes5_sorted: torch.Tensor, valid_sorted: torch.Tensor,
     handful), so the host waits once per fixpoint step and once per block,
     never once per candidate. The walk stops once ``max_out`` are kept.
     """
-    if rotated:
-        raise NotImplementedError(
-            "rotated BEV NMS needs the rotated IoU (tpu3d/ops/rotated_iou.py), "
-            "which the port has not taken over yet; NMS_TYPE 'normal' works")
     dev = boxes5_sorted.device
     n = boxes5_sorted.shape[0]
     out_idx = torch.zeros(max_out, dtype=torch.int32, device=dev)
@@ -66,7 +65,10 @@ def nms_blocked_sorted(boxes5_sorted: torch.Tensor, valid_sorted: torch.Tensor,
         if kept >= max_out:
             break
         start = b * block
-        hit = _aligned_iou_cross(boxes[start:start + block], boxes) > thresh
+        rows_b = boxes[start:start + block]
+        iou = (rotated_overlap_bev(rows_b, boxes, criterion=-1) if rotated
+               else _aligned_iou_cross(rows_b, boxes))
+        hit = iou > thresh
         base = valid[start:start + block] & ~suppressed[start:start + block]
         tri = hit[:, start:start + block] & upper
         keep = base
@@ -84,3 +86,19 @@ def nms_blocked_sorted(boxes5_sorted: torch.Tensor, valid_sorted: torch.Tensor,
                        & (col_ids[None, :] > rows[:, None])).any(dim=0)
         kept += taken.numel()
     return out_idx, out_mask
+
+
+def nms_bev(boxes5: torch.Tensor, scores: torch.Tensor, thresh: float,
+            max_out: int, valid: torch.Tensor | None = None,
+            rotated: bool = True):
+    """Greedy BEV NMS over (N, 5) [xc, zc, l, w, ry] boxes in descending
+    score order (stable, valid candidates first): suppress j when
+    IoU(kept i, j) > thresh. Returns ((max_out,) i32 indices into boxes5,
+    0 in the slots past the keeps, and (max_out,) bool keep mask)."""
+    if valid is None:
+        valid = torch.ones_like(scores, dtype=torch.bool)
+    order = torch.argsort(torch.where(valid, -scores, torch.inf), stable=True)
+    pos, mask = nms_blocked_sorted(boxes5[order], valid[order], thresh,
+                                   max_out, rotated=rotated)
+    idx = torch.where(mask, order[pos.long()], 0).to(torch.int32)
+    return idx, mask

@@ -1,15 +1,19 @@
-"""Furthest point sampling with each point's 3 nearest picks, and gathers.
+"""Furthest point sampling, alone or with each point's 3 nearest picks, and
+gathers.
 
 Counterpart of ``tpu3d/ops/sampling.py``. ``furthest_point_sample_with_3nn``
-launches the CUDA kernel in ``csrc/fps3nn.cu`` for a CUDA tensor and runs
-``furthest_point_sample_with_3nn_plain`` for a CPU tensor.
+launches the CUDA kernel in ``csrc/fps3nn.cu`` and ``furthest_point_sample``
+the one in ``csrc/fps.cu`` for a CUDA tensor; for a CPU tensor each runs
+its ``*_plain`` version.
 
-Kernel note (in full in the source): it replaces
-``tpu3d/ops/sampling.py::_fps3nn_pallas``. FPS is a chain of npoint
-dependent argmax steps, so it is bound by the latency of one block-wide
-reduction per pick, not by bytes or operations; one block per scene keeps
-the coordinates in shared memory and the running min in registers, with
-one barrier per pick, and the top-3 runs as a separate parallel kernel.
+Kernel notes (in full in the sources). FPS is a chain of npoint dependent
+argmax steps, so it is bound by the latency of one pick, not by bytes or
+operations. ``fps3nn.cu`` replaces ``_fps3nn_pallas`` (the RPN's few long
+rows): one block per scene keeps the coordinates in shared memory and the
+running min in registers, with one barrier per pick, and the top-3 runs as
+a separate parallel kernel. ``fps.cu`` replaces ``_fps_pallas`` (the RCNN's
+many short rows): one warp per row, one shuffle argmax per pick, no block
+barrier.
 """
 
 from __future__ import annotations
@@ -25,8 +29,9 @@ def _d2(pts: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     return d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
 
 
-def furthest_point_sample_with_3nn_plain(xyz: torch.Tensor, npoint: int):
-    """Plain PyTorch version of the kernel, one pick per loop step."""
+def furthest_point_sample_plain(xyz: torch.Tensor,
+                                npoint: int) -> torch.Tensor:
+    """Plain PyTorch version of both FPS kernels, one pick per loop step."""
     B, N, _ = xyz.shape
     rows = torch.arange(B, device=xyz.device)
     idx = torch.zeros(B, npoint, dtype=torch.int32, device=xyz.device)
@@ -36,6 +41,34 @@ def furthest_point_sample_with_3nn_plain(xyz: torch.Tensor, npoint: int):
         mind = torch.minimum(mind, _d2(xyz, xyz[rows, last][:, None, :]))
         last = torch.argmax(mind, dim=1)  # first maximum: ties to lowest index
         idx[:, j] = last.to(torch.int32)
+    return idx
+
+
+def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
+    """(R, N, 3) f32 -> (R, npoint) i32 FPS picks: pick 0 is point 0, each
+    later pick the argmax of every point's running min d² to the picks so
+    far, ties to the lowest index.
+
+    The CUDA kernel takes rows of 1 <= npoint <= N <= 2048 points (the
+    RCNN's pooled rows); a CUDA tensor outside that raises.
+    """
+    if xyz.device.type == "cpu":
+        return furthest_point_sample_plain(xyz, npoint)
+    _build.check_cuda_tensor(xyz, "xyz", torch.float32, 3)
+    R, N, three = xyz.shape
+    if three != 3 or not 1 <= npoint <= N or N > 2048:
+        raise ValueError(f"fps takes (R, N<=2048, 3) and 1 <= npoint <= N, "
+                         f"got {tuple(xyz.shape)} and npoint={npoint}")
+    idx = torch.empty(R, npoint, dtype=torch.int32, device=xyz.device)
+    _build.launch("fps", xyz.data_ptr(), R, N, npoint, idx.data_ptr())
+    return idx
+
+
+def furthest_point_sample_with_3nn_plain(xyz: torch.Tensor, npoint: int):
+    """Plain PyTorch version of the kernel, one pick per loop step."""
+    B = xyz.shape[0]
+    rows = torch.arange(B, device=xyz.device)
+    idx = furthest_point_sample_plain(xyz, npoint)
     picks = xyz[rows[:, None], idx.long()]  # (B, npoint, 3)
     nn_d2, nn_idx = [], []
     for pts in xyz.split(2048, dim=1):  # bounds the (B, chunk, npoint) block

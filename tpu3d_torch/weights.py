@@ -41,10 +41,10 @@ def params_from_jax(params, batch_stats) -> dict[str, torch.Tensor]:
 def seeded_state_dict(model: nn.Module, seed: int) -> dict[str, torch.Tensor]:
     """Random weights for ``model`` from numpy's generator at ``seed``, so a
     seed gives the same weights on every device: He-normal Dense kernels,
-    zero biases, the RPN heads' reference inits for default.yaml's
-    SigmoidFocalLoss (foreground prior 1% on the cls output bias, std 0.001
-    on the reg output kernel),
-    and BatchNorm statistics drawn away from the identity."""
+    zero biases, the heads' reference inits (std 0.001 on both reg output
+    kernels; a foreground prior of 1% on the RPN cls output bias, for
+    default.yaml's SigmoidFocalLoss, while the RCNN's starts at 0), and
+    BatchNorm statistics drawn away from the identity."""
     rng = np.random.default_rng(seed)
     out = {}
     for name, t in model.state_dict().items():
@@ -53,7 +53,7 @@ def seeded_state_dict(model: nn.Module, seed: int) -> dict[str, torch.Tensor]:
             std = 0.001 if name.endswith("reg_head.out.weight") \
                 else np.sqrt(2.0 / shape[1])
             v = rng.normal(0.0, std, shape)
-        elif name.endswith("cls_head.out.bias"):
+        elif name == "rpn.cls_head.out.bias":
             v = np.full(shape, -np.log((1 - 0.01) / 0.01))
         elif name.endswith(".scale"):
             v = rng.uniform(0.8, 1.2, shape)
