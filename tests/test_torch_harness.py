@@ -68,30 +68,42 @@ def test_shipped_config_builds_the_joint_model():
 
 def test_plain_versions_count_no_launches():
     """Only a kernel launch adds to the counts: the plain versions, taken
-    for CPU tensors, leave them alone."""
+    for CPU tensors, leave them alone, forward and backward."""
     _build.reset_launches()
     xyz = torch.rand(1, 256, 3)
     _, d2, idx = furthest_point_sample_with_3nn(xyz, 64)
     nearest_k(xyz[:, :32].contiguous(), xyz, 16, max_radius=0.5)
-    three_interpolate(torch.rand(1, 64, 8), idx, torch.rand(1, 256, 3))
+    feats = torch.rand(1, 64, 8, requires_grad=True)
+    weight = torch.rand(1, 256, 3, requires_grad=True)
+    three_interpolate(feats, idx, weight).sum().backward()
     picks = furthest_point_sample(xyz, 32)
-    fused_gathered_mlp_pool(
-        torch.rand(1, 256, 8), idx[:, :32].contiguous(), torch.rand(1, 32, 8),
-        torch.rand(8, 128), torch.rand(128), torch.rand(128, 128),
-        torch.rand(128))
+    args = [torch.rand(1, 256, 8), idx[:, :32].contiguous(),
+            torch.rand(1, 32, 8), torch.rand(8, 128), torch.rand(128),
+            torch.rand(128, 128), torch.rand(128)]
+    with torch.no_grad():
+        fused_gathered_mlp_pool(*args)
+    for i in (0, 2, 3, 4, 5, 6):
+        args[i].requires_grad_()
+    fused_gathered_mlp_pool(*args).sum().backward()
     assert picks.shape == (1, 32)
-    assert _build.LAUNCHES == {"fps3nn": 0, "nearest_k": 0,
-                               "three_interpolate": 0, "fps": 0,
-                               "fused_sa": 0}
+    assert feats.grad is not None and weight.grad is not None
+    assert all(args[i].grad is not None for i in (0, 2, 3, 4, 5, 6))
+    assert set(_build.LAUNCHES) == {
+        "fps3nn", "nearest_k", "three_interpolate", "three_interpolate_bwd",
+        "fps", "fused_sa", "fused_sa_train", "fused_sa_bwd"}
+    assert not any(_build.LAUNCHES.values()), _build.LAUNCHES
 
 
 def test_kernel_library_names_follow_sources():
-    """A kernel library's file name carries a hash of its source, so an
-    edited source is rebuilt rather than a stale library loaded."""
-    names = {name: _build._lib_path(name).name for name in _build.KERNELS}
+    """A kernel library's file name carries a hash of its source (and of
+    the shared headers), so an edited source is rebuilt rather than a
+    stale library loaded; every source in csrc/ has its library, and every
+    kernel's entry lies in one of them."""
+    names = {src: _build._lib_path(src).name for src in _build.SOURCES}
     assert set(names) == {p.stem for p in _build.CSRC.glob("*.cu")}
-    for name, lib in names.items():
-        assert lib.startswith(name + "-") and lib.endswith(".so")
+    for src, lib in names.items():
+        assert lib.startswith(src + "-") and lib.endswith(".so")
+    assert {src for src, _, _ in _build.KERNELS.values()} == set(names)
 
 
 def test_config_copy_matches_tpu3d():

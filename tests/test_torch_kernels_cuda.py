@@ -15,9 +15,14 @@ from tpu3d_torch.ops import (furthest_point_sample,
                              fused_gathered_mlp_pool, nearest_k,
                              three_interpolate)
 from tpu3d_torch.ops import _build
-from tpu3d_torch.ops.fused_sa import fused_gathered_mlp_pool_plain
+from tpu3d_torch.ops.fused_sa import (
+    fused_gathered_mlp_pool_backward, fused_gathered_mlp_pool_backward_plain,
+    fused_gathered_mlp_pool_plain, fused_gathered_mlp_pool_train,
+    fused_gathered_mlp_pool_train_plain)
 from tpu3d_torch.ops.grouping import nearest_k_plain
-from tpu3d_torch.ops.interpolate import three_interpolate_plain
+from tpu3d_torch.ops.interpolate import (three_interpolate_backward,
+                                         three_interpolate_backward_plain,
+                                         three_interpolate_plain)
 from tpu3d_torch.ops.sampling import (furthest_point_sample_plain,
                                       furthest_point_sample_with_3nn_plain)
 
@@ -38,9 +43,24 @@ def _pooled_rows(rng, rows, n):
     return xyz.astype(np.float32)
 
 
+def _fused_inputs(r, c3, n=512, m=128, s=64, c1=128, c2=128, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    pre = randn(r, n, c1)
+    idx = torch.randint(0, n, (r, m, s), generator=g, device="cuda",
+                        dtype=torch.int32)
+    return (pre, idx, randn(r, m, c1), randn(c1, c2, scale=c1 ** -0.5),
+            randn(c2, scale=0.1), randn(c2, c3, scale=c2 ** -0.5),
+            randn(c3, scale=0.1))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["fps3nn", "nearest_k", "three_interpolate",
-                                  "fps", "fused_sa"])
+                                  "fps", "fused_sa", "three_interpolate_bwd",
+                                  "fused_sa_train", "fused_sa_bwd"])
 def test_kernels_match_plain_on_cuda(name):
     """Each CUDA kernel against its plain version on the card."""
     if not torch.cuda.is_available():
@@ -64,6 +84,44 @@ def test_kernels_match_plain_on_cuda(name):
             torch.testing.assert_close(
                 furthest_point_sample(rows, npoint),
                 furthest_point_sample_plain(rows, npoint), rtol=0, atol=0)
+    elif name == "fused_sa_train":
+        # out equal to the eval kernel's to the bit, the first-argmax slots
+        # equal to the plain version's (random ids repeat within a group)
+        for c3 in (128, 256):
+            args = _fused_inputs(8, c3)
+            out, arg, ppre = fused_gathered_mlp_pool_train(*args)
+            torch.testing.assert_close(out, fused_gathered_mlp_pool(*args),
+                                       rtol=0, atol=0)
+            ref = fused_gathered_mlp_pool_train_plain(*args)
+            tol = 1e-4 * ref[0].abs().max().item()
+            torch.testing.assert_close(out, ref[0], rtol=0, atol=tol)
+            agree = (arg == ref[1]).float().mean().item()
+            assert agree > 0.999, agree  # near-ties may flip in f32
+            torch.testing.assert_close(ppre, ref[2], rtol=0, atol=tol)
+    elif name == "fused_sa_bwd":
+        # the six gradients within 1e-4 of each one's largest value; the
+        # plain version's own argmax routes the gradient in both
+        for c3 in (128, 256):
+            args = _fused_inputs(8, c3, seed=1)
+            grad = torch.randn(8, 128, c3, device="cuda")
+            _, arg, ppre = fused_gathered_mlp_pool_train_plain(*args)
+            got = fused_gathered_mlp_pool_backward(*args, grad, arg, ppre)
+            ref = fused_gathered_mlp_pool_backward_plain(*args, grad)
+            for g_, r_ in zip(got, ref):
+                tol = 1e-4 * r_.abs().max().item()
+                torch.testing.assert_close(g_, r_, rtol=0, atol=tol)
+    elif name == "three_interpolate_bwd":
+        # atomics add in another order: within 1e-5 of the largest value
+        feats = torch.randn(2, 1024, 256, device="cuda")
+        idx = torch.randint(0, 1024, (2, 4096, 3), device="cuda",
+                            dtype=torch.int32)
+        w = torch.rand(2, 4096, 3, device="cuda")
+        grad = torch.randn(2, 4096, 256, device="cuda")
+        got = three_interpolate_backward(feats, idx, w, grad)
+        ref = three_interpolate_backward_plain(feats, idx, w, grad)
+        for g_, r_ in zip(got, ref):
+            tol = 1e-5 * r_.abs().max().item()
+            torch.testing.assert_close(g_, r_, rtol=0, atol=tol)
     elif name == "fused_sa":
         # f32 sums in another order: within 1e-4 of the largest value
         for c3 in (128, 256):

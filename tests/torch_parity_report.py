@@ -24,6 +24,8 @@ from test_torch_rcnn import run_joint  # noqa: E402
 from test_torch_rcnn_ops import (_boxes5, _pooled_rows,  # noqa: E402
                                  _scene_and_rois)
 from test_torch_rpn import run_pair  # noqa: E402
+import test_torch_train as tt  # noqa: E402
+import test_torch_train_ops as to  # noqa: E402
 from tpu3d.ops import furthest_point_sample_with_3nn as jax_fps3nn  # noqa
 from tpu3d.ops import three_interpolate as jax_three_interpolate  # noqa
 from tpu3d.ops.fused_sa import fused_gathered_mlp_pool as jax_fused  # noqa
@@ -127,6 +129,54 @@ def rcnn_report():
           f"{np.abs(got['final_scores'].numpy() - jdec['final_scores']).max():.3e}")
 
 
+def _tree_err(ours, ref):
+    """(largest abs difference over the leaves, largest abs value)."""
+    a, b = dict(tt._flat(ours)), dict(tt._flat(ref))
+    return (max(np.abs(a[k] - v).max() for k, v in b.items()),
+            max(np.abs(v).max() for v in b.values()))
+
+
+def train_report():
+    """The training pieces and the whole-network gradients, on the inputs
+    of tests/test_torch_train_ops.py and tests/test_torch_train.py."""
+    feats, idx, w, g = to._interp_case(0)
+    _, df, dw = to._port_interp_grads(feats, idx, w, g)
+    _, vjp = jax.vjp(lambda f, wt: jax_three_interpolate(
+        f, jnp.asarray(idx), wt), jnp.asarray(feats), jnp.asarray(w))
+    jdf, jdw = vjp(jnp.asarray(g))
+    print(f"three_interpolate backward (256 x 128 -> 264): d_features max "
+          f"abs {np.abs(df - np.asarray(jdf)).max():.3e}, d_weight "
+          f"{np.abs(dw - np.asarray(jdw)).max():.3e}")
+
+    for shape in to.FUSED_SHAPES:
+        args, gr = to._fused_case(4, shape, ties=True)
+        _, grads = to._port_fused_grads(args, gr)
+        pre, idx, center, w1, b1, w2, b2 = args
+        chain = to._jax_ref_chain(idx)
+        jgrads = jax.grad(lambda *a: jnp.sum(chain(*a) * jnp.asarray(gr)),
+                          argnums=tuple(range(6)))(
+            *(jnp.asarray(a) for a in (pre, center, w1, b1, w2, b2)))
+        errs = ", ".join(
+            f"{n} {np.abs(a - np.asarray(b)).max():.2e} (of "
+            f"{np.abs(np.asarray(b)).max():.2e})"
+            for n, a, b in zip(("d_pre", "d_center", "dW1", "db1", "dW2",
+                                "db2"), grads, jgrads))
+        print(f"fused op training gradients {shape}: {errs}")
+
+    case = tt.rpn_case.__wrapped__()
+    loss, grads, stats, jloss, jgrads, jstats, _ = case
+    err, top = _tree_err(grads, jgrads)
+    serr, _ = _tree_err(stats, jstats)
+    print(f"RPN train-mode gradients, f64 (_tiny_cfg 1024 points): loss "
+          f"{abs(loss - jloss):.3e} (of {jloss:.3e}), gradients max abs "
+          f"{err:.3e} (largest {top:.3e}), running stats {serr:.3e}")
+    loss, grads, jloss, jgrads, _ = tt.rcnn_case.__wrapped__()
+    err, top = _tree_err(grads, jgrads)
+    print(f"RCNN gradients on tpu3d's sampled targets, f32: loss "
+          f"{abs(loss - jloss):.3e} (of {jloss:.3e}), gradients max abs "
+          f"{err:.3e} (largest {top:.3e})")
+
+
 def main():
     rng = np.random.default_rng(4096)
     xyz = rng.uniform([-30, -1, 0], [30, 3, 70], (2, 4096, 3)).astype(
@@ -174,6 +224,7 @@ def main():
               f"mismatches {(tout['roi_valid'] != jout['roi_valid']).sum()}, "
               f"valid {int(jout['roi_valid'].sum())}/{valid.size}")
     rcnn_report()
+    train_report()
 
 
 if __name__ == "__main__":

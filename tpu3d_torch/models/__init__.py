@@ -1,4 +1,4 @@
-"""tpu3d_torch.models — PointRCNN's RPN eval path in PyTorch."""
+"""tpu3d_torch.models — PointRCNN in PyTorch, at eval and in training."""
 
 from .point_rcnn import PointRCNN
 from .proposal import proposal_layer

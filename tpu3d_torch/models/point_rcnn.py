@@ -1,11 +1,16 @@
-"""PointRCNN in eval mode (counterpart of ``tpu3d/models/point_rcnn.py``).
+"""PointRCNN, at eval and in training (counterpart of
+``tpu3d/models/point_rcnn.py``).
 
 Two branches, as in the JAX package. With ``RCNN.ENABLED`` (the joint mode
 of configs/default.yaml): the RPN forward, proposal decode and
-distance-banded NMS, then ROI pooling of the backbone points and features,
-the canonical transform and the RCNN refinement. Without it: the RPN-only
-branch, which ends at the proposals and the per-point segmentation mask.
-RCNN-offline mode and training are not ported yet.
+distance-banded NMS, then, at eval, ROI pooling of the backbone points and
+features with the canonical transform, or, in training, the proposal
+target layer (ROI sampling, jitter, pooling, augmentation, labels); then
+the RCNN refinement on the detached RPN outputs. Without it: the RPN-only
+branch, which ends at the proposals and the per-point segmentation mask
+at eval and at the RPN's outputs in training. With ``RPN.FIXED`` the RPN
+runs in eval mode and its outputs are detached. RCNN-offline mode is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from ..device import resolve_device
 from ..ops.box_geometry import rotate_points_along_y
 from ..ops.roipool import roipool3d
 from .proposal import proposal_layer
+from .proposal_target import proposal_target_layer
 from .rcnn import RCNNNet
 from .rpn import RPN
 
@@ -41,7 +47,8 @@ def rcnn_extra_features(cfg, rpn_scores_raw: torch.Tensor,
 
 class PointRCNN(nn.Module):
     """The detector on ``device`` (default ``cuda``; raises without a card
-    unless the caller passes ``device="cpu"``)."""
+    unless the caller passes ``device="cpu"``). ``mode`` picks the proposal
+    layer's settings (``cfg.TRAIN`` or ``cfg.TEST``)."""
 
     def __init__(self, cfg, mode: str = "TEST", device=None):
         super().__init__()
@@ -49,8 +56,6 @@ class PointRCNN(nn.Module):
         if not c.RPN.ENABLED:
             raise NotImplementedError(
                 "RCNN-offline mode (RPN.ENABLED False) is not ported yet")
-        if mode == "TRAIN":
-            raise NotImplementedError("training is not ported yet")
         if c.RCNN.ENABLED and c.RCNN.USE_INTENSITY:
             raise NotImplementedError(
                 "RCNN.USE_INTENSITY needs the loader's intensity channel, "
@@ -61,7 +66,6 @@ class PointRCNN(nn.Module):
         self.rpn = RPN(c, device=dev)
         if c.RCNN.ENABLED:
             self.rcnn_net = RCNNNet(c, device=dev)
-        self.eval()
 
     @torch.no_grad()
     def pool_rois(self, backbone_xyz, backbone_features, rpn_scores_raw,
@@ -96,8 +100,51 @@ class PointRCNN(nn.Module):
         out["seg_result"] = seg_mask
         return out
 
+    def forward(self, input_dict: dict, train: bool = False,
+                bn_momentum: float = 0.9,
+                generator: torch.Generator | None = None) -> dict:
+        """``input_dict["pts_input"]`` (B, N, 3) -> the output dict. In
+        training (``train``) also ``input_dict["gt_boxes3d"]`` (B, G, 7),
+        zero-padded; BatchNorm takes the batch's statistics and updates its
+        running ones with ``bn_momentum`` (flax's convention), and dropout
+        and the proposal target layer draw from ``generator``."""
+        if train:
+            return self._forward_train(input_dict, bn_momentum, generator)
+        return self._forward_eval(input_dict)
+
+    def _forward_train(self, input_dict, bn_momentum, generator) -> dict:
+        c = self.cfg
+        pts = input_dict["pts_input"]
+        if c.RPN.FIXED:
+            with torch.no_grad():
+                output = dict(self.rpn(pts))
+        else:
+            output = dict(self.rpn(pts, True, bn_momentum, generator))
+        if not c.RCNN.ENABLED:
+            return output
+        # the RCNN's inputs carry no gradient back into the RPN, as in the
+        # reference's no_grad blocks
+        with torch.no_grad():
+            xyz = output["backbone_xyz"]
+            scores = output["rpn_cls"][:, :, 0]
+            rois, roi_scores_raw, roi_valid = proposal_layer(
+                scores, output["rpn_reg"], xyz, c, self.mode)
+            extra, seg_mask = rcnn_extra_features(c, scores, xyz)
+            pts_feature = torch.cat(
+                [extra, output["backbone_features"]], dim=-1)
+            target = proposal_target_layer(
+                generator, rois, roi_valid, input_dict["gt_boxes3d"], xyz,
+                pts_feature, c, aug_data=c.AUG_DATA)
+        output.update(target)
+        output.update({"rois": rois, "roi_scores_raw": roi_scores_raw,
+                       "roi_valid": roi_valid, "seg_result": seg_mask})
+        output.update(self.rcnn_net(target["sampled_pts"],
+                                    target["pts_feature"], True, bn_momentum,
+                                    generator))
+        return output
+
     @torch.no_grad()
-    def forward(self, input_dict: dict) -> dict:
+    def _forward_eval(self, input_dict: dict) -> dict:
         c = self.cfg
         output = dict(self.rpn(input_dict["pts_input"]))
         rpn_scores_raw = output["rpn_cls"][:, :, 0]

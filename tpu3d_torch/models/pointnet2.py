@@ -1,11 +1,13 @@
-"""PointNet++ set abstraction and feature propagation in eval mode
-(counterpart of ``tpu3d/models/pointnet2.py``): the RPN's MSG backbone and
-the RCNN's single-scale levels.
+"""PointNet++ set abstraction and feature propagation (counterpart of
+``tpu3d/models/pointnet2.py``): the RPN's MSG backbone and the RCNN's
+single-scale levels, at eval and in training.
 
 Channels-last like the JAX package: features are (B, N, C), xyz (B, N, 3).
 Submodules carry the flax names (``sa_0.mlp_1.dense_0``, ``bn_0`` ...), so
-``weights.params_from_jax`` maps the two trees one to one. Only inference is
-ported: BatchNorm always normalises with its running statistics.
+``weights.params_from_jax`` maps the two trees one to one. Every module
+takes ``train`` and ``bn_momentum``: at eval BatchNorm normalises with its
+running statistics, in training with the batch's, and updates the running
+ones with the momentum given at run time.
 
 Grouping follows the JAX package's eval path. Every SA level runs one
 nearest-k search shared by its radii, and each radius takes a prefix of it
@@ -34,9 +36,16 @@ from ..ops import (ball_query, ball_query_from_nearest,
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over the last axis from running statistics,
-    folded into one per-channel affine as in the JAX package:
-    x·(scale/√(var+ε)) + (bias − mean·scale/√(var+ε))."""
+    """BatchNorm over the last axis (tpu3d's ``BatchNorm``).
+
+    At eval, from the running statistics, folded into one per-channel
+    affine as in the JAX package: x·(scale/√(var+ε)) + (bias −
+    mean·scale/√(var+ε)). In training, from the batch's statistics over
+    every other axis, with the biased variance E[x²] − mean², and the
+    running statistics updated in place to m·running + (1 − m)·batch, where
+    ``momentum`` m follows flax's convention (PyTorch's momentum is 1 − m)
+    and the running variance takes the biased batch variance, as tpu3d's
+    does (``torch.nn.BatchNorm`` would take the unbiased one)."""
 
     def __init__(self, features: int, eps: float = 1e-5, device=None):
         super().__init__()
@@ -46,10 +55,20 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features, device=device))
         self.register_buffer("var", torch.ones(features, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        inv = torch.rsqrt(self.var + self.eps)
-        mul = inv * self.scale
-        return x * mul + (self.bias - self.mean * mul)
+    def forward(self, x: torch.Tensor, train: bool = False,
+                momentum: float = 0.9) -> torch.Tensor:
+        if not train:
+            inv = torch.rsqrt(self.var + self.eps)
+            mul = inv * self.scale
+            return x * mul + (self.bias - self.mean * mul)
+        axes = tuple(range(x.dim() - 1))
+        mean = x.mean(dim=axes)
+        var = (x * x).mean(dim=axes) - mean * mean
+        with torch.no_grad():
+            self.mean.copy_(momentum * self.mean + (1 - momentum) * mean)
+            self.var.copy_(momentum * self.var + (1 - momentum) * var)
+        inv = torch.rsqrt(var + self.eps)
+        return ((x - mean) * inv) * self.scale + self.bias
 
 
 class SharedMLP(nn.Module):
@@ -68,14 +87,15 @@ class SharedMLP(nn.Module):
             in_channels = ch
 
     def forward(self, x: torch.Tensor | None,
-                pre0: torch.Tensor | None = None) -> torch.Tensor:
+                pre0: torch.Tensor | None = None, train: bool = False,
+                bn_momentum: float = 0.9) -> torch.Tensor:
         """``pre0``, when given, is layer 0's pre-activation, computed by
         the caller with ``dense_0`` (``x`` is then ignored)."""
         for i in range(self.n):
             x = pre0 if (i == 0 and pre0 is not None) else \
                 getattr(self, f"dense_{i}")(x)
             if self.bn:
-                x = getattr(self, f"bn_{i}")(x)
+                x = getattr(self, f"bn_{i}")(x, train, bn_momentum)
             x = torch.relu(x)
         return x
 
@@ -96,7 +116,8 @@ class PointnetSAModuleMSG(nn.Module):
                                                   device=device))
 
     def forward(self, xyz: torch.Tensor, features: torch.Tensor | None,
-                new_xyz: torch.Tensor) -> torch.Tensor:
+                new_xyz: torch.Tensor, train: bool = False,
+                bn_momentum: float = 0.9) -> torch.Tensor:
         """xyz (B, N, 3), features (B, N, C) or None, new_xyz (B, npoint, 3)
         -> (B, npoint, ΣC_out)."""
         B, N, _ = xyz.shape
@@ -121,7 +142,7 @@ class PointnetSAModuleMSG(nn.Module):
                                     xyz[:, 0][:, None, None, :])
                 grouped = (torch.where(hit[..., None], c_xyz, first)
                            - new_xyz[:, :, None, :])
-                out = mlp(grouped)
+                out = mlp(grouped, train=train, bn_momentum=bn_momentum)
             else:
                 idx = ball_query_from_nearest(d2, cand, radius, nsample, N)
                 dense0 = mlp.dense_0
@@ -129,7 +150,7 @@ class PointnetSAModuleMSG(nn.Module):
                 # the center term W_x@c carries none
                 x = group_points(dense0(inp), idx)
                 x = x - (new_xyz @ dense0.weight[:, :3].T)[:, :, None, :]
-                out = mlp(None, pre0=x)
+                out = mlp(None, pre0=x, train=train, bn_momentum=bn_momentum)
             outs.append(out.amax(dim=2))
         return torch.cat(outs, dim=-1)
 
@@ -160,12 +181,14 @@ class PointnetSAModule(nn.Module):
         center = new_xyz @ dense0.weight[:, :3].T
         return new_xyz, pre, idx, center
 
-    def forward(self, xyz: torch.Tensor, features: torch.Tensor):
+    def forward(self, xyz: torch.Tensor, features: torch.Tensor,
+                train: bool = False, bn_momentum: float = 0.9):
         """xyz (B, N, 3), features (B, N, C) -> (new_xyz (B, npoint, 3), or
         None for GroupAll, and features (B, npoint or 1, C_out))."""
         if self.npoint is None:
             grouped = torch.cat([xyz, features], dim=-1)[:, None]
-            return None, self.mlp_0(grouped).amax(dim=2)
+            return None, self.mlp_0(grouped, train=train,
+                                    bn_momentum=bn_momentum).amax(dim=2)
         new_xyz, pre, idx, center = self.group_inputs(xyz, features)
         if self.fused:
             m = self.mlp_0
@@ -175,7 +198,8 @@ class PointnetSAModule(nn.Module):
                 m.dense_2.bias)
         else:
             x = group_points(pre, idx) - center[:, :, None, :]
-            out = self.mlp_0(None, pre0=x).amax(dim=2)
+            out = self.mlp_0(None, pre0=x, train=train,
+                             bn_momentum=bn_momentum).amax(dim=2)
         return new_xyz, out
 
 
@@ -190,13 +214,17 @@ class PointnetFPModule(nn.Module):
         self.mlp = SharedMLP(in_channels, mlp, bn=bn, device=device)
 
     def forward(self, unknown_feats: torch.Tensor | None,
-                known_feats: torch.Tensor, cached_nn) -> torch.Tensor:
+                known_feats: torch.Tensor, cached_nn, train: bool = False,
+                bn_momentum: float = 0.9) -> torch.Tensor:
         d2, idx = cached_nn
-        weight = interpolation_weights(torch.sqrt(torch.clamp(d2, min=0.0)))
+        # the weights are constants of the coordinates, as in tpu3d
+        # (pointnet2.py:504): no gradient flows into them
+        weight = interpolation_weights(
+            torch.sqrt(torch.clamp(d2, min=0.0))).detach()
         x = three_interpolate(known_feats, idx, weight)
         if unknown_feats is not None:
             x = torch.cat([x, unknown_feats], dim=-1)
-        return self.mlp(x)
+        return self.mlp(x, train=train, bn_momentum=bn_momentum)
 
 
 class Pointnet2MSG(nn.Module):
@@ -220,7 +248,8 @@ class Pointnet2MSG(nn.Module):
             self.add_module(f"fp_{i}", PointnetFPModule(
                 known_c + level_c[i], fp_mlps[i], bn=bn, device=device))
 
-    def forward(self, pts_input: torch.Tensor):
+    def forward(self, pts_input: torch.Tensor, train: bool = False,
+                bn_momentum: float = 0.9):
         """(B, N, 3 + C) -> (xyz (B, N, 3), features (B, N, C_fp0))."""
         xyz = pts_input[..., 0:3].contiguous()
         features = (pts_input[..., 3:].contiguous()
@@ -234,9 +263,10 @@ class Pointnet2MSG(nn.Module):
             new_xyz = gather_points(l_xyz[k], fps_idx)
             cached_nn.append((nn_d2, nn_idx))
             l_features.append(getattr(self, f"sa_{k}")(
-                l_xyz[k], l_features[k], new_xyz))
+                l_xyz[k], l_features[k], new_xyz, train, bn_momentum))
             l_xyz.append(new_xyz)
         for i in range(self.n_fp - 1, -1, -1):
             l_features[i] = getattr(self, f"fp_{i}")(
-                l_features[i], l_features[i + 1], cached_nn[i])
+                l_features[i], l_features[i + 1], cached_nn[i], train,
+                bn_momentum)
         return l_xyz[0], l_features[0]

@@ -1,5 +1,5 @@
-"""RCNN refinement head in eval mode (counterpart of
-``tpu3d/models/rcnn.py``; reference: lib/net/rcnn_net.py).
+"""RCNN refinement head (counterpart of ``tpu3d/models/rcnn.py``;
+reference: lib/net/rcnn_net.py).
 
 Input is each ROI's pooled points in the ROI's canonical frame: xyz
 (R, K, 3) and the rest (R, K, C_extra + C_rpn), where the first C_extra
@@ -46,29 +46,38 @@ class RCNNNet(nn.Module):
             channel_in = sa.MLPS[k][-1]
         cls_c = 1 if num_classes == 2 else num_classes
         self.cls_head = HeadMLP(channel_in, c.CLS_FC, cls_c, use_bn=c.USE_BN,
-                                device=device)
+                                dp_ratio=c.DP_RATIO, device=device)
         n_reg = reg_channels(c.LOC_SCOPE, c.LOC_BIN_SIZE, c.NUM_HEAD_BIN,
                              get_xz_fine=True, get_y_by_bin=c.LOC_Y_BY_BIN,
                              loc_y_scope=c.LOC_Y_SCOPE,
                              loc_y_bin_size=c.LOC_Y_BIN_SIZE)
         self.reg_head = HeadMLP(channel_in, c.REG_FC, n_reg, use_bn=c.USE_BN,
-                                device=device)
+                                dp_ratio=c.DP_RATIO, device=device)
 
-    def point_features(self, xyz: torch.Tensor,
-                       rest: torch.Tensor) -> torch.Tensor:
+    def point_features(self, xyz: torch.Tensor, rest: torch.Tensor,
+                       train: bool = False,
+                       bn_momentum: float = 0.9) -> torch.Tensor:
         """(R, K, 3), (R, K, C) -> the SA levels' input features (R, K, C')."""
         if not self.use_rpn_features:
             return rest
-        xyz_feature = self.xyz_up(torch.cat([xyz, rest[..., :self.n_ext]], -1))
+        xyz_feature = self.xyz_up(
+            torch.cat([xyz, rest[..., :self.n_ext]], -1), train=train,
+            bn_momentum=bn_momentum)
         return self.merge_down(
-            torch.cat([xyz_feature, rest[..., self.n_ext:]], dim=-1))
+            torch.cat([xyz_feature, rest[..., self.n_ext:]], dim=-1),
+            train=train, bn_momentum=bn_momentum)
 
-    def forward(self, xyz: torch.Tensor, rest: torch.Tensor) -> dict:
+    def forward(self, xyz: torch.Tensor, rest: torch.Tensor,
+                train: bool = False, bn_momentum: float = 0.9,
+                generator: torch.Generator | None = None) -> dict:
         """xyz (R, K, 3), rest (R, K, C) -> rcnn_cls (R, 1), rcnn_reg
-        (R, C_reg)."""
-        features = self.point_features(xyz, rest)
+        (R, C_reg). ``train`` only matters to a config with ``USE_BN`` or a
+        non-zero ``DP_RATIO``; default.yaml has neither."""
+        features = self.point_features(xyz, rest, train, bn_momentum)
         for k in range(self.n_sa):
-            xyz, features = getattr(self, f"sa_{k}")(xyz, features)
+            xyz, features = getattr(self, f"sa_{k}")(xyz, features, train,
+                                                     bn_momentum)
         feat = features[:, 0, :]  # the final GroupAll leaves one group
-        return {"rcnn_cls": self.cls_head(feat),
-                "rcnn_reg": self.reg_head(feat)}
+        return {"rcnn_cls": self.cls_head(feat, train, bn_momentum, generator),
+                "rcnn_reg": self.reg_head(feat, train, bn_momentum,
+                                          generator)}

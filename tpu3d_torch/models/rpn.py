@@ -1,4 +1,4 @@
-"""RPN in eval mode: PointNet++ backbone plus per-point classification and
+"""RPN: PointNet++ backbone plus per-point classification and
 bin-regression heads (counterpart of ``tpu3d/models/rpn.py``)."""
 
 from __future__ import annotations
@@ -11,15 +11,28 @@ from .bbox_codec import reg_channels
 from .pointnet2 import BatchNorm, Pointnet2MSG
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """flax's ``Dropout`` in training: keep each element with probability
+    1 − rate, scaled by 1/(1 − rate), the mask drawn from ``generator``
+    (``F.dropout`` takes none)."""
+    if rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device,
+                      dtype=x.dtype) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
 class HeadMLP(nn.Module):
-    """Conv1d tower in eval mode: hidden Dense(+BN)+ReLU layers, then a
-    linear output layer. Dropout is the identity in eval and is left out."""
+    """Conv1d tower: hidden Dense(+BN)+ReLU layers with dropout after the
+    first (in training only), then a linear output layer."""
 
     def __init__(self, in_channels: int, hidden, out_channels: int,
-                 use_bn: bool = True, device=None):
+                 use_bn: bool = True, dp_ratio: float = 0.0, device=None):
         super().__init__()
         self.n = len(hidden)
         self.use_bn = use_bn
+        self.dp_ratio = float(dp_ratio)
         for i, ch in enumerate(hidden):
             self.add_module(f"dense_{i}", nn.Linear(
                 in_channels, ch, bias=not use_bn, device=device))
@@ -28,12 +41,16 @@ class HeadMLP(nn.Module):
             in_channels = ch
         self.out = nn.Linear(in_channels, out_channels, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                bn_momentum: float = 0.9,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         for i in range(self.n):
             x = getattr(self, f"dense_{i}")(x)
             if self.use_bn:
-                x = getattr(self, f"bn_{i}")(x)
+                x = getattr(self, f"bn_{i}")(x, train, bn_momentum)
             x = torch.relu(x)
+            if i == 0 and train:
+                x = dropout(x, self.dp_ratio, generator)
         return self.out(x)
 
 
@@ -52,17 +69,25 @@ class RPN(nn.Module):
             device=device)
         feat_c = c.RPN.FP_MLPS[0][-1]
         self.cls_head = HeadMLP(feat_c, c.RPN.CLS_FC, 1, use_bn=c.RPN.USE_BN,
-                                device=device)
+                                dp_ratio=c.RPN.DP_RATIO, device=device)
         n_reg = reg_channels(c.RPN.LOC_SCOPE, c.RPN.LOC_BIN_SIZE,
                              c.RPN.NUM_HEAD_BIN, c.RPN.LOC_XZ_FINE)
         self.reg_head = HeadMLP(feat_c, c.RPN.REG_FC, n_reg,
-                                use_bn=c.RPN.USE_BN, device=device)
+                                use_bn=c.RPN.USE_BN, dp_ratio=c.RPN.DP_RATIO,
+                                device=device)
 
-    def forward(self, pts_input: torch.Tensor) -> dict:
-        backbone_xyz, backbone_features = self.backbone(pts_input)
+    def forward(self, pts_input: torch.Tensor, train: bool = False,
+                bn_momentum: float = 0.9,
+                generator: torch.Generator | None = None) -> dict:
+        """In training, BatchNorm takes the batch's statistics and the heads
+        draw their dropout masks from ``generator`` (cls head first)."""
+        backbone_xyz, backbone_features = self.backbone(
+            pts_input, train, bn_momentum)
         return {
-            "rpn_cls": self.cls_head(backbone_features),
-            "rpn_reg": self.reg_head(backbone_features),
+            "rpn_cls": self.cls_head(backbone_features, train, bn_momentum,
+                                     generator),
+            "rpn_reg": self.reg_head(backbone_features, train, bn_momentum,
+                                     generator),
             "backbone_xyz": backbone_xyz,
             "backbone_features": backbone_features,
         }

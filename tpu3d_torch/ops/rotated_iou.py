@@ -121,3 +121,19 @@ def boxes_iou3d(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
     vol_a = (boxes_a[:, 3] * boxes_a[:, 4] * boxes_a[:, 5])[:, None]
     vol_b = (boxes_b[:, 3] * boxes_b[:, 4] * boxes_b[:, 5])[None, :]
     return inter3d / torch.clamp(vol_a + vol_b - inter3d, min=1e-8)
+
+
+def boxes_iou3d_aligned(boxes_a: torch.Tensor,
+                        boxes_b: torch.Tensor) -> torch.Tensor:
+    """(..., 7) × (..., 7) -> (...) 3D IoU of each box with its partner,
+    the same arithmetic per pair as ``boxes_iou3d``."""
+    inter_bev = _pair_intersection_area(
+        _box_to_bev_corners(boxes3d_to_bev5(boxes_a)),
+        _box_to_bev_corners(boxes3d_to_bev5(boxes_b)))
+    ymax = torch.minimum(boxes_a[..., 1], boxes_b[..., 1])
+    ymin = torch.maximum(boxes_a[..., 1] - boxes_a[..., 3],
+                         boxes_b[..., 1] - boxes_b[..., 3])
+    inter3d = inter_bev * torch.clamp(ymax - ymin, min=0.0)
+    vol_a = boxes_a[..., 3] * boxes_a[..., 4] * boxes_a[..., 5]
+    vol_b = boxes_b[..., 3] * boxes_b[..., 4] * boxes_b[..., 5]
+    return inter3d / torch.clamp(vol_a + vol_b - inter3d, min=1e-8)

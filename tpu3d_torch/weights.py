@@ -1,5 +1,5 @@
-"""Weights for the port: carried over from the JAX package's flax tree, or
-made from a seed.
+"""Weights for the port: carried over from or to the JAX package's flax
+tree, or made from a seed.
 
 The port's modules carry the flax module names, so a flax path maps to a
 state_dict key by joining with dots: ``rpn/backbone/sa_0/mlp_1/dense_0/kernel``
@@ -36,6 +36,24 @@ def params_from_jax(params, batch_stats) -> dict[str, torch.Tensor]:
     for path, value in _flatten(batch_stats):
         out[".".join(path)] = torch.tensor(value)
     return out
+
+
+def params_to_jax(state_dict) -> tuple[dict, dict]:
+    """The port's ``state_dict`` (or any mapping of its keys to tensors,
+    such as the parameters' gradients) -> flax's ``params`` and
+    ``batch_stats`` trees as nested dicts of numpy arrays: the inverse of
+    ``params_from_jax``."""
+    params, stats = {}, {}
+    for key, value in state_dict.items():
+        *path, leaf = key.split(".")
+        value = value.detach().cpu().numpy()
+        tree = stats if leaf in ("mean", "var") else params
+        if leaf == "weight":
+            leaf, value = "kernel", value.T
+        for p in path:
+            tree = tree.setdefault(p, {})
+        tree[leaf] = value
+    return params, stats
 
 
 def seeded_state_dict(model: nn.Module, seed: int) -> dict[str, torch.Tensor]:
