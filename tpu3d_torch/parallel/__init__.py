@@ -3,9 +3,8 @@
 
 from .train_state import (Optimizer, TrainState, bn_momentum_at_epoch,
                           create_train_state, make_lr_schedule,
-                          make_momentum_schedule, make_train_step,
-                          trainable_parameters)
+                          make_momentum_schedule, make_train_step)
 
 __all__ = ["Optimizer", "TrainState", "bn_momentum_at_epoch",
            "create_train_state", "make_lr_schedule", "make_momentum_schedule",
-           "make_train_step", "trainable_parameters"]
+           "make_train_step"]

@@ -138,8 +138,12 @@ class Optimizer:
         """Clip the parameters' ``.grad`` and update them, with the
         schedules read at ``count`` updates done -> the global norm of the
         gradients before the clip (0-dim tensor). A parameter without a
-        gradient is left as it is."""
-        grads = [p.grad for p in self.params if p.grad is not None]
+        gradient (the fixed RPN in rcnn mode) gets a zero one first, as
+        optax sees it, so weight decay still reaches it."""
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in self.params]
         norm = torch.sqrt(sum((torch.sum(g * g) for g in grads),
                               torch.zeros((), device=self.params[0].device)))
         keep = norm < self.max_norm
@@ -168,19 +172,14 @@ class TrainState:
         return norm
 
 
-def trainable_parameters(cfg, model: torch.nn.Module):
-    """The parameters the configured mode trains: all, but the RPN's when
-    ``RPN.FIXED`` (its parameters and statistics stay as loaded)."""
-    return [p for name, p in model.named_parameters()
-            if not (cfg.RPN.FIXED and name.startswith("rpn."))]
-
-
 def create_train_state(cfg, model: torch.nn.Module, steps_per_epoch: int,
                        total_epochs: int) -> TrainState:
-    """A fresh ``TrainState`` over the model's trainable parameters."""
-    return TrainState(optimizer=Optimizer(
-        cfg, trainable_parameters(cfg, model), steps_per_epoch,
-        total_epochs))
+    """A fresh ``TrainState`` over every parameter of the model, in every
+    mode, as tpu3d's optimizer holds the whole tree: with ``RPN.FIXED`` the
+    RPN gets zero gradients, so only weight decay moves its parameters, and
+    its BatchNorm statistics stay as loaded (it runs in eval mode)."""
+    return TrainState(optimizer=Optimizer(cfg, model.parameters(),
+                                          steps_per_epoch, total_epochs))
 
 
 def bn_momentum_at_epoch(cfg, epoch: int) -> float:
