@@ -18,7 +18,10 @@ and no result line:
    (the RPN's levels, and the RCNN's pooled ROIs of the joint forward, at
    B=2); the training kernels the train step's (B=16: the interpolation's
    backward at the four FP levels, the fused SA op's training forward and
-   backward on the 1024 rows the proposal target layer samples);
+   backward on the 1024 rows the proposal target layer samples); and
+   configs/double.yaml's SA_0 at 32768 points: the train route's long-row
+   FPS (fps_long) and standalone three_nn at B=16, the eval route's
+   FPS+3NN at B=4, each bit for bit;
 4. both eval paths at configs/default.yaml's full width (B=2 scenes of
    16384 points, NPOINTS 4096/1024/256/64, TEST pre/post-NMS 9000/100),
    with seeded weights and planted-cluster scenes, each with every launch
@@ -41,7 +44,15 @@ and no result line:
    the training: the RCNN loss and rcnn_net gradients on the card's
    sampled targets of scene 0, and the RPN's train-mode loss and gradients
    of scene 0 with dropout 0, each against the CPU plain path;
-7. one JSON line of the kernels, then the result line.
+7. configs/double.yaml as shipped (32768 points per scene, the RPN's
+   widths of default.yaml): the joint eval path at B=4, which must launch
+   the five eval kernels (fps3nn once per RPN level, SA_0's through its
+   long-row FPS) and neither three_nn nor fps_long; then the joint train
+   step at B=16 (1 warm-up, 3 timed), whose SA_0 takes the split route and
+   must launch three_nn and fps_long once per step beside the seven kernels
+   of phase 5; then scene 0's SA_0 split route on the card against the CPU
+   plain route, bit for bit;
+8. one JSON line of the kernels, then the result line.
 
 Needs one CUDA card; the kernels have no CPU mode. Imports nothing of JAX
 or of tpu3d.
@@ -62,6 +73,7 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0  # scenes, weights and interpolation features
 BATCH = 2
 TRAIN_BATCH = 16  # the training CLI's default --batch_size
+DOUBLE_BATCH = 4  # configs/double.yaml's eval batch (BASELINE.md)
 DEVICE = "cuda"  # the card
 
 # H100 SXM peaks from NVIDIA's data sheet, at the full 700 W: device memory
@@ -82,6 +94,8 @@ SOURCES = {  # kernel: (source, the TPU kernel it replaces)
                        "tpu3d/ops/fused_sa.py:752"),
     "fused_sa_bwd": ("tpu3d_torch/csrc/fused_sa_bwd.cu",
                      "tpu3d/ops/fused_sa.py:782"),
+    "three_nn": ("tpu3d_torch/csrc/three_nn.cu", "tpu3d/ops/interpolate.py:62"),
+    "fps_long": ("tpu3d_torch/csrc/fps3nn.cu", "tpu3d/ops/sampling.py:73"),
 }
 # the kernels of each path whose launches are counted
 EVAL_KERNELS = ("fps3nn", "nearest_k", "three_interpolate", "fps", "fused_sa")
@@ -90,14 +104,15 @@ TRAIN_KERNELS = ("fps3nn", "nearest_k", "three_interpolate",
                  "fused_sa_bwd")
 RPN_TRAIN_KERNELS = ("fps3nn", "nearest_k", "three_interpolate",
                      "three_interpolate_bwd")
+DOUBLE_TRAIN_KERNELS = TRAIN_KERNELS + ("three_nn", "fps_long")
 # every other function of tpu3d that reaches pl.pallas_call, with its status
 NOT_PORTED = [
     ("tpu3d/ops/fused_sa.py:575/594/604 _nobn_{fwd,eval,bwd}_kernel",
-     "after training: unreached by shipped configs"),
+     "to port next: reached by configs/quickstart.yaml and configs/smoke.yaml"
+     " at RCNN SA_1 (too few source points for the gather kernel)"),
     ("tpu3d/ops/fused_sa.py:158-291 BN chain kernels",
-     "after training: unreached by shipped configs"),
-    ("tpu3d/ops/interpolate.py:62 _three_nn_pallas",
-     "after training: unreached on the main path (FP uses the FPS cache)"),
+     "to port after it: reached only by an RCNN with USE_BN: true, which no "
+     "file in configs/ sets"),
 ]
 
 
@@ -145,6 +160,18 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+class Phases:
+    """Seconds of each phase, printed as it ends."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def done(self, label: str) -> None:
+        now = time.perf_counter()
+        print(f"phase {label}: {now - self.t:.1f} s")
+        self.t = now
 
 
 class Report:
@@ -356,6 +383,90 @@ def rcnn_kernels(report, model, pts):
         with torch.no_grad():
             features = got
         xyz = new_xyz
+
+
+def double_kernels(report, extra, eval_pts, train_pts, npoint):
+    """Phase 3 for configs/double.yaml's SA_0 (32768 points, ``npoint``
+    picks), each bit for bit against its plain version: the split route's
+    long-row FPS and three_nn at the train batch, and the fused route's
+    FPS+3NN at the eval batch (kept apart in ``extra``: the fps3nn row of
+    ``report`` is default.yaml's)."""
+    import torch
+
+    from tpu3d_torch.ops import (furthest_point_sample,
+                                 furthest_point_sample_with_3nn, fused_route,
+                                 gather_points, three_nn, three_nn_plain)
+    from tpu3d_torch.ops.sampling import (
+        furthest_point_sample_plain, furthest_point_sample_with_3nn_plain)
+
+    B, n = train_pts.shape[:2]
+    check(not fused_route(B, n, npoint), "double train SA_0 should split")
+    got = furthest_point_sample(train_pts, npoint)
+    ref = furthest_point_sample_plain(train_pts, npoint)
+    torch.cuda.synchronize()
+    check(torch.equal(got, ref), f"fps_long picks differ at N={n}")
+    ms = cuda_ms(lambda: furthest_point_sample(train_pts, npoint), 5)
+    pms = cuda_ms(lambda: furthest_point_sample_plain(train_pts, npoint), 1)
+    report.add("fps_long", 0.0, ms, pms, None,
+               B * n * 12 + B * npoint * 4, B * (npoint - 1) * n * 10)
+    print(f"fps_long B={B} N={n} npoint={npoint}: {ms:.3f} ms "
+          f"({ms / (npoint - 1) * 1e3:.2f} us per pick), plain {pms:.3f} ms,"
+          f" picks equal")
+
+    known = gather_points(train_pts, got)
+    got = three_nn(train_pts, known)
+    ref = three_nn_plain(train_pts, known)
+    torch.cuda.synchronize()
+    check(torch.equal(got[1], ref[1]), f"three_nn ids differ at N={n}")
+    check(torch.equal(got[0], ref[0]), f"three_nn d² differ at N={n}")
+    del got, ref
+    ms = cuda_ms(lambda: three_nn(train_pts, known), 10)
+    pms = cuda_ms(lambda: three_nn_plain(train_pts, known), 1)
+    lms = cuda_ms(lambda: torch.topk(torch.cdist(train_pts, known), 3, dim=2,
+                                     largest=False), 2)
+    torch.cuda.empty_cache()
+    # per pair 3 sub, 3 mul, 2 add and a compare with the third nearest
+    report.add("three_nn", 0.0, ms, pms, lms,
+               B * n * 12 + B * npoint * 12 + B * n * 24,
+               B * n * npoint * 9)
+    print(f"three_nn B={B} M={n} N={npoint}: {ms:.3f} ms, plain {pms:.3f} "
+          f"ms, cdist+topk {lms:.3f} ms, d² and ids equal")
+
+    b = eval_pts.shape[0]
+    check(fused_route(b, n, npoint), "double eval SA_0 should be fused")
+    got = furthest_point_sample_with_3nn(eval_pts, npoint)
+    ref = furthest_point_sample_with_3nn_plain(eval_pts, npoint)
+    torch.cuda.synchronize()
+    for name, g, r in zip(("picks", "nn_d2", "nn_idx"), got, ref):
+        check(torch.equal(g, r), f"fps3nn {name} differ at N={n}")
+    ms = cuda_ms(lambda: furthest_point_sample_with_3nn(eval_pts, npoint), 5)
+    pms = cuda_ms(lambda: furthest_point_sample_with_3nn_plain(eval_pts,
+                                                               npoint), 1)
+    extra.add("fps3nn", 0.0, ms, pms, None,
+              b * n * 12 + b * npoint * 4 + b * n * 24,
+              b * (npoint - 1) * n * 10 + b * n * npoint * 16)
+    print(f"fps3nn B={b} N={n} npoint={npoint}: {ms:.3f} ms, plain "
+          f"{pms:.3f} ms, picks, nn_d2 and nn_idx equal")
+
+
+def compare_split_on_cpu(pts, npoint):
+    """Scene 0 of the double train batch: the card's split route (run on
+    the whole batch, as the train step does) against the CPU plain route,
+    picks, nn ids and nn_d2 bit for bit."""
+    import torch
+
+    from tpu3d_torch.ops.sampling import fps_then_three_nn
+
+    got = fps_then_three_nn(pts, npoint)
+    t0 = time.perf_counter()
+    ref = fps_then_three_nn(pts[:1].cpu(), npoint)
+    cpu_s = time.perf_counter() - t0
+    differ = {name: int((g[:1].cpu() != r).sum())
+              for name, g, r in zip(("picks", "nn_d2", "nn_idx"), got, ref)}
+    check(not any(differ.values()), f"double SA_0 split route differs "
+          f"between the card and the CPU, entries: {differ}")
+    print(f"double SA_0 split route, card (B={pts.shape[0]}) vs CPU plain on "
+          f"scene 0: picks, nn_d2 and nn_idx equal; CPU {cpu_s:.1f} s")
 
 
 def drive(infer, pts, expect_kernels, label):
@@ -805,6 +916,8 @@ def main() -> int:
     from tpu3d_torch.ops import furthest_point_sample_with_3nn, gather_points
     from tpu3d_torch.tools.eval_rcnn import (make_infer_step,
                                              make_rpn_infer_step)
+
+    phases = Phases()
     from tpu3d_torch.tools.train_rcnn import configure_mode
     from tpu3d_torch.weights import seeded_state_dict
 
@@ -817,6 +930,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
           f"tf32 matmul {torch.backends.cuda.matmul.allow_tf32}, "
           f"cudnn tf32 {torch.backends.cudnn.allow_tf32}")
+    phases.done("1 (card)")
 
     # 2. build
     t0 = time.perf_counter()
@@ -831,6 +945,7 @@ def main() -> int:
                 print(f"  ptxas {name}: {line.strip()}")
     for name in _build.KERNELS:
         _build.kernel(name)
+    phases.done("2 (build)")
 
     # configs/default.yaml as shipped runs the joint path; the RPN-only
     # path is the same model with RCNN off and the RPN's weights
@@ -867,13 +982,29 @@ def main() -> int:
     del target_out
     train_model.load_state_dict(train_state)  # undo the statistics' update
 
+    # configs/double.yaml: default.yaml at 32768 points per scene, so the
+    # same parameter tree and seeded weights; eval at B=4, train at B=16
+    dcfg = cfg_from_file(str(ROOT / "configs" / "double.yaml"), fresh_cfg())
+    DN = dcfg.RPN.NUM_POINTS
+    check(DN == 32768 and dcfg.RCNN.ENABLED,
+          "double.yaml should run 32768 points per scene, RCNN on")
+    dpts = torch.from_numpy(random_scenes(DOUBLE_BATCH, DN, SEED)).to(dev)
+    dtbatch = {k: torch.from_numpy(v).to(dev)
+               for k, v in train_batch(TRAIN_BATCH, DN, SEED).items()}
+    sa0 = dcfg.RPN.SA_CONFIG.NPOINTS[0]
+    phases.done("setup")
+
     # 3. each kernel against its plain version, at its path's shapes
-    report = Report()
+    report, double_report = Report(), Report()
     rpn_kernels(report, cfg, pts)
     rcnn_kernels(report, model, pts)
     interp_bwd_kernels(report, cfg, tbatch["pts_input"])
     fused_train_kernels(report, train_model, target)
     torch.cuda.empty_cache()
+    double_kernels(report, double_report, dpts,
+                   dtbatch["pts_input"][..., :3].contiguous(), sa0)
+    torch.cuda.empty_cache()
+    phases.done("3 (kernels against plain)")
 
     # 4. both paths at full width
     post = cfg.TEST.RPN_POST_NMS_TOP_N
@@ -909,6 +1040,7 @@ def main() -> int:
           f"{rpn_path_ms:.1f} ms/batch; the five kernels {kernels_ms:.1f} ms "
           f"of device time per joint forward; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    phases.done("4 (eval paths)")
 
     # 5. the train step at full width, joint mode, then rpn mode
     torch.cuda.empty_cache()
@@ -931,6 +1063,7 @@ def main() -> int:
                 RPN_TRAIN_KERNELS, "rpn-mode train step", 1)
     del rpn_train_model
     torch.cuda.empty_cache()
+    phases.done("5 (train steps)")
 
     # 6. scene 0 through the plain path on the CPU
     cpu_model = PointRCNN(cfg, mode="TEST", device="cpu")
@@ -966,21 +1099,91 @@ def main() -> int:
     joint["rpn_scores_raw"] = joint["rpn_cls"][..., 0]
     compare_rcnn_on_cpu(cfg, model, cpu_model, joint)
     compare_train_on_cpu(cfg, train_model, target, tbatch)
+    del model, rpn_model, train_model, cpu_model, joint, target, tbatch
+    torch.cuda.empty_cache()
+    phases.done("6 (card against CPU)")
 
-    # 7. kernels line and result line: launches from the path each kernel
-    # was timed at (per joint eval forward, or per joint train step)
+    # 7. configs/double.yaml: the joint eval path at B=4, the joint train
+    # step at B=16, and scene 0's split route against the CPU
+    dmodel = PointRCNN(dcfg, mode="TEST", device=dev)
+    dmodel.load_state_dict(state)
+    torch.cuda.reset_peak_memory_stats()
+    dout, dlaunches, dpath_ms = drive(make_infer_step(dmodel, dcfg), dpts,
+                                      EVAL_KERNELS, "double joint")
+    n_levels = len(dcfg.RPN.SA_CONFIG.NPOINTS)
+    check(dlaunches["fps3nn"] == n_levels,
+          f"double eval launched fps3nn {dlaunches['fps3nn']} times, "
+          f"expected once per RPN level ({n_levels})")
+    check(dlaunches["three_nn"] == 0 and dlaunches["fps_long"] == 0,
+          "double eval should take the fused route at every level")
+    dpost = dcfg.TEST.RPN_POST_NMS_TOP_N
+    check_outputs(dout, {
+        "final_boxes": (DOUBLE_BATCH, 100, 7),
+        "final_scores": (DOUBLE_BATCH, 100),
+        "final_mask": (DOUBLE_BATCH, 100),
+        "pred_boxes3d": (DOUBLE_BATCH, dpost, 7),
+        "rois": (DOUBLE_BATCH, dpost, 7), "roi_valid": (DOUBLE_BATCH, dpost),
+        "seg_result": (DOUBLE_BATCH, DN)})
+    n_valid = int(dout["roi_valid"].sum())
+    n_final = int(dout["final_mask"].sum())
+    check(n_valid > 0, "double eval: no valid roi")
+    check(n_final > 0, "double eval: no final box")
+    print(f"double joint path: B={DOUBLE_BATCH} N={DN}: {dpath_ms:.1f} "
+          f"ms/batch, valid rois {n_valid}/{DOUBLE_BATCH * dpost}, final "
+          f"boxes {n_final}/{DOUBLE_BATCH * 100}, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del dmodel, dout
+    torch.cuda.empty_cache()
+
+    dtrain_model = PointRCNN(dcfg, mode="TRAIN", device=dev)
+    dtrain_model.load_state_dict(train_state)
+    torch.cuda.reset_peak_memory_stats()
+    dtb, dtrain_launches, dstep_ms = drive_train(
+        dcfg, dtrain_model, dtbatch, gen, DOUBLE_TRAIN_KERNELS,
+        "double joint train step", 3)
+    dpeak = torch.cuda.max_memory_allocated() / 2**30
+    check(dtrain_launches["three_nn"] == 1 and dtrain_launches["fps_long"] == 1,
+          "the double train step should launch three_nn and fps_long once "
+          "(SA_0's split route)")
+    print(f"double joint train step: B={TRAIN_BATCH} N={DN}: {dstep_ms:.1f} "
+          f"ms/step, peak device memory {dpeak:.2f} GiB; rpn_loss "
+          f"{float(dtb['rpn_loss']):.4f}, rcnn_loss "
+          f"{float(dtb['rcnn_loss']):.4f}")
+    del dtrain_model
+    torch.cuda.empty_cache()
+    compare_split_on_cpu(dtbatch["pts_input"][..., :3].contiguous(), sa0)
+    phases.done("7 (double.yaml)")
+
+    # 8. kernels line and result line: launches from the path each kernel
+    # was timed at (per forward or per train step), and on both double paths
+    runs = {"default.yaml eval B=2": launches,
+            "default.yaml train B=16": train_launches,
+            "double.yaml train B=16": dtrain_launches}
     kernels = []
     for name, r in report.rows.items():
         b_ms, b_by = bound_ms(r["bytes"], r["ops"])
-        path = "eval" if name in EVAL_KERNELS else "train"
-        kernels.append({
+        path = ("double.yaml train B=16" if name in ("three_nn", "fps_long")
+                else "default.yaml eval B=2" if name in EVAL_KERNELS
+                else "default.yaml train B=16")
+        row = {
             "name": name, "route": "cuda", "source": SOURCES[name][0],
-            "replaces": SOURCES[name][1],
-            "launches": (launches if path == "eval" else train_launches)[name],
+            "replaces": SOURCES[name][1], "launches": runs[path][name],
             "path": path, "train_launches": train_launches[name],
+            "double_eval_launches": dlaunches[name],
+            "double_train_launches": dtrain_launches[name],
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": r["lib_ms"],
-            "status": "ported"})
+            "status": "ported"}
+        if name in double_report.rows:  # fps3nn at double eval's SA_0
+            d = double_report.rows[name]
+            d_ms, d_by = bound_ms(d["bytes"], d["ops"])
+            row["at_32768"] = {
+                "path": "double.yaml eval B=4, SA_0",
+                "launches": dlaunches[name], "max_abs_err": d["err"],
+                "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d_ms,
+                "bound_by": d_by, "library_ms": d["lib_ms"]}
+        kernels.append(row)
+    check(len(kernels) == len(SOURCES), f"kernels timed: {len(kernels)}")
     print(json.dumps({"kernels": kernels, "not_ported": [
         {"replaces": rep, "status": st} for rep, st in NOT_PORTED]}))
     print(json.dumps({"ok": True, "device": {

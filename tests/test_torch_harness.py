@@ -15,7 +15,7 @@ from tpu3d_torch.models import PointRCNN
 from tpu3d_torch.ops import (furthest_point_sample,
                              furthest_point_sample_with_3nn,
                              fused_gathered_mlp_pool, nearest_k,
-                             three_interpolate)
+                             three_interpolate, three_nn)
 from tpu3d_torch.ops import _build
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -72,6 +72,8 @@ def test_plain_versions_count_no_launches():
     _build.reset_launches()
     xyz = torch.rand(1, 256, 3)
     _, d2, idx = furthest_point_sample_with_3nn(xyz, 64)
+    furthest_point_sample_with_3nn(xyz[:, :100].contiguous(), 16)  # split
+    three_nn(xyz, xyz[:, :8].contiguous())
     nearest_k(xyz[:, :32].contiguous(), xyz, 16, max_radius=0.5)
     feats = torch.rand(1, 64, 8, requires_grad=True)
     weight = torch.rand(1, 256, 3, requires_grad=True)
@@ -90,7 +92,8 @@ def test_plain_versions_count_no_launches():
     assert all(args[i].grad is not None for i in (0, 2, 3, 4, 5, 6))
     assert set(_build.LAUNCHES) == {
         "fps3nn", "nearest_k", "three_interpolate", "three_interpolate_bwd",
-        "fps", "fused_sa", "fused_sa_train", "fused_sa_bwd"}
+        "fps", "fused_sa", "fused_sa_train", "fused_sa_bwd", "three_nn",
+        "fps_long"}
     assert not any(_build.LAUNCHES.values()), _build.LAUNCHES
 
 

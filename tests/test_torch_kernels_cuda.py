@@ -13,7 +13,7 @@ import torch
 from tpu3d_torch.ops import (furthest_point_sample,
                              furthest_point_sample_with_3nn,
                              fused_gathered_mlp_pool, nearest_k,
-                             three_interpolate)
+                             three_interpolate, three_nn, three_nn_plain)
 from tpu3d_torch.ops import _build
 from tpu3d_torch.ops.fused_sa import (
     fused_gathered_mlp_pool_backward, fused_gathered_mlp_pool_backward_plain,
@@ -147,4 +147,39 @@ def test_kernels_match_plain_on_cuda(name):
         torch.testing.assert_close(three_interpolate(feats, idx, w),
                                    three_interpolate_plain(feats, idx, w),
                                    rtol=1e-6, atol=1e-6)
+    assert _build.LAUNCHES[name] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["three_nn", "fps_long", "fps3nn"])
+def test_long_row_kernels_match_plain_on_cuda(name):
+    """The kernels of configs/double.yaml's SA_0 (32768 points per scene)
+    against their plain versions on the card, bit for bit: three_nn of
+    every point to 4096 known points (also with repeated known points,
+    whose ties go to the lowest index), the long-row FPS alone (also at
+    sizes that one block or uneven cluster halves take), and FPS+3NN."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    rng = np.random.default_rng(4)
+    xyz = torch.from_numpy(_cloud(rng, 2, 32768)).cuda()
+    _build.reset_launches()
+    if name == "three_nn":
+        known = xyz[:, ::8].contiguous()
+        repeated = known[:, torch.arange(4096, device="cuda") % 1000]
+        for k in (known, repeated.contiguous(), known[:, :5].contiguous()):
+            got = three_nn(xyz, k)
+            ref = three_nn_plain(xyz, k)
+            for g, r in zip(got, ref):
+                torch.testing.assert_close(g, r, rtol=0, atol=0)
+    elif name == "fps_long":
+        for n, npoint in ((32768, 4096), (30001, 1000), (5000, 700)):
+            x = xyz[:, :n].contiguous()
+            torch.testing.assert_close(furthest_point_sample(x, npoint),
+                                       furthest_point_sample_plain(x, npoint),
+                                       rtol=0, atol=0)
+    else:
+        got = furthest_point_sample_with_3nn(xyz, 4096)
+        ref = furthest_point_sample_with_3nn_plain(xyz, 4096)
+        for g, r in zip(got, ref):
+            torch.testing.assert_close(g, r, rtol=0, atol=0)
     assert _build.LAUNCHES[name] > 0

@@ -284,47 +284,53 @@ def test_train_step_runs_each_mode(mode):
         assert "rpn_loss" in tb
 
 
-@pytest.mark.parametrize("optimizer", ["adam_onecycle", "adam", "sgd"])
-def test_fixed_rpn_follows_reference_optimizer(optimizer):
-    """rcnn mode: three train steps of the port against tpu3d's
-    make_optimizer chain fed zero gradients for the fixed RPN (its global
-    norm clip scales a zero gradient to zero, so the RCNN's gradients do
-    not enter): every RPN parameter within 1e-6 relative plus 1e-6 of the
-    largest, and the RPN's running statistics exactly as loaded."""
+def fixed_rpn_case(optimizer, steps=3):
+    """rcnn mode: ``steps`` train steps of the port, and tpu3d's
+    make_optimizer chain fed zero gradients for the fixed RPN from the same
+    weights (its global-norm clip scales a zero gradient to zero, so the
+    RCNN's gradients do not enter): (the port's RPN parameters, tpu3d's,
+    the loaded ones, whether the RPN's running statistics are unchanged),
+    the parameters as numpy arrays by state_dict key."""
     jcfg = _tiny_cfg(rcnn=True, points=1024)
     jcfg.TRAIN.OPTIMIZER = optimizer
     cfg = configure_mode(_port_cfg(jcfg), "rcnn")
     model = PointRCNN(cfg, mode="TRAIN", device="cpu")
     model.load_state_dict(seeded_state_dict(model, 24))
-    rpn = {n: p.detach().numpy().copy() for n, p in model.named_parameters()
-           if n.startswith("rpn.")}
+    loaded = {n: p.detach().numpy().copy()
+              for n, p in model.named_parameters() if n.startswith("rpn.")}
     stats = {k: v.clone() for k, v in model.state_dict().items()
-             if k.startswith("rpn.") and k not in rpn}
+             if k.startswith("rpn.") and k not in loaded}
     state = create_train_state(cfg, model, steps_per_epoch=10,
                                total_epochs=2)
     step = make_train_step(cfg, model)
     batch = {k: T(v) for k, v in train_batch(2, 1024, seed=24).items()}
     gen = torch.Generator().manual_seed(0)
-    steps = 3
     for _ in range(steps):
         step(state, batch, gen, 0.9)
 
     tx = make_optimizer(jcfg, 10, 2)
-    jparams = {k: jnp.asarray(v) for k, v in rpn.items()}
+    jparams = {k: jnp.asarray(v) for k, v in loaded.items()}
     opt_state = tx.init(jparams)
     zeros = {k: jnp.zeros_like(v) for k, v in jparams.items()}
     for _ in range(steps):
         updates, opt_state = tx.update(zeros, opt_state, jparams)
         jparams = optax.apply_updates(jparams, updates)
-    ours = dict(model.named_parameters())
-    top = max(np.abs(np.asarray(v)).max() for v in jparams.values())
-    moved = 0
-    for k, v in jparams.items():
-        got = ours[k].detach().numpy()
-        np.testing.assert_allclose(got, np.asarray(v), rtol=1e-6,
-                                   atol=1e-6 * top, err_msg=k)
-        moved += not np.array_equal(got, rpn[k])
-    assert moved > len(rpn) // 2
     after = model.state_dict()
-    for k, v in stats.items():
-        assert torch.equal(after[k], v), k
+    return ({k: after[k].numpy() for k in loaded},
+            {k: np.asarray(v) for k, v in jparams.items()}, loaded,
+            all(torch.equal(after[k], v) for k, v in stats.items()))
+
+
+@pytest.mark.parametrize("optimizer", ["adam_onecycle", "adam", "sgd"])
+def test_fixed_rpn_follows_reference_optimizer(optimizer):
+    """fixed_rpn_case: every RPN parameter within 1e-6 relative plus 1e-6
+    of the largest of tpu3d's, most of them moved, and the RPN's running
+    statistics exactly as loaded."""
+    ours, ref, loaded, stats_kept = fixed_rpn_case(optimizer)
+    top = max(np.abs(v).max() for v in ref.values())
+    for k, v in ref.items():
+        np.testing.assert_allclose(ours[k], v, rtol=1e-6, atol=1e-6 * top,
+                                   err_msg=k)
+    moved = sum(not np.array_equal(ours[k], v) for k, v in loaded.items())
+    assert moved > len(loaded) // 2
+    assert stats_kept

@@ -24,10 +24,12 @@ from test_torch_rcnn import run_joint  # noqa: E402
 from test_torch_rcnn_ops import (_boxes5, _pooled_rows,  # noqa: E402
                                  _scene_and_rois)
 from test_torch_rpn import run_pair  # noqa: E402
+import test_torch_double as td  # noqa: E402
 import test_torch_train as tt  # noqa: E402
 import test_torch_train_ops as to  # noqa: E402
 from tpu3d.ops import furthest_point_sample_with_3nn as jax_fps3nn  # noqa
 from tpu3d.ops import three_interpolate as jax_three_interpolate  # noqa
+from tpu3d.ops.interpolate import three_nn as jax_three_nn  # noqa: E402
 from tpu3d.ops.fused_sa import fused_gathered_mlp_pool as jax_fused  # noqa
 from tpu3d.ops.fused_sa import fused_mlp_pool_reference  # noqa: E402
 from tpu3d.ops.grouping import nearest_k as jax_nearest_k  # noqa: E402
@@ -37,9 +39,10 @@ from tpu3d.ops.sampling import _fps_pallas, _fps_xla  # noqa: E402
 from tpu3d_torch.models.proposal import proposal_layer  # noqa: E402
 from tpu3d_torch.ops import (furthest_point_sample_with_3nn,  # noqa: E402
                              nearest_k, roipool3d, rotated_overlap_bev,
-                             three_interpolate)
+                             three_interpolate, three_nn)
 from tpu3d_torch.ops.fused_sa import fused_gathered_mlp_pool_plain  # noqa
-from tpu3d_torch.ops.sampling import furthest_point_sample_plain  # noqa
+from tpu3d_torch.ops.sampling import (  # noqa: E402
+    fps_then_three_nn, furthest_point_sample_plain)
 from tpu3d_torch.tools.eval_rcnn import rcnn_decode_and_nms  # noqa: E402
 
 
@@ -177,6 +180,55 @@ def train_report():
           f"{err:.3e} (largest {top:.3e})")
 
 
+def double_report():
+    """configs/double.yaml's pieces and the fixed-RPN decay, on the inputs
+    of tests/test_torch_double.py and tests/test_torch_train.py."""
+    ids, rel = 0, 0.0
+    for B, M, N in td.THREE_NN_SHAPES:
+        u, k = td._clouds(B * M + N, B, M, N)
+        d2, idx = (a.numpy() for a in three_nn(torch.from_numpy(u),
+                                                torch.from_numpy(k)))
+        jd, ji = jax.device_get(jax_three_nn(jnp.asarray(u), jnp.asarray(k),
+                                             differentiable=False))
+        ids += int((idx != ji).sum())
+        rel = max(rel, float((np.abs(np.sqrt(d2) - jd) / jd).max()))
+    print(f"three_nn against tpu3d's ({len(td.THREE_NN_SHAPES)} shapes): id "
+          f"mismatches {ids}, distance max rel {rel:.3e}")
+    xyz = np.random.default_rng(5120).uniform(
+        [-30, -1, 0], [30, 3, 70], size=(1, 4096, 3)).astype(np.float32)
+    got = [a.numpy() for a in fps_then_three_nn(torch.from_numpy(xyz), 1024)]
+    ref = jax.device_get(jax_fps3nn(jnp.asarray(xyz), 1024))
+    rel = np.abs(got[1] - ref[1]) / np.maximum(ref[1], 1e-30)
+    print(f"split route (1, 4096) -> 1024: pick mismatches "
+          f"{(got[0] != ref[0]).sum()}, nn_idx mismatches "
+          f"{(got[2] != ref[2]).sum()}, nn_d2 max rel {rel.max():.3e}")
+
+    model, _, jout, out, calls = td.double_eval.__wrapped__()
+    for key in ("backbone_features", "rpn_cls", "rpn_reg"):
+        print(f"double.yaml cut to 2048 points (split calls at N={calls}), "
+              f"{key}: max abs {np.abs(out[key] - jout[key]).max():.3e} "
+              f"(max |value| {np.abs(jout[key]).max():.3e})")
+    with torch.no_grad():
+        st = model.rcnn_stage(*(torch.tensor(a) for a in (
+            jout["backbone_xyz"], jout["backbone_features"],
+            jout["rpn_cls"][..., 0], jout["rois"])))
+    for key in ("rcnn_cls", "rcnn_reg"):
+        print(f"double.yaml RCNN stage on tpu3d's rois, {key}: max abs "
+              f"{np.abs(st[key].numpy() - jout[key]).max():.3e}")
+    loss, grads, jloss, jgrads = td.double_rpn_train_case()
+    err, top = _tree_err(grads, jgrads)
+    print(f"double.yaml RPN train-mode gradients, f64: loss "
+          f"{abs(loss - jloss):.3e} (of {jloss:.3e}), gradients max abs "
+          f"{err:.3e} (largest {top:.3e})")
+    for optimizer in ("adam_onecycle", "adam", "sgd"):
+        ours, ref, _, kept = tt.fixed_rpn_case(optimizer)
+        err = max(float(np.abs(ours[k] - v).max()) for k, v in ref.items())
+        top = max(float(np.abs(v).max()) for v in ref.values())
+        print(f"fixed RPN after 3 rcnn-mode steps, {optimizer}: max abs "
+              f"{err:.3e} (largest {top:.3e}) against tpu3d's chain, "
+              f"statistics kept {kept}")
+
+
 def main():
     rng = np.random.default_rng(4096)
     xyz = rng.uniform([-30, -1, 0], [30, 3, 70], (2, 4096, 3)).astype(
@@ -225,6 +277,7 @@ def main():
               f"valid {int(jout['roi_valid'].sum())}/{valid.size}")
     rcnn_report()
     train_report()
+    double_report()
 
 
 if __name__ == "__main__":

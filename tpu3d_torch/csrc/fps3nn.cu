@@ -18,13 +18,32 @@
 // The top-3 search is split off into kernel 2, which is embarrassingly
 // parallel (one thread per point, picks staged through shared memory): the
 // fused TPU form would need 6 more registers per point, 384 KB at N = 16384.
+//
+// Long rows (16384 < N <= 32768, configs/double.yaml's SA_0): 12·N bytes no
+// longer fit one block's 227 KB, so kernel 3 runs one 2-CTA thread-block
+// cluster per scene. CTA r holds points [r·H, r·H + H), H = ceil(N/2), in its
+// shared memory (192 KB at N = 32768) and their running min in registers,
+// and runs kernel 1's pick loop over its half. Per pick each warp publishes
+// its (d², global index, coordinates) winner in its CTA's shared memory; one
+// cluster barrier replaces kernel 1's block barrier, and then every warp
+// reads the 32 local and the 32 remote partials (distributed shared memory,
+// map_shared_rank) and reduces them with ties to the lower global index, so
+// the picks equal the single-block kernel's. The winner's coordinates ride
+// along in the partials, so no thread waits on a device-memory read per
+// pick. The same entry serves FPS alone (tpu3d_fps_long, plain FPS for
+// 2048 < N <= 32768: kernel 1 up to 16384 points, kernel 3 above).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kMaxThreads = 1024;
+constexpr int kLongPPT = 16;  // points per thread in each CTA of a cluster
+constexpr int kMaxLongN = 2 * kLongPPT * kMaxThreads;  // 32768
 constexpr int kNNThreads = 256;
 constexpr int kNNTile = 1024;
 
@@ -174,30 +193,144 @@ cudaError_t launch_fps(const float* xyz, int B, int N, int npoint, int* idx,
   return cudaGetLastError();
 }
 
+// Kernel 3: one scene per 2-CTA cluster (see the note at the top).
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kMaxThreads)
+fps_long_kernel(const float* __restrict__ xyz, int N, int npoint,
+                int* __restrict__ out) {
+  extern __shared__ float smem[];
+  __shared__ float red_v[2][32], red_x[2][32], red_y[2][32], red_z[2][32];
+  __shared__ int red_i[2][32];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int H = (N + 1) / 2;
+  const int base = rank * H;
+  const int n = min(H, N - base);
+  float* sx = smem;
+  float* sy = smem + H;
+  float* sz = smem + 2 * H;
+  const float* p = xyz + (size_t)(blockIdx.x / 2) * N * 3;
+  int* o = out + (size_t)(blockIdx.x / 2) * npoint;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const size_t q = (size_t)3 * (base + i);
+    sx[i] = p[q];
+    sy[i] = p[q + 1];
+    sz[i] = p[q + 2];
+  }
+  // the other CTA's partials, through distributed shared memory
+  const unsigned other = (unsigned)(rank ^ 1);
+  const float* o_v = cluster.map_shared_rank(&red_v[0][0], other);
+  const float* o_x = cluster.map_shared_rank(&red_x[0][0], other);
+  const float* o_y = cluster.map_shared_rank(&red_y[0][0], other);
+  const float* o_z = cluster.map_shared_rank(&red_z[0][0], other);
+  const int* o_i = cluster.map_shared_rank(&red_i[0][0], other);
+  float mind[kLongPPT];
+#pragma unroll
+  for (int k = 0; k < kLongPPT; ++k) mind[k] = INFINITY;
+  if (rank == 0 && threadIdx.x == 0) o[0] = 0;
+  float lx = p[0], ly = p[1], lz = p[2];
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int j = 1; j < npoint; ++j) {
+    float bv = -1.0f;  // below every d², so a real point always wins
+    int bi = N;        // global index; N marks "no point"
+#pragma unroll
+    for (int k = 0; k < kLongPPT; ++k) {
+      const int i = threadIdx.x + k * kMaxThreads;
+      if (i < n) {
+        const float m = fminf(mind[k], dist2(sx[i], sy[i], sz[i], lx, ly, lz));
+        mind[k] = m;
+        if (m > bv) {  // strict: ascending i, so ties keep the lower index
+          bv = m;
+          bi = base + i;
+        }
+      }
+    }
+    warp_argmax(bv, bi);
+    const int buf = j & 1;
+    if (lane == 0) {
+      const int li = bi < N ? bi - base : 0;
+      red_v[buf][warp] = bv;
+      red_i[buf][warp] = bi;
+      red_x[buf][warp] = sx[li];
+      red_y[buf][warp] = sy[li];
+      red_z[buf][warp] = sz[li];
+    }
+    cluster.sync();  // both CTAs' partials of this pick are written
+    const int r = buf * 32 + lane;
+    float cv = red_v[buf][lane], cx = red_x[buf][lane];
+    float cy = red_y[buf][lane], cz = red_z[buf][lane];
+    int ci = red_i[buf][lane];
+    const float ov = o_v[r];
+    const int oi = o_i[r];
+    if (ov > cv || (ov == cv && oi < ci)) {
+      cv = ov;
+      ci = oi;
+      cx = o_x[r];
+      cy = o_y[r];
+      cz = o_z[r];
+    }
+    bv = cv;
+    bi = ci;
+    warp_argmax(bv, bi);
+    const int src = __ffs(__ballot_sync(0xffffffffu, ci == bi)) - 1;
+    lx = __shfl_sync(0xffffffffu, cx, src);
+    ly = __shfl_sync(0xffffffffu, cy, src);
+    lz = __shfl_sync(0xffffffffu, cz, src);
+    if (rank == 0 && threadIdx.x == 0) o[j] = bi;
+  }
+  cluster.sync();  // the other CTA may still read this one's partials
+}
+
+cudaError_t launch_fps_long(const float* xyz, int B, int N, int npoint,
+                            int* idx, cudaStream_t stream) {
+  const size_t smem = (size_t)12 * ((N + 1) / 2);
+  cudaError_t err = cudaFuncSetAttribute(
+      fps_long_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  fps_long_kernel<<<2 * B, kMaxThreads, smem, stream>>>(xyz, N, npoint, idx);
+  return cudaGetLastError();
+}
+
+// FPS alone: kernel 1 up to 16384 points, kernel 3 above
+cudaError_t launch_fps_any(const float* xyz, int B, int N, int npoint,
+                           int* idx, cudaStream_t stream) {
+  if (N > 16 * kMaxThreads)
+    return launch_fps_long(xyz, B, N, npoint, idx, stream);
+  const int threads = N >= kMaxThreads ? kMaxThreads : ((N + 31) / 32) * 32;
+  const int ppt = (N + threads - 1) / threads;
+  if (ppt <= 1) return launch_fps<1>(xyz, B, N, npoint, idx, threads, stream);
+  if (ppt <= 2) return launch_fps<2>(xyz, B, N, npoint, idx, threads, stream);
+  if (ppt <= 4) return launch_fps<4>(xyz, B, N, npoint, idx, threads, stream);
+  if (ppt <= 8) return launch_fps<8>(xyz, B, N, npoint, idx, threads, stream);
+  return launch_fps<16>(xyz, B, N, npoint, idx, threads, stream);
+}
+
 }  // namespace
 
 extern "C" int tpu3d_fps3nn(const float* xyz, int B, int N, int npoint,
                             int* idx, float* nn_d2, int* nn_idx,
                             void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (B < 1 || N < 1 || N > 16 * kMaxThreads || npoint < 1 || npoint > N)
+  if (B < 1 || B > 65535 || N < 1 || N > kMaxLongN || npoint < 1 ||
+      npoint > N)
     return (int)cudaErrorInvalidValue;
-  const int threads = N >= kMaxThreads ? kMaxThreads : ((N + 31) / 32) * 32;
-  const int ppt = (N + threads - 1) / threads;
-  cudaError_t err;
-  if (ppt <= 1)
-    err = launch_fps<1>(xyz, B, N, npoint, idx, threads, stream);
-  else if (ppt <= 2)
-    err = launch_fps<2>(xyz, B, N, npoint, idx, threads, stream);
-  else if (ppt <= 4)
-    err = launch_fps<4>(xyz, B, N, npoint, idx, threads, stream);
-  else if (ppt <= 8)
-    err = launch_fps<8>(xyz, B, N, npoint, idx, threads, stream);
-  else
-    err = launch_fps<16>(xyz, B, N, npoint, idx, threads, stream);
+  cudaError_t err = launch_fps_any(xyz, B, N, npoint, idx, stream);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((N + kNNThreads - 1) / kNNThreads, B);
   three_nn_to_picks_kernel<<<grid, kNNThreads, 0, stream>>>(
       xyz, idx, N, npoint, nn_d2, nn_idx);
   return (int)cudaGetLastError();
+}
+
+extern "C" int tpu3d_fps_long(const float* xyz, int B, int N, int npoint,
+                              int* idx, void* stream_ptr) {
+  if (B < 1 || B > 65535 || N < 1 || N > kMaxLongN || npoint < 1 ||
+      npoint > N)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_fps_any(xyz, B, N, npoint, idx,
+                             static_cast<cudaStream_t>(stream_ptr));
 }

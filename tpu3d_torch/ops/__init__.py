@@ -9,17 +9,19 @@ rotated IoU and NMS are plain PyTorch on every device.
 from .fused_sa import fused_gathered_mlp_pool
 from .grouping import (ball_query, ball_query_from_nearest, group_points,
                        nearest_k)
-from .interpolate import interpolation_weights, three_interpolate
+from .interpolate import (interpolation_weights, three_interpolate,
+                          three_nn, three_nn_plain)
 from .nms import nms_bev, nms_blocked_sorted
 from .roipool import roipool3d
 from .rotated_iou import (boxes3d_to_bev5, boxes_iou3d, boxes_iou_bev,
                           rotated_overlap_bev)
 from .sampling import (furthest_point_sample, furthest_point_sample_with_3nn,
-                       gather_points)
+                       fused_route, gather_points)
 
 __all__ = ["ball_query", "ball_query_from_nearest", "boxes3d_to_bev5",
            "boxes_iou3d", "boxes_iou_bev", "furthest_point_sample",
            "furthest_point_sample_with_3nn", "fused_gathered_mlp_pool",
-           "gather_points", "group_points", "interpolation_weights",
-           "nearest_k", "nms_bev", "nms_blocked_sorted", "roipool3d",
-           "rotated_overlap_bev", "three_interpolate"]
+           "fused_route", "gather_points", "group_points",
+           "interpolation_weights", "nearest_k", "nms_bev",
+           "nms_blocked_sorted", "roipool3d", "rotated_overlap_bev",
+           "three_interpolate", "three_nn", "three_nn_plain"]

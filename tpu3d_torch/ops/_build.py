@@ -3,7 +3,8 @@
 Each ``tpu3d_torch/csrc/<source>.cu`` is compiled by ``nvcc`` into its own
 shared library with a plain C interface, at first use, and loaded with
 ``ctypes``; a source may hold the entry points of several kernels (the
-eval and the training forward of ``fused_sa``). Each source names its own
+eval and the training forward of ``fused_sa``; FPS+3NN and the long-row
+FPS alone in ``fps3nn``). Each source names its own
 ``nvcc`` flags. The library's file name carries a hash of its source, the
 shared headers (``csrc/*.cuh``) and its flags, so an edited source is
 rebuilt and a stale library is never loaded. Libraries go to
@@ -42,6 +43,8 @@ F = ctypes.c_float
 # each kernel's C entry point: (source in csrc/, symbol, argtypes)
 KERNELS = {
     "fps3nn": ("fps3nn", "tpu3d_fps3nn", [P, I, I, I, P, P, P, P]),
+    "fps_long": ("fps3nn", "tpu3d_fps_long", [P, I, I, I, P, P]),
+    "three_nn": ("three_nn", "tpu3d_three_nn", [P, P, I, I, I, P, P, P]),
     "nearest_k": ("nearest_k", "tpu3d_nearest_k",
                   [P, P, I, I, I, I, F, P, P, P]),
     "three_interpolate": ("three_interpolate", "tpu3d_three_interpolate",
@@ -60,7 +63,7 @@ KERNELS = {
                       P, P]),
 }
 # extra nvcc flags of each source
-SOURCE_FLAGS = {"fps3nn": EXACT, "nearest_k": EXACT,
+SOURCE_FLAGS = {"fps3nn": EXACT, "nearest_k": EXACT, "three_nn": EXACT,
                 "three_interpolate": EXACT, "three_interpolate_bwd": EXACT,
                 "fps": EXACT, "fused_sa": [], "fused_sa_bwd": []}
 SOURCES = sorted(SOURCE_FLAGS)

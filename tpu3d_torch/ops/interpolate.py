@@ -1,18 +1,24 @@
-"""Three-point interpolation for feature propagation, with its gradient.
+"""The 3 nearest neighbours, and three-point interpolation for feature
+propagation with its gradient.
 
-Counterpart of ``tpu3d/ops/interpolate.py``. ``three_interpolate`` is a
+Counterpart of ``tpu3d/ops/interpolate.py``. ``three_nn`` launches the CUDA
+kernel in ``csrc/three_nn.cu`` for CUDA tensors and runs
+``three_nn_plain`` for CPU tensors; the FP levels take their neighbours
+from ``furthest_point_sample_with_3nn``, which calls it on its split route
+(SA_0 of a 16-scene batch of 32768 points). ``three_interpolate`` is a
 ``torch.autograd.Function``: its forward launches the CUDA kernel in
 ``csrc/three_interpolate.cu`` and its backward the one in
 ``csrc/three_interpolate_bwd.cu`` for CUDA tensors; for CPU tensors they
 run ``three_interpolate_plain`` and ``three_interpolate_backward_plain``.
-The 3 neighbours come from ``furthest_point_sample_with_3nn``'s cache, so
-no standalone three_nn is needed on this path.
 
 Kernel notes (in full in the sources): they replace
-``tpu3d/ops/interpolate.py::_ti_fwd_kernel`` and ``_ti_bwd_kernel``. Both
-are bound by bytes; one warp per output row reads each gathered row as
-whole 128-byte lines in f32, and the backward adds the weighted gradient
-rows into the source rows with float atomics.
+``tpu3d/ops/interpolate.py::_three_nn_pallas``, ``_ti_fwd_kernel`` and
+``_ti_bwd_kernel``. ``three_nn`` is bound by operations; one thread per
+query folds the known points, staged through shared memory, into a sorted
+top-3 with d² rounded step by step, so it equals the plain version bit for
+bit. The interpolation kernels are bound by bytes; one warp per output row
+reads each gathered row as whole 128-byte lines in f32, and the backward
+adds the weighted gradient rows into the source rows with float atomics.
 """
 
 from __future__ import annotations
@@ -20,6 +26,49 @@ from __future__ import annotations
 import torch
 
 from . import _build
+
+
+def _d2(pts: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """(x-rx)²+(y-ry)²+(z-rz)², summed left to right as the kernels do."""
+    d = pts - ref
+    return d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+
+
+def three_nn_plain(unknown: torch.Tensor, known: torch.Tensor):
+    """Plain PyTorch version of the kernel: every query's d² to every known
+    point, then a stable sort, so equal d² keep the lower index."""
+    B, N = known.shape[0], known.shape[1]
+    rows = max(1, (1 << 24) // max(B * N, 1))  # bounds the (B, rows, N) block
+    nn_d2, nn_idx = [], []
+    for q in unknown.split(rows, dim=1):
+        d, i = torch.sort(_d2(q[:, :, None, :], known[:, None, :, :]), dim=2,
+                          stable=True)
+        nn_d2.append(d[..., :3])
+        nn_idx.append(i[..., :3].to(torch.int32))
+    return torch.cat(nn_d2, 1), torch.cat(nn_idx, 1)
+
+
+def three_nn(unknown: torch.Tensor, known: torch.Tensor):
+    """(B, M, 3) queries, (B, N, 3) known points, f32 -> (d2 (B, M, 3) f32,
+    idx (B, M, 3) i32): each query's 3 nearest known points, nearest first,
+    ties to the lowest index, with d² as ``_three_nn_pallas`` returns it
+    (tpu3d's ``three_nn`` returns sqrt(max(d², 0))). The CUDA kernel needs
+    N >= 3."""
+    if unknown.device.type == "cpu":
+        return three_nn_plain(unknown, known)
+    _build.check_cuda_tensor(unknown, "unknown", torch.float32, 3)
+    _build.check_cuda_tensor(known, "known", torch.float32, 3)
+    B, M, three = unknown.shape
+    if three != 3 or known.shape[0] != B or known.shape[2] != 3 \
+            or known.shape[1] < 3:
+        raise ValueError(f"three_nn takes (B, M, 3) queries and (B, N>=3, 3) "
+                         f"known points, got {tuple(unknown.shape)} and "
+                         f"{tuple(known.shape)}")
+    nn_d2 = torch.empty(B, M, 3, dtype=torch.float32, device=unknown.device)
+    nn_idx = torch.empty(B, M, 3, dtype=torch.int32, device=unknown.device)
+    _build.launch("three_nn", unknown.data_ptr(), known.data_ptr(), B, M,
+                  known.shape[1], nn_d2.data_ptr(), nn_idx.data_ptr())
+    return nn_d2, nn_idx
 
 
 def three_interpolate_plain(features: torch.Tensor, idx: torch.Tensor,

@@ -1,9 +1,11 @@
 """Where the joint eval step spends its time on the card.
 
-    python -m tpu3d_torch.tools.profile_eval
+    python -m tpu3d_torch.tools.profile_eval [--cfg_file configs/default.yaml]
+        [--batch 2]
 
-Runs configs/default.yaml as shipped (the joint path) at full width with
-seeded weights on planted-cluster scenes. For each stage of the step (the
+Runs a config as shipped (the joint path; configs/default.yaml unless
+``--cfg_file`` names another, e.g. configs/double.yaml with ``--batch 4``)
+at full width with seeded weights on planted-cluster scenes. For each stage of the step (the
 RPN network, the proposal layer, ROI pooling with the canonical transform,
 the RCNN network, the decode with the final rotated NMS), each fed the
 previous stage's outputs, it prints the wall time (host clock around work
@@ -16,6 +18,7 @@ Needs a CUDA device.
 
 from __future__ import annotations
 
+import argparse
 import json
 import statistics
 import time
@@ -33,14 +36,19 @@ from ..weights import seeded_state_dict
 from .eval_rcnn import rcnn_decode_and_nms
 
 ROOT = Path(__file__).resolve().parents[2]
-BATCH, SEED, REPS = 2, 0, 5
+SEED, REPS = 0, 5
 
 
 def main() -> None:
-    cfg = cfg_from_file(str(ROOT / "configs" / "default.yaml"), fresh_cfg())
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--cfg_file", default=str(ROOT / "configs" /
+                                              "default.yaml"))
+    ap.add_argument("--batch", type=int, default=2)
+    args = ap.parse_args()
+    cfg = cfg_from_file(args.cfg_file, fresh_cfg())
     model = PointRCNN(cfg, mode="TEST")
     model.load_state_dict(seeded_state_dict(model, SEED))
-    pts = random_scenes(BATCH, cfg.RPN.NUM_POINTS, SEED)
+    pts = random_scenes(args.batch, cfg.RPN.NUM_POINTS, SEED)
     pts = torch.from_numpy(pts).cuda()
 
     with torch.no_grad():
@@ -95,8 +103,8 @@ def main() -> None:
                      [:8]]
 
     step_wall, step_device = sum(wall.values()), sum(device.values())
-    print(f"card: {torch.cuda.get_device_name(0)}; batch {BATCH}, "
-          f"median of {REPS} runs per stage")
+    print(f"card: {torch.cuda.get_device_name(0)}; {args.cfg_file}, batch "
+          f"{args.batch}, median of {REPS} runs per stage")
     print(f"step: {step_wall:.2f} ms wall, {step_device:.2f} ms of kernels, "
           f"device idle {100 * (1 - step_device / step_wall):.1f}%")
     for name in stages:
@@ -104,7 +112,8 @@ def main() -> None:
               f"ms of kernels")
         for t in top[name]:
             print(f"  {t['ms']:8.3f} ms {t['calls']:5d} calls  {t['name']}")
-    print(json.dumps({"wall_ms": wall, "kernel_ms": device,
+    print(json.dumps({"cfg_file": args.cfg_file, "batch": args.batch,
+                      "wall_ms": wall, "kernel_ms": device,
                       "device_idle_share": 1 - step_device / step_wall,
                       "top_kernels": top}))
 

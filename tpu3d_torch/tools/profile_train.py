@@ -1,8 +1,10 @@
 """Where the joint train step spends its time on the card.
 
-    python -m tpu3d_torch.tools.profile_train [--batch 16] [--reps 3]
+    python -m tpu3d_torch.tools.profile_train
+        [--cfg_file configs/default.yaml] [--batch 16] [--reps 3]
 
-Runs configs/default.yaml as shipped (joint mode) at full width with
+Runs a config as shipped (joint mode; configs/default.yaml unless
+``--cfg_file`` names another, e.g. configs/double.yaml) at full width with
 seeded weights on a training batch of planted-cluster scenes, and splits
 the step into its stages, each fed the previous stage's outputs: the RPN
 labels, the RPN forward (train mode), the proposal layer (TRAIN
@@ -82,10 +84,12 @@ def train_step_by_stage(cfg, model, state, batch, gen, stage) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--cfg_file", default=str(ROOT / "configs" /
+                                              "default.yaml"))
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--reps", type=int, default=3)
     args = ap.parse_args()
-    cfg = cfg_from_file(str(ROOT / "configs" / "default.yaml"), fresh_cfg())
+    cfg = cfg_from_file(args.cfg_file, fresh_cfg())
     model = PointRCNN(cfg, mode="TRAIN")
     model.load_state_dict(seeded_state_dict(model, SEED))
     state = create_train_state(cfg, model, steps_per_epoch=100,
@@ -145,8 +149,8 @@ def main() -> None:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
 
     step_wall, step_kernel = sum(wall.values()), sum(kernel.values())
-    print(f"card: {torch.cuda.get_device_name(0)}; batch {args.batch}, "
-          f"median of {args.reps} steps per stage")
+    print(f"card: {torch.cuda.get_device_name(0)}; {args.cfg_file}, batch "
+          f"{args.batch}, median of {args.reps} steps per stage")
     print(f"step: {step_wall:.2f} ms wall, {step_kernel:.2f} ms of kernels, "
           f"device idle {100 * (1 - step_kernel / step_wall):.1f}%")
     for name in STAGES:
@@ -156,7 +160,8 @@ def main() -> None:
     for name, us in top:
         print(f"  {us / 1e3 / args.reps:8.3f} ms  {name}")
     print(json.dumps({
-        "batch": args.batch, "wall_ms": wall, "kernel_ms": kernel,
+        "cfg_file": args.cfg_file, "batch": args.batch, "wall_ms": wall,
+        "kernel_ms": kernel,
         "device_idle_share": 1 - step_kernel / step_wall,
         "top_kernels_ms": {n: us / 1e3 / args.reps for n, us in top}}))
 
