@@ -18,10 +18,17 @@ and no result line:
    (the RPN's levels, and the RCNN's pooled ROIs of the joint forward, at
    B=2); the training kernels the train step's (B=16: the interpolation's
    backward at the four FP levels, the fused SA op's training forward and
-   backward on the 1024 rows the proposal target layer samples); and
+   backward on the 1024 rows the proposal target layer samples);
    configs/double.yaml's SA_0 at 32768 points: the train route's long-row
    FPS (fps_long) and standalone three_nn at B=16, the eval route's
-   FPS+3NN at B=4, each bit for bit;
+   FPS+3NN at B=4, each bit for bit; the slab form of the fused SA op at
+   the RCNN's SA_1: its eval kernel (fused_sa_slab) on the pooled ROIs of
+   configs/quickstart.yaml's eval (B=8) and of configs/smoke.yaml's (B=2),
+   its training forward and backward (fused_sa_slab_train,
+   fused_sa_slab_bwd) on the rows that the train steps' proposal target
+   layer samples (quickstart B=4, smoke B=2); and the same eval kernel with
+   BatchNorm packs (fused_sa_slab_bn) at the RCNN's SA_0 and SA_1 of
+   default.yaml with RCNN.USE_BN true (eval, B=2);
 4. both eval paths at configs/default.yaml's full width (B=2 scenes of
    16384 points, NPOINTS 4096/1024/256/64, TEST pre/post-NMS 9000/100),
    with seeded weights and planted-cluster scenes, each with every launch
@@ -43,7 +50,8 @@ and no result line:
    refinement outputs and the final boxes must agree with the card's; then
    the training: the RCNN loss and rcnn_net gradients on the card's
    sampled targets of scene 0, and the RPN's train-mode loss and gradients
-   of scene 0 with dropout 0, each against the CPU plain path;
+   of scene 0 with dropout 0, each against the CPU plain path (the RPN's
+   against a noise floor taken over four nudges of the weights);
 7. configs/double.yaml as shipped (32768 points per scene, the RPN's
    widths of default.yaml): the joint eval path at B=4, which must launch
    the five eval kernels (fps3nn once per RPN level, SA_0's through its
@@ -52,10 +60,24 @@ and no result line:
    must launch three_nn and fps_long once per step beside the seven kernels
    of phase 5; then scene 0's SA_0 split route on the card against the CPU
    plain route, bit for bit;
-8. one JSON line of the kernels, then the result line.
+8. configs/quickstart.yaml as shipped (4096 points, RCNN SA_1 on the slab
+   route, RPN SA_3 on the split route): the joint eval path at B=8 (the
+   eval CLI's default batch) and the joint train step at B=4 (the README
+   quickstart's batch; 1 warm-up, 5 timed), each with its exact launch
+   counts (QUICK_EVAL, QUICK_TRAIN); then scene 0 against the CPU plain
+   path: the RCNN stage and the final boxes, and the RCNN's training
+   gradients on the card's sampled targets;
+9. configs/smoke.yaml as shipped: the joint eval path and the joint train
+   step at B=2, with their exact launch counts (SMOKE_EVAL, SMOKE_TRAIN);
+10. default.yaml with RCNN.USE_BN true, set in memory (no file in configs/
+   sets it), seeded weights with BatchNorm statistics away from 0 and 1:
+   the joint eval path at B=2, with its exact launch counts (BN_EVAL:
+   fused_sa_slab_bn at SA_0 and SA_1, no fused_sa); then scene 0's RCNN
+   stage and final boxes against the CPU plain path;
+11. one JSON line of the kernels, then the result line.
 
-Needs one CUDA card; the kernels have no CPU mode. Imports nothing of JAX
-or of tpu3d.
+Every phase prints its seconds. Needs one CUDA card; the kernels have no
+CPU mode. Imports nothing of JAX or of tpu3d.
 """
 
 from __future__ import annotations
@@ -74,6 +96,10 @@ SEED = 0  # scenes, weights and interpolation features
 BATCH = 2
 TRAIN_BATCH = 16  # the training CLI's default --batch_size
 DOUBLE_BATCH = 4  # configs/double.yaml's eval batch (BASELINE.md)
+QUICK_EVAL_BATCH = 8  # the eval CLI's default --batch_size
+QUICK_TRAIN_BATCH = 4  # the README quickstart's --batch_size
+SMOKE_BATCH = 2
+BN_BATCH = 2  # the default.yaml eval batch
 DEVICE = "cuda"  # the card
 
 # H100 SXM peaks from NVIDIA's data sheet, at the full 700 W: device memory
@@ -96,6 +122,14 @@ SOURCES = {  # kernel: (source, the TPU kernel it replaces)
                      "tpu3d/ops/fused_sa.py:782"),
     "three_nn": ("tpu3d_torch/csrc/three_nn.cu", "tpu3d/ops/interpolate.py:62"),
     "fps_long": ("tpu3d_torch/csrc/fps3nn.cu", "tpu3d/ops/sampling.py:73"),
+    "fused_sa_slab": ("tpu3d_torch/csrc/fused_sa.cu",
+                      "tpu3d/ops/fused_sa.py:594"),
+    "fused_sa_slab_train": ("tpu3d_torch/csrc/fused_sa.cu",
+                            "tpu3d/ops/fused_sa.py:575"),
+    "fused_sa_slab_bwd": ("tpu3d_torch/csrc/fused_sa_bwd.cu",
+                          "tpu3d/ops/fused_sa.py:604"),
+    "fused_sa_slab_bn": ("tpu3d_torch/csrc/fused_sa.cu",
+                         "tpu3d/ops/fused_sa.py:203"),
 }
 # the kernels of each path whose launches are counted
 EVAL_KERNELS = ("fps3nn", "nearest_k", "three_interpolate", "fps", "fused_sa")
@@ -105,14 +139,34 @@ TRAIN_KERNELS = ("fps3nn", "nearest_k", "three_interpolate",
 RPN_TRAIN_KERNELS = ("fps3nn", "nearest_k", "three_interpolate",
                      "three_interpolate_bwd")
 DOUBLE_TRAIN_KERNELS = TRAIN_KERNELS + ("three_nn", "fps_long")
+# exact launches per forward or step of the new paths, every other count 0:
+# quickstart's RPN SA_3 (64 points) and smoke's SA_2-3 take the split route
+# (fps + three_nn), the RCNN's SA_0 (256 / 128 sources) the gather kernel,
+# its SA_1 (64 / 32 sources) the slab kernel; with BatchNorm both RCNN
+# levels take the slab kernel with BatchNorm packs
+QUICK_EVAL = {"fps3nn": 3, "three_nn": 1, "fps": 3, "nearest_k": 6,
+              "three_interpolate": 4, "fused_sa": 1, "fused_sa_slab": 1}
+QUICK_TRAIN = {"fps3nn": 3, "three_nn": 1, "fps": 3, "nearest_k": 6,
+               "three_interpolate": 4, "three_interpolate_bwd": 4,
+               "fused_sa_train": 1, "fused_sa_bwd": 1,
+               "fused_sa_slab_train": 1, "fused_sa_slab_bwd": 1}
+SMOKE_EVAL = dict(QUICK_EVAL, fps3nn=2, three_nn=2, fps=4)
+SMOKE_TRAIN = dict(QUICK_TRAIN, fps3nn=2, three_nn=2, fps=4)
+BN_EVAL = {"fps3nn": 4, "nearest_k": 6, "three_interpolate": 4, "fps": 2,
+           "fused_sa_slab_bn": 2}
+# the paths the new kernels are timed and labelled at
+QUICK_PATH = {"eval": f"quickstart.yaml eval B={QUICK_EVAL_BATCH}",
+              "train": f"quickstart.yaml train B={QUICK_TRAIN_BATCH}"}
+SMOKE_PATH = {"eval": f"smoke.yaml eval B={SMOKE_BATCH}",
+              "train": f"smoke.yaml train B={SMOKE_BATCH}"}
+BN_PATH = f"default.yaml with RCNN.USE_BN eval B={BN_BATCH}"
 # every other function of tpu3d that reaches pl.pallas_call, with its status
 NOT_PORTED = [
-    ("tpu3d/ops/fused_sa.py:575/594/604 _nobn_{fwd,eval,bwd}_kernel",
-     "to port next: reached by configs/quickstart.yaml and configs/smoke.yaml"
-     " at RCNN SA_1 (too few source points for the gather kernel)"),
-    ("tpu3d/ops/fused_sa.py:158-291 BN chain kernels",
-     "to port after it: reached only by an RCNN with USE_BN: true, which no "
-     "file in configs/ sets"),
+    ("tpu3d/ops/fused_sa.py:158 _stats0_kernel, :164 _fwd_stats1_kernel, "
+     ":171 _fwd_stats2_kernel, :178 _fwd_final_kernel, :255 "
+     "_bwd_wave1_kernel, :272 _bwd_wave2_kernel, :291 _bwd_apply_kernel",
+     "to port next: the BatchNorm chain's training (batch statistics), "
+     "reached only by an RCNN with USE_BN: true in training"),
 ]
 
 
@@ -172,6 +226,20 @@ class Phases:
         now = time.perf_counter()
         print(f"phase {label}: {now - self.t:.1f} s")
         self.t = now
+
+
+def routed_slots(arg, grad, ppre, S):
+    """The pooled gradients that reach the network, dval = grad where
+    ppre > 0, and the slots of S they route to: -> (nnz, the non-zero dval;
+    slots, the distinct (group, argmax slot) pairs of those channels, the
+    only slots whose d_x1, and so dW1, db1 and d_x0, can be non-zero)."""
+    import torch
+
+    live = torch.where(ppre > 0, grad, 0.0) != 0
+    R, M, _ = arg.shape
+    groups = torch.arange(R * M, device=arg.device).view(R, M, 1)
+    keys = (groups * S + arg.long())[live]
+    return int(live.sum()), int(torch.unique(keys).numel())
 
 
 class Report:
@@ -726,11 +794,10 @@ def fused_train_kernels(report, model, target):
             torch.autograd.grad(o, leaves, grad)
 
         lms = cuda_ms(library, 2)
-        nnz = int((torch.where(r_ppre > 0, grad, 0.0) != 0).sum())
-        # recomputed layer 1, d_a0 and dW1 in full; d_a1 and dW2 over the
-        # non-zero pooled gradients only; ReLU masks and sums on the slab
-        ops = (3 * 2 * R * M * S * c1 * c2 + 2 * 2 * nnz * c2
-               + R * M * S * (2 * c1 + 2 * c2))
+        nnz, hit = routed_slots(r_arg, grad, r_ppre, S)
+        # d_a1 and dW2 over the non-zero pooled gradients; layer 1's
+        # recompute, dW1, d_a0 and the ReLU masks over the slots they reach
+        ops = 3 * 2 * hit * c1 * c2 + 2 * 2 * nnz * c2 + hit * (2 * c1 + 2 * c2)
         nbytes = 4 * (2 * pre.numel() + idx.numel() + 2 * center.numel()
                       + w1.numel() + w2.numel() + c2 + 2 * R * M * c3
                       + w1.numel() + w2.numel() + c2 + c3)
@@ -738,7 +805,7 @@ def fused_train_kernels(report, model, target):
         print(f"fused_sa_bwd RCNN SA_{k}: {ms:.3f} ms, plain {pms:.3f} ms, "
               f"autograd of the cuBLAS chain {lms:.3f} ms (forward and "
               f"backward), {ops / ms / 1e9:.1f} TFLOP/s, {nnz} non-zero "
-              f"pooled gradients")
+              f"pooled gradients routed to {hit} of {R * M * S} slots")
         # the train forward's output feeds the next level, as in the step
         with torch.no_grad():
             features = out
@@ -817,7 +884,10 @@ def drive_train(cfg, model, batch, gen, expect_kernels, label, steps):
     return tb, launches, ms
 
 
-def compare_train_on_cpu(cfg, model, target, batch):
+NUDGES = 4  # independent nudges of the weights behind the RPN's noise floor
+
+
+def compare_train_on_cpu(cfg, model, target, batch, rpn=True):
     """Scene 0's training on the CPU plain path against the card's, with
     dropout 0 and the card model's weights.
 
@@ -831,8 +901,13 @@ def compare_train_on_cpu(cfg, model, target, batch):
     E[x²] − mean² loses float32 digits on any device: the card's largest
     gradient error must be at most 10 times the change that perturbing
     every weight by about one float32 rounding makes on the CPU (plus
-    1e-5 of the largest gradient). The perturbation moves no FPS pick nor
-    neighbour, which depend on the coordinates alone."""
+    1e-5 of the largest gradient), the largest change over ``NUDGES``
+    independent perturbations, each printed, and the margin to that bound.
+    (The weights are the card model's after its timed steps, which the
+    card's atomics move by a rounding from run to run, and one
+    perturbation's change swings with them.) The perturbation moves no FPS
+    pick nor neighbour, which depend on the coordinates alone. ``rpn``
+    False leaves out the RPN half."""
     import torch
 
     from tpu3d_torch.models import PointRCNN
@@ -865,7 +940,7 @@ def compare_train_on_cpu(cfg, model, target, batch):
         loss.backward()
         grads = {n: p.grad.detach().cpu().double()
                  for n, p in net.named_parameters()}
-        return float(loss), grads, time.perf_counter() - t0
+        return float(loss.detach()), grads, time.perf_counter() - t0
 
     def worst(a, b):
         return max(((a[n] - g).abs().max().item(), n) for n, g in b.items())
@@ -883,22 +958,295 @@ def compare_train_on_cpu(cfg, model, target, batch):
     check(abs(loss - ref_loss) <= 1e-5 * abs(ref_loss),
           "RCNN train loss differs")
     check(err[0] <= 1e-3 * top, "RCNN gradients differ")
+    if not rpn:
+        return
 
     loss, grads, _ = run(rpn_grads, DEVICE, f32)
     ref_loss, ref, cpu_s = run(rpn_grads, "cpu", f32)
-    gen = torch.Generator().manual_seed(SEED + 3)
-    nudged = {k: v * (1 + 1e-7 * torch.randn(v.shape, generator=gen))
-              if v.is_floating_point() else v for k, v in state.items()}
-    _, ref2, _ = run(rpn_grads, "cpu", f32, nudged)
+    floors = []
+    for i in range(NUDGES):
+        gen = torch.Generator().manual_seed(SEED + 3 + i)
+        nudged = {k: v * (1 + 1e-7 * torch.randn(v.shape, generator=gen))
+                  if v.is_floating_point() else v for k, v in state.items()}
+        floors.append(worst(run(rpn_grads, "cpu", f32, nudged)[1], ref))
     top = max(g.abs().max().item() for g in ref.values())
-    err, floor = worst(grads, ref), worst(ref2, ref)
+    err, floor = worst(grads, ref), max(floors)
+    bound = 10 * floor[0] + 1e-5 * top
     print(f"RPN train on scene 0, card vs CPU: loss {loss:.6f} vs "
-          f"{ref_loss:.6f}; largest gradient error {err[0]:.3e} ({err[1]}), "
-          f"noise floor {floor[0]:.3e} ({floor[1]}), of the largest gradient "
-          f"{top:.3e}; CPU {cpu_s:.1f} s")
+          f"{ref_loss:.6f}; largest gradient error {err[0]:.3e} ({err[1]}); "
+          f"noise floors of {NUDGES} nudges "
+          f"{', '.join(f'{f[0]:.3e}' for f in floors)}, floor {floor[0]:.3e} "
+          f"({floor[1]}); bound {bound:.3e}, margin {bound / max(err[0], 1e-30):.1f}x; "
+          f"largest gradient {top:.3e}; CPU {cpu_s:.1f} s")
     check(abs(loss - ref_loss) <= 1e-5 * abs(ref_loss),
           "RPN train loss differs")
-    check(err[0] <= 10 * floor[0] + 1e-5 * top, "RPN gradients differ")
+    check(err[0] <= bound, "RPN gradients differ")
+
+
+def slab_levels(model, xyz, rest):
+    """The RCNN levels of ``model`` that take the slab route, fed pooled
+    points ``xyz`` / ``rest`` through the levels before them as the model
+    runs them at eval: [(k, x0 (R, M, S, 128) the grouped slab, the level's
+    SharedMLP)]."""
+    import torch
+
+    from tpu3d_torch.ops import group_points, sa_route
+
+    net = model.rcnn_net
+    levels = []
+    with torch.no_grad():
+        features = net.point_features(xyz, rest)
+        for k in range(net.n_sa):
+            sa = getattr(net, f"sa_{k}")
+            if sa.npoint is None:
+                break
+            shape = (xyz.shape[0], sa.npoint, sa.nsample, sa.mlp[0])
+            if sa_route(shape, sa.mlp, xyz.shape[1], sa.mlp_0.bn) == "slab":
+                _, pre, idx, center = sa.group_inputs(xyz, features)
+                levels.append((k, group_points(pre, idx)
+                               - center[:, :, None, :], sa.mlp_0))
+            xyz, features = sa(xyz, features)
+    return levels
+
+
+def dense_weights(mlp):
+    """A SharedMLP's layers 1-2 as the fused ops take them: (w1 (C1, C2),
+    b1, w2 (C2, C3), b2), the biases None with BatchNorm."""
+    return (mlp.dense_1.weight.detach().T.contiguous(),
+            None if mlp.bn else mlp.dense_1.bias.detach(),
+            mlp.dense_2.weight.detach().T.contiguous(),
+            None if mlp.bn else mlp.dense_2.bias.detach())
+
+
+def slab_eval_kernel(x0, mlp, label):
+    """The slab eval kernel at one level, without BatchNorm
+    (fused_sa_slab) or with it (fused_sa_slab_bn, its packs folded from the
+    level's running statistics), against its plain version: within 1e-4 of
+    the largest value (f32 sums in another order). The library is the
+    cuBLAS chain of the same layers on the same slab. -> (err, ms,
+    plain_ms, library_ms, bytes, operations)."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpu3d_torch.ops import fused_bn_mlp_pool, fused_mlp_pool
+    from tpu3d_torch.ops.fused_sa import (bn_packs, fused_sa_slab_plain,
+                                          nobn_packs)
+
+    w1, b1, w2, b2 = dense_weights(mlp)
+    R, M, S, c1 = x0.shape
+    c2, c3 = w1.shape[1], w2.shape[1]
+    with torch.no_grad():
+        if mlp.bn:
+            name = "fused_sa_slab_bn"
+            affines = [getattr(mlp, f"bn_{i}").affine() for i in range(3)]
+            packs = bn_packs(affines)
+
+            def kernel():
+                return fused_bn_mlp_pool(x0, w1, w2, affines)
+        else:
+            name = "fused_sa_slab"
+            packs = nobn_packs(c1, b1, b2)
+
+            def kernel():
+                return fused_mlp_pool(x0, w1, b1, w2, b2)
+        m0, a0, m1, a1, m2, a2 = packs.split([c1, c1, c2, c2, c3, c3])
+        got = kernel()
+        ref = fused_sa_slab_plain(x0, packs, w1, w2)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        check(err <= 1e-4 * scale, f"{name} differs by {err} (max |value| "
+              f"{scale}) at {label}")
+        del got, ref
+        ms = cuda_ms(kernel, 10)
+        pms = cuda_ms(lambda: fused_sa_slab_plain(x0, packs, w1, w2), 3)
+
+        def library():
+            x = torch.relu(torch.addcmul(a0, x0, m0))
+            x = torch.relu(torch.addcmul(a1, F.linear(x, mlp.dense_1.weight),
+                                         m1))
+            return torch.relu(torch.addcmul(
+                a2, F.linear(x, mlp.dense_2.weight), m2)).amax(2)
+
+        lms = cuda_ms(library, 3)
+    slots = R * M * S
+    # per slot: the two layers' multiply-adds, then on each layer's
+    # channels the affine (multiply, add) and the ReLU, and the max on C3
+    ops = slots * (2 * (c1 * c2 + c2 * c3) + 3 * (c1 + c2 + c3) + c3)
+    nbytes = 4 * (x0.numel() + w1.numel() + w2.numel() + packs.numel()
+                  + R * M * c3)
+    print(f"{name} {label} R={R} M={M} S={S} C={c1}->{c2}->{c3}: "
+          f"{ms:.3f} ms, bound {bound_ms(nbytes, ops)[0]:.3f} ms, plain "
+          f"{pms:.3f} ms, cuBLAS chain {lms:.3f} ms, max_abs_err {err:.3e} "
+          f"(max |value| {scale:.3e}), {ops / ms / 1e9:.1f} TFLOP/s")
+    return name, (err, ms, pms, lms, nbytes, ops)
+
+
+def slab_train_kernels(x0, mlp, label, gen):
+    """The slab form's training forward and backward at one level, on the
+    rows a train step's proposal target layer sampled, against their plain
+    versions. Forward: out equal to the eval kernel's to the bit, ppre
+    within 1e-4 of the largest value, argmax equal to the plain version's at
+    every channel whose plain max has no near-tie (another slot's value
+    within that tolerance but not equal to it). Backward: the five
+    gradients within 1e-4 of each one's largest value, both routed by the
+    plain version's argmax and ppre. The library is the cuBLAS chain under
+    autograd (its forward, then its forward and backward). -> {kernel:
+    (err, ms, plain_ms, library_ms, bytes, operations)}."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpu3d_torch.ops import fused_mlp_pool
+    from tpu3d_torch.ops.fused_sa import (fused_mlp_pool_backward,
+                                          fused_mlp_pool_backward_plain,
+                                          fused_mlp_pool_train,
+                                          fused_mlp_pool_train_plain)
+
+    w1, b1, w2, b2 = args = dense_weights(mlp)
+    R, M, S, c1 = x0.shape
+    c2, c3 = w1.shape[1], w2.shape[1]
+    slots = R * M * S
+    rows = {}
+
+    def library_forward(leaves):
+        x = torch.relu(leaves[0])
+        x = torch.relu(F.linear(x, leaves[1], leaves[2]))
+        return torch.relu(F.linear(x, leaves[3], leaves[4])).amax(2)
+
+    weights = (x0, mlp.dense_1.weight.detach(), b1,
+               mlp.dense_2.weight.detach(), b2)
+    with torch.no_grad():
+        out, arg, ppre = fused_mlp_pool_train(x0, *args)
+        check(torch.equal(out, fused_mlp_pool(x0, *args)),
+              f"fused_sa_slab_train out differs from the eval kernel's at "
+              f"{label}")
+        r_out, r_arg, r_ppre = fused_mlp_pool_train_plain(x0, *args)
+        torch.cuda.synchronize()
+        scale = r_out.abs().max().item()
+        err = (out - r_out).abs().max().item()
+        check(err <= 1e-4 * scale, f"fused_sa_slab_train out differs by {err}")
+        perr = (ppre - r_ppre).abs().max().item()
+        check(perr <= 1e-4 * max(scale, r_ppre.abs().max().item()),
+              f"fused_sa_slab_train ppre differs by {perr}")
+        a2 = torch.relu(torch.relu(torch.relu(x0) @ w1 + b1) @ w2 + b2)
+        top = r_out[:, :, None, :]
+        near = ((a2 >= top - 1e-4 * scale) & (a2 != top)).any(dim=2)
+        del a2
+        flips = arg != r_arg
+        check(not bool((flips & ~near).any()),
+              f"fused_sa_slab_train argmax differs in "
+              f"{int((flips & ~near).sum())} channels without a near-tie")
+        ms = cuda_ms(lambda: fused_mlp_pool_train(x0, *args), 10)
+        pms = cuda_ms(lambda: fused_mlp_pool_train_plain(x0, *args), 3)
+    lms = cuda_ms(lambda: library_forward(
+        [t.detach().requires_grad_() for t in weights]), 3)
+    ops = slots * (2 * (c1 * c2 + c2 * c3) + 3 * (c1 + c2 + c3) + 3 * c3)
+    nbytes = 4 * (x0.numel() + w1.numel() + w2.numel() + 2 * (c1 + c2 + c3)
+                  + 3 * R * M * c3)
+    rows["fused_sa_slab_train"] = (max(err, perr), ms, pms, lms, nbytes, ops)
+    print(f"fused_sa_slab_train {label} R={R} M={M} S={S} "
+          f"C={c1}->{c2}->{c3}: {ms:.3f} ms, bound "
+          f"{bound_ms(nbytes, ops)[0]:.3f} ms, plain {pms:.3f} ms, cuBLAS "
+          f"chain under autograd {lms:.3f} ms, out equal to eval, "
+          f"max_abs_err {err:.3e} / ppre {perr:.3e}, argmax flips "
+          f"{int(flips.sum())} of {arg.numel()} (near-ties "
+          f"{int(near.sum())}), {ops / ms / 1e9:.1f} TFLOP/s")
+
+    grad = torch.randn(out.shape, generator=gen).to(out.device)
+    got = fused_mlp_pool_backward(x0, *args, grad, r_arg, r_ppre)
+    ref = fused_mlp_pool_backward_plain(x0, *args, grad, r_arg, r_ppre)
+    torch.cuda.synchronize()
+    berr = 0.0
+    for name, a, b in zip(("d_x0", "dW1", "db1", "dW2", "db2"), got, ref):
+        e = (a - b).abs().max().item()
+        sc = b.abs().max().item()
+        print(f"  fused_sa_slab_bwd {label} {name}: max_abs_err {e:.3e} (max "
+              f"|value| {sc:.3e})")
+        check(e <= 1e-4 * sc, f"fused_sa_slab_bwd {name} differs by {e} at "
+              f"{label}")
+        berr = max(berr, e)
+    del got, ref
+    ms = cuda_ms(lambda: fused_mlp_pool_backward(x0, *args, grad, r_arg,
+                                                 r_ppre), 10)
+    pms = cuda_ms(lambda: fused_mlp_pool_backward_plain(x0, *args, grad,
+                                                        r_arg, r_ppre), 3)
+
+    def library():
+        leaves = [t.detach().requires_grad_() for t in weights]
+        torch.autograd.grad(library_forward(leaves), leaves, grad)
+
+    lms = cuda_ms(library, 3)
+    nnz, hit = routed_slots(r_arg, grad, r_ppre, S)
+    # d_a1 and dW2 over the non-zero pooled gradients; layer 1's recompute,
+    # dW1, d_a0 and the ReLU masks over the slots they reach
+    ops = 3 * 2 * hit * c1 * c2 + 2 * 2 * nnz * c2 + hit * (2 * c1 + 2 * c2)
+    # read x0, W1, b1, W2, dval and argmax; write d_x0, dW1, db1 and dW2
+    nbytes = 4 * (2 * x0.numel() + 2 * w1.numel() + 2 * w2.numel() + 2 * c2
+                  + 2 * R * M * c3)
+    rows["fused_sa_slab_bwd"] = (berr, ms, pms, lms, nbytes, ops)
+    print(f"fused_sa_slab_bwd {label}: {ms:.3f} ms, bound "
+          f"{bound_ms(nbytes, ops)[0]:.3f} ms, plain {pms:.3f} ms, "
+          f"autograd of the cuBLAS chain {lms:.3f} ms (forward and "
+          f"backward), {ops / ms / 1e9:.1f} TFLOP/s, {nnz} non-zero pooled "
+          f"gradients routed to {hit} of {slots} slots")
+    return rows
+
+
+def pooled_inputs(model, pts):
+    """The RCNN's pooled ROIs (xyz, rest) of the joint eval forward."""
+    import torch
+
+    with torch.no_grad():
+        out = model({"pts_input": pts})
+        xyz, rest, _, _ = model.pool_rois(
+            out["backbone_xyz"], out["backbone_features"],
+            out["rpn_cls"][..., 0], out["rois"])
+    return xyz, rest
+
+
+def sampled_targets(model, batch, state, gen):
+    """The targets the train step's RCNN sees, from one train-mode forward;
+    the running statistics it moved are restored from ``state``."""
+    import torch
+
+    with torch.no_grad():
+        out = model({"pts_input": batch["pts_input"],
+                     "gt_boxes3d": batch["gt_boxes3d"]}, train=True,
+                    bn_momentum=0.9, generator=gen)
+    model.load_state_dict(state)
+    return {k: out[k] for k in (
+        "sampled_pts", "pts_feature", "cls_label", "reg_valid_mask",
+        "gt_of_rois", "gt_iou", "roi_boxes3d")}
+
+
+def check_joint_outputs(cfg, out, batch, label):
+    """The joint eval path's outputs: shapes, finite values, some valid rois
+    and some final boxes."""
+    post, n = cfg.TEST.RPN_POST_NMS_TOP_N, cfg.RPN.NUM_POINTS
+    check_outputs(out, {
+        "final_boxes": (batch, 100, 7), "final_scores": (batch, 100),
+        "final_mask": (batch, 100), "pred_boxes3d": (batch, post, 7),
+        "norm_scores": (batch, post), "raw_scores": (batch, post),
+        "rois": (batch, post, 7), "roi_scores_raw": (batch, post),
+        "roi_valid": (batch, post), "seg_result": (batch, n)})
+    n_valid = int(out["roi_valid"].sum())
+    n_final = int(out["final_mask"].sum())
+    check(n_valid > 0, f"{label} eval: no valid roi")
+    check(n_final > 0, f"{label} eval: no final box")
+    print(f"{label} joint path: B={batch} N={n} NPOINTS="
+          f"{list(cfg.RPN.SA_CONFIG.NPOINTS)} pre/post NMS "
+          f"{cfg.TEST.RPN_PRE_NMS_TOP_N}/{post}, RCNN {cfg.RCNN.NUM_POINTS} "
+          f"points per ROI, NPOINTS {list(cfg.RCNN.SA_CONFIG.NPOINTS)}: "
+          f"valid rois {n_valid}/{batch * post}, final boxes "
+          f"{n_final}/{batch * 100}")
+
+
+def check_launches(launches, expect, label):
+    """Exact launch counts of one forward or step: ``expect``'s, and 0 for
+    every other kernel."""
+    for name, n in launches.items():
+        check(n == expect.get(name, 0), f"{label}: {name} launched {n} "
+              f"times, expected {expect.get(name, 0)}")
 
 
 def main() -> int:
@@ -971,16 +1319,8 @@ def main() -> int:
     tb_np = train_batch(TRAIN_BATCH, N, SEED)
     tbatch = {k: torch.from_numpy(v).to(dev) for k, v in tb_np.items()}
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    with torch.no_grad():  # the targets the step's RCNN sees, for phase 3
-        target_out = train_model(
-            {"pts_input": tbatch["pts_input"],
-             "gt_boxes3d": tbatch["gt_boxes3d"]}, train=True,
-            bn_momentum=0.9, generator=gen)
-    target = {k: target_out[k] for k in (
-        "sampled_pts", "pts_feature", "cls_label", "reg_valid_mask",
-        "gt_of_rois", "gt_iou", "roi_boxes3d")}
-    del target_out
-    train_model.load_state_dict(train_state)  # undo the statistics' update
+    # the targets the step's RCNN sees, for phase 3
+    target = sampled_targets(train_model, tbatch, train_state, gen)
 
     # configs/double.yaml: default.yaml at 32768 points per scene, so the
     # same parameter tree and seeded weights; eval at B=4, train at B=16
@@ -992,6 +1332,39 @@ def main() -> int:
     dtbatch = {k: torch.from_numpy(v).to(dev)
                for k, v in train_batch(TRAIN_BATCH, DN, SEED).items()}
     sa0 = dcfg.RPN.SA_CONFIG.NPOINTS[0]
+
+    # configs/quickstart.yaml and configs/smoke.yaml as shipped, each with
+    # its own seeded weights: eval and train batches, and the targets of
+    # the train step's RCNN
+    side = {}
+    for name, eval_b, train_b in (
+            ("quickstart", QUICK_EVAL_BATCH, QUICK_TRAIN_BATCH),
+            ("smoke", SMOKE_BATCH, SMOKE_BATCH)):
+        c = cfg_from_file(str(ROOT / "configs" / f"{name}.yaml"), fresh_cfg())
+        m = PointRCNN(c, mode="TEST", device=dev)
+        m.load_state_dict(seeded_state_dict(m, SEED))
+        tm = PointRCNN(c, mode="TRAIN", device=dev)
+        ts = train_weights(tm, SEED)
+        tm.load_state_dict(ts)
+        n = c.RPN.NUM_POINTS
+        tb = {k: torch.from_numpy(v).to(dev)
+              for k, v in train_batch(train_b, n, SEED).items()}
+        side[name] = dict(
+            cfg=c, model=m, train_model=tm, tbatch=tb,
+            pts=torch.from_numpy(random_scenes(eval_b, n, SEED)).to(dev),
+            target=sampled_targets(tm, tb, ts, gen))
+    q, sm = side["quickstart"], side["smoke"]
+
+    # default.yaml with RCNN.USE_BN true (no file in configs/ sets it): the
+    # RCNN's BatchNorm parameters and statistics seeded away from 0 and 1,
+    # eval on the default scenes
+    bcfg = copy.deepcopy(cfg)
+    bcfg.RCNN.USE_BN = True
+    bmodel = PointRCNN(bcfg, mode="TEST", device=dev)
+    bstate = seeded_state_dict(bmodel, SEED)
+    bmodel.load_state_dict(bstate)
+    check(any(".bn_" in k for k in bstate if k.startswith("rcnn_net.sa_0")),
+          "the BatchNorm RCNN has no BatchNorm in its SA levels")
     phases.done("setup")
 
     # 3. each kernel against its plain version, at its path's shapes
@@ -1004,6 +1377,42 @@ def main() -> int:
     double_kernels(report, double_report, dpts,
                    dtbatch["pts_input"][..., :3].contiguous(), sa0)
     torch.cuda.empty_cache()
+    # the slab form: the eval kernel at RCNN SA_1 of quickstart.yaml's and
+    # smoke.yaml's eval forward, the training kernels at RCNN SA_1 of their
+    # train steps' sampled rows (smoke's kept apart in smoke_report), the
+    # eval kernel with BatchNorm packs at RCNN SA_0 and SA_1 of the
+    # BatchNorm RCNN's eval forward
+    smoke_report = Report()
+    slab_gen = torch.Generator(device="cpu").manual_seed(SEED + 4)
+    slab_cases = (
+        (QUICK_PATH["eval"], q["model"], pooled_inputs(q["model"], q["pts"]),
+         report, [1], False),
+        (SMOKE_PATH["eval"], sm["model"], pooled_inputs(sm["model"],
+                                                        sm["pts"]),
+         smoke_report, [1], False),
+        (QUICK_PATH["train"], q["train_model"],
+         (q["target"]["sampled_pts"], q["target"]["pts_feature"]), report,
+         [1], True),
+        (SMOKE_PATH["train"], sm["train_model"],
+         (sm["target"]["sampled_pts"], sm["target"]["pts_feature"]),
+         smoke_report, [1], True),
+        (BN_PATH, bmodel, pooled_inputs(bmodel, pts), report, [0, 1], False))
+    for path, mdl, inputs, into, expect_levels, train in slab_cases:
+        levels = slab_levels(mdl, *inputs)
+        check([k for k, _, _ in levels] == expect_levels,
+              f"{path}: the slab route at RCNN SA_"
+              f"{[k for k, _, _ in levels]}, expected {expect_levels}")
+        for k, x0, mlp in levels:
+            label = f"{path}, RCNN SA_{k}"
+            if train:
+                for name, row in slab_train_kernels(x0, mlp, label,
+                                                    slab_gen).items():
+                    into.add(name, *row)
+            else:
+                name, row = slab_eval_kernel(x0, mlp, label)
+                into.add(name, *row)
+        del levels
+        torch.cuda.empty_cache()
     phases.done("3 (kernels against plain)")
 
     # 4. both paths at full width
@@ -1021,20 +1430,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     out, launches, path_ms = drive(make_infer_step(model, cfg), pts,
                                    EVAL_KERNELS, "joint")
-    check_outputs(out, {
-        "final_boxes": (B, 100, 7), "final_scores": (B, 100),
-        "final_mask": (B, 100), "pred_boxes3d": (B, post, 7),
-        "norm_scores": (B, post), "raw_scores": (B, post),
-        "rois": (B, post, 7), "roi_scores_raw": (B, post),
-        "roi_valid": (B, post), "seg_result": (B, N)})
-    n_valid = int(out["roi_valid"].sum())
-    n_final = int(out["final_mask"].sum())
-    check(n_valid > 0, "no valid roi")
-    check(n_final > 0, "no final box")
-    print(f"joint path: B={B} N={N} NPOINTS={list(cfg.RPN.SA_CONFIG.NPOINTS)} "
-          f"pre/post NMS {cfg.TEST.RPN_PRE_NMS_TOP_N}/{post}, RCNN "
-          f"{cfg.RCNN.NUM_POINTS} points per ROI: valid rois "
-          f"{n_valid}/{B * post}, final boxes {n_final}/{B * 100}")
+    check_joint_outputs(cfg, out, B, "default")
     kernels_ms = sum(report.rows[k]["ms"] for k in EVAL_KERNELS)
     print(f"joint path {path_ms:.1f} ms/batch, RPN-only path "
           f"{rpn_path_ms:.1f} ms/batch; the five kernels {kernels_ms:.1f} ms "
@@ -1116,21 +1512,8 @@ def main() -> int:
           f"expected once per RPN level ({n_levels})")
     check(dlaunches["three_nn"] == 0 and dlaunches["fps_long"] == 0,
           "double eval should take the fused route at every level")
-    dpost = dcfg.TEST.RPN_POST_NMS_TOP_N
-    check_outputs(dout, {
-        "final_boxes": (DOUBLE_BATCH, 100, 7),
-        "final_scores": (DOUBLE_BATCH, 100),
-        "final_mask": (DOUBLE_BATCH, 100),
-        "pred_boxes3d": (DOUBLE_BATCH, dpost, 7),
-        "rois": (DOUBLE_BATCH, dpost, 7), "roi_valid": (DOUBLE_BATCH, dpost),
-        "seg_result": (DOUBLE_BATCH, DN)})
-    n_valid = int(dout["roi_valid"].sum())
-    n_final = int(dout["final_mask"].sum())
-    check(n_valid > 0, "double eval: no valid roi")
-    check(n_final > 0, "double eval: no final box")
-    print(f"double joint path: B={DOUBLE_BATCH} N={DN}: {dpath_ms:.1f} "
-          f"ms/batch, valid rois {n_valid}/{DOUBLE_BATCH * dpost}, final "
-          f"boxes {n_final}/{DOUBLE_BATCH * 100}, peak device memory "
+    check_joint_outputs(dcfg, dout, DOUBLE_BATCH, "double")
+    print(f"double joint path: {dpath_ms:.1f} ms/batch, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del dmodel, dout
     torch.cuda.empty_cache()
@@ -1154,15 +1537,93 @@ def main() -> int:
     compare_split_on_cpu(dtbatch["pts_input"][..., :3].contiguous(), sa0)
     phases.done("7 (double.yaml)")
 
-    # 8. kernels line and result line: launches from the path each kernel
-    # was timed at (per forward or per train step), and on both double paths
+    # 8. configs/quickstart.yaml: the joint eval path at B=8 and the joint
+    # train step at B=4, then scene 0 against the CPU plain path
+    qcfg = q["cfg"]
+    torch.cuda.reset_peak_memory_stats()
+    qout, qlaunches, qpath_ms = drive(make_infer_step(q["model"], qcfg),
+                                      q["pts"], tuple(QUICK_EVAL),
+                                      "quickstart joint")
+    check_launches(qlaunches, QUICK_EVAL, "quickstart eval")
+    check_joint_outputs(qcfg, qout, QUICK_EVAL_BATCH, "quickstart")
+    print(f"quickstart joint path: B={QUICK_EVAL_BATCH} {qpath_ms:.1f} "
+          f"ms/batch, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    _, qtrain_launches, qstep_ms = drive_train(
+        qcfg, q["train_model"], q["tbatch"], gen, tuple(QUICK_TRAIN),
+        "quickstart joint train step", 5)
+    check_launches(qtrain_launches, QUICK_TRAIN, "quickstart train step")
+    print(f"quickstart joint train step: B={QUICK_TRAIN_BATCH} "
+          f"{qstep_ms:.1f} ms/step, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    qcpu = PointRCNN(qcfg, mode="TEST", device="cpu")
+    qcpu.load_state_dict({k: v.cpu() for k, v in
+                          q["model"].state_dict().items()})
+    with torch.no_grad():
+        joint = q["model"]({"pts_input": q["pts"]})
+    joint["rpn_scores_raw"] = joint["rpn_cls"][..., 0]
+    compare_rcnn_on_cpu(qcfg, q["model"], qcpu, joint)
+    compare_train_on_cpu(qcfg, q["train_model"], q["target"], q["tbatch"],
+                         rpn=False)
+    del qcpu, joint, qout, side, q
+    torch.cuda.empty_cache()
+    phases.done("8 (quickstart.yaml)")
+
+    # 9. configs/smoke.yaml: the joint eval path and the joint train step,
+    # both at B=2
+    scfg = sm["cfg"]
+    sout, slaunches, spath_ms = drive(make_infer_step(sm["model"], scfg),
+                                      sm["pts"], tuple(SMOKE_EVAL),
+                                      "smoke joint")
+    check_launches(slaunches, SMOKE_EVAL, "smoke eval")
+    check_joint_outputs(scfg, sout, SMOKE_BATCH, "smoke")
+    _, strain_launches, sstep_ms = drive_train(
+        scfg, sm["train_model"], sm["tbatch"], gen, tuple(SMOKE_TRAIN),
+        "smoke joint train step", 3)
+    check_launches(strain_launches, SMOKE_TRAIN, "smoke train step")
+    print(f"smoke joint path: B={SMOKE_BATCH} {spath_ms:.1f} ms/batch; "
+          f"joint train step: B={SMOKE_BATCH} {sstep_ms:.1f} ms/step")
+    del sm, sout
+    phases.done("9 (smoke.yaml)")
+
+    # 10. default.yaml with RCNN.USE_BN true: the joint eval path at B=2,
+    # then scene 0's RCNN stage and final boxes against the CPU plain path
+    torch.cuda.reset_peak_memory_stats()
+    bout, blaunches, bpath_ms = drive(make_infer_step(bmodel, bcfg), pts,
+                                      tuple(BN_EVAL), "BatchNorm RCNN joint")
+    check_launches(blaunches, BN_EVAL, "BatchNorm RCNN eval")
+    check_joint_outputs(bcfg, bout, BN_BATCH, "BatchNorm RCNN")
+    print(f"BatchNorm RCNN joint path: B={BN_BATCH} {bpath_ms:.1f} ms/batch, "
+          f"peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    bcpu = PointRCNN(bcfg, mode="TEST", device="cpu")
+    bcpu.load_state_dict(bstate)
+    with torch.no_grad():
+        joint = bmodel({"pts_input": pts})
+    joint["rpn_scores_raw"] = joint["rpn_cls"][..., 0]
+    compare_rcnn_on_cpu(bcfg, bmodel, bcpu, joint)
+    del bmodel, bcpu, joint, bout
+    torch.cuda.empty_cache()
+    phases.done("10 (BatchNorm RCNN)")
+
+    # 11. kernels line and result line: launches from the path each kernel
+    # was timed at (per forward or per train step), and on the other paths
     runs = {"default.yaml eval B=2": launches,
             "default.yaml train B=16": train_launches,
-            "double.yaml train B=16": dtrain_launches}
+            "double.yaml eval B=4": dlaunches,
+            "double.yaml train B=16": dtrain_launches,
+            QUICK_PATH["eval"]: qlaunches, QUICK_PATH["train"]: qtrain_launches,
+            SMOKE_PATH["eval"]: slaunches, SMOKE_PATH["train"]: strain_launches,
+            BN_PATH: blaunches}
     kernels = []
     for name, r in report.rows.items():
         b_ms, b_by = bound_ms(r["bytes"], r["ops"])
+        slab_mode = ("train" if name in ("fused_sa_slab_train",
+                                         "fused_sa_slab_bwd") else "eval")
         path = ("double.yaml train B=16" if name in ("three_nn", "fps_long")
+                else BN_PATH if name == "fused_sa_slab_bn"
+                else QUICK_PATH[slab_mode] if name.startswith("fused_sa_slab")
                 else "default.yaml eval B=2" if name in EVAL_KERNELS
                 else "default.yaml train B=16")
         row = {
@@ -1171,17 +1632,25 @@ def main() -> int:
             "path": path, "train_launches": train_launches[name],
             "double_eval_launches": dlaunches[name],
             "double_train_launches": dtrain_launches[name],
+            "quickstart_eval_launches": qlaunches[name],
+            "quickstart_train_launches": qtrain_launches[name],
+            "smoke_eval_launches": slaunches[name],
+            "smoke_train_launches": strain_launches[name],
+            "bn_eval_launches": blaunches[name],
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": r["lib_ms"],
             "status": "ported"}
-        if name in double_report.rows:  # fps3nn at double eval's SA_0
-            d = double_report.rows[name]
-            d_ms, d_by = bound_ms(d["bytes"], d["ops"])
-            row["at_32768"] = {
-                "path": "double.yaml eval B=4, SA_0",
-                "launches": dlaunches[name], "max_abs_err": d["err"],
-                "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d_ms,
-                "bound_by": d_by, "library_ms": d["lib_ms"]}
+        for extra, at, where in (
+                (double_report, "at_32768", "double.yaml eval B=4"),
+                (smoke_report, "at_smoke", SMOKE_PATH[slab_mode])):
+            if name in extra.rows:
+                d = extra.rows[name]
+                d_ms, d_by = bound_ms(d["bytes"], d["ops"])
+                row[at] = {
+                    "path": where, "launches": runs[where][name],
+                    "max_abs_err": d["err"], "ms": d["ms"],
+                    "plain_ms": d["plain_ms"], "bound_ms": d_ms,
+                    "bound_by": d_by, "library_ms": d["lib_ms"]}
         kernels.append(row)
     check(len(kernels) == len(SOURCES), f"kernels timed: {len(kernels)}")
     print(json.dumps({"kernels": kernels, "not_ported": [

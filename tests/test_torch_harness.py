@@ -12,10 +12,11 @@ import torch
 import tpu3d.config as jax_config
 from tpu3d_torch.config import cfg_from_file, fresh_cfg
 from tpu3d_torch.models import PointRCNN
-from tpu3d_torch.ops import (furthest_point_sample,
+from tpu3d_torch.ops import (ball_query, furthest_point_sample,
                              furthest_point_sample_with_3nn,
-                             fused_gathered_mlp_pool, nearest_k,
-                             three_interpolate, three_nn)
+                             fused_bn_mlp_pool, fused_gathered_mlp_pool,
+                             fused_mlp_pool, nearest_k, three_interpolate,
+                             three_nn)
 from tpu3d_torch.ops import _build
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -87,14 +88,57 @@ def test_plain_versions_count_no_launches():
     for i in (0, 2, 3, 4, 5, 6):
         args[i].requires_grad_()
     fused_gathered_mlp_pool(*args).sum().backward()
+    slab = [torch.rand(1, 16, 16, 128), torch.rand(128, 128), torch.rand(128),
+            torch.rand(128, 128), torch.rand(128)]
+    with torch.no_grad():
+        fused_mlp_pool(*slab)
+        fused_bn_mlp_pool(slab[0], slab[1], slab[3],
+                          [(torch.rand(128), torch.rand(128))] * 3)
+    for t in slab:
+        t.requires_grad_()
+    fused_mlp_pool(*slab).sum().backward()
+    ball_query(xyz[:, :32].contiguous(), xyz, 0.3, 16, method="first")
     assert picks.shape == (1, 32)
     assert feats.grad is not None and weight.grad is not None
     assert all(args[i].grad is not None for i in (0, 2, 3, 4, 5, 6))
+    assert all(t.grad is not None for t in slab)
     assert set(_build.LAUNCHES) == {
         "fps3nn", "nearest_k", "three_interpolate", "three_interpolate_bwd",
         "fps", "fused_sa", "fused_sa_train", "fused_sa_bwd", "three_nn",
-        "fps_long"}
+        "fps_long", "fused_sa_slab", "fused_sa_slab_bn",
+        "fused_sa_slab_train", "fused_sa_slab_bwd"}
     assert not any(_build.LAUNCHES.values()), _build.LAUNCHES
+
+
+def test_pending_error_names_the_earlier_launch(monkeypatch):
+    """A C entry that finds an error already pending on its stream returns
+    it as ``PENDING`` + its code; ``launch`` then raises it as pending before
+    this launch, names the port's last kernel launched before it, and counts
+    no launch. An error of the entry's own launch names that kernel and
+    counts it. (The C entries are stubbed: no card here.)"""
+    codes = {"fps": 0, "nearest_k": _build.PENDING + 700, "fused_sa": 98}
+    monkeypatch.setattr(_build, "kernel",
+                        lambda name: lambda *args: codes[name])
+    monkeypatch.setattr(_build, "error_name",
+                        lambda name, err: {700: "cudaErrorIllegalAddress",
+                                           98: "cudaErrorInvalidDeviceFunction"}
+                        [err])
+    monkeypatch.setattr(_build.torch.cuda, "current_stream",
+                        lambda: type("S", (), {"cuda_stream": 0})())
+    _build.reset_launches()
+    _build.launch("fps", 1, 2)
+    with pytest.raises(RuntimeError) as pending:
+        _build.launch("nearest_k", 1, 2)
+    msg = str(pending.value)
+    assert "cudaErrorIllegalAddress (700) was pending before the launch of " \
+        "nearest_k" in msg
+    assert "last kernel launched before it was fps" in msg
+    with pytest.raises(RuntimeError, match="CUDA kernel fused_sa failed to "
+                       "launch: cudaErrorInvalidDeviceFunction"):
+        _build.launch("fused_sa", 1)
+    assert (_build.LAUNCHES["fps"], _build.LAUNCHES["nearest_k"],
+            _build.LAUNCHES["fused_sa"]) == (1, 0, 1)
+    _build.reset_launches()
 
 
 def test_kernel_library_names_follow_sources():

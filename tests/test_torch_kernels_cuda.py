@@ -10,15 +10,19 @@ import numpy as np
 import pytest
 import torch
 
+from tpu3d_torch.models.pointnet2 import PointnetSAModule
 from tpu3d_torch.ops import (furthest_point_sample,
                              furthest_point_sample_with_3nn,
-                             fused_gathered_mlp_pool, nearest_k,
-                             three_interpolate, three_nn, three_nn_plain)
+                             fused_bn_mlp_pool, fused_gathered_mlp_pool,
+                             fused_mlp_pool, nearest_k, three_interpolate,
+                             three_nn, three_nn_plain)
 from tpu3d_torch.ops import _build
 from tpu3d_torch.ops.fused_sa import (
-    fused_gathered_mlp_pool_backward, fused_gathered_mlp_pool_backward_plain,
-    fused_gathered_mlp_pool_plain, fused_gathered_mlp_pool_train,
-    fused_gathered_mlp_pool_train_plain)
+    bn_packs, fused_gathered_mlp_pool_backward,
+    fused_gathered_mlp_pool_backward_plain, fused_gathered_mlp_pool_plain,
+    fused_gathered_mlp_pool_train, fused_gathered_mlp_pool_train_plain,
+    fused_mlp_pool_backward, fused_mlp_pool_backward_plain,
+    fused_mlp_pool_train, fused_mlp_pool_train_plain, fused_sa_slab_plain)
 from tpu3d_torch.ops.grouping import nearest_k_plain
 from tpu3d_torch.ops.interpolate import (three_interpolate_backward,
                                          three_interpolate_backward_plain,
@@ -183,3 +187,92 @@ def test_long_row_kernels_match_plain_on_cuda(name):
         for g, r in zip(got, ref):
             torch.testing.assert_close(g, r, rtol=0, atol=0)
     assert _build.LAUNCHES[name] > 0
+
+
+def _slab_inputs(r, m, s, c3, seed):
+    """A grouped slab whose groups repeat their first h slots (h random per
+    group, as pooled rows and the ball query's pad repeat points), weights
+    and an output gradient."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x0 = torch.randn(r, m, s, 128, generator=g, device="cuda")
+    h = torch.randint(1, s + 1, (r, m, 1), generator=g, device="cuda")
+    slots = torch.arange(s, device="cuda") % h
+    x0 = torch.gather(x0, 2, slots[..., None].expand(-1, -1, -1, 128))
+    return (x0.contiguous(),
+            torch.randn(128, 128, generator=g, device="cuda") / 128 ** 0.5,
+            torch.randn(128, generator=g, device="cuda") * 0.1,
+            torch.randn(128, c3, generator=g, device="cuda") / 128 ** 0.5,
+            torch.randn(c3, generator=g, device="cuda") * 0.1,
+            torch.randn(r, m, c3, generator=g, device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fused_sa_slab", "fused_sa_slab_train",
+                                  "fused_sa_slab_bwd", "fused_sa_slab_bn"])
+def test_slab_kernels_match_plain_on_cuda(name):
+    """The slab form of the fused SA op (quickstart.yaml's and smoke.yaml's
+    RCNN SA_1, and an RCNN with BatchNorm at eval) against its plain
+    versions on the card, at S 16/32/64 and C3 128/256: the eval output,
+    without and with BatchNorm packs, within 1e-4 of its largest value; the
+    training output equal to the eval kernel's to the bit, its first-argmax
+    slots equal to the plain version's but at near-ties; the five gradients
+    within 1e-4 of each one's largest value, routed by the plain version's
+    argmax and ppre."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    _build.reset_launches()
+    for s, c3 in ((64, 256), (16, 128), (32, 256), (64, 128)):
+        *args, grad = _slab_inputs(64, 16, s, c3, seed=s + c3)
+        ref = fused_mlp_pool_train_plain(*args)
+        tol = 1e-4 * ref[0].abs().max().item()
+        if name == "fused_sa_slab":
+            torch.testing.assert_close(fused_mlp_pool(*args), ref[0], rtol=0,
+                                       atol=tol)
+        elif name == "fused_sa_slab_train":
+            out, arg, ppre = fused_mlp_pool_train(*args)
+            torch.testing.assert_close(out, fused_mlp_pool(*args), rtol=0,
+                                       atol=0)
+            torch.testing.assert_close(out, ref[0], rtol=0, atol=tol)
+            agree = (arg == ref[1]).float().mean().item()
+            assert agree > 0.999, agree  # near-ties may flip in f32
+            torch.testing.assert_close(ppre, ref[2], rtol=0, atol=tol)
+        elif name == "fused_sa_slab_bwd":
+            got = fused_mlp_pool_backward(*args, grad, ref[1], ref[2])
+            want = fused_mlp_pool_backward_plain(*args, grad, ref[1], ref[2])
+            for g_, r_ in zip(got, want):
+                torch.testing.assert_close(
+                    g_, r_, rtol=0, atol=1e-4 * r_.abs().max().item())
+        else:
+            x0, w1, _, w2, _ = args
+            g = torch.Generator(device="cuda").manual_seed(s)
+            affines = [(1 + 0.2 * torch.randn(c, generator=g, device="cuda"),
+                        0.2 * torch.randn(c, generator=g, device="cuda"))
+                       for c in (128, 128, c3)]
+            want = fused_sa_slab_plain(x0, bn_packs(affines), w1, w2)
+            torch.testing.assert_close(
+                fused_bn_mlp_pool(x0, w1, w2, affines), want, rtol=0,
+                atol=1e-4 * want.abs().max().item())
+    assert _build.LAUNCHES[name] > 0
+
+
+@pytest.mark.cuda
+def test_bn_chain_training_raises_on_cuda():
+    """The BatchNorm chain's training kernels are not ported: an RCNN level
+    with BatchNorm in training, or a gradient through the eval kernel,
+    raises on the card instead of running plain torch; at eval it launches
+    the slab kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    sa = PointnetSAModule(16, 0.8, 64, (128, 128, 256), 125, bn=True,
+                          device="cuda")
+    xyz = torch.rand(4, 64, 3, device="cuda")
+    feats = torch.randn(4, 64, 125, device="cuda")
+    with pytest.raises(NotImplementedError, match="kernel 9"):
+        sa(xyz, feats, train=True)
+    with pytest.raises(NotImplementedError, match="training kernels"):
+        sa(xyz, feats)
+    _build.reset_launches()
+    with torch.no_grad():
+        _, out = sa(xyz, feats)
+    assert out.shape == (4, 16, 256)
+    assert _build.LAUNCHES["fused_sa_slab_bn"] == 1

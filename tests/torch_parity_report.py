@@ -25,6 +25,7 @@ from test_torch_rcnn_ops import (_boxes5, _pooled_rows,  # noqa: E402
                                  _scene_and_rois)
 from test_torch_rpn import run_pair  # noqa: E402
 import test_torch_double as td  # noqa: E402
+import test_torch_slab as ts  # noqa: E402
 import test_torch_train as tt  # noqa: E402
 import test_torch_train_ops as to  # noqa: E402
 from tpu3d.ops import furthest_point_sample_with_3nn as jax_fps3nn  # noqa
@@ -32,6 +33,7 @@ from tpu3d.ops import three_interpolate as jax_three_interpolate  # noqa
 from tpu3d.ops.interpolate import three_nn as jax_three_nn  # noqa: E402
 from tpu3d.ops.fused_sa import fused_gathered_mlp_pool as jax_fused  # noqa
 from tpu3d.ops.fused_sa import fused_mlp_pool_reference  # noqa: E402
+from tpu3d.ops import fused_sa as jax_fused_sa  # noqa: E402
 from tpu3d.ops.grouping import nearest_k as jax_nearest_k  # noqa: E402
 from tpu3d.ops.roipool import roipool3d as jax_roipool3d  # noqa: E402
 from tpu3d.ops.rotated_iou import rotated_overlap_bev as jax_overlap  # noqa
@@ -229,6 +231,81 @@ def double_report():
               f"statistics kept {kept}")
 
 
+def slab_report():
+    """The slab form of the fused SA op, with and without BatchNorm, the
+    quickstart.yaml and smoke.yaml slices and the BatchNorm RCNN, on the
+    inputs of tests/test_torch_slab.py."""
+    for shape in ts.SLAB_SHAPES:
+        evl, out, ref, grads, jgrads, _ = ts.slab_reference_case(shape)
+        errs = ", ".join(
+            f"{n} {np.abs(a - b).max() / np.abs(b).max():.3e}"
+            for n, a, b in zip(ts.NAMES, grads, jgrads))
+        print(f"fused_mlp_pool {shape} against the f32 reference: out "
+              f"{np.abs(evl - ref).max() / np.abs(ref).max():.3e} of the "
+              f"largest; gradients, of each one's largest: {errs}")
+        out, jout, arg, jarg, grads, jgrads, shifts, moved, entries = \
+            ts.slab_pallas_case(shape)
+
+        def rel(a, b):
+            return np.abs(a - b) / (np.abs(b).max() + 1e-3)
+
+        errs = ", ".join(
+            f"{n} {rel(a, b).max():.3e} (under the TPU kernel's layer-1 "
+            f"mask {rel(a + s, b).max():.3e}) / {rel(a + s, b).mean():.3e}"
+            for n, a, b, s in zip(ts.NAMES, grads, jgrads, (*shifts, 0, 0)))
+        print(f"fused_mlp_pool {shape} against the Pallas kernel "
+              f"(interpret): out max abs {np.abs(out - jout).max():.3e}, "
+              f"argmax equal {(arg == jarg).mean():.4f}; layer-1 mask "
+              f"entries of the other sign {moved} of {entries}; gradients "
+              f"max / mean rel: {errs}")
+    for shape in ts.BN_SHAPES:
+        (x0, w1, w2), bns = ts._bn_case(shape, shape[1])
+        ref = ts._jax_bn(jax_fused_sa.fused_bn_mlp_pool_reference, x0, w1,
+                         w2, bns)
+        err = np.abs(ts._port_bn(x0, w1, w2, bns) - ref).max()
+        (x0, w1, w2), bns = ts._bn_case(shape, shape[1] + 1)
+        x0, w1, w2 = ts._bf16_exact((x0, w1, w2))
+        tpu = np.abs(ts._port_bn(x0, w1, w2, bns) - ts._jax_bn(
+            jax_fused_sa.fused_bn_mlp_pool, x0, w1, w2, bns, interpret=True))
+        print(f"fused_bn_mlp_pool {shape}: against the f32 reference "
+              f"{err / np.abs(ref).max():.3e} of the largest; against the "
+              f"Pallas kernel (interpret) max {tpu.max():.3e}, mean "
+              f"{tpu.mean():.3e}")
+    for name in sorted(ts.CONFIGS):
+        jcfg = ts._config(name)
+        params, stats, model, _, jout, out, calls = ts.run_config_eval(
+            jcfg, ts.CONFIGS[name], 11)
+        for key in ("backbone_features", "rpn_cls", "rpn_reg"):
+            print(f"{name}.yaml eval (B={ts.CONFIGS[name]}), {key}: max abs "
+                  f"{np.abs(out[key] - jout[key]).max():.3e} (max |value| "
+                  f"{np.abs(jout[key]).max():.3e})")
+        with torch.no_grad():
+            st = model.rcnn_stage(*(torch.tensor(a) for a in (
+                jout["backbone_xyz"], jout["backbone_features"],
+                jout["rpn_cls"][..., 0], jout["rois"])))
+        for key in ("rcnn_cls", "rcnn_reg"):
+            d = np.abs(st[key].numpy() - jout[key]).max(axis=1)
+            print(f"{name}.yaml RCNN stage on tpu3d's rois, {key}: max abs "
+                  f"{d.max():.3e}, second largest over ROIs "
+                  f"{np.sort(d)[-2]:.3e} (max |value| "
+                  f"{np.abs(jout[key]).max():.3e}); routes {calls}")
+        loss, grads, jloss, jgrads, _ = ts.config_rcnn_grad_case(name)
+        err, top = _tree_err(grads, jgrads)
+        print(f"{name}.yaml RCNN gradients on tpu3d's targets, f64: loss "
+              f"{abs(loss - jloss):.3e} (of {jloss:.3e}), gradients max abs "
+              f"{err:.3e} (largest {top:.3e})")
+    jcfg = ts.bn_config()
+    _, _, model, _, jout, _, calls = ts.run_config_eval(jcfg, 2, 14)
+    with torch.no_grad():
+        st = model.rcnn_stage(*(torch.tensor(a) for a in (
+            jout["backbone_xyz"], jout["backbone_features"],
+            jout["rpn_cls"][..., 0], jout["rois"])))
+    for key in ("rcnn_cls", "rcnn_reg"):
+        print(f"default.yaml with USE_BN (cut), RCNN stage on tpu3d's rois, "
+              f"{key}: max abs {np.abs(st[key].numpy() - jout[key]).max():.3e}"
+              f" (max |value| {np.abs(jout[key]).max():.3e}); routes {calls}")
+
+
 def main():
     rng = np.random.default_rng(4096)
     xyz = rng.uniform([-30, -1, 0], [30, 3, 70], (2, 4096, 3)).astype(
@@ -278,6 +355,7 @@ def main():
     rcnn_report()
     train_report()
     double_report()
+    slab_report()
 
 
 if __name__ == "__main__":

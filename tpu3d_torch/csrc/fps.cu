@@ -18,6 +18,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "launch_check.cuh"
+
 namespace {
 
 constexpr int kRows = 4;  // rows (warps) per block
@@ -112,6 +114,7 @@ cudaError_t launch(const float* xyz, int R, int N, int npoint, int* idx,
 extern "C" int tpu3d_fps(const float* xyz, int R, int N, int npoint, int* idx,
                          void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (const int pending = tpu3d::pending_error(stream)) return pending;
   if (R < 1 || N < 1 || N > kMaxN || npoint < 1 || npoint > N)
     return (int)cudaErrorInvalidValue;
   const int ppl = (N + 31) / 32;

@@ -37,6 +37,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "launch_check.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -315,6 +317,7 @@ extern "C" int tpu3d_fps3nn(const float* xyz, int B, int N, int npoint,
                             int* idx, float* nn_d2, int* nn_idx,
                             void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (const int pending = tpu3d::pending_error(stream)) return pending;
   if (B < 1 || B > 65535 || N < 1 || N > kMaxLongN || npoint < 1 ||
       npoint > N)
     return (int)cudaErrorInvalidValue;
@@ -328,9 +331,10 @@ extern "C" int tpu3d_fps3nn(const float* xyz, int B, int N, int npoint,
 
 extern "C" int tpu3d_fps_long(const float* xyz, int B, int N, int npoint,
                               int* idx, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (const int pending = tpu3d::pending_error(stream)) return pending;
   if (B < 1 || B > 65535 || N < 1 || N > kMaxLongN || npoint < 1 ||
       npoint > N)
     return (int)cudaErrorInvalidValue;
-  return (int)launch_fps_any(xyz, B, N, npoint, idx,
-                             static_cast<cudaStream_t>(stream_ptr));
+  return (int)launch_fps_any(xyz, B, N, npoint, idx, stream);
 }

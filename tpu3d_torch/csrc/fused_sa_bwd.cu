@@ -1,8 +1,13 @@
 // Backward of the fused grouped gather + two-layer MLP + max-pool (no
-// BatchNorm), for Hopper (sm_90a).
+// BatchNorm), for Hopper (sm_90a), in the forward's two forms.
 //
-// Replaces tpu3d/ops/fused_sa.py::_nobn2_bwd_kernel (the VJP of
-// fused_gathered_mlp_pool(train=True), :926-945). Inputs: the forward's
+// The gather form replaces tpu3d/ops/fused_sa.py::_nobn2_bwd_kernel (the
+// VJP of fused_gathered_mlp_pool(train=True), :926-945); the slab form
+// replaces _nobn_bwd_kernel (the VJP of fused_mlp_pool, :666-688), whose
+// x0 is read from the grouped slab and whose d_x0 is the slab's gradient,
+// stored row by row: each slot owns its slab row, so there are no atomics
+// and no d_center (autograd takes the slab's gradient on to pre and
+// center through the grouping). Inputs: the forward's
 // inputs, dval (R, M, C3) = the pooled gradient where the pooled channel's
 // pre-ReLU value is > 0 (else 0), and the forward's first argmax slot of
 // each channel. Per (row, center) group it regathers x0 = pre[idx] - center,
@@ -36,7 +41,8 @@
 // d_x1 overwrites a1 in place, dW1 / db1 take a0^T d_x1, and d_a0 is the
 // dense layer again with W1^T; d_x0 leaves the registers as float atomics
 // into d_pre (pooled rows repeat ids, so the atomics cannot be plain
-// stores) and as a per-warp partial sum for d_center.
+// stores) and as a per-warp partial sum for d_center; in the slab form it
+// is one float4 store per thread and slab row.
 // Widths: C1 = C2 = 128 (the RCNN's SA levels), C3 128 or 256, S 16/32/64.
 
 #include <cuda_runtime.h>
@@ -50,6 +56,7 @@ using fused_sa::gather_x0;
 using fused_sa::kKC;
 using fused_sa::kThreads;
 using fused_sa::kWarps;
+using fused_sa::load_x0;
 
 constexpr int C1 = 128;
 constexpr int C2 = 128;
@@ -58,7 +65,9 @@ __host__ __device__ constexpr int da_floats(int S) {
   return S * C2 > kKC * 128 ? S * C2 : kKC * 128;
 }
 
-template <int TM, int TN3>
+// SLAB: pre is the (R, M, S, C1) slab and dpre its gradient; idx, center
+// and dcenter are unused
+template <int TM, int TN3, bool SLAB>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_sa_bwd_kernel(const float* __restrict__ pre, const int* __restrict__ idx,
                     const float* __restrict__ center,
@@ -106,7 +115,10 @@ fused_sa_bwd_kernel(const float* __restrict__ pre, const int* __restrict__ idx,
       dv[c] = dval[g * C3 + c];
       ag[c] = argmax[g * C3 + c];
     }
-    gather_x0(pre, idx, center, (size_t)g, row, N, S, C1, A0);
+    if constexpr (SLAB)
+      load_x0<false>(pre, nullptr, nullptr, (size_t)g, S, C1, A0);
+    else
+      gather_x0(pre, idx, center, (size_t)g, row, N, S, C1, A0);
     {  // recompute a1 = ReLU(a0 W1 + b1) into A1
       float acc[TM][4];
       dense<TM, 4>(A0, C1, w1, DA, acc);
@@ -164,6 +176,19 @@ fused_sa_bwd_kernel(const float* __restrict__ pre, const int* __restrict__ idx,
       float acc[TM][4];
       dense<TM, 4>(A1, C2, w1t, DA, acc);
       const int col = 4 * lane;
+      if constexpr (SLAB) {  // the slab's gradient, stored in place
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const int s = warp * TM + i;
+          const float4 a = *reinterpret_cast<const float4*>(A0 + s * C1 + col);
+          *reinterpret_cast<float4*>(dpre + ((size_t)g * S + s) * C1 + col) =
+              make_float4(a.x > 0.0f ? acc[i][0] : 0.0f,
+                          a.y > 0.0f ? acc[i][1] : 0.0f,
+                          a.z > 0.0f ? acc[i][2] : 0.0f,
+                          a.w > 0.0f ? acc[i][3] : 0.0f);
+        }
+        continue;  // the next group's barrier orders the weight slices
+      }
       float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
       const size_t base = (size_t)row * N;
 #pragma unroll
@@ -224,7 +249,7 @@ __global__ void reduce_partials(const float* __restrict__ ws, int parts,
   out[e] = s;
 }
 
-template <int TM, int TN3>
+template <int TM, int TN3, bool SLAB>
 cudaError_t launch(const float* pre, const int* idx, const float* center,
                    const float* w1, const float* w1t, const float* b1,
                    const float* w2t, const float* dval, const int* argmax,
@@ -237,10 +262,10 @@ cudaError_t launch(const float* pre, const int* idx, const float* center,
                         + 2 * C3;
   const size_t smem = floats * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_sa_bwd_kernel<TM, TN3>,
+      fused_sa_bwd_kernel<TM, TN3, SLAB>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  fused_sa_bwd_kernel<TM, TN3><<<blocks, kThreads, smem, stream>>>(
+  fused_sa_bwd_kernel<TM, TN3, SLAB><<<blocks, kThreads, smem, stream>>>(
       pre, idx, center, w1, w1t, b1, w2t, dval, argmax, N, M, groups,
       per_block, dpre, dcenter, ws);
   err = cudaGetLastError();
@@ -251,7 +276,7 @@ cudaError_t launch(const float* pre, const int* idx, const float* center,
   return cudaGetLastError();
 }
 
-template <int TM>
+template <int TM, bool SLAB>
 cudaError_t launch_c(const float* pre, const int* idx, const float* center,
                      const float* w1, const float* w1t, const float* b1,
                      const float* w2t, const float* dval, const int* argmax,
@@ -259,25 +284,63 @@ cudaError_t launch_c(const float* pre, const int* idx, const float* center,
                      int per_block, float* dpre, float* dcenter, float* ws,
                      float* grads, cudaStream_t stream) {
   if (C3 == 128)
-    return launch<TM, 4>(pre, idx, center, w1, w1t, b1, w2t, dval, argmax, N,
-                         M, groups, blocks, per_block, dpre, dcenter, ws,
-                         grads, stream);
-  return launch<TM, 8>(pre, idx, center, w1, w1t, b1, w2t, dval, argmax, N, M,
-                       groups, blocks, per_block, dpre, dcenter, ws, grads,
-                       stream);
+    return launch<TM, 4, SLAB>(pre, idx, center, w1, w1t, b1, w2t, dval,
+                               argmax, N, M, groups, blocks, per_block, dpre,
+                               dcenter, ws, grads, stream);
+  return launch<TM, 8, SLAB>(pre, idx, center, w1, w1t, b1, w2t, dval, argmax,
+                             N, M, groups, blocks, per_block, dpre, dcenter,
+                             ws, grads, stream);
 }
 
-}  // namespace
-
-// The number of blocks the backward launches for R x M groups: about four
-// per SM. The caller sizes the workspace from it.
-extern "C" int tpu3d_fused_sa_bwd_blocks(long long groups) {
+int bwd_blocks(long long groups) {
   int dev = 0, sms = 132;
   if (cudaGetDevice(&dev) == cudaSuccess)
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const long long want = 4LL * sms;
   const long long per_block = (groups + want - 1) / want;
   return (int)((groups + per_block - 1) / per_block);
+}
+
+template <bool SLAB>
+int dispatch(const float* pre, const int* idx, const float* center,
+             const float* w1, const float* w1t, const float* b1,
+             const float* w2t, const float* dval, const int* argmax, int R,
+             int N, int M, int S, int C3, int blocks, float* dpre,
+             float* dcenter, float* ws, float* grads, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (const int pending = tpu3d::pending_error(stream)) return pending;
+  const long long groups = (long long)R * M;
+  if (R < 1 || (!SLAB && N < 1) || M < 1 || (C3 != 128 && C3 != 256)
+      || blocks < 1 || blocks != bwd_blocks(groups))
+    return (int)cudaErrorInvalidValue;
+  const int per_block = (int)((groups + blocks - 1) / blocks);
+  switch (S) {
+    case 16:
+      return (int)launch_c<2, SLAB>(pre, idx, center, w1, w1t, b1, w2t, dval,
+                                    argmax, N, M, C3, groups, blocks,
+                                    per_block, dpre, dcenter, ws, grads,
+                                    stream);
+    case 32:
+      return (int)launch_c<4, SLAB>(pre, idx, center, w1, w1t, b1, w2t, dval,
+                                    argmax, N, M, C3, groups, blocks,
+                                    per_block, dpre, dcenter, ws, grads,
+                                    stream);
+    case 64:
+      return (int)launch_c<8, SLAB>(pre, idx, center, w1, w1t, b1, w2t, dval,
+                                    argmax, N, M, C3, groups, blocks,
+                                    per_block, dpre, dcenter, ws, grads,
+                                    stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// The number of blocks either backward launches for R x M groups: about
+// four per SM. The caller sizes the workspace from it.
+extern "C" int tpu3d_fused_sa_bwd_blocks(long long groups) {
+  return bwd_blocks(groups);
 }
 
 // pre (R, N, 128), idx (R, M, S), center (R, M, 128), w1 (128, 128) and its
@@ -293,26 +356,21 @@ extern "C" int tpu3d_fused_sa_bwd(const float* pre, const int* idx,
                                   int S, int C3, int blocks, float* dpre,
                                   float* dcenter, float* ws, float* grads,
                                   void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const long long groups = (long long)R * M;
-  if (R < 1 || N < 1 || M < 1 || (C3 != 128 && C3 != 256) || blocks < 1
-      || blocks != tpu3d_fused_sa_bwd_blocks(groups))
-    return (int)cudaErrorInvalidValue;
-  const int per_block = (int)((groups + blocks - 1) / blocks);
-  switch (S) {
-    case 16:
-      return (int)launch_c<2>(pre, idx, center, w1, w1t, b1, w2t, dval,
-                              argmax, N, M, C3, groups, blocks, per_block,
-                              dpre, dcenter, ws, grads, stream);
-    case 32:
-      return (int)launch_c<4>(pre, idx, center, w1, w1t, b1, w2t, dval,
-                              argmax, N, M, C3, groups, blocks, per_block,
-                              dpre, dcenter, ws, grads, stream);
-    case 64:
-      return (int)launch_c<8>(pre, idx, center, w1, w1t, b1, w2t, dval,
-                              argmax, N, M, C3, groups, blocks, per_block,
-                              dpre, dcenter, ws, grads, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return dispatch<false>(pre, idx, center, w1, w1t, b1, w2t, dval, argmax, R,
+                         N, M, S, C3, blocks, dpre, dcenter, ws, grads,
+                         stream_ptr);
+}
+
+// The slab form: x0 (R, M, S, 128) -> dx0 (R, M, S, 128), every entry
+// written; the rest as tpu3d_fused_sa_bwd.
+extern "C" int tpu3d_fused_sa_slab_bwd(const float* x0, const float* w1,
+                                       const float* w1t, const float* b1,
+                                       const float* w2t, const float* dval,
+                                       const int* argmax, int R, int M, int S,
+                                       int C3, int blocks, float* dx0,
+                                       float* ws, float* grads,
+                                       void* stream_ptr) {
+  return dispatch<true>(x0, nullptr, nullptr, w1, w1t, b1, w2t, dval, argmax,
+                        R, 0, M, S, C3, blocks, dx0, nullptr, ws, grads,
+                        stream_ptr);
 }

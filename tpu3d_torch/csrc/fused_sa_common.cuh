@@ -1,10 +1,13 @@
 // Shared by fused_sa.cu (forward, eval and train) and fused_sa_bwd.cu: the
-// block shape and the register-tiled dense layer over a slab in shared
-// memory.
+// block shape, the register-tiled dense layer over a slab in shared memory,
+// and the two loads of a group's x0: gathered (pre[idx] - center) or read
+// from a grouped slab in device memory.
 
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "launch_check.cuh"
 
 namespace fused_sa {
 
@@ -90,6 +93,32 @@ __device__ __forceinline__ void gather_x0(const float* __restrict__ pre,
       dst[c] = make_float4(fmaxf(v.x - k.x, 0.0f), fmaxf(v.y - k.y, 0.0f),
                            fmaxf(v.z - k.z, 0.0f), fmaxf(v.w - k.w, 0.0f));
     }
+  }
+}
+
+// The slab form: x0 = ReLU(slab[group, s]·mul + add) for every slot s of one
+// group, its S x C1 rows read in place from the (groups, S, C1) slab into X;
+// without AFFINE (mul and add unused) x0 = ReLU(slab[group, s]).
+template <bool AFFINE>
+__device__ __forceinline__ void load_x0(const float* __restrict__ slab,
+                                        const float* __restrict__ mul,
+                                        const float* __restrict__ add,
+                                        size_t group, int S, int C1,
+                                        float* X) {
+  const float4* src =
+      reinterpret_cast<const float4*>(slab + group * (size_t)S * C1);
+  float4* dst = reinterpret_cast<float4*>(X);
+  for (int q = threadIdx.x; q < S * C1 / 4; q += kThreads) {
+    float4 v = src[q];
+    if constexpr (AFFINE) {
+      const int c = (4 * q) % C1;
+      const float4 m = *reinterpret_cast<const float4*>(mul + c);
+      const float4 a = *reinterpret_cast<const float4*>(add + c);
+      v = make_float4(fmaf(v.x, m.x, a.x), fmaf(v.y, m.y, a.y),
+                      fmaf(v.z, m.z, a.z), fmaf(v.w, m.w, a.w));
+    }
+    dst[q] = make_float4(fmaxf(v.x, 0.0f), fmaxf(v.y, 0.0f), fmaxf(v.z, 0.0f),
+                         fmaxf(v.w, 0.0f));
   }
 }
 

@@ -24,6 +24,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "launch_check.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -114,6 +116,7 @@ extern "C" int tpu3d_nearest_k(const float* centers, const float* pts, int B,
                                int M, int N, int k, float r2max, float* d2,
                                int* idx, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (const int pending = tpu3d::pending_error(stream)) return pending;
   if (B < 1 || M < 1 || N < 1 || k < 1 || k > 64)
     return (int)cudaErrorInvalidValue;
   cudaError_t err;

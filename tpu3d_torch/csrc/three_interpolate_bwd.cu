@@ -22,6 +22,8 @@
 
 #include <cuda_runtime.h>
 
+#include "launch_check.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -90,6 +92,7 @@ extern "C" int tpu3d_three_interpolate_bwd(const float* feats, const int* idx,
                                            float* dfeats, float* dw,
                                            void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (const int pending = tpu3d::pending_error(stream)) return pending;
   if (B < 1 || N < 1 || M < 1 || C < 1) return (int)cudaErrorInvalidValue;
   const long long rows = (long long)B * M;
   const int rows_per_block = kThreads / 32;

@@ -22,6 +22,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "launch_check.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -94,6 +96,7 @@ extern "C" int tpu3d_three_nn(const float* unknown, const float* known,
                               int B, int M, int N, float* d2, int* idx,
                               void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (const int pending = tpu3d::pending_error(stream)) return pending;
   if (B < 1 || B > 65535 || M < 1 || N < 3) return (int)cudaErrorInvalidValue;
   dim3 grid((M + kThreads - 1) / kThreads, B);
   three_nn_kernel<<<grid, kThreads, 0, stream>>>(unknown, known, M, N, d2,

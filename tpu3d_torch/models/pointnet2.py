@@ -18,8 +18,25 @@ pre-group form of the first layer: with W = [W_x | W_f],
 so one per-point matmul and one gather of its output replace the grouped
 copy. It is the form the JAX package takes at every RPN level with
 features, and at the RCNN's levels, which makes it the one that matches it
-most closely. At the RCNN's no-BN levels the gather, layers 1-2 and the
-max-pool run as one fused op (``ops/fused_sa.py``).
+most closely.
+
+An RCNN level (``PointnetSAModule``) then takes one of tpu3d's three routes,
+chosen from its shapes alone and the same on every device
+(``ops/fused_sa.py::sa_route``):
+
+- gather: a no-BN 3-layer MLP over a source table the gather form takes
+  (N % 128 == 0, N <= 2048) runs the gather, layers 1-2 and the max-pool as
+  one fused op (``fused_gathered_mlp_pool``): SA_0 and SA_1 of default.yaml,
+  SA_0 of quickstart.yaml and smoke.yaml;
+- slab: the same MLP over any other source table, or an MLP with
+  BatchNorm, groups the pre-activations into the (R, M, S, C1) slab, and
+  the fused slab op runs layers 1-2 and the max-pool: ``fused_mlp_pool``
+  at SA_1 of quickstart.yaml (64 points) and smoke.yaml (32 points),
+  ``fused_bn_mlp_pool`` at eval with BatchNorm (an RCNN with
+  ``USE_BN: true``), whose training form is not ported: on the card it
+  raises, on the CPU it runs the SharedMLP;
+- plain: the SharedMLP and a max, otherwise (other widths or group shapes,
+  and the GroupAll).
 """
 
 from __future__ import annotations
@@ -31,8 +48,9 @@ from torch import nn
 
 from ..ops import (ball_query, ball_query_from_nearest,
                    furthest_point_sample, furthest_point_sample_with_3nn,
-                   fused_gathered_mlp_pool, gather_points, group_points,
-                   interpolation_weights, nearest_k, three_interpolate)
+                   fused_bn_mlp_pool, fused_gathered_mlp_pool, fused_mlp_pool,
+                   gather_points, group_points, interpolation_weights,
+                   nearest_k, sa_route, three_interpolate)
 
 
 class BatchNorm(nn.Module):
@@ -55,12 +73,16 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features, device=device))
         self.register_buffer("var", torch.ones(features, device=device))
 
+    def affine(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The eval normalisation as one per-channel (mul, add)."""
+        mul = torch.rsqrt(self.var + self.eps) * self.scale
+        return mul, self.bias - self.mean * mul
+
     def forward(self, x: torch.Tensor, train: bool = False,
                 momentum: float = 0.9) -> torch.Tensor:
         if not train:
-            inv = torch.rsqrt(self.var + self.eps)
-            mul = inv * self.scale
-            return x * mul + (self.bias - self.mean * mul)
+            mul, add = self.affine()
+            return x * mul + add
         axes = tuple(range(x.dim() - 1))
         mean = x.mean(dim=axes)
         var = (x * x).mean(dim=axes) - mean * mean
@@ -166,8 +188,8 @@ class PointnetSAModule(nn.Module):
         self.npoint = npoint
         self.radius = float(radius)
         self.nsample = int(nsample)
+        self.mlp = tuple(int(c) for c in mlp)
         self.mlp_0 = SharedMLP(in_channels + 3, mlp, bn=bn, device=device)
-        self.fused = not bn and len(mlp) == 3
 
     def group_inputs(self, xyz: torch.Tensor, features: torch.Tensor):
         """FPS centers, ball query and the pre-group layer 0: (new_xyz
@@ -190,17 +212,30 @@ class PointnetSAModule(nn.Module):
             return None, self.mlp_0(grouped, train=train,
                                     bn_momentum=bn_momentum).amax(dim=2)
         new_xyz, pre, idx, center = self.group_inputs(xyz, features)
-        if self.fused:
-            m = self.mlp_0
-            out = fused_gathered_mlp_pool(
-                pre, idx, center, m.dense_1.weight.T.contiguous(),
-                m.dense_1.bias, m.dense_2.weight.T.contiguous(),
-                m.dense_2.bias)
-        else:
-            x = group_points(pre, idx) - center[:, :, None, :]
-            out = self.mlp_0(None, pre0=x, train=train,
-                             bn_momentum=bn_momentum).amax(dim=2)
-        return new_xyz, out
+        m = self.mlp_0
+        route = sa_route((xyz.shape[0], self.npoint, self.nsample,
+                          self.mlp[0]), self.mlp, xyz.shape[1], m.bn)
+        if route != "plain":
+            w1 = m.dense_1.weight.T.contiguous()
+            w2 = m.dense_2.weight.T.contiguous()
+        if route == "gather":
+            return new_xyz, fused_gathered_mlp_pool(
+                pre, idx, center, w1, m.dense_1.bias, w2, m.dense_2.bias)
+        x = group_points(pre, idx) - center[:, :, None, :]
+        if route == "slab" and not m.bn:
+            return new_xyz, fused_mlp_pool(x, w1, m.dense_1.bias, w2,
+                                           m.dense_2.bias)
+        if route == "slab" and not train:
+            return new_xyz, fused_bn_mlp_pool(
+                x, w1, w2, [getattr(m, f"bn_{i}").affine() for i in range(3)])
+        if route == "slab" and x.device.type != "cpu":
+            raise NotImplementedError(
+                "an RCNN level with BatchNorm in training takes tpu3d's fused "
+                "BatchNorm chain (tpu3d/ops/fused_sa.py:158-291, four forward "
+                "and three backward kernels with batch statistics), which is "
+                "not ported yet (ROADMAP.md, queue 2, kernel 9)")
+        return new_xyz, m(None, pre0=x, train=train,
+                          bn_momentum=bn_momentum).amax(dim=2)
 
 
 class PointnetFPModule(nn.Module):

@@ -6,7 +6,9 @@ PyTorch version, in the same module, for CPU tensors. Kernels are built from
 rotated IoU and NMS are plain PyTorch on every device.
 """
 
-from .fused_sa import fused_gathered_mlp_pool
+from .fused_sa import (fused_bn_mlp_pool, fused_gather_supported,
+                       fused_gathered_mlp_pool, fused_mlp_pool,
+                       fused_sa_supported, sa_route)
 from .grouping import (ball_query, ball_query_from_nearest, group_points,
                        nearest_k)
 from .interpolate import (interpolation_weights, three_interpolate,
@@ -20,8 +22,11 @@ from .sampling import (furthest_point_sample, furthest_point_sample_with_3nn,
 
 __all__ = ["ball_query", "ball_query_from_nearest", "boxes3d_to_bev5",
            "boxes_iou3d", "boxes_iou_bev", "furthest_point_sample",
-           "furthest_point_sample_with_3nn", "fused_gathered_mlp_pool",
-           "fused_route", "gather_points", "group_points",
+           "furthest_point_sample_with_3nn", "fused_bn_mlp_pool",
+           "fused_gather_supported", "fused_gathered_mlp_pool",
+           "fused_mlp_pool", "fused_route", "fused_sa_supported",
+           "gather_points", "group_points",
            "interpolation_weights", "nearest_k", "nms_bev",
            "nms_blocked_sorted", "roipool3d", "rotated_overlap_bev",
+           "sa_route",
            "three_interpolate", "three_nn", "three_nn_plain"]

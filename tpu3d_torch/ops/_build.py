@@ -3,17 +3,25 @@
 Each ``tpu3d_torch/csrc/<source>.cu`` is compiled by ``nvcc`` into its own
 shared library with a plain C interface, at first use, and loaded with
 ``ctypes``; a source may hold the entry points of several kernels (the
-eval and the training forward of ``fused_sa``; FPS+3NN and the long-row
-FPS alone in ``fps3nn``). Each source names its own
-``nvcc`` flags. The library's file name carries a hash of its source, the
+eval and the training forward of ``fused_sa``, each in its gather and its
+slab form; the two forms of the backward in ``fused_sa_bwd``; FPS+3NN and
+the long-row FPS alone in ``fps3nn``). Each source names its own ``nvcc``
+flags. The library's file name carries a hash of its source, the
 shared headers (``csrc/*.cuh``) and its flags, so an edited source is
 rebuilt and a stale library is never loaded. Libraries go to
 ``build/kernels/`` at the root of the checkout (listed in ``.gitignore``).
 ``build_all`` starts one ``nvcc`` per source at once.
 
-Every C entry returns ``cudaGetLastError()`` after its launches; ``check``
-raises if that is not 0. ``LAUNCHES`` counts, per kernel, the calls that
-launched it; only the wrappers add to it, at the launch.
+Every C entry first asks whether an error is already pending on its stream
+(``csrc/launch_check.cuh``): a fault of an earlier asynchronous launch is
+sticky, and ``cudaGetLastError()`` after this entry's own launch would
+return it too. Such an error comes back as ``PENDING`` + its code, and
+``launch`` raises it as pending before this launch, naming the port's last
+kernel launched before it; otherwise the entry returns
+``cudaGetLastError()`` after its launches, and ``launch`` raises if that is
+not 0. ``LAUNCHES`` counts, per kernel, the calls that launched it; only the
+wrappers add to it, at the launch. Two counters may share one C entry where
+it replaces two TPU kernels (``fused_sa_slab`` and ``fused_sa_slab_bn``).
 """
 
 from __future__ import annotations
@@ -61,6 +69,14 @@ KERNELS = {
     "fused_sa_bwd": ("fused_sa_bwd", "tpu3d_fused_sa_bwd",
                      [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P, P, P,
                       P, P]),
+    "fused_sa_slab": ("fused_sa", "tpu3d_fused_sa_slab",
+                      [P, P, P, P, I, I, I, I, I, I, P, P]),
+    "fused_sa_slab_bn": ("fused_sa", "tpu3d_fused_sa_slab",
+                         [P, P, P, P, I, I, I, I, I, I, P, P]),
+    "fused_sa_slab_train": ("fused_sa", "tpu3d_fused_sa_slab_train",
+                            [P, P, P, P, I, I, I, I, I, I, P, P, P, P]),
+    "fused_sa_slab_bwd": ("fused_sa_bwd", "tpu3d_fused_sa_slab_bwd",
+                          [P, P, P, P, P, P, P, I, I, I, I, I, P, P, P, P]),
 }
 # extra nvcc flags of each source
 SOURCE_FLAGS = {"fps3nn": EXACT, "nearest_k": EXACT, "three_nn": EXACT,
@@ -68,7 +84,12 @@ SOURCE_FLAGS = {"fps3nn": EXACT, "nearest_k": EXACT, "three_nn": EXACT,
                 "fps": EXACT, "fused_sa": [], "fused_sa_bwd": []}
 SOURCES = sorted(SOURCE_FLAGS)
 
+# added to the code of an error that a C entry found pending before its
+# launch (tpu3d::kPending)
+PENDING = 1 << 16
+
 LAUNCHES = {name: 0 for name in KERNELS}
+_last_launch: str | None = None  # the port's last kernel launched
 _loaded: dict[str, ctypes._CFuncPtr] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -153,16 +174,33 @@ def kernel(name: str):
     return fn
 
 
+def error_name(name: str, err: int) -> str:
+    """The CUDA name of error code ``err``, from kernel ``name``'s
+    library."""
+    fn = library(KERNELS[name][0]).tpu3d_error_name
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_char_p
+    return fn(err).decode()
+
+
 def launch(name: str, *args) -> None:
     """Launch kernel ``name`` on the current stream (appended as the last
-    argument), count the launch, and raise if the C entry reports an
-    error."""
+    argument), count the launch, and raise if the C entry reports an error:
+    one that was pending before it, which an earlier launch left (not
+    counted: this kernel did not run), or one of its own launch."""
+    global _last_launch
     fn = kernel(name)
     err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err >= PENDING:
+        err -= PENDING
+        raise RuntimeError(
+            f"CUDA error {error_name(name, err)} ({err}) was pending before "
+            f"the launch of {name}: earlier work on the card left it; the "
+            f"port's last kernel launched before it was {_last_launch}")
     LAUNCHES[name] += 1
+    _last_launch = name
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
-                           f"cudaError_t {err}")
+                           f"{error_name(name, err)} ({err})")
 
 
 def check_cuda_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,

@@ -84,14 +84,46 @@ def ball_query_from_nearest(d2: torch.Tensor, idx: torch.Tensor,
     return torch.where(hit, idx, first).to(torch.int32)
 
 
+def _ball_query_first(centers, pts, radius, nsample):
+    """tpu3d's "first" rule (``tpu3d/ops/grouping.py:413-426``): the first
+    ``nsample`` in-radius ids in index order, short rows padded with the
+    first hit, rows without a hit all 0. XLA code in tpu3d, so plain torch
+    on every device, a chunk of centers at a time."""
+    N = pts.shape[1]
+    iota = torch.arange(N, dtype=torch.int32, device=pts.device)
+    out = []
+    for c in centers.split(512, dim=1):  # bounds the (B, chunk, N) block
+        d2 = _d2(c[:, :, None, :], pts[:, None, :, :])
+        keys = torch.where(d2 < radius * radius, iota, N)
+        if N < nsample:  # fewer points than slots: pad with misses
+            keys = torch.cat([keys, keys.new_full((*keys.shape[:2],
+                                                   nsample - N), N)], 2)
+        idx = keys.sort(dim=2).values[..., :nsample]
+        hit = idx < N
+        first = torch.where(hit[..., 0:1], idx[..., 0:1], 0)
+        out.append(torch.where(hit, idx, first))
+    return torch.cat(out, 1).to(torch.int32)
+
+
 def ball_query(centers: torch.Tensor, pts: torch.Tensor, radius: float,
-               nsample: int) -> torch.Tensor:
-    """(B, M, 3) centers × (B, N, 3) points -> (B, M, nsample) i32 ids: the
-    ``nsample`` nearest points inside ``radius``, nearest first, ties to the
-    lower id, short rows padded with the first hit, rows without a hit all
-    0. This is tpu3d's "nearest" rule, the one it takes on the CPU; on the
-    TPU it takes the first hits in index order at the RCNN's shapes, which
-    picks another set only when more than ``nsample`` points lie inside."""
+               nsample: int, method: str = "auto") -> torch.Tensor:
+    """(B, M, 3) centers × (B, N, 3) points -> (B, M, nsample) i32 ids of
+    points inside ``radius``, short rows padded with the first hit, rows
+    without a hit all 0, by tpu3d's ``method``:
+
+    - "nearest": the ``nsample`` nearest, nearest first, ties to the lower
+      id (the nearest-k kernel);
+    - "first": the first ``nsample`` in index order (plain torch);
+    - "auto": "nearest", the rule tpu3d takes off the TPU. On the TPU it
+      takes "first" at the RCNN's shapes, which picks another set only when
+      more than ``nsample`` points lie inside.
+
+    Another method raises, as in tpu3d."""
+    if method not in ("auto", "nearest", "first"):
+        raise ValueError(f"ball_query method must be 'auto', 'nearest' or "
+                         f"'first', got {method!r}")
+    if method == "first":
+        return _ball_query_first(centers, pts, radius, nsample)
     d2, idx = nearest_k(centers, pts, nsample, max_radius=radius)
     return ball_query_from_nearest(d2, idx, radius, nsample, pts.shape[1])
 
