@@ -26,9 +26,13 @@ and no result line:
    configs/quickstart.yaml's eval (B=8) and of configs/smoke.yaml's (B=2),
    its training forward and backward (fused_sa_slab_train,
    fused_sa_slab_bwd) on the rows that the train steps' proposal target
-   layer samples (quickstart B=4, smoke B=2); and the same eval kernel with
+   layer samples (quickstart B=4, smoke B=2); the same eval kernel with
    BatchNorm packs (fused_sa_slab_bn) at the RCNN's SA_0 and SA_1 of
-   default.yaml with RCNN.USE_BN true (eval, B=2);
+   default.yaml with RCNN.USE_BN true (eval, B=2); and that chain's seven
+   training kernels (three statistics passes, the final pass, three
+   backward waves) at SA_0 and SA_1 of its train step (B=16), each against
+   its plain piece, then the whole training op on 128 rows against
+   autograd of its plain version;
 4. both eval paths at configs/default.yaml's full width (B=2 scenes of
    16384 points, NPOINTS 4096/1024/256/64, TEST pre/post-NMS 9000/100),
    with seeded weights and planted-cluster scenes, each with every launch
@@ -74,7 +78,15 @@ and no result line:
    the joint eval path at B=2, with its exact launch counts (BN_EVAL:
    fused_sa_slab_bn at SA_0 and SA_1, no fused_sa); then scene 0's RCNN
    stage and final boxes against the CPU plain path;
-11. one JSON line of the kernels, then the result line.
+11. the same config in training: the joint train step at B=16 (1 warm-up,
+   3 timed), with its exact launch counts (default's train step without
+   the gather form's training pair, and each of the seven BatchNorm
+   training kernels twice); ms per step and peak device memory; one more
+   step, after which each RCNN SA level's running statistics must equal
+   m·old + (1 − m)·(the batch statistics the op returned); then scene 0's
+   RCNN loss and gradients against the CPU plain path, under a noise floor
+   measured there;
+12. one JSON line of the kernels, then the result line.
 
 Every phase prints its seconds. Needs one CUDA card; the kernels have no
 CPU mode. Imports nothing of JAX or of tpu3d.
@@ -101,6 +113,8 @@ QUICK_TRAIN_BATCH = 4  # the README quickstart's --batch_size
 SMOKE_BATCH = 2
 BN_BATCH = 2  # the default.yaml eval batch
 DEVICE = "cuda"  # the card
+BN_CHECK_ROWS = 128  # rows of the whole BatchNorm training op's check
+BN_NUDGES = 2  # nudges of the weights behind the BatchNorm checks' floor
 
 # H100 SXM peaks from NVIDIA's data sheet, at the full 700 W: device memory
 # rate and float32 rate outside the tensor cores
@@ -130,7 +144,26 @@ SOURCES = {  # kernel: (source, the TPU kernel it replaces)
                           "tpu3d/ops/fused_sa.py:604"),
     "fused_sa_slab_bn": ("tpu3d_torch/csrc/fused_sa.cu",
                          "tpu3d/ops/fused_sa.py:203"),
+    "fused_sa_bn_stats0": ("tpu3d_torch/csrc/fused_sa_bn.cu",
+                           "tpu3d/ops/fused_sa.py:158"),
+    "fused_sa_bn_stats1": ("tpu3d_torch/csrc/fused_sa_bn.cu",
+                           "tpu3d/ops/fused_sa.py:164"),
+    "fused_sa_bn_stats2": ("tpu3d_torch/csrc/fused_sa_bn.cu",
+                           "tpu3d/ops/fused_sa.py:171"),
+    "fused_sa_bn_final": ("tpu3d_torch/csrc/fused_sa.cu",
+                          "tpu3d/ops/fused_sa.py:178"),
+    "fused_sa_bn_wave1": ("tpu3d_torch/csrc/fused_sa_bn.cu",
+                          "tpu3d/ops/fused_sa.py:255"),
+    "fused_sa_bn_wave2": ("tpu3d_torch/csrc/fused_sa_bn.cu",
+                          "tpu3d/ops/fused_sa.py:272"),
+    "fused_sa_bn_apply": ("tpu3d_torch/csrc/fused_sa_bn.cu",
+                          "tpu3d/ops/fused_sa.py:291"),
 }
+# the BatchNorm chain's training kernels, in the order the step runs them
+BN_TRAIN_KERNELS = ("fused_sa_bn_stats0", "fused_sa_bn_stats1",
+                    "fused_sa_bn_stats2", "fused_sa_bn_final",
+                    "fused_sa_bn_wave1", "fused_sa_bn_wave2",
+                    "fused_sa_bn_apply")
 # the kernels of each path whose launches are counted
 EVAL_KERNELS = ("fps3nn", "nearest_k", "three_interpolate", "fps", "fused_sa")
 TRAIN_KERNELS = ("fps3nn", "nearest_k", "three_interpolate",
@@ -160,14 +193,10 @@ QUICK_PATH = {"eval": f"quickstart.yaml eval B={QUICK_EVAL_BATCH}",
 SMOKE_PATH = {"eval": f"smoke.yaml eval B={SMOKE_BATCH}",
               "train": f"smoke.yaml train B={SMOKE_BATCH}"}
 BN_PATH = f"default.yaml with RCNN.USE_BN eval B={BN_BATCH}"
-# every other function of tpu3d that reaches pl.pallas_call, with its status
-NOT_PORTED = [
-    ("tpu3d/ops/fused_sa.py:158 _stats0_kernel, :164 _fwd_stats1_kernel, "
-     ":171 _fwd_stats2_kernel, :178 _fwd_final_kernel, :255 "
-     "_bwd_wave1_kernel, :272 _bwd_wave2_kernel, :291 _bwd_apply_kernel",
-     "to port next: the BatchNorm chain's training (batch statistics), "
-     "reached only by an RCNN with USE_BN: true in training"),
-]
+BN_TRAIN_PATH = f"default.yaml with RCNN.USE_BN train B={TRAIN_BATCH}"
+# every other function of tpu3d that reaches pl.pallas_call, with its
+# status: none, every one has its kernel
+NOT_PORTED = []
 
 
 class SmokeError(RuntimeError):
@@ -884,10 +913,56 @@ def drive_train(cfg, model, batch, gen, expect_kernels, label, steps):
     return tb, launches, ms
 
 
+def check_bn_running_stats(cfg, model, batch, gen):
+    """One more train step of an RCNN with BatchNorm: each RCNN SA level's
+    running statistics after it equal m·old + (1 − m)·(the batch statistics
+    that fused_bn_mlp_pool returned in that step), to the bit, and moved."""
+    import torch
+
+    from tpu3d_torch.models import pointnet2
+    from tpu3d_torch.parallel import create_train_state, make_train_step
+
+    state = create_train_state(cfg, model, steps_per_epoch=100,
+                               total_epochs=10)
+    keys = [f"rcnn_net.sa_{k}.mlp_0.bn_{i}.{leaf}" for k in range(2)
+            for i in range(3) for leaf in ("mean", "var")]
+    before = {k: model.state_dict()[k].clone() for k in keys}
+    returned, op = [], pointnet2.fused_bn_mlp_pool
+
+    def recording(*args):
+        res = op(*args)
+        if args[5] is None:  # training: (pooled, (means, vars))
+            returned.append(res[1])
+        return res
+
+    pointnet2.fused_bn_mlp_pool = recording
+    try:
+        make_train_step(cfg, model)(state, batch, gen, 0.9)
+    finally:
+        pointnet2.fused_bn_mlp_pool = op
+    check(len(returned) == 2, f"fused_bn_mlp_pool trained {len(returned)} "
+          f"levels, expected RCNN SA_0 and SA_1")
+    after = model.state_dict()
+    for k, (means, vars_) in enumerate(returned):
+        for i in range(3):
+            for leaf, value in (("mean", means[i]), ("var", vars_[i])):
+                key = f"rcnn_net.sa_{k}.mlp_0.bn_{i}.{leaf}"
+                want = 0.9 * before[key] + (1 - 0.9) * value
+                check(torch.equal(after[key], want),
+                      f"{key} is not the momentum update of the batch "
+                      f"statistics")
+                check(not torch.equal(after[key], before[key]),
+                      f"{key} did not move")
+    print(f"BatchNorm RCNN running statistics: the {len(keys)} of RCNN SA_0 "
+          f"and SA_1 equal 0.9·old + 0.1·(the op's batch statistics) to the "
+          f"bit, all moved")
+
+
 NUDGES = 4  # independent nudges of the weights behind the RPN's noise floor
 
 
-def compare_train_on_cpu(cfg, model, target, batch, rpn=True):
+def compare_train_on_cpu(cfg, model, target, batch, rpn=True,
+                         rcnn_floor=False):
     """Scene 0's training on the CPU plain path against the card's, with
     dropout 0 and the card model's weights.
 
@@ -907,7 +982,10 @@ def compare_train_on_cpu(cfg, model, target, batch, rpn=True):
     card's atomics move by a rounding from run to run, and one
     perturbation's change swings with them.) The perturbation moves no FPS
     pick nor neighbour, which depend on the coordinates alone. ``rpn``
-    False leaves out the RPN half."""
+    False leaves out the RPN half. ``rcnn_floor`` holds the RCNN's loss and
+    gradients to such a floor too, for an RCNN with batch-statistics
+    BatchNorm: its gradient bound as the RPN's, its loss within 10 times
+    the largest loss change over the perturbations plus 1e-6 relative."""
     import torch
 
     from tpu3d_torch.models import PointRCNN
@@ -945,6 +1023,11 @@ def compare_train_on_cpu(cfg, model, target, batch, rpn=True):
     def worst(a, b):
         return max(((a[n] - g).abs().max().item(), n) for n, g in b.items())
 
+    def nudged(i):
+        gen = torch.Generator().manual_seed(SEED + 3 + i)
+        return {k: v * (1 + 1e-7 * torch.randn(v.shape, generator=gen))
+                if v.is_floating_point() else v for k, v in state.items()}
+
     nodp = copy.deepcopy(cfg)
     nodp.RPN.DP_RATIO = 0.0
     f32 = torch.float32
@@ -952,23 +1035,31 @@ def compare_train_on_cpu(cfg, model, target, batch, rpn=True):
     ref_loss, ref, cpu_s = run(rcnn_grads, "cpu", f32)
     top = max(g.abs().max().item() for g in ref.values())
     err = worst(grads, ref)
+    bound, loss_bound, floor_note = 1e-3 * top, 1e-5 * abs(ref_loss), ""
+    if rcnn_floor:
+        runs = [run(rcnn_grads, "cpu", f32, nudged(i)) for i in range(NUDGES)]
+        floors = [worst(r[1], ref) for r in runs]
+        floor = max(floors)
+        loss_floor = max(abs(r[0] - ref_loss) for r in runs)
+        bound = 10 * floor[0] + 1e-5 * top
+        loss_bound = 10 * loss_floor + 1e-6 * abs(ref_loss)
+        floor_note = (f"; noise floors of {NUDGES} nudges "
+                      f"{', '.join(f'{f[0]:.3e}' for f in floors)} ({floor[1]})"
+                      f", loss floor {loss_floor:.3e}; bounds {bound:.3e} "
+                      f"(margin {bound / max(err[0], 1e-30):.1f}x) and "
+                      f"{loss_bound:.3e}")
     print(f"RCNN train on scene 0, card vs CPU: loss {loss:.6f} vs "
           f"{ref_loss:.6f}; largest gradient error {err[0]:.3e} ({err[1]}) "
-          f"of the largest gradient {top:.3e}; CPU {cpu_s:.1f} s")
-    check(abs(loss - ref_loss) <= 1e-5 * abs(ref_loss),
-          "RCNN train loss differs")
-    check(err[0] <= 1e-3 * top, "RCNN gradients differ")
+          f"of the largest gradient {top:.3e}; CPU {cpu_s:.1f} s{floor_note}")
+    check(abs(loss - ref_loss) <= loss_bound, "RCNN train loss differs")
+    check(err[0] <= bound, "RCNN gradients differ")
     if not rpn:
         return
 
     loss, grads, _ = run(rpn_grads, DEVICE, f32)
     ref_loss, ref, cpu_s = run(rpn_grads, "cpu", f32)
-    floors = []
-    for i in range(NUDGES):
-        gen = torch.Generator().manual_seed(SEED + 3 + i)
-        nudged = {k: v * (1 + 1e-7 * torch.randn(v.shape, generator=gen))
-                  if v.is_floating_point() else v for k, v in state.items()}
-        floors.append(worst(run(rpn_grads, "cpu", f32, nudged)[1], ref))
+    floors = [worst(run(rpn_grads, "cpu", f32, nudged(i))[1], ref)
+              for i in range(NUDGES)]
     top = max(g.abs().max().item() for g in ref.values())
     err, floor = worst(grads, ref), max(floors)
     bound = 10 * floor[0] + 1e-5 * top
@@ -1038,11 +1129,13 @@ def slab_eval_kernel(x0, mlp, label):
     with torch.no_grad():
         if mlp.bn:
             name = "fused_sa_slab_bn"
-            affines = [getattr(mlp, f"bn_{i}").affine() for i in range(3)]
-            packs = bn_packs(affines)
+            bns = [getattr(mlp, f"bn_{i}") for i in range(3)]
+            packs = bn_packs([bn.affine() for bn in bns])
 
             def kernel():
-                return fused_bn_mlp_pool(x0, w1, w2, affines)
+                return fused_bn_mlp_pool(
+                    x0, w1, w2, [bn.scale for bn in bns],
+                    [bn.bias for bn in bns], [(bn.mean, bn.var) for bn in bns])
         else:
             name = "fused_sa_slab"
             packs = nobn_packs(c1, b1, b2)
@@ -1190,6 +1283,349 @@ def slab_train_kernels(x0, mlp, label, gen):
           f"backward), {ops / ms / 1e9:.1f} TFLOP/s, {nnz} non-zero pooled "
           f"gradients routed to {hit} of {slots} slots")
     return rows
+
+
+def routed_plain(leaves, arg, eps):
+    """The BatchNorm chain in training, plain and differentiable by
+    autograd, on leaves (x0, w1, w2, gammas, betas), its max-pool routed
+    through the slots ``arg`` (R, M, C3) -> (out, means, vars)."""
+    import torch
+
+    from tpu3d_torch.ops import fused_sa as fs
+
+    x, means, vars_ = leaves[0], [], []
+    for i in range(3):
+        y, mean, var = fs._bn_train(x, leaves[3 + i], leaves[6 + i], eps)
+        means.append(mean.detach())
+        vars_.append(var.detach())
+        x = torch.relu(y) @ leaves[1 + i] if i < 2 else torch.relu(y)
+    out = torch.gather(x, 2, arg.long()[:, :, None, :])[:, :, 0]
+    return out, means, vars_
+
+
+def slots_off(a, b, tol):
+    """The number of slots (rows of the last axis) where a and b differ by
+    more than tol in some channel."""
+    return int(((a - b).abs() > tol).any(dim=-1).sum())
+
+
+def nudge_weights(weights, seed):
+    """The weights each scaled by 1 + 1e-7·N(0, 1) (about one float32
+    rounding), drawn from ``seed``."""
+    import torch
+
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    return [w * (1 + 1e-7 * torch.randn(w.shape, generator=gen)).to(w.device)
+            for w in weights]
+
+
+def bn_train_kernels(report, model, target, label):
+    """Phase 3 for the BatchNorm chain's seven training kernels, at RCNN
+    SA_0 and SA_1 of ``model`` (an RCNN with BatchNorm), on the slabs
+    grouped from the rows a train step's proposal target layer sampled
+    (each level's input from the levels before it at eval). Each entry is
+    driven as the training op drives it and held against its plain piece
+    on the same inputs and packs: each statistics pass's Σx² within 1e-5
+    relative and Σx within 1e-5·√(n·Σx²) per channel (f32 layers summed
+    in another order, the sums in f64); the final pass's output within
+    1e-4 of its largest value, at most 1 in 1000 argmax slots moved by a
+    near-tie, x2 at the others within 1e-4 of the largest |x2|; on the
+    gradient of a seeded output gradient, each wave's two reductions and
+    its weight gradient within 1e-3 of each one's largest value plus 10
+    times its noise floor, the largest change that scaling the weights by
+    1 + 1e-7·N(0, 1) (about one rounding) makes to the plain piece over
+    ``BN_NUDGES`` nudges, and d_x0 beyond 1e-4 of its largest value plus
+    that floor in at most 1 slot in 10^4. (BatchNorm's backward reaches
+    every slot, and a ReLU mask at y ≈ 0 flips between two f32
+    computations of y; a layer-1 flip at a slot the pooled gradient
+    reaches moves that slot's whole d_x0 row and a reduction by a d_a1
+    value, some 7e-4 of the largest sum at SA_0, and 8.4 M slots of 128
+    channels hold a few.) Then the whole op, forward and backward
+    through the seven kernels, against autograd of its plain version in
+    f64 (in f32, BatchNorm's backward cancels where a channel's mean
+    outweighs its spread, differently in the kernels' x̂ form and in
+    autograd of E[x²] − mean²; the plain f32 autograd's own error against
+    it is printed), routed by the kernels' argmax (a near-tie may pick
+    another slot in f32 sums of another order, which moves a whole
+    channel's gradient), on
+    the first ``BN_CHECK_ROWS`` rows (the plain chain under autograd keeps
+    several slabs; the statistics are then those rows' on both sides): the
+    output and the statistics within 1e-4 of each largest value, d_x0
+    beyond 1e-4 of its largest value in at most 1 slot in 10^4, the other
+    gradients within 1e-2 (one layer-1 mask flip at a slot the pooled
+    gradient reaches moves dW1 by some 0.5% of its largest value, and a
+    128-row sample holds a few); and through autograd equal to its passes composed
+    directly, to the bit. Library: torch.var_mean for the depth-0
+    statistics, the cuBLAS chain of the folded layers for the final pass
+    (both one call or one chain on the same inputs), and, printed for the
+    level, the cuBLAS chain with batch-statistics BatchNorm (F.batch_norm)
+    under autograd, forward and backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpu3d_torch.ops import fused_bn_mlp_pool
+    from tpu3d_torch.ops import fused_sa as fs
+
+    levels = slab_levels(model, target["sampled_pts"], target["pts_feature"])
+    check([k for k, _, _ in levels] == [0, 1],
+          f"{label}: the slab route at RCNN SA_{[k for k, _, _ in levels]}")
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 5)
+    eps = 1e-5
+    library = {}
+    for k, x0, mlp in levels:
+        where = f"{label}, RCNN SA_{k}"
+        R, M, S, c1 = x0.shape
+        n = R * M * S
+        w1 = mlp.dense_1.weight.detach().T.contiguous()
+        w2 = mlp.dense_2.weight.detach().T.contiguous()
+        c2, c3 = w1.shape[1], w2.shape[1]
+        bns = [getattr(mlp, f"bn_{i}") for i in range(3)]
+        gammas = [bn.scale.detach() for bn in bns]
+        betas = [bn.bias.detach() for bn in bns]
+        widths = (c1, c2, c3)
+        layers = [x0.new_zeros(7, c) for c in widths]
+        wbytes = 4 * (w1.numel() + w2.numel() + 7 * sum(widths))
+        slab = 4 * x0.numel()
+        l1, l2 = 2 * c1 * c2, 2 * c2 * c3  # one slot's layer products
+        rows = {}
+
+        def add(name, err, ms, pms, lms, nbytes, ops, what):
+            b_ms, b_by = bound_ms(nbytes, ops)
+            report.add(name, err, ms, pms, lms, nbytes, ops)
+            print(f"{name} {where} R={R} M={M} S={S} C={c1}->{c2}->{c3}: "
+                  f"{ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), plain "
+                  f"{pms:.3f} ms, library "
+                  f"{'none' if lms is None else f'{lms:.3f} ms'}, {what}, "
+                  f"{ops / ms / 1e9:.1f} TFLOP/s, "
+                  f"{nbytes / ms / 1e9:.1f} GB/s")
+
+        with torch.no_grad():
+            means, vars_ = [], []
+            for depth in range(3):
+                name = fs.STATS_KERNELS[depth]
+                pk = fs._pack(layers)
+                got = fs.fused_sa_bn_stats(depth, x0, pk, w1, w2)
+                want = fs.fused_sa_bn_stats_plain(depth, x0, pk, w1, w2)
+                torch.cuda.synchronize()
+                q_err = ((got[1] - want[1]).abs() / want[1]).max().item()
+                s_err = ((got[0] - want[0]).abs()
+                         / (n * want[1]).sqrt()).max().item()
+                check(q_err <= 1e-5 and s_err <= 1e-5,
+                      f"{name} differs at {where}: Σx² by {q_err} relative, "
+                      f"Σx by {s_err} of √(n·Σx²)")
+                mean, var = fs._mean_var(got, n, x0.dtype)
+                pmean, pvar = fs._mean_var(want, n, x0.dtype)
+                err = max((mean - pmean).abs().max().item(),
+                          (var - pvar).abs().max().item())
+                ms = cuda_ms(lambda: fs.fused_sa_bn_stats(depth, x0, pk, w1,
+                                                          w2), 5)
+                pms = cuda_ms(lambda: fs.fused_sa_bn_stats_plain(
+                    depth, x0, pk, w1, w2), 2)
+                lms = (cuda_ms(lambda: torch.var_mean(
+                    x0, dim=(0, 1, 2), correction=0), 3) if depth == 0
+                    else None)
+                # per slot: the layers before, with each one's affine and
+                # ReLU, then a sum and a sum of squares of C_depth values
+                ops = n * ((0, l1, l1 + l2)[depth]
+                           + 3 * sum(widths[:depth]) + 3 * widths[depth])
+                add(name, err, ms, pms, lms, slab + wbytes
+                    + 16 * widths[depth], ops,
+                    f"mean/var max_abs_err {err:.3e}, Σx² {q_err:.2e} "
+                    f"relative, Σx {s_err:.2e} of √(n·Σx²)")
+                means.append(mean)
+                vars_.append(var)
+                layers[depth] = fs._layer_pack(mean, var, gammas[depth],
+                                               betas[depth], eps, n)
+
+            packs = torch.cat([t for layer in layers for t in layer[:2]])
+            out, arg, x2 = fs.fused_sa_bn_final(x0, packs, w1, w2)
+            r_out, r_arg, r_x2 = fs.fused_sa_bn_final_plain(x0, packs, w1, w2)
+            torch.cuda.synchronize()
+            scale = r_out.abs().max().item()
+            err = (out - r_out).abs().max().item()
+            check(err <= 1e-4 * scale, f"fused_sa_bn_final out differs by "
+                  f"{err} (max |value| {scale}) at {where}")
+            same = arg == r_arg
+            flips = int((~same).sum())
+            check(flips <= arg.numel() // 1000, f"fused_sa_bn_final argmax "
+                  f"differs in {flips} channels at {where}")
+            xerr = (x2 - r_x2)[same].abs().max().item()
+            xscale = r_x2.abs().max().item()
+            check(xerr <= 1e-4 * xscale, f"fused_sa_bn_final x2 differs by "
+                  f"{xerr} at {where}")
+            ms = cuda_ms(lambda: fs.fused_sa_bn_final(x0, packs, w1, w2), 5)
+            pms = cuda_ms(lambda: fs.fused_sa_bn_final_plain(x0, packs, w1,
+                                                             w2), 2)
+            m0, a0, m1, a1, m2, a2 = packs.split([c1, c1, c2, c2, c3, c3])
+
+            def chain():
+                x = torch.relu(torch.addcmul(a0, x0, m0))
+                x = torch.relu(torch.addcmul(
+                    a1, F.linear(x, mlp.dense_1.weight), m1))
+                return torch.relu(torch.addcmul(
+                    a2, F.linear(x, mlp.dense_2.weight), m2)).amax(2)
+
+            lms = cuda_ms(chain, 3)
+            add("fused_sa_bn_final", max(err, xerr), ms, pms, lms,
+                slab + wbytes + 12 * R * M * c3,
+                n * (l1 + l2 + 3 * (c1 + c2 + c3) + 3 * c3),
+                f"max_abs_err {err:.3e} (max |value| {scale:.3e}), x2 "
+                f"{xerr:.3e}, argmax flips {flips} of {arg.numel()}")
+
+            grad = torch.randn(out.shape, generator=gen).to(out.device)
+            d_y2 = torch.where(out > 0, grad, 0.0)
+            r2 = layers[2][fs.R_INV]
+            layers[2] = fs._layer_pack(
+                means[2], vars_[2], gammas[2], betas[2], eps, n,
+                d_y2.sum(dim=(0, 1)),
+                (d_y2 * (x2 * r2 - means[2] * r2)).sum(dim=(0, 1)))
+            dval = (d_y2 * layers[2][fs.MUL]).contiguous()
+            nudged = [nudge_weights((w1, w2), SEED + 10 + i)
+                      for i in range(BN_NUDGES)]
+            # per slot: x1, x2 and d_a1 = d_x2 W2ᵀ, and their elementwise
+            # work; wave 1 adds dW2, wave 2 dW1 and d_a0, wave 3 d_a0
+            base = l1 + 2 * l2 + 3 * (c1 + c2) + 6 * c3 + 6 * c2
+            extra = {1: l2, 2: 2 * l1 + 6 * c1, 3: l1 + 6 * c1}
+            out_bytes = {1: 16 * c2 + 4 * c2 * c3, 2: 16 * c1 + 4 * c1 * c2,
+                         3: slab}
+            for wave, name in fs.WAVE_KERNELS.items():
+                pk = fs._pack(layers)
+                got = fs.fused_sa_bn_wave(wave, x0, pk, w1, w2, dval, arg)
+                want = fs.fused_sa_bn_wave_plain(wave, x0, pk, w1, w2, dval,
+                                                 arg)
+                floors = [fs.fused_sa_bn_wave_plain(wave, x0, pk, *ws, dval,
+                                                    arg) for ws in nudged]
+                torch.cuda.synchronize()
+                if wave == 3:
+                    got, want, floors = [got], [want], [[f] for f in floors]
+                errs = []
+                for j, (a, b) in enumerate(zip(got, want)):
+                    part = "d_x0" if wave == 3 else ("sums", "dW")[j]
+                    e = (a - b).abs().max().item()
+                    sc = b.abs().max().item()
+                    fl = max((f[j] - b).abs().max().item() for f in floors)
+                    if wave == 3:
+                        off = slots_off(a, b, 1e-4 * sc + 10 * fl)
+                        check(off <= n // 10000, f"{name} d_x0 differs in "
+                              f"{off} slots at {where}")
+                        errs.append(f"d_x0 {e:.3e} of {sc:.3e}, {off} of {n}"
+                                    f" slots beyond 1e-4 of it (floor "
+                                    f"{fl:.3e})")
+                    else:
+                        bound = 1e-3 * sc + 10 * fl
+                        check(e <= bound, f"{name} {part} differs by {e} "
+                              f"(max |value| {sc}, noise floor {fl}) at "
+                              f"{where}")
+                        errs.append(f"{part} {e:.3e} of {sc:.3e} (floor "
+                                    f"{fl:.3e}, bound {bound:.3e})")
+                    rows.setdefault(name, 0.0)
+                    rows[name] = max(rows[name], e)
+                del floors
+                if wave < 3:
+                    d_beta, d_gamma = got[0].to(x0.dtype)
+                    layer = 2 - wave
+                    layers[layer] = fs._layer_pack(
+                        means[layer], vars_[layer], gammas[layer],
+                        betas[layer], eps, n, d_beta, d_gamma)
+                del got, want
+                ms = cuda_ms(lambda: fs.fused_sa_bn_wave(
+                    wave, x0, pk, w1, w2, dval, arg), 3)
+                pms = cuda_ms(lambda: fs.fused_sa_bn_wave_plain(
+                    wave, x0, pk, w1, w2, dval, arg), 2)
+                add(name, rows[name], ms, pms, None,
+                    slab + wbytes + 8 * R * M * c3 + out_bytes[wave],
+                    n * (base + extra[wave]), "max_abs_err " + ", ".join(errs))
+            del out, arg, x2, r_out, r_arg, r_x2, dval
+
+        # the whole op through its seven kernels, on the first
+        # BN_CHECK_ROWS rows: against the training forward and backward
+        # composed directly (the autograd Function's wiring, to the bit),
+        # and against autograd of the plain chain routed by its argmax, in
+        # f64
+        sub = x0[:BN_CHECK_ROWS].contiguous()
+        g = torch.randn(sub.shape[0], M, c3, generator=gen).to(sub.device)
+        leaves = [t.detach().clone().requires_grad_() for t in
+                  (sub, w1, w2, *gammas, *betas)]
+        ref_leaves = [t.detach().clone().requires_grad_() for t in leaves]
+        o, (ms_, vs_) = fused_bn_mlp_pool(leaves[0], leaves[1], leaves[2],
+                                          leaves[3:6], leaves[6:9])
+        grads = torch.autograd.grad(o, leaves, g)
+        with torch.no_grad():
+            d_o, d_arg, d_x2, d_ms, d_vs = fs.fused_bn_mlp_pool_train(
+                sub, w1, w2, gammas, betas)
+            d_g = fs.fused_bn_mlp_pool_backward(
+                sub, w1, w2, gammas, betas, d_ms, d_vs, d_o, d_arg, d_x2, g)
+        ours = (o.detach(), *ms_, *vs_, *grads)
+        direct = (d_o, *d_ms, *d_vs, d_g[0], d_g[1], d_g[2], *d_g[3],
+                  *d_g[4])
+        check(all(torch.equal(a, b) for a, b in zip(ours, direct)),
+              f"fused_bn_mlp_pool through autograd differs from its forward "
+              f"and backward composed directly at {where}")
+        # the reference in f64: BatchNorm's backward in f32 cancels where a
+        # channel's mean outweighs its spread, and the plain chain's f32
+        # autograd (E[x²] − mean² differentiated term by term) cancels
+        # otherwise than the kernels' x̂ form; its own error is printed
+        ref64 = [t.detach().double().requires_grad_() for t in ref_leaves]
+        r_o, r_ms, r_vs = routed_plain(ref64, d_arg, eps)
+        r_grads = torch.autograd.grad(r_o, ref64, g.double())
+        p_o, _, _ = routed_plain(ref_leaves, d_arg, eps)
+        p_grads = torch.autograd.grad(p_o, ref_leaves, g)
+        names = ("out", "mean0", "mean1", "mean2", "var0", "var1", "var2",
+                 "d_x0", "d_w1", "d_w2", "d_gamma0", "d_gamma1", "d_gamma2",
+                 "d_beta0", "d_beta1", "d_beta2")
+        rows, plain = [], {}
+        for part, a, b in zip(names[7:], p_grads, r_grads):
+            plain[part] = ((a - b.float()).abs().max().item()
+                           / b.abs().max().item())
+        for part, a, b in zip(names, ours, (r_o.detach(), *r_ms, *r_vs,
+                                            *r_grads)):
+            b = b.float()
+            sc = b.abs().max().item()
+            rows.append((part, (a - b).abs().max().item() / sc,
+                         slots_off(a, b, 1e-4 * sc) if part == "d_x0" else 0))
+        print(f"fused_bn_mlp_pool forward and backward on the first "
+              f"{BN_CHECK_ROWS} rows at {where}: through autograd equal to "
+              f"its passes composed directly; against autograd of the plain "
+              f"chain in f64, largest error / largest value (and the plain "
+              f"chain's own f32 autograd): " + ", ".join(
+                  f"{part} {rel:.2e}" + (f" ({plain[part]:.2e})"
+                                         if part in plain else "")
+                  + (f", {off} slots beyond 1e-4" if part == "d_x0" else "")
+                  for part, rel, off in rows))
+        for part, rel, off in rows:
+            if part == "d_x0":
+                check(off <= BN_CHECK_ROWS * M * S // 10000,
+                      f"fused_bn_mlp_pool d_x0 differs in {off} slots on "
+                      f"{BN_CHECK_ROWS} rows at {where}")
+            else:
+                tol = 1e-4 if part == "out" or part[:1] in "mv" else 1e-2
+                check(rel <= tol, f"fused_bn_mlp_pool {part} differs by "
+                      f"{rel:.3e} of its largest value on {BN_CHECK_ROWS} "
+                      f"rows at {where}")
+        del leaves, ref_leaves, o, grads, r_o, r_grads, sub, ours, direct, d_g
+        del ref64, p_o, p_grads
+        torch.cuda.empty_cache()
+
+        def library_train():  # cuBLAS with batch-statistics BatchNorm
+            ls = [t.detach().requires_grad_() for t in
+                  (x0, mlp.dense_1.weight, mlp.dense_2.weight, *gammas,
+                   *betas)]
+            x = ls[0].view(-1, c1)
+            for i, w in enumerate((ls[1], ls[2], None)):
+                x = torch.relu(F.batch_norm(x, None, None, ls[3 + i],
+                                            ls[6 + i], training=True,
+                                            eps=eps))
+                if w is not None:
+                    x = F.linear(x, w)
+            o = x.view(R, M, S, c3).amax(2)
+            torch.autograd.grad(o, ls, grad_all)
+
+        grad_all = torch.randn(R, M, c3, generator=gen).to(x0.device)
+        library[k] = cuda_ms(library_train, 2)
+        print(f"cuBLAS chain with batch-statistics BatchNorm under autograd, "
+              f"forward and backward, at {where}: {library[k]:.3f} ms")
+        torch.cuda.empty_cache()
+    return library
 
 
 def pooled_inputs(model, pts):
@@ -1365,6 +1801,15 @@ def main() -> int:
     bmodel.load_state_dict(bstate)
     check(any(".bn_" in k for k in bstate if k.startswith("rcnn_net.sa_0")),
           "the BatchNorm RCNN has no BatchNorm in its SA levels")
+    # the same config in training, its own generator so that the draws of
+    # the earlier phases stay as they were: the train step at B=16 on the
+    # default batch, and the targets its RCNN sees, for phase 3
+    btrain_model = PointRCNN(bcfg, mode="TRAIN", device=dev)
+    btrain_state = train_weights(btrain_model, SEED)
+    btrain_model.load_state_dict(btrain_state)
+    btbatch = tbatch
+    bgen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    btarget = sampled_targets(btrain_model, btbatch, btrain_state, bgen)
     phases.done("setup")
 
     # 3. each kernel against its plain version, at its path's shapes
@@ -1413,6 +1858,11 @@ def main() -> int:
                 into.add(name, *row)
         del levels
         torch.cuda.empty_cache()
+    # the BatchNorm chain's training kernels at RCNN SA_0 and SA_1 of the
+    # BatchNorm RCNN's train step (B=16)
+    bn_library = bn_train_kernels(report, btrain_model, btarget,
+                                  BN_TRAIN_PATH)
+    torch.cuda.empty_cache()
     phases.done("3 (kernels against plain)")
 
     # 4. both paths at full width
@@ -1607,7 +2057,32 @@ def main() -> int:
     torch.cuda.empty_cache()
     phases.done("10 (BatchNorm RCNN)")
 
-    # 11. kernels line and result line: launches from the path each kernel
+    # 11. default.yaml with RCNN.USE_BN true in training: the joint train
+    # step at B=16, whose RCNN SA levels run the BatchNorm chain's seven
+    # training kernels in place of the gather form's training pair; its
+    # running statistics; scene 0's RCNN training against the CPU
+    bn_train = {k: v for k, v in train_launches.items()
+                if v and k not in ("fused_sa_train", "fused_sa_bwd")}
+    bn_train.update({k: 2 for k in BN_TRAIN_KERNELS})
+    torch.cuda.reset_peak_memory_stats()
+    btb, btrain_launches, bstep_ms = drive_train(
+        bcfg, btrain_model, btbatch, bgen, tuple(bn_train),
+        "BatchNorm RCNN joint train step", 3)
+    bpeak = torch.cuda.max_memory_allocated() / 2**30
+    check_launches(btrain_launches, bn_train, "BatchNorm RCNN train step")
+    print(f"BatchNorm RCNN joint train step: B={TRAIN_BATCH} N={N}: "
+          f"{bstep_ms:.1f} ms/step, peak device memory {bpeak:.2f} GiB; "
+          f"rpn_loss {float(btb['rpn_loss']):.4f}, rcnn_loss "
+          f"{float(btb['rcnn_loss']):.4f}; launches as expected: "
+          f"{bn_train}")
+    check_bn_running_stats(bcfg, btrain_model, btbatch, bgen)
+    compare_train_on_cpu(bcfg, btrain_model, btarget, btbatch, rpn=False,
+                         rcnn_floor=True)
+    del btrain_model, btarget, btbatch
+    torch.cuda.empty_cache()
+    phases.done("11 (BatchNorm RCNN training)")
+
+    # 12. kernels line and result line: launches from the path each kernel
     # was timed at (per forward or per train step), and on the other paths
     runs = {"default.yaml eval B=2": launches,
             "default.yaml train B=16": train_launches,
@@ -1615,7 +2090,7 @@ def main() -> int:
             "double.yaml train B=16": dtrain_launches,
             QUICK_PATH["eval"]: qlaunches, QUICK_PATH["train"]: qtrain_launches,
             SMOKE_PATH["eval"]: slaunches, SMOKE_PATH["train"]: strain_launches,
-            BN_PATH: blaunches}
+            BN_PATH: blaunches, BN_TRAIN_PATH: btrain_launches}
     kernels = []
     for name, r in report.rows.items():
         b_ms, b_by = bound_ms(r["bytes"], r["ops"])
@@ -1623,6 +2098,7 @@ def main() -> int:
                                          "fused_sa_slab_bwd") else "eval")
         path = ("double.yaml train B=16" if name in ("three_nn", "fps_long")
                 else BN_PATH if name == "fused_sa_slab_bn"
+                else BN_TRAIN_PATH if name in BN_TRAIN_KERNELS
                 else QUICK_PATH[slab_mode] if name.startswith("fused_sa_slab")
                 else "default.yaml eval B=2" if name in EVAL_KERNELS
                 else "default.yaml train B=16")
@@ -1637,6 +2113,7 @@ def main() -> int:
             "smoke_eval_launches": slaunches[name],
             "smoke_train_launches": strain_launches[name],
             "bn_eval_launches": blaunches[name],
+            "bn_train_launches": btrain_launches[name],
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": r["lib_ms"],
             "status": "ported"}
@@ -1654,7 +2131,11 @@ def main() -> int:
         kernels.append(row)
     check(len(kernels) == len(SOURCES), f"kernels timed: {len(kernels)}")
     print(json.dumps({"kernels": kernels, "not_ported": [
-        {"replaces": rep, "status": st} for rep, st in NOT_PORTED]}))
+        {"replaces": rep, "status": st} for rep, st in NOT_PORTED],
+        "bn_train_chain_library_ms": {
+            "path": BN_TRAIN_PATH, "what": "cuBLAS chain with "
+            "batch-statistics BatchNorm under autograd, forward and backward",
+            **{f"RCNN SA_{k}": ms for k, ms in bn_library.items()}}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

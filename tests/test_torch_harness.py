@@ -92,21 +92,27 @@ def test_plain_versions_count_no_launches():
             torch.rand(128, 128), torch.rand(128)]
     with torch.no_grad():
         fused_mlp_pool(*slab)
-        fused_bn_mlp_pool(slab[0], slab[1], slab[3],
+        fused_bn_mlp_pool(slab[0], slab[1], slab[3], [torch.rand(128)] * 3,
+                          [torch.rand(128)] * 3,
                           [(torch.rand(128), torch.rand(128))] * 3)
     for t in slab:
         t.requires_grad_()
     fused_mlp_pool(*slab).sum().backward()
+    bn = [torch.rand(128, requires_grad=True) for _ in range(6)]
+    out, _ = fused_bn_mlp_pool(slab[0], slab[1], slab[3], bn[:3], bn[3:])
+    out.sum().backward()
     ball_query(xyz[:, :32].contiguous(), xyz, 0.3, 16, method="first")
     assert picks.shape == (1, 32)
     assert feats.grad is not None and weight.grad is not None
     assert all(args[i].grad is not None for i in (0, 2, 3, 4, 5, 6))
-    assert all(t.grad is not None for t in slab)
+    assert all(t.grad is not None for t in slab + bn)
     assert set(_build.LAUNCHES) == {
         "fps3nn", "nearest_k", "three_interpolate", "three_interpolate_bwd",
         "fps", "fused_sa", "fused_sa_train", "fused_sa_bwd", "three_nn",
         "fps_long", "fused_sa_slab", "fused_sa_slab_bn",
-        "fused_sa_slab_train", "fused_sa_slab_bwd"}
+        "fused_sa_slab_train", "fused_sa_slab_bwd", "fused_sa_bn_stats0",
+        "fused_sa_bn_stats1", "fused_sa_bn_stats2", "fused_sa_bn_final",
+        "fused_sa_bn_wave1", "fused_sa_bn_wave2", "fused_sa_bn_apply"}
     assert not any(_build.LAUNCHES.values()), _build.LAUNCHES
 
 

@@ -22,7 +22,10 @@ from tpu3d_torch.ops.fused_sa import (
     fused_gathered_mlp_pool_backward_plain, fused_gathered_mlp_pool_plain,
     fused_gathered_mlp_pool_train, fused_gathered_mlp_pool_train_plain,
     fused_mlp_pool_backward, fused_mlp_pool_backward_plain,
-    fused_mlp_pool_train, fused_mlp_pool_train_plain, fused_sa_slab_plain)
+    fused_mlp_pool_train, fused_mlp_pool_train_plain, fused_sa_bn_final,
+    fused_sa_bn_final_plain, fused_sa_bn_stats, fused_sa_bn_stats_plain,
+    fused_sa_bn_wave, fused_sa_bn_wave_plain, fused_bn_mlp_pool_train_plain,
+    fused_sa_slab_plain, _bn_affine, _layer_pack, _pack)
 from tpu3d_torch.ops.grouping import nearest_k_plain
 from tpu3d_torch.ops.interpolate import (three_interpolate_backward,
                                          three_interpolate_backward_plain,
@@ -245,31 +248,132 @@ def test_slab_kernels_match_plain_on_cuda(name):
         else:
             x0, w1, _, w2, _ = args
             g = torch.Generator(device="cuda").manual_seed(s)
-            affines = [(1 + 0.2 * torch.randn(c, generator=g, device="cuda"),
-                        0.2 * torch.randn(c, generator=g, device="cuda"))
-                       for c in (128, 128, c3)]
+            gammas, betas, stats, affines = _bn_params(g, c3)
             want = fused_sa_slab_plain(x0, bn_packs(affines), w1, w2)
             torch.testing.assert_close(
-                fused_bn_mlp_pool(x0, w1, w2, affines), want, rtol=0,
-                atol=1e-4 * want.abs().max().item())
+                fused_bn_mlp_pool(x0, w1, w2, gammas, betas, stats), want,
+                rtol=0, atol=1e-4 * want.abs().max().item())
+    assert _build.LAUNCHES[name] > 0
+
+
+def _bn_params(g, c3):
+    """Three BatchNorm layers' gammas, betas and running (mean, var), away
+    from 0 and 1, and their eval affines as the op folds them."""
+    gammas, betas, stats = [], [], []
+    for c in (128, 128, c3):
+        gammas.append(1 + 0.2 * torch.randn(c, generator=g, device="cuda"))
+        betas.append(0.2 * torch.randn(c, generator=g, device="cuda"))
+        stats.append((0.3 * torch.randn(c, generator=g, device="cuda"),
+                      0.5 + torch.rand(c, generator=g, device="cuda")))
+    affines = [_bn_affine(m, v, ga, be, 1e-5)[:2]
+               for (m, v), ga, be in zip(stats, gammas, betas)]
+    return gammas, betas, stats, affines
+
+
+def _near(a, b, scale, tol=1e-4):
+    torch.testing.assert_close(a, b, rtol=0, atol=tol * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fused_sa_bn_stats0", "fused_sa_bn_stats1",
+                                  "fused_sa_bn_stats2", "fused_sa_bn_final",
+                                  "fused_sa_bn_wave1", "fused_sa_bn_wave2",
+                                  "fused_sa_bn_apply"])
+def test_bn_train_kernels_match_plain_on_cuda(name):
+    """The BatchNorm chain's seven training kernels against their plain
+    pieces on the card, at S 16/32/64 and C3 128/256, on the same inputs and
+    packs (the plain chain's batch statistics, its argmax): each statistics
+    pass's Σx² within 1e-5 of its value and Σx within 1e-5·√(n·Σx²) per
+    channel (f32 layers summed in another order, the sums in f64); the
+    final pass's output within 1e-4 of its largest value, its argmax equal
+    but at near-ties (at most 1 in 1000 channels), x2 there within 1e-4 of
+    the largest |x2|; each wave's two reductions, its weight gradient and
+    d_x0 within 1e-4 of each one's largest value."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    _build.reset_launches()
+    for s, c3 in ((64, 128), (16, 256), (32, 128), (64, 256)):
+        x0, w1, _, w2, _, grad = _slab_inputs(64, 16, s, c3, seed=s + c3)
+        g = torch.Generator(device="cuda").manual_seed(s + 1)
+        gammas, betas, _, _ = _bn_params(g, c3)
+        n = x0.shape[0] * 16 * s
+        out, arg, x2, means, vars_ = fused_bn_mlp_pool_train_plain(
+            x0, w1, w2, gammas, betas)
+        layers = [_layer_pack(m, v, ga, be, 1e-5, n) for m, v, ga, be in
+                  zip(means, vars_, gammas, betas)]
+        pk = _pack(layers)
+        if name.startswith("fused_sa_bn_stats"):
+            depth = int(name[-1])
+            got = fused_sa_bn_stats(depth, x0, pk, w1, w2)
+            want = fused_sa_bn_stats_plain(depth, x0, pk, w1, w2)
+            torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0)
+            assert ((got[0] - want[0]).abs()
+                    <= 1e-5 * (n * want[1]).sqrt()).all()
+        elif name == "fused_sa_bn_final":
+            packs = torch.cat([t for layer in layers for t in layer[:2]])
+            got = fused_sa_bn_final(x0, packs, w1, w2)
+            want = fused_sa_bn_final_plain(x0, packs, w1, w2)
+            _near(got[0], want[0], want[0].abs().max().item())
+            same = got[1] == want[1]
+            assert (~same).sum().item() <= same.numel() // 1000
+            _near(got[2][same], want[2][same], want[2].abs().max().item())
+        else:
+            wave = {"fused_sa_bn_wave1": 1, "fused_sa_bn_wave2": 2,
+                    "fused_sa_bn_apply": 3}[name]
+            d_y2 = torch.where(out > 0, grad, 0.0)
+            r2 = layers[2][2]
+            layers[2] = _layer_pack(
+                means[2], vars_[2], gammas[2], betas[2], 1e-5, n,
+                d_y2.sum(dim=(0, 1)),
+                (d_y2 * (x2 * r2 - means[2] * r2)).sum(dim=(0, 1)))
+            for layer, scale in ((1, 0.3), (0, 0.2)):  # nonzero ca, cb
+                c = layers[layer].shape[1]
+                layers[layer][5:] = scale * torch.randn(
+                    2, c, generator=g, device="cuda")
+            pk = _pack(layers)
+            dval = (d_y2 * layers[2][0]).contiguous()
+            got = fused_sa_bn_wave(wave, x0, pk, w1, w2, dval, arg)
+            want = fused_sa_bn_wave_plain(wave, x0, pk, w1, w2, dval, arg)
+            if wave == 3:
+                got, want = [got], [want]
+            for a, b in zip(got, want):
+                _near(a, b, b.abs().max().item())
     assert _build.LAUNCHES[name] > 0
 
 
 @pytest.mark.cuda
-def test_bn_chain_training_raises_on_cuda():
-    """The BatchNorm chain's training kernels are not ported: an RCNN level
-    with BatchNorm in training, or a gradient through the eval kernel,
-    raises on the card instead of running plain torch; at eval it launches
-    the slab kernel."""
+def test_bn_chain_training_on_cuda():
+    """An RCNN level with BatchNorm in training runs the chain's seven
+    kernels, once each per forward and backward, and its output and every
+    gradient meet the plain chain's within 1e-4 of each one's largest
+    value; its running statistics take the momentum update with the batch
+    statistics; a gradient through the eval form raises; at eval it
+    launches the slab kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     sa = PointnetSAModule(16, 0.8, 64, (128, 128, 256), 125, bn=True,
                           device="cuda")
     xyz = torch.rand(4, 64, 3, device="cuda")
     feats = torch.randn(4, 64, 125, device="cuda")
-    with pytest.raises(NotImplementedError, match="kernel 9"):
-        sa(xyz, feats, train=True)
-    with pytest.raises(NotImplementedError, match="training kernels"):
+    cpu = PointnetSAModule(16, 0.8, 64, (128, 128, 256), 125, bn=True,
+                           device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in sa.state_dict().items()})
+    _build.reset_launches()
+    out = sa(xyz, feats, train=True, bn_momentum=0.9)[1]
+    out.backward(torch.ones_like(out))
+    for name in ("fused_sa_bn_stats0", "fused_sa_bn_stats1",
+                 "fused_sa_bn_stats2", "fused_sa_bn_final",
+                 "fused_sa_bn_wave1", "fused_sa_bn_wave2",
+                 "fused_sa_bn_apply"):
+        assert _build.LAUNCHES[name] == 1, (name, _build.LAUNCHES[name])
+    ref = cpu(xyz.cpu(), feats.cpu(), train=True, bn_momentum=0.9)[1]
+    ref.backward(torch.ones_like(ref))
+    _near(out.cpu(), ref, ref.abs().max().item())
+    for (k, p), q in zip(sa.named_parameters(), cpu.parameters()):
+        _near(p.grad.cpu(), q.grad, q.grad.abs().max().item())
+    for k, v in cpu.state_dict().items():
+        _near(sa.state_dict()[k].cpu(), v, v.abs().max().item(), 1e-5)
+    with pytest.raises(NotImplementedError, match="no backward"):
         sa(xyz, feats)
     _build.reset_launches()
     with torch.no_grad():

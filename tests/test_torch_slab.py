@@ -253,16 +253,20 @@ def _bn_case(shape, seed):
 
 
 def _port_bn(x0, w1, w2, bns):
-    """The port's ``fused_bn_mlp_pool`` with each layer's (mul, add) folded
-    by the port's ``BatchNorm``, as the model folds them."""
-    affines = []
+    """The port's ``fused_bn_mlp_pool`` at eval with the running
+    statistics, whose (mul, add) it folds as the port's ``BatchNorm``
+    does."""
+    gammas, betas, stats = [], [], []
     for scale, bias, mean, var in bns:
         bn = BatchNorm(scale.shape[0])
         bn.load_state_dict({"scale": T(scale), "bias": T(bias),
                             "mean": T(mean), "var": T(var)})
-        affines.append(bn.affine())
+        gammas.append(bn.scale)
+        betas.append(bn.bias)
+        stats.append((bn.mean, bn.var))
     with torch.no_grad():
-        return fused_bn_mlp_pool(T(x0), T(w1), T(w2), affines).numpy()
+        return fused_bn_mlp_pool(T(x0), T(w1), T(w2), gammas, betas,
+                                 stats).numpy()
 
 
 def _jax_bn(fn, x0, w1, w2, bns, **kw):

@@ -25,6 +25,7 @@ from test_torch_rcnn_ops import (_boxes5, _pooled_rows,  # noqa: E402
                                  _scene_and_rois)
 from test_torch_rpn import run_pair  # noqa: E402
 import test_torch_double as td  # noqa: E402
+import test_torch_bn_train as tb  # noqa: E402
 import test_torch_slab as ts  # noqa: E402
 import test_torch_train as tt  # noqa: E402
 import test_torch_train_ops as to  # noqa: E402
@@ -306,6 +307,51 @@ def slab_report():
               f" (max |value| {np.abs(jout[key]).max():.3e}); routes {calls}")
 
 
+def bn_train_report():
+    """The BatchNorm chain's training (tests/test_torch_bn_train.py)."""
+    def rel(a, b):
+        return max(np.abs(np.asarray(x) - np.asarray(y)).max()
+                   / np.abs(np.asarray(y)).max() for x, y in zip(a, b))
+
+    for shape in tb.SHAPES:
+        arrays = tb._case(shape, shape[2] + shape[5])
+        ref = tb._jax_reference(arrays)
+        for name, ours in (("op", tb._port(arrays)),
+                           ("pieces", tb._pieces(arrays))):
+            print(f"fused_bn_mlp_pool training {shape}, {name} against the "
+                  f"f32 reference: out {rel([ours[0]], [ref[0]]):.3e}, "
+                  f"statistics {rel(ours[1] + ours[2], ref[1] + ref[2]):.3e}"
+                  f", gradients {rel(ours[3], ref[3]):.3e} of each largest")
+    for shape in tb.SHAPES[:2] + tb.SHAPES[3:]:
+        err, mean_err, _, same, rels = tb.pallas_case(shape)
+        print(f"fused_bn_mlp_pool training {shape} against the Pallas "
+              f"kernels (interpret): out max {err.max():.3e} mean "
+              f"{err.mean():.3e}, means {mean_err:.3e}, argmax equal "
+              f"{same:.4f}; gradients max / mean rel: " + ", ".join(
+                  f"{n} {r.max():.3e} / {r.mean():.3e}"
+                  for n, r in zip(tb.NAMES, rels)))
+    for mode in ("joint", "rcnn"):
+        jtb, jstats, tbm, stats, _, _, _ = tb.train_step_case(mode)
+        ours, ref = dict(tt._flat(stats)), dict(tt._flat(jstats))
+        worst = max(np.abs(ours[k] - v).max() / np.abs(v).max()
+                    for k, v in ref.items())
+        losses = ", ".join(
+            f"{k} {abs(float(tbm[k]) - float(jtb[k])) / abs(float(jtb[k])):.3e}"
+            for k in ("rpn_loss", "rcnn_loss") if k in jtb)
+        print(f"BatchNorm RCNN {mode} train step, cut default.yaml, against "
+              f"tpu3d's on pinned targets: relative loss errors {losses}; "
+              f"RCNN running statistics {worst:.3e} of each largest")
+    loss, jloss, ours, ref, stats, jstats, _ = tb.rcnn_f64_case()
+    top = max(np.abs(v).max() for v in ref.values())
+    err = max(np.abs(ours[k] - v).max() for k, v in ref.items())
+    serr = max((np.abs(stats[k] - v) / np.abs(v).max()).max()
+               for k, v in jstats.items())
+    print(f"BatchNorm RCNN gradients on tpu3d's targets, f64: loss "
+          f"{abs(loss - jloss):.3e} (of {jloss:.3e}), gradients max abs "
+          f"{err:.3e} (largest {top:.3e}), running statistics {serr:.3e} "
+          f"of each largest")
+
+
 def main():
     rng = np.random.default_rng(4096)
     xyz = rng.uniform([-30, -1, 0], [30, 3, 70], (2, 4096, 3)).astype(
@@ -356,6 +402,7 @@ def main():
     train_report()
     double_report()
     slab_report()
+    bn_train_report()
 
 
 if __name__ == "__main__":

@@ -17,12 +17,18 @@
 // _eval_chain_kernel (entry fused_bn_mlp_pool(stats=...); the caller folds
 // the running statistics into (mul, add), as tpu3d's _bn_consts does).
 //
-// The training form (no BatchNorm only) also writes, per (row, center,
-// channel), the first slot s that reaches the max (argmax) and the pre-ReLU
-// value x2 there (ppre): the backward (fused_sa_bwd.cu) routes the pooled
-// gradient to that one slot. Its pooled output is the eval form's to the
-// bit: the same instructions compute it, and the argmax is found after, by
-// comparison.
+// The training form also writes, per (row, center, channel), the first
+// slot s that reaches the max (argmax) and a value of layer 2 there: the
+// backward routes the pooled gradient to that one slot. Without BatchNorm
+// (entries fused_sa_train, fused_sa_slab_train) that value is the pre-ReLU
+// x2·mul2 + add2 (ppre), which fused_sa_bwd.cu reads. With BatchNorm (entry
+// fused_sa_slab_bn_train, the final pass of the chain's training forward,
+// replacing tpu3d's _fwd_final_kernel; the caller passes the packs of the
+// batch statistics) it is the raw Dense output x2 (the RAW flag): the
+// BatchNorm backward (fused_sa_bn.cu) needs x̂2 = x2·r2 − μ2·r2 there, and
+// recovering x2 from the post-affine value would divide by gamma2. Its
+// pooled output is the eval form's to the bit: the same instructions
+// compute it, and the argmax is found after, by comparison.
 // The TPU kernels round to bf16 at the layer boundaries for the MXU; this
 // one computes in f32 throughout (no TF32), so that it is held to the plain
 // f32 version, which tpu3d's CPU path equals. Multiply-adds are contracted
@@ -89,7 +95,7 @@ __device__ __forceinline__ float4 mul4(const float* m, int col) {
     return make_float4(1.0f, 1.0f, 1.0f, 1.0f);
 }
 
-template <int TM, int TN2, int TN3, bool TRAIN, bool SLAB>
+template <int TM, int TN2, int TN3, bool TRAIN, bool SLAB, bool RAW>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_sa_kernel(const Args a, int N, int M, int C1) {
   constexpr int S = kWarps * TM;
@@ -152,8 +158,9 @@ fused_sa_kernel(const Args a, int N, int M, int C1) {
       mxs[q] = mx;
     }
     if constexpr (TRAIN) {
-      // the first of this warp's rows whose ReLU(x2) reaches the warp's
-      // max, and x2 there, into the weight buffer
+      // the first of this warp's rows whose ReLU(x2·mul2 + add2) reaches
+      // the warp's max, and there x2·mul2 + add2 (or x2 itself, RAW), into
+      // the weight buffer
       __syncthreads();  // every warp is done with the last weight slice
       int* warg = reinterpret_cast<int*>(wbuf);
       float* wpre = wbuf + kWarps * C3;
@@ -174,7 +181,7 @@ fused_sa_kernel(const Args a, int N, int M, int C1) {
             const float v = fmaf(acc[i][4 * q + r], kk[r], bb[r]);
             if (first < 0 && fmaxf(v, 0.0f) == mv[r]) {
               first = i;
-              px = v;
+              px = RAW ? acc[i][4 * q + r] : v;
             }
           }
           warg[warp * C3 + col + r] = warp * TM + first;
@@ -200,7 +207,7 @@ fused_sa_kernel(const Args a, int N, int M, int C1) {
   }
 }
 
-template <int TM, int TN2, int TN3, bool TRAIN, bool SLAB>
+template <int TM, int TN2, int TN3, bool TRAIN, bool SLAB, bool RAW>
 cudaError_t launch(const Args& a, int R, int N, int M, int C1,
                    cudaStream_t stream) {
   constexpr int S = kWarps * TM;
@@ -210,32 +217,32 @@ cudaError_t launch(const Args& a, int R, int N, int M, int C1,
                         + kWarps * C3;
   const size_t smem = floats * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_sa_kernel<TM, TN2, TN3, TRAIN, SLAB>,
+      fused_sa_kernel<TM, TN2, TN3, TRAIN, SLAB, RAW>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(M, R);
-  fused_sa_kernel<TM, TN2, TN3, TRAIN, SLAB>
+  fused_sa_kernel<TM, TN2, TN3, TRAIN, SLAB, RAW>
       <<<grid, kThreads, smem, stream>>>(a, N, M, C1);
   return cudaGetLastError();
 }
 
-template <int TM, bool TRAIN, bool SLAB>
+template <int TM, bool TRAIN, bool SLAB, bool RAW>
 cudaError_t launch_c(const Args& a, int R, int N, int M, int C1, int C2,
                      int C3, cudaStream_t stream) {
   if (C2 == 128 && C3 == 128)
-    return launch<TM, 4, 4, TRAIN, SLAB>(a, R, N, M, C1, stream);
+    return launch<TM, 4, 4, TRAIN, SLAB, RAW>(a, R, N, M, C1, stream);
   if (C2 == 128 && C3 == 256)
-    return launch<TM, 4, 8, TRAIN, SLAB>(a, R, N, M, C1, stream);
+    return launch<TM, 4, 8, TRAIN, SLAB, RAW>(a, R, N, M, C1, stream);
   if constexpr (SLAB) {  // the slab form takes C2 = 128 only
     return cudaErrorInvalidValue;
   } else {
     if (C2 == 256 && C3 == 128)
-      return launch<TM, 8, 4, TRAIN, SLAB>(a, R, N, M, C1, stream);
-    return launch<TM, 8, 8, TRAIN, SLAB>(a, R, N, M, C1, stream);
+      return launch<TM, 8, 4, TRAIN, SLAB, RAW>(a, R, N, M, C1, stream);
+    return launch<TM, 8, 8, TRAIN, SLAB, RAW>(a, R, N, M, C1, stream);
   }
 }
 
-template <bool TRAIN, bool SLAB>
+template <bool TRAIN, bool SLAB, bool RAW = false>
 int dispatch(const Args& a, int R, int N, int M, int S, int C1, int C2,
              int C3, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
@@ -246,11 +253,11 @@ int dispatch(const Args& a, int R, int N, int M, int S, int C1, int C2,
     return (int)cudaErrorInvalidValue;
   switch (S) {
     case 16:
-      return (int)launch_c<2, TRAIN, SLAB>(a, R, N, M, C1, C2, C3, stream);
+      return (int)launch_c<2, TRAIN, SLAB, RAW>(a, R, N, M, C1, C2, C3, stream);
     case 32:
-      return (int)launch_c<4, TRAIN, SLAB>(a, R, N, M, C1, C2, C3, stream);
+      return (int)launch_c<4, TRAIN, SLAB, RAW>(a, R, N, M, C1, C2, C3, stream);
     case 64:
-      return (int)launch_c<8, TRAIN, SLAB>(a, R, N, M, C1, C2, C3, stream);
+      return (int)launch_c<8, TRAIN, SLAB, RAW>(a, R, N, M, C1, C2, C3, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -315,4 +322,20 @@ extern "C" int tpu3d_fused_sa_slab_train(const float* x0, const float* packs,
   return dispatch<true, true>(
       slab_args(x0, packs, w1, w2, C1, C2, C3, out, argmax, ppre), R, 0, M,
       S, C1, C2, C3, stream_ptr);
+}
+
+// The BatchNorm chain's training forward, final pass: as
+// tpu3d_fused_sa_slab_train with the packs of the batch statistics, but
+// ppre holds the raw Dense output x2 at the argmax (RAW).
+extern "C" int tpu3d_fused_sa_slab_bn_train(const float* x0,
+                                            const float* packs,
+                                            const float* w1, const float* w2,
+                                            int R, int M, int S, int C1,
+                                            int C2, int C3, float* out,
+                                            int* argmax, float* x2,
+                                            void* stream_ptr) {
+  if (C1 != 128 || C2 != 128) return (int)cudaErrorInvalidValue;
+  return dispatch<true, true, true>(
+      slab_args(x0, packs, w1, w2, C1, C2, C3, out, argmax, x2), R, 0, M, S,
+      C1, C2, C3, stream_ptr);
 }

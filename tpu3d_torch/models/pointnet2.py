@@ -32,9 +32,9 @@ chosen from its shapes alone and the same on every device
   BatchNorm, groups the pre-activations into the (R, M, S, C1) slab, and
   the fused slab op runs layers 1-2 and the max-pool: ``fused_mlp_pool``
   at SA_1 of quickstart.yaml (64 points) and smoke.yaml (32 points),
-  ``fused_bn_mlp_pool`` at eval with BatchNorm (an RCNN with
-  ``USE_BN: true``), whose training form is not ported: on the card it
-  raises, on the CPU it runs the SharedMLP;
+  ``fused_bn_mlp_pool`` with BatchNorm (an RCNN with ``USE_BN: true``):
+  at eval with the running statistics, in training with the batch's, which
+  then update the running ones;
 - plain: the SharedMLP and a max, otherwise (other widths or group shapes,
   and the GroupAll).
 """
@@ -215,27 +215,41 @@ class PointnetSAModule(nn.Module):
         m = self.mlp_0
         route = sa_route((xyz.shape[0], self.npoint, self.nsample,
                           self.mlp[0]), self.mlp, xyz.shape[1], m.bn)
-        if route != "plain":
+        if route != "plain" and not m.bn:
             w1 = m.dense_1.weight.T.contiguous()
             w2 = m.dense_2.weight.T.contiguous()
         if route == "gather":
             return new_xyz, fused_gathered_mlp_pool(
                 pre, idx, center, w1, m.dense_1.bias, w2, m.dense_2.bias)
         x = group_points(pre, idx) - center[:, :, None, :]
-        if route == "slab" and not m.bn:
+        if route == "slab" and m.bn:
+            return new_xyz, self._bn_slab(x, train, bn_momentum)
+        if route == "slab":
             return new_xyz, fused_mlp_pool(x, w1, m.dense_1.bias, w2,
                                            m.dense_2.bias)
-        if route == "slab" and not train:
-            return new_xyz, fused_bn_mlp_pool(
-                x, w1, w2, [getattr(m, f"bn_{i}").affine() for i in range(3)])
-        if route == "slab" and x.device.type != "cpu":
-            raise NotImplementedError(
-                "an RCNN level with BatchNorm in training takes tpu3d's fused "
-                "BatchNorm chain (tpu3d/ops/fused_sa.py:158-291, four forward "
-                "and three backward kernels with batch statistics), which is "
-                "not ported yet (ROADMAP.md, queue 2, kernel 9)")
         return new_xyz, m(None, pre0=x, train=train,
                           bn_momentum=bn_momentum).amax(dim=2)
+
+    def _bn_slab(self, x, train, bn_momentum):
+        """The slab route with BatchNorm (``fused_bn_mlp_pool``) on the
+        grouped slab x: at eval with the running statistics; in training
+        with the batch's, which then update the running ones as
+        ``BatchNorm.forward`` updates them. The weights go in as views of
+        the Dense kernels, so that the CPU's plain version multiplies as
+        ``nn.Linear`` does."""
+        m = self.mlp_0
+        bns = [getattr(m, f"bn_{i}") for i in range(3)]
+        args = (x, m.dense_1.weight.T, m.dense_2.weight.T,
+                [bn.scale for bn in bns], [bn.bias for bn in bns])
+        if not train:
+            return fused_bn_mlp_pool(*args, [(bn.mean, bn.var) for bn in bns],
+                                     bns[0].eps)
+        out, (means, vars_) = fused_bn_mlp_pool(*args, None, bns[0].eps)
+        with torch.no_grad():
+            for bn, mean, var in zip(bns, means, vars_):
+                bn.mean.copy_(bn_momentum * bn.mean + (1 - bn_momentum) * mean)
+                bn.var.copy_(bn_momentum * bn.var + (1 - bn_momentum) * var)
+        return out
 
 
 class PointnetFPModule(nn.Module):

@@ -4,30 +4,40 @@ abstraction, at eval and in training, in tpu3d's two fused forms.
 Counterpart of ``tpu3d/ops/fused_sa.py::fused_gathered_mlp_pool`` (the
 gather form: the group gather of per-point pre-activations runs inside the
 kernel), ``fused_mlp_pool`` (the slab form: the caller builds the grouped
-(R, M, S, C1) pre-activation in memory) and ``fused_bn_mlp_pool`` at eval
-(the slab form with BatchNorm, its running statistics folded into one
-per-channel affine per layer). ``sa_route`` is tpu3d's choice among the
-two forms and the plain SharedMLP (``models/pointnet2.py``).
+(R, M, S, C1) pre-activation in memory) and ``fused_bn_mlp_pool`` (the
+slab form with BatchNorm: at eval its running statistics folded into one
+per-channel affine per layer, in training with the batch's statistics).
+``sa_route`` is tpu3d's choice among the two forms and the plain SharedMLP
+(``models/pointnet2.py``).
 
 Each no-BN op runs, for CUDA tensors, its eval kernel in ``csrc/fused_sa.cu``
 when no gradient is needed, and otherwise a ``torch.autograd.Function``
 whose forward is the training kernel of the same source (it also keeps
 each pooled channel's first argmax slot and the pre-ReLU value there) and
-whose backward is ``csrc/fused_sa_bwd.cu``. The BatchNorm op is the slab
-eval kernel alone. For CPU tensors each runs its plain version, or the
-plain training form under autograd. All compute in f32 (the TPU kernels
-round to bf16 at their layer boundaries), so they are held to tpu3d's CPU
-path, which is f32 too. The max-pool's gradient goes to the first slot that
-reaches the max, as tpu3d's kernels route it.
+whose backward is ``csrc/fused_sa_bwd.cu``. The BatchNorm op at eval is the
+slab eval kernel alone; in training a ``torch.autograd.Function`` whose
+forward is three statistics passes (``csrc/fused_sa_bn.cu``) and the slab
+training kernel on the batch statistics, and whose backward is three waves
+(``csrc/fused_sa_bn.cu``), each pass a counted kernel. For CPU tensors each
+runs its plain version, or the plain training form under autograd. All
+compute in f32 (the TPU kernels round to bf16 at their layer boundaries),
+so they are held to tpu3d's CPU path, which is f32 too. The max-pool's
+gradient goes to the first slot that reaches the max, as tpu3d's kernels
+route it.
 
 Kernel notes (in full in the sources): they replace
 ``tpu3d/ops/fused_sa.py::_nobn2_eval_kernel``, ``_nobn2_fwd_kernel`` and
 ``_nobn2_bwd_kernel`` (gather form), ``_nobn_eval_kernel``,
 ``_nobn_fwd_kernel``, ``_nobn_bwd_kernel`` and ``_eval_chain_kernel`` (slab
-form). The two Dense layers make them bound by operations; one block per
-(row, center) loads its S x C1 group into shared memory (gathered, or read
-from the slab), and the backward walks many groups per block, summing the
-weight gradients in registers and shared memory before one write per block.
+form), and the BatchNorm chain's training kernels ``_stats0_kernel``,
+``_fwd_stats1_kernel``, ``_fwd_stats2_kernel``, ``_fwd_final_kernel``,
+``_bwd_wave1_kernel``, ``_bwd_wave2_kernel`` and ``_bwd_apply_kernel``.
+The two Dense layers make them bound by operations; one block per (row,
+center) loads its S x C1 group into shared memory (gathered, or read from
+the slab), and the backward walks many groups per block, summing the
+weight gradients in registers and shared memory before one write per
+block; the BatchNorm chain's passes walk tiles of slots the same way and
+sum their per-channel reductions in f64 per block.
 The slab kernel takes each layer as a per-channel affine (mul, add) between
 two Dense layers, a_l = ReLU(x_l·mul_l + add_l): mul = 1 and add = (0, b1,
 b2) without BatchNorm, the folded running statistics with it.
@@ -79,13 +89,18 @@ def _pool_train_plain(x0, w1, b1, w2, b2):
     return _first_max(_chain(x0, w1, b1, w2, b2))
 
 
-def _chunked(fn, grouped, R, M, S, width):
-    """``fn`` over row chunks of the grouped slab ``grouped(rows)``, each
-    (chunk, M, S, width) intermediate near 64 MB (autograd keeps every
-    chunk's intermediates), with its outputs concatenated over rows."""
+def _row_chunks(R, M, S, width):
+    """Row slices of an (R, M, S, ·) slab whose (rows, M, S, width)
+    intermediates are near 64 MB."""
     chunk = max(1, (1 << 24) // (M * S * width))
-    outs = [fn(grouped(slice(r0, r0 + chunk)))
-            for r0 in range(0, R, chunk)]
+    return [slice(r0, r0 + chunk) for r0 in range(0, R, chunk)]
+
+
+def _chunked(fn, grouped, R, M, S, width):
+    """``fn`` over row chunks of the grouped slab ``grouped(rows)``
+    (``_row_chunks``; autograd keeps every chunk's intermediates), with its
+    outputs concatenated over rows."""
+    outs = [fn(grouped(rows)) for rows in _row_chunks(R, M, S, width)]
     if isinstance(outs[0], tuple):
         return tuple(torch.cat(parts) for parts in zip(*outs))
     return torch.cat(outs)
@@ -424,20 +439,20 @@ def fused_mlp_pool_backward_plain(x0, w1, b1, w2, b2, grad, argmax, ppre):
         return torch.autograd.grad(sel, leaves, dval)
 
 
-def _check_slab(x0, packs, w1, w2):
-    """Raise unless the slab kernels take these tensors; -> (R, M, S,
-    C3)."""
+def _check_slab(x0, packs, w1, w2, vecs=2):
+    """Raise unless the slab kernels take these tensors, ``packs`` holding
+    ``vecs`` per-channel vectors of each layer; -> (R, M, S, C3)."""
     _check_tensors((x0, "x0", 4), (packs, "packs", 1), (w1, "w1", 2),
                    (w2, "w2", 2))
     R, M, S, C1 = x0.shape
     C3 = w2.shape[1]
     if (w1.shape != (128, 128) or w2.shape[0] != 128 or C1 != 128
-            or C3 not in (128, 256) or packs.shape != (2 * (256 + C3),)
+            or C3 not in (128, 256) or packs.shape != (vecs * (256 + C3),)
             or S not in (16, 32, 64) or R > 65535):
         raise ValueError(
             f"fused_sa_slab takes x0 (R <= 65535, M, S in (16, 32, 64), 128),"
             f" w1 (128, 128), w2 (128, C3 in (128, 256)), packs "
-            f"(2 (256 + C3),); got x0 {tuple(x0.shape)}, w1 "
+            f"({vecs} (256 + C3),); got x0 {tuple(x0.shape)}, w1 "
             f"{tuple(w1.shape)}, w2 {tuple(w2.shape)}, packs "
             f"{tuple(packs.shape)}")
     return R, M, S, C3
@@ -514,28 +529,370 @@ def fused_mlp_pool(x0: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                          w1, w2))
 
 
-def fused_bn_mlp_pool(x0: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
-                      affines) -> torch.Tensor:
-    """The BatchNorm chain at eval: x0 (R, M, S, C1) the grouped layer-0
-    pre-activations (Dense without bias), w1 (C1, C2), w2 (C2, C3), and
-    ``affines`` the three BatchNorm layers' (mul, add), the running
-    statistics folded in -> (R, M, C3):
-        max_s ReLU(ReLU(ReLU(x0·mul0 + add0) @ w1·mul1 + add1) @ w2·mul2
-                   + add2).
+# --------------------------------------------------------------------------
+# the BatchNorm chain: [BN -> ReLU -> Dense] x2 -> BN -> ReLU -> max over S,
+# at eval with the running statistics folded into the slab kernel's packs,
+# in training with the batch's statistics (four forward passes over the
+# slab, three backward waves)
+# --------------------------------------------------------------------------
 
-    tpu3d's ``fused_bn_mlp_pool(stats=...)``. For CUDA tensors the slab eval
-    kernel (counted as ``fused_sa_slab_bn``), with the shape limits of
-    ``fused_mlp_pool``; it has no backward, so a CUDA call that needs a
-    gradient raises (the chain's training form, with batch statistics, is
-    not ported). For CPU tensors the plain version, differentiable.
-    """
-    packs = bn_packs(affines)
+# the seven per-channel vectors of each layer in the training kernels' pack
+MUL, ADD, R_INV, MU_R, SCALE, CA, CB = range(7)
+STATS_KERNELS = ("fused_sa_bn_stats0", "fused_sa_bn_stats1",
+                 "fused_sa_bn_stats2")
+WAVE_KERNELS = {1: "fused_sa_bn_wave1", 2: "fused_sa_bn_wave2",
+                3: "fused_sa_bn_apply"}
+
+
+def _bn_affine(mean, var, gamma, beta, eps):
+    """A BatchNorm layer's (mul, add, r = 1/√(var + ε)): tpu3d's
+    ``_bn_consts``, in the order ``BatchNorm.affine`` folds them."""
+    r = torch.rsqrt(var + eps)
+    mul = r * gamma
+    return mul, beta - mean * mul, r
+
+
+def _layer_pack(mean, var, gamma, beta, eps, n, dbeta=None, dgamma=None):
+    """One layer's (7, C) vectors of the training kernels' pack: mul, add,
+    r, mean·r, s = gamma·r, and the backward's ca = s·Σd_y / n and cb =
+    s·Σ(d_y·x̂) / n once its reductions are known (else 0)."""
+    mul, add, r = _bn_affine(mean, var, gamma, beta, eps)
+    if dbeta is None:
+        ca = cb = torch.zeros_like(mul)
+    else:
+        ca, cb = mul * dbeta / n, mul * dgamma / n
+    return torch.stack([mul, add, r, mean * r, mul, ca, cb])
+
+
+def _pack(layers) -> torch.Tensor:
+    return torch.cat([t.reshape(-1) for t in layers]).contiguous()
+
+
+def _unpack(pk, c1, c2, c3):
+    return [t.view(7, -1) for t in pk.split([7 * c1, 7 * c2, 7 * c3])]
+
+
+def _mean_var(sums, n, dtype):
+    """Mean and biased variance E[x²] − mean² in ``dtype`` from the f64
+    (Σx, Σx²) over n slots."""
+    mean = sums[0] / n
+    return mean.to(dtype), (sums[1] / n - mean * mean).to(dtype)
+
+
+def _bn_train(x, gamma, beta, eps):
+    """BatchNorm in training, as ``models.pointnet2.BatchNorm`` computes it
+    -> (y, mean, var)."""
+    axes = tuple(range(x.dim() - 1))
+    mean = x.mean(dim=axes)
+    var = (x * x).mean(dim=axes) - mean * mean
+    return ((x - mean) * torch.rsqrt(var + eps)) * gamma + beta, mean, var
+
+
+def fused_bn_mlp_pool_train_plain(x0, w1, w2, gammas, betas, eps=1e-5):
+    """The BatchNorm chain in training, plain: tpu3d's
+    ``fused_bn_mlp_pool_reference`` (batch statistics over every slot,
+    biased variance) with the first-argmax pool, differentiable by autograd
+    -> (out (R, M, C3), argmax i32, x2 at the argmax, means, vars), the
+    three layers' statistics detached. Its operations are the SharedMLP's
+    with batch statistics, one by one, so it gives that module's values and
+    statistics to the bit."""
+    y0, m0, v0 = _bn_train(x0, gammas[0], betas[0], eps)
+    x1 = torch.relu(y0) @ w1
+    y1, m1, v1 = _bn_train(x1, gammas[1], betas[1], eps)
+    x2 = torch.relu(y1) @ w2
+    y2, m2, v2 = _bn_train(x2, gammas[2], betas[2], eps)
+    out, arg, _ = _first_max(y2)
+    at = torch.gather(x2.detach(), 2, arg.long()[:, :, None, :])[:, :, 0]
+    return (out, arg, at, tuple(m.detach() for m in (m0, m1, m2)),
+            tuple(v.detach() for v in (v0, v1, v2)))
+
+
+def fused_bn_mlp_pool_backward_plain(x0, w1, w2, gammas, betas, grad,
+                                     eps=1e-5):
+    """The gradients of ``fused_bn_mlp_pool_train_plain``'s output for
+    ``grad``, by autograd -> (d_x0, dW1, dW2, dgammas, dbetas)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_()
+                  for t in (x0, w1, w2, *gammas, *betas)]
+        out = fused_bn_mlp_pool_train_plain(
+            leaves[0], leaves[1], leaves[2], leaves[3:6], leaves[6:9],
+            eps)[0]
+        g = torch.autograd.grad(out, leaves, grad)
+    return g[0], g[1], g[2], tuple(g[3:6]), tuple(g[6:9])
+
+
+@torch.no_grad()
+def fused_sa_bn_stats_plain(depth, x0, pk, w1, w2):
+    """Plain version of a statistics pass: (Σx, Σx²) (2, C) in f64 of x0,
+    x1 = ReLU(x0·mul0 + add0) W1 or x2 = ReLU(x1·mul1 + add1) W2 (depth 0,
+    1, 2) over every slot, each in f32 and summed in f64 as the kernel
+    does."""
+    c1, c2, c3 = x0.shape[-1], w1.shape[1], w2.shape[1]
+    l0, l1, _ = _unpack(pk, c1, c2, c3)
+    sums = torch.zeros(2, (c1, c2, c3)[depth], dtype=torch.float64,
+                       device=x0.device)
+    for rows in _row_chunks(*x0.shape[:3], max(c2, c3)):
+        x = x0[rows]
+        if depth >= 1:
+            x = torch.relu(x * l0[MUL] + l0[ADD]) @ w1
+        if depth == 2:
+            x = torch.relu(x * l1[MUL] + l1[ADD]) @ w2
+        sums[0] += x.sum(dim=(0, 1, 2), dtype=torch.float64)
+        sums[1] += (x * x).sum(dim=(0, 1, 2), dtype=torch.float64)
+    return sums
+
+
+@torch.no_grad()
+def fused_sa_bn_final_plain(x0, packs, w1, w2):
+    """Plain version of the final forward pass on the batch statistics'
+    packs ([mul0 | add0 | mul1 | add1 | mul2 | add2]) -> (out, argmax i32,
+    x2 at the argmax), each (R, M, C3)."""
+    c1, c2, c3 = x0.shape[-1], w1.shape[1], w2.shape[1]
+    m0, a0, m1, a1, m2, a2 = packs.split([c1, c1, c2, c2, c3, c3])
+
+    def pool(x):
+        x2 = torch.relu((torch.relu(x * m0 + a0) @ w1) * m1 + a1) @ w2
+        out, arg, _ = _first_max(x2 * m2 + a2)
+        return out, arg, torch.gather(x2, 2, arg.long()[:, :, None, :])[
+            :, :, 0]
+
+    return _chunked(pool, *_slab_form(x0, w1, w2))
+
+
+@torch.no_grad()
+def fused_sa_bn_wave_plain(wave, x0, pk, w1, w2, dval, argmax):
+    """Plain version of a backward wave, tpu3d's ``_bwd_wave1_kernel``,
+    ``_bwd_wave2_kernel`` or ``_bwd_apply_kernel``: the chain recomputed
+    from x0, d_x2 = [slot = argmax]·dval − c2a − c2b·x̂2 on every slot,
+    d_y1 = (d_x2 W2ᵀ)[y1 > 0]; wave 1 -> ((Σd_y1, Σd_y1·x̂1) (2, C2) f64,
+    dW2 = a1ᵀ d_x2); then d_x1 = s1·d_y1 − c1a − c1b·x̂1, d_y0 = (d_x1
+    W1ᵀ)[y0 > 0]; wave 2 -> ((Σd_y0, Σd_y0·x̂0) (2, C1), dW1 = a0ᵀ d_x1);
+    wave 3 -> d_x0 = s0·d_y0 − c0a − c0b·x̂0."""
+    R, M, S, c1 = x0.shape
+    c2, c3 = w1.shape[1], w2.shape[1]
+    l0, l1, l2 = _unpack(pk, c1, c2, c3)
+    f64 = torch.float64
+    sums = torch.zeros(2, c2 if wave == 1 else c1, dtype=f64,
+                       device=x0.device)
+    dw = x0.new_zeros((c2, c3) if wave == 1 else (c1, c2))
+    d_x0 = torch.empty_like(x0) if wave == 3 else None
+    slots = torch.arange(S, device=x0.device)[:, None]
+    for rows in _row_chunks(*x0.shape[:3], max(c2, c3)):
+        x = x0[rows]
+        y0 = x * l0[MUL] + l0[ADD]
+        x1 = torch.relu(y0) @ w1
+        y1 = x1 * l1[MUL] + l1[ADD]
+        x2 = torch.relu(y1) @ w2
+        sel = slots == argmax[rows][:, :, None, :]
+        d_x2 = (torch.where(sel, dval[rows][:, :, None, :], 0.0) - l2[CA]
+                - l2[CB] * (x2 * l2[R_INV] - l2[MU_R]))
+        d_y1 = torch.where(y1 > 0, d_x2 @ w2.T, 0.0)
+        xh1 = x1 * l1[R_INV] - l1[MU_R]
+        if wave == 1:
+            sums[0] += d_y1.sum(dim=(0, 1, 2), dtype=f64)
+            sums[1] += (d_y1 * xh1).sum(dim=(0, 1, 2), dtype=f64)
+            dw += torch.relu(y1).reshape(-1, c2).T @ d_x2.reshape(-1, c3)
+            continue
+        d_x1 = l1[SCALE] * d_y1 - l1[CA] - l1[CB] * xh1
+        d_y0 = torch.where(y0 > 0, d_x1 @ w1.T, 0.0)
+        xh0 = x * l0[R_INV] - l0[MU_R]
+        if wave == 2:
+            sums[0] += d_y0.sum(dim=(0, 1, 2), dtype=f64)
+            sums[1] += (d_y0 * xh0).sum(dim=(0, 1, 2), dtype=f64)
+            dw += torch.relu(y0).reshape(-1, c1).T @ d_x1.reshape(-1, c2)
+        else:
+            d_x0[rows] = l0[SCALE] * d_y0 - l0[CA] - l0[CB] * xh0
+    return d_x0 if wave == 3 else (sums, dw)
+
+
+def _check_bn(x0, pk, w1, w2):
+    """Raise unless the training kernels take these tensors; -> (R, M, S,
+    C3)."""
+    R, M, S, C3 = _check_slab(x0, pk, w1, w2, vecs=7)
+    if (M * S) % 64:
+        raise ValueError(f"the BatchNorm training kernels take M·S a "
+                         f"multiple of 64, got M={M}, S={S}")
+    return R, M, S, C3
+
+
+def _grid(device, work: int, per_sm: int) -> int:
+    """A persistent grid: ``per_sm`` blocks per SM, at most one per unit of
+    work."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return min(work, per_sm * sms)
+
+
+def fused_sa_bn_stats(depth, x0, pk, w1, w2):
+    """A statistics pass of the chain's training forward: the kernel
+    counted as ``fused_sa_bn_stats{depth}`` for CUDA tensors, else
+    ``fused_sa_bn_stats_plain``. -> (Σx, Σx²) (2, C) f64."""
     if x0.device.type == "cpu":
+        return fused_sa_bn_stats_plain(depth, x0, pk, w1, w2)
+    R, M, S, C3 = _check_bn(x0, pk, w1, w2)
+    width = (128, 128, C3)[depth]
+    blocks = _grid(x0.device, R * M * S // 64, 2)
+    ws = torch.empty(blocks, 2, width, dtype=torch.float64, device=x0.device)
+    sums = torch.empty(2, width, dtype=torch.float64, device=x0.device)
+    _build.launch(STATS_KERNELS[depth], x0.data_ptr(), pk.data_ptr(),
+                  w1.data_ptr(), w2.data_ptr(), R, M, S, C3, depth, blocks,
+                  ws.data_ptr(), sums.data_ptr())
+    return sums
+
+
+def fused_sa_bn_final(x0, packs, w1, w2):
+    """The chain's final forward pass on the batch statistics' packs ->
+    (out, argmax, x2 at the argmax): the slab training kernel with its raw
+    x2 (``fused_sa_bn_final``) for CUDA tensors, else
+    ``fused_sa_bn_final_plain``."""
+    if x0.device.type == "cpu":
+        return fused_sa_bn_final_plain(x0, packs, w1, w2)
+    return _slab_forward("fused_sa_bn_final", x0, packs, w1, w2, train=True)
+
+
+def fused_sa_bn_wave(wave, x0, pk, w1, w2, dval, argmax):
+    """Backward wave 1, 2 or 3 (``fused_sa_bn_wave1``, ``_wave2``,
+    ``fused_sa_bn_apply``) for CUDA tensors, else
+    ``fused_sa_bn_wave_plain``; the same outputs."""
+    if x0.device.type == "cpu":
+        return fused_sa_bn_wave_plain(wave, x0, pk, w1, w2, dval, argmax)
+    R, M, S, C3 = _check_bn(x0, pk, w1, w2)
+    _build.check_cuda_tensor(dval, "dval", torch.float32, 3)
+    _build.check_cuda_tensor(argmax, "argmax", torch.int32, 3)
+    if dval.shape != (R, M, C3) or argmax.shape != dval.shape:
+        raise ValueError(f"dval and argmax must be {(R, M, C3)}")
+    dev = x0.device
+    blocks = _grid(dev, R * M, 1)
+    w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
+    if wave == 3:
+        dx0 = torch.empty_like(x0)
+        bufs = (dx0, None, None, None, None)
+    else:
+        cols = C3 if wave == 1 else 128
+        bufs = (None, torch.empty(blocks, 128 * cols, device=dev),
+                torch.empty(blocks, 256, dtype=torch.float64, device=dev),
+                torch.empty(128, cols, device=dev),
+                torch.empty(2, 128, dtype=torch.float64, device=dev))
+    _build.launch(WAVE_KERNELS[wave], *(t.data_ptr() for t in (
+        x0, pk, w1, w2, w1t, w2t, dval, argmax)), R, M, S, C3, wave, blocks,
+        *(None if t is None else t.data_ptr() for t in bufs))
+    return bufs[0] if wave == 3 else (bufs[4], bufs[3])
+
+
+def fused_bn_mlp_pool_train(x0, w1, w2, gammas, betas, eps=1e-5):
+    """The chain's training forward, tpu3d's ``_fused_train_fwd_impl``:
+    three statistics passes, each normalising the layers before it with the
+    statistics of the passes before, then the final pass -> (out, argmax,
+    x2 at the argmax, means, vars). Each pass is its kernel for CUDA
+    tensors, its plain version for CPU tensors."""
+    R, M, S, c1 = x0.shape
+    n = R * M * S
+    w1, w2 = w1.contiguous(), w2.contiguous()
+    layers = [x0.new_zeros(7, c) for c in (c1, w1.shape[1], w2.shape[1])]
+    means, vars_ = [], []
+    for depth in range(3):
+        mean, var = _mean_var(fused_sa_bn_stats(depth, x0, _pack(layers),
+                                                w1, w2), n, x0.dtype)
+        means.append(mean)
+        vars_.append(var)
+        layers[depth] = _layer_pack(mean, var, gammas[depth], betas[depth],
+                                    eps, n)
+    packs = torch.cat([t for layer in layers for t in layer[:2]])
+    out, argmax, x2 = fused_sa_bn_final(x0, packs, w1, w2)
+    return out, argmax, x2, tuple(means), tuple(vars_)
+
+
+def fused_bn_mlp_pool_backward(x0, w1, w2, gammas, betas, means, vars_, out,
+                               argmax, x2, grad, eps=1e-5):
+    """The chain's backward, tpu3d's ``_fused_train_bwd``, from the output
+    gradient and the training forward's statistics, out, argmax and x2 at
+    the argmax -> (d_x0, dW1, dW2, dgammas, dbetas). Layer 2's reductions
+    come from the small (R, M, C3) tensors (the pooled gradient reaches x2
+    at the argmax slots alone; ReLU passes it where the pooled output is >
+    0); then the three waves, each its kernel for CUDA tensors, its plain
+    version for CPU tensors."""
+    R, M, S, c1 = x0.shape
+    n = R * M * S
+    w1, w2 = w1.contiguous(), w2.contiguous()
+    layers = [_layer_pack(m, v, g, b, eps, n)
+              for m, v, g, b in zip(means, vars_, gammas, betas)]
+    mul2, r2 = layers[2][MUL], layers[2][R_INV]
+    d_y2 = torch.where(out > 0, grad, 0.0)
+    dbeta2 = d_y2.sum(dim=(0, 1))
+    dgamma2 = (d_y2 * (x2 * r2 - means[2] * r2)).sum(dim=(0, 1))
+    layers[2] = _layer_pack(means[2], vars_[2], gammas[2], betas[2], eps, n,
+                            dbeta2, dgamma2)
+    dval = (d_y2 * mul2).contiguous()
+    sums, dw2 = fused_sa_bn_wave(1, x0, _pack(layers), w1, w2, dval, argmax)
+    dbeta1, dgamma1 = sums.to(x0.dtype)
+    layers[1] = _layer_pack(means[1], vars_[1], gammas[1], betas[1], eps, n,
+                            dbeta1, dgamma1)
+    sums, dw1 = fused_sa_bn_wave(2, x0, _pack(layers), w1, w2, dval, argmax)
+    dbeta0, dgamma0 = sums.to(x0.dtype)
+    layers[0] = _layer_pack(means[0], vars_[0], gammas[0], betas[0], eps, n,
+                            dbeta0, dgamma0)
+    d_x0 = fused_sa_bn_wave(3, x0, _pack(layers), w1, w2, dval, argmax)
+    return (d_x0, dw1, dw2, (dgamma0, dgamma1, dgamma2),
+            (dbeta0, dbeta1, dbeta2))
+
+
+class _FusedBNMLPPool(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x0, w1, w2, g0, g1, g2, b0, b1, b2, eps):
+        gammas, betas = (g0, g1, g2), (b0, b1, b2)
+        out, argmax, x2, means, vars_ = fused_bn_mlp_pool_train(
+            x0, w1, w2, gammas, betas, eps)
+        ctx.eps = eps
+        ctx.save_for_backward(x0, w1, w2, *gammas, *betas, *means, *vars_,
+                              out, argmax, x2)
+        ctx.mark_non_differentiable(*means, *vars_)
+        return (out, *means, *vars_)
+
+    @staticmethod
+    def backward(ctx, grad, *_):
+        t = ctx.saved_tensors
+        d_x0, dw1, dw2, dgammas, dbetas = fused_bn_mlp_pool_backward(
+            t[0], t[1], t[2], t[3:6], t[6:9], t[9:12], t[12:15], t[15],
+            t[16], t[17], grad.contiguous(), ctx.eps)
+        return (d_x0, dw1, dw2, *dgammas, *dbetas, None)
+
+
+def fused_bn_mlp_pool(x0: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+                      gammas, betas, stats=None, eps: float = 1e-5):
+    """[BN -> ReLU -> Dense] x2 -> BN -> ReLU -> max over S, tpu3d's
+    ``fused_bn_mlp_pool``: x0 (R, M, S, C1) the grouped layer-0
+    pre-activations (Dense without bias), w1 (C1, C2), w2 (C2, C3), gammas
+    and betas the three BatchNorm layers' scales and biases.
+
+    ``stats`` ((mean, var) x3), the running statistics: eval, -> pooled
+    (R, M, C3); each layer's (mul, add) folded as ``BatchNorm.affine``
+    folds them, for CUDA tensors the slab eval kernel (counted as
+    ``fused_sa_slab_bn``), which has no backward (a CUDA call that needs a
+    gradient raises). ``stats`` None: training with the batch's statistics
+    (over every slot, biased variance) -> (pooled, ((mean0, mean1, mean2),
+    (var0, var1, var2))), the statistics not differentiable (the caller
+    folds them into the running ones); differentiable in x0, w1, w2, gammas
+    and betas, the max-pool's gradient on the first slot that reaches the
+    max. For CUDA tensors its seven kernels (``fused_bn_mlp_pool_train``,
+    ``fused_bn_mlp_pool_backward``), with the shape limits of
+    ``fused_mlp_pool`` and M·S a multiple of 64; a CUDA tensor outside them
+    raises. For CPU tensors the plain version at either.
+    """
+    cpu = x0.device.type == "cpu"
+    if stats is None:
+        if cpu:
+            out, _, _, means, vars_ = fused_bn_mlp_pool_train_plain(
+                x0, w1, w2, gammas, betas, eps)
+            return out, (means, vars_)
+        out, *st = _FusedBNMLPPool.apply(x0, w1, w2, *gammas, *betas, eps)
+        return out, (tuple(st[:3]), tuple(st[3:]))
+    packs = bn_packs([_bn_affine(m, v, g, b, eps)[:2]
+                      for (m, v), g, b in zip(stats, gammas, betas)])
+    if cpu:
         return fused_sa_slab_plain(x0, packs, w1, w2)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x0, w1, w2, packs)):
         raise NotImplementedError(
-            "fused_bn_mlp_pool on the card is the eval kernel alone; the "
-            "BatchNorm chain's training kernels are not ported")
-    return _slab_forward("fused_sa_slab_bn", x0, packs.contiguous(), w1,
-                         w2)[0]
+            "fused_bn_mlp_pool with running statistics is the eval kernel "
+            "alone and has no backward; train with stats=None")
+    return _slab_forward("fused_sa_slab_bn", x0, packs.contiguous(),
+                         w1.contiguous(), w2.contiguous())[0]
