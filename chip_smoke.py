@@ -32,7 +32,16 @@ and no result line:
    training kernels (three statistics passes, the final pass, three
    backward waves) at SA_0 and SA_1 of its train step (B=16), each against
    its plain piece, then the whole training op on 128 rows against
-   autograd of its plain version;
+   autograd of its plain version. The gather backward (fused_sa_bwd) runs
+   twice per level: under the seeded routing (the plain forward's argmax;
+   reached slots, tiles and TFLOP/s over the reached slots printed) and
+   under full spread (every channel live at a slot drawn uniformly over S,
+   against its routed plain version, the bound over every slot). FPS's
+   pick loop at every level it serves on each path (default, double,
+   quickstart and smoke, eval and train): the geometry (k CTAs per
+   cluster, threads, points per thread) it chooses and its neighbours,
+   each bit for bit, in us per pick; the 3-NN pass as FPS+3NN less the
+   picks alone; and the dependent-chain floor, one point per thread;
 4. both eval paths at configs/default.yaml's full width (B=2 scenes of
    16384 points, NPOINTS 4096/1024/256/64, TEST pre/post-NMS 9000/100),
    with seeded weights and planted-cluster scenes, each with every launch
@@ -546,6 +555,132 @@ def double_kernels(report, extra, eval_pts, train_pts, npoint):
           f"{pms:.3f} ms, picks, nn_d2 and nn_idx equal")
 
 
+def launch_picks(xyz, npoint, geometry):
+    """The pick loop alone (the fps_long entry of csrc/fps3nn.cu) on
+    ``geometry`` (k, threads, ppt), at any N: -> (B, npoint) picks."""
+    import torch
+
+    from tpu3d_torch.ops import _build
+
+    B, N, _ = xyz.shape
+    idx = torch.empty(B, npoint, dtype=torch.int32, device=xyz.device)
+    _build.launch("fps_long", xyz.data_ptr(), B, N, npoint, *geometry,
+                  idx.data_ptr())
+    return idx
+
+
+def fps_neighbours(N, geometry):
+    """The chosen geometry and its neighbours: k and threads each halved,
+    kept or doubled, with the fewest points per thread that cover N."""
+    from tpu3d_torch.ops.sampling import FPS_PPT, FPS_PPT_THREADS, card_takes
+
+    k, t, _ = geometry
+    out = [geometry]
+    for kk in (k // 2, k, 2 * k):
+        for tt in (t // 2, t, 2 * t):
+            if not 1 <= kk <= 16 or tt < 32:
+                continue
+            ppt = next((p for p in FPS_PPT if kk * tt * p >= N), None)
+            if ppt is None or tt > FPS_PPT_THREADS[ppt]:
+                continue
+            g = (kk, tt, ppt)
+            if g not in out and card_takes(g):
+                out.append(g)
+    return out
+
+
+def fps_levels(pts, npoints):
+    """The RPN's FPS levels of a batch: -> [(cloud, npoint)], each level's
+    cloud the picks of the one before (either route of
+    furthest_point_sample_with_3nn)."""
+    from tpu3d_torch.ops import furthest_point_sample_with_3nn, gather_points
+
+    levels, x = [], pts
+    for npoint in npoints:
+        levels.append((x, npoint))
+        x = gather_points(x, furthest_point_sample_with_3nn(x, npoint)[0])
+    return levels
+
+
+def fps_pick_loop(paths):
+    """Phase 3 for FPS's pick loop (csrc/fps3nn.cu) at every level it serves
+    on each path of ``paths`` ({label: (points, npoints)}): the levels on
+    the fused FPS+3NN route and the long-row FPS. Per level: the geometry
+    card_geometry chooses, the picks alone on it (the fps_long entry) in us
+    per pick, bit for bit against the plain picks, and, on the fused route,
+    the 3-NN pass as the fused entry's time less the picks'; at the levels
+    of 4096 points or more also the chosen geometry's neighbours (the
+    sweep). Then the dependent-chain floor: default eval SA_0's cluster and
+    CTA size with one point per thread (N = k · threads, every point
+    picked), the cost of a pick's exchange alone. -> (levels, floor) for
+    the JSON line."""
+    import torch
+
+    from tpu3d_torch.ops import furthest_point_sample_with_3nn, fused_route
+    from tpu3d_torch.ops.sampling import (card_geometry,
+                                          furthest_point_sample_plain)
+
+    rows = []
+    for label, (pts, npoints) in paths.items():
+        for x, npoint in fps_levels(pts, npoints):
+            B, N, _ = x.shape
+            fused = fused_route(B, N, npoint)
+            if not fused and N <= 2048:
+                continue  # the split route's FPS is fps.cu
+            ref = furthest_point_sample_plain(x, npoint)
+            geom = card_geometry(B, N)
+            sweep = []
+            for g in (fps_neighbours(N, geom) if N >= 4096 else [geom]):
+                got = launch_picks(x, npoint, g)
+                torch.cuda.synchronize()
+                check(torch.equal(got, ref), f"FPS picks differ at {label} "
+                      f"N={N} on geometry {g}")
+                ms = cuda_ms(lambda: launch_picks(x, npoint, g), 3)
+                sweep.append({"geometry": list(g), "ms": ms,
+                              "us_per_pick": ms / max(npoint - 1, 1) * 1e3})
+            picks_ms = sweep[0]["ms"]
+            row = {"path": label, "B": B, "N": N, "npoint": npoint,
+                   "route": "fused" if fused else "split (fps_long)",
+                   "geometry": list(geom), "picks_ms": picks_ms,
+                   "us_per_pick": sweep[0]["us_per_pick"],
+                   "sweep": sweep[1:]}
+            if fused:
+                f_ms = cuda_ms(
+                    lambda: furthest_point_sample_with_3nn(x, npoint), 5)
+                row.update(fused_ms=f_ms, three_nn_ms=f_ms - picks_ms)
+            rows.append(row)
+            best = min(sweep, key=lambda r: r["ms"])
+            print(f"FPS pick loop {label} B={B} N={N} npoint={npoint}: "
+                  f"(k, threads, ppt) = {geom}, picks {picks_ms:.3f} ms "
+                  f"({row['us_per_pick']:.3f} us per pick)"
+                  + (f", FPS+3NN {row['fused_ms']:.3f} ms, so 3-NN "
+                     f"{row['three_nn_ms']:.3f} ms" if fused else "")
+                  + f"; sweep: " + ", ".join(
+                      f"{tuple(r['geometry'])} {r['us_per_pick']:.3f}"
+                      for r in sweep) + f" us per pick (best "
+                  f"{tuple(best['geometry'])}); picks equal")
+    eval_pts, eval_npoints = next(iter(paths.values()))
+    B, N, _ = eval_pts.shape
+    k, threads, _ = card_geometry(B, N)
+    n = k * threads
+    gen = torch.Generator(device=eval_pts.device).manual_seed(SEED + 8)
+    x = torch.rand(B, n, 3, generator=gen, device=eval_pts.device) * 40.0
+    got = launch_picks(x, n, (k, threads, 1))
+    torch.cuda.synchronize()
+    check(torch.equal(got, furthest_point_sample_plain(x, n)),
+          "FPS picks differ at the floor's geometry")
+    ms = cuda_ms(lambda: launch_picks(x, n, (k, threads, 1)), 3)
+    us = ms / (n - 1) * 1e3
+    floor = {"geometry": [k, threads, 1], "B": B, "N": n, "npoint": n,
+             "us_per_pick": us,
+             "ms_at_npoint": us * (eval_npoints[0] - 1) / 1e3}
+    print(f"FPS dependent-chain floor (measured): (k, threads, ppt) = "
+          f"({k}, {threads}, 1), B={B}, {n} points all picked: {us:.3f} us "
+          f"per pick, {floor['ms_at_npoint']:.3f} ms for "
+          f"{eval_npoints[0] - 1} picks")
+    return rows, floor
+
+
 def compare_split_on_cpu(pts, npoint):
     """Scene 0 of the double train batch: the card's split route (run on
     the whole batch, as the train step does) against the CPU plain route,
@@ -712,7 +847,14 @@ def interp_bwd_kernels(report, cfg, pts):
               f"{err:.3e}")
 
 
-def fused_train_kernels(report, model, target):
+def bwd_ops(hit, nnz, c1, c2):
+    """Operations of the gather backward: d_a1 and dW2 over the ``nnz``
+    non-zero pooled gradients; layer 1's recompute, dW1, d_a0 and the ReLU
+    masks over the ``hit`` slots they reach."""
+    return 3 * 2 * hit * c1 * c2 + 2 * 2 * nnz * c2 + hit * (2 * c1 + 2 * c2)
+
+
+def fused_train_kernels(report, full_spread, model, target):
     """Phase 3 for the fused SA op's training kernels, on the rows the
     train step's proposal target layer sampled, at RCNN SA_0 and SA_1.
     Forward: out equal to the eval kernel's to the bit, ppre within 1e-4
@@ -720,15 +862,20 @@ def fused_train_kernels(report, model, target):
     near-ties (f32 sums in another order may pick another slot whose value
     is the max within that tolerance; at most 1 in 1000). Backward: the six
     gradients within 1e-4 of each one's largest value, both routed by the
-    plain version's argmax."""
+    plain version's argmax (the seeded routing); then the backward again
+    under full spread (every channel live at a slot drawn uniformly over S)
+    against its routed plain version, its time summed per step into
+    ``full_spread``."""
     import torch
     import torch.nn.functional as F
 
     from tpu3d_torch.ops import fused_gathered_mlp_pool, group_points
     from tpu3d_torch.ops.fused_sa import (
-        fused_gathered_mlp_pool_backward,
-        fused_gathered_mlp_pool_backward_plain, fused_gathered_mlp_pool_train,
-        fused_gathered_mlp_pool_train_plain)
+        BWD_TILE, _bwd_blocks, fused_gathered_mlp_pool_backward,
+        fused_gathered_mlp_pool_backward_plain,
+        fused_gathered_mlp_pool_backward_routed_plain,
+        fused_gathered_mlp_pool_train, fused_gathered_mlp_pool_train_plain,
+        pack_tiles, reached_slots)
 
     net = model.rcnn_net
     xyz, rest = target["sampled_pts"], target["pts_feature"]
@@ -736,6 +883,7 @@ def fused_train_kernels(report, model, target):
         features = net.point_features(xyz, rest)
     R = xyz.shape[0]
     gen = torch.Generator(device="cpu").manual_seed(SEED + 2)
+    cuda_gen = torch.Generator(device=xyz.device).manual_seed(SEED + 7)
     for k in range(net.n_sa):
         sa = getattr(net, f"sa_{k}")
         if sa.npoint is None:
@@ -824,17 +972,58 @@ def fused_train_kernels(report, model, target):
 
         lms = cuda_ms(library, 2)
         nnz, hit = routed_slots(r_arg, grad, r_ppre, S)
-        # d_a1 and dW2 over the non-zero pooled gradients; layer 1's
-        # recompute, dW1, d_a0 and the ReLU masks over the slots they reach
-        ops = 3 * 2 * hit * c1 * c2 + 2 * 2 * nnz * c2 + hit * (2 * c1 + 2 * c2)
+        ops = bwd_ops(hit, nnz, c1, c2)
         nbytes = 4 * (2 * pre.numel() + idx.numel() + 2 * center.numel()
                       + w1.numel() + w2.numel() + c2 + 2 * R * M * c3
                       + w1.numel() + w2.numel() + c2 + c3)
         report.add("fused_sa_bwd", berr, ms, pms, lms, nbytes, ops)
-        print(f"fused_sa_bwd RCNN SA_{k}: {ms:.3f} ms, plain {pms:.3f} ms, "
-              f"autograd of the cuBLAS chain {lms:.3f} ms (forward and "
-              f"backward), {ops / ms / 1e9:.1f} TFLOP/s, {nnz} non-zero "
-              f"pooled gradients routed to {hit} of {R * M * S} slots")
+        tiles = len(pack_tiles(reached_slots(
+            torch.where(r_ppre > 0, grad, 0.0), r_arg, S).sum(dim=1).tolist(),
+            -(-R * M // _bwd_blocks(R * M))))
+        print(f"fused_sa_bwd RCNN SA_{k}, seeded routing: {ms:.3f} ms, plain "
+              f"{pms:.3f} ms, autograd of the cuBLAS chain {lms:.3f} ms "
+              f"(forward and backward), bound {bound_ms(nbytes, ops)[0]:.4f} "
+              f"ms, {ops / ms / 1e9:.2f} TFLOP/s over the reached slots; "
+              f"{nnz} non-zero pooled gradients reach {hit} of {R * M * S} "
+              f"slots ({100 * hit / (R * M * S):.2f}%) in {tiles} tiles of "
+              f"up to {BWD_TILE} rows")
+
+        # full spread: every channel live at a slot drawn uniformly over S,
+        # on the same pre, idx and weights; against the routed plain
+        # version, and the bound counts every slot
+        full_arg = torch.randint(0, S, r_arg.shape, generator=cuda_gen,
+                                 device=r_arg.device, dtype=torch.int32)
+        ones = torch.ones_like(r_ppre)
+        got = fused_gathered_mlp_pool_backward(*args, grad, full_arg, ones)
+        ref = fused_gathered_mlp_pool_backward_routed_plain(*args, grad,
+                                                            full_arg, ones)
+        torch.cuda.synchronize()
+        ferr = 0.0
+        for name, a, b in zip(("d_pre", "d_center", "dW1", "db1", "dW2",
+                               "db2"), got, ref):
+            e = (a - b).abs().max().item()
+            sc = b.abs().max().item()
+            check(e <= 1e-4 * sc, f"fused_sa_bwd {name} differs by {e} under "
+                  f"full spread at RCNN SA_{k}")
+            ferr = max(ferr, e / sc)
+        del got, ref
+        fms = cuda_ms(lambda: fused_gathered_mlp_pool_backward(
+            *args, grad, full_arg, ones), 5)
+        fnnz, fhit = routed_slots(full_arg, grad, ones, S)
+        f_bound = bound_ms(nbytes, bwd_ops(R * M * S, fnnz, c1, c2))[0]
+        full = full_spread.setdefault("fused_sa_bwd", dict(
+            ms=0.0, bound_ms=0.0, reached=0, slots=0, max_rel_err=0.0))
+        full["ms"] += fms
+        full["bound_ms"] += f_bound
+        full["reached"] += fhit
+        full["slots"] += R * M * S
+        full["max_rel_err"] = max(full["max_rel_err"], ferr)
+        print(f"fused_sa_bwd RCNN SA_{k}, full spread: {fms:.3f} ms, bound "
+              f"{f_bound:.3f} ms (every slot), "
+              f"{bwd_ops(fhit, fnnz, c1, c2) / fms / 1e9:.2f} TFLOP/s over "
+              f"the {fhit} reached of {R * M * S} slots; gradients within "
+              f"{ferr:.2e} of each largest value of the routed plain version")
+        del full_arg, ones
         # the train forward's output feeds the next level, as in the step
         with torch.no_grad():
             features = out
@@ -1817,10 +2006,26 @@ def main() -> int:
     rpn_kernels(report, cfg, pts)
     rcnn_kernels(report, model, pts)
     interp_bwd_kernels(report, cfg, tbatch["pts_input"])
-    fused_train_kernels(report, train_model, target)
+    full_spread = {}
+    fused_train_kernels(report, full_spread, train_model, target)
     torch.cuda.empty_cache()
     double_kernels(report, double_report, dpts,
                    dtbatch["pts_input"][..., :3].contiguous(), sa0)
+    torch.cuda.empty_cache()
+    # FPS's pick loop at every level it serves on each path: its launch
+    # geometry and the sweep around it, the 3-NN pass, the latency floor
+    fps_rows, fps_floor = fps_pick_loop({
+        path: (p["pts_input"][..., :3].contiguous() if isinstance(p, dict)
+               else p, c.RPN.SA_CONFIG.NPOINTS)
+        for path, p, c in (
+            ("default.yaml eval B=2", pts, cfg),
+            ("default.yaml train B=16", tbatch, cfg),
+            ("double.yaml eval B=4", dpts, dcfg),
+            ("double.yaml train B=16", dtbatch, dcfg),
+            (QUICK_PATH["eval"], q["pts"], q["cfg"]),
+            (QUICK_PATH["train"], q["tbatch"], q["cfg"]),
+            (SMOKE_PATH["eval"], sm["pts"], sm["cfg"]),
+            (SMOKE_PATH["train"], sm["tbatch"], sm["cfg"]))})
     torch.cuda.empty_cache()
     # the slab form: the eval kernel at RCNN SA_1 of quickstart.yaml's and
     # smoke.yaml's eval forward, the training kernels at RCNN SA_1 of their
@@ -2132,6 +2337,11 @@ def main() -> int:
     check(len(kernels) == len(SOURCES), f"kernels timed: {len(kernels)}")
     print(json.dumps({"kernels": kernels, "not_ported": [
         {"replaces": rep, "status": st} for rep, st in NOT_PORTED],
+        "fused_sa_bwd_full_spread": {
+            "path": "default.yaml train B=16", "what": "every channel live "
+            "at a slot drawn uniformly over S; bound over every slot",
+            **full_spread["fused_sa_bwd"]},
+        "fps_pick_loop": fps_rows, "fps_floor": fps_floor,
         "bn_train_chain_library_ms": {
             "path": BN_TRAIN_PATH, "what": "cuBLAS chain with "
             "batch-statistics BatchNorm under autograd, forward and backward",

@@ -19,7 +19,9 @@ from tpu3d_torch.ops import (furthest_point_sample,
 from tpu3d_torch.ops import _build
 from tpu3d_torch.ops.fused_sa import (
     bn_packs, fused_gathered_mlp_pool_backward,
-    fused_gathered_mlp_pool_backward_plain, fused_gathered_mlp_pool_plain,
+    fused_gathered_mlp_pool_backward_plain,
+    fused_gathered_mlp_pool_backward_routed_plain,
+    fused_gathered_mlp_pool_plain,
     fused_gathered_mlp_pool_train, fused_gathered_mlp_pool_train_plain,
     fused_mlp_pool_backward, fused_mlp_pool_backward_plain,
     fused_mlp_pool_train, fused_mlp_pool_train_plain, fused_sa_bn_final,
@@ -190,6 +192,65 @@ def test_long_row_kernels_match_plain_on_cuda(name):
         for g, r in zip(got, ref):
             torch.testing.assert_close(g, r, rtol=0, atol=0)
     assert _build.LAUNCHES[name] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c3", [128, 256])
+def test_fused_sa_bwd_full_spread_on_cuda(c3):
+    """The gather form's backward when every channel is live at a slot
+    drawn uniformly over S (nearly every slot reached, one group per tile),
+    and when a few channels are live (many groups per tile), against the
+    routed plain version: within 1e-4 of each gradient's largest value."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    args = _fused_inputs(64, c3, seed=5)
+    out, _, ppre = fused_gathered_mlp_pool_train(*args)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    grad = torch.randn(out.shape, generator=g, device="cuda")
+    arg = torch.randint(0, 64, out.shape, generator=g, device="cuda",
+                        dtype=torch.int32)
+    sparse = torch.where(torch.rand(out.shape, generator=g, device="cuda")
+                         < 0.03, 1.0, -1.0)
+    for live in (torch.ones_like(ppre), sparse):
+        got = fused_gathered_mlp_pool_backward(*args, grad, arg, live)
+        ref = fused_gathered_mlp_pool_backward_routed_plain(*args, grad, arg,
+                                                            live)
+        for a, b in zip(got, ref):
+            assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 4, 8, 16])
+def test_fps_cluster_sizes_on_cuda(k, monkeypatch):
+    """The FPS pick loop on clusters of k CTAs (every size fps_geometry can
+    choose; 16 where the card takes it), on clouds whose slices repeat each
+    other's points (ties across CTA boundaries) and a uniform cloud, bit for
+    bit against the plain version: the picks alone and FPS+3NN."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from tpu3d_torch.ops import sampling
+
+    n, npoint = 4096, 1024
+    threads = 128 if k > 1 else 256
+    geom = (k, threads,
+            next(p for p in sampling.FPS_PPT if k * threads * p >= n))
+    if not sampling.card_takes(geom):
+        pytest.skip(f"this card takes no cluster of {k} CTAs")
+    monkeypatch.setattr(sampling, "card_geometry", lambda B, N: geom)
+    rng = np.random.default_rng(k)
+    tied = (rng.integers(0, 24, size=(2, n, 3)) / 4).astype(np.float32)
+    h = -(-n // k)
+    for r in range(1, k):
+        tied[:, r * h:(r + 1) * h] = tied[:, :min(h, n - r * h)]
+    for cloud in (tied, _cloud(rng, 2, n)):
+        xyz = torch.from_numpy(cloud).cuda()
+        torch.testing.assert_close(
+            furthest_point_sample(xyz, npoint),
+            furthest_point_sample_plain(xyz, npoint), rtol=0, atol=0)
+        got = furthest_point_sample_with_3nn(xyz, npoint)
+        ref = furthest_point_sample_with_3nn_plain(xyz, npoint)
+        for a, b in zip(got, ref):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 def _slab_inputs(r, m, s, c3, seed):

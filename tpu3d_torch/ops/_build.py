@@ -54,8 +54,8 @@ I = ctypes.c_int
 F = ctypes.c_float
 # each kernel's C entry point: (source in csrc/, symbol, argtypes)
 KERNELS = {
-    "fps3nn": ("fps3nn", "tpu3d_fps3nn", [P, I, I, I, P, P, P, P]),
-    "fps_long": ("fps3nn", "tpu3d_fps_long", [P, I, I, I, P, P]),
+    "fps3nn": ("fps3nn", "tpu3d_fps3nn", [P, I, I, I, I, I, I, P, P, P, P]),
+    "fps_long": ("fps3nn", "tpu3d_fps_long", [P, I, I, I, I, I, I, P, P]),
     "three_nn": ("three_nn", "tpu3d_three_nn", [P, P, I, I, I, P, P, P]),
     "nearest_k": ("nearest_k", "tpu3d_nearest_k",
                   [P, P, I, I, I, I, F, P, P, P]),

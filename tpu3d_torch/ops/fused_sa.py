@@ -144,6 +144,113 @@ def fused_gathered_mlp_pool_backward_plain(pre, idx, center, w1, b1, w2, b2,
         return torch.autograd.grad(out, leaves, grad)
 
 
+# rows of the backward kernel's tiles of reached slots (csrc/fused_sa_bwd.cu)
+BWD_TILE = 64
+
+
+def reached_slots(dval: torch.Tensor, argmax: torch.Tensor,
+                  S: int) -> torch.Tensor:
+    """(R·M, S) bool: slot s of group g is reached when some channel has
+    ``argmax[g, c] == s`` and ``dval[g, c] != 0``. Only reached slots get a
+    non-zero d_x1, and so a dW1, db1, d_x0 and d_center term; the kernel
+    builds the same S-bit mask per group."""
+    G = dval.shape[0] * dval.shape[1]
+    live = (dval != 0).reshape(G, -1)
+    reached = torch.zeros(G, S, dtype=torch.bool, device=dval.device)
+    rows = torch.arange(G, device=dval.device)[:, None].expand_as(live)
+    reached[rows[live], argmax.reshape(G, -1).long()[live]] = True
+    return reached
+
+
+def pack_tiles(counts, per_block: int | None = None,
+               tile: int = BWD_TILE) -> list[list[int]]:
+    """The backward kernel's packing of groups into tiles: ``counts`` are
+    the groups' reached-slot counts (at most ``tile`` each), taken in order
+    in runs of ``per_block`` groups (a block's run; all of them by default);
+    a group with no reached slot takes no row, and a group that does not fit
+    the rows left in the tile starts the next one, so no group is split.
+    -> the tiles, each a list of group indices."""
+    counts = [int(c) for c in counts]
+    per_block = per_block or max(len(counts), 1)
+    tiles: list[list[int]] = []
+    for b0 in range(0, len(counts), per_block):
+        rows, cur = 0, []
+        for g in range(b0, min(b0 + per_block, len(counts))):
+            c = counts[g]
+            if c == 0:
+                continue
+            if rows + c > tile:
+                tiles.append(cur)
+                rows, cur = 0, []
+            cur.append(g)
+            rows += c
+        if cur:
+            tiles.append(cur)
+    return tiles
+
+
+def _routed_rows(pre, idx, center, w1, b1, w2, dval, argmax):
+    """The routed backward on a chunk of rows -> (d_pre, d_center, dW1,
+    db1, dW2ᵀ) of the chunk."""
+    R, M, S = idx.shape
+    C1, C3 = pre.shape[2], w2.shape[1]
+    G = R * M
+    reached = reached_slots(dval, argmax, S)
+    # the reached rows in the kernel's order (group, then slot), and each
+    # (group, slot)'s row
+    g_row, s_row = reached.nonzero(as_tuple=True)
+    row_of = torch.full((G, S), -1, dtype=torch.long, device=pre.device)
+    row_of[g_row, s_row] = torch.arange(g_row.numel(), device=pre.device)
+    batch = g_row // M
+    point = idx.reshape(G, S)[g_row, s_row].long()
+    x0 = pre[batch, point] - center.reshape(G, C1)[g_row]
+    a0 = torch.relu(x0)
+    x1 = a0 @ w1 + b1
+    a1 = torch.relu(x1)
+    # the live channels, each routed to its argmax row
+    flat_dval = dval.reshape(G, C3)
+    g_ch, c_ch = (flat_dval != 0).nonzero(as_tuple=True)
+    r_ch = row_of[g_ch, argmax.reshape(G, C3)[g_ch, c_ch].long()]
+    d_ch = flat_dval[g_ch, c_ch]
+    d_a1 = torch.zeros_like(a1).index_add_(0, r_ch, d_ch[:, None] * w2.T[c_ch])
+    dw2t = torch.zeros(C3, w2.shape[0], dtype=pre.dtype, device=pre.device)
+    dw2t.index_add_(0, c_ch, a1[r_ch] * d_ch[:, None])
+    d_x1 = torch.where(x1 > 0, d_a1, 0.0)
+    d_x0 = torch.where(x0 > 0, d_x1 @ w1.T, 0.0)
+    d_pre = torch.zeros_like(pre)
+    d_pre.index_put_((batch, point), d_x0, accumulate=True)
+    d_center = torch.zeros(G, C1, dtype=pre.dtype, device=pre.device)
+    d_center.index_add_(0, g_row, -d_x0)
+    return (d_pre, d_center.view(R, M, C1), a0.T @ d_x1, d_x1.sum(dim=0),
+            dw2t)
+
+
+@torch.no_grad()
+def fused_gathered_mlp_pool_backward_routed_plain(pre, idx, center, w1, b1,
+                                                  w2, b2, grad, argmax, ppre):
+    """Plain PyTorch version of the backward kernel's arithmetic: the
+    gradients for the output gradient ``grad``, routed by the training
+    forward's ``argmax`` where its pre-ReLU value ``ppre`` is > 0, over the
+    reached slots alone (``reached_slots``), a chunk of rows at a time ->
+    (d_pre, d_center, dW1, db1, dW2, db2). Layer 1 is recomputed on the
+    reached rows only; d_a1 and dW2 take each live channel's dval at its
+    argmax row. With the plain training forward's argmax and ppre it equals
+    ``fused_gathered_mlp_pool_backward_plain``."""
+    R, M, S = idx.shape
+    dval = torch.where(ppre > 0, grad, 0.0)
+    d_pre, d_center = torch.empty_like(pre), torch.empty_like(center)
+    dw1, db1 = torch.zeros_like(w1), torch.zeros_like(b1)
+    dw2t = torch.zeros_like(w2.T)
+    for rows in _row_chunks(R, M, S, max(w1.shape[1], w2.shape[1])):
+        parts = _routed_rows(pre[rows], idx[rows], center[rows], w1, b1, w2,
+                             dval[rows], argmax[rows])
+        d_pre[rows], d_center[rows] = parts[0], parts[1]
+        dw1 += parts[2]
+        db1 += parts[3]
+        dw2t += parts[4]
+    return d_pre, d_center, dw1, db1, dw2t.T, dval.sum(dim=(0, 1))
+
+
 def _check_tensors(*named):
     """Raise unless each (tensor, name, ndim) is an f32 CUDA tensor of that
     rank, contiguous and 16-byte aligned."""

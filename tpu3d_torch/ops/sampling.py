@@ -11,15 +11,19 @@ of up to 2048 points and the long-row FPS in ``csrc/fps3nn.cu`` for up to
 Kernel notes (in full in the sources). FPS is a chain of npoint dependent
 argmax steps, so it is bound by the latency of one pick, not by bytes or
 operations. ``fps3nn.cu`` replaces ``_fps3nn_pallas`` (the RPN's few long
-rows): one block per scene keeps the coordinates in shared memory and the
-running min in registers, with one barrier per pick, and the top-3 runs as
-a separate parallel kernel; above 16384 points a 2-CTA cluster per scene
-splits the cloud and meets at one cluster barrier per pick. ``fps.cu``
-replaces ``_fps_pallas`` (the RCNN's many short rows): one warp per row,
-one shuffle argmax per pick, no block barrier.
+rows): one thread-block cluster of k CTAs per scene, each CTA a slice of
+the cloud in registers; per pick every warp sends its winner into every
+CTA's shared memory (st.async, counted by an mbarrier), with no
+cluster-wide barrier; ``fps_geometry`` chooses (k, threads, points per
+thread) from (B, N). The top-3 runs as a separate parallel kernel. ``fps.cu`` replaces ``_fps_pallas`` (the RCNN's many
+short rows): one warp per row, one shuffle argmax per pick, no block
+barrier.
 """
 
 from __future__ import annotations
+
+import ctypes
+import math
 
 import torch
 
@@ -44,6 +48,80 @@ def fused_route(B: int, N: int, npoint: int) -> bool:
             and npoint >= 3)
 
 
+# The pick loop's launch geometry (csrc/fps3nn.cu), from one sweep on an
+# H100 (PERF.md): a pick costs least with about FPS_SCENE_THREADS threads
+# per scene in CTAs of FPS_CTA_THREADS (k · warps = 32 partials per pick,
+# one per lane of the reading warp) and up to 16 points per thread; a level
+# of up to FPS_ONE_CTA_N points runs on one CTA of up to 256 threads. k
+# halves (and the CTA doubles) while B·k would pass the SMs or k the
+# largest cluster. The kernel is compiled for at most FPS_PPT_THREADS[ppt]
+# threads (its registers).
+FPS_MAX_CLUSTER = 16
+FPS_SCENE_THREADS = 1024
+FPS_CTA_THREADS = 128
+FPS_ONE_CTA_N = 1024
+FPS_PPT = (1, 2, 4, 8, 16)
+FPS_PPT_THREADS = {1: 1024, 2: 1024, 4: 1024, 8: 512, 16: 256}
+H100_SMS = 132
+
+
+def _warps(n: int) -> int:
+    return 32 * math.ceil(n / 32)
+
+
+def fps_geometry(B: int, N: int, max_cluster: int = FPS_MAX_CLUSTER,
+                 sms: int = H100_SMS) -> tuple[int, int, int]:
+    """(k, threads, ppt) of the pick loop for B scenes of N points: k CTAs
+    per scene (a power of 2 up to ``max_cluster``), ``threads`` per CTA
+    (whole warps) and ``ppt`` points per thread, k · threads · ppt >= N."""
+    if not 1 <= N <= 32768 or B < 1:
+        raise ValueError(f"the FPS pick loop takes 1 <= N <= 32768 and B >= "
+                         f"1, got B={B}, N={N}")
+    if N <= FPS_ONE_CTA_N:
+        ppt = next(p for p in FPS_PPT if _warps(math.ceil(N / p)) <= 256)
+        return 1, _warps(math.ceil(N / ppt)), ppt
+    ppt = next((p for p in FPS_PPT if FPS_SCENE_THREADS * p >= N), 16)
+    total = _warps(math.ceil(N / ppt))  # threads per scene
+    threads = min(FPS_CTA_THREADS, total)
+    k = 1 << math.ceil(math.log2(math.ceil(total / threads)))
+    while (k > 1 and (k > max_cluster or B * k > sms)
+           and 2 * threads <= FPS_PPT_THREADS[ppt]):
+        k //= 2
+        threads *= 2
+    if k > max_cluster:
+        raise ValueError(f"N={N} needs clusters of {k} CTAs, more than "
+                         f"{max_cluster}")
+    return k, threads, ppt
+
+
+_cluster_ok: dict[tuple[int, int, int], bool] = {}
+
+
+def card_takes(geometry: tuple[int, int, int]) -> bool:
+    """Whether this card runs the pick loop's clusters of this (k, threads,
+    ppt): clusters of up to 8 always; 16 only with the non-portable size
+    and at least one active cluster (``tpu3d_fps_cluster_ok``)."""
+    if geometry[0] <= 8:
+        return True
+    if geometry not in _cluster_ok:
+        fn = _build.library("fps3nn").tpu3d_fps_cluster_ok
+        fn.argtypes = [ctypes.c_int] * 3
+        fn.restype = ctypes.c_int
+        _cluster_ok[geometry] = bool(fn(*geometry))
+    return _cluster_ok[geometry]
+
+
+def card_geometry(B: int, N: int) -> tuple[int, int, int]:
+    """``fps_geometry`` for this card: its SM count, and clusters of 16 only
+    where it takes them (``card_takes``), else of up to 8."""
+    sms = torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count
+    geom = fps_geometry(B, N, sms=sms)
+    if not card_takes(geom):
+        geom = fps_geometry(B, N, max_cluster=8, sms=sms)
+    return geom
+
+
 def furthest_point_sample_plain(xyz: torch.Tensor,
                                 npoint: int) -> torch.Tensor:
     """Plain PyTorch version of both FPS kernels, one pick per loop step."""
@@ -66,7 +144,8 @@ def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
 
     For a CUDA tensor, rows of up to 2048 points (the RCNN's pooled rows)
     take ``fps.cu``, rows of up to 32768 (the RPN's SA_0 on the split
-    route) the long-row FPS of ``fps3nn.cu``; anything else raises.
+    route) the long-row FPS of ``fps3nn.cu`` on ``card_geometry``'s
+    (k, threads, ppt); anything else raises.
     """
     if xyz.device.type == "cpu":
         return furthest_point_sample_plain(xyz, npoint)
@@ -76,8 +155,11 @@ def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
         raise ValueError(f"fps takes (R, N<=32768, 3) and 1 <= npoint <= N, "
                          f"got {tuple(xyz.shape)} and npoint={npoint}")
     idx = torch.empty(R, npoint, dtype=torch.int32, device=xyz.device)
-    _build.launch("fps" if N <= 2048 else "fps_long", xyz.data_ptr(), R, N,
-                  npoint, idx.data_ptr())
+    if N <= 2048:
+        _build.launch("fps", xyz.data_ptr(), R, N, npoint, idx.data_ptr())
+    else:
+        _build.launch("fps_long", xyz.data_ptr(), R, N, npoint,
+                      *card_geometry(R, N), idx.data_ptr())
     return idx
 
 
@@ -131,7 +213,8 @@ def furthest_point_sample_with_3nn(xyz: torch.Tensor, npoint: int):
     first, ties to the earlier pick: the FP levels' three_nn.
 
     The fused route (``fused_route``) takes them from the FPS+3NN kernel,
-    for up to 32768 points; the split route is ``fps_then_three_nn``.
+    for up to 32768 points, its pick loop on ``card_geometry``'s (k,
+    threads, ppt); the split route is ``fps_then_three_nn``.
     """
     B, N, _ = xyz.shape
     if not fused_route(B, N, npoint):
@@ -145,7 +228,8 @@ def furthest_point_sample_with_3nn(xyz: torch.Tensor, npoint: int):
     idx = torch.empty(B, npoint, dtype=torch.int32, device=xyz.device)
     nn_d2 = torch.empty(B, N, 3, dtype=torch.float32, device=xyz.device)
     nn_idx = torch.empty(B, N, 3, dtype=torch.int32, device=xyz.device)
-    _build.launch("fps3nn", xyz.data_ptr(), B, N, npoint, idx.data_ptr(),
+    _build.launch("fps3nn", xyz.data_ptr(), B, N, npoint,
+                  *card_geometry(B, N), idx.data_ptr(),
                   nn_d2.data_ptr(), nn_idx.data_ptr())
     return idx, nn_d2, nn_idx
 
