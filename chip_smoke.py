@@ -11,12 +11,25 @@ and no result line:
 2. build every CUDA kernel from tpu3d_torch/csrc (one nvcc per source, all
    at once) and print the build time and ptxas's registers and spills;
 3. each kernel against its plain PyTorch version on the card, at the shapes
-   its path gives it, with its time (CUDA events, median of repeats), the
-   plain version's time, the time of one library call that computes the
-   same function where there is one, and the least time the card could
-   take for the same work. The eval kernels take the eval paths' inputs
-   (the RPN's levels, and the RCNN's pooled ROIs of the joint forward, at
-   B=2); the training kernels the train step's (B=16: the interpolation's
+   its path gives it, with its time (device time: calls run back to back
+   on the card behind a spin kernel that outlasts their queueing, per
+   call; beside it the queued ms, calls enqueued back to back between one
+   pair of CUDA events on an idle card, which reads the host's enqueue
+   rate where that is slower, and the call ms,
+   one call timed alone from an idle stream, which also counts the
+   wrapper's host time), the plain version's time, the time of one library
+   call that computes the same function where there is one, and the least
+   time the card could take for the same work. The eval kernels take the
+   eval paths' inputs (the RPN's levels, and the RCNN's pooled ROIs of the
+   joint forward, at B=2), and again the train step's shapes (B=16, the
+   1024 sampled ROIs) for the per-step figures; nearest_k takes the six
+   calls recorded from the eval forward and from the train step's forward,
+   the dense box's six levels (every center with at least k points within
+   its radius) and double.yaml's SA_0 (B=4), each bit for bit (d², ids,
+   coordinates) through its own form and through both forms, each timed
+   (the sweep), with a second bound: the
+   evaluations inside the depth windows of the run's data; the training
+   kernels the train step's (B=16: the interpolation's
    backward at the four FP levels, the fused SA op's training forward and
    backward on the 1024 rows the proposal target layer samples);
    configs/double.yaml's SA_0 at 32768 points: the train route's long-row
@@ -49,7 +62,10 @@ and no result line:
    (make_rpn_infer_step, RCNN off) must launch its three kernels, the joint
    path (make_infer_step, as shipped: 200 ROIs of 512 points, RCNN SA
    128/32/GroupAll, score threshold and rotated final NMS) all five; shapes,
-   finite values, some valid rois and some final boxes; ms per batch;
+   finite values, some valid rois and some final boxes; ms per batch. In
+   this run of every path driven (phases 4, 5 and 7-11), each nearest_k
+   call is recorded and its d², ids and coordinates held to the plain
+   version on its inputs, bit for bit;
 5. the train step (make_train_step) at the same full width in joint mode,
    B=16 scenes with their gt boxes (TRAIN pre/post-NMS 9000/512, 64 ROIs
    of 512 points per scene, jitter and augmentation on): one warm-up step,
@@ -217,22 +233,14 @@ def check(cond, msg: str) -> None:
         raise SmokeError(msg)
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Median device time of ``fn`` over ``reps`` runs, after one warm-up,
-    from CUDA events around each run."""
-    import torch
+def cuda_ms(fn, reps: int):
+    """Device ms per call of ``fn`` (calls run back to back on the card
+    behind a spin that outlasts their queueing), with its ``queued`` and
+    ``call`` ms: ``tpu3d_torch/tools/kernel_bench.py``'s clock, shared with
+    ``tools/compare_kernels.py``."""
+    from tpu3d_torch.tools.kernel_bench import cuda_ms as clock
 
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return clock(fn, reps)
 
 
 def wall_ms(fn, reps: int) -> float:
@@ -283,51 +291,150 @@ def routed_slots(arg, grad, ppre, S):
 class Report:
     """Per kernel, summed over the launch shapes of one forward (eval
     kernels) or one train step (training kernels): worst error, kernel /
-    plain / library ms, bytes and operations."""
+    plain / library ms, the kernel's queued and call ms (``cuda_ms``),
+    bytes and operations, and any other count given (``window_ops``: the
+    operations of nearest_k's windowed sweep)."""
 
     def __init__(self):
         self.rows = {}
 
-    def add(self, name, err, ms, plain_ms, lib_ms, n_bytes, n_ops):
-        r = self.rows.setdefault(name, dict(err=0.0, ms=0.0, plain_ms=0.0,
+    def add(self, name, err, ms, plain_ms, lib_ms, n_bytes, n_ops, **counts):
+        r = self.rows.setdefault(name, dict(err=0.0, ms=0.0, queued_ms=0.0,
+                                            call_ms=0.0, plain_ms=0.0,
                                             lib_ms=0.0, bytes=0.0, ops=0.0))
         r["err"] = max(r["err"], err)
         r["ms"] += ms
+        r["queued_ms"] += getattr(ms, "queued", ms)
+        r["call_ms"] += getattr(ms, "call", ms)
+        # a device figure that could not be separated from the host's time
+        r["ms_host_bound"] = (r.get("ms_host_bound", False)
+                              or not getattr(ms, "covered", True))
         r["plain_ms"] += plain_ms
         r["lib_ms"] = None if lib_ms is None else r["lib_ms"] + lib_ms
         r["bytes"] += n_bytes
         r["ops"] += n_ops
+        for key, n in counts.items():
+            r[key] = r.get(key, 0.0) + n
+
+    def row(self, name):
+        """The JSON fields of kernel ``name``: its times, error and
+        bounds."""
+        r = self.rows[name]
+        b_ms, b_by = bound_ms(r["bytes"], r["ops"])
+        out = {"max_abs_err": r["err"], "ms": r["ms"],
+               "queued_ms": r["queued_ms"], "call_ms": r["call_ms"],
+               "ms_host_bound": r["ms_host_bound"],
+               "plain_ms": r["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": r["lib_ms"]}
+        if "window_ops" in r:
+            out["window_bound_ms"], out["window_bound_by"] = bound_ms(
+                r["bytes"], r["window_ops"])
+        return out
 
 
-def check_nearest_k(report, c, x, k, r, label):
-    """nearest_k, exact: same d² and ids in every slot."""
+def check_nearest_k(report, c, x, k, r, coords, label, sweep):
+    """nearest_k, exact: d², ids and coordinates equal the plain version's in
+    every slot, through the form the wrapper chooses and through both forms
+    (each timed, into ``sweep``). Its time as
+    the path calls it (with ``coords`` or not), the plain version's and
+    cdist+topk's; the brute bound (M·N evaluations) and the windows' (the
+    evaluations inside the depth windows of these inputs)."""
     import torch
 
     from tpu3d_torch.ops import nearest_k
-    from tpu3d_torch.ops.grouping import nearest_k_plain
+    from tpu3d_torch.ops.grouping import (_radius2, depth_sort,
+                                          depth_windows, launch_nearest_k,
+                                          nearest_k_plain, nearest_k_route)
 
     b, m, n = c.shape[0], c.shape[1], x.shape[1]
-    got = nearest_k(c, x, k, max_radius=r)
-    ref = nearest_k_plain(c, x, k, max_radius=r)
+    r2 = _radius2(r)
+    got = nearest_k(c, x, k, max_radius=r, with_coords=True)
+    ref = nearest_k_plain(c, x, k, max_radius=r, with_coords=True)
     torch.cuda.synchronize()
-    check(torch.equal(got[1], ref[1]), f"nearest_k ids differ at {label}")
-    check(torch.equal(got[0], ref[0]), f"nearest_k d² differ at {label}")
-    live = torch.isfinite(ref[0])  # slots past the in-radius hits are inf
-    err = (got[0] - ref[0])[live].abs().max().item() if live.any() else 0.0
-    ms = cuda_ms(lambda: nearest_k(c, x, k, max_radius=r), 10)
-    pms = cuda_ms(lambda: nearest_k_plain(c, x, k, max_radius=r), 3)
+    for what, g, w in zip(("d²", "ids", "coordinates"), got, ref):
+        check(torch.equal(g, w), f"nearest_k {what} differ at {label}")
+    lo, hi = depth_windows(depth_sort(x)[0], c, r)
+    window = int((hi - lo).sum())
+    hits = int((ref[1] < n).sum())
+    ms = cuda_ms(lambda: nearest_k(c, x, k, max_radius=r,
+                                   with_coords=coords), 10)
+    pms = cuda_ms(lambda: nearest_k_plain(c, x, k, max_radius=r,
+                                          with_coords=coords), 3)
     lms = cuda_ms(lambda: torch.topk(torch.cdist(c, x), min(k, n), dim=2,
                                      largest=False), 3)
-    ops = b * m * n * 9  # 3 sub, 3 mul, 2 add, radius compare
-    nbytes = b * (m + n) * 12 + b * m * k * 8
-    report.add("nearest_k", err, ms, pms, lms, nbytes, ops)
-    print(f"nearest_k {label} B={b} M={m} N={n} k={k} r={r}: {ms:.3f} ms, "
-          f"plain {pms:.3f} ms, cdist+topk {lms:.3f} ms, max_abs_err {err}, "
-          f"in-radius slots {int(live.sum())}")
+    sort_ms = cuda_ms(lambda: depth_sort(x), 10)  # the windowed form's
+    times = {}
+    for windowed in (True, False):
+        form = "windowed" if windowed else "brute"
+        g = launch_nearest_k(c, x, k, r2, windowed, True)
+        check(all(torch.equal(a, w) for a, w in zip(g, ref)),
+              f"nearest_k differs at {label}, {form}")
+        times[form] = cuda_ms(
+            lambda: launch_nearest_k(c, x, k, r2, windowed), 10)
+    chosen = "windowed" if nearest_k_route(b, m, n, r2) else "brute"
+    best = min(times, key=times.get)
+    # per evaluation 3 sub, 3 mul, 2 add, radius compare
+    nbytes = b * (m + n) * 12 + b * m * k * (20 if coords else 8)
+    report.add("nearest_k", 0.0, ms, pms, lms, nbytes, b * m * n * 9,
+               window_ops=window * 9)
+    sweep.append({"level": label, "B": b, "M": m, "N": n, "k": k, "r": r,
+                  "coords": coords, "chosen": chosen, "ms": ms,
+                  "queued_ms": ms.queued, "call_ms": ms.call,
+                  "covered": ms.covered,
+                  "plain_ms": pms, "library_ms": lms,
+                  "sort_ms": sort_ms, "window_points": window / (b * m),
+                  "hits": hits / (b * m),
+                  "best": best, "sweep_ms": times})
+    print(f"nearest_k {label} B={b} M={m} N={n} k={k} r={r}"
+          f"{' with coordinates' if coords else ''}: {ms:.4f} ms (queued "
+          f"{ms.queued:.4f}, call {ms.call:.4f}) {chosen}, best {best} "
+          f"{times[best]:.4f}, depth "
+          f"sort {sort_ms:.4f}; plain {pms:.3f} ms, cdist+topk {lms:.3f} ms; "
+          f"d², ids and coordinates "
+          f"equal at every form; {window / (b * m):.1f} points per window, "
+          f"{hits / (b * m):.2f} hits per center")
 
 
-def rpn_kernels(report, cfg, pts):
-    """Phase 3 for the RPN's kernels, at its four SA / FP levels."""
+NK_LEVELS = ("RPN SA_0", "RPN SA_1", "RPN SA_2", "RPN SA_3", "RCNN SA_0",
+             "RCNN SA_1")
+
+
+def nearest_k_kernels(report, calls, path, sweep):
+    """Phase 3 for nearest_k at the six levels of one path: ``calls`` as
+    ``record_nearest_k`` records them, or (centers, pts, k, radius)."""
+    check(len(calls) == len(NK_LEVELS),
+          f"{path}: {len(calls)} nearest_k calls, expected {len(NK_LEVELS)}")
+    for level, call in zip(NK_LEVELS, calls):
+        c, x, k, r = call[:4]
+        coords = call[4] if len(call) > 4 else level == "RPN SA_0"
+        check_nearest_k(report, c, x, k, r, coords, f"{path}, {level}",
+                        sweep)
+
+
+def audit_nearest_k(calls, launches, label):
+    """Every nearest_k call of one run of a path (``record_nearest_k``)
+    against the plain version on its inputs: d², ids and, where the path
+    takes them, coordinates equal. One counted launch per call."""
+    import torch
+
+    from tpu3d_torch.ops.grouping import nearest_k_plain
+
+    check(len(calls) == launches["nearest_k"],
+          f"{label}: {len(calls)} nearest_k calls, "
+          f"{launches['nearest_k']} launches")
+    for i, (c, x, k, r, coords, out) in enumerate(calls):
+        ref = nearest_k_plain(c, x, k, max_radius=r, with_coords=coords)
+        for g, w in zip(out, ref):
+            check(torch.equal(g, w), f"{label}: nearest_k call {i} (B="
+                  f"{c.shape[0]} M={c.shape[1]} N={x.shape[1]}) differs "
+                  f"from the plain version")
+    print(f"{label}: its {len(calls)} nearest_k calls equal the plain "
+          f"version's to the bit")
+
+
+def rpn_kernels(report, cfg, pts, path, fps3nn=True):
+    """Phase 3 for the RPN's kernels, at its four SA / FP levels: FPS+3NN
+    (unless ``fps3nn`` is False) and the interpolation."""
     import torch
 
     from tpu3d_torch.ops import (furthest_point_sample_with_3nn,
@@ -346,7 +453,7 @@ def rpn_kernels(report, cfg, pts):
     gen = torch.Generator(device="cpu").manual_seed(SEED)
 
     # FPS + 3NN, exact: same picks, same neighbours, same d² bits
-    for k, npoint in enumerate(sa.NPOINTS):
+    for k, npoint in enumerate(sa.NPOINTS if fps3nn else ()):
         x = levels[k]
         n = x.shape[1]
         got = furthest_point_sample_with_3nn(x, npoint)
@@ -364,12 +471,8 @@ def rpn_kernels(report, cfg, pts):
         ops = B * (npoint - 1) * n * 10 + B * n * npoint * 16
         nbytes = B * n * 12 + B * npoint * 4 + B * n * 24
         report.add("fps3nn", err, ms, pms, None, nbytes, ops)
-        print(f"fps3nn N={n} npoint={npoint}: {ms:.3f} ms, plain "
+        print(f"fps3nn {path} N={n} npoint={npoint}: {ms:.3f} ms, plain "
               f"{pms:.3f} ms, max_abs_err {err}")
-
-    for k, npoint in enumerate(sa.NPOINTS):
-        check_nearest_k(report, levels[k + 1], levels[k], max(sa.NSAMPLE[k]),
-                        max(sa.RADIUS[k]), f"RPN SA_{k}")
 
     # three-point interpolation at FP_3 .. FP_0; the plain version sums in
     # the kernel's order, so they agree to the last bit (tolerance 1e-6)
@@ -397,14 +500,15 @@ def rpn_kernels(report, cfg, pts):
         nbytes = B * n * ch * 4 + B * m * 3 * 8 + B * m * ch * 4
         report.add("three_interpolate", err, ms, pms, lms, nbytes,
                    B * m * ch * 5)
-        print(f"three_interpolate N={n} M={m} C={ch}: {ms:.3f} ms, plain "
-              f"{pms:.3f} ms, gather+sum {lms:.3f} ms, max_abs_err {err}")
+        print(f"three_interpolate {path} N={n} M={m} C={ch}: {ms:.3f} ms, "
+              f"plain {pms:.3f} ms, gather+sum {lms:.3f} ms, max_abs_err "
+              f"{err}")
 
 
-def rcnn_kernels(report, model, pts):
-    """Phase 3 for the RCNN's kernels, on the pooled ROIs of the joint
-    forward: FPS, the ball query's nearest-k and the fused SA op at each
-    single-scale level (SA_0 and SA_1; the GroupAll has no kernel)."""
+def rcnn_kernels(report, net, xyz, features, path):
+    """Phase 3 for the RCNN's kernels on pooled ROIs (``xyz``): FPS at each
+    single-scale level (SA_0 and SA_1; the GroupAll has no kernel) and, given
+    the ``features``, the fused SA op there."""
     import torch
     import torch.nn.functional as F
 
@@ -414,16 +518,8 @@ def rcnn_kernels(report, model, pts):
     from tpu3d_torch.ops.fused_sa import fused_gathered_mlp_pool_plain
     from tpu3d_torch.ops.sampling import furthest_point_sample_plain
 
-    out = model({"pts_input": pts})
-    xyz, rest, empty, _ = model.pool_rois(
-        out["backbone_xyz"], out["backbone_features"], out["rpn_cls"][..., 0],
-        out["rois"])
-    net = model.rcnn_net
-    with torch.no_grad():
-        features = net.point_features(xyz, rest)
     R = xyz.shape[0]
-    print(f"RCNN input: {R} pooled ROIs of {xyz.shape[1]} points "
-          f"({int(empty.sum())} empty), features {tuple(features.shape)}")
+    print(f"RCNN input, {path}: {R} ROIs of {xyz.shape[1]} points")
     for k in range(net.n_sa):
         sa = getattr(net, f"sa_{k}")
         if sa.npoint is None:
@@ -439,13 +535,11 @@ def rcnn_kernels(report, model, pts):
         ops = R * (npoint - 1) * n * 10
         nbytes = R * n * 12 + R * npoint * 4
         report.add("fps", 0.0, ms, pms, None, nbytes, ops)
-        print(f"fps RCNN SA_{k} R={R} N={n} npoint={npoint}: {ms:.3f} ms, "
-              f"plain {pms:.3f} ms, picks equal")
-
-        # the ball query's nearest-k, exact
-        new_xyz = gather_points(xyz, got)
-        check_nearest_k(report, new_xyz, xyz, sa.nsample, sa.radius,
-                        f"RCNN SA_{k}")
+        print(f"fps {path} RCNN SA_{k} R={R} N={n} npoint={npoint}: "
+              f"{ms:.3f} ms, plain {pms:.3f} ms, picks equal")
+        if features is None:
+            xyz = gather_points(xyz, got)
+            continue
 
         # the fused gather + MLP + max-pool: f32 sums in another order,
         # tolerance 1e-4 of the largest value
@@ -703,17 +797,22 @@ def compare_split_on_cpu(pts, npoint):
 
 def drive(infer, pts, expect_kernels, label):
     """One run of a path with every count set to 0 just before it and read
-    just after; then its ms per batch (host clock, median of 5)."""
+    just after, its nearest_k calls recorded and held to the plain version;
+    then its ms per batch (host clock, median of 5)."""
     import torch
 
     from tpu3d_torch.ops import _build
+    from tpu3d_torch.tools.kernel_bench import record_nearest_k
 
     infer(pts)  # warm-up: allocator and library handles
     torch.cuda.synchronize()
     _build.reset_launches()
-    out = infer(pts)
+    with record_nearest_k() as nk_calls:
+        out = infer(pts)
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
+    audit_nearest_k(nk_calls, launches, label)
+    del nk_calls
     for name in expect_kernels:
         check(launches[name] > 0,
               f"kernel {name} was not launched on the {label} path")
@@ -1053,12 +1152,17 @@ def train_weights(model, seed):
 
 def drive_train(cfg, model, batch, gen, expect_kernels, label, steps):
     """One warm-up step, then ``steps`` timed ones, the counts set to 0 just
-    before the first timed step and read just after it: launches per step,
-    the metrics of the last step, ms per step (host clock, median)."""
+    before the first timed step and read just after it, that step's
+    nearest_k calls recorded and held to the plain version: launches per
+    step, the metrics of the last step, ms per step (host clock,
+    median)."""
+    import contextlib
+
     import torch
 
     from tpu3d_torch.ops import _build
     from tpu3d_torch.parallel import create_train_state, make_train_step
+    from tpu3d_torch.tools.kernel_bench import record_nearest_k
 
     state = create_train_state(cfg, model, steps_per_epoch=100,
                                total_epochs=10)
@@ -1071,11 +1175,16 @@ def drive_train(cfg, model, batch, gen, expect_kernels, label, steps):
         if i == 0:
             _build.reset_launches()
         t0 = time.perf_counter()
-        tb = step(state, batch, gen, 0.9)
+        with (record_nearest_k() if i == 0
+              else contextlib.nullcontext()) as calls:
+            tb = step(state, batch, gen, 0.9)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         if i == 0:
             launches = dict(_build.LAUNCHES)
+            nk_calls = calls
+    audit_nearest_k(nk_calls, launches, label)
+    del nk_calls
     for name in expect_kernels:
         check(launches[name] > 0,
               f"kernel {name} was not launched on the {label} path")
@@ -1887,6 +1996,8 @@ def main() -> int:
     from tpu3d_torch.models import PointRCNN
     from tpu3d_torch.ops import _build
     from tpu3d_torch.ops import furthest_point_sample_with_3nn, gather_points
+    from tpu3d_torch.tools.kernel_bench import (dense_inputs, fps_pyramid,
+                                                record_nearest_k)
     from tpu3d_torch.tools.eval_rcnn import (make_infer_step,
                                              make_rpn_infer_step)
 
@@ -1944,8 +2055,12 @@ def main() -> int:
     tb_np = train_batch(TRAIN_BATCH, N, SEED)
     tbatch = {k: torch.from_numpy(v).to(dev) for k, v in tb_np.items()}
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    # the targets the step's RCNN sees, for phase 3
-    target = sampled_targets(train_model, tbatch, train_state, gen)
+    # the targets the step's RCNN sees and the step's nearest_k calls, for
+    # phase 3; the eval forward's nearest_k calls and pooled ROIs
+    with record_nearest_k() as train_nk:
+        target = sampled_targets(train_model, tbatch, train_state, gen)
+    with record_nearest_k() as eval_nk:
+        eval_xyz, eval_rest = pooled_inputs(model, pts)
 
     # configs/double.yaml: default.yaml at 32768 points per scene, so the
     # same parameter tree and seeded weights; eval at B=4, train at B=16
@@ -2003,8 +2118,33 @@ def main() -> int:
 
     # 3. each kernel against its plain version, at its path's shapes
     report, double_report = Report(), Report()
-    rpn_kernels(report, cfg, pts)
-    rcnn_kernels(report, model, pts)
+    train_report, dense_report = Report(), Report()
+    rpn_kernels(report, cfg, pts, "default.yaml eval B=2")
+    with torch.no_grad():
+        eval_features = model.rcnn_net.point_features(eval_xyz, eval_rest)
+    rcnn_kernels(report, model.rcnn_net, eval_xyz, eval_features,
+                 "default.yaml eval B=2")
+    del eval_xyz, eval_rest, eval_features
+    # the train step's shapes of the eval kernels (B=16, 1024 ROIs)
+    rpn_kernels(train_report, cfg, tbatch["pts_input"],
+                "default.yaml train B=16", fps3nn=False)
+    rcnn_kernels(train_report, train_model.rcnn_net, target["sampled_pts"],
+                 None, "default.yaml train B=16")
+    # nearest_k at the six levels of the eval forward and of the train
+    # step, on the dense box, and at double.yaml's SA_0 (eval B=4)
+    nk_sweep = []
+    nearest_k_kernels(report, eval_nk, "default.yaml eval B=2", nk_sweep)
+    nearest_k_kernels(train_report, train_nk, "default.yaml train B=16",
+                      nk_sweep)
+    nearest_k_kernels(dense_report, dense_inputs(
+        torch.Generator(device=dev).manual_seed(SEED)), "dense box",
+        nk_sweep)
+    dsa = dcfg.RPN.SA_CONFIG
+    check_nearest_k(double_report, fps_pyramid(dpts, (sa0,))[1], dpts,
+                    max(dsa.NSAMPLE[0]), max(dsa.RADIUS[0]), True,
+                    "double.yaml eval B=4, RPN SA_0", nk_sweep)
+    del eval_nk, train_nk
+    torch.cuda.empty_cache()
     interp_bwd_kernels(report, cfg, tbatch["pts_input"])
     full_spread = {}
     fused_train_kernels(report, full_spread, train_model, target)
@@ -2297,8 +2437,7 @@ def main() -> int:
             SMOKE_PATH["eval"]: slaunches, SMOKE_PATH["train"]: strain_launches,
             BN_PATH: blaunches, BN_TRAIN_PATH: btrain_launches}
     kernels = []
-    for name, r in report.rows.items():
-        b_ms, b_by = bound_ms(r["bytes"], r["ops"])
+    for name in report.rows:
         slab_mode = ("train" if name in ("fused_sa_slab_train",
                                          "fused_sa_slab_bwd") else "eval")
         path = ("double.yaml train B=16" if name in ("three_nn", "fps_long")
@@ -2319,20 +2458,21 @@ def main() -> int:
             "smoke_train_launches": strain_launches[name],
             "bn_eval_launches": blaunches[name],
             "bn_train_launches": btrain_launches[name],
-            "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": r["lib_ms"],
-            "status": "ported"}
-        for extra, at, where in (
-                (double_report, "at_32768", "double.yaml eval B=4"),
-                (smoke_report, "at_smoke", SMOKE_PATH[slab_mode])):
+            **report.row(name), "status": "ported"}
+        # the same kernel at another path's shapes: double.yaml's SA_0, the
+        # smoke slab, the train step's shapes of the eval kernels, and the
+        # dense box at the eval shapes (launches of the path it stands for)
+        for extra, at, where, inputs in (
+                (double_report, "at_32768", "double.yaml eval B=4", None),
+                (smoke_report, "at_smoke", SMOKE_PATH[slab_mode], None),
+                (train_report, "at_train", "default.yaml train B=16", None),
+                (dense_report, "at_dense", "default.yaml eval B=2",
+                 "the dense box")):
             if name in extra.rows:
-                d = extra.rows[name]
-                d_ms, d_by = bound_ms(d["bytes"], d["ops"])
-                row[at] = {
-                    "path": where, "launches": runs[where][name],
-                    "max_abs_err": d["err"], "ms": d["ms"],
-                    "plain_ms": d["plain_ms"], "bound_ms": d_ms,
-                    "bound_by": d_by, "library_ms": d["lib_ms"]}
+                row[at] = {"path": where, "launches": runs[where][name],
+                           **extra.row(name)}
+                if inputs:
+                    row[at]["inputs"] = inputs
         kernels.append(row)
     check(len(kernels) == len(SOURCES), f"kernels timed: {len(kernels)}")
     print(json.dumps({"kernels": kernels, "not_ported": [
@@ -2342,6 +2482,7 @@ def main() -> int:
             "at a slot drawn uniformly over S; bound over every slot",
             **full_spread["fused_sa_bwd"]},
         "fps_pick_loop": fps_rows, "fps_floor": fps_floor,
+        "nearest_k_levels": nk_sweep,
         "bn_train_chain_library_ms": {
             "path": BN_TRAIN_PATH, "what": "cuBLAS chain with "
             "batch-statistics BatchNorm under autograd, forward and backward",

@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+from _nearest_k_cases import dense_cloud, tie_cases
+
 from tpu3d_torch.models.pointnet2 import PointnetSAModule
 from tpu3d_torch.ops import (furthest_point_sample,
                              furthest_point_sample_with_3nn,
@@ -28,7 +30,8 @@ from tpu3d_torch.ops.fused_sa import (
     fused_sa_bn_final_plain, fused_sa_bn_stats, fused_sa_bn_stats_plain,
     fused_sa_bn_wave, fused_sa_bn_wave_plain, fused_bn_mlp_pool_train_plain,
     fused_sa_slab_plain, _bn_affine, _layer_pack, _pack)
-from tpu3d_torch.ops.grouping import nearest_k_plain
+from tpu3d_torch.ops.grouping import (_radius2, launch_nearest_k,
+                                      nearest_k_plain)
 from tpu3d_torch.ops.interpolate import (three_interpolate_backward,
                                          three_interpolate_backward_plain,
                                          three_interpolate_plain)
@@ -83,8 +86,9 @@ def test_kernels_match_plain_on_cuda(name):
             torch.testing.assert_close(g, r, rtol=0, atol=0)
     elif name == "nearest_k":
         centers = xyz[:, :1024].contiguous()
-        got = nearest_k(centers, xyz, 32, max_radius=2.0)
-        ref = nearest_k_plain(centers, xyz, 32, max_radius=2.0)
+        got = nearest_k(centers, xyz, 32, max_radius=2.0, with_coords=True)
+        ref = nearest_k_plain(centers, xyz, 32, max_radius=2.0,
+                              with_coords=True)
         for g, r in zip(got, ref):
             torch.testing.assert_close(g, r, rtol=0, atol=0)
     elif name == "fps":
@@ -157,6 +161,64 @@ def test_kernels_match_plain_on_cuda(name):
                                    three_interpolate_plain(feats, idx, w),
                                    rtol=1e-6, atol=1e-6)
     assert _build.LAUNCHES[name] > 0
+
+
+# nearest_k at default.yaml's six levels (eval batch: 2 scenes, 200
+# pooled ROIs), in the dense box, and on the adversarial tie cases
+NK_LEVELS = ["RPN SA_0", "RPN SA_1", "RPN SA_2", "RPN SA_3", "RCNN SA_0",
+             "RCNN SA_1", "dense RPN SA_0"]
+NK_TIES = [c[0] for c in tie_cases()]
+
+
+def _nk_level(name):
+    """(centers, points, k, max_radius) of a level, on the card: the RPN's
+    centers by FPS over the level below, the RCNN's over pooled rows."""
+    rng = np.random.default_rng(7)
+    if name.startswith("RCNN"):
+        x = torch.from_numpy(_pooled_rows(rng, 200, 512)).cuda()
+        sizes, radii, k = (128, 32), (0.2, 0.4), 64
+    else:
+        cloud = dense_cloud if name.startswith("dense") else _cloud
+        x = torch.from_numpy(cloud(rng, 2, 16384)).cuda()
+        sizes, radii, k = (4096, 1024, 256, 64), (0.5, 1.0, 2.0, 4.0), 32
+    level = int(name[-1])
+    for npoint in sizes[:level + 1]:
+        y = x[torch.arange(x.shape[0], device="cuda")[:, None],
+              furthest_point_sample(x, npoint).long()]
+        if npoint != sizes[level]:
+            x = y
+    return y.contiguous(), x, k, radii[level]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", NK_LEVELS + NK_TIES)
+def test_nearest_k_matches_plain_on_cuda(case):
+    """nearest_k's d², ids and coordinates equal the plain version's
+    (torch.equal) through its own route and through both forms:
+    default.yaml's six levels, the dense box
+    (every SA_0 center has more than k points within r) and the tie cases
+    (radius boundaries to the ulp, repeated points, depths 0 and 70.4,
+    N < k, N % 128 != 0, empty windows, one point repeated), these also at
+    k = 1, 7 and 50."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    if case in NK_TIES:
+        _, c, p, k, r = tie_cases()[NK_TIES.index(case)]
+        c, p = torch.from_numpy(c).cuda(), torch.from_numpy(p).cuda()
+        ks = (k, 1, 7, 50)
+    else:
+        c, p, k, r = _nk_level(case)
+        ks = (k,)
+    _build.reset_launches()
+    for k in ks:
+        ref = nearest_k_plain(c, p, k, r, with_coords=True)
+        runs = [nearest_k(c, p, k, max_radius=r, with_coords=True)]
+        runs += [launch_nearest_k(c, p, k, _radius2(r), windowed, True)
+                 for windowed in (True, False)]
+        for got in runs:
+            for g, w in zip(got, ref):
+                assert torch.equal(g, w), f"k={k}"
+    assert _build.LAUNCHES["nearest_k"] == 3 * len(ks)
 
 
 @pytest.mark.cuda

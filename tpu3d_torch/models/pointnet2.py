@@ -12,8 +12,9 @@ ones with the momentum given at run time.
 Grouping follows the JAX package's eval path. Every SA level runs one
 nearest-k search shared by its radii, and each radius takes a prefix of it
 with ``ball_query_from_nearest``. SA_0 (no features) groups the
-candidates' coordinates directly. The levels with features run the
-pre-group form of the first layer: with W = [W_x | W_f],
+candidates' coordinates, which the search returns with them. The levels
+with features run the pre-group form of the first layer: with
+W = [W_x | W_f],
     W @ [xyz[idx] - c ; f[idx]] = (W_x@xyz + W_f@f)[idx] - W_x@c,
 so one per-point matmul and one gather of its output replace the grouped
 copy. It is the form the JAX package takes at every RPN level with
@@ -143,13 +144,14 @@ class PointnetSAModuleMSG(nn.Module):
         """xyz (B, N, 3), features (B, N, C) or None, new_xyz (B, npoint, 3)
         -> (B, npoint, ΣC_out)."""
         B, N, _ = xyz.shape
-        d2, cand = nearest_k(new_xyz, xyz, max(self.nsamples),
-                             max_radius=max(self.radii))
         if features is None:
-            # the candidates' coordinates, gathered once for every scale
-            safe = cand.clamp(max=N - 1)
-            cand_xyz = group_points(xyz, safe)  # (B, M, K, 3)
+            # the candidates' coordinates come with them, for every scale
+            d2, cand, cand_xyz = nearest_k(new_xyz, xyz, max(self.nsamples),
+                                           max_radius=max(self.radii),
+                                           with_coords=True)
         else:
+            d2, cand = nearest_k(new_xyz, xyz, max(self.nsamples),
+                                 max_radius=max(self.radii))
             inp = torch.cat([xyz, features], dim=-1)
         outs = []
         for i, (radius, nsample) in enumerate(zip(self.radii, self.nsamples)):

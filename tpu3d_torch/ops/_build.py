@@ -58,7 +58,7 @@ KERNELS = {
     "fps_long": ("fps3nn", "tpu3d_fps_long", [P, I, I, I, I, I, I, P, P]),
     "three_nn": ("three_nn", "tpu3d_three_nn", [P, P, I, I, I, P, P, P]),
     "nearest_k": ("nearest_k", "tpu3d_nearest_k",
-                  [P, P, I, I, I, I, F, P, P, P]),
+                  [P, P, P, P, I, I, I, I, F, P, P, P, P]),
     "three_interpolate": ("three_interpolate", "tpu3d_three_interpolate",
                           [P, P, P, I, I, I, I, P, P]),
     "three_interpolate_bwd": ("three_interpolate_bwd",
@@ -199,6 +199,13 @@ def error_name(name: str, err: int) -> str:
     return fn(err).decode()
 
 
+def current_stream() -> int:
+    """The raw handle of the current CUDA stream. torch.cuda.current_stream()
+    builds a Stream object first, several times the host time of the raw
+    handle, and a small kernel's whole call is host-bound (PERF.md)."""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
+
+
 def launch(name: str, *args) -> None:
     """Launch kernel ``name`` on the current stream (appended as the last
     argument), count the launch, and raise if the C entry reports an error:
@@ -206,7 +213,7 @@ def launch(name: str, *args) -> None:
     counted: this kernel did not run), or one of its own launch."""
     global _last_launch
     fn = kernel(name)
-    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    err = fn(*args, current_stream())
     if err >= PENDING:
         err -= PENDING
         raise RuntimeError(
