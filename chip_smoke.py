@@ -28,10 +28,14 @@ and no result line:
    its radius) and double.yaml's SA_0 (B=4), each bit for bit (d², ids,
    coordinates) through its own form and through both forms, each timed
    (the sweep), with a second bound: the
-   evaluations inside the depth windows of the run's data; the training
-   kernels the train step's (B=16: the interpolation's
-   backward at the four FP levels, the fused SA op's training forward and
-   backward on the 1024 rows the proposal target layer samples);
+   evaluations inside the depth windows of the run's data; FPS over the
+   RCNN's pooled rows (fps.cu) beside its dependent-chain floor, a minimal
+   pick (rows of 32 points, one warp argmax) times the level's picks; the
+   training kernels the train step's (B=16: the interpolation's backward
+   at the four FP levels, two calls equal to the bit and d_features equal
+   to the CPU plain version's to the bit, the fused SA op's training
+   forward and backward on the 1024 rows the proposal target layer
+   samples);
    configs/double.yaml's SA_0 at 32768 points: the train route's long-row
    FPS (fps_long) and standalone three_nn at B=16, the eval route's
    FPS+3NN at B=4, each bit for bit; the slab form of the fused SA op at
@@ -65,7 +69,7 @@ and no result line:
    finite values, some valid rois and some final boxes; ms per batch. In
    this run of every path driven (phases 4, 5 and 7-11), each nearest_k
    call is recorded and its d², ids and coordinates held to the plain
-   version on its inputs, bit for bit;
+   version on its inputs, bit for bit, and so is each fps call's picks;
 5. the train step (make_train_step) at the same full width in joint mode,
    B=16 scenes with their gt boxes (TRAIN pre/post-NMS 9000/512, 64 ROIs
    of 512 points per scene, jitter and augmentation on): one warm-up step,
@@ -293,7 +297,8 @@ class Report:
     kernels) or one train step (training kernels): worst error, kernel /
     plain / library ms, the kernel's queued and call ms (``cuda_ms``),
     bytes and operations, and any other count given (``window_ops``: the
-    operations of nearest_k's windowed sweep)."""
+    operations of nearest_k's windowed sweep; ``chain_ms``: FPS's measured
+    dependent-chain floor)."""
 
     def __init__(self):
         self.rows = {}
@@ -329,6 +334,8 @@ class Report:
         if "window_ops" in r:
             out["window_bound_ms"], out["window_bound_by"] = bound_ms(
                 r["bytes"], r["window_ops"])
+        if "chain_ms" in r:  # FPS: the measured dependent-chain floor
+            out["chain_floor_ms"] = r["chain_ms"]
         return out
 
 
@@ -432,6 +439,26 @@ def audit_nearest_k(calls, launches, label):
           f"version's to the bit")
 
 
+def audit_fps(calls, launches, label):
+    """Every furthest_point_sample call of one run of a path
+    (``record_fps``: the RCNN's SA levels and the split route's FPS)
+    against the plain version on its inputs, the picks equal. One counted
+    launch of fps or fps_long per call."""
+    import torch
+
+    from tpu3d_torch.ops.sampling import furthest_point_sample_plain
+
+    check(len(calls) == launches["fps"] + launches["fps_long"],
+          f"{label}: {len(calls)} fps calls, {launches['fps']} + "
+          f"{launches['fps_long']} launches")
+    for i, (xyz, npoint, out) in enumerate(calls):
+        check(torch.equal(out, furthest_point_sample_plain(xyz, npoint)),
+              f"{label}: fps call {i} (R={xyz.shape[0]} N={xyz.shape[1]} "
+              f"npoint={npoint}) differs from the plain version")
+    print(f"{label}: its {len(calls)} fps calls equal the plain version's "
+          f"picks")
+
+
 def rpn_kernels(report, cfg, pts, path, fps3nn=True):
     """Phase 3 for the RPN's kernels, at its four SA / FP levels: FPS+3NN
     (unless ``fps3nn`` is False) and the interpolation."""
@@ -505,10 +532,35 @@ def rpn_kernels(report, cfg, pts, path, fps3nn=True):
               f"{err}")
 
 
+def fps_minimal_pick(R, device):
+    """us of one minimal pick of fps.cu on R rows: rows of 32 points (one
+    per lane, one warp argmax per pick), timed at 32 picks and at 2, the
+    difference over the 30 picks between (picks equal the plain
+    version's)."""
+    import torch
+
+    from tpu3d_torch.ops import furthest_point_sample
+    from tpu3d_torch.ops.sampling import furthest_point_sample_plain
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    x = torch.rand(R, 32, 3, generator=gen, device=device) * 5.0
+    check(torch.equal(furthest_point_sample(x, 32),
+                      furthest_point_sample_plain(x, 32)),
+          "fps picks differ at the minimal pick's rows")
+    t32 = cuda_ms(lambda: furthest_point_sample(x, 32), 20)
+    t2 = cuda_ms(lambda: furthest_point_sample(x, 2), 20)
+    us = (t32 - t2) / 30 * 1e3
+    print(f"fps minimal pick, {R} rows of 32 points: {t32:.4f} ms at 32 "
+          f"picks, {t2:.4f} at 2, so {us:.4f} us per pick")
+    return us
+
+
 def rcnn_kernels(report, net, xyz, features, path):
     """Phase 3 for the RCNN's kernels on pooled ROIs (``xyz``): FPS at each
-    single-scale level (SA_0 and SA_1; the GroupAll has no kernel) and, given
-    the ``features``, the fused SA op there."""
+    single-scale level (SA_0 and SA_1; the GroupAll has no kernel), with
+    its dependent-chain floor (the minimal pick, ``fps_minimal_pick``, on
+    as many rows, times the level's picks), and, given the ``features``,
+    the fused SA op there."""
     import torch
     import torch.nn.functional as F
 
@@ -520,6 +572,7 @@ def rcnn_kernels(report, net, xyz, features, path):
 
     R = xyz.shape[0]
     print(f"RCNN input, {path}: {R} ROIs of {xyz.shape[1]} points")
+    pick_us = fps_minimal_pick(R, xyz.device)
     for k in range(net.n_sa):
         sa = getattr(net, f"sa_{k}")
         if sa.npoint is None:
@@ -534,9 +587,11 @@ def rcnn_kernels(report, net, xyz, features, path):
         pms = cuda_ms(lambda: furthest_point_sample_plain(xyz, npoint), 2)
         ops = R * (npoint - 1) * n * 10
         nbytes = R * n * 12 + R * npoint * 4
-        report.add("fps", 0.0, ms, pms, None, nbytes, ops)
+        chain = pick_us * (npoint - 1) / 1e3
+        report.add("fps", 0.0, ms, pms, None, nbytes, ops, chain_ms=chain)
         print(f"fps {path} RCNN SA_{k} R={R} N={n} npoint={npoint}: "
-              f"{ms:.3f} ms, plain {pms:.3f} ms, picks equal")
+              f"{ms:.4f} ms ({ms / (npoint - 1) * 1e3:.3f} us per pick), "
+              f"plain {pms:.3f} ms, chain floor {chain:.4f} ms, picks equal")
         if features is None:
             xyz = gather_points(xyz, got)
             continue
@@ -797,22 +852,23 @@ def compare_split_on_cpu(pts, npoint):
 
 def drive(infer, pts, expect_kernels, label):
     """One run of a path with every count set to 0 just before it and read
-    just after, its nearest_k calls recorded and held to the plain version;
-    then its ms per batch (host clock, median of 5)."""
+    just after, its nearest_k and fps calls recorded and held to the plain
+    versions; then its ms per batch (host clock, median of 5)."""
     import torch
 
     from tpu3d_torch.ops import _build
-    from tpu3d_torch.tools.kernel_bench import record_nearest_k
+    from tpu3d_torch.tools.kernel_bench import record_fps, record_nearest_k
 
     infer(pts)  # warm-up: allocator and library handles
     torch.cuda.synchronize()
     _build.reset_launches()
-    with record_nearest_k() as nk_calls:
+    with record_nearest_k() as nk_calls, record_fps() as fps_calls:
         out = infer(pts)
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     audit_nearest_k(nk_calls, launches, label)
-    del nk_calls
+    audit_fps(fps_calls, launches, label)
+    del nk_calls, fps_calls
     for name in expect_kernels:
         check(launches[name] > 0,
               f"kernel {name} was not launched on the {label} path")
@@ -891,9 +947,12 @@ def compare_rcnn_on_cpu(cfg, model, cpu_model, out):
 
 def interp_bwd_kernels(report, cfg, pts):
     """Phase 3 for the interpolation's backward, at the train step's four
-    FP levels (B=16): d_features and d_weight against the plain version,
-    within 1e-5 of the largest value (atomics add in another order); the
-    time is that of the main path's form, which wants no d_weight."""
+    FP levels (B=16): two calls give the same bits; d_features equals the
+    CPU plain version (index_add_, which adds in the kernel's ascending
+    key order) bit for bit; d_features and d_weight are within 1e-5 of the
+    largest value of the card's plain version (index_add_ with atomics, in
+    another order); the time is that of the main path's form, which wants
+    no d_weight."""
     import torch
 
     from tpu3d_torch.ops import (furthest_point_sample_with_3nn,
@@ -920,6 +979,15 @@ def interp_bwd_kernels(report, cfg, pts):
         w = interpolation_weights(torch.sqrt(d2.clamp(min=0.0)))
         args = (feats, nn_idx, w, grad)
         got = three_interpolate_backward(*args)
+        again = three_interpolate_backward(*args)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"three_interpolate_bwd differs between two calls at M={m}")
+        del again
+        cpu = three_interpolate_backward_plain(
+            *(a.cpu() for a in args), need_weight=False)[0]
+        check(torch.equal(got[0].cpu(), cpu), f"three_interpolate_bwd "
+              f"d_features differs from the CPU plain version at M={m}")
+        del cpu
         ref = three_interpolate_backward_plain(*args)
         err = 0.0
         for name, a, b in zip(("d_features", "d_weight"), got, ref):
@@ -941,9 +1009,9 @@ def interp_bwd_kernels(report, cfg, pts):
         nbytes = B * m * ch * 4 + B * m * 3 * 8 + B * n * ch * 4
         report.add("three_interpolate_bwd", err, ms, pms, lms, nbytes,
                    B * m * 3 * ch * 2)
-        print(f"three_interpolate_bwd N={n} M={m} C={ch}: {ms:.3f} ms, "
+        print(f"three_interpolate_bwd N={n} M={m} C={ch}: {ms:.4f} ms, "
               f"plain {pms:.3f} ms, index_add_ {lms:.3f} ms, max_abs_err "
-              f"{err:.3e}")
+              f"{err:.3e}; two calls equal, d_features equal to the CPU's")
 
 
 def bwd_ops(hit, nnz, c1, c2):
@@ -1153,16 +1221,16 @@ def train_weights(model, seed):
 def drive_train(cfg, model, batch, gen, expect_kernels, label, steps):
     """One warm-up step, then ``steps`` timed ones, the counts set to 0 just
     before the first timed step and read just after it, that step's
-    nearest_k calls recorded and held to the plain version: launches per
-    step, the metrics of the last step, ms per step (host clock,
-    median)."""
+    nearest_k and fps calls recorded and held to the plain versions:
+    launches per step, the metrics of the last step, ms per step (host
+    clock, median)."""
     import contextlib
 
     import torch
 
     from tpu3d_torch.ops import _build
     from tpu3d_torch.parallel import create_train_state, make_train_step
-    from tpu3d_torch.tools.kernel_bench import record_nearest_k
+    from tpu3d_torch.tools.kernel_bench import record_fps, record_nearest_k
 
     state = create_train_state(cfg, model, steps_per_epoch=100,
                                total_epochs=10)
@@ -1176,15 +1244,18 @@ def drive_train(cfg, model, batch, gen, expect_kernels, label, steps):
             _build.reset_launches()
         t0 = time.perf_counter()
         with (record_nearest_k() if i == 0
-              else contextlib.nullcontext()) as calls:
+              else contextlib.nullcontext()) as calls, \
+                (record_fps() if i == 0
+                 else contextlib.nullcontext()) as fcalls:
             tb = step(state, batch, gen, 0.9)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         if i == 0:
             launches = dict(_build.LAUNCHES)
-            nk_calls = calls
+            nk_calls, fps_calls = calls, fcalls
     audit_nearest_k(nk_calls, launches, label)
-    del nk_calls
+    audit_fps(fps_calls, launches, label)
+    del nk_calls, fps_calls
     for name in expect_kernels:
         check(launches[name] > 0,
               f"kernel {name} was not launched on the {label} path")

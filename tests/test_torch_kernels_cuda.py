@@ -32,7 +32,8 @@ from tpu3d_torch.ops.fused_sa import (
     fused_sa_slab_plain, _bn_affine, _layer_pack, _pack)
 from tpu3d_torch.ops.grouping import (_radius2, launch_nearest_k,
                                       nearest_k_plain)
-from tpu3d_torch.ops.interpolate import (three_interpolate_backward,
+from tpu3d_torch.ops.interpolate import (backward_workspace,
+                                         three_interpolate_backward,
                                          three_interpolate_backward_plain,
                                          three_interpolate_plain)
 from tpu3d_torch.ops.sampling import (furthest_point_sample_plain,
@@ -124,7 +125,8 @@ def test_kernels_match_plain_on_cuda(name):
                 tol = 1e-4 * r_.abs().max().item()
                 torch.testing.assert_close(g_, r_, rtol=0, atol=tol)
     elif name == "three_interpolate_bwd":
-        # atomics add in another order: within 1e-5 of the largest value
+        # the plain version's index_add_ adds with atomics on the card, in
+        # another order: within 1e-5 of the largest value
         feats = torch.randn(2, 1024, 256, device="cuda")
         idx = torch.randint(0, 1024, (2, 4096, 3), device="cuda",
                             dtype=torch.int32)
@@ -503,3 +505,88 @@ def test_bn_chain_training_on_cuda():
         _, out = sa(xyz, feats)
     assert out.shape == (4, 16, 256)
     assert _build.LAUNCHES["fused_sa_slab_bn"] == 1
+
+
+# the interpolation's backward at default.yaml's four FP levels of the
+# train step (B=16: N sources, M rows, C), and the degenerate scene where
+# every query takes the same three sources (lists of M, some rows with a
+# repeated id)
+INTERP_BWD = {"FP_0": (4096, 16384, 256), "FP_1": (1024, 4096, 512),
+              "FP_2": (256, 1024, 512), "FP_3": (64, 256, 1024),
+              "one triple": (4096, 16384, 256)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(INTERP_BWD))
+def test_three_interpolate_bwd_fixed_order_on_cuda(case):
+    """The gather form of the backward: two calls give the same bits; both
+    equal the CPU plain version (index_add_, the same ascending order) bit
+    for bit and the card's plain version within 1e-5 of the largest value;
+    and the kernel writes every row itself: a buffer poisoned with NaN
+    comes back equal to the wrapper's, so no zeroing pass is needed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    N, M, C = INTERP_BWD[case]
+    B = 16
+    g = torch.Generator(device="cuda").manual_seed(len(case))
+    feats = torch.randn(B, N, C, generator=g, device="cuda")
+    grad = torch.randn(B, M, C, generator=g, device="cuda")
+    w = torch.rand(B, M, 3, generator=g, device="cuda")
+    if case == "one triple":
+        B = 2
+        feats, grad, w = feats[:B], grad[:B].contiguous(), w[:B]
+        idx = torch.tensor([5, 1, 2], dtype=torch.int32,
+                           device="cuda").repeat(B, M, 1)
+        idx[:, ::5, 1] = 5
+    else:
+        idx = torch.randint(0, N, (B, M, 3), generator=g, device="cuda",
+                            dtype=torch.int32)
+    _build.reset_launches()
+    first = three_interpolate_backward(feats, idx, w, grad)
+    second = three_interpolate_backward(feats, idx, w, grad)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    cpu = three_interpolate_backward_plain(feats.cpu(), idx.cpu(), w.cpu(),
+                                           grad.cpu())
+    assert torch.equal(first[0].cpu(), cpu[0])
+    ref = three_interpolate_backward_plain(feats, idx, w, grad)
+    for a, r in zip(first, ref):
+        tol = 1e-5 * r.abs().max().item()
+        torch.testing.assert_close(a, r, rtol=0, atol=tol)
+    poisoned = torch.full((B, N, C), float("nan"), device="cuda")
+    ws = torch.full((backward_workspace(B, N, M),), -1, dtype=torch.int32,
+                    device="cuda")
+    _build.launch("three_interpolate_bwd", feats.data_ptr(), idx.data_ptr(),
+                  w.data_ptr(), grad.data_ptr(), B, N, M, C,
+                  poisoned.data_ptr(), None, ws.data_ptr(), ws.numel())
+    assert torch.equal(poisoned, first[0])
+    assert _build.LAUNCHES["three_interpolate_bwd"] == 3
+
+
+# every shape the short-row FPS takes in the five configurations (R rows,
+# N points, npoint): the RCNN's SA_0 and SA_1 at default's (and double's
+# and the BatchNorm RCNN's) eval and train, quickstart's and smoke's, the
+# split route's RPN levels of quickstart and smoke, and 2048 points
+FPS_ROWS = [(200, 512, 128), (200, 128, 32), (1024, 512, 128),
+            (1024, 128, 32), (512, 256, 64), (512, 64, 16), (128, 256, 64),
+            (128, 64, 16), (128, 128, 32), (128, 32, 16), (32, 128, 32),
+            (32, 32, 16), (8, 64, 16), (2, 64, 32), (2, 32, 16),
+            (64, 2048, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FPS_ROWS, ids=str)
+def test_fps_rows_on_cuda(shape):
+    """fps.cu's lane layouts at every row shape of the configs: the picks
+    equal the plain version's bit for bit on pooled-looking rows (repeated
+    points, all-equal rows)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    R, n, npoint = shape
+    rows = torch.from_numpy(_pooled_rows(np.random.default_rng(n), R,
+                                         n)).cuda()
+    _build.reset_launches()
+    torch.testing.assert_close(furthest_point_sample(rows, npoint),
+                               furthest_point_sample_plain(rows, npoint),
+                               rtol=0, atol=0)
+    assert _build.LAUNCHES["fps"] == 1

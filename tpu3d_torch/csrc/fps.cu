@@ -9,11 +9,28 @@
 // Bound on the card: FPS is a chain of npoint dependent argmax steps, so it
 // is bound by the latency of one pick, not by bytes or operations. The RCNN
 // gives it many short rows (200 rows of 512 or 128 points at eval), so the
-// design is one warp per row, kRows rows per block: the row's coordinates in
-// shared memory (12·N bytes), the running min in registers (N/32 per lane, a
-// compile-time PPL so it never spills), and per pick one pass over the
-// registers and one warp-shuffle argmax tree. Nothing needs a block barrier:
-// each warp only ever reads its own row.
+// design keeps one pick's chain short: each row on W warps (W = 1 up to
+// kMaxPPL points per lane, then as many as cover the row), each lane's
+// points (PPL, a compile-time count) with their coordinates and running
+// min in registers; per pick
+//   1. the last pick's coordinates, one broadcast read of the row's shared
+//      copy;
+//   2. PPL independent distance updates;
+//   3. the lane's argmax as a tree over its PPL candidates (depth log2 PPL),
+//      ties to the lower index;
+//   4. the warp's argmax in two redux.sync instructions: the largest key
+//      (__reduce_max_sync), then the lowest index holding it
+//      (__reduce_min_sync). The key is the running min's bits as a signed
+//      int: d² >= +0.0 orders as its bits, +inf above every finite d², and a
+//      lane's missing point keeps a min of -inf, whose bits are negative, so
+//      it orders below every d²;
+//   5. with W > 1, each warp's winner into shared memory (one buffer per
+//      pick parity), a named barrier of the row's W warps, and the same two
+//      instructions over the W winners.
+// A row's warps meet only at their own named barrier, so rows of one block
+// never wait for each other.
+
+#include <climits>
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -22,8 +39,14 @@
 
 namespace {
 
-constexpr int kRows = 4;  // rows (warps) per block
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxN = 2048;
+constexpr int kBlock = 128;  // threads per block: 128 / (32·W) rows, or one
+// points per lane before a row takes more warps: one sweep on the card
+// found a warp per row of 512 points (16 per lane) fastest at the default
+// train step's SA_0 and within 0.005 ms of the fastest at eval (PERF.md)
+constexpr int kMaxPPL = 16;
+static_assert(128 * kMaxPPL >= kMaxN, "four warps cover the longest row");
 
 __device__ __forceinline__ float dist2(float ax, float ay, float az,
                                        float bx, float by, float bz) {
@@ -34,79 +57,119 @@ __device__ __forceinline__ float dist2(float ax, float ay, float az,
                    __fmul_rn(dz, dz));
 }
 
-// argmax over (value, index) pairs, ties to the lower index
-__device__ __forceinline__ void warp_argmax(float& v, int& i) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, i, off);
-    if (ov > v || (ov == v && oi < i)) {
-      v = ov;
-      i = oi;
-    }
-  }
+// bar.sync on the named barrier `id` for `threads` threads
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 
-template <int PPL>
-__global__ void __launch_bounds__(32 * kRows)
+template <int W>
+__host__ __device__ constexpr int block_threads() {
+  return 32 * W > kBlock ? 32 * W : kBlock;
+}
+
+template <int W, int PPL>
+__global__ void __launch_bounds__(block_threads<W>())
 fps_rows_kernel(const float* __restrict__ xyz, int R, int N, int npoint,
                 int* __restrict__ out) {
-  extern __shared__ float smem[];
-  const int warp = threadIdx.x >> 5;
+  constexpr int T = 32 * W;                     // threads per row
+  constexpr int kRows = block_threads<W>() / T;  // rows per block
+  extern __shared__ float smem[];               // per row: x, y, z of N
+  __shared__ int2 part[kRows][2][W];            // warps' winners per parity
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kRows + warp;
-  if (row >= R) return;  // the whole warp leaves; no block barrier follows
-  float* sx = smem + (size_t)warp * 3 * N;
+  const int rb = threadIdx.x / T;               // row in the block
+  const int t = threadIdx.x % T;                // thread in the row
+  const int warp = t >> 5;
+  const int row = blockIdx.x * kRows + rb;
+  if (row >= R) return;  // the row's warps all leave; no barrier spans rows
+  float* sx = smem + (size_t)rb * 3 * N;
   float* sy = sx + N;
   float* sz = sy + N;
   const float* p = xyz + (size_t)row * N * 3;
   int* o = out + (size_t)row * npoint;
-  for (int i = lane; i < N; i += 32) {
+  for (int i = t; i < N; i += T) {
     sx[i] = p[3 * i];
     sy[i] = p[3 * i + 1];
     sz[i] = p[3 * i + 2];
   }
-  float mind[PPL];
+  // point q·T + t: its coordinates and running min in registers
+  float px[PPL], py[PPL], pz[PPL], mind[PPL];
 #pragma unroll
-  for (int k = 0; k < PPL; ++k) mind[k] = INFINITY;
-  if (lane == 0) o[0] = 0;
-  __syncwarp();
+  for (int q = 0; q < PPL; ++q) {
+    const int i = q * T + t;
+    const bool live = i < N;
+    px[q] = live ? p[3 * i] : 0.0f;
+    py[q] = live ? p[3 * i + 1] : 0.0f;
+    pz[q] = live ? p[3 * i + 2] : 0.0f;
+    mind[q] = live ? INFINITY : -INFINITY;  // a missing point never wins
+  }
+  if (W > 1)
+    named_sync(1 + rb, T);
+  else
+    __syncwarp();
+  if (t == 0) o[0] = 0;
 
   int last = 0;
   for (int j = 1; j < npoint; ++j) {
     const float lx = sx[last], ly = sy[last], lz = sz[last];
-    float bv = -1.0f;  // below every d², so a real point always wins
-    int bi = N;
+    int key[PPL], at[PPL];
 #pragma unroll
-    for (int k = 0; k < PPL; ++k) {
-      const int i = lane + 32 * k;
-      if (i < N) {
-        const float m = fminf(mind[k], dist2(sx[i], sy[i], sz[i], lx, ly, lz));
-        mind[k] = m;
-        if (m > bv) {  // strict: ascending i, so ties keep the lower index
-          bv = m;
-          bi = i;
+    for (int q = 0; q < PPL; ++q) {
+      mind[q] = fminf(mind[q], dist2(px[q], py[q], pz[q], lx, ly, lz));
+      key[q] = __float_as_int(mind[q]);
+      at[q] = q;
+    }
+    // the lane's argmax: a tree whose left operand always holds the lower
+    // index, so a tie keeps it
+#pragma unroll
+    for (int s = 1; s < PPL; s <<= 1) {
+#pragma unroll
+      for (int q = 0; q + s < PPL; q += 2 * s) {
+        if (key[q + s] > key[q]) {
+          key[q] = key[q + s];
+          at[q] = at[q + s];
         }
       }
     }
-    warp_argmax(bv, bi);
-    last = bi;
-    if (lane == 0) o[j] = last;
+    const int top = __reduce_max_sync(kFull, key[0]);
+    unsigned low = __reduce_min_sync(
+        kFull, key[0] == top ? (unsigned)(at[0] * T + t) : UINT_MAX);
+    if (W > 1) {
+      const int buf = j & 1;
+      if (lane == 0) part[rb][buf][warp] = make_int2(top, (int)low);
+      // A warp writes this buffer again two picks on, after the next
+      // pick's barrier, which every warp reaches only after reading it.
+      named_sync(1 + rb, T);
+      const int2 c = lane < W ? part[rb][buf][lane] : make_int2(INT_MIN, 0);
+      const int top2 = __reduce_max_sync(kFull, c.x);
+      low = __reduce_min_sync(kFull, c.x == top2 ? (unsigned)c.y : UINT_MAX);
+    }
+    last = (int)low;
+    if (t == 0) o[j] = last;
   }
 }
 
-template <int PPL>
+template <int W, int PPL>
 cudaError_t launch(const float* xyz, int R, int N, int npoint, int* idx,
                    cudaStream_t stream) {
-  const size_t smem = (size_t)kRows * 12 * N;
-  cudaError_t err = cudaFuncSetAttribute(
-      fps_rows_kernel<PPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const int blocks = (R + kRows - 1) / kRows;
-  fps_rows_kernel<PPL><<<blocks, 32 * kRows, smem, stream>>>(xyz, R, N,
-                                                             npoint, idx);
+  constexpr int rows = block_threads<W>() / (32 * W);
+  const size_t smem = (size_t)rows * 12 * N;  // at most 24 KB
+  const int blocks = (R + rows - 1) / rows;
+  fps_rows_kernel<W, PPL><<<blocks, block_threads<W>(), smem, stream>>>(
+      xyz, R, N, npoint, idx);
   return cudaGetLastError();
+}
+
+// The fewest warps per row with at most kMaxPPL points per lane, then the
+// fewest points per lane that cover the row, both powers of 2.
+cudaError_t dispatch(const float* xyz, int R, int N, int npoint, int* idx,
+                     cudaStream_t stream) {
+  if (N <= 32) return launch<1, 1>(xyz, R, N, npoint, idx, stream);
+  if (N <= 64) return launch<1, 2>(xyz, R, N, npoint, idx, stream);
+  if (N <= 128) return launch<1, 4>(xyz, R, N, npoint, idx, stream);
+  if (N <= 256) return launch<1, 8>(xyz, R, N, npoint, idx, stream);
+  if (N <= 32 * kMaxPPL) return launch<1, kMaxPPL>(xyz, R, N, npoint, idx, stream);
+  if (N <= 64 * kMaxPPL) return launch<2, kMaxPPL>(xyz, R, N, npoint, idx, stream);
+  return launch<4, kMaxPPL>(xyz, R, N, npoint, idx, stream);
 }
 
 }  // namespace
@@ -117,12 +180,5 @@ extern "C" int tpu3d_fps(const float* xyz, int R, int N, int npoint, int* idx,
   if (const int pending = tpu3d::pending_error(stream)) return pending;
   if (R < 1 || N < 1 || N > kMaxN || npoint < 1 || npoint > N)
     return (int)cudaErrorInvalidValue;
-  const int ppl = (N + 31) / 32;
-  if (ppl <= 1) return (int)launch<1>(xyz, R, N, npoint, idx, stream);
-  if (ppl <= 2) return (int)launch<2>(xyz, R, N, npoint, idx, stream);
-  if (ppl <= 4) return (int)launch<4>(xyz, R, N, npoint, idx, stream);
-  if (ppl <= 8) return (int)launch<8>(xyz, R, N, npoint, idx, stream);
-  if (ppl <= 16) return (int)launch<16>(xyz, R, N, npoint, idx, stream);
-  if (ppl <= 32) return (int)launch<32>(xyz, R, N, npoint, idx, stream);
-  return (int)launch<64>(xyz, R, N, npoint, idx, stream);
+  return (int)dispatch(xyz, R, N, npoint, idx, stream);
 }

@@ -52,6 +52,7 @@ EXACT = ["-fmad=false"]
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
+L = ctypes.c_longlong
 # each kernel's C entry point: (source in csrc/, symbol, argtypes)
 KERNELS = {
     "fps3nn": ("fps3nn", "tpu3d_fps3nn", [P, I, I, I, I, I, I, P, P, P, P]),
@@ -63,7 +64,7 @@ KERNELS = {
                           [P, P, P, I, I, I, I, P, P]),
     "three_interpolate_bwd": ("three_interpolate_bwd",
                               "tpu3d_three_interpolate_bwd",
-                              [P, P, P, P, I, I, I, I, P, P, P]),
+                              [P, P, P, P, I, I, I, I, P, P, P, L, P]),
     "fps": ("fps", "tpu3d_fps", [P, I, I, I, P, P]),
     "fused_sa": ("fused_sa", "tpu3d_fused_sa",
                  [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P, P]),

@@ -17,8 +17,13 @@ Kernel notes (in full in the sources): they replace
 query folds the known points, staged through shared memory, into a sorted
 top-3 with d² rounded step by step, so it equals the plain version bit for
 bit. The interpolation kernels are bound by bytes; one warp per output row
-reads each gathered row as whole 128-byte lines in f32, and the backward
-adds the weighted gradient rows into the source rows with float atomics.
+reads each gathered row as whole 128-byte lines in f32. The backward
+inverts the ids into per-source lists of keys m·3 + j (CSR, in a workspace
+from torch's allocator) and gathers: one warp per source and 256 channels
+sorts its list and sums the weighted gradient rows in ascending key order,
+then writes its part of the row once, so it adds no float by an atomic,
+needs no zeroing pass, and gives the same bits on every call: those of the
+plain version's ``index_add_`` on the CPU, which adds in that order.
 """
 
 from __future__ import annotations
@@ -89,9 +94,10 @@ def three_interpolate_backward_plain(features: torch.Tensor,
                                      grad: torch.Tensor,
                                      need_weight: bool = True):
     """Plain PyTorch version of the backward kernel: ``index_add_`` of the
-    weighted gradient rows into the source rows, and each neighbour's dot
-    product with the gradient -> (d_features (B, N, C), d_weight (B, M, 3)
-    or None)."""
+    weighted gradient rows into the source rows (on the CPU a sequential
+    sum in ascending (b, m·3 + j) from +0.0, the kernel's order), and each
+    neighbour's dot product with the gradient -> (d_features (B, N, C),
+    d_weight (B, M, 3) or None)."""
     B, M, _ = idx.shape
     N, C = features.shape[1], features.shape[2]
     flat = idx.reshape(B, M * 3).long()
@@ -131,6 +137,13 @@ def three_interpolate_forward(features: torch.Tensor, idx: torch.Tensor,
     return out
 
 
+def backward_workspace(B: int, N: int, M: int) -> int:
+    """Ints of workspace the backward kernel takes (its C entry checks):
+    the per-source list offsets (B·N + 1), then the lists' flat keys
+    m·3 + j (3·B·M)."""
+    return B * N + 1 + 3 * B * M
+
+
 def three_interpolate_backward(features: torch.Tensor, idx: torch.Tensor,
                                weight: torch.Tensor, grad: torch.Tensor,
                                need_weight: bool = True):
@@ -146,14 +159,18 @@ def three_interpolate_backward(features: torch.Tensor, idx: torch.Tensor,
     if grad.shape != (B, M, C):
         raise ValueError(f"three_interpolate's gradient must be {(B, M, C)}, "
                          f"got {tuple(grad.shape)}")
-    d_features = torch.zeros(B, N, C, dtype=torch.float32,
-                             device=features.device)
-    d_weight = (torch.empty(B, M, 3, dtype=torch.float32,
-                            device=features.device) if need_weight else None)
+    dev = features.device
+    # every row is written by the kernel, so no zeroing pass
+    d_features = torch.empty(B, N, C, dtype=torch.float32, device=dev)
+    d_weight = (torch.empty(B, M, 3, dtype=torch.float32, device=dev)
+                if need_weight else None)
+    n_ws = backward_workspace(B, N, M)
+    workspace = torch.empty(n_ws, dtype=torch.int32, device=dev)
     _build.launch("three_interpolate_bwd", features.data_ptr(),
                   idx.data_ptr(), weight.data_ptr(), grad.data_ptr(), B, N,
                   M, C, d_features.data_ptr(),
-                  d_weight.data_ptr() if need_weight else None)
+                  d_weight.data_ptr() if need_weight else None,
+                  workspace.data_ptr(), n_ws)
     return d_features, d_weight
 
 

@@ -1,8 +1,9 @@
-"""Time the nearest-k search, the gather-form SA backward and FPS of one
-checkout of the port on seeded inputs, to compare two checkouts on the same
-card in turns.
+"""Time the nearest-k search, the gather-form SA backward, FPS and the
+interpolation's backward of one checkout of the port on seeded inputs, to
+compare two checkouts on the same card in turns.
 
     python3 tpu3d_torch/tools/compare_kernels.py [--root DIR] [--label NAME]
+        [--only GROUP[,GROUP...]]
 
 ``--root`` is the checkout whose ``tpu3d_torch`` is imported (default:
 this one; run the file as a script, not with ``-m``, so that no other
@@ -30,7 +31,20 @@ script. Shapes:
   ("sparse"), and every channel live at slot 0 ("one slot", the shape
   seeded weights give);
 - FPS+3NN at default's and double's RPN levels, and the long-row FPS at
-  (16, 32768) -> 4096.
+  (16, 32768) -> 4096;
+- the short-row FPS (``fps.cu``) at every launch the four shipped configs
+  give it: the RCNN's SA_0 and SA_1 on its pooled rows (eval: B scenes ×
+  TEST post-NMS ROIs; train: B × ROI_PER_IMAGE), and the RPN levels of the
+  split route that take it (quickstart's SA_3, smoke's SA_2-3), at default
+  (eval B=2, train B=16), quickstart (8, 4) and smoke (2, 2), with the sums
+  per forward or step; and 64 rows of 2048 points;
+- ``three_interpolate_backward`` without d_weight (the train step's form)
+  at default.yaml's four FP levels of the train step (B=16; the ids and
+  weights of the checkout's own FPS+3NN on the training batch), with the
+  sum over the four launches.
+
+``--only`` takes any of ``nearest_k``, ``fused_sa_bwd``, ``fps3nn``,
+``fps`` and ``three_interpolate_bwd`` (default: all).
 
 Times are device times (``kernel_bench.cuda_ms``, beside this file: calls
 run back to back on the card behind a spin that outlasts their queueing),
@@ -103,11 +117,84 @@ def sa0_grouping(nearest_k, group_points):
     return gathered
 
 
+GROUPS = ("nearest_k", "fused_sa_bwd", "fps3nn", "fps",
+          "three_interpolate_bwd")
+
+
+def fps_row_launches(root):
+    """Every launch the shipped configs give the short-row FPS, by path:
+    {path: [(label, rows, N, npoint)]}, the RCNN's pooled rows and the RPN
+    levels of the split route of up to 2048 points."""
+    from tpu3d_torch.config import cfg_from_file, fresh_cfg
+    from tpu3d_torch.ops.sampling import fused_route
+
+    out = {}
+    for name, eval_b, train_b in (("default", 2, 16), ("quickstart", 8, 4),
+                                  ("smoke", 2, 2)):
+        cfg = cfg_from_file(str(Path(root) / "configs" / f"{name}.yaml"),
+                            fresh_cfg())
+        for mode, B, rois in (("eval", eval_b, cfg.TEST.RPN_POST_NMS_TOP_N),
+                              ("train", train_b, cfg.RCNN.ROI_PER_IMAGE)):
+            calls, n = [], cfg.RPN.NUM_POINTS
+            for k, npoint in enumerate(cfg.RPN.SA_CONFIG.NPOINTS):
+                if not fused_route(B, n, npoint) and n <= 2048:
+                    calls.append((f"RPN SA_{k}", B, n, npoint))
+                n = npoint
+            n = cfg.RCNN.NUM_POINTS
+            for k, npoint in enumerate(cfg.RCNN.SA_CONFIG.NPOINTS):
+                if npoint is None or npoint < 0:
+                    break
+                calls.append((f"RCNN SA_{k}", B * rois, n, npoint))
+                n = npoint
+            out[f"{name} {mode} B={B}"] = calls
+    return out
+
+
+def interp_bwd_inputs(cfg, g):
+    """The four FP levels of default.yaml's train step (B=16): [(level,
+    (features, idx, weight, grad))], the ids and weights from the
+    checkout's FPS+3NN on the training batch, features and gradients
+    seeded."""
+    import torch
+
+    from tpu3d_torch.datasets import train_batch
+    from tpu3d_torch.ops import interpolation_weights
+    from tpu3d_torch.ops.sampling import (furthest_point_sample_with_3nn,
+                                          gather_points)
+
+    sa = cfg.RPN.SA_CONFIG
+    pts = torch.from_numpy(
+        train_batch(16, cfg.RPN.NUM_POINTS, 0)["pts_input"][..., :3]
+    ).contiguous().cuda()
+    levels, caches = [pts], []
+    for npoint in sa.NPOINTS:
+        idx, d2, nn_idx = furthest_point_sample_with_3nn(levels[-1], npoint)
+        caches.append((d2, nn_idx))
+        levels.append(gather_points(levels[-1], idx))
+    n_fp = len(cfg.RPN.FP_MLPS)
+    out = []
+    for i in range(n_fp - 1, -1, -1):
+        ch = (cfg.RPN.FP_MLPS[i + 1][-1] if i + 1 < n_fp
+              else sum(m[-1] for m in sa.MLPS[i]))
+        d2, nn_idx = caches[i]
+        n, m = levels[i + 1].shape[1], levels[i].shape[1]
+        w = interpolation_weights(torch.sqrt(d2.clamp(min=0.0)))
+        feats = torch.randn(16, n, ch, generator=g, device="cuda")
+        grad = torch.randn(16, m, ch, generator=g, device="cuda")
+        out.append((f"FP_{i} N={n} M={m} C={ch}", (feats, nn_idx, w, grad)))
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", default=str(Path(__file__).parents[2]))
     parser.add_argument("--label", default="this checkout")
+    parser.add_argument("--only", default=",".join(GROUPS),
+                        help="comma-separated groups of " + ", ".join(GROUPS))
     args = parser.parse_args()
+    only = set(args.only.split(","))
+    if not only <= set(GROUPS):
+        parser.error(f"--only takes groups of {GROUPS}")
     sys.path.insert(0, str(Path(args.root).resolve()))
     import torch
 
@@ -118,6 +205,7 @@ def main() -> int:
     from tpu3d_torch.datasets import random_scenes
     from tpu3d_torch.ops import _build, group_points, nearest_k
     from tpu3d_torch.ops.fused_sa import fused_gathered_mlp_pool_backward
+    from tpu3d_torch.ops.interpolate import three_interpolate_backward
     from tpu3d_torch.ops.sampling import (furthest_point_sample,
                                           furthest_point_sample_with_3nn)
 
@@ -141,28 +229,30 @@ def main() -> int:
 
     cfg = cfg_from_file(str(Path(args.root) / "configs" / "default.yaml"),
                         fresh_cfg())
-    dpts = torch.from_numpy(random_scenes(4, 32768, 0)).cuda()
-    cases = {"eval": path_inputs(bench, cfg, 2, False),
-             "train": path_inputs(bench, cfg, 16, True),
-             "dense": bench.dense_inputs(g)}
-    for path, calls in cases.items():
-        total = 0.0
-        for level, (c, p, k, r) in zip(LEVELS, calls):
-            total += record(f"nearest_k {path} {level}",
-                            lambda: nearest_k(c, p, k, max_radius=r), 10)
-        out[f"nearest_k {path} sum"] = total
-        print(f"{args.label}: nearest_k {path}, six launches: {total:.4f} "
-              f"ms", flush=True)
-    c, p, k, r = cases["eval"][0]
-    sa0 = sa0_grouping(nearest_k, group_points)
-    record("nearest_k eval RPN SA_0 with coordinates",
-           lambda: sa0(c, p, k, r), 10)
-    c = bench.fps_pyramid(dpts, (4096,))[1]
-    record("nearest_k double RPN SA_0",
-           lambda: nearest_k(c, dpts, 32, max_radius=0.5), 10)
-    del cases, dpts
-    torch.cuda.empty_cache()
-    for level, (M, C3) in (("SA_0", (128, 128)), ("SA_1", (32, 256))):
+    if "nearest_k" in only:
+        dpts = torch.from_numpy(random_scenes(4, 32768, 0)).cuda()
+        cases = {"eval": path_inputs(bench, cfg, 2, False),
+                 "train": path_inputs(bench, cfg, 16, True),
+                 "dense": bench.dense_inputs(g)}
+        for path, calls in cases.items():
+            total = 0.0
+            for level, (c, p, k, r) in zip(LEVELS, calls):
+                total += record(f"nearest_k {path} {level}",
+                                lambda: nearest_k(c, p, k, max_radius=r), 10)
+            out[f"nearest_k {path} sum"] = total
+            print(f"{args.label}: nearest_k {path}, six launches: "
+                  f"{total:.4f} ms", flush=True)
+        c, p, k, r = cases["eval"][0]
+        sa0 = sa0_grouping(nearest_k, group_points)
+        record("nearest_k eval RPN SA_0 with coordinates",
+               lambda: sa0(c, p, k, r), 10)
+        c = bench.fps_pyramid(dpts, (4096,))[1]
+        record("nearest_k double RPN SA_0",
+               lambda: nearest_k(c, dpts, 32, max_radius=0.5), 10)
+        del cases, dpts
+        torch.cuda.empty_cache()
+    for level, (M, C3) in ((("SA_0", (128, 128)), ("SA_1", (32, 256)))
+                           if "fused_sa_bwd" in only else ()):
         R, N, S = 1024, 512, 64
 
         def randn(*shape, scale=1.0):
@@ -188,14 +278,38 @@ def main() -> int:
                        *ins, grad, arg, ppre), 5)
         del ins
         torch.cuda.empty_cache()
-    for B, N, npoint in ((2, 16384, 4096), (2, 4096, 1024), (16, 16384, 4096),
-                         (4, 32768, 4096)):
-        xyz = torch.rand(B, N, 3, generator=g, device="cuda") * 40.0
-        record(f"fps3nn ({B}, {N}) -> {npoint}",
-               lambda: furthest_point_sample_with_3nn(xyz, npoint), 5)
-    xyz = torch.rand(16, 32768, 3, generator=g, device="cuda") * 40.0
-    record("fps_long (16, 32768) -> 4096",
-           lambda: furthest_point_sample(xyz, 4096), 3)
+    if "fps3nn" in only:
+        for B, N, npoint in ((2, 16384, 4096), (2, 4096, 1024),
+                             (16, 16384, 4096), (4, 32768, 4096)):
+            xyz = torch.rand(B, N, 3, generator=g, device="cuda") * 40.0
+            record(f"fps3nn ({B}, {N}) -> {npoint}",
+                   lambda: furthest_point_sample_with_3nn(xyz, npoint), 5)
+        xyz = torch.rand(16, 32768, 3, generator=g, device="cuda") * 40.0
+        record("fps_long (16, 32768) -> 4096",
+               lambda: furthest_point_sample(xyz, 4096), 3)
+    if "fps" in only:
+        calls = fps_row_launches(args.root)
+        calls["2048 points"] = [("rows", 64, 2048, 512)]
+        for path, launches in calls.items():
+            total = 0.0
+            for label, R, N, npoint in launches:
+                xyz = (torch.rand(R, N, 3, generator=g, device="cuda")
+                       - 0.5) * 5.0
+                total += record(f"fps {path} {label} ({R}, {N}) -> {npoint}",
+                                lambda: furthest_point_sample(xyz, npoint),
+                                10)
+            out[f"fps {path} sum"] = total
+            print(f"{args.label}: fps {path}, {len(launches)} launches: "
+                  f"{total:.4f} ms", flush=True)
+    if "three_interpolate_bwd" in only:
+        total = 0.0
+        for level, ins in interp_bwd_inputs(cfg, g):
+            total += record(f"three_interpolate_bwd {level}",
+                            lambda: three_interpolate_backward(*ins, False),
+                            20)
+        out["three_interpolate_bwd train sum"] = total
+        print(f"{args.label}: three_interpolate_bwd, four launches: "
+              f"{total:.4f} ms", flush=True)
     print(json.dumps(out))
     return 0
 

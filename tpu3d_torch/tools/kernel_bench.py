@@ -1,5 +1,6 @@
-"""The kernel clock and the seeded nearest-k inputs that ``chip_smoke.py``
-and ``tools/compare_kernels.py`` share.
+"""The kernel clock, the recorders of the models' nearest-k and FPS calls,
+and the seeded nearest-k inputs that ``chip_smoke.py`` and
+``tools/compare_kernels.py`` share.
 
 torch and the port are imported inside each function, never at import:
 ``compare_kernels.py`` loads this file from beside itself and then times
@@ -115,6 +116,32 @@ def record_nearest_k():
         yield calls
     finally:
         grouping.nearest_k = pointnet2.nearest_k = real
+
+
+@contextlib.contextmanager
+def record_fps():
+    """Records every ``furthest_point_sample`` call the models make while
+    open, as (xyz, npoint, result); the calls still run (and count) as
+    they would. It rebinds the name in ``ops/sampling.py`` (the split
+    route of FPS+3NN) and ``models/pointnet2.py`` (the RCNN's SA levels),
+    its callers."""
+    from tpu3d_torch.models import pointnet2
+    from tpu3d_torch.ops import sampling
+
+    calls, real = [], sampling.furthest_point_sample
+
+    def recording(xyz, npoint):
+        out = real(xyz, npoint)
+        calls.append((xyz, npoint, out))
+        return out
+
+    sampling.furthest_point_sample = pointnet2.furthest_point_sample = \
+        recording
+    try:
+        yield calls
+    finally:
+        sampling.furthest_point_sample = pointnet2.furthest_point_sample = \
+            real
 
 
 def fps_pyramid(x, npoints):

@@ -12,10 +12,21 @@ pre/post-NMS 9000/512), the proposal target layer, the RCNN forward, the
 loss, the backward and the optimizer update. For each stage it prints the
 wall time (host clock around the stage, which ends in a synchronize;
 median over ``--reps`` steps, no profiler) and the time of the kernels it
-runs (torch.profiler over ``--reps`` more steps: a stage's kernels are
-those launched from inside its range, the backward's from the autograd
-engine's threads while it runs), then the device's idle share of the step
+runs (torch.profiler over ``--reps`` more steps, each stage ending in a
+synchronize inside its range), then the device's idle share of the step
 and one JSON line of the same numbers. Needs a CUDA device.
+
+A kernel belongs to the stage whose range holds its launch: the host-side
+launch call (``cudaLaunchKernel``, ``cuLaunchKernel``, ...) that shares
+its correlation id, or, where the trace has none, the kernel's own start
+on the device, which the stage's closing synchronize keeps inside the
+range. This counts the port's kernels, which are launched through ctypes
+from outside any torch op, as well as torch's own; the profiler's own
+attribution (a kernel to the op that launched it, ``device_time_total``
+of the stage's range and of the backward's ops) is printed beside it, and
+so is the device time it links to no op, by kernel (a kernel that the
+port launches outside any torch op, and outside an autograd Function, is
+linked to none).
 """
 
 from __future__ import annotations
@@ -23,8 +34,10 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import re
 import statistics
 import time
+from bisect import bisect_right
 from collections import defaultdict
 from pathlib import Path
 
@@ -82,6 +95,50 @@ def train_step_by_stage(cfg, model, state, batch, gen, stage) -> None:
         state.apply_gradients()
 
 
+def attribute(kernels, launches, windows):
+    """Device time per stage: ``kernels`` [(correlation id, device start,
+    duration)], ``launches`` {correlation id: host start of the launch
+    call}, ``windows`` [(start, end, stage)] on the host clock, disjoint,
+    each closed by a synchronize, all in us. A kernel goes to the window
+    that holds its launch call, else its device start. -> ({stage: us},
+    {"launch": us, "device start": us, "outside": us})."""
+    windows = sorted(windows)
+    starts = [w[0] for w in windows]
+    per_stage = defaultdict(float)
+    how = {"launch": 0.0, "device start": 0.0, "outside": 0.0}
+    for corr, start, dur in kernels:
+        t = launches.get(corr)
+        key = "launch" if t is not None else "device start"
+        t = start if t is None else t
+        i = bisect_right(starts, t) - 1
+        if i >= 0 and t < windows[i][1]:
+            per_stage[windows[i][2]] += dur
+            how[key] += dur
+        else:
+            how["outside"] += dur
+    return dict(per_stage), how
+
+
+def port_kernel_names() -> set[str]:
+    """The names of the port's CUDA kernels (``__global__`` functions in
+    ``csrc/``), to tell its ctypes launches apart in a trace."""
+    names = set()
+    for src in (Path(__file__).resolve().parents[1] / "csrc").glob("*.cu"):
+        text = src.read_text()
+        names.update(re.findall(
+            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\)?\s*)?"
+            r"(\w+)\s*\(", text))
+    return names
+
+
+def is_port_kernel(name: str, names: set[str]) -> bool:
+    """Whether a trace's kernel name (``(anonymous namespace)::gather_kernel
+    <float4, 2>(...)``, maybe after ``void``) is one of ``names``."""
+    head = name.replace("(anonymous namespace)::", "").split("(")[0]
+    base = head.split("<")[0].split()[-1] if head.strip() else ""
+    return "at::" not in head and base.rsplit("::", 1)[-1] in names
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cfg_file", default=str(ROOT / "configs" /
@@ -107,8 +164,12 @@ def main() -> None:
         torch.cuda.synchronize()
         walls[name].append((time.perf_counter() - t0) * 1e3)
 
+    @contextlib.contextmanager
     def ranged(name):
-        return record_function(f"stage:{name}")
+        # the synchronize inside the range keeps the stage's kernels in it
+        with record_function(f"stage:{name}"):
+            yield
+            torch.cuda.synchronize()
 
     for _ in range(2):  # warm-up: allocator, library handles
         train_step_by_stage(cfg, model, state, batch, gen,
@@ -124,29 +185,57 @@ def main() -> None:
         for _ in range(args.reps):
             train_step_by_stage(cfg, model, state, batch, gen, ranged)
         torch.cuda.synchronize()
-    # host-side events carry the kernels they launched (and their
-    # children's); the stage ranges also show on the device's timeline,
-    # as annotations, which are left out
+    # the profiler's own attribution: host-side events carry the kernels
+    # they launched (and their children's); the stage ranges also show on
+    # the device's timeline, as annotations, which are left out
     events = prof.events()
     host = [e for e in events if e.device_type == DeviceType.CPU]
     windows = [(e.time_range.start, e.time_range.end, e.name[6:])
                for e in host if e.name.startswith("stage:")]
-    kernel = defaultdict(float)
-    by_name = defaultdict(float)
+    linked = defaultdict(float)
     for e in host:
         if e.name.startswith("stage:"):
-            kernel[e.name[6:]] += e.device_time_total
+            linked[e.name[6:]] += e.device_time_total
         elif e.cpu_parent is None:  # ops of other threads: the backward's
             for t0, t1, name in windows:
                 if t0 <= e.time_range.start < t1:
-                    kernel[name] += e.device_time_total
+                    linked[name] += e.device_time_total
                     break
-    for e in events:
-        if e.device_type == DeviceType.CUDA and not e.name.startswith(
-                "stage:"):
-            by_name[e.name[:80]] += e.device_time_total
-    kernel = {name: kernel[name] / 1e3 / args.reps for name in STAGES}
+    # the device's work: kernels, copies and sets, not the annotations of
+    # ranges (the stages', the optimizer's) on its timeline
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and not e.name.startswith("stage:")
+              and not getattr(e, "is_user_annotation", False)]
+    launches = {e.id: e.time_range.start for e in host
+                if "Launch" in e.name and e.id > 0}
+    by_stage, how = attribute(
+        [(e.id, e.time_range.start, e.time_range.elapsed_us())
+         for e in device], launches, windows)
+    names = port_kernel_names()
+    by_name = defaultdict(float)
+    for e in device:
+        by_name[e.name] += e.time_range.elapsed_us()
+    linked_by_name = defaultdict(float)  # the kernels an op carries
+    for e in host:
+        for k in e.kernels:
+            linked_by_name[k.name] += k.duration
+    unlinked = {name: us - linked_by_name.get(name, 0.0)
+                for name, us in by_name.items()}
+    port = {"device": 0.0, "linked": 0.0, "by_launch": 0.0}
+    for name, us in by_name.items():
+        if is_port_kernel(name, names):
+            port["device"] += us
+            port["linked"] += min(us, linked_by_name.get(name, 0.0))
+    port["by_launch"] = sum(
+        e.time_range.elapsed_us() for e in device
+        if e.id in launches and is_port_kernel(e.name, names))
+    kernel = {name: by_stage.get(name, 0.0) / 1e3 / args.reps
+              for name in STAGES}
+    linked = {name: linked[name] / 1e3 / args.reps for name in STAGES}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    top_unlinked = sorted(((n, us) for n, us in unlinked.items() if us > 0),
+                          key=lambda kv: -kv[1])[:8]
+    total = sum(by_name.values()) / 1e3 / args.reps
 
     step_wall, step_kernel = sum(wall.values()), sum(kernel.values())
     print(f"card: {torch.cuda.get_device_name(0)}; {args.cfg_file}, batch "
@@ -155,15 +244,33 @@ def main() -> None:
           f"device idle {100 * (1 - step_kernel / step_wall):.1f}%")
     for name in STAGES:
         print(f"stage {name}: {wall[name]:.2f} ms wall, {kernel[name]:.2f} "
-              f"ms of kernels")
+              f"ms of kernels (the profiler's own attribution "
+              f"{linked[name]:.2f})")
+    per_step = {k: v / 1e3 / args.reps for k, v in how.items()}
+    port = {k: v / 1e3 / args.reps for k, v in port.items()}
+    print(f"device time per step: {total:.2f} ms in the trace; attributed "
+          f"by the launch call {per_step['launch']:.2f}, by the device start "
+          f"{per_step['device start']:.2f}, outside every stage "
+          f"{per_step['outside']:.2f}; the profiler's own attribution "
+          f"{sum(linked.values()):.2f}. The port's kernels "
+          f"{port['device']:.3f} ms, {port['by_launch']:.3f} of them found "
+          f"by their launch call; the profiler links {port['linked']:.3f} "
+          f"to an op")
     print("top kernels over the step:")
     for name, us in top:
-        print(f"  {us / 1e3 / args.reps:8.3f} ms  {name}")
+        print(f"  {us / 1e3 / args.reps:8.3f} ms  {name[:80]}")
+    print("device time the profiler links to no op, by kernel:")
+    for name, us in top_unlinked:
+        print(f"  {us / 1e3 / args.reps:8.3f} ms  {name[:80]}")
     print(json.dumps({
         "cfg_file": args.cfg_file, "batch": args.batch, "wall_ms": wall,
-        "kernel_ms": kernel,
+        "kernel_ms": kernel, "kernel_ms_profiler_links": linked,
+        "device_ms_in_trace": total, "attributed_ms": per_step,
+        "port_kernels_ms": port,
         "device_idle_share": 1 - step_kernel / step_wall,
-        "top_kernels_ms": {n: us / 1e3 / args.reps for n, us in top}}))
+        "top_kernels_ms": {n[:80]: us / 1e3 / args.reps for n, us in top},
+        "unlinked_kernels_ms": {n[:80]: us / 1e3 / args.reps
+                                for n, us in top_unlinked}}))
 
 
 if __name__ == "__main__":
