@@ -142,13 +142,14 @@ def _port(arrays):
 
 def _pieces(arrays):
     """The kernels' algorithm through its plain pieces (the training forward
-    and backward that the CUDA path composes): (out, means, vars, the five
-    inputs' gradients)."""
+    and backward that the CUDA path composes: x1 and x2 written by the
+    statistics passes and read by the final pass and the waves): (out,
+    means, vars, the five inputs' gradients)."""
     x0, w1, w2, *gb, g = (T(a) for a in arrays)
-    out, arg, x2, means, vars_ = fused_bn_mlp_pool_train(x0, w1, w2, gb[:3],
-                                                         gb[3:])
+    out, arg, x2, means, vars_, saved = fused_bn_mlp_pool_train(
+        x0, w1, w2, gb[:3], gb[3:])
     d_x0, dw1, dw2, dg, db = fused_bn_mlp_pool_backward(
-        x0, w1, w2, gb[:3], gb[3:], means, vars_, out, arg, x2, g)
+        x0, w1, w2, gb[:3], gb[3:], means, vars_, out, arg, x2, saved, g)
     return (out.numpy(), [m.numpy() for m in means],
             [v.numpy() for v in vars_],
             [t.numpy() for t in (d_x0, dw1, dw2, *dg, *db)])
@@ -220,14 +221,14 @@ def pallas_case(shape):
     jgrads = [jgrads[0], jgrads[1], jgrads[2], *jgrads[3], *jgrads[4]]
 
     t = [T(a) for a in arrays]
-    out, arg, _, means, vars_ = fused_bn_mlp_pool_train(t[0], t[1], t[2],
-                                                        t[3:6], t[6:9])
+    out, arg, _, means, vars_, saved = fused_bn_mlp_pool_train(
+        t[0], t[1], t[2], t[3:6], t[6:9])
     # the pooled value the TPU kernels routed: ReLU of its x2 there
     r2 = torch.rsqrt(vars_[2] + 1e-5)
     tout = torch.relu((T(jx2) - means[2]) * r2 * t[5] + t[8])
     grads = fused_bn_mlp_pool_backward(
         t[0], t[1], t[2], t[3:6], t[6:9], means, vars_, tout, T(jarg),
-        T(jx2), t[9])
+        T(jx2), saved, t[9])
     grads = [grads[0], grads[1], grads[2], *grads[3], *grads[4]]
     rel = [np.abs(a.numpy() - np.asarray(b, np.float32))
            / (np.abs(np.asarray(b, np.float32)).max() + 1e-3)

@@ -169,13 +169,13 @@ def test_windows_hold_every_kept_point(case):
 
 
 @pytest.mark.parametrize("windowed", [True, False])
-@pytest.mark.parametrize("k_of", ["case", 1, 7, 50])
+@pytest.mark.parametrize("k_of", ["case", 1, 7, 50, 128])
 @pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
 def test_emulated_kernel_equals_plain(case, k_of, windowed):
     """The kernel's algorithm gives the plain version's d² and ids to the
     bit, in both forms, at the case's k and at others: k = 1 (a compaction
     after every 33 hits, the threshold the nearest point), a k between
-    rounds and one near the kernel's limit of 64."""
+    rounds, and 128, a widened RCNN's NSAMPLE."""
     _, centers, pts, k, r = case
     k = k if k_of == "case" else k_of
     c, p = _torch(centers, pts)

@@ -1,483 +1,631 @@
-// The BatchNorm SA chain's training form, for Hopper (sm_90a): the three
-// statistics passes of the forward and the three waves of the backward. The
-// chain is [BN -> ReLU -> Dense] x2 -> BN -> ReLU -> max over the S slots of
-// each (row, center) group, on the grouped (R, M, S, 128) slab x0 of layer
-// 0's pre-activation, with batch statistics (mean and biased variance over
+// The BatchNorm SA chain's training form, for Hopper (sm_90a): the forward's
+// statistics passes and final pass, and the backward's waves. The chain is
+// [BN -> ReLU -> Dense] x2 -> BN -> ReLU -> max over the S slots of each
+// (row, center) group, on the grouped (R, M, S, C1) slab x0 of layer 0's
+// pre-activation, with batch statistics (mean and biased variance over
 // every slot) in each BatchNorm.
 //
 // Replaces tpu3d/ops/fused_sa.py's kernels of that chain's custom VJP
-// (_fused_train, :381-492):
-//   entry tpu3d_fused_sa_bn_stats, depth 0 / 1 / 2: _stats0_kernel (:158),
-//     _fwd_stats1_kernel (:164), _fwd_stats2_kernel (:171): per channel
-//     sum x and sum x^2 of x0, x1 = a0 W1 or x2 = a1 W2, each layer before
-//     it normalised with the statistics the earlier passes gave;
-//   entry tpu3d_fused_sa_bn_bwd, wave 1 / 2 / 3: _bwd_wave1_kernel (:255),
-//     _bwd_wave2_kernel (:272), _bwd_apply_kernel (:291).
-// The fourth forward pass, _fwd_final_kernel (:178), is the slab training
-// kernel of fused_sa.cu (entry tpu3d_fused_sa_slab_bn_train).
+// (_fused_train, :382-492):
+//   entry tpu3d_fused_sa_bn_stats0: _stats0_kernel (:158), per channel
+//     sum x and sum x^2 of x0;
+//   entry tpu3d_fused_sa_bn_layer: _fwd_stats1_kernel (:164) and
+//     _fwd_stats2_kernel (:171): x1 = ReLU(BN0(x0)) W1 (or x2 =
+//     ReLU(BN1(x1)) W2) written to device memory, and its sums;
+//   entry tpu3d_fused_sa_bn_final: _fwd_final_kernel (:178), a reduction
+//     over the stored x2: per group and channel the max of ReLU(BN2(x2)),
+//     its first argmax and x2 there;
+//   entries tpu3d_fused_sa_bn_wave1, _wave2, _apply: _bwd_wave1_kernel
+//     (:255), _bwd_wave2_kernel (:272), _bwd_apply_kernel (:291).
 //
-// Backward. The caller computes layer 2's reductions from the small
-// (R, M, C3) tensors (the pooled gradient reaches x2 at the argmax slots
-// only): dval = s2 * d_y2 at the argmax, c2a = s2 sum(d_y2) / P and
-// c2b = s2 sum(d_y2 x̂2) / P. Every wave recomputes the chain from x0 and
-//   d_x2 = [slot == argmax] dval - c2a - c2b x̂2       (dense: BatchNorm's
-//          backward spreads the gradient over every slot)
-//   d_y1 = (d_x2 W2^T) [y1 > 0]
-// wave 1 reduces sum(d_y1), sum(d_y1 x̂1) and sums dW2 = a1^T d_x2; then
-//   d_x1 = s1 d_y1 - c1a - c1b x̂1,  d_y0 = (d_x1 W1^T) [y0 > 0]
-// wave 2 reduces sum(d_y0), sum(d_y0 x̂0) and sums dW1 = a0^T d_x1; wave 3
-// writes d_x0 = s0 d_y0 - c0a - c0b x̂0, the only slab-sized write. Here
-// y_l = x_l mul_l + add_l (the batch statistics folded), x̂_l = x_l r_l -
-// mu_l r_l, r_l = 1 / sqrt(var_l + eps), s_l = gamma_l r_l. The per-channel
-// vectors come in one pack: for layer l of width C_l, seven vectors of C_l
-// (mul, add, r, mu r, s, ca, cb), layer 0's first.
+// The TPU kernels keep their slabs in VMEM and recompute the chain in every
+// pass (9 layer-1 and 9 layer-2 products per slot in all). On the H100 one
+// layer-1 product over default.yaml's SA_0 at B=16 (8.4 M slots of 128 ->
+// 128) is 275 GFLOP, 4.1 ms at the f32 peak, while reading a 4.29 GB slab
+// takes 1.28 ms: so x1 and x2 are kept in device memory, in f32, from the
+// forward to the backward, and every product runs once, 3 + 3 per slot:
+//   stats1  x1 = a0 W1, a0 = ReLU(x0·mul0 + add0) applied as x0 lands;
+//           write x1; sum x1, x1^2
+//   stats2  x2 = a1 W2 from the stored x1; write x2; sum x2, x2^2
+//   final   from the stored x2 (no product)
+//   wave 1  d_y1 = (d_x2 W2^T)[y1 > 0], d_x2 = [slot == argmax] dval -
+//           c2a - c2b x̂2 formed from the stored x2 as it lands, the mask
+//           and x̂1 from the stored x1; sum d_y1, d_y1 x̂1; write d_y1;
+//           dW2 = a1^T d_x2, a second product over the slots
+//   wave 2  d_y0 = (d_x1 W1^T)[y0 > 0], d_x1 = s1 d_y1 - c1a - c1b x̂1
+//           formed from the stored d_y1 and x1; sum d_y0, d_y0 x̂0; write
+//           d_y0 into the buffer of d_x0; dW1 = a0^T d_x1
+//   apply   d_x0 = s0 d_y0 - c0a - c0b x̂0, in place: elementwise.
+// Here y_l = x_l mul_l + add_l (the batch statistics folded), x̂_l = x_l r_l
+// - mu_l r_l, r_l = 1 / sqrt(var_l + eps), s_l = gamma_l r_l. The caller
+// computes layer 2's reductions from the small (R, M, C3) tensors (the
+// pooled gradient reaches x2 at the argmax slots only): dval = s2 d_y2 at
+// the argmax, c2a = s2 sum(d_y2) / P and c2b = s2 sum(d_y2 x̂2) / P. The
+// per-channel vectors come in one pack: for layer l of width C_l, seven
+// vectors of C_l (mul, add, r, mu r, s, ca, cb), layer 0's first.
 //
-// Bound on the card: operations. Each wave recomputes x1 and x2 and takes
-// d_x2 W2^T: wave 1 also dW2 (one product of layer 1's size and three of
-// layer 2's per slot), wave 2 d_a0 and dW1 (three and two), wave 3 d_a0
-// (two and two). At SA_0 of default.yaml's train step (8.4 M slots of
-// 128 -> 128 -> 128) one product over the level is 275 GFLOP, against 4.3 GB
-// of slab read per pass: far above the f32 ridge. The statistics passes
-// are the same but for depth 0, a pure reduction, bound by the slab read.
-//
-// Design. Blocks run in no order on the card, so nothing carries from one
-// to the next as the TPU's grid steps do: a bounded persistent grid (one
-// block per SM for the waves, two for the statistics) walks contiguous runs
-// of tiles, each block sums its channels' reductions in f64 registers and
-// its weight gradient in shared memory across its tiles, and writes one
-// partial; a second kernel adds the blocks' partials in block order, so
-// every result comes out the same from run to run. A wave's tile is one
-// group's S slots (32 slots, half a group, in wave 1 at C3 = 256): a0
-// (affine + ReLU of the slab rows), a1 and d_x2 live in shared memory, x1
-// stays in registers from its dense layer to its use (each warp owns its
-// tile rows in every dense layer of fused_sa_common.cuh), the weights
-// stream through shared memory in slices of 32 rows, and dW (dW2 128 x
-// C3 or dW1 128 x 128) sits in shared memory beside them: 176 KB at S = 64,
-// C3 = 128; 226 KB in wave 1 (32 slots) and wave 2 at C3 = 256. x0 is read again from device
-// memory (cache-resident by then) for y0 and x̂0. The statistics passes
-// take 64-slot tiles over the flat slab. f32 throughout, as the slab
-// forward: the kernels are held to the plain f32 version.
-// Widths: C1 = C2 = 128, C3 128 or 256, S 16/32/64; offsets in size_t
-// (default.yaml's SA_0 slab is 4.3 GB).
+// Bound on the card: operations for the products (at SA_0 each is right at
+// the f32 ridge: 2·128·128 operations per slot against some 1.5 KB of slab
+// read and written), bytes for stats0, final and apply. Design of the
+// products, one register-tiled f32 SIMT kernel for each of their two
+// shapes:
+//   - bn_row_gemm: out (P x N) = pro(A) (P x K) B (K x N), B a weight (W1,
+//     W2, W2^T or W1^T); 128 x 128 output tiles, 256 threads of 8 x 8
+//     outputs each; A's 128 x 16 slices and B's 16 x 128 slices land in
+//     shared memory by cp.async (A double-, B triple-buffered, the next
+//     slice in flight while this one's products run, across tile
+//     boundaries too); each thread applies the prologue (BN + ReLU, or the
+//     gradient's d_x2 / d_x1 form) to 8 elements of the landed A slice and
+//     stores them transposed, so the products read A and B as float4s; the
+//     epilogue writes the tile and adds its column sums, f32 over 16 rows,
+//     then f64 across warps and tiles, in shared memory;
+//   - bn_dw_gemm: dW (Ca x Nb) = pro(A)^T pro(B) summed over the slots, 16
+//     slab rows at a time, both operands as they land (BN + ReLU on A, the
+//     gradient's form on B), the same 8 x 8 register tile;
+// each a persistent grid (two blocks per SM) whose blocks write their
+// partials once, added in block order by reduce_partials, so every result
+// comes out the same from run to run. f32 throughout: the kernels are held
+// to the plain f32 version. Widths: multiples of 128 up to 1024; any P;
+// offsets in size_t (default.yaml's SA_0 slab is 4.3 GB).
 
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 #include "fused_sa_common.cuh"
 
 namespace {
 
-using fused_sa::dense;
-using fused_sa::kKC;
+using fused_sa::cp_async16;
+using fused_sa::cp_async_commit;
+using fused_sa::cp_async_wait;
 using fused_sa::kThreads;
-using fused_sa::kWarps;
+using fused_sa::reduce;
 
-constexpr int C1 = 128;
-constexpr int C2 = 128;
-constexpr int kVecs = 7;  // per-channel vectors of each layer's pack
-enum Vec { kMul = 0, kAdd, kR, kMuR, kS, kCa, kCb };
+constexpr int kBM = 128;  // output tile rows (slots, or dW's rows)
+constexpr int kBN = 128;  // output tile columns
+constexpr int kBK = 16;   // the depth of a staged slice
+constexpr int kRawLd = kBK + 4;  // row stride of a landed A slice (floats)
+constexpr int kMaxWidth = 1024;
 
-// vector k of layer l in the pack
-template <int C3>
-__device__ __forceinline__ const float* vec(const float* pk, int l, int k) {
-  const int base = l == 0 ? 0 : l == 1 ? kVecs * C1 : kVecs * (C1 + C2);
-  return pk + base + k * (l == 2 ? C3 : 128);
-}
+// The per-channel vectors of one layer, each C_l floats.
+struct Layer {
+  const float* mul;
+  const float* add;
+  const float* r;
+  const float* mr;
+  const float* s;
+  const float* ca;
+  const float* cb;
+};
+
+enum Pro { kRelu = 0, kDx2, kDx1 };
+enum Epi { kStats = 0, kDy };
 
 __device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+  return __ldg(reinterpret_cast<const float4*>(p));
 }
 
-__device__ __forceinline__ float comp(const float4& v, int r) {
-  return r == 0 ? v.x : r == 1 ? v.y : r == 2 ? v.z : v.w;
+__device__ __forceinline__ void to8(const float4& a, const float4& b,
+                                    float (&v)[8]) {
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+  v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
 }
 
-// a0 = ReLU(x0·mul0 + add0) of `rows` slab rows from `src` into X (rows x
-// C1), as fused_sa_common.cuh's load_x0 computes it
-__device__ __forceinline__ void load_a0(const float* __restrict__ src,
-                                        const float* __restrict__ mul,
-                                        const float* __restrict__ add,
-                                        int rows, float* X) {
-  const float4* s4 = reinterpret_cast<const float4*>(src);
-  float4* d4 = reinterpret_cast<float4*>(X);
-  for (int q = threadIdx.x; q < rows * C1 / 4; q += kThreads) {
-    const float4 v = s4[q];
-    const int c = (4 * q) % C1;
-    const float4 m = ld4(mul + c);
-    const float4 a = ld4(add + c);
-    d4[q] = make_float4(fmaxf(fmaf(v.x, m.x, a.x), 0.0f),
-                        fmaxf(fmaf(v.y, m.y, a.y), 0.0f),
-                        fmaxf(fmaf(v.z, m.z, a.z), 0.0f),
-                        fmaxf(fmaf(v.w, m.w, a.w), 0.0f));
+// The elementwise forms, each rounded step by step as the plain pieces'
+// PyTorch operations round them (no contraction), so that a ReLU mask or an
+// argmax taken here from a stored slab agrees with the plain piece's on the
+// same slab to the bit: y = x·mul + add; x̂ = x·r − mr; and the gradient's
+// a − ca − cb·x̂.
+__device__ __forceinline__ float affine(float x, float m, float a) {
+  return __fadd_rn(__fmul_rn(x, m), a);
+}
+
+__device__ __forceinline__ float xhat(float x, float r, float mr) {
+  return __fsub_rn(__fmul_rn(x, r), mr);
+}
+
+__device__ __forceinline__ float grad_form(float a, float ca, float cb,
+                                           float xh) {
+  return __fsub_rn(__fsub_rn(a, ca), __fmul_rn(cb, xh));
+}
+
+// 8 consecutive values of vector `vec` from channel c
+__device__ __forceinline__ void vec8(const float* vec, int c, float (&v)[8]) {
+  to8(ld4(vec + c), ld4(vec + c + 4), v);
+}
+
+// The prologue on 8 consecutive channels c.. of one slot (row p of the
+// slab; slot `slot` of group `g`): kRelu a = ReLU(x·mul + add); kDx2 d_x2 =
+// [slot == argmax] dval - ca - cb (x r - mr), dval and argmax (R, M, C)
+// rows of stride C; kDx1 d_x1 = s d_y - ca - cb (x1 r - mr) with x = d_y
+// and x2nd = x1. A slot past the slab (valid false) gives 0.
+template <int PRO>
+__device__ __forceinline__ void prologue(float (&x)[8], const float (&x2nd)[8],
+                                         const Layer& L, int c, bool valid,
+                                         long long g, int slot, int C,
+                                         const float* __restrict__ dval,
+                                         const int* __restrict__ argmax) {
+  if (!valid) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) x[j] = 0.0f;
+    return;
   }
-}
-
-// a1 = ReLU(x1·mul1 + add1) from this thread's x1 registers (rows warp*TM
-// + i, columns 4*lane + r) into X (TR x C2)
-template <int TM, int C3>
-__device__ __forceinline__ void store_a1(const float (&x1)[TM][4],
-                                         const float* pk, float* X) {
-  const int warp = threadIdx.x >> 5, col = 4 * (threadIdx.x & 31);
-  const float4 m = ld4(vec<C3>(pk, 1, kMul) + col);
-  const float4 a = ld4(vec<C3>(pk, 1, kAdd) + col);
+  if constexpr (PRO == kRelu) {
+    float m[8], a[8];
+    vec8(L.mul, c, m);
+    vec8(L.add, c, a);
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
-    *reinterpret_cast<float4*>(X + (warp * TM + i) * C2 + col) =
-        make_float4(fmaxf(fmaf(x1[i][0], m.x, a.x), 0.0f),
-                    fmaxf(fmaf(x1[i][1], m.y, a.y), 0.0f),
-                    fmaxf(fmaf(x1[i][2], m.z, a.z), 0.0f),
-                    fmaxf(fmaf(x1[i][3], m.w, a.w), 0.0f));
-}
-
-// Each thread's column sums (slot f64) into the block's partial out[2][CW]:
-// red (kWarps x 2 x CW doubles of shared memory) collects every warp's,
-// then the warps are added in order. Column t of the thread is
-// (t / 4) * 128 + 4 * lane + t % 4.
-template <int TN, int CW>
-__device__ __forceinline__ void block_partial(const double (&s)[TN],
-                                              const double (&q)[TN],
-                                              double* red, double* out) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  __syncthreads();  // red aliases buffers the tile loop used
+    for (int j = 0; j < 8; ++j) x[j] = fmaxf(affine(x[j], m[j], a[j]), 0.0f);
+  } else {
+    float r[8], mr[8], ca[8], cb[8];
+    vec8(L.r, c, r);
+    vec8(L.mr, c, mr);
+    vec8(L.ca, c, ca);
+    vec8(L.cb, c, cb);
+    if constexpr (PRO == kDx2) {
+      float dv[8];
+      const size_t at = (size_t)g * C + c;
+      to8(ld4(dval + at), ld4(dval + at + 4), dv);
+      const int4 a0 = __ldg(reinterpret_cast<const int4*>(argmax + at));
+      const int4 a1 = __ldg(reinterpret_cast<const int4*>(argmax + at + 4));
+      const int ag[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
 #pragma unroll
-  for (int t = 0; t < TN; ++t) {
-    const int c = (t / 4) * 128 + 4 * lane + t % 4;
-    red[(warp * 2) * CW + c] = s[t];
-    red[(warp * 2 + 1) * CW + c] = q[t];
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < 2 * CW; e += kThreads) {
-    const int k = e / CW, c = e % CW;
-    double v = 0.0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) v += red[(w * 2 + k) * CW + c];
-    out[e] = v;
-  }
-}
-
-// sum[t] += the column sum of x over the TM rows, sq[t] that of x^2: each
-// tile's sums in f32, their sum across tiles in f64
-template <int TM, int TN>
-__device__ __forceinline__ void accumulate(const float (&x)[TM][TN],
-                                           double (&sum)[TN],
-                                           double (&sq)[TN]) {
-#pragma unroll
-  for (int t = 0; t < TN; ++t) {
-    float ps = 0.0f, pq = 0.0f;
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      ps += x[i][t];
-      pq += x[i][t] * x[i][t];
-    }
-    sum[t] += ps;
-    sq[t] += pq;
-  }
-}
-
-// Statistics pass at DEPTH 0 / 1 / 2: per channel sum and sum of squares of
-// x0, x1 or x2 over the block's run of 64-slot tiles -> ws[block] (2 x CD
-// doubles).
-template <int DEPTH, int C3>
-__global__ void __launch_bounds__(kThreads, DEPTH == 2 && C3 == 256 ? 1 : 2)
-bn_stats_kernel(const float* __restrict__ x0, const float* __restrict__ pk,
-                const float* __restrict__ w1, const float* __restrict__ w2,
-                long long tiles, long long per_block,
-                double* __restrict__ ws) {
-  constexpr int TM = 8;
-  constexpr int TR = kWarps * TM;
-  constexpr int CD = DEPTH == 0 ? C1 : DEPTH == 1 ? C2 : C3;
-  constexpr int TN = CD / 32;
-  extern __shared__ float smem[];
-  float* A0 = smem;                // TR x C1: a0
-  float* A1 = A0 + TR * C1;        // TR x C2: a1
-  float* wbuf = A1 + TR * C2;      // kKC x C3
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  double sum[TN], sq[TN];
-#pragma unroll
-  for (int t = 0; t < TN; ++t) sum[t] = sq[t] = 0.0;
-
-  const long long t0 = (long long)blockIdx.x * per_block;
-  const long long t1 = min(tiles, t0 + per_block);
-  for (long long tile = t0; tile < t1; ++tile) {
-    const float* src = x0 + (size_t)tile * TR * C1;
-    if constexpr (DEPTH == 0) {
-      float x[TM][4];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const float4 v = ld4(src + (warp * TM + i) * C1 + 4 * lane);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) x[i][r] = comp(v, r);
-      }
-      accumulate<TM, 4>(x, sum, sq);
+      for (int j = 0; j < 8; ++j)
+        x[j] = grad_form(ag[j] == slot ? dv[j] : 0.0f, ca[j], cb[j],
+                         xhat(x[j], r[j], mr[j]));
     } else {
-      __syncthreads();  // every warp is done with A0 of the last tile
-      load_a0(src, vec<C3>(pk, 0, kMul), vec<C3>(pk, 0, kAdd), TR, A0);
-      float x1[TM][4];
-      dense<TM, 4>(A0, C1, w1, wbuf, x1);
-      if constexpr (DEPTH == 1) {
-        accumulate<TM, 4>(x1, sum, sq);
-      } else {
-        store_a1<TM, C3>(x1, pk, A1);
-        float x2[TM][TN];
-        dense<TM, TN>(A1, C2, w2, wbuf, x2);
-        accumulate<TM, TN>(x2, sum, sq);
-      }
+      float s[8];
+      vec8(L.s, c, s);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        x[j] = grad_form(__fmul_rn(s[j], x[j]), ca[j], cb[j],
+                         xhat(x2nd[j], r[j], mr[j]));
     }
   }
-  block_partial<TN, CD>(sum, sq, reinterpret_cast<double*>(smem),
-                        ws + (size_t)blockIdx.x * 2 * CD);
 }
 
-// DW (128 x NW, row-major, shared) += X^T D over TR rows: X (TR x 128) and
-// D (TR x NW) in shared memory. Thread (hi, lo) owns rows 4hi + r and
-// 64 + 4hi + r, and in each 128-column chunk columns 4lo + r and
-// 64 + 4lo + r, so that neighbouring threads read neighbouring 16 bytes.
-template <int TR, int NW>
-__device__ __forceinline__ void dw_accum(const float* __restrict__ X,
-                                         const float* __restrict__ D,
-                                         float* __restrict__ DW) {
-  const int hi = threadIdx.x >> 4, lo = threadIdx.x & 15;
-#pragma unroll 1
-  for (int j = 0; j < NW / 128; ++j) {
-    float acc[8][8];
+// acc += As^T Bs over one staged slice: As (kBK x 128, k-major over the
+// tile's rows), Bs (kBK x 128, k-major over its columns); thread (ty, tx)
+// owns rows 4ty + i and 64 + 4ty + i, columns 4tx + j and 64 + 4tx + j
+__device__ __forceinline__ void mma_slice(const float* __restrict__ As,
+                                          const float* __restrict__ Bs,
+                                          float (&acc)[8][8]) {
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+#pragma unroll
+  for (int k = 0; k < kBK; ++k) {
+    float a[8], b[8];
+    to8(*reinterpret_cast<const float4*>(As + k * kBM + 4 * ty),
+        *reinterpret_cast<const float4*>(As + k * kBM + 64 + 4 * ty), a);
+    to8(*reinterpret_cast<const float4*>(Bs + k * kBN + 4 * tx),
+        *reinterpret_cast<const float4*>(Bs + k * kBN + 64 + 4 * tx), b);
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int k = 0; k < 8; ++k) acc[i][k] = 0.0f;
-    for (int s = 0; s < TR; ++s) {
-      const float4 a_lo = ld4(X + s * 128 + 4 * hi);
-      const float4 a_hi = ld4(X + s * 128 + 64 + 4 * hi);
-      const float4 d_lo = ld4(D + s * NW + j * 128 + 4 * lo);
-      const float4 d_hi = ld4(D + s * NW + j * 128 + 64 + 4 * lo);
-      const float a[8] = {a_lo.x, a_lo.y, a_lo.z, a_lo.w,
-                          a_hi.x, a_hi.y, a_hi.z, a_hi.w};
-      const float d[8] = {d_lo.x, d_lo.y, d_lo.z, d_lo.w,
-                          d_hi.x, d_hi.y, d_hi.z, d_hi.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int k = 0; k < 8; ++k) acc[i][k] += a[i] * d[k];
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int row = i < 4 ? 4 * hi + i : 64 + 4 * hi + (i - 4);
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int col = j * 128 + (k < 4 ? 4 * lo + k : 64 + 4 * lo + (k - 4));
-        DW[row * NW + col] += acc[i][k];
-      }
-    }
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
   }
 }
 
-// a wave's tile: one group of S <= 64 slots, but 32 slots in wave 1 at
-// C3 = 256, where dW2 (128 KB) leaves no room for 64-slot buffers
-template <int WAVE, int S, int C3>
-__host__ __device__ constexpr int wave_rows() {
-  return WAVE == 1 && C3 == 256 && S > 32 ? 32 : S;
+__device__ __forceinline__ int tile_row(int i) {  // row i of thread's tile
+  const int ty = threadIdx.x >> 4;
+  return i < 4 ? 4 * ty + i : 64 + 4 * ty + (i - 4);
 }
 
-// dW's columns: wave 1 sums dW2 (C2 x C3), wave 2 dW1 (C1 x C2)
-template <int WAVE, int C3>
-__host__ __device__ constexpr int dw_cols() {
-  return WAVE == 1 ? C3 : WAVE == 2 ? C2 : 0;
+__device__ __forceinline__ int tile_col(int j) {
+  const int tx = threadIdx.x & 15;
+  return j < 4 ? 4 * tx + j : 64 + 4 * tx + (j - 4);
 }
 
-template <int WAVE, int S, int C3>
-constexpr size_t wave_smem_floats() {
-  constexpr int TR = wave_rows<WAVE, S, C3>();
-  return (size_t)TR * (C1 + C2 + C3) + kKC * (C3 > C2 ? C3 : C2)
-         + 128 * dw_cols<WAVE, C3>() + 2 * C3;
+// --------------------------------------------------------------------------
+// bn_row_gemm: Y (P x N) = pro(A) B, with the epilogue's column sums
+
+struct RowArgs {
+  const float* A;    // P x K
+  const float* A2;   // P x K: x1 beside d_y1 (kDx1)
+  const float* B;    // K x N
+  const float* E;    // P x N: the epilogue's x (kDy)
+  const float* dval;
+  const int* argmax;
+  Layer in;          // the prologue's layer (K channels)
+  Layer out;         // the epilogue's layer (N channels, kDy)
+  float* Y;          // P x N
+  double* ws;        // blocks x 2 x N
+  long long P;
+  int K, N, S;
+  long long tiles;   // ceil(P / kBM) x N / kBN
+};
+
+template <int PRO>
+constexpr size_t row_smem_floats() {
+  return (size_t)2 * kBM * kRawLd * (PRO == kDx1 ? 2 : 1) + kBK * kBM
+         + 3 * kBK * kBN + 8 * 2 * kBN;
 }
 
-// Backward wave 1 / 2 / 3 over the block's run of tiles (TR slots of one
-// group each). Wave 1 -> wsf[block] = dW2 (C2 x C3), wsd[block] =
-// (sum d_y1, sum d_y1 x̂1) (2 x C2); wave 2 -> dW1 (C1 x C2) and
-// (sum d_y0, sum d_y0 x̂0) (2 x C1); wave 3 -> dx0, the slab's gradient.
-template <int WAVE, int S, int C3>
-__global__ void __launch_bounds__(kThreads, 1)
-bn_wave_kernel(const float* __restrict__ x0, const float* __restrict__ pk,
-               const float* __restrict__ w1, const float* __restrict__ w2,
-               const float* __restrict__ w1t, const float* __restrict__ w2t,
-               const float* __restrict__ dval,
-               const int* __restrict__ argmax, long long tiles,
-               long long per_block, float* __restrict__ dx0,
-               float* __restrict__ wsf, double* __restrict__ wsd) {
-  constexpr int TR = wave_rows<WAVE, S, C3>();
-  constexpr int TM = TR / kWarps;
-  constexpr int kTiles = S / TR;  // tiles per group
-  constexpr int TN3 = C3 / 32;
-  constexpr int NW = dw_cols<WAVE, C3>();
-  extern __shared__ float smem[];
-  float* A0 = smem;                          // TR x C1: a0
-  float* A1 = A0 + TR * C1;                  // TR x C2: a1, then d_x1
-  float* DX2 = A1 + TR * C2;                 // TR x C3: d_x2
-  float* wbuf = DX2 + TR * C3;               // kKC x max(C2, C3)
-  float* DW = wbuf + kKC * (C3 > C2 ? C3 : C2);  // 128 x NW
-  float* dv = DW + 128 * NW;                 // C3: the group's dval
-  int* ag = reinterpret_cast<int*>(dv + C3);  // C3: the group's argmax
+template <int PRO, int EPI>
+__global__ void __launch_bounds__(kThreads, 2) bn_row_gemm(const RowArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  float* raw = smem;                             // 2 x kBM x kRawLd
+  float* raw2 = raw + 2 * kBM * kRawLd;          // the same (kDx1)
+  float* As = raw2 + (PRO == kDx1 ? 2 * kBM * kRawLd : 0);  // kBK x kBM
+  float* Bs = As + kBK * kBM;                    // 3 x kBK x kBN
+  float* red = Bs + 3 * kBK * kBN;               // 8 warps x 2 x kBN
+  double* bsum = reinterpret_cast<double*>(red + 8 * 2 * kBN);  // 2 x N
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int col = 4 * lane;  // this thread's columns in C1 / C2
-  double rsum[4], rsq[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) rsum[r] = rsq[r] = 0.0;
-  for (int e = tid; e < 128 * NW; e += kThreads) DW[e] = 0.0f;
+  const int N = a.N, K = a.K;
+  const int tiles_n = N / kBN, ksteps = K / kBK;
+  for (int e = tid; e < 2 * N; e += kThreads) bsum[e] = 0.0;
+  const long long my_tiles =
+      blockIdx.x < a.tiles
+          ? (a.tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const long long steps = my_tiles * ksteps;
 
-  const long long t0 = (long long)blockIdx.x * per_block;
-  const long long t1 = min(tiles, t0 + per_block);
-  for (long long tile = t0; tile < t1; ++tile) {
-    const long long g = tile / kTiles;
-    const int slot0 = (int)(tile % kTiles) * TR;  // first slot in the group
-    const size_t row0 = (size_t)tile * TR;        // first slab row
-    __syncthreads();  // the last tile is done with every buffer
-    for (int c = tid; c < C3; c += kThreads) {
-      dv[c] = dval[g * C3 + c];
-      ag[c] = argmax[g * C3 + c];
-    }
-    load_a0(x0 + row0 * C1, vec<C3>(pk, 0, kMul), vec<C3>(pk, 0, kAdd), TR,
-            A0);
-    float x1[TM][4];
-    dense<TM, 4>(A0, C1, w1, wbuf, x1);
-    store_a1<TM, C3>(x1, pk, A1);
-    {  // x2, then d_x2 into DX2
-      float x2[TM][TN3];
-      dense<TM, TN3>(A1, C2, w2, wbuf, x2);
-#pragma unroll
-      for (int q = 0; q < TN3 / 4; ++q) {
-        const int c = q * 128 + col;
-        const float4 r2 = ld4(vec<C3>(pk, 2, kR) + c);
-        const float4 mr2 = ld4(vec<C3>(pk, 2, kMuR) + c);
-        const float4 ca = ld4(vec<C3>(pk, 2, kCa) + c);
-        const float4 cb = ld4(vec<C3>(pk, 2, kCb) + c);
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          const int s = slot0 + warp * TM + i;
-          float d[4];
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const float xh = x2[i][4 * q + r] * comp(r2, r) - comp(mr2, r);
-            const float sparse = ag[c + r] == s ? dv[c + r] : 0.0f;
-            d[r] = sparse - comp(ca, r) - comp(cb, r) * xh;
-          }
-          *reinterpret_cast<float4*>(DX2 + (warp * TM + i) * C3 + c) =
-              make_float4(d[0], d[1], d[2], d[3]);
-        }
+  auto tile_of = [&](long long step) {
+    return (long long)blockIdx.x + (step / ksteps) * gridDim.x;
+  };
+  auto issue = [&](long long step) {
+    const long long t = tile_of(step);
+    const int ks = (int)(step % ksteps);
+    const long long p0 = (t / tiles_n) * kBM;
+    const int n0 = (int)(t % tiles_n) * kBN;
+    const int buf = (int)(step & 1);
+    for (int q = tid; q < kBM * kBK / 4; q += kThreads) {
+      const int r = q >> 2, c = q & 3;
+      const long long p = p0 + r;
+      float* d = raw + (buf * kBM + r) * kRawLd + 4 * c;
+      float* d2 = raw2 + (buf * kBM + r) * kRawLd + 4 * c;
+      if (p < a.P) {
+        const size_t at = (size_t)p * K + ks * kBK + 4 * c;
+        cp_async16(d, a.A + at);
+        if constexpr (PRO == kDx1) cp_async16(d2, a.A2 + at);
+      } else {
+        *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+        if constexpr (PRO == kDx1)
+          *reinterpret_cast<float4*>(d2) = make_float4(0.f, 0.f, 0.f, 0.f);
       }
     }
-    // d_y1 = (d_x2 W2^T) [y1 > 0]; the barrier in dense() orders DX2
-    float dy[TM][4];
-    dense<TM, 4>(DX2, C3, w2t, wbuf, dy);
+    float* bs = Bs + (int)(step % 3) * kBK * kBN;
+    for (int q = tid; q < kBK * kBN / 4; q += kThreads) {
+      const int r = q >> 5, c = q & 31;
+      cp_async16(bs + r * kBN + 4 * c,
+                 a.B + (size_t)(ks * kBK + r) * N + n0 + 4 * c);
+    }
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  if (steps > 0) issue(0);
+  cp_async_commit();
+  for (long long step = 0; step < steps; ++step) {
+    if (step + 1 < steps) issue(step + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // the slice has landed in every thread's share
+    const long long t = tile_of(step);
+    const int ks = (int)(step % ksteps);
+    const long long p0 = (t / tiles_n) * kBM;
+    const int n0 = (int)(t % tiles_n) * kBN;
+    {  // the prologue on 8 elements of the slice, stored transposed
+      const int buf = (int)(step & 1);
+      const int r = tid & (kBM - 1), kh = tid >> 7;
+      const float* src = raw + (buf * kBM + r) * kRawLd + 8 * kh;
+      float x[8], x2[8];
+      to8(*reinterpret_cast<const float4*>(src),
+          *reinterpret_cast<const float4*>(src + 4), x);
+      if constexpr (PRO == kDx1) {
+        const float* s2 = raw2 + (buf * kBM + r) * kRawLd + 8 * kh;
+        to8(*reinterpret_cast<const float4*>(s2),
+            *reinterpret_cast<const float4*>(s2 + 4), x2);
+      }
+      const long long p = p0 + r;
+      const long long g = p / a.S;
+      prologue<PRO>(x, x2, a.in, ks * kBK + 8 * kh, p < a.P, g,
+                    (int)(p - g * a.S), K, a.dval, a.argmax);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) As[(8 * kh + j) * kBM + r] = x[j];
+    }
+    __syncthreads();  // the transposed slice is complete
+    mma_slice(As, Bs + (int)(step % 3) * kBK * kBN, acc);
+    if (ks != ksteps - 1) continue;
+    // the epilogue: write the tile, and its column sums into bsum; the
+    // tile's two column halves one after the other
+    float s1[8], s2[8];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = n0 + tile_col(4 * h);
+      float4 m4{}, a4{}, r4{}, mr4{};
+      if constexpr (EPI == kDy) {
+        m4 = ld4(a.out.mul + col), a4 = ld4(a.out.add + col);
+        r4 = ld4(a.out.r + col), mr4 = ld4(a.out.mr + col);
+      }
+      const float m[4] = {m4.x, m4.y, m4.z, m4.w};
+      const float ad[4] = {a4.x, a4.y, a4.z, a4.w};
+      const float rr[4] = {r4.x, r4.y, r4.z, r4.w};
+      const float mr[4] = {mr4.x, mr4.y, mr4.z, mr4.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s1[4 * h + j] = s2[4 * h + j] = 0.0f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const long long p = p0 + tile_row(i);
+        if (p >= a.P) continue;
+        const size_t at = (size_t)p * N + col;
+        float v[4];
+        if constexpr (EPI == kDy) {
+          const float4 e4 = ld4(a.E + at);
+          const float e[4] = {e4.x, e4.y, e4.z, e4.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            v[j] = affine(e[j], m[j], ad[j]) > 0.0f ? acc[i][4 * h + j]
+                                                     : 0.0f;
+            s1[4 * h + j] += v[j];
+            s2[4 * h + j] += v[j] * xhat(e[j], rr[j], mr[j]);
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            v[j] = acc[i][4 * h + j];
+            s1[4 * h + j] += v[j];
+            s2[4 * h + j] += v[j] * v[j];
+          }
+        }
+        *reinterpret_cast<float4*>(a.Y + at) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      s1[j] += __shfl_xor_sync(0xffffffffu, s1[j], 16);
+      s2[j] += __shfl_xor_sync(0xffffffffu, s2[j], 16);
+      acc[0][j] = acc[1][j] = acc[2][j] = acc[3][j] = 0.0f;
+      acc[4][j] = acc[5][j] = acc[6][j] = acc[7][j] = 0.0f;
+    }
+    if (lane < 16) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        red[(warp * 2) * kBN + tile_col(j)] = s1[j];
+        red[(warp * 2 + 1) * kBN + tile_col(j)] = s2[j];
+      }
+    }
+    __syncthreads();
     {
-      const float4 m1 = ld4(vec<C3>(pk, 1, kMul) + col);
-      const float4 a1 = ld4(vec<C3>(pk, 1, kAdd) + col);
-      const float4 r1 = ld4(vec<C3>(pk, 1, kR) + col);
-      const float4 mr1 = ld4(vec<C3>(pk, 1, kMuR) + col);
-      const float4 s1 = ld4(vec<C3>(pk, 1, kS) + col);
-      const float4 ca = ld4(vec<C3>(pk, 1, kCa) + col);
-      const float4 cb = ld4(vec<C3>(pk, 1, kCb) + col);
-      float ps[4] = {0.0f, 0.0f, 0.0f, 0.0f}, pq[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      const int c = tid & (kBN - 1), k = tid >> 7;
+      double s = 0.0;
 #pragma unroll
-      for (int i = 0; i < TM; ++i) {
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const float y1 = fmaf(x1[i][r], comp(m1, r), comp(a1, r));
-          const float d = y1 > 0.0f ? dy[i][r] : 0.0f;
-          const float xh = x1[i][r] * comp(r1, r) - comp(mr1, r);
-          if constexpr (WAVE == 1) {
-            ps[r] += d;
-            pq[r] += d * xh;
-          } else {  // d_x1
-            dy[i][r] = comp(s1, r) * d - comp(ca, r) - comp(cb, r) * xh;
-          }
-        }
-      }
-      if constexpr (WAVE == 1) {
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          rsum[r] += ps[r];
-          rsq[r] += pq[r];
-        }
-        __syncthreads();  // DX2 and A1 complete in every warp
-        dw_accum<TR, NW>(A1, DX2, DW);  // dW2 += a1^T d_x2
-        continue;
-      }
+      for (int w = 0; w < 8; ++w) s += red[(w * 2 + k) * kBN + c];
+      bsum[k * N + n0 + c] += s;
     }
-    if constexpr (WAVE != 1) {
-      // d_x1 in place of a1: every warp is past the x2 layer, the last
-      // reader of A1 (the barrier at the start of the d_a1 layer)
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-        *reinterpret_cast<float4*>(A1 + (warp * TM + i) * C2 + col) =
-            make_float4(dy[i][0], dy[i][1], dy[i][2], dy[i][3]);
-      if constexpr (WAVE == 2) {
-        __syncthreads();  // d_x1 complete in every warp
-        dw_accum<TR, NW>(A0, A1, DW);  // dW1 += a0^T d_x1
-      }
-      float da[TM][4];  // d_a0 = d_x1 W1^T
-      dense<TM, 4>(A1, C2, w1t, wbuf, da);
-      const float4 m0 = ld4(vec<C3>(pk, 0, kMul) + col);
-      const float4 a0 = ld4(vec<C3>(pk, 0, kAdd) + col);
-      const float4 r0 = ld4(vec<C3>(pk, 0, kR) + col);
-      const float4 mr0 = ld4(vec<C3>(pk, 0, kMuR) + col);
-      const float4 s0 = ld4(vec<C3>(pk, 0, kS) + col);
-      const float4 ca = ld4(vec<C3>(pk, 0, kCa) + col);
-      const float4 cb = ld4(vec<C3>(pk, 0, kCb) + col);
-      float ps[4] = {0.0f, 0.0f, 0.0f, 0.0f}, pq[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const size_t at = (row0 + warp * TM + i) * C1 + col;
-        const float4 xv = ld4(x0 + at);
-        float o[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const float x = comp(xv, r);
-          const float y0 = fmaf(x, comp(m0, r), comp(a0, r));
-          const float d = y0 > 0.0f ? da[i][r] : 0.0f;
-          const float xh = x * comp(r0, r) - comp(mr0, r);
-          ps[r] += d;
-          pq[r] += d * xh;
-          o[r] = comp(s0, r) * d - comp(ca, r) - comp(cb, r) * xh;
-        }
-        if constexpr (WAVE == 3)
-          *reinterpret_cast<float4*>(dx0 + at) =
-              make_float4(o[0], o[1], o[2], o[3]);
-      }
-      if constexpr (WAVE == 2) {
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          rsum[r] += ps[r];
-          rsq[r] += pq[r];
-        }
-      }
-    }
+    // red is rewritten after the next tile's slices, each behind barriers
   }
-  if constexpr (WAVE != 3) {
-    __syncthreads();  // DW complete
-    float* out = wsf + (size_t)blockIdx.x * 128 * NW;
-    for (int e = tid; e < 128 * NW; e += kThreads) out[e] = DW[e];
-    block_partial<4, 128>(rsum, rsq, reinterpret_cast<double*>(smem),
-                          wsd + (size_t)blockIdx.x * 2 * 128);
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int e = tid; e < 2 * N; e += kThreads)
+    a.ws[(size_t)blockIdx.x * 2 * N + e] = bsum[e];
+}
+
+// --------------------------------------------------------------------------
+// bn_dw_gemm: dW (Ca x Nb) = ReLU(A·mul + add)^T pro(B) over the slots
+
+struct DwArgs {
+  const float* A;    // P x Ca
+  const float* B;    // P x Nb
+  const float* B2;   // P x Nb: x1 beside d_y1 (kDx1)
+  const float* dval;
+  const int* argmax;
+  Layer la;          // A's layer (Ca channels)
+  Layer lb;          // B's layer (Nb channels)
+  float* ws;         // splits x Ca x Nb
+  long long P;
+  long long rows_per;  // slots per split, a multiple of kBK
+  int Ca, Nb, S;
+  int tiles_n, ntile;
+};
+
+template <int PRO>
+constexpr size_t dw_smem_floats() {
+  return (size_t)3 * kBK * kBM * (PRO == kDx1 ? 3 : 2);
+}
+
+template <int PRO>
+__global__ void __launch_bounds__(kThreads, 2) bn_dw_gemm(const DwArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  float* Ab = smem;                     // 3 x kBK x kBM
+  float* Bb = Ab + 3 * kBK * kBM;       // 3 x kBK x kBN
+  float* B2b = Bb + 3 * kBK * kBN;      // the same (kDx1)
+  const int tid = threadIdx.x;
+  const int t = blockIdx.x % a.ntile;
+  const long long split = blockIdx.x / a.ntile;
+  const int m0 = (t / a.tiles_n) * kBM, n0 = (t % a.tiles_n) * kBN;
+  const long long pbeg = split * a.rows_per;
+  const long long pend = min(a.P, pbeg + a.rows_per);
+  const long long steps = pend > pbeg ? (pend - pbeg + kBK - 1) / kBK : 0;
+
+  auto issue = [&](long long step) {
+    const int buf = (int)(step % 3);
+    for (int q = tid; q < kBK * kBM / 4; q += kThreads) {
+      const int r = q >> 5, c = q & 31;
+      const long long p = pbeg + step * kBK + r;
+      float* da = Ab + (buf * kBK + r) * kBM + 4 * c;
+      float* db = Bb + (buf * kBK + r) * kBN + 4 * c;
+      float* db2 = B2b + (buf * kBK + r) * kBN + 4 * c;
+      if (p < pend) {
+        cp_async16(da, a.A + (size_t)p * a.Ca + m0 + 4 * c);
+        cp_async16(db, a.B + (size_t)p * a.Nb + n0 + 4 * c);
+        if constexpr (PRO == kDx1)
+          cp_async16(db2, a.B2 + (size_t)p * a.Nb + n0 + 4 * c);
+      }  // rows past the split are zeroed by the prologue
+    }
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  if (steps > 0) issue(0);
+  cp_async_commit();
+  for (long long step = 0; step < steps; ++step) {
+    if (step + 1 < steps) issue(step + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // the slices have landed
+    const int buf = (int)(step % 3);
+    {  // the prologues on 8 elements of each operand, in place
+      const int r = tid >> 4, c = 8 * (tid & 15);
+      const long long p = pbeg + step * kBK + r;
+      const bool valid = p < pend;
+      const long long g = p / a.S;
+      float* pa = Ab + (buf * kBK + r) * kBM + c;
+      float* pb = Bb + (buf * kBK + r) * kBN + c;
+      float x[8], y[8], y2[8];
+      to8(*reinterpret_cast<float4*>(pa), *reinterpret_cast<float4*>(pa + 4),
+          x);
+      to8(*reinterpret_cast<float4*>(pb), *reinterpret_cast<float4*>(pb + 4),
+          y);
+      if constexpr (PRO == kDx1) {
+        const float* pb2 = B2b + (buf * kBK + r) * kBN + c;
+        to8(*reinterpret_cast<const float4*>(pb2),
+            *reinterpret_cast<const float4*>(pb2 + 4), y2);
+      }
+      prologue<kRelu>(x, x, a.la, m0 + c, valid, 0, 0, 0, nullptr, nullptr);
+      prologue<PRO>(y, y2, a.lb, n0 + c, valid, g, (int)(p - g * a.S), a.Nb,
+                    a.dval, a.argmax);
+      *reinterpret_cast<float4*>(pa) = make_float4(x[0], x[1], x[2], x[3]);
+      *reinterpret_cast<float4*>(pa + 4) = make_float4(x[4], x[5], x[6], x[7]);
+      *reinterpret_cast<float4*>(pb) = make_float4(y[0], y[1], y[2], y[3]);
+      *reinterpret_cast<float4*>(pb + 4) = make_float4(y[4], y[5], y[6], y[7]);
+    }
+    __syncthreads();
+    mma_slice(Ab + buf * kBK * kBM, Bb + buf * kBK * kBN, acc);
+  }
+  cp_async_wait<0>();
+  float* out = a.ws + (size_t)split * a.Ca * a.Nb;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float* row = out + (size_t)(m0 + tile_row(i)) * a.Nb + n0;
+    *reinterpret_cast<float4*>(row + tile_col(0)) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    *reinterpret_cast<float4*>(row + tile_col(4)) =
+        make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
   }
 }
 
-// out[e] = the sum of the blocks' partials ws[p][e], in block order
-template <typename T>
-__global__ void reduce_partials(const T* __restrict__ ws, int parts, int per,
-                                T* __restrict__ out) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= per) return;
-  T s = 0;
-  for (int p = 0; p < parts; ++p) s += ws[(size_t)p * per + e];
-  out[e] = s;
+// --------------------------------------------------------------------------
+// stats0, final and apply: one pass over a slab each
+
+// Per channel sum x and sum x^2 of x (P x C) over the block's run of rows:
+// thread (quad q, phase ph) takes channels 4q.. of rows ph, ph + phases,
+// ..., in f32 over 64-row chunks, f64 across them -> ws[block] (2 x C).
+__global__ void __launch_bounds__(kThreads) bn_stats0_kernel(
+    const float* __restrict__ x, long long P, int C, long long per_block,
+    double* __restrict__ ws) {
+  extern __shared__ __align__(16) double dsm[];
+  const int Q = C / 4, phases = kThreads / Q;
+  const int q = threadIdx.x % Q, ph = threadIdx.x / Q;
+  const long long r0 = (long long)blockIdx.x * per_block;
+  const long long r1 = min(P, r0 + per_block);
+  double s[4] = {0.0, 0.0, 0.0, 0.0}, sq[4] = {0.0, 0.0, 0.0, 0.0};
+  if (ph < phases) {
+    for (long long c0 = r0 + ph; c0 < r1; c0 += 64LL * phases) {
+      float ps[4] = {0.f, 0.f, 0.f, 0.f}, pq[4] = {0.f, 0.f, 0.f, 0.f};
+      const long long c1 = min(r1, c0 + 64LL * phases);
+      for (long long p = c0; p < c1; p += phases) {
+        const float4 v = ld4(x + (size_t)p * C + 4 * q);
+        const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          ps[j] += e[j];
+          pq[j] += e[j] * e[j];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[j] += ps[j];
+        sq[j] += pq[j];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      dsm[(ph * 2) * C + 4 * q + j] = s[j];
+      dsm[(ph * 2 + 1) * C + 4 * q + j] = sq[j];
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < 2 * C; e += kThreads) {
+    const int k = e / C, c = e % C;
+    double v = 0.0;
+    for (int w = 0; w < phases; ++w) v += dsm[(w * 2 + k) * C + c];
+    ws[(size_t)blockIdx.x * 2 * C + e] = v;
+  }
 }
 
-template <typename T>
-cudaError_t reduce(const T* ws, int parts, int per, T* out,
-                   cudaStream_t stream) {
-  reduce_partials<T><<<(per + 255) / 256, 256, 0, stream>>>(ws, parts, per,
-                                                             out);
-  return cudaGetLastError();
+// For each (group, channel) of x2 (groups x S x C): the max over the S
+// slots of ReLU(x2·mul + add), the first slot that reaches it, and x2
+// there. A warp per (group, 128 channels), 4 channels a lane.
+__global__ void __launch_bounds__(kThreads) bn_final_kernel(
+    const float* __restrict__ x2, const float* __restrict__ mul,
+    const float* __restrict__ add, long long groups, int S, int C,
+    float* __restrict__ out, int* __restrict__ argmax,
+    float* __restrict__ at) {
+  const long long w = ((long long)blockIdx.x * kThreads + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  const int chunks = C / 128;
+  if (w >= groups * chunks) return;
+  const long long g = w / chunks;
+  const int c = (int)(w % chunks) * 128 + 4 * lane;
+  float m[4], a[4];
+  const float4 mm = ld4(mul + c), aa = ld4(add + c);
+  m[0] = mm.x, m[1] = mm.y, m[2] = mm.z, m[3] = mm.w;
+  a[0] = aa.x, a[1] = aa.y, a[2] = aa.z, a[3] = aa.w;
+  float best[4] = {-1.f, -1.f, -1.f, -1.f}, raw[4] = {0.f, 0.f, 0.f, 0.f};
+  int arg[4] = {0, 0, 0, 0};
+  const float* src = x2 + (size_t)g * S * C + c;
+#pragma unroll 8
+  for (int s = 0; s < S; ++s) {
+    const float4 v = ld4(src + (size_t)s * C);
+    const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float y = fmaxf(affine(e[j], m[j], a[j]), 0.0f);
+      if (y > best[j]) {  // strictly greater: the first slot keeps a tie
+        best[j] = y;
+        arg[j] = s;
+        raw[j] = e[j];
+      }
+    }
+  }
+  const size_t o = (size_t)g * C + c;
+  *reinterpret_cast<float4*>(out + o) =
+      make_float4(best[0], best[1], best[2], best[3]);
+  *reinterpret_cast<int4*>(argmax + o) = make_int4(arg[0], arg[1], arg[2],
+                                                   arg[3]);
+  *reinterpret_cast<float4*>(at + o) = make_float4(raw[0], raw[1], raw[2],
+                                                   raw[3]);
 }
+
+// d_x0 = s0 d_y0 - ca0 - cb0 (x0 r0 - mr0), in place of d_y0 (P x C)
+__global__ void __launch_bounds__(kThreads) bn_apply_kernel(
+    float* __restrict__ dy, const float* __restrict__ x0, const Layer L,
+    long long quads, int C) {
+  for (long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
+       e < quads; e += (long long)gridDim.x * kThreads) {
+    const int c = (int)((4 * e) % C);
+    const float4 d = reinterpret_cast<const float4*>(dy)[e];
+    const float4 x = ld4(x0 + 4 * e);
+    const float4 s = ld4(L.s + c), ca = ld4(L.ca + c), cb = ld4(L.cb + c);
+    const float4 r = ld4(L.r + c), mr = ld4(L.mr + c);
+    reinterpret_cast<float4*>(dy)[e] = make_float4(
+        grad_form(__fmul_rn(s.x, d.x), ca.x, cb.x, xhat(x.x, r.x, mr.x)),
+        grad_form(__fmul_rn(s.y, d.y), ca.y, cb.y, xhat(x.y, r.y, mr.y)),
+        grad_form(__fmul_rn(s.z, d.z), ca.z, cb.z, xhat(x.z, r.z, mr.z)),
+        grad_form(__fmul_rn(s.w, d.w), ca.w, cb.w, xhat(x.w, r.w, mr.w)));
+  }
+}
+
+// --------------------------------------------------------------------------
+// host side
 
 template <typename K>
 cudaError_t set_smem(K kernel, size_t bytes) {
@@ -486,146 +634,201 @@ cudaError_t set_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
-template <int DEPTH, int C3>
-cudaError_t launch_stats(const float* x0, const float* pk, const float* w1,
-                         const float* w2, long long tiles, int blocks,
-                         double* ws, double* sums, cudaStream_t stream) {
-  constexpr int CD = DEPTH == 0 ? C1 : DEPTH == 1 ? C2 : C3;
-  const size_t smem =
-      DEPTH == 0 ? (size_t)kWarps * 2 * CD * sizeof(double)
-                 : ((size_t)64 * (C1 + C2) + kKC * C3) * sizeof(float);
-  cudaError_t err = set_smem(bn_stats_kernel<DEPTH, C3>, smem);
+int sm_count() {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
+}
+
+bool width_ok(int c) { return c >= 128 && c % 128 == 0 && c <= kMaxWidth; }
+
+// layer l's seven vectors in the pack of widths (C1, C2, C3)
+Layer layer_of(const float* pk, int l, int C1, int C2, int C3) {
+  const int c = l == 0 ? C1 : l == 1 ? C2 : C3;
+  const float* b = pk + (l == 0 ? 0 : l == 1 ? 7 * C1 : 7 * (C1 + C2));
+  return Layer{b, b + c, b + 2 * c, b + 3 * c, b + 4 * c, b + 5 * c,
+               b + 6 * c};
+}
+
+// The blocks of a row product over P slots at output width N: two per SM
+int row_blocks(long long P, int N) {
+  const long long tiles = (P + kBM - 1) / kBM * (N / kBN);
+  return (int)std::min(tiles, 2LL * sm_count());
+}
+
+template <int PRO, int EPI>
+cudaError_t launch_row(const RowArgs& a, int blocks, double* sums,
+                       cudaStream_t stream) {
+  const size_t smem = row_smem_floats<PRO>() * sizeof(float)
+                      + 2 * (size_t)a.N * sizeof(double);
+  cudaError_t err = set_smem(bn_row_gemm<PRO, EPI>, smem);
   if (err != cudaSuccess) return err;
-  const long long per_block = (tiles + blocks - 1) / blocks;
-  bn_stats_kernel<DEPTH, C3><<<blocks, kThreads, smem, stream>>>(
-      x0, pk, w1, w2, tiles, per_block, ws);
+  bn_row_gemm<PRO, EPI><<<blocks, kThreads, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return reduce<double>(ws, blocks, 2 * CD, sums, stream);
+  return reduce<double>(a.ws, blocks, 2LL * a.N, sums, stream);
 }
 
-template <int C3>
-cudaError_t stats_depth(int depth, const float* x0, const float* pk,
-                        const float* w1, const float* w2, long long tiles,
-                        int blocks, double* ws, double* sums,
-                        cudaStream_t stream) {
-  if (depth == 0)
-    return launch_stats<0, C3>(x0, pk, w1, w2, tiles, blocks, ws, sums,
-                               stream);
-  if (depth == 1)
-    return launch_stats<1, C3>(x0, pk, w1, w2, tiles, blocks, ws, sums,
-                               stream);
-  return launch_stats<2, C3>(x0, pk, w1, w2, tiles, blocks, ws, sums, stream);
+// The splits of a weight-gradient product at output tiles ntile: about
+// two blocks per SM in all
+int dw_splits(long long P, int ntile) {
+  long long s = 2LL * sm_count() / ntile;
+  s = s < 1 ? 1 : s;
+  const long long most = (P + kBK - 1) / kBK;
+  return (int)(s < most ? s : most);
 }
 
-struct WaveArgs {
-  const float* x0;
-  const float* pk;
-  const float* w1;
-  const float* w2;
-  const float* w1t;
-  const float* w2t;
-  const float* dval;
-  const int* argmax;
-  float* dx0;
-  float* wsf;
-  double* wsd;
-  float* grads;
-  double* sums;
-};
-
-template <int WAVE, int S, int C3>
-cudaError_t launch_wave(const WaveArgs& a, long long groups, int blocks,
-                        cudaStream_t stream) {
-  constexpr int TR = wave_rows<WAVE, S, C3>();
-  const long long tiles = groups * (S / TR);
-  const size_t smem = wave_smem_floats<WAVE, S, C3>() * sizeof(float);
-  cudaError_t err = set_smem(bn_wave_kernel<WAVE, S, C3>, smem);
+template <int PRO>
+cudaError_t launch_dw(DwArgs a, int splits, float* grads,
+                      cudaStream_t stream) {
+  a.tiles_n = a.Nb / kBN;
+  a.ntile = (a.Ca / kBM) * a.tiles_n;
+  a.rows_per = ((a.P + splits - 1) / splits + kBK - 1) / kBK * kBK;
+  const size_t smem = dw_smem_floats<PRO>() * sizeof(float);
+  cudaError_t err = set_smem(bn_dw_gemm<PRO>, smem);
   if (err != cudaSuccess) return err;
-  const long long per_block = (tiles + blocks - 1) / blocks;
-  bn_wave_kernel<WAVE, S, C3><<<blocks, kThreads, smem, stream>>>(
-      a.x0, a.pk, a.w1, a.w2, a.w1t, a.w2t, a.dval, a.argmax, tiles,
-      per_block, a.dx0, a.wsf, a.wsd);
+  bn_dw_gemm<PRO><<<splits * a.ntile, kThreads, smem, stream>>>(a);
   err = cudaGetLastError();
-  if constexpr (WAVE == 3) return err;
   if (err != cudaSuccess) return err;
-  err = reduce<float>(a.wsf, blocks, 128 * dw_cols<WAVE, C3>(), a.grads,
-                      stream);
-  if (err != cudaSuccess) return err;
-  return reduce<double>(a.wsd, blocks, 2 * 128, a.sums, stream);
-}
-
-template <int S, int C3>
-cudaError_t wave_s(int wave, const WaveArgs& a, long long groups, int blocks,
-                   cudaStream_t stream) {
-  if (wave == 1) return launch_wave<1, S, C3>(a, groups, blocks, stream);
-  if (wave == 2) return launch_wave<2, S, C3>(a, groups, blocks, stream);
-  return launch_wave<3, S, C3>(a, groups, blocks, stream);
-}
-
-template <int C3>
-cudaError_t wave_c3(int wave, int S, const WaveArgs& a, long long groups,
-                    int blocks, cudaStream_t stream) {
-  if (S == 16) return wave_s<16, C3>(wave, a, groups, blocks, stream);
-  if (S == 32) return wave_s<32, C3>(wave, a, groups, blocks, stream);
-  return wave_s<64, C3>(wave, a, groups, blocks, stream);
-}
-
-bool shape_ok(int R, int M, int S, int C3, int blocks) {
-  return R >= 1 && M >= 1 && (S == 16 || S == 32 || S == 64)
-         && (C3 == 128 || C3 == 256) && blocks >= 1
-         && ((long long)M * S) % 64 == 0;
+  return reduce<float>(a.ws, splits, (long long)a.Ca * a.Nb, grads, stream);
 }
 
 }  // namespace
 
-// The statistics pass at `depth` (0, 1 or 2): x0 (R, M, S, 128) the slab,
-// pk the packs (7 x (128 + 128 + C3); layers before `depth` read, their mul
-// and add only), w1 (128, 128), w2 (128, C3) -> sums (2, C_depth) f64, the
-// per-channel sum and sum of squares of x_depth over every slot. ws holds
-// blocks x 2 x C_depth doubles; blocks is the caller's grid size (two per
-// SM at most is what fits), M * S a multiple of 64.
-extern "C" int tpu3d_fused_sa_bn_stats(const float* x0, const float* pk,
-                                       const float* w1, const float* w2,
-                                       int R, int M, int S, int C3, int depth,
-                                       int blocks, double* ws, double* sums,
+// The workspace each entry needs, in bytes: row products blocks x 2 x N
+// doubles; weight-gradient products splits x Ca x Nb floats; stats0 blocks
+// x 2 x C doubles. kind 0: stats0 over P slots of width C (N unused); 1: a
+// row product at output width N; 2: a weight gradient Ca = C, Nb = N.
+extern "C" long long tpu3d_fused_sa_bn_workspace(int kind, long long P,
+                                                 int C, int N) {
+  if (kind == 0) return (long long)row_blocks(P, 128) * 2 * C * 8;
+  if (kind == 1) return (long long)row_blocks(P, N) * 2 * N * 8;
+  return (long long)dw_splits(P, (C / kBM) * (N / kBN)) * C * N * 4;
+}
+
+// stats0: x0 (P x C1) -> sums (2 x C1) f64, the per-channel sum and sum of
+// squares over every slot.
+extern "C" int tpu3d_fused_sa_bn_stats0(const float* x0, long long P, int C1,
+                                        double* ws, double* sums,
+                                        void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (const int pending = tpu3d::pending_error(stream)) return pending;
+  if (P < 1 || !width_ok(C1)) return (int)cudaErrorInvalidValue;
+  const int blocks = row_blocks(P, 128);
+  const long long per_block = (P + blocks - 1) / blocks;
+  const int phases = kThreads / (C1 / 4);
+  const size_t smem = (size_t)(phases > 0 ? phases : 1) * 2 * C1 * 8;
+  bn_stats0_kernel<<<blocks, kThreads, smem, stream>>>(x0, P, C1, per_block,
+                                                       ws);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)reduce<double>(ws, blocks, 2LL * C1, sums, stream);
+}
+
+// A statistics pass's layer: y (P x N) = ReLU(x·mul + add) w, x (P x K),
+// mul and add K floats, w (K x N) -> y, sums (2 x N) f64 of y and y^2.
+extern "C" int tpu3d_fused_sa_bn_layer(const float* x, const float* mul,
+                                       const float* add, const float* w,
+                                       long long P, int K, int N, float* y,
+                                       double* ws, double* sums,
                                        void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (const int pending = tpu3d::pending_error(stream)) return pending;
-  if (!shape_ok(R, M, S, C3, blocks) || depth < 0 || depth > 2)
-    return (int)cudaErrorInvalidValue;
-  const long long tiles = (long long)R * M * S / 64;
-  if (blocks > tiles) return (int)cudaErrorInvalidValue;
-  if (C3 == 128)
-    return (int)stats_depth<128>(depth, x0, pk, w1, w2, tiles, blocks, ws,
-                                 sums, stream);
-  return (int)stats_depth<256>(depth, x0, pk, w1, w2, tiles, blocks, ws, sums,
-                               stream);
+  if (P < 1 || !width_ok(K) || !width_ok(N)) return (int)cudaErrorInvalidValue;
+  RowArgs a{};
+  a.A = x, a.B = w, a.Y = y, a.ws = ws, a.P = P, a.K = K, a.N = N, a.S = 1;
+  a.in.mul = mul, a.in.add = add;
+  a.tiles = (P + kBM - 1) / kBM * (N / kBN);
+  return (int)launch_row<kRelu, kStats>(a, row_blocks(P, N), sums, stream);
 }
 
-// Backward wave `wave` (1, 2 or 3): x0, pk, w1, w2 as the statistics pass
-// takes them (every vector of the pack read), w1t = W1^T, w2t = W2^T
-// (C3, 128), dval and argmax (R, M, C3). Wave 1 -> grads = dW2 (128 x C3),
-// sums = (sum d_y1, sum d_y1 x̂1) (2 x 128, f64); wave 2 -> grads = dW1
-// (128 x 128), sums = (sum d_y0, sum d_y0 x̂0); wave 3 -> dx0 (R, M, S,
-// 128). wsf holds blocks x 128 x C3 floats and wsd blocks x 256 doubles
-// (waves 1 and 2); blocks is the caller's grid size (one per SM fits).
-extern "C" int tpu3d_fused_sa_bn_bwd(const float* x0, const float* pk,
-                                     const float* w1, const float* w2,
-                                     const float* w1t, const float* w2t,
-                                     const float* dval, const int* argmax,
-                                     int R, int M, int S, int C3, int wave,
-                                     int blocks, float* dx0, float* wsf,
-                                     double* wsd, float* grads, double* sums,
-                                     void* stream_ptr) {
+// final: x2 (groups x S x C3), mul2 and add2 -> out, argmax, x2 at the
+// argmax, each (groups x C3).
+extern "C" int tpu3d_fused_sa_bn_final(const float* x2, const float* mul,
+                                       const float* add, long long groups,
+                                       int S, int C3, float* out, int* argmax,
+                                       float* at, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (const int pending = tpu3d::pending_error(stream)) return pending;
-  const long long groups = (long long)R * M;
-  if (!shape_ok(R, M, S, C3, blocks) || wave < 1 || wave > 3
-      || blocks > groups)
+  if (groups < 1 || S < 1 || !width_ok(C3)) return (int)cudaErrorInvalidValue;
+  const long long warps = groups * (C3 / 128);
+  bn_final_kernel<<<(unsigned)((warps + 7) / 8), kThreads, 0, stream>>>(
+      x2, mul, add, groups, S, C3, out, argmax, at);
+  return (int)cudaGetLastError();
+}
+
+// wave 1: x2 (P x C3), x1 (P x C2), the pack pk, w2t = W2^T (C3 x C2),
+// dval and argmax (groups x C3) -> dy1 (P x C2), sums (2 x C2) f64 of d_y1
+// and d_y1 x̂1, dw2 (C2 x C3). wsr, wsd: the row and the weight-gradient
+// products' workspaces.
+extern "C" int tpu3d_fused_sa_bn_wave1(const float* x2, const float* x1,
+                                       const float* pk, const float* w2t,
+                                       const float* dval, const int* argmax,
+                                       long long P, int S, int C1, int C2,
+                                       int C3, float* dy1, double* wsr,
+                                       double* sums, float* wsd, float* dw2,
+                                       void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (const int pending = tpu3d::pending_error(stream)) return pending;
+  if (P < 1 || S < 1 || P % S || !width_ok(C1) || !width_ok(C2)
+      || !width_ok(C3))
     return (int)cudaErrorInvalidValue;
-  const WaveArgs a{x0, pk, w1, w2, w1t, w2t, dval, argmax, dx0, wsf, wsd,
-                   grads, sums};
-  if (C3 == 128) return (int)wave_c3<128>(wave, S, a, groups, blocks, stream);
-  return (int)wave_c3<256>(wave, S, a, groups, blocks, stream);
+  const Layer l1 = layer_of(pk, 1, C1, C2, C3);
+  const Layer l2 = layer_of(pk, 2, C1, C2, C3);
+  RowArgs a{};
+  a.A = x2, a.B = w2t, a.E = x1, a.dval = dval, a.argmax = argmax;
+  a.in = l2, a.out = l1, a.Y = dy1, a.ws = wsr;
+  a.P = P, a.K = C3, a.N = C2, a.S = S;
+  a.tiles = (P + kBM - 1) / kBM * (C2 / kBN);
+  cudaError_t err = launch_row<kDx2, kDy>(a, row_blocks(P, C2), sums, stream);
+  if (err != cudaSuccess) return (int)err;
+  DwArgs d{};
+  d.A = x1, d.B = x2, d.dval = dval, d.argmax = argmax, d.la = l1, d.lb = l2;
+  d.ws = wsd, d.P = P, d.Ca = C2, d.Nb = C3, d.S = S;
+  return (int)launch_dw<kDx2>(
+      d, dw_splits(P, (C2 / kBM) * (C3 / kBN)), dw2, stream);
+}
+
+// wave 2: dy1 (P x C2), x1 (P x C2), x0 (P x C1), pk, w1t = W1^T (C2 x C1)
+// -> dy0 (P x C1), sums (2 x C1) f64 of d_y0 and d_y0 x̂0, dw1 (C1 x C2).
+extern "C" int tpu3d_fused_sa_bn_wave2(const float* dy1, const float* x1,
+                                       const float* x0, const float* pk,
+                                       const float* w1t, long long P, int C1,
+                                       int C2, int C3, float* dy0,
+                                       double* wsr, double* sums, float* wsd,
+                                       float* dw1, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (const int pending = tpu3d::pending_error(stream)) return pending;
+  if (P < 1 || !width_ok(C1) || !width_ok(C2) || !width_ok(C3))
+    return (int)cudaErrorInvalidValue;
+  const Layer l0 = layer_of(pk, 0, C1, C2, C3);
+  const Layer l1 = layer_of(pk, 1, C1, C2, C3);
+  RowArgs a{};
+  a.A = dy1, a.A2 = x1, a.B = w1t, a.E = x0, a.in = l1, a.out = l0;
+  a.Y = dy0, a.ws = wsr, a.P = P, a.K = C2, a.N = C1, a.S = 1;
+  a.tiles = (P + kBM - 1) / kBM * (C1 / kBN);
+  cudaError_t err = launch_row<kDx1, kDy>(a, row_blocks(P, C1), sums, stream);
+  if (err != cudaSuccess) return (int)err;
+  DwArgs d{};
+  d.A = x0, d.B = dy1, d.B2 = x1, d.la = l0, d.lb = l1;
+  d.ws = wsd, d.P = P, d.Ca = C1, d.Nb = C2, d.S = 1;
+  return (int)launch_dw<kDx1>(
+      d, dw_splits(P, (C1 / kBM) * (C2 / kBN)), dw1, stream);
+}
+
+// apply: d_x0 = s0 d_y0 - ca0 - cb0 x̂0 in place of dy0 (P x C1); pk the
+// pack, whose first layer (7 x C1) is read.
+extern "C" int tpu3d_fused_sa_bn_apply(float* dy0, const float* x0,
+                                       const float* pk, long long P, int C1,
+                                       void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (const int pending = tpu3d::pending_error(stream)) return pending;
+  if (P < 1 || !width_ok(C1)) return (int)cudaErrorInvalidValue;
+  const long long quads = P * C1 / 4;
+  const long long blocks = std::min((quads + kThreads - 1) / kThreads,
+                                    8LL * sm_count());
+  bn_apply_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(
+      dy0, x0, layer_of(pk, 0, C1, 128, 128), quads, C1);
+  return (int)cudaGetLastError();
 }

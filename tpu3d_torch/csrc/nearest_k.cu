@@ -71,6 +71,11 @@ constexpr int kThreads = 128;  // a block: one scene's kThreads / 32 centers
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 1024;    // brute form: points staged per tile
 constexpr int kSlack = 32;     // a list holds k + kSlack >= k + 32 hits
+// the most neighbours a center takes: its warp's list (k + kSlack + 1
+// entries of 8 bytes), the block's four lists and the brute form's tile of
+// points (12 KB) stay within the 48 KB of dynamic shared memory a launch
+// takes without an opt-in
+constexpr int kMaxK = 1024;
 constexpr unsigned kAll = 0xffffffffu;
 constexpr int kUnroll = 4;     // windowed rounds whose loads are in flight at once
 
@@ -339,7 +344,7 @@ extern "C" int tpu3d_nearest_k(const float* centers, const float* pts,
                                int* idx, float* xyz, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (const int pending = tpu3d::pending_error(stream)) return pending;
-  if (B < 1 || B > 65535 || M < 1 || N < 1 || k < 1 || k > 64 ||
+  if (B < 1 || B > 65535 || M < 1 || N < 1 || k < 1 || k > kMaxK ||
       (zs == nullptr) != (order == nullptr))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((M + kWarps - 1) / kWarps, B);

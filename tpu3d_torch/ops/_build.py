@@ -4,9 +4,8 @@ Each ``tpu3d_torch/csrc/<source>.cu`` is compiled by ``nvcc`` into its own
 shared library with a plain C interface, at first use, and loaded with
 ``ctypes``; a source may hold the entry points of several kernels (the
 eval and the training forward of ``fused_sa``, each in its gather and its
-slab form, and the final pass of the BatchNorm chain's training forward;
-the two forms of the backward in ``fused_sa_bwd``; the BatchNorm chain's
-statistics passes and backward waves in ``fused_sa_bn``; FPS+3NN and the
+slab form; the routed backward of both forms in ``fused_sa_bwd``; the
+BatchNorm chain's training passes in ``fused_sa_bn``; FPS+3NN and the
 long-row FPS alone in ``fps3nn``). Each source names its own ``nvcc``
 flags. The library's file name carries a hash of its source, the
 shared headers (``csrc/*.cuh``) and its flags, so an edited source is
@@ -24,8 +23,7 @@ kernel launched before it; otherwise the entry returns
 not 0. ``LAUNCHES`` counts, per kernel, the calls that launched it; only the
 wrappers add to it, at the launch. Several counters may share one C entry
 where it replaces several TPU kernels (``fused_sa_slab`` and
-``fused_sa_slab_bn``; the three statistics passes; the three backward
-waves).
+``fused_sa_slab_bn``; the BatchNorm chain's statistics passes 1 and 2).
 """
 
 from __future__ import annotations
@@ -72,8 +70,8 @@ KERNELS = {
                        [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P, P, P,
                         P]),
     "fused_sa_bwd": ("fused_sa_bwd", "tpu3d_fused_sa_bwd",
-                     [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P, P, P,
-                      P, P]),
+                     [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P,
+                      P, P, P, P, P]),
     "fused_sa_slab": ("fused_sa", "tpu3d_fused_sa_slab",
                       [P, P, P, P, I, I, I, I, I, I, P, P]),
     "fused_sa_slab_bn": ("fused_sa", "tpu3d_fused_sa_slab",
@@ -81,19 +79,25 @@ KERNELS = {
     "fused_sa_slab_train": ("fused_sa", "tpu3d_fused_sa_slab_train",
                             [P, P, P, P, I, I, I, I, I, I, P, P, P, P]),
     "fused_sa_slab_bwd": ("fused_sa_bwd", "tpu3d_fused_sa_slab_bwd",
-                          [P, P, P, P, P, P, P, I, I, I, I, I, P, P, P, P]),
-    # the BatchNorm chain's training: three statistics passes and three
-    # backward waves, each pass counted apart on its shared C entry, and the
-    # final forward pass on the slab training kernel
-    **{f"fused_sa_bn_stats{d}": ("fused_sa_bn", "tpu3d_fused_sa_bn_stats",
-                                 [P, P, P, P, I, I, I, I, I, I, P, P, P])
-       for d in range(3)},
-    "fused_sa_bn_final": ("fused_sa", "tpu3d_fused_sa_slab_bn_train",
-                          [P, P, P, P, I, I, I, I, I, I, P, P, P, P]),
-    **{name: ("fused_sa_bn", "tpu3d_fused_sa_bn_bwd",
-              [P, P, P, P, P, P, P, P, I, I, I, I, I, I, P, P, P, P, P, P])
-       for name in ("fused_sa_bn_wave1", "fused_sa_bn_wave2",
-                    "fused_sa_bn_apply")},
+                          [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P, P, P,
+                           P, P]),
+    # the BatchNorm chain's training: three statistics passes (the last two
+    # on one C entry, each counted apart), the final reduction, two backward
+    # waves and the elementwise pass
+    "fused_sa_bn_stats0": ("fused_sa_bn", "tpu3d_fused_sa_bn_stats0",
+                           [P, L, I, P, P, P]),
+    **{f"fused_sa_bn_stats{d}": ("fused_sa_bn", "tpu3d_fused_sa_bn_layer",
+                                 [P, P, P, P, L, I, I, P, P, P, P])
+       for d in (1, 2)},
+    "fused_sa_bn_final": ("fused_sa_bn", "tpu3d_fused_sa_bn_final",
+                          [P, P, P, L, I, I, P, P, P, P]),
+    "fused_sa_bn_wave1": ("fused_sa_bn", "tpu3d_fused_sa_bn_wave1",
+                          [P, P, P, P, P, P, L, I, I, I, I, P, P, P, P, P,
+                           P]),
+    "fused_sa_bn_wave2": ("fused_sa_bn", "tpu3d_fused_sa_bn_wave2",
+                          [P, P, P, P, P, L, I, I, I, P, P, P, P, P, P]),
+    "fused_sa_bn_apply": ("fused_sa_bn", "tpu3d_fused_sa_bn_apply",
+                          [P, P, P, L, I, P]),
 }
 # extra nvcc flags of each source
 SOURCE_FLAGS = {"fps3nn": EXACT, "nearest_k": EXACT, "three_nn": EXACT,

@@ -14,12 +14,16 @@ Each no-BN op runs, for CUDA tensors, its eval kernel in ``csrc/fused_sa.cu``
 when no gradient is needed, and otherwise a ``torch.autograd.Function``
 whose forward is the training kernel of the same source (it also keeps
 each pooled channel's first argmax slot and the pre-ReLU value there) and
-whose backward is ``csrc/fused_sa_bwd.cu``. The BatchNorm op at eval is the
-slab eval kernel alone; in training a ``torch.autograd.Function`` whose
-forward is three statistics passes (``csrc/fused_sa_bn.cu``) and the slab
-training kernel on the batch statistics, and whose backward is three waves
-(``csrc/fused_sa_bn.cu``), each pass a counted kernel. For CPU tensors each
-runs its plain version, or the plain training form under autograd. All
+whose backward is the routed kernel of ``csrc/fused_sa_bwd.cu`` (one kernel
+for both forms). The BatchNorm op at eval is the slab eval kernel alone; in
+training a ``torch.autograd.Function`` whose forward is three statistics
+passes (the last two writing x1 and x2 to device memory) and a final
+reduction over the stored x2, and whose backward is two waves and an
+elementwise pass, each computing every product once from the stored slabs
+(``csrc/fused_sa_bn.cu``), each pass a counted kernel. The kernels take
+every shape tpu3d's ``fused_sa_supported`` admits (``kernels_take``). For
+CPU tensors each runs its plain version, or the plain training form under
+autograd. All
 compute in f32 (the TPU kernels round to bf16 at their layer boundaries),
 so they are held to tpu3d's CPU path, which is f32 too. The max-pool's
 gradient goes to the first slot that reaches the max, as tpu3d's kernels
@@ -33,11 +37,12 @@ form), and the BatchNorm chain's training kernels ``_stats0_kernel``,
 ``_fwd_stats1_kernel``, ``_fwd_stats2_kernel``, ``_fwd_final_kernel``,
 ``_bwd_wave1_kernel``, ``_bwd_wave2_kernel`` and ``_bwd_apply_kernel``.
 The two Dense layers make them bound by operations; one block per (row,
-center) loads its S x C1 group into shared memory (gathered, or read from
-the slab), and the backward walks many groups per block, summing the
-weight gradients in registers and shared memory before one write per
-block; the BatchNorm chain's passes walk tiles of slots the same way and
-sum their per-channel reductions in f64 per block.
+center) loads its group into shared memory a chunk of slots at a time
+(gathered, or read from the slab), and the backward walks the reached slots
+of many groups per block, summing the weight gradients in registers, shared
+memory or the block's own workspace slice before one reduction in block
+order; the BatchNorm chain's products are register-tiled over flat tiles of
+slots and sum their per-channel reductions in f64 per block.
 The slab kernel takes each layer as a per-channel affine (mul, add) between
 two Dense layers, a_l = ReLU(x_l·mul_l + add_l): mul = 1 and add = (0, b1,
 b2) without BatchNorm, the folded running statistics with it.
@@ -45,7 +50,9 @@ b2) without BatchNorm, the folded running statistics with it.
 
 from __future__ import annotations
 
+import bisect
 import ctypes
+import itertools
 
 import torch
 
@@ -166,7 +173,8 @@ def pack_tiles(counts, per_block: int | None = None,
                tile: int = BWD_TILE) -> list[list[int]]:
     """The backward kernel's packing of groups into tiles: ``counts`` are
     the groups' reached-slot counts (at most ``tile`` each), taken in order
-    in runs of ``per_block`` groups (a block's run; all of them by default);
+    in runs of ``per_block`` groups (a block's run, ``block_runs``; all of
+    them by default);
     a group with no reached slot takes no row, and a group that does not fit
     the rows left in the tile starts the next one, so no group is split.
     -> the tiles, each a list of group indices."""
@@ -189,21 +197,36 @@ def pack_tiles(counts, per_block: int | None = None,
     return tiles
 
 
-def _routed_rows(pre, idx, center, w1, b1, w2, dval, argmax):
-    """The routed backward on a chunk of rows -> (d_pre, d_center, dW1,
-    db1, dW2ᵀ) of the chunk."""
-    R, M, S = idx.shape
-    C1, C3 = pre.shape[2], w2.shape[1]
-    G = R * M
-    reached = reached_slots(dval, argmax, S)
-    # the reached rows in the kernel's order (group, then slot), and each
-    # (group, slot)'s row
-    g_row, s_row = reached.nonzero(as_tuple=True)
-    row_of = torch.full((G, S), -1, dtype=torch.long, device=pre.device)
-    row_of[g_row, s_row] = torch.arange(g_row.numel(), device=pre.device)
-    batch = g_row // M
-    point = idx.reshape(G, S)[g_row, s_row].long()
-    x0 = pre[batch, point] - center.reshape(G, C1)[g_row]
+def block_runs(counts, blocks: int, tile: int = BWD_TILE) -> list[range]:
+    """The backward kernel's split of the groups among its ``blocks``
+    blocks: ``counts`` the groups' reached-slot counts; each block that
+    takes part takes a contiguous run of whole groups, cut where the rows
+    before it reach a multiple of target = max(``tile``, ⌈total / blocks⌉)
+    rows, so that a small problem runs on a few blocks of whole tiles and
+    the blocks past the rows take none. -> the runs of group indices, one
+    per block that takes part."""
+    counts = [int(c) for c in counts]
+    total = sum(counts)
+    target = max(tile, -(-total // blocks))
+    active = -(-total // target)
+    cum = list(itertools.accumulate(counts))
+
+    def cut(k):  # the first group whose rows before it reach k·target
+        at = k * target
+        return 0 if at <= 0 else min(bisect.bisect_left(cum, at) + 1,
+                                     len(counts))
+
+    return [range(cut(k), cut(k + 1) if k + 1 < active else len(counts))
+            for k in range(active)]
+
+
+def _routed_core(x0, g_row, s_row, w1, b1, w2, dval, argmax, S):
+    """The routed backward's arithmetic on the reached rows x0 (the
+    pre-ReLU layer-0 input of each reached (group g_row, slot s_row), in the
+    kernel's order) -> (d_x0 of those rows, dW1, db1, dW2ᵀ)."""
+    G, C3 = dval.shape[0] * dval.shape[1], w2.shape[1]
+    row_of = torch.full((G, S), -1, dtype=torch.long, device=x0.device)
+    row_of[g_row, s_row] = torch.arange(g_row.numel(), device=x0.device)
     a0 = torch.relu(x0)
     x1 = a0 @ w1 + b1
     a1 = torch.relu(x1)
@@ -213,16 +236,32 @@ def _routed_rows(pre, idx, center, w1, b1, w2, dval, argmax):
     r_ch = row_of[g_ch, argmax.reshape(G, C3)[g_ch, c_ch].long()]
     d_ch = flat_dval[g_ch, c_ch]
     d_a1 = torch.zeros_like(a1).index_add_(0, r_ch, d_ch[:, None] * w2.T[c_ch])
-    dw2t = torch.zeros(C3, w2.shape[0], dtype=pre.dtype, device=pre.device)
+    dw2t = torch.zeros(C3, w2.shape[0], dtype=x0.dtype, device=x0.device)
     dw2t.index_add_(0, c_ch, a1[r_ch] * d_ch[:, None])
     d_x1 = torch.where(x1 > 0, d_a1, 0.0)
     d_x0 = torch.where(x0 > 0, d_x1 @ w1.T, 0.0)
+    return d_x0, a0.T @ d_x1, d_x1.sum(dim=0), dw2t
+
+
+def _routed_rows(pre, idx, center, w1, b1, w2, dval, argmax):
+    """The routed backward of the gather form on a chunk of rows -> (d_pre,
+    d_center, dW1, db1, dW2ᵀ) of the chunk."""
+    R, M, S = idx.shape
+    C1 = pre.shape[2]
+    G = R * M
+    reached = reached_slots(dval, argmax, S)
+    # the reached rows in the kernel's order (group, then slot)
+    g_row, s_row = reached.nonzero(as_tuple=True)
+    batch = g_row // M
+    point = idx.reshape(G, S)[g_row, s_row].long()
+    x0 = pre[batch, point] - center.reshape(G, C1)[g_row]
+    d_x0, dw1, db1, dw2t = _routed_core(x0, g_row, s_row, w1, b1, w2, dval,
+                                        argmax, S)
     d_pre = torch.zeros_like(pre)
     d_pre.index_put_((batch, point), d_x0, accumulate=True)
     d_center = torch.zeros(G, C1, dtype=pre.dtype, device=pre.device)
     d_center.index_add_(0, g_row, -d_x0)
-    return (d_pre, d_center.view(R, M, C1), a0.T @ d_x1, d_x1.sum(dim=0),
-            dw2t)
+    return d_pre, d_center.view(R, M, C1), dw1, db1, dw2t
 
 
 @torch.no_grad()
@@ -260,7 +299,83 @@ def _check_tensors(*named):
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _check(pre, idx, center, w1, b1, w2, b2):
+# Shapes the kernels take. These mirror the launch plans in csrc/: the
+# forward's chunk rows (fused_sa.cu::rows_per_warp), the backward's tile
+# (fused_sa_bwd.cu::plan_launch) and the BatchNorm chain's widths
+# (fused_sa_bn.cu), all against the shared memory a block may use.
+SMEM_MAX = 232448  # bytes of shared memory a block may use on sm_90
+BN_MAX_WIDTH = 1024  # the widest layer of the BatchNorm chain's training form
+_KC, _WARPS = 32, 8  # weight rows per staged slice; warps per block
+# the backward's two tile plans, its scan of eight parts and its static part
+# range
+_PLAN_BYTES = 2 * 1424 + 12 * _WARPS + 16
+
+
+def forward_rows_per_warp(S: int, C1: int, C2: int, C3: int) -> int:
+    """The forward kernel's chunk rows per warp at (S, C1, C2, C3): 8
+    (64-slot chunks) for S > 32, else the fewest that hold S, halved while
+    the chunk's x0 and a1 overflow shared memory; 0 where even one row per
+    warp does not fit."""
+    tm = 8 if S > 32 else 4 if S > 16 else 2 if S > 8 else 1
+    ct3 = 256 if C3 % 256 == 0 else 128
+    while tm >= 1:
+        floats = _WARPS * tm * (C1 + C2) + (_KC + _WARPS) * ct3
+        if 4 * floats <= SMEM_MAX:
+            return tm
+        tm //= 2
+    return 0
+
+
+def _bwd_smem(tm, nbuf, c1, c2, c3, dw2_shared):
+    T = 8 * tm
+    da = max(T * max(c1, c2), T * 128 + _KC * 128 if c1 > 128 else _KC * 128)
+    scratch = _KC * 128 + T * 64
+    floats = nbuf * T * c1 + T * c2 + da
+    if not (c2 == 128 and da >= scratch):
+        floats += scratch
+    if dw2_shared:
+        floats += c3 * c2
+    return _PLAN_BYTES + 4 * floats
+
+
+def backward_plan(C1: int, C2: int, C3: int):
+    """The backward kernel's (tile rows per warp, tile buffers, dW2 in
+    shared memory) at these widths, or None where no tile fits."""
+    for nbuf in (2, 1):
+        if _bwd_smem(8, nbuf, C1, C2, C3, True) <= SMEM_MAX:
+            return 8, nbuf, True
+    for tm in (8, 4, 2, 1):
+        for nbuf in (2, 1):
+            if _bwd_smem(tm, nbuf, C1, C2, C3, False) <= SMEM_MAX:
+                return tm, nbuf, False
+    return None
+
+
+def kernels_take(S: int, C1: int, C2: int, C3: int, form: str = "gather",
+                 train: bool = True) -> bool:
+    """Whether the CUDA kernels of a fused form take a level of S slots per
+    group and widths C1 -> C2 -> C3: ``form`` "gather", "slab" or "bn" (the
+    slab form with BatchNorm), ``train`` its training form (the backward's
+    or the BatchNorm chain's kernels) beside the eval forward. Any R and M
+    (R·M below 2^31). The forward takes S a positive multiple of 8, C1 a
+    multiple of 4, C2 and C3 multiples of 128, while one row per warp of x0
+    and a1 fits in shared memory (C1 + C2 up to 5888); the backward C1 a
+    multiple of 128 too, while its smallest tile fits (C1 = C2 = C3 up to
+    2176); the BatchNorm chain's training form every width a
+    multiple of 128 up to ``BN_MAX_WIDTH``. Every shape tpu3d's
+    ``fused_sa_supported`` admits with widths up to 1024 passes."""
+    if (S < 8 or S % 8 or C1 < 4 or C1 % 4 or C2 < 128 or C2 % 128
+            or C3 < 128 or C3 % 128 or not forward_rows_per_warp(S, C1, C2,
+                                                                   C3)):
+        return False
+    if not train:
+        return True
+    if form == "bn":
+        return all(c % 128 == 0 and c <= BN_MAX_WIDTH for c in (C1, C2, C3))
+    return C1 % 128 == 0 and backward_plan(C1, C2, C3) is not None
+
+
+def _check(pre, idx, center, w1, b1, w2, b2, train=False):
     """Raise unless the CUDA kernels take these tensors; -> (R, N, M, S, C1,
     C2, C3)."""
     _check_tensors((pre, "pre", 3), (center, "center", 3), (w1, "w1", 2),
@@ -277,12 +392,10 @@ def _check(pre, idx, center, w1, b1, w2, b2):
             f"{tuple(idx.shape)}, center {tuple(center.shape)}, w1 "
             f"{tuple(w1.shape)}, b1 {tuple(b1.shape)}, w2 {tuple(w2.shape)}, "
             f"b2 {tuple(b2.shape)}")
-    if (S not in (16, 32, 64) or C1 % 4 or not 4 <= C1 <= 256
-            or C2 not in (128, 256) or C3 not in (128, 256) or R > 65535):
+    if not kernels_take(S, C1, C2, C3, "gather", train) or R * M >= 2 ** 31:
         raise ValueError(
-            f"fused_sa takes S in (16, 32, 64), C1 % 4 == 0 and C1 <= 256, "
-            f"C2 and C3 in (128, 256), R <= 65535; got R={R}, S={S}, "
-            f"C1={C1}, C2={C2}, C3={C3}")
+            f"the fused_sa kernels do not take R={R}, M={M}, S={S}, C1={C1}, "
+            f"C2={C2}, C3={C3} (kernels_take)")
     return R, N, M, S, C1, C2, C3
 
 
@@ -318,20 +431,37 @@ def fused_gathered_mlp_pool_train(pre, idx, center, w1, b1, w2, b2):
                            train=True)
 
 
-def _bwd_blocks(groups: int) -> int:
+def _bwd_blocks(groups: int, c1: int, c2: int, c3: int) -> int:
+    """The backward kernel's block count for ``groups`` groups at these
+    widths (about four per SM, fewer where their workspace slices would pass
+    512 MiB)."""
     fn = _build.library("fused_sa_bwd").tpu3d_fused_sa_bwd_blocks
-    fn.argtypes, fn.restype = [ctypes.c_longlong], ctypes.c_int
-    return fn(groups)
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(groups, c1, c2, c3)
+
+
+def _bwd_scratch(groups: int, S: int, c1: int, c2: int, c3: int, device):
+    """The backward's plan scratch (masks, prefix sums, counts: 24 bytes a
+    (group, segment))."""
+    fn = _build.library("fused_sa_bwd").tpu3d_fused_sa_bwd_scratch
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_longlong
+    return torch.empty(fn(groups, S, c1, c2, c3), dtype=torch.uint8,
+                       device=device)
 
 
 def _launch_backward(kernel, head, dims, outs, w1, b1, w2, grad, argmax,
                      ppre):
     """Launch the backward ``kernel`` of either form. ``head`` are the form's
-    leading input tensors, ``dims`` its sizes (R, ..., M, S, C3), ``outs``
-    the input gradients it writes; both forms then take W1, W1ᵀ, b1, W2ᵀ,
-    dval, argmax, the block count and the workspace of the deterministic
-    block-partials reduction. -> (dW1, db1, dW2, db2)."""
-    R, M = dims[0], dims[-3]
+    leading input tensors, ``dims`` its sizes (R, ..., M, S), ``outs`` the
+    input gradients it writes; both forms then take W1, W1ᵀ, b1, W2ᵀ, dval,
+    argmax, the widths, the block count, the workspace of the deterministic
+    block-partials reduction and the plan's scratch. -> (dW1, db1, dW2,
+    db2)."""
+    R, M, S = dims[0], dims[-2], dims[-1]
     C1, C2, C3 = w1.shape[0], w1.shape[1], w2.shape[1]
     for t, name in ((grad, "grad"), (ppre, "ppre")):
         _build.check_cuda_tensor(t, name, torch.float32, 3)
@@ -343,15 +473,16 @@ def _launch_backward(kernel, head, dims, outs, w1, b1, w2, grad, argmax,
     dval = torch.where(ppre > 0, grad, 0.0)
     w1t = w1.t().contiguous()
     w2t = w2.t().contiguous()
-    blocks = _bwd_blocks(R * M)
+    blocks = _bwd_blocks(R * M, C1, C2, C3)
     per = C1 * C2 + C3 * C2 + C2
     ws = torch.empty(blocks, per, dtype=torch.float32, device=grad.device)
     sums = torch.empty(per, dtype=torch.float32, device=grad.device)
+    scratch = _bwd_scratch(R * M, S, C1, C2, C3, grad.device)
     _build.launch(kernel, *(t.data_ptr() for t in head), w1.data_ptr(),
                   w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(),
-                  dval.data_ptr(), argmax.data_ptr(), *dims, blocks,
-                  *(t.data_ptr() for t in outs), ws.data_ptr(),
-                  sums.data_ptr())
+                  dval.data_ptr(), argmax.data_ptr(), *dims, C1, C2, C3,
+                  blocks, *(t.data_ptr() for t in outs), ws.data_ptr(),
+                  scratch.data_ptr(), sums.data_ptr())
     return (sums[:C1 * C2].view(C1, C2), sums[C1 * C2 + C3 * C2:],
             sums[C1 * C2:C1 * C2 + C3 * C2].view(C3, C2).t(),
             dval.sum(dim=(0, 1)))
@@ -361,28 +492,24 @@ def fused_gathered_mlp_pool_backward(pre, idx, center, w1, b1, w2, b2, grad,
                                      argmax, ppre):
     """The backward alone, from the output gradient and the training
     forward's argmax and ppre -> (d_pre, d_center, dW1, db1, dW2, db2). The
-    kernel for CUDA tensors (C1 = C2 = 128, C3 128 or 256; other widths
-    raise), else the plain version by autograd."""
+    routed kernel for CUDA tensors (at the shapes ``kernels_take`` admits;
+    others raise), else the plain version by autograd."""
     if pre.device.type == "cpu":
         return fused_gathered_mlp_pool_backward_plain(pre, idx, center, w1,
                                                       b1, w2, b2, grad)
-    R, N, M, S, C1, C2, C3 = _check(pre, idx, center, w1, b1, w2, b2)
-    if C1 != 128 or C2 != 128:
-        raise ValueError(f"the fused_sa backward kernel takes C1 = C2 = 128, "
-                         f"got C1={C1}, C2={C2}")
+    R, N, M, S, C1, C2, C3 = _check(pre, idx, center, w1, b1, w2, b2,
+                                    train=True)
     d_pre = torch.zeros_like(pre)
     d_center = torch.empty_like(center)
     return (d_pre, d_center, *_launch_backward(
-        "fused_sa_bwd", (pre, idx, center), (R, N, M, S, C3),
+        "fused_sa_bwd", (pre, idx, center), (R, N, M, S),
         (d_pre, d_center), w1, b1, w2, grad, argmax, ppre))
 
 
 class _FusedGatheredMLPPool(torch.autograd.Function):
     @staticmethod
     def forward(ctx, pre, idx, center, w1, b1, w2, b2):
-        if w1.shape != (128, 128):
-            raise ValueError(f"the fused_sa backward kernel takes C1 = C2 = "
-                             f"128, got w1 {tuple(w1.shape)}")
+        _check(pre, idx, center, w1, b1, w2, b2, train=True)
         out, argmax, ppre = fused_gathered_mlp_pool_train(
             pre, idx, center, w1, b1, w2, b2)
         ctx.save_for_backward(pre, idx, center, w1, b1, w2, b2, argmax, ppre)
@@ -418,10 +545,11 @@ def fused_gathered_mlp_pool(pre: torch.Tensor, idx: torch.Tensor,
 
     Differentiable in every input but idx, with the max-pool's gradient on
     the first slot that reaches the max. The CUDA kernels take f32 tensors
-    with S in (16, 32, 64), C1 a multiple of 4 up to 256, C2 and C3 each 128
-    or 256, R <= 65535, and ids in [0, N) (an id outside stops the kernel
-    with a device fault); the backward kernel takes C1 = C2 = 128. A CUDA
-    tensor outside that raises.
+    at the shapes ``kernels_take`` admits (S a multiple of 8, C2 and C3
+    multiples of 128, C1 a multiple of 4, of 128 for the backward; every
+    shape tpu3d's ``fused_sa_supported`` admits), and ids in [0, N) (an id
+    outside stops the kernel with a device fault). A CUDA tensor outside
+    that raises.
     """
     return _dispatch((pre, idx, center, w1, b1, w2, b2),
                      fused_gathered_mlp_pool_plain,
@@ -546,32 +674,64 @@ def fused_mlp_pool_backward_plain(x0, w1, b1, w2, b2, grad, argmax, ppre):
         return torch.autograd.grad(sel, leaves, dval)
 
 
-def _check_slab(x0, packs, w1, w2, vecs=2):
-    """Raise unless the slab kernels take these tensors, ``packs`` holding
-    ``vecs`` per-channel vectors of each layer; -> (R, M, S, C3)."""
+@torch.no_grad()
+def fused_mlp_pool_backward_routed_plain(x0, w1, b1, w2, b2, grad, argmax,
+                                         ppre):
+    """Plain PyTorch version of the slab form's backward kernel, the routed
+    walk: the gradients for ``grad``, routed by the training forward's
+    ``argmax`` where ``ppre`` > 0, over the reached slots alone
+    (``reached_slots``), a chunk of rows at a time -> (d_x0, dW1, db1, dW2,
+    db2). Layer 1 is recomputed on the reached rows only; d_a1 and dW2 take
+    each live channel's dval at its argmax row; every other slab row's
+    gradient is 0. With the plain training forward's argmax and ppre it
+    equals ``fused_mlp_pool_backward_plain``."""
+    R, M, S, C1 = x0.shape
+    dval = torch.where(ppre > 0, grad, 0.0)
+    d_x0 = torch.zeros_like(x0)
+    dw1, db1 = torch.zeros_like(w1), torch.zeros_like(b1)
+    dw2t = torch.zeros_like(w2.T)
+    for rows in _row_chunks(R, M, S, max(w1.shape[1], w2.shape[1])):
+        x, dv, arg = x0[rows], dval[rows], argmax[rows]
+        g_row, s_row = reached_slots(dv, arg, S).nonzero(as_tuple=True)
+        flat = x.reshape(-1, S, C1)
+        d_rows, *parts = _routed_core(flat[g_row, s_row], g_row, s_row, w1,
+                                      b1, w2, dv, arg, S)
+        d_flat = d_x0[rows].reshape(-1, S, C1)
+        d_flat[g_row, s_row] = d_rows
+        d_x0[rows] = d_flat.view(x.shape)
+        dw1 += parts[0]
+        db1 += parts[1]
+        dw2t += parts[2]
+    return d_x0, dw1, db1, dw2t.T, dval.sum(dim=(0, 1))
+
+
+def _check_slab(x0, packs, w1, w2, train=False):
+    """Raise unless the slab kernels take these tensors (``packs`` the
+    forward's [mul | add] of each layer); -> (R, M, S, C1, C2, C3)."""
     _check_tensors((x0, "x0", 4), (packs, "packs", 1), (w1, "w1", 2),
                    (w2, "w2", 2))
     R, M, S, C1 = x0.shape
-    C3 = w2.shape[1]
-    if (w1.shape != (128, 128) or w2.shape[0] != 128 or C1 != 128
-            or C3 not in (128, 256) or packs.shape != (vecs * (256 + C3),)
-            or S not in (16, 32, 64) or R > 65535):
+    C2, C3 = w1.shape[1], w2.shape[1]
+    if (w1.shape[0] != C1 or w2.shape[0] != C2
+            or packs.shape != (2 * (C1 + C2 + C3),)):
         raise ValueError(
-            f"fused_sa_slab takes x0 (R <= 65535, M, S in (16, 32, 64), 128),"
-            f" w1 (128, 128), w2 (128, C3 in (128, 256)), packs "
-            f"({vecs} (256 + C3),); got x0 {tuple(x0.shape)}, w1 "
+            f"fused_sa_slab shapes disagree: x0 {tuple(x0.shape)}, w1 "
             f"{tuple(w1.shape)}, w2 {tuple(w2.shape)}, packs "
             f"{tuple(packs.shape)}")
-    return R, M, S, C3
+    if not kernels_take(S, C1, C2, C3, "slab", train) or R * M >= 2 ** 31:
+        raise ValueError(
+            f"the fused_sa slab kernels do not take R={R}, M={M}, S={S}, "
+            f"C1={C1}, C2={C2}, C3={C3} (kernels_take)")
+    return R, M, S, C1, C2, C3
 
 
 def _slab_forward(kernel, x0, packs, w1, w2, train=False):
     """Launch a forward kernel of the slab form -> ``_pooled``'s
     outputs."""
-    R, M, S, C3 = _check_slab(x0, packs, w1, w2)
+    R, M, S, C1, C2, C3 = _check_slab(x0, packs, w1, w2)
     outs = _pooled(R, M, C3, x0.device, train)
     _build.launch(kernel, x0.data_ptr(), packs.data_ptr(), w1.data_ptr(),
-                  w2.data_ptr(), R, M, S, 128, 128, C3,
+                  w2.data_ptr(), R, M, S, C1, C2, C3,
                   *(t.data_ptr() for t in outs))
     return outs
 
@@ -590,15 +750,18 @@ def fused_mlp_pool_train(x0, w1, b1, w2, b2):
 def fused_mlp_pool_backward(x0, w1, b1, w2, b2, grad, argmax, ppre):
     """The slab form's backward alone, from the output gradient and the
     training forward's argmax and ppre -> (d_x0, dW1, db1, dW2, db2): the
-    kernel for CUDA tensors, else the plain version."""
+    routed kernel for CUDA tensors (the gather form's walk, reading the
+    reached slots' slab rows; every other row's gradient 0), else the plain
+    version."""
     if x0.device.type == "cpu":
         return fused_mlp_pool_backward_plain(x0, w1, b1, w2, b2, grad,
                                              argmax, ppre)
     _check_tensors((b1, "b1", 1), (b2, "b2", 1))
-    R, M, S, C3 = _check_slab(x0, nobn_packs(128, b1, b2), w1, w2)
+    R, M, S, *_ = _check_slab(x0, nobn_packs(x0.shape[-1], b1, b2), w1, w2,
+                              train=True)
     d_x0 = torch.empty_like(x0)
     return (d_x0, *_launch_backward(
-        "fused_sa_slab_bwd", (x0,), (R, M, S, C3), (d_x0,), w1, b1, w2,
+        "fused_sa_slab_bwd", (x0,), (R, M, S), (d_x0,), w1, b1, w2,
         grad, argmax, ppre))
 
 
@@ -626,8 +789,8 @@ def fused_mlp_pool(x0: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     table the gather form does not take. Differentiable in every input,
     with the max-pool's gradient on the first slot that reaches the max.
     The CUDA kernels read x0 in place as (R, M·S, C1), and take f32
-    tensors with C1 = C2 = 128, C3 128 or 256, S in (16, 32, 64) and
-    R <= 65535; a CUDA tensor outside that raises.
+    tensors at the shapes ``kernels_take`` admits (every shape tpu3d's
+    ``fused_sa_supported`` admits); a CUDA tensor outside that raises.
     """
     return _dispatch((x0, w1, b1, w2, b2), fused_mlp_pool_plain,
                      fused_mlp_pool_train_plain, _FusedMLPPool,
@@ -639,16 +802,15 @@ def fused_mlp_pool(x0: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 # --------------------------------------------------------------------------
 # the BatchNorm chain: [BN -> ReLU -> Dense] x2 -> BN -> ReLU -> max over S,
 # at eval with the running statistics folded into the slab kernel's packs,
-# in training with the batch's statistics (four forward passes over the
-# slab, three backward waves)
+# in training with the batch's statistics: three statistics passes (the
+# last two writing x1 and x2) and a final reduction forward, two waves and
+# an elementwise pass backward, every product once
 # --------------------------------------------------------------------------
 
 # the seven per-channel vectors of each layer in the training kernels' pack
 MUL, ADD, R_INV, MU_R, SCALE, CA, CB = range(7)
 STATS_KERNELS = ("fused_sa_bn_stats0", "fused_sa_bn_stats1",
                  "fused_sa_bn_stats2")
-WAVE_KERNELS = {1: "fused_sa_bn_wave1", 2: "fused_sa_bn_wave2",
-                3: "fused_sa_bn_apply"}
 
 
 def _bn_affine(mean, var, gamma, beta, eps):
@@ -728,216 +890,342 @@ def fused_bn_mlp_pool_backward_plain(x0, w1, w2, gammas, betas, grad,
     return g[0], g[1], g[2], tuple(g[3:6]), tuple(g[6:9])
 
 
-@torch.no_grad()
-def fused_sa_bn_stats_plain(depth, x0, pk, w1, w2):
-    """Plain version of a statistics pass: (Σx, Σx²) (2, C) in f64 of x0,
-    x1 = ReLU(x0·mul0 + add0) W1 or x2 = ReLU(x1·mul1 + add1) W2 (depth 0,
-    1, 2) over every slot, each in f32 and summed in f64 as the kernel
-    does."""
-    c1, c2, c3 = x0.shape[-1], w1.shape[1], w2.shape[1]
-    l0, l1, _ = _unpack(pk, c1, c2, c3)
-    sums = torch.zeros(2, (c1, c2, c3)[depth], dtype=torch.float64,
-                       device=x0.device)
-    for rows in _row_chunks(*x0.shape[:3], max(c2, c3)):
-        x = x0[rows]
-        if depth >= 1:
-            x = torch.relu(x * l0[MUL] + l0[ADD]) @ w1
-        if depth == 2:
-            x = torch.relu(x * l1[MUL] + l1[ADD]) @ w2
-        sums[0] += x.sum(dim=(0, 1, 2), dtype=torch.float64)
-        sums[1] += (x * x).sum(dim=(0, 1, 2), dtype=torch.float64)
-    return sums
+def _widths(pk, *slabs):
+    """(C1, C2, C3) of a pack whose last two layers are the slabs'
+    widths."""
+    c2, c3 = (t.shape[-1] for t in slabs)
+    return pk.numel() // 7 - c2 - c3, c2, c3
+
+
+def _sums(x, y=None):
+    """(Σx, Σx·y) (2, C) in f64 over every slot of the f32 x (y = x by
+    default), as the kernels sum them."""
+    axes = tuple(range(x.dim() - 1))
+    y = x if y is None else y
+    return torch.stack([x.sum(dim=axes, dtype=torch.float64),
+                        (x * y).sum(dim=axes, dtype=torch.float64)])
+
+
+def _slab_rows(*slabs):
+    """Row slices of (R, M, S, ·) slabs whose intermediates are near 64 MB
+    (``_row_chunks``)."""
+    R, M, S, _ = slabs[0].shape
+    return _row_chunks(R, M, S, max(t.shape[-1] for t in slabs))
 
 
 @torch.no_grad()
-def fused_sa_bn_final_plain(x0, packs, w1, w2):
-    """Plain version of the final forward pass on the batch statistics'
-    packs ([mul0 | add0 | mul1 | add1 | mul2 | add2]) -> (out, argmax i32,
-    x2 at the argmax), each (R, M, C3)."""
-    c1, c2, c3 = x0.shape[-1], w1.shape[1], w2.shape[1]
-    m0, a0, m1, a1, m2, a2 = packs.split([c1, c1, c2, c2, c3, c3])
+def fused_sa_bn_stats_plain(depth, x, mul=None, add=None, w=None):
+    """Plain version of a statistics pass, a chunk of rows at a time. Depth
+    0: (Σx, Σx²) (2, C) f64 of x = x0. Depth 1 / 2: the layer y = ReLU(x·mul
+    + add) w on x = x0 or the stored x1 (mul and add of the layer before),
+    in f32 -> ((Σy, Σy²) in f64, y), y the slab the kernel writes (x1 or
+    x2)."""
+    if depth == 0:
+        return sum(_sums(x[rows]) for rows in _slab_rows(x))
+    y = x.new_empty(*x.shape[:3], w.shape[1])
+    sums = 0
+    for rows in _slab_rows(x, y):
+        y[rows] = torch.relu(x[rows] * mul + add) @ w
+        sums = sums + _sums(y[rows])
+    return sums, y
 
+
+@torch.no_grad()
+def fused_sa_bn_final_plain(x2, mul, add):
+    """Plain version of the final forward pass, a reduction over the stored
+    x2 (R, M, S, C3) with layer 2's folded batch statistics -> (out, argmax
+    i32, x2 at the argmax), each (R, M, C3)."""
     def pool(x):
-        x2 = torch.relu((torch.relu(x * m0 + a0) @ w1) * m1 + a1) @ w2
-        out, arg, _ = _first_max(x2 * m2 + a2)
-        return out, arg, torch.gather(x2, 2, arg.long()[:, :, None, :])[
+        out, arg, _ = _first_max(x * mul + add)
+        return out, arg, torch.gather(x, 2, arg.long()[:, :, None, :])[
             :, :, 0]
 
-    return _chunked(pool, *_slab_form(x0, w1, w2))
+    return _chunked(pool, lambda rows: x2[rows], *x2.shape[:3],
+                    x2.shape[-1])
+
+
+def _d_x2(x2, l2, dval, argmax):
+    """d_x2 = [slot = argmax]·dval − c2a − c2b·x̂2 on every slot."""
+    slots = torch.arange(x2.shape[2], device=x2.device)[:, None]
+    sel = slots == argmax[:, :, None, :]
+    return (torch.where(sel, dval[:, :, None, :], 0.0) - l2[CA]
+            - l2[CB] * (x2 * l2[R_INV] - l2[MU_R]))
+
+
+def _d_x1(d_y1, x1, l1):
+    """d_x1 = s1·d_y1 − c1a − c1b·x̂1."""
+    return l1[SCALE] * d_y1 - l1[CA] - l1[CB] * (x1 * l1[R_INV] - l1[MU_R])
+
+
+def _masked(d, x, layer):
+    """(d where y = x·mul + add > 0, else 0; x̂ = x·r − mean·r)."""
+    return (torch.where(x * layer[MUL] + layer[ADD] > 0, d, 0.0),
+            x * layer[R_INV] - layer[MU_R])
+
+
+def _flat(t):
+    return t.reshape(-1, t.shape[-1])
 
 
 @torch.no_grad()
-def fused_sa_bn_wave_plain(wave, x0, pk, w1, w2, dval, argmax):
-    """Plain version of a backward wave, tpu3d's ``_bwd_wave1_kernel``,
-    ``_bwd_wave2_kernel`` or ``_bwd_apply_kernel``: the chain recomputed
-    from x0, d_x2 = [slot = argmax]·dval − c2a − c2b·x̂2 on every slot,
-    d_y1 = (d_x2 W2ᵀ)[y1 > 0]; wave 1 -> ((Σd_y1, Σd_y1·x̂1) (2, C2) f64,
-    dW2 = a1ᵀ d_x2); then d_x1 = s1·d_y1 − c1a − c1b·x̂1, d_y0 = (d_x1
-    W1ᵀ)[y0 > 0]; wave 2 -> ((Σd_y0, Σd_y0·x̂0) (2, C1), dW1 = a0ᵀ d_x1);
-    wave 3 -> d_x0 = s0·d_y0 − c0a − c0b·x̂0."""
-    R, M, S, c1 = x0.shape
-    c2, c3 = w1.shape[1], w2.shape[1]
-    l0, l1, l2 = _unpack(pk, c1, c2, c3)
-    f64 = torch.float64
-    sums = torch.zeros(2, c2 if wave == 1 else c1, dtype=f64,
-                       device=x0.device)
-    dw = x0.new_zeros((c2, c3) if wave == 1 else (c1, c2))
-    d_x0 = torch.empty_like(x0) if wave == 3 else None
-    slots = torch.arange(S, device=x0.device)[:, None]
-    for rows in _row_chunks(*x0.shape[:3], max(c2, c3)):
-        x = x0[rows]
-        y0 = x * l0[MUL] + l0[ADD]
-        x1 = torch.relu(y0) @ w1
-        y1 = x1 * l1[MUL] + l1[ADD]
-        x2 = torch.relu(y1) @ w2
-        sel = slots == argmax[rows][:, :, None, :]
-        d_x2 = (torch.where(sel, dval[rows][:, :, None, :], 0.0) - l2[CA]
-                - l2[CB] * (x2 * l2[R_INV] - l2[MU_R]))
-        d_y1 = torch.where(y1 > 0, d_x2 @ w2.T, 0.0)
-        xh1 = x1 * l1[R_INV] - l1[MU_R]
-        if wave == 1:
-            sums[0] += d_y1.sum(dim=(0, 1, 2), dtype=f64)
-            sums[1] += (d_y1 * xh1).sum(dim=(0, 1, 2), dtype=f64)
-            dw += torch.relu(y1).reshape(-1, c2).T @ d_x2.reshape(-1, c3)
-            continue
-        d_x1 = l1[SCALE] * d_y1 - l1[CA] - l1[CB] * xh1
-        d_y0 = torch.where(y0 > 0, d_x1 @ w1.T, 0.0)
-        xh0 = x * l0[R_INV] - l0[MU_R]
-        if wave == 2:
-            sums[0] += d_y0.sum(dim=(0, 1, 2), dtype=f64)
-            sums[1] += (d_y0 * xh0).sum(dim=(0, 1, 2), dtype=f64)
-            dw += torch.relu(y0).reshape(-1, c1).T @ d_x1.reshape(-1, c2)
-        else:
-            d_x0[rows] = l0[SCALE] * d_y0 - l0[CA] - l0[CB] * xh0
-    return d_x0 if wave == 3 else (sums, dw)
+def fused_sa_bn_wave1_plain(x2, x1, pk, w2, dval, argmax):
+    """Plain version of backward wave 1, tpu3d's ``_bwd_wave1_kernel``,
+    from the stored x2 and x1, a chunk of rows at a time: d_x2 = [slot =
+    argmax]·dval − c2a − c2b·x̂2, d_y1 = (d_x2 W2ᵀ)[y1 > 0] -> ((Σd_y1,
+    Σd_y1·x̂1) (2, C2) f64, dW2 = a1ᵀ d_x2, d_y1 (R, M, S, C2))."""
+    _, l1, l2 = _unpack(pk, *_widths(pk, x1, x2))
+    d_y1 = torch.empty_like(x1)
+    sums, dw2 = 0, x1.new_zeros(x1.shape[-1], x2.shape[-1])
+    for rows in _slab_rows(x1, x2):
+        d_x2 = _d_x2(x2[rows], l2, dval[rows], argmax[rows])
+        d, xh1 = _masked(d_x2 @ w2.T, x1[rows], l1)
+        d_y1[rows] = d
+        sums = sums + _sums(d, xh1)
+        dw2 += _flat(torch.relu(x1[rows] * l1[MUL] + l1[ADD])).T @ _flat(d_x2)
+    return sums, dw2, d_y1
 
 
-def _check_bn(x0, pk, w1, w2):
-    """Raise unless the training kernels take these tensors; -> (R, M, S,
-    C3)."""
-    R, M, S, C3 = _check_slab(x0, pk, w1, w2, vecs=7)
-    if (M * S) % 64:
-        raise ValueError(f"the BatchNorm training kernels take M·S a "
-                         f"multiple of 64, got M={M}, S={S}")
-    return R, M, S, C3
+@torch.no_grad()
+def fused_sa_bn_wave2_plain(d_y1, x1, x0, pk, w1):
+    """Plain version of backward wave 2, tpu3d's ``_bwd_wave2_kernel``,
+    from the stored d_y1, x1 and x0, a chunk of rows at a time: d_x1 =
+    s1·d_y1 − c1a − c1b·x̂1, d_y0 = (d_x1 W1ᵀ)[y0 > 0] -> ((Σd_y0,
+    Σd_y0·x̂0) (2, C1) f64, dW1 = a0ᵀ d_x1, d_y0 (R, M, S, C1))."""
+    c1, c2 = x0.shape[-1], x1.shape[-1]
+    l0, l1, _ = _unpack(pk, c1, c2, pk.numel() // 7 - c1 - c2)
+    d_y0 = torch.empty_like(x0)
+    sums, dw1 = 0, x0.new_zeros(c1, c2)
+    for rows in _slab_rows(x0, x1):
+        d_x1 = _d_x1(d_y1[rows], x1[rows], l1)
+        d, xh0 = _masked(d_x1 @ w1.T, x0[rows], l0)
+        d_y0[rows] = d
+        sums = sums + _sums(d, xh0)
+        dw1 += _flat(torch.relu(x0[rows] * l0[MUL] + l0[ADD])).T @ _flat(d_x1)
+    return sums, dw1, d_y0
 
 
-def _grid(device, work: int, per_sm: int) -> int:
-    """A persistent grid: ``per_sm`` blocks per SM, at most one per unit of
-    work."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return min(work, per_sm * sms)
+@torch.no_grad()
+def fused_sa_bn_apply_plain(d_y0, x0, pk):
+    """Plain version of the last backward pass, tpu3d's
+    ``_bwd_apply_kernel``: d_x0 = s0·d_y0 − c0a − c0b·x̂0."""
+    l0 = pk[:7 * x0.shape[-1]].view(7, -1)
+    d_x0 = torch.empty_like(x0)
+    for rows in _slab_rows(x0):
+        d_x0[rows] = (l0[SCALE] * d_y0[rows] - l0[CA]
+                      - l0[CB] * (x0[rows] * l0[R_INV] - l0[MU_R]))
+    return d_x0
 
 
-def fused_sa_bn_stats(depth, x0, pk, w1, w2):
-    """A statistics pass of the chain's training forward: the kernel
-    counted as ``fused_sa_bn_stats{depth}`` for CUDA tensors, else
-    ``fused_sa_bn_stats_plain``. -> (Σx, Σx²) (2, C) f64."""
-    if x0.device.type == "cpu":
-        return fused_sa_bn_stats_plain(depth, x0, pk, w1, w2)
-    R, M, S, C3 = _check_bn(x0, pk, w1, w2)
-    width = (128, 128, C3)[depth]
-    blocks = _grid(x0.device, R * M * S // 64, 2)
-    ws = torch.empty(blocks, 2, width, dtype=torch.float64, device=x0.device)
-    sums = torch.empty(2, width, dtype=torch.float64, device=x0.device)
-    _build.launch(STATS_KERNELS[depth], x0.data_ptr(), pk.data_ptr(),
-                  w1.data_ptr(), w2.data_ptr(), R, M, S, C3, depth, blocks,
+def _check_bn(*slabs):
+    """Raise unless the training kernels take these (R, M, S, C) slabs, of
+    one (R, M, S); -> (R·M·S, S)."""
+    _check_tensors(*((t, "slab", 4) for t in slabs))
+    R, M, S, _ = slabs[0].shape
+    for t in slabs:
+        c = t.shape[-1]
+        if (t.shape[:3] != (R, M, S) or c % 128 or c > BN_MAX_WIDTH
+                or R * M >= 2 ** 31):
+            raise ValueError(
+                f"the BatchNorm training kernels take (R, M, S, C) slabs of "
+                f"one (R, M, S), C a multiple of 128 up to {BN_MAX_WIDTH}; "
+                f"got {[tuple(t.shape) for t in slabs]}")
+    return R * M * S, S
+
+
+def _bn_workspace(kind, P, C, N, device, dtype):
+    """A kernel's workspace: kind 0 stats0's, 1 a row product's, 2 a
+    weight gradient's (csrc/fused_sa_bn.cu::tpu3d_fused_sa_bn_workspace)."""
+    fn = _build.library("fused_sa_bn").tpu3d_fused_sa_bn_workspace
+    fn.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_int]
+    fn.restype = ctypes.c_longlong
+    return torch.empty(fn(kind, P, C, N) // dtype.itemsize, dtype=dtype,
+                       device=device)
+
+
+def fused_sa_bn_stats(depth, x, mul=None, add=None, w=None):
+    """A statistics pass of the chain's training forward, as
+    ``fused_sa_bn_stats_plain`` computes it: the kernel counted as
+    ``fused_sa_bn_stats{depth}`` for CUDA tensors (depth 0 a reduction of
+    x0; depth 1 and 2 the row product writing x1 or x2 beside its sums),
+    else the plain version."""
+    if x.device.type == "cpu":
+        return fused_sa_bn_stats_plain(depth, x, mul, add, w)
+    P, _ = _check_bn(x)
+    dev, K = x.device, x.shape[-1]
+    sums = torch.empty(2, K if depth == 0 else w.shape[1],
+                       dtype=torch.float64, device=dev)
+    if depth == 0:
+        ws = _bn_workspace(0, P, K, 0, dev, torch.float64)
+        _build.launch(STATS_KERNELS[0], x.data_ptr(), P, K, ws.data_ptr(),
+                      sums.data_ptr())
+        return sums
+    _check_tensors((mul, "mul", 1), (add, "add", 1), (w, "w", 2))
+    N = w.shape[1]
+    if mul.shape != (K,) or add.shape != (K,) or w.shape[0] != K:
+        raise ValueError(f"stats{depth}: mul, add ({K},) and w ({K}, N) "
+                         f"expected, got {tuple(mul.shape)}, "
+                         f"{tuple(add.shape)}, {tuple(w.shape)}")
+    y = x.new_empty(*x.shape[:3], N)
+    ws = _bn_workspace(1, P, K, N, dev, torch.float64)
+    _build.launch(STATS_KERNELS[depth], x.data_ptr(), mul.data_ptr(),
+                  add.data_ptr(), w.data_ptr(), P, K, N, y.data_ptr(),
                   ws.data_ptr(), sums.data_ptr())
-    return sums
+    return sums, y
 
 
-def fused_sa_bn_final(x0, packs, w1, w2):
-    """The chain's final forward pass on the batch statistics' packs ->
-    (out, argmax, x2 at the argmax): the slab training kernel with its raw
-    x2 (``fused_sa_bn_final``) for CUDA tensors, else
-    ``fused_sa_bn_final_plain``."""
-    if x0.device.type == "cpu":
-        return fused_sa_bn_final_plain(x0, packs, w1, w2)
-    return _slab_forward("fused_sa_bn_final", x0, packs, w1, w2, train=True)
+def fused_sa_bn_final(x2, mul, add):
+    """The chain's final forward pass -> (out, argmax, x2 at the argmax):
+    the reduction kernel over the stored x2 (``fused_sa_bn_final``) for
+    CUDA tensors, else ``fused_sa_bn_final_plain``."""
+    if x2.device.type == "cpu":
+        return fused_sa_bn_final_plain(x2, mul, add)
+    _check_bn(x2)
+    _check_tensors((mul, "mul", 1), (add, "add", 1))
+    R, M, S, C3 = x2.shape
+    outs = _pooled(R, M, C3, x2.device, True)
+    _build.launch("fused_sa_bn_final", x2.data_ptr(), mul.data_ptr(),
+                  add.data_ptr(), R * M, S, C3, *(t.data_ptr() for t in outs))
+    return outs
 
 
-def fused_sa_bn_wave(wave, x0, pk, w1, w2, dval, argmax):
-    """Backward wave 1, 2 or 3 (``fused_sa_bn_wave1``, ``_wave2``,
-    ``fused_sa_bn_apply``) for CUDA tensors, else
-    ``fused_sa_bn_wave_plain``; the same outputs."""
-    if x0.device.type == "cpu":
-        return fused_sa_bn_wave_plain(wave, x0, pk, w1, w2, dval, argmax)
-    R, M, S, C3 = _check_bn(x0, pk, w1, w2)
-    _build.check_cuda_tensor(dval, "dval", torch.float32, 3)
+def fused_sa_bn_wave1(x2, x1, pk, w2, dval, argmax):
+    """Backward wave 1 (``fused_sa_bn_wave1``, a row product and a
+    weight-gradient product) for CUDA tensors, else
+    ``fused_sa_bn_wave1_plain``; the same outputs."""
+    if x2.device.type == "cpu":
+        return fused_sa_bn_wave1_plain(x2, x1, pk, w2, dval, argmax)
+    P, S = _check_bn(x2, x1)
+    R, M, _, C3 = x2.shape
+    C1, C2, _ = _widths(pk, x1, x2)
+    _check_tensors((pk, "pk", 1), (w2, "w2", 2), (dval, "dval", 3))
     _build.check_cuda_tensor(argmax, "argmax", torch.int32, 3)
-    if dval.shape != (R, M, C3) or argmax.shape != dval.shape:
-        raise ValueError(f"dval and argmax must be {(R, M, C3)}")
+    if (dval.shape != (R, M, C3) or argmax.shape != dval.shape
+            or w2.shape != (C2, C3) or C1 % 128 or C1 > BN_MAX_WIDTH):
+        raise ValueError(f"wave 1: dval and argmax {(R, M, C3)}, w2 "
+                         f"{(C2, C3)} and a pack of 7 (C1 + {C2} + {C3}) "
+                         f"expected")
+    dev = x2.device
+    w2t = w2.t().contiguous()
+    d_y1 = torch.empty_like(x1)
+    sums = torch.empty(2, C2, dtype=torch.float64, device=dev)
+    dw2 = torch.empty(C2, C3, device=dev)
+    wsr = _bn_workspace(1, P, C3, C2, dev, torch.float64)
+    wsd = _bn_workspace(2, P, C2, C3, dev, torch.float32)
+    _build.launch("fused_sa_bn_wave1", x2.data_ptr(), x1.data_ptr(),
+                  pk.data_ptr(), w2t.data_ptr(), dval.data_ptr(),
+                  argmax.data_ptr(), P, S, C1, C2, C3, d_y1.data_ptr(),
+                  wsr.data_ptr(), sums.data_ptr(), wsd.data_ptr(),
+                  dw2.data_ptr())
+    return sums, dw2, d_y1
+
+
+def fused_sa_bn_wave2(d_y1, x1, x0, pk, w1):
+    """Backward wave 2 (``fused_sa_bn_wave2``, a row product and a
+    weight-gradient product) for CUDA tensors, else
+    ``fused_sa_bn_wave2_plain``; the same outputs (d_y0 in a new slab, into
+    which ``fused_sa_bn_apply`` writes d_x0)."""
+    if x0.device.type == "cpu":
+        return fused_sa_bn_wave2_plain(d_y1, x1, x0, pk, w1)
+    P, _ = _check_bn(d_y1, x1, x0)
+    C1, C2 = x0.shape[-1], x1.shape[-1]
+    C3 = pk.numel() // 7 - C1 - C2
+    _check_tensors((pk, "pk", 1), (w1, "w1", 2))
+    if w1.shape != (C1, C2) or d_y1.shape != x1.shape or C3 % 128 \
+            or not 0 < C3 <= BN_MAX_WIDTH:
+        raise ValueError(f"wave 2: w1 {(C1, C2)}, d_y1 like x1 and a pack "
+                         f"of 7 ({C1} + {C2} + C3) expected")
     dev = x0.device
-    blocks = _grid(dev, R * M, 1)
-    w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
-    if wave == 3:
-        dx0 = torch.empty_like(x0)
-        bufs = (dx0, None, None, None, None)
-    else:
-        cols = C3 if wave == 1 else 128
-        bufs = (None, torch.empty(blocks, 128 * cols, device=dev),
-                torch.empty(blocks, 256, dtype=torch.float64, device=dev),
-                torch.empty(128, cols, device=dev),
-                torch.empty(2, 128, dtype=torch.float64, device=dev))
-    _build.launch(WAVE_KERNELS[wave], *(t.data_ptr() for t in (
-        x0, pk, w1, w2, w1t, w2t, dval, argmax)), R, M, S, C3, wave, blocks,
-        *(None if t is None else t.data_ptr() for t in bufs))
-    return bufs[0] if wave == 3 else (bufs[4], bufs[3])
+    w1t = w1.t().contiguous()
+    d_y0 = torch.empty_like(x0)
+    sums = torch.empty(2, C1, dtype=torch.float64, device=dev)
+    dw1 = torch.empty(C1, C2, device=dev)
+    wsr = _bn_workspace(1, P, C2, C1, dev, torch.float64)
+    wsd = _bn_workspace(2, P, C1, C2, dev, torch.float32)
+    _build.launch("fused_sa_bn_wave2", d_y1.data_ptr(), x1.data_ptr(),
+                  x0.data_ptr(), pk.data_ptr(), w1t.data_ptr(), P, C1, C2,
+                  C3, d_y0.data_ptr(), wsr.data_ptr(), sums.data_ptr(),
+                  wsd.data_ptr(), dw1.data_ptr())
+    return sums, dw1, d_y0
+
+
+def fused_sa_bn_apply(d_y0, x0, pk):
+    """The last backward pass: d_x0 = s0·d_y0 − c0a − c0b·x̂0, written in
+    place of d_y0 by ``fused_sa_bn_apply`` for CUDA tensors (-> d_y0's
+    buffer), else ``fused_sa_bn_apply_plain``."""
+    if x0.device.type == "cpu":
+        return fused_sa_bn_apply_plain(d_y0, x0, pk)
+    P, _ = _check_bn(d_y0, x0)
+    C1 = x0.shape[-1]
+    _check_tensors((pk, "pk", 1))
+    _build.launch("fused_sa_bn_apply", d_y0.data_ptr(), x0.data_ptr(),
+                  pk.data_ptr(), P, C1)
+    return d_y0
 
 
 def fused_bn_mlp_pool_train(x0, w1, w2, gammas, betas, eps=1e-5):
     """The chain's training forward, tpu3d's ``_fused_train_fwd_impl``:
-    three statistics passes, each normalising the layers before it with the
-    statistics of the passes before, then the final pass -> (out, argmax,
-    x2 at the argmax, means, vars). Each pass is its kernel for CUDA
-    tensors, its plain version for CPU tensors."""
+    three statistics passes, each normalising the layer before it with the
+    statistics of the pass before, the last two writing x1 = a0 W1 and x2
+    = a1 W2, then the final reduction over x2 -> (out, argmax, x2 at the
+    argmax, means, vars, (x1, x2)), x1 and x2 kept for the backward. Each
+    pass is its kernel for CUDA tensors, its plain version for CPU
+    tensors."""
     R, M, S, c1 = x0.shape
     n = R * M * S
     w1, w2 = w1.contiguous(), w2.contiguous()
-    layers = [x0.new_zeros(7, c) for c in (c1, w1.shape[1], w2.shape[1])]
-    means, vars_ = [], []
-    for depth in range(3):
-        mean, var = _mean_var(fused_sa_bn_stats(depth, x0, _pack(layers),
-                                                w1, w2), n, x0.dtype)
+    means, vars_, layers = [], [], []
+
+    def fold(sums, depth):
+        mean, var = _mean_var(sums, n, x0.dtype)
         means.append(mean)
         vars_.append(var)
-        layers[depth] = _layer_pack(mean, var, gammas[depth], betas[depth],
-                                    eps, n)
-    packs = torch.cat([t for layer in layers for t in layer[:2]])
-    out, argmax, x2 = fused_sa_bn_final(x0, packs, w1, w2)
-    return out, argmax, x2, tuple(means), tuple(vars_)
+        layers.append(_layer_pack(mean, var, gammas[depth], betas[depth],
+                                  eps, n))
+        return layers[-1][MUL].contiguous(), layers[-1][ADD].contiguous()
+
+    mul, add = fold(fused_sa_bn_stats(0, x0), 0)
+    sums, x1 = fused_sa_bn_stats(1, x0, mul, add, w1)
+    mul, add = fold(sums, 1)
+    sums, x2 = fused_sa_bn_stats(2, x1, mul, add, w2)
+    mul, add = fold(sums, 2)
+    out, argmax, at = fused_sa_bn_final(x2, mul, add)
+    return out, argmax, at, tuple(means), tuple(vars_), (x1, x2)
 
 
 def fused_bn_mlp_pool_backward(x0, w1, w2, gammas, betas, means, vars_, out,
-                               argmax, x2, grad, eps=1e-5):
+                               argmax, at, saved, grad, eps=1e-5):
     """The chain's backward, tpu3d's ``_fused_train_bwd``, from the output
-    gradient and the training forward's statistics, out, argmax and x2 at
-    the argmax -> (d_x0, dW1, dW2, dgammas, dbetas). Layer 2's reductions
-    come from the small (R, M, C3) tensors (the pooled gradient reaches x2
-    at the argmax slots alone; ReLU passes it where the pooled output is >
-    0); then the three waves, each its kernel for CUDA tensors, its plain
-    version for CPU tensors."""
+    gradient and the training forward's statistics, out, argmax, x2 at the
+    argmax and its stored (x1, x2) -> (d_x0, dW1, dW2, dgammas, dbetas).
+    Layer 2's reductions come from the small (R, M, C3) tensors (the pooled
+    gradient reaches x2 at the argmax slots alone; ReLU passes it where the
+    pooled output is > 0); then wave 1, wave 2 and the elementwise pass,
+    each its kernel for CUDA tensors, its plain version for CPU tensors."""
     R, M, S, c1 = x0.shape
     n = R * M * S
+    x1, x2 = saved
     w1, w2 = w1.contiguous(), w2.contiguous()
     layers = [_layer_pack(m, v, g, b, eps, n)
               for m, v, g, b in zip(means, vars_, gammas, betas)]
     mul2, r2 = layers[2][MUL], layers[2][R_INV]
     d_y2 = torch.where(out > 0, grad, 0.0)
     dbeta2 = d_y2.sum(dim=(0, 1))
-    dgamma2 = (d_y2 * (x2 * r2 - means[2] * r2)).sum(dim=(0, 1))
+    dgamma2 = (d_y2 * (at * r2 - means[2] * r2)).sum(dim=(0, 1))
     layers[2] = _layer_pack(means[2], vars_[2], gammas[2], betas[2], eps, n,
                             dbeta2, dgamma2)
     dval = (d_y2 * mul2).contiguous()
-    sums, dw2 = fused_sa_bn_wave(1, x0, _pack(layers), w1, w2, dval, argmax)
+    sums, dw2, d_y1 = fused_sa_bn_wave1(x2, x1, _pack(layers), w2, dval,
+                                        argmax)
     dbeta1, dgamma1 = sums.to(x0.dtype)
     layers[1] = _layer_pack(means[1], vars_[1], gammas[1], betas[1], eps, n,
                             dbeta1, dgamma1)
-    sums, dw1 = fused_sa_bn_wave(2, x0, _pack(layers), w1, w2, dval, argmax)
+    sums, dw1, d_y0 = fused_sa_bn_wave2(d_y1, x1, x0, _pack(layers), w1)
+    del d_y1
     dbeta0, dgamma0 = sums.to(x0.dtype)
     layers[0] = _layer_pack(means[0], vars_[0], gammas[0], betas[0], eps, n,
                             dbeta0, dgamma0)
-    d_x0 = fused_sa_bn_wave(3, x0, _pack(layers), w1, w2, dval, argmax)
+    d_x0 = fused_sa_bn_apply(d_y0, x0, _pack(layers))
     return (d_x0, dw1, dw2, (dgamma0, dgamma1, dgamma2),
             (dbeta0, dbeta1, dbeta2))
 
@@ -946,11 +1234,11 @@ class _FusedBNMLPPool(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x0, w1, w2, g0, g1, g2, b0, b1, b2, eps):
         gammas, betas = (g0, g1, g2), (b0, b1, b2)
-        out, argmax, x2, means, vars_ = fused_bn_mlp_pool_train(
+        out, argmax, at, means, vars_, (x1, x2) = fused_bn_mlp_pool_train(
             x0, w1, w2, gammas, betas, eps)
         ctx.eps = eps
         ctx.save_for_backward(x0, w1, w2, *gammas, *betas, *means, *vars_,
-                              out, argmax, x2)
+                              out, argmax, at, x1, x2)
         ctx.mark_non_differentiable(*means, *vars_)
         return (out, *means, *vars_)
 
@@ -959,7 +1247,7 @@ class _FusedBNMLPPool(torch.autograd.Function):
         t = ctx.saved_tensors
         d_x0, dw1, dw2, dgammas, dbetas = fused_bn_mlp_pool_backward(
             t[0], t[1], t[2], t[3:6], t[6:9], t[9:12], t[12:15], t[15],
-            t[16], t[17], grad.contiguous(), ctx.eps)
+            t[16], t[17], (t[18], t[19]), grad.contiguous(), ctx.eps)
         return (d_x0, dw1, dw2, *dgammas, *dbetas, None)
 
 
@@ -980,9 +1268,11 @@ def fused_bn_mlp_pool(x0: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     folds them into the running ones); differentiable in x0, w1, w2, gammas
     and betas, the max-pool's gradient on the first slot that reaches the
     max. For CUDA tensors its seven kernels (``fused_bn_mlp_pool_train``,
-    ``fused_bn_mlp_pool_backward``), with the shape limits of
-    ``fused_mlp_pool`` and M·S a multiple of 64; a CUDA tensor outside them
-    raises. For CPU tensors the plain version at either.
+    ``fused_bn_mlp_pool_backward``), which keep x1 and x2 (R, M, S, C2 and
+    C3 f32 slabs) from the forward to the backward, at the shapes
+    ``kernels_take(..., "bn")`` admits (S a multiple of 8, widths multiples
+    of 128 up to ``BN_MAX_WIDTH``); a CUDA tensor outside them raises. For
+    CPU tensors the plain version at either.
     """
     cpu = x0.device.type == "cpu"
     if stats is None:

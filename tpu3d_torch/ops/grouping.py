@@ -134,6 +134,10 @@ def nearest_k(centers: torch.Tensor, pts: torch.Tensor, k: int,
                             with_coords)
 
 
+# the most neighbours the kernel takes (csrc/nearest_k.cu's kMaxK)
+NEAREST_K_MAX = 1024
+
+
 def launch_nearest_k(centers: torch.Tensor, pts: torch.Tensor, k: int,
                      r2max: float, windowed: bool,
                      with_coords: bool = False):
@@ -145,9 +149,10 @@ def launch_nearest_k(centers: torch.Tensor, pts: torch.Tensor, k: int,
     B, M, _ = centers.shape
     N = pts.shape[1]
     if (centers.shape[2] != 3 or pts.shape[0] != B or pts.shape[2] != 3
-            or not 1 <= k <= 64):
+            or not 1 <= k <= NEAREST_K_MAX):
         raise ValueError(f"nearest_k takes (B, M, 3), (B, N, 3) and "
-                         f"1 <= k <= 64, got {tuple(centers.shape)}, "
+                         f"1 <= k <= {NEAREST_K_MAX}, got "
+                         f"{tuple(centers.shape)}, "
                          f"{tuple(pts.shape)}, k={k}")
     dev = centers.device
     d2 = torch.empty(B, M, k, dtype=torch.float32, device=dev)

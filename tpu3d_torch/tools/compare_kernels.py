@@ -43,8 +43,23 @@ script. Shapes:
   weights of the checkout's own FPS+3NN on the training batch), with the
   sum over the four launches.
 
+- the fused SA op's forward kernels at every RCNN level the shipped
+  configs fuse (``fused_sa_fwd``: the gather form's eval and training
+  forward at default.yaml's levels, eval B=2 and train B=16; the slab
+  form's at quickstart's and smoke's SA_1; the BatchNorm slab eval kernel
+  at default.yaml's levels with ``USE_BN``), on seeded inputs of those
+  shapes;
+- the slab form's backward (``fused_sa_slab_bwd``) at quickstart's and
+  smoke's SA_1 of the train step, routed by the plain forward's argmax on
+  seeded slabs whose groups repeat slots;
+- the BatchNorm chain's training op (``fused_bn_mlp_pool`` with batch
+  statistics, forward and backward under autograd: the seven training
+  kernels) at default.yaml's SA_0 and SA_1 with ``USE_BN`` of the train
+  step (B=16), and their sum.
+
 ``--only`` takes any of ``nearest_k``, ``fused_sa_bwd``, ``fps3nn``,
-``fps`` and ``three_interpolate_bwd`` (default: all).
+``fps``, ``three_interpolate_bwd``, ``fused_sa_fwd``,
+``fused_sa_slab_bwd`` and ``fused_sa_bn_train`` (default: all).
 
 Times are device times (``kernel_bench.cuda_ms``, beside this file: calls
 run back to back on the card behind a spin that outlasts their queueing),
@@ -118,7 +133,38 @@ def sa0_grouping(nearest_k, group_points):
 
 
 GROUPS = ("nearest_k", "fused_sa_bwd", "fps3nn", "fps",
-          "three_interpolate_bwd")
+          "three_interpolate_bwd", "fused_sa_fwd", "fused_sa_slab_bwd",
+          "fused_sa_bn_train")
+
+
+def rcnn_levels(root):
+    """The RCNN SA levels the shipped configs fuse, at the shapes their
+    paths give them: [(label, route, R, N, M, S, (C1, C2, C3))], route
+    "gather" or "slab" (default.yaml's levels with USE_BN take the slab
+    route, as "bn")."""
+    from tpu3d_torch.config import cfg_from_file, fresh_cfg
+    from tpu3d_torch.ops import sa_route
+
+    out = []
+    for name, eval_b, train_b in (("default", 2, 16), ("quickstart", 8, 4),
+                                  ("smoke", 2, 2)):
+        cfg = cfg_from_file(str(Path(root) / "configs" / f"{name}.yaml"),
+                            fresh_cfg())
+        sa = cfg.RCNN.SA_CONFIG
+        for mode, B, rois in (("eval", eval_b, cfg.TEST.RPN_POST_NMS_TOP_N),
+                              ("train", train_b, cfg.RCNN.ROI_PER_IMAGE)):
+            for bn in ((False, True) if name == "default" else (False,)):
+                n, R = cfg.RCNN.NUM_POINTS, B * rois
+                for k in range(2):
+                    M, S, mlp = sa.NPOINTS[k], sa.NSAMPLE[k], sa.MLPS[k]
+                    route = sa_route((R, M, S, mlp[0]), mlp, n, bn)
+                    if route != "plain":
+                        out.append((f"{name}{' USE_BN' if bn else ''} "
+                                    f"{mode} B={B} RCNN SA_{k}",
+                                    "bn" if bn else route, mode, R, n, M, S,
+                                    tuple(mlp)))
+                    n = M
+    return out
 
 
 def fps_row_launches(root):
@@ -310,6 +356,94 @@ def main() -> int:
         out["three_interpolate_bwd train sum"] = total
         print(f"{args.label}: three_interpolate_bwd, four launches: "
               f"{total:.4f} ms", flush=True)
+    fused = [g for g in ("fused_sa_fwd", "fused_sa_slab_bwd",
+                         "fused_sa_bn_train") if g in only]
+    if fused:
+        from tpu3d_torch.ops import (fused_bn_mlp_pool,
+                                     fused_gathered_mlp_pool, fused_mlp_pool)
+        from tpu3d_torch.ops import fused_sa as fs
+
+        bn_total = 0.0
+        for label, route, mode, R, N, M, S, (c1, c2, c3) in rcnn_levels(
+                args.root):
+            fg = torch.Generator(device="cuda").manual_seed(R + M + S + c3)
+
+            def randn(*shape, scale=1.0):
+                return torch.randn(*shape, generator=fg,
+                                   device="cuda") * scale
+
+            w1, w2 = randn(c1, c2, scale=c1 ** -0.5), randn(
+                c2, c3, scale=c2 ** -0.5)
+            b1, b2 = randn(c2, scale=0.1), randn(c3, scale=0.1)
+            if route == "gather":
+                if "fused_sa_fwd" not in only:
+                    continue
+                ins = (randn(R, N, c1),
+                       torch.randint(0, N, (R, M, S), generator=fg,
+                                     device="cuda", dtype=torch.int32),
+                       randn(R, M, c1), w1, b1, w2, b2)
+                with torch.no_grad():
+                    name = ("fused_sa" if mode == "eval"
+                            else "fused_sa_train")
+                    fn = (fused_gathered_mlp_pool if mode == "eval"
+                          else fs.fused_gathered_mlp_pool_train)
+                    record(f"{name} {label}", lambda: fn(*ins), 10)
+                del ins
+                continue
+            x0 = randn(R, M, S, c1)
+            h = torch.randint(1, S + 1, (R, M, 1), generator=fg,
+                              device="cuda")
+            x0 = torch.gather(x0, 2, (torch.arange(S, device="cuda") % h)[
+                ..., None].expand(-1, -1, -1, c1)).contiguous()
+            if route == "bn":
+                gammas = [1 + randn(c, scale=0.2) for c in (c1, c2, c3)]
+                betas = [randn(c, scale=0.2) for c in (c1, c2, c3)]
+                if mode == "eval" and "fused_sa_fwd" in only:
+                    stats = [(randn(c, scale=0.3), 0.5 + torch.rand(
+                        c, generator=fg, device="cuda")) for c in (c1, c2, c3)]
+                    with torch.no_grad():
+                        record(f"fused_sa_slab_bn {label}",
+                               lambda: fused_bn_mlp_pool(x0, w1, w2, gammas,
+                                                         betas, stats), 10)
+                if mode == "train" and "fused_sa_bn_train" in only:
+                    grad = randn(R, M, c3)
+                    leaves = [t.requires_grad_() for t in
+                              (x0, w1, w2, *gammas, *betas)]
+
+                    def step():
+                        o, _ = fused_bn_mlp_pool(
+                            leaves[0], leaves[1], leaves[2], leaves[3:6],
+                            leaves[6:9])
+                        torch.autograd.grad(o, leaves, grad)
+
+                    bn_total += record(f"fused_sa_bn_train {label} forward "
+                                       f"and backward", step, 3)
+                    del leaves, grad
+                del x0
+                torch.cuda.empty_cache()
+                continue
+            args_ = (x0, w1, b1, w2, b2)
+            if "fused_sa_fwd" in only:
+                with torch.no_grad():
+                    if mode == "eval":
+                        record(f"fused_sa_slab {label}",
+                               lambda: fused_mlp_pool(*args_), 10)
+                    else:
+                        record(f"fused_sa_slab_train {label}",
+                               lambda: fs.fused_mlp_pool_train(*args_), 10)
+            if mode == "train" and "fused_sa_slab_bwd" in only:
+                with torch.no_grad():
+                    _, arg, ppre = fs.fused_mlp_pool_train_plain(*args_)
+                grad = randn(R, M, c3)
+                record(f"fused_sa_slab_bwd {label}",
+                       lambda: fs.fused_mlp_pool_backward(*args_, grad, arg,
+                                                          ppre), 10)
+            del x0, args_
+            torch.cuda.empty_cache()
+        if "fused_sa_bn_train" in only:
+            out["fused_sa_bn_train sum"] = bn_total
+            print(f"{args.label}: fused_sa_bn_train, SA_0 + SA_1 forward "
+                  f"and backward: {bn_total:.3f} ms", flush=True)
     print(json.dumps(out))
     return 0
 
