@@ -27,8 +27,9 @@ and no result line:
    the dense box's six levels (every center with at least k points within
    its radius) and double.yaml's SA_0 (B=4), each bit for bit (d², ids,
    coordinates) through its own form and through both forms, each timed
-   (the sweep), with a second bound: the
-   evaluations inside the depth windows of the run's data; FPS over the
+   (the sweep), its bound counting the evaluations of the form its route
+   chooses (for the windowed form, those inside the depth windows of the
+   run's data) and the brute form's beside it; FPS over the
    RCNN's pooled rows (fps.cu) beside its dependent-chain floor, a minimal
    pick (rows of 32 points, one warp argmax) times the level's picks; the
    training kernels the train step's (B=16: the interpolation's backward
@@ -38,7 +39,17 @@ and no result line:
    samples);
    configs/double.yaml's SA_0 at 32768 points: the train route's long-row
    FPS (fps_long) and standalone three_nn at B=16, the eval route's
-   FPS+3NN at B=4, each bit for bit; the slab form of the fused SA op at
+   FPS+3NN at B=4, each bit for bit; three_nn at every level of the split
+   route (double's SA_0, also on a tie case; quickstart's SA_3, smoke's
+   SA_2-3, eval and train) and at the shapes that place its route, in
+   both forms (windowed and brute), each bit for bit and timed, its bound
+   counting the pairs of the form its route chooses (for the windowed
+   form, those inside the depth windows of the run's data) and the brute
+   form's beside it; the slab forward's packed launch at S 16, 32 and 64 at
+   every groups-per-block G, on group counts that leave a tail block,
+   against the plain version (the training output equal to the eval
+   output, every G equal to G = 1), each G timed; the slab form of the
+   fused SA op at
    the RCNN's SA_1: its eval kernel (fused_sa_slab) on the pooled ROIs of
    configs/quickstart.yaml's eval (B=8) and of configs/smoke.yaml's (B=2),
    its training forward and backward (fused_sa_slab_train,
@@ -302,8 +313,9 @@ class Report:
     """Per kernel, summed over the launch shapes of one forward (eval
     kernels) or one train step (training kernels): worst error, kernel /
     plain / library ms, the kernel's queued and call ms (``cuda_ms``),
-    bytes and operations, and any other count given (``window_ops``: the
-    operations of nearest_k's windowed sweep; ``chain_ms``: FPS's measured
+    bytes and operations (a routed search's: those of the form its route
+    chooses), and any other count given (``brute_ops``: the operations of
+    a routed search's brute form; ``chain_ms``: FPS's measured
     dependent-chain floor)."""
 
     def __init__(self):
@@ -337,9 +349,9 @@ class Report:
                "ms_host_bound": r["ms_host_bound"],
                "plain_ms": r["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": r["lib_ms"]}
-        if "window_ops" in r:
-            out["window_bound_ms"], out["window_bound_by"] = bound_ms(
-                r["bytes"], r["window_ops"])
+        if "brute_ops" in r:  # a routed search: the brute form's bound
+            out["brute_bound_ms"], out["brute_bound_by"] = bound_ms(
+                r["bytes"], r["brute_ops"])
         if "chain_ms" in r:  # FPS: the measured dependent-chain floor
             out["chain_floor_ms"] = r["chain_ms"]
         if "lib_bwd_ms" in r:  # a backward: the library's backward alone
@@ -353,8 +365,10 @@ def check_nearest_k(report, c, x, k, r, coords, label, sweep):
     every slot, through the form the wrapper chooses and through both forms
     (each timed, into ``sweep``). Its time as
     the path calls it (with ``coords`` or not), the plain version's and
-    cdist+topk's; the brute bound (M·N evaluations) and the windows' (the
-    evaluations inside the depth windows of these inputs)."""
+    cdist+topk's; its bound counts the evaluations of the form the route
+    chooses: the windowed form's (inside the depth windows of these
+    inputs) or the brute form's M·N, which is also kept as the brute
+    bound."""
     import torch
 
     from tpu3d_torch.ops import nearest_k
@@ -389,10 +403,13 @@ def check_nearest_k(report, c, x, k, r, coords, label, sweep):
             lambda: launch_nearest_k(c, x, k, r2, windowed), 10)
     chosen = "windowed" if nearest_k_route(b, m, n, r2) else "brute"
     best = min(times, key=times.get)
-    # per evaluation 3 sub, 3 mul, 2 add, radius compare
+    # per evaluation 3 sub, 3 mul, 2 add, radius compare; the bound counts
+    # the evaluations of the form the route chooses
     nbytes = b * (m + n) * 12 + b * m * k * (20 if coords else 8)
-    report.add("nearest_k", 0.0, ms, pms, lms, nbytes, b * m * n * 9,
-               window_ops=window * 9)
+    brute_ops = b * m * n * 9
+    report.add("nearest_k", 0.0, ms, pms, lms, nbytes,
+               window * 9 if chosen == "windowed" else brute_ops,
+               brute_ops=brute_ops)
     sweep.append({"level": label, "B": b, "M": m, "N": n, "k": k, "r": r,
                   "coords": coords, "chosen": chosen, "ms": ms,
                   "queued_ms": ms.queued, "call_ms": ms.call,
@@ -649,17 +666,18 @@ def rcnn_kernels(report, net, xyz, features, path):
         xyz = new_xyz
 
 
-def double_kernels(report, extra, eval_pts, train_pts, npoint):
+def double_kernels(report, extra, eval_pts, train_pts, npoint, sweep):
     """Phase 3 for configs/double.yaml's SA_0 (32768 points, ``npoint``
     picks), each bit for bit against its plain version: the split route's
-    long-row FPS and three_nn at the train batch, and the fused route's
-    FPS+3NN at the eval batch (kept apart in ``extra``: the fps3nn row of
-    ``report`` is default.yaml's)."""
+    long-row FPS and three_nn at the train batch (three_nn also on a tie
+    case: the picks repeated, so that most queries meet equal d² at
+    several ids), and the fused route's FPS+3NN at the eval batch (kept
+    apart in ``extra``: the fps3nn row of ``report`` is default.yaml's)."""
     import torch
 
     from tpu3d_torch.ops import (furthest_point_sample,
                                  furthest_point_sample_with_3nn, fused_route,
-                                 gather_points, three_nn, three_nn_plain)
+                                 gather_points)
     from tpu3d_torch.ops.sampling import (
         furthest_point_sample_plain, furthest_point_sample_with_3nn_plain)
 
@@ -678,23 +696,13 @@ def double_kernels(report, extra, eval_pts, train_pts, npoint):
           f" picks equal")
 
     known = gather_points(train_pts, got)
-    got = three_nn(train_pts, known)
-    ref = three_nn_plain(train_pts, known)
-    torch.cuda.synchronize()
-    check(torch.equal(got[1], ref[1]), f"three_nn ids differ at N={n}")
-    check(torch.equal(got[0], ref[0]), f"three_nn d² differ at N={n}")
-    del got, ref
-    ms = cuda_ms(lambda: three_nn(train_pts, known), 10)
-    pms = cuda_ms(lambda: three_nn_plain(train_pts, known), 1)
-    lms = cuda_ms(lambda: torch.topk(torch.cdist(train_pts, known), 3, dim=2,
-                                     largest=False), 2)
+    check_three_nn(report, train_pts, known,
+                   f"double.yaml train B={B}, RPN SA_0", sweep)
+    repeated = known[:, torch.arange(npoint, device=known.device)
+                     % (npoint // 4)].contiguous()
+    check_three_nn(None, train_pts, repeated, f"double.yaml train B={B}, "
+                   f"RPN SA_0, tie case (each pick four times)", sweep)
     torch.cuda.empty_cache()
-    # per pair 3 sub, 3 mul, 2 add and a compare with the third nearest
-    report.add("three_nn", 0.0, ms, pms, lms,
-               B * n * 12 + B * npoint * 12 + B * n * 24,
-               B * n * npoint * 9)
-    print(f"three_nn B={B} M={n} N={npoint}: {ms:.3f} ms, plain {pms:.3f} "
-          f"ms, cdist+topk {lms:.3f} ms, d² and ids equal")
 
     b = eval_pts.shape[0]
     check(fused_route(b, n, npoint), "double eval SA_0 should be fused")
@@ -711,6 +719,101 @@ def double_kernels(report, extra, eval_pts, train_pts, npoint):
               b * (npoint - 1) * n * 10 + b * n * npoint * 16)
     print(f"fps3nn B={b} N={n} npoint={npoint}: {ms:.3f} ms, plain "
           f"{pms:.3f} ms, picks, nn_d2 and nn_idx equal")
+
+
+def check_three_nn(report, u, known, label, sweep):
+    """three_nn, exact: d² and ids equal the plain version's through the
+    form the wrapper chooses and through both forms (windowed, brute), each
+    timed (into ``sweep``). Into ``report`` (unless None) its time as the
+    path calls it, the plain version's and cdist+topk's; its bound counts
+    the pairs of the form the route chooses: the windowed form's, the pairs
+    inside each query's final depth window (``three_nn_windows``), or the
+    brute form's M·N, which is also kept as the brute bound."""
+    import torch
+
+    from tpu3d_torch.ops import three_nn, three_nn_plain
+    from tpu3d_torch.ops.interpolate import (depth_sort, launch_three_nn,
+                                             three_nn_route,
+                                             three_nn_windows)
+
+    b, m, n = u.shape[0], u.shape[1], known.shape[1]
+    ref = three_nn_plain(u, known)
+    got = three_nn(u, known)
+    torch.cuda.synchronize()
+    check(torch.equal(got[1], ref[1]), f"three_nn ids differ at {label}")
+    check(torch.equal(got[0], ref[0]), f"three_nn d² differ at {label}")
+    lo, hi = three_nn_windows(depth_sort(known)[0], u, ref[0][..., 2])
+    window = int((hi - lo).sum())
+    times = {}
+    for form, windowed in (("brute", False), ("windowed", True)):
+        g = launch_three_nn(u, known, windowed)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, w) for a, w in zip(g, ref)),
+              f"three_nn differs at {label}, {form}")
+        times[form] = cuda_ms(lambda: launch_three_nn(u, known, windowed), 10)
+    del got, ref, g
+    ms = cuda_ms(lambda: three_nn(u, known), 10)
+    pms = cuda_ms(lambda: three_nn_plain(u, known), 1)
+    lms = cuda_ms(lambda: torch.topk(torch.cdist(u, known), 3, dim=2,
+                                     largest=False), 2)
+    sort_ms = cuda_ms(lambda: depth_sort(known), 10)  # the windowed form's
+    torch.cuda.empty_cache()
+    chosen = "windowed" if three_nn_route(b, m, n) else "brute"
+    best = min(times, key=times.get)
+    # per pair 3 sub, 3 mul, 2 add and a compare with the third nearest;
+    # read both clouds, write d² and ids
+    nbytes = b * (m + n) * 12 + b * m * 24
+    brute_ops = b * m * n * 9
+    ops = window * 9 if chosen == "windowed" else brute_ops
+    if report is not None:
+        report.add("three_nn", 0.0, ms, pms, lms, nbytes, ops,
+                   brute_ops=brute_ops)
+    sweep.append({"level": label, "B": b, "M": m, "N": n, "chosen": chosen,
+                  "ms": ms, "queued_ms": ms.queued, "call_ms": ms.call,
+                  "covered": ms.covered, "plain_ms": pms, "library_ms": lms,
+                  "sort_ms": sort_ms, "window_points": window / (b * m),
+                  "bound_ms": bound_ms(nbytes, ops)[0],
+                  "brute_bound_ms": bound_ms(nbytes, brute_ops)[0],
+                  "window_bound_ms": bound_ms(nbytes, window * 9)[0],
+                  "best": best, "sweep_ms": times})
+    print(f"three_nn {label} B={b} M={m} N={n}: {ms:.4f} ms (queued "
+          f"{ms.queued:.4f}, call {ms.call:.4f}) {chosen}, best {best}; "
+          + ", ".join(f"{f} {t:.4f}" for f, t in times.items())
+          + f"; depth sort {sort_ms:.4f}; plain {pms:.3f} ms, cdist+topk "
+          f"{lms:.3f} ms; d² and ids equal in both forms; "
+          f"{window / (b * m):.1f} of {n} points per window; bound "
+          f"{bound_ms(nbytes, ops)[0]:.6f} ms ({chosen})")
+
+
+def split_three_nn(paths, reports, sweep):
+    """Phase 3 for three_nn at the RPN levels of the split route on each
+    path of ``paths`` ({label: (points, npoints)}), the known points the
+    level's FPS picks (``check_three_nn``; into ``reports[label]`` where
+    it has one); then at levels no shipped config reaches, planted-cluster
+    scenes B x M -> N, where the route's threshold falls, and one of 8192
+    known points, above what the windowed form stages in shared
+    memory."""
+    import torch
+
+    from tpu3d_torch.datasets import train_batch
+    from tpu3d_torch.ops import (furthest_point_sample, fused_route,
+                                 gather_points)
+
+    for label, (pts, npoints) in paths.items():
+        for k, (x, npoint) in enumerate(fps_levels(pts, npoints)):
+            B, N, _ = x.shape
+            if fused_route(B, N, npoint):
+                continue
+            known = gather_points(x, furthest_point_sample(x, npoint))
+            check_three_nn(reports.get(label), x, known,
+                           f"{label}, RPN SA_{k}", sweep)
+    for B, M, N in ((8, 1024, 256), (4, 4096, 1024), (8, 4096, 1024),
+                    (16, 4096, 1024), (2, 16384, 4096), (1, 32768, 8192)):
+        x = torch.from_numpy(train_batch(B, M, SEED)["pts_input"]).to(
+            DEVICE)
+        known = gather_points(x, furthest_point_sample(x, N))
+        check_three_nn(None, x, known, f"planted scenes B={B} {M} -> {N}",
+                       sweep)
 
 
 def launch_picks(xyz, npoint, geometry):
@@ -1722,6 +1825,125 @@ def slab_train_kernels(x0, mlp, label, gen):
     return rows
 
 
+# the packed slab launch: (label, R, M, S) of the shapes each groups-per-
+# block G is timed at (C 128 -> 128 -> 256, RCNN SA_1's widths): smoke's SA_1
+# (eval 2 x 64 ROIs, train 2 x 16), S 16 and 32 levels of as many groups,
+# and of 384, 256 and 128 groups, around SLAB_PACK_MIN_GROUPS[S]
+SLAB_GROUP_TIMES = [(f"{SMOKE_PATH['eval']}, RCNN SA_1", 128, 16, 16),
+                    (f"{SMOKE_PATH['train']}, RCNN SA_1", 32, 16, 16),
+                    ("S 16, 1024 groups", 64, 16, 16),
+                    ("S 16, 384 groups", 24, 16, 16),
+                    ("S 16, 256 groups", 16, 16, 16),
+                    ("S 16, 128 groups", 8, 16, 16),
+                    ("S 32, 2048 groups", 128, 16, 32),
+                    ("S 32, 512 groups", 32, 16, 32),
+                    ("S 32, 384 groups", 24, 16, 32),
+                    ("S 32, 256 groups", 16, 16, 32),
+                    ("S 32, 128 groups", 8, 16, 32)]
+
+
+def slab_group_inputs(R, M, S, seed, c1=128, c2=128, c3=256):
+    """A seeded slab whose groups repeat their first h slots (h random per
+    group, as pooled ROIs with few points do, so ties at several slots are
+    common), weights and the no-BN packs: (x0, w1, b1, w2, b2, packs)."""
+    import torch
+
+    from tpu3d_torch.ops.fused_sa import nobn_packs
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    x0 = torch.randn(R, M, S, c1, generator=g, device=DEVICE)
+    h = torch.randint(1, S + 1, (R, M, 1), generator=g, device=DEVICE)
+    x0 = torch.gather(x0, 2, (torch.arange(S, device=DEVICE) % h)[
+        ..., None].expand(-1, -1, -1, c1)).contiguous()
+    w1 = torch.randn(c1, c2, generator=g, device=DEVICE) / c1 ** 0.5
+    w2 = torch.randn(c2, c3, generator=g, device=DEVICE) / c2 ** 0.5
+    b1 = torch.randn(c2, generator=g, device=DEVICE) * 0.1
+    b2 = torch.randn(c3, generator=g, device=DEVICE) * 0.1
+    return x0, w1, b1, w2, b2, nobn_packs(c1, b1, b2)
+
+
+def slab_groups():
+    """Phase 3 for the slab form's packed forward launch. At S 16, 32 and
+    64 on seeded slabs of 37 x 7 groups (a tail block at G 2 and 4), C3
+    128 and 256, every groups-per-block G the kernel takes (1, and 64 / S
+    at S 16 and 32): the eval
+    output within 1e-4 of the plain version's largest value, the training
+    output equal to the eval kernel's to the bit, ppre within 1e-4, the
+    first argmax equal to the plain version's at every channel without a
+    near-tie, and each G's out, argmax and ppre equal to G = 1's to the
+    bit. Then at SLAB_GROUP_TIMES every G timed, eval and train, beside the
+    G that ``slab_groups_per_block`` chooses. -> the JSON rows."""
+    import torch
+
+    from tpu3d_torch.ops import fused_sa as fs
+
+    def forward(args, G, train):
+        x0, w1, _, w2, _, packs = args
+        return fs._slab_forward(
+            "fused_sa_slab_train" if train else "fused_sa_slab", x0, packs,
+            w1, w2, train=train, groups=G)
+
+    for S in (16, 32, 64):
+        for c3 in (128, 256):
+            args = slab_group_inputs(37, 7, S, S + c3, c3=c3)
+            x0, w1, b1, w2, b2, _ = args
+            with torch.no_grad():
+                r_out, r_arg, r_ppre = fs.fused_mlp_pool_train_plain(
+                    x0, w1, b1, w2, b2)
+                a2 = torch.relu(fs._nobn_slab_chain(x0, w1, b1, w2, b2))
+            scale = r_out.abs().max().item()
+            top = r_out[:, :, None, :]
+            near = ((a2 >= top - 1e-4 * scale) & (a2 != top)).any(dim=2)
+            del a2
+            first = None
+            for G in sorted({1, 64 // S}):
+                (out,) = forward(args, G, False)
+                train = forward(args, G, True)
+                torch.cuda.synchronize()
+                at = f"S={S} C3={c3} G={G}"
+                err = (out - r_out).abs().max().item()
+                check(err <= 1e-4 * scale, f"fused_sa_slab differs by {err} "
+                      f"at {at}")
+                check(torch.equal(train[0], out), f"fused_sa_slab_train out "
+                      f"differs from the eval kernel's at {at}")
+                perr = (train[2] - r_ppre).abs().max().item()
+                check(perr <= 1e-4 * max(scale, r_ppre.abs().max().item()),
+                      f"fused_sa_slab_train ppre differs by {perr} at {at}")
+                flips = (train[1] != r_arg) & ~near
+                check(not bool(flips.any()), f"fused_sa_slab_train argmax "
+                      f"differs in {int(flips.sum())} channels without a "
+                      f"near-tie at {at}")
+                first = first or train
+                check(all(torch.equal(a, b) for a, b in zip(train, first)),
+                      f"the slab forward at {at} differs from G = 1's")
+            print(f"slab forward S={S} C3={c3}, 37 x 7 groups: every G "
+                  f"within 1e-4 of the plain version, out equal to eval, "
+                  f"argmax equal but at near-ties, all G equal to G = 1's")
+    rows = []
+    for label, R, M, S in SLAB_GROUP_TIMES:
+        args = slab_group_inputs(R, M, S, R + S)
+        c1, c2, c3 = 128, 128, 256
+        chosen = fs.slab_groups_per_block(R, M, S, c1, c2, c3)
+        times = {}
+        with torch.no_grad():
+            for G in sorted({1, 64 // S}):
+                for train in (False, True):
+                    times[f"{'train' if train else 'eval'} G={G}"] = cuda_ms(
+                        lambda: forward(args, G, train), 20)
+        slots = R * M * S
+        ops = slots * (2 * (c1 * c2 + c2 * c3) + 3 * (c1 + c2 + c3) + c3)
+        nbytes = 4 * (slots * c1 + c1 * c2 + c2 * c3 + R * M * c3)
+        rows.append({"level": label, "R": R, "M": M, "S": S,
+                     "groups": R * M, "chosen_G": chosen,
+                     "eval_bound_ms": bound_ms(nbytes, ops)[0],
+                     "sweep_ms": times})
+        print(f"slab forward {label} R={R} M={M} S={S}: G={chosen} chosen; "
+              + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+              + f" ms; eval bound {bound_ms(nbytes, ops)[0]:.4f} ms")
+        del args
+    return rows
+
+
 def routed_plain(leaves, arg, eps):
     """The BatchNorm chain in training, plain and differentiable by
     autograd, on leaves (x0, w1, w2, gammas, betas), its max-pool routed
@@ -2562,8 +2784,10 @@ def main() -> int:
     full_spread = {}
     fused_train_kernels(report, full_spread, train_model, target)
     torch.cuda.empty_cache()
+    three_nn_sweep = []
     double_kernels(report, double_report, dpts,
-                   dtbatch["pts_input"][..., :3].contiguous(), sa0)
+                   dtbatch["pts_input"][..., :3].contiguous(), sa0,
+                   three_nn_sweep)
     torch.cuda.empty_cache()
     # FPS's pick loop at every level it serves on each path: its launch
     # geometry and the sweep around it, the 3-NN pass, the latency floor
@@ -2580,12 +2804,27 @@ def main() -> int:
             (SMOKE_PATH["eval"], sm["pts"], sm["cfg"]),
             (SMOKE_PATH["train"], sm["tbatch"], sm["cfg"]))})
     torch.cuda.empty_cache()
+    # three_nn at the split route's levels of quickstart and smoke (their
+    # eval paths' rows kept apart in quick_report and smoke_report), then
+    # at the levels that place the route's threshold
+    quick_report, smoke_report = Report(), Report()
+    split_three_nn({
+        path: (p["pts_input"][..., :3].contiguous() if isinstance(p, dict)
+               else p, c["cfg"].RPN.SA_CONFIG.NPOINTS)
+        for path, p, c in ((QUICK_PATH["eval"], q["pts"], q),
+                           (QUICK_PATH["train"], q["tbatch"], q),
+                           (SMOKE_PATH["eval"], sm["pts"], sm),
+                           (SMOKE_PATH["train"], sm["tbatch"], sm))},
+        {QUICK_PATH["eval"]: quick_report, SMOKE_PATH["eval"]: smoke_report},
+        three_nn_sweep)
+    # the slab forward's packed launch at S 16, 32 and 64
+    slab_group_rows = slab_groups()
+    torch.cuda.empty_cache()
     # the slab form: the eval kernel at RCNN SA_1 of quickstart.yaml's and
     # smoke.yaml's eval forward, the training kernels at RCNN SA_1 of their
     # train steps' sampled rows (smoke's kept apart in smoke_report), the
     # eval kernel with BatchNorm packs at RCNN SA_0 and SA_1 of the
     # BatchNorm RCNN's eval forward
-    smoke_report = Report()
     slab_gen = torch.Generator(device="cpu").manual_seed(SEED + 4)
     slab_cases = (
         (QUICK_PATH["eval"], q["model"], pooled_inputs(q["model"], q["pts"]),
@@ -2889,6 +3128,7 @@ def main() -> int:
         # dense box at the eval shapes (launches of the path it stands for)
         for extra, at, where, inputs in (
                 (double_report, "at_32768", "double.yaml eval B=4", None),
+                (quick_report, "at_quickstart", QUICK_PATH[slab_mode], None),
                 (smoke_report, "at_smoke", SMOKE_PATH[slab_mode], None),
                 (train_report, "at_train", "default.yaml train B=16", None),
                 (dense_report, "at_dense", "default.yaml eval B=2",
@@ -2908,6 +3148,8 @@ def main() -> int:
             **full_spread["fused_sa_bwd"]},
         "fps_pick_loop": fps_rows, "fps_floor": fps_floor,
         "nearest_k_levels": nk_sweep,
+        "three_nn_levels": three_nn_sweep,
+        "slab_groups": slab_group_rows,
         "bn_train_chain_library_ms": {
             "path": BN_TRAIN_PATH, "what": "cuBLAS chain with "
             "batch-statistics BatchNorm under autograd, forward and backward",

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from _nearest_k_cases import dense_cloud, tie_cases
+from _three_nn_cases import three_nn_cases
 
 from tpu3d_torch.models.pointnet2 import PointnetSAModule
 from tpu3d_torch.ops import (furthest_point_sample,
@@ -34,6 +35,7 @@ from tpu3d_torch.ops.fused_sa import (
 from tpu3d_torch.ops.grouping import (_radius2, launch_nearest_k,
                                       nearest_k_plain)
 from tpu3d_torch.ops.interpolate import (backward_workspace,
+                                         launch_three_nn,
                                          three_interpolate_backward,
                                          three_interpolate_backward_plain,
                                          three_interpolate_plain)
@@ -704,3 +706,75 @@ def test_fps_rows_on_cuda(shape):
                                furthest_point_sample_plain(rows, npoint),
                                rtol=0, atol=0)
     assert _build.LAUNCHES["fps"] == 1
+
+
+THREE_NN_CASES = three_nn_cases(seed=1, scale=4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", THREE_NN_CASES + [4096, 8192],
+                         ids=[c[0] for c in THREE_NN_CASES]
+                         + ["double SA_0 (2 x 32768 -> 4096)",
+                            "2 x 32768 -> 8192 (not staged)"])
+def test_three_nn_forms_on_cuda(case):
+    """Both forms of three_nn against three_nn_plain on the card, bit for
+    bit (d² and ids): the windowed form and the brute form, on the CPU
+    tests' adversarial cases (four times the points), at double.yaml's
+    SA_0 on two scenes, and at 8192 known points, where the windowed form
+    reads its scene from global memory (above csrc/three_nn.cu's
+    kStageMax); one counted launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    if isinstance(case, int):
+        xyz = torch.from_numpy(_cloud(np.random.default_rng(7), 2, 32768))
+        u = xyz.cuda()
+        k = xyz[:, ::32768 // case].contiguous().cuda()
+    else:
+        u, k = (torch.from_numpy(t).cuda() for t in case[1:])
+    ref = three_nn_plain(u, k)
+    _build.reset_launches()
+    for windowed in (True, False):
+        got = launch_three_nn(u, k, windowed)
+        for g, r in zip(got, ref):
+            torch.testing.assert_close(g, r, rtol=0, atol=0)
+    assert _build.LAUNCHES["three_nn"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [16, 32, 64])
+def test_slab_groups_on_cuda(s):
+    """The slab form's forward at every groups-per-block G the kernel takes
+    at S (1 and 4 at S 16; 1 and 2 at S 32; 1 at S 64), on 37 x 7 groups
+    (a tail block at G 2 and 4), C3 128 and 256: the eval output within
+    1e-4 of the plain version's largest value, the training output equal
+    to the eval kernel's to the bit, its first-argmax slots equal to the
+    plain version's but at near-ties, ppre within 1e-4; and every G's out,
+    argmax and ppre equal to G = 1's to the bit (a G moves no sum). A G
+    below 64 / S but above 1 is refused by the C entries."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    for c3 in (128, 256):
+        *args, _ = _slab_inputs(37, 7, s, c3, seed=s + c3)
+        x0, w1, b1, w2, b2 = args
+        packs = fs.nobn_packs(x0.shape[-1], b1, b2)
+        ref = fused_mlp_pool_train_plain(*args)
+        tol = 1e-4 * ref[0].abs().max().item()
+        first = None
+        if s == 16:
+            with pytest.raises(RuntimeError):
+                fs._slab_forward("fused_sa_slab", x0, packs, w1, w2,
+                                 groups=2)
+        for G in sorted({1, 64 // s}):
+            (out,) = fs._slab_forward("fused_sa_slab", x0, packs, w1, w2,
+                                      groups=G)
+            train = fs._slab_forward("fused_sa_slab_train", x0, packs, w1,
+                                     w2, train=True, groups=G)
+            torch.testing.assert_close(out, ref[0], rtol=0, atol=tol)
+            torch.testing.assert_close(train[0], out, rtol=0, atol=0)
+            agree = (train[1] == ref[1]).float().mean().item()
+            assert agree > 0.999, (G, agree)  # near-ties may flip in f32
+            torch.testing.assert_close(train[2], ref[2], rtol=0, atol=tol)
+            if first is None:
+                first = train
+            for a, b in zip(train, first):
+                torch.testing.assert_close(a, b, rtol=0, atol=0)

@@ -59,7 +59,12 @@
 // weight buffer once the tile's layer 2 is done with it. fused_sa_kernel is
 // the same design with one chunk and one tile, its shapes compiled in (the
 // wide kernel at those shapes ran 6-20% slower on an H100); two
-// blocks fit on an SM.
+// blocks fit on an SM. Every block stages all of W1 and W2 through shared
+// memory (C1·C2 + C2·C3 floats, some 200 KB from L2 at the RCNN's SA_1),
+// which at S = 16 served only 2 rows per warp: there the slab form packs G
+// = 64 / S consecutive groups into one block of 64 rows (8 rows per warp,
+// as at S = 64), each warp's rows in one group, so a block reads the
+// weights once for G groups (ops/fused_sa.py::slab_groups_per_block).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -107,32 +112,48 @@ __device__ __forceinline__ float4 mul4(const float* m, int col) {
     return make_float4(1.0f, 1.0f, 1.0f, 1.0f);
 }
 
-// The shipped shapes' kernel: S = 8·TM slots (16, 32 or 64), C1 up to 256,
-// C2 and C3 each 128 or 256 (TN2, TN3 = 4 or 8): one chunk of slots and one
-// tile of each layer, its widths compiled in.
-template <int TM, int TN2, int TN3, bool TRAIN, bool SLAB>
+// The shipped shapes' kernel: G groups of S slots (16, 32 or 64), 8·TM =
+// G·S rows, C1 up to 256, C2 and C3 each 128 or 256 (TN2, TN3 = 4 or 8):
+// one chunk of slots and one tile of each layer, its widths compiled in.
+// With G = 1 a block is one (row, center) group on the (M, R) grid; the
+// slab form also packs G = 64 / S consecutive groups of S 16 or 32 into a
+// block of 64 rows on a flat grid (ops/fused_sa.py::slab_groups_per_block
+// chooses G), so that each weight slice staged in shared memory serves 8
+// rows of every warp, not S / 8. A warp's TM rows lie in one group: each
+// group's max and first argmax reduce over its own 8 / G warps, and a tail
+// block writes only its live groups (the rows of the others are zero).
+template <int TM, int TN2, int TN3, bool TRAIN, bool SLAB, int G>
 __global__ void __launch_bounds__(kThreads, 2)
-fused_sa_kernel(const Args a, int N, int M, int C1) {
-  constexpr int S = kWarps * TM;
+fused_sa_kernel(const Args a, int N, int M, int C1, long long groups) {
+  constexpr int TR = kWarps * TM;  // rows of the block
+  constexpr int S = TR / G;
+  constexpr int WG = kWarps / G;   // warps per group
   constexpr int C2 = 32 * TN2;
   constexpr int C3 = 32 * TN3;
   constexpr int kWbuf = kKC * (C2 > C3 ? C2 : C3);
   static_assert(!TRAIN || kWbuf >= 2 * kWarps * C3, "argmax scratch");
+  static_assert(G == 1 || (SLAB && S % TM == 0), "packed groups: slab form");
   extern __shared__ float smem[];
-  float* x0 = smem;            // S x C1: layer 0's activation
-  float* x1 = x0 + S * C1;     // S x C2: layer 1's activation
-  float* wbuf = x1 + S * C2;   // kKC x max(C2, C3)
+  float* x0 = smem;            // TR x C1: layer 0's activation
+  float* x1 = x0 + TR * C1;    // TR x C2: layer 1's activation
+  float* wbuf = x1 + TR * C2;  // kKC x max(C2, C3)
   float* red = wbuf + kWbuf;   // kWarps x C3: per-warp column maxima
 
-  const int m = blockIdx.x;
-  const int row = blockIdx.y;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const size_t group = (size_t)row * M + m;
-  if constexpr (SLAB)  // the group is one chunk
-    load_x0(a.pre, a.mul0, a.add0, group, S, C1, 0, S, S, x0);
+  size_t group;  // the block's first group
+  int live = 1;  // its groups below R·M
+  if constexpr (G == 1) {
+    group = (size_t)blockIdx.y * M + blockIdx.x;
+  } else {
+    group = (size_t)blockIdx.x * G;
+    live = (int)min((long long)G, groups - (long long)group);
+  }
+  if constexpr (SLAB)  // the block's groups are one run of slab rows
+    load_x0(a.pre, a.mul0, a.add0, group, S, C1, 0, live * S, TR, x0);
   else
-    gather_x0(a.pre, a.idx, a.center, group, row, N, S, C1, 0, S, S, x0);
+    gather_x0(a.pre, a.idx, a.center, group, blockIdx.y, N, S, C1, 0, S, S,
+              x0);
 
   {  // layer 1 (the barrier in dense() orders the load before it)
     float acc[TM][TN2];
@@ -198,61 +219,70 @@ fused_sa_kernel(const Args a, int N, int M, int C1) {
               px = v;
             }
           }
-          warg[warp * C3 + col + r] = warp * TM + first;
+          // the slot in the warp's group
+          warg[warp * C3 + col + r] = (G == 1 ? warp * TM : warp * TM % S)
+                                      + first;
           wpre[warp * C3 + col + r] = px;
         }
       }
     }
   }
   __syncthreads();
-  for (int c = threadIdx.x; c < C3; c += kThreads) {
-    float v = red[c];
+  // each live group's channels over its own warps, the lowest warp (so the
+  // lowest slot) first on a tie
+  for (int e = threadIdx.x; e < live * C3; e += kThreads) {
+    const int j = G == 1 ? 0 : e / C3, c = e - j * C3;
+    const int w0 = j * WG;
+    float v = red[w0 * C3 + c];
 #pragma unroll
-    for (int w = 1; w < kWarps; ++w) v = fmaxf(v, red[w * C3 + c]);
-    a.out[group * C3 + c] = v;
+    for (int w = 1; w < WG; ++w) v = fmaxf(v, red[(w0 + w) * C3 + c]);
+    const size_t at = (group + j) * C3 + c;
+    a.out[at] = v;
     if constexpr (TRAIN) {
       const int* warg = reinterpret_cast<const int*>(wbuf);
       const float* wpre = wbuf + kWarps * C3;
-      int w = 0;
-      while (w < kWarps - 1 && red[w * C3 + c] != v) ++w;
-      a.argmax[group * C3 + c] = warg[w * C3 + c];
-      a.ppre[group * C3 + c] = wpre[w * C3 + c];
+      int w = w0;
+      while (w < w0 + WG - 1 && red[w * C3 + c] != v) ++w;
+      a.argmax[at] = warg[w * C3 + c];
+      a.ppre[at] = wpre[w * C3 + c];
     }
   }
 }
 
-template <int TM, int TN2, int TN3, bool TRAIN, bool SLAB>
+template <int TM, int TN2, int TN3, bool TRAIN, bool SLAB, int G>
 cudaError_t launch_shipped(const Args& a, int R, int N, int M, int C1,
                    cudaStream_t stream) {
-  constexpr int S = kWarps * TM;
+  constexpr int TR = kWarps * TM;
   constexpr int C2 = 32 * TN2;
   constexpr int C3 = 32 * TN3;
-  const size_t floats = (size_t)S * C1 + S * C2 + kKC * (C2 > C3 ? C2 : C3)
-                        + kWarps * C3;
+  const size_t floats = (size_t)TR * C1 + TR * C2
+                        + kKC * (C2 > C3 ? C2 : C3) + kWarps * C3;
   const size_t smem = floats * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_sa_kernel<TM, TN2, TN3, TRAIN, SLAB>,
+      fused_sa_kernel<TM, TN2, TN3, TRAIN, SLAB, G>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(M, R);
-  fused_sa_kernel<TM, TN2, TN3, TRAIN, SLAB>
-      <<<grid, kThreads, smem, stream>>>(a, N, M, C1);
+  const long long groups = (long long)R * M;
+  const dim3 grid =
+      G == 1 ? dim3(M, R) : dim3((unsigned)((groups + G - 1) / G));
+  fused_sa_kernel<TM, TN2, TN3, TRAIN, SLAB, G>
+      <<<grid, kThreads, smem, stream>>>(a, N, M, C1, groups);
   return cudaGetLastError();
 }
 
-template <int TM, bool TRAIN, bool SLAB>
+template <int TM, bool TRAIN, bool SLAB, int G = 1>
 cudaError_t launch_shipped_c(const Args& a, int R, int N, int M, int C1,
                              int C2, int C3, cudaStream_t stream) {
   if (C2 == 128 && C3 == 128)
-    return launch_shipped<TM, 4, 4, TRAIN, SLAB>(a, R, N, M, C1, stream);
+    return launch_shipped<TM, 4, 4, TRAIN, SLAB, G>(a, R, N, M, C1, stream);
   if (C2 == 128 && C3 == 256)
-    return launch_shipped<TM, 4, 8, TRAIN, SLAB>(a, R, N, M, C1, stream);
+    return launch_shipped<TM, 4, 8, TRAIN, SLAB, G>(a, R, N, M, C1, stream);
   if constexpr (SLAB) {  // the slab form takes C2 = 128 only
     return cudaErrorInvalidValue;
   } else {
     if (C2 == 256 && C3 == 128)
-      return launch_shipped<TM, 8, 4, TRAIN, SLAB>(a, R, N, M, C1, stream);
-    return launch_shipped<TM, 8, 8, TRAIN, SLAB>(a, R, N, M, C1, stream);
+      return launch_shipped<TM, 8, 4, TRAIN, SLAB, G>(a, R, N, M, C1, stream);
+    return launch_shipped<TM, 8, 8, TRAIN, SLAB, G>(a, R, N, M, C1, stream);
   }
 }
 
@@ -424,18 +454,37 @@ cudaError_t launch_c(const Args& a, int R, int N, int M, int S, int C1,
   return launch<TM, 4, TRAIN, SLAB>(a, R, N, M, S, C1, C2, C3, stream);
 }
 
+// Whether (S, C1, C2, C3, R) takes the shipped shapes' kernel.
+// ops/fused_sa.py::shipped_shape computes the same.
+bool shipped_shape(bool slab, int R, int S, int C1, int C2, int C3) {
+  return (S == 16 || S == 32 || S == 64) && C1 <= 256
+         && (C2 == 128 || (!slab && C2 == 256)) && (C3 == 128 || C3 == 256)
+         && R <= 65535;
+}
+
+// G groups per block: 1, or 64 / S in the slab form at the shipped shapes
+// with S 16 or 32
 template <bool TRAIN, bool SLAB>
 int dispatch(const Args& a, int R, int N, int M, int S, int C1, int C2,
-             int C3, void* stream_ptr) {
+             int C3, int G, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (const int pending = tpu3d::pending_error(stream)) return pending;
   if (R < 1 || (!SLAB && N < 1) || M < 1 || (long long)R * M > 0x7fffffffLL
       || S < 8 || S % 8 != 0 || C1 < 4 || C1 % 4 != 0 || C2 < 128
       || C2 % 128 != 0 || C3 < 128 || C3 % 128 != 0)
     return (int)cudaErrorInvalidValue;
-  const bool shipped = (S == 16 || S == 32 || S == 64) && C1 <= 256
-                       && (C2 == 128 || (!SLAB && C2 == 256))
-                       && (C3 == 128 || C3 == 256) && R <= 65535;
+  const bool shipped = shipped_shape(SLAB, R, S, C1, C2, C3);
+  if (G != 1) {
+    if (!SLAB || !shipped || S == 64 || G * S != 64)
+      return (int)cudaErrorInvalidValue;
+    if constexpr (SLAB) {
+      if (S == 32)
+        return (int)launch_shipped_c<8, TRAIN, SLAB, 2>(a, R, N, M, C1, C2,
+                                                         C3, stream);
+      return (int)launch_shipped_c<8, TRAIN, SLAB, 4>(a, R, N, M, C1, C2, C3,
+                                                       stream);
+    }
+  }
   if (shipped) {
     if (S == 16)
       return (int)launch_shipped_c<2, TRAIN, SLAB>(a, R, N, M, C1, C2, C3,
@@ -481,7 +530,7 @@ extern "C" int tpu3d_fused_sa(const float* pre, const int* idx,
                               void* stream_ptr) {
   const Args a{pre, idx, center, nullptr, nullptr, w1, nullptr, b1, w2,
                nullptr, b2, out, nullptr, nullptr};
-  return dispatch<false, false>(a, R, N, M, S, C1, C2, C3, stream_ptr);
+  return dispatch<false, false>(a, R, N, M, S, C1, C2, C3, 1, stream_ptr);
 }
 
 extern "C" int tpu3d_fused_sa_train(const float* pre, const int* idx,
@@ -493,18 +542,18 @@ extern "C" int tpu3d_fused_sa_train(const float* pre, const int* idx,
                                     void* stream_ptr) {
   const Args a{pre, idx, center, nullptr, nullptr, w1, nullptr, b1, w2,
                nullptr, b2, out, argmax, ppre};
-  return dispatch<true, false>(a, R, N, M, S, C1, C2, C3, stream_ptr);
+  return dispatch<true, false>(a, R, N, M, S, C1, C2, C3, 1, stream_ptr);
 }
 
 // The slab form, eval: x0 (R, M, S, C1), packs as slab_args takes them,
-// w1 (C1, C2), w2 (C2, C3) -> out (R, M, C3).
+// w1 (C1, C2), w2 (C2, C3), G groups per block -> out (R, M, C3).
 extern "C" int tpu3d_fused_sa_slab(const float* x0, const float* packs,
                                    const float* w1, const float* w2, int R,
                                    int M, int S, int C1, int C2, int C3,
-                                   float* out, void* stream_ptr) {
+                                   int G, float* out, void* stream_ptr) {
   return dispatch<false, true>(
       slab_args(x0, packs, w1, w2, C1, C2, C3, out, nullptr, nullptr), R, 0,
-      M, S, C1, C2, C3, stream_ptr);
+      M, S, C1, C2, C3, G, stream_ptr);
 }
 
 // The slab form's training forward: as tpu3d_fused_sa_slab, and argmax,
@@ -512,9 +561,10 @@ extern "C" int tpu3d_fused_sa_slab(const float* x0, const float* packs,
 extern "C" int tpu3d_fused_sa_slab_train(const float* x0, const float* packs,
                                          const float* w1, const float* w2,
                                          int R, int M, int S, int C1, int C2,
-                                         int C3, float* out, int* argmax,
-                                         float* ppre, void* stream_ptr) {
+                                         int C3, int G, float* out,
+                                         int* argmax, float* ppre,
+                                         void* stream_ptr) {
   return dispatch<true, true>(
       slab_args(x0, packs, w1, w2, C1, C2, C3, out, argmax, ppre), R, 0, M,
-      S, C1, C2, C3, stream_ptr);
+      S, C1, C2, C3, G, stream_ptr);
 }

@@ -55,7 +55,8 @@ L = ctypes.c_longlong
 KERNELS = {
     "fps3nn": ("fps3nn", "tpu3d_fps3nn", [P, I, I, I, I, I, I, P, P, P, P]),
     "fps_long": ("fps3nn", "tpu3d_fps_long", [P, I, I, I, I, I, I, P, P]),
-    "three_nn": ("three_nn", "tpu3d_three_nn", [P, P, I, I, I, P, P, P]),
+    "three_nn": ("three_nn", "tpu3d_three_nn",
+                 [P, P, P, I, I, I, P, P, P, P]),
     "nearest_k": ("nearest_k", "tpu3d_nearest_k",
                   [P, P, P, P, I, I, I, I, F, P, P, P, P]),
     "three_interpolate": ("three_interpolate", "tpu3d_three_interpolate",
@@ -73,11 +74,11 @@ KERNELS = {
                      [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P,
                       P, P, P, P, P]),
     "fused_sa_slab": ("fused_sa", "tpu3d_fused_sa_slab",
-                      [P, P, P, P, I, I, I, I, I, I, P, P]),
+                      [P, P, P, P, I, I, I, I, I, I, I, P, P]),
     "fused_sa_slab_bn": ("fused_sa", "tpu3d_fused_sa_slab",
-                         [P, P, P, P, I, I, I, I, I, I, P, P]),
+                         [P, P, P, P, I, I, I, I, I, I, I, P, P]),
     "fused_sa_slab_train": ("fused_sa", "tpu3d_fused_sa_slab_train",
-                            [P, P, P, P, I, I, I, I, I, I, P, P, P, P]),
+                            [P, P, P, P, I, I, I, I, I, I, I, P, P, P, P]),
     "fused_sa_slab_bwd": ("fused_sa_bwd", "tpu3d_fused_sa_slab_bwd",
                           [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P, P, P,
                            P, P]),

@@ -38,10 +38,12 @@ form), and the BatchNorm chain's training kernels ``_stats0_kernel``,
 ``_bwd_wave1_kernel``, ``_bwd_wave2_kernel`` and ``_bwd_apply_kernel``.
 The two Dense layers make them bound by operations; one block per (row,
 center) loads its group into shared memory a chunk of slots at a time
-(gathered, or read from the slab), and the backward walks the reached slots
-of many groups per block, summing the weight gradients in registers, shared
-memory or the block's own workspace slice before one reduction in block
-order; the BatchNorm chain's products are register-tiled over flat tiles of
+(gathered, or read from the slab; the slab form at S 16 and 32 packs
+``slab_groups_per_block`` groups into a block of 64 rows, so that each
+staged weight slice serves 8 rows per warp), and the backward walks the
+reached slots of many groups per block, summing the weight gradients in
+registers, shared memory or the block's own workspace slice before one
+reduction in block order; the BatchNorm chain's products are register-tiled over flat tiles of
 slots and sum their per-channel reductions in f64 per block.
 The slab kernel takes each layer as a per-channel affine (mul, add) between
 two Dense layers, a_l = ReLU(x_l·mul_l + add_l): mul = 1 and add = (0, b1,
@@ -324,6 +326,38 @@ def forward_rows_per_warp(S: int, C1: int, C2: int, C3: int) -> int:
             return tm
         tm //= 2
     return 0
+
+
+def shipped_shape(slab: bool, R: int, S: int, C1: int, C2: int,
+                  C3: int) -> bool:
+    """Whether a forward at (R, S, C1, C2, C3) takes the shipped shapes'
+    kernel (fused_sa.cu::shipped_shape): S 16, 32 or 64, C1 up to 256, C2
+    128 (or 256 in the gather form), C3 128 or 256, R up to 65535; else the
+    wide kernel."""
+    return (S in (16, 32, 64) and C1 <= 256 and C3 in (128, 256)
+            and (C2 == 128 or (not slab and C2 == 256)) and R <= 65535)
+
+
+SLAB_ROWS = 64  # rows of a block of the shipped kernel at most: 8 warps x 8
+# the packed slab launch takes 64 / S groups per block from this many
+# groups on, by S. Device times on an H100 at the shapes chip_smoke.py
+# sweeps (PERF.md), eval and train forward: packed faster at each swept
+# count at or above it; below it, one group per block faster at every swept
+# count at S 16 (128, 256) and at S 32's 128, mixed at S 32's 384 (eval
+# faster, train slower) and 7% slower at its 256
+SLAB_PACK_MIN_GROUPS = {16: 384, 32: 512}
+
+
+def slab_groups_per_block(R: int, M: int, S: int, C1: int, C2: int,
+                          C3: int) -> int:
+    """G, the (row, center) groups each block of the slab form's forward
+    takes (its C entries check it): at the shipped shapes with S 16 or 32
+    and at least ``SLAB_PACK_MIN_GROUPS[S]`` groups, as many as fill a
+    block of ``SLAB_ROWS`` rows (4 at S 16, 2 at S 32); else 1."""
+    if (S in SLAB_PACK_MIN_GROUPS and shipped_shape(True, R, S, C1, C2, C3)
+            and R * M >= SLAB_PACK_MIN_GROUPS[S]):
+        return SLAB_ROWS // S
+    return 1
 
 
 def _bwd_smem(tm, nbuf, c1, c2, c3, dw2_shared):
@@ -725,13 +759,16 @@ def _check_slab(x0, packs, w1, w2, train=False):
     return R, M, S, C1, C2, C3
 
 
-def _slab_forward(kernel, x0, packs, w1, w2, train=False):
-    """Launch a forward kernel of the slab form -> ``_pooled``'s
+def _slab_forward(kernel, x0, packs, w1, w2, train=False, groups=None):
+    """Launch a forward kernel of the slab form, with ``groups`` groups
+    per block (default: ``slab_groups_per_block``) -> ``_pooled``'s
     outputs."""
     R, M, S, C1, C2, C3 = _check_slab(x0, packs, w1, w2)
+    if groups is None:
+        groups = slab_groups_per_block(R, M, S, C1, C2, C3)
     outs = _pooled(R, M, C3, x0.device, train)
     _build.launch(kernel, x0.data_ptr(), packs.data_ptr(), w1.data_ptr(),
-                  w2.data_ptr(), R, M, S, C1, C2, C3,
+                  w2.data_ptr(), R, M, S, C1, C2, C3, groups,
                   *(t.data_ptr() for t in outs))
     return outs
 

@@ -24,6 +24,7 @@ import math
 import torch
 
 from . import _build
+from .interpolate import depth_sort
 from .sampling import _d2
 
 # the windowed form pays a depth sort (torch.sort) per call, which the
@@ -47,15 +48,6 @@ def nearest_k_route(B: int, M: int, N: int, r2max: float) -> bool:
     evaluations. A speed choice only: both forms give the plain result to
     the bit."""
     return math.isfinite(r2max) and B * M * N >= NK_WINDOW_MIN_EVALS
-
-
-def depth_sort(pts: torch.Tensor):
-    """(B, N, 3) -> (zs (B, N) f32, order (B, N) i64): each scene's depths
-    z ascending and the ids of the points in that order (a stable sort:
-    equal depths keep id order; NaN depths last). The windowed kernel's
-    index, and the plain windows'."""
-    zs, order = torch.sort(pts[..., 2].contiguous(), dim=1, stable=True)
-    return zs.contiguous(), order.contiguous()
 
 
 def depth_windows(zs: torch.Tensor, centers: torch.Tensor,

@@ -2,11 +2,12 @@
 propagation with its gradient.
 
 Counterpart of ``tpu3d/ops/interpolate.py``. ``three_nn`` launches the CUDA
-kernel in ``csrc/three_nn.cu`` for CUDA tensors and runs
-``three_nn_plain`` for CPU tensors; the FP levels take their neighbours
-from ``furthest_point_sample_with_3nn``, which calls it on its split route
-(SA_0 of a 16-scene batch of 32768 points). ``three_interpolate`` is a
-``torch.autograd.Function``: its forward launches the CUDA kernel in
+kernel in ``csrc/three_nn.cu`` for CUDA tensors, in the form
+``three_nn_route`` picks, and runs ``three_nn_plain`` for CPU tensors; the
+FP levels take their neighbours from ``furthest_point_sample_with_3nn``,
+which calls it on its split route (SA_0 of a 16-scene batch of 32768
+points, and the RPN levels of fewer than 256 points). ``three_interpolate``
+is a ``torch.autograd.Function``: its forward launches the CUDA kernel in
 ``csrc/three_interpolate.cu`` and its backward the one in
 ``csrc/three_interpolate_bwd.cu`` for CUDA tensors; for CPU tensors they
 run ``three_interpolate_plain`` and ``three_interpolate_backward_plain``.
@@ -14,9 +15,13 @@ run ``three_interpolate_plain`` and ``three_interpolate_backward_plain``.
 Kernel notes (in full in the sources): they replace
 ``tpu3d/ops/interpolate.py::_three_nn_pallas``, ``_ti_fwd_kernel`` and
 ``_ti_bwd_kernel``. ``three_nn`` is bound by operations; one thread per
-query folds the known points, staged through shared memory, into a sorted
-top-3 with d² rounded step by step, so it equals the plain version bit for
-bit. The interpolation kernels are bound by bytes; one warp per output row
+query folds known points into a top-3 sorted by (d², id), with d² rounded
+step by step, so it equals the plain version bit for bit. Its windowed
+form sorts each scene's known points by depth (``depth_sort``) and lets
+each query widen from its own depth both ways until the depth term alone
+passes its third d², so it evaluates a few percent of the pairs; its brute
+form sweeps every known point, staged through shared memory. The
+interpolation kernels are bound by bytes; one warp per output row
 reads each gathered row as whole 128-byte lines in f32. The backward
 inverts the ids into per-source lists of keys m·3 + j (CSR, in a workspace
 from torch's allocator) and gathers: one warp per source and 256 channels
@@ -53,6 +58,66 @@ def three_nn_plain(unknown: torch.Tensor, known: torch.Tensor):
     return torch.cat(nn_d2, 1), torch.cat(nn_idx, 1)
 
 
+def depth_sort(pts: torch.Tensor):
+    """(B, N, 3) -> (zs (B, N) f32, order (B, N) i64): each scene's depths
+    z ascending and the ids of the points in that order (a stable sort:
+    equal depths keep id order; NaN depths last). The windowed kernels'
+    index (``three_nn``'s and ``grouping.nearest_k``'s), and the plain
+    windows'."""
+    zs, order = torch.sort(pts[..., 2].contiguous(), dim=1, stable=True)
+    return zs.contiguous(), order.contiguous()
+
+
+def three_nn_windows(zs: torch.Tensor, unknown: torch.Tensor,
+                     third: torch.Tensor):
+    """Plain version of the windows an exact windowed search cannot skip:
+    (lo, hi), (B, M) i64, the run [lo, hi) of depth-sorted positions (``zs``
+    from ``depth_sort`` of the known points) whose depth term
+    fl(fl(uz - z)²) is at most ``third`` (B, M), each query's third d².
+    Every one of a query's 3 nearest lies inside (its d² is at least its
+    depth term), and the kernel's windowed form evaluates each point inside
+    before it stops (``csrc/three_nn.cu`` gives the argument). The run is
+    contiguous: on each side of the query's own depth position (the first
+    z not below uz) the term never falls away from it."""
+    B, N = zs.shape
+    uz = unknown[..., 2].contiguous()
+    start = torch.searchsorted(zs, uz, side="left")
+
+    def term_at(p):
+        dz = uz - zs.gather(1, p.clamp(max=N - 1))
+        return dz * dz
+
+    def first(lo, hi, pred):
+        """The first position of [lo, hi) where ``pred`` holds, pred false
+        then true along it (hi where it never holds)."""
+        while (lo < hi).any():
+            live, mid = lo < hi, (lo + hi) // 2
+            yes = pred(mid)
+            hi = torch.where(live & yes, mid, hi)
+            lo = torch.where(live & ~yes, mid + 1, lo)
+        return lo
+
+    lo = first(torch.zeros_like(start), start,
+               lambda p: term_at(p) <= third)
+    hi = first(start, torch.full_like(start, N),
+               lambda p: term_at(p) > third)
+    return lo, hi
+
+
+# the windowed form pays a depth sort of the known points (torch.sort) and
+# a pack, which the brute sweep beats below this many pairs per call.
+# Device times on an H100 at the shapes chip_smoke.py sweeps (PERF.md):
+# windowed faster at each one at or above it, brute at each one below
+THREE_NN_WINDOW_MIN_PAIRS = 1 << 26
+
+
+def three_nn_route(B: int, M: int, N: int) -> bool:
+    """Whether the kernel takes the windowed form: at least
+    ``THREE_NN_WINDOW_MIN_PAIRS`` pairs. A speed choice only: both forms
+    give the plain result to the bit."""
+    return B * M * N >= THREE_NN_WINDOW_MIN_PAIRS
+
+
 def three_nn(unknown: torch.Tensor, known: torch.Tensor):
     """(B, M, 3) queries, (B, N, 3) known points, f32 -> (d2 (B, M, 3) f32,
     idx (B, M, 3) i32): each query's 3 nearest known points, nearest first,
@@ -61,18 +126,34 @@ def three_nn(unknown: torch.Tensor, known: torch.Tensor):
     N >= 3."""
     if unknown.device.type == "cpu":
         return three_nn_plain(unknown, known)
+    B, M, N = unknown.shape[0], unknown.shape[1], known.shape[1]
+    return launch_three_nn(unknown, known, three_nn_route(B, M, N))
+
+
+def launch_three_nn(unknown: torch.Tensor, known: torch.Tensor,
+                    windowed: bool):
+    """The kernel in a given form (``three_nn`` chooses it;
+    ``chip_smoke.py`` times both). One counted launch; the windowed form
+    sorts the known points by depth first."""
     _build.check_cuda_tensor(unknown, "unknown", torch.float32, 3)
     _build.check_cuda_tensor(known, "known", torch.float32, 3)
     B, M, three = unknown.shape
-    if three != 3 or known.shape[0] != B or known.shape[2] != 3 \
-            or known.shape[1] < 3:
+    N = known.shape[1]
+    if three != 3 or known.shape[0] != B or known.shape[2] != 3 or N < 3:
         raise ValueError(f"three_nn takes (B, M, 3) queries and (B, N>=3, 3) "
                          f"known points, got {tuple(unknown.shape)} and "
                          f"{tuple(known.shape)}")
-    nn_d2 = torch.empty(B, M, 3, dtype=torch.float32, device=unknown.device)
-    nn_idx = torch.empty(B, M, 3, dtype=torch.int32, device=unknown.device)
-    _build.launch("three_nn", unknown.data_ptr(), known.data_ptr(), B, M,
-                  known.shape[1], nn_d2.data_ptr(), nn_idx.data_ptr())
+    dev = unknown.device
+    nn_d2 = torch.empty(B, M, 3, dtype=torch.float32, device=dev)
+    nn_idx = torch.empty(B, M, 3, dtype=torch.int32, device=dev)
+    order = packed = None
+    if windowed:
+        order = depth_sort(known)[1]
+        packed = torch.empty(B, N, 4, dtype=torch.float32, device=dev)
+    _build.launch("three_nn", unknown.data_ptr(), known.data_ptr(),
+                  None if order is None else order.data_ptr(), B, M, N,
+                  None if packed is None else packed.data_ptr(),
+                  nn_d2.data_ptr(), nn_idx.data_ptr())
     return nn_d2, nn_idx
 
 

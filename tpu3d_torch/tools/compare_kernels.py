@@ -1,6 +1,7 @@
-"""Time the nearest-k search, the gather-form SA backward, FPS and the
-interpolation's backward of one checkout of the port on seeded inputs, to
-compare two checkouts on the same card in turns.
+"""Time the nearest-k search, the gather-form SA backward, FPS, the
+interpolation's backward, the standalone 3-NN search and the fused SA
+kernels of one checkout of the port on seeded inputs, to compare two
+checkouts on the same card in turns.
 
     python3 tpu3d_torch/tools/compare_kernels.py [--root DIR] [--label NAME]
         [--only GROUP[,GROUP...]]
@@ -9,8 +10,9 @@ compare two checkouts on the same card in turns.
 this one; run the file as a script, not with ``-m``, so that no other
 checkout's package is imported first). It needs only the public
 signatures of ``nearest_k(centers, pts, k, max_radius)``,
-``fused_gathered_mlp_pool_backward``, ``furthest_point_sample_with_3nn``
-and ``furthest_point_sample``, and the models' entry points, so an older
+``fused_gathered_mlp_pool_backward``, ``furthest_point_sample_with_3nn``,
+``furthest_point_sample``, ``three_nn``, ``fused_route`` and the fused SA
+ops, and the models' entry points, so an older
 checkout unpacked beside this one (``git archive``) can be timed by this
 script. Shapes:
 
@@ -55,11 +57,20 @@ script. Shapes:
 - the BatchNorm chain's training op (``fused_bn_mlp_pool`` with batch
   statistics, forward and backward under autograd: the seven training
   kernels) at default.yaml's SA_0 and SA_1 with ``USE_BN`` of the train
-  step (B=16), and their sum.
+  step (B=16), and their sum;
+- ``three_nn`` at every launch of the split route on the shipped configs
+  (double.yaml's train SA_0, 16 x 32768 -> 4096; quickstart's SA_3, 64 ->
+  16 at eval B=8 and train B=4; smoke's SA_2 and SA_3, 64 -> 32 and 32 ->
+  16 at B=2), the queries a level's points and the known points its FPS
+  picks, on planted-cluster scenes;
+- the slab form's forward alone (``fused_sa_slab_fwd``: eval and
+  training forward at quickstart's and smoke's SA_1, the slab rows of
+  ``fused_sa_fwd``).
 
 ``--only`` takes any of ``nearest_k``, ``fused_sa_bwd``, ``fps3nn``,
 ``fps``, ``three_interpolate_bwd``, ``fused_sa_fwd``,
-``fused_sa_slab_bwd`` and ``fused_sa_bn_train`` (default: all).
+``fused_sa_slab_bwd``, ``fused_sa_bn_train``, ``three_nn`` and
+``fused_sa_slab_fwd`` (default: all).
 
 Times are device times (``kernel_bench.cuda_ms``, beside this file: calls
 run back to back on the card behind a spin that outlasts their queueing),
@@ -134,7 +145,7 @@ def sa0_grouping(nearest_k, group_points):
 
 GROUPS = ("nearest_k", "fused_sa_bwd", "fps3nn", "fps",
           "three_interpolate_bwd", "fused_sa_fwd", "fused_sa_slab_bwd",
-          "fused_sa_bn_train")
+          "fused_sa_bn_train", "three_nn", "fused_sa_slab_fwd")
 
 
 def rcnn_levels(root):
@@ -193,6 +204,38 @@ def fps_row_launches(root):
                 calls.append((f"RCNN SA_{k}", B * rois, n, npoint))
                 n = npoint
             out[f"{name} {mode} B={B}"] = calls
+    return out
+
+
+def split_three_nn_inputs(bench, root, seed=0):
+    """three_nn's launches on the shipped configs' split route: [(label,
+    queries, known)], each level's points and its FPS picks (the FPS
+    pyramid of the checkout), at double.yaml's train batch and
+    quickstart's and smoke's eval and train batches."""
+    import torch
+
+    from tpu3d_torch.config import cfg_from_file, fresh_cfg
+    from tpu3d_torch.datasets import random_scenes, train_batch
+    from tpu3d_torch.ops import fused_route
+
+    out = []
+    for name, batches in (("double", (("train", 16),)),
+                          ("quickstart", (("eval", 8), ("train", 4))),
+                          ("smoke", (("eval", 2), ("train", 2)))):
+        cfg = cfg_from_file(str(Path(root) / "configs" / f"{name}.yaml"),
+                            fresh_cfg())
+        n, npoints = cfg.RPN.NUM_POINTS, cfg.RPN.SA_CONFIG.NPOINTS
+        for mode, B in batches:
+            pts = (train_batch(B, n, seed)["pts_input"] if mode == "train"
+                   else random_scenes(B, n, seed))
+            levels = bench.fps_pyramid(torch.from_numpy(pts).cuda(),
+                                       npoints)
+            for k, npoint in enumerate(npoints):
+                x = levels[k]
+                if not fused_route(B, x.shape[1], npoint):
+                    out.append((f"{name} {mode} B={B} RPN SA_{k} "
+                                f"{x.shape[1]} -> {npoint}", x,
+                                levels[k + 1]))
     return out
 
 
@@ -356,8 +399,15 @@ def main() -> int:
         out["three_interpolate_bwd train sum"] = total
         print(f"{args.label}: three_interpolate_bwd, four launches: "
               f"{total:.4f} ms", flush=True)
+    if "three_nn" in only:
+        from tpu3d_torch.ops import three_nn
+
+        for label, x, known in split_three_nn_inputs(bench, args.root):
+            record(f"three_nn {label}", lambda: three_nn(x, known), 10)
+        torch.cuda.empty_cache()
     fused = [g for g in ("fused_sa_fwd", "fused_sa_slab_bwd",
-                         "fused_sa_bn_train") if g in only]
+                         "fused_sa_bn_train", "fused_sa_slab_fwd")
+             if g in only]
     if fused:
         from tpu3d_torch.ops import (fused_bn_mlp_pool,
                                      fused_gathered_mlp_pool, fused_mlp_pool)
@@ -423,7 +473,7 @@ def main() -> int:
                 torch.cuda.empty_cache()
                 continue
             args_ = (x0, w1, b1, w2, b2)
-            if "fused_sa_fwd" in only:
+            if only & {"fused_sa_fwd", "fused_sa_slab_fwd"}:
                 with torch.no_grad():
                     if mode == "eval":
                         record(f"fused_sa_slab {label}",
