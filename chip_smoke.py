@@ -133,7 +133,20 @@ and no result line:
    MLPs 256 -> 384 -> 256 and 256 -> 256 -> 384, set in memory, without
    and with BatchNorm: the joint eval path and a joint train step at B=2,
    each of whose fused kernels must launch once per RCNN level;
-13. one JSON line of the kernels, then the result line.
+13. the training CLI from frames on disk (tools/train_rcnn.main, in
+   process): 32 synthetic KITTI frames and their GT database written by
+   the port, default.yaml in joint mode at B=16 with GT augmentation and
+   --train_with_eval, 2 epochs of 2 steps (TRAIN.SPLIT trainval), a
+   checkpoint each epoch; run twice unbroken, whose difference is the
+   card's noise floor, then resumed from the epoch-1 checkpoint: its
+   parameters and Adam moments within that floor, its step and epoch
+   equal, every loss finite; the first run's launches (every train-step
+   kernel and the validation pass's fused_sa); the card-written checkpoint
+   read back on the host to the same bytes; the CLI's ms/step fed by the
+   loader, the loader's scenes/s alone, the validation pass's ms per batch
+   and the checkpoint's size and write time; then one epoch over 160
+   frames (10 steps), for the CLI's pace past an epoch's first step;
+14. one JSON line of the kernels, then the result line.
 
 Every phase prints its seconds. Needs one CUDA card; the kernels have no
 CPU mode. Imports nothing of JAX or of tpu3d.
@@ -2618,6 +2631,207 @@ def check_launches(launches, expect, label):
               f"times, expected {expect.get(name, 0)}")
 
 
+CLI_CFG = "default.yaml"
+CLI_FRAMES = 32  # the training CLI's --synthetic dataset
+CLI_EPOCHS = 2
+CLI_LONG_FRAMES = 160  # one epoch of 10 steps: the pace past the first
+# the CLI's train steps, and its --train_with_eval pass (fused_sa)
+CLI_KERNELS = TRAIN_KERNELS + ("fused_sa",)
+
+
+def _run_tensors(run):
+    """A finished CLI run's parameters and statistics, and its Adam
+    moments, on the host, by state_dict key; the run's model and optimizer
+    are dropped so the card's memory goes back."""
+    names = {id(p): n for n, p in run.model.named_parameters()}
+    opt = run.state.optimizer
+    out = {"params": {k: v.detach().cpu()
+                      for k, v in run.model.state_dict().items()}}
+    for key in ("exp_avg", "exp_avg_sq"):
+        out[key] = {names[id(p)]: opt.opt.state[p][key].cpu()
+                    for p in opt.params}
+    run.model = run.state = None
+    return out
+
+
+def _max_diff(a: dict, b: dict) -> float:
+    return max(float((a[k].double() - b[k].double()).abs().max())
+               for k in a)
+
+
+def training_cli(card: str) -> tuple[dict, dict]:
+    """Phase 13: the port's training CLI (tools/train_rcnn.main, in process)
+    from frames on disk. 32 frames from create_synthetic_kitti and their GT
+    database from generate_gt_database; configs/default.yaml in joint mode
+    at B=16 with GT augmentation, TRAIN.SPLIT trainval (2 steps an epoch),
+    --train_with_eval (the smallval split, B=2), 2 epochs with a checkpoint
+    after each. Run twice unbroken (the card's noise floor between two
+    identical runs), then resumed with --ckpt from the first run's epoch-1
+    checkpoint for the last epoch: its parameters and Adam moments must lie
+    within the floor of the first run's, its step and epoch equal them,
+    every loss finite. The first run counts its launches (every kernel of
+    CLI_KERNELS at least once). The card-written checkpoint must read back
+    on the host through msgpack_io to the same bytes, and load into a CPU
+    model that saves it again to the same bytes. Prints the CLI's ms/step
+    fed by the loader, the loader's scenes/s alone, the validation pass's
+    ms per batch and the checkpoint's size and write time, beside the card;
+    then one epoch over CLI_LONG_FRAMES frames (no validation pass) for
+    the pace past an epoch's first step, which waits for the loader's
+    first batch. -> (the launches of the first run, the numbers for the
+    JSON line)."""
+    import shutil
+
+    import torch
+
+    from tpu3d_torch.config import cfg_from_file, cfg_from_list, fresh_cfg
+    from tpu3d_torch.datasets import (BatchLoader, KittiRCNNDataset,
+                                      create_synthetic_kitti)
+    from tpu3d_torch.models import PointRCNN
+    from tpu3d_torch.ops import _build
+    from tpu3d_torch.parallel import create_train_state
+    from tpu3d_torch.tools import generate_gt_database
+    from tpu3d_torch.tools.train_rcnn import configure_mode
+    from tpu3d_torch.tools.train_rcnn import main as train_main
+    from tpu3d_torch.utils import msgpack_io
+    from tpu3d_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    work = ROOT / "build" / "cli_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    data = str(work / "data")
+    create_synthetic_kitti(data, n_frames=CLI_FRAMES, image_files=True)
+    db = generate_gt_database.main(["--root", data, "--save_dir",
+                                    str(work / "gt_database")])
+    write_s = time.perf_counter() - t0
+    sets = ["--set", "TRAIN.SPLIT", "trainval"]
+
+    def run(out, *extra, data=data, db=db, epochs=CLI_EPOCHS):
+        return train_main(
+            ["--cfg_file", str(ROOT / "configs" / CLI_CFG),
+             "--train_mode", "joint", "--batch_size", str(TRAIN_BATCH),
+             "--epochs", str(epochs), "--data_root", data,
+             "--gt_database", db, "--ckpt_save_interval", "1",
+             "--output_dir", str(work / out), *extra, *sets])
+
+    torch.cuda.empty_cache()
+    _build.reset_launches()
+    a = run("a", "--train_with_eval")
+    launches = dict(_build.LAUNCHES)
+    for name in CLI_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched by the training CLI")
+    ckpt_path = a.checkpoints[-1]
+    t1 = time.perf_counter()
+    timed = save_checkpoint(str(work / "timed"), a.model, a.state, CLI_EPOCHS)
+    ckpt_ms = (time.perf_counter() - t1) * 1e3
+    ckpt_bytes = Path(ckpt_path).stat().st_size
+    runs = {"a": a}
+    runs["b"] = run("b", "--train_with_eval")
+    runs["c"] = run("c", "--train_with_eval", "--ckpt", a.checkpoints[0])
+    steps = {k: r.state.step for k, r in runs.items()}
+    losses = {k: r.losses for k, r in runs.items()}
+    step_ms = runs["a"].step_ms + runs["b"].step_ms
+    eval_ms = runs["a"].eval_ms + runs["b"].eval_ms
+    epochs = {k: int(msgpack_io.decode(Path(r.checkpoints[-1]).read_bytes())
+                     ["epoch"]) for k, r in runs.items()}
+    tensors = {k: _run_tensors(r) for k, r in runs.items()}
+    del runs, a
+    torch.cuda.empty_cache()
+    check(all(math.isfinite(x) for v in losses.values() for x in v),
+          f"a training CLI loss is not finite: {losses}")
+    spe = CLI_FRAMES // TRAIN_BATCH  # trainval holds every frame
+    check(len(losses["a"]) == spe * CLI_EPOCHS and len(losses["c"]) == spe,
+          f"steps run: {({k: len(v) for k, v in losses.items()})}")
+    check(steps["c"] == steps["a"] == steps["b"] == spe * CLI_EPOCHS
+          and epochs["c"] == epochs["a"] == CLI_EPOCHS,
+          f"steps {steps}, epochs {epochs}")
+    resume = {}
+    for key in ("params", "exp_avg", "exp_avg_sq"):
+        floor = _max_diff(tensors["a"][key], tensors["b"][key])
+        got = _max_diff(tensors["a"][key], tensors["c"][key])
+        resume[key] = {"resumed_max_abs_diff": got,
+                       "noise_floor_max_abs_diff": floor}
+        check(got <= floor, f"the resumed run's {key} differ from the "
+              f"unbroken run's by {got}, above the floor of two unbroken "
+              f"runs, {floor}")
+
+    # the card-written checkpoint, read back on the host
+    raw = Path(ckpt_path).read_bytes()
+    check(msgpack_io.encode(msgpack_io.decode(raw)) == raw,
+          "the card-written checkpoint does not re-encode to its bytes")
+    cfg = cfg_from_list(sets[1:], configure_mode(cfg_from_file(
+        str(ROOT / "configs" / CLI_CFG), fresh_cfg()), "joint"))
+    cpu_model = PointRCNN(cfg, mode="TRAIN", device="cpu")
+    cpu_state = create_train_state(cfg, cpu_model, spe, CLI_EPOCHS)
+    cpu_state, epoch = load_checkpoint(ckpt_path, cpu_model, cpu_state)
+    again = save_checkpoint(str(work / "cpu"), cpu_model, cpu_state, epoch)
+    check(Path(again).read_bytes() == raw and Path(timed).read_bytes() == raw,
+          "the card-written checkpoint does not save back to its bytes")
+    del cpu_model, cpu_state
+
+    # the loader alone: the CLI's dataset and loader (4 thread workers)
+    ds = KittiRCNNDataset(root_dir=data, npoints=cfg.RPN.NUM_POINTS,
+                          split=cfg.TRAIN.SPLIT, mode="TRAIN", cfg=cfg,
+                          gt_database_dir=db, seed=19260817)
+    loader = BatchLoader(ds, TRAIN_BATCH, shuffle=True, num_workers=4,
+                         drop_last=True, seed=19260817)
+    t1 = time.perf_counter()
+    scenes = 0
+    for epoch in range(CLI_EPOCHS):
+        loader.set_epoch(epoch)
+        scenes += sum(len(b["batch_valid"]) for b in loader)
+    scenes_per_s = scenes / (time.perf_counter() - t1)
+
+    # the pace past an epoch's first step: one epoch of CLI_LONG_FRAMES
+    long_data = str(work / "long")
+    create_synthetic_kitti(long_data, n_frames=CLI_LONG_FRAMES, seed=1,
+                           image_files=True)
+    long_db = generate_gt_database.main(["--root", long_data, "--save_dir",
+                                         str(work / "long_gt_database")])
+    long_run = run("long", data=long_data, db=long_db, epochs=1)
+    long_ms = long_run.step_ms
+    del long_run
+    torch.cuda.empty_cache()
+
+    # an epoch's first step waits for the loader's first batch (each epoch
+    # starts the loader anew); the others find theirs built
+    first = [ms for i, ms in enumerate(step_ms) if i % spe == 0]
+    rest = [ms for i, ms in enumerate(step_ms) if i % spe]
+    out = {
+        "path": f"tools/train_rcnn.main, {CLI_CFG} joint B={TRAIN_BATCH}"
+                f", {CLI_FRAMES} frames from disk, TRAIN.SPLIT trainval, "
+                "--train_with_eval", "card": card,
+        "ms_per_step": statistics.median(step_ms), "step_ms": step_ms,
+        "ms_per_step_first_of_epoch": statistics.median(first),
+        "ms_per_step_rest": statistics.median(rest) if rest else None,
+        "long_epoch": {"frames": CLI_LONG_FRAMES, "step_ms": long_ms,
+                       "ms_per_step_past_first": statistics.median(
+                           long_ms[1:])},
+        "loader_scenes_per_s": scenes_per_s,
+        "eval_ms_per_batch": statistics.median(eval_ms), "eval_ms": eval_ms,
+        "ckpt_bytes": ckpt_bytes, "ckpt_write_ms": ckpt_ms,
+        "frames_and_database_s": write_s, "resume": resume,
+        "launches": {k: v for k, v in launches.items() if v}}
+    print(f"training CLI from disk ({out['path']}; {card}): "
+          f"{out['ms_per_step']:.1f} ms/step fed by the loader (host clock, "
+          f"median of {len(step_ms)} steps of two runs, the first of each "
+          f"run included: {[round(x, 1) for x in step_ms]}; an epoch's "
+          f"first step {out['ms_per_step_first_of_epoch']:.1f}, the others "
+          f"{out['ms_per_step_rest'] or 0:.1f}; one epoch of "
+          f"{CLI_LONG_FRAMES} frames without the validation pass: "
+          f"{out['long_epoch']['ms_per_step_past_first']:.1f} ms/step past "
+          f"its first, {[round(x, 1) for x in long_ms]}); the loader "
+          f"alone {scenes_per_s:.1f} scenes/s (4 thread workers, "
+          f"{scenes} scenes); the validation pass "
+          f"{out['eval_ms_per_batch']:.1f} ms per batch of 2; checkpoint "
+          f"{ckpt_bytes} bytes written in {ckpt_ms:.1f} ms; frames and GT "
+          f"database {write_s:.1f} s; launches of the first run "
+          f"{out['launches']}")
+    print(f"training CLI resume from the epoch-1 checkpoint: {resume}; "
+          f"steps {steps}, epochs {epochs}, losses {losses}")
+    return launches, out
+
+
 def main() -> int:
     import torch
 
@@ -3091,7 +3305,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     phases.done("12 (widened configuration)")
 
-    # 13. kernels line and result line: launches from the path each kernel
+    # 13. the training CLI from frames on disk: two unbroken runs, one
+    # resumed, the card-written checkpoint read back on the host
+    cli_launches, cli = training_cli(smi[0])
+    phases.done("13 (training CLI from disk)")
+
+    # 14. kernels line and result line: launches from the path each kernel
     # was timed at (per forward or per train step), and on the other paths
     runs = {"default.yaml eval B=2": launches,
             "default.yaml train B=16": train_launches,
@@ -3122,6 +3341,7 @@ def main() -> int:
             "smoke_train_launches": strain_launches[name],
             "bn_eval_launches": blaunches[name],
             "bn_train_launches": btrain_launches[name],
+            "cli_launches": cli_launches[name],
             **report.row(name), "status": "ported"}
         # the same kernel at another path's shapes: double.yaml's SA_0, the
         # smoke slab, the train step's shapes of the eval kernels, and the
@@ -3156,6 +3376,7 @@ def main() -> int:
             **{f"RCNN SA_{k}": ms for k, ms in bn_library.items()}},
         "bn_train_step": {"path": BN_TRAIN_PATH, "ms": bstep_ms,
                           "peak_gib": bpeak},
+        "training_cli": cli,
         "widened_shapes": {"shapes": WIDE_SHAPES,
                            "max_rel_err": wide_worst},
         "widened_config": {

@@ -24,7 +24,9 @@ ROOT = Path(__file__).resolve().parents[1]
 
 def test_port_imports_no_jax_and_no_tpu3d():
     """Every module of tpu3d_torch, imported in a fresh interpreter, loads
-    no jax, flax or tpu3d module."""
+    no jax, flax, optax or tpu3d module, and no msgpack (the checkpoints'
+    codec is the port's own); the walk reaches the loader, checkpoint and
+    training CLI modules."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import tpu3d_torch\n"
@@ -32,10 +34,12 @@ def test_port_imports_no_jax_and_no_tpu3d():
         "'tpu3d_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'tpu3d'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'tpu3d'))\n"
         "print('MODULES', len([n for n in sys.modules "
         "if n.startswith('tpu3d_torch')]))\n"
-        "print('BAD', bad)\n")
+        "print('BAD', bad)\n"
+        "print('HAVE', ' '.join(sorted(n for n in sys.modules "
+        "if n.startswith('tpu3d_torch'))))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
@@ -43,6 +47,15 @@ def test_port_imports_no_jax_and_no_tpu3d():
     assert "BAD []" in res.stdout, res.stdout
     n_modules = int(res.stdout.split("MODULES ")[1].split()[0])
     assert n_modules >= 20
+    have = set(res.stdout.split("HAVE ")[1].split())
+    assert {"tpu3d_torch.kitti.annos", "tpu3d_torch.kitti.boxes",
+            "tpu3d_torch.kitti.calibration", "tpu3d_torch.kitti.object3d",
+            "tpu3d_torch.datasets.kitti_dataset",
+            "tpu3d_torch.datasets.kitti_rcnn_dataset",
+            "tpu3d_torch.datasets.loader", "tpu3d_torch.utils.checkpoint",
+            "tpu3d_torch.utils.logging", "tpu3d_torch.utils.msgpack_io",
+            "tpu3d_torch.tools.generate_gt_database",
+            "tpu3d_torch.tools.train_rcnn"} <= have
 
 
 def test_entry_point_defaults_to_cuda():

@@ -3,14 +3,18 @@
 The port's own copy of ``tpu3d/config/config.py`` (numpy + yaml only), so that
 ``tpu3d_torch`` imports nothing of ``tpu3d``. Keys, defaults and merge rules
 are the same as there and as pointrcnn/lib/config.py: unknown keys are
-rejected, types are checked, arrays are coerced. Dotted ``--set``
-overrides come with the CLIs of later slices. easydict is replaced by a
+rejected, types are checked, arrays are coerced, and dotted ``--set``
+overrides (``cfg_from_list``) behave as there. easydict is replaced by a
 tiny AttrDict.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+# what every entry point raises for RCNN-offline mode (RPN.ENABLED False)
+OFFLINE_NOT_PORTED = ("RCNN-offline mode (RPN.ENABLED False) is not ported "
+                      "yet (ROADMAP.md queue 1 item 4)")
 
 
 class AttrDict(dict):
@@ -167,6 +171,52 @@ def cfg_from_file(filename: str, target: AttrDict | None = None) -> AttrDict:
         yaml_cfg = yaml.safe_load(f)
     _merge_a_into_b(yaml_cfg, target if target is not None else cfg)
     return target if target is not None else cfg
+
+
+def fresh_cfg() -> AttrDict:
+    """A new independent default config (tests / multi-config runs)."""
+    return _default_cfg()
+
+
+def cfg_from_list(cfg_list, target: AttrDict | None = None) -> AttrDict:
+    """Dotted key/value overrides, e.g. ['TRAIN.LR', '0.01']
+    (reference parity: lib/config.py:223-242)."""
+    from ast import literal_eval
+
+    c = target if target is not None else cfg
+    assert len(cfg_list) % 2 == 0
+    for k, v in zip(cfg_list[0::2], cfg_list[1::2]):
+        key_list = k.split(".")
+        d = c
+        for subkey in key_list[:-1]:
+            assert subkey in d, f"unknown config key {k}"
+            d = d[subkey]
+        subkey = key_list[-1]
+        assert subkey in d, f"unknown config key {k}"
+        try:
+            value = literal_eval(v)
+        except (ValueError, SyntaxError):
+            value = v
+        if isinstance(d[subkey], float) and isinstance(value, int):
+            value = float(value)
+        if isinstance(d[subkey], np.ndarray):
+            value = np.array(value, dtype=d[subkey].dtype)
+        else:
+            assert type(value) is type(d[subkey]), \
+                f"type {type(value)} does not match original type {type(d[subkey])}"
+        d[subkey] = value
+    return c
+
+
+def save_config_to_file(c: AttrDict, pre: str = "cfg", logger=None) -> None:
+    for key, val in c.items():
+        if isinstance(val, AttrDict):
+            msg = f"\n{pre}.{key} = edict()"
+            logger.info(msg) if logger else print(msg)
+            save_config_to_file(val, pre=f"{pre}.{key}", logger=logger)
+            continue
+        msg = f"{pre}.{key}: {val}"
+        logger.info(msg) if logger else print(msg)
 
 
 def fresh_cfg() -> AttrDict:

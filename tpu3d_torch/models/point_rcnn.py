@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..config.config import as_attrdict
+from ..config.config import OFFLINE_NOT_PORTED, as_attrdict
 from ..device import resolve_device
 from ..ops.box_geometry import rotate_points_along_y
 from ..ops.roipool import roipool3d
@@ -54,8 +54,7 @@ class PointRCNN(nn.Module):
         super().__init__()
         c = as_attrdict(cfg)
         if not c.RPN.ENABLED:
-            raise NotImplementedError(
-                "RCNN-offline mode (RPN.ENABLED False) is not ported yet")
+            raise NotImplementedError(OFFLINE_NOT_PORTED)
         if c.RCNN.ENABLED and c.RCNN.USE_INTENSITY:
             raise NotImplementedError(
                 "RCNN.USE_INTENSITY needs the loader's intensity channel, "

@@ -20,32 +20,62 @@ betas written into the parameter group.
 
 from __future__ import annotations
 
-import math
+import ctypes
+import ctypes.util
+import functools
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
-from ..models.train_functions import generate_rpn_labels_device, model_loss
+from ..config.config import OFFLINE_NOT_PORTED
+from ..models.train_functions import (generate_rpn_labels_device,
+                                      get_rpn_loss, model_loss)
+from ..ops.rotated_iou import boxes_iou3d
+
+
+@functools.cache
+def _cosf():
+    """The C library's single-precision ``cosf``."""
+    fn = ctypes.CDLL(ctypes.util.find_library("m")).cosf
+    fn.restype, fn.argtypes = ctypes.c_float, [ctypes.c_float]
+    return fn
+
+
+def _cos32(x: np.float32) -> np.float32:
+    return np.float32(_cosf()(float(x)))
+
+
+def _fma32(a, b, c) -> np.float32:
+    """a·b + c with one rounding to float32 (the f32 product is exact in
+    float64)."""
+    return np.float32(np.float64(a) * np.float64(b) + np.float64(c))
+
+
+def _recip32(n: int) -> np.float32:
+    return np.float32(1) / np.float32(n)
 
 
 def _onecycle(transition_steps: int, peak: float, pct_start: float,
               div_factor: float, final_div_factor: float = 1e4):
     """optax's ``cosine_onecycle_schedule``: cosine interpolation between
     the accumulated values [peak/div, peak, peak/(div·final_div)] at the
-    boundaries [0, int(pct·T), T], the last value after T."""
+    boundaries [0, int(pct·T), T], the last value after T; in float32, as
+    tpu3d's jitted train step computes it on the CPU (see
+    ``make_momentum_schedule``)."""
     bounds = [0, int(pct_start * transition_steps), int(transition_steps)]
-    values = [peak / div_factor]
-    for scale in (div_factor, 1.0 / (div_factor * final_div_factor)):
-        values.append(values[-1] * scale)
+    values = np.cumprod(np.stack((peak / div_factor, div_factor,
+                                  1.0 / (div_factor * final_div_factor))))
 
-    def sched(count: int) -> float:
+    def sched(count: int) -> np.float32:
         for k in range(2):
             if bounds[k] <= count < bounds[k + 1]:
-                pct = (count - bounds[k]) / (bounds[k + 1] - bounds[k])
-                start, end = values[k], values[k + 1]
-                return end + (start - end) / 2.0 * (math.cos(math.pi * pct)
-                                                    + 1)
-        return values[-1] if count >= bounds[-1] else 0.0
+                pct = (np.float32(count - bounds[k])
+                       * _recip32(bounds[k + 1] - bounds[k]))
+                half = np.float32((values[k] - values[k + 1]) / 2.0)
+                return _fma32(half, _cos32(np.float32(np.pi) * pct)
+                              + np.float32(1), np.float32(values[k + 1]))
+        return np.float32(values[-1] if count >= bounds[-1] else 0.0)
 
     return sched
 
@@ -86,20 +116,32 @@ def make_lr_schedule(cfg, steps_per_epoch: int, total_epochs: int):
 def make_momentum_schedule(cfg, steps_per_epoch: int, total_epochs: int):
     """Adam's b1 at each update count: fastai's one-cycle momentum
     MOMS[0] -> MOMS[1] -> MOMS[0], cosine; the constant TRAIN.MOMENTUM for
-    the other optimizers (tpu3d's ``make_momentum_schedule``)."""
+    the other optimizers (tpu3d's ``make_momentum_schedule``).
+
+    The one-cycle schedules are float32, each step as tpu3d computes it in
+    its jitted train step on the CPU, so that the port's learning rate and
+    b1, and the values it writes into a checkpoint, equal tpu3d's bit for
+    bit at every count: XLA multiplies by the f32 reciprocal of a constant
+    divisor (with π folded into it where the divisor is a scalar), fuses
+    the closing a·b + c into one rounding, and takes cos from the C
+    library's ``cosf``. ``tests/test_torch_checkpoint.py`` holds every count
+    of several runs against optax's jitted schedules."""
     train = cfg.TRAIN
     if train.OPTIMIZER != "adam_onecycle":
         return lambda step: train.MOMENTUM
     total_steps = max(1, steps_per_epoch * total_epochs)
     up = int(total_steps * train.PCT_START)
     hi, lo = train.MOMS
+    amp, lo32 = np.float32(0.5 * (hi - lo)), np.float32(lo)
+    pi_up = np.float32(np.pi) * _recip32(max(up, 1))
+    pi_down = np.float32(np.pi) * _recip32(max(total_steps - up, 1))
 
-    def sched(step: int) -> float:
+    def sched(step: int) -> np.float32:
         if step < up:
-            return 0.5 * (hi - lo) * (1 + math.cos(math.pi * step
-                                                   / max(up, 1))) + lo
-        t = (step - up) / max(total_steps - up, 1)
-        return 0.5 * (hi - lo) * (1 - math.cos(math.pi * t)) + lo
+            return _fma32(amp, np.float32(1)
+                          + _cos32(pi_up * np.float32(step)), lo32)
+        return _fma32(amp, np.float32(1)
+                      - _cos32(pi_down * np.float32(step - up)), lo32)
 
     return sched
 
@@ -117,12 +159,13 @@ class Optimizer:
         self.b1 = make_momentum_schedule(cfg, steps_per_epoch, total_epochs)
         self.kind = train.OPTIMIZER
         wd = float(train.WEIGHT_DECAY)
-        lr0 = self.lr(0)
+        lr0 = float(self.lr(0))
         if self.kind == "adam_onecycle":
             # b2 = 0.99 as the reference's Adam; decoupled decay on every
             # parameter (its OptimWrapper's true_wd with bn_wd=True)
             self.opt = torch.optim.AdamW(self.params, lr=lr0,
-                                         betas=(self.b1(0), 0.99), eps=1e-8,
+                                         betas=(float(self.b1(0)), 0.99),
+                                         eps=1e-8,
                                          weight_decay=wd)
         elif self.kind == "adam":
             self.opt = torch.optim.Adam(self.params, lr=lr0, eps=1e-8,
@@ -151,9 +194,9 @@ class Optimizer:
             for g in grads:
                 g.copy_(torch.where(keep, g, g / norm * self.max_norm))
         group = self.opt.param_groups[0]
-        group["lr"] = self.lr(count)
+        group["lr"] = float(self.lr(count))
         if self.kind == "adam_onecycle":
-            group["betas"] = (self.b1(count), 0.99)
+            group["betas"] = (float(self.b1(count)), 0.99)
         self.opt.step()
         return norm
 
@@ -206,7 +249,7 @@ def make_train_step(cfg, model: torch.nn.Module):
     left on the device) with ``grad_norm``.
     """
     if not cfg.RPN.ENABLED:
-        raise NotImplementedError("RCNN-offline training is not ported yet")
+        raise NotImplementedError(OFFLINE_NOT_PORTED)
     rpn_trains = not cfg.RPN.FIXED
 
     def train_step(state: TrainState, batch: dict,
@@ -229,3 +272,57 @@ def make_train_step(cfg, model: torch.nn.Module):
         return tb
 
     return train_step
+
+
+def make_eval_step(cfg, model: torch.nn.Module):
+    """The twin of tpu3d's ``make_eval_step``: ``eval_step(state, batch)``
+    -> the eval-mode forward's output dict (the parameters live in
+    ``model``; ``state`` is there for the same call)."""
+    def eval_step(state: TrainState, batch: dict) -> dict:
+        return model({"pts_input": batch["pts_input"]}, train=False)
+
+    return eval_step
+
+
+def make_eval_loss_step(cfg, model: torch.nn.Module):
+    """The validation pass of ``--train_with_eval`` (tpu3d's
+    ``make_eval_loss_step``; reference: train_utils.py:140-168
+    Trainer.eval_epoch): ``eval_step(state, batch) -> metrics``.
+
+    The forward is the eval-mode one (running BatchNorm statistics, no
+    dropout); the RPN loss comes from the batch's labels while the RPN
+    trains, and where the two-stage path runs, the proposal recall: per
+    scene, the gt boxes (non-zero rows of ``gt_boxes3d``) that some valid
+    roi overlaps by 3D IoU above 0.7 (``recalled_cnt``) out of ``gt_cnt``.
+    The metrics are 0-dim tensors on the model's device; the caller
+    averages them over the val loader."""
+    if not cfg.RPN.ENABLED:
+        raise NotImplementedError(OFFLINE_NOT_PORTED)
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch: dict) -> dict:
+        pts = batch["pts_input"]
+        out = model({"pts_input": pts}, train=False)
+        tb = {}
+        loss = torch.zeros((), device=pts.device)
+        if not cfg.RPN.FIXED:
+            rpn_loss, tb_rpn = get_rpn_loss(
+                cfg, out["rpn_cls"], out["rpn_reg"], batch["rpn_cls_label"],
+                batch["rpn_reg_label"])
+            loss = loss + rpn_loss
+            tb.update(tb_rpn)
+        if cfg.RCNN.ENABLED and "rois" in out:
+            gt = batch["gt_boxes3d"]
+            gt_valid = gt.abs().sum(dim=-1) > 0
+            recalled = []
+            for rois, valid, gt_b, gt_v in zip(out["rois"], out["roi_valid"],
+                                               gt, gt_valid):
+                iou = torch.where(valid[:, None], boxes_iou3d(rois, gt_b),
+                                  0.0)
+                recalled.append(torch.sum((iou.amax(dim=0) > 0.7) & gt_v))
+            tb["recalled_cnt"] = torch.stack(recalled).sum()
+            tb["gt_cnt"] = gt_valid.sum()
+        tb["loss"] = loss
+        return tb
+
+    return eval_step
