@@ -146,7 +146,24 @@ and no result line:
    loader, the loader's scenes/s alone, the validation pass's ms per batch
    and the checkpoint's size and write time; then one epoch over 160
    frames (10 steps), for the CLI's pace past an epoch's first step;
-14. one JSON line of the kernels, then the result line.
+14. the eval CLI and the evaluator (tools/eval_rcnn.main and
+   evaluate.evaluate, in process), on phase 13's 32 frames: the joint eval
+   of default.yaml at B=8 from phase 13's card-written checkpoint with
+   --save_result (TEST.SPLIT trainval: 4 batches), each batch launching
+   fps3nn 4, nearest_k 6, three_interpolate 4, fps 2 and fused_sa 2 times
+   and no other kernel, a label file per frame, finite recall; the
+   evaluator on the card over those labels, --metric new and old and every
+   output transformation, each report equal to a CPU evaluator run on the
+   same files, the card's overlap matrices within 1e-5 of the same function
+   on CPU tensors, the native and the Python matcher giving equal arrays;
+   the RPN mode with --save_rpn_feature --save_result, then one epoch of
+   rcnn_offline training from its dumps at B=16 (fps, nearest_k,
+   fused_sa_train and fused_sa_bwd twice a step, nothing else), then
+   rcnn_offline eval of that checkpoint (fps, nearest_k and fused_sa
+   twice a batch, nothing else); the eval CLI's
+   scenes/s, the evaluator's seconds and peak device memory, the dumps'
+   bytes and seconds, the offline step's ms and eval scenes/s;
+15. one JSON line of the kernels, then the result line.
 
 Every phase prints its seconds. Needs one CUDA card; the kernels have no
 CPU mode. Imports nothing of JAX or of tpu3d.
@@ -2832,6 +2849,246 @@ def training_cli(card: str) -> tuple[dict, dict]:
     return launches, out
 
 
+EVAL_CLI_BATCH = 8  # the eval CLI's default --batch_size
+OFFLINE_BATCH = 16  # the training CLI's default --batch_size
+# launches per batch of the eval CLI's joint path on CLI_CFG, per step of
+# rcnn_offline training, per batch of rcnn_offline eval: the RCNN's SA_0
+# and SA_1 each sample with fps and group with nearest_k
+EVAL_CLI = {"fps3nn": 4, "nearest_k": 6, "three_interpolate": 4, "fps": 2,
+            "fused_sa": 2}
+OFFLINE_TRAIN = {"fps": 2, "nearest_k": 2, "fused_sa_train": 2,
+                 "fused_sa_bwd": 2}
+OFFLINE_EVAL = {"fps": 2, "nearest_k": 2, "fused_sa": 2}
+RPN_EVAL_KERNELS = ("fps3nn", "nearest_k", "three_interpolate")
+# the evaluator's output transformations (evaluate.evaluate's keywords)
+EVAL_TRANSFORMS = {
+    "new": {}, "old": {"metric": "old"}, "score_thresh": {"score_thresh": 0.5},
+    "toground": {"toground": True}, "rescale_pred": {"rescale_pred": 1.1},
+    "align_size": {"align_size": True}, "align_front": {"align_front": True},
+    "reverse_align": {"reverse_align": True},
+    "dense_sample": {"dense_sample": True, "direct_save": True},
+    "coco": {"coco": True}, "output_iou": {"output_iou": True},
+    "range_check": {"range_check": True}}
+
+
+def _dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def eval_cli(card: str) -> tuple[dict, dict, dict]:
+    """Phase 14: the eval CLI (tools/eval_rcnn.main) and the evaluator
+    (evaluate.evaluate), in process, on phase 13's frames and its
+    card-written checkpoint. Joint mode on CLI_CFG at EVAL_CLI_BATCH with
+    --save_result over all CLI_FRAMES frames (TEST.SPLIT trainval), with
+    EVAL_CLI's launches per batch exactly, a label file per frame and
+    finite recall. The evaluator over those labels on the card with every
+    transformation of EVAL_TRANSFORMS, each report (and AP dict) equal to
+    the same call on the CPU, and the new and old metric over the rois the
+    CLI wrote beside them (roi_result, dozens of boxes a frame); the card's
+    rotated overlaps of those rois (metrics 1, 2) within 1e-5 of the CPU's;
+    eval_class over them through the native matcher equal to the Python
+    one (metrics 0-2, AOS on metric 0). RPN mode with
+    --save_rpn_feature --save_result (the RPN kernels, neither fps nor
+    fused_sa), one epoch of rcnn_offline training from its dumps at
+    OFFLINE_BATCH (OFFLINE_TRAIN per step exactly), rcnn_offline eval of
+    that checkpoint (OFFLINE_EVAL per batch exactly), finite losses and cls
+    accuracies. -> (the joint eval's launches, the offline training's and
+    eval's launches summed, the numbers for the JSON line)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from tpu3d_torch.evaluate import ap
+    from tpu3d_torch.evaluate.evaluate import evaluate
+    from tpu3d_torch.evaluate.overlaps import calculate_iou_partly
+    from tpu3d_torch.kitti import annos
+    from tpu3d_torch.ops import _build
+    from tpu3d_torch.tools.eval_rcnn import main as eval_main
+    from tpu3d_torch.tools.train_rcnn import main as train_main
+    from tpu3d_torch.utils.checkpoint import latest_checkpoint
+
+    work = ROOT / "build" / "cli_smoke"
+    data = work / "data"
+    ckpt = latest_checkpoint(str(work / "a" / "ckpt"))
+    check(ckpt is not None, "phase 13 left no checkpoint")
+    out = ROOT / "build" / "eval_smoke"
+    shutil.rmtree(out, ignore_errors=True)
+    cfg_file = str(ROOT / "configs" / CLI_CFG)
+    sets = ["--set", "TEST.SPLIT", "trainval"]
+    n_batches = -(-CLI_FRAMES // EVAL_CLI_BATCH)
+
+    def cli(mode, *extra, batch=EVAL_CLI_BATCH):
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res = eval_main(["--cfg_file", cfg_file, "--eval_mode", mode,
+                         "--data_root", str(data), "--batch_size", str(batch),
+                         "--output_dir", str(out / mode), "--device", DEVICE,
+                         "--save_result", *extra, *sets])
+        return res, time.perf_counter() - t0, dict(_build.LAUNCHES)
+
+    # the joint eval
+    joint, joint_s, joint_launches = cli("joint", "--ckpt", ckpt)
+    check_launches(joint_launches, {k: v * n_batches
+                                    for k, v in EVAL_CLI.items()},
+                   f"eval CLI joint, {n_batches} batches")
+    result = out / "joint" / "final_result" / "data"
+    check(len(list(result.iterdir())) == CLI_FRAMES,
+          f"eval CLI: {len(list(result.iterdir()))} label files for "
+          f"{CLI_FRAMES} frames")
+    check(all(math.isfinite(v) for key in ("recall", "roi_recall")
+              for v in joint[key].values()), f"eval CLI recall {joint}")
+
+    # the evaluator on the card over those labels (the final boxes, and the
+    # rois before the RCNN, dozens a frame whatever the weights), against
+    # the CPU
+    label_path = data / "KITTI" / "object" / "training" / "label_2"
+    split = data / "KITTI" / "ImageSets" / "trainval.txt"
+    ids = [int(x) for x in split.read_text().split()]
+    rois = out / "joint" / "roi_result" / "data"
+    dt = annos.get_label_annos(str(rois), ids)
+    gt = annos.get_label_annos(str(label_path), ids)
+    n_dt = sum(len(a["name"]) for a in dt)
+    overlap_diff = 0.0
+    for metric in (1, 2):
+        card_ov = calculate_iou_partly(dt, gt, metric, device=DEVICE)[0]
+        cpu_ov = calculate_iou_partly(dt, gt, metric, device="cpu")[0]
+        overlap_diff = max([overlap_diff] + [float(abs(a - b).max())
+                                             for a, b in zip(card_ov, cpu_ov)
+                                             if a.size])
+    check(overlap_diff <= 1e-5, f"the card's overlaps differ from the CPU's "
+          f"by {overlap_diff}")
+    mo = np.array([[[0.7], [0.5], [0.5]], [[0.5], [0.25], [0.25]]])
+    for metric in (0, 1, 2):
+        kw = dict(compute_aos=metric == 0, device=DEVICE)
+        native = ap.eval_class(gt, dt, [0], "kitti", list(range(6)), metric,
+                               mo, "new", use_native=True, **kw)
+        plain = ap.eval_class(gt, dt, [0], "kitti", list(range(6)), metric,
+                              mo, "new", use_native=False, **kw)
+        for key in ("precision", "recall", "orientation"):
+            check(np.array_equal(native[key], plain[key]),
+                  f"native and Python matchers differ: metric {metric} {key}")
+    dims = np.concatenate([g["dimensions"] for g in gt])
+    stats = {name: {"mean": float(dims[:, i].mean()),
+                    "std": float(dims[:, i].std())}
+             for i, name in enumerate(("length", "height", "width"))}
+    (out / "stats").mkdir(parents=True)
+    (out / "stats" / "label_stats_kitti.json").write_text(json.dumps(stats))
+    reports, ev_s, ev_peak = {}, {}, {}
+    runs = [(tag, kw, result) for tag, kw in EVAL_TRANSFORMS.items()] + [
+        ("rois_new", {}, rois), ("rois_old", {"metric": "old"}, rois)]
+    for tag, kw, labels in runs:
+        got = {}
+        for side, dev in (("card", DEVICE), ("cpu", "cpu")):
+            run = out / "evaluator" / side / tag
+            shutil.copytree(labels, run / "data")
+            if side == "card":
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+            got[side] = evaluate(
+                str(run / "data"), label_path=str(label_path),
+                label_split_file=str(split), current_class=0, device=dev,
+                stats_dir=str(out / "stats"), **dict({"metric": "new"}, **kw))
+            if side == "card":
+                torch.cuda.synchronize()
+                ev_s[tag] = time.perf_counter() - t0
+                ev_peak[tag] = (torch.cuda.max_memory_allocated()
+                                - base) / 2 ** 20
+        check(got["card"][0] == got["cpu"][0],
+              f"evaluator {tag}: the card's report differs from the CPU's")
+        if got["cpu"][1] is not None:
+            for key in ("Car_3d_moderate", "Car_bev_moderate",
+                        "Car_image_moderate"):
+                check(got["card"][1][key] == got["cpu"][1][key],
+                      f"evaluator {tag}: {key} differs from the CPU's")
+        reports[tag] = got["card"][0]
+    check(all("3d   AP" in reports[k] for k in ("new", "old", "rois_new")),
+          "the evaluator printed no AP table")
+
+    # RPN mode with its dumps, rcnn_offline training and eval from them
+    rpn, rpn_s, rpn_launches = cli("rpn", "--ckpt", ckpt,
+                                   "--save_rpn_feature")
+    for name, n in rpn_launches.items():
+        check((n > 0) == (name in RPN_EVAL_KERNELS),
+              f"eval CLI rpn: {name} launched {n} times")
+    dumps = out / "rpn"
+    feats = sorted((dumps / "features").iterdir())
+    check(len(feats) == 5 * CLI_FRAMES, f"RPN dumps: {len(feats)} files")
+    dump_bytes = sum(_dir_bytes(dumps / d) for d in
+                     ("features", "seg_result", "detections"))
+    dirs = ["--rcnn_training_roi_dir", str(dumps / "detections" / "data"),
+            "--rcnn_training_feature_dir", str(dumps / "features")]
+    _build.reset_launches()
+    train = train_main(["--cfg_file", cfg_file, "--train_mode",
+                        "rcnn_offline", "--batch_size", str(OFFLINE_BATCH),
+                        "--epochs", "1", "--data_root", str(data),
+                        "--output_dir", str(out / "offline_train"),
+                        "--device", DEVICE, *dirs, "--set", "TRAIN.SPLIT",
+                        "trainval"])
+    train_launches = dict(_build.LAUNCHES)
+    steps = len(train.losses)
+    check(steps == CLI_FRAMES // OFFLINE_BATCH
+          and all(math.isfinite(x) for x in train.losses),
+          f"rcnn_offline training: losses {train.losses}")
+    check_launches(train_launches, {k: v * steps
+                                    for k, v in OFFLINE_TRAIN.items()},
+                   f"rcnn_offline training, {steps} steps")
+    offline, offline_s, offline_launches = cli(
+        "rcnn_offline", "--ckpt", train.checkpoints[-1],
+        "--rcnn_eval_roi_dir", dirs[1], "--rcnn_eval_feature_dir", dirs[3])
+    check_launches(offline_launches, {k: v * n_batches
+                                      for k, v in OFFLINE_EVAL.items()},
+                   f"rcnn_offline eval, {n_batches} batches")
+    check(all(math.isfinite(offline[k]) for k in
+              ("rcnn_cls_acc", "rcnn_cls_acc_refined", "avg_detections")),
+          f"rcnn_offline eval: {offline}")
+    train_ms = train.step_ms
+    del train
+    torch.cuda.empty_cache()
+
+    res = {
+        "path": f"tools/eval_rcnn.main, {CLI_CFG} joint B={EVAL_CLI_BATCH}, "
+                f"{CLI_FRAMES} frames from disk (TEST.SPLIT trainval), phase "
+                "13's checkpoint", "card": card,
+        "scenes_per_s": joint["scenes_per_sec"], "joint_call_s": joint_s,
+        "recall": joint["recall"], "roi_recall": joint["roi_recall"],
+        "avg_detections": joint["avg_detections"],
+        "evaluator_s": ev_s, "evaluator_peak_mib": ev_peak,
+        "evaluator_roi_boxes": n_dt,
+        "overlaps_card_cpu_max_abs_diff": overlap_diff,
+        "rpn_call_s": rpn_s, "rpn_dumps_bytes": dump_bytes,
+        "rpn_seg_iou": rpn["rpn_iou"],
+        "offline_step_ms": statistics.median(train_ms),
+        "offline_step_ms_all": train_ms,
+        "offline_eval_call_s": offline_s,
+        "offline_eval_scenes_per_s": CLI_FRAMES / offline_s,
+        "offline_cls_acc": offline["rcnn_cls_acc"],
+        "offline_cls_acc_refined": offline["rcnn_cls_acc_refined"]}
+    print(f"eval CLI ({res['path']}; {card}): {res['scenes_per_s']:.2f} "
+          f"scenes/s after the first batch (the call {joint_s:.1f} s), "
+          f"recall {joint['recall']}, roi recall {joint['roi_recall']}; the "
+          f"evaluator on the card over the final boxes {ev_s['new']:.2f} s "
+          f"(new), {ev_s['old']:.2f} s (old), peak {ev_peak['new']:.1f} MiB "
+          f"above what was allocated before; over the {n_dt} rois "
+          f"{ev_s['rois_new']:.2f} s, peak {ev_peak['rois_new']:.1f} MiB; "
+          f"every transformation equal to the "
+          f"CPU's (seconds {ev_s}); overlaps of the rois, card against CPU, "
+          f"{overlap_diff:.3g}; RPN mode with dumps "
+          f"{rpn_s:.1f} s, {dump_bytes} bytes; rcnn_offline training "
+          f"{res['offline_step_ms']:.1f} ms/step fed by the loader "
+          f"({[round(x, 1) for x in train_ms]}, B={OFFLINE_BATCH}); "
+          f"rcnn_offline eval {res['offline_eval_scenes_per_s']:.2f} "
+          f"scenes/s over the whole call ({offline_s:.1f} s), cls acc "
+          f"{offline['rcnn_cls_acc']:.3f} / refined "
+          f"{offline['rcnn_cls_acc_refined']:.3f}")
+    print("evaluator report (new metric, the card):\n" + reports["new"]
+          + "over the rois:\n" + reports["rois_new"])
+    return joint_launches, {
+        k: train_launches[k] + offline_launches[k] for k in train_launches}, res
+
+
 def main() -> int:
     import torch
 
@@ -3310,7 +3567,12 @@ def main() -> int:
     cli_launches, cli = training_cli(smi[0])
     phases.done("13 (training CLI from disk)")
 
-    # 14. kernels line and result line: launches from the path each kernel
+    # 14. the eval CLI in joint and rpn mode, the evaluator, rcnn_offline
+    # training and eval from the RPN dumps
+    ecli_launches, offline_launches, ecli = eval_cli(smi[0])
+    phases.done("14 (eval CLI, evaluator, RCNN-offline)")
+
+    # 15. kernels line and result line: launches from the path each kernel
     # was timed at (per forward or per train step), and on the other paths
     runs = {"default.yaml eval B=2": launches,
             "default.yaml train B=16": train_launches,
@@ -3342,6 +3604,8 @@ def main() -> int:
             "bn_eval_launches": blaunches[name],
             "bn_train_launches": btrain_launches[name],
             "cli_launches": cli_launches[name],
+            "eval_cli_launches": ecli_launches[name],
+            "offline_launches": offline_launches[name],
             **report.row(name), "status": "ported"}
         # the same kernel at another path's shapes: double.yaml's SA_0, the
         # smoke slab, the train step's shapes of the eval kernels, and the
@@ -3376,7 +3640,7 @@ def main() -> int:
             **{f"RCNN SA_{k}": ms for k, ms in bn_library.items()}},
         "bn_train_step": {"path": BN_TRAIN_PATH, "ms": bstep_ms,
                           "peak_gib": bpeak},
-        "training_cli": cli,
+        "training_cli": cli, "eval_cli": ecli,
         "widened_shapes": {"shapes": WIDE_SHAPES,
                            "max_rel_err": wide_worst},
         "widened_config": {

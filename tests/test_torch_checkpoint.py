@@ -275,7 +275,11 @@ def test_structure_fallback_warns_and_restores_params(tmp_path):
     """A checkpoint whose optimizer state has another structure (tpu3d's
     legacy masked-decay chain, as tests/test_pipeline.py builds it) still
     restores params / batch_stats / step / epoch, with tpu3d's warning, and
-    leaves the port's optimizer state as it was."""
+    starts the port's optimizer state afresh: no moments, its count
+    (``opt_count``) at 0 while the step stays 5. One update after it reads
+    the learning rate and b1 at count 0 in both packages (tpu3d keeps its
+    freshly initialized opt_state), and the parameters then agree within
+    1e-6 relative plus 1e-6 of the largest."""
     _, cfg, jstate = _jax_setup("adam_onecycle")
     legacy_tx = optax.chain(optax.clip_by_global_norm(1.0),
                             optax.adamw(1e-3, mask=jax_ts._wd_mask(
@@ -288,12 +292,37 @@ def test_structure_fallback_warns_and_restores_params(tmp_path):
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         restored, epoch = ckpt.load_checkpoint(path, model, state)
-    assert (epoch, restored.step) == (3, 5)
-    assert any("optimizer-state structure" in str(w.message) for w in caught)
+        jrestored, jepoch = jax_ckpt.load_checkpoint(path, jstate)
+    assert (epoch, restored.step, restored.opt_count) == (3, 5, 0)
+    assert (jepoch, int(jrestored.step)) == (3, 5)
+    assert sum("optimizer-structure" in str(w.message)
+               or "optimizer-state structure" in str(w.message)
+               for w in caught) == 2
     assert not state.optimizer.opt.state
     want = params_from_jax(jstate.params, jstate.batch_stats)
     got = model.state_dict()
     assert all(torch.equal(got[k], want[k]) for k in want)
+
+    grads = _grads(jstate.params, 1)
+    jnext = _jax_update(jrestored, grads)
+    hyper = jax.device_get(jnext.opt_state[1].hyperparams)
+    torch_grads = params_from_jax(grads, {})
+    for name, p in model.named_parameters():
+        p.grad = torch_grads[name].clone()
+    restored.apply_gradients()
+    group = restored.optimizer.opt.param_groups[0]
+    opt = restored.optimizer
+    assert (restored.step, restored.opt_count) == (6, 1)
+    assert int(jnext.step) == 6 and int(jnext.opt_state[1].count) == 1
+    assert np.float32(group["lr"]) == hyper["learning_rate"] == opt.lr(0)
+    assert np.float32(group["betas"][0]) == hyper["b1"] == opt.b1(0)
+    assert opt.lr(0) != opt.lr(5)
+    got = dict(_flat(params_to_jax(model.state_dict())[0]))
+    want = dict(_flat(jax.device_get(jnext.params)))
+    top = max(np.abs(v).max() for v in want.values())
+    for k, v in want.items():
+        np.testing.assert_allclose(got[k], v, rtol=1e-6, atol=1e-6 * top,
+                                   err_msg=k)
 
 
 def test_partial_load_grafts_what_tpu3d_grafts(tmp_path):

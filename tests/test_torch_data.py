@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_offline_rcnn import _small_offline_cfg, _write_dumps
 from test_torch_rpn import _port_cfg
 from tpu3d import kitti as jkitti
 from tpu3d.config import fresh_cfg as jax_fresh_cfg
@@ -251,18 +252,72 @@ def test_roi_jitter_and_background_sampling_match(roots, method):
             jds._sample_bg_inds(jrng, hard, easy, 9))
 
 
-def test_offline_branches_raise(roots):
-    """The RCNN-offline samples are not ported: they raise, naming the
-    roadmap item."""
-    ds, _ = _datasets(roots, "TRAIN", False)
-    ds.cfg.RPN.ENABLED = False
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        ds[0]
-    ds.mode = "EVAL"
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        ds[0]
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        ds.get_rpn_features("x", 0)
+def _offline(roots, tmp_path, mode, seed=11):
+    """RCNN-offline datasets of both packages (tests/test_offline_rcnn.py's
+    small config: RPN off, 16 rois of 64 points per TRAIN sample, 24 roi
+    slots per EVAL sample) over one set of synthetic RPN dumps and
+    proposal files, written for every labelled frame."""
+    ours, ref, _, _ = roots
+    feat, rois = tmp_path / "feat", tmp_path / "rois"
+    _write_dumps(ours, feat, rois)
+    jcfg = _small_offline_cfg()
+    jcfg.TEST.RPN_POST_NMS_TOP_N = 24
+    dirs = ({"rcnn_training_roi_dir": str(rois),
+             "rcnn_training_feature_dir": str(feat)} if mode == "TRAIN" else
+            {"rcnn_eval_roi_dir": str(rois),
+             "rcnn_eval_feature_dir": str(feat)})
+    kw = dict(npoints=1024, split="train", mode=mode, seed=seed, **dirs)
+    return (KittiRCNNDataset(ours, cfg=_port_cfg(jcfg), **kw),
+            JaxDataset(ref, cfg=jcfg, **kw))
+
+
+def test_offline_branches_raise(roots, tmp_path):
+    """The RCNN-offline samples raise as tpu3d's do where their dumps are
+    missing: FileNotFoundError, in TRAIN and in EVAL, and from
+    get_rpn_features."""
+    for mode in ("TRAIN", "EVAL"):
+        (tmp_path / mode).mkdir()
+        ds, jds = _offline(roots, tmp_path / mode, mode)
+        for d in (ds, jds):
+            d.rcnn_training_feature_dir = d.rcnn_eval_feature_dir = str(
+                tmp_path)
+            with pytest.raises(FileNotFoundError):
+                d[0]
+    for d in (KittiRCNNDataset, JaxDataset):
+        with pytest.raises(FileNotFoundError):
+            d.get_rpn_features(str(tmp_path), 0)
+
+
+@pytest.mark.parametrize("mode", ["TRAIN", "EVAL"])
+def test_offline_samples_match(roots, tmp_path, mode):
+    """With RPN.ENABLED False the samples come from the dumps
+    (get_rcnn_training_sample_batch in TRAIN: fg/bg sampling, the jitter
+    until IoU, the pooling and the stage-2 augmentation; get_proposal_from_file
+    in EVAL: the proposals padded to TEST.RPN_POST_NMS_TOP_N slots, pooled,
+    their IoU with the gt) and equal tpu3d's key by key at two epochs:
+    every array bit for bit but gt_iou, which is a host 3D IoU (tpu3d's C
+    clip, the port's numpy one) and agrees within 1e-6."""
+    ds, jds = _offline(roots, tmp_path, mode)
+    assert ds.sample_id_list == jds.sample_id_list and len(ds) > 2
+    fg = 0
+    for epoch in (0, 2):
+        ds.epoch = jds.epoch = epoch
+        for i in range(len(ds)):
+            s, js = ds[i], jds[i]
+            assert list(s) == list(js)
+            for k in s:
+                if k == "gt_iou":
+                    np.testing.assert_allclose(s[k], js[k], rtol=0, atol=1e-6)
+                    assert s[k].dtype == js[k].dtype
+                else:
+                    _assert_same({k: s[k]}, {k: js[k]})
+            if mode == "TRAIN":
+                assert s["pts_input"].shape == (16, 64, 3 + 2 + 128)
+                fg += int((s["cls_label"] == 1).sum())
+            else:
+                assert s["pts_input"].shape == (24, 64, 3 + 2 + 128)
+                fg += int((s["gt_iou"] > 0.55).sum())
+    assert fg > 0
 
 
 @pytest.mark.parametrize("worker_mode", ["thread", "process"])

@@ -25,8 +25,8 @@ ROOT = Path(__file__).resolve().parents[1]
 def test_port_imports_no_jax_and_no_tpu3d():
     """Every module of tpu3d_torch, imported in a fresh interpreter, loads
     no jax, flax, optax or tpu3d module, and no msgpack (the checkpoints'
-    codec is the port's own); the walk reaches the loader, checkpoint and
-    training CLI modules."""
+    codec is the port's own); the walk reaches the loader, checkpoint,
+    training and eval CLI modules and the evaluator's."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import tpu3d_torch\n"
@@ -55,7 +55,10 @@ def test_port_imports_no_jax_and_no_tpu3d():
             "tpu3d_torch.datasets.loader", "tpu3d_torch.utils.checkpoint",
             "tpu3d_torch.utils.logging", "tpu3d_torch.utils.msgpack_io",
             "tpu3d_torch.tools.generate_gt_database",
-            "tpu3d_torch.tools.train_rcnn"} <= have
+            "tpu3d_torch.tools.train_rcnn", "tpu3d_torch.tools.eval_rcnn",
+            "tpu3d_torch.evaluate.ap", "tpu3d_torch.evaluate.evaluate",
+            "tpu3d_torch.evaluate.native",
+            "tpu3d_torch.evaluate.overlaps"} <= have
 
 
 def test_entry_point_defaults_to_cuda():

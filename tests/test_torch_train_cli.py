@@ -42,7 +42,7 @@ from tpu3d_torch.datasets import (BatchLoader, KittiRCNNDataset,
 from tpu3d_torch.models import PointRCNN
 from tpu3d_torch.parallel import make_eval_loss_step, make_eval_step
 from tpu3d_torch.tools import generate_gt_database as gtdb
-from tpu3d_torch.tools import train_rcnn
+from tpu3d_torch.tools import eval_rcnn, train_rcnn
 from tpu3d_torch.tools.train_rcnn import main
 from tpu3d_torch.utils import msgpack_io
 from tpu3d_torch.weights import params_from_jax, seeded_state_dict
@@ -159,13 +159,35 @@ def test_profile_traces_steps_10_to_15(data):
 
 def test_cli_wants_the_card_and_no_offline_mode(data):
     """Without --device cpu the CLI trains on the card and raises on a
-    machine without one; rcnn_offline raises as not ported."""
+    machine without one. rcnn_offline trains: from the RPN dumps of the
+    port's eval CLI (rpn mode, --save_rpn_feature --save_result, on the
+    same frames), one epoch of the RCNN alone, finite losses, a checkpoint
+    holding the RCNN's parameters only; without its dump directories it
+    raises."""
+    base, root, _ = data
     args = _args(data, "x", "joint", 1)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             main([a for a in args if a not in ("--device", "cpu")])
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    with pytest.raises(ValueError, match="rcnn_training_roi_dir"):
         main(_args(data, "y", "rcnn_offline", 1))
+    eval_rcnn.main(["--cfg_file", str(base / "smoke_narrow.yaml"),
+                    "--eval_mode", "rpn", "--data_root", root,
+                    "--batch_size", "2", "--workers", "2",
+                    "--save_rpn_feature", "--save_result", "--device", "cpu",
+                    "--output_dir", str(base / "dumps"), "--set",
+                    "TEST.SPLIT", "trainval"])
+    run = main(_args(data, "offline", "rcnn_offline", 1,
+                     "--rcnn_training_roi_dir",
+                     str(base / "dumps" / "detections" / "data"),
+                     "--rcnn_training_feature_dir",
+                     str(base / "dumps" / "features")))
+    assert len(run.losses) == 3 and np.isfinite(run.losses).all()
+    assert run.state.step == run.state.opt_count == 3
+    assert not hasattr(run.model, "rpn")
+    with open(run.checkpoints[0], "rb") as f:
+        saved = msgpack_io.decode(f.read())
+    assert list(saved["params"]) == ["rcnn_net"]
 
 
 @pytest.mark.parametrize("mode", ["joint", "rcnn"])

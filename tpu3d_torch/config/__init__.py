@@ -1,7 +1,6 @@
 """tpu3d_torch.config — the port's copy of the detector config tree."""
 
 from .config import (
-    OFFLINE_NOT_PORTED,
     AttrDict,
     as_attrdict,
     cfg,
@@ -11,6 +10,6 @@ from .config import (
     save_config_to_file,
 )
 
-__all__ = ["OFFLINE_NOT_PORTED", "AttrDict", "as_attrdict", "cfg",
+__all__ = ["AttrDict", "as_attrdict", "cfg",
            "cfg_from_file", "cfg_from_list", "fresh_cfg",
            "save_config_to_file"]

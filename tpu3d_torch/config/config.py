@@ -12,11 +12,6 @@ from __future__ import annotations
 
 import numpy as np
 
-# what every entry point raises for RCNN-offline mode (RPN.ENABLED False)
-OFFLINE_NOT_PORTED = ("RCNN-offline mode (RPN.ENABLED False) is not ported "
-                      "yet (ROADMAP.md queue 1 item 4)")
-
-
 class AttrDict(dict):
     """dict with attribute access (stand-in for easydict.EasyDict)."""
 
@@ -218,7 +213,3 @@ def save_config_to_file(c: AttrDict, pre: str = "cfg", logger=None) -> None:
         msg = f"{pre}.{key}: {val}"
         logger.info(msg) if logger else print(msg)
 
-
-def fresh_cfg() -> AttrDict:
-    """A new independent default config (tests / multi-config runs)."""
-    return _default_cfg()

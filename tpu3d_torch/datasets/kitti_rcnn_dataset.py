@@ -1,9 +1,9 @@
 """The training/eval input pipeline: KITTI scenes -> fixed-shape device batches.
 
 The port's copy of ``tpu3d/datasets/kitti_rcnn_dataset.py``, held equal to it
-sample for sample by ``tests/test_torch_data.py``. The RCNN-offline branches
-(samples from saved proposals and dumped RPN features) are not ported: they
-raise ``NotImplementedError``.
+sample for sample by ``tests/test_torch_data.py``, the RCNN-offline branches
+included (samples from saved proposals and dumped RPN features, with
+``RPN.ENABLED`` False).
 
 Reference parity: lib/datasets/kitti_rcnn_dataset.py (the RPN path + jit-RCNN
 path). Differences by design (SURVEY.md §7):
@@ -22,7 +22,7 @@ import pickle
 
 import numpy as np
 
-from ..config.config import OFFLINE_NOT_PORTED
+from ..kitti import read_label
 from ..kitti.boxes import (
     boxes_iou3d_numpy,
     enlarge_box3d,
@@ -30,6 +30,7 @@ from ..kitti.boxes import (
     rotate_points_along_y,
 )
 from ..kitti.object3d import objs_to_boxes3d
+from ..ops.roipool import roipool3d_numpy
 from .kitti_dataset import KittiDataset
 
 MAX_GT = 50  # padded gt box slots per scene
@@ -119,8 +120,6 @@ class KittiRCNNDataset(KittiDataset):
     # via % 200000; offline-augmented labels live under aug_label;
     # reference: kitti_rcnn_dataset.py:120-139)
     def get_label(self, idx):
-        from ..kitti import read_label
-
         if idx < 2000000:
             label_file = os.path.join(self.label_dir, "%06d.txt" % idx)
         else:
@@ -183,14 +182,89 @@ class KittiRCNNDataset(KittiDataset):
     # ----- offline-RCNN support (features dumped by eval_rcnn --save_rpn_feature)
     @staticmethod
     def get_rpn_features(rpn_feature_dir, idx, use_seg_score=False):
-        """A scene's dumped backbone features (tpu3d:
-        kitti_rcnn_dataset.py:179): RCNN-offline, not ported."""
-        raise NotImplementedError(OFFLINE_NOT_PORTED)
+        """Load a scene's dumped backbone features (reference parity:
+        kitti_rcnn_dataset.py:141-154 get_rpn_features)."""
+        xyz = np.load(os.path.join(rpn_feature_dir, "%06d_xyz.npy" % idx))
+        features = np.load(os.path.join(rpn_feature_dir, "%06d.npy" % idx))
+        intensity = np.load(
+            os.path.join(rpn_feature_dir, "%06d_intensity.npy" % idx)).reshape(-1)
+        if use_seg_score:
+            raw = np.load(
+                os.path.join(rpn_feature_dir, "%06d_rawscore.npy" % idx)
+            ).reshape(-1)
+            seg = 1.0 / (1.0 + np.exp(-raw))
+        else:
+            seg = np.load(
+                os.path.join(rpn_feature_dir, "%06d_seg.npy" % idx)).reshape(-1)
+        return xyz, features, intensity, seg
 
     def get_proposal_from_file(self, index):
-        """Offline-RCNN eval sample (tpu3d: kitti_rcnn_dataset.py:196):
-        not ported."""
-        raise NotImplementedError(OFFLINE_NOT_PORTED)
+        """Offline-RCNN eval sample: saved proposals + dumped RPN features
+        (reference parity: kitti_rcnn_dataset.py:811-895)."""
+        cfg = self.cfg
+        sample_id = int(self.image_idx_list[index])
+        proposal_file = os.path.join(self.rcnn_eval_roi_dir,
+                                     "%06d.txt" % sample_id)
+        roi_objs = read_label(proposal_file)
+        rpn_xyz, rpn_features, rpn_intensity, seg_mask = self.get_rpn_features(
+            self.rcnn_eval_feature_dir, sample_id,
+            use_seg_score=cfg.RCNN.USE_SEG_SCORE)
+
+        roi_boxes3d = objs_to_boxes3d(roi_objs)
+        roi_scores = np.array([o.score or 0.0 for o in roi_objs], np.float32)
+
+        pts_extra = self._rcnn_extra_features(rpn_xyz, rpn_intensity, seg_mask)
+        pts_feature = np.concatenate(
+            [pts_extra, rpn_features], axis=1).astype(np.float32)
+
+        # pad rois to a fixed slot count so eval batches have one shape
+        m = int(min(len(roi_boxes3d), self.MAX_ROI))
+        roi_valid = np.zeros(self.MAX_ROI, dtype=bool)
+        roi_valid[:m] = True
+        rois_pad = np.zeros((self.MAX_ROI, 7), np.float32)
+        rois_pad[:m] = roi_boxes3d[:m]
+        rois_pad[m:, 3:6] = 1.0  # unit boxes keep the pool/IoU math finite
+        scores_pad = np.zeros(self.MAX_ROI, np.float32)
+        scores_pad[:m] = roi_scores[:m]
+
+        pooled, _empty = roipool3d_numpy(
+            rpn_xyz[None].astype(np.float32), pts_feature[None],
+            rois_pad[None], cfg.RCNN.POOL_EXTRA_WIDTH,
+            int(cfg.RCNN.NUM_POINTS))
+        pooled = pooled[0]  # (MAX_ROI, K, 3+C)
+        # canonical transform
+        pooled[..., 0:3] -= rois_pad[:, None, 0:3]
+        pooled[..., 0:3] = rotate_points_along_y(
+            pooled[..., 0:3], rois_pad[:, None, 6])
+
+        sample = {"sample_id": sample_id,
+                  "pts_input": pooled.astype(np.float32),
+                  "roi_boxes3d": rois_pad,
+                  "roi_scores": scores_pad,
+                  "roi_valid": roi_valid,
+                  "roi_size": rois_pad[:, 3:6].copy()}
+        if self.mode != "TEST":
+            gt_boxes3d = objs_to_boxes3d(
+                self.filtrate_objects(self.get_label_objects(sample_id)))
+            gt_iou = np.zeros(self.MAX_ROI, np.float32)
+            # canonical-frame matched gt per ROI so --train_with_eval can
+            # report the real reg loss (reference eval_epoch runs the full
+            # loss, train_utils.py:140-168); zeros where no gt matches
+            gt_ct = np.zeros((self.MAX_ROI, 7), np.float32)
+            if len(gt_boxes3d) and m:
+                iou = boxes_iou3d_numpy(rois_pad[:m], gt_boxes3d)
+                gt_iou[:m] = iou.max(axis=1)
+                gt_of = gt_boxes3d[iou.argmax(axis=1)]  # (m, 7)
+                roi_ry = rois_pad[:m, 6] % (2 * np.pi)
+                ct = gt_of.copy()
+                ct[:, 0:3] -= rois_pad[:m, 0:3]
+                ct[:, 0:3] = rotate_points_along_y(ct[:, 0:3], roi_ry)
+                ct[:, 6] -= roi_ry
+                gt_ct[:m] = ct
+            sample["gt_boxes3d"] = self._pad_gt(gt_boxes3d)
+            sample["gt_iou"] = gt_iou
+            sample["gt_boxes3d_ct"] = gt_ct
+        return sample
 
     # ----- offline-RCNN training (features + rois dumped by an RPN eval run)
     MAX_ROI = 300  # class-level fallback; __init__ overrides from
@@ -268,10 +342,176 @@ class KittiRCNNDataset(KittiDataset):
         pool = hard_bg_inds if hard_bg_inds.size > 0 else easy_bg_inds
         return pool[np.floor(rng.random(bg_num) * pool.size).astype(int)]
 
+    def _rcnn_extra_features(self, rpn_xyz, rpn_intensity, seg_mask):
+        """[intensity?, seg_mask, depth?] per point, the extras that sit between
+        canonical xyz and the 128-d backbone features (reference:
+        kitti_rcnn_dataset.py:981-989)."""
+        cfg = self.cfg
+        extras = []
+        if cfg.RCNN.USE_INTENSITY:
+            extras.append(rpn_intensity.reshape(-1, 1))
+        extras.append(seg_mask.reshape(-1, 1))
+        if cfg.RCNN.USE_DEPTH:
+            depth = np.linalg.norm(rpn_xyz, axis=1) / 70.0 - 0.5
+            extras.append(depth.reshape(-1, 1))
+        return np.concatenate(extras, axis=1).astype(np.float32)
+
     def get_rcnn_training_sample_batch(self, index):
-        """Offline-RCNN training sample (tpu3d:
-        kitti_rcnn_dataset.py:359): not ported."""
-        raise NotImplementedError(OFFLINE_NOT_PORTED)
+        """Offline-RCNN training sample: fg/bg-sampled, noise-jittered ROIs
+        pooled from dumped RPN features, canonically transformed — fixed shape
+        (ROI_PER_IMAGE, NUM_POINTS, 3+ext+C) (reference parity:
+        kitti_rcnn_dataset.py:897-1043 get_rcnn_training_sample_batch; the
+        jitter-until-IoU and the first-k pooling keep the reference's
+        semantics, shapes are fixed by construction)."""
+        cfg = self.cfg
+        rng = self._rng(index)
+        sample_id = int(self.sample_id_list[index])
+        rpn_xyz, rpn_features, rpn_intensity, seg_mask = self.get_rpn_features(
+            self.rcnn_training_feature_dir, sample_id)
+
+        roi_file = os.path.join(self.rcnn_training_roi_dir,
+                                "%06d.txt" % sample_id)
+        roi_boxes3d = objs_to_boxes3d(read_label(roi_file))
+        gt_boxes3d = objs_to_boxes3d(
+            self.filtrate_objects(self.get_label(sample_id)))
+
+        n_roi = int(cfg.RCNN.ROI_PER_IMAGE)
+        if len(roi_boxes3d) == 0 or len(gt_boxes3d) == 0:
+            # degenerate frame: keep shapes, mark everything invalid
+            k = int(cfg.RCNN.NUM_POINTS)
+            c = 3 + self._rcnn_extra_features(
+                rpn_xyz, rpn_intensity, seg_mask).shape[1] + rpn_features.shape[1]
+            return {"sample_id": sample_id,
+                    "pts_input": np.zeros((n_roi, k, c), np.float32),
+                    "cls_label": np.full(n_roi, -1, np.int32),
+                    "reg_valid_mask": np.zeros(n_roi, np.int32),
+                    "gt_boxes3d_ct": np.zeros((n_roi, 7), np.float32),
+                    "roi_boxes3d": np.zeros((n_roi, 7), np.float32)}
+
+        iou3d = boxes_iou3d_numpy(roi_boxes3d, gt_boxes3d)
+        max_overlaps, gt_assignment = iou3d.max(axis=1), iou3d.argmax(axis=1)
+        max_iou_of_gt, roi_assignment = iou3d.max(axis=0), iou3d.argmax(axis=0)
+        roi_assignment = roi_assignment[max_iou_of_gt > 0].reshape(-1)
+
+        fg_rois_per_image = int(np.round(cfg.RCNN.FG_RATIO * n_roi))
+        fg_thresh = min(cfg.RCNN.REG_FG_THRESH, cfg.RCNN.CLS_FG_THRESH)
+        # the best roi of each gt counts as fg regardless of threshold
+        fg_inds = np.concatenate(
+            [np.nonzero(max_overlaps >= fg_thresh)[0], roi_assignment])
+        easy_bg_inds = np.nonzero(max_overlaps < cfg.RCNN.CLS_BG_THRESH_LO)[0]
+        hard_bg_inds = np.nonzero((max_overlaps < cfg.RCNN.CLS_BG_THRESH)
+                                  & (max_overlaps >= cfg.RCNN.CLS_BG_THRESH_LO))[0]
+
+        fg_num, bg_num = fg_inds.size, easy_bg_inds.size + hard_bg_inds.size
+        if fg_num > 0 and bg_num > 0:
+            fg_this = min(fg_rois_per_image, fg_num)
+            fg_inds = fg_inds[rng.permutation(fg_num)[:fg_this]]
+            bg_inds = self._sample_bg_inds(rng, hard_bg_inds, easy_bg_inds,
+                                           n_roi - fg_this)
+        elif fg_num > 0:
+            fg_inds = fg_inds[
+                np.floor(rng.random(n_roi) * fg_num).astype(int)]
+            bg_inds = np.array([], dtype=int)
+        else:
+            bg_inds = self._sample_bg_inds(rng, hard_bg_inds, easy_bg_inds,
+                                           n_roi)
+            fg_inds = np.array([], dtype=int)
+
+        # jitter fg rois toward/away from their gt (aug_times=10), bg once
+        parts_roi, parts_iou, parts_gt = [], [], []
+        for inds, aug_times in ((fg_inds, 10), (bg_inds, 1)):
+            if inds.size == 0:
+                continue
+            rois_src = roi_boxes3d[inds].copy()
+            gt_of = gt_boxes3d[gt_assignment[inds]]
+            rois_aug, iou_aug = self.aug_roi_by_noise_batch(
+                rng, rois_src, gt_of, aug_times=aug_times)
+            parts_roi.append(rois_aug)
+            parts_iou.append(iou_aug)
+            parts_gt.append(gt_of)
+        rois = np.concatenate(parts_roi, axis=0).astype(np.float32)
+        iou_of_rois = np.concatenate(parts_iou, axis=0).astype(np.float32)
+        gt_of_rois = np.concatenate(parts_gt, axis=0).astype(np.float32)
+
+        pts_extra = self._rcnn_extra_features(rpn_xyz, rpn_intensity, seg_mask)
+        pts_feature = np.concatenate([pts_extra, rpn_features],
+                                     axis=1).astype(np.float32)
+        pooled, empty = roipool3d_numpy(
+            rpn_xyz[None].astype(np.float32), pts_feature[None], rois[None],
+            cfg.RCNN.POOL_EXTRA_WIDTH, int(cfg.RCNN.NUM_POINTS))
+        pooled, empty = pooled[0], np.asarray(empty[0])  # (R, K, 3+C), (R,)
+
+        # stage-2 per-roi augmentation (reference :997-1017)
+        if cfg.AUG_DATA and self.mode == "TRAIN":
+            for k in range(len(rois)):
+                pair = np.stack([rois[k], gt_of_rois[k]], axis=0)
+                aug_pts, aug_pair, _ = self._stage2_augmentation(
+                    rng, pooled[k, :, 0:3].copy(), pair)
+                pooled[k, :, 0:3] = aug_pts
+                rois[k] = aug_pair[0]
+                gt_of_rois[k] = aug_pair[1]
+
+        valid_mask = (~empty).astype(np.int32)
+        reg_valid_mask = ((iou_of_rois > cfg.RCNN.REG_FG_THRESH).astype(np.int32)
+                          & valid_mask)
+        cls_label = (iou_of_rois > cfg.RCNN.CLS_FG_THRESH).astype(np.int32)
+        invalid = ((iou_of_rois > cfg.RCNN.CLS_BG_THRESH)
+                   & (iou_of_rois < cfg.RCNN.CLS_FG_THRESH))
+        cls_label[invalid] = -1
+        cls_label[valid_mask == 0] = -1
+
+        # canonical transform (reference :705-725 canonical_transform_batch)
+        roi_ry = rois[:, 6] % (2 * np.pi)
+        roi_center = rois[:, 0:3]
+        pooled[..., 0:3] -= roi_center[:, None, :]
+        pooled[..., 0:3] = rotate_points_along_y(pooled[..., 0:3],
+                                                 roi_ry[:, None])
+        gt_ct = gt_of_rois.copy()
+        gt_ct[:, 0:3] -= roi_center
+        gt_ct[:, 0:3] = rotate_points_along_y(gt_ct[:, 0:3], roi_ry)
+        gt_ct[:, 6] -= roi_ry
+
+        return {"sample_id": sample_id,
+                "pts_input": pooled.astype(np.float32),
+                "cls_label": cls_label,
+                "reg_valid_mask": reg_valid_mask,
+                "gt_boxes3d_ct": gt_ct.astype(np.float32),
+                "roi_boxes3d": rois}
+
+    def _stage2_augmentation(self, rng, pts, boxes_pair):
+        """Per-ROI rotation/scale/flip on (points, [roi, gt]) — the reference's
+        data_augmentation(stage=2) (kitti_rcnn_dataset.py:546-591): boxes rotate
+        rigidly about the y axis (center orbits, ry shifts by the angle)."""
+        cfg = self.cfg
+        aug_list = cfg.AUG_METHOD_LIST
+        aug_enable = 1 - rng.random(3)
+        aug_enable[0] = aug_enable[1] = -1  # mustaug
+        aug_method = []
+        boxes = boxes_pair.copy()
+        if "rotation" in aug_list and aug_enable[0] < cfg.AUG_METHOD_PROB[0]:
+            angle = rng.uniform(-np.pi / cfg.AUG_ROT_RANGE,
+                                np.pi / cfg.AUG_ROT_RANGE)
+            pts = rotate_points_along_y(pts, angle)
+            # rotate_box3d_along_y (reference :416-426): orbit the center and
+            # recompute ry so the viewing angle alpha is preserved
+            old_beta = np.arctan2(boxes[:, 2], boxes[:, 0])
+            alpha = -np.sign(old_beta) * np.pi / 2 + old_beta + boxes[:, 6]
+            boxes[:, 0:3] = rotate_points_along_y(boxes[:, 0:3], angle)
+            new_beta = np.arctan2(boxes[:, 2], boxes[:, 0])
+            boxes[:, 6] = np.sign(new_beta) * np.pi / 2 + alpha - new_beta
+            aug_method.append(["rotation", float(angle)])
+        if "scaling" in aug_list and aug_enable[1] < cfg.AUG_METHOD_PROB[1]:
+            scale = rng.uniform(cfg.SCALE_MIN_MAX_RANGE[0],
+                                cfg.SCALE_MIN_MAX_RANGE[1])
+            pts = pts * scale
+            boxes[:, 0:6] *= scale
+            aug_method.append(["scaling", float(scale)])
+        if "flip" in aug_list and aug_enable[2] < cfg.AUG_METHOD_PROB[2]:
+            pts[:, 0] = -pts[:, 0]
+            boxes[:, 0] = -boxes[:, 0]
+            boxes[:, 6] = np.sign(boxes[:, 6]) * np.pi - boxes[:, 6]
+            aug_method.append("flip")
+        return pts.astype(np.float32), boxes, aug_method
 
     def __len__(self):
         return len(self.sample_id_list)

@@ -1,16 +1,17 @@
 """PointRCNN, at eval and in training (counterpart of
 ``tpu3d/models/point_rcnn.py``).
 
-Two branches, as in the JAX package. With ``RCNN.ENABLED`` (the joint mode
-of configs/default.yaml): the RPN forward, proposal decode and
+Three branches, as in the JAX package. With ``RCNN.ENABLED`` (the joint
+mode of configs/default.yaml): the RPN forward, proposal decode and
 distance-banded NMS, then, at eval, ROI pooling of the backbone points and
 features with the canonical transform, or, in training, the proposal
 target layer (ROI sampling, jitter, pooling, augmentation, labels); then
 the RCNN refinement on the detached RPN outputs. Without it: the RPN-only
 branch, which ends at the proposals and the per-point segmentation mask
-at eval and at the RPN's outputs in training. With ``RPN.FIXED`` the RPN
-runs in eval mode and its outputs are detached. RCNN-offline mode is not
-ported yet.
+at eval and at the RPN's outputs in training. With ``RPN.ENABLED`` False
+(RCNN-offline mode): the RCNN alone, on the pooled canonical points the
+loader builds from dumped RPN features. With ``RPN.FIXED`` the RPN runs in
+eval mode and its outputs are detached.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..config.config import OFFLINE_NOT_PORTED, as_attrdict
+from ..config.config import as_attrdict
 from ..device import resolve_device
 from ..ops.box_geometry import rotate_points_along_y
 from ..ops.roipool import roipool3d
@@ -32,8 +33,8 @@ def rcnn_extra_features(cfg, rpn_scores_raw: torch.Tensor,
                         backbone_xyz: torch.Tensor):
     """[seg_mask, depth] per point, as the config enables them (reference:
     rcnn_net.py:156-166) -> ((B, N, C_extra), (B, N) f32 seg mask). The
-    intensity channel is not ported (``RCNN.USE_INTENSITY`` is False in
-    every shipped config)."""
+    intensity channel comes only with RCNN-offline samples, whose loader
+    adds it (``KittiRCNNDataset._rcnn_extra_features``)."""
     seg_mask = (torch.sigmoid(rpn_scores_raw) > cfg.RPN.SCORE_THRESH).to(
         backbone_xyz.dtype)
     extras = []
@@ -48,21 +49,25 @@ def rcnn_extra_features(cfg, rpn_scores_raw: torch.Tensor,
 class PointRCNN(nn.Module):
     """The detector on ``device`` (default ``cuda``; raises without a card
     unless the caller passes ``device="cpu"``). ``mode`` picks the proposal
-    layer's settings (``cfg.TRAIN`` or ``cfg.TEST``)."""
+    layer's settings (``cfg.TRAIN`` or ``cfg.TEST``). With ``RPN.ENABLED``
+    False it holds ``rcnn_net`` alone, as tpu3d's parameter tree does."""
 
     def __init__(self, cfg, mode: str = "TEST", device=None):
         super().__init__()
         c = as_attrdict(cfg)
-        if not c.RPN.ENABLED:
-            raise NotImplementedError(OFFLINE_NOT_PORTED)
-        if c.RCNN.ENABLED and c.RCNN.USE_INTENSITY:
+        if not (c.RPN.ENABLED or c.RCNN.ENABLED):
+            raise ValueError("PointRCNN needs RPN.ENABLED or RCNN.ENABLED")
+        if c.RPN.ENABLED and c.RCNN.ENABLED and c.RCNN.USE_INTENSITY:
+            # only the RCNN-offline loader carries the intensity channel;
+            # tpu3d's joint path would read the first RPN feature as it
             raise NotImplementedError(
-                "RCNN.USE_INTENSITY needs the loader's intensity channel, "
-                "which is not ported yet")
+                "RCNN.USE_INTENSITY needs the RCNN-offline loader's "
+                "intensity channel (RPN.ENABLED False)")
         self.cfg = c
         self.mode = mode
         dev = resolve_device(device)
-        self.rpn = RPN(c, device=dev)
+        if c.RPN.ENABLED:
+            self.rpn = RPN(c, device=dev)
         if c.RCNN.ENABLED:
             self.rcnn_net = RCNNNet(c, device=dev)
 
@@ -106,7 +111,17 @@ class PointRCNN(nn.Module):
         training (``train``) also ``input_dict["gt_boxes3d"]`` (B, G, 7),
         zero-padded; BatchNorm takes the batch's statistics and updates its
         running ones with ``bn_momentum`` (flax's convention), and dropout
-        and the proposal target layer draw from ``generator``."""
+        and the proposal target layer draw from ``generator``.
+        RCNN-offline (``RPN.ENABLED`` False): ``pts_input`` is the loader's
+        pooled canonical points, (B·M, K, 3 + C_extra + C_rpn), and the
+        output holds ``rcnn_cls`` and ``rcnn_reg`` (tpu3d:
+        point_rcnn.py:152-157)."""
+        if not self.cfg.RPN.ENABLED:
+            pts = input_dict["pts_input"]
+            with torch.set_grad_enabled(train and torch.is_grad_enabled()):
+                return dict(self.rcnn_net(pts[..., :3].contiguous(),
+                                          pts[..., 3:], train, bn_momentum,
+                                          generator))
         if train:
             return self._forward_train(input_dict, bn_momentum, generator)
         return self._forward_eval(input_dict)

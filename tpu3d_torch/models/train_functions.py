@@ -175,8 +175,10 @@ def get_rcnn_loss(cfg, ret_dict):
 def model_loss(cfg, ret_dict, data):
     """Total loss of the trained stages (reference: train_functions.py
     model_fn): the RPN's unless it is fixed, plus the RCNN's when it is
-    enabled. The RCNN's labels come from the proposal target layer, which
-    the port runs on the device (RCNN-offline mode is not ported)."""
+    enabled. The RCNN's labels come from the proposal target layer on the
+    device, or, in RCNN-offline mode, from the loader's batch
+    (``cls_label``, ``reg_valid_mask``, ``roi_boxes3d``,
+    ``gt_boxes3d_ct``, each (B, R, ...))."""
     tb = {}
     loss = 0.0
     if cfg.RPN.ENABLED and not cfg.RPN.FIXED:
@@ -186,6 +188,12 @@ def model_loss(cfg, ret_dict, data):
         loss = loss + rpn_loss
         tb.update(tb_rpn)
     if cfg.RCNN.ENABLED:
+        if "cls_label" not in ret_dict:
+            ret_dict = dict(ret_dict)
+            ret_dict["cls_label"] = data["cls_label"].reshape(-1)
+            ret_dict["reg_valid_mask"] = data["reg_valid_mask"].reshape(-1)
+            ret_dict["roi_boxes3d"] = data["roi_boxes3d"].reshape(-1, 7)
+            ret_dict["gt_of_rois"] = data["gt_boxes3d_ct"].reshape(-1, 7)
         rcnn_loss, tb_rcnn = get_rcnn_loss(cfg, ret_dict)
         loss = loss + rcnn_loss
         tb.update(tb_rcnn)

@@ -43,3 +43,33 @@ def roipool3d(pts: torch.Tensor, feats: torch.Tensor, boxes3d: torch.Tensor,
     px = torch.where(keep, px.reshape(B, M, num_sampled, 3), 0.0)
     pf = torch.where(keep, pf.reshape(B, M, num_sampled, -1), 0.0)
     return px, pf, empty
+
+
+def roipool3d_numpy(pts, feats, boxes3d, pool_extra_width, num_sampled):
+    """The same pooling on the host in numpy (tpu3d's ``roipool3d_numpy``),
+    for the RCNN-offline samples the loader builds: pts (B, N, 3), feats
+    (B, N, C), boxes3d (B, M, 7) -> (pooled (B, M, K, 3 + C) f32, empty
+    (B, M) bool)."""
+    import numpy as np
+
+    from ..kitti.boxes import enlarge_box3d as np_enlarge
+    from ..kitti.boxes import points_in_boxes3d as np_inside
+
+    pts, feats, boxes3d = map(np.asarray, (pts, feats, boxes3d))
+    B, N, _ = pts.shape
+    M = boxes3d.shape[1]
+    C = feats.shape[-1]
+    pooled = np.zeros((B, M, num_sampled, 3 + C), dtype=np.float32)
+    empty = np.zeros((B, M), dtype=bool)
+    for b in range(B):
+        big = np_enlarge(boxes3d[b], pool_extra_width)
+        inside = np_inside(pts[b], big)  # (N, M)
+        data = np.concatenate([pts[b], feats[b]], axis=1)
+        for m in range(M):
+            hits = np.where(inside[:, m])[0]
+            if len(hits) == 0:
+                empty[b, m] = True
+                continue
+            take = hits[np.arange(num_sampled) % len(hits)]
+            pooled[b, m] = data[take]
+    return pooled, empty

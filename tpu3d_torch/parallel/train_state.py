@@ -10,9 +10,12 @@ of ``tpu3d/parallel/train_state.py``, which builds them from optax).
 - before every update the gradients are clipped by their global norm as
   optax clips them: g·max/‖g‖ when ‖g‖ >= max (``clip_grad_norm_`` would
   divide by ‖g‖ + 1e-6);
-- the schedules are read at the count of updates done before this one, as
+- the schedules are read at the optimizer's own count of updates done
+  before this one (``TrainState.opt_count``, optax's ``count``), as
   optax's ``inject_hyperparams`` reads them, and Adam's bias correction
-  takes the current b1.
+  takes the current b1. The count equals the global step except after a
+  checkpoint's structure fallback, which restores the step and starts the
+  optimizer's state, count included, afresh, as tpu3d does.
 
 The update itself is PyTorch's AdamW / Adam / SGD with each step's lr and
 betas written into the parameter group.
@@ -28,9 +31,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..config.config import OFFLINE_NOT_PORTED
 from ..models.train_functions import (generate_rpn_labels_device,
-                                      get_rpn_loss, model_loss)
+                                      get_rcnn_loss, get_rpn_loss,
+                                      model_loss)
 from ..ops.rotated_iou import boxes_iou3d
 
 
@@ -203,15 +206,19 @@ class Optimizer:
 
 @dataclass
 class TrainState:
-    """The optimizer and the count of updates done."""
+    """The optimizer, the global count of updates done (``step``) and the
+    count of updates its state has taken (``opt_count``, the counterpart of
+    optax's ``count``), at which the schedules are read."""
     optimizer: Optimizer
     step: int = 0
+    opt_count: int = 0
 
     def apply_gradients(self) -> torch.Tensor:
         """One clipped update from the parameters' ``.grad`` -> the global
         gradient norm."""
-        norm = self.optimizer.step(self.step)
+        norm = self.optimizer.step(self.opt_count)
         self.step += 1
+        self.opt_count += 1
         return norm
 
 
@@ -242,28 +249,35 @@ def make_train_step(cfg, model: torch.nn.Module):
     ``batch`` holds ``pts_input`` (B, N, 3) and ``gt_boxes3d`` (B, G, 7),
     zero-padded, on the model's device; the RPN labels are made there from
     the gt boxes unless the batch carries ``rpn_cls_label`` /
-    ``rpn_reg_label``. One step: the train-mode forward (dropout and the
-    proposal target layer draw from ``generator``, a ``torch.Generator`` on
-    the model's device), ``model_loss``, the backward and one clipped
-    update of ``state``. The metrics are tpu3d's tb dict (0-dim tensors,
-    left on the device) with ``grad_norm``.
+    ``rpn_reg_label``. In RCNN-offline mode (``RPN.ENABLED`` False) it holds
+    the loader's pooled points (B, R, K, C), run as (B·R, K, C), and the
+    RCNN's labels (``cls_label``, ``reg_valid_mask``, ``roi_boxes3d``,
+    ``gt_boxes3d_ct``; tpu3d: train_state.py:166-175). One step: the
+    train-mode forward (dropout and the proposal target layer draw from
+    ``generator``, a ``torch.Generator`` on the model's device),
+    ``model_loss``, the backward and one clipped update of ``state``. The
+    metrics are tpu3d's tb dict (0-dim tensors, left on the device) with
+    ``grad_norm``.
     """
-    if not cfg.RPN.ENABLED:
-        raise NotImplementedError(OFFLINE_NOT_PORTED)
-    rpn_trains = not cfg.RPN.FIXED
+    offline = not cfg.RPN.ENABLED
+    rpn_trains = cfg.RPN.ENABLED and not cfg.RPN.FIXED
 
     def train_step(state: TrainState, batch: dict,
                    generator: torch.Generator | None,
                    bn_momentum: float) -> dict:
         pts = batch["pts_input"]
+        if offline:
+            inputs = {"pts_input": pts.reshape(-1, *pts.shape[-2:])}
+        else:
+            inputs = {"pts_input": pts, "gt_boxes3d": batch["gt_boxes3d"]}
         if rpn_trains and "rpn_cls_label" not in batch:
             cls_l, reg_l = generate_rpn_labels_device(pts[..., :3],
                                                       batch["gt_boxes3d"])
             batch = dict(batch, rpn_cls_label=cls_l, rpn_reg_label=reg_l)
         for p in state.optimizer.params:
             p.grad = None
-        out = model({"pts_input": pts, "gt_boxes3d": batch["gt_boxes3d"]},
-                    train=True, bn_momentum=bn_momentum, generator=generator)
+        out = model(inputs, train=True, bn_momentum=bn_momentum,
+                    generator=generator)
         loss, tb = model_loss(cfg, out, batch)
         loss.backward()
         tb = {k: v.detach() if torch.is_tensor(v) else v
@@ -294,24 +308,48 @@ def make_eval_loss_step(cfg, model: torch.nn.Module):
     trains, and where the two-stage path runs, the proposal recall: per
     scene, the gt boxes (non-zero rows of ``gt_boxes3d``) that some valid
     roi overlaps by 3D IoU above 0.7 (``recalled_cnt``) out of ``gt_cnt``.
-    The metrics are 0-dim tensors on the model's device; the caller
-    averages them over the val loader."""
-    if not cfg.RPN.ENABLED:
-        raise NotImplementedError(OFFLINE_NOT_PORTED)
+    In RCNN-offline mode the batch is the offline EVAL loader's (pooled
+    points (B, M, K, C), ``gt_iou``, ``roi_valid``, ``roi_boxes3d``,
+    ``gt_boxes3d_ct``) and the loss is the RCNN's, with labels from each
+    roi's IoU to its gt (tpu3d: train_state.py:225-250). The metrics are
+    0-dim tensors on the model's device; the caller averages them over the
+    val loader."""
+    offline = not cfg.RPN.ENABLED
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: dict) -> dict:
         pts = batch["pts_input"]
+        if offline:
+            pts = pts.reshape(-1, *pts.shape[-2:])
         out = model({"pts_input": pts}, train=False)
         tb = {}
         loss = torch.zeros((), device=pts.device)
-        if not cfg.RPN.FIXED:
+        if offline:
+            # labels from the saved proposals' IoU (reference
+            # eval_rcnn.py:361-366): fg above CLS_FG, bg below CLS_BG; the
+            # reg loss on valid rois whose IoU clears REG_FG_THRESH, toward
+            # the loader's canonical matched gt
+            gt_iou = batch["gt_iou"].reshape(-1)
+            valid = batch["roi_valid"].reshape(-1)
+            r = cfg.RCNN
+            cls_label = torch.where(
+                gt_iou > r.CLS_FG_THRESH, 1,
+                torch.where(gt_iou < r.CLS_BG_THRESH, 0, -1))
+            ret = dict(out, cls_label=torch.where(valid, cls_label, -1),
+                       reg_valid_mask=((gt_iou > r.REG_FG_THRESH)
+                                       & valid).to(torch.int32),
+                       roi_boxes3d=batch["roi_boxes3d"].reshape(-1, 7),
+                       gt_of_rois=batch["gt_boxes3d_ct"].reshape(-1, 7))
+            rcnn_loss, tb_rcnn = get_rcnn_loss(cfg, ret)
+            loss = loss + rcnn_loss
+            tb.update(tb_rcnn)
+        elif not cfg.RPN.FIXED:
             rpn_loss, tb_rpn = get_rpn_loss(
                 cfg, out["rpn_cls"], out["rpn_reg"], batch["rpn_cls_label"],
                 batch["rpn_reg_label"])
             loss = loss + rpn_loss
             tb.update(tb_rpn)
-        if cfg.RCNN.ENABLED and "rois" in out:
+        if cfg.RPN.ENABLED and cfg.RCNN.ENABLED and "rois" in out:
             gt = batch["gt_boxes3d"]
             gt_valid = gt.abs().sum(dim=-1) > 0
             recalled = []

@@ -1,8 +1,10 @@
-"""Training CLI for PointRCNN on one GPU (rpn / rcnn / joint modes; the
-counterpart of ``tpu3d/tools/train_rcnn.py``).
+"""Training CLI for PointRCNN on one GPU (rpn / rcnn / joint /
+rcnn_offline modes; the counterpart of ``tpu3d/tools/train_rcnn.py``).
 
 Reference parity: pointrcnn/tools/train_rcnn.py — same flags, modes
-(rpn: RPN only; rcnn: joint with RPN fixed from a checkpoint; joint: both),
+(rpn: RPN only; rcnn: joint with RPN fixed from a checkpoint; joint: both;
+rcnn_offline: the RCNN alone, from the proposals and RPN features an RPN
+eval run dumped, ``--rcnn_training_roi_dir`` / ``--rcnn_training_feature_dir``),
 yaml config + --set overrides, run-dir layout with logs/tensorboard/checkpoints.
 The loop: KITTI-format frames on disk -> ``KittiRCNNDataset`` ->
 ``BatchLoader`` -> ``device_prefetch`` onto the card -> the train step,
@@ -15,8 +17,6 @@ tpu3d's own format (``--ckpt`` resumes, ``--rpn_ckpt`` warm-starts) and the
 
 It runs on the card unless ``--device cpu`` is given (tpu3d's
 ``TPU3D_PLATFORM=cpu``); with no card and no ``--device cpu`` it raises.
-RCNN-offline training (``--train_mode rcnn_offline``) is not ported and
-raises.
 
 Each step's randomness (dropout, the proposal target layer) comes from a
 fresh ``torch.Generator`` seeded from (seed + 1, step), as tpu3d folds the
@@ -36,8 +36,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..config import (OFFLINE_NOT_PORTED, cfg_from_file, cfg_from_list,
-                      fresh_cfg, save_config_to_file)
+from ..config import (cfg_from_file, cfg_from_list, fresh_cfg,
+                      save_config_to_file)
 from ..datasets import (BatchLoader, KittiRCNNDataset, create_synthetic_kitti,
                         device_prefetch)
 from ..device import resolve_device
@@ -48,9 +48,12 @@ from ..utils.checkpoint import load_checkpoint, load_part_ckpt, save_checkpoint
 from ..utils.logging import create_logger, create_tb_writer
 from ..weights import seeded_state_dict
 
-# the batch arrays the train and eval-loss steps read (the labels only
-# while the RPN trains and --device_labels is off)
-BATCH_KEYS = ("pts_input", "gt_boxes3d", "rpn_cls_label", "rpn_reg_label")
+# the batch arrays the train and eval-loss steps read (the RPN labels only
+# while the RPN trains and --device_labels is off; the RCNN's labels and
+# rois only in rcnn_offline mode)
+BATCH_KEYS = ("pts_input", "gt_boxes3d", "rpn_cls_label", "rpn_reg_label",
+              "cls_label", "reg_valid_mask", "gt_boxes3d_ct", "roi_boxes3d",
+              "gt_iou", "roi_valid")
 
 
 def parse_args(argv=None):
@@ -111,8 +114,8 @@ def parse_args(argv=None):
 def configure_mode(cfg, train_mode: str):
     """Set the stages ``train_mode`` trains on ``cfg``, in place (reference:
     train_rcnn.py:159-172): "rpn" the RPN alone, "rcnn" the RCNN on a fixed
-    RPN, "joint" both, "rcnn_offline" the RCNN on saved proposals (which
-    the port cannot run yet). Returns ``cfg``."""
+    RPN, "joint" both, "rcnn_offline" the RCNN on saved proposals and
+    dumped RPN features. Returns ``cfg``."""
     if train_mode == "rpn":
         cfg.RPN.ENABLED = True
         cfg.RCNN.ENABLED = False
@@ -163,8 +166,12 @@ def main(argv=None) -> TrainRun:
     if args.set_cfgs:
         cfg_from_list(args.set_cfgs, cfg)
     configure_mode(cfg, args.train_mode)
-    if args.train_mode == "rcnn_offline":
-        raise NotImplementedError(OFFLINE_NOT_PORTED)
+    if args.train_mode == "rcnn_offline" and not (
+            args.rcnn_training_roi_dir and args.rcnn_training_feature_dir):
+        raise ValueError(
+            "rcnn_offline needs --rcnn_training_roi_dir and "
+            "--rcnn_training_feature_dir (dumped by eval_rcnn --eval_mode "
+            "rpn --save_rpn_feature --save_result)")
     cfg.TAG = (os.path.splitext(os.path.basename(args.cfg_file))[0]
                if args.cfg_file else "default")
 
@@ -196,6 +203,8 @@ def main(argv=None) -> TrainRun:
         root_dir=data_root, npoints=cfg.RPN.NUM_POINTS, split=cfg.TRAIN.SPLIT,
         mode="TRAIN", classes=cfg.CLASSES, cfg=cfg, logger=logger,
         gt_database_dir=args.gt_database, subsample=args.subsample,
+        rcnn_training_roi_dir=args.rcnn_training_roi_dir,
+        rcnn_training_feature_dir=args.rcnn_training_feature_dir,
         shuffle_subsample=args.shuffle_subsample, seed=args.seed,
         device_rpn_labels=args.device_labels)
     loader = BatchLoader(dataset, args.batch_size, shuffle=True,
@@ -210,7 +219,9 @@ def main(argv=None) -> TrainRun:
         val_dataset = KittiRCNNDataset(
             root_dir=data_root, npoints=cfg.RPN.NUM_POINTS,
             split=cfg.TRAIN.VAL_SPLIT, mode="EVAL", classes=cfg.CLASSES,
-            cfg=cfg, logger=logger, seed=args.seed)
+            cfg=cfg, logger=logger, seed=args.seed,
+            rcnn_eval_roi_dir=args.rcnn_eval_roi_dir,
+            rcnn_eval_feature_dir=args.rcnn_eval_feature_dir)
         val_loader = BatchLoader(val_dataset,
                                  min(args.batch_size, len(val_dataset)),
                                  shuffle=False, num_workers=args.workers,

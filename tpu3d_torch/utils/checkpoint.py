@@ -51,10 +51,10 @@ from . import msgpack_io
 #   adam             (clip, [decay], (adam, sched))  last/0
 #   sgd              (clip, [decay], (sgd, sched))   last/0
 #
-# Every count is the number of updates done (TrainState.step; torch's Adam
-# keeps it per parameter as "step"), and the hyperparameters are the
-# schedules' values at the last update (at count 0 before any). Each
-# moment maps to torch's per-parameter state:
+# Every count is the number of updates the optimizer's state has taken
+# (TrainState.opt_count; torch's Adam keeps it per parameter as "step"),
+# and the hyperparameters are the schedules' values at the last update (at
+# count 0 before any). Each moment maps to torch's per-parameter state:
 TORCH_MOMENTS = {
     "adam_onecycle": {"mu": "exp_avg", "nu": "exp_avg_sq"},
     "adam": {"mu": "exp_avg", "nu": "exp_avg_sq"},
@@ -160,16 +160,24 @@ def _moment_path(kind: str, weight_decay: float) -> tuple:
     return (str(2 if weight_decay > 0 else 1), "0")
 
 
+def _count_path(kind: str, weight_decay: float) -> tuple:
+    """Where the optimizer's count sits: the injected hyperparameters'
+    state, or the schedule's."""
+    if kind == "adam_onecycle":
+        return ("1", "count")
+    return (str(2 if weight_decay > 0 else 1), "1", "count")
+
+
 def opt_state_tree(model: torch.nn.Module, state) -> dict:
     """optax's state for tpu3d's optimizer, as flax writes it, from the
     port's ``TrainState`` (layout: the table above)."""
     opt = state.optimizer
     group = opt.opt.param_groups[0]
     wd = float(group["weight_decay"])
-    count = np.asarray(state.step, np.int32)
-    moments = _moments(model, state, int(state.step))
+    count = np.asarray(state.opt_count, np.int32)
+    moments = _moments(model, state, int(state.opt_count))
     if opt.kind == "adam_onecycle":
-        last = max(int(state.step) - 1, 0)
+        last = max(int(state.opt_count) - 1, 0)
         f32 = functools.partial(np.asarray, dtype=np.float32)
         inject = {
             "count": count,
@@ -191,12 +199,16 @@ def opt_state_tree(model: torch.nn.Module, state) -> dict:
 
 
 def _load_opt_state(model: torch.nn.Module, state, tree: dict) -> None:
-    """The inverse of ``opt_state_tree``: torch's optimizer state from the
-    checkpoint's."""
+    """The inverse of ``opt_state_tree``: torch's optimizer state and
+    ``state.opt_count`` from the checkpoint's."""
     opt = state.optimizer
+    wd = float(opt.opt.param_groups[0]["weight_decay"])
     node = tree
-    for key in _moment_path(opt.kind,
-                            float(opt.opt.param_groups[0]["weight_decay"])):
+    for key in _count_path(opt.kind, wd):
+        node = node[key]
+    state.opt_count = int(node)
+    node = tree
+    for key in _moment_path(opt.kind, wd):
         node = node[key]
     per_name = {key: params_from_jax(node[key], {})
                 for key in TORCH_MOMENTS[opt.kind]}
@@ -206,7 +218,7 @@ def _load_opt_state(model: torch.nn.Module, state, tree: dict) -> None:
         st = {torch_key: per_name[key][name].to(p.dtype)
               for key, torch_key in TORCH_MOMENTS[opt.kind].items()}
         if opt.kind != "sgd":
-            st["step"] = torch.tensor(float(node["count"]),
+            st["step"] = torch.tensor(float(state.opt_count),
                                       dtype=torch.float32)
         sd["state"][i] = st
     opt.opt.load_state_dict(sd)
@@ -264,12 +276,14 @@ def load_checkpoint(path: str, model: torch.nn.Module, state):
     When the checkpoint's optimizer-state STRUCTURE no longer matches the
     current optimizer (the optax chain changed between releases — e.g. the
     round-4 removal of the weight-decay mask), fall back to restoring
-    params/batch_stats/step and keep the optimizer's current state:
-    evaluation and fine-tune warm starts keep working from old checkpoints,
-    and a resumed run restarts its Adam moments (reference load_checkpoint
-    has the same weak spot — torch load_state_dict on a changed optimizer
-    raises; train_utils.py:78-93). The port reads its schedules at the
-    restored step; tpu3d's at its re-initialized optimizer's count."""
+    params/batch_stats/step and start the optimizer's state afresh, its
+    moments empty and its count (``state.opt_count``) at 0, as tpu3d keeps
+    a freshly initialized ``opt_state``: evaluation and fine-tune warm
+    starts keep working from old checkpoints, a resumed run restarts its
+    Adam moments, and the next update reads the schedules at count 0 in
+    both packages (reference load_checkpoint has the same weak spot — torch
+    load_state_dict on a changed optimizer raises;
+    train_utils.py:78-93)."""
     raw = _read(path)
     template = checkpoint_state(model, state, 0)
     try:
@@ -287,6 +301,9 @@ def load_checkpoint(path: str, model: torch.nn.Module, state):
                                           restored["batch_stats"]))
     if opt_state is not None:
         _load_opt_state(model, state, opt_state)
+    else:
+        state.optimizer.opt.state.clear()
+        state.opt_count = 0
     state.step = int(restored["step"])
     return state, int(restored["epoch"])
 
