@@ -163,7 +163,35 @@ and no result line:
    twice a batch, nothing else); the eval CLI's
    scenes/s, the evaluator's seconds and peak device memory, the dumps'
    bytes and seconds, the offline step's ms and eval scenes/s;
-15. one JSON line of the kernels, then the result line.
+15. tpu3d's data-parallel mesh on torch.distributed, on the one card:
+   (a) NCCL at a world of 1 (a FileStore in a temporary directory, its
+   group passed, so the gradients' all-reduce runs): default.yaml's train
+   step at B=16 through the mesh and the sharded prefetch, with the same
+   launches as the step without a group on the same batch and generator;
+   its all-reduce and broadcast leave the step's gradients, parameters
+   and statistics as they are, to the bit; the step equals the step
+   without a group to the bit on every tensor that 1 + DP_REPEATS steps
+   without a group leave equal, and on the tensors the card's float
+   atomics move from run to run, within 10 times their runs' spread; its
+   ms/step beside phase 5's; (b) dryrun_multichip
+   under NCCL with more ranks than cards raises; dryrun_multichip(2) under
+   gloo on the card (the kernels built by phase 2, loaded by the ranks);
+   two gloo ranks on the card: default.yaml's step and the RCNN.USE_BN one
+   (kernel 9's training form under the reduced sums) at a global B=16, 8 a
+   rank, parameters and running statistics equal across the ranks to the
+   bit; the summed gradients before the clip, the running statistics and
+   the parameters after the step each within 10 times its own noise floor
+   of the one-process step's (the largest change over NUDGES nudges of
+   the weights, as phase 4's gradient floors, plus 1e-5 of the largest
+   entry); the same launches per rank per step as one process;
+   the sharded joint eval at B=8 (4 a rank) keeping the same final boxes
+   as one process, within 1e-3; a checkpoint written at world 2 restored
+   at 1 to the bit; ms/step at each world, the gradients' all-reduce, the
+   peak memory per rank and the phase's seconds, beside the card's name
+   and power limit (not scaling figures: the ranks share one card);
+16. one JSON line of the kernels (each row with its launches per rank per
+   step at world 2, ``ddp_launches`` / ``ddp_bn_launches``), then the
+   result line.
 
 Every phase prints its seconds. Needs one CUDA card; the kernels have no
 CPU mode. Imports nothing of JAX or of tpu3d.
@@ -3089,6 +3117,453 @@ def eval_cli(card: str) -> tuple[dict, dict, dict]:
         k: train_launches[k] + offline_launches[k] for k in train_launches}, res
 
 
+DP_WORLD = 2  # gloo ranks sharing the one card
+DP_EVAL_BATCH = 8  # the eval CLI's default --batch_size
+DP_STEP_SEED = SEED + 15  # the data-parallel phase's step generator
+DP_CFG = "default.yaml"
+DP_REPEATS = 3  # more one-process steps, for the card's run-to-run noise
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _dp_model(cfg, dev):
+    """A default.yaml train model with ``train_weights``, its state and
+    train step over ``mesh`` (None: one process)."""
+    from tpu3d_torch.models import PointRCNN
+
+    model = PointRCNN(cfg, mode="TRAIN", device=dev)
+    model.load_state_dict(train_weights(model, SEED))
+    return model
+
+
+def _dp_step(cfg, model, batch, mesh=None):
+    """One train step of ``model`` on ``batch`` (this rank's rows) over
+    ``mesh``, from a fresh generator at DP_STEP_SEED -> (state, step fn,
+    launches of the step, metrics, the gradients the step clipped: summed
+    over the mesh, as they were before the clip, on the host by parameter
+    name)."""
+    import torch
+
+    from tpu3d_torch.ops import _build
+    from tpu3d_torch.parallel import create_train_state, make_train_step
+
+    state = create_train_state(cfg, model, steps_per_epoch=100,
+                               total_epochs=10, mesh=mesh)
+    step = make_train_step(cfg, model, mesh)
+    dev = batch["pts_input"].device
+    gen = torch.Generator(device=dev).manual_seed(DP_STEP_SEED)
+    grads, apply = {}, state.apply_gradients
+
+    def keep_grads():  # the step calls it after the sum, and it clips
+        grads.update({n: (torch.zeros_like(p) if p.grad is None else p.grad)
+                      .detach().cpu().clone()
+                      for n, p in model.named_parameters()})
+        return apply()
+
+    state.apply_gradients = keep_grads
+    try:
+        _build.reset_launches()
+        tb = step(state, batch, gen, 0.9)
+        _sync(dev)
+    finally:
+        del state.apply_gradients
+    return (state, step, {k: v for k, v in _build.LAUNCHES.items() if v}, tb,
+            grads)
+
+
+def _timed_steps(step, state, batch, n=3) -> float:
+    """ms per step (host clock, median of ``n``; each ends in a
+    synchronize)."""
+    import torch
+
+    dev = batch["pts_input"].device
+    gen = torch.Generator(device=dev).manual_seed(DP_STEP_SEED + 1)
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        step(state, batch, gen, 0.9)
+        _sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _host_state(model) -> dict:
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+
+def _dp_parts(model, grads) -> dict:
+    """A step's result on the host, by kind: the summed gradients before
+    the clip (``_dp_step``), the parameters after the step and the running
+    statistics."""
+    state, params = _host_state(model), dict(model.named_parameters())
+    return {"grads": grads,
+            "params": {k: v for k, v in state.items() if k in params},
+            "stats": {k: v for k, v in state.items()
+                      if k not in params and v.is_floating_point()}}
+
+
+def _dp_rank(rank, world, store_path, out_dir, run):
+    """A rank of phase 15(b), under gloo on card 0: the default.yaml train
+    step and the RCNN.USE_BN one at a global B=16, the step's time, the
+    gradient all-reduce's time and the peak memory, a checkpoint written at
+    this world, and the sharded joint eval at B=8 -> out_dir/rank{r}.pt.
+    ``run`` names the config, the batches and the device (the parent's
+    DP_CFG, TRAIN_BATCH, DP_EVAL_BATCH and DEVICE)."""
+    import torch
+    import torch.distributed as dist
+
+    from tpu3d_torch.config import cfg_from_file, fresh_cfg
+    from tpu3d_torch.datasets import device_prefetch, random_scenes, \
+        train_batch
+    from tpu3d_torch.models import PointRCNN
+    from tpu3d_torch.parallel import init_distributed, make_mesh, \
+        shard_batch
+    from tpu3d_torch.tools.eval_rcnn import _to_host, make_infer_step
+    from tpu3d_torch.utils.checkpoint import save_checkpoint
+    from tpu3d_torch.weights import seeded_state_dict
+
+    dev = torch.device(run["device"])
+    cuda = dev.type == "cuda"
+    init_distributed(dev, "gloo", dist.FileStore(store_path, world), rank,
+                     world)
+    try:
+        cfg = cfg_from_file(run["cfg"], fresh_cfg())
+        bcfg = copy.deepcopy(cfg)
+        bcfg.RCNN.USE_BN = True
+        mesh = make_mesh(batch_size=run["batch"])
+        host = train_batch(run["batch"], cfg.RPN.NUM_POINTS, SEED)
+        rows = mesh.rows(run["batch"])
+        # this rank's rows through the sharded prefetch
+        batch = next(iter(device_prefetch([{k: v[rows] for k, v in
+                                            host.items()}], device=dev)))
+        out = {"rank": rank, "ranks": mesh.ranks}
+        for name, c in (("default", cfg), ("bn", bcfg)):
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            model = _dp_model(c, dev)
+            state, step, launches, tb, grads = _dp_step(c, model, batch,
+                                                        mesh)
+            out[name] = {"state": _host_state(model),
+                         "parts": _dp_parts(model, grads),
+                         "launches": launches, "loss": float(tb["loss"])}
+            if name == "default":
+                out[name]["ms"] = _timed_steps(step, state, batch)
+                out[name]["peak_gib"] = (torch.cuda.max_memory_allocated()
+                                         / 2 ** 30 if cuda else 0.0)
+                n = sum(p.numel() for p in model.parameters())
+                flat = torch.ones(n, device=dev)
+                times = []
+                for _ in range(5):
+                    _sync(dev)
+                    t0 = time.perf_counter()
+                    dist.all_reduce(flat)
+                    _sync(dev)
+                    times.append((time.perf_counter() - t0) * 1e3)
+                out["allreduce"] = {"floats": n,
+                                    "ms": statistics.median(times)}
+                out["ckpt"] = {"path": save_checkpoint(
+                    str(Path(out_dir) / "ckpt"), model, state, 1, mesh),
+                    "state": _host_state(model), "step": state.step}
+            del model, state, step
+            if cuda:
+                torch.cuda.empty_cache()
+        emodel = PointRCNN(cfg, mode="TEST", device=dev)
+        emodel.load_state_dict(seeded_state_dict(emodel, SEED))
+        emesh = make_mesh(batch_size=run["eval_batch"])
+        pts = random_scenes(run["eval_batch"], cfg.RPN.NUM_POINTS, SEED)
+        with torch.no_grad():
+            got = make_infer_step(emodel, cfg)(shard_batch(
+                emesh, {"pts_input": pts}, dev)["pts_input"])
+        keys = ("final_boxes", "final_scores", "final_mask")
+        got = _to_host({k: got[k] for k in keys}, {}, (), emesh)
+        out["eval"] = got and got[0]
+        torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _diffs(a: dict, b: dict) -> dict:
+    """The largest difference of each tensor of ``b`` from ``a``'s."""
+    return {k: (a[k].double() - b[k].double()).abs().max().item() for k in b}
+
+
+def _dp_floor(cfg, batch, ref, dev) -> dict:
+    """The one-process step's noise floors for each tensor of each kind of
+    ``_dp_parts`` (``ref``, the one-process step's): the tensor's largest
+    change after one step from weights nudged by about one float32
+    rounding, over NUDGES nudges, as phase 4 takes the RPN's gradient noise
+    floor -> {kind: ({name: floor}, the largest entry of the kind)}."""
+    import torch
+
+    floors = {kind: {k: 0.0 for k in ref[kind]} for kind in ref}
+    for i in range(NUDGES):
+        model = _dp_model(cfg, dev)
+        gen = torch.Generator(device="cpu").manual_seed(SEED + 3 + i)
+        with torch.no_grad():
+            for t in model.state_dict().values():
+                if t.is_floating_point():
+                    t.mul_(1 + 1e-7 * torch.randn(t.shape, generator=gen)
+                           .to(t.device))
+        parts = _dp_parts(model, _dp_step(cfg, model, batch)[4])
+        for kind, got in parts.items():
+            for k, d in _diffs(got, ref[kind]).items():
+                floors[kind][k] = max(floors[kind][k], d)
+        del model
+    return {kind: (f, max(v.abs().max().item() for v in ref[kind].values()))
+            for kind, f in floors.items()}
+
+
+def data_parallel(card: str, step5_ms: float, expect_launches: dict,
+                  bn_expect: dict) -> dict:
+    """Phase 15: tpu3d's data-parallel mesh on torch.distributed, on the
+    one card. (a) NCCL at a world of 1 (a FileStore in a temporary
+    directory): default.yaml's train step at B=16 through the mesh (its
+    group passed, so the gradients' all-reduce runs) and the sharded
+    prefetch against the step without a group on the same batch and
+    generator (see the module's docstring, phase 15); (b) dryrun_multichip(2) under gloo,
+    then two gloo ranks on the card: default.yaml's step and the
+    RCNN.USE_BN one at a global B=16 (8 a rank), each rank's parameters
+    and running statistics bit-equal across the ranks, and its summed
+    gradients, running statistics and parameters each within its noise
+    floor of the one-process step's, the sharded joint eval at B=8 (4 a rank)
+    against the one-process eval, a checkpoint written at world 2 restored
+    at 1; NCCL with more ranks than cards raises. -> the phase's figures."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from tpu3d_torch.config import cfg_from_file, fresh_cfg
+    from tpu3d_torch.datasets import device_prefetch, random_scenes, \
+        train_batch
+    from tpu3d_torch.entry import dryrun_multichip, spawn
+    from tpu3d_torch.models import PointRCNN
+    from tpu3d_torch.parallel import (create_train_state, init_distributed,
+                                      make_mesh, replicate)
+    from tpu3d_torch.parallel.mesh import sum_gradients
+    from tpu3d_torch.tools.eval_rcnn import make_infer_step
+    from tpu3d_torch.utils.checkpoint import load_checkpoint
+    from tpu3d_torch.weights import seeded_state_dict
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE, 0) if DEVICE == "cuda" else torch.device(DEVICE)
+    run = {"cfg": str(ROOT / "configs" / DP_CFG), "batch": TRAIN_BATCH,
+           "eval_batch": DP_EVAL_BATCH, "device": str(dev)}
+    cfg = cfg_from_file(run["cfg"], fresh_cfg())
+    bcfg = copy.deepcopy(cfg)
+    bcfg.RCNN.USE_BN = True
+    host = train_batch(TRAIN_BATCH, cfg.RPN.NUM_POINTS, SEED)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+
+    # (a) the one-process step, DP_REPEATS times more: float atomics on the
+    # card (the scatter-add of torch.gather's backward, the fused SA
+    # backward's) move some gradients by a rounding from run to run, which
+    # Adam's first step shows where a gradient is near its eps; then the
+    # same step over an NCCL world of 1
+    runs = []
+    for _ in range(1 + DP_REPEATS):
+        model = _dp_model(cfg, dev)
+        _, _, one_launches, _, grads = _dp_step(cfg, model, batch)
+        if not runs:
+            ref_parts = _dp_parts(model, grads)
+        runs.append(_host_state(model))
+        del model
+        check(one_launches == expect_launches,
+              f"the one-process step launched {one_launches}, phase 5's "
+              f"step {expect_launches}")
+    ref = runs[0]
+    noisy = sorted({k for r in runs[1:] for k in ref
+                    if not torch.equal(r[k], ref[k])})
+    noise = max([(r[k] - ref[k]).abs().max().item() for r in runs[1:]
+                 for k in noisy] or [0.0])
+    figures = {"card": card}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        init_distributed(dev, None, dist.FileStore(
+            str(Path(tmp) / "store"), 1), 0, 1)
+        try:
+            backend = dist.get_backend()
+            mesh = make_mesh(batch_size=TRAIN_BATCH, group=dist.group.WORLD)
+            check(mesh.group is not None and mesh.size == 1,
+                  f"a {backend} world of 1 with its group passed")
+            rows = {k: v[mesh.rows(TRAIN_BATCH)] for k, v in host.items()}
+            nbatch = next(iter(device_prefetch([rows], device=dev)))
+            model = _dp_model(cfg, dev)
+            state, step, launches, _, _ = _dp_step(cfg, model, nbatch,
+                                                   mesh)
+            got = _host_state(model)
+            check(launches == one_launches,
+                  f"{backend} world 1 launched {launches}, {one_launches} "
+                  f"alone")
+            # the collectives themselves: the gradients' all-reduce over the
+            # group of one and the broadcast from rank 0 leave this step's
+            # gradients, parameters and statistics as they are, to the bit
+            params = state.optimizer.params
+            grads = [p.grad.clone() for p in params]
+            sum_gradients(params, mesh)
+            replicate(mesh, model)
+            check(all(torch.equal(p.grad, g) for p, g in zip(params, grads))
+                  and all(torch.equal(v, got[k]) for k, v in
+                          _host_state(model).items()),
+                  f"the all-reduce or broadcast over a {backend} world of 1 "
+                  "changed a tensor")
+            off = [k for k in ref if k not in noisy
+                   and not torch.equal(got[k], ref[k])]
+            check(not off, f"{backend} world 1: {len(off)} tensors differ "
+                  f"from the step without a group where its runs agree, "
+                  f"e.g. {off[:3]}")
+            err = max([(got[k] - ref[k]).abs().max().item() for k in noisy]
+                      or [0.0])
+            check(err <= 10 * noise, f"{backend} world 1: {err:.3e} off the "
+                  f"step without a group on the tensors its runs move, "
+                  f"whose runs differ by up to {noise:.3e}")
+            figures["nccl_world1_ms"] = _timed_steps(step, state, nbatch)
+            figures["nccl_world1_noisy"] = {"tensors": noisy, "err": err,
+                                            "run_to_run": noise}
+            del model, state, step, grads
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    print(f"data-parallel (a), {card}: the {backend} world-1 train step's "
+          f"gradient all-reduce and broadcast leave every tensor as it is, "
+          f"to the bit; the step equals the step without a group to the bit "
+          f"on the {len(ref) - len(noisy)} of {len(ref)} tensors that "
+          f"{1 + DP_REPEATS} steps without a group leave equal; on the "
+          f"{len(noisy)} they move (the card's float atomics: {noisy}) it is "
+          f"{err:.3e} off, their runs up to {noise:.3e} apart; the same "
+          f"launches {one_launches}; {figures['nccl_world1_ms']:.1f} ms/step "
+          f"(host clock, median of 3) beside phase 5's {step5_ms:.1f}")
+
+    # (b) NCCL wants a card per rank; gloo runs two ranks on this one
+    try:
+        dryrun_multichip(torch.cuda.device_count() + 1)
+        check(False, "dryrun_multichip under NCCL ran with too few cards")
+    except RuntimeError as e:
+        print(f"dryrun_multichip({torch.cuda.device_count() + 1}) under "
+              f"NCCL on {torch.cuda.device_count()} card(s) raises: {e}")
+    t0 = time.perf_counter()
+    figures["dryrun"] = dryrun_multichip(DP_WORLD, backend="gloo",
+                                         device=dev.type)
+    figures["dryrun"]["s"] = time.perf_counter() - t0
+    bmodel = _dp_model(bcfg, dev)
+    _, _, bn_one_launches, _, grads = _dp_step(bcfg, bmodel, batch)
+    bref_parts = _dp_parts(bmodel, grads)
+    del bmodel, grads
+    check(bn_one_launches == bn_expect,
+          f"the one-process BatchNorm step launched {bn_one_launches}, "
+          f"phase 11's {bn_expect}")
+    floors = {"default": _dp_floor(cfg, batch, ref_parts, dev),
+              "bn": _dp_floor(bcfg, batch, bref_parts, dev)}
+    emodel = PointRCNN(cfg, mode="TEST", device=dev)
+    emodel.load_state_dict(seeded_state_dict(emodel, SEED))
+    pts = torch.from_numpy(random_scenes(
+        DP_EVAL_BATCH, cfg.RPN.NUM_POINTS, SEED)).to(dev)
+    with torch.no_grad():
+        eref = {k: v.cpu() for k, v in make_infer_step(emodel, cfg)(
+            pts).items() if k.startswith("final_")}
+    del emodel, batch
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        t0 = time.perf_counter()
+        spawn(_dp_rank, DP_WORLD, tmp, run)
+        figures["ranks_s"] = time.perf_counter() - t0
+        ranks = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
+                 for r in range(DP_WORLD)]
+        ckpt = ranks[0]["ckpt"]
+        model = _dp_model(cfg, dev)
+        state = create_train_state(cfg, model, 100, 10)
+        state, epoch = load_checkpoint(ckpt["path"], model, state)
+        restored = _host_state(model)
+        del model, state
+    check(epoch == 1 and all(torch.equal(restored[k], ckpt["state"][k])
+                             for k in restored),
+          "the checkpoint written at world 2 restores at 1 unequal")
+    kinds = {"grads": "summed gradients before the clip",
+             "stats": "running statistics", "params": "parameters"}
+    for name, want, expect in (("default", ref_parts, one_launches),
+                               ("bn", bref_parts, bn_one_launches)):
+        first = ranks[0][name]["state"]
+        for r in ranks[1:]:
+            diff = [k for k in first if not torch.equal(r[name]["state"][k],
+                                                        first[k])]
+            check(not diff, f"{name}: rank {r['rank']} differs from rank 0 "
+                  f"in {diff[:3]}")
+        for r in ranks:
+            check(r[name]["launches"] == expect,
+                  f"{name} rank {r['rank']} launched "
+                  f"{r[name]['launches']}, {expect} in one process")
+        figures[name] = {"loss": ranks[0][name]["loss"]}
+        notes = []
+        for kind, label in kinds.items():
+            floor, top = floors[name][kind]
+            diffs = _diffs(ranks[0][name]["parts"][kind], want[kind])
+            # each gradient and statistic against its own floor; the
+            # parameters against the largest: Adam's first step is nearly a
+            # sign step, so a near-zero gradient whose sign a rounding
+            # flips moves its parameter by up to 2·lr, in any tensor
+            if kind == "params":
+                floor = dict.fromkeys(floor, max(floor.values()))
+            bounds = {k: 10 * floor[k] + 1e-5 * top for k in diffs}
+            where = max(diffs, key=lambda k: diffs[k] / bounds[k])
+            err, bound = diffs[where], bounds[where]
+            figures[name][kind] = {"err": err, "where": where,
+                                   "floor": floor[where], "bound": bound,
+                                   "largest": max(diffs.values())}
+            notes.append(f"{label}: nearest its bound {where}, {err:.3e} "
+                         f"off, floor {floor[where]:.3e}, bound "
+                         f"{bound:.3e}, margin {bound / max(err, 1e-30):.1f}x"
+                         f" (largest difference {max(diffs.values()):.3e})")
+            check(err <= bound, f"{name}: the {DP_WORLD}-rank step's {label} "
+                  f"are off the one-process step's by {err:.3e} > "
+                  f"{bound:.3e} in {where}")
+        print(f"data-parallel (b) {name}: {DP_WORLD} gloo ranks on {card}, "
+              f"parameters and running statistics equal across the ranks; "
+              f"differences from the one-process step at B={TRAIN_BATCH}, "
+              f"each tensor against its noise floor over {NUDGES} nudges "
+              f"(bound 10 floors plus 1e-5 of the kind's largest entry): "
+              f"{'; '.join(notes)}; launches per rank per step {expect}")
+    got = ranks[0]["eval"]
+    check(ranks[1]["eval"] is None, "rank 1 kept the gathered eval")
+    check(torch.equal(torch.as_tensor(got["final_mask"]), eref["final_mask"])
+          and bool(eref["final_mask"].any()),
+          "the sharded eval keeps other final boxes than one process")
+    mask = eref["final_mask"]
+    box_err = (torch.as_tensor(got["final_boxes"])[mask]
+               - eref["final_boxes"][mask]).abs().max().item()
+    score_err = (torch.as_tensor(got["final_scores"])[mask]
+                 - eref["final_scores"][mask]).abs().max().item()
+    print(f"data-parallel (b) sharded joint eval at B={DP_EVAL_BATCH} "
+          f"({DP_EVAL_BATCH // DP_WORLD} a rank): the same {int(mask.sum())} "
+          f"final boxes kept as one process; largest box difference "
+          f"{box_err:.3e}, score {score_err:.3e} (tolerance 1e-3)")
+    check(box_err <= 1e-3 and score_err <= 1e-3,
+          "the sharded eval's final boxes differ from one process's")
+    r0 = ranks[0]
+    figures.update({
+        "gloo_world2_ms": r0["default"]["ms"],
+        "peak_gib_per_rank": [r["default"]["peak_gib"] for r in ranks],
+        "allreduce": r0["allreduce"], "eval_box_err": box_err,
+        "ddp_launches": r0["default"]["launches"],
+        "ddp_bn_launches": r0["bn"]["launches"],
+        "s": time.perf_counter() - t_phase})
+    print(f"data-parallel figures, {card} (not scaling figures: the ranks "
+          f"share one card): ms/step at world 1 ({backend}) "
+          f"{figures['nccl_world1_ms']:.1f}, at world {DP_WORLD} (gloo, "
+          f"{TRAIN_BATCH // DP_WORLD} scenes a rank) "
+          f"{figures['gloo_world2_ms']:.1f}; the gradients' all-reduce "
+          f"({r0['allreduce']['floats']} floats through host memory under "
+          f"gloo) {r0['allreduce']['ms']:.1f} ms; peak memory per rank "
+          f"{', '.join(f'{g:.2f}' for g in figures['peak_gib_per_rank'])} "
+          f"GiB; dryrun_multichip({DP_WORLD}) {figures['dryrun']['s']:.1f} "
+          f"s, the ranks' run {figures['ranks_s']:.1f} s; phase "
+          f"{figures['s']:.1f} s")
+    return figures
+
+
 def main() -> int:
     import torch
 
@@ -3572,7 +4047,14 @@ def main() -> int:
     ecli_launches, offline_launches, ecli = eval_cli(smi[0])
     phases.done("14 (eval CLI, evaluator, RCNN-offline)")
 
-    # 15. kernels line and result line: launches from the path each kernel
+    # 15. tpu3d's data-parallel mesh: NCCL at a world of 1, then two gloo
+    # ranks on the card
+    dp = data_parallel(smi[0], step_ms, {k: v for k, v in
+                                         train_launches.items() if v},
+                       {k: v for k, v in btrain_launches.items() if v})
+    phases.done("15 (data-parallel mesh)")
+
+    # 16. kernels line and result line: launches from the path each kernel
     # was timed at (per forward or per train step), and on the other paths
     runs = {"default.yaml eval B=2": launches,
             "default.yaml train B=16": train_launches,
@@ -3606,6 +4088,8 @@ def main() -> int:
             "cli_launches": cli_launches[name],
             "eval_cli_launches": ecli_launches[name],
             "offline_launches": offline_launches[name],
+            "ddp_launches": dp["ddp_launches"].get(name, 0),
+            "ddp_bn_launches": dp["ddp_bn_launches"].get(name, 0),
             **report.row(name), "status": "ported"}
         # the same kernel at another path's shapes: double.yaml's SA_0, the
         # smoke slab, the train step's shapes of the eval kernels, and the
@@ -3641,6 +4125,8 @@ def main() -> int:
         "bn_train_step": {"path": BN_TRAIN_PATH, "ms": bstep_ms,
                           "peak_gib": bpeak},
         "training_cli": cli, "eval_cli": ecli,
+        "data_parallel": {k: v for k, v in dp.items() if not k.startswith(
+            "ddp_")},
         "widened_shapes": {"shapes": WIDE_SHAPES,
                            "max_rel_err": wide_worst},
         "widened_config": {

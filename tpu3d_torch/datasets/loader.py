@@ -50,9 +50,17 @@ def _fork_get(args):
 
 
 class BatchLoader:
+    """Fixed-shape batches of ``batch_size`` samples, in an order drawn from
+    (seed, epoch) when ``shuffle``. With ``shard`` = (index, count), the
+    loader of one rank of a data-parallel mesh: the global batches' order is
+    the same on every rank, and this one builds only its rows of each,
+    batch_size / count of them from row index · batch_size / count
+    (``parallel.Mesh.shard``); ``len`` counts the global batches."""
+
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  num_workers: int = 4, drop_last: bool = False, seed: int = 0,
-                 prefetch: int = 2, worker_mode: str = "thread"):
+                 prefetch: int = 2, worker_mode: str = "thread",
+                 shard: tuple[int, int] | None = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -64,6 +72,14 @@ class BatchLoader:
         if worker_mode not in ("thread", "process"):
             raise ValueError(f"unknown worker_mode {worker_mode!r}")
         self.epoch = 0
+        self.rows = slice(None)
+        if shard is not None:
+            index, count = shard
+            if batch_size % count:
+                raise ValueError(f"a batch of {batch_size} does not split "
+                                 f"over {count} ranks")
+            n = batch_size // count
+            self.rows = slice(index * n, (index + 1) * n)
         self._pool = None
         if worker_mode == "process":
             # fork NOW, from the caller's (main) thread, before the model /
@@ -121,7 +137,7 @@ class BatchLoader:
                 valid[len(idx):] = False
                 idx = np.concatenate(
                     [idx, np.full(self.batch_size - len(idx), idx[-1])])
-            yield idx, valid
+            yield idx[self.rows], valid[self.rows]
 
     def __iter__(self):
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)

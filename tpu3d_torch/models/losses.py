@@ -3,7 +3,10 @@ the bin-based box regression loss (counterpart of
 ``tpu3d/models/losses.py``; reference: lib/utils/loss_utils.py).
 
 As in the JAX package, the reference's boolean indexing of foreground rows
-becomes mask-weighted means over every row, so every shape is fixed.
+becomes mask-weighted means over every row, so every shape is fixed. Under
+a data-parallel mesh (``parallel.mesh.use_mesh``) every denominator counts
+the global batch, and each loss is this rank's share of the global one:
+its own rows' numerator over the global denominator.
 """
 
 from __future__ import annotations
@@ -11,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..parallel.mesh import global_sum, share
 
 
 def _select_bin(values: torch.Tensor, bin_idx: torch.Tensor) -> torch.Tensor:
@@ -21,8 +26,10 @@ def _select_bin(values: torch.Tensor, bin_idx: torch.Tensor) -> torch.Tensor:
     return torch.where(cols == bin_idx[:, None], values, 0.0).sum(dim=1)
 
 
-def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    return torch.sum(x * mask) / torch.clamp(torch.sum(mask), min=1.0)
+def _masked_mean(x: torch.Tensor, mask: torch.Tensor,
+                 count: torch.Tensor) -> torch.Tensor:
+    """Σ x·mask over ``count``, the (global) count of the mask, at least 1."""
+    return torch.sum(x * mask) / count
 
 
 def sigmoid_cross_entropy_with_logits(logits, labels):
@@ -37,10 +44,10 @@ def dice_loss(logits, target, ignore_target=-1):
     probs = torch.sigmoid(logits.reshape(-1))
     target = target.reshape(-1).to(probs.dtype)
     mask = (target != ignore_target).to(probs.dtype)
-    inter = torch.sum(torch.minimum(probs, target) * mask)
-    union = torch.clamp(torch.sum(torch.maximum(probs, target) * mask),
-                        min=1.0)
-    return 1.0 - inter / union
+    inter = global_sum(torch.sum(torch.minimum(probs, target) * mask))
+    union = torch.clamp(
+        global_sum(torch.sum(torch.maximum(probs, target) * mask)), min=1.0)
+    return share(1.0 - inter / union)
 
 
 def sigmoid_focal_loss(logits, target, weights, gamma=2.0, alpha=0.25):
@@ -85,6 +92,8 @@ def get_reg_loss(pred_reg, reg_label, fg_mask, loc_scope, loc_bin_size,
         lib/utils/loss_utils.py:87-233)
     """
     fg = fg_mask.to(pred_reg.dtype)
+    fg_count = global_sum(torch.sum(fg))
+    count = torch.clamp(fg_count, min=1.0)
     per_loc_bin_num = int(loc_scope / loc_bin_size) * 2
     loc_y_bin_num = int(loc_y_scope / loc_y_bin_size) * 2
     reg_loss_dict = {}
@@ -98,10 +107,10 @@ def get_reg_loss(pred_reg, reg_label, fg_mask, loc_scope, loc_bin_size,
     z_bin = _bin_of(z_shift, loc_bin_size)
 
     loss_x_bin = _masked_mean(
-        softmax_ce(pred_reg[:, 0:per_loc_bin_num], x_bin), fg)
+        softmax_ce(pred_reg[:, 0:per_loc_bin_num], x_bin), fg, count)
     loss_z_bin = _masked_mean(
         softmax_ce(pred_reg[:, per_loc_bin_num: per_loc_bin_num * 2], z_bin),
-        fg)
+        fg, count)
     reg_loss_dict["loss_x_bin"] = loss_x_bin
     reg_loss_dict["loss_z_bin"] = loss_z_bin
     loc_loss = loss_x_bin + loss_z_bin
@@ -117,8 +126,10 @@ def get_reg_loss(pred_reg, reg_label, fg_mask, loc_scope, loc_bin_size,
         z_res_pred = _select_bin(
             pred_reg[:, start + per_loc_bin_num: start + per_loc_bin_num * 2],
             z_bin)
-        loss_x_res = _masked_mean(smooth_l1(x_res_pred, x_res_label), fg)
-        loss_z_res = _masked_mean(smooth_l1(z_res_pred, z_res_label), fg)
+        loss_x_res = _masked_mean(smooth_l1(x_res_pred, x_res_label), fg,
+                                  count)
+        loss_z_res = _masked_mean(smooth_l1(z_res_pred, z_res_label), fg,
+                                  count)
         reg_loss_dict["loss_x_res"] = loss_x_res
         reg_loss_dict["loss_z_res"] = loss_z_res
         loc_loss = loc_loss + loss_x_res + loss_z_res
@@ -132,18 +143,20 @@ def get_reg_loss(pred_reg, reg_label, fg_mask, loc_scope, loc_bin_size,
         y_res_label = (y_shift - (y_bin.to(y_shift.dtype) * loc_y_bin_size
                                   + loc_y_bin_size / 2)) / loc_y_bin_size
         loss_y_bin = _masked_mean(
-            softmax_ce(pred_reg[:, start: start + loc_y_bin_num], y_bin), fg)
+            softmax_ce(pred_reg[:, start: start + loc_y_bin_num], y_bin), fg,
+            count)
         y_res_pred = _select_bin(
             pred_reg[:, start + loc_y_bin_num: start + loc_y_bin_num * 2],
             y_bin)
-        loss_y_res = _masked_mean(smooth_l1(y_res_pred, y_res_label), fg)
+        loss_y_res = _masked_mean(smooth_l1(y_res_pred, y_res_label), fg,
+                                  count)
         reg_loss_dict["loss_y_bin"] = loss_y_bin
         reg_loss_dict["loss_y_res"] = loss_y_res
         loc_loss = loc_loss + loss_y_bin + loss_y_res
         start += loc_y_bin_num * 2
     else:
         loss_y_offset = _masked_mean(smooth_l1(pred_reg[:, start], y_offset),
-                                     fg)
+                                     fg, count)
         reg_loss_dict["loss_y_offset"] = loss_y_offset
         loc_loss = loc_loss + loss_y_offset
         start += 1
@@ -170,10 +183,12 @@ def get_reg_loss(pred_reg, reg_label, fg_mask, loc_scope, loc_bin_size,
                        + angle_per_class / 2)) / (angle_per_class / 2)
 
     loss_ry_bin = _masked_mean(
-        softmax_ce(pred_reg[:, start: start + num_head_bin], ry_bin), fg)
+        softmax_ce(pred_reg[:, start: start + num_head_bin], ry_bin), fg,
+        count)
     ry_res_pred = _select_bin(
         pred_reg[:, start + num_head_bin: start + num_head_bin * 2], ry_bin)
-    loss_ry_res = _masked_mean(smooth_l1(ry_res_pred, ry_res_label), fg)
+    loss_ry_res = _masked_mean(smooth_l1(ry_res_pred, ry_res_label), fg,
+                               count)
     reg_loss_dict["loss_ry_bin"] = loss_ry_bin
     reg_loss_dict["loss_ry_res"] = loss_ry_res
     angle_loss = loss_ry_bin + loss_ry_res
@@ -185,7 +200,7 @@ def get_reg_loss(pred_reg, reg_label, fg_mask, loc_scope, loc_bin_size,
     size_label = (reg_label[:, 3:6] - anchor_size) / anchor_size
     size_pred = pred_reg[:, start: start + 3]
     size_loss = (torch.sum(smooth_l1(size_pred, size_label) * fg[:, None])
-                 / torch.clamp(torch.sum(fg) * 3, min=1.0))
+                 / torch.clamp(fg_count * 3, min=1.0))
 
     reg_loss_dict["loss_loc"] = loc_loss
     reg_loss_dict["loss_angle"] = angle_loss

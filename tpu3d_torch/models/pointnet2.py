@@ -52,6 +52,7 @@ from ..ops import (ball_query, ball_query_from_nearest,
                    fused_bn_mlp_pool, fused_gathered_mlp_pool, fused_mlp_pool,
                    gather_points, group_points, interpolation_weights,
                    nearest_k, sa_route, three_interpolate)
+from ..parallel.mesh import batch_means
 
 
 class BatchNorm(nn.Module):
@@ -64,7 +65,11 @@ class BatchNorm(nn.Module):
     running statistics updated in place to m·running + (1 − m)·batch, where
     ``momentum`` m follows flax's convention (PyTorch's momentum is 1 − m)
     and the running variance takes the biased batch variance, as tpu3d's
-    does (``torch.nn.BatchNorm`` would take the unbiased one)."""
+    does (``torch.nn.BatchNorm`` would take the unbiased one). Under a
+    data-parallel mesh (``parallel.mesh.use_mesh``) the statistics are the
+    global batch's: the sums of every rank over the count of every rank's
+    rows, as tpu3d's sharded step takes them, so the running statistics
+    agree on every rank."""
 
     def __init__(self, features: int, eps: float = 1e-5, device=None):
         super().__init__()
@@ -85,8 +90,8 @@ class BatchNorm(nn.Module):
             mul, add = self.affine()
             return x * mul + add
         axes = tuple(range(x.dim() - 1))
-        mean = x.mean(dim=axes)
-        var = (x * x).mean(dim=axes) - mean * mean
+        mean, sq = batch_means((x, x * x), axes)
+        var = sq - mean * mean
         with torch.no_grad():
             self.mean.copy_(momentum * self.mean + (1 - momentum) * mean)
             self.var.copy_(momentum * self.var + (1 - momentum) * var)

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..ops.box_geometry import rotate_points_along_y
+from ..parallel.mesh import draw_rows
 from ..ops.roipool import roipool3d
 from ..ops.rotated_iou import boxes_iou3d, boxes_iou3d_aligned
 
@@ -50,20 +51,23 @@ def draw_proposal_target(generator: torch.Generator | None, batch: int,
     ("keep", (B, R, T)) and the jitter's own ("range" (B, R, T) and
     "jitter" (B, R, T, 7), or for REG_AUG_METHOD "normal" "jitter_normal"
     (B, R, T, 6) normals and "jitter" (B, R, T, 1)); with the augmentation,
-    "rot", "scale" and "flip" (B, R)."""
+    "rot", "scale" and "flip" (B, R). Under a data-parallel mesh each is
+    this rank's B rows of the global batch's draw, drawn whole on every
+    rank."""
     c = cfg.RCNN
     R, T = int(c.ROI_PER_IMAGE), int(c.ROI_FG_AUG_TIMES)
 
     def u(*shape):
-        return torch.rand(shape, generator=generator, device=device)
+        return draw_rows(lambda s: torch.rand(s, generator=generator,
+                                              device=device), shape)
 
     draws = {"perm": u(batch, n_rois), "fg_fill": u(batch, R),
              "hard": u(batch, R), "easy": u(batch, R)}
     if T > 0:
         draws["keep"] = u(batch, R, T)
         if c.REG_AUG_METHOD == "normal":
-            draws["jitter_normal"] = torch.randn(
-                (batch, R, T, 6), generator=generator, device=device)
+            draws["jitter_normal"] = draw_rows(lambda s: torch.randn(
+                s, generator=generator, device=device), (batch, R, T, 6))
             draws["jitter"] = u(batch, R, T, 1)
         else:
             draws["range"] = u(batch, R, T)

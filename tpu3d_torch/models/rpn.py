@@ -7,6 +7,7 @@ import torch
 from torch import nn
 
 from ..config.config import as_attrdict
+from ..parallel.mesh import draw_rows
 from .bbox_codec import reg_channels
 from .pointnet2 import BatchNorm, Pointnet2MSG
 
@@ -15,11 +16,13 @@ def dropout(x: torch.Tensor, rate: float,
             generator: torch.Generator | None) -> torch.Tensor:
     """flax's ``Dropout`` in training: keep each element with probability
     1 − rate, scaled by 1/(1 − rate), the mask drawn from ``generator``
-    (``F.dropout`` takes none)."""
+    (``F.dropout`` takes none). Under a data-parallel mesh the mask is this
+    rank's rows of the global batch's, drawn whole on every rank."""
     if rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device,
-                      dtype=x.dtype) < 1.0 - rate
+    keep = draw_rows(lambda shape: torch.rand(
+        shape, generator=generator, device=x.device, dtype=x.dtype),
+        x.shape) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 

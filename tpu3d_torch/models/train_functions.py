@@ -4,7 +4,11 @@ lib/net/train_functions.py).
 
 ``model_loss`` gives (total loss, tb dict) from the model's output dict and
 the batch's labels, with the same keys as tpu3d's; every reduction is
-mask-based, so every shape is fixed.
+mask-based, so every shape is fixed. Under a data-parallel mesh
+(``parallel.mesh.use_mesh``) every normalizer counts the global batch, and
+the loss and each tb entry are this rank's share of the global one (its
+rows' sums over the global counts; its own counts), which the train step
+sums over the ranks.
 """
 
 from __future__ import annotations
@@ -12,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.box_geometry import enlarge_box3d, points_in_boxes3d
+from ..parallel.mesh import global_sum
 from .losses import dice_loss, get_reg_loss, sigmoid_focal_loss
 
 
@@ -67,7 +72,8 @@ def get_rpn_loss(cfg, rpn_cls, rpn_reg, rpn_cls_label, rpn_reg_label):
         cls_target = fg_mask.to(cls_flat.dtype)
         pos = cls_target
         neg = (cls_label_flat == 0).to(cls_flat.dtype)
-        cls_weights = (pos + neg) / torch.clamp(torch.sum(pos), min=1.0)
+        cls_weights = (pos + neg) / torch.clamp(global_sum(torch.sum(pos)),
+                                                min=1.0)
         per_entry = sigmoid_focal_loss(
             cls_flat, cls_target, cls_weights,
             gamma=cfg.RPN.FOCAL_GAMMA, alpha=cfg.RPN.FOCAL_ALPHA[0])
@@ -85,7 +91,7 @@ def get_rpn_loss(cfg, rpn_cls, rpn_reg, rpn_cls_label, rpn_reg_label):
         bce = bce * weight
         valid = (cls_label_flat >= 0).to(cls_flat.dtype)
         rpn_loss_cls = (torch.sum(bce * valid)
-                        / torch.clamp(torch.sum(valid), min=1.0))
+                        / torch.clamp(global_sum(torch.sum(valid)), min=1.0))
     else:
         raise NotImplementedError(cfg.RPN.LOSS_CLS)
 
@@ -99,8 +105,8 @@ def get_rpn_loss(cfg, rpn_cls, rpn_reg, rpn_cls_label, rpn_reg_label):
         get_xz_fine=cfg.RPN.LOC_XZ_FINE, get_y_by_bin=False,
         get_ry_fine=False)
     loss_size = 3 * loss_size  # reference: train_functions.py:109
-    rpn_loss_reg = torch.where(fg_sum > 0, loss_loc + loss_angle + loss_size,
-                               0.0)
+    rpn_loss_reg = torch.where(global_sum(fg_sum) > 0,
+                               loss_loc + loss_angle + loss_size, 0.0)
 
     rpn_loss = (rpn_loss_cls * cfg.RPN.LOSS_WEIGHT[0]
                 + rpn_loss_reg * cfg.RPN.LOSS_WEIGHT[1])
@@ -128,7 +134,8 @@ def get_rcnn_loss(cfg, ret_dict):
         cls_target = (cls_label_flat > 0).to(cls_flat.dtype)
         pos = cls_target
         neg = (cls_label_flat == 0).to(cls_flat.dtype)
-        weights = (pos + neg) / torch.clamp(torch.sum(pos), min=1.0)
+        weights = (pos + neg) / torch.clamp(global_sum(torch.sum(pos)),
+                                            min=1.0)
         per_entry = sigmoid_focal_loss(cls_flat, cls_target, weights,
                                        gamma=cfg.RCNN.FOCAL_GAMMA,
                                        alpha=cfg.RCNN.FOCAL_ALPHA[0])
@@ -141,7 +148,7 @@ def get_rcnn_loss(cfg, ret_dict):
                 + (1 - target) * torch.log(torch.clamp(1 - probs, min=eps)))
         valid = (cls_label_flat >= 0).to(cls_flat.dtype)
         rcnn_loss_cls = (torch.sum(bce * valid)
-                         / torch.clamp(torch.sum(valid), min=1.0))
+                         / torch.clamp(global_sum(torch.sum(valid)), min=1.0))
     else:
         raise NotImplementedError(cfg.RCNN.LOSS_CLS)
 
@@ -158,7 +165,7 @@ def get_rcnn_loss(cfg, ret_dict):
         loc_y_scope=cfg.RCNN.LOC_Y_SCOPE,
         loc_y_bin_size=cfg.RCNN.LOC_Y_BIN_SIZE, get_ry_fine=True)
     loss_size = 3 * loss_size
-    rcnn_loss_reg = torch.where(fg_sum > 0,
+    rcnn_loss_reg = torch.where(global_sum(fg_sum) > 0,
                                 loss_loc + loss_angle + loss_size, 0.0)
 
     rcnn_loss = rcnn_loss_cls + rcnn_loss_reg

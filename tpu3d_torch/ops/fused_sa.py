@@ -878,6 +878,13 @@ def _unpack(pk, c1, c2, c3):
     return [t.view(7, -1) for t in pk.split([7 * c1, 7 * c2, 7 * c3])]
 
 
+def _slots(x0, mesh):
+    """The slots a statistic of the (R, M, S, C) slab x0 counts: this
+    rank's, times the mesh's ranks (each holds as many)."""
+    R, M, S, _ = x0.shape
+    return R * M * S * (1 if mesh is None else mesh.size)
+
+
 def _mean_var(sums, n, dtype):
     """Mean and biased variance E[x²] − mean² in ``dtype`` from the f64
     (Σx, Σx²) over n slots."""
@@ -887,10 +894,12 @@ def _mean_var(sums, n, dtype):
 
 def _bn_train(x, gamma, beta, eps):
     """BatchNorm in training, as ``models.pointnet2.BatchNorm`` computes it
-    -> (y, mean, var)."""
+    (over the global batch under a data-parallel mesh) -> (y, mean, var)."""
+    from ..parallel.mesh import batch_means  # the package imports ops
+
     axes = tuple(range(x.dim() - 1))
-    mean = x.mean(dim=axes)
-    var = (x * x).mean(dim=axes) - mean * mean
+    mean, sq = batch_means((x, x * x), axes)
+    var = sq - mean * mean
     return ((x - mean) * torch.rsqrt(var + eps)) * gamma + beta, mean, var
 
 
@@ -1208,13 +1217,15 @@ def fused_bn_mlp_pool_train(x0, w1, w2, gammas, betas, eps=1e-5):
     argmax, means, vars, (x1, x2)), x1 and x2 kept for the backward. Each
     pass is its kernel for CUDA tensors, its plain version for CPU
     tensors."""
-    R, M, S, c1 = x0.shape
-    n = R * M * S
+    from ..parallel.mesh import active, reduce_sum_
+
+    mesh = active()
+    n = _slots(x0, mesh)
     w1, w2 = w1.contiguous(), w2.contiguous()
     means, vars_, layers = [], [], []
 
     def fold(sums, depth):
-        mean, var = _mean_var(sums, n, x0.dtype)
+        mean, var = _mean_var(reduce_sum_(sums, mesh), n, x0.dtype)
         means.append(mean)
         vars_.append(var)
         layers.append(_layer_pack(mean, var, gammas[depth], betas[depth],
@@ -1231,16 +1242,20 @@ def fused_bn_mlp_pool_train(x0, w1, w2, gammas, betas, eps=1e-5):
 
 
 def fused_bn_mlp_pool_backward(x0, w1, w2, gammas, betas, means, vars_, out,
-                               argmax, at, saved, grad, eps=1e-5):
+                               argmax, at, saved, grad, eps=1e-5, mesh=None):
     """The chain's backward, tpu3d's ``_fused_train_bwd``, from the output
     gradient and the training forward's statistics, out, argmax, x2 at the
     argmax and its stored (x1, x2) -> (d_x0, dW1, dW2, dgammas, dbetas).
     Layer 2's reductions come from the small (R, M, C3) tensors (the pooled
     gradient reaches x2 at the argmax slots alone; ReLU passes it where the
     pooled output is > 0); then wave 1, wave 2 and the elementwise pass,
-    each its kernel for CUDA tensors, its plain version for CPU tensors."""
-    R, M, S, c1 = x0.shape
-    n = R * M * S
+    each its kernel for CUDA tensors, its plain version for CPU tensors.
+    Under a data-parallel mesh (``mesh``) each reduction the packs take is
+    the global batch's; the gradients returned are this rank's own, which
+    the train step sums with the others'."""
+    from ..parallel.mesh import reduce_sum_
+
+    n = _slots(x0, mesh)
     x1, x2 = saved
     w1, w2 = w1.contiguous(), w2.contiguous()
     layers = [_layer_pack(m, v, g, b, eps, n)
@@ -1249,20 +1264,24 @@ def fused_bn_mlp_pool_backward(x0, w1, w2, gammas, betas, means, vars_, out,
     d_y2 = torch.where(out > 0, grad, 0.0)
     dbeta2 = d_y2.sum(dim=(0, 1))
     dgamma2 = (d_y2 * (at * r2 - means[2] * r2)).sum(dim=(0, 1))
-    layers[2] = _layer_pack(means[2], vars_[2], gammas[2], betas[2], eps, n,
-                            dbeta2, dgamma2)
+
+    def pack(depth, dbeta, dgamma):
+        """The packs with layer ``depth``'s reductions, the global batch's
+        (this rank's (dbeta, dgamma) summed over the mesh)."""
+        glob = reduce_sum_(torch.stack([dbeta, dgamma]), mesh).to(x0.dtype)
+        layers[depth] = _layer_pack(means[depth], vars_[depth],
+                                    gammas[depth], betas[depth], eps, n,
+                                    glob[0], glob[1])
+        return _pack(layers)
+
     dval = (d_y2 * mul2).contiguous()
-    sums, dw2, d_y1 = fused_sa_bn_wave1(x2, x1, _pack(layers), w2, dval,
-                                        argmax)
+    sums, dw2, d_y1 = fused_sa_bn_wave1(x2, x1, pack(2, dbeta2, dgamma2), w2,
+                                        dval, argmax)
     dbeta1, dgamma1 = sums.to(x0.dtype)
-    layers[1] = _layer_pack(means[1], vars_[1], gammas[1], betas[1], eps, n,
-                            dbeta1, dgamma1)
-    sums, dw1, d_y0 = fused_sa_bn_wave2(d_y1, x1, x0, _pack(layers), w1)
+    sums, dw1, d_y0 = fused_sa_bn_wave2(d_y1, x1, x0, pack(1, *sums), w1)
     del d_y1
     dbeta0, dgamma0 = sums.to(x0.dtype)
-    layers[0] = _layer_pack(means[0], vars_[0], gammas[0], betas[0], eps, n,
-                            dbeta0, dgamma0)
-    d_x0 = fused_sa_bn_apply(d_y0, x0, _pack(layers))
+    d_x0 = fused_sa_bn_apply(d_y0, x0, pack(0, *sums))
     return (d_x0, dw1, dw2, (dgamma0, dgamma1, dgamma2),
             (dbeta0, dbeta1, dbeta2))
 
@@ -1273,7 +1292,9 @@ class _FusedBNMLPPool(torch.autograd.Function):
         gammas, betas = (g0, g1, g2), (b0, b1, b2)
         out, argmax, at, means, vars_, (x1, x2) = fused_bn_mlp_pool_train(
             x0, w1, w2, gammas, betas, eps)
-        ctx.eps = eps
+        from ..parallel.mesh import active
+
+        ctx.eps, ctx.mesh = eps, active()
         ctx.save_for_backward(x0, w1, w2, *gammas, *betas, *means, *vars_,
                               out, argmax, at, x1, x2)
         ctx.mark_non_differentiable(*means, *vars_)
@@ -1284,7 +1305,8 @@ class _FusedBNMLPPool(torch.autograd.Function):
         t = ctx.saved_tensors
         d_x0, dw1, dw2, dgammas, dbetas = fused_bn_mlp_pool_backward(
             t[0], t[1], t[2], t[3:6], t[6:9], t[9:12], t[12:15], t[15],
-            t[16], t[17], (t[18], t[19]), grad.contiguous(), ctx.eps)
+            t[16], t[17], (t[18], t[19]), grad.contiguous(), ctx.eps,
+            ctx.mesh)
         return (d_x0, dw1, dw2, *dgammas, *dbetas, None)
 
 

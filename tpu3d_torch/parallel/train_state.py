@@ -1,5 +1,6 @@
-"""The optimizer, its schedules and the train step on one GPU (counterpart
-of ``tpu3d/parallel/train_state.py``, which builds them from optax).
+"""The optimizer, its schedules and the train step, on one GPU or over a
+data-parallel mesh of them (counterpart of
+``tpu3d/parallel/train_state.py``, which builds them from optax).
 
 - ``adam_onecycle``: optax's ``cosine_onecycle_schedule`` for the learning
   rate (cosine from peak/div to peak over int(T·pct) steps, then down to
@@ -19,6 +20,13 @@ of ``tpu3d/parallel/train_state.py``, which builds them from optax).
 
 The update itself is PyTorch's AdamW / Adam / SGD with each step's lr and
 betas written into the parameter group.
+
+Over a mesh (``parallel.mesh``) the step is tpu3d's sharded one, the step
+of the global batch: each rank runs its rows under ``use_mesh`` (BatchNorm
+statistics, loss normalizers and random draws of the global batch), its
+loss is its share of the global loss, and the gradients are summed over
+the ranks in one collective before the clip, so the parameters stay equal
+on every rank.
 """
 
 from __future__ import annotations
@@ -35,6 +43,8 @@ from ..models.train_functions import (generate_rpn_labels_device,
                                       get_rcnn_loss, get_rpn_loss,
                                       model_loss)
 from ..ops.rotated_iou import boxes_iou3d
+from .mesh import (Mesh, reduce_metrics, replicate, sum_gradients,
+                   use_mesh)
 
 
 @functools.cache
@@ -223,11 +233,16 @@ class TrainState:
 
 
 def create_train_state(cfg, model: torch.nn.Module, steps_per_epoch: int,
-                       total_epochs: int) -> TrainState:
+                       total_epochs: int,
+                       mesh: Mesh | None = None) -> TrainState:
     """A fresh ``TrainState`` over every parameter of the model, in every
     mode, as tpu3d's optimizer holds the whole tree: with ``RPN.FIXED`` the
     RPN gets zero gradients, so only weight decay moves its parameters, and
-    its BatchNorm statistics stay as loaded (it runs in eval mode)."""
+    its BatchNorm statistics stay as loaded (it runs in eval mode). With a
+    ``mesh``, the model's parameters and buffers are first broadcast from
+    its first rank (``replicate``)."""
+    if mesh is not None:
+        replicate(mesh, model)
     return TrainState(optimizer=Optimizer(cfg, model.parameters(),
                                           steps_per_epoch, total_epochs))
 
@@ -242,7 +257,7 @@ def bn_momentum_at_epoch(cfg, epoch: int) -> float:
     return 1.0 - torch_m
 
 
-def make_train_step(cfg, model: torch.nn.Module):
+def make_train_step(cfg, model: torch.nn.Module, mesh: Mesh | None = None):
     """The twin of tpu3d's ``make_train_step``: returns
     ``train_step(state, batch, generator, bn_momentum) -> metrics``.
 
@@ -258,6 +273,15 @@ def make_train_step(cfg, model: torch.nn.Module):
     ``model_loss``, the backward and one clipped update of ``state``. The
     metrics are tpu3d's tb dict (0-dim tensors, left on the device) with
     ``grad_norm``.
+
+    With a ``mesh`` (``parallel.make_mesh``), ``batch`` holds this rank's
+    rows of the global batch (``shard_batch``), and ``generator`` is seeded
+    alike on every rank: the step is the global batch's (see the module's
+    docstring), the metrics are the global batch's on every rank, and the
+    gradients are summed over the mesh's group before the clip. Without a
+    group, or at a mesh of one rank without one, the step runs as without
+    a mesh; a mesh of one rank with a group runs the gradients' collective
+    alone, which leaves them as they are.
     """
     offline = not cfg.RPN.ENABLED
     rpn_trains = cfg.RPN.ENABLED and not cfg.RPN.FIXED
@@ -276,12 +300,14 @@ def make_train_step(cfg, model: torch.nn.Module):
             batch = dict(batch, rpn_cls_label=cls_l, rpn_reg_label=reg_l)
         for p in state.optimizer.params:
             p.grad = None
-        out = model(inputs, train=True, bn_momentum=bn_momentum,
-                    generator=generator)
-        loss, tb = model_loss(cfg, out, batch)
-        loss.backward()
-        tb = {k: v.detach() if torch.is_tensor(v) else v
-              for k, v in tb.items()}
+        with use_mesh(mesh):
+            out = model(inputs, train=True, bn_momentum=bn_momentum,
+                        generator=generator)
+            loss, tb = model_loss(cfg, out, batch)
+            loss.backward()
+        sum_gradients(state.optimizer.params, mesh)
+        tb = reduce_metrics({k: v.detach() if torch.is_tensor(v) else v
+                             for k, v in tb.items()}, mesh)
         tb["grad_norm"] = state.apply_gradients()
         return tb
 
@@ -298,7 +324,8 @@ def make_eval_step(cfg, model: torch.nn.Module):
     return eval_step
 
 
-def make_eval_loss_step(cfg, model: torch.nn.Module):
+def make_eval_loss_step(cfg, model: torch.nn.Module,
+                        mesh: Mesh | None = None):
     """The validation pass of ``--train_with_eval`` (tpu3d's
     ``make_eval_loss_step``; reference: train_utils.py:140-168
     Trainer.eval_epoch): ``eval_step(state, batch) -> metrics``.
@@ -313,11 +340,16 @@ def make_eval_loss_step(cfg, model: torch.nn.Module):
     ``gt_boxes3d_ct``) and the loss is the RCNN's, with labels from each
     roi's IoU to its gt (tpu3d: train_state.py:225-250). The metrics are
     0-dim tensors on the model's device; the caller averages them over the
-    val loader."""
+    val loader. With a ``mesh``, ``batch`` holds this rank's rows and the
+    metrics are the global batch's, on every rank."""
     offline = not cfg.RPN.ENABLED
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: dict) -> dict:
+        with use_mesh(mesh):
+            return reduce_metrics(eval_metrics(batch), mesh)
+
+    def eval_metrics(batch: dict) -> dict:
         pts = batch["pts_input"]
         if offline:
             pts = pts.reshape(-1, *pts.shape[-2:])

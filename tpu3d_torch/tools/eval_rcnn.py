@@ -21,6 +21,14 @@ features). It runs on the card unless ``--device cpu`` is given; with no
 card and no ``--device cpu`` it raises. Batches come through
 ``BatchLoader`` (no shuffle) and ``device_prefetch``; the weights from a
 tpu3d-format checkpoint (``utils/checkpoint.load_checkpoint``).
+
+Under ``torchrun`` (or in a process whose default process group is already
+initialised) it runs over tpu3d's data-parallel mesh (``make_mesh`` at
+``--batch_size``, tpu3d: tools/eval_rcnn.py:210, :302, :397): each rank
+loads and runs the forward on its rows of every batch, and rank 0
+gathers every rank's outputs, with the host fields it writes with, and
+writes every label file, dump and recall table as one process would; the other ranks write and log nothing,
+and ``main`` returns the results on rank 0 (None elsewhere).
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import cfg_from_file, cfg_from_list, fresh_cfg
 from ..datasets import (BatchLoader, KittiRCNNDataset, create_synthetic_kitti,
@@ -43,9 +52,10 @@ from ..models import PointRCNN
 from ..models.bbox_codec import decode_bbox_target
 from ..ops.nms import nms_bev
 from ..ops.rotated_iou import boxes3d_to_bev5, boxes_iou3d
-from ..parallel import create_train_state
+from ..parallel import create_train_state, init_distributed, make_mesh
+from ..parallel.mesh import lead
 from ..utils.checkpoint import latest_checkpoint, load_checkpoint
-from ..utils.logging import create_logger
+from ..utils.logging import create_logger, null_logger
 from ..weights import seeded_state_dict
 from .train_rcnn import configure_mode
 
@@ -267,21 +277,46 @@ def save_rpn_features(out, batch, k, features_dir, sample_id):
 
 
 def _batches(loader, keys, device):
-    """Each loader batch on the host beside its ``keys`` staged onto
-    ``device`` by ``device_prefetch``: yields (host batch, device batch)."""
+    """Each loader batch (over a mesh, this rank's rows of it) on the host
+    beside its ``keys`` staged onto ``device`` by ``device_prefetch``:
+    yields (host batch, device batch)."""
     host = collections.deque()
 
     def tap():
         for batch in loader:
             host.append(batch)
-            yield batch
+            yield {k: batch[k] for k in keys if k in batch}
 
     for staged in device_prefetch(tap(), size=2, keys=keys, device=device):
         yield host.popleft(), staged
 
 
-def _to_host(out: dict) -> dict:
-    return {k: v.cpu().numpy() for k, v in out.items()}
+def _spread(mesh) -> bool:
+    """Whether the eval runs over several ranks."""
+    return mesh is not None and mesh.size > 1
+
+
+def _writes(mesh) -> bool:
+    """Whether this rank writes the eval's files: one process, or rank 0
+    of the mesh."""
+    return not _spread(mesh) or mesh.index == 0
+
+
+def _to_host(out: dict, batch: dict, keep, mesh=None):
+    """The outputs on the host beside the host batch -> (outputs, batch).
+    Over a mesh, every rank's rows of both (of the batch, the fields named
+    in ``keep``: those the writer reads) are gathered on rank 0 in rank
+    order, in one call (-> None on the other ranks)."""
+    out = {k: v.cpu().numpy() for k, v in out.items()}
+    if not _spread(mesh):
+        return out, batch
+    part = (out, {k: batch[k] for k in keep if k in batch})
+    parts = [None] * mesh.size if mesh.index == 0 else None
+    dist.gather_object(part, parts, dst=mesh.ranks[0], group=mesh.group)
+    if mesh.index != 0:
+        return None
+    return tuple({k: np.concatenate([p[i][k] for p in parts])
+                  for k in parts[0][i]} for i in (0, 1))
 
 
 def _gt_boxes(batch, k):
@@ -308,15 +343,17 @@ def _write_empty_files(dataset, final_output_dir) -> int:
     return empty_cnt
 
 
-def eval_one_epoch_rpn(args, cfg, model, loader, result_dir, logger):
+def eval_one_epoch_rpn(args, cfg, model, loader, result_dir, logger,
+                       mesh=None):
     """RPN-only eval: per-point seg IoU + proposal recall (+ feature dumps)
     (reference parity: eval_rcnn.py:120-260 eval_one_epoch_rpn)."""
     dataset = loader.dataset
     dev = next(model.parameters()).device
-    if args.save_rpn_feature:
+    writes = _writes(mesh)
+    if writes and args.save_rpn_feature:
         features_dir = os.path.join(result_dir, "features")
         os.makedirs(features_dir, exist_ok=True)
-    if args.save_result or args.save_rpn_feature:
+    if writes and (args.save_result or args.save_rpn_feature):
         # detections/data is the roi producer for offline-RCNN train/eval
         # (reference: eval_rcnn.py:128-132, 221-238)
         kitti_output_dir = os.path.join(result_dir, "detections", "data")
@@ -328,8 +365,16 @@ def eval_one_epoch_rpn(args, cfg, model, loader, result_dir, logger):
     total_recall = np.zeros(len(THRESH_LIST), np.int64)
     total_gt = 0
     rpn_iou_sum, n_scenes = 0.0, 0
+    keep = ["sample_id", "batch_valid", "rpn_cls_label", "gt_boxes3d"]
+    if args.save_rpn_feature:
+        keep.append("pts_features")
+    if args.save_result or args.save_rpn_feature:
+        keep.append("pts_rect")
     for batch, staged in _batches(loader, ("pts_input",), dev):
-        out = _to_host(infer(staged["pts_input"]))
+        got = _to_host(infer(staged["pts_input"]), batch, keep, mesh)
+        if got is None:  # rank 0 writes
+            continue
+        out, batch = got
         for k in range(len(batch["sample_id"])):
             if not batch["batch_valid"][k]:
                 continue
@@ -365,6 +410,8 @@ def eval_one_epoch_rpn(args, cfg, model, loader, result_dir, logger):
                 rec, n_gt = _recall_counts(rois_k, _gt_boxes(batch, k), dev)
                 total_recall += rec
                 total_gt += n_gt
+    if not writes:
+        return None
     if total_gt > 0:
         _log_recall(logger, "roi", total_recall, total_gt)
     avg_iou = rpn_iou_sum / max(n_scenes, 1)
@@ -374,16 +421,19 @@ def eval_one_epoch_rpn(args, cfg, model, loader, result_dir, logger):
                        for i, t in enumerate(THRESH_LIST)}}
 
 
-def eval_one_epoch_joint(args, cfg, model, loader, result_dir, logger):
+def eval_one_epoch_joint(args, cfg, model, loader, result_dir, logger,
+                         mesh=None):
     """Joint / rcnn eval: final boxes as KITTI label files (and, with
     ``--save_result``, the rois and the refined boxes before NMS), the
     recall tables and the scenes/s from the second batch on, taken after
     a synchronize (tpu3d: tools/eval_rcnn.py:290 eval_one_epoch_joint)."""
     dataset = loader.dataset
     dev = next(model.parameters()).device
+    writes = _writes(mesh)
     final_output_dir = os.path.join(result_dir, "final_result", "data")
-    os.makedirs(final_output_dir, exist_ok=True)
-    if args.save_result:
+    if writes:
+        os.makedirs(final_output_dir, exist_ok=True)
+    if writes and args.save_result:
         # pre-NMS roi + refined-box label dumps (reference:
         # eval_rcnn.py:474-480, 586-607): roi_result/data feeds offline-RCNN
         roi_output_dir = os.path.join(result_dir, "roi_result", "data")
@@ -398,10 +448,15 @@ def eval_one_epoch_joint(args, cfg, model, loader, result_dir, logger):
     final_total = 0
     n_scenes = 0
     t_start, scenes_timed = None, 0
+    keep = ("sample_id", "batch_valid", "gt_boxes3d")
     for batch, staged in _batches(loader, ("pts_input",), dev):
-        out = _to_host(infer(staged["pts_input"]))  # waits for the card
+        # waits for the card (and, over a mesh, for every rank's rows)
+        got = _to_host(infer(staged["pts_input"]), batch, keep, mesh)
         if t_start is None:  # the first batch loads the kernels
             t_start = time.perf_counter()
+        if got is None:  # rank 0 writes
+            continue
+        out, batch = got
         for k in range(len(batch["sample_id"])):
             if not batch["batch_valid"][k]:
                 continue
@@ -436,6 +491,8 @@ def eval_one_epoch_joint(args, cfg, model, loader, result_dir, logger):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     elapsed = time.perf_counter() - (t_start or time.perf_counter())
+    if not writes:
+        return None
 
     empty_cnt = _write_empty_files(dataset, final_output_dir)
     logger.info(f"final average detections: "
@@ -459,15 +516,18 @@ def eval_one_epoch_joint(args, cfg, model, loader, result_dir, logger):
     }
 
 
-def eval_one_epoch_rcnn(args, cfg, model, loader, result_dir, logger):
+def eval_one_epoch_rcnn(args, cfg, model, loader, result_dir, logger,
+                        mesh=None):
     """rcnn_offline eval: saved proposals + dumped features -> RCNN refinement
     -> KITTI dumps + recall/cls-acc tables (reference parity:
     eval_rcnn.py:263-460 eval_one_epoch_rcnn; batched + fixed-shape here)."""
     dataset = loader.dataset
     dev = next(model.parameters()).device
+    writes = _writes(mesh)
     final_output_dir = os.path.join(result_dir, "final_result", "data")
-    os.makedirs(final_output_dir, exist_ok=True)
-    if args.save_result:
+    if writes:
+        os.makedirs(final_output_dir, exist_ok=True)
+    if writes and args.save_result:
         roi_output_dir = os.path.join(result_dir, "roi_result", "data")
         refine_output_dir = os.path.join(result_dir, "refine_result", "data")
         os.makedirs(roi_output_dir, exist_ok=True)
@@ -480,8 +540,13 @@ def eval_one_epoch_rcnn(args, cfg, model, loader, result_dir, logger):
     total_gt = 0
     total_cls_acc, total_cls_acc_refined = 0.0, 0.0
     final_total, n_scenes = 0, 0
+    keep = ("sample_id", "batch_valid", "roi_valid", "roi_boxes3d",
+            "roi_scores", "gt_boxes3d", "gt_iou")
     for batch, staged in _batches(loader, keys, dev):
-        out = _to_host(infer(*(staged[k] for k in keys)))
+        got = _to_host(infer(*(staged[k] for k in keys)), batch, keep, mesh)
+        if got is None:  # rank 0 writes
+            continue
+        out, batch = got
         for k in range(len(batch["sample_id"])):
             if not batch["batch_valid"][k]:
                 continue
@@ -528,6 +593,8 @@ def eval_one_epoch_rcnn(args, cfg, model, loader, result_dir, logger):
                 total_cls_acc_refined += (
                     float((pred_cls == refined_label).sum())
                     / max(len(refined_label), 1.0))
+    if not writes:
+        return None
 
     _write_empty_files(dataset, final_output_dir)
     logger.info(f"final average detections: "
@@ -559,6 +626,7 @@ EVAL_FNS = {"rpn": eval_one_epoch_rpn, "rcnn": eval_one_epoch_joint,
 def main(argv=None):
     args = parse_args(argv)
     dev = resolve_device(args.device)
+    distributed = init_distributed(dev)
     cfg = fresh_cfg()
     if args.cfg_file:
         cfg_from_file(args.cfg_file, cfg)
@@ -576,17 +644,26 @@ def main(argv=None):
     if args.eval_mode == "rcnn":
         cfg.RPN.FIXED = True
 
+    # the mesh at the eval batch (tpu3d: tools/eval_rcnn.py:210); ranks
+    # outside it have no rows to run
+    mesh = make_mesh(batch_size=args.batch_size)
     result_dir = args.output_dir or os.path.join(
         "output", "eval", cfg.TAG, f"eval_{args.dataset}")
-    os.makedirs(result_dir, exist_ok=True)
     log_file = os.path.join(result_dir, "log_eval.txt")
-    logger = create_logger(log_file)
+    logger = null_logger()
+    if lead():
+        os.makedirs(result_dir, exist_ok=True)
+        logger = create_logger(log_file)
 
     if args.synthetic:
         data_root = os.path.join(result_dir, "synthetic_data")
-        if not os.path.exists(os.path.join(data_root, "KITTI")):
+        if lead() and not os.path.exists(os.path.join(data_root, "KITTI")):
             create_synthetic_kitti(data_root, n_frames=8, image_files=True)
         args.data_root = data_root
+    if distributed:  # rank 0's frames are on disk
+        dist.barrier()
+    if not mesh.member:
+        return None
     data_root = args.data_root or os.path.join("multi_data", args.dataset)
 
     split = "test" if args.test else cfg.TEST.SPLIT
@@ -597,7 +674,7 @@ def main(argv=None):
         rcnn_eval_roi_dir=args.rcnn_eval_roi_dir,
         rcnn_eval_feature_dir=args.rcnn_eval_feature_dir)
     loader = BatchLoader(dataset, args.batch_size, shuffle=False,
-                         num_workers=args.workers)
+                         num_workers=args.workers, shard=mesh.shard)
 
     model = PointRCNN(cfg, mode="TEST", device=dev)
     model.load_state_dict(seeded_state_dict(model, args.seed))
@@ -606,7 +683,7 @@ def main(argv=None):
     try:
         if args.eval_all and args.ckpt_dir:
             return repeat_eval_ckpt(args, cfg, model, state, loader,
-                                    result_dir, logger, eval_fn)
+                                    result_dir, logger, eval_fn, mesh)
         ckpt = args.ckpt or (latest_checkpoint(args.ckpt_dir)
                              if args.ckpt_dir else None)
         if ckpt:
@@ -614,7 +691,7 @@ def main(argv=None):
             logger.info(f"loaded checkpoint {ckpt} (epoch {epoch})")
         else:
             logger.warning("no checkpoint given — evaluating random weights")
-        return eval_fn(args, cfg, model, loader, result_dir, logger)
+        return eval_fn(args, cfg, model, loader, result_dir, logger, mesh)
     finally:
         loader.close()
         for h in list(logger.handlers):  # a later run logs apart
@@ -623,29 +700,43 @@ def main(argv=None):
                 h.close()
 
 
+def _agree(value, mesh):
+    """Rank 0's ``value`` on every rank of the mesh."""
+    if not _spread(mesh):
+        return value
+    box = [value]
+    dist.broadcast_object_list(box, src=mesh.ranks[0], group=mesh.group)
+    return box[0]
+
+
 def repeat_eval_ckpt(args, cfg, model, state, loader, result_dir, logger,
-                     eval_fn):
+                     eval_fn, mesh=None):
     """Daemon: poll --ckpt_dir for new checkpoints, evaluate each once, record
     evaluated epochs (reference parity: eval_rcnn.py:775-848 repeat_eval_ckpt —
     30 s poll, skip-already-evaluated via a record file, give up after
-    max_waitmins with nothing new). -> {epoch: eval_fn's result}."""
+    max_waitmins with nothing new). -> {epoch: eval_fn's result}. Over a
+    mesh, rank 0 polls and decides, and every rank evaluates what it
+    chose."""
+    writes = _writes(mesh)
     record_file = os.path.join(result_dir, "eval_list_val.txt")
     evaluated = set()
-    if os.path.isfile(record_file):
+    if writes and os.path.isfile(record_file):
         with open(record_file) as f:
             evaluated = {int(x) for x in f.read().split() if x.strip()}
     idle_start = time.time()
     results = {}
     while True:
         candidates = []
-        if os.path.isdir(args.ckpt_dir):
+        if writes and os.path.isdir(args.ckpt_dir):
             for fname in os.listdir(args.ckpt_dir):
                 m = re.match(r"checkpoint_epoch_(\d+)\.msgpack$", fname)
                 if m and int(m.group(1)) not in evaluated:
                     candidates.append((int(m.group(1)),
                                        os.path.join(args.ckpt_dir, fname)))
+        candidates = _agree(candidates, mesh)
         if not candidates:
-            if time.time() - idle_start > args.max_waitmins * 60:
+            if _agree(time.time() - idle_start > args.max_waitmins * 60,
+                      mesh):
                 logger.info("repeat_eval: no new checkpoints, exiting")
                 return results
             time.sleep(args.wait_seconds)
@@ -655,12 +746,14 @@ def repeat_eval_ckpt(args, cfg, model, state, loader, result_dir, logger,
             logger.info(f"repeat_eval: evaluating epoch {epoch} ({path})")
             state, _ = load_checkpoint(path, model, state)
             epoch_dir = os.path.join(result_dir, f"epoch_{epoch}")
-            os.makedirs(epoch_dir, exist_ok=True)
+            if writes:
+                os.makedirs(epoch_dir, exist_ok=True)
             results[epoch] = eval_fn(args, cfg, model, loader, epoch_dir,
-                                     logger)
+                                     logger, mesh)
             evaluated.add(epoch)
-            with open(record_file, "w") as f:
-                f.write("\n".join(str(e) for e in sorted(evaluated)))
+            if writes:
+                with open(record_file, "w") as f:
+                    f.write("\n".join(str(e) for e in sorted(evaluated)))
 
 
 if __name__ == "__main__":

@@ -18,6 +18,19 @@ tpu3d's own format (``--ckpt`` resumes, ``--rpn_ckpt`` warm-starts) and the
 It runs on the card unless ``--device cpu`` is given (tpu3d's
 ``TPU3D_PLATFORM=cpu``); with no card and no ``--device cpu`` it raises.
 
+Under ``torchrun`` (or in a process whose default process group is already
+initialised) it trains over tpu3d's data-parallel mesh, one card per
+process under NCCL: ``make_mesh(batch_size=...)`` takes the largest prefix
+of the ranks whose count divides ``--batch_size``, each rank loads and
+trains its rows of every global batch (``--batch_size`` is the global
+batch, as tpu3d's), and the step is the global batch's; the validation pass
+runs on a mesh of its own batch. Rank 0 alone logs and writes (the run
+directory, tensorboard, checkpoints). A lone process runs as without
+``torchrun``.
+
+    torchrun --standalone --nproc_per_node 8 -m tpu3d_torch.tools.train_rcnn \
+        --cfg_file configs/default.yaml --train_mode joint --batch_size 16 ...
+
 Each step's randomness (dropout, the proposal target layer) comes from a
 fresh ``torch.Generator`` seeded from (seed + 1, step), as tpu3d folds the
 step into ``PRNGKey(seed + 1)``, and the loader's from (seed, epoch,
@@ -43,9 +56,11 @@ from ..datasets import (BatchLoader, KittiRCNNDataset, create_synthetic_kitti,
 from ..device import resolve_device
 from ..models import PointRCNN
 from ..parallel import (bn_momentum_at_epoch, create_train_state,
-                        make_eval_loss_step, make_train_step)
+                        init_distributed, make_eval_loss_step, make_mesh,
+                        make_train_step, replicate)
+from ..parallel.mesh import lead
 from ..utils.checkpoint import load_checkpoint, load_part_ckpt, save_checkpoint
-from ..utils.logging import create_logger, create_tb_writer
+from ..utils.logging import create_logger, create_tb_writer, null_logger
 from ..weights import seeded_state_dict
 
 # the batch arrays the train and eval-loss steps read (the RPN labels only
@@ -160,6 +175,8 @@ class TrainRun:
 def main(argv=None) -> TrainRun:
     args = parse_args(argv)
     dev = resolve_device(args.device)
+    distributed = init_distributed(dev)
+    writes = lead()
     cfg = fresh_cfg()
     if args.cfg_file:
         cfg_from_file(args.cfg_file, cfg)
@@ -176,27 +193,31 @@ def main(argv=None) -> TrainRun:
                if args.cfg_file else "default")
 
     root = args.output_dir or os.path.join("output", args.train_mode, cfg.TAG)
-    os.makedirs(root, exist_ok=True)
     ckpt_dir = os.path.join(root, "ckpt")
-    os.makedirs(ckpt_dir, exist_ok=True)
     log_file = os.path.join(root, "log_train.txt")
-    logger = create_logger(log_file)
-    logger.info("**********************Start logging**********************")
-    for key, val in vars(args).items():
-        logger.info("{:16} {}".format(key, val))
-    save_config_to_file(cfg, logger=logger)
-    # source snapshot (reference: train_rcnn.py:192-196)
-    backup_dir = os.path.join(root, "backup_files")
-    os.makedirs(backup_dir, exist_ok=True)
-    pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    shutil.make_archive(os.path.join(backup_dir, "tpu3d_torch_src"), "zip",
-                        pkg_root)
+    logger = null_logger()
+    if writes:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        logger = create_logger(log_file)
+        logger.info("**********************Start logging*******************"
+                    "***")
+        for key, val in vars(args).items():
+            logger.info("{:16} {}".format(key, val))
+        save_config_to_file(cfg, logger=logger)
+        # source snapshot (reference: train_rcnn.py:192-196)
+        backup_dir = os.path.join(root, "backup_files")
+        os.makedirs(backup_dir, exist_ok=True)
+        pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        shutil.make_archive(os.path.join(backup_dir, "tpu3d_torch_src"),
+                            "zip", pkg_root)
 
     if args.synthetic:
         data_root = os.path.join(root, "synthetic_data")
-        if not os.path.exists(os.path.join(data_root, "KITTI")):
+        if writes and not os.path.exists(os.path.join(data_root, "KITTI")):
             create_synthetic_kitti(data_root, n_frames=32, image_files=True)
         args.data_root = data_root
+    if distributed:  # rank 0's frames are on disk
+        torch.distributed.barrier()
     data_root = args.data_root or os.path.join("multi_data", args.dataset)
 
     dataset = KittiRCNNDataset(
@@ -207,11 +228,18 @@ def main(argv=None) -> TrainRun:
         rcnn_training_feature_dir=args.rcnn_training_feature_dir,
         shuffle_subsample=args.shuffle_subsample, seed=args.seed,
         device_rpn_labels=args.device_labels)
+    # the mesh: the largest prefix of the ranks whose count divides the
+    # global batch (tpu3d: tools/train_rcnn.py:198); the other ranks sit
+    # the training out
+    mesh = make_mesh(batch_size=args.batch_size)
     loader = BatchLoader(dataset, args.batch_size, shuffle=True,
                          num_workers=args.workers, drop_last=True,
-                         seed=args.seed)
+                         seed=args.seed,
+                         shard=mesh.shard if mesh.member else None)
     steps_per_epoch = max(1, len(loader))
     logger.info(f"dataset: {len(dataset)} samples, {steps_per_epoch} steps/epoch")
+    logger.info(f"mesh: {mesh.size} rank(s) of the job, "
+                f"{args.batch_size // mesh.size} scenes each")
 
     val_loader = None
     if args.train_with_eval:
@@ -222,15 +250,19 @@ def main(argv=None) -> TrainRun:
             cfg=cfg, logger=logger, seed=args.seed,
             rcnn_eval_roi_dir=args.rcnn_eval_roi_dir,
             rcnn_eval_feature_dir=args.rcnn_eval_feature_dir)
-        val_loader = BatchLoader(val_dataset,
-                                 min(args.batch_size, len(val_dataset)),
-                                 shuffle=False, num_workers=args.workers,
-                                 drop_last=True)
+        val_batch = min(args.batch_size, len(val_dataset))
+        # the validation pass's mesh, at its own batch (tpu3d :235-237)
+        val_mesh = make_mesh(batch_size=val_batch)
+        val_loader = BatchLoader(
+            val_dataset, val_batch, shuffle=False, num_workers=args.workers,
+            drop_last=True,
+            shard=val_mesh.shard if val_mesh.member else None)
         logger.info(f"val dataset: {len(val_dataset)} samples")
 
     model = PointRCNN(cfg, mode="TRAIN", device=dev)
     model.load_state_dict(seeded_state_dict(model, args.seed))
-    state = create_train_state(cfg, model, steps_per_epoch, args.epochs)
+    state = create_train_state(cfg, model, steps_per_epoch, args.epochs,
+                               mesh=mesh)
     n_params = sum(p.numel() for p in model.parameters())
     logger.info(f"model parameters: {n_params / 1e6:.2f}M on {dev}")
 
@@ -242,10 +274,11 @@ def main(argv=None) -> TrainRun:
         state = load_part_ckpt(args.rpn_ckpt, model, state, logger=logger)
         logger.info(f"partial-loaded RPN weights from {args.rpn_ckpt}")
 
-    train_step = make_train_step(cfg, model)
-    eval_loss_step = (make_eval_loss_step(cfg, model)
+    train_step = make_train_step(cfg, model, mesh)
+    eval_loss_step = (make_eval_loss_step(cfg, model, val_mesh)
                       if val_loader is not None else None)
-    tb = create_tb_writer(os.path.join(root, "tensorboard"))
+    tb = create_tb_writer(os.path.join(root, "tensorboard")) if writes \
+        else None
     run = TrainRun(model=model, state=state)
 
     def sync():
@@ -254,7 +287,14 @@ def main(argv=None) -> TrainRun:
 
     def eval_epoch(epoch):
         """Average val metrics over the loader (reference: eval_epoch,
-        train_utils.py:140-168)."""
+        train_utils.py:140-168); each batch's metrics are the global
+        batch's. Ranks outside the validation mesh skip it (-> None); its
+        ranks that sat the training out take the trained weights from rank
+        0 first."""
+        if not val_mesh.member:
+            return None
+        if not mesh.member or val_mesh.ranks != mesh.ranks:
+            replicate(val_mesh, model)
         sums, count = {}, 0
         t0 = time.perf_counter()
         for vbatch in device_prefetch(val_loader, size=2, keys=BATCH_KEYS,
@@ -283,11 +323,13 @@ def main(argv=None) -> TrainRun:
         epoch_ms = []
         t0 = time.perf_counter()
         # device_prefetch: a staging thread starts each batch's
-        # host->device copy while the card runs the previous step
+        # host->device copy while the card runs the previous step; each
+        # rank stages its own rows (tpu3d :263)
         for it, batch in enumerate(device_prefetch(
-                loader, size=2, keys=BATCH_KEYS, device=dev)):
+                loader if mesh.member else (), size=2, keys=BATCH_KEYS,
+                device=dev)):
             gstep0 = state.step
-            if args.profile and gstep0 == 10:
+            if args.profile and writes and gstep0 == 10:
                 prof = torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU,
                     *([torch.profiler.ProfilerActivity.CUDA]
@@ -317,14 +359,18 @@ def main(argv=None) -> TrainRun:
                     for k, v in metrics.items():
                         tb.add_scalar(f"train/{k}", float(v), state.step)
         run.step_ms.extend(epoch_ms)
-        logger.info(f"epoch {epoch}: {len(epoch_ms)} steps, median "
-                    f"{statistics.median(epoch_ms):.1f} ms/step")
-        if (epoch + 1) % args.ckpt_save_interval == 0 or epoch == args.epochs - 1:
-            path = save_checkpoint(ckpt_dir, model, state, epoch + 1)
+        if epoch_ms:
+            logger.info(f"epoch {epoch}: {len(epoch_ms)} steps, median "
+                        f"{statistics.median(epoch_ms):.1f} ms/step")
+        if mesh.member and ((epoch + 1) % args.ckpt_save_interval == 0
+                            or epoch == args.epochs - 1):
+            path = save_checkpoint(ckpt_dir, model, state, epoch + 1, mesh)
             run.checkpoints.append(path)
             logger.info(f"checkpoint saved: {path}")
         if val_loader is not None and epoch % args.eval_frequency == 0:
-            run.val.append(eval_epoch(epoch))
+            val = eval_epoch(epoch)
+            if val is not None:
+                run.val.append(val)
     if prof is not None:
         prof.__exit__(None, None, None)
     if tb:

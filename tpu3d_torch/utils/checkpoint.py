@@ -29,6 +29,7 @@ import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..weights import params_from_jax, params_to_jax
 from . import msgpack_io
@@ -236,14 +237,22 @@ def checkpoint_state(model: torch.nn.Module, state, epoch: int) -> dict:
 
 
 def save_checkpoint(ckpt_dir: str, model: torch.nn.Module, state,
-                    epoch: int) -> str:
-    os.makedirs(ckpt_dir, exist_ok=True)
+                    epoch: int, mesh=None) -> str:
+    """Write ``checkpoint_epoch_{epoch}.msgpack`` under ``ckpt_dir`` ->
+    its path. Over a data-parallel mesh (``parallel.Mesh`` with a group)
+    the parameters are replicated: the mesh's first rank writes, and every
+    rank of the mesh returns once the file is whole (a barrier)."""
     path = os.path.join(ckpt_dir, f"checkpoint_epoch_{epoch}.msgpack")
-    payload = msgpack_io.encode(checkpoint_state(model, state, epoch))
-    tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
-        f.write(payload)
-    os.replace(tmp, path)
+    group = None if mesh is None else mesh.group
+    if group is None or mesh.index == 0:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        payload = msgpack_io.encode(checkpoint_state(model, state, epoch))
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            f.write(payload)
+        os.replace(tmp, path)
+    if group is not None:
+        dist.barrier(group=group)
     return path
 
 
@@ -271,7 +280,9 @@ def _read(path: str) -> dict:
 
 def load_checkpoint(path: str, model: torch.nn.Module, state):
     """Full restore (params + optimizer + step) into ``model`` and
-    ``state``, in place; returns (state, epoch).
+    ``state``, in place; returns (state, epoch). Each rank of a
+    data-parallel mesh reads the file itself: a checkpoint holds no
+    sharding, so one written at one world size restores at any other.
 
     When the checkpoint's optimizer-state STRUCTURE no longer matches the
     current optimizer (the optax chain changed between releases — e.g. the

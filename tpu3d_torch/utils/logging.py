@@ -29,6 +29,15 @@ def create_logger(log_file: str | None = None, name: str = "tpu3d_torch"):
     return logger
 
 
+def null_logger(name: str = "tpu3d_torch.quiet"):
+    """A logger that writes nothing (the ranks of a data-parallel run other
+    than rank 0)."""
+    logger = logging.getLogger(name)
+    logger.propagate = False
+    logger.setLevel(logging.CRITICAL + 1)
+    return logger
+
+
 def create_tb_writer(log_dir: str):
     """torch tensorboard SummaryWriter (replaces tensorboardX); None if absent."""
     try:
