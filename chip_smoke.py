@@ -34,9 +34,12 @@ and no result line:
    pick (rows of 32 points, one warp argmax) times the level's picks; the
    training kernels the train step's (B=16: the interpolation's backward
    at the four FP levels, two calls equal to the bit and d_features equal
-   to the CPU plain version's to the bit, the fused SA op's training
-   forward and backward on the 1024 rows the proposal target layer
-   samples);
+   to the CPU plain version's to the bit, the grouping gather's backward
+   (group_points_bwd, no TPU kernel: the fixed-order repair of
+   torch.gather's scatter-add) at the RPN's six gathers, two calls equal
+   to the bit and equal to the CPU plain version's to the bit, beside
+   torch.gather's backward, the fused SA op's training forward and
+   backward on the 1024 rows the proposal target layer samples);
    configs/double.yaml's SA_0 at 32768 points: the train route's long-row
    FPS (fps_long) and standalone three_nn at B=16, the eval route's
    FPS+3NN at B=4, each bit for bit; three_nn at every level of the split
@@ -67,7 +70,10 @@ and no result line:
    twice per level: under the seeded routing (the plain forward's argmax;
    reached slots, tiles and TFLOP/s over the reached slots printed) and
    under full spread (every channel live at a slot drawn uniformly over S,
-   against its routed plain version, the bound over every slot). FPS's
+   against its routed plain version, the bound over every slot); under
+   each, two calls give the same bits in every gradient and d_pre equals
+   the CPU's fixed-order sum of the kernel's own reached rows (each
+   point's rows in ascending group·S + slot) to the bit. FPS's
    pick loop at every level it serves on each path (default, double,
    quickstart and smoke, eval and train): the geometry (k CTAs per
    cluster, threads, points per thread) it chooses and its neighbours,
@@ -137,10 +143,11 @@ and no result line:
    process): 32 synthetic KITTI frames and their GT database written by
    the port, default.yaml in joint mode at B=16 with GT augmentation and
    --train_with_eval, 2 epochs of 2 steps (TRAIN.SPLIT trainval), a
-   checkpoint each epoch; run twice unbroken, whose difference is the
-   card's noise floor, then resumed from the epoch-1 checkpoint: its
-   parameters and Adam moments within that floor, its step and epoch
-   equal, every loss finite; the first run's launches (every train-step
+   checkpoint each epoch; run twice unbroken, the two equal to the bit
+   in every parameter, statistic, Adam moment and loss, then resumed from
+   the epoch-1 checkpoint: its parameters, statistics, Adam moments and
+   last-epoch losses equal to the unbroken runs' to the bit, its step and
+   epoch equal, every loss finite; the first run's launches (every train-step
    kernel and the validation pass's fused_sa); the card-written checkpoint
    read back on the host to the same bytes; the CLI's ms/step fed by the
    loader, the loader's scenes/s alone, the validation pass's ms per batch
@@ -168,12 +175,11 @@ and no result line:
    group passed, so the gradients' all-reduce runs): default.yaml's train
    step at B=16 through the mesh and the sharded prefetch, with the same
    launches as the step without a group on the same batch and generator;
-   its all-reduce and broadcast leave the step's gradients, parameters
-   and statistics as they are, to the bit; the step equals the step
-   without a group to the bit on every tensor that 1 + DP_REPEATS steps
-   without a group leave equal, and on the tensors the card's float
-   atomics move from run to run, within 10 times their runs' spread; its
-   ms/step beside phase 5's; (b) dryrun_multichip
+   1 + DP_REPEATS steps without a group equal to the bit in every
+   parameter, statistic and Adam moment; the all-reduce and broadcast
+   leave the step's gradients, parameters and statistics as they are, to
+   the bit; the step equals the step without a group to the bit on every
+   tensor; its ms/step beside phase 5's; (b) dryrun_multichip
    under NCCL with more ranks than cards raises; dryrun_multichip(2) under
    gloo on the card (the kernels built by phase 2, loaded by the ranks);
    two gloo ranks on the card: default.yaml's step and the RCNN.USE_BN one
@@ -189,9 +195,22 @@ and no result line:
    at 1 to the bit; ms/step at each world, the gradients' all-reduce, the
    peak memory per rank and the phase's seconds, beside the card's name
    and power limit (not scaling figures: the ranks share one card);
-16. one JSON line of the kernels (each row with its launches per rank per
-   step at world 2, ``ddp_launches`` / ``ddp_bn_launches``), then the
-   result line.
+16. the paper's slice: the PointNet++ demo's main on the card
+   (--synthetic, one epoch), each train step launching PN_TRAIN and each
+   eval batch PN_EVAL exactly, losses and IoU finite; generate_aug_scene
+   over phase 13's frames and GT database (aug_times 1), read back
+   through the port's dataset (each pasted scene's label linked into
+   label_2, where the dataset reads it) and loader into a batch on the
+   card; statnorm_effect at 8 frames and 2 epochs on smoke.yaml, its CLIs
+   in subprocesses on the card, A_scaledto_B's car means within 0.01 m of
+   B's and three tables of finite APs; default_cyclist.yaml's class
+   (CLASSES Cyclist, the cyclist-sized anchor) on quickstart.yaml, one
+   joint train step at B=4 from multi-class frames on disk and one eval
+   batch, each with quickstart's launches;
+17. one JSON line of the kernels (each row with its launches per rank per
+   step at world 2, ``ddp_launches`` / ``ddp_bn_launches``, and per train
+   step / eval batch of the demo, ``pn_train_launches`` /
+   ``pn_eval_launches``), then the result line.
 
 Every phase prints its seconds. Needs one CUDA card; the kernels have no
 CPU mode. Imports nothing of JAX or of tpu3d.
@@ -254,7 +273,7 @@ SOURCES = {  # kernel: (source, the TPU kernel it replaces)
                            "tpu3d/ops/fused_sa.py:164"),
     "fused_sa_bn_stats2": ("tpu3d_torch/csrc/fused_sa_bn.cu",
                            "tpu3d/ops/fused_sa.py:171"),
-    "fused_sa_bn_final": ("tpu3d_torch/csrc/fused_sa.cu",
+    "fused_sa_bn_final": ("tpu3d_torch/csrc/fused_sa_bn.cu",
                           "tpu3d/ops/fused_sa.py:178"),
     "fused_sa_bn_wave1": ("tpu3d_torch/csrc/fused_sa_bn.cu",
                           "tpu3d/ops/fused_sa.py:255"),
@@ -262,6 +281,10 @@ SOURCES = {  # kernel: (source, the TPU kernel it replaces)
                           "tpu3d/ops/fused_sa.py:272"),
     "fused_sa_bn_apply": ("tpu3d_torch/csrc/fused_sa_bn.cu",
                           "tpu3d/ops/fused_sa.py:291"),
+    # no TPU kernel: the fixed-order backward of the grouping gather, where
+    # tpu3d's step takes XLA's VJP of its group_points
+    "group_points_bwd": ("tpu3d_torch/csrc/group_points_bwd.cu",
+                         "tpu3d/ops/grouping.py:481"),
 }
 # the BatchNorm chain's training kernels, in the order the step runs them
 BN_TRAIN_KERNELS = ("fused_sa_bn_stats0", "fused_sa_bn_stats1",
@@ -272,25 +295,36 @@ BN_TRAIN_KERNELS = ("fused_sa_bn_stats0", "fused_sa_bn_stats1",
 EVAL_KERNELS = ("fps3nn", "nearest_k", "three_interpolate", "fps", "fused_sa")
 TRAIN_KERNELS = ("fps3nn", "nearest_k", "three_interpolate",
                  "three_interpolate_bwd", "fps", "fused_sa_train",
-                 "fused_sa_bwd")
+                 "fused_sa_bwd", "group_points_bwd")
 RPN_TRAIN_KERNELS = ("fps3nn", "nearest_k", "three_interpolate",
-                     "three_interpolate_bwd")
+                     "three_interpolate_bwd", "group_points_bwd")
 DOUBLE_TRAIN_KERNELS = TRAIN_KERNELS + ("three_nn", "fps_long")
 # exact launches per forward or step of the new paths, every other count 0:
 # quickstart's RPN SA_3 (64 points) and smoke's SA_2-3 take the split route
 # (fps + three_nn), the RCNN's SA_0 (256 / 128 sources) the gather kernel,
 # its SA_1 (64 / 32 sources) the slab kernel; with BatchNorm both RCNN
-# levels take the slab kernel with BatchNorm packs
+# levels take the slab kernel with BatchNorm packs. In training the
+# grouping gather's backward runs at the RPN's SA_1-3 (one gather per
+# radius of each level; SA_0 groups coordinates alone) and at each RCNN
+# level on the slab route
 QUICK_EVAL = {"fps3nn": 3, "three_nn": 1, "fps": 3, "nearest_k": 6,
               "three_interpolate": 4, "fused_sa": 1, "fused_sa_slab": 1}
 QUICK_TRAIN = {"fps3nn": 3, "three_nn": 1, "fps": 3, "nearest_k": 6,
                "three_interpolate": 4, "three_interpolate_bwd": 4,
                "fused_sa_train": 1, "fused_sa_bwd": 1,
-               "fused_sa_slab_train": 1, "fused_sa_slab_bwd": 1}
+               "fused_sa_slab_train": 1, "fused_sa_slab_bwd": 1,
+               "group_points_bwd": 7}
 SMOKE_EVAL = dict(QUICK_EVAL, fps3nn=2, three_nn=2, fps=4)
 SMOKE_TRAIN = dict(QUICK_TRAIN, fps3nn=2, three_nn=2, fps=4)
 BN_EVAL = {"fps3nn": 4, "nearest_k": 6, "three_interpolate": 4, "fps": 2,
            "fused_sa_slab_bn": 2}
+# the PointNet++ demo (tools/pointnet2_demo.py, 1024 points, B=4): SA_0-1
+# on the fused FPS+3NN, SA_2-3 on the split route (64 and 32 points), a
+# search per level, an interpolation per FP level; per train step and per
+# eval batch
+PN_EVAL = {"fps3nn": 2, "fps": 2, "three_nn": 2, "nearest_k": 4,
+           "three_interpolate": 4}
+PN_TRAIN = dict(PN_EVAL, three_interpolate_bwd=4, group_points_bwd=6)
 # the paths the new kernels are timed and labelled at
 QUICK_PATH = {"eval": f"quickstart.yaml eval B={QUICK_EVAL_BATCH}",
               "train": f"quickstart.yaml train B={QUICK_TRAIN_BATCH}"}
@@ -1228,17 +1262,20 @@ def fused_train_kernels(report, full_spread, model, target):
     plain version's argmax (the seeded routing); then the backward again
     under full spread (every channel live at a slot drawn uniformly over S)
     against its routed plain version, its time summed per step into
-    ``full_spread``."""
+    ``full_spread``. Under both routings two calls give the same bits in
+    every gradient, and d_pre equals the CPU's fixed-order sum of the
+    kernel's own reached rows (``reached_rows_sum``: each point's rows in
+    ascending group·S + slot) bit for bit."""
     import torch
     import torch.nn.functional as F
 
-    from tpu3d_torch.ops import fused_gathered_mlp_pool, group_points
+    from tpu3d_torch.ops import fused_gathered_mlp_pool
     from tpu3d_torch.ops.fused_sa import (
         BWD_TILE, _bwd_blocks, block_runs, fused_gathered_mlp_pool_backward,
         fused_gathered_mlp_pool_backward_plain,
         fused_gathered_mlp_pool_backward_routed_plain,
         fused_gathered_mlp_pool_train, fused_gathered_mlp_pool_train_plain,
-        pack_tiles, reached_slots)
+        pack_tiles, reached_rows_sum, reached_slots)
 
     net = model.rcnn_net
     xyz, rest = target["sampled_pts"], target["pts_feature"]
@@ -1281,7 +1318,7 @@ def fused_train_kernels(report, full_spread, model, target):
             leaves = [t.detach().requires_grad_() for t in
                       (pre, center, mlp.dense_1.weight, b1,
                        mlp.dense_2.weight, b2)]
-            x = torch.relu(group_points(leaves[0], idx)
+            x = torch.relu(torch_group(leaves[0], idx)
                            - leaves[1][:, :, None])
             x = torch.relu(F.linear(x, leaves[2], leaves[3]))
             return torch.relu(F.linear(x, leaves[4], leaves[5])).amax(2)
@@ -1304,7 +1341,8 @@ def fused_train_kernels(report, full_spread, model, target):
 
         # the backward, routed by the plain version's argmax on both sides
         grad = torch.randn(out.shape, generator=gen).to(out.device)
-        got = fused_gathered_mlp_pool_backward(*args, grad, r_arg, r_ppre)
+        got = fixed_order_backward(args, grad, r_arg, r_ppre,
+                                   f"RCNN SA_{k}, seeded routing")
         ref = fused_gathered_mlp_pool_backward_plain(*args, grad)
         torch.cuda.synchronize()
         berr = 0.0
@@ -1327,7 +1365,7 @@ def fused_train_kernels(report, full_spread, model, target):
             leaves = [t.detach().requires_grad_() for t in
                       (pre, center, mlp.dense_1.weight, b1,
                        mlp.dense_2.weight, b2)]
-            x = torch.relu(group_points(leaves[0], idx)
+            x = torch.relu(torch_group(leaves[0], idx)
                            - leaves[1][:, :, None])
             x = torch.relu(F.linear(x, leaves[2], leaves[3]))
             o = torch.relu(F.linear(x, leaves[4], leaves[5])).amax(2)
@@ -1362,7 +1400,8 @@ def fused_train_kernels(report, full_spread, model, target):
         full_arg = torch.randint(0, S, r_arg.shape, generator=cuda_gen,
                                  device=r_arg.device, dtype=torch.int32)
         ones = torch.ones_like(r_ppre)
-        got = fused_gathered_mlp_pool_backward(*args, grad, full_arg, ones)
+        got = fixed_order_backward(args, grad, full_arg, ones,
+                                   f"RCNN SA_{k}, full spread")
         ref = fused_gathered_mlp_pool_backward_routed_plain(*args, grad,
                                                             full_arg, ones)
         torch.cuda.synchronize()
@@ -1548,8 +1587,7 @@ def compare_train_on_cpu(cfg, model, target, batch, rpn=True,
     every weight by about one float32 rounding makes on the CPU (plus
     1e-5 of the largest gradient), the largest change over ``NUDGES``
     independent perturbations, each printed, and the margin to that bound.
-    (The weights are the card model's after its timed steps, which the
-    card's atomics move by a rounding from run to run, and one
+    (The weights are the card model's after its timed steps, and one
     perturbation's change swings with them.) The perturbation moves no FPS
     pick nor neighbour, which depend on the coordinates alone. ``rpn``
     False leaves out the RPN half. ``rcnn_floor`` holds the RCNN's loss and
@@ -2684,6 +2722,105 @@ CLI_LONG_FRAMES = 160  # one epoch of 10 steps: the pace past the first
 CLI_KERNELS = TRAIN_KERNELS + ("fused_sa",)
 
 
+def torch_group(features, idx):
+    """torch.gather's grouping, its backward the library's scatter-add:
+    what the library chains are timed with."""
+    import torch
+
+    B, M, S = idx.shape
+    flat = idx.reshape(B, M * S).long()[..., None]
+    return torch.gather(features, 1, flat.expand(-1, -1, features.shape[-1])
+                        ).reshape(B, M, S, features.shape[-1])
+
+
+def fixed_order_backward(args, grad, arg, ppre, label):
+    """The gather form's backward twice: the same bits in every gradient,
+    and d_pre equal to the CPU's fixed-order sum of the kernel's reached
+    rows bit for bit -> the first call's gradients."""
+    import torch
+
+    from tpu3d_torch.ops.fused_sa import (fused_gathered_mlp_pool_backward,
+                                          reached_rows_sum)
+
+    rows = []
+    got = fused_gathered_mlp_pool_backward(*args, grad, arg, ppre,
+                                           rows_out=rows)
+    again = fused_gathered_mlp_pool_backward(*args, grad, arg, ppre)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"fused_sa_bwd differs between two calls at {label}")
+    pre, idx = args[0], args[1]
+    dval = torch.where(ppre > 0, grad, 0.0)
+    want = reached_rows_sum(tuple(pre.shape), idx.cpu(), dval.cpu(),
+                            arg.cpu(), rows[0].cpu())
+    check(torch.equal(got[0].cpu(), want), f"fused_sa_bwd d_pre differs "
+          f"from the CPU's fixed-order sum of its {rows[0].shape[0]} "
+          f"reached rows at {label}")
+    print(f"  fused_sa_bwd {label}: two calls equal; d_pre equal to the "
+          f"CPU's fixed-order sum of the kernel's {rows[0].shape[0]} reached "
+          f"rows, to the bit")
+    return got
+
+
+def group_bwd_kernels(report, model, batch):
+    """Phase 3 for the grouping gather's backward (group_points_bwd), at
+    each call of the train step (B=16; the RPN's SA_1-3, a gather per
+    radius; features and ids recorded from a train-mode forward): two calls
+    give the same bits and equal the CPU plain version (index_add_ in
+    ascending m·S + s) bit for bit; its time beside the plain version on
+    the card and torch.gather's backward (scatter_add_, the library op it
+    replaces)."""
+    import torch
+
+    from tpu3d_torch.models import pointnet2
+    from tpu3d_torch.ops.grouping import (group_points_backward,
+                                          group_points_backward_plain)
+
+    calls, group_points = [], pointnet2.group_points
+
+    def recorded(features, idx):
+        calls.append((tuple(features.shape), idx.clone()))
+        return group_points(features, idx)
+
+    pointnet2.group_points = recorded
+    kept = {k: v.clone() for k, v in model.state_dict().items()}
+    try:
+        with torch.no_grad():
+            model(batch, train=True, bn_momentum=0.9,
+                  generator=torch.Generator(device=DEVICE).manual_seed(
+                      SEED + 16))
+    finally:
+        pointnet2.group_points = group_points
+        model.load_state_dict(kept)  # the forward moved the statistics
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 16)
+    for (B, N, C), idx in calls:
+        M, S = idx.shape[1], idx.shape[2]
+        grad = torch.randn(B, M, S, C, generator=gen).to(idx.device)
+        got = group_points_backward(grad, idx, N)
+        check(torch.equal(got, group_points_backward(grad, idx, N)),
+              f"group_points_bwd differs between two calls at {idx.shape}")
+        check(torch.equal(got.cpu(), group_points_backward_plain(
+            grad.cpu(), idx.cpu(), N)), f"group_points_bwd differs from the "
+              f"CPU plain version at {idx.shape}")
+        ms = cuda_ms(lambda: group_points_backward(grad, idx, N), 10)
+        pms = cuda_ms(lambda: group_points_backward_plain(grad, idx, N), 5)
+        flat = idx.reshape(B, -1).long()[..., None].expand(-1, -1, C)
+        rows = grad.reshape(B, -1, C)
+        lms = cuda_ms(lambda: torch.zeros(B, N, C, device=DEVICE)
+                      .scatter_add_(1, flat, rows), 5)
+        # read the gradient rows and the ids once, write d_features once; an
+        # add per gradient element
+        nbytes = 4 * (grad.numel() + idx.numel() + B * N * C)
+        report.add("group_points_bwd", 0.0, ms, pms, lms, nbytes,
+                   grad.numel())
+        print(f"group_points_bwd ({B}, {N}, {C}) by {tuple(idx.shape)}: "
+              f"{ms:.4f} ms, plain {pms:.3f} ms, torch.gather's backward "
+              f"{lms:.4f} ms, bound {bound_ms(nbytes, grad.numel())[0]:.4f} "
+              f"ms; two calls equal, equal to the CPU's")
+        del grad, flat, rows
+    check(len(calls) == 6, f"the train step grouped {len(calls)} times, "
+          f"expected 6 (RPN SA_1-3, two radii each)")
+
+
 def _run_tensors(run):
     """A finished CLI run's parameters and statistics, and its Adam
     moments, on the host, by state_dict key; the run's model and optimizer
@@ -2699,9 +2836,11 @@ def _run_tensors(run):
     return out
 
 
-def _max_diff(a: dict, b: dict) -> float:
-    return max(float((a[k].double() - b[k].double()).abs().max())
-               for k in a)
+def _unequal(a: dict, b: dict) -> list:
+    """The keys whose tensors are not equal to the bit."""
+    import torch
+
+    return sorted(k for k in a if not torch.equal(a[k], b[k]))
 
 
 def training_cli(card: str) -> tuple[dict, dict]:
@@ -2710,11 +2849,12 @@ def training_cli(card: str) -> tuple[dict, dict]:
     database from generate_gt_database; configs/default.yaml in joint mode
     at B=16 with GT augmentation, TRAIN.SPLIT trainval (2 steps an epoch),
     --train_with_eval (the smallval split, B=2), 2 epochs with a checkpoint
-    after each. Run twice unbroken (the card's noise floor between two
-    identical runs), then resumed with --ckpt from the first run's epoch-1
-    checkpoint for the last epoch: its parameters and Adam moments must lie
-    within the floor of the first run's, its step and epoch equal them,
-    every loss finite. The first run counts its launches (every kernel of
+    after each. Run twice unbroken, then resumed with --ckpt from the first run's epoch-1
+    checkpoint for the last epoch. The two unbroken runs must be equal to
+    the bit in every parameter, statistic and Adam moment and in every
+    loss; the resumed run equal to them to the bit in its parameters,
+    statistics, moments and the last epoch's losses, its step and epoch
+    equal, every loss finite. The first run counts its launches (every kernel of
     CLI_KERNELS at least once). The card-written checkpoint must read back
     on the host through msgpack_io to the same bytes, and load into a CPU
     model that saves it again to the same bytes. Prints the CLI's ms/step
@@ -2792,13 +2932,17 @@ def training_cli(card: str) -> tuple[dict, dict]:
           f"steps {steps}, epochs {epochs}")
     resume = {}
     for key in ("params", "exp_avg", "exp_avg_sq"):
-        floor = _max_diff(tensors["a"][key], tensors["b"][key])
-        got = _max_diff(tensors["a"][key], tensors["c"][key])
-        resume[key] = {"resumed_max_abs_diff": got,
-                       "noise_floor_max_abs_diff": floor}
-        check(got <= floor, f"the resumed run's {key} differ from the "
-              f"unbroken run's by {got}, above the floor of two unbroken "
-              f"runs, {floor}")
+        unbroken = _unequal(tensors["a"][key], tensors["b"][key])
+        resumed = _unequal(tensors["a"][key], tensors["c"][key])
+        resume[key] = {"tensors": len(tensors["a"][key]),
+                       "unbroken_runs_unequal": unbroken,
+                       "resumed_unequal": resumed}
+        check(not unbroken, f"two unbroken training-CLI runs differ in "
+              f"{len(unbroken)} {key} tensors, e.g. {unbroken[:3]}")
+        check(not resumed, f"the resumed run differs from the unbroken run "
+              f"in {len(resumed)} {key} tensors, e.g. {resumed[:3]}")
+    check(losses["a"] == losses["b"] and losses["c"] == losses["a"][spe:],
+          f"the runs' losses differ: {losses}")
 
     # the card-written checkpoint, read back on the host
     raw = Path(ckpt_path).read_bytes()
@@ -3121,7 +3265,7 @@ DP_WORLD = 2  # gloo ranks sharing the one card
 DP_EVAL_BATCH = 8  # the eval CLI's default --batch_size
 DP_STEP_SEED = SEED + 15  # the data-parallel phase's step generator
 DP_CFG = "default.yaml"
-DP_REPEATS = 3  # more one-process steps, for the card's run-to-run noise
+DP_REPEATS = 3  # more one-process steps, each held equal to the first
 
 
 def _sync(dev) -> None:
@@ -3360,27 +3504,26 @@ def data_parallel(card: str, step5_ms: float, expect_launches: dict,
     host = train_batch(TRAIN_BATCH, cfg.RPN.NUM_POINTS, SEED)
     batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
 
-    # (a) the one-process step, DP_REPEATS times more: float atomics on the
-    # card (the scatter-add of torch.gather's backward, the fused SA
-    # backward's) move some gradients by a rounding from run to run, which
-    # Adam's first step shows where a gradient is near its eps; then the
-    # same step over an NCCL world of 1
+    # (a) the one-process step, DP_REPEATS times more, each equal to the
+    # first to the bit (every sum on the step's path runs in a fixed
+    # order); then the same step over an NCCL world of 1
     runs = []
     for _ in range(1 + DP_REPEATS):
         model = _dp_model(cfg, dev)
         _, _, one_launches, _, grads = _dp_step(cfg, model, batch)
         if not runs:
             ref_parts = _dp_parts(model, grads)
-        runs.append(_host_state(model))
+        runs.append({**_host_state(model),
+                     **{f"grad {k}": v for k, v in grads.items()}})
         del model
         check(one_launches == expect_launches,
               f"the one-process step launched {one_launches}, phase 5's "
               f"step {expect_launches}")
     ref = runs[0]
-    noisy = sorted({k for r in runs[1:] for k in ref
-                    if not torch.equal(r[k], ref[k])})
-    noise = max([(r[k] - ref[k]).abs().max().item() for r in runs[1:]
-                 for k in noisy] or [0.0])
+    for i, r in enumerate(runs[1:]):
+        off = _unequal(ref, r)
+        check(not off, f"one-process step {i + 2} differs from the first in "
+              f"{len(off)} of {len(ref)} tensors, e.g. {off[:3]}")
     figures = {"card": card}
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         init_distributed(dev, None, dist.FileStore(
@@ -3393,9 +3536,10 @@ def data_parallel(card: str, step5_ms: float, expect_launches: dict,
             rows = {k: v[mesh.rows(TRAIN_BATCH)] for k, v in host.items()}
             nbatch = next(iter(device_prefetch([rows], device=dev)))
             model = _dp_model(cfg, dev)
-            state, step, launches, _, _ = _dp_step(cfg, model, nbatch,
-                                                   mesh)
-            got = _host_state(model)
+            state, step, launches, _, wgrads = _dp_step(cfg, model, nbatch,
+                                                        mesh)
+            got = {**_host_state(model),
+                   **{f"grad {k}": v for k, v in wgrads.items()}}
             check(launches == one_launches,
                   f"{backend} world 1 launched {launches}, {one_launches} "
                   f"alone")
@@ -3411,30 +3555,21 @@ def data_parallel(card: str, step5_ms: float, expect_launches: dict,
                           _host_state(model).items()),
                   f"the all-reduce or broadcast over a {backend} world of 1 "
                   "changed a tensor")
-            off = [k for k in ref if k not in noisy
-                   and not torch.equal(got[k], ref[k])]
-            check(not off, f"{backend} world 1: {len(off)} tensors differ "
-                  f"from the step without a group where its runs agree, "
-                  f"e.g. {off[:3]}")
-            err = max([(got[k] - ref[k]).abs().max().item() for k in noisy]
-                      or [0.0])
-            check(err <= 10 * noise, f"{backend} world 1: {err:.3e} off the "
-                  f"step without a group on the tensors its runs move, "
-                  f"whose runs differ by up to {noise:.3e}")
+            off = _unequal(ref, got)
+            check(not off, f"{backend} world 1: {len(off)} of {len(ref)} "
+                  f"tensors differ from the step without a group, e.g. "
+                  f"{off[:3]}")
             figures["nccl_world1_ms"] = _timed_steps(step, state, nbatch)
-            figures["nccl_world1_noisy"] = {"tensors": noisy, "err": err,
-                                            "run_to_run": noise}
+            figures["one_process_repeats"] = DP_REPEATS
             del model, state, step, grads
         finally:
             dist.destroy_process_group()
     torch.cuda.empty_cache()
-    print(f"data-parallel (a), {card}: the {backend} world-1 train step's "
-          f"gradient all-reduce and broadcast leave every tensor as it is, "
-          f"to the bit; the step equals the step without a group to the bit "
-          f"on the {len(ref) - len(noisy)} of {len(ref)} tensors that "
-          f"{1 + DP_REPEATS} steps without a group leave equal; on the "
-          f"{len(noisy)} they move (the card's float atomics: {noisy}) it is "
-          f"{err:.3e} off, their runs up to {noise:.3e} apart; the same "
+    print(f"data-parallel (a), {card}: {1 + DP_REPEATS} steps without a "
+          f"group equal to the bit in all {len(ref)} tensors; the {backend} "
+          f"world-1 train step's gradient all-reduce and broadcast leave "
+          f"every tensor as it is, to the bit; the step equals the step "
+          f"without a group to the bit in all {len(ref)} tensors; the same "
           f"launches {one_launches}; {figures['nccl_world1_ms']:.1f} ms/step "
           f"(host clock, median of 3) beside phase 5's {step5_ms:.1f}")
 
@@ -3561,6 +3696,232 @@ def data_parallel(card: str, step5_ms: float, expect_launches: dict,
           f"GiB; dryrun_multichip({DP_WORLD}) {figures['dryrun']['s']:.1f} "
           f"s, the ranks' run {figures['ranks_s']:.1f} s; phase "
           f"{figures['s']:.1f} s")
+    return figures
+
+PN_FRAMES = 8  # the demo's --synthetic dataset
+STUDY_FRAMES = 8  # statnorm_effect at a smoke scale
+STUDY_EPOCHS = 2
+CYCLIST_FRAMES = 16
+CYCLIST_BATCH = 4  # the study's --batch_size
+
+
+def _counting(fn, into):
+    """``fn`` wrapped so that each call appends (the launches it made, its
+    result) to ``into``."""
+    from tpu3d_torch.ops import _build
+
+    def counted(*a, **k):
+        before = dict(_build.LAUNCHES)
+        out = fn(*a, **k)
+        into.append(({n: c - before[n] for n, c in _build.LAUNCHES.items()
+                      if c != before[n]}, out))
+        return out
+
+    return counted
+
+
+def paper_slice(card: str) -> dict:
+    """Phase 16: the slice of the paper's experiment. (a) The PointNet++
+    demo's main on the card (--synthetic, one epoch), the launches of each
+    of its train steps and eval batches exactly PN_TRAIN / PN_EVAL, its
+    losses and IoU finite; (b) generate_aug_scene over phase 13's frames
+    and GT database (aug_times 1), its files read back through the port's
+    dataset and loader (with each pasted scene's label linked into label_2,
+    where tpu3d's dataset reads it) into a batch on the card; (c)
+    statnorm_effect at a smoke scale (STUDY_FRAMES frames, STUDY_EPOCHS
+    epochs, smoke.yaml), its CLIs in subprocesses on the card:
+    A_scaledto_B's car means within 0.01 m of B's, three AP tables of
+    finite values; (d) configs/default_cyclist.yaml's class (CLASSES
+    Cyclist, the cyclist-sized anchor) on quickstart.yaml: one joint train
+    step at B=4 on multi-class frames from disk and one eval batch. ->
+    the phase's figures."""
+    import pickle
+    import shutil
+
+    import torch
+
+    from tpu3d_torch.config import cfg_from_file, cfg_from_list, fresh_cfg
+    from tpu3d_torch.datasets import (BatchLoader, KittiRCNNDataset,
+                                      create_synthetic_kitti, device_prefetch)
+    from tpu3d_torch.models import PointRCNN
+    from tpu3d_torch.ops import _build
+    from tpu3d_torch.parallel import create_train_state, make_train_step
+    from tpu3d_torch.studies import multiclass_cyclist
+    from tpu3d_torch.studies import statnorm_effect
+    from tpu3d_torch.tools import pointnet2_demo as pn
+    from tpu3d_torch.tools.eval_rcnn import make_infer_step
+    from tpu3d_torch.tools.generate_aug_scene import AugSceneGenerator
+    from tpu3d_torch.tools.train_rcnn import BATCH_KEYS
+    work = ROOT / "build" / "paper_slice"
+    shutil.rmtree(work, ignore_errors=True)
+    figures = {"card": card}
+
+    # (a) the PointNet++ demo, each train step's and eval batch's launches
+    steps, evals = [], []
+    make, iou = pn.make_train_step, pn.fg_iou
+    pn.make_train_step = lambda model, opt: _counting(make(model, opt), steps)
+    pn.fg_iou = _counting(iou, evals)
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    try:
+        demo_iou = pn.main(["--synthetic", "--epochs", "1", "--output_dir",
+                            str(work / "pointnet2_demo"), "--device",
+                            DEVICE])
+    finally:
+        pn.make_train_step, pn.fg_iou = make, iou
+    demo_s = time.perf_counter() - t0
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    check(steps and evals, f"the demo ran {len(steps)} train steps and "
+          f"{len(evals)} eval batches")
+    for got, _ in steps:
+        check(got == PN_TRAIN, f"a demo train step launched {got}, "
+              f"expected {PN_TRAIN}")
+    for got, _ in evals:
+        check(got == PN_EVAL, f"a demo eval batch launched {got}, expected "
+              f"{PN_EVAL}")
+    losses = [float(loss) for _, loss in steps]
+    check(all(math.isfinite(x) for x in losses) and math.isfinite(demo_iou)
+          and 0.0 <= demo_iou <= 1.0, f"demo losses {losses}, IoU {demo_iou}")
+    figures["pointnet2_demo"] = {
+        "s": demo_s, "train_steps": len(steps), "eval_batches": len(evals),
+        "losses": losses, "fg_iou": demo_iou, "launches": launches,
+        "per_train_step": PN_TRAIN, "per_eval_batch": PN_EVAL}
+    print(f"PointNet++ demo on the card ({PN_FRAMES} synthetic frames, one "
+          f"epoch, B=4, 1024 points): {len(steps)} train steps, "
+          f"{len(evals)} eval batches in {demo_s:.1f} s, losses {losses}, "
+          f"foreground IoU {demo_iou:.4f}; launches per train step "
+          f"{PN_TRAIN}, per eval batch {PN_EVAL}, in all {launches}")
+
+    # (b) offline GT augmentation over phase 13's frames and database
+    cli = ROOT / "build" / "cli_smoke"
+    data = cli / "data"
+    with open(next((cli / "gt_database").glob("*.pkl")), "rb") as f:
+        db = pickle.load(f)
+    t0 = time.perf_counter()
+    save = work / "aug_scene"
+    split_file = AugSceneGenerator(str(data), db, split="train").\
+        generate_aug_scene(str(save), aug_times=1)
+    aug_s = time.perf_counter() - t0
+    ids = Path(split_file).read_text().split("\n")
+    pasted = [i for i in ids if int(i) >= 400000]
+    check(len(pasted) * 2 == len(ids), f"{len(ids)} ids in {split_file}, "
+          f"{len(pasted)} of them augmented")
+    # a root that reads them: the frames, aug_scene/training, the split
+    # list, and label_2 holding every frame's label and each pasted scene's
+    root = work / "aug_root" / "KITTI"
+    training = root / "object" / "training"
+    (training / "label_2").mkdir(parents=True)
+    (root / "aug_scene").mkdir()
+    (root / "ImageSets").mkdir()
+    src = data / "KITTI" / "object" / "training"
+    for sub in src.iterdir():
+        if sub.name != "label_2":
+            (training / sub.name).symlink_to(sub)
+    for f in (src / "label_2").iterdir():
+        (training / "label_2" / f.name).symlink_to(f)
+    for i in pasted:
+        (training / "label_2" / f"{i}.txt").symlink_to(
+            save / "aug_label" / f"{i}.txt")
+    (root / "aug_scene" / "training").symlink_to(save)
+    (root / "ImageSets" / "train_aug.txt").symlink_to(split_file)
+    cfg = cfg_from_file(str(ROOT / "configs" / CLI_CFG), fresh_cfg())
+    cfg.GT_AUG_ENABLED = False
+    ds = KittiRCNNDataset(root_dir=str(root.parent), npoints=cfg.RPN.NUM_POINTS,
+                          split="train_aug", mode="TRAIN", cfg=cfg)
+    check(sorted(ds.sample_id_list) == sorted(int(i) for i in ids),
+          "the dataset does not list every augmented scene")
+    more = sum(len(ds.get_label(int(i))) > len(ds.get_label(int(i) % 400000))
+               for i in pasted)
+    check(more > 0, "no augmented scene holds more objects than its frame")
+    batch = next(iter(device_prefetch(BatchLoader(ds, TRAIN_BATCH,
+                                                  drop_last=True),
+                                      keys=BATCH_KEYS, device=DEVICE)))
+    check(batch["pts_input"].shape == (TRAIN_BATCH, cfg.RPN.NUM_POINTS, 3)
+          and bool(torch.isfinite(batch["pts_input"]).all())
+          and batch["pts_input"].device.type == DEVICE,
+          "the augmented batch on the card")
+    figures["aug_scene"] = {"s": aug_s, "scenes": len(ids),
+                            "augmented": len(pasted),
+                            "with_more_objects": more}
+    print(f"generate_aug_scene over phase 13's {len(ids) - len(pasted)} "
+          f"train frames (aug_times 1): {len(pasted)} augmented scenes in "
+          f"{aug_s:.1f} s, {more} of them with pasted objects; read back "
+          f"through KittiRCNNDataset (their labels linked into label_2) and "
+          f"BatchLoader into a batch of {TRAIN_BATCH} on the card")
+
+    # (c) statnorm_effect at a smoke scale, its CLIs on the card
+    t0 = time.perf_counter()
+    summary = statnorm_effect.main([
+        "--out", str(work / "statnorm_effect"), "--frames",
+        str(STUDY_FRAMES), "--epochs", str(STUDY_EPOCHS), "--cfg",
+        str(ROOT / "configs" / "smoke.yaml"), "--device", DEVICE])
+    study_s = time.perf_counter() - t0
+    a2b, b = summary["stats"]["A_scaledto_B"], summary["stats"]["B"]
+    off = {k: abs(a2b[k]["mean"] - b[k]["mean"]) for k in a2b}
+    check(max(off.values()) <= 0.01, f"A_scaledto_B's car means off B's by "
+          f"{off}")
+    check(len(summary["results"]) == 3 and all(
+        math.isfinite(v) for r in summary["results"].values()
+        for v in r.values()), f"statnorm_effect tables {summary['results']}")
+    figures["statnorm_effect_smoke"] = {"s": study_s, "mean_off_m": off,
+                                        **summary}
+    print(f"statnorm_effect at {STUDY_FRAMES} frames, {STUDY_EPOCHS} "
+          f"epochs, smoke.yaml, on the card: {study_s:.1f} s; A_scaledto_B's "
+          f"car means off B's by {off} m; tables {summary['results']}")
+
+    # (d) default_cyclist.yaml's class on quickstart.yaml
+    t0 = time.perf_counter()
+    croot = str(work / "cyclist")
+    create_synthetic_kitti(croot, n_frames=CYCLIST_FRAMES, seed=21,
+                           image_files=True,
+                           extra_classes=("Pedestrian", "Cyclist"))
+    ccfg = cfg_from_list(multiclass_cyclist.overrides("Cyclist", True),
+                         cfg_from_file(str(ROOT / "configs" /
+                                           "quickstart.yaml"), fresh_cfg()))
+    cds = KittiRCNNDataset(root_dir=croot, npoints=ccfg.RPN.NUM_POINTS,
+                           split="train", mode="TRAIN", classes=ccfg.CLASSES,
+                           cfg=ccfg)
+    cbatch = next(iter(device_prefetch(BatchLoader(
+        cds, CYCLIST_BATCH, shuffle=True, drop_last=True), keys=BATCH_KEYS,
+        device=DEVICE)))
+    check(bool((cbatch["gt_boxes3d"].abs().sum(-1) > 0).any()),
+          "the Cyclist batch holds no cyclist")
+    tmodel = PointRCNN(ccfg, mode="TRAIN", device=DEVICE)
+    tmodel.load_state_dict(train_weights(tmodel, SEED))
+    state = create_train_state(ccfg, tmodel, 1, 1)
+    _build.reset_launches()
+    tb = make_train_step(ccfg, tmodel)(
+        state, cbatch, torch.Generator(device=DEVICE).manual_seed(SEED), 0.9)
+    _sync(torch.device(DEVICE))
+    train_l = {k: v for k, v in _build.LAUNCHES.items() if v}
+    check(train_l == QUICK_TRAIN, f"the Cyclist train step launched "
+          f"{train_l}, quickstart's step {QUICK_TRAIN}")
+    check(math.isfinite(float(tb["loss"])) and
+          math.isfinite(float(tb["grad_norm"])), f"Cyclist step {tb}")
+    emodel = PointRCNN(ccfg, mode="TEST", device=DEVICE)
+    emodel.load_state_dict({k: v for k, v in tmodel.state_dict().items()})
+    _build.reset_launches()
+    with torch.no_grad():
+        out = make_infer_step(emodel, ccfg)(cbatch["pts_input"])
+    _sync(torch.device(DEVICE))
+    eval_l = {k: v for k, v in _build.LAUNCHES.items() if v}
+    check(eval_l == QUICK_EVAL, f"the Cyclist eval batch launched {eval_l}, "
+          f"quickstart's {QUICK_EVAL}")
+    check(bool(torch.isfinite(out["final_boxes"]).all()),
+          "the Cyclist eval batch's boxes")
+    cyc_s = time.perf_counter() - t0
+    figures["cyclist"] = {"s": cyc_s, "loss": float(tb["loss"]),
+                          "rcnn_loss": float(tb["rcnn_loss"]),
+                          "final_boxes": int(out["final_mask"].sum())}
+    print(f"default_cyclist.yaml's class on quickstart.yaml (CLASSES "
+          f"{ccfg.CLASSES}, CLS_MEAN_SIZE {ccfg.CLS_MEAN_SIZE}): a joint "
+          f"train step at B={CYCLIST_BATCH} from disk, loss "
+          f"{float(tb['loss']):.4f}, and an eval batch, "
+          f"{figures['cyclist']['final_boxes']} final boxes, the "
+          f"quickstart launches; {cyc_s:.1f} s")
+    del tmodel, emodel, state
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
     return figures
 
 
@@ -3727,6 +4088,7 @@ def main() -> int:
     del eval_nk, train_nk
     torch.cuda.empty_cache()
     interp_bwd_kernels(report, cfg, tbatch["pts_input"])
+    group_bwd_kernels(report, train_model, tbatch)
     full_spread = {}
     fused_train_kernels(report, full_spread, train_model, target)
     torch.cuda.empty_cache()
@@ -4010,6 +4372,8 @@ def main() -> int:
     bn_train = {k: v for k, v in train_launches.items()
                 if v and k not in ("fused_sa_train", "fused_sa_bwd")}
     bn_train.update({k: 2 for k in BN_TRAIN_KERNELS})
+    # the two slab levels group their slabs with the gather
+    bn_train["group_points_bwd"] += 2
     torch.cuda.reset_peak_memory_stats()
     btb, btrain_launches, bstep_ms = drive_train(
         bcfg, btrain_model, btbatch, bgen, tuple(bn_train),
@@ -4054,7 +4418,12 @@ def main() -> int:
                        {k: v for k, v in btrain_launches.items() if v})
     phases.done("15 (data-parallel mesh)")
 
-    # 16. kernels line and result line: launches from the path each kernel
+    # 16. the paper's slice: the PointNet++ demo, offline augmentation, the
+    # statistical-normalization study at a smoke scale, the Cyclist class
+    paper = paper_slice(smi[0])
+    phases.done("16 (PointNet++ demo, aug scenes, statnorm study, Cyclist)")
+
+    # 17. kernels line and result line: launches from the path each kernel
     # was timed at (per forward or per train step), and on the other paths
     runs = {"default.yaml eval B=2": launches,
             "default.yaml train B=16": train_launches,
@@ -4090,7 +4459,12 @@ def main() -> int:
             "offline_launches": offline_launches[name],
             "ddp_launches": dp["ddp_launches"].get(name, 0),
             "ddp_bn_launches": dp["ddp_bn_launches"].get(name, 0),
-            **report.row(name), "status": "ported"}
+            "pn_train_launches": PN_TRAIN.get(name, 0),
+            "pn_eval_launches": PN_EVAL.get(name, 0),
+            **report.row(name),
+            "status": ("ported" if name != "group_points_bwd" else
+                       "no TPU kernel: the fixed-order repair of "
+                       "torch.gather's backward")}
         # the same kernel at another path's shapes: double.yaml's SA_0, the
         # smoke slab, the train step's shapes of the eval kernels, and the
         # dense box at the eval shapes (launches of the path it stands for)
@@ -4124,7 +4498,7 @@ def main() -> int:
             **{f"RCNN SA_{k}": ms for k, ms in bn_library.items()}},
         "bn_train_step": {"path": BN_TRAIN_PATH, "ms": bstep_ms,
                           "peak_gib": bpeak},
-        "training_cli": cli, "eval_cli": ecli,
+        "training_cli": cli, "eval_cli": ecli, "paper_slice": paper,
         "data_parallel": {k: v for k, v in dp.items() if not k.startswith(
             "ddp_")},
         "widened_shapes": {"shapes": WIDE_SHAPES,

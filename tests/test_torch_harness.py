@@ -58,7 +58,16 @@ def test_port_imports_no_jax_and_no_tpu3d():
             "tpu3d_torch.tools.train_rcnn", "tpu3d_torch.tools.eval_rcnn",
             "tpu3d_torch.evaluate.ap", "tpu3d_torch.evaluate.evaluate",
             "tpu3d_torch.evaluate.native",
-            "tpu3d_torch.evaluate.overlaps"} <= have
+            "tpu3d_torch.evaluate.overlaps", "tpu3d_torch.config.paths",
+            "tpu3d_torch.stat_norm.stat", "tpu3d_torch.stat_norm.norm",
+            "tpu3d_torch.stat_norm.visualize",
+            "tpu3d_torch.studies.statnorm_effect",
+            "tpu3d_torch.studies.multiclass_cyclist",
+            "tpu3d_torch.studies.domain_matrix",
+            "tpu3d_torch.tools.generate_aug_scene",
+            "tpu3d_torch.tools.generate_multi_data",
+            "tpu3d_torch.tools.pointnet2_demo",
+            "tpu3d_torch.tools.probe_determinism"} <= have
 
 
 def test_entry_point_defaults_to_cuda():
@@ -128,7 +137,8 @@ def test_plain_versions_count_no_launches():
         "fps_long", "fused_sa_slab", "fused_sa_slab_bn",
         "fused_sa_slab_train", "fused_sa_slab_bwd", "fused_sa_bn_stats0",
         "fused_sa_bn_stats1", "fused_sa_bn_stats2", "fused_sa_bn_final",
-        "fused_sa_bn_wave1", "fused_sa_bn_wave2", "fused_sa_bn_apply"}
+        "fused_sa_bn_wave1", "fused_sa_bn_wave2", "fused_sa_bn_apply",
+        "group_points_bwd"}
     assert not any(_build.LAUNCHES.values()), _build.LAUNCHES
 
 

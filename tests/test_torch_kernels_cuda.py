@@ -778,3 +778,75 @@ def test_slab_groups_on_cuda(s):
                 first = train
             for a, b in zip(train, first):
                 torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+# the grouping gather's shapes on the train step's paths: (B, N, M, S, C)
+# at default.yaml's RPN SA_0 (two radii share one search, 32 slots), SA_1
+# and SA_3, the RCNN's plain route, a row of repeated pads, and C not a
+# multiple of 4 (the scalar form)
+GROUP_BWD = {"RPN SA_0": (16, 16384, 4096, 32, 64),
+             "RPN SA_1": (16, 4096, 1024, 32, 128),
+             "RPN SA_3": (16, 256, 64, 32, 256),
+             "RCNN plain": (64, 512, 128, 64, 128),
+             "repeated pads": (4, 1024, 256, 64, 96),
+             "odd width": (3, 200, 50, 16, 7)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(GROUP_BWD))
+def test_group_points_bwd_fixed_order_on_cuda(case):
+    """The grouping gather's backward kernel: two calls give the same bits,
+    both equal the CPU plain version (index_add_, ascending m·S + s) bit for
+    bit, and autograd through group_points reaches the kernel once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from tpu3d_torch.ops.grouping import (group_points,
+                                          group_points_backward,
+                                          group_points_backward_plain)
+    B, N, M, S, C = GROUP_BWD[case]
+    g = torch.Generator(device="cuda").manual_seed(len(case))
+    idx = torch.randint(0, N, (B, M, S), generator=g, device="cuda",
+                        dtype=torch.int32)
+    if case == "repeated pads":  # short rows padded with their first hit
+        idx[:, :, 3:] = idx[:, :, :1]
+        idx[:, ::4] = 7
+    grad = torch.randn(B, M, S, C, generator=g, device="cuda")
+    _build.reset_launches()
+    first = group_points_backward(grad, idx, N)
+    second = group_points_backward(grad, idx, N)
+    assert torch.equal(first, second)
+    cpu = group_points_backward_plain(grad.cpu(), idx.cpu(), N)
+    assert torch.equal(first.cpu(), cpu)
+    feats = torch.randn(B, N, C, generator=g, device="cuda",
+                        requires_grad=True)
+    (d,) = torch.autograd.grad(group_points(feats, idx), feats, grad)
+    assert torch.equal(d, first)
+    assert _build.LAUNCHES["group_points_bwd"] == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spread", ["seeded", "full"])
+def test_fused_sa_bwd_fixed_order_on_cuda(spread):
+    """The gather form's backward: two calls give the same bits in every
+    output, and d_pre equals the CPU's fixed-order sum of the kernel's own
+    reached rows (``reached_rows_sum``) bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    args = _fused_inputs(64, 128, seed=7)
+    out, arg, ppre = fused_gathered_mlp_pool_train(*args)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    grad = torch.randn(out.shape, generator=g, device="cuda")
+    if spread == "full":
+        arg = torch.randint(0, 64, out.shape, generator=g, device="cuda",
+                            dtype=torch.int32)
+        ppre = torch.ones_like(ppre)
+    rows = []
+    first = fused_gathered_mlp_pool_backward(*args, grad, arg, ppre,
+                                             rows_out=rows)
+    second = fused_gathered_mlp_pool_backward(*args, grad, arg, ppre)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    dval = torch.where(ppre > 0, grad, 0.0)
+    want = fs.reached_rows_sum(tuple(args[0].shape), args[1].cpu(),
+                               dval.cpu(), arg.cpu(), rows[0].cpu())
+    assert torch.equal(first[0].cpu(), want)

@@ -85,10 +85,18 @@
 // fixed order, either way. d_x1 overwrites a1 in place,
 // dW1 / db1 take a0^T d_x1 over the tile's rows, and d_a0 is the dense
 // layer again with W1^T, in 128-column tiles of C1; d_x0 leaves the
-// registers as float atomics into d_pre (pooled rows repeat ids, so the
-// atomics cannot be plain stores) and through shared memory into d_center,
-// summed over each part's rows in order, or, in the slab form, as one
-// float4 store per thread and row. When every slot is reached (the worst
+// registers as one float4 store per thread and row: in the slab form into
+// the slab's gradient row, in the gather form into the row's place among
+// the launch's reached rows (a buffer of the plan's total rows, which the
+// caller reads between the plan and the rest to size it) and through
+// shared memory into d_center, summed over each part's rows in order. A
+// group's parts all fall in one block (the cuts fall at a group's first
+// part), whose tiles run one after another, so one thread at a time adds
+// into a d_center row. Pooled rows repeat ids, so several reached rows
+// belong to one d_pre row: csr_inverse.cuh inverts idx (each point's list
+// of keys group·S + slot) and adds each point's reached rows in ascending
+// key order, which is the rows' own order, from +0.0; every d_pre row is
+// written once, and the same bits on every call. When every slot is reached (the worst
 // case), a tile holds one part of about T rows, and the work is a dense
 // walk's plus the plan.
 // Widths: C1 and C2 multiples of 128, C3 a multiple of 32; S any multiple
@@ -96,6 +104,7 @@
 
 #include <cuda_runtime.h>
 
+#include "csr_inverse.cuh"
 #include "fused_sa_common.cuh"
 
 namespace {
@@ -147,7 +156,8 @@ struct Plan {
   unsigned char row_part[kTileMax];
   int rows, parts;
   int live;    // the tile's live channels (dval != 0), over its parts
-  int pad;     // keeps sizeof a multiple of 16 (the float buffers follow)
+  int row0;    // the tile's first row among the launch's reached rows
+               // (gather form; keeps sizeof a multiple of 16)
 };
 static_assert(sizeof(Plan) % 16 == 0, "Plan must keep 16-byte alignment");
 
@@ -336,8 +346,9 @@ struct Buffers {
 };
 
 // The products of one copied tile (X holds its rows), into the block's
-// sums gw1, gb1, DW2 (and the workspace slice ws when wide), d_pre /
-// d_slab and d_center.
+// sums gw1, gb1, DW2 (and the workspace slice ws when wide), d_center and
+// dx: the slab's gradient rows in the slab form, in the gather form the
+// reached rows' d_x0 at their place among the launch's reached rows.
 template <int TM, bool SLAB, int TN3>
 __device__ __forceinline__ void tile_products(
     const Plan& P, float* X, const Buffers& b, const Shape& sh,
@@ -595,7 +606,8 @@ __device__ __forceinline__ void tile_products(
     float acc[TM][4];
     routed_dense<TM, false>(A1, C2, C2, w1t + c1, C1, WB, acc, rows);
     __syncthreads();  // every warp is done with the weight slices
-    // d_x0 = d_a0 [x0 > 0]: the slab's row, or atomics into d_pre and the
+    // d_x0 = d_a0 [x0 > 0]: the slab's row, or the reached row's (the
+    // gather form; sum_rows adds them into d_pre in a fixed order) and the
     // tile into DA (T x 128) for d_center
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
@@ -606,19 +618,16 @@ __device__ __forceinline__ void tile_products(
                           x.z > 0.0f ? acc[i][2] : 0.0f,
                           x.w > 0.0f ? acc[i][3] : 0.0f};
       if (r >= rows) continue;
-      const int g = P.group[P.row_part[r]];
       if constexpr (SLAB) {
+        const int g = P.group[P.row_part[r]];
         *reinterpret_cast<float4*>(
             dx + ((size_t)g * sh.S + P.point[r]) * C1 + c1 + col) =
             make_float4(v[0], v[1], v[2], v[3]);
       } else {
-        *reinterpret_cast<float4*>(DA + r * 128 + col) =
-            make_float4(v[0], v[1], v[2], v[3]);
-        float* dst = dx + ((size_t)(g / sh.M) * sh.N + P.point[r]) * C1 + c1
-                     + col;
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          if (v[q] != 0.0f) atomicAdd(dst + q, v[q]);
+        const float4 d = make_float4(v[0], v[1], v[2], v[3]);
+        *reinterpret_cast<float4*>(DA + r * 128 + col) = d;
+        *reinterpret_cast<float4*>(
+            dx + (size_t)(P.row0 + r) * C1 + c1 + col) = d;
       }
     }
     if constexpr (!SLAB) {
@@ -896,6 +905,7 @@ fused_sa_routed_bwd_kernel(const float* __restrict__ src,
         P.group[np] = (int)g;
         P.slot0[np] = slot0;
         P.base[np] = (unsigned char)rows;
+        if (np == 0) P.row0 = pw > 0 ? (int)cum[pw - 1] : 0;
       }
       rows += cnt;
       live_t += b.scan_live[w];
@@ -1061,38 +1071,64 @@ bool shape_of(int N, int M, int S, int C1, int C2, int C3, long long groups,
   return groups * sh->nseg <= 0x7fffffffLL;
 }
 
-// Check the arguments; then the plan, its prefix sums, the routed kernel
-// and the reduction of the active blocks' slices into grads = [dW1
-// (C1 x C2) | dW2^T (C3 x C2) | db1 (C2)].
+// The key m·S + s of batch row b -> its row among the launch's reached rows
+// (the plan's prefix sums and the popcount of its part's mask below the
+// slot), or -1 where nothing reaches the slot: the reached rows lie in
+// ascending (group, slot) order, so ascending keys read them in order.
+struct ReachedRow {
+  const unsigned long long* masks;
+  const long long* cum;
+  int M, S, T, nseg;
+  __device__ long long operator()(int b, int key) const {
+    const int m = key / S, s = key - m * S;
+    const int seg = s / T, bit = s - seg * T;
+    const long long p = ((long long)b * M + m) * nseg + seg;
+    const unsigned long long mk = masks[p];
+    if (!((mk >> bit) & 1ull)) return -1;
+    return (p > 0 ? cum[p - 1] : 0) + __popcll(mk & ((1ull << bit) - 1ull));
+  }
+};
+
+// Check the arguments -> the launch's shape, or false.
 template <bool SLAB>
-int run(const Launch& l, int R, int N, int M, int S, int C1, int C2, int C3,
-        int blocks, void* scratch, float* grads, void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (const int pending = tpu3d::pending_error(stream)) return pending;
+bool checked(int R, int N, int M, int S, int C1, int C2, int C3, int blocks,
+             Shape* sh, int* tm, int* nbuf) {
   const long long groups = (long long)R * M;
-  Shape sh;
-  int tm, nbuf;
-  if (R < 1 || !shape_of(N, M, S, C1, C2, C3, groups, SLAB, &sh, &tm, &nbuf))
-    return (int)cudaErrorInvalidValue;
-  const long long per = per_floats(C1, C2, C3);
-  if (blocks < 1 || blocks != bwd_blocks(groups, per))
-    return (int)cudaErrorInvalidValue;
-  const long long nparts = groups * sh.nseg;
-  const PlanBufs pb = plan_bufs(scratch, nparts);
+  if (R < 1 || !shape_of(N, M, S, C1, C2, C3, groups, SLAB, sh, tm, nbuf))
+    return false;
+  // the gather form numbers its reached rows and keys with ints
+  if (!SLAB && (groups * S >= INT_MAX || csr::build_smem((long long)M * S) == 0))
+    return false;
+  return blocks >= 1 && blocks == bwd_blocks(groups, per_floats(C1, C2, C3));
+}
+
+// The plan and its prefix sums, into scratch.
+template <bool SLAB>
+cudaError_t run_plan(const Launch& l, const Shape& sh, long long nparts,
+                     const PlanBufs& pb, cudaStream_t stream) {
   plan_kernel<SLAB><<<(unsigned)((nparts * 32 + kThreads - 1) / kThreads),
                       kThreads, 0, stream>>>(l.dval, l.argmax, sh, nparts,
                                              pb.masks, pb.live, pb.counts,
                                              l.dx, l.dcenter);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return err;
   scan_kernel<<<1, kScanThreads, 0, stream>>>(pb.counts, nparts, pb.cum);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  err = launch_routed<SLAB>(tm, nbuf, l, sh, pb, nparts, blocks, stream);
-  if (err != cudaSuccess) return (int)err;
+  return cudaGetLastError();
+}
+
+// After the plan: the routed kernel and the reduction of the active blocks'
+// slices into grads = [dW1 (C1 x C2) | dW2^T (C3 x C2) | db1 (C2)].
+template <bool SLAB>
+cudaError_t run_routed(const Launch& l, const Shape& sh, int tm, int nbuf,
+                       long long nparts, const PlanBufs& pb, int blocks,
+                       float* grads, cudaStream_t stream) {
+  cudaError_t err =
+      launch_routed<SLAB>(tm, nbuf, l, sh, pb, nparts, blocks, stream);
+  if (err != cudaSuccess) return err;
+  const long long per = per_floats(sh.C1, sh.C2, sh.C3);
   reduce_active<<<(unsigned)((per + 255) / 256), 256, 0, stream>>>(
       l.ws, blocks, per, pb.cum, nparts, sh.T, grads);
-  return (int)cudaGetLastError();
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -1118,11 +1154,45 @@ extern "C" long long tpu3d_fused_sa_bwd_scratch(long long groups, int S,
   return 24 * groups * sh.nseg;
 }
 
-// pre (R, N, C1), idx (R, M, S), center (R, M, C1), w1 (C1, C2) and its
-// transpose w1t, b1 (C2), w2t (C3, C2) = W2^T, dval and argmax (R, M, C3)
-// -> dpre (R, N, C1) (zeroed by the caller; added into), dcenter
-// (R, M, C1), grads = [dW1 (C1 x C2) | dW2^T (C3 x C2) | db1 (C2)]; ws holds
-// blocks x (C1 C2 + C3 C2 + C2) floats, scratch the plan's bytes.
+// Ints of the gather form's inverse of idx (R, N points, M groups of S):
+// offsets (R·N + 1), then the keys (R·M·S).
+extern "C" long long tpu3d_fused_sa_bwd_inverse(int R, int N, int M, int S) {
+  return csr::inverse_ints(R, N, (long long)M * S);
+}
+
+// The gather form in two calls. First the plan: dval and argmax (R, M, C3)
+// -> the plan's masks, counts and prefix sums in scratch (the reached rows
+// in all are its long long at byte 8·nparts + 8·(nparts - 1), nparts =
+// scratch bytes / 24), dcenter's rows that the tiles add into or that
+// nothing reaches zeroed. The caller reads the total to size `rows`.
+extern "C" int tpu3d_fused_sa_bwd_plan(const float* dval, const int* argmax,
+                                       int R, int N, int M, int S, int C1,
+                                       int C2, int C3, int blocks,
+                                       float* dcenter, void* scratch,
+                                       void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (const int pending = tpu3d::pending_error(stream)) return pending;
+  Shape sh;
+  int tm, nbuf;
+  if (!checked<false>(R, N, M, S, C1, C2, C3, blocks, &sh, &tm, &nbuf))
+    return (int)cudaErrorInvalidValue;
+  const long long nparts = (long long)R * M * sh.nseg;
+  const Launch l{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                 nullptr, dval, argmax, nullptr, dcenter, nullptr};
+  return (int)run_plan<false>(l, sh, nparts, plan_bufs(scratch, nparts),
+                              stream);
+}
+
+// Then the rest, on the plan's scratch: pre (R, N, C1), idx (R, M, S),
+// center (R, M, C1), w1 (C1, C2) and its transpose w1t, b1 (C2), w2t
+// (C3, C2) = W2^T, dval and argmax (R, M, C3) -> dpre (R, N, C1) and
+// dcenter (R, M, C1), every entry written, grads = [dW1 (C1 x C2) | dW2^T
+// (C3 x C2) | db1 (C2)]; ws holds blocks x (C1 C2 + C3 C2 + C2) floats,
+// rows the reached rows' d_x0 (the plan's total x C1 floats), inv the
+// inverse's ints (tpu3d_fused_sa_bwd_inverse). The routed kernel writes
+// each reached row's d_x0 once; csr_inverse.cuh then adds each point's
+// rows into its d_pre row in ascending (group·S + slot) order, so d_pre is
+// the same bits on every call.
 extern "C" int tpu3d_fused_sa_bwd(const float* pre, const int* idx,
                                   const float* center, const float* w1,
                                   const float* w1t, const float* b1,
@@ -1130,12 +1200,28 @@ extern "C" int tpu3d_fused_sa_bwd(const float* pre, const int* idx,
                                   const int* argmax, int R, int N, int M,
                                   int S, int C1, int C2, int C3, int blocks,
                                   float* dpre, float* dcenter, float* ws,
-                                  void* scratch, float* grads,
+                                  void* scratch, float* grads, float* rows,
+                                  int* inv, long long inv_ints,
                                   void* stream_ptr) {
-  const Launch l{pre, idx, center, w1, w1t, b1, w2t, dval, argmax, dpre,
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (const int pending = tpu3d::pending_error(stream)) return pending;
+  Shape sh;
+  int tm, nbuf;
+  if (!checked<false>(R, N, M, S, C1, C2, C3, blocks, &sh, &tm, &nbuf) ||
+      inv_ints < csr::inverse_ints(R, N, (long long)M * S))
+    return (int)cudaErrorInvalidValue;
+  const long long nparts = (long long)R * M * sh.nseg;
+  const PlanBufs pb = plan_bufs(scratch, nparts);
+  const Launch l{pre, idx, center, w1, w1t, b1, w2t, dval, argmax, rows,
                  dcenter, ws};
-  return run<false>(l, R, N, M, S, C1, C2, C3, blocks, scratch, grads,
-                    stream_ptr);
+  cudaError_t err =
+      run_routed<false>(l, sh, tm, nbuf, nparts, pb, blocks, grads, stream);
+  if (err != cudaSuccess) return (int)err;
+  if ((err = csr::build(idx, R, N, M, S, inv, stream)) != cudaSuccess)
+    return (int)err;
+  return (int)csr::sum_rows(rows, R, N, C1, inv, dpre,
+                            ReachedRow{pb.masks, pb.cum, M, S, sh.T, sh.nseg},
+                            stream);
 }
 
 // The slab form: x0 (R, M, S, C1) -> dx0 (R, M, S, C1), every entry
@@ -1147,8 +1233,18 @@ extern "C" int tpu3d_fused_sa_slab_bwd(const float* x0, const float* w1,
                                        int C1, int C2, int C3, int blocks,
                                        float* dx0, float* ws, void* scratch,
                                        float* grads, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (const int pending = tpu3d::pending_error(stream)) return pending;
+  Shape sh;
+  int tm, nbuf;
+  if (!checked<true>(R, 0, M, S, C1, C2, C3, blocks, &sh, &tm, &nbuf))
+    return (int)cudaErrorInvalidValue;
+  const long long nparts = (long long)R * M * sh.nseg;
+  const PlanBufs pb = plan_bufs(scratch, nparts);
   const Launch l{x0, nullptr, nullptr, w1, w1t, b1, w2t, dval, argmax, dx0,
                  nullptr, ws};
-  return run<true>(l, R, 0, M, S, C1, C2, C3, blocks, scratch, grads,
-                   stream_ptr);
+  cudaError_t err = run_plan<true>(l, sh, nparts, pb, stream);
+  if (err == cudaSuccess)
+    err = run_routed<true>(l, sh, tm, nbuf, nparts, pb, blocks, grads, stream);
+  return (int)err;
 }

@@ -12,8 +12,9 @@
 // 1-2 operations per byte moved. Design: invert the ids, then gather, as
 // the forward does, so that no float is ever added by an atomic and every
 // d_features row is written once (no zeroing pass):
-//   1. build: a CSR inverse of the ids, each source's list of flat keys
-//      k = m·3 + j. Block (s, b) owns scene b's sources of slice s (a
+//   1. build (csr_inverse.cuh, shared with the kernels that invert S
+//      entries a group): a CSR inverse of the ids, each source's list of
+//      flat keys k = m·3 + j. Block (s, b) owns scene b's sources of slice s (a
 //      thread each) and reads all the scene's ids twice: it counts its
 //      sources' entries and the scene's entries below the slice in shared
 //      memory, scans the counts into offsets, and fills the lists through
@@ -43,155 +44,15 @@
 
 #include <cuda_runtime.h>
 
+#include "csr_inverse.cuh"
 #include "launch_check.cuh"
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kBuildThreads = 1024;
-constexpr int kSlice = kBuildThreads;  // sources per build block, a thread each
-constexpr int kAhead = 8;     // ids a build thread loads at once
-constexpr int kSortMax = 128;  // longer lists are sorted by the build
-constexpr int kStage = 24576;  // keys of a slice's lists staged in shared
-constexpr int kGatherThreads = 256;
-// the build's static shared memory, and the most the stage or its bitmap
-// may add
-constexpr int kBuildStatic = 2 * kSlice * 4 + 32 * 4;
-constexpr int kMaxSmem = 232448;
-
-// Exclusive scan of v over the block (at most 32 warps); `sums` holds 32
-// ints of shared memory. Every thread of the block must call it.
-__device__ int block_scan(int v, int* sums, int& total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int warps = (blockDim.x + 31) >> 5;
-  int x = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(kFull, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) sums[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int s = lane < warps ? sums[lane] : 0;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(kFull, s, o);
-      if (lane >= o) s += y;
-    }
-    sums[lane] = s;
-  }
-  __syncthreads();
-  total = sums[warps - 1];
-  const int before = warp == 0 ? 0 : sums[warp - 1];
-  __syncthreads();  // the next call may write sums again
-  return before + x - v;
-}
-
-// 1. Block (s, b): the lists of scene b's sources [lo, hi), lo = s·kSlice.
-// off[b·N + n] = the first entry of source n's list (global), and keys =
-// each list's in-scene keys m·3 + j: in the order of the shared-memory
-// atomics, except a list longer than kSortMax, which leaves in ascending
-// order (a bitmap of the scene's 3M keys, read back word by word).
-__global__ void __launch_bounds__(kBuildThreads)
-build_kernel(const int* __restrict__ idx, int B, int N, int M,
-             int* __restrict__ off, int* __restrict__ keys) {
-  extern __shared__ int stage[];  // the slice's lists, then the bitmap
-  unsigned* bits = reinterpret_cast<unsigned*>(stage);
-  __shared__ int cur[kSlice];     // counts, then cursors
-  __shared__ int sums[32];
-  __shared__ int long_src[kSlice];    // the slice's long lists
-  const int b = blockIdx.y, tid = threadIdx.x;
-  const int lo = blockIdx.x * kSlice, hi = min(N, lo + kSlice);
-  const int E = 3 * M;
-  const int* ib = idx + (size_t)b * E;
-  cur[tid] = 0;
-  __syncthreads();
-
-  // counts of the slice's sources, and the scene's entries below the slice
-  int below = 0;
-  for (int base = 0; base < E; base += kBuildThreads * kAhead) {
-    int src[kAhead];
-#pragma unroll
-    for (int a = 0; a < kAhead; ++a) {
-      const int e = base + kBuildThreads * a + tid;
-      src[a] = e < E ? ib[e] : INT_MAX;
-    }
-#pragma unroll
-    for (int a = 0; a < kAhead; ++a) {
-      below += src[a] < lo;
-      if (src[a] >= lo && src[a] < hi) atomicAdd(&cur[src[a] - lo], 1);
-    }
-  }
-  __syncthreads();
-
-  // offsets (a thread per source of the slice) and the long lists
-  int n_below, n_slice, unused, n_long;
-  block_scan(below, sums, n_below);
-  const int n = lo + tid;
-  const int count = n < hi ? cur[tid] : 0;
-  const int region = b * E + n_below;  // the slice's lists start here
-  const int first = region + block_scan(count, sums, n_slice);
-  const bool is_long = count > kSortMax;
-  const int long_at = block_scan(is_long, sums, n_long);
-  if (n < hi) off[(size_t)b * N + n] = first;
-  if (is_long) long_src[long_at] = tid;
-  if (tid == 0 && b == B - 1 && hi == N) off[(size_t)B * N] = B * E;
-  cur[tid] = first;
-  __syncthreads();
-
-  // the fill: into shared memory when the slice's lists fit there, then
-  // copied out whole (scattered 4-byte stores to device memory cost far
-  // more), else straight to device memory
-  const bool staged = n_slice <= kStage;  // the block's every thread agrees
-  for (int base = 0; base < E; base += kBuildThreads * kAhead) {
-    int src[kAhead];
-#pragma unroll
-    for (int a = 0; a < kAhead; ++a) {
-      const int e = base + kBuildThreads * a + tid;
-      src[a] = e < E ? ib[e] : INT_MAX;
-    }
-#pragma unroll
-    for (int a = 0; a < kAhead; ++a) {
-      if (src[a] < lo || src[a] >= hi) continue;
-      const int pos = atomicAdd(&cur[src[a] - lo], 1);
-      const int e = base + kBuildThreads * a + tid;
-      if (staged)
-        stage[pos - region] = e;
-      else
-        keys[pos] = e;
-    }
-  }
-  __syncthreads();  // every key of the fill is written
-  if (staged)
-    for (int i = tid; i < n_slice; i += kBuildThreads)
-      keys[region + i] = stage[i];
-  if (n_long == 0) return;  // the block's every thread agrees
-
-  // the long lists, one at a time, in ascending key order
-  const int words = (E + 31) / 32;
-  const int per = (words + kBuildThreads - 1) / kBuildThreads;
-  const int w0 = min(words, tid * per), w1 = min(words, w0 + per);
-  __syncthreads();  // the copy is out: the bitmap reuses the stage
-  for (int i = 0; i < n_long; ++i) {
-    const int t = long_src[i];
-    const int from = off[(size_t)b * N + lo + t], end = cur[t];
-    for (int w = tid; w < words; w += kBuildThreads) bits[w] = 0u;
-    __syncthreads();
-    for (int e = from + tid; e < end; e += kBuildThreads) {
-      const int k = keys[e];
-      atomicOr(&bits[k >> 5], 1u << (k & 31));
-    }
-    __syncthreads();
-    int c = 0;
-    for (int w = w0; w < w1; ++w) c += __popc(bits[w]);
-    int pos = from + block_scan(c, sums, unused);
-    for (int w = w0; w < w1; ++w) {
-      for (unsigned m = bits[w]; m; m &= m - 1) keys[pos++] = w * 32 + __ffs(m) - 1;
-    }
-    __syncthreads();  // every bit read before the next list clears them
-  }
-}
+using csr::kFull;
+using csr::kGatherThreads;
+using csr::kSortMax;
+using csr::warp_sort;
 
 __device__ __forceinline__ void add_product(float& acc, float w, float x) {
   acc = __fadd_rn(acc, __fmul_rn(w, x));
@@ -211,39 +72,6 @@ __device__ __forceinline__ float zero<float>() { return 0.0f; }
 template <>
 __device__ __forceinline__ float4 zero<float4>() {
   return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-}
-
-// Ascending bitonic sort of 32·K ints, element r·32 + lane in v[r] of
-// lane `lane`: partners within a register through shuffles, across
-// registers within the lane.
-template <int K>
-__device__ __forceinline__ void warp_sort(int (&v)[K], int lane) {
-#pragma unroll
-  for (int k = 2; k <= 32 * K; k <<= 1) {
-#pragma unroll
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      if (j >= 32) {
-#pragma unroll
-        for (int r = 0; r < K; ++r) {
-          const int q = r ^ (j >> 5);
-          if (q > r) {
-            const bool up = ((r * 32 + lane) & k) == 0;
-            const int a = min(v[r], v[q]), z = max(v[r], v[q]);
-            v[r] = up ? a : z;
-            v[q] = up ? z : a;
-          }
-        }
-      } else {
-#pragma unroll
-        for (int r = 0; r < K; ++r) {
-          const int o = __shfl_xor_sync(kFull, v[r], j);
-          const int e = r * 32 + lane;
-          const bool keep_min = ((e & j) == 0) == ((e & k) == 0);
-          v[r] = keep_min ? min(v[r], o) : max(v[r], o);
-        }
-      }
-    }
-  }
 }
 
 // Adds w·g[m] into acc over the `cnt` keys held one per lane (lane order),
@@ -378,7 +206,7 @@ cudaError_t launch_gather(const float* w, const float* g, int B, int N,
 // Ints of workspace the entry needs: offsets (B·N + 1), then the lists'
 // keys (3·B·M); ops/interpolate.py::backward_workspace gives the same.
 long long workspace_ints(int B, int N, int M) {
-  return (long long)B * N + 1 + 3LL * B * M;
+  return csr::inverse_ints(B, N, 3LL * M);
 }
 
 }  // namespace
@@ -396,32 +224,14 @@ extern "C" int tpu3d_three_interpolate_bwd(const float* feats, const int* idx,
                                            void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (const int pending = tpu3d::pending_error(stream)) return pending;
-  // the build's dynamic shared memory: the stage, or the bitmap of the
-  // scene's 3M keys if larger
-  const size_t smem = sizeof(int) * (size_t)std::max<long long>(
-      kStage, (3LL * M + 31) / 32);
   if (B < 1 || N < 1 || M < 1 || C < 1 || 3LL * B * M >= INT_MAX ||
-      (long long)B * N >= INT_MAX || kBuildStatic + smem > kMaxSmem ||
+      (long long)B * N >= INT_MAX || csr::build_smem(3LL * M) == 0 ||
       ws_ints < workspace_ints(B, N, M))
     return (int)cudaErrorInvalidValue;
   int* off = workspace;                 // B·N + 1
   int* keys = off + (size_t)B * N + 1;  // 3·B·M
-
-  // above 48 KB of shared memory in all a kernel must ask for it; the
-  // largest size asked for so far stands
-  static size_t smem_granted = 0;
-  cudaError_t err = cudaSuccess;
-  if (smem > smem_granted) {
-    err = cudaFuncSetAttribute(build_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    smem_granted = smem;
-  }
-  const dim3 grid((N + kSlice - 1) / kSlice, B);
-  build_kernel<<<grid, kBuildThreads, smem, stream>>>(idx, B, N, M, off,
-                                                      keys);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  cudaError_t err = csr::build(idx, B, N, M, 3, workspace, stream);
+  if (err != cudaSuccess) return (int)err;
 
   const bool vec = C % 4 == 0 && reinterpret_cast<size_t>(g) % 16 == 0 &&
                    reinterpret_cast<size_t>(dfeats) % 16 == 0;

@@ -72,7 +72,7 @@ KERNELS = {
                         P]),
     "fused_sa_bwd": ("fused_sa_bwd", "tpu3d_fused_sa_bwd",
                      [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P,
-                      P, P, P, P, P]),
+                      P, P, P, P, P, P, L, P]),
     "fused_sa_slab": ("fused_sa", "tpu3d_fused_sa_slab",
                       [P, P, P, P, I, I, I, I, I, I, I, P, P]),
     "fused_sa_slab_bn": ("fused_sa", "tpu3d_fused_sa_slab",
@@ -99,12 +99,21 @@ KERNELS = {
                           [P, P, P, P, P, L, I, I, I, P, P, P, P, P, P]),
     "fused_sa_bn_apply": ("fused_sa_bn", "tpu3d_fused_sa_bn_apply",
                           [P, P, P, L, I, P]),
+    # no TPU kernel: the grouping gather's backward in a fixed order
+    "group_points_bwd": ("group_points_bwd", "tpu3d_group_points_bwd",
+                         [P, P, I, I, I, I, I, P, P, L, P]),
+}
+# C entries that run part of a counted kernel's launch, called before it
+# (not counted): (source, symbol, argtypes)
+PARTS = {
+    "fused_sa_bwd_plan": ("fused_sa_bwd", "tpu3d_fused_sa_bwd_plan",
+                          [P, P, I, I, I, I, I, I, I, I, P, P, P]),
 }
 # extra nvcc flags of each source
 SOURCE_FLAGS = {"fps3nn": EXACT, "nearest_k": EXACT, "three_nn": EXACT,
                 "three_interpolate": EXACT, "three_interpolate_bwd": EXACT,
                 "fps": EXACT, "fused_sa": [], "fused_sa_bwd": [],
-                "fused_sa_bn": []}
+                "fused_sa_bn": [], "group_points_bwd": EXACT}
 SOURCES = sorted(SOURCE_FLAGS)
 
 # added to the code of an error that a C entry found pending before its
@@ -186,10 +195,11 @@ def library(source: str) -> ctypes.CDLL:
 
 
 def kernel(name: str):
-    """The ctypes entry point of kernel ``name``, built at first use."""
+    """The ctypes entry point of kernel ``name`` (or of a part, ``PARTS``),
+    built at first use."""
     fn = _loaded.get(name)
     if fn is None:
-        source, symbol, argtypes = KERNELS[name]
+        source, symbol, argtypes = KERNELS.get(name) or PARTS[name]
         fn = getattr(library(source), symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -200,7 +210,7 @@ def kernel(name: str):
 def error_name(name: str, err: int) -> str:
     """The CUDA name of error code ``err``, from kernel ``name``'s
     library."""
-    fn = library(KERNELS[name][0]).tpu3d_error_name
+    fn = library((KERNELS.get(name) or PARTS[name])[0]).tpu3d_error_name
     fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_char_p
     return fn(err).decode()
 
@@ -218,19 +228,35 @@ def launch(name: str, *args) -> None:
     one that was pending before it, which an earlier launch left (not
     counted: this kernel did not run), or one of its own launch."""
     global _last_launch
-    fn = kernel(name)
-    err = fn(*args, current_stream())
+    err = _call(name, args)
+    LAUNCHES[name] += 1
+    _last_launch = name
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"{error_name(name, err)} ({err})")
+
+
+def launch_part(name: str, *args) -> None:
+    """Run ``PARTS`` entry ``name``, the first calls of a counted kernel's
+    launch, on the current stream; raise as ``launch`` does, count
+    nothing."""
+    err = _call(name, args)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel part {name} failed to launch: "
+                           f"{error_name(name, err)} ({err})")
+
+
+def _call(name: str, args) -> int:
+    """Call entry ``name`` with the current stream appended -> its error
+    code; raise one that was pending before it."""
+    err = kernel(name)(*args, current_stream())
     if err >= PENDING:
         err -= PENDING
         raise RuntimeError(
             f"CUDA error {error_name(name, err)} ({err}) was pending before "
             f"the launch of {name}: earlier work on the card left it; the "
             f"port's last kernel launched before it was {_last_launch}")
-    LAUNCHES[name] += 1
-    _last_launch = name
-    if err != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
-                           f"{error_name(name, err)} ({err})")
+    return err
 
 
 def check_cuda_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,

@@ -43,7 +43,9 @@ center) loads its group into shared memory a chunk of slots at a time
 staged weight slice serves 8 rows per warp), and the backward walks the
 reached slots of many groups per block, summing the weight gradients in
 registers, shared memory or the block's own workspace slice before one
-reduction in block order; the BatchNorm chain's products are register-tiled over flat tiles of
+reduction in block order, and the gather form adds each point's reached
+rows into d_pre in ascending group·S + slot through an inverse of the ids
+(``csr_inverse.cuh``), so every output repeats to the bit; the BatchNorm chain's products are register-tiled over flat tiles of
 slots and sum their per-channel reductions in f64 per block.
 The slab kernel takes each layer as a per-channel affine (mul, add) between
 two Dense layers, a_l = ReLU(x_l·mul_l + add_l): mul = 1 and add = (0, b1,
@@ -245,6 +247,27 @@ def _routed_core(x0, g_row, s_row, w1, b1, w2, dval, argmax, S):
     return d_x0, a0.T @ d_x1, d_x1.sum(dim=0), dw2t
 
 
+def _ordered_sum(shape, batch, point, rows):
+    """(R, N, C) zeros with each row of ``rows`` added at (batch, point), in
+    the rows' order: ``index_add_`` over the flat rows, which on the CPU adds
+    in source order, the order in which the backward kernel sums."""
+    R, N, C = shape
+    flat = torch.zeros(R * N, C, dtype=rows.dtype, device=rows.device)
+    return flat.index_add_(0, batch * N + point, rows).view(R, N, C)
+
+
+def reached_rows_sum(shape, idx, dval, argmax, rows):
+    """The gather-form backward kernel's d_pre from its own reached rows'
+    d_x0 (``fused_gathered_mlp_pool_backward``'s ``rows_out``), summed as
+    the kernel sums them: each point's rows in ascending (group·S + slot)
+    order. Run it on the CPU to hold the kernel's d_pre to the bit."""
+    R, M, S = idx.shape
+    reached = reached_slots(dval, argmax, S)
+    g_row, s_row = reached.nonzero(as_tuple=True)
+    point = idx.reshape(R * M, S)[g_row, s_row].long()
+    return _ordered_sum(shape, g_row // M, point, rows)
+
+
 def _routed_rows(pre, idx, center, w1, b1, w2, dval, argmax):
     """The routed backward of the gather form on a chunk of rows -> (d_pre,
     d_center, dW1, db1, dW2ᵀ) of the chunk."""
@@ -259,8 +282,7 @@ def _routed_rows(pre, idx, center, w1, b1, w2, dval, argmax):
     x0 = pre[batch, point] - center.reshape(G, C1)[g_row]
     d_x0, dw1, db1, dw2t = _routed_core(x0, g_row, s_row, w1, b1, w2, dval,
                                         argmax, S)
-    d_pre = torch.zeros_like(pre)
-    d_pre.index_put_((batch, point), d_x0, accumulate=True)
+    d_pre = _ordered_sum(pre.shape, batch, point, d_x0)
     d_center = torch.zeros(G, C1, dtype=pre.dtype, device=pre.device)
     d_center.index_add_(0, g_row, -d_x0)
     return d_pre, d_center.view(R, M, C1), dw1, db1, dw2t
@@ -487,14 +509,25 @@ def _bwd_scratch(groups: int, S: int, c1: int, c2: int, c3: int, device):
                        device=device)
 
 
+def _bwd_inverse_ints(R: int, N: int, M: int, S: int) -> int:
+    """Ints of the gather form's inverse of its ids (offsets, then keys)."""
+    fn = _build.library("fused_sa_bwd").tpu3d_fused_sa_bwd_inverse
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_longlong
+    return fn(R, N, M, S)
+
+
 def _launch_backward(kernel, head, dims, outs, w1, b1, w2, grad, argmax,
-                     ppre):
+                     ppre, rows_out=None):
     """Launch the backward ``kernel`` of either form. ``head`` are the form's
     leading input tensors, ``dims`` its sizes (R, ..., M, S), ``outs`` the
     input gradients it writes; both forms then take W1, W1ᵀ, b1, W2ᵀ, dval,
     argmax, the widths, the block count, the workspace of the deterministic
-    block-partials reduction and the plan's scratch. -> (dW1, db1, dW2,
-    db2)."""
+    block-partials reduction and the plan's scratch. The gather form runs
+    its plan first and reads the reached rows' count from it (one wait for
+    the card), to size the buffer of the reached rows' d_x0, which it then
+    adds into d_pre in a fixed order; ``rows_out``, a list, receives that
+    buffer. -> (dW1, db1, dW2, db2)."""
     R, M, S = dims[0], dims[-2], dims[-1]
     C1, C2, C3 = w1.shape[0], w1.shape[1], w2.shape[1]
     for t, name in ((grad, "grad"), (ppre, "ppre")):
@@ -512,32 +545,48 @@ def _launch_backward(kernel, head, dims, outs, w1, b1, w2, grad, argmax,
     ws = torch.empty(blocks, per, dtype=torch.float32, device=grad.device)
     sums = torch.empty(per, dtype=torch.float32, device=grad.device)
     scratch = _bwd_scratch(R * M, S, C1, C2, C3, grad.device)
+    tail = ()
+    if kernel == "fused_sa_bwd":
+        N = dims[1]
+        _build.launch_part("fused_sa_bwd_plan", dval.data_ptr(),
+                           argmax.data_ptr(), *dims, C1, C2, C3, blocks,
+                           outs[1].data_ptr(), scratch.data_ptr())
+        nparts = scratch.numel() // 24
+        total = int(scratch[8 * nparts:16 * nparts].view(torch.int64)[-1])
+        rows = torch.empty(total, C1, dtype=torch.float32, device=grad.device)
+        inv = torch.empty(_bwd_inverse_ints(R, N, M, S), dtype=torch.int32,
+                          device=grad.device)
+        if rows_out is not None:
+            rows_out.append(rows)
+        tail = (rows.data_ptr(), inv.data_ptr(), inv.numel())
     _build.launch(kernel, *(t.data_ptr() for t in head), w1.data_ptr(),
                   w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(),
                   dval.data_ptr(), argmax.data_ptr(), *dims, C1, C2, C3,
                   blocks, *(t.data_ptr() for t in outs), ws.data_ptr(),
-                  scratch.data_ptr(), sums.data_ptr())
+                  scratch.data_ptr(), sums.data_ptr(), *tail)
     return (sums[:C1 * C2].view(C1, C2), sums[C1 * C2 + C3 * C2:],
             sums[C1 * C2:C1 * C2 + C3 * C2].view(C3, C2).t(),
             dval.sum(dim=(0, 1)))
 
 
 def fused_gathered_mlp_pool_backward(pre, idx, center, w1, b1, w2, b2, grad,
-                                     argmax, ppre):
+                                     argmax, ppre, rows_out=None):
     """The backward alone, from the output gradient and the training
     forward's argmax and ppre -> (d_pre, d_center, dW1, db1, dW2, db2). The
     routed kernel for CUDA tensors (at the shapes ``kernels_take`` admits;
-    others raise), else the plain version by autograd."""
+    others raise; ``rows_out``, a list, receives its reached rows' d_x0,
+    which d_pre sums in ascending (group·S + slot) order, as
+    ``reached_rows_sum`` does), else the plain version by autograd."""
     if pre.device.type == "cpu":
         return fused_gathered_mlp_pool_backward_plain(pre, idx, center, w1,
                                                       b1, w2, b2, grad)
     R, N, M, S, C1, C2, C3 = _check(pre, idx, center, w1, b1, w2, b2,
                                     train=True)
-    d_pre = torch.zeros_like(pre)
+    d_pre = torch.empty_like(pre)
     d_center = torch.empty_like(center)
     return (d_pre, d_center, *_launch_backward(
         "fused_sa_bwd", (pre, idx, center), (R, N, M, S),
-        (d_pre, d_center), w1, b1, w2, grad, argmax, ppre))
+        (d_pre, d_center), w1, b1, w2, grad, argmax, ppre, rows_out))
 
 
 class _FusedGatheredMLPPool(torch.autograd.Function):

@@ -19,6 +19,7 @@ and are ranked by (d², id) at the end.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -218,9 +219,74 @@ def ball_query(centers: torch.Tensor, pts: torch.Tensor, radius: float,
     return ball_query_from_nearest(d2, idx, radius, nsample, pts.shape[1])
 
 
-def group_points(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """(B, N, C) gathered by (B, M, S) -> (B, M, S, C)."""
+def group_points_backward_plain(grad: torch.Tensor, idx: torch.Tensor,
+                                N: int) -> torch.Tensor:
+    """Plain PyTorch version of ``csrc/group_points_bwd.cu``: grad (B, M, S,
+    C), idx (B, M, S) -> d_features (B, N, C), each entry's row added into
+    its point's in ascending (m·S + s) order, from +0.0 (``index_add_``,
+    which on the CPU adds in source order)."""
     B, M, S = idx.shape
-    flat = idx.reshape(B, M * S).long()[..., None]
-    out = torch.gather(features, 1, flat.expand(-1, -1, features.shape[-1]))
-    return out.reshape(B, M, S, features.shape[-1])
+    C = grad.shape[-1]
+    rows = (idx.long() + N * torch.arange(B, device=idx.device)[:, None,
+                                                                None])
+    out = grad.new_zeros(B * N, C)
+    return out.index_add_(0, rows.reshape(-1), grad.reshape(-1, C)).view(
+        B, N, C)
+
+
+def group_points_workspace(B: int, N: int, M: int, S: int) -> int:
+    """Ints of the backward kernel's workspace (offsets, then keys)."""
+    fn = _build.library("group_points_bwd").tpu3d_group_points_bwd_workspace
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_longlong
+    return fn(B, N, M, S)
+
+
+def group_points_backward(grad: torch.Tensor, idx: torch.Tensor,
+                          N: int) -> torch.Tensor:
+    """The grouping gather's backward: the kernel of
+    ``csrc/group_points_bwd.cu`` for CUDA tensors, else the plain version.
+    The same bits on every call either way."""
+    if grad.device.type == "cpu":
+        return group_points_backward_plain(grad, idx, N)
+    B, M, S = idx.shape
+    C = grad.shape[-1]
+    _build.check_cuda_tensor(grad, "grad", torch.float32, 4)
+    _build.check_cuda_tensor(idx, "idx", torch.int32, 3)
+    if grad.shape[:3] != idx.shape:
+        raise ValueError(f"grad {tuple(grad.shape)} and idx "
+                         f"{tuple(idx.shape)} disagree")
+    out = torch.empty(B, N, C, dtype=torch.float32, device=grad.device)
+    ws = torch.empty(group_points_workspace(B, N, M, S), dtype=torch.int32,
+                     device=grad.device)
+    _build.launch("group_points_bwd", grad.data_ptr(), idx.data_ptr(), B, N,
+                  M, S, C, out.data_ptr(), ws.data_ptr(), ws.numel())
+    return out
+
+
+class _GroupPoints(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, features, idx):
+        B, M, S = idx.shape
+        ctx.save_for_backward(idx)
+        ctx.n = features.shape[1]
+        flat = idx.reshape(B, M * S).long()[..., None]
+        out = torch.gather(features, 1, flat.expand(-1, -1,
+                                                    features.shape[-1]))
+        return out.reshape(B, M, S, features.shape[-1])
+
+    @staticmethod
+    def backward(ctx, grad):
+        idx, = ctx.saved_tensors
+        if grad.device.type == "cuda":
+            idx = idx.to(torch.int32)
+        return group_points_backward(grad.contiguous(), idx.contiguous(),
+                                     ctx.n), None
+
+
+def group_points(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(B, N, C) gathered by (B, M, S) -> (B, M, S, C). Its backward adds
+    each point's slots in ascending (m·S + s) order (``_GroupPoints``), so
+    it gives the same bits on every call, where ``torch.gather``'s
+    scatter-add on the card does not."""
+    return _GroupPoints.apply(features, idx)

@@ -104,11 +104,15 @@ def main(argv=None):
     parser.add_argument("--out_base", default="output/rcnn")
     parser.add_argument("--dry_run", action="store_true",
                         help="print commands without running")
+    parser.add_argument("--device", default=None,
+                        help="passed on to each eval command (the eval "
+                             "CLI's default, cuda, when not given)")
     args = parser.parse_args(argv)
 
     model_paths = dict(m.split("=", 1) for m in args.models)
+    extra = ("--device", args.device) if args.device else ()
     for cmd in gen_commands(model_paths, args.datasets, args.far_points,
-                            args.cfg, args.one2one,
+                            args.cfg, args.one2one, extra_flags=extra,
                             data_root_base=args.data_root_base,
                             eval_mode=args.eval_mode, out_base=args.out_base):
         print(" ".join(cmd))

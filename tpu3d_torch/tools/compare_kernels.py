@@ -40,6 +40,15 @@ script. Shapes:
   split route that take it (quickstart's SA_3, smoke's SA_2-3), at default
   (eval B=2, train B=16), quickstart (8, 4) and smoke (2, 2), with the sums
   per forward or step; and 64 rows of 2048 points;
+- the grouping gather's backward at each call of default.yaml's train
+  step (B=16; the RPN's four MSG levels, each level's features and ids
+  recorded from a train-mode forward of the checkout's own model):
+  ``group_points_bwd`` (the fixed-order kernel, where the checkout has it)
+  and ``torch.gather``'s backward (a ``scatter_add_``), with the sums;
+- default.yaml's joint train step at B=16 (``train_step``: the checkout's
+  own ``make_train_step`` on seeded weights and planted-cluster scenes;
+  host clock around each step ending in a synchronize, median of 5 after
+  one warm-up), the end-to-end figure a kernel change should move;
 - ``three_interpolate_backward`` without d_weight (the train step's form)
   at default.yaml's four FP levels of the train step (B=16; the ids and
   weights of the checkout's own FPS+3NN on the training batch), with the
@@ -68,7 +77,7 @@ script. Shapes:
   ``fused_sa_fwd``).
 
 ``--only`` takes any of ``nearest_k``, ``fused_sa_bwd``, ``fps3nn``,
-``fps``, ``three_interpolate_bwd``, ``fused_sa_fwd``,
+``fps``, ``three_interpolate_bwd``, ``group_points_bwd``, ``train_step``, ``fused_sa_fwd``,
 ``fused_sa_slab_bwd``, ``fused_sa_bn_train``, ``three_nn`` and
 ``fused_sa_slab_fwd`` (default: all).
 
@@ -144,7 +153,7 @@ def sa0_grouping(nearest_k, group_points):
 
 
 GROUPS = ("nearest_k", "fused_sa_bwd", "fps3nn", "fps",
-          "three_interpolate_bwd", "fused_sa_fwd", "fused_sa_slab_bwd",
+          "three_interpolate_bwd", "group_points_bwd", "train_step", "fused_sa_fwd", "fused_sa_slab_bwd",
           "fused_sa_bn_train", "three_nn", "fused_sa_slab_fwd")
 
 
@@ -274,6 +283,35 @@ def interp_bwd_inputs(cfg, g):
     return out
 
 
+def group_points_calls(cfg, B=16, seed=0):
+    """The grouping gather's calls of one default.yaml train-mode forward
+    at B scenes: [(features (B, N, C), idx (B, M, S))]."""
+    import torch
+
+    from tpu3d_torch.datasets import train_batch
+    from tpu3d_torch.models import PointRCNN, pointnet2
+    from tpu3d_torch.weights import seeded_state_dict
+
+    model = PointRCNN(cfg, mode="TRAIN", device="cuda")
+    model.load_state_dict(seeded_state_dict(model, seed))
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in train_batch(B, cfg.RPN.NUM_POINTS, seed).items()}
+    calls, group_points = [], pointnet2.group_points
+
+    def recorded(features, idx):
+        calls.append((features.detach().clone(), idx.clone()))
+        return group_points(features, idx)
+
+    pointnet2.group_points = recorded
+    try:
+        with torch.no_grad():
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            model(batch, train=True, bn_momentum=0.9, generator=gen)
+    finally:
+        pointnet2.group_points = group_points
+    return calls
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", default=str(Path(__file__).parents[2]))
@@ -399,6 +437,62 @@ def main() -> int:
         out["three_interpolate_bwd train sum"] = total
         print(f"{args.label}: three_interpolate_bwd, four launches: "
               f"{total:.4f} ms", flush=True)
+    if "group_points_bwd" in only:
+        from tpu3d_torch.ops import grouping
+
+        fixed = getattr(grouping, "group_points_backward", None)
+        totals = {"group_points_bwd": 0.0, "scatter_add": 0.0}
+        for i, (feats, idx) in enumerate(group_points_calls(cfg)):
+            B, N, C = feats.shape
+            grad = torch.randn(*idx.shape, C, generator=g, device="cuda")
+            flat = idx.reshape(B, -1).long()[..., None].expand(-1, -1, C)
+            rows = grad.reshape(B, -1, C)
+            shape = f"({B}, {N}, {C}) by {tuple(idx.shape)}"
+            totals["scatter_add"] += record(
+                f"torch.gather backward {i} {shape}",
+                lambda: torch.zeros(B, N, C, device="cuda").scatter_add_(
+                    1, flat, rows), 10)
+            if fixed is not None:
+                totals["group_points_bwd"] += record(
+                    f"group_points_bwd {i} {shape}",
+                    lambda: fixed(grad, idx, N), 10)
+            del grad, flat, rows
+        for k, v in totals.items():
+            out[f"{k} train sum"] = v
+        print(f"{args.label}: the grouping gather's backward per train step: "
+              f"{totals}", flush=True)
+        torch.cuda.empty_cache()
+    if "train_step" in only:
+        import statistics
+        import time
+
+        from tpu3d_torch.datasets import train_batch
+        from tpu3d_torch.models import PointRCNN
+        from tpu3d_torch.parallel import create_train_state, make_train_step
+        from tpu3d_torch.weights import seeded_state_dict
+
+        model = PointRCNN(cfg, mode="TRAIN", device="cuda")
+        model.load_state_dict(seeded_state_dict(model, 0))
+        state = create_train_state(cfg, model, steps_per_epoch=100,
+                                   total_epochs=10)
+        step = make_train_step(cfg, model)
+        batch = {k: torch.from_numpy(v).cuda() for k, v in train_batch(
+            16, cfg.RPN.NUM_POINTS, 0).items()}
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        times = []
+        for i in range(6):
+            t0 = time.perf_counter()
+            step(state, batch, gen, 0.9)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["train_step default B=16 ms"] = statistics.median(times[1:])
+        out["train_step default B=16 step_ms"] = times[1:]
+        print(f"{args.label}: default.yaml joint train step B=16: "
+              f"{statistics.median(times[1:]):.1f} ms (host clock, median "
+              f"of 5 after a warm-up: {[round(t, 1) for t in times[1:]]})",
+              flush=True)
+        del model, state, step, batch
+        torch.cuda.empty_cache()
     if "three_nn" in only:
         from tpu3d_torch.ops import three_nn
 

@@ -121,9 +121,10 @@ def attribute(kernels, launches, windows):
 
 def port_kernel_names() -> set[str]:
     """The names of the port's CUDA kernels (``__global__`` functions in
-    ``csrc/``), to tell its ctypes launches apart in a trace."""
+    ``csrc/``'s sources and shared headers), to tell its ctypes launches
+    apart in a trace."""
     names = set()
-    for src in (Path(__file__).resolve().parents[1] / "csrc").glob("*.cu"):
+    for src in (Path(__file__).resolve().parents[1] / "csrc").glob("*.cu*"):
         text = src.read_text()
         names.update(re.findall(
             r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\)?\s*)?"

@@ -27,7 +27,9 @@ def _flatten(tree, prefix=()):
 
 def params_from_jax(params, batch_stats) -> dict[str, torch.Tensor]:
     """Flax ``params`` and ``batch_stats`` trees (nested mappings of arrays)
-    -> the port's ``state_dict``."""
+    -> the port's ``state_dict``: of ``PointRCNN``, and of
+    ``tools/pointnet2_demo.PointnetSeg`` (its ``backbone``, ``head`` and
+    ``out`` under flax's names)."""
     out = {}
     for path, value in _flatten(params):
         if path[-1] == "kernel":
