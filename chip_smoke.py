@@ -207,7 +207,20 @@ and no result line:
    (CLASSES Cyclist, the cyclist-sized anchor) on quickstart.yaml, one
    joint train step at B=4 from multi-class frames on disk and one eval
    batch, each with quickstart's launches;
-17. one JSON line of the kernels (each row with its launches per rank per
+17. the last of tpu3d outside its bench: default.yaml with
+   RCNN.USE_INTENSITY set in memory, one joint eval batch (B=2) and one
+   train step (B=16) with and without rpn_intensity, each with phase 4's /
+   phase 5's launches; configs/default_people.yaml as shipped, a train step
+   (B=16) and an eval batch (B=2) from multi-class frames on disk read with
+   CLASSES People, the same launches; tools/roofline on default.yaml (the
+   analytic counts, FlopCounterMode's, mfu_pct from the phase's median eval
+   batch at B=8 and train step at B=16); tools/probe_dispatch's four
+   numbers; one default eval batch under torch.profiler, its Chrome trace
+   read back by tools/parse_trace, each csrc kernel seen as often as its
+   entry launched; tools/bench_loader over phase 13's frames, thread and
+   process workers at 1, 2 and 4 (each beside the card's name and power
+   limit);
+18. one JSON line of the kernels (each row with its launches per rank per
    step at world 2, ``ddp_launches`` / ``ddp_bn_launches``, and per train
    step / eval batch of the demo, ``pn_train_launches`` /
    ``pn_eval_launches``), then the result line.
@@ -3925,6 +3938,263 @@ def paper_slice(card: str) -> dict:
     return figures
 
 
+PEOPLE_FRAMES = 32  # two batches of 16 train frames' worth
+ROOFLINE_EVAL_BATCH = 8  # tpu3d's roofline / bench eval batch
+# csrc kernels of one default eval batch, by counted entry: (the entry's
+# __global__ functions, as the profiler names them)
+TRACE_KERNELS = {"fps3nn": ("fps_cluster_kernel", "three_nn_to_picks_kernel"),
+                 "nearest_k": ("nearest_k_kernel",),
+                 "three_interpolate": ("three_interpolate_kernel",),
+                 "fps": ("fps_rows_kernel",),
+                 "fused_sa": ("fused_sa_kernel",)}
+LOADER_WORKERS = "1,2,4"
+LOADER_SCENES = 32
+
+
+def last_modules(card: str, eval_expect: dict, train_expect: dict) -> dict:
+    """Phase 17: the last of tpu3d outside its bench. (a) default.yaml with
+    RCNN.USE_INTENSITY set in memory: one joint eval batch (B=2) and one
+    train step (B=16), with and without rpn_intensity (two models, each
+    sized as tpu3d's tree is for its inputs), each launching phase 4's /
+    phase 5's kernels exactly, its outputs finite; (b)
+    configs/default_people.yaml as shipped: one joint train step (B=16)
+    and one eval batch (B=2) from multi-class frames on disk
+    (Pedestrian, Cyclist) read through the port's dataset with CLASSES
+    People, the same launches; (c) tools/roofline on default.yaml: the
+    analytic counts, FlopCounterMode's count and mfu_pct from this phase's
+    median eval batch (B=8) and train step (B=16); (d)
+    tools/probe_dispatch's four numbers; (e) one default eval batch (B=2)
+    under torch.profiler, its Chrome trace read back by tools/parse_trace:
+    each csrc kernel of TRACE_KERNELS seen as often as its entry launched
+    (fps3nn 4, nearest_k 6, three_interpolate 4, fps 2, fused_sa 2), and no
+    other csrc kernel; (f) tools/bench_loader over phase 13's frames,
+    thread and process workers at 1, 2 and 4. -> the phase's figures."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from tpu3d_torch.config import cfg_from_file, fresh_cfg
+    from tpu3d_torch.datasets import (BatchLoader, KittiRCNNDataset,
+                                      create_synthetic_kitti, device_prefetch,
+                                      random_scenes, train_batch)
+    from tpu3d_torch.models import PointRCNN
+    from tpu3d_torch.parallel import create_train_state, make_train_step
+    from tpu3d_torch.tools import (bench_loader, parse_trace,
+                                   probe_dispatch, roofline)
+    from tpu3d_torch.tools.eval_rcnn import make_infer_step
+    from tpu3d_torch.tools.train_rcnn import BATCH_KEYS
+    from tpu3d_torch.weights import seeded_state_dict
+
+    def launched(fn):
+        """``fn()``'s result and the launches it made."""
+        calls = []
+        _counting(fn, calls)()
+        return calls[0][1], calls[0][0]
+
+    dev = torch.device(DEVICE)
+    work = ROOT / "build" / "last_modules"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    figures = {"card": card}
+    default = ROOT / "configs" / "default.yaml"
+
+    def finite(out, label):
+        bad = [k for k, v in out.items() if torch.is_tensor(v)
+               and v.is_floating_point() and not bool(torch.isfinite(v).all())]
+        check(not bad, f"{label}: not finite: {bad}")
+
+    def train_once(cfg, model, batch, label):
+        state = create_train_state(cfg, model, 1, 1)
+        step = make_train_step(cfg, model)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        tb, got = launched(lambda: step(state, batch, gen, 0.9))
+        check(got == train_expect, f"{label} launched {got}, phase 5's "
+              f"step {train_expect}")
+        check(math.isfinite(float(tb["loss"])) and
+              math.isfinite(float(tb["grad_norm"])), f"{label}: {tb}")
+        return {k: float(v) for k, v in tb.items() if k in (
+            "loss", "rpn_loss", "rcnn_loss", "grad_norm")}
+
+    def eval_once(cfg, model, pts, label, intensity=None):
+        infer = make_infer_step(model, cfg)
+        with torch.no_grad():
+            out, got = launched(lambda: infer(pts, intensity))
+        check(got == eval_expect, f"{label} launched {got}, phase 4's "
+              f"{eval_expect}")
+        finite(out, label)
+        check(bool(out["final_mask"].any()), f"{label}: no final box")
+        return int(out["final_mask"].sum())
+
+    # (a) RCNN.USE_INTENSITY in the joint path
+    t0 = time.perf_counter()
+    icfg = cfg_from_file(str(default), fresh_cfg())
+    icfg.RCNN.USE_INTENSITY = True
+    n = icfg.RPN.NUM_POINTS
+    rng = np.random.default_rng(SEED + 17)
+    pts = torch.from_numpy(random_scenes(BATCH, n, SEED)).to(dev)
+    tb_np = train_batch(TRAIN_BATCH, n, SEED)
+    intensity = {"eval": torch.from_numpy(rng.random(
+        (BATCH, n), dtype=np.float32)).to(dev),
+        "train": torch.from_numpy(rng.random(
+            (TRAIN_BATCH, n), dtype=np.float32)).to(dev)}
+    runs = {}
+    for given in (True, False):
+        tag = "with" if given else "without"
+        model = PointRCNN(icfg, mode="TEST", device=dev,
+                          intensity_input=given)
+        state = seeded_state_dict(model, SEED)
+        model.load_state_dict(state)
+        width = model.rcnn_net.merge_down.dense_0.weight.shape[1]
+        check(width == 128 + (128 if given else 127),
+              f"merge_down reads {width} channels {tag} rpn_intensity")
+        finals = eval_once(icfg, model, pts, f"USE_INTENSITY eval {tag} "
+                           "rpn_intensity",
+                           intensity["eval"] if given else None)
+        del model
+        tmodel = PointRCNN(icfg, mode="TRAIN", device=dev,
+                           intensity_input=given)
+        tmodel.load_state_dict(train_weights(tmodel, SEED))
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in tb_np.items()}
+        if given:
+            batch["rpn_intensity"] = intensity["train"]
+        runs[tag] = {"merge_down_in": width, "final_boxes": finals,
+                     **train_once(icfg, tmodel, batch,
+                                  f"USE_INTENSITY train step {tag} "
+                                  "rpn_intensity")}
+        del tmodel, batch
+        torch.cuda.empty_cache()
+    figures["use_intensity"] = {"s": time.perf_counter() - t0, **runs}
+    print(f"default.yaml with RCNN.USE_INTENSITY: eval B={BATCH} and a "
+          f"train step B={TRAIN_BATCH}, with and without rpn_intensity, "
+          f"each with phase 4's / phase 5's launches: {runs}")
+
+    # (b) configs/default_people.yaml from multi-class frames on disk
+    t0 = time.perf_counter()
+    pcfg = cfg_from_file(str(ROOT / "configs" / "default_people.yaml"),
+                         fresh_cfg())
+    check(pcfg.CLASSES == "People" and pcfg.RPN.NUM_POINTS == 16384,
+          f"default_people.yaml: CLASSES {pcfg.CLASSES}, "
+          f"{pcfg.RPN.NUM_POINTS} points")
+    proot = str(work / "people")
+    create_synthetic_kitti(proot, n_frames=PEOPLE_FRAMES, seed=SEED + 17,
+                           image_files=True,
+                           extra_classes=("Pedestrian", "Cyclist"))
+    frames_s = time.perf_counter() - t0
+    tds = KittiRCNNDataset(root_dir=proot, npoints=pcfg.RPN.NUM_POINTS,
+                           split="train", mode="TRAIN",
+                           classes=pcfg.CLASSES, cfg=pcfg)
+    pbatch = next(iter(device_prefetch(BatchLoader(
+        tds, TRAIN_BATCH, shuffle=True, drop_last=True), keys=BATCH_KEYS,
+        device=DEVICE)))
+    people = int((pbatch["gt_boxes3d"].abs().sum(-1) > 0).sum())
+    check(people > 0, "the People batch holds no pedestrian or cyclist")
+    tmodel = PointRCNN(pcfg, mode="TRAIN", device=dev)
+    tmodel.load_state_dict(train_weights(tmodel, SEED))
+    ptrain = train_once(pcfg, tmodel, pbatch, "default_people.yaml train "
+                        "step")
+    emodel = PointRCNN(pcfg, mode="TEST", device=dev)
+    emodel.load_state_dict(tmodel.state_dict())
+    del tmodel, pbatch
+    eds = KittiRCNNDataset(root_dir=proot, npoints=pcfg.RPN.NUM_POINTS,
+                           split="val", mode="EVAL", classes=pcfg.CLASSES,
+                           cfg=pcfg)
+    ebatch = next(iter(device_prefetch(BatchLoader(eds, BATCH),
+                                       keys=("pts_input",), device=DEVICE)))
+    pfinal = eval_once(pcfg, emodel, ebatch["pts_input"],
+                       "default_people.yaml eval")
+    del emodel, ebatch
+    torch.cuda.empty_cache()
+    figures["default_people"] = {
+        "s": time.perf_counter() - t0, "frames_s": frames_s,
+        "frames": PEOPLE_FRAMES, "gt_people_in_batch": people,
+        "final_boxes": pfinal, **ptrain}
+    print(f"configs/default_people.yaml (CLASSES People) from "
+          f"{PEOPLE_FRAMES} multi-class frames on disk: a joint train step "
+          f"at B={TRAIN_BATCH} ({people} pedestrians and cyclists), "
+          f"{ptrain}, and an eval batch at B={BATCH}, {pfinal} final "
+          f"boxes, default.yaml's launches; "
+          f"{figures['default_people']['s']:.1f} s")
+
+    # (c) the roofline on default.yaml from this phase's own times
+    t0 = time.perf_counter()
+    rcfg = roofline.default_cfg(str(default))
+    model = PointRCNN(rcfg, mode="TEST", device=dev)
+    model.load_state_dict(seeded_state_dict(model, SEED))
+    infer = make_infer_step(model, rcfg)
+    epts = torch.from_numpy(random_scenes(ROOFLINE_EVAL_BATCH, n,
+                                          SEED)).to(dev)
+    with torch.no_grad():
+        infer(epts)
+        eval_ms = wall_ms(lambda: infer(epts), 5)
+    del model, infer, epts
+    tmodel = PointRCNN(rcfg, mode="TRAIN", device=dev)
+    tmodel.load_state_dict(seeded_state_dict(tmodel, SEED))
+    tstate = create_train_state(rcfg, tmodel, 100, 200)
+    step = make_train_step(rcfg, tmodel)
+    tbatch = {k: torch.from_numpy(v).to(dev) for k, v in tb_np.items()}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    step(tstate, tbatch, gen, 0.9)
+    train_ms = wall_ms(lambda: step(tstate, tbatch, gen, 0.9), 3)
+    del tmodel, tstate, step, tbatch
+    torch.cuda.empty_cache()
+    rows = roofline.report(rcfg, eval_ms, train_ms, ROOFLINE_EVAL_BATCH,
+                           TRAIN_BATCH, device=DEVICE)
+    for row in rows[:2]:
+        check(row["mfu_pct"] > 0 and row["counted_tflop_per_step"] > 0,
+              f"roofline row {row}")
+    figures["roofline"] = {"s": time.perf_counter() - t0, "rows": rows}
+    for row in rows:
+        print(f"roofline: {json.dumps(row)}")
+
+    # (d) the dispatch probe
+    figures["probe_dispatch"] = probe_dispatch.probe(1.5, 20, DEVICE)
+    print(f"probe_dispatch: {json.dumps(figures['probe_dispatch'])}")
+
+    # (e) one profiled default eval batch, its trace read back
+    t0 = time.perf_counter()
+    dcfg = cfg_from_file(str(default), fresh_cfg())
+    model = PointRCNN(dcfg, mode="TEST", device=dev)
+    model.load_state_dict(seeded_state_dict(model, SEED))
+    infer = make_infer_step(model, dcfg)
+    with torch.no_grad():
+        infer(pts)
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if DEVICE == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        with torch.profiler.profile(activities=acts) as prof:
+            _, batch_launches = launched(lambda: infer(pts))
+            if DEVICE == "cuda":
+                torch.cuda.synchronize()
+    trace = work / "profile" / "trace.json"
+    trace.parent.mkdir()
+    prof.export_chrome_trace(str(trace))
+    del model, infer, prof
+    summary = parse_trace.main([str(trace.parent), "--top", "12"])
+    check(summary is not None, "the profiler's trace holds no device event")
+    check(set(batch_launches) == set(TRACE_KERNELS), f"the profiled batch "
+          f"launched {batch_launches}")
+    want = {fn: batch_launches[entry] for entry, fns in TRACE_KERNELS.items()
+            if entry in batch_launches for fn in fns}
+    check(summary["port_counts"] == want, f"the trace's csrc kernels "
+          f"{summary['port_counts']}, the batch's launches "
+          f"{batch_launches} give {want}")
+    figures["trace"] = {"s": time.perf_counter() - t0,
+                        "port_counts": summary["port_counts"],
+                        "total_ms": summary["total_ms"],
+                        "groups": summary["groups"]}
+
+    # (f) the loader bench over phase 13's frames
+    t0 = time.perf_counter()
+    figures["bench_loader"] = bench_loader.main([
+        "--data_root", str(ROOT / "build" / "cli_smoke" / "data"),
+        "--scenes", str(LOADER_SCENES), "--workers", LOADER_WORKERS])
+    figures["bench_loader"]["s"] = time.perf_counter() - t0
+    return figures
+
+
 def main() -> int:
     import torch
 
@@ -4423,7 +4693,14 @@ def main() -> int:
     paper = paper_slice(smi[0])
     phases.done("16 (PointNet++ demo, aug scenes, statnorm study, Cyclist)")
 
-    # 17. kernels line and result line: launches from the path each kernel
+    # 17. the last modules: RCNN.USE_INTENSITY, default_people.yaml, the
+    # roofline, the dispatch probe, a profiled batch's trace, the loader
+    last = last_modules(smi[0], {k: v for k, v in launches.items() if v},
+                        {k: v for k, v in train_launches.items() if v})
+    phases.done("17 (USE_INTENSITY, default_people, roofline, dispatch, "
+                "trace, loader)")
+
+    # 18. kernels line and result line: launches from the path each kernel
     # was timed at (per forward or per train step), and on the other paths
     runs = {"default.yaml eval B=2": launches,
             "default.yaml train B=16": train_launches,
@@ -4499,6 +4776,7 @@ def main() -> int:
         "bn_train_step": {"path": BN_TRAIN_PATH, "ms": bstep_ms,
                           "peak_gib": bpeak},
         "training_cli": cli, "eval_cli": ecli, "paper_slice": paper,
+        "last_modules": last,
         "data_parallel": {k: v for k, v in dp.items() if not k.startswith(
             "ddp_")},
         "widened_shapes": {"shapes": WIDE_SHAPES,

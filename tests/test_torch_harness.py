@@ -26,7 +26,9 @@ def test_port_imports_no_jax_and_no_tpu3d():
     """Every module of tpu3d_torch, imported in a fresh interpreter, loads
     no jax, flax, optax or tpu3d module, and no msgpack (the checkpoints'
     codec is the port's own); the walk reaches the loader, checkpoint,
-    training and eval CLI modules and the evaluator's."""
+    training and eval CLI modules, the evaluator's, the measurement tools
+    (roofline, loader bench, trace summary, dispatch probe), the renderers
+    and the stat_norm walkthrough."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import tpu3d_torch\n"
@@ -67,7 +69,11 @@ def test_port_imports_no_jax_and_no_tpu3d():
             "tpu3d_torch.tools.generate_aug_scene",
             "tpu3d_torch.tools.generate_multi_data",
             "tpu3d_torch.tools.pointnet2_demo",
-            "tpu3d_torch.tools.probe_determinism"} <= have
+            "tpu3d_torch.tools.probe_determinism",
+            "tpu3d_torch.tools.roofline", "tpu3d_torch.tools.bench_loader",
+            "tpu3d_torch.tools.parse_trace",
+            "tpu3d_torch.tools.probe_dispatch", "tpu3d_torch.utils.viz",
+            "tpu3d_torch.studies.stat_norm_walkthrough"} <= have
 
 
 def test_entry_point_defaults_to_cuda():

@@ -25,6 +25,7 @@ from tpu3d_torch.datasets import random_scenes
 from tpu3d_torch.models import PointRCNN
 from tpu3d_torch.tools.eval_rcnn import make_infer_step, rcnn_decode_and_nms
 from tpu3d_torch.weights import params_from_jax, seeded_state_dict
+from test_torch_train import _x64
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 INFER_KEYS = {"final_boxes", "final_scores", "final_mask", "pred_boxes3d",
@@ -155,3 +156,241 @@ def test_seeded_weights_give_the_focal_prior_to_the_rpn_only(joint_pair):
     np.testing.assert_allclose(state["rpn.cls_head.out.bias"].numpy(),
                                -np.log(99.0), rtol=1e-6)
     assert (state["rcnn_net.cls_head.out.bias"] == 0).all()
+
+
+# --------------------------------------------------------------------------
+# RCNN.USE_INTENSITY in the joint path, with and without rpn_intensity
+# --------------------------------------------------------------------------
+
+
+def intensity_case(with_intensity):
+    """tpu3d's joint model with ``RCNN.USE_INTENSITY``, initialised on
+    inputs with or without ``rpn_intensity``, and the port's built for the
+    same (``intensity_input``), on the same weights and planted-cluster
+    batch (2 scenes, dropout 0).
+
+    Eval: tpu3d's eval forward, and its RCNN stage on that forward's rois,
+    backbone outputs and scores through tpu3d's own functions one by one
+    (the extra features, ``roipool3d``, the canonical transform,
+    ``RCNNNet``), as the port runs them: inside the jitted forward XLA
+    fuses the canonical transform, whose coordinates then differ by up to
+    ~1e-6 m and move a ball query's member in a few of these dense ROIs.
+
+    Train: the port's ``make_train_step`` in float64, recording the point
+    features its proposal target layer was handed, the targets it sampled
+    and the gradients before the update; tpu3d's side in float64 as its
+    joint forward cannot run (its NMS walk under x64), so in the two parts
+    its step's loss adds: the RPN in train mode (the features, the extra
+    channels, the RPN loss) and the RCNN's loss and gradients on the same
+    targets. Float32 train-mode BatchNorm moves the RPN's features by up to
+    3e-2 between the packages and flips seg-mask bits (test_torch_train.py
+    runs the RPN in float64 for the same reason). -> both sides' results.
+    """
+    import copy
+
+    import jax.numpy as jnp
+
+    from tpu3d.models import point_rcnn as jax_point_rcnn
+    from tpu3d.models.rcnn import RCNNNet as JaxRCNNNet
+    from tpu3d.models.train_functions import (generate_rpn_labels_device,
+                                              get_rcnn_loss, model_loss)
+    from tpu3d.ops.box_geometry import rotate_points_along_y as jax_rotate
+    from tpu3d.ops.roipool import roipool3d as jax_roipool3d
+    from tpu3d_torch.datasets import train_batch
+    from tpu3d_torch.models import point_rcnn
+    from tpu3d_torch.parallel import create_train_state, make_train_step
+    from tpu3d_torch.parallel import train_state
+    from tpu3d_torch.weights import params_to_jax
+
+    jcfg = _tiny_cfg(rcnn=True, points=1024)
+    jcfg.RCNN.USE_INTENSITY = True
+    jcfg.RPN.DP_RATIO = jcfg.RCNN.DP_RATIO = 0.0
+    batch = train_batch(2, 1024, seed=41)
+    rng = np.random.default_rng(41)
+    inputs = {"pts_input": batch["pts_input"]}
+    if with_intensity:
+        inputs["rpn_intensity"] = rng.random((2, 1024)).astype(np.float32)
+    jmodel = JaxPointRCNN(cfg=jcfg, mode="TEST")
+    shapes = jax.eval_shape(lambda i: jmodel.init(
+        {"params": jax.random.PRNGKey(0)}, i, train=False), inputs)
+    params, stats = _numpy_variables(shapes, rng)
+    jout = jax.device_get(jax.jit(lambda v, i: jmodel.apply(
+        v, i, train=False))({"params": params, "batch_stats": stats},
+                            inputs))
+    rois = jnp.asarray(jout["rois"])
+    xyz = jnp.asarray(jout["backbone_xyz"])
+    extra, _ = jax_point_rcnn.rcnn_extra_features(
+        jcfg, jnp.asarray(jout["rpn_cls"][..., 0]), xyz,
+        inputs.get("rpn_intensity"))
+    pooled, pooled_feats, _ = jax_roipool3d(
+        xyz, jnp.concatenate([extra, jout["backbone_features"]], -1), rois,
+        float(jcfg.RCNN.POOL_EXTRA_WIDTH), int(jcfg.RCNN.NUM_POINTS),
+        split=True)
+    pooled = jax_rotate(pooled - rois[:, :, None, 0:3],
+                        rois[..., 6][..., None])
+    jnet = JaxRCNNNet(cfg=jcfg)
+    jstage = jax.device_get(jnet.apply(
+        {"params": params["rcnn_net"]},
+        (pooled.reshape(-1, *pooled.shape[2:]),
+         pooled_feats.reshape(-1, *pooled_feats.shape[2:])), train=False))
+
+    labels = jax.device_get(jax.vmap(generate_rpn_labels_device)(
+        batch["pts_input"], batch["gt_boxes3d"]))
+    wide = {k: v.astype(np.float64) for k, v in inputs.items()}
+    rpn_cfg = copy.deepcopy(jcfg)
+    rpn_cfg.RCNN.ENABLED = False
+    p64, s64 = jax.tree_util.tree_map(lambda a: a.astype(np.float64),
+                                      (params, stats))
+    with _x64():
+        rout, _ = jax.device_get(jax.jit(lambda v, i: JaxPointRCNN(
+            cfg=rpn_cfg, mode="TRAIN").apply(
+                v, i, train=True, bn_momentum=0.9, mutable=["batch_stats"],
+                rngs={"dropout": jax.random.PRNGKey(1)}))(
+            {"params": {"rpn": p64["rpn"]},
+             "batch_stats": {"rpn": s64["rpn"]}}, wide))
+        jrpn_loss = float(model_loss(rpn_cfg, rout, {
+            "rpn_cls_label": labels[0],
+            "rpn_reg_label": labels[1].astype(np.float64)})[0])
+        jextra, _ = jax_point_rcnn.rcnn_extra_features(
+            jcfg, rout["rpn_cls"][..., 0], rout["backbone_xyz"],
+            wide.get("rpn_intensity"))
+        want_feature = np.concatenate(
+            [np.asarray(jextra), rout["backbone_features"]], -1)
+
+    cfg = _port_cfg(jcfg)
+    state = params_from_jax(params, stats)
+    model = PointRCNN(cfg, mode="TEST", device="cpu",
+                      intensity_input=with_intensity)
+    ours = model.state_dict()
+    shapes_equal = (set(state) == set(ours) and all(
+        tuple(v.shape) == tuple(ours[k].shape) for k, v in state.items()))
+    model.load_state_dict(state)
+    stage = model.rcnn_stage(*(torch.tensor(a) for a in (
+        jout["backbone_xyz"], jout["backbone_features"],
+        jout["rpn_cls"][..., 0], jout["rois"])),
+        rpn_intensity=(torch.tensor(inputs["rpn_intensity"])
+                       if with_intensity else None))
+
+    tmodel = PointRCNN(cfg, mode="TRAIN", device="cpu",
+                       intensity_input=with_intensity).double()
+    tmodel.load_state_dict({k: v.double() for k, v in state.items()})
+    handed, targets, grads = [], [], {}
+    real = point_rcnn.proposal_target_layer
+
+    def recording(gen, rois, roi_valid, gt, xyz, pts_feature, c, aug_data):
+        handed.append(pts_feature)
+        targets.append(real(gen, rois, roi_valid, gt, xyz, pts_feature, c,
+                            aug_data=aug_data))
+        return targets[-1]
+
+    def summing(ps, mesh):
+        grads.update({n: p.grad.clone() for n, p in tmodel.named_parameters()
+                      if n.startswith("rcnn_net.")})
+
+    tstate = create_train_state(cfg, tmodel, steps_per_epoch=10,
+                                total_epochs=2)
+    full = dict(wide, gt_boxes3d=batch["gt_boxes3d"].astype(np.float64),
+                rpn_cls_label=labels[0],
+                rpn_reg_label=labels[1].astype(np.float64))
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(point_rcnn, "proposal_target_layer", recording)
+        m.setattr(train_state, "sum_gradients", summing)
+        tb = make_train_step(cfg, tmodel)(
+            tstate, {k: torch.tensor(np.asarray(v)) for k, v in
+                     full.items()},
+            torch.Generator().manual_seed(0), 0.9)
+
+    # tpu3d's RCNN loss and gradients on the targets the port sampled
+    target = {k: targets[0][k].numpy() for k in (
+        "sampled_pts", "pts_feature", "cls_label", "reg_valid_mask",
+        "gt_of_rois", "gt_iou", "roi_boxes3d")}
+    with _x64():
+        rcnn_in = np.concatenate([target["sampled_pts"],
+                                  target["pts_feature"]], -1)
+
+        def rcnn_loss(p):
+            out = jnet.apply({"params": p}, rcnn_in, train=True)
+            return get_rcnn_loss(jcfg, dict(target, **out))[0]
+
+        jrcnn_loss, jgrads = jax.device_get(jax.jit(
+            jax.value_and_grad(rcnn_loss))(p64["rcnn_net"]))
+    return {"jout": jout, "jstage": jstage, "stage": stage,
+            "shapes_equal": shapes_equal, "params": params, "tb": tb,
+            "jrpn_loss": jrpn_loss, "jrcnn_loss": float(jrcnn_loss),
+            "jgrads": jgrads, "want_feature": want_feature,
+            "handed": handed,
+            "grads": params_to_jax(grads)[0]["rcnn_net"]}
+
+
+@pytest.fixture(scope="module", params=[True, False],
+                ids=["with_intensity", "without_intensity"])
+def intensity_pair(request):
+    return request.param, intensity_case(request.param)
+
+
+def test_intensity_tree_sized_as_tpu3d(intensity_pair):
+    """The port's joint model with RCNN.USE_INTENSITY carries tpu3d's whole
+    tree, each parameter of its shape: xyz_up takes 3 + 3 channels, and
+    merge_down 128 + 128 with rpn_intensity and 128 + 127 without (tpu3d's
+    split takes the first RPN feature into the xyz block)."""
+    with_intensity, case = intensity_pair
+    assert case["shapes_equal"]
+    rcnn = case["params"]["rcnn_net"]
+    assert rcnn["xyz_up"]["dense_0"]["kernel"].shape[0] == 6
+    assert rcnn["merge_down"]["dense_0"]["kernel"].shape[0] == (
+        256 if with_intensity else 255)
+
+
+def test_intensity_eval_matches(intensity_pair):
+    """tpu3d's rois, backbone outputs, raw RPN scores and intensity through
+    the port's rcnn_stage: rcnn_cls / rcnn_reg within 1e-4 abs + 1e-4 rel
+    of tpu3d's stage run one by one, the empty-ROI flags and the seg mask
+    equal to its eval forward's."""
+    _, case = intensity_pair
+    jout, out = case["jout"], case["stage"]
+    np.testing.assert_array_equal(out["pooled_empty_flag"].numpy(),
+                                  jout["pooled_empty_flag"])
+    np.testing.assert_array_equal(out["seg_result"].numpy(),
+                                  jout["seg_result"])
+    for key in ("rcnn_cls", "rcnn_reg"):
+        np.testing.assert_allclose(out[key].numpy(), case["jstage"][key],
+                                   **TOL, err_msg=key)
+    assert (~jout["pooled_empty_flag"]).sum() > 10
+
+
+def test_intensity_train_step_matches(intensity_pair):
+    """One train step of each package on the same targets, in float64: the
+    point features the port's proposal target layer was handed equal
+    tpu3d's ([intensity?, seg mask, depth, RPN features]) within 1e-4;
+    rpn_loss, rcnn_loss and the loss, their sum, within 1e-4 relative; every
+    rcnn_net gradient within 1e-4 of its largest value plus 1e-4
+    relative."""
+    with_intensity, case = intensity_pair
+    (handed,) = case["handed"]
+    want = case["want_feature"]
+    assert handed.shape[-1] == want.shape[-1] == (131 if with_intensity
+                                                  else 130)
+    np.testing.assert_allclose(handed.numpy(), want, **TOL)
+    tb = case["tb"]
+    np.testing.assert_allclose(float(tb["rpn_loss"]), case["jrpn_loss"],
+                               rtol=1e-4)
+    np.testing.assert_allclose(float(tb["rcnn_loss"]), case["jrcnn_loss"],
+                               rtol=1e-4)
+    np.testing.assert_allclose(float(tb["loss"]),
+                               case["jrpn_loss"] + case["jrcnn_loss"],
+                               rtol=1e-4)
+    ours, ref = dict(_flat(case["grads"])), dict(_flat(case["jgrads"]))
+    assert set(ours) == set(ref)
+    for k, b in ref.items():
+        np.testing.assert_allclose(ours[k], b, rtol=1e-4,
+                                   atol=1e-4 * np.abs(b).max() + 1e-12,
+                                   err_msg=k)
+    assert np.abs(ref["merge_down/dense_0/kernel"]).max() > 0
+
+
+def _flat(tree, prefix=()):
+    for k, v in tree.items():
+        if hasattr(v, "items"):
+            yield from _flat(v, prefix + (k,))
+        else:
+            yield "/".join(prefix + (k,)), np.asarray(v)

@@ -155,3 +155,113 @@ def test_multi_data_farm_equal_tpu3d(tmp_path, monkeypatch):
         mod.gen_all_data(str(tmp_path / "farm"))
         seen[tag] = calls
     assert seen["ours"] == seen["ref"] and len(seen["ours"]) == 5
+
+
+def _walkthrough_files(root):
+    """The rescaled tree's files by relative path, and each link's target's
+    last two parts (the roots differ)."""
+    out = {}
+    for rel, v in tree(root).items():
+        out[rel] = (("link", os.path.join(*v[1].split(os.sep)[-2:]))
+                    if isinstance(v, tuple) else v)
+    return out
+
+
+def test_stat_norm_walkthrough_equal_tpu3d(tmp_path, monkeypatch, capsys):
+    """examples/stat_norm_walkthrough.py and the port's copy on the same
+    synthetic frames (the generator is byte-equal), each in its own root:
+    the car statistics (returned, and the cached JSON byte for byte), the
+    rescaled dataset (velodyne, labels, split files; links to the same
+    folders) and the frame each renders, both figures written."""
+    import importlib.util
+    import sys
+
+    from tpu3d.config import paths as jpaths
+    from tpu3d_torch.config import paths
+    from tpu3d_torch.studies import stat_norm_walkthrough as walk
+
+    jroot = tmp_path / "ref"
+    jroots = {d: str(jroot / os.path.relpath(paths.dataset_paths[d],
+                                             paths.dataset_path))
+              for d in ("kitti", "waymo")}
+    walk.make_synthetic_domain(jroots["kitti"], walk.SRC_CARS)
+    walk.make_synthetic_domain(jroots["waymo"], walk.DST_CARS)
+    monkeypatch.setattr(jpaths, "dataset_path", str(jroot))
+    for d, r in jroots.items():
+        monkeypatch.setitem(jpaths.dataset_paths, d, r)
+    spec = importlib.util.spec_from_file_location(
+        "stat_norm_walkthrough_ref",
+        os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "examples",
+            "stat_norm_walkthrough.py"))
+    ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref)
+    monkeypatch.setattr(sys, "argv", [
+        "stat_norm_walkthrough.py", "--src", "kitti", "--dst", "waymo",
+        "--out", str(tmp_path / "ref.png")])
+    ref.main()
+    ref_out = capsys.readouterr().out
+
+    got = walk.main(["--src", "kitti", "--dst", "waymo", "--synthetic",
+                     "--synthetic_root", str(tmp_path / "ours"), "--out",
+                     str(tmp_path / "ours.png")])
+    out = capsys.readouterr().out
+    assert out.splitlines()[:3] == ref_out.splitlines()[:3]  # the table
+    from tpu3d.stat_norm.stat import get_dataset_stats as jax_stats
+    for d in ("kitti", "waymo"):
+        assert got["stats"][d] == jax_stats(jroots[d])
+        with open(os.path.join(jroots[d], "label_stats_train.json"),
+                  "rb") as f:
+            want = f.read()
+        ours_root = os.path.join(str(tmp_path / "ours"),
+                                 os.path.relpath(jroots[d], jroot))
+        with open(os.path.join(ours_root, "label_stats_train.json"),
+                  "rb") as f:
+            assert f.read() == want
+    assert got["stats"]["kitti"]["length"]["mean"] < \
+        got["stats"]["waymo"]["length"]["mean"]
+    rescaled = _walkthrough_files(got["rescaled"])
+    assert rescaled == _walkthrough_files(
+        str(jroot / "rescaled_datasets" / "kitti_scaledto_waymo"))
+    assert any(k.startswith("training/label_2/") for k in rescaled)
+    assert f"rescaled dataset at {got['rescaled']}" in out
+    assert os.path.getsize(tmp_path / "ours.png") > 0
+    assert os.path.getsize(tmp_path / "ref.png") > 0
+
+
+def test_showvelo_segments_equal_tpu3d(monkeypatch):
+    """utils.viz.showvelo with the matplotlib backend: the same scattered
+    points and the same wireframe segments (gt green, pred red) as
+    tpu3d's, and BOX_EDGES equal."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    import torch
+
+    from tpu3d.utils import viz as jviz
+    from tpu3d_torch.utils import viz
+
+    assert viz.BOX_EDGES == jviz.BOX_EDGES
+    for mod in (viz, jviz):
+        monkeypatch.setattr(mod, "_have_plotly", lambda: False)
+    rng = np.random.default_rng(6)
+    pts = rng.uniform([-20, -2, 0], [20, 2, 60], size=(500, 3)).astype(
+        np.float32)
+    gt = np.array([[1.0, 1.6, 20.0, 1.5, 1.6, 3.9, 0.3],
+                   [-4.0, 1.7, 30.0, 1.6, 1.7, 4.2, -1.2]], np.float32)
+    pred = gt[:1] + 0.1
+    figs = [viz.showvelo(torch.from_numpy(pts), torch.from_numpy(gt),
+                         pred, point_size=0.5),
+            jviz.showvelo(pts, gt, pred, point_size=0.5)]
+    (ax,), (jax_,) = figs[0].axes, figs[1].axes
+    assert len(ax.lines) == len(jax_.lines) == 12 * 3
+    for a, b in zip(ax.lines, jax_.lines):
+        np.testing.assert_array_equal(np.asarray(a.get_data_3d()),
+                                      np.asarray(b.get_data_3d()))
+        assert a.get_color() == b.get_color()
+    for a, b in zip(ax.collections[0]._offsets3d,
+                    jax_.collections[0]._offsets3d):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    for fig in figs:
+        plt.close(fig)

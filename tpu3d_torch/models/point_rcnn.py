@@ -12,6 +12,12 @@ at eval and at the RPN's outputs in training. With ``RPN.ENABLED`` False
 (RCNN-offline mode): the RCNN alone, on the pooled canonical points the
 loader builds from dumped RPN features. With ``RPN.FIXED`` the RPN runs in
 eval mode and its outputs are detached.
+
+``RCNN.USE_INTENSITY`` in the joint path, as tpu3d runs it: an
+``rpn_intensity`` (B, N) in the inputs is the first of the extra channels
+(``PointRCNN(..., intensity_input=True)``); without one the RCNN's xyz
+block still takes ``n_ext`` channels, so the first RPN feature joins it
+and ``merge_down`` reads the other C_rpn - 1 (tpu3d: rcnn.py:51-54).
 """
 
 from __future__ import annotations
@@ -30,14 +36,17 @@ from .rpn import RPN
 
 
 def rcnn_extra_features(cfg, rpn_scores_raw: torch.Tensor,
-                        backbone_xyz: torch.Tensor):
-    """[seg_mask, depth] per point, as the config enables them (reference:
-    rcnn_net.py:156-166) -> ((B, N, C_extra), (B, N) f32 seg mask). The
-    intensity channel comes only with RCNN-offline samples, whose loader
-    adds it (``KittiRCNNDataset._rcnn_extra_features``)."""
+                        backbone_xyz: torch.Tensor,
+                        rpn_intensity: torch.Tensor | None = None):
+    """[intensity, seg_mask, depth] per point, as the config enables them
+    and the caller gives ``rpn_intensity`` (B, N) (reference:
+    proposal_target_layer.py:20-29, rcnn_net.py:156-166) -> ((B, N,
+    C_extra), (B, N) f32 seg mask)."""
     seg_mask = (torch.sigmoid(rpn_scores_raw) > cfg.RPN.SCORE_THRESH).to(
         backbone_xyz.dtype)
     extras = []
+    if cfg.RCNN.USE_INTENSITY and rpn_intensity is not None:
+        extras.append(rpn_intensity[..., None].to(backbone_xyz.dtype))
     if cfg.RCNN.USE_MASK:
         extras.append(seg_mask[..., None])
     if cfg.RCNN.USE_DEPTH:
@@ -46,39 +55,64 @@ def rcnn_extra_features(cfg, rpn_scores_raw: torch.Tensor,
     return torch.cat(extras, dim=-1), seg_mask
 
 
+def rcnn_rest_channels(cfg, intensity_input: bool) -> int:
+    """The width of the joint path's pooled ``rest``: the extra channels
+    ``rcnn_extra_features`` gives, then the RPN's features."""
+    c = cfg.RCNN
+    n = int(c.USE_MASK) + int(c.USE_DEPTH)
+    n += int(c.USE_INTENSITY and intensity_input)
+    return n + cfg.RPN.FP_MLPS[0][-1]
+
+
 class PointRCNN(nn.Module):
     """The detector on ``device`` (default ``cuda``; raises without a card
     unless the caller passes ``device="cpu"``). ``mode`` picks the proposal
     layer's settings (``cfg.TRAIN`` or ``cfg.TEST``). With ``RPN.ENABLED``
-    False it holds ``rcnn_net`` alone, as tpu3d's parameter tree does."""
+    False it holds ``rcnn_net`` alone, as tpu3d's parameter tree does.
+    ``intensity_input``: whether the joint path's inputs carry
+    ``rpn_intensity`` under ``RCNN.USE_INTENSITY``, which sizes the RCNN as
+    tpu3d's tree is sized by the inputs it was initialised on."""
 
-    def __init__(self, cfg, mode: str = "TEST", device=None):
+    def __init__(self, cfg, mode: str = "TEST", device=None,
+                 intensity_input: bool = False):
         super().__init__()
         c = as_attrdict(cfg)
         if not (c.RPN.ENABLED or c.RCNN.ENABLED):
             raise ValueError("PointRCNN needs RPN.ENABLED or RCNN.ENABLED")
-        if c.RPN.ENABLED and c.RCNN.ENABLED and c.RCNN.USE_INTENSITY:
-            # only the RCNN-offline loader carries the intensity channel;
-            # tpu3d's joint path would read the first RPN feature as it
-            raise NotImplementedError(
-                "RCNN.USE_INTENSITY needs the RCNN-offline loader's "
-                "intensity channel (RPN.ENABLED False)")
         self.cfg = c
         self.mode = mode
+        self.intensity_input = bool(intensity_input and c.RPN.ENABLED
+                                    and c.RCNN.USE_INTENSITY)
         dev = resolve_device(device)
         if c.RPN.ENABLED:
             self.rpn = RPN(c, device=dev)
         if c.RCNN.ENABLED:
-            self.rcnn_net = RCNNNet(c, device=dev)
+            rest = (rcnn_rest_channels(c, self.intensity_input)
+                    if c.RPN.ENABLED else None)
+            self.rcnn_net = RCNNNet(c, device=dev, rest_channels=rest)
+
+    def rpn_intensity(self, t: torch.Tensor | None):
+        """The inputs' ``rpn_intensity`` ``t`` where the RCNN reads it
+        (``RCNN.USE_INTENSITY``), else None; raises where its presence
+        differs from the width the model was built for."""
+        if not self.cfg.RCNN.USE_INTENSITY:
+            return None
+        if (t is not None) != self.intensity_input:
+            raise ValueError(
+                f"the RCNN was built with intensity_input="
+                f"{self.intensity_input}, and the inputs "
+                f"{'carry' if t is not None else 'lack'} rpn_intensity")
+        return t
 
     @torch.no_grad()
     def pool_rois(self, backbone_xyz, backbone_features, rpn_scores_raw,
-                  rois):
+                  rois, rpn_intensity=None):
         """ROI pooling and the canonical transform (reference:
         rcnn_net.py:146-152) -> (xyz (B·M, K, 3) in each ROI's frame, rest
         (B·M, K, C_extra + C_rpn), empty (B, M), seg mask (B, N))."""
         c = self.cfg
-        extra, seg_mask = rcnn_extra_features(c, rpn_scores_raw, backbone_xyz)
+        extra, seg_mask = rcnn_extra_features(c, rpn_scores_raw, backbone_xyz,
+                                              rpn_intensity)
         pts_feature = torch.cat([extra, backbone_features], dim=-1)
         pooled_xyz, pooled_feats, empty = roipool3d(
             backbone_xyz, pts_feature, rois, float(c.RCNN.POOL_EXTRA_WIDTH),
@@ -92,13 +126,15 @@ class PointRCNN(nn.Module):
 
     @torch.no_grad()
     def rcnn_stage(self, backbone_xyz, backbone_features, rpn_scores_raw,
-                   rois) -> dict:
+                   rois, rpn_intensity=None) -> dict:
         """The joint branch after the proposal layer: (B, N, 3), (B, N, C),
-        (B, N) raw RPN scores, (B, M, 7) rois -> rcnn_cls (B·M, 1),
+        (B, N) raw RPN scores, (B, M, 7) rois and, for a model built with
+        ``intensity_input``, (B, N) ``rpn_intensity`` -> rcnn_cls (B·M, 1),
         rcnn_reg (B·M, C_reg), pooled_empty_flag (B, M) and seg_result
         (B, N) f32."""
         xyz, rest, empty, seg_mask = self.pool_rois(
-            backbone_xyz, backbone_features, rpn_scores_raw, rois)
+            backbone_xyz, backbone_features, rpn_scores_raw, rois,
+            self.rpn_intensity(rpn_intensity))
         out = self.rcnn_net(xyz, rest)
         out["pooled_empty_flag"] = empty
         out["seg_result"] = seg_mask
@@ -107,7 +143,9 @@ class PointRCNN(nn.Module):
     def forward(self, input_dict: dict, train: bool = False,
                 bn_momentum: float = 0.9,
                 generator: torch.Generator | None = None) -> dict:
-        """``input_dict["pts_input"]`` (B, N, 3) -> the output dict. In
+        """``input_dict["pts_input"]`` (B, N, 3) -> the output dict; with
+        ``RCNN.USE_INTENSITY`` and ``intensity_input`` also
+        ``input_dict["rpn_intensity"]`` (B, N). In
         training (``train``) also ``input_dict["gt_boxes3d"]`` (B, G, 7),
         zero-padded; BatchNorm takes the batch's statistics and updates its
         running ones with ``bn_momentum`` (flax's convention), and dropout
@@ -143,7 +181,9 @@ class PointRCNN(nn.Module):
             scores = output["rpn_cls"][:, :, 0]
             rois, roi_scores_raw, roi_valid = proposal_layer(
                 scores, output["rpn_reg"], xyz, c, self.mode)
-            extra, seg_mask = rcnn_extra_features(c, scores, xyz)
+            extra, seg_mask = rcnn_extra_features(
+                c, scores, xyz,
+                self.rpn_intensity(input_dict.get("rpn_intensity")))
             pts_feature = torch.cat(
                 [extra, output["backbone_features"]], dim=-1)
             target = proposal_target_layer(
@@ -174,5 +214,5 @@ class PointRCNN(nn.Module):
             return output
         output.update(self.rcnn_stage(
             output["backbone_xyz"], output["backbone_features"],
-            rpn_scores_raw, rois))
+            rpn_scores_raw, rois, input_dict.get("rpn_intensity")))
         return output

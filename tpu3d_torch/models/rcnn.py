@@ -21,21 +21,30 @@ from .rpn import HeadMLP
 
 
 class RCNNNet(nn.Module):
-    def __init__(self, cfg, num_classes: int = 2, device=None):
+    """``rest_channels``, the width C of ``rest``, sizes the layers that
+    read it, as flax sizes tpu3d's from the input at init: C_extra + C_rpn
+    by default. The joint path with ``USE_INTENSITY`` and no intensity
+    input gives one channel less (``point_rcnn.rcnn_rest_channels``); the
+    xyz block still takes ``n_ext`` channels of ``rest``, so the first RPN
+    feature joins it, as in tpu3d's split."""
+
+    def __init__(self, cfg, num_classes: int = 2, device=None,
+                 rest_channels: int | None = None):
         super().__init__()
         c = cfg.RCNN
         self.use_rpn_features = bool(c.USE_RPN_FEATURES)
         self.n_ext = int(c.USE_INTENSITY) + int(c.USE_MASK) + int(c.USE_DEPTH)
-        rpn_c = cfg.RPN.FP_MLPS[0][-1]
+        if rest_channels is None:
+            rest_channels = self.n_ext + cfg.RPN.FP_MLPS[0][-1]
         if self.use_rpn_features:
             up = c.XYZ_UP_LAYER
             self.xyz_up = SharedMLP(3 + self.n_ext, up, bn=c.USE_BN,
                                     device=device)
-            self.merge_down = SharedMLP(up[-1] + rpn_c, [up[-1]],
-                                        bn=c.USE_BN, device=device)
+            self.merge_down = SharedMLP(up[-1] + rest_channels - self.n_ext,
+                                        [up[-1]], bn=c.USE_BN, device=device)
             channel_in = up[-1]
         else:
-            channel_in = self.n_ext + rpn_c
+            channel_in = rest_channels
         sa = c.SA_CONFIG
         self.n_sa = len(sa.NPOINTS)
         for k in range(self.n_sa):

@@ -17,6 +17,33 @@ def rotate_points_along_y(pc: torch.Tensor, angle) -> torch.Tensor:
     return out
 
 
+# the corner template (kitti.boxes.corners_from_boxes3d's order)
+_SX = (1.0, 1.0, -1.0, -1.0, 1.0, 1.0, -1.0, -1.0)
+_SZ = (1.0, -1.0, -1.0, 1.0, 1.0, -1.0, -1.0, 1.0)
+_SY = (0.0, 0.0, 0.0, 0.0, -1.0, -1.0, -1.0, -1.0)
+
+
+def corners_from_boxes3d(boxes3d: torch.Tensor) -> torch.Tensor:
+    """(..., 7) -> (..., 8, 3) corners, in the numpy twin's order (bottom
+    face first)."""
+    t = boxes3d.new_tensor((_SX, _SY, _SZ))
+    h, w, l, ry = (boxes3d[..., i] for i in (3, 4, 5, 6))
+    xc = l[..., None] / 2.0 * t[0]
+    zc = w[..., None] / 2.0 * t[2]
+    yc = h[..., None] * t[1]
+    c, s = torch.cos(ry)[..., None], torch.sin(ry)[..., None]
+    x = c * xc + s * zc + boxes3d[..., 0:1]
+    y = yc + boxes3d[..., 1:2]
+    z = -s * xc + c * zc + boxes3d[..., 2:3]
+    return torch.stack([x, y, z], dim=-1)
+
+
+def bev_corners_from_boxes3d(boxes3d: torch.Tensor) -> torch.Tensor:
+    """(..., 7) -> (..., 4, 2) BEV (x, z) corners of the bottom face, in the
+    corner template's order."""
+    return corners_from_boxes3d(boxes3d)[..., 0:4, 0::2]
+
+
 def points_in_boxes3d(pts: torch.Tensor, boxes3d: torch.Tensor) -> torch.Tensor:
     """(..., N, 3) points × (..., M, 7) boxes -> (..., N, M) bool: the
     analytic rotated-box test, faces included (y points down, a box spans

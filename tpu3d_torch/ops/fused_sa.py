@@ -732,6 +732,17 @@ def fused_mlp_pool_plain(x0, w1, b1, w2, b2):
     return fused_sa_slab_plain(x0, nobn_packs(x0.shape[-1], b1, b2), w1, w2)
 
 
+def fused_mlp_pool_reference(x0, w1, b1, w2, b2, *, pool="max"):
+    """tpu3d's oracle of the no-BN chain under its name: ReLU -> Dense ->
+    ReLU -> Dense -> ReLU -> max over S on a (B, M, S, C1) slab, plain, on
+    x0's device. ``pool`` picks the max-pool's gradient at ties: "max"
+    splits it among the tied slots, "first" gives it to the first (the
+    kernels' rule); the values are the same."""
+    if pool == "first":
+        return _pool_train_plain(x0, w1, b1, w2, b2)[0]
+    return _pool_plain(x0, w1, b1, w2, b2)
+
+
 def fused_mlp_pool_train_plain(x0, w1, b1, w2, b2):
     """Plain PyTorch version of the slab form's training kernel,
     differentiable by autograd -> (out, argmax i32, ppre), each
@@ -952,6 +963,18 @@ def _bn_train(x, gamma, beta, eps):
     return ((x - mean) * torch.rsqrt(var + eps)) * gamma + beta, mean, var
 
 
+def _bn_chain_train(x0, w1, w2, gammas, betas, eps):
+    """The BatchNorm chain with batch statistics up to layer 2's
+    normalized output -> (y2, x2, means, vars), the statistics detached."""
+    y0, m0, v0 = _bn_train(x0, gammas[0], betas[0], eps)
+    x1 = torch.relu(y0) @ w1
+    y1, m1, v1 = _bn_train(x1, gammas[1], betas[1], eps)
+    x2 = torch.relu(y1) @ w2
+    y2, m2, v2 = _bn_train(x2, gammas[2], betas[2], eps)
+    return (y2, x2, tuple(m.detach() for m in (m0, m1, m2)),
+            tuple(v.detach() for v in (v0, v1, v2)))
+
+
 def fused_bn_mlp_pool_train_plain(x0, w1, w2, gammas, betas, eps=1e-5):
     """The BatchNorm chain in training, plain: tpu3d's
     ``fused_bn_mlp_pool_reference`` (batch statistics over every slot,
@@ -960,15 +983,31 @@ def fused_bn_mlp_pool_train_plain(x0, w1, w2, gammas, betas, eps=1e-5):
     three layers' statistics detached. Its operations are the SharedMLP's
     with batch statistics, one by one, so it gives that module's values and
     statistics to the bit."""
-    y0, m0, v0 = _bn_train(x0, gammas[0], betas[0], eps)
-    x1 = torch.relu(y0) @ w1
-    y1, m1, v1 = _bn_train(x1, gammas[1], betas[1], eps)
-    x2 = torch.relu(y1) @ w2
-    y2, m2, v2 = _bn_train(x2, gammas[2], betas[2], eps)
+    y2, x2, means, vars_ = _bn_chain_train(x0, w1, w2, gammas, betas, eps)
     out, arg, _ = _first_max(y2)
     at = torch.gather(x2.detach(), 2, arg.long()[:, :, None, :])[:, :, 0]
-    return (out, arg, at, tuple(m.detach() for m in (m0, m1, m2)),
-            tuple(v.detach() for v in (v0, v1, v2)))
+    return out, arg, at, means, vars_
+
+
+def fused_bn_mlp_pool_reference(x0, w1, w2, gammas, betas, *, stats=None,
+                                eps=1e-5, pool="max"):
+    """tpu3d's oracle of the BatchNorm chain under its name, from the plain
+    versions above, on x0's device. ``stats`` None: training, -> (out,
+    (means, vars)) over the batch's statistics; ``stats`` ((m0, v0), (m1,
+    v1), (m2, v2)): eval with those, -> out. ``pool`` picks the max-pool's
+    gradient at ties, as tpu3d's does: "max" splits it among the tied slots
+    (``amax``), "first" gives it to the first (the kernels' rule); the
+    values are the same."""
+    if stats is not None:
+        packs = bn_packs([_bn_affine(m, v, g, b, eps)[:2]
+                          for (m, v), g, b in zip(stats, gammas, betas)])
+        return torch.relu(_slab_chain(x0, packs, w1, w2)).amax(dim=2)
+    if pool == "first":
+        out, _, _, means, vars_ = fused_bn_mlp_pool_train_plain(
+            x0, w1, w2, gammas, betas, eps)
+        return out, (means, vars_)
+    y2, _, means, vars_ = _bn_chain_train(x0, w1, w2, gammas, betas, eps)
+    return torch.relu(y2).amax(dim=2), (means, vars_)
 
 
 def fused_bn_mlp_pool_backward_plain(x0, w1, w2, gammas, betas, grad,

@@ -290,3 +290,25 @@ def group_points(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     it gives the same bits on every call, where ``torch.gather``'s
     scatter-add on the card does not."""
     return _GroupPoints.apply(features, idx)
+
+
+def ball_query_numpy(centers, pts, radius: float, nsample: int):
+    """Host oracle, (B, M, 3) x (B, N, 3) -> (B, M, nsample) i32: the first
+    ``nsample`` points within ``radius`` in index order, the rest of the
+    row filled with the first of them, zeros for a center with none (the
+    CUDA ball query's fill)."""
+    import numpy as np
+
+    centers, pts = np.asarray(centers), np.asarray(pts)
+    B, M, _ = centers.shape
+    out = np.zeros((B, M, nsample), dtype=np.int32)
+    for b in range(B):
+        for m in range(M):
+            d2 = np.sum((pts[b] - centers[b, m]) ** 2, axis=-1)
+            hits = np.where(d2 < radius * radius)[0]
+            if len(hits) == 0:
+                continue
+            take = hits[:nsample]
+            out[b, m, :len(take)] = take
+            out[b, m, len(take):] = take[0]
+    return out

@@ -288,3 +288,32 @@ def interpolation_weights(dist: torch.Tensor,
     """Inverse-distance weights normalised to 1 (pointnet2_modules parity)."""
     recip = 1.0 / (dist + eps)
     return recip / recip.sum(dim=-1, keepdim=True)
+
+
+def nn_dist_from_idx(unknown: torch.Tensor, known: torch.Tensor,
+                     idx: torch.Tensor) -> torch.Tensor:
+    """The distances of (B, M, 3) queries to their picked (B, M, 3) ``idx``
+    rows of the (B, N, 3) sources, recomputed from the coordinates, so
+    differentiable in both -> (B, M, 3): sqrt(max(d², 0))."""
+    B, M, _ = idx.shape
+    picked = torch.gather(known, 1, idx.long().reshape(B, M * 3, 1).expand(
+        -1, -1, 3)).reshape(B, M, 3, 3)
+    d2 = torch.sum((unknown[:, :, None, :] - picked) ** 2, dim=-1)
+    return torch.sqrt(torch.clamp(d2, min=0.0))
+
+
+def three_nn_numpy(unknown, known):
+    """Host oracle: each query's 3 nearest sources by a stable sort ->
+    ((B, M, 3) f64 distances, (B, M, 3) i32 ids)."""
+    import numpy as np
+
+    unknown, known = np.asarray(unknown), np.asarray(known)
+    B, M, _ = unknown.shape
+    dists = np.zeros((B, M, 3))
+    idx = np.zeros((B, M, 3), dtype=np.int32)
+    for b in range(B):
+        d2 = np.sum((unknown[b][:, None] - known[b][None]) ** 2, axis=-1)
+        order = np.argsort(d2, axis=1, kind="stable")[:, :3]
+        idx[b] = order
+        dists[b] = np.sqrt(np.take_along_axis(d2, order, axis=1))
+    return dists, idx

@@ -1,9 +1,11 @@
 """Exact greedy BEV NMS, rotated or axis-aligned.
 
-Counterpart of ``tpu3d/ops/nms.py`` (``nms_bev``, ``nms_blocked_sorted``),
-which is XLA there and plain PyTorch here. The proposal layer takes the
-axis-aligned IoU (``RPN.NMS_TYPE: normal``), the RCNN's final NMS the
-rotated one.
+Counterpart of ``tpu3d/ops/nms.py`` (``nms_bev`` and its two forms
+``nms_rotated`` / ``nms_normal``, ``nms_blocked_sorted``,
+``nms_streaming_sorted``, the host oracle ``nms_numpy``), which is XLA
+there and plain PyTorch on the given device here. The proposal layer
+takes the axis-aligned IoU (``RPN.NMS_TYPE: normal``), the RCNN's final
+NMS the rotated one.
 """
 
 from __future__ import annotations
@@ -102,3 +104,84 @@ def nms_bev(boxes5: torch.Tensor, scores: torch.Tensor, thresh: float,
                                    max_out, rotated=rotated)
     idx = torch.where(mask, order[pos.long()], 0).to(torch.int32)
     return idx, mask
+
+
+def nms_rotated(boxes5, scores, thresh, max_out: int, valid=None):
+    """``nms_bev`` with the rotated IoU."""
+    return nms_bev(boxes5, scores, thresh, max_out, valid, rotated=True)
+
+
+def nms_normal(boxes5, scores, thresh, max_out: int, valid=None):
+    """``nms_bev`` with the axis-aligned span IoU (iou3d_cuda's
+    nms_normal_gpu)."""
+    return nms_bev(boxes5, scores, thresh, max_out, valid, rotated=False)
+
+
+def nms_streaming_sorted(boxes5_sorted: torch.Tensor,
+                         valid_sorted: torch.Tensor, thresh: float,
+                         max_out: int, rotated: bool = False):
+    """Greedy NMS over score-sorted candidates one at a time: each
+    candidate not yet suppressed is kept and suppresses the later ones
+    whose IoU with it is above ``thresh``, one IoU row each; the walk stops
+    once ``max_out`` are kept. The same contract and output as
+    ``nms_blocked_sorted`` (one host wait per candidate where that one
+    waits per block). -> ((max_out,) i32 positions into the sorted
+    arrays, (max_out,) bool keep mask)."""
+    dev = boxes5_sorted.device
+    n = boxes5_sorted.shape[0]
+    out_idx = torch.zeros(max_out, dtype=torch.int32, device=dev)
+    out_mask = torch.zeros(max_out, dtype=torch.bool, device=dev)
+    suppressed = ~valid_sorted.to(torch.bool)
+    later = torch.arange(n, device=dev)
+    kept = 0
+    for i in range(n):
+        if kept >= max_out:
+            break
+        if bool(suppressed[i]):
+            continue
+        row = boxes5_sorted[i:i + 1]
+        iou = (rotated_overlap_bev(row, boxes5_sorted, criterion=-1) if rotated
+               else _aligned_iou_cross(row, boxes5_sorted))[0]
+        suppressed |= (iou > thresh) & (later > i)
+        out_idx[kept] = i
+        out_mask[kept] = True
+        kept += 1
+    return out_idx, out_mask
+
+
+def nms_numpy(boxes5, scores, thresh, valid=None, rotated=True):
+    """Host greedy NMS oracle in float64 -> the kept original indices
+    (i32, variable length), in descending score order (stable)."""
+    import numpy as np
+
+    from ..kitti.boxes import rotated_iou_bev_numpy
+
+    boxes5 = np.asarray(boxes5, dtype=np.float64)
+    scores = np.asarray(scores)
+    n = len(boxes5)
+    if valid is None:
+        valid = np.ones(n, dtype=bool)
+    order = [i for i in np.argsort(-scores, kind="stable") if valid[i]]
+    if rotated:
+        iou = rotated_iou_bev_numpy(boxes5, boxes5, criterion=-1)
+    else:
+        x1 = boxes5[:, 0] - boxes5[:, 2] / 2
+        x2 = boxes5[:, 0] + boxes5[:, 2] / 2
+        z1 = boxes5[:, 1] - boxes5[:, 3] / 2
+        z2 = boxes5[:, 1] + boxes5[:, 3] / 2
+        area = (x2 - x1) * (z2 - z1)
+        iw = np.clip(np.minimum(x2[:, None], x2)
+                     - np.maximum(x1[:, None], x1), 0, None)
+        ih = np.clip(np.minimum(z2[:, None], z2)
+                     - np.maximum(z1[:, None], z1), 0, None)
+        inter = iw * ih
+        iou = inter / np.maximum(area[:, None] + area - inter, 1e-8)
+    kept = []
+    suppressed = np.zeros(n, dtype=bool)
+    for i in order:
+        if suppressed[i]:
+            continue
+        kept.append(i)
+        suppressed |= iou[i] > thresh
+        suppressed[i] = True
+    return np.array(kept, dtype=np.int32)

@@ -238,3 +238,23 @@ def gather_points(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """(B, N, C) gathered by (B, M) -> (B, M, C)."""
     return torch.gather(features, 1,
                         idx.long()[..., None].expand(-1, -1, features.shape[-1]))
+
+
+def furthest_point_sample_numpy(xyz, npoint: int):
+    """Host FPS oracle, (B, N, 3) -> (B, npoint) i32, in float64 when given
+    it: pick 0 is point 0, each later pick the first argmax of the running
+    min d²."""
+    import numpy as np
+
+    xyz = np.asarray(xyz)
+    B, N, _ = xyz.shape
+    out = np.zeros((B, npoint), dtype=np.int32)
+    for b in range(B):
+        min_dist = np.full(N, np.inf)
+        last = 0
+        for i in range(1, npoint):
+            d = np.sum((xyz[b] - xyz[b, last]) ** 2, axis=-1)
+            min_dist = np.minimum(min_dist, d)
+            last = int(np.argmax(min_dist))
+            out[b, i] = last
+    return out

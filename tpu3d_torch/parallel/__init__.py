@@ -7,10 +7,12 @@ from .mesh import (Mesh, init_distributed, make_mesh, psum, replicate,
 from .train_state import (Optimizer, TrainState, bn_momentum_at_epoch,
                           create_train_state, make_eval_loss_step,
                           make_eval_step, make_lr_schedule,
-                          make_momentum_schedule, make_train_step)
+                          make_momentum_schedule, make_optimizer,
+                          make_train_step)
 
 __all__ = ["Mesh", "init_distributed", "make_mesh", "psum", "replicate",
            "shard_batch", "use_mesh",
            "Optimizer", "TrainState", "bn_momentum_at_epoch",
            "create_train_state", "make_eval_loss_step", "make_eval_step",
-           "make_lr_schedule", "make_momentum_schedule", "make_train_step"]
+           "make_lr_schedule", "make_momentum_schedule", "make_optimizer",
+           "make_train_step"]

@@ -214,6 +214,15 @@ class Optimizer:
         return norm
 
 
+def make_optimizer(cfg, steps_per_epoch: int, total_epochs: int,
+                   params) -> Optimizer:
+    """tpu3d's ``make_optimizer`` (train_state.py:107-135): the clip by
+    global norm, then ``TRAIN.OPTIMIZER``'s update with its schedules, over
+    ``params`` (an optax chain needs them only at ``init``; a torch
+    optimizer holds them from the start)."""
+    return Optimizer(cfg, params, steps_per_epoch, total_epochs)
+
+
 @dataclass
 class TrainState:
     """The optimizer, the global count of updates done (``step``) and the
@@ -243,8 +252,8 @@ def create_train_state(cfg, model: torch.nn.Module, steps_per_epoch: int,
     its first rank (``replicate``)."""
     if mesh is not None:
         replicate(mesh, model)
-    return TrainState(optimizer=Optimizer(cfg, model.parameters(),
-                                          steps_per_epoch, total_epochs))
+    return TrainState(optimizer=make_optimizer(
+        cfg, steps_per_epoch, total_epochs, model.parameters()))
 
 
 def bn_momentum_at_epoch(cfg, epoch: int) -> float:
@@ -262,7 +271,10 @@ def make_train_step(cfg, model: torch.nn.Module, mesh: Mesh | None = None):
     ``train_step(state, batch, generator, bn_momentum) -> metrics``.
 
     ``batch`` holds ``pts_input`` (B, N, 3) and ``gt_boxes3d`` (B, G, 7),
-    zero-padded, on the model's device; the RPN labels are made there from
+    zero-padded, on the model's device, and may hold ``rpn_intensity``
+    (B, N), which goes to the model (``RCNN.USE_INTENSITY`` with a model
+    built for it; tpu3d's step passes the model only the first two, its
+    loader makes no intensity); the RPN labels are made there from
     the gt boxes unless the batch carries ``rpn_cls_label`` /
     ``rpn_reg_label``. In RCNN-offline mode (``RPN.ENABLED`` False) it holds
     the loader's pooled points (B, R, K, C), run as (B·R, K, C), and the
@@ -294,6 +306,8 @@ def make_train_step(cfg, model: torch.nn.Module, mesh: Mesh | None = None):
             inputs = {"pts_input": pts.reshape(-1, *pts.shape[-2:])}
         else:
             inputs = {"pts_input": pts, "gt_boxes3d": batch["gt_boxes3d"]}
+            if "rpn_intensity" in batch:
+                inputs["rpn_intensity"] = batch["rpn_intensity"]
         if rpn_trains and "rpn_cls_label" not in batch:
             cls_l, reg_l = generate_rpn_labels_device(pts[..., :3],
                                                       batch["gt_boxes3d"])

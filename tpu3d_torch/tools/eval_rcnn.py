@@ -181,17 +181,23 @@ def make_infer_step(model, cfg, max_final: int = 100):
     ``PointRCNN(mode="TEST")`` with ``RCNN.ENABLED``, then the decode, score
     threshold and rotated NMS.
 
-    Returns ``infer(pts_input)`` -> dict with ``final_boxes``,
-    ``final_scores``, ``final_mask``, ``pred_boxes3d``, ``norm_scores``,
-    ``raw_scores``, ``rois``, ``roi_scores_raw``, ``roi_valid`` and
-    ``seg_result``, on the model's device.
+    Returns ``infer(pts_input, rpn_intensity=None)`` -> dict with
+    ``final_boxes``, ``final_scores``, ``final_mask``, ``pred_boxes3d``,
+    ``norm_scores``, ``raw_scores``, ``rois``, ``roi_scores_raw``,
+    ``roi_valid`` and ``seg_result``, on the model's device;
+    ``rpn_intensity`` (B, N) goes to a model built with
+    ``intensity_input``.
     """
     if not cfg.RCNN.ENABLED:
         raise ValueError("make_infer_step runs the joint path; use "
                          "make_rpn_infer_step when RCNN.ENABLED is False")
 
-    def infer(pts_input: torch.Tensor) -> dict:
-        out = model({"pts_input": pts_input})
+    def infer(pts_input: torch.Tensor,
+              rpn_intensity: torch.Tensor | None = None) -> dict:
+        inputs = {"pts_input": pts_input}
+        if rpn_intensity is not None:
+            inputs["rpn_intensity"] = rpn_intensity
+        out = model(inputs)
         rois = out["rois"]
         b, m = rois.shape[0], rois.shape[1]
         result = rcnn_decode_and_nms(

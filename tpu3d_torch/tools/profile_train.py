@@ -34,7 +34,6 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
-import re
 import statistics
 import time
 from bisect import bisect_right
@@ -54,6 +53,7 @@ from ..models.proposal_target import proposal_target_layer
 from ..models.train_functions import generate_rpn_labels_device, model_loss
 from ..parallel import create_train_state
 from ..weights import seeded_state_dict
+from .parse_trace import kernel_base, port_kernel_sources
 
 ROOT = Path(__file__).resolve().parents[2]
 SEED = 0
@@ -123,21 +123,15 @@ def port_kernel_names() -> set[str]:
     """The names of the port's CUDA kernels (``__global__`` functions in
     ``csrc/``'s sources and shared headers), to tell its ctypes launches
     apart in a trace."""
-    names = set()
-    for src in (Path(__file__).resolve().parents[1] / "csrc").glob("*.cu*"):
-        text = src.read_text()
-        names.update(re.findall(
-            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\)?\s*)?"
-            r"(\w+)\s*\(", text))
-    return names
+    return set(port_kernel_sources())
 
 
 def is_port_kernel(name: str, names: set[str]) -> bool:
     """Whether a trace's kernel name (``(anonymous namespace)::gather_kernel
-    <float4, 2>(...)``, maybe after ``void``) is one of ``names``."""
-    head = name.replace("(anonymous namespace)::", "").split("(")[0]
-    base = head.split("<")[0].split()[-1] if head.strip() else ""
-    return "at::" not in head and base.rsplit("::", 1)[-1] in names
+    <float4, 2>(...)``, maybe after ``void``, or mangled) is one of
+    ``names`` outside torch's namespaces."""
+    base, torch_own = kernel_base(name)
+    return not torch_own and base in names
 
 
 def main() -> None:
