@@ -220,10 +220,34 @@ and no result line:
    entry launched; tools/bench_loader over phase 13's frames, thread and
    process workers at 1, 2 and 4 (each beside the card's name and power
    limit);
-18. one JSON line of the kernels (each row with its launches per rank per
+18. the eval numerics contract (tpu3d_torch/precision.py). Phases 1-17 run
+   under the f32 contract (TPU3D_F32_EVAL=1, set at the start and
+   removed here), so each keeps its own bounds; this phase runs the
+   card's default, tpu3d's accelerator contract: (b) the joint eval batch
+   of default.yaml (B=2), double.yaml (B=4), quickstart.yaml (B=8),
+   smoke.yaml (B=2) and default.yaml with RCNN.USE_BN (B=2) under it and
+   under TPU3D_F32_EVAL=1, counts set to 0 before each run and read after:
+   every f32 launch of three_interpolate / fused_sa / fused_sa_slab /
+   fused_sa_slab_bn taken over one for one by its bf16 form and the f32
+   form not launched; the RPN's logits and regressions within
+   CONTRACT_BOUND of the f32 run's largest value, the RCNN stage fed the
+   f32 run's backbone outputs and rois within it too, the detections
+   summarised; (c) the same at default.yaml with BF16_INFERENCE: true
+   (the RPN within DENSE_RPN_BOUND: its scene-frame layer 0 runs in bf16,
+   as tpu3d's does); (a) each bf16 form against its plain version at the
+   inputs that (b) recorded (kernel 3 at default's four FP levels, 5 at
+   default's RCNN SA_0 and SA_1, 8 at quickstart's SA_1, 9 at the
+   BatchNorm RCNN's SA_0 and SA_1): kernel 3 equal to the bit, 5, 8 and 9
+   within BF16_FORM_BOUND of the plain output's largest value, each timed
+   beside its plain version, its library chain in bf16 and its f32 form,
+   its bound at the bf16 peak; (d) ms per batch of both contracts in
+   turns (f32, default, default, f32) and their peak memory; (e) one eval-CLI run (joint, phase 13's checkpoint) under
+   the default contract, its bf16 launches per batch and scenes/s;
+19. one JSON line of the kernels (each row with its launches per rank per
    step at world 2, ``ddp_launches`` / ``ddp_bn_launches``, and per train
    step / eval batch of the demo, ``pn_train_launches`` /
-   ``pn_eval_launches``), then the result line.
+   ``pn_eval_launches``; the bf16 forms' rows from phase 18), then the
+   result line.
 
 Every phase prints its seconds. Needs one CUDA card; the kernels have no
 CPU mode. Imports nothing of JAX or of tpu3d.
@@ -231,9 +255,11 @@ CPU mode. Imports nothing of JAX or of tpu3d.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -256,6 +282,7 @@ BN_CHECK_ROWS = 128  # rows of the whole BatchNorm training op's check
 # rate and float32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+PEAK_BF16_OPS_PER_S = 989e12  # dense, in the tensor cores
 
 SOURCES = {  # kernel: (source, the TPU kernel it replaces)
     "fps3nn": ("tpu3d_torch/csrc/fps3nn.cu", "tpu3d/ops/sampling.py:176"),
@@ -345,6 +372,33 @@ SMOKE_PATH = {"eval": f"smoke.yaml eval B={SMOKE_BATCH}",
               "train": f"smoke.yaml train B={SMOKE_BATCH}"}
 BN_PATH = f"default.yaml with RCNN.USE_BN eval B={BN_BATCH}"
 BN_TRAIN_PATH = f"default.yaml with RCNN.USE_BN train B={TRAIN_BATCH}"
+# the bf16 eval forms (phase 18): (source, the TPU kernel they compute as it
+# rounds), and the f32 kernel each takes over under the accelerator contract
+BF16_SOURCES = {
+    "three_interpolate_bf16": ("tpu3d_torch/csrc/three_interpolate.cu",
+                               "tpu3d/ops/interpolate.py:262"),
+    "fused_sa_bf16": ("tpu3d_torch/csrc/fused_sa_bf16.cuh",
+                      "tpu3d/ops/fused_sa.py:771"),
+    "fused_sa_slab_bf16": ("tpu3d_torch/csrc/fused_sa_bf16.cuh",
+                           "tpu3d/ops/fused_sa.py:594"),
+    "fused_sa_slab_bn_bf16": ("tpu3d_torch/csrc/fused_sa_bf16.cuh",
+                              "tpu3d/ops/fused_sa.py:203"),
+}
+BF16_OF = {"three_interpolate": "three_interpolate_bf16",
+           "fused_sa": "fused_sa_bf16", "fused_sa_slab": "fused_sa_slab_bf16",
+           "fused_sa_slab_bn": "fused_sa_slab_bn_bf16"}
+# phase 18's bounds, stated before its first run: the fused bf16 forms
+# against their plain versions (their f32 sums run in the tensor cores'
+# order, so an x1 or x2 can round to the other bf16 neighbour: a step or
+# two of the output), of the plain output's largest value; the default
+# contract's RPN outputs and RCNN stage against the f32 run's, of the f32
+# run's largest value (bf16 rounding at the SA, FP and ROI casts through
+# the layers after them, up to ~3% at cut sizes on the CPU with BatchNorm,
+# whose folded affines scale it); the RPN under BF16_INFERENCE, whose
+# scene-frame layer 0 cancels in bf16
+BF16_FORM_BOUND = 2.0 ** -6
+CONTRACT_BOUND = 0.1
+DENSE_RPN_BOUND = 0.25
 # every other function of tpu3d that reaches pl.pallas_call, with its
 # status: none, every one has its kernel
 NOT_PORTED = []
@@ -382,9 +436,10 @@ def wall_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_ops: float,
+             peak_ops: float = PEAK_F32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_F32_OPS_PER_S * 1e3
+    t_ops = n_ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -423,8 +478,9 @@ class Report:
     a routed search's brute form; ``chain_ms``: FPS's measured
     dependent-chain floor)."""
 
-    def __init__(self):
+    def __init__(self, peak_ops: float = PEAK_F32_OPS_PER_S):
         self.rows = {}
+        self.peak_ops = peak_ops  # the operations' peak of the bound
 
     def add(self, name, err, ms, plain_ms, lib_ms, n_bytes, n_ops, **counts):
         r = self.rows.setdefault(name, dict(err=0.0, ms=0.0, queued_ms=0.0,
@@ -448,7 +504,7 @@ class Report:
         """The JSON fields of kernel ``name``: its times, error and
         bounds."""
         r = self.rows[name]
-        b_ms, b_by = bound_ms(r["bytes"], r["ops"])
+        b_ms, b_by = bound_ms(r["bytes"], r["ops"], self.peak_ops)
         out = {"max_abs_err": r["err"], "ms": r["ms"],
                "queued_ms": r["queued_ms"], "call_ms": r["call_ms"],
                "ms_host_bound": r["ms_host_bound"],
@@ -459,6 +515,8 @@ class Report:
                 r["bytes"], r["brute_ops"])
         if "chain_ms" in r:  # FPS: the measured dependent-chain floor
             out["chain_floor_ms"] = r["chain_ms"]
+        if "f32_ms" in r:  # a bf16 form: its f32 form at the same inputs
+            out["f32_ms"] = r["f32_ms"]
         if "lib_bwd_ms" in r:  # a backward: the library's backward alone
             out["library_backward_ms"] = r["lib_bwd_ms"]
             out["reached_slots"], out["slots"] = r["reached"], r["slots"]
@@ -4195,6 +4253,416 @@ def last_modules(card: str, eval_expect: dict, train_expect: dict) -> dict:
     return figures
 
 
+@contextlib.contextmanager
+def f32_eval(on: bool):
+    """TPU3D_F32_EVAL=1 around a block (``on``), or unset around it; the
+    variable's value before is restored after."""
+    before = os.environ.get("TPU3D_F32_EVAL")
+    if on:
+        os.environ["TPU3D_F32_EVAL"] = "1"
+    else:
+        os.environ.pop("TPU3D_F32_EVAL", None)
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop("TPU3D_F32_EVAL", None)
+        else:
+            os.environ["TPU3D_F32_EVAL"] = before
+
+
+@contextlib.contextmanager
+def record_bf16_calls():
+    """The arguments of every bf16 form the models call, by kernel."""
+    from tpu3d_torch.models import pointnet2 as pn
+
+    names = {"three_interpolate_bf16": "three_interpolate_bf16",
+             "fused_gathered_mlp_pool_bf16": "fused_sa_bf16",
+             "fused_mlp_pool_bf16": "fused_sa_slab_bf16",
+             "fused_bn_mlp_pool_bf16": "fused_sa_slab_bn_bf16"}
+    calls = {name: [] for name in names.values()}
+    saved = {attr: getattr(pn, attr) for attr in names}
+
+    def recording(attr):
+        def fn(*args):
+            calls[names[attr]].append(args)
+            return saved[attr](*args)
+        return fn
+
+    for attr in names:
+        setattr(pn, attr, recording(attr))
+    try:
+        yield calls
+    finally:
+        for attr, fn in saved.items():
+            setattr(pn, attr, fn)
+
+
+def _launched():
+    """Every nonzero count, the f32 kernels' and the bf16 forms'."""
+    from tpu3d_torch.ops import _build
+
+    return {k: v for counts in (_build.LAUNCHES, _build.BF16_LAUNCHES)
+            for k, v in counts.items() if v}
+
+
+def contract_run(model, cfg, pts, f32: bool, label: str, record=False):
+    """One joint eval batch through ``make_infer_step`` under the f32
+    contract (``f32``: TPU3D_F32_EVAL=1) or the card's default, counts set
+    to 0 just before and read just after -> dict(out, raw (the model's own
+    outputs under the same contract), launches, ms (host clock, median of
+    5), peak GiB, precision, calls (the bf16 forms' arguments, where
+    ``record``))."""
+    import torch
+
+    from tpu3d_torch.ops import _build
+    from tpu3d_torch.precision import resolve
+    from tpu3d_torch.tools.eval_rcnn import make_infer_step
+
+    with f32_eval(f32):
+        prec = resolve(pts.device, cfg)
+        infer = make_infer_step(model, cfg)
+        infer(pts)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        with (record_bf16_calls() if record
+              else contextlib.nullcontext({})) as calls:
+            out = infer(pts)
+            torch.cuda.synchronize()
+        launches = _launched()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ms = wall_ms(lambda: infer(pts), 5)
+        with torch.no_grad():
+            raw = model({"pts_input": pts}, precision=prec)
+    print(f"{label}, {'f32' if f32 else 'default'} contract ({prec}): "
+          f"{ms:.1f} ms/batch, peak {peak:.2f} GiB, launches {launches}")
+    return dict(out=out, raw=raw, launches=launches, ms=ms, peak=peak,
+                precision=prec, calls=calls)
+
+
+def _rel_err(a, b) -> tuple[float, float]:
+    """(max |a - b|, max |b|)."""
+    return ((a.float() - b.float()).abs().max().item(),
+            b.float().abs().max().item())
+
+
+def detections_summary(a, b) -> dict:
+    """How the final boxes of run ``a`` sit against run ``b``'s: counts,
+    and the share of ``a``'s boxes with a box of ``b`` in the same scene
+    whose center lies within 0.1 m."""
+    import torch
+
+    n_a, n_b = int(a["final_mask"].sum()), int(b["final_mask"].sum())
+    near = 0
+    for s in range(a["final_mask"].shape[0]):
+        ca = a["final_boxes"][s][a["final_mask"][s]][:, :3]
+        cb = b["final_boxes"][s][b["final_mask"][s]][:, :3]
+        if len(ca) and len(cb):
+            near += int((torch.cdist(ca, cb).amin(dim=1) <= 0.1).sum())
+    return {"final_boxes": n_a, "f32_final_boxes": n_b,
+            "share_within_0.1m": near / max(n_a, 1)}
+
+
+def compare_contracts(model, bf, f32, label, rpn_bound) -> dict:
+    """(b) / (c): the bf16 run's RPN outputs against the f32 run's, and the
+    RCNN stage under the bf16 run's contract fed the f32 run's backbone
+    outputs, raw scores and rois against the f32 run's RCNN outputs."""
+    import torch
+
+    figures = {}
+    for key in ("rpn_cls", "rpn_reg"):
+        err, scale = _rel_err(bf["raw"][key], f32["raw"][key])
+        figures[key] = {"max_abs_err": err, "max_abs": scale}
+        check(err <= rpn_bound * scale, f"{label}: {key} under the default "
+              f"contract differs from the f32 run's by {err} (largest "
+              f"{scale}, bound {rpn_bound} of it)")
+    r = f32["raw"]
+    with torch.no_grad():
+        stage = model.rcnn_stage(r["backbone_xyz"], r["backbone_features"],
+                                 r["rpn_cls"][..., 0], r["rois"],
+                                 precision=bf["precision"])
+    for key in ("rcnn_cls", "rcnn_reg"):
+        err, scale = _rel_err(stage[key], r[key])
+        figures[key] = {"max_abs_err": err, "max_abs": scale}
+        check(err <= CONTRACT_BOUND * scale, f"{label}: the RCNN stage's "
+              f"{key} on the f32 run's inputs differs by {err} (largest "
+              f"{scale}, bound {CONTRACT_BOUND} of it)")
+    figures["detections"] = detections_summary(bf["out"], f32["out"])
+    print(f"{label}: default contract against f32: " + ", ".join(
+        f"{k} {v['max_abs_err']:.3e} of {v['max_abs']:.3e}"
+        for k, v in figures.items() if k != "detections")
+        + f"; detections {figures['detections']}")
+    return figures
+
+
+def bf16_form_rows(report, calls):
+    """(a): each recorded call of a bf16 form against its plain version,
+    timed beside the plain version, its library chain in bf16 (cuBLAS for
+    the products) and its f32 form on the same values."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpu3d_torch.ops import fused_sa as fs
+    from tpu3d_torch.ops import interpolate as ip
+    from tpu3d_torch.ops.grouping import group_points
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    bf = torch.bfloat16
+    for args in calls.get("three_interpolate_bf16", []):
+        feats, idx, w, round_w = args
+        got = ip.three_interpolate_bf16(*args)
+        ref = ip.three_interpolate_bf16_plain(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref), "three_interpolate_bf16 differs from "
+              "its plain version")
+        B, N, C = feats.shape
+        M = idx.shape[1]
+        f32f = feats.float()
+        flat = idx.reshape(B, M * 3).long()[..., None].expand(-1, -1, C)
+        w16 = w.to(bf)[..., None]
+        ms = cuda_ms(lambda: ip.three_interpolate_bf16(*args), 20)
+        pms = cuda_ms(lambda: ip.three_interpolate_bf16_plain(*args), 5)
+        lms = cuda_ms(lambda: (torch.gather(feats, 1, flat).view(
+            B, M, 3, C) * w16).sum(2), 20)
+        fms = cuda_ms(lambda: ip.three_interpolate_forward(f32f, idx, w), 20)
+        nbytes = 2 * B * N * C + 24 * B * M + (2 if round_w else 4) * B * M * C
+        report.add("three_interpolate_bf16", 0.0, ms, pms, lms, nbytes,
+                   5 * B * M * C, f32_ms=fms)
+        print(f"three_interpolate_bf16 B={B} N={N} M={M} C={C} "
+              f"round_w={round_w}: {ms:.4f} ms (f32 form {fms:.4f}), plain "
+              f"{pms:.3f}, gather+sum in bf16 {lms:.4f}; equal to the bit")
+
+    def fused_row(name, got, ref, ms, pms, lms, fms, R, M, S, c1, c2, c3,
+                  in_bytes):
+        err, scale = _rel_err(got, ref)
+        check(err <= BF16_FORM_BOUND * scale, f"{name} differs from its "
+              f"plain version by {err} (largest {scale})")
+        ops = R * M * S * (2 * (c1 * c2 + c2 * c3) + 2 * c1 + 2 * c2 + 3 * c3)
+        nbytes = in_bytes + 2 * (c1 * c2 + c2 * c3 + c2 + c3 + R * M * c3)
+        report.add(name, err, ms, pms, lms, nbytes, ops, f32_ms=fms)
+        print(f"{name} R={R} M={M} S={S} C={c1}->{c2}->{c3}: {ms:.3f} ms "
+              f"(f32 form {fms:.3f}), plain {pms:.3f}, bf16 cuBLAS chain "
+              f"{lms:.3f}, max_abs_err {err:.3e} of {scale:.3e}, "
+              f"{ops / ms / 1e9:.1f} TFLOP/s")
+
+    with torch.no_grad():
+        for args in calls.get("fused_sa_bf16", []):
+            pre, idx, center, w1, b1, w2, b2 = args
+            R, M, S = idx.shape
+            c1, c2, c3 = w1.shape[0], w1.shape[1], w2.shape[1]
+            got = fs.fused_gathered_mlp_pool_bf16(*args)
+            ref = fs.fused_gathered_mlp_pool_bf16_plain(*args)
+            w1t, w2t = w1.T.to(bf).contiguous(), w2.T.to(bf).contiguous()
+            b1h, b2h = b1.to(bf), b2.to(bf)
+
+            def library():
+                x = torch.relu(group_points(pre, idx) - center[:, :, None])
+                x = torch.relu(F.linear(x, w1t, b1h))
+                return torch.relu(F.linear(x, w2t, b2h)).amax(2)
+
+            f32a = (pre.float(), idx, center.float(), w1.contiguous(), b1,
+                    w2.contiguous(), b2)
+            fused_row(
+                "fused_sa_bf16", got, ref,
+                cuda_ms(lambda: fs.fused_gathered_mlp_pool_bf16(*args), 10),
+                cuda_ms(lambda: fs.fused_gathered_mlp_pool_bf16_plain(*args),
+                        3),
+                cuda_ms(library, 5),
+                cuda_ms(lambda: fs.fused_gathered_mlp_pool(*f32a), 10),
+                R, M, S, c1, c2, c3,
+                2 * (pre.numel() + center.numel()) + 4 * idx.numel())
+        for args in calls.get("fused_sa_slab_bf16", []):
+            x0, w1, b1, w2, b2 = args
+            R, M, S, c1 = x0.shape
+            c2, c3 = w1.shape[1], w2.shape[1]
+            got = fs.fused_mlp_pool_bf16(*args)
+            ref = fs.fused_mlp_pool_bf16_plain(*args)
+            w1t, w2t = w1.T.to(bf).contiguous(), w2.T.to(bf).contiguous()
+            b1h, b2h = b1.to(bf), b2.to(bf)
+
+            def library():
+                x = torch.relu(F.linear(torch.relu(x0), w1t, b1h))
+                return torch.relu(F.linear(x, w2t, b2h)).amax(2)
+
+            f32a = (x0.float(), w1.contiguous(), b1, w2.contiguous(), b2)
+            fused_row(
+                "fused_sa_slab_bf16", got, ref,
+                cuda_ms(lambda: fs.fused_mlp_pool_bf16(*args), 10),
+                cuda_ms(lambda: fs.fused_mlp_pool_bf16_plain(*args), 3),
+                cuda_ms(library, 5),
+                cuda_ms(lambda: fs.fused_mlp_pool(*f32a), 10),
+                R, M, S, c1, c2, c3, 2 * x0.numel())
+        for args in calls.get("fused_sa_slab_bn_bf16", []):
+            x0, w1, w2, gammas, betas, stats, eps = args
+            R, M, S, c1 = x0.shape
+            c2, c3 = w1.shape[1], w2.shape[1]
+            got = fs.fused_bn_mlp_pool_bf16(*args)
+            packs = fs.bn_packs([fs._bn_affine(m, v, g, b, eps)[:2] for
+                                 (m, v), g, b in zip(stats, gammas, betas)])
+            ref = fs.fused_sa_slab_bn_bf16_plain(x0, packs, w1, w2)
+            w1t, w2t = w1.T.to(bf).contiguous(), w2.T.to(bf).contiguous()
+            pk = [t.to(bf) for t in packs.split([c1, c1, c2, c2, c3, c3])]
+
+            def library():
+                x = torch.relu(x0 * pk[0] + pk[1])
+                x = torch.relu(F.linear(x, w1t) * pk[2] + pk[3])
+                return torch.relu(F.linear(x, w2t) * pk[4] + pk[5]).amax(2)
+
+            f32a = (x0.float(), w1.contiguous(), w2.contiguous(), gammas,
+                    betas, stats, eps)
+            fused_row(
+                "fused_sa_slab_bn_bf16", got, ref,
+                cuda_ms(lambda: fs.fused_bn_mlp_pool_bf16(*args), 10),
+                cuda_ms(lambda: fs.fused_sa_slab_bn_bf16_plain(
+                    x0, packs, w1, w2), 3),
+                cuda_ms(library, 5),
+                cuda_ms(lambda: fs.fused_bn_mlp_pool(*f32a), 10),
+                R, M, S, c1, c2, c3, 2 * x0.numel() + 8 * (c1 + c2 + c3))
+
+
+def eval_numerics(card: str) -> tuple[Report, dict, dict]:
+    """Phase 18 (the module docstring says what it holds) -> (the bf16
+    forms' report, their launches on the path each is labelled with, the
+    numbers for the JSON line)."""
+    import torch
+
+    from tpu3d_torch.config import cfg_from_file, fresh_cfg
+    from tpu3d_torch.datasets import random_scenes
+    from tpu3d_torch.models import PointRCNN
+    from tpu3d_torch.ops import _build
+    from tpu3d_torch.tools.eval_rcnn import main as eval_main
+    from tpu3d_torch.tools.eval_rcnn import make_infer_step
+    from tpu3d_torch.utils.checkpoint import latest_checkpoint
+    from tpu3d_torch.weights import seeded_state_dict
+
+    dev = torch.device(DEVICE)
+    default = cfg_from_file(str(ROOT / "configs" / "default.yaml"),
+                            fresh_cfg())
+    bn = copy.deepcopy(default)
+    bn.RCNN.USE_BN = True
+    dense = copy.deepcopy(default)
+    dense.BF16_INFERENCE = True
+    cases = [  # (label, cfg, batch, which bf16 forms' calls to keep)
+        ("default.yaml eval B=2", default, BATCH,
+         ("three_interpolate_bf16", "fused_sa_bf16")),
+        ("double.yaml eval B=4", cfg_from_file(
+            str(ROOT / "configs" / "double.yaml"), fresh_cfg()),
+         DOUBLE_BATCH, ()),
+        (QUICK_PATH["eval"], cfg_from_file(
+            str(ROOT / "configs" / "quickstart.yaml"), fresh_cfg()),
+         QUICK_EVAL_BATCH, ("fused_sa_slab_bf16",)),
+        (SMOKE_PATH["eval"], cfg_from_file(
+            str(ROOT / "configs" / "smoke.yaml"), fresh_cfg()),
+         SMOKE_BATCH, ()),
+        (BN_PATH, bn, BN_BATCH, ("fused_sa_slab_bn_bf16",))]
+    report = Report(peak_ops=PEAK_BF16_OPS_PER_S)
+    launches, figures, calls = {}, {"card": card, "configs": {}}, {}
+    for label, cfg, batch, keep in cases:
+        model = PointRCNN(cfg, mode="TEST", device=dev)
+        model.load_state_dict(seeded_state_dict(model, SEED))
+        pts = torch.from_numpy(random_scenes(batch, cfg.RPN.NUM_POINTS,
+                                             SEED)).to(dev)
+        f32 = contract_run(model, cfg, pts, True, label)
+        bf = contract_run(model, cfg, pts, False, label, record=bool(keep))
+        check_joint_outputs(cfg, bf["out"], batch, f"{label} (default "
+                            f"contract)")
+        # every f32 launch of a kernel with a bf16 form is the bf16 form's
+        want = {BF16_OF.get(k, k): v for k, v in f32["launches"].items()}
+        check(bf["launches"] == want, f"{label}: default contract launches "
+              f"{bf['launches']}, expected {want}")
+        check(any(k in bf["launches"] for k in BF16_SOURCES),
+              f"{label}: no bf16 form launched")
+        row = compare_contracts(model, bf, f32, label, CONTRACT_BOUND)
+        # (d) the walls in turns: f32, default, then default, f32
+        turns = {"f32": [f32["ms"]], "bf16": [bf["ms"]]}
+        for on, key in ((False, "bf16"), (True, "f32")):
+            with f32_eval(on):
+                infer = make_infer_step(model, cfg)
+                turns[key].append(wall_ms(lambda: infer(pts), 5))
+        print(f"{label} ({card}): ms/batch in turns f32 {turns['f32'][0]:.1f}"
+              f", default {turns['bf16'][0]:.1f}, default "
+              f"{turns['bf16'][1]:.1f}, f32 {turns['f32'][1]:.1f}; peak "
+              f"{bf['peak']:.2f} GiB (f32 {f32['peak']:.2f})")
+        row.update({
+            "launches": bf["launches"], "f32_launches": f32["launches"],
+            "ms_turns": turns["bf16"], "f32_ms_turns": turns["f32"],
+            "peak_gib": bf["peak"], "f32_peak_gib": f32["peak"],
+            "precision": str(bf["precision"])})
+        figures["configs"][label] = row
+        for name in keep:
+            calls[name] = bf["calls"][name]
+            launches[name] = bf["launches"].get(name, 0)
+        if cfg is default:
+            f32_default = f32
+            # (c) BF16_INFERENCE: true at default.yaml, under the default
+            # contract against the f32 run, and under TPU3D_F32_EVAL=1
+            # (bf16 Dense layers, no casts: the plain route, the
+            # interpolation's bf16 form without rounded weights)
+            dmodel = PointRCNN(dense, mode="TEST", device=dev)
+            dmodel.load_state_dict(model.state_dict())
+            dbf = contract_run(dmodel, dense, pts, False,
+                               "default.yaml BF16_INFERENCE")
+            check_joint_outputs(dense, dbf["out"], batch,
+                                "default.yaml BF16_INFERENCE")
+            check(dbf["launches"] == bf["launches"], f"BF16_INFERENCE "
+                  f"launches {dbf['launches']}, expected {bf['launches']}")
+            drow = compare_contracts(dmodel, dbf, f32_default,
+                                     "default.yaml BF16_INFERENCE",
+                                     DENSE_RPN_BOUND)
+            dplain = contract_run(dmodel, dense, pts, True,
+                                  "default.yaml BF16_INFERENCE")
+            check(all(k not in dplain["launches"] for k in (
+                "fused_sa", "fused_sa_bf16", "three_interpolate")),
+                f"BF16_INFERENCE under TPU3D_F32_EVAL=1 launched "
+                f"{dplain['launches']}")
+            drow.update({"launches": dbf["launches"], "ms": dbf["ms"],
+                         "peak_gib": dbf["peak"],
+                         "f32_eval_launches": dplain["launches"],
+                         "f32_eval_ms": dplain["ms"],
+                         "f32_eval_peak_gib": dplain["peak"],
+                         "precision": str(dbf["precision"])})
+            figures["bf16_inference"] = drow
+            del dmodel, dbf, dplain
+        del model, f32, bf, pts
+        torch.cuda.empty_cache()
+    del f32_default
+
+    # (a) each bf16 form at the recorded calls
+    bf16_form_rows(report, calls)
+    del calls
+    torch.cuda.empty_cache()
+
+    # (e) the eval CLI, joint, under the default contract on phase 13's
+    # frames and checkpoint
+    work = ROOT / "build" / "cli_smoke"
+    ckpt = latest_checkpoint(str(work / "a" / "ckpt"))
+    check(ckpt is not None, "phase 13 left no checkpoint")
+    n_batches = -(-CLI_FRAMES // EVAL_CLI_BATCH)
+    with f32_eval(False):
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res = eval_main([
+            "--cfg_file", str(ROOT / "configs" / CLI_CFG), "--eval_mode",
+            "joint", "--data_root", str(work / "data"), "--batch_size",
+            str(EVAL_CLI_BATCH), "--output_dir",
+            str(ROOT / "build" / "eval_smoke" / "joint_bf16"), "--device",
+            DEVICE, "--ckpt", ckpt, "--set", "TEST.SPLIT", "trainval"])
+        call_s = time.perf_counter() - t0
+    cli_launches = _launched()
+    want = {BF16_OF.get(k, k): v * n_batches for k, v in EVAL_CLI.items()}
+    check(cli_launches == want, f"eval CLI under the default contract "
+          f"launched {cli_launches}, expected {want}")
+    figures["eval_cli"] = {
+        "path": f"{CLI_CFG} joint B={EVAL_CLI_BATCH}, {CLI_FRAMES} frames",
+        "scenes_per_s": res["scenes_per_sec"], "call_s": call_s,
+        "launches": cli_launches}
+    print(f"eval CLI under the default contract ({card}): "
+          f"{res['scenes_per_sec']:.2f} scenes/s after the first batch, "
+          f"launches {cli_launches}")
+    return report, launches, figures
+
+
 def main() -> int:
     import torch
 
@@ -4203,6 +4671,10 @@ def main() -> int:
               "the card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    # phases 1-17 under the f32 contract, each with its own bounds; phase 18
+    # takes the card's default
+    f32_before = os.environ.get("TPU3D_F32_EVAL")
+    os.environ["TPU3D_F32_EVAL"] = "1"
     from tpu3d_torch.config import cfg_from_file, fresh_cfg
     from tpu3d_torch.datasets import random_scenes, train_batch
     from tpu3d_torch.models import PointRCNN
@@ -4239,7 +4711,7 @@ def main() -> int:
                 print(f"  ptxas {name}: {line.split(' for ')[-1][:72]}")
             elif "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
-    for name in _build.KERNELS:
+    for name in (*_build.KERNELS, *_build.BF16_KERNELS):
         _build.kernel(name)
     phases.done("2 (build)")
 
@@ -4700,7 +5172,17 @@ def main() -> int:
     phases.done("17 (USE_INTENSITY, default_people, roofline, dispatch, "
                 "trace, loader)")
 
-    # 18. kernels line and result line: launches from the path each kernel
+    # 18. the eval numerics contract: the card's default against
+    # TPU3D_F32_EVAL=1, the bf16 forms against their plain versions
+    if f32_before is None:
+        os.environ.pop("TPU3D_F32_EVAL")
+    else:
+        os.environ["TPU3D_F32_EVAL"] = f32_before
+    torch.cuda.empty_cache()
+    bf16_report, bf16_launches, numerics = eval_numerics(smi[0])
+    phases.done("18 (eval numerics contract)")
+
+    # 19. kernels line and result line: launches from the path each kernel
     # was timed at (per forward or per train step), and on the other paths
     runs = {"default.yaml eval B=2": launches,
             "default.yaml train B=16": train_launches,
@@ -4758,7 +5240,23 @@ def main() -> int:
                 if inputs:
                     row[at]["inputs"] = inputs
         kernels.append(row)
-    check(len(kernels) == len(SOURCES), f"kernels timed: {len(kernels)}")
+    # the bf16 forms: launches on the path of phase 18 each was timed at
+    bf16_paths = {"three_interpolate_bf16": "default.yaml eval B=2",
+                  "fused_sa_bf16": "default.yaml eval B=2",
+                  "fused_sa_slab_bf16": QUICK_PATH["eval"],
+                  "fused_sa_slab_bn_bf16": BN_PATH}
+    for name in bf16_report.rows:
+        kernels.append({
+            "name": name, "route": "cuda", "source": BF16_SOURCES[name][0],
+            "replaces": BF16_SOURCES[name][1],
+            "launches": bf16_launches[name], "path": bf16_paths[name],
+            "contract": "the card's default eval contract (bf16)",
+            "launches_by_config": {
+                label: row["launches"].get(name, 0)
+                for label, row in numerics["configs"].items()},
+            **bf16_report.row(name), "status": "ported"})
+    check(len(kernels) == len(SOURCES) + len(BF16_SOURCES),
+          f"kernels timed: {len(kernels)}")
     print(json.dumps({"kernels": kernels, "not_ported": [
         {"replaces": rep, "status": st} for rep, st in NOT_PORTED],
         "fused_sa_bwd_full_spread": {
@@ -4776,7 +5274,7 @@ def main() -> int:
         "bn_train_step": {"path": BN_TRAIN_PATH, "ms": bstep_ms,
                           "peak_gib": bpeak},
         "training_cli": cli, "eval_cli": ecli, "paper_slice": paper,
-        "last_modules": last,
+        "last_modules": last, "eval_numerics": numerics,
         "data_parallel": {k: v for k, v in dp.items() if not k.startswith(
             "ddp_")},
         "widened_shapes": {"shapes": WIDE_SHAPES,

@@ -850,3 +850,95 @@ def test_fused_sa_bwd_fixed_order_on_cuda(spread):
     want = fs.reached_rows_sum(tuple(args[0].shape), args[1].cpu(),
                                dval.cpu(), arg.cpu(), rows[0].cpu())
     assert torch.equal(first[0].cpu(), want)
+
+
+# the bf16 eval forms (precision.py's accelerator contract): kernel 3 equal
+# to its plain version to the bit (exact products, the same f32 sums in
+# neighbour order), the fused forms within 2^-6 of the plain output's
+# largest value (their f32 sums run in the tensor cores' order, so an x1 or
+# x2 can round to the other bf16 neighbour: a step or two at the output)
+BF16_FUSED = [(64, 128, 64, 128, 128, 128), (64, 32, 64, 128, 128, 256),
+              (16, 32, 16, 128, 128, 256), (8, 16, 24, 128, 256, 128),
+              (8, 8, 128, 256, 128, 384)]
+
+
+def _bf16_fused_inputs(shape, seed):
+    R, M, S, C1, C2, C3 = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*s, scale=1.0):
+        return torch.randn(*s, generator=g, device="cuda") * scale
+
+    return (randn(R, M, S, C1).to(torch.bfloat16),
+            randn(C1, C2, scale=C1 ** -0.5), randn(C2, scale=0.1),
+            randn(C2, C3, scale=C2 ** -0.5), randn(C3, scale=0.1), g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("round_w", [True, False])
+@pytest.mark.parametrize("c", [256, 20])
+def test_three_interpolate_bf16_on_cuda(round_w, c):
+    """Kernel 3's bf16 form (both outputs, vector and scalar lanes) equal
+    to its plain version on the same card tensors, counted once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from tpu3d_torch.ops.interpolate import (three_interpolate_bf16,
+                                             three_interpolate_bf16_plain)
+    rng = np.random.default_rng(3)
+    xyz = torch.from_numpy(_cloud(rng, 2, 4096)).cuda()
+    _, d2, idx = furthest_point_sample_with_3nn(xyz, 1024)
+    w = torch.rand(2, 4096, 3, device="cuda")
+    w = w / w.sum(-1, keepdim=True)
+    feats = torch.randn(2, 1024, c, device="cuda").to(torch.bfloat16)
+    _build.reset_launches()
+    got = three_interpolate_bf16(feats, idx, w, round_w)
+    assert _build.BF16_LAUNCHES["three_interpolate_bf16"] == 1
+    want = three_interpolate_bf16_plain(feats, idx, w, round_w)
+    assert got.dtype == want.dtype
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fused_sa_bf16", "fused_sa_slab_bf16",
+                                  "fused_sa_slab_bn_bf16"])
+@pytest.mark.parametrize("shape", BF16_FUSED, ids=str)
+def test_fused_bf16_forms_on_cuda(name, shape):
+    """Each fused bf16 form against its plain version on the card: S 64
+    (default's SA_0 and SA_1), 16 (smoke), 24 (a masked chunk tail) and
+    128 (two chunks), within 2^-6 of the largest value, counted once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    R, M, S, C1, C2, C3 = shape
+    x0, w1, b1, w2, b2, g = _bf16_fused_inputs(shape, 21)
+    _build.reset_launches()
+    if name == "fused_sa_bf16":
+        N = 256
+        pre = torch.randn(R, N, C1, generator=g, device="cuda").to(
+            torch.bfloat16)
+        idx = torch.randint(0, N, (R, M, S), generator=g, device="cuda",
+                            dtype=torch.int32)
+        center = (0.5 * torch.randn(R, M, C1, generator=g, device="cuda")).to(
+            torch.bfloat16)
+        args = (pre, idx, center, w1, b1, w2, b2)
+        got = fs.fused_gathered_mlp_pool_bf16(*args)
+        want = fs.fused_gathered_mlp_pool_bf16_plain(*args)
+    elif name == "fused_sa_slab_bf16":
+        got = fs.fused_mlp_pool_bf16(x0, w1, b1, w2, b2)
+        want = fs.fused_mlp_pool_bf16_plain(x0, w1, b1, w2, b2)
+    else:
+        gammas = [torch.rand(c, generator=g, device="cuda") + 0.5
+                  for c in (C1, C2, C3)]
+        betas = [0.2 * torch.randn(c, generator=g, device="cuda")
+                 for c in (C1, C2, C3)]
+        stats = [(0.2 * torch.randn(c, generator=g, device="cuda"),
+                  torch.rand(c, generator=g, device="cuda") + 0.5)
+                 for c in (C1, C2, C3)]
+        got = fs.fused_bn_mlp_pool_bf16(x0, w1, w2, gammas, betas, stats)
+        packs = bn_packs([_bn_affine(m, v, gm, bt, 1e-5)[:2] for (m, v), gm,
+                          bt in zip(stats, gammas, betas)])
+        want = fs.fused_sa_slab_bn_bf16_plain(x0, packs, w1, w2)
+    torch.cuda.synchronize()
+    assert _build.BF16_LAUNCHES[name] == 1
+    assert got.dtype == torch.bfloat16 and got.shape == (R, M, C3)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2.0 ** -6 * want.float().abs().max().item(), err

@@ -89,6 +89,43 @@ def test_roofline_main_analytic_rows(capsys):
     assert set(breakdown) == {"breakdown_fwd_eval", "breakdown_fwd_train"}
 
 
+@pytest.mark.parametrize("contract", ["accelerator", "bf16_dense"])
+def test_roofline_mfu_per_product_type(contract):
+    """MFU against the peak of the type each product runs in: under the
+    accelerator's contract the fused RCNN levels' layers 1-2 (default.yaml:
+    SA_0 and SA_1 on the gather route) count against 989 TFLOP/s and the
+    rest against 67; under BF16_INFERENCE every product is bf16. The ideal
+    time is the sum of the two shares; the train row stays float32."""
+    from tpu3d_torch.precision import Precision
+
+    prec = (Precision(sa_bf16=True, fp_bf16=True, roi_bf16=True)
+            if contract == "accelerator"
+            else Precision(dense_dtype=torch.bfloat16))
+    cfg = roofline.default_cfg(os.path.join(ROOT, "configs",
+                                            "default.yaml"))
+    rows = roofline.report(cfg, 100.0, 400.0, 8, 16, counted=False,
+                           device="cpu", precision=prec)
+    ev, tr = rows[0], rows[1]
+    total = roofline.program_flops(cfg, "eval", 8)["total_matmul_flops"]
+    if contract == "accelerator":
+        n = 8 * cfg.TEST.RPN_POST_NMS_TOP_N
+        mlps = cfg.RCNN.SA_CONFIG.MLPS
+        bf16 = (2.0 * n * 128 * 64 * (mlps[0][0] * mlps[0][1]
+                                      + mlps[0][1] * mlps[0][2])
+                + 2.0 * n * 32 * 64 * (mlps[1][0] * mlps[1][1]
+                                       + mlps[1][1] * mlps[1][2]))
+    else:
+        bf16 = total
+    assert math.isclose(ev["bf16_matmul_tflop_per_step"] * 1e12, bf16)
+    ideal = bf16 / 989e12 + (total - bf16) / 67e12
+    assert math.isclose(ev["mfu_pct"], round(100 * ideal / 0.1, 2))
+    assert ev["mfu_pct"] < round(100 * total / 0.1 / 67e12, 2)
+    assert ev["precision"] == str(prec)
+    flops = roofline.program_flops(cfg, "train", 16)["total_matmul_flops"]
+    assert tr["bf16_matmul_tflop_per_step"] == 0.0
+    assert math.isclose(tr["mfu_pct"], round(100 * flops / 0.4 / 67e12, 2))
+
+
 def test_flop_counter_counts_the_eval_batch():
     """FlopCounterMode over smoke.yaml's joint eval batch (B=2) on the
     CPU: more than zero, at most the analytic matmul count plus the other

@@ -47,9 +47,11 @@ def _default_cfg() -> AttrDict:
     c.CLASSES = "Car"
     c.INCLUDE_SIMILAR_TYPE = False
     # BF16_INFERENCE and TRAIN.{REMAT, BF16_ACTIVATIONS, BF16_MATMULS} are
-    # knobs of the JAX package's TPU paths (no reference counterpart). They
-    # stay in the tree so that the same YAML files load; the port works in
-    # f32 and reads none of them.
+    # the JAX package's precision knobs (no reference counterpart).
+    # BF16_INFERENCE puts every Dense of an eval forward in bf16, on any
+    # device (precision.resolve reads it). The TRAIN keys stay unread until
+    # the training half of the numerics contract is ported: training runs
+    # in f32. They stay in the tree so that the same YAML files load.
     c.BF16_INFERENCE = False
 
     c.AUG_DATA = True

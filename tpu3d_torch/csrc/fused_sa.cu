@@ -568,3 +568,7 @@ extern "C" int tpu3d_fused_sa_slab_train(const float* x0, const float* packs,
       slab_args(x0, packs, w1, w2, C1, C2, C3, out, argmax, ppre), R, 0, M,
       S, C1, C2, C3, G, stream_ptr);
 }
+
+// the bf16 eval forms of the three entries above (the accelerator's
+// numerics contract), in their own namespace
+#include "fused_sa_bf16.cuh"

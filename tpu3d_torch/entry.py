@@ -80,14 +80,17 @@ def detection_surgery(state: dict, rpn_bias=2.0, rcnn_bias=3.0) -> dict:
 
 def entry(device=None):
     """-> (fn, example_args): the joint eval forward of ``_tiny_cfg`` with
-    seeded weights on ``device`` (the card by default), returning
-    (rcnn_cls, rcnn_reg, rois)."""
+    seeded weights on ``device`` (the card by default), under the eval
+    numerics contract resolved for that device (``precision.resolve``),
+    returning (rcnn_cls, rcnn_reg, rois)."""
     from .device import resolve_device
     from .models import PointRCNN
+    from .precision import resolve
     from .weights import seeded_state_dict
 
     dev = resolve_device(device)
     cfg = _tiny_cfg(rcnn=True)
+    prec = resolve(dev, cfg)
     model = PointRCNN(cfg, mode="TEST", device=dev)
     model.load_state_dict(seeded_state_dict(model, 0))
     rng = np.random.default_rng(0)
@@ -97,7 +100,7 @@ def entry(device=None):
 
     @torch.no_grad()
     def fn(pts_input):
-        out = model({"pts_input": pts_input})
+        out = model({"pts_input": pts_input}, precision=prec)
         return out["rcnn_cls"], out["rcnn_reg"], out["rois"]
 
     return fn, (pts,)

@@ -28,7 +28,8 @@ from torch import nn
 from ..config.config import as_attrdict
 from ..device import resolve_device
 from ..ops.box_geometry import rotate_points_along_y
-from ..ops.roipool import roipool3d
+from ..ops.roipool import bf16_table, roipool3d, roipool3d_table
+from ..precision import F32, Precision
 from .proposal import proposal_layer
 from .proposal_target import proposal_target_layer
 from .rcnn import RCNNNet
@@ -106,17 +107,27 @@ class PointRCNN(nn.Module):
 
     @torch.no_grad()
     def pool_rois(self, backbone_xyz, backbone_features, rpn_scores_raw,
-                  rois, rpn_intensity=None):
+                  rois, rpn_intensity=None, precision: Precision = F32):
         """ROI pooling and the canonical transform (reference:
         rcnn_net.py:146-152) -> (xyz (B·M, K, 3) in each ROI's frame, rest
-        (B·M, K, C_extra + C_rpn), empty (B, M), seg mask (B, N))."""
+        (B·M, K, C_extra + C_rpn), empty (B, M), seg mask (B, N)). With
+        ``precision.roi_bf16`` one gather of a bf16 table whose coordinates
+        ride as a hi/lo pair (tpu3d: point_rcnn.py:108-128): rest is then
+        bf16 and xyz hi + lo in f32."""
         c = self.cfg
         extra, seg_mask = rcnn_extra_features(c, rpn_scores_raw, backbone_xyz,
                                               rpn_intensity)
         pts_feature = torch.cat([extra, backbone_features], dim=-1)
-        pooled_xyz, pooled_feats, empty = roipool3d(
-            backbone_xyz, pts_feature, rois, float(c.RCNN.POOL_EXTRA_WIDTH),
-            int(c.RCNN.NUM_POINTS))
+        width, k = float(c.RCNN.POOL_EXTRA_WIDTH), int(c.RCNN.NUM_POINTS)
+        if precision.roi_bf16:
+            pooled, empty = roipool3d_table(
+                backbone_xyz, bf16_table(backbone_xyz, pts_feature), rois,
+                width, k)
+            pooled_xyz = pooled[..., 0:3].float() + pooled[..., 3:6].float()
+            pooled_feats = pooled[..., 6:]
+        else:
+            pooled_xyz, pooled_feats, empty = roipool3d(
+                backbone_xyz, pts_feature, rois, width, k)
         pooled_xyz = rotate_points_along_y(
             pooled_xyz - rois[..., None, 0:3], rois[..., 6][..., None])
         k = pooled_xyz.shape[2]
@@ -126,23 +137,25 @@ class PointRCNN(nn.Module):
 
     @torch.no_grad()
     def rcnn_stage(self, backbone_xyz, backbone_features, rpn_scores_raw,
-                   rois, rpn_intensity=None) -> dict:
+                   rois, rpn_intensity=None,
+                   precision: Precision = F32) -> dict:
         """The joint branch after the proposal layer: (B, N, 3), (B, N, C),
         (B, N) raw RPN scores, (B, M, 7) rois and, for a model built with
         ``intensity_input``, (B, N) ``rpn_intensity`` -> rcnn_cls (B·M, 1),
         rcnn_reg (B·M, C_reg), pooled_empty_flag (B, M) and seg_result
-        (B, N) f32."""
+        (B, N) f32; ``precision`` the eval numerics contract."""
         xyz, rest, empty, seg_mask = self.pool_rois(
             backbone_xyz, backbone_features, rpn_scores_raw, rois,
-            self.rpn_intensity(rpn_intensity))
-        out = self.rcnn_net(xyz, rest)
+            self.rpn_intensity(rpn_intensity), precision)
+        out = self.rcnn_net(xyz, rest, precision=precision)
         out["pooled_empty_flag"] = empty
         out["seg_result"] = seg_mask
         return out
 
     def forward(self, input_dict: dict, train: bool = False,
                 bn_momentum: float = 0.9,
-                generator: torch.Generator | None = None) -> dict:
+                generator: torch.Generator | None = None,
+                precision: Precision = F32) -> dict:
         """``input_dict["pts_input"]`` (B, N, 3) -> the output dict; with
         ``RCNN.USE_INTENSITY`` and ``intensity_input`` also
         ``input_dict["rpn_intensity"]`` (B, N). In
@@ -153,16 +166,20 @@ class PointRCNN(nn.Module):
         RCNN-offline (``RPN.ENABLED`` False): ``pts_input`` is the loader's
         pooled canonical points, (B·M, K, 3 + C_extra + C_rpn), and the
         output holds ``rcnn_cls`` and ``rcnn_reg`` (tpu3d:
-        point_rcnn.py:152-157)."""
+        point_rcnn.py:152-157). ``precision``: the eval numerics contract
+        (``precision.resolve``; f32 by default, and training is f32)."""
+        if train and not precision.is_f32:
+            raise ValueError("training runs in f32: the bf16 contract is an "
+                             "eval contract")
         if not self.cfg.RPN.ENABLED:
             pts = input_dict["pts_input"]
             with torch.set_grad_enabled(train and torch.is_grad_enabled()):
                 return dict(self.rcnn_net(pts[..., :3].contiguous(),
                                           pts[..., 3:], train, bn_momentum,
-                                          generator))
+                                          generator, precision))
         if train:
             return self._forward_train(input_dict, bn_momentum, generator)
-        return self._forward_eval(input_dict)
+        return self._forward_eval(input_dict, precision)
 
     def _forward_train(self, input_dict, bn_momentum, generator) -> dict:
         c = self.cfg
@@ -198,9 +215,9 @@ class PointRCNN(nn.Module):
         return output
 
     @torch.no_grad()
-    def _forward_eval(self, input_dict: dict) -> dict:
+    def _forward_eval(self, input_dict: dict, precision: Precision) -> dict:
         c = self.cfg
-        output = dict(self.rpn(input_dict["pts_input"]))
+        output = dict(self.rpn(input_dict["pts_input"], precision=precision))
         rpn_scores_raw = output["rpn_cls"][:, :, 0]
         rois, roi_scores_raw, roi_valid = proposal_layer(
             rpn_scores_raw, output["rpn_reg"], output["backbone_xyz"], c,
@@ -214,5 +231,5 @@ class PointRCNN(nn.Module):
             return output
         output.update(self.rcnn_stage(
             output["backbone_xyz"], output["backbone_features"],
-            rpn_scores_raw, rois, input_dict.get("rpn_intensity")))
+            rpn_scores_raw, rois, input_dict.get("rpn_intensity"), precision))
         return output

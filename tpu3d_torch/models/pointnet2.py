@@ -38,6 +38,20 @@ chosen from its shapes alone and the same on every device
   then update the running ones;
 - plain: the SharedMLP and a max, otherwise (other widths or group shapes,
   and the GroupAll).
+
+Every forward takes a ``precision.Precision``, the eval numerics contract
+its entry point resolved (f32 by default). Under the accelerator's contract
+it rounds where tpu3d's TPU path rounds (``tpu3d/models/pointnet2.py``):
+the scene-frame pre-grouped levels cast their grouped pre-activations to
+bf16 after the per-center subtraction (``:380-383``), the canonical RCNN
+levels round the per-point pre-activations before the gather
+(``:348-352``, ``gather_spec`` ``:389-411``) and their fused routes take
+the bf16 kernels (whose layer boundaries round to bf16 and whose output is
+bf16), and feature propagation casts its source features to bf16
+(``:505-513``). A Dense with a compute dtype (``BF16_INFERENCE``) runs in
+bf16 and BatchNorm's folded affine applies in the activation's dtype
+(``:90-99``). A bf16 activation into an f32 layer computes in f32, as
+flax promotes it. Under the f32 contract every step is today's f32 one.
 """
 
 from __future__ import annotations
@@ -52,7 +66,11 @@ from ..ops import (ball_query, ball_query_from_nearest,
                    fused_bn_mlp_pool, fused_gathered_mlp_pool, fused_mlp_pool,
                    gather_points, group_points, interpolation_weights,
                    nearest_k, sa_route, three_interpolate)
+from ..ops.fused_sa import (fused_bn_mlp_pool_bf16,
+                            fused_gathered_mlp_pool_bf16, fused_mlp_pool_bf16)
+from ..ops.interpolate import rounds_weights, three_interpolate_bf16
 from ..parallel.mesh import batch_means
+from ..precision import F32, Precision, linear, promote_f32
 
 
 class BatchNorm(nn.Module):
@@ -87,8 +105,10 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False,
                 momentum: float = 0.9) -> torch.Tensor:
         if not train:
+            # applied in the activation's dtype (bf16 under BF16_INFERENCE
+            # or after the accelerator's casts), as tpu3d folds it
             mul, add = self.affine()
-            return x * mul + add
+            return x * mul.to(x.dtype) + add.to(x.dtype)
         axes = tuple(range(x.dim() - 1))
         mean, sq = batch_means((x, x * x), axes)
         var = sq - mean * mean
@@ -116,12 +136,17 @@ class SharedMLP(nn.Module):
 
     def forward(self, x: torch.Tensor | None,
                 pre0: torch.Tensor | None = None, train: bool = False,
-                bn_momentum: float = 0.9) -> torch.Tensor:
+                bn_momentum: float = 0.9,
+                dtype: torch.dtype | None = None) -> torch.Tensor:
         """``pre0``, when given, is layer 0's pre-activation, computed by
-        the caller with ``dense_0`` (``x`` is then ignored)."""
+        the caller with ``dense_0`` (``x`` is then ignored). ``dtype``: the
+        Dense layers' compute dtype (``precision.linear``)."""
         for i in range(self.n):
-            x = pre0 if (i == 0 and pre0 is not None) else \
-                getattr(self, f"dense_{i}")(x)
+            if i == 0 and pre0 is not None:
+                x = pre0
+            else:
+                dense = getattr(self, f"dense_{i}")
+                x = linear(x, dense.weight, dense.bias, dtype)
             if self.bn:
                 x = getattr(self, f"bn_{i}")(x, train, bn_momentum)
             x = torch.relu(x)
@@ -145,10 +170,13 @@ class PointnetSAModuleMSG(nn.Module):
 
     def forward(self, xyz: torch.Tensor, features: torch.Tensor | None,
                 new_xyz: torch.Tensor, train: bool = False,
-                bn_momentum: float = 0.9) -> torch.Tensor:
+                bn_momentum: float = 0.9,
+                precision: Precision = F32) -> torch.Tensor:
         """xyz (B, N, 3), features (B, N, C) or None, new_xyz (B, npoint, 3)
         -> (B, npoint, ΣC_out)."""
         B, N, _ = xyz.shape
+        dt = precision.dense_dtype
+        lowp = precision.sa_bf16 or dt is not None
         if features is None:
             # the candidates' coordinates come with them, for every scale
             d2, cand, cand_xyz = nearest_k(new_xyz, xyz, max(self.nsamples),
@@ -157,7 +185,9 @@ class PointnetSAModuleMSG(nn.Module):
         else:
             d2, cand = nearest_k(new_xyz, xyz, max(self.nsamples),
                                  max_radius=max(self.radii))
-            inp = torch.cat([xyz, features], dim=-1)
+            # layer 0's input dtype (tpu3d's cdt)
+            cdt = dt or features.dtype
+            inp = torch.cat([xyz.to(cdt), features.to(cdt)], dim=-1)
         outs = []
         for i, (radius, nsample) in enumerate(zip(self.radii, self.nsamples)):
             mlp = getattr(self, f"mlp_{i}")
@@ -171,17 +201,45 @@ class PointnetSAModuleMSG(nn.Module):
                                     xyz[:, 0][:, None, None, :])
                 grouped = (torch.where(hit[..., None], c_xyz, first)
                            - new_xyz[:, :, None, :])
-                out = mlp(grouped, train=train, bn_momentum=bn_momentum)
+                out = mlp(grouped, train=train, bn_momentum=bn_momentum,
+                          dtype=dt)
             else:
                 idx = ball_query_from_nearest(d2, cand, radius, nsample, N)
                 dense0 = mlp.dense_0
-                # a layer-0 bias (no-BN MLPs) rides the gathered term once;
-                # the center term W_x@c carries none
-                x = group_points(dense0(inp), idx)
-                x = x - (new_xyz @ dense0.weight[:, :3].T)[:, :, None, :]
-                out = mlp(None, pre0=x, train=train, bn_momentum=bn_momentum)
+                if lowp:
+                    x = _pregroup_lowp(inp, new_xyz.to(cdt), idx, dense0,
+                                       dt, precision.sa_bf16)
+                else:
+                    # a layer-0 bias (no-BN MLPs) rides the gathered term
+                    # once; the center term W_x@c carries none
+                    x = group_points(dense0(inp), idx)
+                    x = x - (new_xyz @ dense0.weight[:, :3].T)[:, :, None, :]
+                out = mlp(None, pre0=x, train=train, bn_momentum=bn_momentum,
+                          dtype=dt)
             outs.append(out.amax(dim=2))
         return torch.cat(outs, dim=-1)
+
+
+def _layer0_terms(inp, center_xyz, dense0, dt):
+    """The pre-grouped layer 0's two terms in tpu3d's arithmetic (``pre0``,
+    ``gather_spec``), each in the Dense dtype ``dt``: the per-point
+    pre-activations Dense(inp) and the per-center Dense([c, 0]), the bias
+    in both -> (pre, center)."""
+    return (linear(inp, dense0.weight, dense0.bias, dt),
+            linear(center_xyz, dense0.weight[:, :3], dense0.bias, dt))
+
+
+def _pregroup_lowp(inp, center_xyz, idx, dense0, dt, cast):
+    """A scene-frame pre-grouped layer 0 in tpu3d's arithmetic (``pre0``):
+    pre gathered exactly, minus its center term, plus the bias back, then,
+    with ``cast``, rounded to bf16 after the cancellation."""
+    pre, center = _layer0_terms(inp, center_xyz, dense0, dt)
+    x = group_points(pre, idx) - center[:, :, None, :].to(pre.dtype)
+    if dense0.bias is not None:
+        x = x + dense0.bias.to(x.dtype)
+    if cast and x.dtype == torch.float32:
+        x = x.to(torch.bfloat16)
+    return x
 
 
 class PointnetSAModule(nn.Module):
@@ -210,18 +268,43 @@ class PointnetSAModule(nn.Module):
         center = new_xyz @ dense0.weight[:, :3].T
         return new_xyz, pre, idx, center
 
+    def group_inputs_lowp(self, xyz: torch.Tensor, features: torch.Tensor,
+                          dt: torch.dtype | None):
+        """``group_inputs`` in tpu3d's arithmetic (``pre0`` /
+        ``gather_spec``): layer 0 in the Dense dtype ``dt`` on inputs cast
+        to tpu3d's cdt (``dt``, else the features' dtype, so bf16 SA
+        features round the coordinates too), its center term with the bias
+        (W_x@c + b), and the bias alone -> (new_xyz, pre, idx, center,
+        bias or None)."""
+        new_xyz = gather_points(xyz, furthest_point_sample(xyz, self.npoint))
+        idx = ball_query(new_xyz, xyz, self.radius, self.nsample)
+        dense0 = self.mlp_0.dense_0
+        cdt = dt or features.dtype
+        pre, center = _layer0_terms(
+            torch.cat([xyz.to(cdt), features.to(cdt)], dim=-1),
+            new_xyz.to(cdt), dense0, dt)
+        bias = None if dense0.bias is None else dense0.bias.to(pre.dtype)
+        return new_xyz, pre, idx, center, bias
+
     def forward(self, xyz: torch.Tensor, features: torch.Tensor,
-                train: bool = False, bn_momentum: float = 0.9):
+                train: bool = False, bn_momentum: float = 0.9,
+                precision: Precision = F32):
         """xyz (B, N, 3), features (B, N, C) -> (new_xyz (B, npoint, 3), or
         None for GroupAll, and features (B, npoint or 1, C_out))."""
+        dt = precision.dense_dtype
         if self.npoint is None:
-            grouped = torch.cat([xyz, features], dim=-1)[:, None]
+            common = torch.promote_types(xyz.dtype, features.dtype)
+            grouped = torch.cat([xyz.to(common), features.to(common)],
+                                dim=-1)[:, None]
             return None, self.mlp_0(grouped, train=train,
-                                    bn_momentum=bn_momentum).amax(dim=2)
-        new_xyz, pre, idx, center = self.group_inputs(xyz, features)
+                                    bn_momentum=bn_momentum,
+                                    dtype=dt).amax(dim=2)
         m = self.mlp_0
         route = sa_route((xyz.shape[0], self.npoint, self.nsample,
                           self.mlp[0]), self.mlp, xyz.shape[1], m.bn)
+        if precision.sa_bf16 or dt is not None:
+            return self._forward_lowp(xyz, features, route, precision)
+        new_xyz, pre, idx, center = self.group_inputs(xyz, features)
         if route != "plain" and not m.bn:
             w1 = m.dense_1.weight.T.contiguous()
             w2 = m.dense_2.weight.T.contiguous()
@@ -236,6 +319,42 @@ class PointnetSAModule(nn.Module):
                                            m.dense_2.bias)
         return new_xyz, m(None, pre0=x, train=train,
                           bn_momentum=bn_momentum).amax(dim=2)
+
+    def _forward_lowp(self, xyz, features, route, precision):
+        """The eval forward under a bf16 contract, in tpu3d's arithmetic:
+        with ``sa_bf16`` the per-point pre-activations rounded to bf16
+        before the gather and the fused routes on the bf16 kernels (tpu3d
+        fuses only where it casts); otherwise (``BF16_INFERENCE`` alone)
+        the plain route with bf16 Dense layers."""
+        dt = precision.dense_dtype
+        new_xyz, pre, idx, center, bias = self.group_inputs_lowp(
+            xyz, features, dt)
+        m = self.mlp_0
+        fused = precision.sa_bf16 and route != "plain"
+        if fused and route == "gather":
+            # the kernel subtracts the center term less the restored bias
+            if bias is not None:
+                center = center - bias
+            return new_xyz, fused_gathered_mlp_pool_bf16(
+                pre.to(torch.bfloat16), idx, center.to(torch.bfloat16),
+                m.dense_1.weight.T, m.dense_1.bias, m.dense_2.weight.T,
+                m.dense_2.bias)
+        if precision.sa_bf16:
+            pre = pre.to(torch.bfloat16)
+        x = group_points(pre, idx) - center[:, :, None, :].to(pre.dtype)
+        if bias is not None:
+            x = x + bias.to(x.dtype)
+        if fused and m.bn:
+            bns = [getattr(m, f"bn_{i}") for i in range(3)]
+            return new_xyz, fused_bn_mlp_pool_bf16(
+                x, m.dense_1.weight.T, m.dense_2.weight.T,
+                [bn.scale for bn in bns], [bn.bias for bn in bns],
+                [(bn.mean, bn.var) for bn in bns], bns[0].eps)
+        if fused:
+            return new_xyz, fused_mlp_pool_bf16(
+                x, m.dense_1.weight.T, m.dense_1.bias, m.dense_2.weight.T,
+                m.dense_2.bias)
+        return new_xyz, m(None, pre0=x, dtype=dt).amax(dim=2)
 
     def _bn_slab(self, x, train, bn_momentum):
         """The slab route with BatchNorm (``fused_bn_mlp_pool``) on the
@@ -271,16 +390,29 @@ class PointnetFPModule(nn.Module):
 
     def forward(self, unknown_feats: torch.Tensor | None,
                 known_feats: torch.Tensor, cached_nn, train: bool = False,
-                bn_momentum: float = 0.9) -> torch.Tensor:
+                bn_momentum: float = 0.9,
+                precision: Precision = F32) -> torch.Tensor:
         d2, idx = cached_nn
         # the weights are constants of the coordinates, as in tpu3d
         # (pointnet2.py:504): no gradient flows into them
         weight = interpolation_weights(
             torch.sqrt(torch.clamp(d2, min=0.0))).detach()
-        x = three_interpolate(known_feats, idx, weight)
+        if precision.fp_bf16 and known_feats.dtype == torch.float32:
+            known_feats = known_feats.to(torch.bfloat16)
+        if known_feats.dtype == torch.bfloat16:
+            # tpu3d's TPU routes round the weights too; its gather route
+            # (and the CPU) keeps them f32 and writes f32
+            B, N, C = known_feats.shape
+            x = three_interpolate_bf16(
+                known_feats, idx, weight,
+                precision.fp_bf16 and rounds_weights(N, C, idx.shape[1]))
+        else:
+            x = three_interpolate(known_feats, idx, weight)
         if unknown_feats is not None:
-            x = torch.cat([x, unknown_feats], dim=-1)
-        return self.mlp(x, train=train, bn_momentum=bn_momentum)
+            common = torch.promote_types(x.dtype, unknown_feats.dtype)
+            x = torch.cat([x.to(common), unknown_feats.to(common)], dim=-1)
+        return self.mlp(x, train=train, bn_momentum=bn_momentum,
+                        dtype=precision.dense_dtype)
 
 
 class Pointnet2MSG(nn.Module):
@@ -305,8 +437,9 @@ class Pointnet2MSG(nn.Module):
                 known_c + level_c[i], fp_mlps[i], bn=bn, device=device))
 
     def forward(self, pts_input: torch.Tensor, train: bool = False,
-                bn_momentum: float = 0.9):
-        """(B, N, 3 + C) -> (xyz (B, N, 3), features (B, N, C_fp0))."""
+                bn_momentum: float = 0.9, precision: Precision = F32):
+        """(B, N, 3 + C) -> (xyz (B, N, 3), features (B, N, C_fp0)), the
+        features promoted to f32 where the contract left them bf16."""
         xyz = pts_input[..., 0:3].contiguous()
         features = (pts_input[..., 3:].contiguous()
                     if pts_input.shape[-1] > 3 else None)
@@ -319,10 +452,11 @@ class Pointnet2MSG(nn.Module):
             new_xyz = gather_points(l_xyz[k], fps_idx)
             cached_nn.append((nn_d2, nn_idx))
             l_features.append(getattr(self, f"sa_{k}")(
-                l_xyz[k], l_features[k], new_xyz, train, bn_momentum))
+                l_xyz[k], l_features[k], new_xyz, train, bn_momentum,
+                precision))
             l_xyz.append(new_xyz)
         for i in range(self.n_fp - 1, -1, -1):
             l_features[i] = getattr(self, f"fp_{i}")(
                 l_features[i], l_features[i + 1], cached_nn[i], train,
-                bn_momentum)
-        return l_xyz[0], l_features[0]
+                bn_momentum, precision)
+        return l_xyz[0], promote_f32(l_features[0])

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..precision import F32, Precision
 from .bbox_codec import reg_channels
 from .pointnet2 import PointnetSAModule, SharedMLP
 from .rpn import HeadMLP
@@ -64,29 +65,38 @@ class RCNNNet(nn.Module):
                                 dp_ratio=c.DP_RATIO, device=device)
 
     def point_features(self, xyz: torch.Tensor, rest: torch.Tensor,
-                       train: bool = False,
-                       bn_momentum: float = 0.9) -> torch.Tensor:
-        """(R, K, 3), (R, K, C) -> the SA levels' input features (R, K, C')."""
+                       train: bool = False, bn_momentum: float = 0.9,
+                       dtype: torch.dtype | None = None) -> torch.Tensor:
+        """(R, K, 3), (R, K, C) -> the SA levels' input features (R, K, C').
+        ``rest`` may be bf16 (the accelerator's pooled table): its extra
+        channels join the f32 xyz block in f32, its RPN features the xyz
+        block's output in that output's dtype, as in tpu3d (rcnn.py:50-59).
+        ``dtype``: the Dense compute dtype."""
         if not self.use_rpn_features:
             return rest
         xyz_feature = self.xyz_up(
-            torch.cat([xyz, rest[..., :self.n_ext]], -1), train=train,
-            bn_momentum=bn_momentum)
+            torch.cat([xyz, rest[..., :self.n_ext].to(xyz.dtype)], -1),
+            train=train, bn_momentum=bn_momentum, dtype=dtype)
         return self.merge_down(
-            torch.cat([xyz_feature, rest[..., self.n_ext:]], dim=-1),
-            train=train, bn_momentum=bn_momentum)
+            torch.cat([xyz_feature,
+                       rest[..., self.n_ext:].to(xyz_feature.dtype)], dim=-1),
+            train=train, bn_momentum=bn_momentum, dtype=dtype)
 
     def forward(self, xyz: torch.Tensor, rest: torch.Tensor,
                 train: bool = False, bn_momentum: float = 0.9,
-                generator: torch.Generator | None = None) -> dict:
+                generator: torch.Generator | None = None,
+                precision: Precision = F32) -> dict:
         """xyz (R, K, 3), rest (R, K, C) -> rcnn_cls (R, 1), rcnn_reg
         (R, C_reg). ``train`` only matters to a config with ``USE_BN`` or a
-        non-zero ``DP_RATIO``; default.yaml has neither."""
-        features = self.point_features(xyz, rest, train, bn_momentum)
+        non-zero ``DP_RATIO``; default.yaml has neither. ``precision``: the
+        eval numerics contract (tpu3d: models/rcnn.py:39-60)."""
+        dt = precision.dense_dtype
+        features = self.point_features(xyz, rest, train, bn_momentum, dt)
         for k in range(self.n_sa):
             xyz, features = getattr(self, f"sa_{k}")(xyz, features, train,
-                                                     bn_momentum)
+                                                     bn_momentum, precision)
         feat = features[:, 0, :]  # the final GroupAll leaves one group
-        return {"rcnn_cls": self.cls_head(feat, train, bn_momentum, generator),
+        return {"rcnn_cls": self.cls_head(feat, train, bn_momentum, generator,
+                                          dt),
                 "rcnn_reg": self.reg_head(feat, train, bn_momentum,
-                                          generator)}
+                                          generator, dt)}

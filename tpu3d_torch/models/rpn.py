@@ -8,6 +8,7 @@ from torch import nn
 
 from ..config.config import as_attrdict
 from ..parallel.mesh import draw_rows
+from ..precision import F32, Precision, linear, promote_f32
 from .bbox_codec import reg_channels
 from .pointnet2 import BatchNorm, Pointnet2MSG
 
@@ -28,7 +29,9 @@ def dropout(x: torch.Tensor, rate: float,
 
 class HeadMLP(nn.Module):
     """Conv1d tower: hidden Dense(+BN)+ReLU layers with dropout after the
-    first (in training only), then a linear output layer."""
+    first (in training only), then a linear output layer. ``dtype``: the
+    Dense compute dtype (bf16 under ``BF16_INFERENCE``); the output is
+    promoted to f32, as tpu3d's heads promote theirs."""
 
     def __init__(self, in_channels: int, hidden, out_channels: int,
                  use_bn: bool = True, dp_ratio: float = 0.0, device=None):
@@ -46,15 +49,17 @@ class HeadMLP(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 bn_momentum: float = 0.9,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                dtype: torch.dtype | None = None) -> torch.Tensor:
         for i in range(self.n):
-            x = getattr(self, f"dense_{i}")(x)
+            dense = getattr(self, f"dense_{i}")
+            x = linear(x, dense.weight, dense.bias, dtype)
             if self.use_bn:
                 x = getattr(self, f"bn_{i}")(x, train, bn_momentum)
             x = torch.relu(x)
             if i == 0 and train:
                 x = dropout(x, self.dp_ratio, generator)
-        return self.out(x)
+        return promote_f32(linear(x, self.out.weight, self.out.bias, dtype))
 
 
 class RPN(nn.Module):
@@ -81,16 +86,20 @@ class RPN(nn.Module):
 
     def forward(self, pts_input: torch.Tensor, train: bool = False,
                 bn_momentum: float = 0.9,
-                generator: torch.Generator | None = None) -> dict:
+                generator: torch.Generator | None = None,
+                precision: Precision = F32) -> dict:
         """In training, BatchNorm takes the batch's statistics and the heads
-        draw their dropout masks from ``generator`` (cls head first)."""
+        draw their dropout masks from ``generator`` (cls head first).
+        ``precision``: the eval numerics contract (tpu3d:
+        models/rpn.py:73-79), every Dense in its ``dense_dtype``."""
         backbone_xyz, backbone_features = self.backbone(
-            pts_input, train, bn_momentum)
+            pts_input, train, bn_momentum, precision)
+        dt = precision.dense_dtype
         return {
             "rpn_cls": self.cls_head(backbone_features, train, bn_momentum,
-                                     generator),
+                                     generator, dt),
             "rpn_reg": self.reg_head(backbone_features, train, bn_momentum,
-                                     generator),
+                                     generator, dt),
             "backbone_xyz": backbone_xyz,
             "backbone_features": backbone_features,
         }

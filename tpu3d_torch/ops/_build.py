@@ -6,7 +6,8 @@ shared library with a plain C interface, at first use, and loaded with
 eval and the training forward of ``fused_sa``, each in its gather and its
 slab form; the routed backward of both forms in ``fused_sa_bwd``; the
 BatchNorm chain's training passes in ``fused_sa_bn``; FPS+3NN and the
-long-row FPS alone in ``fps3nn``). Each source names its own ``nvcc``
+long-row FPS alone in ``fps3nn``; each bf16 eval form in its f32
+form's source, ``fused_sa`` including ``fused_sa_bf16.cuh``). Each source names its own ``nvcc``
 flags. The library's file name carries a hash of its source, the
 shared headers (``csrc/*.cuh``) and its flags, so an edited source is
 rebuilt and a stale library is never loaded. Libraries go to
@@ -24,6 +25,8 @@ not 0. ``LAUNCHES`` counts, per kernel, the calls that launched it; only the
 wrappers add to it, at the launch. Several counters may share one C entry
 where it replaces several TPU kernels (``fused_sa_slab`` and
 ``fused_sa_slab_bn``; the BatchNorm chain's statistics passes 1 and 2).
+``BF16_LAUNCHES`` counts the bf16 eval forms (``BF16_KERNELS``) the same
+way, apart from the f32 kernels.
 """
 
 from __future__ import annotations
@@ -103,6 +106,20 @@ KERNELS = {
     "group_points_bwd": ("group_points_bwd", "tpu3d_group_points_bwd",
                          [P, P, I, I, I, I, I, P, P, L, P]),
 }
+# the bf16 eval forms under the accelerator's numerics contract
+# (precision.py), beside their f32 kernels in the same libraries; counted
+# apart, in BF16_LAUNCHES
+BF16_KERNELS = {
+    "three_interpolate_bf16": ("three_interpolate",
+                               "tpu3d_three_interpolate_bf16",
+                               [P, P, P, I, I, I, I, I, P, P]),
+    "fused_sa_bf16": ("fused_sa", "tpu3d_fused_sa_bf16",
+                      [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P, P]),
+    "fused_sa_slab_bf16": ("fused_sa", "tpu3d_fused_sa_slab_bf16",
+                           [P, P, P, P, P, I, I, I, I, I, I, P, P]),
+    "fused_sa_slab_bn_bf16": ("fused_sa", "tpu3d_fused_sa_slab_bn_bf16",
+                              [P, P, P, P, I, I, I, I, I, I, P, P]),
+}
 # C entries that run part of a counted kernel's launch, called before it
 # (not counted): (source, symbol, argtypes)
 PARTS = {
@@ -121,14 +138,22 @@ SOURCES = sorted(SOURCE_FLAGS)
 PENDING = 1 << 16
 
 LAUNCHES = {name: 0 for name in KERNELS}
+BF16_LAUNCHES = {name: 0 for name in BF16_KERNELS}
 _last_launch: str | None = None  # the port's last kernel launched
 _loaded: dict[str, ctypes._CFuncPtr] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, BF16_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def _entry(name: str):
+    """(source, symbol, argtypes) of a counted kernel, a bf16 form or a
+    part."""
+    return KERNELS.get(name) or BF16_KERNELS.get(name) or PARTS[name]
 
 
 def _nvcc() -> str:
@@ -199,7 +224,7 @@ def kernel(name: str):
     built at first use."""
     fn = _loaded.get(name)
     if fn is None:
-        source, symbol, argtypes = KERNELS.get(name) or PARTS[name]
+        source, symbol, argtypes = _entry(name)
         fn = getattr(library(source), symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -210,7 +235,7 @@ def kernel(name: str):
 def error_name(name: str, err: int) -> str:
     """The CUDA name of error code ``err``, from kernel ``name``'s
     library."""
-    fn = library((KERNELS.get(name) or PARTS[name])[0]).tpu3d_error_name
+    fn = library(_entry(name)[0]).tpu3d_error_name
     fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_char_p
     return fn(err).decode()
 
@@ -229,7 +254,7 @@ def launch(name: str, *args) -> None:
     counted: this kernel did not run), or one of its own launch."""
     global _last_launch
     err = _call(name, args)
-    LAUNCHES[name] += 1
+    (LAUNCHES if name in LAUNCHES else BF16_LAUNCHES)[name] += 1
     _last_launch = name
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "

@@ -23,11 +23,19 @@ elementwise pass, each computing every product once from the stored slabs
 (``csrc/fused_sa_bn.cu``), each pass a counted kernel. The kernels take
 every shape tpu3d's ``fused_sa_supported`` admits (``kernels_take``). For
 CPU tensors each runs its plain version, or the plain training form under
-autograd. All
-compute in f32 (the TPU kernels round to bf16 at their layer boundaries),
-so they are held to tpu3d's CPU path, which is f32 too. The max-pool's
-gradient goes to the first slot that reaches the max, as tpu3d's kernels
-route it.
+autograd. The max-pool's gradient goes to the first slot that reaches
+the max, as tpu3d's kernels route it.
+
+Two numeric forms, picked by the eval contract (``precision.py``), which
+the model's entry points resolve and hand down. The f32 forms above
+compute everything in f32 and are held to tpu3d's CPU path, which is f32
+too: every CPU forward, training, and the card under ``TPU3D_F32_EVAL=1``.
+The bf16 eval forms (``fused_gathered_mlp_pool_bf16``,
+``fused_mlp_pool_bf16``, ``fused_bn_mlp_pool_bf16``, kernels in
+``csrc/fused_sa_bf16.cuh``) compute as tpu3d's TPU kernels do: bf16
+operands with f32 sums, every layer boundary rounded to bf16, a bf16
+output; an eval on the card takes them by default, and the CPU runs their
+plain versions when a test hands it that contract.
 
 Kernel notes (in full in the sources): they replace
 ``tpu3d/ops/fused_sa.py::_nobn2_eval_kernel``, ``_nobn2_fwd_kernel`` and
@@ -35,7 +43,11 @@ Kernel notes (in full in the sources): they replace
 ``_nobn_fwd_kernel``, ``_nobn_bwd_kernel`` and ``_eval_chain_kernel`` (slab
 form), and the BatchNorm chain's training kernels ``_stats0_kernel``,
 ``_fwd_stats1_kernel``, ``_fwd_stats2_kernel``, ``_fwd_final_kernel``,
-``_bwd_wave1_kernel``, ``_bwd_wave2_kernel`` and ``_bwd_apply_kernel``.
+``_bwd_wave1_kernel``, ``_bwd_wave2_kernel`` and ``_bwd_apply_kernel``;
+the bf16 forms ``_nobn2_eval_kernel``, ``_nobn_eval_kernel`` and
+``_eval_chain_kernel`` in their own arithmetic (warp-level bf16
+``mma.sync`` products with f32 accumulators, a block of four warps per
+group, chunks of up to 64 slots staged in shared memory).
 The two Dense layers make them bound by operations; one block per (row,
 center) loads its group into shared memory a chunk of slots at a time
 (gathered, or read from the slab; the slab form at S 16 and 32 packs
@@ -1440,3 +1452,211 @@ def fused_bn_mlp_pool(x0: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
             "alone and has no backward; train with stats=None")
     return _slab_forward("fused_sa_slab_bn", x0, packs.contiguous(),
                          w1.contiguous(), w2.contiguous())[0]
+
+
+# --------------------------------------------------------------------------
+# the bf16 eval forms, under the accelerator's numerics contract
+# (precision.py): tpu3d's eval kernels in their own arithmetic, bf16
+# operands with f32 sums, rounded to bf16 at every layer boundary; the
+# kernels in csrc/fused_sa_bf16.cuh
+# --------------------------------------------------------------------------
+
+BF16 = torch.bfloat16
+
+
+def _r16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16, kept in f32."""
+    return x.to(BF16).float()
+
+
+def _bf16_acts_nobn(b1, b2):
+    """The no-BN chain's layer activations (``_chain_nobn``): a0 = ReLU(x0),
+    a_k = ReLU(bf16(bf16(x_k) + bf16(b_k)))."""
+    return (torch.relu,
+            lambda x: torch.relu(_r16(_r16(x) + _r16(b1))),
+            lambda x: torch.relu(_r16(_r16(x) + _r16(b2))))
+
+
+def _bf16_acts_bn(packs, c1, c2, c3):
+    """The BatchNorm chain's layer activations (``_chain_to``):
+    a_k = bf16(ReLU(bf16(x_k)·mul_k + add_k)), the affine in f32."""
+    m0, a0, m1, a1, m2, a2 = packs.float().split([c1, c1, c2, c2, c3, c3])
+    return tuple((lambda x, m=m, a=a: _r16(torch.relu(_r16(x) * m + a)))
+                 for m, a in ((m0, a0), (m1, a1), (m2, a2)))
+
+
+def _bf16_pool(x0, w1, w2, acts):
+    """max over S of a2 for a grouped bf16 (R, M, S, C1) chunk: each product
+    of bf16-rounded f32 values summed in f32 -> (R, M, C3) bf16."""
+    a0 = acts[0](x0.float())
+    a1 = acts[1](a0 @ _r16(w1))
+    return acts[2](a1 @ _r16(w2)).amax(dim=2).to(BF16)
+
+
+def _bf16_gather_form(pre, idx, center, w1, w2):
+    """The gather form's grouped bf16 slab x0 = bf16(pre[idx] - center), a
+    chunk of rows at a time (``_gather_x0``)."""
+    R, M, S = idx.shape
+    width = max(w1.shape[1], w2.shape[1])
+
+    def grouped(rows):
+        return group_points(pre[rows], idx[rows]) - center[rows][:, :, None]
+
+    return grouped, R, M, S, width
+
+
+def fused_gathered_mlp_pool_bf16_plain(pre, idx, center, w1, b1, w2, b2):
+    """Plain PyTorch version of the gather form's bf16 eval kernel
+    (``_nobn2_eval_kernel``): pre (R, N, C1) and center (R, M, C1) bf16."""
+    acts = _bf16_acts_nobn(b1, b2)
+    return _chunked(lambda x0: _bf16_pool(x0, w1, w2, acts),
+                    *_bf16_gather_form(pre, idx, center, w1, w2))
+
+
+def fused_mlp_pool_bf16_plain(x0, w1, b1, w2, b2):
+    """Plain PyTorch version of the slab form's bf16 eval kernel
+    (``_nobn_eval_kernel``): x0 (R, M, S, C1) bf16."""
+    acts = _bf16_acts_nobn(b1, b2)
+    return _chunked(lambda x: _bf16_pool(x, w1, w2, acts),
+                    *_slab_form(x0, w1, w2))
+
+
+def fused_sa_slab_bn_bf16_plain(x0, packs, w1, w2):
+    """Plain PyTorch version of the BatchNorm slab's bf16 eval kernel
+    (``_eval_chain_kernel``): x0 (R, M, S, C1) bf16, ``packs`` the three
+    layers' folded (mul, add) in f32 (``bn_packs``)."""
+    acts = _bf16_acts_bn(packs, x0.shape[-1], w1.shape[1], w2.shape[1])
+    return _chunked(lambda x: _bf16_pool(x, w1, w2, acts),
+                    *_slab_form(x0, w1, w2))
+
+
+def bf16_kernels_take(S: int, C1: int, C2: int, C3: int) -> bool:
+    """Whether the bf16 kernels take a level of S slots per group and widths
+    C1 -> C2 -> C3 (``csrc/fused_sa_bf16.cuh``): C1 a multiple of 16, C2 and
+    C3 multiples of 128, and a chunk of 16 rows of a0 and a1 in bf16 with
+    the running max in shared memory. Every shape tpu3d's
+    ``fused_sa_supported`` admits with C1 + C2 below some 7000 passes."""
+    smem = 16 * (C1 + 8 + C2 + 8) * 2 + 4 * C3
+    return (S >= 1 and C1 >= 16 and C1 % 16 == 0 and C2 >= 128
+            and C2 % 128 == 0 and C3 >= 128 and C3 % 128 == 0
+            and smem <= SMEM_MAX)
+
+
+def _check_bf16_kernel(x, name, ndim, S, C1, C2, C3, R, M):
+    _build.check_cuda_tensor(x, name, BF16, ndim)
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+    if not bf16_kernels_take(S, C1, C2, C3) or R * M >= 2 ** 31:
+        raise ValueError(
+            f"the bf16 fused_sa kernels do not take R={R}, M={M}, S={S}, "
+            f"C1={C1}, C2={C2}, C3={C3} (bf16_kernels_take)")
+
+
+def _eval_only(*tensors):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            "the bf16 fused_sa forms are eval kernels and have no backward")
+
+
+def _w16(w: torch.Tensor) -> torch.Tensor:
+    """A (Cin, Cout) weight as the kernels read it: (Cout, Cin) bf16."""
+    return w.detach().T.to(BF16).contiguous()
+
+
+def fused_gathered_mlp_pool_bf16(pre: torch.Tensor, idx: torch.Tensor,
+                                 center: torch.Tensor, w1: torch.Tensor,
+                                 b1: torch.Tensor, w2: torch.Tensor,
+                                 b2: torch.Tensor) -> torch.Tensor:
+    """The gather form's bf16 eval kernel (``_nobn2_eval_kernel``): pre
+    (R, N, C1) and center (R, M, C1) bf16, idx (R, M, S) i32, w1 (C1, C2),
+    b1, w2 (C2, C3), b2 (any float dtype; rounded to bf16) -> (R, M, C3)
+    bf16: max_s a2 of x0 = bf16(pre[idx] - center) through the no-BN chain
+    with bf16 layer boundaries. The kernel (counted as ``fused_sa_bf16``)
+    for CUDA tensors, the plain version for CPU tensors; no backward."""
+    if pre.device.type == "cpu":
+        return fused_gathered_mlp_pool_bf16_plain(pre, idx, center, w1, b1,
+                                                  w2, b2)
+    _eval_only(pre, center, w1, b1, w2, b2)
+    R, N, C1 = pre.shape
+    M, S = idx.shape[1], idx.shape[2]
+    C2, C3 = w1.shape[1], w2.shape[1]
+    _check_bf16_kernel(pre, "pre", 3, S, C1, C2, C3, R, M)
+    _check_bf16_kernel(center, "center", 3, S, C1, C2, C3, R, M)
+    _build.check_cuda_tensor(idx, "idx", torch.int32, 3)
+    if (idx.shape[0] != R or center.shape != (R, M, C1)
+            or w1.shape[0] != C1 or w2.shape[0] != C2
+            or b1.shape != (C2,) or b2.shape != (C3,)):
+        raise ValueError(
+            f"fused_sa bf16 shapes disagree: pre {tuple(pre.shape)}, idx "
+            f"{tuple(idx.shape)}, center {tuple(center.shape)}, w1 "
+            f"{tuple(w1.shape)}, w2 {tuple(w2.shape)}")
+    out = torch.empty(R, M, C3, dtype=BF16, device=pre.device)
+    w1t, w2t = _w16(w1), _w16(w2)
+    b1h, b2h = b1.detach().to(BF16).contiguous(), b2.detach().to(
+        BF16).contiguous()
+    _build.launch("fused_sa_bf16", pre.data_ptr(), idx.data_ptr(),
+                  center.data_ptr(), w1t.data_ptr(), b1h.data_ptr(),
+                  w2t.data_ptr(), b2h.data_ptr(), R, N, M, S, C1, C2, C3,
+                  out.data_ptr())
+    return out
+
+
+def _slab_bf16_check(x0, w1, w2):
+    R, M, S, C1 = x0.shape
+    C2, C3 = w1.shape[1], w2.shape[1]
+    _check_bf16_kernel(x0, "x0", 4, S, C1, C2, C3, R, M)
+    if w1.shape[0] != C1 or w2.shape[0] != C2:
+        raise ValueError(f"fused_sa bf16 slab shapes disagree: x0 "
+                         f"{tuple(x0.shape)}, w1 {tuple(w1.shape)}, w2 "
+                         f"{tuple(w2.shape)}")
+    return R, M, S, C1, C2, C3
+
+
+def fused_mlp_pool_bf16(x0: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                        w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """The slab form's bf16 eval kernel (``_nobn_eval_kernel``): x0 (R, M,
+    S, C1) bf16 -> (R, M, C3) bf16, the no-BN chain with bf16 layer
+    boundaries. The kernel (counted as ``fused_sa_slab_bf16``) for CUDA
+    tensors, the plain version for CPU tensors; no backward."""
+    if x0.device.type == "cpu":
+        return fused_mlp_pool_bf16_plain(x0, w1, b1, w2, b2)
+    _eval_only(x0, w1, b1, w2, b2)
+    R, M, S, C1, C2, C3 = _slab_bf16_check(x0, w1, w2)
+    if b1.shape != (C2,) or b2.shape != (C3,):
+        raise ValueError(f"biases {tuple(b1.shape)}, {tuple(b2.shape)} for "
+                         f"C2={C2}, C3={C3}")
+    out = torch.empty(R, M, C3, dtype=BF16, device=x0.device)
+    w1t, w2t = _w16(w1), _w16(w2)
+    b1h, b2h = b1.detach().to(BF16).contiguous(), b2.detach().to(
+        BF16).contiguous()
+    _build.launch("fused_sa_slab_bf16", x0.data_ptr(), w1t.data_ptr(),
+                  b1h.data_ptr(), w2t.data_ptr(), b2h.data_ptr(), R, M, S,
+                  C1, C2, C3, out.data_ptr())
+    return out
+
+
+def fused_bn_mlp_pool_bf16(x0: torch.Tensor, w1: torch.Tensor,
+                           w2: torch.Tensor, gammas, betas, stats,
+                           eps: float = 1e-5) -> torch.Tensor:
+    """The BatchNorm slab's bf16 eval kernel (``_eval_chain_kernel``): x0
+    (R, M, S, C1) bf16, the running ``stats`` ((mean, var) x3) folded into
+    one f32 (mul, add) per layer as ``fused_bn_mlp_pool`` folds them ->
+    (R, M, C3) bf16. The kernel (counted as ``fused_sa_slab_bn_bf16``) for
+    CUDA tensors, the plain version for CPU tensors; no backward."""
+    packs = bn_packs([_bn_affine(m, v, g, b, eps)[:2]
+                      for (m, v), g, b in zip(stats, gammas, betas)])
+    if x0.device.type == "cpu":
+        return fused_sa_slab_bn_bf16_plain(x0, packs, w1, w2)
+    _eval_only(x0, w1, w2, packs)
+    R, M, S, C1, C2, C3 = _slab_bf16_check(x0, w1, w2)
+    packs = packs.detach().float().contiguous()
+    _check_tensors((packs, "packs", 1))
+    if packs.shape != (2 * (C1 + C2 + C3),):
+        raise ValueError(f"packs {tuple(packs.shape)} for widths "
+                         f"{(C1, C2, C3)}")
+    out = torch.empty(R, M, C3, dtype=BF16, device=x0.device)
+    w1t, w2t = _w16(w1), _w16(w2)
+    _build.launch("fused_sa_slab_bn_bf16", x0.data_ptr(), packs.data_ptr(),
+                  w1t.data_ptr(), w2t.data_ptr(), R, M, S, C1, C2, C3,
+                  out.data_ptr())
+    return out

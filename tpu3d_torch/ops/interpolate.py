@@ -22,7 +22,9 @@ each query widen from its own depth both ways until the depth term alone
 passes its third d², so it evaluates a few percent of the pairs; its brute
 form sweeps every known point, staged through shared memory. The
 interpolation kernels are bound by bytes; one warp per output row
-reads each gathered row as whole 128-byte lines in f32. The backward
+reads each gathered row as whole 128-byte lines in f32 (the bf16 form,
+``three_interpolate_bf16``, reads bf16 rows under the accelerator's
+numerics contract, ``precision.py``). The backward
 inverts the ids into per-source lists of keys m·3 + j (CSR, in a workspace
 from torch's allocator) and gathers: one warp per source and 256 channels
 sorts its list and sums the weighted gradient rows in ascending key order,
@@ -281,6 +283,68 @@ def three_interpolate(features: torch.Tensor, idx: torch.Tensor,
     d_weight only when autograd asks for it (the FP levels' weights are
     constants, so the train step never does)."""
     return _ThreeInterpolate.apply(features, idx, weight)
+
+
+# --------------------------------------------------------------------------
+# the bf16 form (the accelerator's contract, precision.py): bf16 source
+# features, as tpu3d's TPU path interpolates them
+# --------------------------------------------------------------------------
+
+
+def rounds_weights(N: int, C: int, M: int) -> bool:
+    """Whether tpu3d's TPU interpolation of (N, C) bf16 source features
+    into M rows rounds its weights to bf16 and writes bf16: its one-hot
+    routes (``tpu3d/ops/interpolate.py:221-231``; ``_three_interpolate_onehot``
+    up to 1024 sources, the fused Pallas kernel for tables it takes in
+    VMEM). Otherwise its gather route multiplies the bf16 features by the
+    f32 weights and writes f32."""
+    return C >= 16 and (N <= 1024 or (
+        C % 128 == 0 and N % 128 == 0 and M % 8 == 0
+        and N * C * 2 <= 8 * 1024 * 1024))
+
+
+def three_interpolate_bf16_plain(features: torch.Tensor, idx: torch.Tensor,
+                                 weight: torch.Tensor,
+                                 round_w: bool) -> torch.Tensor:
+    """Plain PyTorch version of the bf16 kernel: the bf16 features gathered
+    and weighted in f32, in neighbour order. ``round_w``: the weights
+    rounded to bf16 first (the products are then exact) and the result
+    written in bf16; else f32 weights and an f32 result."""
+    w = weight.to(torch.bfloat16).float() if round_w else weight.float()
+    out = three_interpolate_plain(features.float(), idx, w)
+    return out.to(torch.bfloat16) if round_w else out
+
+
+def three_interpolate_bf16(features: torch.Tensor, idx: torch.Tensor,
+                           weight: torch.Tensor,
+                           round_w: bool | None = None) -> torch.Tensor:
+    """(B, N, C) bf16 features, (B, M, 3) i32 idx, (B, M, 3) f32 weights ->
+    (B, M, C), bf16 where the weights are rounded (``round_w``, default
+    ``rounds_weights``), else f32: the kernel (``three_interpolate_bf16``
+    in ``csrc/three_interpolate.cu``) for CUDA tensors, the plain version
+    for CPU tensors. An eval form: it has no backward."""
+    B, N, C = features.shape
+    M = idx.shape[1]
+    if round_w is None:
+        round_w = rounds_weights(N, C, M)
+    if features.device.type == "cpu":
+        return three_interpolate_bf16_plain(features, idx, weight, round_w)
+    _build.check_cuda_tensor(features, "features", torch.bfloat16, 3)
+    _build.check_cuda_tensor(idx, "idx", torch.int32, 3)
+    _build.check_cuda_tensor(weight, "weight", torch.float32, 3)
+    if idx.shape != (B, M, 3) or weight.shape != (B, M, 3):
+        raise ValueError(f"three_interpolate takes idx and weight of shape "
+                         f"(B, M, 3), got {tuple(idx.shape)} and "
+                         f"{tuple(weight.shape)} for B={B}")
+    if torch.is_grad_enabled() and features.requires_grad:
+        raise NotImplementedError("the bf16 interpolation is an eval form "
+                                  "and has no backward")
+    out = torch.empty(B, M, C, device=features.device,
+                      dtype=torch.bfloat16 if round_w else torch.float32)
+    _build.launch("three_interpolate_bf16", features.data_ptr(),
+                  idx.data_ptr(), weight.data_ptr(), B, N, M, C,
+                  int(round_w), out.data_ptr())
+    return out
 
 
 def interpolation_weights(dist: torch.Tensor,

@@ -5,7 +5,8 @@ plain PyTorch and f32. For each ROI it takes the first ``num_sampled``
 points inside the enlarged box in index order; a box holding fewer fills
 its slots by wraparound (slot k reads hit k % count); an empty box gives
 zeros and sets its empty flag. The first-k selection is one sort of int32
-index keys, as tpu3d does on the TPU.
+index keys, as tpu3d does on the TPU. ``roipool3d_table`` gathers one
+table alone, as tpu3d's accelerator path pools its bf16 hi/lo table.
 """
 
 from __future__ import annotations
@@ -15,11 +16,10 @@ import torch
 from .box_geometry import enlarge_box3d, points_in_boxes3d
 
 
-def roipool3d(pts: torch.Tensor, feats: torch.Tensor, boxes3d: torch.Tensor,
-              pool_extra_width: float, num_sampled: int):
-    """pts (B, N, 3), feats (B, N, C), boxes3d (B, M, 7) -> (pooled xyz
-    (B, M, K, 3), pooled feats (B, M, K, C), empty (B, M) bool), K =
-    ``num_sampled``."""
+def _pool_slots(pts: torch.Tensor, boxes3d: torch.Tensor,
+                pool_extra_width: float, num_sampled: int):
+    """Each ROI's K = ``num_sampled`` point ids -> (slots (B, M, K) i64,
+    empty (B, M) bool)."""
     B, N, _ = pts.shape
     big = enlarge_box3d(boxes3d, pool_extra_width)
     inside = points_in_boxes3d(pts, big).transpose(1, 2)  # (B, M, N)
@@ -34,15 +34,50 @@ def roipool3d(pts: torch.Tensor, feats: torch.Tensor, boxes3d: torch.Tensor,
     empty = counts[..., 0] == 0
     k = torch.arange(num_sampled, device=pts.device)
     src = torch.where(counts > 0, k % counts.clamp(min=1), 0)
-    slots = torch.gather(sel.clamp(max=N - 1), 2, src).long()  # (B, M, K)
-    M = slots.shape[1]
-    flat = slots.reshape(B, M * num_sampled, 1)
-    px = torch.gather(pts, 1, flat.expand(-1, -1, 3))
-    pf = torch.gather(feats, 1, flat.expand(-1, -1, feats.shape[-1]))
-    keep = ~empty[..., None, None]
-    px = torch.where(keep, px.reshape(B, M, num_sampled, 3), 0.0)
-    pf = torch.where(keep, pf.reshape(B, M, num_sampled, -1), 0.0)
-    return px, pf, empty
+    return torch.gather(sel.clamp(max=N - 1), 2, src).long(), empty
+
+
+def _gather_rows(table: torch.Tensor, slots: torch.Tensor,
+                 empty: torch.Tensor) -> torch.Tensor:
+    """table (B, N, C) rows at slots (B, M, K), zeros for an empty ROI."""
+    B, M, K = slots.shape
+    flat = slots.reshape(B, M * K, 1)
+    rows = torch.gather(table, 1, flat.expand(-1, -1, table.shape[-1]))
+    return torch.where(~empty[..., None, None], rows.reshape(B, M, K, -1),
+                       torch.zeros((), dtype=table.dtype,
+                                   device=table.device))
+
+
+def roipool3d(pts: torch.Tensor, feats: torch.Tensor, boxes3d: torch.Tensor,
+              pool_extra_width: float, num_sampled: int):
+    """pts (B, N, 3), feats (B, N, C), boxes3d (B, M, 7) -> (pooled xyz
+    (B, M, K, 3), pooled feats (B, M, K, C), empty (B, M) bool), K =
+    ``num_sampled``."""
+    slots, empty = _pool_slots(pts, boxes3d, pool_extra_width, num_sampled)
+    return (_gather_rows(pts, slots, empty), _gather_rows(feats, slots, empty),
+            empty)
+
+
+def roipool3d_table(pts: torch.Tensor, table: torch.Tensor,
+                    boxes3d: torch.Tensor, pool_extra_width: float,
+                    num_sampled: int):
+    """tpu3d's ``roipool3d(split="features")``: the rows of ``table`` (B, N,
+    C, any dtype) alone, one gather, the points ``pts`` (B, N, 3) only
+    choosing them -> (pooled (B, M, K, C), empty (B, M) bool). Under the
+    accelerator's contract the caller's table carries the coordinates as a
+    bf16 hi/lo pair beside the bf16 features (``bf16_table``)."""
+    slots, empty = _pool_slots(pts, boxes3d, pool_extra_width, num_sampled)
+    return _gather_rows(table, slots, empty), empty
+
+
+def bf16_table(xyz: torch.Tensor, features: torch.Tensor) -> torch.Tensor:
+    """tpu3d's pooled table on its accelerator
+    (``tpu3d/models/point_rcnn.py:117-121``): [hi, lo, features] in bf16,
+    hi = bf16(xyz) and lo = bf16(xyz - hi), so that hi + lo gives the
+    coordinates back to ~1e-3 m after the gather."""
+    hi = xyz.to(torch.bfloat16)
+    lo = (xyz - hi.float()).to(torch.bfloat16)
+    return torch.cat([hi, lo, features.to(torch.bfloat16)], dim=-1)
 
 
 def roipool3d_numpy(pts, feats, boxes3d, pool_extra_width, num_sampled):

@@ -8,7 +8,11 @@ eval CLI, ``tpu3d_torch.tools.eval_rcnn``, over every visible card as
 tpu3d's runs over its mesh: under ``torchrun --standalone
 --nproc_per_node <cards>`` when more than one card is visible (each rank
 runs its rows of every batch, rank 0 writes), else as a plain ``python
--m``. The commands run one after another.
+-m``. The commands run one after another. Each eval resolves its numerics
+contract as the eval CLI does (``precision.resolve``: tpu3d's
+accelerator contract on the card, ``BF16_INFERENCE`` from the config);
+``TPU3D_F32_EVAL=1`` in this command's environment reaches every one of
+them.
 
     python -m tpu3d_torch.tools.batch_inference --models kitti=ckpt/ \\
         --datasets kitti argo --dry_run

@@ -54,6 +54,7 @@ from ..ops.nms import nms_bev
 from ..ops.rotated_iou import boxes3d_to_bev5, boxes_iou3d
 from ..parallel import create_train_state, init_distributed, make_mesh
 from ..parallel.mesh import lead
+from ..precision import Precision, resolve
 from ..utils.checkpoint import latest_checkpoint, load_checkpoint
 from ..utils.logging import create_logger, null_logger
 from ..weights import seeded_state_dict
@@ -176,10 +177,23 @@ def rcnn_decode_and_nms(cfg, rois, rcnn_cls, rcnn_reg, roi_valid,
             "norm_scores": norm_scores, "raw_scores": rcnn_cls}
 
 
-def make_infer_step(model, cfg, max_final: int = 100):
+def _precision(model, cfg, precision: Precision | None) -> Precision:
+    """The eval numerics contract of an infer step: ``precision`` where the
+    caller gives one, else resolved once from the model's device, the
+    config's ``BF16_INFERENCE`` and ``TPU3D_F32_EVAL``."""
+    if precision is not None:
+        return precision
+    return resolve(next(model.parameters()).device, cfg)
+
+
+def make_infer_step(model, cfg, max_final: int = 100,
+                    precision: Precision | None = None):
     """The twin of tpu3d's ``make_infer_step``: one joint eval forward of a
     ``PointRCNN(mode="TEST")`` with ``RCNN.ENABLED``, then the decode, score
-    threshold and rotated NMS.
+    threshold and rotated NMS (f32, as in tpu3d), under the eval numerics
+    contract ``precision`` (default: ``precision.resolve``'s for the
+    model's device: tpu3d's accelerator contract on the card, f32 on the
+    CPU).
 
     Returns ``infer(pts_input, rpn_intensity=None)`` -> dict with
     ``final_boxes``, ``final_scores``, ``final_mask``, ``pred_boxes3d``,
@@ -191,13 +205,14 @@ def make_infer_step(model, cfg, max_final: int = 100):
     if not cfg.RCNN.ENABLED:
         raise ValueError("make_infer_step runs the joint path; use "
                          "make_rpn_infer_step when RCNN.ENABLED is False")
+    prec = _precision(model, cfg, precision)
 
     def infer(pts_input: torch.Tensor,
               rpn_intensity: torch.Tensor | None = None) -> dict:
         inputs = {"pts_input": pts_input}
         if rpn_intensity is not None:
             inputs["rpn_intensity"] = rpn_intensity
-        out = model(inputs)
+        out = model(inputs, precision=prec)
         rois = out["rois"]
         b, m = rois.shape[0], rois.shape[1]
         result = rcnn_decode_and_nms(
@@ -211,9 +226,11 @@ def make_infer_step(model, cfg, max_final: int = 100):
     return infer
 
 
-def make_rpn_infer_step(model, cfg):
+def make_rpn_infer_step(model, cfg, precision: Precision | None = None):
     """The twin of ``rpn_infer`` in ``eval_one_epoch_rpn``: one RPN-only eval
-    forward of a ``PointRCNN(mode="TEST")`` with ``RCNN.ENABLED`` False.
+    forward of a ``PointRCNN(mode="TEST")`` with ``RCNN.ENABLED`` False,
+    under the eval numerics contract ``precision`` (as
+    ``make_infer_step``).
 
     Returns ``infer(pts_input)`` -> dict with ``rois``, ``roi_scores_raw``,
     ``roi_valid``, ``seg_result``, ``rpn_scores_raw``, ``backbone_xyz`` and
@@ -222,9 +239,10 @@ def make_rpn_infer_step(model, cfg):
     if cfg.RCNN.ENABLED:
         raise ValueError("make_rpn_infer_step runs the RPN-only eval path; "
                          "use make_infer_step when RCNN.ENABLED is True")
+    prec = _precision(model, cfg, precision)
 
     def infer(pts_input: torch.Tensor) -> dict:
-        out = model({"pts_input": pts_input})
+        out = model({"pts_input": pts_input}, precision=prec)
         out["rpn_scores_raw"] = out["rpn_cls"][:, :, 0]
         return {k: out[k] for k in (
             "rois", "roi_scores_raw", "roi_valid", "seg_result",
@@ -233,17 +251,22 @@ def make_rpn_infer_step(model, cfg):
     return infer
 
 
-def make_offline_infer_step(model, cfg, max_final: int = 100):
+def make_offline_infer_step(model, cfg, max_final: int = 100,
+                            precision: Precision | None = None):
     """rcnn_offline eval (tpu3d's ``make_offline_infer_step``): the RCNN on
     the loader's pooled canonical points, its rois from the saved proposal
-    files (reference: eval_rcnn.py:263-460 eval_one_epoch_rcnn).
+    files (reference: eval_rcnn.py:263-460 eval_one_epoch_rcnn), under the
+    eval numerics contract ``precision`` (as ``make_infer_step``).
 
     Returns ``infer(pts_input (B, M, K, C), roi_boxes3d (B, M, 7),
     roi_valid (B, M), roi_size (B, M, 3))`` -> ``rcnn_decode_and_nms``'s
     dict, on the model's device."""
+    prec = _precision(model, cfg, precision)
+
     def infer(pts_input, roi_boxes3d, roi_valid, roi_size) -> dict:
         b, m, k, c = pts_input.shape
-        out = model({"pts_input": pts_input.reshape(-1, k, c)})
+        out = model({"pts_input": pts_input.reshape(-1, k, c)},
+                    precision=prec)
         return rcnn_decode_and_nms(
             cfg, roi_boxes3d, out["rcnn_cls"].reshape(b, m),
             out["rcnn_reg"].reshape(b, m, -1), roi_valid, roi_size=roi_size,

@@ -13,6 +13,8 @@ that ends in a synchronize, median of ``REPS``, no profiler), the summed
 time of the kernels it runs and its top kernels (torch.profiler over
 ``REPS`` more runs), the device's idle share of the step, and, last, one
 JSON line of the same numbers. The RPN-only step is the first two stages.
+It runs the eval numerics contract the eval CLI runs (``precision.resolve``:
+bf16 on the card, f32 under ``TPU3D_F32_EVAL=1``), named in its output.
 Needs a CUDA device.
 """
 
@@ -32,6 +34,7 @@ from ..config import cfg_from_file, fresh_cfg
 from ..datasets import random_scenes
 from ..models import PointRCNN
 from ..models.proposal import proposal_layer
+from ..precision import resolve
 from ..weights import seeded_state_dict
 from .eval_rcnn import rcnn_decode_and_nms
 
@@ -50,26 +53,27 @@ def main() -> None:
     model.load_state_dict(seeded_state_dict(model, SEED))
     pts = random_scenes(args.batch, cfg.RPN.NUM_POINTS, SEED)
     pts = torch.from_numpy(pts).cuda()
+    prec = resolve(pts.device, cfg)
 
     with torch.no_grad():
-        rpn_out = model.rpn(pts)
+        rpn_out = model.rpn(pts, precision=prec)
         scores = rpn_out["rpn_cls"][:, :, 0]
         rois, _, roi_valid = proposal_layer(
             scores, rpn_out["rpn_reg"], rpn_out["backbone_xyz"], cfg, "TEST")
         xyz, rest, _, _ = model.pool_rois(
             rpn_out["backbone_xyz"], rpn_out["backbone_features"], scores,
-            rois)
-        rcnn_out = model.rcnn_net(xyz, rest)
+            rois, precision=prec)
+        rcnn_out = model.rcnn_net(xyz, rest, precision=prec)
     b, m = rois.shape[:2]
 
     stages = {
-        "rpn_network": lambda: model.rpn(pts),
+        "rpn_network": lambda: model.rpn(pts, precision=prec),
         "proposal_layer": lambda: proposal_layer(
             scores, rpn_out["rpn_reg"], rpn_out["backbone_xyz"], cfg, "TEST"),
         "roi_pool": lambda: model.pool_rois(
             rpn_out["backbone_xyz"], rpn_out["backbone_features"], scores,
-            rois),
-        "rcnn_network": lambda: model.rcnn_net(xyz, rest),
+            rois, precision=prec),
+        "rcnn_network": lambda: model.rcnn_net(xyz, rest, precision=prec),
         "final_nms": lambda: rcnn_decode_and_nms(
             cfg, rois, rcnn_out["rcnn_cls"].reshape(b, m),
             rcnn_out["rcnn_reg"].reshape(b, m, -1), roi_valid),
@@ -104,7 +108,7 @@ def main() -> None:
 
     step_wall, step_device = sum(wall.values()), sum(device.values())
     print(f"card: {torch.cuda.get_device_name(0)}; {args.cfg_file}, batch "
-          f"{args.batch}, median of {REPS} runs per stage")
+          f"{args.batch}, median of {REPS} runs per stage; {prec}")
     print(f"step: {step_wall:.2f} ms wall, {step_device:.2f} ms of kernels, "
           f"device idle {100 * (1 - step_device / step_wall):.1f}%")
     for name in stages:
@@ -113,6 +117,7 @@ def main() -> None:
         for t in top[name]:
             print(f"  {t['ms']:8.3f} ms {t['calls']:5d} calls  {t['name']}")
     print(json.dumps({"cfg_file": args.cfg_file, "batch": args.batch,
+                      "precision": str(prec),
                       "wall_ms": wall, "kernel_ms": device,
                       "device_idle_share": 1 - step_device / step_wall,
                       "top_kernels": top}))

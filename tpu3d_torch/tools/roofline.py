@@ -22,10 +22,19 @@ joint eval batch and its train step (counterpart of
   nearest-k sweeps), ~10 per (pick, point) and ~8 per (center, point),
   reported apart; they are not matmul work.
 
-MFU = analytic matmul FLOPs / measured time / the card's peak for the
-precision the port's products run in: float32, 67 TFLOP/s on an H100 SXM
-(TF32 is off, ``tpu3d_torch/__init__.py``). Each output line carries the
-card's name and power limit as nvidia-smi gives them.
+MFU = the ideal time of the analytic matmul FLOPs / the measured time,
+where each product counts against the peak of the type it runs in, as
+tpu3d intends (its roofline divides by its chip's bf16 peak): products in
+bf16 over 989 TFLOP/s, products in float32 over 67 TFLOP/s on an H100 SXM
+(TF32 is off, ``tpu3d_torch/__init__.py``), the ideal time the sum of the
+two shares. Which products run in bf16 follows the eval numerics contract
+(``precision.resolve`` for the device, the config and
+``TPU3D_F32_EVAL``): under the accelerator's contract the RCNN levels on a
+fused route run their two Dense layers in the bf16 kernels; under
+``BF16_INFERENCE`` every Dense is bf16; training, and the f32 contract,
+are float32 throughout. Each output line carries the card's name and power
+limit as nvidia-smi gives them, and the split
+(``bf16_matmul_tflop_per_step``) and the contract.
 
 Keys renamed from tpu3d's output, where they named a TPU part or XLA:
 ``vpu_neighbor_gflop_per_step`` -> ``neighbor_gflop_per_step`` (and
@@ -52,9 +61,12 @@ import subprocess
 from pathlib import Path
 
 from ..models.bbox_codec import reg_channels
+from ..ops.fused_sa import sa_route
+from ..precision import Precision, resolve
 
 ROOT = Path(__file__).resolve().parents[2]
 H100_PEAK_F32_TFLOPS = 67.0
+H100_PEAK_BF16_TFLOPS = 989.0
 SEED = 0
 
 
@@ -153,6 +165,32 @@ def neighbor_flops(cfg, batch: int, rois: int) -> float:
     return total
 
 
+def bf16_matmul_flops(cfg, mode: str, batch: int,
+                      precision: Precision) -> float:
+    """The part of ``program_flops``' total matmul FLOPs whose products run
+    in bf16 under ``precision``: all of them under a bf16 Dense dtype
+    (``BF16_INFERENCE``); with the set-abstraction casts alone, layers 1
+    and 2 of each RCNN level that ``sa_route`` fuses (the bf16 kernels);
+    none in training or under the f32 contract."""
+    if mode == "train":
+        return 0.0
+    if precision.dense_dtype is not None:
+        return program_flops(cfg, mode, batch)["total_matmul_flops"]
+    if not (precision.sa_bf16 and cfg.RCNN.ENABLED):
+        return 0.0
+    c = cfg.RCNN
+    n = batch * cfg.TEST.RPN_POST_NMS_TOP_N
+    pts, total = c.NUM_POINTS, 0.0
+    for i, spec in enumerate(c.SA_CONFIG.NPOINTS):
+        if spec == -1:
+            break
+        s, mlp = c.SA_CONFIG.NSAMPLE[i], list(c.SA_CONFIG.MLPS[i])
+        if sa_route((n, spec, s, mlp[0]), mlp, pts, c.USE_BN) != "plain":
+            total += _tower(n * spec * s, mlp)
+        pts = spec
+    return total
+
+
 def program_flops(cfg, mode: str, batch: int) -> dict:
     """Total analytic matmul FLOPs for one eval batch or one train step."""
     rois = (cfg.RCNN.ROI_PER_IMAGE if mode == "train"
@@ -247,14 +285,20 @@ def card_name(device="cuda") -> str:
 
 
 def derived(name: str, step_ms: float, flops: dict, counted: dict,
-            card: str) -> dict:
+            card: str, bf16_flops: float = 0.0) -> dict:
+    """One program's row: ``bf16_flops`` of its matmul FLOPs against the
+    bf16 peak, the rest against the float32 one."""
     t = step_ms / 1e3
-    achieved_tflops = flops["total_matmul_flops"] / t / 1e12
-    mfu = achieved_tflops / H100_PEAK_F32_TFLOPS
+    total = flops["total_matmul_flops"]
+    achieved_tflops = total / t / 1e12
+    ideal_s = (bf16_flops / (H100_PEAK_BF16_TFLOPS * 1e12)
+               + (total - bf16_flops) / (H100_PEAK_F32_TFLOPS * 1e12))
+    mfu = ideal_s / t
     return {
         "program": name,
         "step_ms": step_ms,
-        "matmul_tflop_per_step": flops["total_matmul_flops"] / 1e12,
+        "matmul_tflop_per_step": total / 1e12,
+        "bf16_matmul_tflop_per_step": bf16_flops / 1e12,
         "achieved_matmul_tflops": round(achieved_tflops, 2),
         "mfu_pct": round(100 * mfu, 2),
         "neighbor_gflop_per_step": round(flops["neighbor_flops"] / 1e9, 2),
@@ -282,17 +326,24 @@ def default_cfg(cfg_file: str):
 
 
 def report(cfg, eval_ms: float, train_ms: float, eval_batch: int = 8,
-           train_batch: int = 16, counted: bool = True,
-           device="cuda") -> list[dict]:
+           train_batch: int = 16, counted: bool = True, device="cuda",
+           precision: Precision | None = None) -> list[dict]:
     """The two programs' rows and the forward breakdown, as ``main``
-    prints them."""
+    prints them; the eval row under ``precision`` (default: the contract
+    ``precision.resolve`` gives the device and config, which the eval
+    CLI's batches ran under)."""
     card = card_name(device)
+    if precision is None:
+        precision = resolve(device, cfg)
     fl_e = program_flops(cfg, "eval", eval_batch)
     fl_t = program_flops(cfg, "train", train_batch)
     zero = {"counted_flops": 0.0}
     c_e = counted_flops_eval(cfg, eval_batch, device) if counted else zero
     c_t = counted_flops_train(cfg, train_batch, device) if counted else zero
-    return [derived(f"eval_batch{eval_batch}", eval_ms, fl_e, c_e, card),
+    eval_row = derived(f"eval_batch{eval_batch}", eval_ms, fl_e, c_e, card,
+                       bf16_matmul_flops(cfg, "eval", eval_batch, precision))
+    eval_row["precision"] = str(precision)
+    return [eval_row,
             derived(f"train_step_batch{train_batch}", train_ms, fl_t, c_t,
                     card),
             {"breakdown_fwd_eval": fl_e["breakdown_fwd"],
