@@ -243,11 +243,45 @@ and no result line:
    its bound at the bf16 peak; (d) ms per batch of both contracts in
    turns (f32, default, default, f32) and their peak memory; (e) one eval-CLI run (joint, phase 13's checkpoint) under
    the default contract, its bf16 launches per batch and scenes/s;
-19. one JSON line of the kernels (each row with its launches per rank per
+19. the training numerics contract. Phases 1-18 train under the f32
+   training contract (TRAIN.BF16_ACTIVATIONS and TRAIN.BF16_MATMULS False
+   in every config the process makes, f32_training, and as --set
+   overrides for the data-parallel ranks, dryrun_multichip's and the
+   study's CLIs), so each keeps its own bounds; this phase runs the card's
+   default, tpu3d's accelerator training contract: (b) one joint train
+   step each of default.yaml (B=16), double.yaml (B=16), quickstart.yaml
+   (B=4) and smoke.yaml (B=2) from the same weights, batch and draws under
+   it and under the f32 contract, counts set to 0 before each step: every
+   f32 launch of fused_sa_train / fused_sa_bwd / fused_sa_slab_train /
+   fused_sa_slab_bwd / three_interpolate / three_interpolate_bwd taken
+   over one for one by its bf16 form, group_points_bwd's launches split
+   between its two forms as ops/grouping.py::gp_route says (bf16_gathers),
+   the RPN loss within RPN_LOSS_BOUND and the loss within TRAIN_LOSS_BOUND
+   of the f32 step's, the gradients' norms by module beside the f32
+   step's; (c) two default.yaml steps under it from one state equal to the
+   bit in every gradient, parameter, Adam moment and statistic; (d) ms per
+   default step of both contracts in turns (f32, default, default, f32)
+   and their peak memory; (f) the BatchNorm RCNN and TRAIN.REMAT raising
+   their named NotImplementedErrors under it; (a) each bf16 training form
+   against its plain version at the inputs (b) recorded (kernel 6 at
+   default's RCNN SA_0 and SA_1, kernel 7 at its four FP levels, the
+   gather's bf16 backward at RPN SA_1's two gathers, kernel 8 at
+   quickstart's and smoke's SA_1): kernels 6 and 8 forward and routed
+   backward within BF16_FORM_BOUND of the plain version's largest value,
+   the argmax off the plain one's at most ARGMAX_FLIP_BOUND of the
+   channels, kernel 7 and the gather equal to their CPU plain versions to
+   the bit, every output twice equal to the bit, each timed beside its
+   plain version, its f32 form, the bf16 cuBLAS chain under autograd (the
+   library's scatter for the gathers) and its bound at the bf16 peak;
+   tools/roofline's mfu_pct of the default train step under it and of the
+   eval batch (B=8) under the default eval contract; (e) one training-CLI
+   epoch (joint, phase 13's frames) and one rcnn_offline epoch (phase 14's
+   dumps) under it, their bf16 launches per step and ms per step;
+20. one JSON line of the kernels (each row with its launches per rank per
    step at world 2, ``ddp_launches`` / ``ddp_bn_launches``, and per train
    step / eval batch of the demo, ``pn_train_launches`` /
-   ``pn_eval_launches``; the bf16 forms' rows from phase 18), then the
-   result line.
+   ``pn_eval_launches``; the bf16 forms' rows from phases 18 and 19), then
+   the result line.
 
 Every phase prints its seconds. Needs one CUDA card; the kernels have no
 CPU mode. Imports nothing of JAX or of tpu3d.
@@ -3432,7 +3466,7 @@ def _dp_rank(rank, world, store_path, out_dir, run):
     import torch
     import torch.distributed as dist
 
-    from tpu3d_torch.config import cfg_from_file, fresh_cfg
+    from tpu3d_torch.config import cfg_from_file, cfg_from_list, fresh_cfg
     from tpu3d_torch.datasets import device_prefetch, random_scenes, \
         train_batch
     from tpu3d_torch.models import PointRCNN
@@ -3447,7 +3481,8 @@ def _dp_rank(rank, world, store_path, out_dir, run):
     init_distributed(dev, "gloo", dist.FileStore(store_path, world), rank,
                      world)
     try:
-        cfg = cfg_from_file(run["cfg"], fresh_cfg())
+        cfg = cfg_from_list(run["sets"], cfg_from_file(run["cfg"],
+                                                       fresh_cfg()))
         bcfg = copy.deepcopy(cfg)
         bcfg.RCNN.USE_BN = True
         mesh = make_mesh(batch_size=run["batch"])
@@ -3568,7 +3603,8 @@ def data_parallel(card: str, step5_ms: float, expect_launches: dict,
     t_phase = time.perf_counter()
     dev = torch.device(DEVICE, 0) if DEVICE == "cuda" else torch.device(DEVICE)
     run = {"cfg": str(ROOT / "configs" / DP_CFG), "batch": TRAIN_BATCH,
-           "eval_batch": DP_EVAL_BATCH, "device": str(dev)}
+           "eval_batch": DP_EVAL_BATCH, "device": str(dev),
+           "sets": list(F32_TRAINING)}
     cfg = cfg_from_file(run["cfg"], fresh_cfg())
     bcfg = copy.deepcopy(cfg)
     bcfg.RCNN.USE_BN = True
@@ -3653,7 +3689,8 @@ def data_parallel(card: str, step5_ms: float, expect_launches: dict,
               f"NCCL on {torch.cuda.device_count()} card(s) raises: {e}")
     t0 = time.perf_counter()
     figures["dryrun"] = dryrun_multichip(DP_WORLD, backend="gloo",
-                                         device=dev.type)
+                                         device=dev.type,
+                                         cfg_list=F32_TRAINING)
     figures["dryrun"]["s"] = time.perf_counter() - t0
     bmodel = _dp_model(bcfg, dev)
     _, _, bn_one_launches, _, grads = _dp_step(bcfg, bmodel, batch)
@@ -3925,7 +3962,8 @@ def paper_slice(card: str) -> dict:
     summary = statnorm_effect.main([
         "--out", str(work / "statnorm_effect"), "--frames",
         str(STUDY_FRAMES), "--epochs", str(STUDY_EPOCHS), "--cfg",
-        str(ROOT / "configs" / "smoke.yaml"), "--device", DEVICE])
+        str(ROOT / "configs" / "smoke.yaml"), "--device", DEVICE,
+        *(["--set", *F32_TRAINING] if F32_TRAINING else [])])
     study_s = time.perf_counter() - t0
     a2b, b = summary["stats"]["A_scaledto_B"], summary["stats"]["B"]
     off = {k: abs(a2b[k]["mean"] - b[k]["mean"]) for k in a2b}
@@ -4272,20 +4310,22 @@ def f32_eval(on: bool):
 
 
 @contextlib.contextmanager
-def record_bf16_calls():
-    """The arguments of every bf16 form the models call, by kernel."""
+def record_calls(names, keep=lambda attr, args: True):
+    """The arguments, detached, of every call the models make to the
+    functions ``names`` maps (by their names in models/pointnet2.py) to
+    kernel names, by kernel, where ``keep(attr, args)``."""
+    import torch
+
     from tpu3d_torch.models import pointnet2 as pn
 
-    names = {"three_interpolate_bf16": "three_interpolate_bf16",
-             "fused_gathered_mlp_pool_bf16": "fused_sa_bf16",
-             "fused_mlp_pool_bf16": "fused_sa_slab_bf16",
-             "fused_bn_mlp_pool_bf16": "fused_sa_slab_bn_bf16"}
     calls = {name: [] for name in names.values()}
     saved = {attr: getattr(pn, attr) for attr in names}
 
     def recording(attr):
         def fn(*args):
-            calls[names[attr]].append(args)
+            if keep(attr, args):
+                calls[names[attr]].append(tuple(
+                    a.detach() if torch.is_tensor(a) else a for a in args))
             return saved[attr](*args)
         return fn
 
@@ -4296,6 +4336,14 @@ def record_bf16_calls():
     finally:
         for attr, fn in saved.items():
             setattr(pn, attr, fn)
+
+
+def record_bf16_calls():
+    """The arguments of every bf16 form the models call, by kernel."""
+    return record_calls({"three_interpolate_bf16": "three_interpolate_bf16",
+                         "fused_gathered_mlp_pool_bf16": "fused_sa_bf16",
+                         "fused_mlp_pool_bf16": "fused_sa_slab_bf16",
+                         "fused_bn_mlp_pool_bf16": "fused_sa_slab_bn_bf16"})
 
 
 def _launched():
@@ -4663,6 +4711,653 @@ def eval_numerics(card: str) -> tuple[Report, dict, dict]:
     return report, launches, figures
 
 
+# --------------------------------------------------------------------------
+# phase 19: the training numerics contract
+# --------------------------------------------------------------------------
+
+# phases 1-18 train under the f32 training contract: both keys False in
+# every config this process makes (f32_training) and, for the subprocesses
+# that make their own (the data-parallel ranks, dryrun_multichip's, the
+# study's CLIs), as --set overrides (F32_TRAINING while it holds)
+F32_TRAIN_SETS = ["TRAIN.BF16_ACTIVATIONS", "False",
+                  "TRAIN.BF16_MATMULS", "False"]
+F32_TRAINING: list = []
+# the f32 kernel each bf16 training form takes over under the card's
+# default training contract, one launch for one
+BF16_TRAIN_OF = {"fused_sa_train": "fused_sa_train_bf16",
+                 "fused_sa_bwd": "fused_sa_bwd_bf16",
+                 "fused_sa_slab_train": "fused_sa_slab_train_bf16",
+                 "fused_sa_slab_bwd": "fused_sa_slab_bwd_bf16",
+                 "three_interpolate": "three_interpolate_bf16",
+                 "three_interpolate_bwd": "three_interpolate_bwd_bf16"}
+TRAIN_FORMS = ("fused_sa_train_bf16", "fused_sa_bwd_bf16",
+               "fused_sa_slab_train_bf16", "fused_sa_slab_bwd_bf16",
+               "three_interpolate_bwd_bf16", "group_points_bwd_bf16")
+# phase 19's bounds, stated before its first run. Kernels 6 and 8 in their
+# bf16 training forms against their plain versions: the forward and each
+# gradient within BF16_FORM_BOUND of the plain one's largest value (their
+# f32 sums run in another order, so an x1, x2 or d_x1 can round to the other
+# bf16 neighbour: a step or two), the first argmax on another slot for at
+# most ARGMAX_FLIP_BOUND of the pooled channels (where such a step makes or
+# breaks a tie); kernel 7's and the gather's bf16 backward equal to their
+# CPU plain versions to the bit (exact products, the same f32 sums in the
+# same order). A train step under the card's default contract against the
+# f32 one from the same weights, batch and draws: the RPN loss within
+# RPN_LOSS_BOUND of the f32 step's and the whole loss within
+# TRAIN_LOSS_BOUND (bf16 activations move the proposals a little, and with
+# them the RCNN's sampled ROIs)
+ARGMAX_FLIP_BOUND = 1e-2
+RPN_LOSS_BOUND = 0.02
+TRAIN_LOSS_BOUND = 0.1
+TRAIN_NUMERICS_CONFIGS = (  # (label, config file, batch)
+    ("default.yaml train B=16", "default.yaml", TRAIN_BATCH),
+    ("double.yaml train B=16", "double.yaml", TRAIN_BATCH),
+    (QUICK_PATH["train"], "quickstart.yaml", QUICK_TRAIN_BATCH),
+    (SMOKE_PATH["train"], "smoke.yaml", SMOKE_BATCH))
+# the path each bf16 training form is timed and labelled at (the slab
+# forms also at smoke's, kept apart)
+TRAIN_FORM_PATHS = {"fused_sa_train_bf16": "default.yaml train B=16",
+                    "fused_sa_bwd_bf16": "default.yaml train B=16",
+                    "three_interpolate_bwd_bf16": "default.yaml train B=16",
+                    "group_points_bwd_bf16": "default.yaml train B=16",
+                    "fused_sa_slab_train_bf16": QUICK_PATH["train"],
+                    "fused_sa_slab_bwd_bf16": QUICK_PATH["train"]}
+# the bf16 training forms' sources and the TPU kernels they compute as they
+# round (group_points_bwd_bf16: no TPU kernel, the fixed-order sum of
+# tpu3d's gather_mxu_bwd / onehot_bf16 VJPs)
+BF16_SOURCES.update({
+    "fused_sa_train_bf16": ("tpu3d_torch/csrc/fused_sa_bf16.cuh",
+                            "tpu3d/ops/fused_sa.py:752"),
+    "fused_sa_bwd_bf16": ("tpu3d_torch/csrc/fused_sa_bwd_bf16.cu",
+                          "tpu3d/ops/fused_sa.py:782"),
+    "fused_sa_slab_train_bf16": ("tpu3d_torch/csrc/fused_sa_bf16.cuh",
+                                 "tpu3d/ops/fused_sa.py:575"),
+    "fused_sa_slab_bwd_bf16": ("tpu3d_torch/csrc/fused_sa_bwd_bf16.cu",
+                               "tpu3d/ops/fused_sa.py:604"),
+    "three_interpolate_bwd_bf16": ("tpu3d_torch/csrc/three_interpolate_bwd.cu",
+                                   "tpu3d/ops/interpolate.py:276"),
+    "group_points_bwd_bf16": ("tpu3d_torch/csrc/group_points_bwd.cu",
+                              "tpu3d/ops/grouping.py:559")})
+
+
+@contextlib.contextmanager
+def f32_training():
+    """The f32 training contract for every config this process makes:
+    fresh_cfg's defaults and the global tree with both TRAIN keys False,
+    and F32_TRAINING holding the same as --set overrides for subprocesses;
+    all restored after."""
+    from tpu3d_torch.config import config as cm
+
+    default = cm._default_cfg
+
+    def f32_default():
+        c = default()
+        c.TRAIN.BF16_ACTIVATIONS = c.TRAIN.BF16_MATMULS = False
+        return c
+
+    before = (cm.cfg.TRAIN.BF16_ACTIVATIONS, cm.cfg.TRAIN.BF16_MATMULS)
+    cm._default_cfg = f32_default
+    cm.cfg.TRAIN.BF16_ACTIVATIONS = cm.cfg.TRAIN.BF16_MATMULS = False
+    F32_TRAINING[:] = F32_TRAIN_SETS
+    try:
+        yield
+    finally:
+        cm._default_cfg = default
+        cm.cfg.TRAIN.BF16_ACTIVATIONS, cm.cfg.TRAIN.BF16_MATMULS = before
+        F32_TRAINING[:] = []
+
+
+def record_train_calls():
+    """The arguments of the calls a bf16 train step makes to the fused
+    forms, the interpolation and the gathers whose backward takes the bf16
+    form, by the training form they launch."""
+    import torch
+
+    def keep(attr, args):
+        return torch.is_grad_enabled() and (
+            attr != "group_points" or (len(args) > 2 and args[2])
+            or args[0].dtype == torch.bfloat16)
+
+    return record_calls(
+        {"fused_gathered_mlp_pool_bf16": "fused_sa_train_bf16",
+         "fused_mlp_pool_bf16": "fused_sa_slab_train_bf16",
+         "three_interpolate_bf16": "three_interpolate_bwd_bf16",
+         "group_points": "group_points_bwd_bf16"}, keep)
+
+
+def _bf16_chain(x0, w1, b1, w2, b2):
+    """The bf16 cuBLAS chain of a fused level on a grouped bf16 x0."""
+    import torch
+    import torch.nn.functional as F
+
+    x = torch.relu(F.linear(torch.relu(x0), w1.T.to(torch.bfloat16),
+                            b1.to(torch.bfloat16)))
+    return torch.relu(F.linear(x, w2.T.to(torch.bfloat16),
+                               b2.to(torch.bfloat16))).amax(2)
+
+
+def fused_train_form_rows(report, calls, gen):
+    """(a) for kernels 6 and 8: each recorded call's training forward and
+    routed backward against their plain versions, each twice equal to the
+    bit, timed beside the plain versions, the f32 forms on the same values
+    and the bf16 cuBLAS chain under autograd (its forward; its backward
+    alone)."""
+    import torch
+
+    from tpu3d_torch.ops import fused_sa as fs
+    from tpu3d_torch.ops.grouping import group_points
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    forms = {
+        "fused_sa_train_bf16": (
+            "fused_sa_bwd_bf16", fs.fused_gathered_mlp_pool_bf16_train,
+            fs.fused_gathered_mlp_pool_bf16_train_plain,
+            fs.fused_gathered_mlp_pool_bf16_backward,
+            fs.fused_gathered_mlp_pool_bf16_backward_plain,
+            fs.fused_gathered_mlp_pool_train,
+            fs.fused_gathered_mlp_pool_backward),
+        "fused_sa_slab_train_bf16": (
+            "fused_sa_slab_bwd_bf16", fs.fused_mlp_pool_bf16_train,
+            fs.fused_mlp_pool_bf16_train_plain,
+            fs.fused_mlp_pool_bf16_backward,
+            fs.fused_mlp_pool_bf16_backward_plain, fs.fused_mlp_pool_train,
+            fs.fused_mlp_pool_backward)}
+    for fwd_name, (bwd_name, train, train_plain, bwd, bwd_plain, train32,
+                   bwd32) in forms.items():
+        for args in calls.get(fwd_name, []):
+            gather = fwd_name == "fused_sa_train_bf16"
+            w1, b1, w2, b2 = args[-4:]
+            c1, c2, c3 = w1.shape[0], w1.shape[1], w2.shape[1]
+            if gather:
+                pre, idx, center = args[:3]
+                R, M, S = idx.shape
+                in_bytes = 2 * (pre.numel() + center.numel()) \
+                    + 4 * idx.numel()
+                f32a = (pre.float(), idx, center.float(),
+                        *(a.contiguous() for a in args[3:]))
+
+                def x0_of(p, c):
+                    return group_points(p, idx) - c[:, :, None]
+            else:
+                R, M, S, _ = args[0].shape
+                in_bytes = 2 * args[0].numel()
+                f32a = (args[0].float(), *(a.contiguous() for a in args[1:]))
+
+                def x0_of(x):
+                    return x
+            label = f"{fwd_name} R={R} M={M} S={S} C={c1}->{c2}->{c3}"
+            out, arg, ppre = train(*args)
+            again = train(*args)
+            check(all(torch.equal(a, b) for a, b in
+                      zip((out, arg, ppre), again)),
+                  f"{label}: two training forwards differ")
+            with torch.no_grad():
+                p_out, p_arg, _ = train_plain(*args)
+            err, scale = _rel_err(out, p_out)
+            check(err <= BF16_FORM_BOUND * scale, f"{label}: the forward "
+                  f"differs from its plain version by {err} (largest "
+                  f"{scale})")
+            flips = (arg != p_arg).float().mean().item()
+            check(flips <= ARGMAX_FLIP_BOUND, f"{label}: {flips:.2%} of "
+                  f"the argmax slots differ from the plain version's")
+            g = torch.randn(out.shape, generator=gen).to(out.device).to(
+                torch.bfloat16)
+            first = bwd(*args, g, arg, ppre)
+            second = bwd(*args, g, arg, ppre)
+            check(all(torch.equal(a, b) for a, b in zip(first, second)),
+                  f"{label}: two backward calls differ")
+            want = bwd_plain(*args, g, arg, ppre)
+            b_err = 0.0
+            for k, (a, b) in enumerate(zip(first, want)):
+                e, sc = _rel_err(a, b)
+                check(a.dtype == b.dtype and e <= BF16_FORM_BOUND * sc,
+                      f"{label}: backward output {k} ({a.dtype}) differs "
+                      f"from its plain version's ({b.dtype}) by {e} "
+                      f"(largest {sc})")
+                b_err = max(b_err, e)
+            del again, second, want
+            # the times
+            leaves = [a.detach().clone().requires_grad_()
+                      if a.is_floating_point() else a for a in args]
+
+            def library():
+                x0 = (x0_of(leaves[0], leaves[2]) if gather
+                      else x0_of(leaves[0]))
+                return _bf16_chain(x0, *leaves[-4:])
+
+            ms = cuda_ms(lambda: train(*args), 10)
+            with torch.no_grad():
+                pms = cuda_ms(lambda: train_plain(*args), 2)
+            lms = cuda_ms(library, 5)
+            o32, a32, p32 = train32(*f32a)
+            fms = cuda_ms(lambda: train32(*f32a), 10)
+            bms = cuda_ms(lambda: bwd(*args, g, arg, ppre), 5)
+            bpms = cuda_ms(lambda: bwd_plain(*args, g, arg, ppre), 2)
+            blms = library_backward_ms(library, g)
+            g32 = g.float()
+            bfms = cuda_ms(lambda: bwd32(*f32a, g32, a32, p32), 5)
+            del o32, leaves
+            ops = 2 * R * M * S * (c1 * c2 + c2 * c3)
+            wbytes = 2 * (c1 * c2 + c2 * c3 + c2 + c3)
+            report.add(fwd_name, err, ms, pms, lms,
+                       in_bytes + wbytes + 10 * R * M * c3, ops, f32_ms=fms)
+            nnz, hit = routed_slots(arg, g.float(), ppre, S)
+            report.add(bwd_name, b_err, bms, bpms, blms,
+                       2 * in_bytes + 4 * (c1 * c2 + c2 * c3) + 10 * R * M
+                       * c3, bwd_ops(hit, nnz, c1, c2), f32_ms=bfms,
+                       lib_bwd_ms=blms, reached=hit, slots=R * M * S)
+            print(f"{label}: forward {ms:.3f} ms (f32 form {fms:.3f}), plain "
+                  f"{pms:.3f}, bf16 cuBLAS chain {lms:.3f}, max_abs_err "
+                  f"{err:.3e} of {scale:.3e}, argmax off the plain one's at "
+                  f"{flips:.3%} of the channels; backward {bms:.3f} ms (f32 "
+                  f"form {bfms:.3f}), plain {bpms:.3f}, the chain's backward "
+                  f"{blms:.3f}, max_abs_err {b_err:.3e}, {hit} of "
+                  f"{R * M * S} slots reached; each twice equal to the bit")
+
+
+def gather_train_form_rows(report, calls, gen):
+    """(a) for kernel 7's bf16 form and the gather's bf16 backward: each
+    recorded call's backward (on a seeded gradient) twice equal to the bit
+    and equal to the CPU plain version's, timed beside the plain version,
+    the f32 form and the library's scatter (index_add_ / torch.gather's
+    backward)."""
+    import torch
+
+    from tpu3d_torch.ops import grouping as gp
+    from tpu3d_torch.ops import interpolate as ip
+
+    for feats, idx, w, round_w in calls.get("three_interpolate_bwd_bf16", []):
+        B, N, C = feats.shape
+        M = idx.shape[1]
+        g = torch.randn(B, M, C, generator=gen).to(feats.device).to(
+            torch.bfloat16 if round_w else torch.float32)
+        got = ip.three_interpolate_backward_bf16(idx, w, g, N)
+        check(torch.equal(got, ip.three_interpolate_backward_bf16(
+            idx, w, g, N)), "three_interpolate_bwd_bf16: two calls differ")
+        cpu = ip.three_interpolate_backward_bf16_plain(idx.cpu(), w.cpu(),
+                                                       g.cpu(), N)
+        check(torch.equal(got.cpu(), cpu), f"three_interpolate_bwd_bf16 "
+              f"differs from its CPU plain version at N={N} M={M} C={C}")
+        ms = cuda_ms(lambda: ip.three_interpolate_backward_bf16(idx, w, g, N),
+                     20)
+        pms = cuda_ms(lambda: ip.three_interpolate_backward_bf16_plain(
+            idx, w, g, N), 5)
+        f32f, g32 = feats.float(), g.float()
+        fms = cuda_ms(lambda: ip.three_interpolate_backward(f32f, idx, w,
+                                                            g32, False), 20)
+        rows = (idx.long() + N * torch.arange(B, device=idx.device)
+                [:, None, None]).reshape(-1)
+        contrib = (w.to(torch.bfloat16)[..., None] * g.to(torch.bfloat16)
+                   [:, :, None, :]).reshape(-1, C)
+        lms = cuda_ms(lambda: contrib.new_zeros(B * N, C).index_add_(
+            0, rows, contrib), 5)
+        report.add("three_interpolate_bwd_bf16", 0.0, ms, pms, lms,
+                   g.element_size() * B * M * C + 24 * B * M + 2 * B * N * C,
+                   2 * B * M * 3 * C, f32_ms=fms)
+        print(f"three_interpolate_bwd_bf16 N={N} M={M} C={C} (g "
+              f"{g.dtype}): {ms:.4f} ms (f32 form {fms:.4f}), plain "
+              f"{pms:.3f}, index_add_ in bf16 {lms:.4f}; twice equal, equal "
+              f"to the CPU's")
+    for feats, idx, *_ in calls.get("group_points_bwd_bf16", []):
+        B, N, C = feats.shape
+        _, M, S = idx.shape
+        idx = idx.to(torch.int32).contiguous()
+        g = torch.randn(B, M, S, C, generator=gen).to(feats.device).to(
+            torch.bfloat16).float()
+        got = gp.group_points_backward_bf16(g, idx, N, feats.dtype)
+        check(torch.equal(got, gp.group_points_backward_bf16(
+            g, idx, N, feats.dtype)), "group_points_bwd_bf16: two calls "
+            "differ")
+        cpu = gp.group_points_backward_bf16_plain(g.cpu(), idx.cpu(), N,
+                                                  feats.dtype)
+        check(torch.equal(got.cpu(), cpu), f"group_points_bwd_bf16 differs "
+              f"from its CPU plain version at N={N} M={M} S={S} C={C}")
+        ms = cuda_ms(lambda: gp.group_points_backward_bf16(g, idx, N,
+                                                           feats.dtype), 20)
+        pms = cuda_ms(lambda: gp.group_points_backward_bf16_plain(
+            g, idx, N, feats.dtype), 5)
+        fms = cuda_ms(lambda: gp.group_points_backward(g, idx, N), 20)
+        leaf = feats.detach().float().requires_grad_()
+        lms = library_backward_ms(lambda: torch_group(leaf, idx), g)
+        report.add("group_points_bwd_bf16", 0.0, ms, pms, lms,
+                   2 * g.numel() + 4 * idx.numel()
+                   + feats.element_size() * B * N * C, g.numel(), f32_ms=fms)
+        print(f"group_points_bwd_bf16 N={N} M={M} S={S} C={C} (out "
+              f"{feats.dtype}): {ms:.4f} ms (f32 form {fms:.4f}), plain "
+              f"{pms:.3f}, torch.gather's backward {lms:.4f}; twice equal, "
+              f"equal to the CPU's")
+
+
+def bf16_gathers(cfg) -> tuple[int, int]:
+    """The grouping gathers of a train step of ``cfg`` and how many of them
+    take the bf16 backward under the card's default training contract:
+    the pre-grouped RPN levels' that gp_route sends to gather_mxu_bwd (wide
+    tables), and the RCNN's levels on the slab route (bf16 pre-activations,
+    tpu3d's onehot_bf16) -> (gathers, bf16 ones)."""
+    from tpu3d_torch.ops.fused_sa import sa_route
+    from tpu3d_torch.ops.grouping import gp_route
+
+    sa = cfg.RPN.SA_CONFIG
+    n = [cfg.RPN.NUM_POINTS] + list(sa.NPOINTS)
+    feats = int(cfg.RPN.USE_INTENSITY)
+    total = bf16 = 0
+    for k, m in enumerate(sa.NPOINTS):
+        for j, mlp in enumerate(sa.MLPS[k]):
+            if feats:
+                total += 1
+                bf16 += gp_route(n[k], mlp[0], m * sa.NSAMPLE[k][j], True,
+                                 False, True) == "gather_mxu_bwd"
+        feats = sum(mlp[-1] for mlp in sa.MLPS[k])
+    c = cfg.RCNN
+    pts, rois = c.NUM_POINTS, c.ROI_PER_IMAGE
+    for k, m in enumerate(c.SA_CONFIG.NPOINTS):
+        if m == -1:
+            break
+        mlp = list(c.SA_CONFIG.MLPS[k])
+        if sa_route((rois, m, c.SA_CONFIG.NSAMPLE[k], mlp[0]), mlp, pts,
+                    c.USE_BN) == "slab":
+            total += 1
+            bf16 += 1
+        pts = m
+    return total, bf16
+
+
+def _grad_norms(model, grad_norm: float, clip: float) -> dict:
+    """The parameters' gradient norms before the step's clip, by top-level
+    module and in all: the gradients left after the step, scaled back by
+    the clip's factor (``grad_norm`` the step's norm before it)."""
+    norms = {}
+    for name, p in model.named_parameters():
+        if p.grad is not None:
+            key = ".".join(name.split(".")[:2])
+            norms[key] = norms.get(key, 0.0) + float(p.grad.float().pow(
+                2).sum())
+    scale = max(1.0, grad_norm / clip)
+    return {**{k: math.sqrt(v) * scale for k, v in norms.items()},
+            "all": grad_norm}
+
+
+def _one_step(cfg, model, weights, batch, record=False):
+    """One train step from ``weights`` (``make_train_step``'s contract for
+    the card and ``cfg``), counts set to 0 just before it and read just
+    after -> (metrics, launches, gradient norms, calls, precision)."""
+    import torch
+
+    from tpu3d_torch.ops import _build
+    from tpu3d_torch.parallel import create_train_state, make_train_step
+
+    model.load_state_dict(weights)
+    state = create_train_state(cfg, model, steps_per_epoch=100,
+                               total_epochs=10)
+    step = make_train_step(cfg, model)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    with (record_train_calls() if record
+          else contextlib.nullcontext({})) as calls:
+        tb = step(state, batch, gen, 0.9)
+        torch.cuda.synchronize()
+    tb = {k: float(v) for k, v in tb.items()}
+    return (tb, _launched(), _grad_norms(model, tb["grad_norm"],
+                                         float(cfg.TRAIN.GRAD_NORM_CLIP)),
+            calls, step.precision)
+
+
+def train_numerics(card: str) -> tuple[Report, Report, dict]:
+    """Phase 19 (the module docstring says what it holds) -> (the bf16
+    training forms' report, the slab forms' at smoke.yaml's SA_1, the
+    numbers for the JSON line)."""
+    import torch
+
+    from tpu3d_torch.config import cfg_from_file, cfg_from_list, fresh_cfg
+    from tpu3d_torch.datasets import (create_synthetic_kitti, random_scenes,
+                                      train_batch)
+    from tpu3d_torch.models import PointRCNN
+    from tpu3d_torch.ops import _build
+    from tpu3d_torch.parallel import create_train_state, make_train_step
+    from tpu3d_torch.tools import generate_gt_database, roofline
+    from tpu3d_torch.tools.eval_rcnn import make_infer_step
+    from tpu3d_torch.tools.train_rcnn import main as train_main
+    from tpu3d_torch.weights import seeded_state_dict
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 19)
+    report = Report(peak_ops=PEAK_BF16_OPS_PER_S)
+    smoke_report = Report(peak_ops=PEAK_BF16_OPS_PER_S)
+    figures = {"card": card, "configs": {}}
+    calls = {}  # by label, the recorded calls of the forms timed there
+    keep = {"default.yaml train B=16": ("fused_sa_train_bf16",
+                                        "three_interpolate_bwd_bf16",
+                                        "group_points_bwd_bf16"),
+            QUICK_PATH["train"]: ("fused_sa_slab_train_bf16",),
+            SMOKE_PATH["train"]: ("fused_sa_slab_train_bf16",)}
+    for label, name, batch_size in TRAIN_NUMERICS_CONFIGS:
+        cfg = cfg_from_file(str(ROOT / "configs" / name), fresh_cfg())
+        f32cfg = cfg_from_list(F32_TRAIN_SETS, copy.deepcopy(cfg))
+        model = PointRCNN(cfg, mode="TRAIN", device=dev)
+        weights = train_weights(model, SEED)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in train_batch(
+            batch_size, cfg.RPN.NUM_POINTS, SEED).items()}
+        f32 = _one_step(f32cfg, model, weights, batch)
+        record = bool(keep.get(label))
+        bf = _one_step(cfg, model, weights, batch, record)
+        check(bf[4].dense_dtype == torch.bfloat16 and bf[4].sa_bf16
+              and f32[4].dense_dtype is None and not f32[4].sa_bf16,
+              f"{label}: contracts {bf[4]} / {f32[4]}")
+        # every f32 launch of a form with a bf16 training form is that
+        # form's; the gathers split as the route predicate says
+        total, n_bf16 = bf16_gathers(cfg)
+        want = {BF16_TRAIN_OF.get(k, k): v for k, v in f32[1].items()
+                if k != "group_points_bwd"}
+        check(f32[1].get("group_points_bwd", 0) == total, f"{label}: the "
+              f"f32 step gathered {f32[1].get('group_points_bwd')} times, "
+              f"the config {total}")
+        if total - n_bf16:
+            want["group_points_bwd"] = total - n_bf16
+        if n_bf16:
+            want["group_points_bwd_bf16"] = n_bf16
+        check(bf[1] == want, f"{label}: the default contract's step launched "
+              f"{bf[1]}, expected {want}")
+        for key, bound in (("rpn_loss", RPN_LOSS_BOUND),
+                           ("loss", TRAIN_LOSS_BOUND)):
+            a, b = bf[0][key], f32[0][key]
+            check(math.isfinite(a) and abs(a - b) <= bound * abs(b),
+                  f"{label}: {key} {a} under the default contract, {b} "
+                  f"under f32 (bound {bound} of it)")
+        row = {"launches": bf[1], "f32_launches": f32[1],
+               "loss": bf[0]["loss"], "f32_loss": f32[0]["loss"],
+               "rpn_loss": bf[0]["rpn_loss"],
+               "f32_rpn_loss": f32[0]["rpn_loss"],
+               "rcnn_loss": bf[0]["rcnn_loss"],
+               "f32_rcnn_loss": f32[0]["rcnn_loss"],
+               "grad_norms": bf[2], "f32_grad_norms": f32[2],
+               "gathers": total, "bf16_gathers": n_bf16,
+               "precision": str(bf[4])}
+        print(f"{label} ({card}): default contract loss {bf[0]['loss']:.5f} "
+              f"(rpn {bf[0]['rpn_loss']:.5f}, rcnn {bf[0]['rcnn_loss']:.5f}),"
+              f" f32 {f32[0]['loss']:.5f} (rpn {f32[0]['rpn_loss']:.5f}, rcnn "
+              f"{f32[0]['rcnn_loss']:.5f}); gradient norms {bf[2]} (f32 "
+              f"{f32[2]}); launches {bf[1]} (f32 {f32[1]})")
+        calls[label] = {k: bf[3][k] for k in keep.get(label, ())}
+        if label.startswith("default"):
+            # (c) a second step from the same weights and draws, equal to
+            # the first to the bit in every gradient, parameter, moment and
+            # statistic
+            snaps = []
+            for _ in range(2):
+                model.load_state_dict(weights)
+                state = create_train_state(cfg, model, 100, 10)
+                make_train_step(cfg, model)(
+                    state, batch, torch.Generator(device=dev).manual_seed(
+                        SEED), 0.9)
+                torch.cuda.synchronize()
+                snaps.append({**{f"grad:{n}": p.grad.clone() for n, p in
+                                 model.named_parameters()
+                                 if p.grad is not None},
+                              **{k: v.clone() for k, v in
+                                 model.state_dict().items()},
+                              **{f"{key}:{i}": opt.opt.state[q][key].clone()
+                                 for opt in (state.optimizer,)
+                                 for i, q in enumerate(opt.params)
+                                 for key in ("exp_avg", "exp_avg_sq")}})
+            unequal = [k for k in snaps[0]
+                       if not torch.equal(snaps[0][k], snaps[1][k])]
+            check(not unequal, f"two default-contract steps from one state "
+                  f"differ in {len(unequal)} tensors: {unequal[:4]}")
+            row["repeat"] = {"tensors": len(snaps[0]), "unequal": unequal}
+            print(f"{label}: two default-contract steps from one state equal "
+                  f"to the bit in all {len(snaps[0])} gradients, parameters,"
+                  f" moments and statistics")
+            del snaps
+            # (d) ms per step of both contracts in turns, with peak memory
+            turns = {"f32": [], "bf16": []}
+            peaks = {}
+            for key in ("f32", "bf16", "bf16", "f32"):
+                c = f32cfg if key == "f32" else cfg
+                model.load_state_dict(weights)
+                state = create_train_state(c, model, 100, 10)
+                step = make_train_step(c, model)
+                g = torch.Generator(device=dev).manual_seed(SEED)
+                step(state, batch, g, 0.9)  # warm-up
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                turns[key].append(wall_ms(lambda: step(state, batch, g, 0.9),
+                                          3))
+                peaks[key] = torch.cuda.max_memory_allocated() / 2 ** 30
+            row.update(ms_turns=turns["bf16"], f32_ms_turns=turns["f32"],
+                       peak_gib=peaks["bf16"], f32_peak_gib=peaks["f32"])
+            print(f"{label} ({card}): ms/step in turns f32 "
+                  f"{turns['f32'][0]:.1f}, default {turns['bf16'][0]:.1f}, "
+                  f"default {turns['bf16'][1]:.1f}, f32 {turns['f32'][1]:.1f};"
+                  f" peak {peaks['bf16']:.2f} GiB (f32 {peaks['f32']:.2f})")
+            train_ms = statistics.median(turns["bf16"])
+            # (f) the BatchNorm RCNN and TRAIN.REMAT under the card's
+            # default training contract raise their named errors
+            bcfg = copy.deepcopy(cfg)
+            bcfg.RCNN.USE_BN = True
+            bmodel = PointRCNN(bcfg, mode="TRAIN", device=dev)
+            bmodel.load_state_dict(train_weights(bmodel, SEED))
+            bstate = create_train_state(bcfg, bmodel, 100, 10)
+            raised = {}
+            try:
+                make_train_step(bcfg, bmodel)(
+                    bstate, batch, torch.Generator(device=dev).manual_seed(
+                        SEED), 0.9)
+            except NotImplementedError as e:
+                raised["bn"] = str(e)
+            check("kernel 9's bf16 training form" in raised.get("bn", ""),
+                  f"the BatchNorm RCNN's bf16 train step: {raised}")
+            rcfg = copy.deepcopy(cfg)
+            rcfg.TRAIN.REMAT = True
+            try:
+                make_train_step(rcfg, model)
+            except NotImplementedError as e:
+                raised["remat"] = str(e)
+            check("TRAIN.REMAT" in raised.get("remat", ""),
+                  f"TRAIN.REMAT under the default training contract: "
+                  f"{raised}")
+            row["raised"] = raised
+            print(f"BatchNorm RCNN and TRAIN.REMAT under the default training "
+                  f"contract raise: {raised}")
+            del bmodel, bstate
+        figures["configs"][label] = row
+        del model, weights, batch, f32, bf
+        torch.cuda.empty_cache()
+
+    # (a) each bf16 training form at the recorded calls
+    for label, into in (("default.yaml train B=16", report),
+                        (QUICK_PATH["train"], report),
+                        (SMOKE_PATH["train"], smoke_report)):
+        fused_train_form_rows(into, calls[label], gen)
+        gather_train_form_rows(into, calls[label], gen)
+    del calls
+    torch.cuda.empty_cache()
+
+    # the roofline's mfu_pct: the default train step under the default
+    # training contract (d), and the eval batch (B=ROOFLINE_EVAL_BATCH)
+    # under the default eval contract
+    rcfg = roofline.default_cfg(str(ROOT / "configs" / "default.yaml"))
+    emodel = PointRCNN(rcfg, mode="TEST", device=dev)
+    emodel.load_state_dict(seeded_state_dict(emodel, SEED))
+    epts = torch.from_numpy(random_scenes(
+        ROOFLINE_EVAL_BATCH, rcfg.RPN.NUM_POINTS, SEED)).to(dev)
+    infer = make_infer_step(emodel, rcfg)
+    infer(epts)
+    eval_ms = wall_ms(lambda: infer(epts), 5)
+    rows = roofline.report(rcfg, eval_ms, train_ms, ROOFLINE_EVAL_BATCH,
+                           TRAIN_BATCH, counted=False, device=DEVICE)
+    figures["roofline"] = rows[:2]
+    for r in rows[:2]:
+        print(f"roofline {r['program']} under {r['precision']}: "
+              f"{r['step_ms']:.1f} ms, {r['matmul_tflop_per_step']:.3f} TFLOP "
+              f"({r['bf16_matmul_tflop_per_step']:.3f} in bf16), mfu_pct "
+              f"{r['mfu_pct']} ({r['card']})")
+    del emodel, epts
+    torch.cuda.empty_cache()
+
+    # (e) the training CLI (joint, phase 13's frames) and one rcnn_offline
+    # epoch (phase 14's dumps) under the card's default training contract
+    work = ROOT / "build" / "cli_smoke"
+    data = work / "data"
+    if not data.exists():  # phase 19 run alone
+        create_synthetic_kitti(str(data), n_frames=CLI_FRAMES,
+                               image_files=True)
+        generate_gt_database.main(["--root", str(data), "--save_dir",
+                                   str(work / "gt_database")])
+    db = str(work / "gt_database" / "train_gt_database_3level_Car.pkl")
+    _build.reset_launches()
+    run = train_main([
+        "--cfg_file", str(ROOT / "configs" / CLI_CFG), "--train_mode",
+        "joint", "--batch_size", str(TRAIN_BATCH), "--epochs", "1",
+        "--data_root", str(data), "--gt_database", db,
+        "--output_dir", str(ROOT / "build" / "cli_bf16"), "--device", DEVICE,
+        "--set", "TRAIN.SPLIT", "trainval"])
+    steps = len(run.losses)
+    cli = {k: v for k, v in _launched().items()}
+    check(steps == CLI_FRAMES // TRAIN_BATCH
+          and all(math.isfinite(x) for x in run.losses),
+          f"the training CLI under the default contract: {run.losses}")
+    check(all(cli.get(k, 0) > 0 for k in ("fused_sa_train_bf16",
+                                          "fused_sa_bwd_bf16",
+                                          "three_interpolate_bwd_bf16"))
+          and "fused_sa_train" not in cli, f"the training CLI under the "
+          f"default contract launched {cli}")
+    figures["training_cli"] = {
+        "path": f"tools/train_rcnn.main, {CLI_CFG} joint B={TRAIN_BATCH}, "
+                f"{CLI_FRAMES} frames, 1 epoch", "losses": run.losses,
+        "step_ms": run.step_ms,
+        "launches_per_step": {k: v / steps for k, v in cli.items()}}
+    print(f"training CLI under the default contract ({card}): ms/step "
+          f"{[round(x, 1) for x in run.step_ms]}, losses {run.losses}, "
+          f"launches per step {figures['training_cli']['launches_per_step']}")
+    del run
+    dumps = ROOT / "build" / "eval_smoke" / "rpn"
+    if (dumps / "features").exists():
+        _build.reset_launches()
+        off = train_main([
+            "--cfg_file", str(ROOT / "configs" / CLI_CFG), "--train_mode",
+            "rcnn_offline", "--batch_size", str(OFFLINE_BATCH), "--epochs",
+            "1", "--data_root", str(data), "--output_dir",
+            str(ROOT / "build" / "offline_bf16"), "--device", DEVICE,
+            "--rcnn_training_roi_dir", str(dumps / "detections" / "data"),
+            "--rcnn_training_feature_dir", str(dumps / "features"), "--set",
+            "TRAIN.SPLIT", "trainval"])
+        olaunch = _launched()
+        check(all(math.isfinite(x) for x in off.losses)
+              and olaunch.get("fused_sa_train_bf16", 0) > 0
+              and "fused_sa_train" not in olaunch, f"rcnn_offline under the "
+              f"default contract: losses {off.losses}, launches {olaunch}")
+        figures["rcnn_offline"] = {"losses": off.losses,
+                                   "step_ms": off.step_ms,
+                                   "launches": olaunch}
+        print(f"rcnn_offline under the default contract: ms/step "
+              f"{[round(x, 1) for x in off.step_ms]}, losses {off.losses}, "
+              f"launches {olaunch}")
+        del off
+    torch.cuda.empty_cache()
+    return report, smoke_report, figures
+
+
 def main() -> int:
     import torch
 
@@ -4671,8 +5366,12 @@ def main() -> int:
               "the card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    # phases 1-17 under the f32 contract, each with its own bounds; phase 18
-    # takes the card's default
+    # phases 1-18 train under the f32 training contract (both TRAIN keys
+    # False) and phases 1-17 evaluate under the f32 eval contract, each
+    # with its own bounds; phase 18 takes the card's default eval contract,
+    # phase 19 its default training contract
+    f32_train = contextlib.ExitStack()
+    f32_train.enter_context(f32_training())
     f32_before = os.environ.get("TPU3D_F32_EVAL")
     os.environ["TPU3D_F32_EVAL"] = "1"
     from tpu3d_torch.config import cfg_from_file, fresh_cfg
@@ -5182,7 +5881,16 @@ def main() -> int:
     bf16_report, bf16_launches, numerics = eval_numerics(smi[0])
     phases.done("18 (eval numerics contract)")
 
-    # 19. kernels line and result line: launches from the path each kernel
+    # 19. the training numerics contract: the bf16 training forms against
+    # their plain versions, the four configs' train steps under the card's
+    # default training contract against the f32 one, a repeated step, the
+    # turns, the CLIs, the named errors
+    f32_train.close()
+    torch.cuda.empty_cache()
+    train_report, train_smoke_report, train_figs = train_numerics(smi[0])
+    phases.done("19 (training numerics contract)")
+
+    # 20. kernels line and result line: launches from the path each kernel
     # was timed at (per forward or per train step), and on the other paths
     runs = {"default.yaml eval B=2": launches,
             "default.yaml train B=16": train_launches,
@@ -5255,6 +5963,31 @@ def main() -> int:
                 label: row["launches"].get(name, 0)
                 for label, row in numerics["configs"].items()},
             **bf16_report.row(name), "status": "ported"})
+    # the bf16 training forms: launches on the path of phase 19 each was
+    # timed at, and their other configs' (the slab forms also timed at
+    # smoke.yaml's)
+    for name in train_report.rows:
+        path = TRAIN_FORM_PATHS[name]
+        by_config = {label: row["launches"].get(name, 0)
+                     for label, row in train_figs["configs"].items()}
+        row = {
+            "name": name, "route": "cuda", "source": BF16_SOURCES[name][0],
+            "replaces": BF16_SOURCES[name][1], "launches": by_config[path],
+            "path": path,
+            "contract": "the card's default training contract (bf16)",
+            "launches_by_config": by_config,
+            "cli_launches_per_step": train_figs["training_cli"][
+                "launches_per_step"].get(name, 0),
+            **train_report.row(name),
+            "status": ("ported" if name != "group_points_bwd_bf16" else
+                       "no TPU kernel: the bf16 form of the fixed-order "
+                       "gather backward (tpu3d's gather_mxu_bwd and "
+                       "onehot_bf16 VJPs)")}
+        if name in train_smoke_report.rows:
+            row["at_smoke"] = {"path": SMOKE_PATH["train"],
+                               "launches": by_config[SMOKE_PATH["train"]],
+                               **train_smoke_report.row(name)}
+        kernels.append(row)
     check(len(kernels) == len(SOURCES) + len(BF16_SOURCES),
           f"kernels timed: {len(kernels)}")
     print(json.dumps({"kernels": kernels, "not_ported": [
@@ -5275,6 +6008,7 @@ def main() -> int:
                           "peak_gib": bpeak},
         "training_cli": cli, "eval_cli": ecli, "paper_slice": paper,
         "last_modules": last, "eval_numerics": numerics,
+        "train_numerics": train_figs,
         "data_parallel": {k: v for k, v in dp.items() if not k.startswith(
             "ddp_")},
         "widened_shapes": {"shapes": WIDE_SHAPES,

@@ -61,7 +61,7 @@ from tpu3d_torch.weights import params_from_jax
 
 T = torch.from_numpy
 SA_CASTS = Precision(sa_bf16=True)  # tpu3d's CPU under TPU3D_FORCE_FUSED_SA
-BF16_DENSE = Precision(dense_dtype=torch.bfloat16)
+BF16_DENSE = Precision(dense_dtype=torch.bfloat16, head_dtype=torch.bfloat16)
 
 
 def _f32(a):
@@ -82,15 +82,16 @@ def _bf16_close(got, want):
 def test_precision_resolves_from_the_device(monkeypatch):
     """The card takes tpu3d's accelerator contract, the CPU f32;
     TPU3D_F32_EVAL=1 returns the card to f32; BF16_INFERENCE adds bf16
-    Dense compute on any device; training is f32. Resolved from a
-    torch.device alone: no tensor is made on it."""
+    Dense compute on any device (the heads too); training on the CPU is
+    f32 (its card contract: tests/test_torch_bf16_train.py). Resolved from
+    a torch.device alone: no tensor is made on it."""
     monkeypatch.delenv("TPU3D_F32_EVAL", raising=False)
     cfg = fresh_cfg()
-    accel = Precision(sa_bf16=True, fp_bf16=True, roi_bf16=True)
+    accel = Precision(sa_bf16=True, fp_bf16=True, roi_bf16=True, accel=True)
     assert precision.resolve(torch.device("cuda"), cfg) == accel
     assert precision.resolve("cuda:0") == accel
     assert precision.resolve(torch.device("cpu"), cfg) == F32
-    assert precision.resolve(torch.device("cuda"), cfg, train=True) == F32
+    assert precision.resolve(torch.device("cpu"), cfg, train=True) == F32
     for value in ("0", "", "off", "False"):
         monkeypatch.setenv("TPU3D_F32_EVAL", value)
         assert precision.resolve(torch.device("cuda")) == accel
@@ -101,7 +102,7 @@ def test_precision_resolves_from_the_device(monkeypatch):
     assert precision.resolve(torch.device("cpu"), cfg) == BF16_DENSE
     monkeypatch.delenv("TPU3D_F32_EVAL")
     assert precision.resolve(torch.device("cuda"), cfg) == Precision(
-        True, True, True, torch.bfloat16)
+        True, True, True, torch.bfloat16, torch.bfloat16, accel=True)
     assert F32.is_f32 and not accel.is_f32
 
 
@@ -387,7 +388,7 @@ def test_accelerator_contract_runs_on_cpu(sa_casts_pair, monkeypatch):
     given no contract."""
     model, pts, _ = sa_casts_pair
     cfg = model.cfg
-    accel = Precision(sa_bf16=True, fp_bf16=True, roi_bf16=True)
+    accel = Precision(sa_bf16=True, fp_bf16=True, roi_bf16=True, accel=True)
     monkeypatch.delenv("TPU3D_F32_EVAL", raising=False)
     with torch.no_grad():
         got = make_infer_step(model, cfg, precision=accel)(T(pts))

@@ -187,7 +187,9 @@ def test_kernel_library_names_follow_sources():
     assert set(names) == {p.stem for p in _build.CSRC.glob("*.cu")}
     for src, lib in names.items():
         assert lib.startswith(src + "-") and lib.endswith(".so")
-    assert {src for src, _, _ in _build.KERNELS.values()} == set(names)
+    assert {src for src, _, _ in (*_build.KERNELS.values(),
+                                  *_build.BF16_KERNELS.values())} \
+        == set(names)
 
 
 def test_config_copy_matches_tpu3d():

@@ -942,3 +942,180 @@ def test_fused_bf16_forms_on_cuda(name, shape):
     assert got.dtype == torch.bfloat16 and got.shape == (R, M, C3)
     err = (got.float() - want.float()).abs().max().item()
     assert err <= 2.0 ** -6 * want.float().abs().max().item(), err
+
+
+# the bf16 training forms (precision.py's training contract). The gather's
+# and the interpolation's backward: equal to the CPU plain version to the
+# bit (exact products, the same f32 sums in ascending key order). Kernels 6
+# and 8: the forward within 2^-6 of the plain output's largest value and
+# its argmax on the same slot but where an x2 rounds to the other bf16
+# neighbour (the tensor cores sum in another order); the backward, routed by
+# the kernel's own argmax, within 2^-6 of each plain gradient's largest
+# value (a d_x1 can round to the other bf16 neighbour); every output
+# repeats to the bit
+
+
+def _close(got, want, tol=2.0 ** -6):
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    assert err <= tol * scale, (err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["RPN SA_1", "RCNN plain", "repeated pads",
+                                  "odd width"])
+@pytest.mark.parametrize("out", ["float32", "bfloat16"])
+def test_group_points_bwd_bf16_on_cuda(case, out):
+    """The gather's bf16 backward (tpu3d's gather_mxu_bwd and onehot_bf16
+    routes): two calls equal, equal to the CPU plain version bit for bit, in
+    f32 or bf16 out, and autograd through group_points reaches it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from tpu3d_torch.ops.grouping import (group_points,
+                                          group_points_backward_bf16,
+                                          group_points_backward_bf16_plain)
+    B, N, M, S, C = GROUP_BWD[case]
+    dtype = getattr(torch, out)
+    g = torch.Generator(device="cuda").manual_seed(len(case))
+    idx = torch.randint(0, N, (B, M, S), generator=g, device="cuda",
+                        dtype=torch.int32)
+    if case == "repeated pads":
+        idx[:, :, 3:] = idx[:, :, :1]
+        idx[:, ::4] = 7
+    grad = torch.randn(B, M, S, C, generator=g, device="cuda")
+    _build.reset_launches()
+    first = group_points_backward_bf16(grad, idx, N, dtype)
+    second = group_points_backward_bf16(grad, idx, N, dtype)
+    assert first.dtype == dtype and torch.equal(first, second)
+    cpu = group_points_backward_bf16_plain(grad.cpu(), idx.cpu(), N, dtype)
+    assert torch.equal(first.cpu(), cpu)
+    feats = torch.randn(B, N, C, generator=g, device="cuda").to(dtype)
+    feats.requires_grad_()
+    (d,) = torch.autograd.grad(group_points(feats, idx, bf16_bwd=True),
+                               feats, grad.to(dtype))
+    assert torch.equal(d, group_points_backward_bf16(grad.to(dtype), idx, N,
+                                                     dtype))
+    assert _build.BF16_LAUNCHES["group_points_bwd_bf16"] == 4
+    assert _build.LAUNCHES["group_points_bwd"] == 0
+
+
+def _interp_bwd_inputs(case):
+    """(feats, idx, w, grad) of an ``INTERP_BWD`` case, as the f32 form's
+    test makes them."""
+    N, M, C = INTERP_BWD[case]
+    B = 16
+    g = torch.Generator(device="cuda").manual_seed(len(case))
+    feats = torch.randn(B, N, C, generator=g, device="cuda")
+    grad = torch.randn(B, M, C, generator=g, device="cuda")
+    w = torch.rand(B, M, 3, generator=g, device="cuda")
+    if case == "one triple":
+        B = 2
+        feats, grad, w = feats[:B], grad[:B].contiguous(), w[:B]
+        idx = torch.tensor([5, 1, 2], dtype=torch.int32,
+                           device="cuda").repeat(B, M, 1)
+        idx[:, ::5, 1] = 5
+    else:
+        idx = torch.randint(0, N, (B, M, 3), generator=g, device="cuda",
+                            dtype=torch.int32)
+    return feats, idx, w.contiguous(), grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(INTERP_BWD))
+def test_three_interpolate_bwd_bf16_on_cuda(case):
+    """Kernel 7's bf16 form at the FP levels: two calls equal, equal to the
+    CPU plain version bit for bit, and the backward of
+    ``three_interpolate_bf16`` through it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from tpu3d_torch.ops.interpolate import (
+        three_interpolate_backward_bf16, three_interpolate_backward_bf16_plain,
+        three_interpolate_bf16)
+    feats, idx, w, grad = _interp_bwd_inputs(case)
+    feats = feats.to(torch.bfloat16)
+    N = feats.shape[1]
+    _build.reset_launches()
+    first = three_interpolate_backward_bf16(idx, w, grad, N)
+    second = three_interpolate_backward_bf16(idx, w, grad, N)
+    assert first.dtype == torch.bfloat16 and torch.equal(first, second)
+    cpu = three_interpolate_backward_bf16_plain(idx.cpu(), w.cpu(),
+                                                grad.cpu(), N)
+    assert torch.equal(first.cpu(), cpu)
+    f = feats.clone().requires_grad_()
+    out = three_interpolate_bf16(f, idx, w)
+    (d,) = torch.autograd.grad(out, f, grad.to(out.dtype))
+    assert torch.equal(d, three_interpolate_backward_bf16(
+        idx, w, grad.to(out.dtype), N))
+    assert _build.BF16_LAUNCHES["three_interpolate_bwd_bf16"] == 4
+    assert _build.LAUNCHES["three_interpolate_bwd"] == 0
+
+
+BF16_TRAIN = [(64, 128, 64, 512, 128, 128, 128),
+              (64, 32, 64, 128, 128, 128, 256),
+              (16, 32, 16, 128, 128, 128, 256),
+              (8, 16, 24, 128, 128, 256, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["gather", "slab"])
+@pytest.mark.parametrize("shape", BF16_TRAIN, ids=str)
+def test_fused_bf16_training_forms_on_cuda(form, shape):
+    """Kernels 6 (gather) and 8 (slab) in their bf16 training forms: the
+    forward against the plain training forward, the routed backward against
+    the plain backward on the kernel's own argmax and ppre, each output
+    equal across two calls; and an autograd step through the public op
+    launches each form once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    R, M, S, N, C1, C2, C3 = shape
+    x0, w1, b1, w2, b2, g = _bf16_fused_inputs((R, M, S, C1, C2, C3), 31)
+    if form == "gather":
+        pre = torch.randn(R, N, C1, generator=g, device="cuda").to(
+            torch.bfloat16)
+        idx = torch.randint(0, N, (R, M, S), generator=g, device="cuda",
+                            dtype=torch.int32)
+        center = (0.5 * torch.randn(R, M, C1, generator=g,
+                                    device="cuda")).to(torch.bfloat16)
+        args = (pre, idx, center, w1, b1, w2, b2)
+        train, train_plain = (fs.fused_gathered_mlp_pool_bf16_train,
+                              fs.fused_gathered_mlp_pool_bf16_train_plain)
+        bwd, bwd_plain = (fs.fused_gathered_mlp_pool_bf16_backward,
+                          fs.fused_gathered_mlp_pool_bf16_backward_plain)
+        op, names = fs.fused_gathered_mlp_pool_bf16, ("fused_sa_train_bf16",
+                                                      "fused_sa_bwd_bf16")
+    else:
+        args = (x0, w1, b1, w2, b2)
+        train, train_plain = (fs.fused_mlp_pool_bf16_train,
+                              fs.fused_mlp_pool_bf16_train_plain)
+        bwd, bwd_plain = (fs.fused_mlp_pool_bf16_backward,
+                          fs.fused_mlp_pool_bf16_backward_plain)
+        op, names = fs.fused_mlp_pool_bf16, ("fused_sa_slab_train_bf16",
+                                             "fused_sa_slab_bwd_bf16")
+    _build.reset_launches()
+    out, arg, ppre = train(*args)
+    again = train(*args)
+    for a, b in zip((out, arg, ppre), again):
+        assert torch.equal(a, b)
+    with torch.no_grad():
+        w_out, w_arg, _ = train_plain(*args)
+    assert out.dtype == torch.bfloat16 and arg.dtype == torch.int32
+    _close(out, w_out)
+    assert (arg != w_arg).float().mean().item() <= 1e-2
+    grad = torch.randn(out.shape, generator=g, device="cuda").to(
+        torch.bfloat16)
+    first = bwd(*args, grad, arg, ppre)
+    second = bwd(*args, grad, arg, ppre)
+    want = bwd_plain(*args, grad, arg, ppre)
+    for a, b, c in zip(first, second, want):
+        assert torch.equal(a, b)
+        assert a.dtype == c.dtype and a.shape == c.shape
+        _close(a, c)
+    assert _build.BF16_LAUNCHES[names[0]] == 2
+    assert _build.BF16_LAUNCHES[names[1]] == 2
+    leaves = [a.detach().clone().requires_grad_() if a.is_floating_point()
+              else a for a in args]
+    _build.reset_launches()
+    op(*leaves).float().sum().backward()
+    assert _build.BF16_LAUNCHES[names[0]] == 1
+    assert _build.BF16_LAUNCHES[names[1]] == 1
+    assert sum(_build.LAUNCHES.values()) == 0

@@ -8,8 +8,9 @@ from .config import (
     cfg_from_list,
     fresh_cfg,
     save_config_to_file,
+    train_numerics,
 )
 
 __all__ = ["AttrDict", "as_attrdict", "cfg",
            "cfg_from_file", "cfg_from_list", "fresh_cfg",
-           "save_config_to_file"]
+           "save_config_to_file", "train_numerics"]

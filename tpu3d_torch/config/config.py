@@ -49,9 +49,10 @@ def _default_cfg() -> AttrDict:
     # BF16_INFERENCE and TRAIN.{REMAT, BF16_ACTIVATIONS, BF16_MATMULS} are
     # the JAX package's precision knobs (no reference counterpart).
     # BF16_INFERENCE puts every Dense of an eval forward in bf16, on any
-    # device (precision.resolve reads it). The TRAIN keys stay unread until
-    # the training half of the numerics contract is ported: training runs
-    # in f32. They stay in the tree so that the same YAML files load.
+    # device (precision.resolve reads it). TRAIN.BF16_ACTIVATIONS and
+    # TRAIN.BF16_MATMULS set the training contract on the card
+    # (train_numerics, which precision.resolve reads); TRAIN.REMAT, the
+    # recomputed backbone, is not ported and raises there.
     c.BF16_INFERENCE = False
 
     c.AUG_DATA = True
@@ -158,6 +159,21 @@ def _merge_a_into_b(a: dict, b: AttrDict) -> None:
             _merge_a_into_b(v, b[k])
         else:
             b[k] = v
+
+
+def train_numerics(c) -> tuple[bool, bool]:
+    """(BF16_ACTIVATIONS, BF16_MATMULS) of config ``c``'s TRAIN block, read
+    as tpu3d's gates read them (True where unset, and for ``c`` None);
+    raises for ``TRAIN.REMAT``, whose recomputed backbone (tpu3d:
+    models/rpn.py:84-88) is not ported yet."""
+    train = {} if c is None else c.get("TRAIN", {})
+    if bool(train.get("REMAT", False)):
+        raise NotImplementedError(
+            "TRAIN.REMAT (the backbone recomputed in the backward) is not "
+            "ported yet: it is the next slice's, beside kernel 9's bf16 "
+            "training form")
+    return (bool(train.get("BF16_ACTIVATIONS", True)),
+            bool(train.get("BF16_MATMULS", True)))
 
 
 def cfg_from_file(filename: str, target: AttrDict | None = None) -> AttrDict:

@@ -24,12 +24,16 @@
 // per (source, 32·V Vecs of the row), sources in scene order. The order is
 // that of the plain versions' index_add_ on the CPU, which adds in source
 // order, so the result is the same bits on every call, and the CPU's.
+// sum_rows_bf16_kernel does the same over bf16 rows, each scaled by a
+// weight the key gives (1 for a gather's backward, a bf16 interpolation
+// weight for kernel 7's bf16 form), and writes f32 or bf16.
 
 #pragma once
 
 #include <algorithm>
 #include <climits>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace csr {
@@ -312,15 +316,32 @@ __device__ __forceinline__ void add_short_list(Vec (&acc)[V], const Vec* rows,
                          min(32, L - r * 32), lane, map);
 }
 
+// Vec i of an f32 row, or its values rounded into a bf16 row.
+__device__ __forceinline__ void store(float* o, size_t i, float v) {
+  o[i] = v;
+}
+__device__ __forceinline__ void store(float* o, size_t i, float4 v) {
+  reinterpret_cast<float4*>(o)[i] = v;
+}
+__device__ __forceinline__ void store(__nv_bfloat16* o, size_t i, float v) {
+  o[i] = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ void store(__nv_bfloat16* o, size_t i, float4 v) {
+  __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(o + 4 * i);
+  p[0] = __floats2bfloat162_rn(v.x, v.y);
+  p[1] = __floats2bfloat162_rn(v.z, v.w);
+}
+
 // One warp per (source, chunk of 32·V Vecs of its row), sources in scene
 // order: out[src] = the sum of the rows its keys map to, in ascending key
-// order, every element written. Vec is float4 when the rows are 16-byte
-// aligned (width in Vecs), else float.
-template <typename Vec, int V, typename Map>
+// order, every element written, in f32 or rounded once to bf16 (Out).
+// Vec is float4 when the rows are 16-byte aligned (width in Vecs), else
+// float.
+template <typename Vec, int V, typename Map, typename Out>
 __global__ void __launch_bounds__(kGatherThreads)
 sum_rows_kernel(const float* __restrict__ rows, int B, int N, int width,
                 const int* __restrict__ off, const int* __restrict__ keys,
-                float* __restrict__ out, Map map) {
+                Out* __restrict__ out, Map map) {
   const int lane = threadIdx.x & 31;
   const int chunks = (width + 32 * V - 1) / (32 * V);
   const long long gw = (long long)blockIdx.x * (kGatherThreads / 32) +
@@ -348,17 +369,17 @@ sum_rows_kernel(const float* __restrict__ rows, int B, int N, int width,
                          map);
     }
   }
-  Vec* o = reinterpret_cast<Vec*>(out) + (size_t)src * width + c0;
+  const size_t at = (size_t)src * width + c0;
 #pragma unroll
   for (int v = 0; v < V; ++v)
-    if (c0 + lane + 32 * v < width) o[lane + 32 * v] = acc[v];
+    if (c0 + lane + 32 * v < width) store(out, at + lane + 32 * v, acc[v]);
 }
 
 // Launch sum_rows_kernel over an inverse built by `build`: float4 rows
 // when C % 4 == 0 and both pointers are 16-byte aligned, else floats.
-template <typename Map>
+template <typename Map, typename Out>
 cudaError_t sum_rows(const float* rows, int B, int N, int C,
-                     const int* workspace, float* out, const Map& map,
+                     const int* workspace, Out* out, const Map& map,
                      cudaStream_t stream) {
   const int* off = workspace;
   const int* keys = workspace + (size_t)B * N + 1;
@@ -377,6 +398,158 @@ cudaError_t sum_rows(const float* rows, int B, int N, int C,
     sum_rows_kernel<float, 8><<<blocks, kGatherThreads, 0, stream>>>(
         rows, B, N, width, off, keys, out, map);
   return cudaGetLastError();
+}
+
+// The bf16 rows' form of the fixed-order sum: each destination row the
+// sequential f32 sum, from +0.0, of w·x over the bf16 rows x its keys map
+// to, in ascending key order (each product and sum rounded, w·x exact for
+// a bf16 w), written in f32 or bf16. map(b, key) gives {row, w} (row -1:
+// the key adds nothing). One warp per (source, chunk of channels): lane l
+// takes W neighbouring channels c0 + Wl .. c0 + Wl + W - 1 with one load
+// of 2W bytes (W = 8, 256 channels a warp, for rows of at least 256; W = 4,
+// 128 a warp, for narrower rows, so that no lane idles), or, where the
+// rows are not aligned for that, 8 channels c0 + l + 32j (W = 1).
+struct RowW {
+  long long row;
+  float w;
+};
+
+template <int W>
+__device__ __forceinline__ int lane_channel(int lane, int j) {
+  return W == 1 ? lane + 32 * j : W * lane + j;
+}
+
+template <int W, typename Map>
+__device__ __forceinline__ void add_mapped_bf16(float (&acc)[8],
+                                                const __nv_bfloat16* rows,
+                                                int C, int c0, int b,
+                                                int key, int cnt, int lane,
+                                                const Map& map) {
+  RowW rw{-1, 0.0f};
+  if (lane < cnt) rw = map(b, key);
+  unsigned live = __ballot_sync(kFull, rw.row >= 0);
+  while (live) {
+    const int t = __ffs(live) - 1;
+    live &= live - 1;
+    const long long r = __shfl_sync(kFull, rw.row, t);
+    const float w = __shfl_sync(kFull, rw.w, t);
+    const __nv_bfloat16* x = rows + r * C + c0;
+    if (W == 8 || W == 4) {
+      if (c0 + W * lane < C) {
+        __nv_bfloat16 v[W];
+        if (W == 8)
+          *reinterpret_cast<uint4*>(v) =
+              __ldg(reinterpret_cast<const uint4*>(x + W * lane));
+        else
+          *reinterpret_cast<uint2*>(v) =
+              __ldg(reinterpret_cast<const uint2*>(x + W * lane));
+#pragma unroll
+        for (int j = 0; j < W; ++j)
+          acc[j] = __fadd_rn(acc[j], __fmul_rn(w, __bfloat162float(v[j])));
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (c0 + lane + 32 * j < C)
+          acc[j] = __fadd_rn(
+              acc[j], __fmul_rn(w, __bfloat162float(x[lane + 32 * j])));
+    }
+  }
+}
+
+template <int W, int K, typename Map>
+__device__ __forceinline__ void add_short_list_bf16(
+    float (&acc)[8], const __nv_bfloat16* rows, int C, int c0, int b,
+    const int* list, int L, int lane, const Map& map) {
+  int key[K];
+#pragma unroll
+  for (int r = 0; r < K; ++r)
+    key[r] = r * 32 + lane < L ? list[r * 32 + lane] : INT_MAX;
+  warp_sort<K>(key, lane);
+#pragma unroll
+  for (int r = 0; r < K; ++r)
+    if (r * 32 < L)
+      add_mapped_bf16<W>(acc, rows, C, c0, b, key[r], min(32, L - r * 32),
+                         lane, map);
+}
+
+__device__ __forceinline__ void put(float* o, float v) { *o = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* o, float v) {
+  *o = __float2bfloat16_rn(v);
+}
+
+template <int W, typename Out, typename Map>
+__global__ void __launch_bounds__(kGatherThreads)
+sum_rows_bf16_kernel(const __nv_bfloat16* __restrict__ rows, int B, int N,
+                     int C, const int* __restrict__ off,
+                     const int* __restrict__ keys, Out* __restrict__ out,
+                     Map map) {
+  constexpr int CW = W == 4 ? 128 : 256;  // channels a warp
+  const int lane = threadIdx.x & 31;
+  const int chunks = (C + CW - 1) / CW;
+  const long long gw = (long long)blockIdx.x * (kGatherThreads / 32) +
+                       (threadIdx.x >> 5);
+  if (gw >= (long long)B * N * chunks) return;
+  const long long src = gw / chunks;
+  const int c0 = (int)(gw % chunks) * CW;
+  const int b = (int)(src / N);
+  const int lo = off[src], L = off[src + 1] - lo;
+  float acc[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) acc[j] = 0.0f;
+  if (L <= 32) {
+    add_short_list_bf16<W, 1>(acc, rows, C, c0, b, keys + lo, L, lane, map);
+  } else if (L <= 64) {
+    add_short_list_bf16<W, 2>(acc, rows, C, c0, b, keys + lo, L, lane, map);
+  } else if (L <= kSortMax) {
+    add_short_list_bf16<W, 4>(acc, rows, C, c0, b, keys + lo, L, lane, map);
+  } else {
+    for (int base = 0; base < L; base += 32) {
+      const int cnt = min(32, L - base);
+      add_mapped_bf16<W>(acc, rows, C, c0, b,
+                         lane < cnt ? keys[lo + base + lane] : 0, cnt, lane,
+                         map);
+    }
+  }
+  Out* o = out + (size_t)src * C + c0;
+#pragma unroll
+  for (int j = 0; j < (W == 4 ? 4 : 8); ++j) {
+    const int c = lane_channel<W>(lane, j);
+    if (c0 + c < C) put(o + c, acc[j]);
+  }
+}
+
+template <int W, typename Out, typename Map>
+cudaError_t launch_sum_rows_bf16(const __nv_bfloat16* rows, int B, int N,
+                                 int C, const int* off, const int* keys,
+                                 Out* out, const Map& map,
+                                 cudaStream_t stream) {
+  constexpr int CW = W == 4 ? 128 : 256;  // channels a warp
+  const long long warps = (long long)B * N * ((C + CW - 1) / CW);
+  const unsigned blocks =
+      (unsigned)((warps + kGatherThreads / 32 - 1) / (kGatherThreads / 32));
+  sum_rows_bf16_kernel<W><<<blocks, kGatherThreads, 0, stream>>>(
+      rows, B, N, C, off, keys, out, map);
+  return cudaGetLastError();
+}
+
+// Launch sum_rows_bf16_kernel over an inverse built by `build`: W = 8 for
+// rows of at least 256 channels, C % 8 == 0 and 16-byte aligned; W = 4
+// for C % 4 == 0 and 8-byte aligned; else W = 1.
+template <typename Out, typename Map>
+cudaError_t sum_rows_bf16(const __nv_bfloat16* rows, int B, int N, int C,
+                          const int* workspace, Out* out, const Map& map,
+                          cudaStream_t stream) {
+  const int* off = workspace;
+  const int* keys = workspace + (size_t)B * N + 1;
+  const size_t at = reinterpret_cast<size_t>(rows);
+  if (C >= 256 && C % 8 == 0 && at % 16 == 0)
+    return launch_sum_rows_bf16<8>(rows, B, N, C, off, keys, out, map,
+                                   stream);
+  if (C % 4 == 0 && at % 8 == 0)
+    return launch_sum_rows_bf16<4>(rows, B, N, C, off, keys, out, map,
+                                   stream);
+  return launch_sum_rows_bf16<1>(rows, B, N, C, off, keys, out, map, stream);
 }
 
 }  // namespace

@@ -1,6 +1,7 @@
 // Fused two-layer MLP + max-pool over grouped points in bf16, for Hopper
 // (sm_90a): the eval forward under the accelerator's numerics contract
-// (tpu3d_torch/precision.py), in three forms of its input.
+// (tpu3d_torch/precision.py), in three forms of its input, and the training
+// forward of the two forms without BatchNorm.
 //
 // Replaces, in their bf16 arithmetic, tpu3d/ops/fused_sa.py's eval kernels:
 //   - _nobn2_eval_kernel (gather form, entry tpu3d_fused_sa_bf16):
@@ -19,7 +20,13 @@
 //   BatchNorm:    a_k = bf16(ReLU(x_k·mul_k + add_k)) in f32;
 //                 x_{k+1} = bf16(a_k·W_{k+1})
 // every product of bf16 operands summed in f32, as the TPU's matrix unit
-// sums them, and out = max over the S slots of a2, written in bf16. The
+// sums them, and out = max over the S slots of a2, written in bf16.
+// The training forward (TRAIN, no BatchNorm; entries tpu3d_fused_sa_train_bf16
+// and tpu3d_fused_sa_slab_train_bf16) replaces _nobn2_fwd_kernel (gather
+// form, :752) and _nobn_fwd_kernel (slab form, :575) in their bf16
+// arithmetic: beside the max it writes each channel's first argmax slot
+// (the lowest slot whose a2 reaches the max) and ppre, the pre-ReLU x2
+// there, which the backward (fused_sa_bwd_bf16.cu) routes by. The
 // per-channel affines and bias adds round each multiply and add (no
 // contraction), as the plain version in ops/fused_sa.py does; the products'
 // f32 sums run in the tensor cores' order, so the kernel is held to the
@@ -41,6 +48,10 @@
 // are reduced over the chunk's rows in registers and across the warp's
 // eight row lanes by shuffles. A later chunk of the same group folds into a
 // running max in shared memory, kept by the thread that owns the channel.
+// In training the running max carries its slot and x2 beside it: each thread
+// walks its rows in ascending order and keeps the first strict maximum, the
+// shuffles keep the lower slot of two equal maxima, and a later chunk takes
+// over only above the running max.
 // wgmma and TMA are later work.
 //
 // Included by fused_sa.cu (its library holds both numeric forms); the
@@ -126,7 +137,18 @@ __device__ __forceinline__ float activate(float v, int c,
   return fmaxf(bfr(__fadd_rn(x, __bfloat162float(bias[c]))), 0.f);
 }
 
-template <int MT, bool GATHER, bool BN>
+// The first strict maximum of a channel and its slot and x2: (mx, ar, pp)
+// takes (v, s, x) where v is larger, or equal at a lower slot.
+__device__ __forceinline__ void keep_first_max(float& mx, int& ar, float& pp,
+                                               float v, int s, float x) {
+  if (v > mx || (v == mx && s < ar)) {
+    mx = v;
+    ar = s;
+    pp = x;
+  }
+}
+
+template <int MT, bool GATHER, bool BN, bool TRAIN>
 __global__ void __launch_bounds__(kThreads)
 fused_sa_bf16_kernel(const bf16* __restrict__ src, const int* __restrict__ idx,
                      const bf16* __restrict__ center,
@@ -134,13 +156,16 @@ fused_sa_bf16_kernel(const bf16* __restrict__ src, const int* __restrict__ idx,
                      const bf16* __restrict__ w1t, const bf16* __restrict__ b1,
                      const bf16* __restrict__ w2t, const bf16* __restrict__ b2,
                      int R, int N, int M, int S, int C1, int C2, int C3,
-                     bf16* __restrict__ out) {
+                     bf16* __restrict__ out, int* __restrict__ argmax,
+                     float* __restrict__ ppre) {
   constexpr int TM = 16 * MT;
   extern __shared__ __align__(16) unsigned char smem[];
   const int lda = C1 + kPad, ldb = C2 + kPad;
   bf16* a0s = reinterpret_cast<bf16*>(smem);
   bf16* a1s = a0s + TM * lda;
   float* pool = reinterpret_cast<float*>(a1s + TM * ldb);
+  int* pool_arg = reinterpret_cast<int*>(pool + C3);  // TRAIN: its slot
+  float* pool_pre = pool + 2 * C3;                    // TRAIN: its x2
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gq = lane >> 2, tq = lane & 3;
   const long long groups = (long long)R * M;
@@ -222,37 +247,77 @@ fused_sa_bf16_kernel(const bf16* __restrict__ src, const int* __restrict__ idx,
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int c = n0 + j * 8 + 2 * tq;
-          float mx0 = 0.f, mx1 = 0.f;  // every a2 is >= 0
+          // every a2 is >= 0; in training the first valid row takes the
+          // running max (-1) with its slot and x2
+          float mx[2] = {TRAIN ? -1.f : 0.f, TRAIN ? -1.f : 0.f};
+          int ar[2] = {0, 0};
+          float pp[2] = {0.f, 0.f};
 #pragma unroll
           for (int m = 0; m < MT; ++m)
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
-              if (m * 16 + gq + 8 * h < valid) {
-                mx0 = fmaxf(mx0,
-                            activate<BN>(acc[m][j][2 * h], c, b2, mul2, add2));
-                mx1 = fmaxf(mx1, activate<BN>(acc[m][j][2 * h + 1], c + 1, b2,
-                                              mul2, add2));
+              const int row = m * 16 + gq + 8 * h;
+              if (row < valid) {
+#pragma unroll
+                for (int q = 0; q < 2; ++q) {
+                  const float v = acc[m][j][2 * h + q];
+                  if (TRAIN) {
+                    // x2 = bf16(bf16(v) + bf16(b2)); a2 = ReLU(x2)
+                    const float x2 = bfr(__fadd_rn(
+                        bfr(v), __bfloat162float(b2[c + q])));
+                    if (fmaxf(x2, 0.f) > mx[q]) {
+                      mx[q] = fmaxf(x2, 0.f);
+                      ar[q] = s0 + row;
+                      pp[q] = x2;
+                    }
+                  } else {
+                    mx[q] = fmaxf(mx[q], activate<BN>(v, c + q, b2, mul2,
+                                                      add2));
+                  }
+                }
               }
             }
 #pragma unroll
-          for (int off = 4; off < 32; off <<= 1) {
-            mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-            mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-          }
-          if (gq == 0) {
-            if (!first) {
-              mx0 = fmaxf(mx0, pool[c]);
-              mx1 = fmaxf(mx1, pool[c + 1]);
+          for (int off = 4; off < 32; off <<= 1)
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+              const float om = __shfl_xor_sync(0xffffffffu, mx[q], off);
+              if (TRAIN) {
+                const int oa = __shfl_xor_sync(0xffffffffu, ar[q], off);
+                const float op = __shfl_xor_sync(0xffffffffu, pp[q], off);
+                keep_first_max(mx[q], ar[q], pp[q], om, oa, op);
+              } else {
+                mx[q] = fmaxf(mx[q], om);
+              }
             }
-            if (last) {
-              __nv_bfloat162 pair;
-              pair.x = __float2bfloat16_rn(mx0);
-              pair.y = __float2bfloat16_rn(mx1);
-              *reinterpret_cast<__nv_bfloat162*>(out + (size_t)grp * C3 + c) =
-                  pair;
-            } else {
-              pool[c] = mx0;
-              pool[c + 1] = mx1;
+          if (gq == 0) {
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+              if (!first) {
+                if (TRAIN) {
+                  // an earlier chunk holds the lower slots: it keeps ties
+                  if (pool[c + q] >= mx[q]) {
+                    mx[q] = pool[c + q];
+                    ar[q] = pool_arg[c + q];
+                    pp[q] = pool_pre[c + q];
+                  }
+                } else {
+                  mx[q] = fmaxf(mx[q], pool[c + q]);
+                }
+              }
+              if (last) {
+                out[(size_t)grp * C3 + c + q] = __float2bfloat16_rn(mx[q]);
+                if (TRAIN) {
+                  argmax[(size_t)grp * C3 + c + q] = ar[q];
+                  ppre[(size_t)grp * C3 + c + q] = pp[q];
+                }
+              } else {
+                pool[c + q] = mx[q];
+                if (TRAIN) {
+                  pool_arg[c + q] = ar[q];
+                  pool_pre[c + q] = pp[q];
+                }
+              }
             }
           }
         }
@@ -262,25 +327,26 @@ fused_sa_bf16_kernel(const bf16* __restrict__ src, const int* __restrict__ idx,
 }
 
 // TM = 16·MT rows per chunk: the fewest m-tiles that hold min(S, 64) slots,
-// halved while the chunk's a0 and a1 overflow shared memory.
+// halved while the chunk's a0 and a1 and the running max (with its slot and
+// x2 in training) overflow shared memory.
 int pick_mt(int S, int C1, int C2, int C3, size_t* smem) {
   const int rows = S < 64 ? S : 64;
   int mt = rows <= 16 ? 1 : rows <= 32 ? 2 : 4;
   for (; mt >= 1; mt >>= 1) {
     *smem = (size_t)16 * mt * (C1 + kPad + C2 + kPad) * sizeof(bf16) +
-            (size_t)C3 * sizeof(float);
+            (size_t)3 * C3 * sizeof(float);
     if (*smem <= (size_t)kSmemMax) return mt;
   }
   return 0;
 }
 
-template <int MT, bool GATHER, bool BN>
+template <int MT, bool GATHER, bool BN, bool TRAIN>
 int launch_mt(const bf16* src, const int* idx, const bf16* center,
               const float* packs, const bf16* w1t, const bf16* b1,
               const bf16* w2t, const bf16* b2, int R, int N, int M, int S,
-              int C1, int C2, int C3, bf16* out, size_t smem,
-              cudaStream_t stream) {
-  auto kern = fused_sa_bf16_kernel<MT, GATHER, BN>;
+              int C1, int C2, int C3, bf16* out, int* argmax, float* ppre,
+              size_t smem, cudaStream_t stream) {
+  auto kern = fused_sa_bf16_kernel<MT, GATHER, BN, TRAIN>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -289,15 +355,16 @@ int launch_mt(const bf16* src, const int* idx, const bf16* center,
   const unsigned blocks = (unsigned)(groups < cap ? groups : cap);
   kern<<<blocks, kThreads, smem, stream>>>(src, idx, center, packs, w1t, b1,
                                            w2t, b2, R, N, M, S, C1, C2, C3,
-                                           out);
+                                           out, argmax, ppre);
   return (int)cudaGetLastError();
 }
 
-template <bool GATHER, bool BN>
+template <bool GATHER, bool BN, bool TRAIN>
 int launch(const bf16* src, const int* idx, const bf16* center,
            const float* packs, const bf16* w1t, const bf16* b1,
            const bf16* w2t, const bf16* b2, int R, int N, int M, int S,
-           int C1, int C2, int C3, bf16* out, cudaStream_t stream) {
+           int C1, int C2, int C3, bf16* out, int* argmax, float* ppre,
+           cudaStream_t stream) {
   if (const int pending = tpu3d::pending_error(stream)) return pending;
   if (R < 1 || M < 1 || S < 1 || C1 < 16 || C1 % 16 || C2 < 128 ||
       C2 % 128 || C3 < 128 || C3 % 128 || (GATHER && N < 1))
@@ -305,14 +372,17 @@ int launch(const bf16* src, const int* idx, const bf16* center,
   size_t smem = 0;
   const int mt = pick_mt(S, C1, C2, C3, &smem);
   if (mt == 4)
-    return launch_mt<4, GATHER, BN>(src, idx, center, packs, w1t, b1, w2t, b2,
-                                    R, N, M, S, C1, C2, C3, out, smem, stream);
+    return launch_mt<4, GATHER, BN, TRAIN>(src, idx, center, packs, w1t, b1,
+                                           w2t, b2, R, N, M, S, C1, C2, C3,
+                                           out, argmax, ppre, smem, stream);
   if (mt == 2)
-    return launch_mt<2, GATHER, BN>(src, idx, center, packs, w1t, b1, w2t, b2,
-                                    R, N, M, S, C1, C2, C3, out, smem, stream);
+    return launch_mt<2, GATHER, BN, TRAIN>(src, idx, center, packs, w1t, b1,
+                                           w2t, b2, R, N, M, S, C1, C2, C3,
+                                           out, argmax, ppre, smem, stream);
   if (mt == 1)
-    return launch_mt<1, GATHER, BN>(src, idx, center, packs, w1t, b1, w2t, b2,
-                                    R, N, M, S, C1, C2, C3, out, smem, stream);
+    return launch_mt<1, GATHER, BN, TRAIN>(src, idx, center, packs, w1t, b1,
+                                           w2t, b2, R, N, M, S, C1, C2, C3,
+                                           out, argmax, ppre, smem, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -326,9 +396,9 @@ extern "C" int tpu3d_fused_sa_bf16(const __nv_bfloat16* pre, const int* idx,
                                    const __nv_bfloat16* b2, int R, int N, int M, int S,
                                    int C1, int C2, int C3, __nv_bfloat16* out,
                                    void* stream) {
-  return fused_sa_bf16::launch<true, false>(pre, idx, center, nullptr, w1t, b1, w2t, b2, R,
-                             N, M, S, C1, C2, C3, out,
-                             static_cast<cudaStream_t>(stream));
+  return fused_sa_bf16::launch<true, false, false>(
+      pre, idx, center, nullptr, w1t, b1, w2t, b2, R, N, M, S, C1, C2, C3,
+      out, nullptr, nullptr, static_cast<cudaStream_t>(stream));
 }
 
 // x0 (R, M, S, C1) bf16; weights and biases as above.
@@ -337,9 +407,9 @@ extern "C" int tpu3d_fused_sa_slab_bf16(const __nv_bfloat16* x0, const __nv_bflo
                                         const __nv_bfloat16* b2, int R, int M, int S,
                                         int C1, int C2, int C3, __nv_bfloat16* out,
                                         void* stream) {
-  return fused_sa_bf16::launch<false, false>(x0, nullptr, nullptr, nullptr, w1t, b1, w2t, b2,
-                              R, 0, M, S, C1, C2, C3, out,
-                              static_cast<cudaStream_t>(stream));
+  return fused_sa_bf16::launch<false, false, false>(
+      x0, nullptr, nullptr, nullptr, w1t, b1, w2t, b2, R, 0, M, S, C1, C2, C3,
+      out, nullptr, nullptr, static_cast<cudaStream_t>(stream));
 }
 
 // x0 (R, M, S, C1) bf16; packs f32 [mul0 | add0 | mul1 | add1 | mul2 | add2].
@@ -347,7 +417,33 @@ extern "C" int tpu3d_fused_sa_slab_bn_bf16(const __nv_bfloat16* x0, const float*
                                            const __nv_bfloat16* w1t, const __nv_bfloat16* w2t,
                                            int R, int M, int S, int C1, int C2,
                                            int C3, __nv_bfloat16* out, void* stream) {
-  return fused_sa_bf16::launch<false, true>(x0, nullptr, nullptr, packs, w1t, nullptr, w2t,
-                             nullptr, R, 0, M, S, C1, C2, C3, out,
-                             static_cast<cudaStream_t>(stream));
+  return fused_sa_bf16::launch<false, true, false>(
+      x0, nullptr, nullptr, packs, w1t, nullptr, w2t, nullptr, R, 0, M, S, C1,
+      C2, C3, out, nullptr, nullptr, static_cast<cudaStream_t>(stream));
+}
+
+// Kernel 6's bf16 training forward: the gather form's inputs as
+// tpu3d_fused_sa_bf16 -> out (R, M, C3) bf16, argmax (R, M, C3) i32 (the
+// first slot of the max), ppre (R, M, C3) f32 (x2 there).
+extern "C" int tpu3d_fused_sa_train_bf16(
+    const __nv_bfloat16* pre, const int* idx, const __nv_bfloat16* center,
+    const __nv_bfloat16* w1t, const __nv_bfloat16* b1,
+    const __nv_bfloat16* w2t, const __nv_bfloat16* b2, int R, int N, int M,
+    int S, int C1, int C2, int C3, __nv_bfloat16* out, int* argmax,
+    float* ppre, void* stream) {
+  return fused_sa_bf16::launch<true, false, true>(
+      pre, idx, center, nullptr, w1t, b1, w2t, b2, R, N, M, S, C1, C2, C3,
+      out, argmax, ppre, static_cast<cudaStream_t>(stream));
+}
+
+// Kernel 8's bf16 training forward: the slab form's inputs as
+// tpu3d_fused_sa_slab_bf16 -> out, argmax, ppre as above.
+extern "C" int tpu3d_fused_sa_slab_train_bf16(
+    const __nv_bfloat16* x0, const __nv_bfloat16* w1t,
+    const __nv_bfloat16* b1, const __nv_bfloat16* w2t,
+    const __nv_bfloat16* b2, int R, int M, int S, int C1, int C2, int C3,
+    __nv_bfloat16* out, int* argmax, float* ppre, void* stream) {
+  return fused_sa_bf16::launch<false, false, true>(
+      x0, nullptr, nullptr, nullptr, w1t, b1, w2t, b2, R, 0, M, S, C1, C2, C3,
+      out, argmax, ppre, static_cast<cudaStream_t>(stream));
 }

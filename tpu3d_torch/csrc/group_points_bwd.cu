@@ -15,6 +15,12 @@
 // each sum rounded, and writes its part of the row: no atomics, every row
 // written once (no zeroing pass). The order is that of the plain version's
 // index_add_ on the CPU, so every call gives the same bits, and the CPU's.
+//
+// The bf16 form (tpu3d_group_points_bwd_bf16; the backward of tpu3d's
+// gather_mxu_bwd and onehot_bf16 routes, ops/grouping.py:559-621,
+// :638-675): g in bf16 (the wrapper rounds it), the same f32 sums in the
+// same order, d_features in f32 or bf16 (the features' dtype); the same
+// bits as its plain version on the CPU. Bound: bytes, half of g's.
 
 #include <climits>
 
@@ -30,6 +36,14 @@ struct GroupRow {
   long long per_scene;
   __device__ long long operator()(int b, int key) const {
     return b * per_scene + key;
+  }
+};
+
+// the same row, weight 1: the bf16 form
+struct GroupRowW {
+  long long per_scene;
+  __device__ csr::RowW operator()(int b, int key) const {
+    return csr::RowW{b * per_scene + key, 1.0f};
   }
 };
 
@@ -60,4 +74,30 @@ extern "C" int tpu3d_group_points_bwd(const float* g, const int* idx, int B,
   if (err != cudaSuccess) return (int)err;
   return (int)csr::sum_rows(g, B, N, C, workspace, dfeats, GroupRow{E},
                             stream);
+}
+
+// The bf16 form: g (B, M, S, C) bf16, idx (B, M, S) -> dfeats (B, N, C), f32
+// (out_bf16 0) or bf16 (1), every element written; the workspace as above.
+extern "C" int tpu3d_group_points_bwd_bf16(const __nv_bfloat16* g,
+                                           const int* idx, int B, int N,
+                                           int M, int S, int C, int out_bf16,
+                                           void* dfeats, int* workspace,
+                                           long long ws_ints,
+                                           void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (const int pending = tpu3d::pending_error(stream)) return pending;
+  const long long E = (long long)M * S;
+  if (B < 1 || N < 1 || M < 1 || S < 1 || C < 1 || B * E >= INT_MAX ||
+      (long long)B * N >= INT_MAX || csr::build_smem(E) == 0 ||
+      ws_ints < csr::inverse_ints(B, N, E))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = csr::build(idx, B, N, M, S, workspace, stream);
+  if (err != cudaSuccess) return (int)err;
+  if (out_bf16)
+    return (int)csr::sum_rows_bf16(g, B, N, C, workspace,
+                                   static_cast<__nv_bfloat16*>(dfeats),
+                                   GroupRowW{E}, stream);
+  return (int)csr::sum_rows_bf16(g, B, N, C, workspace,
+                                 static_cast<float*>(dfeats), GroupRowW{E},
+                                 stream);
 }

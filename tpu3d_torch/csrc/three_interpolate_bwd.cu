@@ -38,6 +38,16 @@
 // The sum of each element is a sequential sum in ascending (m·3 + j), the
 // order of the plain version's index_add_ on the CPU, so the result is the
 // same bits on every call, and the CPU plain version's bits.
+//
+// The bf16 form (tpu3d_three_interpolate_bwd_bf16) is kernel 7 in its bf16
+// arithmetic, as every route of tpu3d's accelerator differentiates the
+// interpolation of bf16 features (_ti_bwd_kernel, :276-300; the gather
+// route's MXU backward and the one-hot route's autodiff, :423-505):
+// d_features = bf16(sum of bf16(w)·bf16(g)), each product exact in f32,
+// summed in f32 in the same ascending order over the same inverse
+// (csr_inverse.cuh's sum_rows_bf16), written in bf16; no d_weight (the FP
+// levels' weights are constants). The same bits as its plain version on
+// the CPU. Bound: bytes, half of the f32 form's g.
 
 #include <algorithm>
 #include <climits>
@@ -203,6 +213,17 @@ cudaError_t launch_gather(const float* w, const float* g, int B, int N,
   return cudaGetLastError();
 }
 
+// key m·3 + j of scene b -> g's row b·M + m, weight bf16(w[b, m, j])
+struct InterpRowW {
+  const float* w;
+  int M;
+  __device__ csr::RowW operator()(int b, int key) const {
+    const float wt = __ldg(w + (size_t)b * M * 3 + key);
+    return csr::RowW{(long long)b * M + key / 3,
+                     __bfloat162float(__float2bfloat16_rn(wt))};
+  }
+};
+
 // Ints of workspace the entry needs: offsets (B·N + 1), then the lists'
 // keys (3·B·M); ops/interpolate.py::backward_workspace gives the same.
 long long workspace_ints(int B, int N, int M) {
@@ -247,4 +268,26 @@ extern "C" int tpu3d_three_interpolate_bwd(const float* feats, const int* idx,
   dweight_kernel<<<blocks, kGatherThreads, 0, stream>>>(feats, idx, g, B, N,
                                                         M, C, dw);
   return (int)cudaGetLastError();
+}
+
+// Kernel 7's bf16 form: idx and w (B, M, 3), g (B, M, C) bf16 -> dfeats
+// (B, N, C) bf16, every element written; the workspace as above.
+extern "C" int tpu3d_three_interpolate_bwd_bf16(const int* idx,
+                                                const float* w,
+                                                const __nv_bfloat16* g, int B,
+                                                int N, int M, int C,
+                                                __nv_bfloat16* dfeats,
+                                                int* workspace,
+                                                long long ws_ints,
+                                                void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (const int pending = tpu3d::pending_error(stream)) return pending;
+  if (B < 1 || N < 1 || M < 1 || C < 1 || 3LL * B * M >= INT_MAX ||
+      (long long)B * N >= INT_MAX || csr::build_smem(3LL * M) == 0 ||
+      ws_ints < workspace_ints(B, N, M))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = csr::build(idx, B, N, M, 3, workspace, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)csr::sum_rows_bf16(g, B, N, C, workspace, dfeats,
+                                 InterpRowW{w, M}, stream);
 }

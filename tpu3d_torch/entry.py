@@ -131,7 +131,9 @@ def rank_device(rank: int, backend: str | None, device: str) -> torch.device:
 
 
 def _dryrun_rank(rank: int, world: int, store_path: str,
-                 backend: str | None, device: str, result_path: str) -> None:
+                 backend: str | None, device: str, result_path: str,
+                 cfg_list=()) -> None:
+    from .config import cfg_from_list
     from .datasets import plant_clusters
     from .models import PointRCNN
     from .parallel import (create_train_state, init_distributed, make_mesh,
@@ -144,7 +146,8 @@ def _dryrun_rank(rank: int, world: int, store_path: str,
     init_distributed(dev, backend, torch.distributed.FileStore(
         store_path, world), rank, world)
     try:
-        cfg = _tiny_cfg(rcnn=True, points=4096)  # mid shape (default / 4)
+        # mid shape (default / 4)
+        cfg = cfg_from_list(list(cfg_list), _tiny_cfg(rcnn=True, points=4096))
         B = 2 * world  # two scenes per process
         pts, gt = _scenes(B, cfg.RPN.NUM_POINTS)
         mesh = make_mesh(batch_size=B)
@@ -216,14 +219,16 @@ def spawn(fn, world: int, *args) -> None:
 
 
 def dryrun_multichip(n_devices: int, backend: str | None = None,
-                     device: str = "cuda") -> dict:
+                     device: str = "cuda", cfg_list=()) -> dict:
     """One data-parallel train step and the sharded eval over ``n_devices``
     processes (see the module's docstring) -> rank 0's figures (loss, step,
     detections, recall hits at IoU 0.1). On cards the backend is NCCL, one
     card per process (fewer cards raise), unless ``backend="gloo"`` is
     given, which also runs several ranks on one card; ``device="cpu"`` runs
-    them on the CPU under gloo. The kernels are built here, before the
-    processes start, which then load them."""
+    them on the CPU under gloo. ``cfg_list``: dotted key/value overrides of
+    the ranks' config (``cfg_from_list``; e.g. the training contract's
+    keys). The kernels are built here, before the processes start, which
+    then load them."""
     from .device import resolve_device
 
     dev = resolve_device(device)
@@ -237,7 +242,8 @@ def dryrun_multichip(n_devices: int, backend: str | None = None,
         _build.build_all()
     with tempfile.TemporaryDirectory() as tmp:
         result_path = os.path.join(tmp, "result.json")
-        spawn(_dryrun_rank, n_devices, backend, dev.type, result_path)
+        spawn(_dryrun_rank, n_devices, backend, dev.type, result_path,
+              list(cfg_list))
         with open(result_path) as f:
             result = json.load(f)
     print(f"dryrun_multichip({n_devices}): train OK, loss="

@@ -166,11 +166,9 @@ class PointRCNN(nn.Module):
         RCNN-offline (``RPN.ENABLED`` False): ``pts_input`` is the loader's
         pooled canonical points, (B·M, K, 3 + C_extra + C_rpn), and the
         output holds ``rcnn_cls`` and ``rcnn_reg`` (tpu3d:
-        point_rcnn.py:152-157). ``precision``: the eval numerics contract
-        (``precision.resolve``; f32 by default, and training is f32)."""
-        if train and not precision.is_f32:
-            raise ValueError("training runs in f32: the bf16 contract is an "
-                             "eval contract")
+        point_rcnn.py:152-157). ``precision``: the numerics contract
+        (``precision.resolve`` for the forward's kind, eval or training; f32
+        by default)."""
         if not self.cfg.RPN.ENABLED:
             pts = input_dict["pts_input"]
             with torch.set_grad_enabled(train and torch.is_grad_enabled()):
@@ -178,17 +176,25 @@ class PointRCNN(nn.Module):
                                           pts[..., 3:], train, bn_momentum,
                                           generator, precision))
         if train:
-            return self._forward_train(input_dict, bn_momentum, generator)
+            return self._forward_train(input_dict, bn_momentum, generator,
+                                       precision)
         return self._forward_eval(input_dict, precision)
 
-    def _forward_train(self, input_dict, bn_momentum, generator) -> dict:
+    def _forward_train(self, input_dict, bn_momentum, generator,
+                       precision: Precision) -> dict:
+        """The training forward under the training contract ``precision``.
+        A fixed RPN runs its eval forward under the device's eval contract
+        (``precision.fixed_rpn``), as tpu3d runs it inside its training
+        step."""
         c = self.cfg
         pts = input_dict["pts_input"]
         if c.RPN.FIXED:
             with torch.no_grad():
-                output = dict(self.rpn(pts))
+                output = dict(self.rpn(pts, precision=precision.fixed_rpn
+                                       or F32))
         else:
-            output = dict(self.rpn(pts, True, bn_momentum, generator))
+            output = dict(self.rpn(pts, True, bn_momentum, generator,
+                                   precision))
         if not c.RCNN.ENABLED:
             return output
         # the RCNN's inputs carry no gradient back into the RPN, as in the
@@ -205,13 +211,19 @@ class PointRCNN(nn.Module):
                 [extra, output["backbone_features"]], dim=-1)
             target = proposal_target_layer(
                 generator, rois, roi_valid, input_dict["gt_boxes3d"], xyz,
-                pts_feature, c, aug_data=c.AUG_DATA)
+                pts_feature, c, aug_data=c.AUG_DATA,
+                **({"roi_bf16": True} if precision.roi_bf16 else {}))
         output.update(target)
         output.update({"rois": rois, "roi_scores_raw": roi_scores_raw,
                        "roi_valid": roi_valid, "seg_result": seg_mask})
-        output.update(self.rcnn_net(target["sampled_pts"],
-                                    target["pts_feature"], True, bn_momentum,
-                                    generator))
+        # tpu3d joins the f32 points and the (bf16) pooled features into
+        # one input, which promotes the features
+        sampled = target["sampled_pts"]
+        feats = target["pts_feature"]
+        output.update(self.rcnn_net(
+            sampled, feats.to(torch.promote_types(feats.dtype,
+                                                  sampled.dtype)),
+            True, bn_momentum, generator, precision))
         return output
 
     @torch.no_grad()

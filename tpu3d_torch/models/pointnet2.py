@@ -39,9 +39,10 @@ chosen from its shapes alone and the same on every device
 - plain: the SharedMLP and a max, otherwise (other widths or group shapes,
   and the GroupAll).
 
-Every forward takes a ``precision.Precision``, the eval numerics contract
-its entry point resolved (f32 by default). Under the accelerator's contract
-it rounds where tpu3d's TPU path rounds (``tpu3d/models/pointnet2.py``):
+Every forward takes a ``precision.Precision``, the numerics contract its
+entry point resolved for an eval or a train step (f32 by default). Under
+the accelerator's contract it rounds where tpu3d's TPU path rounds
+(``tpu3d/models/pointnet2.py``):
 the scene-frame pre-grouped levels cast their grouped pre-activations to
 bf16 after the per-center subtraction (``:380-383``), the canonical RCNN
 levels round the per-point pre-activations before the gather
@@ -51,7 +52,13 @@ bf16), and feature propagation casts its source features to bf16
 (``:505-513``). A Dense with a compute dtype (``BF16_INFERENCE``) runs in
 bf16 and BatchNorm's folded affine applies in the activation's dtype
 (``:90-99``). A bf16 activation into an f32 layer computes in f32, as
-flax promotes it. Under the f32 contract every step is today's f32 one.
+flax promotes it. In training (``first_f32``, ``:321-323``) the
+scene-frame pre-grouped layer 0 computes in the promoted dtype on inputs
+in the features' dtype, so bf16 features round the coordinates first;
+BatchNorm takes its batch statistics of a bf16 input in f32 and casts its
+output back (``:101-110``); the gathers' backward takes tpu3d's routes
+(``ops/grouping.py::gp_route``) and the fused levels their training
+forms. Under the f32 contract every step is the f32 one.
 """
 
 from __future__ import annotations
@@ -67,7 +74,9 @@ from ..ops import (ball_query, ball_query_from_nearest,
                    gather_points, group_points, interpolation_weights,
                    nearest_k, sa_route, three_interpolate)
 from ..ops.fused_sa import (fused_bn_mlp_pool_bf16,
+                            fused_bn_mlp_pool_bf16_train,
                             fused_gathered_mlp_pool_bf16, fused_mlp_pool_bf16)
+from ..ops.grouping import gp_route
 from ..ops.interpolate import rounds_weights, three_interpolate_bf16
 from ..parallel.mesh import batch_means
 from ..precision import F32, Precision, linear, promote_f32
@@ -87,7 +96,9 @@ class BatchNorm(nn.Module):
     data-parallel mesh (``parallel.mesh.use_mesh``) the statistics are the
     global batch's: the sums of every rank over the count of every rank's
     rows, as tpu3d's sharded step takes them, so the running statistics
-    agree on every rank."""
+    agree on every rank. A bf16 input is promoted to f32 for the
+    statistics and the normalisation, and the output cast back to bf16, as
+    tpu3d's BatchNorm does in bf16 training."""
 
     def __init__(self, features: int, eps: float = 1e-5, device=None):
         super().__init__()
@@ -110,13 +121,14 @@ class BatchNorm(nn.Module):
             mul, add = self.affine()
             return x * mul.to(x.dtype) + add.to(x.dtype)
         axes = tuple(range(x.dim() - 1))
-        mean, sq = batch_means((x, x * x), axes)
+        xf = promote_f32(x)
+        mean, sq = batch_means((xf, xf * xf), axes)
         var = sq - mean * mean
         with torch.no_grad():
             self.mean.copy_(momentum * self.mean + (1 - momentum) * mean)
             self.var.copy_(momentum * self.var + (1 - momentum) * var)
         inv = torch.rsqrt(var + self.eps)
-        return ((x - mean) * inv) * self.scale + self.bias
+        return (((xf - mean) * inv) * self.scale + self.bias).to(x.dtype)
 
 
 class SharedMLP(nn.Module):
@@ -177,6 +189,9 @@ class PointnetSAModuleMSG(nn.Module):
         B, N, _ = xyz.shape
         dt = precision.dense_dtype
         lowp = precision.sa_bf16 or dt is not None
+        # layer 0's compute dtype: in training the scene frame keeps it in
+        # the promoted dtype whatever dt says (tpu3d's first_f32)
+        dt0 = None if precision.first_f32 else dt
         if features is None:
             # the candidates' coordinates come with them, for every scale
             d2, cand, cand_xyz = nearest_k(new_xyz, xyz, max(self.nsamples),
@@ -185,8 +200,9 @@ class PointnetSAModuleMSG(nn.Module):
         else:
             d2, cand = nearest_k(new_xyz, xyz, max(self.nsamples),
                                  max_radius=max(self.radii))
-            # layer 0's input dtype (tpu3d's cdt)
-            cdt = dt or features.dtype
+            # layer 0's input dtype (tpu3d's cdt): bf16 features round the
+            # coordinates too
+            cdt = dt0 or features.dtype
             inp = torch.cat([xyz.to(cdt), features.to(cdt)], dim=-1)
         outs = []
         for i, (radius, nsample) in enumerate(zip(self.radii, self.nsamples)):
@@ -207,8 +223,14 @@ class PointnetSAModuleMSG(nn.Module):
                 idx = ball_query_from_nearest(d2, cand, radius, nsample, N)
                 dense0 = mlp.dense_0
                 if lowp:
+                    # the gather's backward: tpu3d's precise route, bf16
+                    # where its bf16 training allows it (wide tables)
+                    route = gp_route(N, dense0.out_features,
+                                     idx.shape[1] * nsample, True,
+                                     not precision.sa_bf16, precision.sa_bf16)
                     x = _pregroup_lowp(inp, new_xyz.to(cdt), idx, dense0,
-                                       dt, precision.sa_bf16)
+                                       dt0, precision.sa_bf16,
+                                       route == "gather_mxu_bwd")
                 else:
                     # a layer-0 bias (no-BN MLPs) rides the gathered term
                     # once; the center term W_x@c carries none
@@ -229,12 +251,15 @@ def _layer0_terms(inp, center_xyz, dense0, dt):
             linear(center_xyz, dense0.weight[:, :3], dense0.bias, dt))
 
 
-def _pregroup_lowp(inp, center_xyz, idx, dense0, dt, cast):
+def _pregroup_lowp(inp, center_xyz, idx, dense0, dt, cast, bf16_bwd=False):
     """A scene-frame pre-grouped layer 0 in tpu3d's arithmetic (``pre0``):
     pre gathered exactly, minus its center term, plus the bias back, then,
-    with ``cast``, rounded to bf16 after the cancellation."""
+    with ``cast``, rounded to bf16 after the cancellation. ``bf16_bwd``:
+    the gather's backward takes the bf16 form (tpu3d's
+    ``gather_mxu_bwd``)."""
     pre, center = _layer0_terms(inp, center_xyz, dense0, dt)
-    x = group_points(pre, idx) - center[:, :, None, :].to(pre.dtype)
+    x = group_points(pre, idx, bf16_bwd) - center[:, :, None, :].to(
+        pre.dtype)
     if dense0.bias is not None:
         x = x + dense0.bias.to(x.dtype)
     if cast and x.dtype == torch.float32:
@@ -303,7 +328,8 @@ class PointnetSAModule(nn.Module):
         route = sa_route((xyz.shape[0], self.npoint, self.nsample,
                           self.mlp[0]), self.mlp, xyz.shape[1], m.bn)
         if precision.sa_bf16 or dt is not None:
-            return self._forward_lowp(xyz, features, route, precision)
+            return self._forward_lowp(xyz, features, route, precision, train,
+                                      bn_momentum)
         new_xyz, pre, idx, center = self.group_inputs(xyz, features)
         if route != "plain" and not m.bn:
             w1 = m.dense_1.weight.T.contiguous()
@@ -320,12 +346,14 @@ class PointnetSAModule(nn.Module):
         return new_xyz, m(None, pre0=x, train=train,
                           bn_momentum=bn_momentum).amax(dim=2)
 
-    def _forward_lowp(self, xyz, features, route, precision):
-        """The eval forward under a bf16 contract, in tpu3d's arithmetic:
-        with ``sa_bf16`` the per-point pre-activations rounded to bf16
-        before the gather and the fused routes on the bf16 kernels (tpu3d
-        fuses only where it casts); otherwise (``BF16_INFERENCE`` alone)
-        the plain route with bf16 Dense layers."""
+    def _forward_lowp(self, xyz, features, route, precision, train=False,
+                      bn_momentum=0.9):
+        """The forward under a bf16 contract, in tpu3d's arithmetic: with
+        ``sa_bf16`` the per-point pre-activations rounded to bf16 before the
+        gather (whose backward is then the bf16 form) and the fused routes
+        on the bf16 kernels, in training their training forms (tpu3d fuses
+        only where it casts); otherwise (bf16 Dense alone) the plain route
+        with bf16 Dense layers."""
         dt = precision.dense_dtype
         new_xyz, pre, idx, center, bias = self.group_inputs_lowp(
             xyz, features, dt)
@@ -346,15 +374,29 @@ class PointnetSAModule(nn.Module):
             x = x + bias.to(x.dtype)
         if fused and m.bn:
             bns = [getattr(m, f"bn_{i}") for i in range(3)]
-            return new_xyz, fused_bn_mlp_pool_bf16(
-                x, m.dense_1.weight.T, m.dense_2.weight.T,
-                [bn.scale for bn in bns], [bn.bias for bn in bns],
-                [(bn.mean, bn.var) for bn in bns], bns[0].eps)
+            args = (x, m.dense_1.weight.T, m.dense_2.weight.T,
+                    [bn.scale for bn in bns], [bn.bias for bn in bns])
+            if not train:
+                return new_xyz, fused_bn_mlp_pool_bf16(
+                    *args, [(bn.mean, bn.var) for bn in bns], bns[0].eps)
+            out, stats = fused_bn_mlp_pool_bf16_train(*args, bns[0].eps)
+            self._update_stats(bns, stats, bn_momentum)
+            return new_xyz, out
         if fused:
             return new_xyz, fused_mlp_pool_bf16(
                 x, m.dense_1.weight.T, m.dense_1.bias, m.dense_2.weight.T,
                 m.dense_2.bias)
-        return new_xyz, m(None, pre0=x, dtype=dt).amax(dim=2)
+        return new_xyz, m(None, pre0=x, train=train, bn_momentum=bn_momentum,
+                          dtype=dt).amax(dim=2)
+
+    @staticmethod
+    def _update_stats(bns, stats, bn_momentum):
+        """Fold a fused op's batch statistics into the running ones, as
+        ``BatchNorm.forward`` folds its own."""
+        with torch.no_grad():
+            for bn, mean, var in zip(bns, *stats):
+                bn.mean.copy_(bn_momentum * bn.mean + (1 - bn_momentum) * mean)
+                bn.var.copy_(bn_momentum * bn.var + (1 - bn_momentum) * var)
 
     def _bn_slab(self, x, train, bn_momentum):
         """The slab route with BatchNorm (``fused_bn_mlp_pool``) on the
@@ -370,11 +412,8 @@ class PointnetSAModule(nn.Module):
         if not train:
             return fused_bn_mlp_pool(*args, [(bn.mean, bn.var) for bn in bns],
                                      bns[0].eps)
-        out, (means, vars_) = fused_bn_mlp_pool(*args, None, bns[0].eps)
-        with torch.no_grad():
-            for bn, mean, var in zip(bns, means, vars_):
-                bn.mean.copy_(bn_momentum * bn.mean + (1 - bn_momentum) * mean)
-                bn.var.copy_(bn_momentum * bn.var + (1 - bn_momentum) * var)
+        out, stats = fused_bn_mlp_pool(*args, None, bns[0].eps)
+        self._update_stats(bns, stats, bn_momentum)
         return out
 
 
@@ -405,7 +444,7 @@ class PointnetFPModule(nn.Module):
             B, N, C = known_feats.shape
             x = three_interpolate_bf16(
                 known_feats, idx, weight,
-                precision.fp_bf16 and rounds_weights(N, C, idx.shape[1]))
+                precision.accel and rounds_weights(N, C, idx.shape[1]))
         else:
             x = three_interpolate(known_feats, idx, weight)
         if unknown_feats is not None:

@@ -24,7 +24,7 @@ import torch
 
 from ..ops.box_geometry import rotate_points_along_y
 from ..parallel.mesh import draw_rows
-from ..ops.roipool import roipool3d
+from ..ops.roipool import bf16_table, roipool3d, roipool3d_table
 from ..ops.rotated_iou import boxes_iou3d, boxes_iou3d_aligned
 
 # (position, size, angle) jitter ranges of REG_AUG_METHOD "multiple"
@@ -260,8 +260,13 @@ def canonicalize_rcnn_targets(sampled_pts, batch_rois, batch_gt_of_rois,
 
 def proposal_target_core(draws: dict, roi_boxes3d, roi_valid, gt_boxes3d,
                          rpn_xyz, pts_feature, cfg,
-                         aug_data: bool = True) -> dict:
+                         aug_data: bool = True,
+                         roi_bf16: bool = False) -> dict:
     """The layer on given draws (``draw_proposal_target``'s keys).
+    ``roi_bf16`` (the training contract's ``Precision.roi_bf16``): one
+    gather of a bf16 table whose coordinates ride as a hi/lo pair, summed
+    back in f32 (tpu3d: proposal_target.py:281-305); pts_feature is then
+    bf16.
 
     :param roi_boxes3d: (B, M, 7) proposals, roi_valid (B, M)
     :param gt_boxes3d: (B, G, 7) zero-padded gt boxes
@@ -299,9 +304,16 @@ def proposal_target_core(draws: dict, roi_boxes3d, roi_valid, gt_boxes3d,
             flat["jitter"], flat.get("range"), flat.get("jitter_normal"))
         batch_rois, batch_iou = rois.reshape(B, R, 7), iou.reshape(B, R)
 
-    sampled_pts, sampled_feats, empty_flag = roipool3d(
-        rpn_xyz, pts_feature, batch_rois, float(c.POOL_EXTRA_WIDTH),
-        int(c.NUM_POINTS))
+    if roi_bf16:
+        pooled, empty_flag = roipool3d_table(
+            rpn_xyz, bf16_table(rpn_xyz, pts_feature), batch_rois,
+            float(c.POOL_EXTRA_WIDTH), int(c.NUM_POINTS))
+        sampled_pts = pooled[..., 0:3].float() + pooled[..., 3:6].float()
+        sampled_feats = pooled[..., 6:]
+    else:
+        sampled_pts, sampled_feats, empty_flag = roipool3d(
+            rpn_xyz, pts_feature, batch_rois, float(c.POOL_EXTRA_WIDTH),
+            int(c.NUM_POINTS))
     if aug_data:
         sampled_pts, batch_rois, batch_gts = roi_data_augmentation(
             sampled_pts, batch_rois, batch_gts, float(cfg.AUG_ROT_RANGE),
@@ -323,12 +335,15 @@ def proposal_target_core(draws: dict, roi_boxes3d, roi_valid, gt_boxes3d,
 
 def proposal_target_layer(generator: torch.Generator | None, roi_boxes3d,
                           roi_valid, gt_boxes3d, rpn_xyz, pts_feature, cfg,
-                          aug_data: bool = True) -> dict:
+                          aug_data: bool = True,
+                          roi_bf16: bool = False) -> dict:
     """Sample ROIs, pool their points and build canonical-frame RCNN
     targets, with every random number drawn from ``generator`` (on the
-    tensors' device). See ``proposal_target_core`` for the shapes."""
+    tensors' device). See ``proposal_target_core`` for the shapes and
+    ``roi_bf16``."""
     draws = draw_proposal_target(generator, roi_boxes3d.shape[0],
                                  roi_boxes3d.shape[1], cfg, aug_data,
                                  roi_boxes3d.device)
     return proposal_target_core(draws, roi_boxes3d, roi_valid, gt_boxes3d,
-                                rpn_xyz, pts_feature, cfg, aug_data)
+                                rpn_xyz, pts_feature, cfg, aug_data,
+                                roi_bf16)

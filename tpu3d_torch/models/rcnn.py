@@ -89,14 +89,17 @@ class RCNNNet(nn.Module):
         """xyz (R, K, 3), rest (R, K, C) -> rcnn_cls (R, 1), rcnn_reg
         (R, C_reg). ``train`` only matters to a config with ``USE_BN`` or a
         non-zero ``DP_RATIO``; default.yaml has neither. ``precision``: the
-        eval numerics contract (tpu3d: models/rcnn.py:39-60)."""
+        numerics contract (tpu3d: models/rcnn.py:36-63), ``xyz_up``,
+        ``merge_down`` and the SA levels in its ``dense_dtype``, the heads
+        in its ``head_dtype`` (f32 in training)."""
         dt = precision.dense_dtype
         features = self.point_features(xyz, rest, train, bn_momentum, dt)
         for k in range(self.n_sa):
             xyz, features = getattr(self, f"sa_{k}")(xyz, features, train,
                                                      bn_momentum, precision)
         feat = features[:, 0, :]  # the final GroupAll leaves one group
+        hdt = precision.head_dtype
         return {"rcnn_cls": self.cls_head(feat, train, bn_momentum, generator,
-                                          dt),
+                                          hdt),
                 "rcnn_reg": self.reg_head(feat, train, bn_momentum,
-                                          generator, dt)}
+                                          generator, hdt)}

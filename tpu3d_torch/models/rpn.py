@@ -90,11 +90,12 @@ class RPN(nn.Module):
                 precision: Precision = F32) -> dict:
         """In training, BatchNorm takes the batch's statistics and the heads
         draw their dropout masks from ``generator`` (cls head first).
-        ``precision``: the eval numerics contract (tpu3d:
-        models/rpn.py:73-79), every Dense in its ``dense_dtype``."""
+        ``precision``: the numerics contract (tpu3d: models/rpn.py:70-81),
+        the backbone's Dense layers in its ``dense_dtype``, the heads' in
+        its ``head_dtype`` (f32 in training)."""
         backbone_xyz, backbone_features = self.backbone(
             pts_input, train, bn_momentum, precision)
-        dt = precision.dense_dtype
+        dt = precision.head_dtype
         return {
             "rpn_cls": self.cls_head(backbone_features, train, bn_momentum,
                                      generator, dt),

@@ -6,8 +6,10 @@ shared library with a plain C interface, at first use, and loaded with
 eval and the training forward of ``fused_sa``, each in its gather and its
 slab form; the routed backward of both forms in ``fused_sa_bwd``; the
 BatchNorm chain's training passes in ``fused_sa_bn``; FPS+3NN and the
-long-row FPS alone in ``fps3nn``; each bf16 eval form in its f32
-form's source, ``fused_sa`` including ``fused_sa_bf16.cuh``). Each source names its own ``nvcc``
+long-row FPS alone in ``fps3nn``; each bf16 form in its f32
+form's source, ``fused_sa`` including ``fused_sa_bf16.cuh``, but the
+routed backward's, ``fused_sa_bwd_bf16``, which shares ``fused_sa_bwd.cuh``
+with ``fused_sa_bwd``). Each source names its own ``nvcc``
 flags. The library's file name carries a hash of its source, the
 shared headers (``csrc/*.cuh``) and its flags, so an edited source is
 rebuilt and a stale library is never loaded. Libraries go to
@@ -25,8 +27,9 @@ not 0. ``LAUNCHES`` counts, per kernel, the calls that launched it; only the
 wrappers add to it, at the launch. Several counters may share one C entry
 where it replaces several TPU kernels (``fused_sa_slab`` and
 ``fused_sa_slab_bn``; the BatchNorm chain's statistics passes 1 and 2).
-``BF16_LAUNCHES`` counts the bf16 eval forms (``BF16_KERNELS``) the same
-way, apart from the f32 kernels.
+``BF16_LAUNCHES`` counts the bf16 forms (``BF16_KERNELS``: the eval
+contract's and the training contract's) the same way, apart from the f32
+kernels.
 """
 
 from __future__ import annotations
@@ -106,9 +109,10 @@ KERNELS = {
     "group_points_bwd": ("group_points_bwd", "tpu3d_group_points_bwd",
                          [P, P, I, I, I, I, I, P, P, L, P]),
 }
-# the bf16 eval forms under the accelerator's numerics contract
-# (precision.py), beside their f32 kernels in the same libraries; counted
-# apart, in BF16_LAUNCHES
+# the bf16 forms under the accelerator's numerics contracts (precision.py),
+# eval and training, beside their f32 kernels in the same libraries (the
+# routed backward's bf16 form in a library of its own, built in parallel);
+# counted apart, in BF16_LAUNCHES
 BF16_KERNELS = {
     "three_interpolate_bf16": ("three_interpolate",
                                "tpu3d_three_interpolate_bf16",
@@ -119,6 +123,27 @@ BF16_KERNELS = {
                            [P, P, P, P, P, I, I, I, I, I, I, P, P]),
     "fused_sa_slab_bn_bf16": ("fused_sa", "tpu3d_fused_sa_slab_bn_bf16",
                               [P, P, P, P, I, I, I, I, I, I, P, P]),
+    # the training contract's forms: kernels 6 and 8 (forward and routed
+    # backward), kernel 7, and the gather's fixed-order backward
+    "fused_sa_train_bf16": ("fused_sa", "tpu3d_fused_sa_train_bf16",
+                            [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P, P,
+                             P, P]),
+    "fused_sa_slab_train_bf16": ("fused_sa", "tpu3d_fused_sa_slab_train_bf16",
+                                 [P, P, P, P, P, I, I, I, I, I, I, P, P, P,
+                                  P]),
+    "fused_sa_bwd_bf16": ("fused_sa_bwd_bf16", "tpu3d_fused_sa_bwd_bf16",
+                          [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
+                           P, P, P, P, P, P, P, L, P]),
+    "fused_sa_slab_bwd_bf16": ("fused_sa_bwd_bf16",
+                               "tpu3d_fused_sa_slab_bwd_bf16",
+                               [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P,
+                                P, P, P, P]),
+    "three_interpolate_bwd_bf16": ("three_interpolate_bwd",
+                                   "tpu3d_three_interpolate_bwd_bf16",
+                                   [P, P, P, I, I, I, I, P, P, L, P]),
+    "group_points_bwd_bf16": ("group_points_bwd",
+                              "tpu3d_group_points_bwd_bf16",
+                              [P, P, I, I, I, I, I, I, P, P, L, P]),
 }
 # C entries that run part of a counted kernel's launch, called before it
 # (not counted): (source, symbol, argtypes)
@@ -130,7 +155,8 @@ PARTS = {
 SOURCE_FLAGS = {"fps3nn": EXACT, "nearest_k": EXACT, "three_nn": EXACT,
                 "three_interpolate": EXACT, "three_interpolate_bwd": EXACT,
                 "fps": EXACT, "fused_sa": [], "fused_sa_bwd": [],
-                "fused_sa_bn": [], "group_points_bwd": EXACT}
+                "fused_sa_bwd_bf16": [], "fused_sa_bn": [],
+                "group_points_bwd": EXACT}
 SOURCES = sorted(SOURCE_FLAGS)
 
 # added to the code of an error that a C entry found pending before its

@@ -29,12 +29,17 @@ the max, as tpu3d's kernels route it.
 Two numeric forms, picked by the eval contract (``precision.py``), which
 the model's entry points resolve and hand down. The f32 forms above
 compute everything in f32 and are held to tpu3d's CPU path, which is f32
-too: every CPU forward, training, and the card under ``TPU3D_F32_EVAL=1``.
-The bf16 eval forms (``fused_gathered_mlp_pool_bf16``,
-``fused_mlp_pool_bf16``, ``fused_bn_mlp_pool_bf16``, kernels in
-``csrc/fused_sa_bf16.cuh``) compute as tpu3d's TPU kernels do: bf16
-operands with f32 sums, every layer boundary rounded to bf16, a bf16
-output; an eval on the card takes them by default, and the CPU runs their
+too: every CPU forward and training step, and the card under the f32
+contracts (``TPU3D_F32_EVAL=1``; both ``TRAIN`` keys False). The bf16
+forms (``fused_gathered_mlp_pool_bf16``, ``fused_mlp_pool_bf16``,
+``fused_bn_mlp_pool_bf16``, kernels in ``csrc/fused_sa_bf16.cuh``) compute
+as tpu3d's TPU kernels do: bf16 operands with f32 sums, every layer
+boundary rounded to bf16, a bf16 output; an eval on the card takes them by
+default, and so does a train step, through the training forms of the two
+forms without BatchNorm (kernels 6 and 8: the forward in
+``csrc/fused_sa_bf16.cuh``, the routed backward in
+``csrc/fused_sa_bwd_bf16.cu``; the BatchNorm chain's bf16 training form,
+kernel 9's, is not ported and raises on the card); the CPU runs their
 plain versions when a test hands it that contract.
 
 Kernel notes (in full in the sources): they replace
@@ -539,7 +544,9 @@ def _launch_backward(kernel, head, dims, outs, w1, b1, w2, grad, argmax,
     its plan first and reads the reached rows' count from it (one wait for
     the card), to size the buffer of the reached rows' d_x0, which it then
     adds into d_pre in a fixed order; ``rows_out``, a list, receives that
-    buffer. -> (dW1, db1, dW2, db2)."""
+    buffer. The bf16 forms (``kernel`` ending in ``_bf16``) take the
+    weights, b1 and dval rounded to bf16 (``_bf16_backward_args``) and their
+    leading tensors in bf16. -> (dW1, db1, dW2, db2)."""
     R, M, S = dims[0], dims[-2], dims[-1]
     C1, C2, C3 = w1.shape[0], w1.shape[1], w2.shape[1]
     for t, name in ((grad, "grad"), (ppre, "ppre")):
@@ -549,16 +556,20 @@ def _launch_backward(kernel, head, dims, outs, w1, b1, w2, grad, argmax,
             or ppre.shape != grad.shape:
         raise ValueError(f"{kernel}'s gradient, argmax and ppre must be "
                          f"{(R, M, C3)}")
-    dval = torch.where(ppre > 0, grad, 0.0)
-    w1t = w1.t().contiguous()
-    w2t = w2.t().contiguous()
+    if kernel.endswith("_bf16"):
+        w1, w1t, b1, w2t, dval, dval_sum = _bf16_backward_args(w1, b1, w2,
+                                                               grad, ppre)
+    else:
+        dval = dval_sum = torch.where(ppre > 0, grad, 0.0)
+        w1t = w1.t().contiguous()
+        w2t = w2.t().contiguous()
     blocks = _bwd_blocks(R * M, C1, C2, C3)
     per = C1 * C2 + C3 * C2 + C2
     ws = torch.empty(blocks, per, dtype=torch.float32, device=grad.device)
     sums = torch.empty(per, dtype=torch.float32, device=grad.device)
     scratch = _bwd_scratch(R * M, S, C1, C2, C3, grad.device)
     tail = ()
-    if kernel == "fused_sa_bwd":
+    if kernel in ("fused_sa_bwd", "fused_sa_bwd_bf16"):
         N = dims[1]
         _build.launch_part("fused_sa_bwd_plan", dval.data_ptr(),
                            argmax.data_ptr(), *dims, C1, C2, C3, blocks,
@@ -578,7 +589,7 @@ def _launch_backward(kernel, head, dims, outs, w1, b1, w2, grad, argmax,
                   scratch.data_ptr(), sums.data_ptr(), *tail)
     return (sums[:C1 * C2].view(C1, C2), sums[C1 * C2 + C3 * C2:],
             sums[C1 * C2:C1 * C2 + C3 * C2].view(C3, C2).t(),
-            dval.sum(dim=(0, 1)))
+            dval_sum.sum(dim=(0, 1)))
 
 
 def fused_gathered_mlp_pool_backward(pre, idx, center, w1, b1, w2, b2, grad,
@@ -1534,9 +1545,10 @@ def bf16_kernels_take(S: int, C1: int, C2: int, C3: int) -> bool:
     """Whether the bf16 kernels take a level of S slots per group and widths
     C1 -> C2 -> C3 (``csrc/fused_sa_bf16.cuh``): C1 a multiple of 16, C2 and
     C3 multiples of 128, and a chunk of 16 rows of a0 and a1 in bf16 with
-    the running max in shared memory. Every shape tpu3d's
-    ``fused_sa_supported`` admits with C1 + C2 below some 7000 passes."""
-    smem = 16 * (C1 + 8 + C2 + 8) * 2 + 4 * C3
+    the running max (with its slot and x2 in training) in shared memory.
+    Every shape tpu3d's ``fused_sa_supported`` admits with C1 + C2 below
+    some 7000 passes."""
+    smem = 16 * (C1 + 8 + C2 + 8) * 2 + 12 * C3
     return (S >= 1 and C1 >= 16 and C1 % 16 == 0 and C2 >= 128
             and C2 % 128 == 0 and C3 >= 128 and C3 % 128 == 0
             and smem <= SMEM_MAX)
@@ -1555,7 +1567,8 @@ def _check_bf16_kernel(x, name, ndim, S, C1, C2, C3, R, M):
 def _eval_only(*tensors):
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            "the bf16 fused_sa forms are eval kernels and have no backward")
+            "the bf16 form of kernel 9 with running statistics is an eval "
+            "kernel and has no backward")
 
 
 def _w16(w: torch.Tensor) -> torch.Tensor:
@@ -1571,12 +1584,18 @@ def fused_gathered_mlp_pool_bf16(pre: torch.Tensor, idx: torch.Tensor,
     (R, N, C1) and center (R, M, C1) bf16, idx (R, M, S) i32, w1 (C1, C2),
     b1, w2 (C2, C3), b2 (any float dtype; rounded to bf16) -> (R, M, C3)
     bf16: max_s a2 of x0 = bf16(pre[idx] - center) through the no-BN chain
-    with bf16 layer boundaries. The kernel (counted as ``fused_sa_bf16``)
-    for CUDA tensors, the plain version for CPU tensors; no backward."""
+    with bf16 layer boundaries. The eval kernel (counted as
+    ``fused_sa_bf16``) for CUDA tensors, the plain version for CPU tensors;
+    where a gradient is needed, kernel 6's bf16 training form
+    (``_FusedGatheredMLPPoolBF16``; on the CPU its plain version under
+    autograd)."""
+    args = (pre, idx, center, w1, b1, w2, b2)
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in args)
     if pre.device.type == "cpu":
-        return fused_gathered_mlp_pool_bf16_plain(pre, idx, center, w1, b1,
-                                                  w2, b2)
-    _eval_only(pre, center, w1, b1, w2, b2)
+        return (fused_gathered_mlp_pool_bf16_train_plain(*args)[0] if grad
+                else fused_gathered_mlp_pool_bf16_plain(*args))
+    if grad:
+        return _FusedGatheredMLPPoolBF16.apply(*args)
     R, N, C1 = pre.shape
     M, S = idx.shape[1], idx.shape[2]
     C2, C3 = w1.shape[1], w2.shape[1]
@@ -1616,11 +1635,17 @@ def fused_mlp_pool_bf16(x0: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                         w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     """The slab form's bf16 eval kernel (``_nobn_eval_kernel``): x0 (R, M,
     S, C1) bf16 -> (R, M, C3) bf16, the no-BN chain with bf16 layer
-    boundaries. The kernel (counted as ``fused_sa_slab_bf16``) for CUDA
-    tensors, the plain version for CPU tensors; no backward."""
+    boundaries. The eval kernel (counted as ``fused_sa_slab_bf16``) for
+    CUDA tensors, the plain version for CPU tensors; where a gradient is
+    needed, kernel 8's bf16 training form (``_FusedMLPPoolBF16``; on the
+    CPU its plain version under autograd)."""
+    args = (x0, w1, b1, w2, b2)
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in args)
     if x0.device.type == "cpu":
-        return fused_mlp_pool_bf16_plain(x0, w1, b1, w2, b2)
-    _eval_only(x0, w1, b1, w2, b2)
+        return (fused_mlp_pool_bf16_train_plain(*args)[0] if grad
+                else fused_mlp_pool_bf16_plain(*args))
+    if grad:
+        return _FusedMLPPoolBF16.apply(*args)
     R, M, S, C1, C2, C3 = _slab_bf16_check(x0, w1, w2)
     if b1.shape != (C2,) or b2.shape != (C3,):
         raise ValueError(f"biases {tuple(b1.shape)}, {tuple(b2.shape)} for "
@@ -1660,3 +1685,315 @@ def fused_bn_mlp_pool_bf16(x0: torch.Tensor, w1: torch.Tensor,
                   w1t.data_ptr(), w2t.data_ptr(), R, M, S, C1, C2, C3,
                   out.data_ptr())
     return out
+
+
+# --------------------------------------------------------------------------
+# the bf16 training forms of kernels 6 (gather) and 8 (slab), under the
+# accelerator's training contract (precision.py): tpu3d's _nobn2_fwd_kernel
+# / _nobn2_bwd_kernel and _nobn_fwd_kernel / _nobn_bwd_kernel in their own
+# arithmetic. Forward: the eval forms' chain, keeping each pooled channel's
+# first argmax over the bf16 a2 and the pre-ReLU x2 there (ppre). Backward:
+# dval = g where ppre > 0; d_x2 and d_x1 rounded to bf16 before each product
+# (dW2 = a1ᵀ bf16(d_x2), d_a1 = bf16(d_x2) W2ᵀ, dW1 = a0ᵀ bf16(d_x1),
+# d_a0 = bf16(d_x1) W1ᵀ), db1 the sum of the unrounded d_x1, db2 of dval;
+# the gather form's d_pre = Σ bf16(d_x0) in f32, rounded to bf16, and
+# d_center = bf16(-Σ_s d_x0); the slab form's d_x0 in bf16. The weight and
+# bias gradients stay f32.
+# --------------------------------------------------------------------------
+
+
+def _fr(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (kept in f32) in the forward; the gradient passes
+    through unrounded (a weight's bf16 copy, whose f32 gradient tpu3d's
+    kernels return as they sum it)."""
+    return x + (_r16(x) - x).detach()
+
+
+class _RoundGrad(torch.autograd.Function):
+    """The identity, whose gradient is rounded to bf16: the cotangent of a
+    bf16 product, which tpu3d's kernels round before it enters the next
+    products."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _r16(g)
+
+
+def _bf16_train_chain(x0f, w1, b1, w2, b2):
+    """The no-BN chain on a grouped chunk's f32 x0 (bf16 values), in the
+    training kernels' arithmetic under autograd -> x2 (bf16 values in
+    f32): x_k = bf16(bf16(a_{k-1}·bf16(W_k)) + bf16(b_k)), each product's
+    gradient rounded to bf16 where the kernels round it."""
+    a0 = torch.relu(x0f)
+    x1 = _fr(_fr(_RoundGrad.apply(a0 @ _fr(w1))) + _fr(b1))
+    return _fr(_fr(_RoundGrad.apply(torch.relu(x1) @ _fr(w2))) + _fr(b2))
+
+
+def _bf16_train_pool(x0f, w1, b1, w2, b2):
+    out, arg, ppre = _first_max(_bf16_train_chain(x0f, w1, b1, w2, b2))
+    return out.to(BF16), arg, ppre
+
+
+def _bf16_gather_x0(pre, idx, center):
+    """The gather form's x0 = bf16(pre[idx] - center) in f32, pre and center
+    bf16, under autograd: its gradient reaches pre through the bf16 form of
+    the gather's backward (bf16(d_x0) summed in f32, bf16 out) and center
+    as bf16(-Σ_s d_x0)."""
+    return _fr(group_points(pre, idx).float() - center.float()[:, :, None])
+
+
+def _bf16_gather_train_form(pre, idx, center, w1, w2):
+    R, M, S = idx.shape
+    width = max(w1.shape[1], w2.shape[1])
+    return (lambda rows: _bf16_gather_x0(pre[rows], idx[rows], center[rows]),
+            R, M, S, width)
+
+
+def fused_gathered_mlp_pool_bf16_train_plain(pre, idx, center, w1, b1, w2,
+                                             b2):
+    """Plain PyTorch version of kernel 6's bf16 training forward
+    (``_nobn2_fwd_kernel``), differentiable by autograd in tpu3d's
+    backward arithmetic (``_nobn2_bwd_kernel``): pre (R, N, C1) and center
+    (R, M, C1) bf16 -> (out (R, M, C3) bf16, argmax i32, ppre f32)."""
+    return _chunked(lambda x0: _bf16_train_pool(x0, w1, b1, w2, b2),
+                    *_bf16_gather_train_form(pre, idx, center, w1, w2))
+
+
+def fused_mlp_pool_bf16_train_plain(x0, w1, b1, w2, b2):
+    """Plain PyTorch version of kernel 8's bf16 training forward
+    (``_nobn_fwd_kernel``), differentiable by autograd in tpu3d's backward
+    arithmetic (``_nobn_bwd_kernel``; d_x0 rounded to bf16): x0
+    (R, M, S, C1) bf16 -> (out bf16, argmax i32, ppre f32)."""
+    return _chunked(lambda x: _bf16_train_pool(x.float(), w1, b1, w2, b2),
+                    *_slab_form(x0, w1, w2))
+
+
+def _bf16_routed_grads(leaves, x2_of, grad, argmax, ppre):
+    """The gradients of the chain ``x2_of(leaves)`` routed as the kernels
+    route them: each pooled channel's dval = grad where ppre > 0, at the
+    training forward's ``argmax`` slot, by autograd of the plain chain."""
+    dval = torch.where(ppre > 0, grad.float(), 0.0)
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in leaves]
+        sel = torch.gather(x2_of(*leaves), 2,
+                           argmax.long()[:, :, None, :])[:, :, 0]
+        return torch.autograd.grad(sel, leaves, dval)
+
+
+def fused_gathered_mlp_pool_bf16_backward_plain(pre, idx, center, w1, b1, w2,
+                                                b2, grad, argmax, ppre):
+    """Plain PyTorch version of kernel 6's bf16 backward, routed by the
+    training forward's ``argmax`` and ``ppre`` -> (d_pre bf16, d_center
+    bf16, dW1, db1, dW2, db2)."""
+    return _bf16_routed_grads(
+        (pre, center, w1, b1, w2, b2),
+        lambda p, c, *w: _bf16_train_chain(_bf16_gather_x0(p, idx, c), *w),
+        grad, argmax, ppre)
+
+
+def fused_mlp_pool_bf16_backward_plain(x0, w1, b1, w2, b2, grad, argmax,
+                                       ppre):
+    """Plain PyTorch version of kernel 8's bf16 backward, routed by the
+    training forward's ``argmax`` and ``ppre`` -> (d_x0 bf16, dW1, db1, dW2,
+    db2)."""
+    return _bf16_routed_grads(
+        (x0, w1, b1, w2, b2),
+        lambda x, *w: _bf16_train_chain(x.float(), *w), grad, argmax, ppre)
+
+
+def _b16(b: torch.Tensor) -> torch.Tensor:
+    return b.detach().to(BF16).contiguous()
+
+
+def _bf16_pooled(R, M, C3, device):
+    """A bf16 training forward's outputs: out bf16, argmax i32, ppre f32."""
+    return (torch.empty(R, M, C3, dtype=BF16, device=device),
+            torch.empty(R, M, C3, dtype=torch.int32, device=device),
+            torch.empty(R, M, C3, dtype=torch.float32, device=device))
+
+
+def _gather_bf16_check(pre, idx, center, w1, b1, w2, b2):
+    R, N, C1 = pre.shape
+    M, S = idx.shape[1], idx.shape[2]
+    C2, C3 = w1.shape[1], w2.shape[1]
+    _check_bf16_kernel(pre, "pre", 3, S, C1, C2, C3, R, M)
+    _check_bf16_kernel(center, "center", 3, S, C1, C2, C3, R, M)
+    _build.check_cuda_tensor(idx, "idx", torch.int32, 3)
+    if (idx.shape[0] != R or center.shape != (R, M, C1)
+            or w1.shape[0] != C1 or w2.shape[0] != C2
+            or b1.shape != (C2,) or b2.shape != (C3,)):
+        raise ValueError(
+            f"fused_sa bf16 shapes disagree: pre {tuple(pre.shape)}, idx "
+            f"{tuple(idx.shape)}, center {tuple(center.shape)}, w1 "
+            f"{tuple(w1.shape)}, w2 {tuple(w2.shape)}")
+    return R, N, M, S, C1, C2, C3
+
+
+def fused_gathered_mlp_pool_bf16_train(pre, idx, center, w1, b1, w2, b2):
+    """Kernel 6's bf16 training forward alone -> (out bf16, argmax, ppre):
+    the kernel (counted as ``fused_sa_train_bf16``) for CUDA tensors, else
+    the plain version."""
+    if pre.device.type == "cpu":
+        return fused_gathered_mlp_pool_bf16_train_plain(pre, idx, center, w1,
+                                                        b1, w2, b2)
+    R, N, M, S, C1, C2, C3 = _gather_bf16_check(pre, idx, center, w1, b1, w2,
+                                                b2)
+    outs = _bf16_pooled(R, M, C3, pre.device)
+    w1t, w2t = _w16(w1), _w16(w2)
+    b1h, b2h = _b16(b1), _b16(b2)
+    _build.launch("fused_sa_train_bf16", pre.data_ptr(), idx.data_ptr(),
+                  center.data_ptr(), w1t.data_ptr(), b1h.data_ptr(),
+                  w2t.data_ptr(), b2h.data_ptr(), R, N, M, S, C1, C2, C3,
+                  *(t.data_ptr() for t in outs))
+    return outs
+
+
+def _bf16_backward_args(w1, b1, w2, grad, ppre):
+    """The f32 routed backward's operands in the bf16 form's arithmetic:
+    the weights, b1 and dval rounded to bf16 (kept f32: their products are
+    then exact in f32), and dval itself for db2."""
+    dval = torch.where(ppre > 0, grad.float(), 0.0)
+    w1r = _r16(w1.detach()).contiguous()
+    return (w1r, w1r.t().contiguous(), _r16(b1.detach()).contiguous(),
+            _r16(w2.detach()).t().contiguous(), _r16(dval).contiguous(),
+            dval)
+
+
+def fused_gathered_mlp_pool_bf16_backward(pre, idx, center, w1, b1, w2, b2,
+                                          grad, argmax, ppre, rows_out=None):
+    """Kernel 6's bf16 backward alone -> (d_pre bf16, d_center bf16, dW1,
+    db1, dW2, db2): the routed kernel (counted as ``fused_sa_bwd_bf16``;
+    the f32 form's plan and walk, its operands rounded where tpu3d's
+    kernel rounds them) for CUDA tensors, else the plain version.
+    ``rows_out`` receives the reached rows' bf16(d_x0), in f32, which d_pre
+    sums in ascending (group·S + slot) order (``reached_rows_sum``)."""
+    if pre.device.type == "cpu":
+        return fused_gathered_mlp_pool_bf16_backward_plain(
+            pre, idx, center, w1, b1, w2, b2, grad, argmax, ppre)
+    R, N, M, S, C1, C2, C3 = _gather_bf16_check(pre, idx, center, w1, b1, w2,
+                                                b2)
+    if not kernels_take(S, C1, C2, C3, "gather", True):
+        raise ValueError(f"the fused_sa backward does not take S={S}, "
+                         f"C1={C1}, C2={C2}, C3={C3} (kernels_take)")
+    d_pre = torch.empty(R, N, C1, dtype=BF16, device=pre.device)
+    d_center = torch.empty(R, M, C1, dtype=torch.float32, device=pre.device)
+    dw1, db1, dw2, db2 = _launch_backward(
+        "fused_sa_bwd_bf16", (pre, idx, center), (R, N, M, S),
+        (d_pre, d_center), w1, b1, w2, grad.float().contiguous(), argmax,
+        ppre, rows_out)
+    return d_pre, d_center.to(BF16), dw1, db1, dw2, db2
+
+
+class _FusedGatheredMLPPoolBF16(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, pre, idx, center, w1, b1, w2, b2):
+        out, argmax, ppre = fused_gathered_mlp_pool_bf16_train(
+            pre, idx, center, w1, b1, w2, b2)
+        ctx.save_for_backward(pre, idx, center, w1, b1, w2, b2, argmax, ppre)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        pre, idx, center, w1, b1, w2, b2, argmax, ppre = ctx.saved_tensors
+        d_pre, d_center, dw1, db1, dw2, db2 = \
+            fused_gathered_mlp_pool_bf16_backward(
+                pre, idx, center, w1, b1, w2, b2, grad.contiguous(), argmax,
+                ppre)
+        return d_pre, None, d_center, dw1, db1, dw2, db2
+
+
+def fused_mlp_pool_bf16_train(x0, w1, b1, w2, b2):
+    """Kernel 8's bf16 training forward alone -> (out bf16, argmax, ppre):
+    the kernel (counted as ``fused_sa_slab_train_bf16``) for CUDA tensors,
+    else the plain version."""
+    if x0.device.type == "cpu":
+        return fused_mlp_pool_bf16_train_plain(x0, w1, b1, w2, b2)
+    R, M, S, C1, C2, C3 = _slab_bf16_check(x0, w1, w2)
+    if b1.shape != (C2,) or b2.shape != (C3,):
+        raise ValueError(f"biases {tuple(b1.shape)}, {tuple(b2.shape)} for "
+                         f"C2={C2}, C3={C3}")
+    outs = _bf16_pooled(R, M, C3, x0.device)
+    w1t, w2t = _w16(w1), _w16(w2)
+    b1h, b2h = _b16(b1), _b16(b2)  # alive until the launch is queued
+    _build.launch("fused_sa_slab_train_bf16", x0.data_ptr(), w1t.data_ptr(),
+                  b1h.data_ptr(), w2t.data_ptr(), b2h.data_ptr(), R, M, S,
+                  C1, C2, C3, *(t.data_ptr() for t in outs))
+    return outs
+
+
+def fused_mlp_pool_bf16_backward(x0, w1, b1, w2, b2, grad, argmax, ppre):
+    """Kernel 8's bf16 backward alone -> (d_x0 bf16, dW1, db1, dW2, db2):
+    the routed kernel (counted as ``fused_sa_slab_bwd_bf16``) for CUDA
+    tensors, else the plain version."""
+    if x0.device.type == "cpu":
+        return fused_mlp_pool_bf16_backward_plain(x0, w1, b1, w2, b2, grad,
+                                                  argmax, ppre)
+    R, M, S, C1, C2, C3 = _slab_bf16_check(x0, w1, w2)
+    if not kernels_take(S, C1, C2, C3, "slab", True):
+        raise ValueError(f"the fused_sa backward does not take S={S}, "
+                         f"C1={C1}, C2={C2}, C3={C3} (kernels_take)")
+    d_x0 = torch.empty(R, M, S, C1, dtype=torch.float32, device=x0.device)
+    grads = _launch_backward("fused_sa_slab_bwd_bf16", (x0,), (R, M, S),
+                             (d_x0,), w1, b1, w2, grad.float().contiguous(),
+                             argmax, ppre)
+    return (d_x0.to(BF16), *grads)
+
+
+class _FusedMLPPoolBF16(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x0, w1, b1, w2, b2):
+        out, argmax, ppre = fused_mlp_pool_bf16_train(x0, w1, b1, w2, b2)
+        ctx.save_for_backward(x0, w1, b1, w2, b2, argmax, ppre)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x0, w1, b1, w2, b2, argmax, ppre = ctx.saved_tensors
+        return fused_mlp_pool_bf16_backward(x0, w1, b1, w2, b2,
+                                            grad.contiguous(), argmax, ppre)
+
+
+# kernel 9's bf16 training form (tpu3d's seven training kernels in their
+# bf16 arithmetic) is not ported yet: the plain version below runs on the
+# CPU, and a CUDA tensor raises
+
+
+def _bn_relu_bf16_train(x, gamma, beta, eps):
+    """tpu3d's ``_bn_relu_train`` on a bf16 slab: the batch statistics in
+    f32 (over the global batch under a mesh), the output rounded to bf16
+    (kept f32) -> (a, mean, var)."""
+    y, mean, var = _bn_train(x.float(), gamma, beta, eps)
+    return torch.relu(_RoundGrad.apply(_r16(y))), mean, var
+
+
+def fused_bn_mlp_pool_bf16_train_plain(x0, w1, w2, gammas, betas, eps=1e-5):
+    """Plain PyTorch version of kernel 9's bf16 training form: tpu3d's
+    ``fused_bn_mlp_pool_reference`` on a bf16 slab (every pre-activation
+    rounded to bf16, the statistics in f32) with the first-argmax pool,
+    differentiable by autograd -> (out (R, M, C3) bf16, (means, vars)), the
+    statistics detached."""
+    a0, m0, v0 = _bn_relu_bf16_train(x0, gammas[0], betas[0], eps)
+    x1 = _fr(_RoundGrad.apply(a0 @ _fr(w1)))
+    a1, m1, v1 = _bn_relu_bf16_train(x1, gammas[1], betas[1], eps)
+    x2 = _fr(_RoundGrad.apply(a1 @ _fr(w2)))
+    a2, m2, v2 = _bn_relu_bf16_train(x2, gammas[2], betas[2], eps)
+    out = _first_max(a2)[0].to(BF16)
+    return out, (tuple(m.detach() for m in (m0, m1, m2)),
+                 tuple(v.detach() for v in (v0, v1, v2)))
+
+
+def fused_bn_mlp_pool_bf16_train(x0, w1, w2, gammas, betas, eps=1e-5):
+    """Kernel 9's bf16 training form: the plain version for CPU tensors; any
+    other device raises, naming the missing kernels."""
+    if x0.device.type == "cpu":
+        return fused_bn_mlp_pool_bf16_train_plain(x0, w1, w2, gammas, betas,
+                                                  eps)
+    raise NotImplementedError(
+        "kernel 9's bf16 training form (tpu3d's seven BatchNorm training "
+        "kernels in their bf16 arithmetic) is not ported yet: it is the "
+        "next slice's. Train an RCNN with USE_BN under the f32 contract "
+        "(TRAIN.BF16_ACTIVATIONS False, TRAIN.BF16_MATMULS False)")

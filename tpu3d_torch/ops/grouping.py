@@ -264,12 +264,72 @@ def group_points_backward(grad: torch.Tensor, idx: torch.Tensor,
     return out
 
 
+def group_points_backward_bf16_plain(grad: torch.Tensor, idx: torch.Tensor,
+                                     N: int, dtype: torch.dtype
+                                     ) -> torch.Tensor:
+    """Plain PyTorch version of the bf16 form of ``csrc/group_points_bwd.cu``
+    (tpu3d's ``_gp_vjp_bwd`` and the ``onehot_bf16`` route's VJP): the
+    gradient rounded to bf16, each point's rows summed in f32 in ascending
+    (m·S + s) order from +0.0, the sum written in ``dtype``, the
+    features'."""
+    return group_points_backward_plain(
+        grad.to(torch.bfloat16).float(), idx, N).to(dtype)
+
+
+def group_points_backward_bf16(grad: torch.Tensor, idx: torch.Tensor,
+                               N: int, dtype: torch.dtype) -> torch.Tensor:
+    """The bf16 form of the grouping gather's backward: bf16(grad) summed in
+    f32 in a fixed order, out in ``dtype`` (f32 or bf16): the kernel
+    (counted as ``group_points_bwd_bf16``) for CUDA tensors, else the plain
+    version. The same bits on every call either way."""
+    if grad.device.type == "cpu":
+        return group_points_backward_bf16_plain(grad, idx, N, dtype)
+    B, M, S = idx.shape
+    C = grad.shape[-1]
+    g16 = grad.to(torch.bfloat16).contiguous()
+    _build.check_cuda_tensor(g16, "grad", torch.bfloat16, 4)
+    _build.check_cuda_tensor(idx, "idx", torch.int32, 3)
+    if grad.shape[:3] != idx.shape:
+        raise ValueError(f"grad {tuple(grad.shape)} and idx "
+                         f"{tuple(idx.shape)} disagree")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the bf16 form writes f32 or bf16, not {dtype}")
+    out = torch.empty(B, N, C, dtype=dtype, device=grad.device)
+    ws = torch.empty(group_points_workspace(B, N, M, S), dtype=torch.int32,
+                     device=grad.device)
+    _build.launch("group_points_bwd_bf16", g16.data_ptr(), idx.data_ptr(),
+                  B, N, M, S, C, int(dtype == torch.bfloat16),
+                  out.data_ptr(), ws.data_ptr(), ws.numel())
+    return out
+
+
+def gp_route(N: int, C: int, MS: int, precise: bool, exact: bool,
+             bf16_bwd: bool | None = None) -> str:
+    """tpu3d's ``_gp_route`` on its accelerator (``tpu3d/ops/grouping.py:
+    519-555``): "onehot_exact" (an exact gather, forward and backward),
+    "onehot_bf16" (the features rounded to bf16, an f32 sum of the bf16
+    gradient back), "gather_mxu_bwd" (an exact forward and the bf16
+    backward) or "gather" (exact). ``bf16_bwd`` None takes the bf16
+    backward (tpu3d's default without its debug flag)."""
+    if N <= 2048:
+        if precise or exact or C < 16:
+            return "onehot_exact"
+        if MS % 8 == 0:
+            return "onehot_bf16"
+    if bf16_bwd is None:
+        bf16_bwd = True
+    if C >= 16 and N > 2048 and not exact and bf16_bwd:
+        return "gather_mxu_bwd"
+    return "gather"
+
+
 class _GroupPoints(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, features, idx):
+    def forward(ctx, features, idx, bf16_bwd):
         B, M, S = idx.shape
         ctx.save_for_backward(idx)
-        ctx.n = features.shape[1]
+        ctx.n, ctx.dtype = features.shape[1], features.dtype
+        ctx.bf16 = bf16_bwd or features.dtype == torch.bfloat16
         flat = idx.reshape(B, M * S).long()[..., None]
         out = torch.gather(features, 1, flat.expand(-1, -1,
                                                     features.shape[-1]))
@@ -280,16 +340,23 @@ class _GroupPoints(torch.autograd.Function):
         idx, = ctx.saved_tensors
         if grad.device.type == "cuda":
             idx = idx.to(torch.int32)
-        return group_points_backward(grad.contiguous(), idx.contiguous(),
-                                     ctx.n), None
+        idx, grad = idx.contiguous(), grad.contiguous()
+        if ctx.bf16:
+            return group_points_backward_bf16(grad, idx, ctx.n,
+                                              ctx.dtype), None, None
+        return group_points_backward(grad, idx, ctx.n), None, None
 
 
-def group_points(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """(B, N, C) gathered by (B, M, S) -> (B, M, S, C). Its backward adds
-    each point's slots in ascending (m·S + s) order (``_GroupPoints``), so
-    it gives the same bits on every call, where ``torch.gather``'s
-    scatter-add on the card does not."""
-    return _GroupPoints.apply(features, idx)
+def group_points(features: torch.Tensor, idx: torch.Tensor,
+                 bf16_bwd: bool = False) -> torch.Tensor:
+    """(B, N, C) gathered by (B, M, S) -> (B, M, S, C), exactly. Its
+    backward adds each point's slots in ascending (m·S + s) order
+    (``_GroupPoints``), so it gives the same bits on every call, where
+    ``torch.gather``'s scatter-add on the card does not: in f32, or, with
+    ``bf16_bwd`` (the ``gather_mxu_bwd`` and ``onehot_bf16`` routes of
+    ``gp_route``) or bf16 features, the bf16 form (bf16 gradient, f32 sums,
+    out in the features' dtype)."""
+    return _GroupPoints.apply(features, idx, bf16_bwd)
 
 
 def ball_query_numpy(centers, pts, radius: float, nsample: int):

@@ -24,7 +24,9 @@ form sweeps every known point, staged through shared memory. The
 interpolation kernels are bound by bytes; one warp per output row
 reads each gathered row as whole 128-byte lines in f32 (the bf16 form,
 ``three_interpolate_bf16``, reads bf16 rows under the accelerator's
-numerics contract, ``precision.py``). The backward
+numerics contract, ``precision.py``; its backward is the same gather over
+the same inverse with bf16 gradient rows and bf16-rounded weights, f32
+sums and a bf16 row out). The backward
 inverts the ids into per-source lists of keys m·3 + j (CSR, in a workspace
 from torch's allocator) and gathers: one warp per source and 256 channels
 sorts its list and sums the weighted gradient rows in ascending key order,
@@ -315,18 +317,14 @@ def three_interpolate_bf16_plain(features: torch.Tensor, idx: torch.Tensor,
     return out.to(torch.bfloat16) if round_w else out
 
 
-def three_interpolate_bf16(features: torch.Tensor, idx: torch.Tensor,
-                           weight: torch.Tensor,
-                           round_w: bool | None = None) -> torch.Tensor:
-    """(B, N, C) bf16 features, (B, M, 3) i32 idx, (B, M, 3) f32 weights ->
-    (B, M, C), bf16 where the weights are rounded (``round_w``, default
-    ``rounds_weights``), else f32: the kernel (``three_interpolate_bf16``
-    in ``csrc/three_interpolate.cu``) for CUDA tensors, the plain version
-    for CPU tensors. An eval form: it has no backward."""
+def three_interpolate_bf16_forward(features: torch.Tensor,
+                                   idx: torch.Tensor, weight: torch.Tensor,
+                                   round_w: bool) -> torch.Tensor:
+    """The bf16 forward alone: the kernel (``three_interpolate_bf16`` in
+    ``csrc/three_interpolate.cu``) for CUDA tensors, else the plain
+    version."""
     B, N, C = features.shape
     M = idx.shape[1]
-    if round_w is None:
-        round_w = rounds_weights(N, C, M)
     if features.device.type == "cpu":
         return three_interpolate_bf16_plain(features, idx, weight, round_w)
     _build.check_cuda_tensor(features, "features", torch.bfloat16, 3)
@@ -336,15 +334,95 @@ def three_interpolate_bf16(features: torch.Tensor, idx: torch.Tensor,
         raise ValueError(f"three_interpolate takes idx and weight of shape "
                          f"(B, M, 3), got {tuple(idx.shape)} and "
                          f"{tuple(weight.shape)} for B={B}")
-    if torch.is_grad_enabled() and features.requires_grad:
-        raise NotImplementedError("the bf16 interpolation is an eval form "
-                                  "and has no backward")
     out = torch.empty(B, M, C, device=features.device,
                       dtype=torch.bfloat16 if round_w else torch.float32)
     _build.launch("three_interpolate_bf16", features.data_ptr(),
                   idx.data_ptr(), weight.data_ptr(), B, N, M, C,
                   int(round_w), out.data_ptr())
     return out
+
+
+def three_interpolate_backward_bf16_plain(idx: torch.Tensor,
+                                          weight: torch.Tensor,
+                                          grad: torch.Tensor,
+                                          N: int) -> torch.Tensor:
+    """Plain PyTorch version of the bf16 backward kernel (tpu3d's
+    ``_ti_bwd_kernel`` and its sibling routes in their bf16 arithmetic):
+    d_features[n] = bf16(sum of bf16(w)·bf16(g) over the (m, j) with
+    idx[m, j] = n), each product exact in f32, summed in f32 in ascending
+    (b, m·3 + j) from +0.0 (``index_add_``), written in bf16."""
+    w = weight.to(torch.bfloat16).float()
+    g = grad.to(torch.bfloat16).float()
+    dummy = g.new_empty(g.shape[0], N, g.shape[-1])
+    return three_interpolate_backward_plain(dummy, idx, w, g, False)[0].to(
+        torch.bfloat16)
+
+
+def three_interpolate_backward_bf16(idx: torch.Tensor, weight: torch.Tensor,
+                                    grad: torch.Tensor,
+                                    N: int) -> torch.Tensor:
+    """Kernel 7's bf16 form alone: (B, N, C) bf16 d_features from the
+    output gradient (any float dtype; rounded to bf16) and the f32 weights
+    (rounded to bf16): the kernel (counted as
+    ``three_interpolate_bwd_bf16``, on the CSR inverse of the f32 form) for
+    CUDA tensors, else the plain version. The same bits on every call, and
+    the plain version's."""
+    if grad.device.type == "cpu":
+        return three_interpolate_backward_bf16_plain(idx, weight, grad, N)
+    g16 = grad.to(torch.bfloat16).contiguous()
+    _build.check_cuda_tensor(g16, "grad", torch.bfloat16, 3)
+    _build.check_cuda_tensor(idx, "idx", torch.int32, 3)
+    _build.check_cuda_tensor(weight, "weight", torch.float32, 3)
+    B, M, C = g16.shape
+    if idx.shape != (B, M, 3) or weight.shape != (B, M, 3):
+        raise ValueError(f"three_interpolate's backward takes idx and weight "
+                         f"of shape {(B, M, 3)}, got {tuple(idx.shape)} and "
+                         f"{tuple(weight.shape)}")
+    d_features = torch.empty(B, N, C, dtype=torch.bfloat16,
+                             device=g16.device)
+    n_ws = backward_workspace(B, N, M)
+    workspace = torch.empty(n_ws, dtype=torch.int32, device=g16.device)
+    _build.launch("three_interpolate_bwd_bf16", idx.data_ptr(),
+                  weight.data_ptr(), g16.data_ptr(), B, N, M, C,
+                  d_features.data_ptr(), workspace.data_ptr(), n_ws)
+    return d_features
+
+
+class _ThreeInterpolateBF16(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, features, idx, weight, round_w):
+        ctx.save_for_backward(idx, weight)
+        ctx.n = features.shape[1]
+        return three_interpolate_bf16_forward(features, idx, weight, round_w)
+
+    @staticmethod
+    def backward(ctx, grad):
+        idx, weight = ctx.saved_tensors
+        if ctx.needs_input_grad[2]:
+            raise NotImplementedError(
+                "the bf16 interpolation gives no gradient to its weights "
+                "(the FP levels' weights are constants)")
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None
+        return (three_interpolate_backward_bf16(idx, weight, grad, ctx.n),
+                None, None, None)
+
+
+def three_interpolate_bf16(features: torch.Tensor, idx: torch.Tensor,
+                           weight: torch.Tensor,
+                           round_w: bool | None = None) -> torch.Tensor:
+    """(B, N, C) bf16 features, (B, M, 3) i32 idx, (B, M, 3) f32 weights ->
+    (B, M, C), bf16 where the weights are rounded (``round_w``, default
+    ``rounds_weights``), else f32: kernel 3's bf16 form
+    (``three_interpolate_bf16_forward``). Differentiable in ``features``
+    (not in the weights, which the FP levels hold constant): the backward
+    is kernel 7's bf16 form, as every route of tpu3d's accelerator
+    differentiates it (bf16(w)·bf16(g) summed in f32, bf16 out)."""
+    B, N, C = features.shape
+    M = idx.shape[1]
+    if round_w is None:
+        round_w = rounds_weights(N, C, M)
+    return _ThreeInterpolateBF16.apply(features, idx, weight, round_w)
 
 
 def interpolation_weights(dist: torch.Tensor,

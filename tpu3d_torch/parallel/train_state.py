@@ -43,6 +43,7 @@ from ..models.train_functions import (generate_rpn_labels_device,
                                       get_rcnn_loss, get_rpn_loss,
                                       model_loss)
 from ..ops.rotated_iou import boxes_iou3d
+from ..precision import Precision, resolve
 from .mesh import (Mesh, reduce_metrics, replicate, sum_gradients,
                    use_mesh)
 
@@ -266,7 +267,8 @@ def bn_momentum_at_epoch(cfg, epoch: int) -> float:
     return 1.0 - torch_m
 
 
-def make_train_step(cfg, model: torch.nn.Module, mesh: Mesh | None = None):
+def make_train_step(cfg, model: torch.nn.Module, mesh: Mesh | None = None,
+                    precision: Precision | None = None):
     """The twin of tpu3d's ``make_train_step``: returns
     ``train_step(state, batch, generator, bn_momentum) -> metrics``.
 
@@ -294,9 +296,17 @@ def make_train_step(cfg, model: torch.nn.Module, mesh: Mesh | None = None):
     group, or at a mesh of one rank without one, the step runs as without
     a mesh; a mesh of one rank with a group runs the gradients' collective
     alone, which leaves them as they are.
+
+    The forward runs the training numerics contract ``precision``, by
+    default ``precision.resolve``'s for the model's device and ``cfg``
+    (on the card tpu3d's bf16 training contract unless both
+    ``TRAIN.BF16_ACTIVATIONS`` and ``TRAIN.BF16_MATMULS`` are False; on
+    the CPU f32), resolved here once; ``step.precision`` holds it.
     """
     offline = not cfg.RPN.ENABLED
     rpn_trains = cfg.RPN.ENABLED and not cfg.RPN.FIXED
+    if precision is None:
+        precision = resolve(next(model.parameters()).device, cfg, train=True)
 
     def train_step(state: TrainState, batch: dict,
                    generator: torch.Generator | None,
@@ -316,7 +326,7 @@ def make_train_step(cfg, model: torch.nn.Module, mesh: Mesh | None = None):
             p.grad = None
         with use_mesh(mesh):
             out = model(inputs, train=True, bn_momentum=bn_momentum,
-                        generator=generator)
+                        generator=generator, precision=precision)
             loss, tb = model_loss(cfg, out, batch)
             loss.backward()
         sum_gradients(state.optimizer.params, mesh)
@@ -325,6 +335,7 @@ def make_train_step(cfg, model: torch.nn.Module, mesh: Mesh | None = None):
         tb["grad_norm"] = state.apply_gradients()
         return tb
 
+    train_step.precision = precision
     return train_step
 
 

@@ -83,6 +83,13 @@ def run(cmd: list[str]) -> None:
     subprocess.run(cmd, check=True, cwd=REPO, env=env)
 
 
+def _sets(args) -> list[str]:
+    """The CLIs' ``--set`` overrides of the study's ``--set`` (none where the
+    caller's arguments have none)."""
+    sets = getattr(args, "set_cfgs", None) or []
+    return ["--set", *sets] if sets else []
+
+
 def train_cmd(train_root: str, out_train: str, args, extra=()) -> list[str]:
     """The training CLI's command: joint mode, a checkpoint at the end."""
     return [sys.executable, "-m", "tpu3d_torch.tools.train_rcnn",
@@ -90,7 +97,7 @@ def train_cmd(train_root: str, out_train: str, args, extra=()) -> list[str]:
             "--data_root", train_root, "--batch_size", str(args.batch_size),
             "--epochs", str(args.epochs), "--output_dir", out_train,
             "--ckpt_save_interval", str(args.epochs), "--workers", "2",
-            "--device", args.device, *extra]
+            "--device", args.device, *extra, *_sets(args)]
 
 
 def eval_cmd(eval_root: str, ckpt: str, out_eval: str, args,
@@ -100,7 +107,7 @@ def eval_cmd(eval_root: str, ckpt: str, out_eval: str, args,
             "--cfg_file", args.cfg, "--eval_mode", "joint",
             "--data_root", eval_root, "--batch_size", str(args.batch_size),
             "--ckpt_dir", ckpt, "--output_dir", out_eval, "--workers", "2",
-            "--device", args.device, *extra]
+            "--device", args.device, *extra, *_sets(args)]
 
 
 def score(result_dir: str, eval_root: str, device: str,
@@ -177,6 +184,9 @@ def parse_args(argv=None):
                          "KITTI-sized): the method is symmetric")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the card, the default) or cpu")
+    ap.add_argument("--set", dest="set_cfgs", default=[], nargs="+",
+                    help="config overrides the CLIs take, e.g. "
+                         "TRAIN.BF16_ACTIVATIONS False")
     return ap.parse_args(argv)
 
 

@@ -52,6 +52,7 @@ from ..models.proposal import proposal_layer
 from ..models.proposal_target import proposal_target_layer
 from ..models.train_functions import generate_rpn_labels_device, model_loss
 from ..parallel import create_train_state
+from ..precision import resolve
 from ..weights import seeded_state_dict
 from .parse_trace import kernel_base, port_kernel_sources
 
@@ -61,16 +62,20 @@ STAGES = ("rpn_labels", "rpn_forward", "proposal_layer", "proposal_target",
           "rcnn_forward", "loss", "backward", "optimizer")
 
 
-def train_step_by_stage(cfg, model, state, batch, gen, stage) -> None:
+def train_step_by_stage(cfg, model, state, batch, gen, stage,
+                        precision=None) -> None:
     """One joint train step (``make_train_step``'s, RPN not fixed), with
-    each stage run inside ``stage(name)``."""
+    each stage run inside ``stage(name)``, under the training contract
+    ``precision`` (default: ``precision.resolve``'s for the model's device,
+    resolved once here, as ``make_train_step`` resolves it)."""
     pts, gt = batch["pts_input"], batch["gt_boxes3d"]
+    prec = precision or resolve(pts.device, cfg, train=True)
     for p in state.optimizer.params:
         p.grad = None
     with stage("rpn_labels"):
         cls_l, reg_l = generate_rpn_labels_device(pts, gt)
     with stage("rpn_forward"):
-        out = dict(model.rpn(pts, True, 0.9, gen))
+        out = dict(model.rpn(pts, True, 0.9, gen, prec))
     with stage("proposal_layer"), torch.no_grad():
         xyz = out["backbone_xyz"]
         scores = out["rpn_cls"][:, :, 0]
@@ -81,11 +86,12 @@ def train_step_by_stage(cfg, model, state, batch, gen, stage) -> None:
         target = proposal_target_layer(
             gen, rois, roi_valid, gt, xyz,
             torch.cat([extra, out["backbone_features"]], -1), cfg,
-            aug_data=cfg.AUG_DATA)
+            aug_data=cfg.AUG_DATA, roi_bf16=prec.roi_bf16)
     with stage("rcnn_forward"):
         out.update(target)
         out.update(model.rcnn_net(target["sampled_pts"],
-                                  target["pts_feature"], True, 0.9, gen))
+                                  target["pts_feature"].to(pts.dtype), True,
+                                  0.9, gen, prec))
     with stage("loss"):
         loss, _ = model_loss(cfg, out, {"rpn_cls_label": cls_l,
                                         "rpn_reg_label": reg_l})
@@ -149,6 +155,7 @@ def main() -> None:
     batch = {k: torch.from_numpy(v).cuda() for k, v in
              train_batch(args.batch, cfg.RPN.NUM_POINTS, SEED).items()}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    prec = resolve("cuda", cfg, train=True)
 
     walls = defaultdict(list)
 
@@ -168,17 +175,17 @@ def main() -> None:
 
     for _ in range(2):  # warm-up: allocator, library handles
         train_step_by_stage(cfg, model, state, batch, gen,
-                            lambda name: contextlib.nullcontext())
+                            lambda name: contextlib.nullcontext(), prec)
     torch.cuda.synchronize()
     walls.clear()
     for _ in range(args.reps):
-        train_step_by_stage(cfg, model, state, batch, gen, timed)
+        train_step_by_stage(cfg, model, state, batch, gen, timed, prec)
     wall = {name: statistics.median(walls[name]) for name in STAGES}
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(args.reps):
-            train_step_by_stage(cfg, model, state, batch, gen, ranged)
+            train_step_by_stage(cfg, model, state, batch, gen, ranged, prec)
         torch.cuda.synchronize()
     # the profiler's own attribution: host-side events carry the kernels
     # they launched (and their children's); the stage ranges also show on

@@ -31,8 +31,11 @@ two shares. Which products run in bf16 follows the eval numerics contract
 (``precision.resolve`` for the device, the config and
 ``TPU3D_F32_EVAL``): under the accelerator's contract the RCNN levels on a
 fused route run their two Dense layers in the bf16 kernels; under
-``BF16_INFERENCE`` every Dense is bf16; training, and the f32 contract,
-are float32 throughout. Each output line carries the card's name and power
+``BF16_INFERENCE`` every Dense is bf16; the f32 contract is float32
+throughout. The train step follows the training contract
+(``TRAIN.BF16_MATMULS``: every Dense but the heads and the scene-frame
+pre-grouped layers 0 in bf16, forward and backward; ``TRAIN.
+BF16_ACTIVATIONS`` alone: the fused RCNN levels' layers 1-2). Each output line carries the card's name and power
 limit as nvidia-smi gives them, and the split
 (``bf16_matmul_tflop_per_step``) and the contract.
 
@@ -165,28 +168,53 @@ def neighbor_flops(cfg, batch: int, rois: int) -> float:
     return total
 
 
+def _f32_share_of_bf16_training(cfg, batch: int) -> float:
+    """Forward matmul FLOPs that stay f32 under bf16 Dense training: the
+    heads (``head_dtype``) and layer 0 of each scene-frame pre-grouped RPN
+    level (``first_f32``: the levels with features)."""
+    r = cfg.RPN
+    rois = cfg.RCNN.ROI_PER_IMAGE
+    heads = backbone_matmul_flops(cfg, batch)["heads"]
+    if cfg.RCNN.ENABLED:
+        heads += rcnn_matmul_flops(cfg, batch, rois)["heads"]
+    feat = 1 if r.USE_INTENSITY else 0
+    layer0 = 0.0
+    for k, m in enumerate(r.SA_CONFIG.NPOINTS):
+        for j, spec in enumerate(r.SA_CONFIG.MLPS[k]):
+            if feat:
+                s = r.SA_CONFIG.NSAMPLE[k][j]
+                layer0 += batch * _tower(m * s, [feat + 3, spec[0]])
+        feat = sum(spec[-1] for spec in r.SA_CONFIG.MLPS[k])
+    return heads + layer0
+
+
 def bf16_matmul_flops(cfg, mode: str, batch: int,
                       precision: Precision) -> float:
     """The part of ``program_flops``' total matmul FLOPs whose products run
-    in bf16 under ``precision``: all of them under a bf16 Dense dtype
-    (``BF16_INFERENCE``); with the set-abstraction casts alone, layers 1
-    and 2 of each RCNN level that ``sa_route`` fuses (the bf16 kernels);
-    none in training or under the f32 contract."""
-    if mode == "train":
-        return 0.0
+    in bf16 under ``precision``: under a bf16 Dense dtype all of them (at
+    eval, ``BF16_INFERENCE``) or all but the heads' and the scene-frame
+    pre-grouped layers 0 (in training, ``TRAIN.BF16_MATMULS``, forward and
+    backward alike); with the set-abstraction casts alone, layers 1 and 2
+    of each RCNN level that ``sa_route`` fuses (the bf16 kernels, in
+    training their forward and backward); none under the f32 contract."""
+    train = mode == "train"
+    mult = 3.0 if train else 1.0
     if precision.dense_dtype is not None:
-        return program_flops(cfg, mode, batch)["total_matmul_flops"]
+        total = program_flops(cfg, mode, batch)["total_matmul_flops"]
+        if train:
+            total -= mult * _f32_share_of_bf16_training(cfg, batch)
+        return total
     if not (precision.sa_bf16 and cfg.RCNN.ENABLED):
         return 0.0
     c = cfg.RCNN
-    n = batch * cfg.TEST.RPN_POST_NMS_TOP_N
+    n = batch * (c.ROI_PER_IMAGE if train else cfg.TEST.RPN_POST_NMS_TOP_N)
     pts, total = c.NUM_POINTS, 0.0
     for i, spec in enumerate(c.SA_CONFIG.NPOINTS):
         if spec == -1:
             break
         s, mlp = c.SA_CONFIG.NSAMPLE[i], list(c.SA_CONFIG.MLPS[i])
         if sa_route((n, spec, s, mlp[0]), mlp, pts, c.USE_BN) != "plain":
-            total += _tower(n * spec * s, mlp)
+            total += mult * _tower(n * spec * s, mlp)
         pts = spec
     return total
 
@@ -327,14 +355,18 @@ def default_cfg(cfg_file: str):
 
 def report(cfg, eval_ms: float, train_ms: float, eval_batch: int = 8,
            train_batch: int = 16, counted: bool = True, device="cuda",
-           precision: Precision | None = None) -> list[dict]:
+           precision: Precision | None = None,
+           train_precision: Precision | None = None) -> list[dict]:
     """The two programs' rows and the forward breakdown, as ``main``
-    prints them; the eval row under ``precision`` (default: the contract
-    ``precision.resolve`` gives the device and config, which the eval
-    CLI's batches ran under)."""
+    prints them; the eval row under ``precision``, the train row under
+    ``train_precision`` (default: the contracts ``precision.resolve``
+    gives the device and config, which the eval CLI's batches and the
+    training CLI's steps ran under)."""
     card = card_name(device)
     if precision is None:
         precision = resolve(device, cfg)
+    if train_precision is None:
+        train_precision = resolve(device, cfg, train=True)
     fl_e = program_flops(cfg, "eval", eval_batch)
     fl_t = program_flops(cfg, "train", train_batch)
     zero = {"counted_flops": 0.0}
@@ -343,9 +375,12 @@ def report(cfg, eval_ms: float, train_ms: float, eval_batch: int = 8,
     eval_row = derived(f"eval_batch{eval_batch}", eval_ms, fl_e, c_e, card,
                        bf16_matmul_flops(cfg, "eval", eval_batch, precision))
     eval_row["precision"] = str(precision)
-    return [eval_row,
-            derived(f"train_step_batch{train_batch}", train_ms, fl_t, c_t,
-                    card),
+    train_row = derived(f"train_step_batch{train_batch}", train_ms, fl_t,
+                        c_t, card, bf16_matmul_flops(cfg, "train",
+                                                     train_batch,
+                                                     train_precision))
+    train_row["precision"] = str(train_precision)
+    return [eval_row, train_row,
             {"breakdown_fwd_eval": fl_e["breakdown_fwd"],
              "breakdown_fwd_train": fl_t["breakdown_fwd"]}]
 
