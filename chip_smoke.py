@@ -261,8 +261,22 @@ and no result line:
    step's; (c) two default.yaml steps under it from one state equal to the
    bit in every gradient, parameter, Adam moment and statistic; (d) ms per
    default step of both contracts in turns (f32, default, default, f32)
-   and their peak memory; (f) the BatchNorm RCNN and TRAIN.REMAT raising
-   their named NotImplementedErrors under it; (a) each bf16 training form
+   and their peak memory; (f) the BatchNorm RCNN (default.yaml with
+   RCNN.USE_BN, B=16) under it: a step against the f32 one from the same
+   weights, batch and draws, each f32 launch of kernel 9's seven training
+   passes taken over one for one by its bf16 form, the RPN loss and the
+   loss within the bounds above, two steps from one state equal to the
+   bit, ms per step in turns (f32, default, default, f32) and the peak
+   memory of both; then kernel 9's bf16 form at that step's calls (RCNN
+   SA_0 and SA_1): each of its seven entries against its plain piece on
+   the same inputs, timed beside it (bounds at BN_SLAB_FLIP_BOUND), the
+   whole op through its autograd Function on BN_CHECK_ROWS rows equal to
+   its passes composed directly and against autograd of the repaired plain
+   form, and the bf16 cuBLAS chain with batch-statistics BatchNorm under
+   autograd; (g) default.yaml B=16 with and without TRAIN.REMAT under both
+   contracts: loss, every gradient, parameter, statistic and Adam moment
+   equal to the bit between the two, ms per step in turns and the peak
+   memory of each; (a) each bf16 training form
    against its plain version at the inputs (b) recorded (kernel 6 at
    default's RCNN SA_0 and SA_1, kernel 7 at its four FP levels, the
    gather's bf16 backward at RPN SA_1's two gathers, kernel 8 at
@@ -2169,27 +2183,224 @@ def slots_off(a, b, tol):
     return int(((a - b).abs() > tol).any(dim=-1).sum())
 
 
+def bf16_steps(a, b):
+    """|a − b| in bf16 steps of each value's own magnitude (the larger of
+    the two sides'), elementwise, in f32."""
+    import torch
+
+    a, b = a.float(), b.float()
+    top = torch.maximum(a.abs(), b.abs()).clamp_min(2.0 ** -126)
+    return (a - b).abs() / torch.exp2(torch.floor(torch.log2(top)) - 7)
+
+
+def bn_pass_rows(report, where, x0, w1, w2, gammas, betas, eps, gen):
+    """The seven passes of kernel 9's training form on the slab x0, in the
+    form of its dtype (f32, or the bf16 entries ``*_bf16``), each driven
+    as the training op drives it, held against its plain piece on the same
+    inputs (the plain pieces' own statistics, x1, x2, argmax, d_y1 and d_y0
+    and the packs of their statistics) and timed beside it. Each statistics
+    pass's Σx² within 1e-5 relative and Σx within 1e-5·√(n·Σx²) per
+    channel (the layers summed in another order, the sums in f64); the
+    final pass, a reduction over the same stored x2 rounded as the plain
+    piece rounds it, equal to the bit; each wave's two reductions and its
+    weight gradient within 1e-3 of each one's largest value (f32 sums of n
+    products in another order); the slabs the passes write: in f32 (x1, x2,
+    d_y1, d_y0 and the f32 form's d_x0) within 1e-4 of their largest value,
+    in bf16 (x1, x2 and the bf16 form's d_x0) within one bf16 step of each
+    value and off at all in at most BN_SLAB_FLIP_BOUND of the values (exact
+    products, f32 sums in another order: a sum at a rounding boundary takes
+    the other neighbour). Every pass reads the same stored slabs on both
+    sides and rounds its elementwise forms step by step as the plain pieces
+    do, so no ReLU mask flips between the two. Library: torch.var_mean for
+    the depth-0 statistics, none for the other passes."""
+    import torch
+
+    from tpu3d_torch.ops import fused_sa as fs
+
+    form = x0.dtype
+    es = x0.element_size()  # bytes of a slab value: 4, or 2 in bf16
+    peak = PEAK_BF16_OPS_PER_S if form == torch.bfloat16 else \
+        PEAK_F32_OPS_PER_S
+    R, M, S, c1 = x0.shape
+    c2, c3 = w1.shape[1], w2.shape[1]
+    n = R * M * S
+    widths = (c1, c2, c3)
+    wbytes = 4 * (w1.numel() + w2.numel() + 7 * sum(widths))
+    l1, l2 = 2 * c1 * c2, 2 * c2 * c3  # one slot's layer products
+
+    def add(name, err, ms, pms, lms, nbytes, ops, what):
+        name = fs._entry(name, form)
+        b_ms, b_by = bound_ms(nbytes, ops, peak)
+        report.add(name, err, ms, pms, lms, nbytes, ops)
+        print(f"{name} {where} R={R} M={M} S={S} C={c1}->{c2}->{c3}: "
+              f"{ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), plain "
+              f"{pms:.3f} ms, library "
+              f"{'none' if lms is None else f'{lms:.3f} ms'}, {what}, "
+              f"{ops / ms / 1e9:.1f} TFLOP/s, "
+              f"{nbytes / ms / 1e9:.1f} GB/s")
+
+    def slab_ok(label, a, b):
+        """Check the slab a against the plain piece's b -> (largest
+        |a − b|, its note)."""
+        check(a.dtype == b.dtype, f"{label}: {a.dtype}, plain {b.dtype}")
+        d = (a.float() - b.float()).abs()
+        e, sc = d.max().item(), b.float().abs().max().item()
+        if a.dtype != torch.bfloat16:
+            check(e <= 1e-4 * sc, f"{label} differs by {e} (max |value| "
+                  f"{sc}) at {where}")
+            return e, f"{e:.3e} of {sc:.3e}"
+        steps = bf16_steps(a, b).max().item()
+        off = (d > 0).float().mean().item()
+        check(steps <= 1 and off <= BN_SLAB_FLIP_BOUND, f"{label} at "
+              f"{where}: {steps} bf16 steps off, {off:.2e} of the values "
+              f"off")
+        return e, f"{e:.3e} of {sc:.3e}, off in {off:.2e} by one step"
+
+    with torch.no_grad():
+        layers, stats, slabs = [], [], [x0]
+        for depth in range(3):
+            name = fs.STATS_KERNELS[depth]
+            args = ((x0,) if depth == 0 else
+                    (slabs[-1], layers[-1][fs.MUL].contiguous(),
+                     layers[-1][fs.ADD].contiguous(), (w1, w2)[depth - 1]))
+            got = fs.fused_sa_bn_stats(depth, *args)
+            want = fs.fused_sa_bn_stats_plain(depth, *args)
+            yerr, note = 0.0, ""
+            if depth:
+                (got, y), (want, wy) = got, want
+                yerr, note = slab_ok(f"{name} x{depth}", y, wy)
+                note = f", x{depth} {note}"
+                slabs.append(wy)
+                del y
+            q_err = ((got[1] - want[1]).abs() / want[1]).max().item()
+            s_err = ((got[0] - want[0]).abs()
+                     / (n * want[1]).sqrt()).max().item()
+            check(q_err <= 1e-5 and s_err <= 1e-5,
+                  f"{name} differs at {where}: Σx² by {q_err} relative, "
+                  f"Σx by {s_err} of √(n·Σx²)")
+            stats.append(fs._mean_var(want, n, torch.float32))
+            err = max(yerr, *((a - b).abs().max().item() for a, b in zip(
+                fs._mean_var(got, n, torch.float32), stats[-1])))
+            layers.append(fs._layer_pack(*stats[-1], gammas[depth],
+                                         betas[depth], eps, n))
+            ms = cuda_ms(lambda: fs.fused_sa_bn_stats(depth, *args), 5)
+            pms = cuda_ms(lambda: fs.fused_sa_bn_stats_plain(depth, *args),
+                          2)
+            lms = (cuda_ms(lambda: torch.var_mean(
+                x0, dim=(0, 1, 2), correction=0), 3) if depth == 0
+                else None)
+            # per slot: depth 0 a sum and a sum of squares of C1 values;
+            # depth 1 / 2 the affine and ReLU of the layer before, its
+            # product, and the sums of the C_depth outputs; read the slab
+            # before, write x_depth
+            cin = widths[max(depth - 1, 0)]
+            ops = n * ((0, l1, l2)[depth] + 3 * widths[depth]
+                       + (3 * cin if depth else 0))
+            nbytes = es * n * (cin + (widths[depth] if depth else 0))
+            add(name, err, ms, pms, lms, nbytes + wbytes + 16 * widths[depth],
+                ops, f"mean/var max_abs_err {err:.3e}, Σx² {q_err:.2e} "
+                f"relative, Σx {s_err:.2e} of √(n·Σx²){note}")
+            del got, want
+        x1, x2 = slabs[1:]
+        m2, a2 = (layers[2][fs.MUL].contiguous(),
+                  layers[2][fs.ADD].contiguous())
+        got = fs.fused_sa_bn_final(x2, m2, a2)
+        out, arg, at = fs.fused_sa_bn_final_plain(x2, m2, a2)
+        check(all(a.dtype == b.dtype and torch.equal(a, b)
+                  for a, b in zip(got, (out, arg, at))),
+              f"{fs._entry('fused_sa_bn_final', form)} differs from its "
+              f"plain piece at {where}")
+        del got
+        ms = cuda_ms(lambda: fs.fused_sa_bn_final(x2, m2, a2), 5)
+        pms = cuda_ms(lambda: fs.fused_sa_bn_final_plain(x2, m2, a2), 2)
+        add("fused_sa_bn_final", 0.0, ms, pms, None,
+            es * n * c3 + 8 * c3 + (es + 8) * R * M * c3, n * (3 * c3 + 1),
+            "out, argmax and x2 there equal to the plain piece's")
+
+        grad = torch.randn(out.shape, generator=gen).to(out.device).to(form)
+        d_y2 = torch.where(out > 0, grad.float(), 0.0)
+        (mean2, var2), r2 = stats[2], layers[2][fs.R_INV]
+        layers[2] = fs._layer_pack(
+            mean2, var2, gammas[2], betas[2], eps, n, d_y2.sum(dim=(0, 1)),
+            (d_y2 * (at * r2 - mean2 * r2)).sum(dim=(0, 1)))
+        dval = (d_y2 * layers[2][fs.MUL]).contiguous()
+        pk = fs._pack(layers)
+        cases = []
+        got = fs.fused_sa_bn_wave1(x2, x1, pk, w2, dval, arg)
+        want = fs.fused_sa_bn_wave1_plain(x2, x1, pk, w2, dval, arg)
+        cases.append(("fused_sa_bn_wave1", got, want, ("sums", "dW2", "d_y1"),
+                      (lambda pk=pk: fs.fused_sa_bn_wave1(
+                          x2, x1, pk, w2, dval, arg),
+                       lambda pk=pk: fs.fused_sa_bn_wave1_plain(
+                           x2, x1, pk, w2, dval, arg))))
+        d_y1 = want[2]
+        layers[1] = fs._layer_pack(*stats[1], gammas[1], betas[1], eps, n,
+                                   *want[0].float())
+        pk = fs._pack(layers)
+        got = fs.fused_sa_bn_wave2(d_y1, x1, x0, pk, w1)
+        want = fs.fused_sa_bn_wave2_plain(d_y1, x1, x0, pk, w1)
+        cases.append(("fused_sa_bn_wave2", got, want, ("sums", "dW1", "d_y0"),
+                      (lambda pk=pk: fs.fused_sa_bn_wave2(
+                          d_y1, x1, x0, pk, w1),
+                       lambda pk=pk: fs.fused_sa_bn_wave2_plain(
+                           d_y1, x1, x0, pk, w1))))
+        d_y0 = want[2]
+        layers[0] = fs._layer_pack(*stats[0], gammas[0], betas[0], eps, n,
+                                   *want[0].float())
+        pk = fs._pack(layers)
+        # the f32 form writes d_x0 in place of d_y0: it is checked on a
+        # copy and timed on a scratch slab
+        got = (fs.fused_sa_bn_apply(d_y0.clone(), x0, pk),)
+        want = (fs.fused_sa_bn_apply_plain(d_y0, x0, pk),)
+        scratch = torch.empty_like(d_y0)
+        cases.append(("fused_sa_bn_apply", got, want, ("d_x0",), (
+            lambda pk=pk: fs.fused_sa_bn_apply(scratch, x0, pk),
+            lambda pk=pk: fs.fused_sa_bn_apply_plain(d_y0, x0, pk))))
+        # per slot: wave 1 two products of layer 2 (d_y1 and dW2) and the
+        # elementwise d_x2, mask, x̂1 and sums; wave 2 two of layer 1;
+        # apply the elementwise d_x0. Each input slab read once (x0, x1,
+        # x2 in the form's dtype, d_y1 and d_y0 in f32), each output slab
+        # written once
+        ops = {"fused_sa_bn_wave1": n * (2 * l2 + 6 * c3 + 8 * c2),
+               "fused_sa_bn_wave2": n * (2 * l1 + 6 * c2 + 8 * c1),
+               "fused_sa_bn_apply": n * 6 * c1}
+        nbytes = {"fused_sa_bn_wave1": es * n * (c3 + c2) + 4 * n * c2
+                  + 8 * R * M * c3 + 4 * c2 * c3 + 16 * c2,
+                  "fused_sa_bn_wave2": (es + 4) * n * (c2 + c1)
+                  + 4 * c1 * c2 + 16 * c1,
+                  "fused_sa_bn_apply": (4 + 2 * es) * n * c1}
+        for name, got, want, parts, (kernel, plain) in cases:
+            errs, worst = [], 0.0
+            for part, a, b in zip(parts, got, want):
+                if a.dim() == 4:
+                    e, note = slab_ok(f"{name} {part}", a, b)
+                else:
+                    check(a.dtype == b.dtype, f"{name} {part}: {a.dtype}, "
+                          f"plain {b.dtype}")
+                    e, sc = (a - b).abs().max().item(), b.abs().max().item()
+                    check(e <= 1e-3 * sc, f"{name} {part} differs by {e} "
+                          f"(max |value| {sc}) at {where}")
+                    note = f"{e:.3e} of {sc:.3e}"
+                errs.append(f"{part} {note}")
+                worst = max(worst, e)
+            ms = cuda_ms(kernel, 3)
+            pms = cuda_ms(plain, 2)
+            add(name, worst, ms, pms, None, nbytes[name] + wbytes, ops[name],
+                "max_abs_err " + ", ".join(errs))
+        del cases, got, want, scratch, d_y0, d_y1, slabs, x1, x2
+        del out, arg, at, dval
+        torch.cuda.empty_cache()
+
+
 def bn_train_kernels(report, model, target, label):
     """Phase 3 for the BatchNorm chain's seven training kernels, at RCNN
     SA_0 and SA_1 of ``model`` (an RCNN with BatchNorm), on the slabs
     grouped from the rows a train step's proposal target layer sampled
-    (each level's input from the levels before it at eval). Each entry is
-    driven as the training op drives it and held against its plain piece
-    on the same inputs: the plain pieces' own x1, x2, d_y1 and d_y0 and the
-    packs of their statistics. Each statistics pass's Σx² within 1e-5
-    relative and Σx within 1e-5·√(n·Σx²) per channel (f32 layers summed in
-    another order, the sums in f64), the slab it writes (x1, x2) within
-    1e-4 of its largest value; the final pass, a reduction over the same
-    stored x2 rounded as the plain piece rounds it, equal to the bit; each
-    wave's two reductions and its weight gradient within 1e-3 of each one's
-    largest value (f32 sums of n products in another order), the slab it
-    writes and d_x0 within 1e-4. Every pass reads the
-    same stored x1 and x2 on both sides and rounds its elementwise forms
-    step by step as the plain pieces do, so no ReLU mask flips between the
-    two and no noise floor is needed. Then the whole op, forward and backward
-    through the seven kernels, against autograd of its plain version in
-    f64 (in f32, BatchNorm's backward cancels where a channel's mean
-    outweighs its spread, differently in the kernels' x̂ form and in
+    (each level's input from the levels before it at eval): each pass
+    against its plain piece (``bn_pass_rows``). Then the whole op, forward
+    and backward through the seven kernels, against autograd of its plain
+    version in f64 (in f32, BatchNorm's backward cancels where a channel's
+    mean outweighs its spread, differently in the kernels' x̂ form and in
     autograd of E[x²] − mean²; the plain f32 autograd's own error against
     it is printed), routed by the kernels' argmax (a near-tie may pick
     another slot in f32 sums of another order, which moves a whole
@@ -2201,11 +2412,9 @@ def bn_train_kernels(report, model, target, label):
     takes the other sign of the f64 one; one such layer-1 mask flip at a
     slot the pooled gradient reaches moves dW1 by some 0.5% of its largest
     value, and a 128-row sample holds a few); and through autograd equal to
-    its passes composed directly, to the bit. Library: torch.var_mean for
-    the depth-0 statistics (one call on the same input), none for the other
-    passes, and, printed for the level, the cuBLAS chain with
-    batch-statistics BatchNorm (F.batch_norm) under autograd, forward and
-    backward. -> {level: that chain's ms}."""
+    its passes composed directly, to the bit. Library, printed for the
+    level: the cuBLAS chain with batch-statistics BatchNorm (F.batch_norm)
+    under autograd, forward and backward. -> {level: that chain's ms}."""
     import torch
     import torch.nn.functional as F
 
@@ -2221,181 +2430,13 @@ def bn_train_kernels(report, model, target, label):
     for k, x0, mlp in levels:
         where = f"{label}, RCNN SA_{k}"
         R, M, S, c1 = x0.shape
-        n = R * M * S
         w1 = mlp.dense_1.weight.detach().T.contiguous()
         w2 = mlp.dense_2.weight.detach().T.contiguous()
-        c2, c3 = w1.shape[1], w2.shape[1]
+        c3 = w2.shape[1]
         bns = [getattr(mlp, f"bn_{i}") for i in range(3)]
         gammas = [bn.scale.detach() for bn in bns]
         betas = [bn.bias.detach() for bn in bns]
-        widths = (c1, c2, c3)
-        layers = [x0.new_zeros(7, c) for c in widths]
-        wbytes = 4 * (w1.numel() + w2.numel() + 7 * sum(widths))
-        slab = 4 * x0.numel()
-        l1, l2 = 2 * c1 * c2, 2 * c2 * c3  # one slot's layer products
-        rows = {}
-
-        def add(name, err, ms, pms, lms, nbytes, ops, what):
-            b_ms, b_by = bound_ms(nbytes, ops)
-            report.add(name, err, ms, pms, lms, nbytes, ops)
-            print(f"{name} {where} R={R} M={M} S={S} C={c1}->{c2}->{c3}: "
-                  f"{ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), plain "
-                  f"{pms:.3f} ms, library "
-                  f"{'none' if lms is None else f'{lms:.3f} ms'}, {what}, "
-                  f"{ops / ms / 1e9:.1f} TFLOP/s, "
-                  f"{nbytes / ms / 1e9:.1f} GB/s")
-
-        with torch.no_grad():
-            # the forward passes, each fed the plain pieces' own slabs and
-            # statistics: stats0 of x0, stats1 writing x1 from x0, stats2
-            # writing x2 from x1, the final reduction over x2
-            means, vars_, slabs = [], [], [x0]
-            for depth in range(3):
-                name = fs.STATS_KERNELS[depth]
-                args = ((x0,) if depth == 0 else
-                        (slabs[-1], layers[depth - 1][fs.MUL].contiguous(),
-                         layers[depth - 1][fs.ADD].contiguous(),
-                         (w1, w2)[depth - 1]))
-                got = fs.fused_sa_bn_stats(depth, *args)
-                want = fs.fused_sa_bn_stats_plain(depth, *args)
-                yerr = 0.0
-                if depth:
-                    (got, y), (want, wy) = got, want
-                    yerr = (y - wy).abs().max().item()
-                    ysc = wy.abs().max().item()
-                    check(yerr <= 1e-4 * ysc, f"{name} x{depth} differs by "
-                          f"{yerr} (max |value| {ysc}) at {where}")
-                    slabs.append(wy)
-                    del y
-                torch.cuda.synchronize()
-                q_err = ((got[1] - want[1]).abs() / want[1]).max().item()
-                s_err = ((got[0] - want[0]).abs()
-                         / (n * want[1]).sqrt()).max().item()
-                check(q_err <= 1e-5 and s_err <= 1e-5,
-                      f"{name} differs at {where}: Σx² by {q_err} relative, "
-                      f"Σx by {s_err} of √(n·Σx²)")
-                mean, var = fs._mean_var(got, n, x0.dtype)
-                pmean, pvar = fs._mean_var(want, n, x0.dtype)
-                err = max((mean - pmean).abs().max().item(),
-                          (var - pvar).abs().max().item(), yerr)
-                ms = cuda_ms(lambda: fs.fused_sa_bn_stats(depth, *args), 5)
-                pms = cuda_ms(lambda: fs.fused_sa_bn_stats_plain(
-                    depth, *args), 2)
-                lms = (cuda_ms(lambda: torch.var_mean(
-                    x0, dim=(0, 1, 2), correction=0), 3) if depth == 0
-                    else None)
-                # per slot: depth 0 a sum and a sum of squares of C1
-                # values; depth 1 / 2 the affine and ReLU of the layer
-                # before, its product, and the sums of the C_depth outputs;
-                # read the slab before, write x_depth
-                cin = widths[max(depth - 1, 0)]
-                ops = n * ((0, l1, l2)[depth] + 3 * widths[depth]
-                           + (3 * cin if depth else 0))
-                nbytes = 4 * n * (cin + (widths[depth] if depth else 0))
-                add(name, err, ms, pms, lms, nbytes + wbytes
-                    + 16 * widths[depth], ops,
-                    f"mean/var/x{depth} max_abs_err {err:.3e}, Σx² "
-                    f"{q_err:.2e} relative, Σx {s_err:.2e} of √(n·Σx²)")
-                means.append(mean)
-                vars_.append(var)
-                layers[depth] = fs._layer_pack(mean, var, gammas[depth],
-                                               betas[depth], eps, n)
-                del got, want
-            x1, x2 = slabs[1], slabs[2]
-            m2, a2 = (layers[2][fs.MUL].contiguous(),
-                      layers[2][fs.ADD].contiguous())
-            out, arg, at = fs.fused_sa_bn_final(x2, m2, a2)
-            r_out, r_arg, r_at = fs.fused_sa_bn_final_plain(x2, m2, a2)
-            torch.cuda.synchronize()
-            # a reduction over the same stored x2, rounded as the plain
-            # piece rounds it: equal to the bit
-            check(torch.equal(out, r_out) and torch.equal(arg, r_arg)
-                  and torch.equal(at, r_at), f"fused_sa_bn_final differs "
-                  f"from its plain piece at {where}")
-            ms = cuda_ms(lambda: fs.fused_sa_bn_final(x2, m2, a2), 5)
-            pms = cuda_ms(lambda: fs.fused_sa_bn_final_plain(x2, m2, a2), 2)
-            add("fused_sa_bn_final", 0.0, ms, pms, None,
-                4 * n * c3 + 8 * c3 + 12 * R * M * c3, n * (3 * c3 + 1),
-                "out, argmax and x2 there equal to the plain piece's")
-
-            grad = torch.randn(out.shape, generator=gen).to(out.device)
-            d_y2 = torch.where(out > 0, grad, 0.0)
-            r2 = layers[2][fs.R_INV]
-            layers[2] = fs._layer_pack(
-                means[2], vars_[2], gammas[2], betas[2], eps, n,
-                d_y2.sum(dim=(0, 1)),
-                (d_y2 * (at * r2 - means[2] * r2)).sum(dim=(0, 1)))
-            dval = (d_y2 * layers[2][fs.MUL]).contiguous()
-            # every wave reads the same stored x1 and x2 on both sides and
-            # rounds its elementwise forms as the plain pieces do, so no
-            # ReLU mask flips between them and no noise floor is needed
-            pk = fs._pack(layers)
-            wave_cases = []
-            got = fs.fused_sa_bn_wave1(x2, x1, pk, w2, dval, arg)
-            want = fs.fused_sa_bn_wave1_plain(x2, x1, pk, w2, dval, arg)
-            wave_cases.append(("fused_sa_bn_wave1", got, want,
-                               ("sums", "dW2", "d_y1"), (
-                                   lambda pk=pk: fs.fused_sa_bn_wave1(
-                                       x2, x1, pk, w2, dval, arg),
-                                   lambda pk=pk: fs.fused_sa_bn_wave1_plain(
-                                       x2, x1, pk, w2, dval, arg))))
-            d_y1 = want[2]
-            d_beta, d_gamma = want[0].to(x0.dtype)
-            layers[1] = fs._layer_pack(means[1], vars_[1], gammas[1],
-                                       betas[1], eps, n, d_beta, d_gamma)
-            pk = fs._pack(layers)
-            got = fs.fused_sa_bn_wave2(d_y1, x1, x0, pk, w1)
-            want = fs.fused_sa_bn_wave2_plain(d_y1, x1, x0, pk, w1)
-            wave_cases.append(("fused_sa_bn_wave2", got, want,
-                               ("sums", "dW1", "d_y0"), (
-                                   lambda pk=pk: fs.fused_sa_bn_wave2(
-                                       d_y1, x1, x0, pk, w1),
-                                   lambda pk=pk: fs.fused_sa_bn_wave2_plain(
-                                       d_y1, x1, x0, pk, w1))))
-            d_y0 = want[2]
-            d_beta, d_gamma = want[0].to(x0.dtype)
-            layers[0] = fs._layer_pack(means[0], vars_[0], gammas[0],
-                                       betas[0], eps, n, d_beta, d_gamma)
-            pk = fs._pack(layers)
-            got = (fs.fused_sa_bn_apply(d_y0.clone(), x0, pk),)
-            want = (fs.fused_sa_bn_apply_plain(d_y0, x0, pk),)
-            scratch = torch.empty_like(d_y0)
-            wave_cases.append(("fused_sa_bn_apply", got, want, ("d_x0",), (
-                lambda pk=pk: fs.fused_sa_bn_apply(scratch, x0, pk),
-                lambda pk=pk: fs.fused_sa_bn_apply_plain(d_y0, x0, pk))))
-            torch.cuda.synchronize()
-            # per slot: wave 1 two products of layer 2 (d_y1 and dW2) and
-            # the elementwise d_x2, mask, x̂1 and sums; wave 2 two of layer
-            # 1; apply the elementwise d_x0. Each input slab read once,
-            # each output slab written once
-            ops = {"fused_sa_bn_wave1": n * (2 * l2 + 6 * c3 + 8 * c2),
-                   "fused_sa_bn_wave2": n * (2 * l1 + 6 * c2 + 8 * c1),
-                   "fused_sa_bn_apply": n * 6 * c1}
-            nbytes = {"fused_sa_bn_wave1": 4 * n * (c3 + 2 * c2)
-                      + 8 * R * M * c3 + 4 * c2 * c3 + 16 * c2,
-                      "fused_sa_bn_wave2": 4 * n * (2 * c2 + 2 * c1)
-                      + 4 * c1 * c2 + 16 * c1,
-                      "fused_sa_bn_apply": 4 * n * 3 * c1}
-            for name, got, want, parts, (kernel, plain) in wave_cases:
-                errs, worst = [], 0.0
-                for part, a, b in zip(parts, got, want):
-                    e = (a - b).abs().max().item()
-                    sc = b.abs().max().item()
-                    # the reductions and weight gradients sum n products
-                    # in f32 in another order (8.4 M at SA_0: dW2 1.4e-4 of
-                    # its largest value on the card): 1e-3; the slabs 1e-4
-                    tol = 1e-3 if part in ("sums", "dW1", "dW2") else 1e-4
-                    check(e <= tol * sc, f"{name} {part} differs by {e} "
-                          f"(max |value| {sc}) at {where}")
-                    errs.append(f"{part} {e:.3e} of {sc:.3e}")
-                    worst = max(worst, e)
-                ms = cuda_ms(kernel, 3)
-                pms = cuda_ms(plain, 2)
-                add(name, worst, ms, pms, None, nbytes[name] + wbytes,
-                    ops[name], "max_abs_err " + ", ".join(errs))
-            del wave_cases, got, want, scratch, d_y0, d_y1, slabs, x1, x2
-            del out, arg, at, r_out, r_arg, r_at, dval
-            torch.cuda.empty_cache()
+        bn_pass_rows(report, where, x0, w1, w2, gammas, betas, eps, gen)
 
         # the whole op through its seven kernels, on the first
         # BN_CHECK_ROWS rows: against the training forward and backward
@@ -4762,6 +4803,35 @@ TRAIN_FORM_PATHS = {"fused_sa_train_bf16": "default.yaml train B=16",
                     "group_points_bwd_bf16": "default.yaml train B=16",
                     "fused_sa_slab_train_bf16": QUICK_PATH["train"],
                     "fused_sa_slab_bwd_bf16": QUICK_PATH["train"]}
+# kernel 9's training form on bf16 slabs, pass for pass: the seven f32
+# passes' bf16 entries, in fused_sa_bn.cu beside them, timed and labelled at
+# the BatchNorm RCNN's train step
+BN_BF16_FORMS = tuple(f"{k}_bf16" for k in BN_TRAIN_KERNELS)
+BF16_TRAIN_OF.update(zip(BN_TRAIN_KERNELS, BN_BF16_FORMS))
+TRAIN_FORM_PATHS.update({k: BN_TRAIN_PATH for k in BN_BF16_FORMS})
+# (f)'s bounds for kernel 9's bf16 form. Each entry against its plain
+# piece on the same inputs (``bn_pass_rows``): its bf16 slabs (x1, x2,
+# d_x0) within one bf16 step of each value and off at all in at most
+# BN_SLAB_FLIP_BOUND of the values (exact products, f32 sums in another
+# order: a sum at a rounding boundary takes the other neighbour), its f32
+# slabs (d_y1, d_y0) within 1e-4 of the largest value and its reductions
+# and weight gradients within 1e-3 (f32 sums of n exact products in
+# another order), the statistics passes' sums as the f32 form's, the final
+# pass equal to the bit. The whole op on BN_CHECK_ROWS rows against
+# autograd of the repaired plain form, which folds each layer into x·mul +
+# add as tpu3d's kernels and these do: the output off in at most
+# ARGMAX_FLIP_BOUND of the values and beyond one bf16 step of each value's
+# own in at most BN_SLAB_FLIP_BOUND (an x2 rounded to the other neighbour
+# moves its pre-activation by mul times x2's step, which near 0 is many of
+# the output's own steps), the argmax off in at most ARGMAX_FLIP_BOUND of
+# the channels and d_x0 beyond BF16_FORM_BOUND of its largest value in at
+# most that share of the slots (such an x2 may move an argmax, and with it
+# a channel's gradient), the statistics within 1e-4 of each one's largest
+# value (both sum in f64, but such an x2 moves layer 2's variance by its
+# step times 2·|x2| over the slots: var2 1.05e-5 at SA_0), and the other
+# gradients within BN_OP_GRAD_BOUND of theirs
+BN_SLAB_FLIP_BOUND = 1e-3
+BN_OP_GRAD_BOUND = 2.0 ** -6
 # the bf16 training forms' sources and the TPU kernels they compute as they
 # round (group_points_bwd_bf16: no TPU kernel, the fixed-order sum of
 # tpu3d's gather_mxu_bwd / onehot_bf16 VJPs)
@@ -4777,7 +4847,9 @@ BF16_SOURCES.update({
     "three_interpolate_bwd_bf16": ("tpu3d_torch/csrc/three_interpolate_bwd.cu",
                                    "tpu3d/ops/interpolate.py:276"),
     "group_points_bwd_bf16": ("tpu3d_torch/csrc/group_points_bwd.cu",
-                              "tpu3d/ops/grouping.py:559")})
+                              "tpu3d/ops/grouping.py:559"),
+    **{f"{k}_bf16": ("tpu3d_torch/csrc/fused_sa_bn.cu", SOURCES[k][1])
+       for k in BN_TRAIN_KERNELS}})
 
 
 @contextlib.contextmanager
@@ -4809,8 +4881,9 @@ def f32_training():
 
 def record_train_calls():
     """The arguments of the calls a bf16 train step makes to the fused
-    forms, the interpolation and the gathers whose backward takes the bf16
-    form, by the training form they launch."""
+    forms (kernel 9's under ``fused_sa_bn_train_bf16``), the interpolation
+    and the gathers whose backward takes the bf16 form, by the training
+    form they launch."""
     import torch
 
     def keep(attr, args):
@@ -4821,6 +4894,7 @@ def record_train_calls():
     return record_calls(
         {"fused_gathered_mlp_pool_bf16": "fused_sa_train_bf16",
          "fused_mlp_pool_bf16": "fused_sa_slab_train_bf16",
+         "fused_bn_mlp_pool_bf16_train": "fused_sa_bn_train_bf16",
          "three_interpolate_bf16": "three_interpolate_bwd_bf16",
          "group_points": "group_points_bwd_bf16"}, keep)
 
@@ -5103,6 +5177,328 @@ def _one_step(cfg, model, weights, batch, record=False):
             calls, step.precision)
 
 
+def _snapshot_step(cfg, model, weights, batch):
+    """One train step from ``weights`` with the step's generator seeded
+    from SEED, counts set to 0 just before it and read just after ->
+    (metrics, every gradient, parameter, statistic and Adam moment after
+    it, launches)."""
+    import torch
+
+    from tpu3d_torch.ops import _build
+    from tpu3d_torch.parallel import create_train_state, make_train_step
+
+    dev = torch.device(DEVICE)
+    model.load_state_dict(weights)
+    state = create_train_state(cfg, model, 100, 10)
+    step = make_train_step(cfg, model)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    tb = step(state, batch, torch.Generator(device=dev).manual_seed(SEED),
+              0.9)
+    torch.cuda.synchronize()
+    launches = _launched()
+    snap = {**{f"grad:{n}": p.grad.clone() for n, p in
+               model.named_parameters() if p.grad is not None},
+            **{k: v.clone() for k, v in model.state_dict().items()},
+            **{f"{key}:{i}": state.optimizer.opt.state[q][key].clone()
+               for i, q in enumerate(state.optimizer.params)
+               for key in ("exp_avg", "exp_avg_sq")}}
+    return {k: float(v) for k, v in tb.items()}, snap, launches
+
+
+def _turns(runs, batch, reps=3) -> tuple[dict, dict]:
+    """ms per step (host clock, median of ``reps`` after a warm-up) of each
+    (key, cfg, model, weights) in ``runs``, in that order, and the peak
+    device memory of each key's timed steps (after the warm-up; the larger
+    of a key's turns) -> ({key: [ms, ...]}, {key: GiB})."""
+    import torch
+
+    from tpu3d_torch.parallel import create_train_state, make_train_step
+
+    turns, peaks = {}, {}
+    for key, c, model, weights in runs:
+        model.load_state_dict(weights)
+        state = create_train_state(c, model, 100, 10)
+        step = make_train_step(c, model)
+        g = torch.Generator(device=DEVICE).manual_seed(SEED)
+        step(state, batch, g, 0.9)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        turns.setdefault(key, []).append(
+            wall_ms(lambda: step(state, batch, g, 0.9), reps))
+        peaks[key] = max(peaks.get(key, 0.0),
+                         torch.cuda.max_memory_allocated() / 2 ** 30)
+    return turns, peaks
+
+
+def bn_bf16_form_rows(report, calls, gen) -> dict:
+    """Kernel 9's bf16 training form at the calls of the BatchNorm
+    RCNN's train step (RCNN SA_0 and SA_1): each of its seven entries
+    against its plain piece (``bn_pass_rows``); then the whole op through its
+    autograd Function on the first BN_CHECK_ROWS rows, equal to its passes
+    composed directly and to a second call to the bit, and against autograd
+    of the repaired plain form (``fused_bn_mlp_pool_bf16_train_plain``);
+    then the bf16 cuBLAS chain with batch-statistics BatchNorm
+    (F.batch_norm) under autograd, forward and backward (the bounds:
+    BN_SLAB_FLIP_BOUND's comment) -> {level: that chain's ms}."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpu3d_torch.ops import fused_sa as fs
+
+    bf16 = torch.bfloat16
+    library = {}
+    for k, args in enumerate(calls):
+        x0, w1, w2 = (t.detach() for t in args[:3])
+        gammas = [t.detach() for t in args[3]]
+        betas = [t.detach() for t in args[4]]
+        eps = args[5]
+        R, M, S, c1 = x0.shape
+        c3 = w2.shape[1]
+        where = f"{BN_TRAIN_PATH}, RCNN SA_{k}"
+        check(x0.dtype == bf16, f"{where}: x0 is {x0.dtype}")
+        bn_pass_rows(report, where, x0, w1, w2, gammas, betas, eps, gen)
+
+        # the whole op through its autograd Function on the first
+        # BN_CHECK_ROWS rows: equal to a second call and to its passes
+        # composed directly, to the bit; against the repaired plain form
+        sub = x0[:BN_CHECK_ROWS].contiguous()
+        g = torch.randn(sub.shape[0], M, c3, generator=gen).to(
+            sub.device).to(bf16)
+
+        def run(op):
+            leaves = [t.detach().clone().requires_grad_() for t in
+                      (sub, w1, w2, *gammas, *betas)]
+            o, (ms_, vs_) = op(leaves[0], leaves[1], leaves[2], leaves[3:6],
+                               leaves[6:9], eps)
+            return (o.detach(), *ms_, *vs_,
+                    *torch.autograd.grad(o, leaves, g))
+
+        ours = run(fs.fused_bn_mlp_pool_bf16_train)
+        check(all(torch.equal(a, b) for a, b in
+                  zip(ours, run(fs.fused_bn_mlp_pool_bf16_train))),
+              f"two calls of the bf16 training op differ at {where}")
+        with torch.no_grad():
+            d_o, d_arg, d_at, d_ms, d_vs, saved = fs.fused_bn_mlp_pool_train(
+                sub, w1, w2, gammas, betas, eps)
+            d_g = fs.fused_bn_mlp_pool_backward(
+                sub, w1, w2, gammas, betas, d_ms, d_vs, d_o, d_arg, d_at,
+                saved, g, eps)
+            del saved
+        direct = (d_o, *d_ms, *d_vs, d_g[0], d_g[1], d_g[2], *d_g[3],
+                  *d_g[4])
+        check(all(torch.equal(a, b) for a, b in zip(ours, direct)),
+              f"the bf16 training op through autograd differs from its "
+              f"passes composed directly at {where}")
+        want = run(fs.fused_bn_mlp_pool_bf16_train_plain)
+        with torch.no_grad():
+            a2p, _ = fs.bn_bf16_chain(sub, w1, w2, gammas, betas, eps)
+            p_arg = fs._first_max(a2p)[1]
+            del a2p
+        names = ("out", "mean0", "mean1", "mean2", "var0", "var1", "var2",
+                 "d_x0", "d_w1", "d_w2", "d_gamma0", "d_gamma1", "d_gamma2",
+                 "d_beta0", "d_beta1", "d_beta2")
+        rel = {}
+        for part, a, b in zip(names, ours, want):
+            check(a.dtype == b.dtype, f"{part}: {a.dtype}, plain {b.dtype}")
+            rel[part] = ((a.float() - b.float()).abs().max()
+                         / b.float().abs().max()).item()
+        # the output in bf16 steps of each value's own magnitude
+        steps = bf16_steps(ours[0], want[0])
+        beyond = (steps > 1).float().mean().item()
+        off = (steps > 0).float().mean().item()
+        steps = steps.max().item()
+        flips = (d_arg != p_arg).float().mean().item()
+        d = (ours[7].float() - want[7].float()).abs()
+        slots = (d > BF16_FORM_BOUND * want[7].float().abs().max()).any(
+            dim=-1).float().mean().item()
+        print(f"kernel 9's bf16 training op on the first {BN_CHECK_ROWS} "
+              f"rows at {where}: through autograd equal to a second call "
+              f"and to its passes composed directly; against autograd of "
+              f"the repaired plain form: out off in {off:.2e} of the "
+              f"values, beyond one bf16 step of its own in {beyond:.2e}, "
+              f"{steps:.2f} of its own steps at most; argmax off in "
+              f"{flips:.2e} of the channels; d_x0 beyond {BF16_FORM_BOUND} "
+              f"of its largest value in {slots:.2e} of the slots; largest "
+              f"error / largest value " + ", ".join(
+                  f"{p} {r:.2e}" for p, r in rel.items()))
+        check(beyond <= BN_SLAB_FLIP_BOUND and off <= ARGMAX_FLIP_BOUND
+              and flips <= ARGMAX_FLIP_BOUND and slots <= ARGMAX_FLIP_BOUND,
+              f"the bf16 training op against the plain form at {where}: "
+              f"out beyond one step in {beyond}, off in {off}, argmax "
+              f"{flips}, d_x0 slots {slots}")
+        for part, r in rel.items():
+            if part[:1] in "mv":
+                check(r <= 1e-4, f"{part} differs by {r:.3e} at {where}")
+            elif part not in ("out", "d_x0"):
+                check(r <= BN_OP_GRAD_BOUND, f"{part} differs by {r:.3e} of "
+                      f"its largest value at {where}")
+        del ours, direct, want, d_g, sub
+        torch.cuda.empty_cache()
+
+        def library_train():  # bf16 cuBLAS with batch-statistics BatchNorm
+            ls = [t.detach().requires_grad_() for t in
+                  (x0, w1, w2, *gammas, *betas)]
+            x = ls[0].view(-1, c1)
+            for i, w in enumerate((ls[1], ls[2], None)):
+                x = torch.relu(F.batch_norm(x, None, None, ls[3 + i],
+                                            ls[6 + i], training=True,
+                                            eps=eps))
+                if w is not None:
+                    x = F.linear(x, w.T.to(bf16))
+            o = x.view(R, M, S, c3).amax(2)
+            torch.autograd.grad(o, ls, grad_all)
+
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
+        grad_all = torch.randn(R, M, c3, generator=gen).to(x0.device).to(bf16)
+        library[f"RCNN SA_{k}"] = cuda_ms(library_train, 2)
+        print(f"bf16 cuBLAS chain with batch-statistics BatchNorm under "
+              f"autograd, forward and backward, at {where}: "
+              f"{library[f'RCNN SA_{k}']:.3f} ms")
+        torch.cuda.empty_cache()
+    return library
+
+
+def bn_rcnn_bf16(cfg, batch, card, report, gen) -> dict:
+    """Phase 19 (f), the BatchNorm RCNN: default.yaml with
+    RCNN.USE_BN at B=16, one joint train step under the card's default
+    training contract and one under the f32 contract from the same weights,
+    batch and draws (each f32 launch of kernel 9's training form taken over
+    by its bf16 form one for one, the losses within RPN_LOSS_BOUND and
+    TRAIN_LOSS_BOUND of the f32 step's); two default-contract steps from
+    one state equal to the bit; ms/step in turns (f32, default, default,
+    f32) and the peak memory of both; then kernel 9's bf16 form at the
+    calls the step made (``bn_bf16_form_rows``) -> the figures."""
+    import torch
+
+    from tpu3d_torch.config import cfg_from_list
+    from tpu3d_torch.models import PointRCNN
+
+    dev = torch.device(DEVICE)
+    bcfg = copy.deepcopy(cfg)
+    bcfg.RCNN.USE_BN = True
+    f32cfg = cfg_from_list(F32_TRAIN_SETS, copy.deepcopy(bcfg))
+    model = PointRCNN(bcfg, mode="TRAIN", device=dev)
+    weights = train_weights(model, SEED)
+    f32 = _one_step(f32cfg, model, weights, batch)
+    bf = _one_step(bcfg, model, weights, batch, record=True)
+    # the recorded slabs, and copies of the weights they met (the steps
+    # below update the live ones)
+    calls = [(a[0], *(t.clone() for t in a[1:3]),
+              [t.detach().clone() for t in a[3]],
+              [t.detach().clone() for t in a[4]], a[5])
+             for a in bf[3].get("fused_sa_bn_train_bf16", [])]
+    label = BN_TRAIN_PATH
+    check(all(f32[1].get(k) == 2 for k in BN_TRAIN_KERNELS),
+          f"{label}: the f32 step launched {f32[1]}, expected each of "
+          f"kernel 9's training passes twice")
+    total, n_bf16 = bf16_gathers(bcfg)
+    want = {BF16_TRAIN_OF.get(k, k): v for k, v in f32[1].items()
+            if k != "group_points_bwd"}
+    if total - n_bf16:
+        want["group_points_bwd"] = total - n_bf16
+    if n_bf16:
+        want["group_points_bwd_bf16"] = n_bf16
+    check(bf[1] == want, f"{label}: the default contract's step launched "
+          f"{bf[1]}, expected {want}")
+    for key, bound in (("rpn_loss", RPN_LOSS_BOUND),
+                       ("loss", TRAIN_LOSS_BOUND)):
+        a, b = bf[0][key], f32[0][key]
+        check(math.isfinite(a) and abs(a - b) <= bound * abs(b),
+              f"{label}: {key} {a} under the default contract, {b} under "
+              f"f32 (bound {bound} of it)")
+    check(len(calls) == 2, f"{label}: {len(calls)} calls of kernel 9's bf16 "
+          f"training form recorded, expected RCNN SA_0 and SA_1")
+    row = {"launches": bf[1], "f32_launches": f32[1],
+           "loss": bf[0]["loss"], "f32_loss": f32[0]["loss"],
+           "rpn_loss": bf[0]["rpn_loss"], "f32_rpn_loss": f32[0]["rpn_loss"],
+           "rcnn_loss": bf[0]["rcnn_loss"],
+           "f32_rcnn_loss": f32[0]["rcnn_loss"],
+           "grad_norms": bf[2], "f32_grad_norms": f32[2],
+           "precision": str(bf[4])}
+    print(f"{label} ({card}): default contract loss {bf[0]['loss']:.5f} (rpn "
+          f"{bf[0]['rpn_loss']:.5f}, rcnn {bf[0]['rcnn_loss']:.5f}), f32 "
+          f"{f32[0]['loss']:.5f} (rpn {f32[0]['rpn_loss']:.5f}, rcnn "
+          f"{f32[0]['rcnn_loss']:.5f}); gradient norms {bf[2]} (f32 "
+          f"{f32[2]}); launches {bf[1]} (f32 {f32[1]})")
+    del f32, bf
+    snaps = [_snapshot_step(bcfg, model, weights, batch)[1] for _ in range(2)]
+    unequal = _unequal(*snaps)
+    check(not unequal, f"{label}: two default-contract steps from one state "
+          f"differ in {len(unequal)} tensors: {unequal[:4]}")
+    row["repeat"] = {"tensors": len(snaps[0]), "unequal": unequal}
+    print(f"{label}: two default-contract steps from one state equal to the "
+          f"bit in all {len(snaps[0])} gradients, parameters, moments and "
+          f"statistics")
+    del snaps
+    turns, peaks = _turns([(key, f32cfg if key == "f32" else bcfg, model,
+                            weights) for key in ("f32", "bf16", "bf16",
+                                                 "f32")], batch)
+    row.update(ms_turns=turns["bf16"], f32_ms_turns=turns["f32"],
+               peak_gib=peaks["bf16"], f32_peak_gib=peaks["f32"])
+    print(f"{label} ({card}): ms/step in turns f32 {turns['f32'][0]:.1f}, "
+          f"default {turns['bf16'][0]:.1f}, default {turns['bf16'][1]:.1f}, "
+          f"f32 {turns['f32'][1]:.1f}; peak {peaks['bf16']:.2f} GiB (f32 "
+          f"{peaks['f32']:.2f})")
+    del model, weights
+    torch.cuda.empty_cache()
+    row["library_chain_ms"] = bn_bf16_form_rows(report, calls, gen)
+    return row
+
+
+def remat_steps(cfg, f32cfg, model, weights, batch, card) -> dict:
+    """Phase 19 (g): default.yaml at B=16 with and without TRAIN.REMAT
+    under both training contracts, from the same weights, batch and draws:
+    loss, every gradient, parameter, running statistic and Adam moment
+    equal to the bit between the two; every kernel the step without the
+    key launches, launched as often or more with it (the recomputed
+    backbone); ms/step in turns (without, with, with, without) and the
+    peak memory of each -> the figures."""
+    import torch
+
+    from tpu3d_torch.models import PointRCNN
+
+    figures = {}
+    for contract, c in (("default", cfg), ("f32", f32cfg)):
+        rc = copy.deepcopy(c)
+        rc.TRAIN.REMAT = True
+        rmodel = PointRCNN(rc, mode="TRAIN", device=torch.device(DEVICE))
+        check(rmodel.rpn.remat and not model.rpn.remat,
+              "TRAIN.REMAT not read by the RPN")
+        tb, plain, launches = _snapshot_step(c, model, weights, batch)
+        rtb, remat, rlaunches = _snapshot_step(rc, rmodel, weights, batch)
+        unequal = _unequal(plain, remat)
+        check(not unequal and tb["loss"] == rtb["loss"],
+              f"TRAIN.REMAT under the {contract} contract: loss {rtb['loss']}"
+              f" against {tb['loss']}, {len(unequal)} tensors differ: "
+              f"{unequal[:4]}")
+        check(all(rlaunches.get(k, 0) >= v for k, v in launches.items()),
+              f"TRAIN.REMAT under the {contract} contract launched "
+              f"{rlaunches}, without it {launches}")
+        del plain, remat
+        turns, peaks = _turns([(key, rc if key == "remat" else c,
+                                rmodel if key == "remat" else model, weights)
+                               for key in ("plain", "remat", "remat",
+                                           "plain")], batch)
+        figures[contract] = {
+            "loss": tb["loss"],
+            "launches": launches, "remat_launches": rlaunches,
+            "ms_turns": turns["plain"], "remat_ms_turns": turns["remat"],
+            "peak_gib": peaks["plain"], "remat_peak_gib": peaks["remat"]}
+        print(f"default.yaml train B={TRAIN_BATCH} with and without "
+              f"TRAIN.REMAT under the {contract} training contract ({card}): "
+              f"loss, gradients, parameters, statistics and moments equal to "
+              f"the bit; ms/step in turns without {turns['plain'][0]:.1f}, "
+              f"with {turns['remat'][0]:.1f}, with {turns['remat'][1]:.1f}, "
+              f"without {turns['plain'][1]:.1f}; peak {peaks['plain']:.2f} "
+              f"GiB without, {peaks['remat']:.2f} with; launches with "
+              f"{rlaunches} (without {launches})")
+        del rmodel
+        torch.cuda.empty_cache()
+    return figures
+
+
 def train_numerics(card: str) -> tuple[Report, Report, dict]:
     """Phase 19 (the module docstring says what it holds) -> (the bf16
     training forms' report, the slab forms' at smoke.yaml's SA_1, the
@@ -5183,25 +5579,9 @@ def train_numerics(card: str) -> tuple[Report, Report, dict]:
             # (c) a second step from the same weights and draws, equal to
             # the first to the bit in every gradient, parameter, moment and
             # statistic
-            snaps = []
-            for _ in range(2):
-                model.load_state_dict(weights)
-                state = create_train_state(cfg, model, 100, 10)
-                make_train_step(cfg, model)(
-                    state, batch, torch.Generator(device=dev).manual_seed(
-                        SEED), 0.9)
-                torch.cuda.synchronize()
-                snaps.append({**{f"grad:{n}": p.grad.clone() for n, p in
-                                 model.named_parameters()
-                                 if p.grad is not None},
-                              **{k: v.clone() for k, v in
-                                 model.state_dict().items()},
-                              **{f"{key}:{i}": opt.opt.state[q][key].clone()
-                                 for opt in (state.optimizer,)
-                                 for i, q in enumerate(opt.params)
-                                 for key in ("exp_avg", "exp_avg_sq")}})
-            unequal = [k for k in snaps[0]
-                       if not torch.equal(snaps[0][k], snaps[1][k])]
+            snaps = [_snapshot_step(cfg, model, weights, batch)[1]
+                     for _ in range(2)]
+            unequal = _unequal(*snaps)
             check(not unequal, f"two default-contract steps from one state "
                   f"differ in {len(unequal)} tensors: {unequal[:4]}")
             row["repeat"] = {"tensors": len(snaps[0]), "unequal": unequal}
@@ -5210,20 +5590,9 @@ def train_numerics(card: str) -> tuple[Report, Report, dict]:
                   f" moments and statistics")
             del snaps
             # (d) ms per step of both contracts in turns, with peak memory
-            turns = {"f32": [], "bf16": []}
-            peaks = {}
-            for key in ("f32", "bf16", "bf16", "f32"):
-                c = f32cfg if key == "f32" else cfg
-                model.load_state_dict(weights)
-                state = create_train_state(c, model, 100, 10)
-                step = make_train_step(c, model)
-                g = torch.Generator(device=dev).manual_seed(SEED)
-                step(state, batch, g, 0.9)  # warm-up
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                turns[key].append(wall_ms(lambda: step(state, batch, g, 0.9),
-                                          3))
-                peaks[key] = torch.cuda.max_memory_allocated() / 2 ** 30
+            turns, peaks = _turns([(key, f32cfg if key == "f32" else cfg,
+                                    model, weights) for key in
+                                   ("f32", "bf16", "bf16", "f32")], batch)
             row.update(ms_turns=turns["bf16"], f32_ms_turns=turns["f32"],
                        peak_gib=peaks["bf16"], f32_peak_gib=peaks["f32"])
             print(f"{label} ({card}): ms/step in turns f32 "
@@ -5231,35 +5600,13 @@ def train_numerics(card: str) -> tuple[Report, Report, dict]:
                   f"default {turns['bf16'][1]:.1f}, f32 {turns['f32'][1]:.1f};"
                   f" peak {peaks['bf16']:.2f} GiB (f32 {peaks['f32']:.2f})")
             train_ms = statistics.median(turns["bf16"])
-            # (f) the BatchNorm RCNN and TRAIN.REMAT under the card's
-            # default training contract raise their named errors
-            bcfg = copy.deepcopy(cfg)
-            bcfg.RCNN.USE_BN = True
-            bmodel = PointRCNN(bcfg, mode="TRAIN", device=dev)
-            bmodel.load_state_dict(train_weights(bmodel, SEED))
-            bstate = create_train_state(bcfg, bmodel, 100, 10)
-            raised = {}
-            try:
-                make_train_step(bcfg, bmodel)(
-                    bstate, batch, torch.Generator(device=dev).manual_seed(
-                        SEED), 0.9)
-            except NotImplementedError as e:
-                raised["bn"] = str(e)
-            check("kernel 9's bf16 training form" in raised.get("bn", ""),
-                  f"the BatchNorm RCNN's bf16 train step: {raised}")
-            rcfg = copy.deepcopy(cfg)
-            rcfg.TRAIN.REMAT = True
-            try:
-                make_train_step(rcfg, model)
-            except NotImplementedError as e:
-                raised["remat"] = str(e)
-            check("TRAIN.REMAT" in raised.get("remat", ""),
-                  f"TRAIN.REMAT under the default training contract: "
-                  f"{raised}")
-            row["raised"] = raised
-            print(f"BatchNorm RCNN and TRAIN.REMAT under the default training "
-                  f"contract raise: {raised}")
-            del bmodel, bstate
+            # (f) the BatchNorm RCNN under the default training contract,
+            # with kernel 9's bf16 form at its calls; (g) TRAIN.REMAT under
+            # both contracts
+            figures["configs"][BN_TRAIN_PATH] = bn_rcnn_bf16(
+                cfg, batch, card, report, gen)
+            figures["remat"] = remat_steps(cfg, f32cfg, model, weights,
+                                           batch, card)
         figures["configs"][label] = row
         del model, weights, batch, f32, bf
         torch.cuda.empty_cache()

@@ -19,6 +19,7 @@ import torch.distributed as dist
 
 from tpu3d_torch.entry import _tiny_cfg, detection_surgery
 from tpu3d_torch.models import PointRCNN
+from tpu3d_torch.models.pointnet2 import BatchNorm
 from tpu3d_torch.models.train_functions import get_rcnn_loss, model_loss
 from tpu3d_torch.ops.fused_sa import _FusedBNMLPPool
 from tpu3d_torch.parallel import (create_train_state, init_distributed,
@@ -33,13 +34,15 @@ from tpu3d_torch.weights import params_from_jax, params_to_jax, \
 GLOBAL_BATCH = 4
 
 
-def step_cfg(use_bn: bool = False):
+def step_cfg(use_bn: bool = False, remat: bool = False):
     """``_tiny_cfg``'s joint model with RPN BatchNorm, dropout 0.5 in the
     RPN heads and, with ``use_bn``, an RCNN with BatchNorm, whose SA_0 and
-    SA_1 take kernel 9's slab route."""
+    SA_1 take kernel 9's slab route; with ``remat``, TRAIN.REMAT (the
+    backbone recomputed in the backward)."""
     cfg = _tiny_cfg(rcnn=True, points=1024)
     cfg.RPN.DP_RATIO = 0.5
     cfg.RCNN.USE_BN = use_bn
+    cfg.TRAIN.REMAT = remat
     return cfg
 
 
@@ -49,10 +52,14 @@ def train_steps(cfg, batch: dict, mesh=None, steps: int = 2,
     from seeded weights, on ``batch`` (the global batch, numpy), over
     ``mesh`` (this rank's rows) or alone; the generator of step i is
     ``step_generator(1, i)`` on every rank. -> per step: the state_dict,
-    the summed and clipped gradients, the metrics as floats."""
+    the summed and clipped gradients, the metrics as floats, the calls of
+    the backbone's first BatchNorm (two under TRAIN.REMAT)."""
     model = PointRCNN(cfg, mode="TRAIN", device="cpu").to(dtype)
     model.load_state_dict({k: v.to(dtype) for k, v in
                            seeded_state_dict(model, 23).items()})
+    calls = []
+    next(m for m in model.rpn.backbone.modules() if isinstance(
+        m, BatchNorm)).register_forward_hook(lambda *_: calls.append(1))
     state = create_train_state(cfg, model, 10, 2, mesh=mesh)
     step = make_train_step(cfg, model, mesh)
     rows = shard_batch(mesh or make_mesh(), batch, "cpu")
@@ -60,11 +67,13 @@ def train_steps(cfg, batch: dict, mesh=None, steps: int = 2,
             for k, v in rows.items()}
     out = []
     for i in range(steps):
+        calls.clear()
         tb = step(state, rows, step_generator(1, i, "cpu"), 0.9)
         out.append({
             "state": {k: v.clone() for k, v in model.state_dict().items()},
             "grads": {n: p.grad.clone() for n, p in model.named_parameters()},
-            "tb": {k: float(v) for k, v in tb.items()}, "step": state.step})
+            "tb": {k: float(v) for k, v in tb.items()}, "step": state.step,
+            "bn_calls": len(calls)})
     return out
 
 
@@ -161,8 +170,11 @@ def _case(name: str, inputs: dict):
         return dict(info, steps=train_steps(step_cfg(name == "bn_step"),
                                             inputs["batch"], mesh,
                                             inputs.get("steps", 2)))
-    if name == "fused_bn":
-        return fused_bn_case(inputs["fused_bn"], mesh)
+    if name == "remat_step":
+        return dict(info, steps=train_steps(step_cfg(remat=True),
+                                            inputs["batch"], mesh, 1))
+    if name in ("fused_bn", "fused_bn_bf16"):
+        return fused_bn_case(inputs[name], mesh)
     if name == "rpn_grad":
         return rpn_grad_case(inputs["rpn_grad"], make_mesh(batch_size=2))
     if name == "rcnn_grad":

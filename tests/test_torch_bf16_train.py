@@ -120,8 +120,8 @@ def test_precision_resolves_the_training_contract(monkeypatch):
     only: BF16_ACTIVATIONS the SA, FP and ROI casts; BF16_MATMULS bf16 Dense
     layers but for the heads and the scene-frame layer 0; BF16_INFERENCE
     unread (but by a fixed RPN's eval contract); both False is f32; the CPU
-    is f32 whatever the keys; TRAIN.REMAT raises. From a device's name
-    alone: nothing is allocated."""
+    is f32 whatever the keys; TRAIN.REMAT resolves, to the contract without
+    it. From a device's name alone: nothing is allocated."""
     monkeypatch.delenv("TPU3D_F32_EVAL", raising=False)
     eval_accel = Precision(sa_bf16=True, fp_bf16=True, roi_bf16=True,
                            accel=True)
@@ -150,11 +150,17 @@ def test_precision_resolves_the_training_contract(monkeypatch):
     cfg.TRAIN.BF16_ACTIVATIONS = cfg.TRAIN.BF16_MATMULS = False
     assert precision.resolve("cuda", cfg, train=True) == F32
     assert precision.resolve("cuda", cfg) == F32 != eval_accel
-    cfg.TRAIN.REMAT = True
-    for device in ("cuda", "cpu"):
-        with pytest.raises(NotImplementedError, match="TRAIN.REMAT"):
-            precision.resolve(device, cfg, train=True)
-    precision.resolve("cuda", cfg)  # eval does not read it
+    monkeypatch.delenv("TPU3D_F32_EVAL")
+    for act in (True, False):
+        cfg.TRAIN.BF16_ACTIVATIONS = cfg.TRAIN.BF16_MATMULS = act
+        want = {d: precision.resolve(d, cfg, train=True)
+                for d in ("cuda", "cpu")}
+        cfg.TRAIN.REMAT = True
+        for device in ("cuda", "cpu"):
+            assert precision.resolve(device, cfg,
+                                     train=True) == want[device], act
+        cfg.TRAIN.REMAT = False
+    assert precision.resolve("cuda", cfg) == eval_accel
 
 
 def test_make_train_step_resolves_once():
@@ -416,18 +422,31 @@ def test_fused_slab_bf16_train_matches_tpu3d(shape):
 
 
 def test_bn_rcnn_bf16_training_raises_off_the_cpu():
-    """Kernel 9's bf16 training form is the next slice's: a tensor off the
-    CPU raises, naming it; the CPU runs its plain version (bf16 out, the
-    three layers' f32 batch statistics, gradients for every input)."""
+    """Kernel 9's bf16 training form off the CPU takes the shapes
+    ``kernels_take(..., "bn")`` admits, in bf16, on a card: a tensor of
+    another shape raises naming the predicate, one of another dtype or
+    device raises naming it; the CPU runs its plain version (bf16 out, the
+    three layers' f32 batch statistics, gradients for every input, d_x0 in
+    bf16)."""
     rng = np.random.default_rng(53)
     x0 = T(rng.normal(size=(2, 4, 16, 128)).astype(np.float32)).to(BF16)
     w1 = T(rng.normal(size=(128, 128)).astype(np.float32) / 11)
     w2 = T(rng.normal(size=(128, 256)).astype(np.float32) / 11)
     gammas = [torch.ones(c) for c in (128, 128, 256)]
     betas = [torch.zeros(c) for c in (128, 128, 256)]
-    with pytest.raises(NotImplementedError, match="kernel 9's bf16 training"):
-        fused_sa.fused_bn_mlp_pool_bf16_train(x0.to("meta"), w1, w2, gammas,
-                                              betas)
+    for shape, w in (((2, 4, 12, 128), w1), ((2, 4, 16, 96), w1[:96]),
+                     ((2, 4, 16, 128), w1[:, :96])):
+        assert not fused_sa.kernels_take(shape[2], shape[3], w.shape[1],
+                                         256, "bn")
+        with pytest.raises(ValueError, match="kernels_take"):
+            fused_sa.fused_bn_mlp_pool_bf16_train(
+                torch.zeros(shape, dtype=BF16, device="meta"), w, w2,
+                gammas, betas)
+    assert fused_sa.kernels_take(16, 128, 128, 256, "bn")
+    for t, match in ((x0.to("meta"), "CUDA"), (x0.float().to("meta"),
+                                               "CUDA")):
+        with pytest.raises(ValueError, match=match):
+            fused_sa.fused_bn_mlp_pool_bf16_train(t, w1, w2, gammas, betas)
     leaves = [x0.requires_grad_(), w1.requires_grad_(), w2.requires_grad_()]
     out, (means, vars_) = fused_sa.fused_bn_mlp_pool_bf16_train(
         *leaves, gammas, betas)
@@ -436,6 +455,206 @@ def test_bn_rcnn_bf16_training_raises_off_the_cpu():
     out.float().sum().backward()
     assert all(t.grad is not None and torch.isfinite(t.grad.float()).all()
                for t in leaves)
+    assert leaves[0].grad.dtype == BF16
+
+
+def _bn_case(shape, seed):
+    """Kernel 9's inputs at (R, M, S, C1, C2, C3): x0 and the output
+    gradient in bf16, the weights at 1/11 of a unit normal, the BatchNorm
+    layers as training leaves them (scales 1 + N(0, 1/16), biases N(0,
+    1/25)), where the order in which a layer's affine rounds shows."""
+    R, M, S, C1, C2, C3 = shape
+    rng = np.random.default_rng(seed)
+    x0 = rng.normal(size=(R, M, S, C1)).astype(np.float32)
+    w1 = (rng.normal(size=(C1, C2)) / 11).astype(np.float32)
+    w2 = (rng.normal(size=(C2, C3)) / 11).astype(np.float32)
+    g = rng.normal(size=(R, M, C3)).astype(np.float32)
+    gammas = tuple((1 + rng.normal(size=c) / 4).astype(np.float32)
+                   for c in (C1, C2, C3))
+    betas = tuple((rng.normal(size=c) / 5).astype(np.float32)
+                  for c in (C1, C2, C3))
+    return x0, w1, w2, gammas, betas, g
+
+
+# (R, M, S, C1, C2, C3): S 16 and 64, widths 128 and 256
+BN_SHAPES = [(2, 4, 16, 128, 128, 256), (2, 4, 64, 128, 256, 128),
+             (1, 8, 16, 256, 128, 128)]
+BN_GRADS = ("d_x0", "d_w1", "d_w2", "d_gamma0", "d_gamma1", "d_gamma2",
+            "d_beta0", "d_beta1", "d_beta2")
+
+# tpu3d's _fused_train and its VJP (its seven Pallas kernels in interpret
+# mode, without excess precision) at each BN_SHAPES case of the npz file
+# argv[1] -> the npz file argv[2]. Run in a process of its own whose XLA
+# CPU client stops at AVX: XLA on the CPU otherwise contracts x·mul + add
+# into a fused multiply-add (a setting of the client, read when it starts),
+# where tpu3d's source, the port's plain form and its card kernels round
+# the product and the sum apart. The first lines check that it took.
+_TPU3D_BN_VJP = r"""
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+jax.config.update("jax_platforms", "cpu")
+from tpu3d.ops import fused_sa
+
+rng = np.random.default_rng(0)
+a, m, b = (rng.normal(size=s).astype(np.float32) for s in ((512, 128), 128,
+                                                             128))
+assert (np.asarray(jax.jit(lambda a, m, b: a * m + b)(a, m, b))
+        == a * m + b).all(), "XLA contracted x*mul + add"
+inp, out = np.load(sys.argv[1]), {}
+for i in range(len(inp.files) // 10):
+    x0, w1, w2, g = (inp[f"{i}_{k}"] for k in ("x0", "w1", "w2", "g"))
+    R, M, S, C1 = x0.shape
+    bn = tuple(tuple(inp[f"{i}_{k}{j}"] for j in range(3))
+               for k in ("gamma", "beta"))
+    zeros = tuple(np.zeros(t.shape, np.float32) for t in bn[0])
+
+    def both(args, ct):
+        o, pull = jax.vjp(lambda x, w, bn: fused_sa._fused_train(
+            x.reshape(R, M * S, C1), w, bn, S, 1e-5, True), *args)
+        return o, pull(ct)
+
+    args = (jnp.asarray(x0).astype(jnp.bfloat16), (w1, w2), bn)
+    ct = (jnp.asarray(g).astype(jnp.bfloat16), (zeros, zeros))
+    (o, st), (dx, dw, (dg, db)) = jax.device_get(jax.jit(both).lower(
+        args, ct).compile(compiler_options={
+            "xla_allow_excess_precision": False})(args, ct))
+    for k, t in enumerate([o, *st[0], *st[1], dx.reshape(x0.shape), *dw,
+                           *dg, *db]):
+        out[f"{i}_{k}"] = np.asarray(t).astype(np.float32)
+np.savez(sys.argv[2], **out)
+"""
+
+
+@pytest.fixture(scope="module")
+def tpu3d_bn_vjp(tmp_path_factory):
+    """{shape: (out, the six statistics, the nine gradients)} of tpu3d's
+    ``_fused_train`` at each BN_SHAPES case (seed 53 on), as f32 arrays."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    d = tmp_path_factory.mktemp("bn_vjp")
+    arrays = {}
+    for i, shape in enumerate(BN_SHAPES):
+        x0, w1, w2, gammas, betas, g = _bn_case(shape, 53 + i)
+        arrays.update({f"{i}_x0": x0, f"{i}_w1": w1, f"{i}_w2": w2,
+                       f"{i}_g": g})
+        for j in range(3):
+            arrays[f"{i}_gamma{j}"], arrays[f"{i}_beta{j}"] = (gammas[j],
+                                                               betas[j])
+    np.savez(d / "in.npz", **arrays)
+    env = dict(os.environ, XLA_FLAGS=os.environ.get("XLA_FLAGS", "")
+               + " --xla_cpu_max_isa=AVX")
+    res = subprocess.run(
+        [sys.executable, "-c", _TPU3D_BN_VJP, str(d / "in.npz"),
+         str(d / "out.npz")], cwd=Path(__file__).resolve().parents[1],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    out = np.load(d / "out.npz")
+    return {shape: [out[f"{i}_{k}"] for k in range(16)]
+            for i, shape in enumerate(BN_SHAPES)}
+
+
+def _bn_plain(leaves):
+    return fused_sa.fused_bn_mlp_pool_bf16_train_plain(
+        leaves[0], leaves[1], leaves[2], leaves[3:6], leaves[6:9])
+
+
+@pytest.mark.parametrize("shape", BN_SHAPES, ids=str)
+def test_bn_bf16_train_plain_matches_tpu3d_vjp(shape, tpu3d_bn_vjp):
+    """Kernel 9's bf16 training form, plain (``fused_bn_mlp_pool_bf16_train
+    _plain`` under autograd), against ``jax.vjp`` of tpu3d's
+    ``_fused_train`` (its seven Pallas kernels in interpret mode, without
+    a fused multiply-add: ``_TPU3D_BN_VJP``), the BatchNorm layers at
+    trained scales and biases: the pooled output within one bf16 step of
+    each value, the statistics within 1e-6 of each one's largest value,
+    each gradient within 2e-3 of its largest value and 5e-5 of it on
+    average. x1 and x2 are exact products of bf16 values summed in f32 in
+    another order, so a value of theirs may round to the other bf16
+    neighbour (one x2 value at the second shape); each such value moves its
+    layer's statistics by its step over the P slots, and layers 1 and 2
+    allow one in a hundred of their values that. tpu3d's VJP keeps the
+    gradients of the BatchNorm outputs (d_y0, d_y1) in f32 and rounds only
+    d_x2 and d_x1, the cotangents that enter a product; the plain form as
+    it stood (the gradient of each BatchNorm output rounded to bf16 as
+    well, through the cast of its rounded output and ``_RoundGrad``) fails
+    these bounds, d_x0 by 4.3e-3 to 4.8e-3. The plain form folds each layer
+    into x·mul + add as tpu3d does; one that normalises as (x − mean)·r·γ +
+    β rounds a pre-activation apart from it too rarely to show at these
+    sizes (it meets these bounds, d_x0 at 9e-4 of its largest value where
+    the fold is at 1.4e-5 at the first shape), and shows at the card's
+    sizes, where the plain form is its kernels' yardstick."""
+    R, M, S, C1, C2, C3 = shape
+    x0, w1, w2, gammas, betas, g = _bn_case(shape, 53 + BN_SHAPES.index(
+        shape))
+    jout, *ref = tpu3d_bn_vjp[shape]
+    leaves = [T(x0).to(BF16).requires_grad_(), T(w1).requires_grad_(),
+              T(w2).requires_grad_(),
+              *(T(a).requires_grad_() for a in gammas + betas)]
+    out, (means, vars_) = _bn_plain(leaves)
+    assert out.dtype == BF16
+    # each value within one bf16 step of itself (the larger side's)
+    got = _f32(out)
+    top = np.maximum(np.maximum(np.abs(got), np.abs(jout)), 2.0 ** -126)
+    assert (np.abs(got - jout) <= 2.0 ** (np.floor(np.log2(top)) - 7)).all()
+    P = R * M * S
+    _, _, _, _, _, (x1, x2) = fused_sa.fused_bn_mlp_pool_train(
+        leaves[0].detach(), T(w1), T(w2), [T(a) for a in gammas],
+        [T(a) for a in betas])
+    X = [np.abs(x0).max(), x1.float().abs().max().item(),
+         x2.float().abs().max().item()]
+    for k, (ours, want) in enumerate(zip(means + vars_, ref[:6])):
+        layer, flips = k % 3, (0, -(-P // 100), -(-P // 100))[k % 3]
+        step = 2.0 ** (np.floor(np.log2(X[layer])) - 7)
+        moved = flips * step * (1 if k < 3 else 4 * X[layer] + 2 * step) / P
+        err = np.abs(ours.numpy() - want).max()
+        assert err <= 1e-6 * np.abs(want).max() + moved, (k, err)
+    out.backward(T(g).to(BF16))
+    assert leaves[0].grad.dtype == BF16
+    for name, t, b in zip(BN_GRADS, leaves, ref[6:]):
+        err = np.abs(_f32(t.grad) - b) / max(np.abs(b).max(), 1e-30)
+        assert err.max() <= 2e-3 and err.mean() <= 5e-5, (
+            name, err.max(), err.mean())
+
+
+def test_bn_bf16_pieces_match_the_plain_form():
+    """Kernel 9's bf16 form through its seven passes' plain pieces
+    (``fused_bn_mlp_pool_train`` and ``fused_bn_mlp_pool_backward`` on a
+    bf16 slab: the algorithm the card's entries run) against the plain form
+    under autograd, the BatchNorm layers at trained scales and biases: x1
+    and x2 kept in bf16, out in bf16 and equal, the statistics in f32 and
+    equal (both fold the f64 sums as ``_mean_var`` does), d_x0 in bf16,
+    each gradient within 2e-3 of its largest value and 5e-5 of it on
+    average (the pieces' closed-form backward against autograd's, each
+    rounding d_x2 and d_x1 to bf16 before their products)."""
+    shape = BN_SHAPES[1]
+    x0, w1, w2, gammas, betas, g = (
+        T(a) if isinstance(a, np.ndarray) else tuple(T(b) for b in a)
+        for a in _bn_case(shape, 60))
+    x0, g = x0.to(BF16), g.to(BF16)
+    leaves = [t.clone().requires_grad_() for t in (x0, w1, w2, *gammas,
+                                                   *betas)]
+    out, (means, vars_) = _bn_plain(leaves)
+    ref = torch.autograd.grad(out, leaves, g)
+    p_out, arg, at, p_means, p_vars, saved = fused_sa.fused_bn_mlp_pool_train(
+        x0, w1, w2, gammas, betas)
+    assert p_out.dtype == BF16 and {t.dtype for t in saved} == {BF16}
+    assert torch.equal(p_out, out.detach())
+    for a, b in zip(p_means + p_vars, means + vars_):
+        assert a.dtype == torch.float32 and torch.equal(a, b)
+    grads = fused_sa.fused_bn_mlp_pool_backward(
+        x0, w1, w2, gammas, betas, p_means, p_vars, p_out, arg, at, saved, g)
+    grads = [grads[0], grads[1], grads[2], *grads[3], *grads[4]]
+    assert grads[0].dtype == BF16
+    for name, a, b in zip(BN_GRADS, grads, ref):
+        err = (a.float() - b.float()).abs() / b.float().abs().max()
+        assert err.max() <= 2e-3 and err.mean() <= 5e-5, (
+            name, err.max().item(), err.mean().item())
 
 
 # ------------------------------------------------------------- the networks
@@ -812,3 +1031,31 @@ def test_rcnn_stage_training_matches_tpu3d(name, nsample):
     (out_e, g_mean, g_max), (out32, g_mean32, _) = errs["bf16"], errs["f32"]
     assert out_e <= 1e-5 and g_mean <= 5e-3 and g_max <= 2e-2, errs
     assert out32 >= 10 * max(out_e, 1e-6) and g_mean32 >= 10 * g_mean, errs
+
+
+def test_roofline_counts_the_bn_levels_at_the_bf16_peak():
+    """``tools/roofline.py`` under the training contract on default.yaml
+    with ``RCNN.USE_BN``: with bf16 Dense layers every matmul FLOP but the
+    heads' and the scene-frame layers 0 counts at the bf16 peak, the
+    BatchNorm RCNN levels' among them; with the activation casts alone,
+    layers 1 and 2 of the two levels the slab route fuses (kernel 9's bf16
+    form), forward and backward."""
+    from tpu3d_torch.config import cfg_from_file
+    from tpu3d_torch.tools import roofline
+
+    cfg = cfg_from_file("configs/default.yaml", fresh_cfg())
+    cfg.RCNN.USE_BN = True
+    train = precision.resolve("cuda", cfg, train=True)
+    total = roofline.program_flops(cfg, "train", 16)["total_matmul_flops"]
+    assert roofline.bf16_matmul_flops(cfg, "train", 16, train) == \
+        total - 3 * roofline._f32_share_of_bf16_training(cfg, 16)
+    cfg.TRAIN.BF16_MATMULS = False
+    acts = precision.resolve("cuda", cfg, train=True)
+    c = cfg.RCNN
+    n = 16 * c.ROI_PER_IMAGE
+    want = 3 * sum(roofline._tower(n * c.SA_CONFIG.NPOINTS[k]
+                                   * c.SA_CONFIG.NSAMPLE[k],
+                                   list(c.SA_CONFIG.MLPS[k]))
+                   for k in (0, 1))
+    assert want > 0
+    assert roofline.bf16_matmul_flops(cfg, "train", 16, acts) == want

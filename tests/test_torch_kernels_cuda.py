@@ -30,7 +30,7 @@ from tpu3d_torch.ops.fused_sa import (
     fused_mlp_pool_backward, fused_mlp_pool_backward_plain,
     fused_mlp_pool_backward_routed_plain,
     fused_mlp_pool_train, fused_mlp_pool_train_plain,
-    fused_bn_mlp_pool_train_plain, fused_sa_slab_plain, _bn_affine,
+    fused_sa_slab_plain, _bn_affine,
     _layer_pack, _pack)
 from tpu3d_torch.ops.grouping import (_radius2, launch_nearest_k,
                                       nearest_k_plain)
@@ -402,45 +402,77 @@ def _near(a, b, scale, tol=1e-4):
     torch.testing.assert_close(a, b, rtol=0, atol=tol * scale)
 
 
+def _bf16_step(x):
+    """The spacing of bf16 values at |x| (one step of a bf16 rounding)."""
+    return torch.exp2(torch.floor(torch.log2(
+        x.float().abs().clamp_min(1e-30))) - 7)
+
+
+def _within_step(a, b, flips=1e-3):
+    """a within one bf16 step of b everywhere, off at all in at most
+    ``flips`` of the values."""
+    d = (a.float() - b.float()).abs()
+    assert (d <= _bf16_step(b)).all()
+    assert (d > 0).float().mean().item() <= flips
+
+
+def _slab_close(a, b):
+    """A slab against the plain piece's: in bf16 within one bf16 step
+    (``_within_step``), in f32 within 1e-4 of its largest value."""
+    assert a.dtype == b.dtype
+    if a.dtype == torch.bfloat16:
+        _within_step(a, b)
+    else:
+        _near(a, b, b.abs().max().item())
+
+
 def bn_pieces_check(name, x0, w1, w2, grad, gammas, betas, g):
     """Kernel ``name`` of the BatchNorm chain's training form against its
-    plain piece on the same inputs: the plain chain's batch statistics and
-    argmax, and the plain pieces' own x1, x2 and d_y1 (see
-    test_bn_train_kernels_match_plain_on_cuda for the bounds)."""
+    plain piece on the same inputs: the f32 form on an f32 x0, the bf16
+    entries (``*_bf16``) on a bf16 x0; the plain pieces' own statistics,
+    x1, x2, argmax and d_y1 (see test_bn_train_kernels_match_plain_on_cuda
+    and test_bn_bf16_training_kernels_match_plain_on_cuda for the
+    bounds)."""
     R, M, S, _ = x0.shape
     n = R * M * S
-    out, arg, at, means, vars_ = fused_bn_mlp_pool_train_plain(
-        x0, w1, w2, gammas, betas)
-    layers = [_layer_pack(m, v, ga, be, 1e-5, n) for m, v, ga, be in
-              zip(means, vars_, gammas, betas)]
-    _, x1 = fs.fused_sa_bn_stats_plain(1, x0, layers[0][0], layers[0][1], w1)
-    _, x2 = fs.fused_sa_bn_stats_plain(2, x1, layers[1][0], layers[1][1], w2)
-    if name.startswith("fused_sa_bn_stats"):
-        depth = int(name[-1])
-        args = ((x0,), (x0, layers[0][0], layers[0][1], w1),
-                (x1, layers[1][0], layers[1][1], w2))[depth]
-        got = fs.fused_sa_bn_stats(depth, *args)
+    base = name.removesuffix("_bf16")
+    # the waves' reductions and weight gradients: f32 sums of n products
+    # in another order, of bf16 operands in the bf16 form
+    red_tol = 1e-4 if x0.dtype == torch.float32 else 1e-3
+    layers, stats, slabs = [], [], [x0]
+    for depth in range(3):
+        args = ((x0,) if depth == 0 else
+                (slabs[-1], layers[-1][0].contiguous(),
+                 layers[-1][1].contiguous(), (w1, w2)[depth - 1]))
         want = fs.fused_sa_bn_stats_plain(depth, *args)
+        if base == f"fused_sa_bn_stats{depth}":
+            got = fs.fused_sa_bn_stats(depth, *args)
+            if depth:
+                (got, y), (want, wy) = got, want
+                _slab_close(y, wy)
+            torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0)
+            assert ((got[0] - want[0]).abs()
+                    <= 1e-5 * (n * want[1]).sqrt()).all()
+            return
         if depth:
-            (got, y), (want, wy) = got, want
-            _near(y, wy, wy.abs().max().item())
-        torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0)
-        assert ((got[0] - want[0]).abs()
-                <= 1e-5 * (n * want[1]).sqrt()).all()
+            want, y = want
+            slabs.append(y)
+        stats.append(fs._mean_var(want, n, torch.float32))
+        layers.append(_layer_pack(*stats[-1], gammas[depth], betas[depth],
+                                  1e-5, n))
+    x1, x2 = slabs[1:]
+    m2, a2 = layers[2][0].contiguous(), layers[2][1].contiguous()
+    out, arg, at = fs.fused_sa_bn_final_plain(x2, m2, a2)
+    if base == "fused_sa_bn_final":
+        for a, b in zip(fs.fused_sa_bn_final(x2, m2, a2), (out, arg, at)):
+            assert a.dtype == b.dtype
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
         return
-    if name == "fused_sa_bn_final":
-        got = fs.fused_sa_bn_final(x2, layers[2][0], layers[2][1])
-        want = fs.fused_sa_bn_final_plain(x2, layers[2][0], layers[2][1])
-        torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
-        torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
-        torch.testing.assert_close(got[2], want[2], rtol=0, atol=0)
-        return
-    d_y2 = torch.where(out > 0, grad, 0.0)
-    r2 = layers[2][2]
+    d_y2 = torch.where(out > 0, grad.float(), 0.0)
+    (mean2, var2), r2 = stats[2], layers[2][2]
     layers[2] = _layer_pack(
-        means[2], vars_[2], gammas[2], betas[2], 1e-5, n,
-        d_y2.sum(dim=(0, 1)),
-        (d_y2 * (at * r2 - means[2] * r2)).sum(dim=(0, 1)))
+        mean2, var2, gammas[2], betas[2], 1e-5, n, d_y2.sum(dim=(0, 1)),
+        (d_y2 * (at * r2 - mean2 * r2)).sum(dim=(0, 1)))
     for layer, scale in ((1, 0.3), (0, 0.2)):  # nonzero ca, cb
         c = layers[layer].shape[1]
         layers[layer][5:] = scale * torch.randn(2, c, generator=g,
@@ -448,18 +480,23 @@ def bn_pieces_check(name, x0, w1, w2, grad, gammas, betas, g):
     pk = _pack(layers)
     dval = (d_y2 * layers[2][0]).contiguous()
     _, _, d_y1 = fs.fused_sa_bn_wave1_plain(x2, x1, pk, w2, dval, arg)
-    if name == "fused_sa_bn_wave1":
+    if base == "fused_sa_bn_wave1":
         got = fs.fused_sa_bn_wave1(x2, x1, pk, w2, dval, arg)
         want = fs.fused_sa_bn_wave1_plain(x2, x1, pk, w2, dval, arg)
-    elif name == "fused_sa_bn_wave2":
+    elif base == "fused_sa_bn_wave2":
         got = fs.fused_sa_bn_wave2(d_y1, x1, x0, pk, w1)
         want = fs.fused_sa_bn_wave2_plain(d_y1, x1, x0, pk, w1)
     else:
         _, _, d_y0 = fs.fused_sa_bn_wave2_plain(d_y1, x1, x0, pk, w1)
         want = [fs.fused_sa_bn_apply_plain(d_y0, x0, pk)]
         got = [fs.fused_sa_bn_apply(d_y0.clone(), x0, pk)]
+        assert got[0].dtype == x0.dtype and d_y0.dtype == torch.float32
     for a, b in zip(got, want):
-        _near(a, b, b.abs().max().item())
+        if a.dim() == 4:
+            _slab_close(a, b)
+        else:
+            assert a.dtype == b.dtype
+            _near(a, b, b.abs().max().item(), red_tol)
 
 
 @pytest.mark.cuda
@@ -470,8 +507,8 @@ def bn_pieces_check(name, x0, w1, w2, grad, gammas, betas, g):
 def test_bn_train_kernels_match_plain_on_cuda(name):
     """The BatchNorm chain's seven training kernels against their plain
     pieces on the card, at S 16/32/64 and C3 128/256, on the same inputs
-    (the plain chain's batch statistics and argmax, the plain pieces' x1,
-    x2 and d_y1): each statistics pass's Σx² within 1e-5 of its value and
+    (the plain pieces' own statistics, x1, x2, argmax and d_y1): each
+    statistics pass's Σx² within 1e-5 of its value and
     Σx within 1e-5·√(n·Σx²) per channel (f32 layers summed in another
     order, the sums in f64), the slab it writes within 1e-4 of its largest
     value; the final pass equal to the bit (a reduction over the same
@@ -1119,3 +1156,94 @@ def test_fused_bf16_training_forms_on_cuda(form, shape):
     assert _build.BF16_LAUNCHES[names[0]] == 1
     assert _build.BF16_LAUNCHES[names[1]] == 1
     assert sum(_build.LAUNCHES.values()) == 0
+
+
+BN_BF16_ENTRIES = [f"{name}_bf16" for name in (
+    "fused_sa_bn_stats0", "fused_sa_bn_stats1", "fused_sa_bn_stats2",
+    "fused_sa_bn_final", "fused_sa_bn_wave1", "fused_sa_bn_wave2",
+    "fused_sa_bn_apply")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", BN_BF16_ENTRIES)
+def test_bn_bf16_training_kernels_match_plain_on_cuda(name):
+    """Kernel 9's seven bf16 training entries against their plain pieces on
+    the card, at S 16/32/64, C3 128/256 and C1 128/256, on the same inputs
+    (x0 in bf16; the plain pieces' statistics, bf16 x1 and x2, argmax and
+    d_y1): x1, x2 and d_x0 (bf16) within one bf16 step of the plain
+    piece's, off at all in at most 1 value in 1000 (products of bf16 values
+    are exact in f32, their f32 sums run in another order, and a sum at a
+    rounding boundary takes the other neighbour); the statistics passes'
+    sums as the f32 form's; the final pass equal to the bit; d_y1, d_y0
+    (f32) within 1e-4 of their largest value, the waves' reductions and
+    weight gradients within 1e-3 (f32 sums of many exact products in
+    another order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    _build.reset_launches()
+    for s, c1, c3 in ((64, 128, 128), (16, 128, 256), (32, 256, 128),
+                      (64, 128, 256)):
+        x0, w1, _, w2, _, grad = _slab_inputs(64, 16, s, c3, seed=s + c3,
+                                              c1=c1)
+        g = torch.Generator(device="cuda").manual_seed(s + 2)
+        gammas, betas, _, _ = _bn_params(g, c3, c1=c1)
+        bn_pieces_check(name, x0.to(torch.bfloat16), w1, w2,
+                        grad.to(torch.bfloat16), gammas, betas, g)
+    assert _build.BF16_LAUNCHES[name] > 0
+    assert sum(_build.LAUNCHES.values()) == 0
+
+
+@pytest.mark.cuda
+def test_bn_bf16_training_op_on_cuda():
+    """Kernel 9's bf16 training form through its autograd Function: each
+    of the seven bf16 entries launches once, no f32 kernel; the output, the
+    statistics and every gradient equal the passes composed directly to the
+    bit, and a second call gives the same bits; against the repaired plain
+    form under autograd, which folds each layer into x·mul + add as the
+    kernels do: the output off in at most 1 value in 100 and beyond one
+    bf16 step of each value's own in at most 1 in 1000 (an x2 that the two
+    sides' f32 sums round to the other neighbour moves its pre-activation
+    by mul times x2's step, many of the output's own steps near 0), the
+    statistics within 1e-5 of each one's largest value (both sum in f64),
+    the weight, gamma and beta gradients within 2^-6 of theirs (such an x2
+    may move an argmax, and with it a channel's gradient)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    x0, w1, _, w2, _, grad = _slab_inputs(32, 16, 64, 256, seed=7)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    gammas, betas, _, _ = _bn_params(g, 256)
+    x0, grad = x0.to(torch.bfloat16), grad.to(torch.bfloat16)
+
+    def run(op):
+        leaves = [t.detach().clone().requires_grad_() for t in
+                  (x0, w1, w2, *gammas, *betas)]
+        out, (means, vars_) = op(leaves[0], leaves[1], leaves[2],
+                                 leaves[3:6], leaves[6:9])
+        return (out.detach(), *means, *vars_,
+                *torch.autograd.grad(out, leaves, grad))
+
+    _build.reset_launches()
+    ours = run(fs.fused_bn_mlp_pool_bf16_train)
+    assert {k: v for k, v in _build.BF16_LAUNCHES.items() if v} == {
+        name: 1 for name in BN_BF16_ENTRIES}
+    assert sum(_build.LAUNCHES.values()) == 0
+    assert all(torch.equal(a, b) for a, b in
+               zip(ours, run(fs.fused_bn_mlp_pool_bf16_train)))
+    with torch.no_grad():
+        o, arg, at, means, vars_, saved = fs.fused_bn_mlp_pool_train(
+            x0, w1, w2, gammas, betas)
+        d = fs.fused_bn_mlp_pool_backward(x0, w1, w2, gammas, betas, means,
+                                          vars_, o, arg, at, saved, grad)
+    direct = (o, *means, *vars_, d[0], d[1], d[2], *d[3], *d[4])
+    assert all(torch.equal(a, b) for a, b in zip(ours, direct))
+    assert ours[0].dtype == ours[7].dtype == torch.bfloat16
+    want = run(fs.fused_bn_mlp_pool_bf16_train_plain)
+    a, b = ours[0].float(), want[0].float()
+    d = (a - b).abs()
+    own = _bf16_step(torch.maximum(a.abs(), b.abs()))
+    assert (d > own).float().mean().item() <= 1e-3
+    assert (d > 0).float().mean().item() <= 1e-2
+    for a, b in zip(ours[1:7], want[1:7]):
+        _near(a, b, b.abs().max().item(), 1e-5)
+    for a, b in zip(ours[8:], want[8:]):
+        _near(a, b, b.abs().max().item(), 2.0 ** -6)

@@ -96,7 +96,9 @@ def reference(batch):
             for name in ("step", "bn_step")}
 
 
-def _fused_bn_inputs():
+def _fused_bn_inputs(bf16=False):
+    """A slab, kernel 9's weights and an output gradient in float64; with
+    ``bf16`` its bf16 form's: x0 and the gradient in bf16, the rest f32."""
     g = torch.Generator().manual_seed(5)
     R, M, S, c1, c2, c3 = 4, 2, 8, 16, 24, 32
 
@@ -106,8 +108,12 @@ def _fused_bn_inputs():
     weights = [r(c1, c2, scale=0.3), r(c2, c3, scale=0.3)]
     weights += [1 + r(c, scale=0.1) for c in (c1, c2, c3)]
     weights += [r(c, scale=0.1) for c in (c1, c2, c3)]
-    return {"x0": r(R, M, S, c1), "weights": weights,
-            "grad": r(R, M, c3)}
+    x0, grad = r(R, M, S, c1), r(R, M, c3)
+    if bf16:
+        return {"x0": x0.to(torch.bfloat16),
+                "weights": [w.float() for w in weights],
+                "grad": grad.to(torch.bfloat16)}
+    return {"x0": x0, "weights": weights, "grad": grad}
 
 
 @pytest.fixture(scope="module")
@@ -213,9 +219,10 @@ def reshard(tmp_path_factory, batch):
 @pytest.fixture(scope="module")
 def world2(tmp_path_factory, batch, rpn_inputs, rcnn_inputs, reshard):
     return _run(tmp_path_factory.mktemp("w2"), 2,
-                ["step", "bn_step", "fused_bn", "rpn_grad", "rcnn_grad",
-                 "reshard"],
+                ["step", "bn_step", "remat_step", "fused_bn", "fused_bn_bf16",
+                 "rpn_grad", "rcnn_grad", "reshard"],
                 {"batch": batch, "fused_bn": _fused_bn_inputs(),
+                 "fused_bn_bf16": _fused_bn_inputs(bf16=True),
                  "rpn_grad": rpn_inputs[0], "rcnn_grad": rcnn_inputs[0],
                  "reshard": reshard})
 
@@ -290,6 +297,25 @@ def test_parameters_bit_equal_across_ranks(world, name, world2, world4):
     assert last["step"] == {2: 2, 4: 1}[world]
 
 
+def test_remat_step_equals_the_step_on_two_ranks(world2, reference):
+    """TRAIN.REMAT under a mesh of 2: the backbone's recomputation in the
+    backward (its first BatchNorm runs twice) reruns its BatchNorm layers'
+    all-reduces on both ranks in the same order, so each rank's first step
+    equals its step without the key
+    to the bit (metrics, gradients, running statistics, parameters) and
+    the one-process step at B=4 as ``step`` does."""
+    for r in world2:
+        got, want = r["remat_step"]["steps"][0], r["step"]["steps"][0]
+        assert r["remat_step"]["ranks"] == (0, 1)
+        assert (got["bn_calls"], want["bn_calls"]) == (2, 1)
+        assert got["tb"] == want["tb"]
+        for part in ("grads", "state"):
+            assert set(got[part]) == set(want[part])
+            for k, v in want[part].items():
+                assert torch.equal(got[part][k], v), (part, k)
+        _equals_one_process(got, reference["step"][0], LR0)
+
+
 def test_mesh_takes_a_prefix_as_tpu3d(world3, reference):
     """At a world of 3 and a batch of 4 the mesh is ranks 0 and 1, as
     tpu3d's make_mesh(batch_size=4) takes 2 of 3 devices; rank 2 sits the
@@ -327,6 +353,26 @@ def test_fused_bn_training_form_reduces_over_the_mesh(world2):
             torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-10)
         for a, b in zip(r["fused_bn"]["d_weights"], ref["d_weights"]):
             torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-10)
+
+
+def test_fused_bn_bf16_training_form_reduces_over_the_mesh(world2):
+    """Kernel 9's bf16 training form (its passes' plain pieces on bf16
+    slabs) at 2 ranks of 2 slab rows each against it on the 4 rows: the
+    bf16 outputs and d_x0 equal, the f32 statistics and the weights'
+    gradients summed over the mesh within 1e-6 of each largest value (the
+    f64 sums of two ranks added in another order)."""
+    ref = cases.fused_bn_case(_fused_bn_inputs(bf16=True))
+    out = torch.cat([r["fused_bn_bf16"]["out"] for r in world2])
+    d_x0 = torch.cat([r["fused_bn_bf16"]["d_x0"] for r in world2])
+    assert out.dtype == d_x0.dtype == torch.bfloat16
+    assert torch.equal(out, ref["out"]) and torch.equal(d_x0, ref["d_x0"])
+    for r in world2:
+        got = r["fused_bn_bf16"]
+        for a, b in zip(got["stats"] + got["d_weights"],
+                        ref["stats"] + ref["d_weights"]):
+            assert a.dtype == torch.float32
+            torch.testing.assert_close(a, b, rtol=0,
+                                       atol=1e-6 * b.abs().max().item())
 
 
 def test_rpn_matches_tpu3d_on_two_devices(world2, rpn_inputs):

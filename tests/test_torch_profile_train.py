@@ -36,9 +36,10 @@ def test_attribute_sums_per_stage():
 
 
 def test_port_kernel_names():
-    """Every __global__ of the port's sources is found, and trace names
-    match them with or without ``void`` and template arguments; torch's
-    own kernels and copies do not."""
+    """Every __global__ of the port's sources is found (kernel 9's
+    templated passes too), and trace names match them with or without
+    ``void`` and template arguments (a bf16 instantiation's among them);
+    torch's own kernels and copies do not."""
     names = port_kernel_names()
     assert {"fps_rows_kernel", "build_kernel", "three_nn_kernel",
             "gather_kernel", "dweight_kernel", "fps_cluster_kernel",
@@ -48,8 +49,16 @@ def test_port_kernel_names():
                  "int const*, float*)",
                  "void (anonymous namespace)::fps_rows_kernel<1, 16>(float "
                  "const*, int, int, int, int*)",
-                 "nearest_k_kernel(float const*)"):
+                 "nearest_k_kernel(float const*)",
+                 "void (anonymous namespace)::bn_row_gemm<2, 1, "
+                 "__nv_bfloat16>((anonymous namespace)::RowArgs)",
+                 "void (anonymous namespace)::bn_final_kernel<__nv_bfloat16>"
+                 "(__nv_bfloat16 const*, float const*)"):
         assert is_port_kernel(name, names), name
+    # kernel 9's passes, templated on the slab type: the f32 form's and the
+    # bf16 form's launches carry the same names
+    assert {"bn_stats0_kernel", "bn_row_gemm", "bn_final_kernel",
+            "bn_dw_gemm", "bn_apply_kernel"} <= names
     for name in ("void at::native::vectorized_elementwise_kernel<4, "
                  "at::native::FillFunctor<float>>(int, ...)",
                  "void at::native::(anonymous namespace)::build_kernel(int)",

@@ -74,13 +74,14 @@ def _variables(jcfg, pts, seed):
     return jmodel, _numpy_variables(shapes, np.random.default_rng(seed))
 
 
-@pytest.fixture(scope="module")
-def rpn_case():
+def rpn_grads(remat=False):
     """One train-mode RPN forward and backward of the RPN loss on both
-    sides, in float64, with the same weights, scenes and labels."""
+    sides, in float64, with the same weights, scenes and labels, and
+    ``TRAIN.REMAT`` = ``remat`` on both."""
     jcfg = _tiny_cfg(rcnn=False, points=1024)
     jcfg.RCNN.ENABLED = False
     jcfg.RPN.DP_RATIO = 0.0
+    jcfg.TRAIN.REMAT = remat
     batch = train_batch(2, 1024, seed=21)
     pts = batch["pts_input"].astype(np.float64)
     gt = batch["gt_boxes3d"].astype(np.float64)
@@ -120,6 +121,11 @@ def rpn_case():
             jstats, labels)
 
 
+@pytest.fixture(scope="module")
+def rpn_case():
+    return rpn_grads()
+
+
 def test_rpn_labels_have_foreground(rpn_case):
     """The scenes give the RPN loss real foreground, ignore and background
     points to work on."""
@@ -131,6 +137,10 @@ def test_rpn_loss_and_gradients_match(rpn_case):
     """Every RPN parameter's gradient of the RPN loss in train mode, f64:
     within 1e-7 relative plus 1e-9 of the largest gradient; the loss within
     1e-9 relative."""
+    assert_rpn_gradients_match(rpn_case)
+
+
+def assert_rpn_gradients_match(rpn_case):
     loss, grads, _, jloss, jgrads, _, _ = rpn_case
     np.testing.assert_allclose(loss, jloss, rtol=1e-9)
     ours = dict(_flat(grads))
@@ -146,6 +156,10 @@ def test_rpn_loss_and_gradients_match(rpn_case):
 def test_rpn_running_stats_match(rpn_case):
     """The running statistics after the train-mode forward (momentum 0.8,
     flax's convention, biased variance), f64: within 1e-9."""
+    assert_rpn_running_stats_match(rpn_case)
+
+
+def assert_rpn_running_stats_match(rpn_case):
     _, _, stats, _, _, jstats, _ = rpn_case
     ours = dict(_flat(stats))
     ref = dict(_flat(jstats))

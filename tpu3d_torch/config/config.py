@@ -47,12 +47,13 @@ def _default_cfg() -> AttrDict:
     c.CLASSES = "Car"
     c.INCLUDE_SIMILAR_TYPE = False
     # BF16_INFERENCE and TRAIN.{REMAT, BF16_ACTIVATIONS, BF16_MATMULS} are
-    # the JAX package's precision knobs (no reference counterpart).
-    # BF16_INFERENCE puts every Dense of an eval forward in bf16, on any
-    # device (precision.resolve reads it). TRAIN.BF16_ACTIVATIONS and
-    # TRAIN.BF16_MATMULS set the training contract on the card
-    # (train_numerics, which precision.resolve reads); TRAIN.REMAT, the
-    # recomputed backbone, is not ported and raises there.
+    # the JAX package's precision and memory knobs (no reference
+    # counterpart). BF16_INFERENCE puts every Dense of an eval forward in
+    # bf16, on any device (precision.resolve reads it). TRAIN.BF16_ACTIVATIONS
+    # and TRAIN.BF16_MATMULS set the training contract on the card
+    # (train_numerics, which precision.resolve reads); TRAIN.REMAT
+    # recomputes the RPN's backbone in the backward, on any device
+    # (models/rpn.py).
     c.BF16_INFERENCE = False
 
     c.AUG_DATA = True
@@ -163,15 +164,10 @@ def _merge_a_into_b(a: dict, b: AttrDict) -> None:
 
 def train_numerics(c) -> tuple[bool, bool]:
     """(BF16_ACTIVATIONS, BF16_MATMULS) of config ``c``'s TRAIN block, read
-    as tpu3d's gates read them (True where unset, and for ``c`` None);
-    raises for ``TRAIN.REMAT``, whose recomputed backbone (tpu3d:
-    models/rpn.py:84-88) is not ported yet."""
+    as tpu3d's gates read them (True where unset, and for ``c`` None).
+    ``TRAIN.REMAT`` changes no rounding and is not read here (the RPN reads
+    it)."""
     train = {} if c is None else c.get("TRAIN", {})
-    if bool(train.get("REMAT", False)):
-        raise NotImplementedError(
-            "TRAIN.REMAT (the backbone recomputed in the backward) is not "
-            "ported yet: it is the next slice's, beside kernel 9's bf16 "
-            "training form")
     return (bool(train.get("BF16_ACTIVATIONS", True)),
             bool(train.get("BF16_MATMULS", True)))
 

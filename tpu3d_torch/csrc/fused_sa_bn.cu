@@ -64,17 +64,37 @@
 //     gradient's form on B), the same 8 x 8 register tile;
 // each a persistent grid (two blocks per SM) whose blocks write their
 // partials once, added in block order by reduce_partials, so every result
-// comes out the same from run to run. f32 throughout: the kernels are held
-// to the plain f32 version. Widths: multiples of 128 up to 1024; any P;
-// offsets in size_t (default.yaml's SA_0 slab is 4.3 GB).
+// comes out the same from run to run. Widths: multiples of 128 up to 1024;
+// any P; offsets in size_t (default.yaml's SA_0 slab is 4.3 GB).
+//
+// Two forms, the kernels templated on the slab type T. The f32 form (T =
+// float, the entries without a suffix) is f32 throughout and held to the
+// plain f32 version. The bf16 form (T = __nv_bfloat16, the *_bf16 entries)
+// is tpu3d's arithmetic on its accelerator: x0, x1 and x2 are bf16 slabs
+// (x1 and x2 the rounded values _chain_to makes, half the f32 form's
+// bytes), every prologue's output is rounded to bf16 before it enters a
+// product (a0 and a1; d_x2 and d_x1, as tpu3d rounds them at :234, :261,
+// :278, :297) and the weights come rounded to bf16 (in f32), so each
+// product is of two bf16 values, exact in f32, and only the order of the
+// f32 sums differs from tpu3d's; the stats epilogue rounds x1 and x2 to
+// bf16 before writing and summing them; final pools ReLU(BN2(x2)) rounded
+// to bf16 (out in bf16); d_y1 and d_y0 stay f32 slabs (tpu3d keeps the
+// gradients of the BatchNorm outputs in f32), so apply writes d_x0 into a
+// bf16 slab of its own. The products run on the f32 form's register tiles
+// (a tensor-core form is later work); the per-channel sums keep the f32
+// form's f64 block partials in block order, so a step repeats to the bit.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "fused_sa_common.cuh"
 
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 using fused_sa::cp_async16;
 using fused_sa::cp_async_commit;
@@ -85,7 +105,6 @@ using fused_sa::reduce;
 constexpr int kBM = 128;  // output tile rows (slots, or dW's rows)
 constexpr int kBN = 128;  // output tile columns
 constexpr int kBK = 16;   // the depth of a staged slice
-constexpr int kRawLd = kBK + 4;  // row stride of a landed A slice (floats)
 constexpr int kMaxWidth = 1024;
 
 // The per-channel vectors of one layer, each C_l floats.
@@ -110,6 +129,55 @@ __device__ __forceinline__ void to8(const float4& a, const float4& b,
                                     float (&v)[8]) {
   v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
   v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+
+template <typename T>
+constexpr bool kLowp = std::is_same_v<T, bf16>;
+
+// v in the form's precision: rounded to bf16 (kept in f32) in the bf16 form
+template <typename T>
+__device__ __forceinline__ float rnd(float v) {
+  if constexpr (kLowp<T>) return __bfloat162float(__float2bfloat16_rn(v));
+  return v;
+}
+
+// 8 consecutive values at p (16-byte aligned, shared or global), in f32
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  to8(*reinterpret_cast<const float4*>(p),
+      *reinterpret_cast<const float4*>(p + 4), v);
+}
+
+__device__ __forceinline__ void load8(const bf16* p, float (&v)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(h[j]);
+    v[2 * j] = f.x, v[2 * j + 1] = f.y;
+  }
+}
+
+// 4 consecutive values of global memory at p, read-only, in f32
+__device__ __forceinline__ float4 ld4f(const float* p) { return ld4(p); }
+
+__device__ __forceinline__ float4 ld4f(const bf16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// 4 values (already in the form's precision) to p
+__device__ __forceinline__ void st4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void st4(bf16* p, const float (&v)[4]) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                 *reinterpret_cast<const unsigned*>(&hi));
 }
 
 // The elementwise forms, each rounded step by step as the plain pieces'
@@ -139,8 +207,9 @@ __device__ __forceinline__ void vec8(const float* vec, int c, float (&v)[8]) {
 // slab; slot `slot` of group `g`): kRelu a = ReLU(x·mul + add); kDx2 d_x2 =
 // [slot == argmax] dval - ca - cb (x r - mr), dval and argmax (R, M, C)
 // rows of stride C; kDx1 d_x1 = s d_y - ca - cb (x1 r - mr) with x = d_y
-// and x2nd = x1. A slot past the slab (valid false) gives 0.
-template <int PRO>
+// and x2nd = x1; each rounded to bf16 in the bf16 form, the operand of a
+// product. A slot past the slab (valid false) gives 0.
+template <int PRO, typename T>
 __device__ __forceinline__ void prologue(float (&x)[8], const float (&x2nd)[8],
                                          const Layer& L, int c, bool valid,
                                          long long g, int slot, int C,
@@ -183,6 +252,8 @@ __device__ __forceinline__ void prologue(float (&x)[8], const float (&x2nd)[8],
                          xhat(x2nd[j], r[j], mr[j]));
     }
   }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) x[j] = rnd<T>(x[j]);
 }
 
 // acc += As^T Bs over one staged slice: As (kBK x 128, k-major over the
@@ -220,36 +291,84 @@ __device__ __forceinline__ int tile_col(int j) {
 // bn_row_gemm: Y (P x N) = pro(A) B, with the epilogue's column sums
 
 struct RowArgs {
-  const float* A;    // P x K
-  const float* A2;   // P x K: x1 beside d_y1 (kDx1)
+  const void* A;     // P x K: T (kRelu, kDx2) or f32 d_y1 (kDx1)
+  const void* A2;    // P x K, T: x1 beside d_y1 (kDx1)
   const float* B;    // K x N
-  const float* E;    // P x N: the epilogue's x (kDy)
+  const void* E;     // P x N, T: the epilogue's x (kDy)
   const float* dval;
   const int* argmax;
   Layer in;          // the prologue's layer (K channels)
   Layer out;         // the epilogue's layer (N channels, kDy)
-  float* Y;          // P x N
+  void* Y;           // P x N: T (kStats) or f32 (kDy)
   double* ws;        // blocks x 2 x N
   long long P;
   int K, N, S;
   long long tiles;   // ceil(P / kBM) x N / kBN
 };
 
-template <int PRO>
-constexpr size_t row_smem_floats() {
-  return (size_t)2 * kBM * kRawLd * (PRO == kDx1 ? 2 : 1) + kBK * kBM
-         + 3 * kBK * kBN + 8 * 2 * kBN;
+// the element types of a row product's A and Y in the form of slab type T
+template <int PRO, typename T>
+using RowA = std::conditional_t<PRO == kDx1, float, T>;
+template <int EPI, typename T>
+using RowY = std::conditional_t<EPI == kStats, T, float>;
+
+// row stride of a landed A slice, in elements: kBK and 16 bytes of padding
+template <typename TA>
+__host__ __device__ constexpr int raw_ld() {
+  return kBK + 16 / (int)sizeof(TA);
 }
 
-template <int PRO, int EPI>
+template <int PRO, typename T>
+__host__ __device__ constexpr size_t row_raw_bytes() {
+  using TA = RowA<PRO, T>;
+  return (size_t)2 * kBM * raw_ld<TA>() * sizeof(TA)
+         + (PRO == kDx1 ? (size_t)2 * kBM * raw_ld<T>() * sizeof(T) : 0);
+}
+
+template <int PRO, typename T>
+constexpr size_t row_smem_bytes() {
+  return row_raw_bytes<PRO, T>()
+         + (size_t)(kBK * kBM + 3 * kBK * kBN + 8 * 2 * kBN) * sizeof(float);
+}
+
+// rows [row0, row0 + rows) of `src` (row stride ld elements, from column
+// col0) into `dst` (row stride ldd), kBK / (16 / sizeof(TT)) cp.async
+// chunks a row; rows at or past `end` zeroed
+template <typename TT>
+__device__ __forceinline__ void stage_rows(TT* dst, int ldd, const TT* src,
+                                           size_t ld, int col0, int width,
+                                           long long row0, int rows,
+                                           long long end) {
+  constexpr int e = 16 / (int)sizeof(TT);
+  const int per_row = width / e;
+  for (int q = threadIdx.x; q < rows * per_row; q += kThreads) {
+    const int r = q / per_row, c = q % per_row;
+    const long long p = row0 + r;
+    TT* d = dst + r * ldd + e * c;
+    if (p < end)
+      cp_async16(d, src + (size_t)p * ld + col0 + e * c);
+    else
+      *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+template <int PRO, int EPI, typename T>
 __global__ void __launch_bounds__(kThreads, 2) bn_row_gemm(const RowArgs a) {
-  extern __shared__ __align__(16) float smem[];
-  float* raw = smem;                             // 2 x kBM x kRawLd
-  float* raw2 = raw + 2 * kBM * kRawLd;          // the same (kDx1)
-  float* As = raw2 + (PRO == kDx1 ? 2 * kBM * kRawLd : 0);  // kBK x kBM
+  using TA = RowA<PRO, T>;
+  using TY = RowY<EPI, T>;
+  constexpr int lda = raw_ld<TA>(), lda2 = raw_ld<T>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  TA* raw = reinterpret_cast<TA*>(smem);                // 2 x kBM x lda
+  T* raw2 = reinterpret_cast<T*>(                       // the same (kDx1)
+      smem + (size_t)2 * kBM * lda * sizeof(TA));
+  float* As = reinterpret_cast<float*>(smem + row_raw_bytes<PRO, T>());
   float* Bs = As + kBK * kBM;                    // 3 x kBK x kBN
   float* red = Bs + 3 * kBK * kBN;               // 8 warps x 2 x kBN
   double* bsum = reinterpret_cast<double*>(red + 8 * 2 * kBN);  // 2 x N
+  const TA* A = static_cast<const TA*>(a.A);
+  const T* A2 = static_cast<const T*>(a.A2);
+  const T* E = static_cast<const T*>(a.E);
+  TY* Y = static_cast<TY*>(a.Y);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int N = a.N, K = a.K;
@@ -269,21 +388,11 @@ __global__ void __launch_bounds__(kThreads, 2) bn_row_gemm(const RowArgs a) {
     const long long p0 = (t / tiles_n) * kBM;
     const int n0 = (int)(t % tiles_n) * kBN;
     const int buf = (int)(step & 1);
-    for (int q = tid; q < kBM * kBK / 4; q += kThreads) {
-      const int r = q >> 2, c = q & 3;
-      const long long p = p0 + r;
-      float* d = raw + (buf * kBM + r) * kRawLd + 4 * c;
-      float* d2 = raw2 + (buf * kBM + r) * kRawLd + 4 * c;
-      if (p < a.P) {
-        const size_t at = (size_t)p * K + ks * kBK + 4 * c;
-        cp_async16(d, a.A + at);
-        if constexpr (PRO == kDx1) cp_async16(d2, a.A2 + at);
-      } else {
-        *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
-        if constexpr (PRO == kDx1)
-          *reinterpret_cast<float4*>(d2) = make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-    }
+    stage_rows(raw + buf * kBM * lda, lda, A, K, ks * kBK, kBK, p0, kBM,
+               a.P);
+    if constexpr (PRO == kDx1)
+      stage_rows(raw2 + buf * kBM * lda2, lda2, A2, K, ks * kBK, kBK, p0,
+                 kBM, a.P);
     float* bs = Bs + (int)(step % 3) * kBK * kBN;
     for (int q = tid; q < kBK * kBN / 4; q += kThreads) {
       const int r = q >> 5, c = q & 31;
@@ -311,19 +420,14 @@ __global__ void __launch_bounds__(kThreads, 2) bn_row_gemm(const RowArgs a) {
     {  // the prologue on 8 elements of the slice, stored transposed
       const int buf = (int)(step & 1);
       const int r = tid & (kBM - 1), kh = tid >> 7;
-      const float* src = raw + (buf * kBM + r) * kRawLd + 8 * kh;
       float x[8], x2[8];
-      to8(*reinterpret_cast<const float4*>(src),
-          *reinterpret_cast<const float4*>(src + 4), x);
-      if constexpr (PRO == kDx1) {
-        const float* s2 = raw2 + (buf * kBM + r) * kRawLd + 8 * kh;
-        to8(*reinterpret_cast<const float4*>(s2),
-            *reinterpret_cast<const float4*>(s2 + 4), x2);
-      }
+      load8(raw + (buf * kBM + r) * lda + 8 * kh, x);
+      if constexpr (PRO == kDx1)
+        load8(raw2 + (buf * kBM + r) * lda2 + 8 * kh, x2);
       const long long p = p0 + r;
       const long long g = p / a.S;
-      prologue<PRO>(x, x2, a.in, ks * kBK + 8 * kh, p < a.P, g,
-                    (int)(p - g * a.S), K, a.dval, a.argmax);
+      prologue<PRO, T>(x, x2, a.in, ks * kBK + 8 * kh, p < a.P, g,
+                       (int)(p - g * a.S), K, a.dval, a.argmax);
 #pragma unroll
       for (int j = 0; j < 8; ++j) As[(8 * kh + j) * kBM + r] = x[j];
     }
@@ -354,7 +458,7 @@ __global__ void __launch_bounds__(kThreads, 2) bn_row_gemm(const RowArgs a) {
         const size_t at = (size_t)p * N + col;
         float v[4];
         if constexpr (EPI == kDy) {
-          const float4 e4 = ld4(a.E + at);
+          const float4 e4 = ld4f(E + at);
           const float e[4] = {e4.x, e4.y, e4.z, e4.w};
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
@@ -363,16 +467,15 @@ __global__ void __launch_bounds__(kThreads, 2) bn_row_gemm(const RowArgs a) {
             s1[4 * h + j] += v[j];
             s2[4 * h + j] += v[j] * xhat(e[j], rr[j], mr[j]);
           }
-        } else {
+        } else {  // x1 or x2, rounded to bf16 in the bf16 form
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            v[j] = acc[i][4 * h + j];
+            v[j] = rnd<T>(acc[i][4 * h + j]);
             s1[4 * h + j] += v[j];
             s2[4 * h + j] += v[j] * v[j];
           }
         }
-        *reinterpret_cast<float4*>(a.Y + at) =
-            make_float4(v[0], v[1], v[2], v[3]);
+        st4(Y + at, v);
       }
     }
 #pragma unroll
@@ -409,9 +512,9 @@ __global__ void __launch_bounds__(kThreads, 2) bn_row_gemm(const RowArgs a) {
 // bn_dw_gemm: dW (Ca x Nb) = ReLU(A·mul + add)^T pro(B) over the slots
 
 struct DwArgs {
-  const float* A;    // P x Ca
-  const float* B;    // P x Nb
-  const float* B2;   // P x Nb: x1 beside d_y1 (kDx1)
+  const void* A;     // P x Ca, T
+  const void* B;     // P x Nb: T (kDx2) or f32 d_y1 (kDx1)
+  const void* B2;    // P x Nb, T: x1 beside d_y1 (kDx1)
   const float* dval;
   const int* argmax;
   Layer la;          // A's layer (Ca channels)
@@ -423,17 +526,37 @@ struct DwArgs {
   int tiles_n, ntile;
 };
 
-template <int PRO>
-constexpr size_t dw_smem_floats() {
-  return (size_t)3 * kBK * kBM * (PRO == kDx1 ? 3 : 2);
+// The f32 form turns its landed f32 slices into the products' operands in
+// place; the bf16 form's land in their own types and are turned into two
+// f32 slices beside them
+template <typename T>
+constexpr bool kDwInPlace = std::is_same_v<T, float>;
+
+template <int PRO, typename T>
+__host__ __device__ constexpr size_t dw_raw_bytes() {
+  using TB = RowA<PRO, T>;
+  return (size_t)3 * kBK * kBM * sizeof(T) + (size_t)3 * kBK * kBN * sizeof(TB)
+         + (PRO == kDx1 ? (size_t)3 * kBK * kBN * sizeof(T) : 0);
 }
 
-template <int PRO>
+template <int PRO, typename T>
+constexpr size_t dw_smem_bytes() {
+  return dw_raw_bytes<PRO, T>()
+         + (kDwInPlace<T> ? 0 : (size_t)kBK * (kBM + kBN) * sizeof(float));
+}
+
+template <int PRO, typename T>
 __global__ void __launch_bounds__(kThreads, 2) bn_dw_gemm(const DwArgs a) {
-  extern __shared__ __align__(16) float smem[];
-  float* Ab = smem;                     // 3 x kBK x kBM
-  float* Bb = Ab + 3 * kBK * kBM;       // 3 x kBK x kBN
-  float* B2b = Bb + 3 * kBK * kBN;      // the same (kDx1)
+  using TB = RowA<PRO, T>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Ab = reinterpret_cast<T*>(smem);                       // 3 x kBK x kBM
+  TB* Bb = reinterpret_cast<TB*>(Ab + 3 * kBK * kBM);       // 3 x kBK x kBN
+  T* B2b = reinterpret_cast<T*>(Bb + 3 * kBK * kBN);        // (kDx1)
+  float* Af = reinterpret_cast<float*>(smem + dw_raw_bytes<PRO, T>());
+  float* Bf = Af + kBK * kBM;                               // (bf16 form)
+  const T* A = static_cast<const T*>(a.A);
+  const TB* B = static_cast<const TB*>(a.B);
+  const T* B2 = static_cast<const T*>(a.B2);
   const int tid = threadIdx.x;
   const int t = blockIdx.x % a.ntile;
   const long long split = blockIdx.x / a.ntile;
@@ -442,21 +565,14 @@ __global__ void __launch_bounds__(kThreads, 2) bn_dw_gemm(const DwArgs a) {
   const long long pend = min(a.P, pbeg + a.rows_per);
   const long long steps = pend > pbeg ? (pend - pbeg + kBK - 1) / kBK : 0;
 
+  // rows past the split are zeroed by the prologue
   auto issue = [&](long long step) {
     const int buf = (int)(step % 3);
-    for (int q = tid; q < kBK * kBM / 4; q += kThreads) {
-      const int r = q >> 5, c = q & 31;
-      const long long p = pbeg + step * kBK + r;
-      float* da = Ab + (buf * kBK + r) * kBM + 4 * c;
-      float* db = Bb + (buf * kBK + r) * kBN + 4 * c;
-      float* db2 = B2b + (buf * kBK + r) * kBN + 4 * c;
-      if (p < pend) {
-        cp_async16(da, a.A + (size_t)p * a.Ca + m0 + 4 * c);
-        cp_async16(db, a.B + (size_t)p * a.Nb + n0 + 4 * c);
-        if constexpr (PRO == kDx1)
-          cp_async16(db2, a.B2 + (size_t)p * a.Nb + n0 + 4 * c);
-      }  // rows past the split are zeroed by the prologue
-    }
+    const long long p = pbeg + step * kBK;
+    stage_rows(Ab + buf * kBK * kBM, kBM, A, a.Ca, m0, kBM, p, kBK, pend);
+    stage_rows(Bb + buf * kBK * kBN, kBN, B, a.Nb, n0, kBN, p, kBK, pend);
+    if constexpr (PRO == kDx1)
+      stage_rows(B2b + buf * kBK * kBN, kBN, B2, a.Nb, n0, kBN, p, kBK, pend);
   };
 
   float acc[8][8];
@@ -472,33 +588,32 @@ __global__ void __launch_bounds__(kThreads, 2) bn_dw_gemm(const DwArgs a) {
     cp_async_wait<1>();
     __syncthreads();  // the slices have landed
     const int buf = (int)(step % 3);
-    {  // the prologues on 8 elements of each operand, in place
+    float* pa0 = kDwInPlace<T> ? reinterpret_cast<float*>(Ab) + buf * kBK * kBM
+                               : Af;
+    float* pb0 = kDwInPlace<T> ? reinterpret_cast<float*>(Bb) + buf * kBK * kBN
+                               : Bf;
+    {  // the prologues on 8 elements of each operand
       const int r = tid >> 4, c = 8 * (tid & 15);
       const long long p = pbeg + step * kBK + r;
       const bool valid = p < pend;
       const long long g = p / a.S;
-      float* pa = Ab + (buf * kBK + r) * kBM + c;
-      float* pb = Bb + (buf * kBK + r) * kBN + c;
       float x[8], y[8], y2[8];
-      to8(*reinterpret_cast<float4*>(pa), *reinterpret_cast<float4*>(pa + 4),
-          x);
-      to8(*reinterpret_cast<float4*>(pb), *reinterpret_cast<float4*>(pb + 4),
-          y);
-      if constexpr (PRO == kDx1) {
-        const float* pb2 = B2b + (buf * kBK + r) * kBN + c;
-        to8(*reinterpret_cast<const float4*>(pb2),
-            *reinterpret_cast<const float4*>(pb2 + 4), y2);
-      }
-      prologue<kRelu>(x, x, a.la, m0 + c, valid, 0, 0, 0, nullptr, nullptr);
-      prologue<PRO>(y, y2, a.lb, n0 + c, valid, g, (int)(p - g * a.S), a.Nb,
-                    a.dval, a.argmax);
+      load8(Ab + (buf * kBK + r) * kBM + c, x);
+      load8(Bb + (buf * kBK + r) * kBN + c, y);
+      if constexpr (PRO == kDx1) load8(B2b + (buf * kBK + r) * kBN + c, y2);
+      prologue<kRelu, T>(x, x, a.la, m0 + c, valid, 0, 0, 0, nullptr,
+                         nullptr);
+      prologue<PRO, T>(y, y2, a.lb, n0 + c, valid, g, (int)(p - g * a.S),
+                       a.Nb, a.dval, a.argmax);
+      float* pa = pa0 + r * kBM + c;
+      float* pb = pb0 + r * kBN + c;
       *reinterpret_cast<float4*>(pa) = make_float4(x[0], x[1], x[2], x[3]);
       *reinterpret_cast<float4*>(pa + 4) = make_float4(x[4], x[5], x[6], x[7]);
       *reinterpret_cast<float4*>(pb) = make_float4(y[0], y[1], y[2], y[3]);
       *reinterpret_cast<float4*>(pb + 4) = make_float4(y[4], y[5], y[6], y[7]);
     }
     __syncthreads();
-    mma_slice(Ab + buf * kBK * kBM, Bb + buf * kBK * kBN, acc);
+    mma_slice(pa0, pb0, acc);
   }
   cp_async_wait<0>();
   float* out = a.ws + (size_t)split * a.Ca * a.Nb;
@@ -518,8 +633,9 @@ __global__ void __launch_bounds__(kThreads, 2) bn_dw_gemm(const DwArgs a) {
 // Per channel sum x and sum x^2 of x (P x C) over the block's run of rows:
 // thread (quad q, phase ph) takes channels 4q.. of rows ph, ph + phases,
 // ..., in f32 over 64-row chunks, f64 across them -> ws[block] (2 x C).
+template <typename T>
 __global__ void __launch_bounds__(kThreads) bn_stats0_kernel(
-    const float* __restrict__ x, long long P, int C, long long per_block,
+    const T* __restrict__ x, long long P, int C, long long per_block,
     double* __restrict__ ws) {
   extern __shared__ __align__(16) double dsm[];
   const int Q = C / 4, phases = kThreads / Q;
@@ -532,7 +648,7 @@ __global__ void __launch_bounds__(kThreads) bn_stats0_kernel(
       float ps[4] = {0.f, 0.f, 0.f, 0.f}, pq[4] = {0.f, 0.f, 0.f, 0.f};
       const long long c1 = min(r1, c0 + 64LL * phases);
       for (long long p = c0; p < c1; p += phases) {
-        const float4 v = ld4(x + (size_t)p * C + 4 * q);
+        const float4 v = ld4f(x + (size_t)p * C + 4 * q);
         const float e[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
@@ -562,13 +678,14 @@ __global__ void __launch_bounds__(kThreads) bn_stats0_kernel(
 }
 
 // For each (group, channel) of x2 (groups x S x C): the max over the S
-// slots of ReLU(x2·mul + add), the first slot that reaches it, and x2
+// slots of ReLU(x2·mul + add) (rounded to bf16 in the bf16 form, before the
+// comparison, as tpu3d pools it), the first slot that reaches it, and x2
 // there. A warp per (group, 128 channels), 4 channels a lane.
+template <typename T>
 __global__ void __launch_bounds__(kThreads) bn_final_kernel(
-    const float* __restrict__ x2, const float* __restrict__ mul,
+    const T* __restrict__ x2, const float* __restrict__ mul,
     const float* __restrict__ add, long long groups, int S, int C,
-    float* __restrict__ out, int* __restrict__ argmax,
-    float* __restrict__ at) {
+    T* __restrict__ out, int* __restrict__ argmax, float* __restrict__ at) {
   const long long w = ((long long)blockIdx.x * kThreads + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   const int chunks = C / 128;
@@ -581,14 +698,14 @@ __global__ void __launch_bounds__(kThreads) bn_final_kernel(
   a[0] = aa.x, a[1] = aa.y, a[2] = aa.z, a[3] = aa.w;
   float best[4] = {-1.f, -1.f, -1.f, -1.f}, raw[4] = {0.f, 0.f, 0.f, 0.f};
   int arg[4] = {0, 0, 0, 0};
-  const float* src = x2 + (size_t)g * S * C + c;
+  const T* src = x2 + (size_t)g * S * C + c;
 #pragma unroll 8
   for (int s = 0; s < S; ++s) {
-    const float4 v = ld4(src + (size_t)s * C);
+    const float4 v = ld4f(src + (size_t)s * C);
     const float e[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const float y = fmaxf(affine(e[j], m[j], a[j]), 0.0f);
+      const float y = rnd<T>(fmaxf(affine(e[j], m[j], a[j]), 0.0f));
       if (y > best[j]) {  // strictly greater: the first slot keeps a tie
         best[j] = y;
         arg[j] = s;
@@ -597,30 +714,32 @@ __global__ void __launch_bounds__(kThreads) bn_final_kernel(
     }
   }
   const size_t o = (size_t)g * C + c;
-  *reinterpret_cast<float4*>(out + o) =
-      make_float4(best[0], best[1], best[2], best[3]);
+  st4(out + o, best);
   *reinterpret_cast<int4*>(argmax + o) = make_int4(arg[0], arg[1], arg[2],
                                                    arg[3]);
   *reinterpret_cast<float4*>(at + o) = make_float4(raw[0], raw[1], raw[2],
                                                    raw[3]);
 }
 
-// d_x0 = s0 d_y0 - ca0 - cb0 (x0 r0 - mr0), in place of d_y0 (P x C)
+// d_x0 = s0 d_y0 - ca0 - cb0 (x0 r0 - mr0) from dy (P x C, f32) into dx
+// (P x C, T): the f32 form passes dx = dy, in place
+template <typename T>
 __global__ void __launch_bounds__(kThreads) bn_apply_kernel(
-    float* __restrict__ dy, const float* __restrict__ x0, const Layer L,
-    long long quads, int C) {
+    const float* dy, const T* __restrict__ x0, const Layer L,
+    long long quads, int C, T* dx) {
   for (long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
        e < quads; e += (long long)gridDim.x * kThreads) {
     const int c = (int)((4 * e) % C);
     const float4 d = reinterpret_cast<const float4*>(dy)[e];
-    const float4 x = ld4(x0 + 4 * e);
+    const float4 x = ld4f(x0 + 4 * e);
     const float4 s = ld4(L.s + c), ca = ld4(L.ca + c), cb = ld4(L.cb + c);
     const float4 r = ld4(L.r + c), mr = ld4(L.mr + c);
-    reinterpret_cast<float4*>(dy)[e] = make_float4(
+    const float v[4] = {
         grad_form(__fmul_rn(s.x, d.x), ca.x, cb.x, xhat(x.x, r.x, mr.x)),
         grad_form(__fmul_rn(s.y, d.y), ca.y, cb.y, xhat(x.y, r.y, mr.y)),
         grad_form(__fmul_rn(s.z, d.z), ca.z, cb.z, xhat(x.z, r.z, mr.z)),
-        grad_form(__fmul_rn(s.w, d.w), ca.w, cb.w, xhat(x.w, r.w, mr.w)));
+        grad_form(__fmul_rn(s.w, d.w), ca.w, cb.w, xhat(x.w, r.w, mr.w))};
+    st4(dx + 4 * e, v);
   }
 }
 
@@ -657,14 +776,14 @@ int row_blocks(long long P, int N) {
   return (int)std::min(tiles, 2LL * sm_count());
 }
 
-template <int PRO, int EPI>
+template <int PRO, int EPI, typename T>
 cudaError_t launch_row(const RowArgs& a, int blocks, double* sums,
                        cudaStream_t stream) {
-  const size_t smem = row_smem_floats<PRO>() * sizeof(float)
+  const size_t smem = row_smem_bytes<PRO, T>()
                       + 2 * (size_t)a.N * sizeof(double);
-  cudaError_t err = set_smem(bn_row_gemm<PRO, EPI>, smem);
+  cudaError_t err = set_smem(bn_row_gemm<PRO, EPI, T>, smem);
   if (err != cudaSuccess) return err;
-  bn_row_gemm<PRO, EPI><<<blocks, kThreads, smem, stream>>>(a);
+  bn_row_gemm<PRO, EPI, T><<<blocks, kThreads, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return reduce<double>(a.ws, blocks, 2LL * a.N, sums, stream);
@@ -679,27 +798,136 @@ int dw_splits(long long P, int ntile) {
   return (int)(s < most ? s : most);
 }
 
-template <int PRO>
+template <int PRO, typename T>
 cudaError_t launch_dw(DwArgs a, int splits, float* grads,
                       cudaStream_t stream) {
   a.tiles_n = a.Nb / kBN;
   a.ntile = (a.Ca / kBM) * a.tiles_n;
   a.rows_per = ((a.P + splits - 1) / splits + kBK - 1) / kBK * kBK;
-  const size_t smem = dw_smem_floats<PRO>() * sizeof(float);
-  cudaError_t err = set_smem(bn_dw_gemm<PRO>, smem);
+  const size_t smem = dw_smem_bytes<PRO, T>();
+  cudaError_t err = set_smem(bn_dw_gemm<PRO, T>, smem);
   if (err != cudaSuccess) return err;
-  bn_dw_gemm<PRO><<<splits * a.ntile, kThreads, smem, stream>>>(a);
+  bn_dw_gemm<PRO, T><<<splits * a.ntile, kThreads, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return reduce<float>(a.ws, splits, (long long)a.Ca * a.Nb, grads, stream);
 }
 
+// The entries of both forms, on slabs of type T (see the C entries below)
+
+template <typename T>
+int stats0(const T* x0, long long P, int C1, double* ws, double* sums,
+           cudaStream_t stream) {
+  if (const int pending = tpu3d::pending_error(stream)) return pending;
+  if (P < 1 || !width_ok(C1)) return (int)cudaErrorInvalidValue;
+  const int blocks = row_blocks(P, 128);
+  const long long per_block = (P + blocks - 1) / blocks;
+  const int phases = kThreads / (C1 / 4);
+  const size_t smem = (size_t)(phases > 0 ? phases : 1) * 2 * C1 * 8;
+  bn_stats0_kernel<T><<<blocks, kThreads, smem, stream>>>(x0, P, C1,
+                                                          per_block, ws);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)reduce<double>(ws, blocks, 2LL * C1, sums, stream);
+}
+
+template <typename T>
+int layer(const T* x, const float* mul, const float* add, const float* w,
+          long long P, int K, int N, T* y, double* ws, double* sums,
+          cudaStream_t stream) {
+  if (const int pending = tpu3d::pending_error(stream)) return pending;
+  if (P < 1 || !width_ok(K) || !width_ok(N)) return (int)cudaErrorInvalidValue;
+  RowArgs a{};
+  a.A = x, a.B = w, a.Y = y, a.ws = ws, a.P = P, a.K = K, a.N = N, a.S = 1;
+  a.in.mul = mul, a.in.add = add;
+  a.tiles = (P + kBM - 1) / kBM * (N / kBN);
+  return (int)launch_row<kRelu, kStats, T>(a, row_blocks(P, N), sums, stream);
+}
+
+template <typename T>
+int final_pass(const T* x2, const float* mul, const float* add,
+               long long groups, int S, int C3, T* out, int* argmax,
+               float* at, cudaStream_t stream) {
+  if (const int pending = tpu3d::pending_error(stream)) return pending;
+  if (groups < 1 || S < 1 || !width_ok(C3)) return (int)cudaErrorInvalidValue;
+  const long long warps = groups * (C3 / 128);
+  bn_final_kernel<T><<<(unsigned)((warps + 7) / 8), kThreads, 0, stream>>>(
+      x2, mul, add, groups, S, C3, out, argmax, at);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int wave1(const T* x2, const T* x1, const float* pk, const float* w2t,
+          const float* dval, const int* argmax, long long P, int S, int C1,
+          int C2, int C3, float* dy1, double* wsr, double* sums, float* wsd,
+          float* dw2, cudaStream_t stream) {
+  if (const int pending = tpu3d::pending_error(stream)) return pending;
+  if (P < 1 || S < 1 || P % S || !width_ok(C1) || !width_ok(C2)
+      || !width_ok(C3))
+    return (int)cudaErrorInvalidValue;
+  const Layer l1 = layer_of(pk, 1, C1, C2, C3);
+  const Layer l2 = layer_of(pk, 2, C1, C2, C3);
+  RowArgs a{};
+  a.A = x2, a.B = w2t, a.E = x1, a.dval = dval, a.argmax = argmax;
+  a.in = l2, a.out = l1, a.Y = dy1, a.ws = wsr;
+  a.P = P, a.K = C3, a.N = C2, a.S = S;
+  a.tiles = (P + kBM - 1) / kBM * (C2 / kBN);
+  cudaError_t err = launch_row<kDx2, kDy, T>(a, row_blocks(P, C2), sums,
+                                             stream);
+  if (err != cudaSuccess) return (int)err;
+  DwArgs d{};
+  d.A = x1, d.B = x2, d.dval = dval, d.argmax = argmax, d.la = l1, d.lb = l2;
+  d.ws = wsd, d.P = P, d.Ca = C2, d.Nb = C3, d.S = S;
+  return (int)launch_dw<kDx2, T>(
+      d, dw_splits(P, (C2 / kBM) * (C3 / kBN)), dw2, stream);
+}
+
+template <typename T>
+int wave2(const float* dy1, const T* x1, const T* x0, const float* pk,
+          const float* w1t, long long P, int C1, int C2, int C3, float* dy0,
+          double* wsr, double* sums, float* wsd, float* dw1,
+          cudaStream_t stream) {
+  if (const int pending = tpu3d::pending_error(stream)) return pending;
+  if (P < 1 || !width_ok(C1) || !width_ok(C2) || !width_ok(C3))
+    return (int)cudaErrorInvalidValue;
+  const Layer l0 = layer_of(pk, 0, C1, C2, C3);
+  const Layer l1 = layer_of(pk, 1, C1, C2, C3);
+  RowArgs a{};
+  a.A = dy1, a.A2 = x1, a.B = w1t, a.E = x0, a.in = l1, a.out = l0;
+  a.Y = dy0, a.ws = wsr, a.P = P, a.K = C2, a.N = C1, a.S = 1;
+  a.tiles = (P + kBM - 1) / kBM * (C1 / kBN);
+  cudaError_t err = launch_row<kDx1, kDy, T>(a, row_blocks(P, C1), sums,
+                                             stream);
+  if (err != cudaSuccess) return (int)err;
+  DwArgs d{};
+  d.A = x0, d.B = dy1, d.B2 = x1, d.la = l0, d.lb = l1;
+  d.ws = wsd, d.P = P, d.Ca = C1, d.Nb = C2, d.S = 1;
+  return (int)launch_dw<kDx1, T>(
+      d, dw_splits(P, (C1 / kBM) * (C2 / kBN)), dw1, stream);
+}
+
+template <typename T>
+int apply(const float* dy0, const T* x0, const float* pk, long long P,
+          int C1, T* dx0, cudaStream_t stream) {
+  if (const int pending = tpu3d::pending_error(stream)) return pending;
+  if (P < 1 || !width_ok(C1)) return (int)cudaErrorInvalidValue;
+  const long long quads = P * C1 / 4;
+  const long long blocks = std::min((quads + kThreads - 1) / kThreads,
+                                    8LL * sm_count());
+  bn_apply_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      dy0, x0, layer_of(pk, 0, C1, 128, 128), quads, C1, dx0);
+  return (int)cudaGetLastError();
+}
+
+cudaStream_t as_stream(void* p) { return static_cast<cudaStream_t>(p); }
+
 }  // namespace
 
-// The workspace each entry needs, in bytes: row products blocks x 2 x N
-// doubles; weight-gradient products splits x Ca x Nb floats; stats0 blocks
-// x 2 x C doubles. kind 0: stats0 over P slots of width C (N unused); 1: a
-// row product at output width N; 2: a weight gradient Ca = C, Nb = N.
+// The workspace each entry needs, in bytes (both forms): row products
+// blocks x 2 x N doubles; weight-gradient products splits x Ca x Nb floats;
+// stats0 blocks x 2 x C doubles. kind 0: stats0 over P slots of width C (N
+// unused); 1: a row product at output width N; 2: a weight gradient Ca =
+// C, Nb = N.
 extern "C" long long tpu3d_fused_sa_bn_workspace(int kind, long long P,
                                                  int C, int N) {
   if (kind == 0) return (long long)row_blocks(P, 128) * 2 * C * 8;
@@ -707,23 +935,14 @@ extern "C" long long tpu3d_fused_sa_bn_workspace(int kind, long long P,
   return (long long)dw_splits(P, (C / kBM) * (N / kBN)) * C * N * 4;
 }
 
+// The f32 form.
+
 // stats0: x0 (P x C1) -> sums (2 x C1) f64, the per-channel sum and sum of
 // squares over every slot.
 extern "C" int tpu3d_fused_sa_bn_stats0(const float* x0, long long P, int C1,
                                         double* ws, double* sums,
                                         void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (const int pending = tpu3d::pending_error(stream)) return pending;
-  if (P < 1 || !width_ok(C1)) return (int)cudaErrorInvalidValue;
-  const int blocks = row_blocks(P, 128);
-  const long long per_block = (P + blocks - 1) / blocks;
-  const int phases = kThreads / (C1 / 4);
-  const size_t smem = (size_t)(phases > 0 ? phases : 1) * 2 * C1 * 8;
-  bn_stats0_kernel<<<blocks, kThreads, smem, stream>>>(x0, P, C1, per_block,
-                                                       ws);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)reduce<double>(ws, blocks, 2LL * C1, sums, stream);
+  return stats0(x0, P, C1, ws, sums, as_stream(stream_ptr));
 }
 
 // A statistics pass's layer: y (P x N) = ReLU(x·mul + add) w, x (P x K),
@@ -733,14 +952,7 @@ extern "C" int tpu3d_fused_sa_bn_layer(const float* x, const float* mul,
                                        long long P, int K, int N, float* y,
                                        double* ws, double* sums,
                                        void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (const int pending = tpu3d::pending_error(stream)) return pending;
-  if (P < 1 || !width_ok(K) || !width_ok(N)) return (int)cudaErrorInvalidValue;
-  RowArgs a{};
-  a.A = x, a.B = w, a.Y = y, a.ws = ws, a.P = P, a.K = K, a.N = N, a.S = 1;
-  a.in.mul = mul, a.in.add = add;
-  a.tiles = (P + kBM - 1) / kBM * (N / kBN);
-  return (int)launch_row<kRelu, kStats>(a, row_blocks(P, N), sums, stream);
+  return layer(x, mul, add, w, P, K, N, y, ws, sums, as_stream(stream_ptr));
 }
 
 // final: x2 (groups x S x C3), mul2 and add2 -> out, argmax, x2 at the
@@ -749,13 +961,8 @@ extern "C" int tpu3d_fused_sa_bn_final(const float* x2, const float* mul,
                                        const float* add, long long groups,
                                        int S, int C3, float* out, int* argmax,
                                        float* at, void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (const int pending = tpu3d::pending_error(stream)) return pending;
-  if (groups < 1 || S < 1 || !width_ok(C3)) return (int)cudaErrorInvalidValue;
-  const long long warps = groups * (C3 / 128);
-  bn_final_kernel<<<(unsigned)((warps + 7) / 8), kThreads, 0, stream>>>(
-      x2, mul, add, groups, S, C3, out, argmax, at);
-  return (int)cudaGetLastError();
+  return final_pass(x2, mul, add, groups, S, C3, out, argmax, at,
+                    as_stream(stream_ptr));
 }
 
 // wave 1: x2 (P x C3), x1 (P x C2), the pack pk, w2t = W2^T (C3 x C2),
@@ -769,25 +976,8 @@ extern "C" int tpu3d_fused_sa_bn_wave1(const float* x2, const float* x1,
                                        int C3, float* dy1, double* wsr,
                                        double* sums, float* wsd, float* dw2,
                                        void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (const int pending = tpu3d::pending_error(stream)) return pending;
-  if (P < 1 || S < 1 || P % S || !width_ok(C1) || !width_ok(C2)
-      || !width_ok(C3))
-    return (int)cudaErrorInvalidValue;
-  const Layer l1 = layer_of(pk, 1, C1, C2, C3);
-  const Layer l2 = layer_of(pk, 2, C1, C2, C3);
-  RowArgs a{};
-  a.A = x2, a.B = w2t, a.E = x1, a.dval = dval, a.argmax = argmax;
-  a.in = l2, a.out = l1, a.Y = dy1, a.ws = wsr;
-  a.P = P, a.K = C3, a.N = C2, a.S = S;
-  a.tiles = (P + kBM - 1) / kBM * (C2 / kBN);
-  cudaError_t err = launch_row<kDx2, kDy>(a, row_blocks(P, C2), sums, stream);
-  if (err != cudaSuccess) return (int)err;
-  DwArgs d{};
-  d.A = x1, d.B = x2, d.dval = dval, d.argmax = argmax, d.la = l1, d.lb = l2;
-  d.ws = wsd, d.P = P, d.Ca = C2, d.Nb = C3, d.S = S;
-  return (int)launch_dw<kDx2>(
-      d, dw_splits(P, (C2 / kBM) * (C3 / kBN)), dw2, stream);
+  return wave1(x2, x1, pk, w2t, dval, argmax, P, S, C1, C2, C3, dy1, wsr,
+               sums, wsd, dw2, as_stream(stream_ptr));
 }
 
 // wave 2: dy1 (P x C2), x1 (P x C2), x0 (P x C1), pk, w1t = W1^T (C2 x C1)
@@ -798,23 +988,8 @@ extern "C" int tpu3d_fused_sa_bn_wave2(const float* dy1, const float* x1,
                                        int C2, int C3, float* dy0,
                                        double* wsr, double* sums, float* wsd,
                                        float* dw1, void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (const int pending = tpu3d::pending_error(stream)) return pending;
-  if (P < 1 || !width_ok(C1) || !width_ok(C2) || !width_ok(C3))
-    return (int)cudaErrorInvalidValue;
-  const Layer l0 = layer_of(pk, 0, C1, C2, C3);
-  const Layer l1 = layer_of(pk, 1, C1, C2, C3);
-  RowArgs a{};
-  a.A = dy1, a.A2 = x1, a.B = w1t, a.E = x0, a.in = l1, a.out = l0;
-  a.Y = dy0, a.ws = wsr, a.P = P, a.K = C2, a.N = C1, a.S = 1;
-  a.tiles = (P + kBM - 1) / kBM * (C1 / kBN);
-  cudaError_t err = launch_row<kDx1, kDy>(a, row_blocks(P, C1), sums, stream);
-  if (err != cudaSuccess) return (int)err;
-  DwArgs d{};
-  d.A = x0, d.B = dy1, d.B2 = x1, d.la = l0, d.lb = l1;
-  d.ws = wsd, d.P = P, d.Ca = C1, d.Nb = C2, d.S = 1;
-  return (int)launch_dw<kDx1>(
-      d, dw_splits(P, (C1 / kBM) * (C2 / kBN)), dw1, stream);
+  return wave2(dy1, x1, x0, pk, w1t, P, C1, C2, C3, dy0, wsr, sums, wsd, dw1,
+               as_stream(stream_ptr));
 }
 
 // apply: d_x0 = s0 d_y0 - ca0 - cb0 x̂0 in place of dy0 (P x C1); pk the
@@ -822,13 +997,58 @@ extern "C" int tpu3d_fused_sa_bn_wave2(const float* dy1, const float* x1,
 extern "C" int tpu3d_fused_sa_bn_apply(float* dy0, const float* x0,
                                        const float* pk, long long P, int C1,
                                        void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (const int pending = tpu3d::pending_error(stream)) return pending;
-  if (P < 1 || !width_ok(C1)) return (int)cudaErrorInvalidValue;
-  const long long quads = P * C1 / 4;
-  const long long blocks = std::min((quads + kThreads - 1) / kThreads,
-                                    8LL * sm_count());
-  bn_apply_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(
-      dy0, x0, layer_of(pk, 0, C1, 128, 128), quads, C1);
-  return (int)cudaGetLastError();
+  return apply(dy0, x0, pk, P, C1, dy0, as_stream(stream_ptr));
+}
+
+// The bf16 form: the same arguments, the chain's slabs (x0, x1, x2) and
+// final's out in bf16; the weights (w, w2t, w1t) f32 rounded to bf16 by
+// the caller; dy1 and dy0 f32.
+
+extern "C" int tpu3d_fused_sa_bn_stats0_bf16(const bf16* x0, long long P,
+                                             int C1, double* ws, double* sums,
+                                             void* stream_ptr) {
+  return stats0(x0, P, C1, ws, sums, as_stream(stream_ptr));
+}
+
+extern "C" int tpu3d_fused_sa_bn_layer_bf16(const bf16* x, const float* mul,
+                                            const float* add, const float* w,
+                                            long long P, int K, int N,
+                                            bf16* y, double* ws, double* sums,
+                                            void* stream_ptr) {
+  return layer(x, mul, add, w, P, K, N, y, ws, sums, as_stream(stream_ptr));
+}
+
+extern "C" int tpu3d_fused_sa_bn_final_bf16(const bf16* x2, const float* mul,
+                                            const float* add,
+                                            long long groups, int S, int C3,
+                                            bf16* out, int* argmax, float* at,
+                                            void* stream_ptr) {
+  return final_pass(x2, mul, add, groups, S, C3, out, argmax, at,
+                    as_stream(stream_ptr));
+}
+
+extern "C" int tpu3d_fused_sa_bn_wave1_bf16(
+    const bf16* x2, const bf16* x1, const float* pk, const float* w2t,
+    const float* dval, const int* argmax, long long P, int S, int C1, int C2,
+    int C3, float* dy1, double* wsr, double* sums, float* wsd, float* dw2,
+    void* stream_ptr) {
+  return wave1(x2, x1, pk, w2t, dval, argmax, P, S, C1, C2, C3, dy1, wsr,
+               sums, wsd, dw2, as_stream(stream_ptr));
+}
+
+extern "C" int tpu3d_fused_sa_bn_wave2_bf16(
+    const float* dy1, const bf16* x1, const bf16* x0, const float* pk,
+    const float* w1t, long long P, int C1, int C2, int C3, float* dy0,
+    double* wsr, double* sums, float* wsd, float* dw1, void* stream_ptr) {
+  return wave2(dy1, x1, x0, pk, w1t, P, C1, C2, C3, dy0, wsr, sums, wsd, dw1,
+               as_stream(stream_ptr));
+}
+
+// apply: d_x0 from dy0 (f32) and x0 (bf16) into dx0 (P x C1, bf16), rounded
+// once, as tpu3d returns it in x0's dtype
+extern "C" int tpu3d_fused_sa_bn_apply_bf16(const float* dy0, const bf16* x0,
+                                            const float* pk, long long P,
+                                            int C1, bf16* dx0,
+                                            void* stream_ptr) {
+  return apply(dy0, x0, pk, P, C1, dx0, as_stream(stream_ptr));
 }

@@ -63,6 +63,8 @@ forms. Under the f32 contract every step is the f32 one.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Sequence
 
 import torch
@@ -82,6 +84,34 @@ from ..parallel.mesh import batch_means
 from ..precision import F32, Precision, linear, promote_f32
 
 
+_frozen = threading.local()
+
+
+@contextlib.contextmanager
+def running_stats_frozen():
+    """Within it, BatchNorm in training leaves its running statistics as
+    they are (on this thread). The backward's recomputation of a
+    rematerialised forward (``TRAIN.REMAT``) runs under it, so that the
+    statistics take one update a step, in the step's first forward, as
+    tpu3d's ``nn.remat`` backbone takes them."""
+    before = getattr(_frozen, "on", False)
+    _frozen.on = True
+    try:
+        yield
+    finally:
+        _frozen.on = before
+
+
+def fold_running(bn, mean, var, momentum):
+    """bn's running statistics m·running + (1 − m)·batch, unless they are
+    frozen (``running_stats_frozen``)."""
+    if getattr(_frozen, "on", False):
+        return
+    with torch.no_grad():
+        bn.mean.copy_(momentum * bn.mean + (1 - momentum) * mean)
+        bn.var.copy_(momentum * bn.var + (1 - momentum) * var)
+
+
 class BatchNorm(nn.Module):
     """BatchNorm over the last axis (tpu3d's ``BatchNorm``).
 
@@ -89,7 +119,8 @@ class BatchNorm(nn.Module):
     affine as in the JAX package: x·(scale/√(var+ε)) + (bias −
     mean·scale/√(var+ε)). In training, from the batch's statistics over
     every other axis, with the biased variance E[x²] − mean², and the
-    running statistics updated in place to m·running + (1 − m)·batch, where
+    running statistics updated in place (``fold_running``, not under
+    ``running_stats_frozen``) to m·running + (1 − m)·batch, where
     ``momentum`` m follows flax's convention (PyTorch's momentum is 1 − m)
     and the running variance takes the biased batch variance, as tpu3d's
     does (``torch.nn.BatchNorm`` would take the unbiased one). Under a
@@ -124,9 +155,7 @@ class BatchNorm(nn.Module):
         xf = promote_f32(x)
         mean, sq = batch_means((xf, xf * xf), axes)
         var = sq - mean * mean
-        with torch.no_grad():
-            self.mean.copy_(momentum * self.mean + (1 - momentum) * mean)
-            self.var.copy_(momentum * self.var + (1 - momentum) * var)
+        fold_running(self, mean, var, momentum)
         inv = torch.rsqrt(var + self.eps)
         return (((xf - mean) * inv) * self.scale + self.bias).to(x.dtype)
 
@@ -393,10 +422,8 @@ class PointnetSAModule(nn.Module):
     def _update_stats(bns, stats, bn_momentum):
         """Fold a fused op's batch statistics into the running ones, as
         ``BatchNorm.forward`` folds its own."""
-        with torch.no_grad():
-            for bn, mean, var in zip(bns, *stats):
-                bn.mean.copy_(bn_momentum * bn.mean + (1 - bn_momentum) * mean)
-                bn.var.copy_(bn_momentum * bn.var + (1 - bn_momentum) * var)
+        for bn, mean, var in zip(bns, *stats):
+            fold_running(bn, mean, var, bn_momentum)
 
     def _bn_slab(self, x, train, bn_momentum):
         """The slab route with BatchNorm (``fused_bn_mlp_pool``) on the

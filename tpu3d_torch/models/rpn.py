@@ -3,14 +3,17 @@ bin-regression heads (counterpart of ``tpu3d/models/rpn.py``)."""
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config.config import as_attrdict
 from ..parallel.mesh import draw_rows
 from ..precision import F32, Precision, linear, promote_f32
 from .bbox_codec import reg_channels
-from .pointnet2 import BatchNorm, Pointnet2MSG
+from .pointnet2 import BatchNorm, Pointnet2MSG, running_stats_frozen
 
 
 def dropout(x: torch.Tensor, rate: float,
@@ -83,6 +86,9 @@ class RPN(nn.Module):
         self.reg_head = HeadMLP(feat_c, c.RPN.REG_FC, n_reg,
                                 use_bn=c.RPN.USE_BN, dp_ratio=c.RPN.DP_RATIO,
                                 device=device)
+        # TRAIN.REMAT: the backbone recomputed in the backward (tpu3d:
+        # models/rpn.py:84-88, nn.remat of Pointnet2MSG alone)
+        self.remat = bool(c.get("TRAIN", {}).get("REMAT", False))
 
     def forward(self, pts_input: torch.Tensor, train: bool = False,
                 bn_momentum: float = 0.9,
@@ -92,9 +98,21 @@ class RPN(nn.Module):
         draw their dropout masks from ``generator`` (cls head first).
         ``precision``: the numerics contract (tpu3d: models/rpn.py:70-81),
         the backbone's Dense layers in its ``dense_dtype``, the heads' in
-        its ``head_dtype`` (f32 in training)."""
-        backbone_xyz, backbone_features = self.backbone(
-            pts_input, train, bn_momentum, precision)
+        its ``head_dtype`` (f32 in training). With ``TRAIN.REMAT`` a
+        training forward that records gradients keeps none of the
+        backbone's activations: ``torch.utils.checkpoint`` recomputes them
+        in the backward, with the same rounding points, routes and
+        fixed-order sums, so with the same bits, and its BatchNorm layers'
+        running statistics frozen (``running_stats_frozen``), so they take
+        the step's one update."""
+        args = (pts_input, train, bn_momentum, precision)
+        if train and self.remat and torch.is_grad_enabled():
+            backbone_xyz, backbone_features = checkpoint(
+                self.backbone, *args, use_reentrant=False,
+                context_fn=lambda: (contextlib.nullcontext(),
+                                    running_stats_frozen()))
+        else:
+            backbone_xyz, backbone_features = self.backbone(*args)
         dt = precision.head_dtype
         return {
             "rpn_cls": self.cls_head(backbone_features, train, bn_momentum,

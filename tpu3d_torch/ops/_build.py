@@ -28,8 +28,9 @@ wrappers add to it, at the launch. Several counters may share one C entry
 where it replaces several TPU kernels (``fused_sa_slab`` and
 ``fused_sa_slab_bn``; the BatchNorm chain's statistics passes 1 and 2).
 ``BF16_LAUNCHES`` counts the bf16 forms (``BF16_KERNELS``: the eval
-contract's and the training contract's) the same way, apart from the f32
-kernels.
+contract's and the training contract's, kernel 9's seven training passes
+among them, beside their f32 forms in ``fused_sa_bn``) the same way, apart
+from the f32 kernels.
 """
 
 from __future__ import annotations
@@ -144,6 +145,14 @@ BF16_KERNELS = {
     "group_points_bwd_bf16": ("group_points_bwd",
                               "tpu3d_group_points_bwd_bf16",
                               [P, P, I, I, I, I, I, I, P, P, L, P]),
+    # kernel 9's training form on bf16 slabs: the seven passes of the f32
+    # form (the statistics passes 1 and 2 on one C entry), the same
+    # arguments but apply's, which writes d_x0 into a bf16 slab of its own
+    **{f"{name}_bf16": (source, f"{symbol}_bf16", argtypes)
+       for name, (source, symbol, argtypes) in KERNELS.items()
+       if name.startswith("fused_sa_bn_") and name != "fused_sa_bn_apply"},
+    "fused_sa_bn_apply_bf16": ("fused_sa_bn", "tpu3d_fused_sa_bn_apply_bf16",
+                               [P, P, P, L, I, P, P]),
 }
 # C entries that run part of a counted kernel's launch, called before it
 # (not counted): (source, symbol, argtypes)

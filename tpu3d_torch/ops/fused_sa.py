@@ -38,9 +38,10 @@ boundary rounded to bf16, a bf16 output; an eval on the card takes them by
 default, and so does a train step, through the training forms of the two
 forms without BatchNorm (kernels 6 and 8: the forward in
 ``csrc/fused_sa_bf16.cuh``, the routed backward in
-``csrc/fused_sa_bwd_bf16.cu``; the BatchNorm chain's bf16 training form,
-kernel 9's, is not ported and raises on the card); the CPU runs their
-plain versions when a test hands it that contract.
+``csrc/fused_sa_bwd_bf16.cu``) and the BatchNorm chain's
+(``fused_bn_mlp_pool_bf16_train``, kernel 9's: the seven training passes
+on bf16 slabs, the ``*_bf16`` entries of ``csrc/fused_sa_bn.cu``); the CPU
+runs their plain versions when a test hands it that contract.
 
 Kernel notes (in full in the sources): they replace
 ``tpu3d/ops/fused_sa.py::_nobn2_eval_kernel``, ``_nobn2_fwd_kernel`` and
@@ -472,10 +473,10 @@ def _check(pre, idx, center, w1, b1, w2, b2, train=False):
     return R, N, M, S, C1, C2, C3
 
 
-def _pooled(R, M, C3, device, train):
-    """A forward kernel's outputs: out (R, M, C3), and for the training form
-    also the argmax slot (i32) and ppre."""
-    out = torch.empty(R, M, C3, dtype=torch.float32, device=device)
+def _pooled(R, M, C3, device, train, dtype=torch.float32):
+    """A forward kernel's outputs: out (R, M, C3) in ``dtype``, and for the
+    training form also the argmax slot (i32) and ppre (f32)."""
+    out = torch.empty(R, M, C3, dtype=dtype, device=device)
     if not train:
         return (out,)
     return (out, torch.empty(R, M, C3, dtype=torch.int32, device=device),
@@ -1054,6 +1055,26 @@ def _widths(pk, *slabs):
     return pk.numel() // 7 - c2 - c3, c2, c3
 
 
+def _wide(x):
+    """A slab in its form's arithmetic: bf16 values read as f32, others as
+    they are."""
+    return x.float() if x.dtype == BF16 else x
+
+
+def _stat_dtype(x):
+    """The dtype of the statistics, gradients and reductions of the form
+    whose slab is x: f32 for a bf16 slab, else the slab's."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+def _rounding(x):
+    """Where the form of the slab x rounds: kernel 9's bf16 form (bf16
+    slabs) rounds each operand of a product and each layer's output to
+    bf16, as tpu3d's kernels do (``_chain_to``, ``:234``, ``:261``,
+    ``:278``, ``:297``); the f32 form rounds nothing."""
+    return _r16 if x.dtype == BF16 else (lambda t: t)
+
+
 def _sums(x, y=None):
     """(Σx, Σx·y) (2, C) in f64 over every slot of the f32 x (y = x by
     default), as the kernels sum them."""
@@ -1076,14 +1097,19 @@ def fused_sa_bn_stats_plain(depth, x, mul=None, add=None, w=None):
     0: (Σx, Σx²) (2, C) f64 of x = x0. Depth 1 / 2: the layer y = ReLU(x·mul
     + add) w on x = x0 or the stored x1 (mul and add of the layer before),
     in f32 -> ((Σy, Σy²) in f64, y), y the slab the kernel writes (x1 or
-    x2)."""
+    x2). On a bf16 slab, the bf16 form: ReLU(x·mul + add) and w rounded to
+    bf16, their product summed in f32 and rounded, y written in bf16 and
+    summed as rounded."""
     if depth == 0:
-        return sum(_sums(x[rows]) for rows in _slab_rows(x))
+        return sum(_sums(_wide(x[rows])) for rows in _slab_rows(x))
+    rd = _rounding(x)
+    w = rd(w)
     y = x.new_empty(*x.shape[:3], w.shape[1])
     sums = 0
     for rows in _slab_rows(x, y):
-        y[rows] = torch.relu(x[rows] * mul + add) @ w
-        sums = sums + _sums(y[rows])
+        v = rd(rd(torch.relu(_wide(x[rows]) * mul + add)) @ w)
+        y[rows] = v
+        sums = sums + _sums(v)
     return sums, y
 
 
@@ -1091,11 +1117,16 @@ def fused_sa_bn_stats_plain(depth, x, mul=None, add=None, w=None):
 def fused_sa_bn_final_plain(x2, mul, add):
     """Plain version of the final forward pass, a reduction over the stored
     x2 (R, M, S, C3) with layer 2's folded batch statistics -> (out, argmax
-    i32, x2 at the argmax), each (R, M, C3)."""
+    i32, x2 at the argmax), each (R, M, C3). On a bf16 x2 the max and the
+    first argmax are over ReLU(x2·mul + add) rounded to bf16 (tpu3d's
+    ``_fwd_final_kernel``), out in bf16, x2 there in f32."""
+    rd = _rounding(x2)
+
     def pool(x):
-        out, arg, _ = _first_max(x * mul + add)
-        return out, arg, torch.gather(x, 2, arg.long()[:, :, None, :])[
-            :, :, 0]
+        xf = _wide(x)
+        out, arg, _ = _first_max(rd(xf * mul + add))
+        return (out.to(x2.dtype), arg,
+                torch.gather(xf, 2, arg.long()[:, :, None, :])[:, :, 0])
 
     return _chunked(pool, lambda rows: x2[rows], *x2.shape[:3],
                     x2.shape[-1])
@@ -1129,16 +1160,23 @@ def fused_sa_bn_wave1_plain(x2, x1, pk, w2, dval, argmax):
     """Plain version of backward wave 1, tpu3d's ``_bwd_wave1_kernel``,
     from the stored x2 and x1, a chunk of rows at a time: d_x2 = [slot =
     argmax]·dval − c2a − c2b·x̂2, d_y1 = (d_x2 W2ᵀ)[y1 > 0] -> ((Σd_y1,
-    Σd_y1·x̂1) (2, C2) f64, dW2 = a1ᵀ d_x2, d_y1 (R, M, S, C2))."""
+    Σd_y1·x̂1) (2, C2) f64, dW2 = a1ᵀ d_x2, d_y1 (R, M, S, C2)). On bf16
+    slabs d_x2, W2 and a1 enter the products rounded to bf16; d_y1 and dW2
+    stay f32."""
+    rd = _rounding(x2)
+    w2t = rd(w2).T
     _, l1, l2 = _unpack(pk, *_widths(pk, x1, x2))
-    d_y1 = torch.empty_like(x1)
-    sums, dw2 = 0, x1.new_zeros(x1.shape[-1], x2.shape[-1])
+    sd = _stat_dtype(x1)
+    d_y1 = torch.empty(x1.shape, dtype=sd, device=x1.device)
+    sums = 0
+    dw2 = torch.zeros(x1.shape[-1], x2.shape[-1], dtype=sd, device=x1.device)
     for rows in _slab_rows(x1, x2):
-        d_x2 = _d_x2(x2[rows], l2, dval[rows], argmax[rows])
-        d, xh1 = _masked(d_x2 @ w2.T, x1[rows], l1)
+        x1r = _wide(x1[rows])
+        d_x2 = rd(_d_x2(_wide(x2[rows]), l2, dval[rows], argmax[rows]))
+        d, xh1 = _masked(d_x2 @ w2t, x1r, l1)
         d_y1[rows] = d
         sums = sums + _sums(d, xh1)
-        dw2 += _flat(torch.relu(x1[rows] * l1[MUL] + l1[ADD])).T @ _flat(d_x2)
+        dw2 += _flat(rd(torch.relu(x1r * l1[MUL] + l1[ADD]))).T @ _flat(d_x2)
     return sums, dw2, d_y1
 
 
@@ -1147,46 +1185,74 @@ def fused_sa_bn_wave2_plain(d_y1, x1, x0, pk, w1):
     """Plain version of backward wave 2, tpu3d's ``_bwd_wave2_kernel``,
     from the stored d_y1, x1 and x0, a chunk of rows at a time: d_x1 =
     s1·d_y1 − c1a − c1b·x̂1, d_y0 = (d_x1 W1ᵀ)[y0 > 0] -> ((Σd_y0,
-    Σd_y0·x̂0) (2, C1) f64, dW1 = a0ᵀ d_x1, d_y0 (R, M, S, C1))."""
+    Σd_y0·x̂0) (2, C1) f64, dW1 = a0ᵀ d_x1, d_y0 (R, M, S, C1)). On bf16
+    slabs d_x1, W1 and a0 enter the products rounded to bf16; d_y0 and dW1
+    stay f32."""
+    rd = _rounding(x0)
+    w1t = rd(w1).T
     c1, c2 = x0.shape[-1], x1.shape[-1]
     l0, l1, _ = _unpack(pk, c1, c2, pk.numel() // 7 - c1 - c2)
-    d_y0 = torch.empty_like(x0)
-    sums, dw1 = 0, x0.new_zeros(c1, c2)
+    sd = _stat_dtype(x0)
+    d_y0 = torch.empty(x0.shape, dtype=sd, device=x0.device)
+    sums, dw1 = 0, torch.zeros(c1, c2, dtype=sd, device=x0.device)
     for rows in _slab_rows(x0, x1):
-        d_x1 = _d_x1(d_y1[rows], x1[rows], l1)
-        d, xh0 = _masked(d_x1 @ w1.T, x0[rows], l0)
+        x0r = _wide(x0[rows])
+        d_x1 = rd(_d_x1(d_y1[rows], _wide(x1[rows]), l1))
+        d, xh0 = _masked(d_x1 @ w1t, x0r, l0)
         d_y0[rows] = d
         sums = sums + _sums(d, xh0)
-        dw1 += _flat(torch.relu(x0[rows] * l0[MUL] + l0[ADD])).T @ _flat(d_x1)
+        dw1 += _flat(rd(torch.relu(x0r * l0[MUL] + l0[ADD]))).T @ _flat(d_x1)
     return sums, dw1, d_y0
 
 
 @torch.no_grad()
 def fused_sa_bn_apply_plain(d_y0, x0, pk):
     """Plain version of the last backward pass, tpu3d's
-    ``_bwd_apply_kernel``: d_x0 = s0·d_y0 − c0a − c0b·x̂0."""
+    ``_bwd_apply_kernel``: d_x0 = s0·d_y0 − c0a − c0b·x̂0, in x0's dtype
+    (rounded to bf16 once in the bf16 form)."""
     l0 = pk[:7 * x0.shape[-1]].view(7, -1)
     d_x0 = torch.empty_like(x0)
     for rows in _slab_rows(x0):
         d_x0[rows] = (l0[SCALE] * d_y0[rows] - l0[CA]
-                      - l0[CB] * (x0[rows] * l0[R_INV] - l0[MU_R]))
+                      - l0[CB] * (_wide(x0[rows]) * l0[R_INV] - l0[MU_R]))
     return d_x0
 
 
-def _check_bn(*slabs):
+def _check_bn(*slabs, grads=()):
     """Raise unless the training kernels take these (R, M, S, C) slabs, of
-    one (R, M, S); -> (R·M·S, S)."""
-    _check_tensors(*((t, "slab", 4) for t in slabs))
+    one (R, M, S): ``slabs`` the chain's (x0, x1, x2), all f32 (the f32
+    form) or all bf16 (the bf16 form), ``grads`` f32 gradient slabs (d_y1,
+    d_y0); -> (R·M·S, S, the form's dtype)."""
+    form = slabs[0].dtype
+    if form not in (torch.float32, BF16):
+        raise ValueError(f"the BatchNorm training kernels take f32 or bf16 "
+                         f"slabs, got {form}")
     R, M, S, _ = slabs[0].shape
-    for t in slabs:
+    for t, dtype in [(t, form) for t in slabs] + [(t, torch.float32)
+                                                   for t in grads]:
+        _build.check_cuda_tensor(t, "slab", dtype, 4)
+        if t.data_ptr() % 16:
+            raise ValueError("slab must be 16-byte aligned")
         c = t.shape[-1]
         if (t.shape[:3] != (R, M, S) or c % 128 or c > BN_MAX_WIDTH
                 or R * M >= 2 ** 31):
             raise ValueError(
                 f"the BatchNorm training kernels take (R, M, S, C) slabs of "
                 f"one (R, M, S), C a multiple of 128 up to {BN_MAX_WIDTH}; "
-                f"got {[tuple(t.shape) for t in slabs]}")
-    return R * M * S, S
+                f"got {[tuple(t.shape) for t in slabs + tuple(grads)]}")
+    return R * M * S, S, form
+
+
+def _entry(name, form):
+    """The counted entry of a training pass in the slabs' form: the f32
+    kernel, or its bf16 form (``name``_bf16, in ``BF16_LAUNCHES``)."""
+    return name + "_bf16" if form == BF16 else name
+
+
+def _operand(w, form):
+    """A weight as the form's products take it: f32, rounded to bf16 in the
+    bf16 form; contiguous."""
+    return (_r16(w) if form == BF16 else w).contiguous()
 
 
 def _bn_workspace(kind, P, C, N, device, dtype):
@@ -1203,20 +1269,22 @@ def _bn_workspace(kind, P, C, N, device, dtype):
 def fused_sa_bn_stats(depth, x, mul=None, add=None, w=None):
     """A statistics pass of the chain's training forward, as
     ``fused_sa_bn_stats_plain`` computes it: the kernel counted as
-    ``fused_sa_bn_stats{depth}`` for CUDA tensors (depth 0 a reduction of
-    x0; depth 1 and 2 the row product writing x1 or x2 beside its sums),
-    else the plain version."""
+    ``fused_sa_bn_stats{depth}`` (``_bf16`` on a bf16 slab) for CUDA
+    tensors (depth 0 a reduction of x0; depth 1 and 2 the row product
+    writing x1 or x2 beside its sums), else the plain version."""
     if x.device.type == "cpu":
         return fused_sa_bn_stats_plain(depth, x, mul, add, w)
-    P, _ = _check_bn(x)
+    P, _, form = _check_bn(x)
+    name = _entry(STATS_KERNELS[depth], form)
     dev, K = x.device, x.shape[-1]
     sums = torch.empty(2, K if depth == 0 else w.shape[1],
                        dtype=torch.float64, device=dev)
     if depth == 0:
         ws = _bn_workspace(0, P, K, 0, dev, torch.float64)
-        _build.launch(STATS_KERNELS[0], x.data_ptr(), P, K, ws.data_ptr(),
+        _build.launch(name, x.data_ptr(), P, K, ws.data_ptr(),
                       sums.data_ptr())
         return sums
+    w = _operand(w, form)
     _check_tensors((mul, "mul", 1), (add, "add", 1), (w, "w", 2))
     N = w.shape[1]
     if mul.shape != (K,) or add.shape != (K,) or w.shape[0] != K:
@@ -1225,37 +1293,40 @@ def fused_sa_bn_stats(depth, x, mul=None, add=None, w=None):
                          f"{tuple(add.shape)}, {tuple(w.shape)}")
     y = x.new_empty(*x.shape[:3], N)
     ws = _bn_workspace(1, P, K, N, dev, torch.float64)
-    _build.launch(STATS_KERNELS[depth], x.data_ptr(), mul.data_ptr(),
-                  add.data_ptr(), w.data_ptr(), P, K, N, y.data_ptr(),
-                  ws.data_ptr(), sums.data_ptr())
+    _build.launch(name, x.data_ptr(), mul.data_ptr(), add.data_ptr(),
+                  w.data_ptr(), P, K, N, y.data_ptr(), ws.data_ptr(),
+                  sums.data_ptr())
     return sums, y
 
 
 def fused_sa_bn_final(x2, mul, add):
     """The chain's final forward pass -> (out, argmax, x2 at the argmax):
-    the reduction kernel over the stored x2 (``fused_sa_bn_final``) for
-    CUDA tensors, else ``fused_sa_bn_final_plain``."""
+    the reduction kernel over the stored x2 (``fused_sa_bn_final``, or its
+    bf16 form on a bf16 x2, out in bf16) for CUDA tensors, else
+    ``fused_sa_bn_final_plain``."""
     if x2.device.type == "cpu":
         return fused_sa_bn_final_plain(x2, mul, add)
-    _check_bn(x2)
+    _, _, form = _check_bn(x2)
     _check_tensors((mul, "mul", 1), (add, "add", 1))
     R, M, S, C3 = x2.shape
-    outs = _pooled(R, M, C3, x2.device, True)
-    _build.launch("fused_sa_bn_final", x2.data_ptr(), mul.data_ptr(),
-                  add.data_ptr(), R * M, S, C3, *(t.data_ptr() for t in outs))
+    outs = _pooled(R, M, C3, x2.device, True, form)
+    _build.launch(_entry("fused_sa_bn_final", form), x2.data_ptr(),
+                  mul.data_ptr(), add.data_ptr(), R * M, S, C3,
+                  *(t.data_ptr() for t in outs))
     return outs
 
 
 def fused_sa_bn_wave1(x2, x1, pk, w2, dval, argmax):
-    """Backward wave 1 (``fused_sa_bn_wave1``, a row product and a
-    weight-gradient product) for CUDA tensors, else
-    ``fused_sa_bn_wave1_plain``; the same outputs."""
+    """Backward wave 1 (``fused_sa_bn_wave1``, or its bf16 form on bf16
+    slabs: a row product and a weight-gradient product) for CUDA tensors,
+    else ``fused_sa_bn_wave1_plain``; the same outputs."""
     if x2.device.type == "cpu":
         return fused_sa_bn_wave1_plain(x2, x1, pk, w2, dval, argmax)
-    P, S = _check_bn(x2, x1)
+    P, S, form = _check_bn(x2, x1)
     R, M, _, C3 = x2.shape
     C1, C2, _ = _widths(pk, x1, x2)
-    _check_tensors((pk, "pk", 1), (w2, "w2", 2), (dval, "dval", 3))
+    w2t = _operand(w2, form).t().contiguous()
+    _check_tensors((pk, "pk", 1), (w2t, "w2", 2), (dval, "dval", 3))
     _build.check_cuda_tensor(argmax, "argmax", torch.int32, 3)
     if (dval.shape != (R, M, C3) or argmax.shape != dval.shape
             or w2.shape != (C2, C3) or C1 % 128 or C1 > BN_MAX_WIDTH):
@@ -1263,58 +1334,64 @@ def fused_sa_bn_wave1(x2, x1, pk, w2, dval, argmax):
                          f"{(C2, C3)} and a pack of 7 (C1 + {C2} + {C3}) "
                          f"expected")
     dev = x2.device
-    w2t = w2.t().contiguous()
-    d_y1 = torch.empty_like(x1)
+    d_y1 = torch.empty(x1.shape, device=dev)
     sums = torch.empty(2, C2, dtype=torch.float64, device=dev)
     dw2 = torch.empty(C2, C3, device=dev)
     wsr = _bn_workspace(1, P, C3, C2, dev, torch.float64)
     wsd = _bn_workspace(2, P, C2, C3, dev, torch.float32)
-    _build.launch("fused_sa_bn_wave1", x2.data_ptr(), x1.data_ptr(),
-                  pk.data_ptr(), w2t.data_ptr(), dval.data_ptr(),
-                  argmax.data_ptr(), P, S, C1, C2, C3, d_y1.data_ptr(),
-                  wsr.data_ptr(), sums.data_ptr(), wsd.data_ptr(),
-                  dw2.data_ptr())
+    _build.launch(_entry("fused_sa_bn_wave1", form), x2.data_ptr(),
+                  x1.data_ptr(), pk.data_ptr(), w2t.data_ptr(),
+                  dval.data_ptr(), argmax.data_ptr(), P, S, C1, C2, C3,
+                  d_y1.data_ptr(), wsr.data_ptr(), sums.data_ptr(),
+                  wsd.data_ptr(), dw2.data_ptr())
     return sums, dw2, d_y1
 
 
 def fused_sa_bn_wave2(d_y1, x1, x0, pk, w1):
-    """Backward wave 2 (``fused_sa_bn_wave2``, a row product and a
-    weight-gradient product) for CUDA tensors, else
-    ``fused_sa_bn_wave2_plain``; the same outputs (d_y0 in a new slab, into
-    which ``fused_sa_bn_apply`` writes d_x0)."""
+    """Backward wave 2 (``fused_sa_bn_wave2``, or its bf16 form on bf16
+    slabs: a row product and a weight-gradient product) for CUDA tensors,
+    else ``fused_sa_bn_wave2_plain``; the same outputs (d_y0 in a new f32
+    slab, into which ``fused_sa_bn_apply`` writes the f32 form's d_x0)."""
     if x0.device.type == "cpu":
         return fused_sa_bn_wave2_plain(d_y1, x1, x0, pk, w1)
-    P, _ = _check_bn(d_y1, x1, x0)
+    P, _, form = _check_bn(x1, x0, grads=(d_y1,))
     C1, C2 = x0.shape[-1], x1.shape[-1]
     C3 = pk.numel() // 7 - C1 - C2
-    _check_tensors((pk, "pk", 1), (w1, "w1", 2))
+    w1t = _operand(w1, form).t().contiguous()
+    _check_tensors((pk, "pk", 1), (w1t, "w1", 2))
     if w1.shape != (C1, C2) or d_y1.shape != x1.shape or C3 % 128 \
             or not 0 < C3 <= BN_MAX_WIDTH:
         raise ValueError(f"wave 2: w1 {(C1, C2)}, d_y1 like x1 and a pack "
                          f"of 7 ({C1} + {C2} + C3) expected")
     dev = x0.device
-    w1t = w1.t().contiguous()
-    d_y0 = torch.empty_like(x0)
+    d_y0 = torch.empty(x0.shape, device=dev)
     sums = torch.empty(2, C1, dtype=torch.float64, device=dev)
     dw1 = torch.empty(C1, C2, device=dev)
     wsr = _bn_workspace(1, P, C2, C1, dev, torch.float64)
     wsd = _bn_workspace(2, P, C1, C2, dev, torch.float32)
-    _build.launch("fused_sa_bn_wave2", d_y1.data_ptr(), x1.data_ptr(),
-                  x0.data_ptr(), pk.data_ptr(), w1t.data_ptr(), P, C1, C2,
-                  C3, d_y0.data_ptr(), wsr.data_ptr(), sums.data_ptr(),
-                  wsd.data_ptr(), dw1.data_ptr())
+    _build.launch(_entry("fused_sa_bn_wave2", form), d_y1.data_ptr(),
+                  x1.data_ptr(), x0.data_ptr(), pk.data_ptr(),
+                  w1t.data_ptr(), P, C1, C2, C3, d_y0.data_ptr(),
+                  wsr.data_ptr(), sums.data_ptr(), wsd.data_ptr(),
+                  dw1.data_ptr())
     return sums, dw1, d_y0
 
 
 def fused_sa_bn_apply(d_y0, x0, pk):
-    """The last backward pass: d_x0 = s0·d_y0 − c0a − c0b·x̂0, written in
-    place of d_y0 by ``fused_sa_bn_apply`` for CUDA tensors (-> d_y0's
-    buffer), else ``fused_sa_bn_apply_plain``."""
+    """The last backward pass: d_x0 = s0·d_y0 − c0a − c0b·x̂0, by
+    ``fused_sa_bn_apply`` for CUDA tensors, written in place of d_y0 (->
+    d_y0's buffer); on a bf16 x0 by its bf16 form, into a new bf16 slab.
+    Else ``fused_sa_bn_apply_plain``."""
     if x0.device.type == "cpu":
         return fused_sa_bn_apply_plain(d_y0, x0, pk)
-    P, _ = _check_bn(d_y0, x0)
+    P, _, form = _check_bn(x0, grads=(d_y0,))
     C1 = x0.shape[-1]
     _check_tensors((pk, "pk", 1))
+    if form == BF16:
+        d_x0 = torch.empty_like(x0)
+        _build.launch("fused_sa_bn_apply_bf16", d_y0.data_ptr(),
+                      x0.data_ptr(), pk.data_ptr(), P, C1, d_x0.data_ptr())
+        return d_x0
     _build.launch("fused_sa_bn_apply", d_y0.data_ptr(), x0.data_ptr(),
                   pk.data_ptr(), P, C1)
     return d_y0
@@ -1327,7 +1404,8 @@ def fused_bn_mlp_pool_train(x0, w1, w2, gammas, betas, eps=1e-5):
     = a1 W2, then the final reduction over x2 -> (out, argmax, x2 at the
     argmax, means, vars, (x1, x2)), x1 and x2 kept for the backward. Each
     pass is its kernel for CUDA tensors, its plain version for CPU
-    tensors."""
+    tensors. A bf16 x0 takes the bf16 form: x1, x2 and out in bf16, the
+    statistics f32."""
     from ..parallel.mesh import active, reduce_sum_
 
     mesh = active()
@@ -1336,7 +1414,7 @@ def fused_bn_mlp_pool_train(x0, w1, w2, gammas, betas, eps=1e-5):
     means, vars_, layers = [], [], []
 
     def fold(sums, depth):
-        mean, var = _mean_var(reduce_sum_(sums, mesh), n, x0.dtype)
+        mean, var = _mean_var(reduce_sum_(sums, mesh), n, _stat_dtype(x0))
         means.append(mean)
         vars_.append(var)
         layers.append(_layer_pack(mean, var, gammas[depth], betas[depth],
@@ -1363,23 +1441,26 @@ def fused_bn_mlp_pool_backward(x0, w1, w2, gammas, betas, means, vars_, out,
     each its kernel for CUDA tensors, its plain version for CPU tensors.
     Under a data-parallel mesh (``mesh``) each reduction the packs take is
     the global batch's; the gradients returned are this rank's own, which
-    the train step sums with the others'."""
+    the train step sums with the others'. In the bf16 form (bf16 x0, x1, x2
+    and out) d_x0 comes back in bf16, the rest f32: the gradients of the
+    BatchNorm outputs stay f32, as tpu3d's VJP keeps them."""
     from ..parallel.mesh import reduce_sum_
 
     n = _slots(x0, mesh)
+    sd = _stat_dtype(x0)
     x1, x2 = saved
     w1, w2 = w1.contiguous(), w2.contiguous()
     layers = [_layer_pack(m, v, g, b, eps, n)
               for m, v, g, b in zip(means, vars_, gammas, betas)]
     mul2, r2 = layers[2][MUL], layers[2][R_INV]
-    d_y2 = torch.where(out > 0, grad, 0.0)
+    d_y2 = torch.where(out > 0, grad.to(sd), 0.0)
     dbeta2 = d_y2.sum(dim=(0, 1))
     dgamma2 = (d_y2 * (at * r2 - means[2] * r2)).sum(dim=(0, 1))
 
     def pack(depth, dbeta, dgamma):
         """The packs with layer ``depth``'s reductions, the global batch's
         (this rank's (dbeta, dgamma) summed over the mesh)."""
-        glob = reduce_sum_(torch.stack([dbeta, dgamma]), mesh).to(x0.dtype)
+        glob = reduce_sum_(torch.stack([dbeta, dgamma]), mesh).to(sd)
         layers[depth] = _layer_pack(means[depth], vars_[depth],
                                     gammas[depth], betas[depth], eps, n,
                                     glob[0], glob[1])
@@ -1388,16 +1469,19 @@ def fused_bn_mlp_pool_backward(x0, w1, w2, gammas, betas, means, vars_, out,
     dval = (d_y2 * mul2).contiguous()
     sums, dw2, d_y1 = fused_sa_bn_wave1(x2, x1, pack(2, dbeta2, dgamma2), w2,
                                         dval, argmax)
-    dbeta1, dgamma1 = sums.to(x0.dtype)
+    dbeta1, dgamma1 = sums.to(sd)
     sums, dw1, d_y0 = fused_sa_bn_wave2(d_y1, x1, x0, pack(1, *sums), w1)
     del d_y1
-    dbeta0, dgamma0 = sums.to(x0.dtype)
+    dbeta0, dgamma0 = sums.to(sd)
     d_x0 = fused_sa_bn_apply(d_y0, x0, pack(0, *sums))
     return (d_x0, dw1, dw2, (dgamma0, dgamma1, dgamma2),
             (dbeta0, dbeta1, dbeta2))
 
 
 class _FusedBNMLPPool(torch.autograd.Function):
+    """Kernel 9's training form through its seven passes: the f32 form on
+    an f32 x0, the bf16 form on a bf16 x0."""
+
     @staticmethod
     def forward(ctx, x0, w1, w2, g0, g1, g2, b0, b1, b2, eps):
         gammas, betas = (g0, g1, g2), (b0, b1, b2)
@@ -1809,13 +1893,6 @@ def _b16(b: torch.Tensor) -> torch.Tensor:
     return b.detach().to(BF16).contiguous()
 
 
-def _bf16_pooled(R, M, C3, device):
-    """A bf16 training forward's outputs: out bf16, argmax i32, ppre f32."""
-    return (torch.empty(R, M, C3, dtype=BF16, device=device),
-            torch.empty(R, M, C3, dtype=torch.int32, device=device),
-            torch.empty(R, M, C3, dtype=torch.float32, device=device))
-
-
 def _gather_bf16_check(pre, idx, center, w1, b1, w2, b2):
     R, N, C1 = pre.shape
     M, S = idx.shape[1], idx.shape[2]
@@ -1842,7 +1919,7 @@ def fused_gathered_mlp_pool_bf16_train(pre, idx, center, w1, b1, w2, b2):
                                                         b1, w2, b2)
     R, N, M, S, C1, C2, C3 = _gather_bf16_check(pre, idx, center, w1, b1, w2,
                                                 b2)
-    outs = _bf16_pooled(R, M, C3, pre.device)
+    outs = _pooled(R, M, C3, pre.device, True, BF16)
     w1t, w2t = _w16(w1), _w16(w2)
     b1h, b2h = _b16(b1), _b16(b2)
     _build.launch("fused_sa_train_bf16", pre.data_ptr(), idx.data_ptr(),
@@ -1916,7 +1993,7 @@ def fused_mlp_pool_bf16_train(x0, w1, b1, w2, b2):
     if b1.shape != (C2,) or b2.shape != (C3,):
         raise ValueError(f"biases {tuple(b1.shape)}, {tuple(b2.shape)} for "
                          f"C2={C2}, C3={C3}")
-    outs = _bf16_pooled(R, M, C3, x0.device)
+    outs = _pooled(R, M, C3, x0.device, True, BF16)
     w1t, w2t = _w16(w1), _w16(w2)
     b1h, b2h = _b16(b1), _b16(b2)  # alive until the launch is queued
     _build.launch("fused_sa_slab_train_bf16", x0.data_ptr(), w1t.data_ptr(),
@@ -1957,43 +2034,76 @@ class _FusedMLPPoolBF16(torch.autograd.Function):
                                             grad.contiguous(), argmax, ppre)
 
 
-# kernel 9's bf16 training form (tpu3d's seven training kernels in their
-# bf16 arithmetic) is not ported yet: the plain version below runs on the
-# CPU, and a CUDA tensor raises
+# kernel 9's bf16 training form: tpu3d's seven training kernels in their
+# bf16 arithmetic (_chain_to rounds x1, x2 and each product's operands, the
+# backward rounds d_x2 and d_x1 before their products and keeps the
+# gradients of the BatchNorm outputs in f32); for CUDA tensors the f32
+# form's passes on bf16 slabs (the *_bf16 entries of csrc/fused_sa_bn.cu)
 
 
 def _bn_relu_bf16_train(x, gamma, beta, eps):
-    """tpu3d's ``_bn_relu_train`` on a bf16 slab: the batch statistics in
-    f32 (over the global batch under a mesh), the output rounded to bf16
-    (kept f32) -> (a, mean, var)."""
-    y, mean, var = _bn_train(x.float(), gamma, beta, eps)
-    return torch.relu(_RoundGrad.apply(_r16(y))), mean, var
+    """tpu3d's ``_fused_train`` layer on the f32 x (bf16 values): the batch
+    statistics as the kernels take them (the f64 sums of x and x² over the
+    global batch under a mesh, mean and E[x²] − mean² in f64, rounded to
+    f32: ``_mean_var``), folded into y = x·mul + add (``_bn_affine``,
+    tpu3d's ``_bn_consts``; a product and a sum, each rounded to f32), y
+    rounded to bf16 in the forward alone (``_fr``: tpu3d's VJP keeps the
+    gradient of a BatchNorm output in f32) -> (a, mean, var)."""
+    from ..parallel.mesh import batch_means  # the package imports ops
+
+    xd = x.double()
+    mean, sq = batch_means((xd, xd * xd), tuple(range(x.dim() - 1)))
+    mean, var = mean.float(), (sq - mean * mean).float()
+    mul, add, _ = _bn_affine(mean, var, gamma, beta, eps)
+    return torch.relu(_fr(x * mul + add)), mean, var
 
 
-def fused_bn_mlp_pool_bf16_train_plain(x0, w1, w2, gammas, betas, eps=1e-5):
-    """Plain PyTorch version of kernel 9's bf16 training form: tpu3d's
-    ``fused_bn_mlp_pool_reference`` on a bf16 slab (every pre-activation
-    rounded to bf16, the statistics in f32) with the first-argmax pool,
-    differentiable by autograd -> (out (R, M, C3) bf16, (means, vars)), the
-    statistics detached."""
-    a0, m0, v0 = _bn_relu_bf16_train(x0, gammas[0], betas[0], eps)
+def bn_bf16_chain(x0, w1, w2, gammas, betas, eps=1e-5):
+    """The chain of ``fused_bn_mlp_pool_bf16_train_plain`` up to layer 2's
+    activation, under autograd -> (a2 (R, M, S, C3), bf16 values in f32,
+    (means, vars)), the statistics detached."""
+    a0, m0, v0 = _bn_relu_bf16_train(x0.float(), gammas[0], betas[0], eps)
     x1 = _fr(_RoundGrad.apply(a0 @ _fr(w1)))
     a1, m1, v1 = _bn_relu_bf16_train(x1, gammas[1], betas[1], eps)
     x2 = _fr(_RoundGrad.apply(a1 @ _fr(w2)))
     a2, m2, v2 = _bn_relu_bf16_train(x2, gammas[2], betas[2], eps)
-    out = _first_max(a2)[0].to(BF16)
-    return out, (tuple(m.detach() for m in (m0, m1, m2)),
-                 tuple(v.detach() for v in (v0, v1, v2)))
+    return a2, (tuple(m.detach() for m in (m0, m1, m2)),
+                tuple(v.detach() for v in (v0, v1, v2)))
+
+
+def fused_bn_mlp_pool_bf16_train_plain(x0, w1, w2, gammas, betas, eps=1e-5):
+    """Plain PyTorch version of kernel 9's bf16 training form, the VJP of
+    tpu3d's ``_fused_train``: its forward is ``_chain_to``'s on a bf16 slab
+    (each layer's f32 batch statistics folded into x·mul + add, every
+    pre-activation and activation rounded to bf16) with the first-argmax
+    pool; under autograd the
+    gradients of the BatchNorm outputs stay f32, only d_x2 and d_x1, the
+    cotangents that enter a product, are rounded to bf16 (``_RoundGrad``),
+    and d_x0 comes back in x0's bf16 -> (out (R, M, C3) bf16, (means,
+    vars)), the statistics detached."""
+    a2, stats = bn_bf16_chain(x0, w1, w2, gammas, betas, eps)
+    return _first_max(a2)[0].to(BF16), stats
 
 
 def fused_bn_mlp_pool_bf16_train(x0, w1, w2, gammas, betas, eps=1e-5):
-    """Kernel 9's bf16 training form: the plain version for CPU tensors; any
-    other device raises, naming the missing kernels."""
+    """Kernel 9's bf16 training form: x0 (R, M, S, C1) bf16, w1 (C1, C2),
+    w2 (C2, C3), gammas and betas the three BatchNorm layers' (f32) ->
+    (out (R, M, C3) bf16, (means, vars) f32), differentiable in x0 (d_x0 in
+    bf16), the weights, gammas and betas; the statistics not. For CUDA
+    tensors ``_FusedBNMLPPool`` on the bf16 slab: its seven passes' bf16
+    entries (counted in ``BF16_LAUNCHES``), which keep x1 and x2 in bf16
+    from the forward to the backward, at the shapes ``kernels_take(...,
+    "bn")`` admits; a tensor off the CPU outside them raises. For CPU
+    tensors the plain version under autograd."""
     if x0.device.type == "cpu":
         return fused_bn_mlp_pool_bf16_train_plain(x0, w1, w2, gammas, betas,
                                                   eps)
-    raise NotImplementedError(
-        "kernel 9's bf16 training form (tpu3d's seven BatchNorm training "
-        "kernels in their bf16 arithmetic) is not ported yet: it is the "
-        "next slice's. Train an RCNN with USE_BN under the f32 contract "
-        "(TRAIN.BF16_ACTIVATIONS False, TRAIN.BF16_MATMULS False)")
+    R, M, S, C1 = x0.shape
+    C2, C3 = w1.shape[1], w2.shape[1]
+    if not kernels_take(S, C1, C2, C3, "bn") or R * M >= 2 ** 31:
+        raise ValueError(
+            f"kernel 9's bf16 training form does not take R={R}, M={M}, "
+            f"S={S}, C1={C1}, C2={C2}, C3={C3} (kernels_take)")
+    _build.check_cuda_tensor(x0, "x0", BF16, 4)
+    out, *st = _FusedBNMLPPool.apply(x0, w1, w2, *gammas, *betas, eps)
+    return out, (tuple(st[:3]), tuple(st[3:]))

@@ -102,8 +102,9 @@ def resolve(device, cfg=None, train: bool = False) -> Precision:
     bf16 Dense compute but for the heads and the scene-frame pre-grouped
     layer 0; ``BF16_INFERENCE`` is not read but by a fixed RPN, which
     runs its eval forward under the eval contract (``fixed_rpn``). On the
-    CPU training is f32, as tpu3d trains on its CPU. ``TRAIN.REMAT`` raises: the recomputed
-    backbone is not ported."""
+    CPU training is f32, as tpu3d trains on its CPU. ``TRAIN.REMAT``
+    leaves the contract as it is (the recomputed backbone rounds as the
+    first forward does)."""
     cuda = torch.device(device).type == "cuda"
     if train:
         act, mat = train_numerics(cfg)
