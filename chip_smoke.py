@@ -196,8 +196,12 @@ and no result line:
    peak memory per rank and the phase's seconds, beside the card's name
    and power limit (not scaling figures: the ranks share one card);
 16. the paper's slice: the PointNet++ demo's main on the card
-   (--synthetic, one epoch), each train step launching PN_TRAIN and each
-   eval batch PN_EVAL exactly, losses and IoU finite; generate_aug_scene
+   (--synthetic, one epoch) under its numerics contracts (tpu3d's demo
+   model: the SA and FP casts, f32 Dense layers; TPU3D_F32_EVAL unset
+   around it), each train step
+   launching PN_TRAIN and each eval batch PN_EVAL exactly (the bf16 forms
+   where tpu3d's routes round, none of PN_F32_FORMS), losses and IoU
+   finite; generate_aug_scene
    over phase 13's frames and GT database (aug_times 1), read back
    through the port's dataset (each pasted scene's label linked into
    label_2, where the dataset reads it) and loader into a batch on the
@@ -287,6 +291,14 @@ and no result line:
    the bit, every output twice equal to the bit, each timed beside its
    plain version, its f32 form, the bf16 cuBLAS chain under autograd (the
    library's scatter for the gathers) and its bound at the bf16 peak;
+   kernel 6's bf16 forward on the design train_bf16_design names (the C
+   entry's own predicate agreeing), the wgmma design at every default
+   call, and held the same way at double's, quickstart's and smoke's
+   calls and, on the parent design, at the widened RCNN's widths; the
+   gather's bf16 backward with its gradient in the dtype and strides the
+   step handed it, no copy or cast op (COPY_OPS) run between autograd's
+   hand-over and the launch (gather_backward_ops), its bound counting g
+   at that dtype; each with its sum over the step's calls;
    tools/roofline's mfu_pct of the default train step under it and of the
    eval batch (B=8) under the default eval contract; (e) one training-CLI
    epoch (joint, phase 13's frames) and one rcnn_offline epoch (phase 14's
@@ -406,13 +418,20 @@ SMOKE_EVAL = dict(QUICK_EVAL, fps3nn=2, three_nn=2, fps=4)
 SMOKE_TRAIN = dict(QUICK_TRAIN, fps3nn=2, three_nn=2, fps=4)
 BN_EVAL = {"fps3nn": 4, "nearest_k": 6, "three_interpolate": 4, "fps": 2,
            "fused_sa_slab_bn": 2}
-# the PointNet++ demo (tools/pointnet2_demo.py, 1024 points, B=4): SA_0-1
-# on the fused FPS+3NN, SA_2-3 on the split route (64 and 32 points), a
-# search per level, an interpolation per FP level; per train step and per
-# eval batch
+# the PointNet++ demo (tools/pointnet2_demo.py, 1024 points, B=4) under
+# its numerics contracts (tpu3d's demo model, train_bf16=True and
+# dtype=None: the SA and FP casts, f32 Dense layers): SA_0-1 on the fused
+# FPS+3NN, SA_2-3 on the split route (64 and 32 points), a search per
+# level, an interpolation per FP level on bf16 source features (kernel 3's
+# bf16 form; its backward kernel 7's), the f32 launches of the same names
+# none; per train step and per eval batch. The gathers' backward stays the
+# exact f32 one at SA_1-3, as tpu3d's routes take it there (precise
+# pre-grouped callers on at most 2048 points: _gp_route "onehot_exact")
 PN_EVAL = {"fps3nn": 2, "fps": 2, "three_nn": 2, "nearest_k": 4,
-           "three_interpolate": 4}
-PN_TRAIN = dict(PN_EVAL, three_interpolate_bwd=4, group_points_bwd=6)
+           "three_interpolate_bf16": 4}
+PN_TRAIN = dict(PN_EVAL, three_interpolate_bwd_bf16=4, group_points_bwd=6)
+# the f32 kernels whose bf16 forms the demo's contract takes
+PN_F32_FORMS = ("three_interpolate", "three_interpolate_bwd")
 # the paths the new kernels are timed and labelled at
 QUICK_PATH = {"eval": f"quickstart.yaml eval B={QUICK_EVAL_BATCH}",
               "train": f"quickstart.yaml train B={QUICK_TRAIN_BATCH}"}
@@ -558,6 +577,9 @@ class Report:
                "ms_host_bound": r["ms_host_bound"],
                "plain_ms": r["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": r["lib_ms"]}
+        if "wgmma_calls" in r:  # kernel 6's bf16 training forward
+            out["wgmma_calls"], out["parent_calls"] = (r["wgmma_calls"],
+                                                       r["parent_calls"])
         if "brute_ops" in r:  # a routed search: the brute form's bound
             out["brute_bound_ms"], out["brute_bound_by"] = bound_ms(
                 r["bytes"], r["brute_ops"])
@@ -3855,14 +3877,17 @@ CYCLIST_BATCH = 4  # the study's --batch_size
 
 
 def _counting(fn, into):
-    """``fn`` wrapped so that each call appends (the launches it made, its
-    result) to ``into``."""
+    """``fn`` wrapped so that each call appends (the launches it made, the
+    f32 kernels' and the bf16 forms', its result) to ``into``."""
     from tpu3d_torch.ops import _build
 
+    def counts():
+        return {**_build.LAUNCHES, **_build.BF16_LAUNCHES}
+
     def counted(*a, **k):
-        before = dict(_build.LAUNCHES)
+        before = counts()
         out = fn(*a, **k)
-        into.append(({n: c - before[n] for n, c in _build.LAUNCHES.items()
+        into.append(({n: c - before[n] for n, c in counts().items()
                       if c != before[n]}, out))
         return out
 
@@ -3908,20 +3933,38 @@ def paper_slice(card: str) -> dict:
     # (a) the PointNet++ demo, each train step's and eval batch's launches
     steps, evals = [], []
     make, iou = pn.make_train_step, pn.fg_iou
-    pn.make_train_step = lambda model, opt: _counting(make(model, opt), steps)
+    contracts = []
+
+    def counted_step(model, opt, precision):
+        contracts.append(precision)
+        return _counting(make(model, opt, precision), steps)
+
+    pn.make_train_step = counted_step
     pn.fg_iou = _counting(iou, evals)
     t0 = time.perf_counter()
     _build.reset_launches()
     try:
-        demo_iou = pn.main(["--synthetic", "--epochs", "1", "--output_dir",
-                            str(work / "pointnet2_demo"), "--device",
-                            DEVICE])
+        # the demo's own contracts, as a user runs it: the eval batches
+        # under the card's eval contract, not this phase's TPU3D_F32_EVAL
+        with f32_eval(False):
+            demo_iou = pn.main(["--synthetic", "--epochs", "1",
+                                "--output_dir", str(work / "pointnet2_demo"),
+                                "--device", DEVICE])
+            want = pn.demo_precision(DEVICE, True)
+            eval_contract = pn.demo_precision(DEVICE, False)
     finally:
         pn.make_train_step, pn.fg_iou = make, iou
     demo_s = time.perf_counter() - t0
-    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    launches = _launched()
     check(steps and evals, f"the demo ran {len(steps)} train steps and "
           f"{len(evals)} eval batches")
+    check(contracts == [want] and want.sa_bf16 and want.fp_bf16
+          and want.dense_dtype is None, f"the demo trained under "
+          f"{contracts}, its contract {want}")
+    check(eval_contract.fp_bf16 and not any(
+        launches.get(k) for k in PN_F32_FORMS), f"the demo under "
+        f"{eval_contract} at eval launched the f32 forms of "
+        f"{PN_F32_FORMS}: {launches}")
     for got, _ in steps:
         check(got == PN_TRAIN, f"a demo train step launched {got}, "
               f"expected {PN_TRAIN}")
@@ -3934,7 +3977,8 @@ def paper_slice(card: str) -> dict:
     figures["pointnet2_demo"] = {
         "s": demo_s, "train_steps": len(steps), "eval_batches": len(evals),
         "losses": losses, "fg_iou": demo_iou, "launches": launches,
-        "per_train_step": PN_TRAIN, "per_eval_batch": PN_EVAL}
+        "per_train_step": PN_TRAIN, "per_eval_batch": PN_EVAL,
+        "train_contract": str(want), "eval_contract": str(eval_contract)}
     print(f"PointNet++ demo on the card ({PN_FRAMES} synthetic frames, one "
           f"epoch, B=4, 1024 points): {len(steps)} train steps, "
           f"{len(evals)} eval batches in {demo_s:.1f} s, losses {losses}, "
@@ -4836,7 +4880,7 @@ BN_OP_GRAD_BOUND = 2.0 ** -6
 # round (group_points_bwd_bf16: no TPU kernel, the fixed-order sum of
 # tpu3d's gather_mxu_bwd / onehot_bf16 VJPs)
 BF16_SOURCES.update({
-    "fused_sa_train_bf16": ("tpu3d_torch/csrc/fused_sa_bf16.cuh",
+    "fused_sa_train_bf16": ("tpu3d_torch/csrc/fused_sa_wgmma.cuh",
                             "tpu3d/ops/fused_sa.py:752"),
     "fused_sa_bwd_bf16": ("tpu3d_torch/csrc/fused_sa_bwd_bf16.cu",
                           "tpu3d/ops/fused_sa.py:782"),
@@ -4879,11 +4923,58 @@ def f32_training():
         F32_TRAINING[:] = []
 
 
+# the aten ops a cast or a copy of a tensor reaches at the dispatcher:
+# none may run between autograd's hand-over of a gather's gradient and the
+# bf16 backward's launch
+COPY_OPS = ("_to_copy", "clone", "copy_")
+
+
+@contextlib.contextmanager
+def gather_backward_ops(into):
+    """Each bf16 gather backward of the block (``_GroupPoints.backward``
+    with its bf16 form): the gradient's dtype, shape and strides as
+    autograd hands it over, and the aten ops run from there to the
+    kernel's launch (a dispatch mode over the backward), appended to
+    ``into``."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from tpu3d_torch.ops import grouping
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
+    saved = grouping._GroupPoints.__dict__["backward"]
+    real = saved.__func__
+
+    def backward(ctx, grad):
+        if not ctx.bf16:
+            return real(ctx, grad)
+        with Ops() as mode:
+            out = real(ctx, grad)
+        into.append({"dtype": grad.dtype, "shape": tuple(grad.shape),
+                     "stride": grad.stride(), "ops": mode.ops})
+        return out
+
+    grouping._GroupPoints.backward = staticmethod(backward)
+    try:
+        yield into
+    finally:
+        grouping._GroupPoints.backward = saved
+
+
+@contextlib.contextmanager
 def record_train_calls():
     """The arguments of the calls a bf16 train step makes to the fused
     forms (kernel 9's under ``fused_sa_bn_train_bf16``), the interpolation
     and the gathers whose backward takes the bf16 form, by the training
-    form they launch."""
+    form they launch; and, under ``gather_bwd_grads``, what each bf16
+    gather backward was handed (``gather_backward_ops``)."""
     import torch
 
     def keep(attr, args):
@@ -4891,12 +4982,14 @@ def record_train_calls():
             attr != "group_points" or (len(args) > 2 and args[2])
             or args[0].dtype == torch.bfloat16)
 
-    return record_calls(
-        {"fused_gathered_mlp_pool_bf16": "fused_sa_train_bf16",
-         "fused_mlp_pool_bf16": "fused_sa_slab_train_bf16",
-         "fused_bn_mlp_pool_bf16_train": "fused_sa_bn_train_bf16",
-         "three_interpolate_bf16": "three_interpolate_bwd_bf16",
-         "group_points": "group_points_bwd_bf16"}, keep)
+    with record_calls(
+            {"fused_gathered_mlp_pool_bf16": "fused_sa_train_bf16",
+             "fused_mlp_pool_bf16": "fused_sa_slab_train_bf16",
+             "fused_bn_mlp_pool_bf16_train": "fused_sa_bn_train_bf16",
+             "three_interpolate_bf16": "three_interpolate_bwd_bf16",
+             "group_points": "group_points_bwd_bf16"}, keep) as calls:
+        with gather_backward_ops(calls.setdefault("gather_bwd_grads", [])):
+            yield calls
 
 
 def _bf16_chain(x0, w1, b1, w2, b2):
@@ -4938,6 +5031,7 @@ def fused_train_form_rows(report, calls, gen):
             fs.fused_mlp_pool_backward)}
     for fwd_name, (bwd_name, train, train_plain, bwd, bwd_plain, train32,
                    bwd32) in forms.items():
+        step_ms = {"kernel": 0.0, "f32 form": 0.0, "bf16 cuBLAS chain": 0.0}
         for args in calls.get(fwd_name, []):
             gather = fwd_name == "fused_sa_train_bf16"
             w1, b1, w2, b2 = args[-4:]
@@ -5013,8 +5107,17 @@ def fused_train_form_rows(report, calls, gen):
             del o32, leaves
             ops = 2 * R * M * S * (c1 * c2 + c2 * c3)
             wbytes = 2 * (c1 * c2 + c2 * c3 + c2 + c3)
+            design = {}
+            if gather:
+                design = train_bf16_design(c1, c2, c3, label)
+                design = {"wgmma_calls": int(design == "wgmma"),
+                          "parent_calls": int(design == "parent")}
             report.add(fwd_name, err, ms, pms, lms,
-                       in_bytes + wbytes + 10 * R * M * c3, ops, f32_ms=fms)
+                       in_bytes + wbytes + 10 * R * M * c3, ops, f32_ms=fms,
+                       **design)
+            for key, t in (("kernel", ms), ("f32 form", fms),
+                           ("bf16 cuBLAS chain", lms)):
+                step_ms[key] += t
             nnz, hit = routed_slots(arg, g.float(), ppre, S)
             report.add(bwd_name, b_err, bms, bpms, blms,
                        2 * in_bytes + 4 * (c1 * c2 + c2 * c3) + 10 * R * M
@@ -5027,6 +5130,85 @@ def fused_train_form_rows(report, calls, gen):
                   f"form {bfms:.3f}), plain {bpms:.3f}, the chain's backward "
                   f"{blms:.3f}, max_abs_err {b_err:.3e}, {hit} of "
                   f"{R * M * S} slots reached; each twice equal to the bit")
+        if calls.get(fwd_name):
+            print(f"{fwd_name} over the {len(calls[fwd_name])} calls of the "
+                  f"step: " + ", ".join(f"{k} {v:.4f} ms"
+                                        for k, v in step_ms.items()))
+
+
+def train_bf16_design(c1, c2, c3, label):
+    """The design kernel 6's bf16 training forward runs widths c1 -> c2 ->
+    c3 on ("wgmma" or "parent"), checked against the C entry's own
+    predicate."""
+    import ctypes
+
+    from tpu3d_torch.ops import _build
+    from tpu3d_torch.ops.fused_sa import train_bf16_design as design
+
+    fn = _build.library("fused_sa").tpu3d_fused_sa_train_bf16_wgmma
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    got = design(c1, c2, c3)
+    check(bool(fn(c1, c2, c3)) == (got == "wgmma"), f"{label}: the C entry "
+          f"and train_bf16_design disagree on {c1} -> {c2} -> {c3}")
+    return got
+
+
+def hold_train_forward(calls, label):
+    """Kernel 6's bf16 training forward at a config's recorded calls: two
+    calls equal to the bit, within BF16_FORM_BOUND of its plain version,
+    the argmax on another slot in at most ARGMAX_FLIP_BOUND of the
+    channels -> the designs it ran, by call."""
+    import torch
+
+    from tpu3d_torch.ops import fused_sa as fs
+
+    designs = []
+    for args in calls:
+        R, M, S = args[1].shape
+        c1, c2, c3 = args[3].shape[0], args[3].shape[1], args[5].shape[1]
+        where = f"{label}: fused_sa_train_bf16 R={R} M={M} S={S} " \
+                f"C={c1}->{c2}->{c3}"
+        designs.append(train_bf16_design(c1, c2, c3, where))
+        out = fs.fused_gathered_mlp_pool_bf16_train(*args)
+        again = fs.fused_gathered_mlp_pool_bf16_train(*args)
+        check(all(torch.equal(a, b) for a, b in zip(out, again)),
+              f"{where}: two calls differ")
+        with torch.no_grad():
+            p_out, p_arg, _ = fs.fused_gathered_mlp_pool_bf16_train_plain(
+                *args)
+        err, scale = _rel_err(out[0], p_out)
+        flips = (out[1] != p_arg).float().mean().item()
+        check(err <= BF16_FORM_BOUND * scale and flips <= ARGMAX_FLIP_BOUND,
+              f"{where}: {err} off its plain version (largest {scale}), "
+              f"{flips:.2%} of the argmax slots moved")
+        print(f"{where} ({designs[-1]} design): within {err:.3e} of the "
+              f"plain version (largest {scale:.3e}), argmax moved at "
+              f"{flips:.3%} of the channels; twice equal to the bit")
+    return designs
+
+
+def widened_train_calls(gen):
+    """Kernel 6's bf16 training forward's arguments at the widened RCNN's
+    SA_0 and SA_1 (``WIDE_NSAMPLE0``, ``WIDE_MLPS``; train B=2's 128 ROIs
+    per scene, seeded): [(pre, idx, center, w1, b1, w2, b2)]."""
+    import torch
+
+    out, n, c0 = [], 512, WIDE_MLPS[0][0]
+    for (m, s), mlp in zip(((128, WIDE_NSAMPLE0), (32, 64)), WIDE_MLPS):
+        R, (c1, c2, c3) = 2 * 128, mlp
+        check(c1 == c0, f"the widened RCNN's widths {WIDE_MLPS}")
+
+        def randn(*shape, scale=1.0):
+            return torch.randn(*shape, generator=gen).to(DEVICE) * scale
+
+        out.append((randn(R, n, c1).to(torch.bfloat16),
+                    torch.randint(0, n, (R, m, s), generator=gen).to(
+                        DEVICE, torch.int32),
+                    randn(R, m, c1, scale=0.5).to(torch.bfloat16),
+                    randn(c1, c2, scale=c1 ** -0.5), randn(c2, scale=0.1),
+                    randn(c2, c3, scale=c2 ** -0.5), randn(c3, scale=0.1)))
+        n, c0 = m, c3
+    return out
 
 
 def gather_train_form_rows(report, calls, gen):
@@ -5072,12 +5254,23 @@ def gather_train_form_rows(report, calls, gen):
               f"{g.dtype}): {ms:.4f} ms (f32 form {fms:.4f}), plain "
               f"{pms:.3f}, index_add_ in bf16 {lms:.4f}; twice equal, equal "
               f"to the CPU's")
+    handed = {h["shape"]: h for h in calls.get("gather_bwd_grads", [])}
+    step_ms = {"kernel": 0.0, "f32 form": 0.0, "torch.gather backward": 0.0}
     for feats, idx, *_ in calls.get("group_points_bwd_bf16", []):
         B, N, C = feats.shape
         _, M, S = idx.shape
         idx = idx.to(torch.int32).contiguous()
-        g = torch.randn(B, M, S, C, generator=gen).to(feats.device).to(
-            torch.bfloat16).float()
+        # the gradient in the dtype and layout the step handed this
+        # backward, and the ops the step ran before its launch
+        h = handed.get((B, M, S, C))
+        check(h is not None, f"group_points_bwd_bf16 N={N} M={M} S={S} "
+              f"C={C}: no backward recorded at this shape")
+        copies = [op for op in h["ops"] if op in COPY_OPS]
+        check(not copies, f"group_points_bwd_bf16 N={N} M={M} S={S} C={C}: "
+              f"the step copied or cast before the launch: {h['ops']}")
+        g = torch.empty_strided(h["shape"], h["stride"], dtype=h["dtype"],
+                                device=feats.device)
+        g.copy_(torch.randn(B, M, S, C, generator=gen).to(h["dtype"]))
         got = gp.group_points_backward_bf16(g, idx, N, feats.dtype)
         check(torch.equal(got, gp.group_points_backward_bf16(
             g, idx, N, feats.dtype)), "group_points_bwd_bf16: two calls "
@@ -5090,16 +5283,25 @@ def gather_train_form_rows(report, calls, gen):
                                                            feats.dtype), 20)
         pms = cuda_ms(lambda: gp.group_points_backward_bf16_plain(
             g, idx, N, feats.dtype), 5)
-        fms = cuda_ms(lambda: gp.group_points_backward(g, idx, N), 20)
-        leaf = feats.detach().float().requires_grad_()
+        g32 = g.float().contiguous()
+        fms = cuda_ms(lambda: gp.group_points_backward(g32, idx, N), 20)
+        leaf = feats.detach().to(g.dtype).requires_grad_()
         lms = library_backward_ms(lambda: torch_group(leaf, idx), g)
         report.add("group_points_bwd_bf16", 0.0, ms, pms, lms,
-                   2 * g.numel() + 4 * idx.numel()
+                   g.element_size() * g.numel() + 4 * idx.numel()
                    + feats.element_size() * B * N * C, g.numel(), f32_ms=fms)
-        print(f"group_points_bwd_bf16 N={N} M={M} S={S} C={C} (out "
+        for key, t in (("kernel", ms), ("f32 form", fms),
+                       ("torch.gather backward", lms)):
+            step_ms[key] += t
+        print(f"group_points_bwd_bf16 N={N} M={M} S={S} C={C} (g "
+              f"{h['dtype']} of strides {h['stride']} as the step hands it, "
+              f"ops before the launch {sorted(set(h['ops']))}; out "
               f"{feats.dtype}): {ms:.4f} ms (f32 form {fms:.4f}), plain "
               f"{pms:.3f}, torch.gather's backward {lms:.4f}; twice equal, "
               f"equal to the CPU's")
+    if calls.get("group_points_bwd_bf16"):
+        print("group_points_bwd_bf16 over the step's bf16 gathers: "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in step_ms.items()))
 
 
 def bf16_gathers(cfg) -> tuple[int, int]:
@@ -5524,9 +5726,11 @@ def train_numerics(card: str) -> tuple[Report, Report, dict]:
     calls = {}  # by label, the recorded calls of the forms timed there
     keep = {"default.yaml train B=16": ("fused_sa_train_bf16",
                                         "three_interpolate_bwd_bf16",
-                                        "group_points_bwd_bf16"),
+                                        "group_points_bwd_bf16",
+                                        "gather_bwd_grads"),
             QUICK_PATH["train"]: ("fused_sa_slab_train_bf16",),
             SMOKE_PATH["train"]: ("fused_sa_slab_train_bf16",)}
+    designs = {}  # kernel 6's bf16 training forward, by config and call
     for label, name, batch_size in TRAIN_NUMERICS_CONFIGS:
         cfg = cfg_from_file(str(ROOT / "configs" / name), fresh_cfg())
         f32cfg = cfg_from_list(F32_TRAIN_SETS, copy.deepcopy(cfg))
@@ -5535,8 +5739,7 @@ def train_numerics(card: str) -> tuple[Report, Report, dict]:
         batch = {k: torch.from_numpy(v).to(dev) for k, v in train_batch(
             batch_size, cfg.RPN.NUM_POINTS, SEED).items()}
         f32 = _one_step(f32cfg, model, weights, batch)
-        record = bool(keep.get(label))
-        bf = _one_step(cfg, model, weights, batch, record)
+        bf = _one_step(cfg, model, weights, batch, True)
         check(bf[4].dense_dtype == torch.bfloat16 and bf[4].sa_bf16
               and f32[4].dense_dtype is None and not f32[4].sa_bf16,
               f"{label}: contracts {bf[4]} / {f32[4]}")
@@ -5575,6 +5778,15 @@ def train_numerics(card: str) -> tuple[Report, Report, dict]:
               f"{f32[0]['rcnn_loss']:.5f}); gradient norms {bf[2]} (f32 "
               f"{f32[2]}); launches {bf[1]} (f32 {f32[1]})")
         calls[label] = {k: bf[3][k] for k in keep.get(label, ())}
+        # kernel 6's bf16 training forward at the config's own calls (the
+        # default step's are also timed, in (a))
+        designs[label] = (hold_train_forward(bf[3]["fused_sa_train_bf16"],
+                                             label)
+                          if "fused_sa_train_bf16" not in calls[label]
+                          else [train_bf16_design(
+                              a[3].shape[0], a[3].shape[1], a[5].shape[1],
+                              label) for a in bf[3]["fused_sa_train_bf16"]])
+        row["fused_sa_train_bf16_designs"] = designs[label]
         if label.startswith("default"):
             # (c) a second step from the same weights and draws, equal to
             # the first to the bit in every gradient, parameter, moment and
@@ -5618,6 +5830,16 @@ def train_numerics(card: str) -> tuple[Report, Report, dict]:
         fused_train_form_rows(into, calls[label], gen)
         gather_train_form_rows(into, calls[label], gen)
     del calls
+    check(set(designs["default.yaml train B=16"]) == {"wgmma"},
+          f"kernel 6's bf16 training forward ran the default step on "
+          f"{designs['default.yaml train B=16']}")
+    # the widened RCNN's levels (256 -> 384 -> 256 does not fit the wgmma
+    # design's shared memory): the parent design, held the same way
+    figures["widened_designs"] = hold_train_forward(
+        widened_train_calls(gen), "the widened RCNN's SA_0 and SA_1")
+    check(set(figures["widened_designs"]) == {"parent"},
+          f"the widened RCNN ran {figures['widened_designs']}")
+    figures["fused_sa_train_bf16_designs"] = designs
     torch.cuda.empty_cache()
 
     # the roofline's mfu_pct: the default train step under the default
@@ -6309,6 +6531,8 @@ def main() -> int:
             "launches_by_config": {
                 label: row["launches"].get(name, 0)
                 for label, row in numerics["configs"].items()},
+            "pn_train_launches": PN_TRAIN.get(name, 0),
+            "pn_eval_launches": PN_EVAL.get(name, 0),
             **bf16_report.row(name), "status": "ported"})
     # the bf16 training forms: launches on the path of phase 19 each was
     # timed at, and their other configs' (the slab forms also timed at
@@ -6325,6 +6549,7 @@ def main() -> int:
             "launches_by_config": by_config,
             "cli_launches_per_step": train_figs["training_cli"][
                 "launches_per_step"].get(name, 0),
+            "pn_train_launches": PN_TRAIN.get(name, 0),
             **train_report.row(name),
             "status": ("ported" if name != "group_points_bwd_bf16" else
                        "no TPU kernel: the bf16 form of the fixed-order "

@@ -998,20 +998,29 @@ def _close(got, want, tol=2.0 ** -6):
     assert err <= tol * scale, (err, scale)
 
 
+# the bf16 form's cases beside GROUP_BWD's: the demo's narrowest rows and
+# a row wider than a warp's 256 channels that is no multiple of 32
+GROUP_BWD_BF16 = dict(GROUP_BWD, **{"narrow": (4, 1024, 256, 32, 16),
+                                    "wide odd": (3, 300, 40, 16, 131)})
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["RPN SA_1", "RCNN plain", "repeated pads",
-                                  "odd width"])
+                                  "odd width", "narrow", "wide odd"])
 @pytest.mark.parametrize("out", ["float32", "bfloat16"])
-def test_group_points_bwd_bf16_on_cuda(case, out):
+@pytest.mark.parametrize("grad_form", ["f32", "bf16", "strided"])
+def test_group_points_bwd_bf16_on_cuda(case, out, grad_form):
     """The gather's bf16 backward (tpu3d's gather_mxu_bwd and onehot_bf16
     routes): two calls equal, equal to the CPU plain version bit for bit, in
-    f32 or bf16 out, and autograd through group_points reaches it."""
+    f32 or bf16 out, with the gradient in f32, in bf16 or as a channel slice
+    of wider f32 rows (the kernel reads each as it lies, rounding as it
+    loads), and autograd through group_points reaches it."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     from tpu3d_torch.ops.grouping import (group_points,
                                           group_points_backward_bf16,
                                           group_points_backward_bf16_plain)
-    B, N, M, S, C = GROUP_BWD[case]
+    B, N, M, S, C = GROUP_BWD_BF16[case]
     dtype = getattr(torch, out)
     g = torch.Generator(device="cuda").manual_seed(len(case))
     idx = torch.randint(0, N, (B, M, S), generator=g, device="cuda",
@@ -1019,7 +1028,11 @@ def test_group_points_bwd_bf16_on_cuda(case, out):
     if case == "repeated pads":
         idx[:, :, 3:] = idx[:, :, :1]
         idx[:, ::4] = 7
-    grad = torch.randn(B, M, S, C, generator=g, device="cuda")
+    wide = torch.randn(B, M, S, C + 6, generator=g, device="cuda")
+    grad = {"f32": wide[..., :C].contiguous(),
+            "bf16": wide[..., :C].to(torch.bfloat16),
+            "strided": wide[..., 3:C + 3]}[grad_form]
+    assert grad.is_contiguous() == (grad_form != "strided")
     _build.reset_launches()
     first = group_points_backward_bf16(grad, idx, N, dtype)
     second = group_points_backward_bf16(grad, idx, N, dtype)
@@ -1034,6 +1047,10 @@ def test_group_points_bwd_bf16_on_cuda(case, out):
                                                      dtype))
     assert _build.BF16_LAUNCHES["group_points_bwd_bf16"] == 4
     assert _build.LAUNCHES["group_points_bwd"] == 0
+    # (m, s) rows that lie s-major: no uniform row stride, so it raises
+    swapped = wide.transpose(1, 2).contiguous().transpose(1, 2)[..., :C]
+    with pytest.raises(ValueError, match="uniform stride"):
+        group_points_backward_bf16(swapped, idx, N, dtype)
 
 
 def _interp_bwd_inputs(case):
@@ -1087,30 +1104,54 @@ def test_three_interpolate_bwd_bf16_on_cuda(case):
     assert _build.LAUNCHES["three_interpolate_bwd"] == 0
 
 
+# (R, M, S, N, C1, C2, C3): default's RCNN SA_0 and SA_1 cut in rows, S 16
+# to 128, 128 -> 128 -> 384 (the wgmma design with two warpgroups a block),
+# 128 -> 256 -> 128 and the widened RCNN's 256 -> 384 -> 256 (the gather
+# form on the parent design there, fused_sa.train_bf16_design), and R·M =
+# 133 groups, no multiple of the wgmma design's 396 warpgroups
 BF16_TRAIN = [(64, 128, 64, 512, 128, 128, 128),
               (64, 32, 64, 128, 128, 128, 256),
               (16, 32, 16, 128, 128, 128, 256),
-              (8, 16, 24, 128, 128, 256, 128)]
+              (8, 16, 24, 128, 128, 256, 128),
+              (19, 7, 32, 128, 128, 128, 128),
+              (12, 16, 128, 256, 128, 128, 256),
+              (4, 16, 128, 128, 256, 384, 256),
+              (7, 19, 64, 128, 128, 128, 256),
+              (6, 16, 32, 128, 128, 128, 384)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("form", ["gather", "slab"])
 @pytest.mark.parametrize("shape", BF16_TRAIN, ids=str)
-def test_fused_bf16_training_forms_on_cuda(form, shape):
+@pytest.mark.parametrize("ties", [False, True])
+def test_fused_bf16_training_forms_on_cuda(form, shape, ties):
     """Kernels 6 (gather) and 8 (slab) in their bf16 training forms: the
     forward against the plain training forward, the routed backward against
     the plain backward on the kernel's own argmax and ppre, each output
     equal across two calls; and an autograd step through the public op
-    launches each form once."""
+    launches each form once. ``ties``: each group's slots from 3 on repeat
+    its first three (the ball query's pads), so equal maxima sit at several
+    slots and the first-argmax rule decides; the gather form's design is
+    the one ``train_bf16_design`` names."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     R, M, S, N, C1, C2, C3 = shape
     x0, w1, b1, w2, b2, g = _bf16_fused_inputs((R, M, S, C1, C2, C3), 31)
+    if ties:
+        x0[:, :, 3:] = x0[:, :, torch.arange(3, S) % 3]
     if form == "gather":
+        import ctypes
+
+        design = _build.library("fused_sa").tpu3d_fused_sa_train_bf16_wgmma
+        design.argtypes = [ctypes.c_int] * 3
+        assert bool(design(C1, C2, C3)) == (
+            fs.train_bf16_design(C1, C2, C3) == "wgmma")
         pre = torch.randn(R, N, C1, generator=g, device="cuda").to(
             torch.bfloat16)
         idx = torch.randint(0, N, (R, M, S), generator=g, device="cuda",
                             dtype=torch.int32)
+        if ties:
+            idx[:, :, 3:] = idx[:, :, torch.arange(3, S) % 3]
         center = (0.5 * torch.randn(R, M, C1, generator=g,
                                     device="cuda")).to(torch.bfloat16)
         args = (pre, idx, center, w1, b1, w2, b2)

@@ -25,8 +25,10 @@
 // that of the plain versions' index_add_ on the CPU, which adds in source
 // order, so the result is the same bits on every call, and the CPU's.
 // sum_rows_bf16_kernel does the same over bf16 rows, each scaled by a
-// weight the key gives (1 for a gather's backward, a bf16 interpolation
-// weight for kernel 7's bf16 form), and writes f32 or bf16.
+// weight the key gives (a bf16 interpolation weight: kernel 7's bf16
+// form), and writes f32 or bf16. The gather's bf16 backward
+// (group_points_bwd.cu) sums over the same inverse with a kernel of its
+// own, which reads its gradient rows where and as they lie.
 
 #pragma once
 

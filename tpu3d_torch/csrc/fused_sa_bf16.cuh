@@ -52,7 +52,10 @@
 // walks its rows in ascending order and keeps the first strict maximum, the
 // shuffles keep the lower slot of two equal maxima, and a later chunk takes
 // over only above the running max.
-// wgmma and TMA are later work.
+// Kernel 6's training form (tpu3d_fused_sa_train_bf16) runs on
+// fused_sa_wgmma.cuh's design (wgmma, weights resident in shared memory)
+// at every width that design takes; the wider ones, and the six other
+// entries, on this one.
 //
 // Included by fused_sa.cu (its library holds both numeric forms); the
 // kernels live in namespace fused_sa_bf16, the C entries at the end.
@@ -63,6 +66,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "fused_sa_wgmma.cuh"
 #include "launch_check.cuh"
 
 namespace fused_sa_bf16 {
@@ -424,16 +428,31 @@ extern "C" int tpu3d_fused_sa_slab_bn_bf16(const __nv_bfloat16* x0, const float*
 
 // Kernel 6's bf16 training forward: the gather form's inputs as
 // tpu3d_fused_sa_bf16 -> out (R, M, C3) bf16, argmax (R, M, C3) i32 (the
-// first slot of the max), ppre (R, M, C3) f32 (x2 there).
+// first slot of the max), ppre (R, M, C3) f32 (x2 there). The widths
+// fused_sa_wgmma.cuh takes run there (wgmma, weights resident in shared
+// memory); wider ones on the design above.
 extern "C" int tpu3d_fused_sa_train_bf16(
     const __nv_bfloat16* pre, const int* idx, const __nv_bfloat16* center,
     const __nv_bfloat16* w1t, const __nv_bfloat16* b1,
     const __nv_bfloat16* w2t, const __nv_bfloat16* b2, int R, int N, int M,
     int S, int C1, int C2, int C3, __nv_bfloat16* out, int* argmax,
     float* ppre, void* stream) {
-  return fused_sa_bf16::launch<true, false, true>(
-      pre, idx, center, nullptr, w1t, b1, w2t, b2, R, N, M, S, C1, C2, C3,
-      out, argmax, ppre, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!fused_sa_wgmma::takes(C1, C2, C3))
+    return fused_sa_bf16::launch<true, false, true>(
+        pre, idx, center, nullptr, w1t, b1, w2t, b2, R, N, M, S, C1, C2, C3,
+        out, argmax, ppre, s);
+  if (const int pending = tpu3d::pending_error(s)) return pending;
+  if (R < 1 || N < 1 || M < 1 || S < 1) return (int)cudaErrorInvalidValue;
+  return fused_sa_wgmma::launch_train(pre, idx, center, w1t, b1, w2t, b2, R,
+                                      N, M, S, C1, C2, C3, out, argmax, ppre,
+                                      s);
+}
+
+// 1 where tpu3d_fused_sa_train_bf16 runs widths C1 -> C2 -> C3 on the
+// wgmma design, 0 where on the parent one.
+extern "C" int tpu3d_fused_sa_train_bf16_wgmma(int C1, int C2, int C3) {
+  return fused_sa_wgmma::takes(C1, C2, C3) ? 1 : 0;
 }
 
 // Kernel 8's bf16 training forward: the slab form's inputs as

@@ -7,9 +7,10 @@ eval and the training forward of ``fused_sa``, each in its gather and its
 slab form; the routed backward of both forms in ``fused_sa_bwd``; the
 BatchNorm chain's training passes in ``fused_sa_bn``; FPS+3NN and the
 long-row FPS alone in ``fps3nn``; each bf16 form in its f32
-form's source, ``fused_sa`` including ``fused_sa_bf16.cuh``, but the
-routed backward's, ``fused_sa_bwd_bf16``, which shares ``fused_sa_bwd.cuh``
-with ``fused_sa_bwd``). Each source names its own ``nvcc``
+form's source, ``fused_sa`` including ``fused_sa_bf16.cuh`` and through it
+``fused_sa_wgmma.cuh`` (kernel 6's bf16 training forward on ``wgmma``), but
+the routed backward's, ``fused_sa_bwd_bf16``, which shares
+``fused_sa_bwd.cuh`` with ``fused_sa_bwd``). Each source names its own ``nvcc``
 flags. The library's file name carries a hash of its source, the
 shared headers (``csrc/*.cuh``) and its flags, so an edited source is
 rebuilt and a stale library is never loaded. Libraries go to
@@ -144,7 +145,7 @@ BF16_KERNELS = {
                                    [P, P, P, I, I, I, I, P, P, L, P]),
     "group_points_bwd_bf16": ("group_points_bwd",
                               "tpu3d_group_points_bwd_bf16",
-                              [P, P, I, I, I, I, I, I, P, P, L, P]),
+                              [P, I, L, P, I, I, I, I, I, I, P, P, L, P]),
     # kernel 9's training form on bf16 slabs: the seven passes of the f32
     # form (the statistics passes 1 and 2 on one C entry), the same
     # arguments but apply's, which writes d_x0 into a bf16 slab of its own

@@ -1638,6 +1638,35 @@ def bf16_kernels_take(S: int, C1: int, C2: int, C3: int) -> bool:
             and smem <= SMEM_MAX)
 
 
+def _carve(n: int) -> int:
+    return -(-n // 1024) * 1024
+
+
+def wgmma_smem(C1: int, C2: int, C3: int, warpgroups: int) -> int:
+    """Bytes of shared memory the wgmma design of kernel 6's bf16 training
+    forward asks for (``csrc/fused_sa_wgmma.cuh``'s layout, 1024-byte
+    regions): the weights, per warpgroup a 64-row stage of a0, two center
+    rows and a 64-row a1, the biases, the pooling state, and room to align
+    them."""
+    return sum(_carve(n) for n in (
+        2 * C1 * C2, 2 * C2 * C3, 2 * warpgroups * 64 * C1,
+        2 * warpgroups * 64 * C2, 2 * warpgroups * 2 * C1, 2 * C2, 2 * C3,
+        12 * warpgroups * C3)) + 1024
+
+
+def train_bf16_design(C1: int, C2: int, C3: int) -> str:
+    """The design kernel 6's bf16 training forward runs widths C1 -> C2 ->
+    C3 on (any S): "wgmma" (``csrc/fused_sa_wgmma.cuh``: C1 = C2 = 128, C3
+    a multiple of 128 whose layout fits with two warpgroups a block, three
+    where they fit: C3 up to 384, three up to 256) or "parent"
+    (``csrc/fused_sa_bf16.cuh``'s design, which takes the rest; the widened
+    RCNN's 256 -> 384 -> 256).
+    The C entry's ``tpu3d_fused_sa_train_bf16_wgmma`` decides the same."""
+    fits = (C1 == C2 == 128 and C3 >= 128 and C3 % 128 == 0
+            and wgmma_smem(C1, C2, C3, 2) <= SMEM_MAX)
+    return "wgmma" if fits else "parent"
+
+
 def _check_bf16_kernel(x, name, ndim, S, C1, C2, C3, R, M):
     _build.check_cuda_tensor(x, name, BF16, ndim)
     if x.data_ptr() % 16:

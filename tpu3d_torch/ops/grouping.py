@@ -276,30 +276,55 @@ def group_points_backward_bf16_plain(grad: torch.Tensor, idx: torch.Tensor,
         grad.to(torch.bfloat16).float(), idx, N).to(dtype)
 
 
+def grad_rows(grad: torch.Tensor) -> int:
+    """The stride ld, in values, between the (B, M, S, C) rows of ``grad``
+    where the bf16 form's kernel reads them as they lie: row (b, m, s) at
+    ((b·M + m)·S + s)·ld, its C channels contiguous (a contiguous gradient,
+    ld = C, or a channel slice of a wider one). Raises for another
+    layout."""
+    B, M, S, C = grad.shape
+    ld = (grad.stride(2) if S > 1 else grad.stride(1) if M > 1
+          else grad.stride(0) if B > 1 else C)
+    want = (M * S * ld, S * ld, ld, 1)
+    if ld < C or any(n > 1 and st != w for n, st, w in
+                     zip(grad.shape, grad.stride(), want)):
+        raise ValueError(f"the gather's bf16 backward reads rows a uniform "
+                         f"stride apart with contiguous channels, not grad "
+                         f"{tuple(grad.shape)} of strides {grad.stride()}")
+    return ld
+
+
 def group_points_backward_bf16(grad: torch.Tensor, idx: torch.Tensor,
                                N: int, dtype: torch.dtype) -> torch.Tensor:
     """The bf16 form of the grouping gather's backward: bf16(grad) summed in
     f32 in a fixed order, out in ``dtype`` (f32 or bf16): the kernel
     (counted as ``group_points_bwd_bf16``) for CUDA tensors, else the plain
-    version. The same bits on every call either way."""
+    version. The same bits on every call either way. On the card ``grad``
+    is read where and as it lies, f32 or bf16, its rows a uniform stride
+    apart (``grad_rows``), each value rounded to bf16 as it is loaded: no
+    cast or copy runs before the launch."""
     if grad.device.type == "cpu":
         return group_points_backward_bf16_plain(grad, idx, N, dtype)
     B, M, S = idx.shape
     C = grad.shape[-1]
-    g16 = grad.to(torch.bfloat16).contiguous()
-    _build.check_cuda_tensor(g16, "grad", torch.bfloat16, 4)
+    if grad.device.type != "cuda" or grad.dtype not in (torch.float32,
+                                                        torch.bfloat16):
+        raise ValueError(f"grad must be an f32 or bf16 CUDA tensor, got "
+                         f"{grad.dtype} on {grad.device}")
     _build.check_cuda_tensor(idx, "idx", torch.int32, 3)
-    if grad.shape[:3] != idx.shape:
+    if grad.dim() != 4 or grad.shape[:3] != idx.shape:
         raise ValueError(f"grad {tuple(grad.shape)} and idx "
                          f"{tuple(idx.shape)} disagree")
+    ld = grad_rows(grad)
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"the bf16 form writes f32 or bf16, not {dtype}")
     out = torch.empty(B, N, C, dtype=dtype, device=grad.device)
     ws = torch.empty(group_points_workspace(B, N, M, S), dtype=torch.int32,
                      device=grad.device)
-    _build.launch("group_points_bwd_bf16", g16.data_ptr(), idx.data_ptr(),
-                  B, N, M, S, C, int(dtype == torch.bfloat16),
-                  out.data_ptr(), ws.data_ptr(), ws.numel())
+    _build.launch("group_points_bwd_bf16", grad.data_ptr(),
+                  int(grad.dtype == torch.bfloat16), ld, idx.data_ptr(), B,
+                  N, M, S, C, int(dtype == torch.bfloat16), out.data_ptr(),
+                  ws.data_ptr(), ws.numel())
     return out
 
 
@@ -340,11 +365,14 @@ class _GroupPoints(torch.autograd.Function):
         idx, = ctx.saved_tensors
         if grad.device.type == "cuda":
             idx = idx.to(torch.int32)
-        idx, grad = idx.contiguous(), grad.contiguous()
+        idx = idx.contiguous()
         if ctx.bf16:
+            # the gradient as autograd hands it: the kernel reads its
+            # dtype and row stride
             return group_points_backward_bf16(grad, idx, ctx.n,
                                               ctx.dtype), None, None
-        return group_points_backward(grad, idx, ctx.n), None, None
+        return group_points_backward(grad.contiguous(), idx,
+                                     ctx.n), None, None
 
 
 def group_points(features: torch.Tensor, idx: torch.Tensor,

@@ -74,12 +74,23 @@ script. Shapes:
   picks, on planted-cluster scenes;
 - the slab form's forward alone (``fused_sa_slab_fwd``: eval and
   training forward at quickstart's and smoke's SA_1, the slab rows of
-  ``fused_sa_fwd``).
+  ``fused_sa_fwd``);
+- kernel 6's bf16 training forward (``fused_sa_fwd_bf16``:
+  ``fused_gathered_mlp_pool_bf16_train`` on bf16 pre-activations and
+  centers) at default.yaml's RCNN SA_0 and SA_1 of the train step (B=16),
+  with their sum per step;
+- the grouping gather's bf16 backward (``group_points_bwd_bf16``) at the
+  calls of default.yaml's train step that take it under the card's
+  default training contract (``gp_route`` "gather_mxu_bwd": RPN SA_1's two
+  gathers), on an f32 gradient laid out as the step hands it (the
+  backward of the level's bf16 cast: contiguous f32), beside
+  ``torch.gather``'s backward, with the sums.
 
 ``--only`` takes any of ``nearest_k``, ``fused_sa_bwd``, ``fps3nn``,
 ``fps``, ``three_interpolate_bwd``, ``group_points_bwd``, ``train_step``, ``fused_sa_fwd``,
-``fused_sa_slab_bwd``, ``fused_sa_bn_train``, ``three_nn`` and
-``fused_sa_slab_fwd`` (default: all).
+``fused_sa_slab_bwd``, ``fused_sa_bn_train``, ``three_nn``,
+``fused_sa_slab_fwd``, ``fused_sa_fwd_bf16`` and ``group_points_bwd_bf16``
+(default: all).
 
 Times are device times (``kernel_bench.cuda_ms``, beside this file: calls
 run back to back on the card behind a spin that outlasts their queueing),
@@ -154,7 +165,8 @@ def sa0_grouping(nearest_k, group_points):
 
 GROUPS = ("nearest_k", "fused_sa_bwd", "fps3nn", "fps",
           "three_interpolate_bwd", "group_points_bwd", "train_step", "fused_sa_fwd", "fused_sa_slab_bwd",
-          "fused_sa_bn_train", "three_nn", "fused_sa_slab_fwd")
+          "fused_sa_bn_train", "three_nn", "fused_sa_slab_fwd",
+          "fused_sa_fwd_bf16", "group_points_bwd_bf16")
 
 
 def rcnn_levels(root):
@@ -462,6 +474,64 @@ def main() -> int:
         print(f"{args.label}: the grouping gather's backward per train step: "
               f"{totals}", flush=True)
         torch.cuda.empty_cache()
+    if "group_points_bwd_bf16" in only:
+        from tpu3d_torch.ops import grouping
+
+        totals = {"group_points_bwd_bf16": 0.0, "scatter_add": 0.0}
+        for i, (feats, idx) in enumerate(group_points_calls(cfg)):
+            B, N, C = feats.shape
+            _, M, S = idx.shape
+            if grouping.gp_route(N, C, M * S, True, False,
+                                 True) != "gather_mxu_bwd":
+                continue
+            grad = torch.randn(B, M, S, C, generator=g, device="cuda")
+            flat = idx.reshape(B, -1).long()[..., None].expand(-1, -1, C)
+            rows = grad.reshape(B, -1, C)
+            shape = f"({B}, {N}, {C}) by {tuple(idx.shape)}"
+            totals["scatter_add"] += record(
+                f"torch.gather backward {i} {shape}",
+                lambda: torch.zeros(B, N, C, device="cuda").scatter_add_(
+                    1, flat, rows), 10)
+            totals["group_points_bwd_bf16"] += record(
+                f"group_points_bwd_bf16 {i} {shape}",
+                lambda: grouping.group_points_backward_bf16(
+                    grad, idx, N, torch.float32), 10)
+            del grad, flat, rows
+        for k, v in totals.items():
+            out[f"{k} bf16 gathers sum"] = v
+        print(f"{args.label}: the bf16 gathers' backward per train step: "
+              f"{totals}", flush=True)
+        torch.cuda.empty_cache()
+    if "fused_sa_fwd_bf16" in only:
+        from tpu3d_torch.ops import fused_sa as fs
+
+        total = 0.0
+        for label, route, mode, R, N, M, S, (c1, c2, c3) in rcnn_levels(
+                args.root):
+            if (route != "gather" or mode != "train"
+                    or not label.startswith("default")):
+                continue
+            fg = torch.Generator(device="cuda").manual_seed(R + M + S + c3)
+
+            def randn(*shape, scale=1.0):
+                return torch.randn(*shape, generator=fg,
+                                   device="cuda") * scale
+
+            ins = (randn(R, N, c1).to(torch.bfloat16),
+                   torch.randint(0, N, (R, M, S), generator=fg,
+                                 device="cuda", dtype=torch.int32),
+                   randn(R, M, c1, scale=0.5).to(torch.bfloat16),
+                   randn(c1, c2, scale=c1 ** -0.5), randn(c2, scale=0.1),
+                   randn(c2, c3, scale=c2 ** -0.5), randn(c3, scale=0.1))
+            with torch.no_grad():
+                total += record(
+                    f"fused_sa_train_bf16 {label}",
+                    lambda: fs.fused_gathered_mlp_pool_bf16_train(*ins), 10)
+            del ins
+            torch.cuda.empty_cache()
+        out["fused_sa_train_bf16 train sum"] = total
+        print(f"{args.label}: fused_sa_train_bf16, default train step's two "
+              f"launches: {total:.3f} ms", flush=True)
     if "train_step" in only:
         import statistics
         import time

@@ -15,6 +15,18 @@ forward and backward kernels at the four FP levels.
 It runs on the card unless ``--device cpu`` is given; with no card and no
 ``--device cpu`` it raises. The flax model's weights carry over with
 ``weights.params_from_jax``.
+
+Numerics: tpu3d's demo builds its ``Pointnet2MSG`` with ``train_bf16=True``
+and ``dtype=None`` (``tpu3d/models/pointnet2.py:231``, ``:540``), so on its
+accelerator it trains with the SA levels' pre-grouped activations and the FP
+levels' source features rounded to bf16 (``:329-332``, ``:505-508``) and every
+Dense in f32, and evaluates under its eval casts unless ``TPU3D_F32_EVAL`` is
+set. ``main`` resolves the same contracts once (``DEMO_NUMERICS``: the
+training contract of ``TRAIN.BF16_ACTIVATIONS`` on and ``TRAIN.BF16_MATMULS``
+off) and hands them to every forward; on the CPU both are f32. At the demo's
+levels (N <= 1024 points, precise pre-grouped gathers) tpu3d's gathers take
+the exact route (``_gp_route`` "onehot_exact"), so their backward stays the
+f32 one.
 """
 
 from __future__ import annotations
@@ -32,6 +44,7 @@ from ..datasets import (BatchLoader, KittiRCNNDataset, create_synthetic_kitti,
 from ..device import resolve_device
 from ..models.losses import dice_loss
 from ..models.pointnet2 import Pointnet2MSG, SharedMLP
+from ..precision import F32, Precision, resolve
 from ..utils.logging import create_logger
 
 # the demo's backbone (tpu3d/tools/pointnet2_demo.py:38-50)
@@ -42,6 +55,17 @@ SA_MLPS = (((8, 8), (8, 8)), ((8, 16), (8, 16)), ((16, 16), (16, 16)),
            ((16, 32), (16, 32)))
 FP_MLPS = ((32, 32), (32, 32), (32, 32), (64, 64))
 KEYS = ("pts_input", "rpn_cls_label")
+# the training numerics of tpu3d's demo model (train_bf16=True, dtype=None),
+# as config.train_numerics reads them
+DEMO_NUMERICS = {"TRAIN": {"BF16_ACTIVATIONS": True, "BF16_MATMULS": False}}
+
+
+def demo_precision(device, train: bool) -> Precision:
+    """The demo's numerics contract on ``device``: in training
+    ``DEMO_NUMERICS``'s, at eval the eval contract (``TPU3D_F32_EVAL``
+    honoured); f32 on the CPU. Nothing is allocated."""
+    return resolve(device, DEMO_NUMERICS, train=True) if train else resolve(
+        device)
 
 
 class PointnetSeg(nn.Module):
@@ -56,21 +80,26 @@ class PointnetSeg(nn.Module):
         self.out = nn.Linear(32, 1, device=device)
 
     def forward(self, pts: torch.Tensor, train: bool = False,
-                bn_momentum: float = 0.9) -> torch.Tensor:
-        """(B, N, 3) -> (B, N) logits."""
-        _, feats = self.backbone(pts, train=train, bn_momentum=bn_momentum)
+                bn_momentum: float = 0.9,
+                precision: Precision = F32) -> torch.Tensor:
+        """(B, N, 3) -> (B, N) logits, under ``precision``."""
+        _, feats = self.backbone(pts, train=train, bn_momentum=bn_momentum,
+                                 precision=precision)
+        # the head's Dense in f32 whatever the contract: tpu3d's demo gives
+        # its head no dtype
         h = self.head(feats, train=train, bn_momentum=bn_momentum)
         return self.out(h)[..., 0]
 
 
-def make_train_step(model: PointnetSeg, opt: torch.optim.Optimizer):
+def make_train_step(model: PointnetSeg, opt: torch.optim.Optimizer,
+                    precision: Precision = F32):
     """-> train_step(pts, labels) -> the DiceLoss (0-dim tensor): the
-    train-mode forward (BatchNorm from the batch, its running statistics
-    updated at flax's default momentum 0.9), the backward and one Adam
-    update."""
+    train-mode forward under ``precision`` (BatchNorm from the batch, its
+    running statistics updated at flax's default momentum 0.9), the
+    backward and one Adam update."""
     def train_step(pts, labels):
         opt.zero_grad(set_to_none=True)
-        loss = dice_loss(model(pts, train=True), labels)
+        loss = dice_loss(model(pts, train=True, precision=precision), labels)
         loss.backward()
         opt.step()
         return loss.detach()
@@ -79,9 +108,11 @@ def make_train_step(model: PointnetSeg, opt: torch.optim.Optimizer):
 
 
 @torch.no_grad()
-def fg_iou(model: PointnetSeg, pts, labels) -> torch.Tensor:
-    """The foreground IoU of the eval-mode prediction (sigmoid > 0.5)."""
-    pred = torch.sigmoid(model(pts)) > 0.5
+def fg_iou(model: PointnetSeg, pts, labels,
+           precision: Precision = F32) -> torch.Tensor:
+    """The foreground IoU of the eval-mode prediction (sigmoid > 0.5) under
+    ``precision``."""
+    pred = torch.sigmoid(model(pts, precision=precision)) > 0.5
     fg = labels > 0
     inter = (pred & fg).sum()
     return inter / (pred | fg).sum().clamp(min=1)
@@ -128,14 +159,16 @@ def main(argv=None) -> float:
     torch.manual_seed(0)
     model = PointnetSeg(device=dev)
     opt = torch.optim.Adam(model.parameters(), lr=args.lr, eps=1e-8)
-    train_step = make_train_step(model, opt)
+    train_step = make_train_step(model, opt, demo_precision(dev, True))
+    eval_precision = demo_precision(dev, False)
     loss, ious = torch.zeros(()), []
     for epoch in range(args.epochs):
         train_loader.set_epoch(epoch)
         for batch in device_prefetch(train_loader, keys=KEYS, device=dev):
             loss = train_step(batch["pts_input"], batch["rpn_cls_label"])
         logger.info(f"epoch {epoch}: loss {float(loss):.4f}")
-        ious = [float(fg_iou(model, b["pts_input"], b["rpn_cls_label"]))
+        ious = [float(fg_iou(model, b["pts_input"], b["rpn_cls_label"],
+                             eval_precision))
                 for b in device_prefetch(val_loader, keys=KEYS, device=dev)]
         logger.info(f"epoch {epoch}: val fg IoU {np.mean(ious):.4f}")
     return float(np.mean(ious))
