@@ -284,8 +284,10 @@ and no result line:
    against its plain version at the inputs (b) recorded (kernel 6 at
    default's RCNN SA_0 and SA_1, kernel 7 at its four FP levels, the
    gather's bf16 backward at RPN SA_1's two gathers, kernel 8 at
-   quickstart's and smoke's SA_1): kernels 6 and 8 forward and routed
-   backward within BF16_FORM_BOUND of the plain version's largest value,
+   quickstart's and smoke's SA_1): kernels 6 and 8 forward within
+   BF16_FORM_BOUND of the plain version's largest value, the routed
+   backward under the FLIP_ROWS rule (hold_bwd_outputs: rows beyond that
+   bound held to a float64 evaluation of the chain),
    the argmax off the plain one's at most ARGMAX_FLIP_BOUND of the
    channels, kernel 7 and the gather equal to their CPU plain versions to
    the bit, every output twice equal to the bit, each timed beside its
@@ -294,7 +296,16 @@ and no result line:
    kernel 6's bf16 forward on the design train_bf16_design names (the C
    entry's own predicate agreeing), the wgmma design at every default
    call, and held the same way at double's, quickstart's and smoke's
-   calls and, on the parent design, at the widened RCNN's widths; the
+   calls and, on the parent design, at the widened RCNN's widths; kernels
+   6 and 8's bf16 backward also under full spread (every channel live at a
+   slot drawn uniformly over S, phase 3's draw), timed beside its f32
+   form, its outputs seeded and there held under the FLIP_ROWS rule
+   (hold_bwd_outputs), each call split by launch (kernel_bench.split_ms)
+   with
+   its launch count, on the design backward_bf16_design names (the C
+   entry's own predicate agreeing; the tensor-core design at every
+   recorded call), and kernel 6's held on the parent walk at the widened
+   RCNN's widths, seeded and under full spread; the
    gather's bf16 backward with its gradient in the dtype and strides the
    step handed it, no copy or cast op (COPY_OPS) run between autograd's
    hand-over and the launch (gather_backward_ops), its bound counting g
@@ -536,6 +547,15 @@ def routed_slots(arg, grad, ppre, S):
     return int(live.sum()), int(torch.unique(keys).numel())
 
 
+def spread_draw(arg, ppre, S, gen):
+    """Every pooled channel live at a slot drawn uniformly over S (phase 3's
+    full spread): -> (argmax, ppre) in the shapes of ``arg`` and ``ppre``."""
+    import torch
+
+    return (torch.randint(0, S, arg.shape, generator=gen, device=arg.device,
+                          dtype=torch.int32), torch.ones_like(ppre))
+
+
 class Report:
     """Per kernel, summed over the launch shapes of one forward (eval
     kernels) or one train step (training kernels): worst error, kernel /
@@ -580,6 +600,15 @@ class Report:
         if "wgmma_calls" in r:  # kernel 6's bf16 training forward
             out["wgmma_calls"], out["parent_calls"] = (r["wgmma_calls"],
                                                        r["parent_calls"])
+        if "mma_calls" in r:  # kernels 6 and 8's bf16 backward
+            out["mma_calls"], out["parent_calls"] = (r["mma_calls"],
+                                                     r["parent_calls"])
+        if "full_ms" in r:  # a backward under full spread, at the same calls
+            out["full_spread_ms"] = r["full_ms"]
+            out["full_spread_f32_ms"] = r["full_f32_ms"]
+            out["full_spread_bound_ms"] = r["full_bound_ms"]
+            out["full_spread_reached_slots"] = r["full_reached"]
+            out["full_spread_max_abs_err"] = r["full_err"]
         if "brute_ops" in r:  # a routed search: the brute form's bound
             out["brute_bound_ms"], out["brute_bound_by"] = bound_ms(
                 r["bytes"], r["brute_ops"])
@@ -1538,9 +1567,7 @@ def fused_train_kernels(report, full_spread, model, target):
         # full spread: every channel live at a slot drawn uniformly over S,
         # on the same pre, idx and weights; against the routed plain
         # version, and the bound counts every slot
-        full_arg = torch.randint(0, S, r_arg.shape, generator=cuda_gen,
-                                 device=r_arg.device, dtype=torch.int32)
-        ones = torch.ones_like(r_ppre)
+        full_arg, ones = spread_draw(r_arg, r_ppre, S, cuda_gen)
         got = fixed_order_backward(args, grad, full_arg, ones,
                                    f"RCNN SA_{k}, full spread")
         ref = fused_gathered_mlp_pool_backward_routed_plain(*args, grad,
@@ -2042,10 +2069,8 @@ def slab_train_kernels(x0, mlp, label, gen):
           f"({100 * hit / slots:.2f}%)")
     # full spread: every channel live at a slot drawn uniformly over S,
     # against the routed plain version
-    full_arg = torch.randint(0, S, r_arg.shape, generator=torch.Generator(
-        device=x0.device).manual_seed(SEED + 8), device=x0.device,
-        dtype=torch.int32)
-    ones = torch.ones_like(r_ppre)
+    full_arg, ones = spread_draw(r_arg, r_ppre, S, torch.Generator(
+        device=x0.device).manual_seed(SEED + 8))
     got = fused_mlp_pool_backward(x0, *args, grad, full_arg, ones)
     ref = fused_mlp_pool_backward_routed_plain(x0, *args, grad, full_arg,
                                                ones)
@@ -4474,6 +4499,88 @@ def contract_run(model, cfg, pts, f32: bool, label: str, record=False):
                 precision=prec, calls=calls)
 
 
+def _group_d_x0(form, args, g, arg, ppre, r, m):
+    """A group's d_x0 (S x C1) in float64 with the bf16 backward's rounding
+    points (x0, W1, b1, W2, dval and d_x1 rounded to bf16, x1 =
+    bf16(bf16(a0 W1) + bf16(b1))), ``form`` "gather" or "slab"."""
+    import torch
+
+    def r16(x):
+        return x.to(torch.bfloat16).double()
+
+    if form == "gather":
+        pre, idx, center = args[:3]
+        x0 = r16(pre[r, idx[r, m].long()].double() - center[r, m].double())
+    else:
+        x0 = args[0][r, m].double()
+    w1, b1, w2 = (r16(t.detach().double()) for t in
+                  (args[-4], args[-3], args[-2]))
+    x1 = r16(r16(x0.clamp(min=0) @ w1) + b1)
+    dval = torch.where(ppre[r, m] > 0, g[r, m].double(), 0.0)
+    D = torch.zeros(x0.shape[0], w2.shape[1], dtype=torch.float64,
+                    device=x0.device)
+    D[arg[r, m].long(), torch.arange(w2.shape[1], device=x0.device)] = \
+        r16(dval)
+    d_x1 = (D @ w2.T) * (x1 > 0)
+    return (r16(d_x1) @ w1.T) * (x0 > 0)
+
+
+def hold_bwd_outputs(form, args, g, arg, ppre, got, want, label) -> tuple:
+    """Kernels 6 ("gather") and 8 ("slab")'s bf16 backward outputs ``got``
+    against the plain version's ``want`` under the FLIP_ROWS rule: each
+    output within BF16_FORM_BOUND of want's largest value but for at most
+    FLIP_ROWS rows of d_x0 (slab), d_pre or d_center (gather), each of
+    those within that bound of the float64 chain (_group_d_x0), each
+    printed -> (the largest error outside those rows, the rows the float64
+    chain held)."""
+    import torch
+
+    err, held = 0.0, 0
+    for k, (a, b) in enumerate(zip(got, want)):
+        e, sc = _rel_err(a, b)
+        check(a.dtype == b.dtype, f"{label}: backward output {k} is "
+              f"{a.dtype}, its plain version's {b.dtype}")
+        if e <= BF16_FORM_BOUND * sc:
+            err = max(err, e)
+            continue
+        check(k < (2 if form == "gather" else 1), f"{label}: backward "
+              f"output {k} differs from its plain version's by {e} "
+              f"(largest {sc})")
+        rows_err = (a.float() - b.float()).abs().amax(-1)
+        bad = (rows_err > BF16_FORM_BOUND * sc).nonzero().tolist()
+        check(len(bad) <= FLIP_ROWS, f"{label}: backward output {k} "
+              f"differs from its plain version's by {e} (largest {sc}) in "
+              f"{len(bad)} rows")
+        for row in bad:
+            if form == "slab":
+                r, m, s = row
+                ref = _group_d_x0(form, args, g, arg, ppre, r, m)[s]
+            elif k == 1:  # d_center
+                r, m = row
+                ref = -_group_d_x0(form, args, g, arg, ppre, r, m).sum(0)
+            else:  # d_pre: the point's keys, bf16(d_x0) each
+                r, n = row
+                idx = args[1]
+                keys = (idx[r] == n).nonzero().tolist()
+                ref = sum(_group_d_x0(form, args, g, arg, ppre, r, m)[s]
+                          .to(torch.bfloat16).double() for m, s in keys)
+            ref = ref.to(torch.bfloat16).float()
+            d = (a[tuple(row)].float() - ref).abs().max().item()
+            check(d <= BF16_FORM_BOUND * sc, f"{label}: backward output "
+                  f"{k} row {row} is {d} off the float64 chain (largest "
+                  f"{sc}; the plain version {rows_err[tuple(row)].item()} "
+                  f"off)")
+            print(f"{label}: backward output {k} row {row}: the plain "
+                  f"version {rows_err[tuple(row)].item():.4g} off (largest "
+                  f"{sc:.4g}), the kernel {d:.4g} off the float64 chain")
+            held += 1
+        rest = rows_err.clone()
+        for row in bad:
+            rest[tuple(row)] = 0.0
+        err = max(err, rest.max().item())
+    return err, held
+
+
 def _rel_err(a, b) -> tuple[float, float]:
     """(max |a - b|, max |b|)."""
     return ((a.float() - b.float()).abs().max().item(),
@@ -4818,11 +4925,24 @@ BF16_TRAIN_OF = {"fused_sa_train": "fused_sa_train_bf16",
 TRAIN_FORMS = ("fused_sa_train_bf16", "fused_sa_bwd_bf16",
                "fused_sa_slab_train_bf16", "fused_sa_slab_bwd_bf16",
                "three_interpolate_bwd_bf16", "group_points_bwd_bf16")
+# phase 19's rule for kernels 6 and 8's bf16 backward (hold_bwd_outputs):
+# each output within BF16_FORM_BOUND of the plain version's largest value,
+# but for at most FLIP_ROWS rows of d_x0, d_pre or d_center, each of which
+# must then be within that bound of a float64 evaluation of the chain at
+# the same rounding points. The two sides sum their f32 products in other
+# orders, and where bf16(a0 W1) + bf16(b1) lies within a bf16 step of 0
+# (the seeded biases are drawn at 0.01) one x1 can land on the other side
+# of the ReLU; the flip moves a whole d_a1 value through W1 into that row
+# (the default step's SA_1 has such a row of d_center, where the kernel
+# equals the float64 chain and the plain version does not: each held row
+# is printed)
+FLIP_ROWS = 16
 # phase 19's bounds, stated before its first run. Kernels 6 and 8 in their
 # bf16 training forms against their plain versions: the forward and each
 # gradient within BF16_FORM_BOUND of the plain one's largest value (their
 # f32 sums run in another order, so an x1, x2 or d_x1 can round to the other
-# bf16 neighbour: a step or two), the first argmax on another slot for at
+# bf16 neighbour: a step or two; the gradients' rows where such an x1
+# crosses the ReLU under FLIP_ROWS below), the first argmax on another slot for at
 # most ARGMAX_FLIP_BOUND of the pooled channels (where such a step makes or
 # breaks a tie); kernel 7's and the gather's bf16 backward equal to their
 # CPU plain versions to the bit (exact products, the same f32 sums in the
@@ -5003,16 +5123,28 @@ def _bf16_chain(x0, w1, b1, w2, b2):
                                b2.to(torch.bfloat16))).amax(2)
 
 
+def split_line(split) -> str:
+    """``kernel_bench.split_ms``'s split of a call, largest first, and its
+    device launches."""
+    launches = sum(n for k, (_, n) in split.items() if k != "host read")
+    return (", ".join(f"{k} {ms:.4f} ms x{n:g}" for k, (ms, n) in sorted(
+        split.items(), key=lambda kv: -kv[1][0])) + f"; {launches:g} device "
+        f"launches a call")
+
+
 def fused_train_form_rows(report, calls, gen):
     """(a) for kernels 6 and 8: each recorded call's training forward and
     routed backward against their plain versions, each twice equal to the
     bit, timed beside the plain versions, the f32 forms on the same values
     and the bf16 cuBLAS chain under autograd (its forward; its backward
-    alone)."""
+    alone); the backward also under full spread (every channel live at a
+    slot drawn uniformly over S), its design checked against the C entry
+    and each call split by launch (``kernel_bench.split_ms``)."""
     import torch
 
     from tpu3d_torch.ops import fused_sa as fs
     from tpu3d_torch.ops.grouping import group_points
+    from tpu3d_torch.tools.kernel_bench import split_ms
 
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     forms = {
@@ -5029,9 +5161,13 @@ def fused_train_form_rows(report, calls, gen):
             fs.fused_mlp_pool_bf16_backward,
             fs.fused_mlp_pool_bf16_backward_plain, fs.fused_mlp_pool_train,
             fs.fused_mlp_pool_backward)}
+    fgen = torch.Generator(device=DEVICE).manual_seed(SEED + 22)
     for fwd_name, (bwd_name, train, train_plain, bwd, bwd_plain, train32,
                    bwd32) in forms.items():
         step_ms = {"kernel": 0.0, "f32 form": 0.0, "bf16 cuBLAS chain": 0.0}
+        bwd_step = {"kernel": 0.0, "f32 form": 0.0,
+                    "the chain's backward": 0.0, "full spread": 0.0,
+                    "f32 form at full spread": 0.0}
         for args in calls.get(fwd_name, []):
             gather = fwd_name == "fused_sa_train_bf16"
             w1, b1, w2, b2 = args[-4:]
@@ -5075,14 +5211,9 @@ def fused_train_form_rows(report, calls, gen):
             check(all(torch.equal(a, b) for a, b in zip(first, second)),
                   f"{label}: two backward calls differ")
             want = bwd_plain(*args, g, arg, ppre)
-            b_err = 0.0
-            for k, (a, b) in enumerate(zip(first, want)):
-                e, sc = _rel_err(a, b)
-                check(a.dtype == b.dtype and e <= BF16_FORM_BOUND * sc,
-                      f"{label}: backward output {k} ({a.dtype}) differs "
-                      f"from its plain version's ({b.dtype}) by {e} "
-                      f"(largest {sc})")
-                b_err = max(b_err, e)
+            form = "gather" if gather else "slab"
+            b_err, b_held = hold_bwd_outputs(form, args, g, arg, ppre,
+                                             first, want, label)
             del again, second, want
             # the times
             leaves = [a.detach().clone().requires_grad_()
@@ -5119,10 +5250,49 @@ def fused_train_form_rows(report, calls, gen):
                            ("bf16 cuBLAS chain", lms)):
                 step_ms[key] += t
             nnz, hit = routed_slots(arg, g.float(), ppre, S)
-            report.add(bwd_name, b_err, bms, bpms, blms,
-                       2 * in_bytes + 4 * (c1 * c2 + c2 * c3) + 10 * R * M
-                       * c3, bwd_ops(hit, nnz, c1, c2), f32_ms=bfms,
-                       lib_bwd_ms=blms, reached=hit, slots=R * M * S)
+            b_bytes = (2 * in_bytes + 4 * (c1 * c2 + c2 * c3)
+                       + 10 * R * M * c3)
+            bdesign = bwd_bf16_design(c1, c2, c3, label)
+            seeded_split = split_ms(lambda: bwd(*args, g, arg, ppre))
+            # full spread, on the same inputs and gradient
+            f_arg, f_ppre = spread_draw(arg, ppre, S, fgen)
+            f_first = bwd(*args, g, f_arg, f_ppre)
+            check(all(torch.equal(a, b) for a, b in zip(
+                f_first, bwd(*args, g, f_arg, f_ppre))),
+                  f"{label}: two backward calls differ under full spread")
+            f_err, f_held = hold_bwd_outputs(
+                form, args, g, f_arg, f_ppre, f_first,
+                bwd_plain(*args, g, f_arg, f_ppre), f"{label} (full spread)")
+            del f_first
+            f_ms = cuda_ms(lambda: bwd(*args, g, f_arg, f_ppre), 3)
+            f_f32 = cuda_ms(lambda: bwd32(*f32a, g32, f_arg, f_ppre), 3)
+            full_split = split_ms(lambda: bwd(*args, g, f_arg, f_ppre))
+            f_nnz, f_hit = routed_slots(f_arg, g.float(), f_ppre, S)
+            f_bound = bound_ms(b_bytes, bwd_ops(f_hit, f_nnz, c1, c2),
+                               PEAK_BF16_OPS_PER_S)[0]
+            del f_arg, f_ppre
+            report.add(bwd_name, b_err, bms, bpms, blms, b_bytes,
+                       bwd_ops(hit, nnz, c1, c2), f32_ms=bfms,
+                       lib_bwd_ms=blms, reached=hit, slots=R * M * S,
+                       mma_calls=int(bdesign == "mma"),
+                       parent_calls=int(bdesign == "parent"), full_ms=f_ms,
+                       full_f32_ms=f_f32, full_bound_ms=f_bound,
+                       full_reached=f_hit)
+            r = report.rows[bwd_name]
+            r["full_err"] = max(r.get("full_err", 0.0), f_err)
+            for key, t in (("kernel", bms), ("f32 form", bfms),
+                           ("the chain's backward", blms),
+                           ("full spread", f_ms),
+                           ("f32 form at full spread", f_f32)):
+                bwd_step[key] += t
+            print(f"{label}: backward ({bdesign} design) split, seeded: "
+                  f"{split_line(seeded_split)}; full spread: "
+                  f"{split_line(full_split)}")
+            print(f"{label}: backward under full spread {f_ms:.3f} ms (f32 "
+                  f"form {f_f32:.3f}), bound {f_bound:.4f} ms, {f_hit} of "
+                  f"{R * M * S} slots reached, max_abs_err {f_err:.3e}; rows "
+                  f"held to the float64 chain: {b_held} seeded, {f_held} "
+                  f"under full spread; twice equal to the bit")
             print(f"{label}: forward {ms:.3f} ms (f32 form {fms:.3f}), plain "
                   f"{pms:.3f}, bf16 cuBLAS chain {lms:.3f}, max_abs_err "
                   f"{err:.3e} of {scale:.3e}, argmax off the plain one's at "
@@ -5134,6 +5304,9 @@ def fused_train_form_rows(report, calls, gen):
             print(f"{fwd_name} over the {len(calls[fwd_name])} calls of the "
                   f"step: " + ", ".join(f"{k} {v:.4f} ms"
                                         for k, v in step_ms.items()))
+            print(f"{bwd_name} over the {len(calls[fwd_name])} calls of the "
+                  f"step: " + ", ".join(f"{k} {v:.4f} ms"
+                                        for k, v in bwd_step.items()))
 
 
 def train_bf16_design(c1, c2, c3, label):
@@ -5151,6 +5324,64 @@ def train_bf16_design(c1, c2, c3, label):
     check(bool(fn(c1, c2, c3)) == (got == "wgmma"), f"{label}: the C entry "
           f"and train_bf16_design disagree on {c1} -> {c2} -> {c3}")
     return got
+
+
+def bwd_bf16_design(c1, c2, c3, label):
+    """The design kernels 6 and 8's bf16 backward runs widths c1 -> c2 ->
+    c3 on ("mma" or "parent"), checked against the C entry's own
+    predicate."""
+    import ctypes
+
+    from tpu3d_torch.ops import _build
+    from tpu3d_torch.ops.fused_sa import backward_bf16_design as design
+
+    fn = _build.library("fused_sa_bwd_bf16").tpu3d_fused_sa_bwd_bf16_design
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    got = design(c1, c2, c3)
+    check(bool(fn(c1, c2, c3)) == (got == "mma"), f"{label}: the C entry "
+          f"and backward_bf16_design disagree on {c1} -> {c2} -> {c3}")
+    return got
+
+
+def hold_train_backward(calls, label, gen):
+    """Kernel 6's bf16 backward at kernel 6's training calls ``calls``, on
+    its own forward's argmax and ppre and a seeded bf16 gradient, and under
+    full spread: two calls equal to the bit, the outputs held to the plain
+    version under the FLIP_ROWS rule (hold_bwd_outputs) -> the designs it
+    ran, by call."""
+    import torch
+
+    from tpu3d_torch.ops import fused_sa as fs
+
+    designs = []
+    fgen = torch.Generator(device=DEVICE).manual_seed(SEED + 23)
+    for args in calls:
+        R, M, S = args[1].shape
+        c1, c2, c3 = args[3].shape[0], args[3].shape[1], args[5].shape[1]
+        where = f"{label}: fused_sa_bwd_bf16 R={R} M={M} S={S} " \
+                f"C={c1}->{c2}->{c3}"
+        designs.append(bwd_bf16_design(c1, c2, c3, where))
+        out, arg, ppre = fs.fused_gathered_mlp_pool_bf16_train(*args)
+        g = torch.randn(out.shape, generator=gen).to(out.device).to(
+            torch.bfloat16)
+        errs = {}
+        for routing, (a, p) in (("seeded", (arg, ppre)), (
+                "full spread", spread_draw(arg, ppre, S, fgen))):
+            first = fs.fused_gathered_mlp_pool_bf16_backward(*args, g, a, p)
+            again = fs.fused_gathered_mlp_pool_bf16_backward(*args, g, a, p)
+            check(all(torch.equal(x, y) for x, y in zip(first, again)),
+                  f"{where}: two calls differ")
+            errs[routing] = hold_bwd_outputs(
+                "gather", args, g, a, p, first,
+                fs.fused_gathered_mlp_pool_bf16_backward_plain(*args, g, a,
+                                                               p),
+                f"{where} ({routing})")
+        print(f"{where} ({designs[-1]} design): max_abs_err "
+              f"{errs['seeded'][0]:.3e} ({errs['seeded'][1]} rows held to "
+              f"the float64 chain), under full spread "
+              f"{errs['full spread'][0]:.3e} ({errs['full spread'][1]}); "
+              f"twice equal to the bit")
+    return designs
 
 
 def hold_train_forward(calls, label):
@@ -5830,15 +6061,31 @@ def train_numerics(card: str) -> tuple[Report, Report, dict]:
         fused_train_form_rows(into, calls[label], gen)
         gather_train_form_rows(into, calls[label], gen)
     del calls
+    # kernels 6 and 8's bf16 backward ran the tensor-core design at every
+    # recorded call of the shipped configs
+    for into in (report, smoke_report):
+        for name in ("fused_sa_bwd_bf16", "fused_sa_slab_bwd_bf16"):
+            if name in into.rows:
+                r = into.rows[name]
+                check(r["mma_calls"] > 0 and r["parent_calls"] == 0,
+                      f"{name} ran the parent walk at {r['parent_calls']} "
+                      f"of the shipped configs' calls")
     check(set(designs["default.yaml train B=16"]) == {"wgmma"},
           f"kernel 6's bf16 training forward ran the default step on "
           f"{designs['default.yaml train B=16']}")
     # the widened RCNN's levels (256 -> 384 -> 256 does not fit the wgmma
     # design's shared memory): the parent design, held the same way
+    wide = widened_train_calls(gen)
     figures["widened_designs"] = hold_train_forward(
-        widened_train_calls(gen), "the widened RCNN's SA_0 and SA_1")
+        wide, "the widened RCNN's SA_0 and SA_1")
     check(set(figures["widened_designs"]) == {"parent"},
           f"the widened RCNN ran {figures['widened_designs']}")
+    # and kernel 6's bf16 backward there: the parent walk, held the same way
+    figures["widened_bwd_designs"] = hold_train_backward(
+        wide, "the widened RCNN's SA_0 and SA_1", gen)
+    check(set(figures["widened_bwd_designs"]) == {"parent"},
+          f"the widened RCNN's backward ran {figures['widened_bwd_designs']}")
+    del wide
     figures["fused_sa_train_bf16_designs"] = designs
     torch.cuda.empty_cache()
 

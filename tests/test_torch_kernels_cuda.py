@@ -998,6 +998,19 @@ def _close(got, want, tol=2.0 ** -6):
     assert err <= tol * scale, (err, scale)
 
 
+def _close_norm(got, want, tol=2.0 ** -6):
+    """Within tol of want in the L2 norm: where every slot of a level is
+    reached, some x1 lie on a bf16 rounding boundary next to 0, and the
+    two sides' f32 sums in other orders put them on either side of the
+    ReLU; each such flip moves a whole d_a1 value through W1 into a row of
+    d_x0 and a column of dW1, past 2^-6 of d_pre's largest value on the
+    full-spread 64 x 128 x 64 case, which the norm counts at its
+    weight."""
+    err = torch.linalg.vector_norm((got.float() - want.float()).flatten())
+    scale = torch.linalg.vector_norm(want.float().flatten())
+    assert err.item() <= tol * scale.item(), (err.item(), scale.item())
+
+
 # the bf16 form's cases beside GROUP_BWD's: the demo's narrowest rows and
 # a row wider than a warp's 256 channels that is no multiple of 32
 GROUP_BWD_BF16 = dict(GROUP_BWD, **{"narrow": (4, 1024, 256, 32, 16),
@@ -1104,11 +1117,14 @@ def test_three_interpolate_bwd_bf16_on_cuda(case):
     assert _build.LAUNCHES["three_interpolate_bwd"] == 0
 
 
-# (R, M, S, N, C1, C2, C3): default's RCNN SA_0 and SA_1 cut in rows, S 16
-# to 128, 128 -> 128 -> 384 (the wgmma design with two warpgroups a block),
-# 128 -> 256 -> 128 and the widened RCNN's 256 -> 384 -> 256 (the gather
-# form on the parent design there, fused_sa.train_bf16_design), and R·M =
-# 133 groups, no multiple of the wgmma design's 396 warpgroups
+# (R, M, S, N, C1, C2, C3): default's RCNN SA_0 and SA_1 cut in rows, S 8
+# to 128, 128 -> 128 -> 384 (the wgmma design with two warpgroups a block;
+# the backward's parent walk), 128 -> 256 -> 128 and the widened RCNN's
+# 256 -> 384 -> 256 (the gather form's forward on the parent design there,
+# fused_sa.train_bf16_design; both backwards on the parent walk,
+# fused_sa.backward_bf16_design), R·M = 133 groups, no multiple of the
+# wgmma design's 396 warpgroups, and 99 and 65 groups, fewer than the
+# backward's 132 blocks
 BF16_TRAIN = [(64, 128, 64, 512, 128, 128, 128),
               (64, 32, 64, 128, 128, 128, 256),
               (16, 32, 16, 128, 128, 128, 256),
@@ -1117,31 +1133,47 @@ BF16_TRAIN = [(64, 128, 64, 512, 128, 128, 128),
               (12, 16, 128, 256, 128, 128, 256),
               (4, 16, 128, 128, 256, 384, 256),
               (7, 19, 64, 128, 128, 128, 256),
-              (6, 16, 32, 128, 128, 128, 384)]
+              (6, 16, 32, 128, 128, 128, 384),
+              (9, 11, 24, 128, 128, 128, 128),
+              (5, 13, 8, 64, 128, 128, 256)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("form", ["gather", "slab"])
 @pytest.mark.parametrize("shape", BF16_TRAIN, ids=str)
 @pytest.mark.parametrize("ties", [False, True])
-def test_fused_bf16_training_forms_on_cuda(form, shape, ties):
+@pytest.mark.parametrize("routing", ["forward", "full spread"])
+def test_fused_bf16_training_forms_on_cuda(form, shape, ties, routing):
     """Kernels 6 (gather) and 8 (slab) in their bf16 training forms: the
     forward against the plain training forward, the routed backward against
-    the plain backward on the kernel's own argmax and ppre, each output
-    equal across two calls; and an autograd step through the public op
-    launches each form once. ``ties``: each group's slots from 3 on repeat
-    its first three (the ball query's pads), so equal maxima sit at several
-    slots and the first-argmax rule decides; the gather form's design is
-    the one ``train_bf16_design`` names."""
+    the plain backward on the kernel's own argmax and ppre (``routing``
+    "forward", within 2^-6 of each largest value) or with every channel
+    live at a slot drawn uniformly over S ("full spread", within 2^-6 in the
+    L2 norm, ``_close_norm``), each output equal across two calls, and equal to the
+    bit when the same gradient values come in f32 or as a strided view of
+    wider f32 rows (the kernels read it as it lies); and an autograd step
+    through the public op launches each form once. ``ties``: each group's
+    slots from 3 on repeat its first three (the ball query's pads), so
+    equal maxima sit at several slots and the first-argmax rule decides;
+    the gather form's forward design is the one ``train_bf16_design``
+    names, either form's backward design the one
+    ``backward_bf16_design`` names (the parent walk at 128 -> 256 -> 128
+    and the widened RCNN's 256 -> 384 -> 256, S 24 on both designs, S 128
+    two segments of a group)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import ctypes
+
     R, M, S, N, C1, C2, C3 = shape
     x0, w1, b1, w2, b2, g = _bf16_fused_inputs((R, M, S, C1, C2, C3), 31)
     if ties:
         x0[:, :, 3:] = x0[:, :, torch.arange(3, S) % 3]
+    bwd_design = _build.library(
+        "fused_sa_bwd_bf16").tpu3d_fused_sa_bwd_bf16_design
+    bwd_design.argtypes = [ctypes.c_int] * 3
+    assert bool(bwd_design(C1, C2, C3)) == (
+        fs.backward_bf16_design(C1, C2, C3) == "mma")
     if form == "gather":
-        import ctypes
-
         design = _build.library("fused_sa").tpu3d_fused_sa_train_bf16_wgmma
         design.argtypes = [ctypes.c_int] * 3
         assert bool(design(C1, C2, C3)) == (
@@ -1181,15 +1213,23 @@ def test_fused_bf16_training_forms_on_cuda(form, shape, ties):
     assert (arg != w_arg).float().mean().item() <= 1e-2
     grad = torch.randn(out.shape, generator=g, device="cuda").to(
         torch.bfloat16)
+    if routing == "full spread":
+        arg = torch.randint(0, S, arg.shape, generator=g, device="cuda",
+                            dtype=torch.int32)
+        ppre = torch.ones_like(ppre)
+    wide = torch.zeros(R, M, C3 + 24, device="cuda")
+    wide[..., 16:16 + C3] = grad.float()
     first = bwd(*args, grad, arg, ppre)
     second = bwd(*args, grad, arg, ppre)
+    as_f32 = bwd(*args, grad.float(), arg, ppre)
+    strided = bwd(*args, wide[..., 16:16 + C3], arg, ppre)
     want = bwd_plain(*args, grad, arg, ppre)
-    for a, b, c in zip(first, second, want):
-        assert torch.equal(a, b)
-        assert a.dtype == c.dtype and a.shape == c.shape
-        _close(a, c)
+    for a, b, c, d, e in zip(first, second, as_f32, strided, want):
+        assert torch.equal(a, b) and torch.equal(a, c) and torch.equal(a, d)
+        assert a.dtype == e.dtype and a.shape == e.shape
+        (_close if routing == "forward" else _close_norm)(a, e)
     assert _build.BF16_LAUNCHES[names[0]] == 2
-    assert _build.BF16_LAUNCHES[names[1]] == 2
+    assert _build.BF16_LAUNCHES[names[1]] == 4
     leaves = [a.detach().clone().requires_grad_() if a.is_floating_point()
               else a for a in args]
     _build.reset_launches()

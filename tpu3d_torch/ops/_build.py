@@ -10,7 +10,8 @@ long-row FPS alone in ``fps3nn``; each bf16 form in its f32
 form's source, ``fused_sa`` including ``fused_sa_bf16.cuh`` and through it
 ``fused_sa_wgmma.cuh`` (kernel 6's bf16 training forward on ``wgmma``), but
 the routed backward's, ``fused_sa_bwd_bf16``, which shares
-``fused_sa_bwd.cuh`` with ``fused_sa_bwd``). Each source names its own ``nvcc``
+``fused_sa_bwd.cuh`` with ``fused_sa_bwd`` and holds the tensor-core design
+of ``fused_sa_bwd_mma.cuh``). Each source names its own ``nvcc``
 flags. The library's file name carries a hash of its source, the
 shared headers (``csrc/*.cuh``) and its flags, so an edited source is
 rebuilt and a stale library is never loaded. Libraries go to
@@ -111,6 +112,10 @@ KERNELS = {
     "group_points_bwd": ("group_points_bwd", "tpu3d_group_points_bwd",
                          [P, P, I, I, I, I, I, P, P, L, P]),
 }
+# the raw inputs of kernels 6 and 8's bf16 backward: W1 and its strides,
+# b1, W2 and its strides, the gradient, whether bf16, its strides, ppre,
+# argmax
+BWD_BF16_RAW = [P, L, L, P, P, L, L, P, I, L, L, L, P, P]
 # the bf16 forms under the accelerator's numerics contracts (precision.py),
 # eval and training, beside their f32 kernels in the same libraries (the
 # routed backward's bf16 form in a library of its own, built in parallel);
@@ -133,13 +138,15 @@ BF16_KERNELS = {
     "fused_sa_slab_train_bf16": ("fused_sa", "tpu3d_fused_sa_slab_train_bf16",
                                  [P, P, P, P, P, I, I, I, I, I, I, P, P, P,
                                   P]),
+    # kernels 6 and 8's bf16 backward: the weights (strides in elements),
+    # the gradient (bf16 or f32, strides) and ppre as they lie
     "fused_sa_bwd_bf16": ("fused_sa_bwd_bf16", "tpu3d_fused_sa_bwd_bf16",
-                          [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
-                           P, P, P, P, P, P, P, L, P]),
+                          [P, P, P, *BWD_BF16_RAW, I, I, I, I, I, I, I, I,
+                           P, P, P, P, P, P, P, P, P, L, P]),
     "fused_sa_slab_bwd_bf16": ("fused_sa_bwd_bf16",
                                "tpu3d_fused_sa_slab_bwd_bf16",
-                               [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P,
-                                P, P, P, P]),
+                               [P, *BWD_BF16_RAW, I, I, I, I, I, I, I, P, P,
+                                P, P, P, P, P]),
     "three_interpolate_bwd_bf16": ("three_interpolate_bwd",
                                    "tpu3d_three_interpolate_bwd_bf16",
                                    [P, P, P, I, I, I, I, P, P, L, P]),
@@ -160,6 +167,10 @@ BF16_KERNELS = {
 PARTS = {
     "fused_sa_bwd_plan": ("fused_sa_bwd", "tpu3d_fused_sa_bwd_plan",
                           [P, P, I, I, I, I, I, I, I, I, P, P, P]),
+    "fused_sa_bwd_bf16_plan": ("fused_sa_bwd_bf16",
+                               "tpu3d_fused_sa_bwd_bf16_plan",
+                               [*BWD_BF16_RAW, I, I, I, I, I, I, I, I, P, P,
+                                P, P]),
 }
 # extra nvcc flags of each source
 SOURCE_FLAGS = {"fps3nn": EXACT, "nearest_k": EXACT, "three_nn": EXACT,

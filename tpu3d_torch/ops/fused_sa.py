@@ -74,6 +74,7 @@ from __future__ import annotations
 
 import bisect
 import ctypes
+import functools
 import itertools
 
 import torch
@@ -545,9 +546,7 @@ def _launch_backward(kernel, head, dims, outs, w1, b1, w2, grad, argmax,
     its plan first and reads the reached rows' count from it (one wait for
     the card), to size the buffer of the reached rows' d_x0, which it then
     adds into d_pre in a fixed order; ``rows_out``, a list, receives that
-    buffer. The bf16 forms (``kernel`` ending in ``_bf16``) take the
-    weights, b1 and dval rounded to bf16 (``_bf16_backward_args``) and their
-    leading tensors in bf16. -> (dW1, db1, dW2, db2)."""
+    buffer. -> (dW1, db1, dW2, db2)."""
     R, M, S = dims[0], dims[-2], dims[-1]
     C1, C2, C3 = w1.shape[0], w1.shape[1], w2.shape[1]
     for t, name in ((grad, "grad"), (ppre, "ppre")):
@@ -557,20 +556,16 @@ def _launch_backward(kernel, head, dims, outs, w1, b1, w2, grad, argmax,
             or ppre.shape != grad.shape:
         raise ValueError(f"{kernel}'s gradient, argmax and ppre must be "
                          f"{(R, M, C3)}")
-    if kernel.endswith("_bf16"):
-        w1, w1t, b1, w2t, dval, dval_sum = _bf16_backward_args(w1, b1, w2,
-                                                               grad, ppre)
-    else:
-        dval = dval_sum = torch.where(ppre > 0, grad, 0.0)
-        w1t = w1.t().contiguous()
-        w2t = w2.t().contiguous()
+    dval = torch.where(ppre > 0, grad, 0.0)
+    w1t = w1.t().contiguous()
+    w2t = w2.t().contiguous()
     blocks = _bwd_blocks(R * M, C1, C2, C3)
     per = C1 * C2 + C3 * C2 + C2
     ws = torch.empty(blocks, per, dtype=torch.float32, device=grad.device)
     sums = torch.empty(per, dtype=torch.float32, device=grad.device)
     scratch = _bwd_scratch(R * M, S, C1, C2, C3, grad.device)
     tail = ()
-    if kernel in ("fused_sa_bwd", "fused_sa_bwd_bf16"):
+    if kernel == "fused_sa_bwd":
         N = dims[1]
         _build.launch_part("fused_sa_bwd_plan", dval.data_ptr(),
                            argmax.data_ptr(), *dims, C1, C2, C3, blocks,
@@ -590,7 +585,7 @@ def _launch_backward(kernel, head, dims, outs, w1, b1, w2, grad, argmax,
                   scratch.data_ptr(), sums.data_ptr(), *tail)
     return (sums[:C1 * C2].view(C1, C2), sums[C1 * C2 + C3 * C2:],
             sums[C1 * C2:C1 * C2 + C3 * C2].view(C3, C2).t(),
-            dval_sum.sum(dim=(0, 1)))
+            dval.sum(dim=(0, 1)))
 
 
 def fused_gathered_mlp_pool_backward(pre, idx, center, w1, b1, w2, b2, grad,
@@ -1958,25 +1953,145 @@ def fused_gathered_mlp_pool_bf16_train(pre, idx, center, w1, b1, w2, b2):
     return outs
 
 
-def _bf16_backward_args(w1, b1, w2, grad, ppre):
-    """The f32 routed backward's operands in the bf16 form's arithmetic:
-    the weights, b1 and dval rounded to bf16 (kept f32: their products are
-    then exact in f32), and dval itself for db2."""
-    dval = torch.where(ppre > 0, grad.float(), 0.0)
-    w1r = _r16(w1.detach()).contiguous()
-    return (w1r, w1r.t().contiguous(), _r16(b1.detach()).contiguous(),
-            _r16(w2.detach()).t().contiguous(), _r16(dval).contiguous(),
-            dval)
+# the bf16 backward's two designs (csrc/fused_sa_bwd_bf16.cu): the
+# tensor-core design's shared-memory layout, mirrored here
+# (csrc/fused_sa_bwd_mma.cuh's Layout, 16-byte regions: W1^T and W2^T in
+# bf16 rows of 136, two row stages, D, a1, dW2^T's f32 sums where they fit,
+# two tile plans, a batch of 64 parts with their placement into tiles, a
+# tile's d_center runs, the db1 reduction)
+_BWD_LD = 136
+
+
+def bwd_bf16_smem(C3: int, dw2_shared: bool) -> int:
+    """Bytes of shared memory the tensor-core design of kernels 6 and 8's
+    bf16 backward lays out at C1 = C2 = 128 and C3, with dW2^T's sums in
+    shared memory or not (its block also holds 16 bytes of its own)."""
+    regions = (2 * 128 * _BWD_LD, 2 * C3 * _BWD_LD, 4 * 128,
+               2 * 2 * 64 * _BWD_LD, 2 * 64 * (C3 + 8), 2 * 64 * _BWD_LD,
+               4 * C3 * 128 if dw2_shared else 0, 2 * 1424,
+               8 * 64 + 4 * 4 * 64 + 2 * 64 + 3 * 4 * 65 + 4 + 4 * 64 * 64,
+               4 * 64, 4 * 4 * 128)
+    return sum(-(-n // 16) * 16 for n in regions)
+
+
+def backward_bf16_design(C1: int, C2: int, C3: int) -> str:
+    """The design kernels 6 and 8's bf16 backward run widths C1 -> C2 -> C3
+    on (any S): "mma" (``csrc/fused_sa_bwd_mma.cuh``: C1 = C2 = 128, C3 a
+    multiple of 128 whose layout fits, 128 and 256, every fused level of
+    the shipped configs) or "parent" (the routed walk of
+    ``csrc/fused_sa_bwd.cuh`` on bf16 rows, the rest: the widened RCNN's
+    256 -> 384 -> 256). The C entry ``tpu3d_fused_sa_bwd_bf16_design``
+    decides the same."""
+    fits = (C1 == C2 == 128 and C3 >= 128 and C3 % 128 == 0
+            and bwd_bf16_smem(C3, False) + 16 <= SMEM_MAX)
+    return "mma" if fits else "parent"
+
+
+def _bf16_entry(name: str, argtypes, restype):
+    fn = getattr(_build.library("fused_sa_bwd_bf16"), name)
+    fn.argtypes, fn.restype = argtypes, restype
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_bf16_sizes(groups: int, S: int, c1: int, c2: int, c3: int):
+    """(whether the tensor-core design runs, blocks, floats of a block's
+    slice, the plan's parts, floats of the auxiliary buffer) of the bf16
+    backward, from its library."""
+    L, I = ctypes.c_longlong, ctypes.c_int
+    return (bool(_bf16_entry("tpu3d_fused_sa_bwd_bf16_design", [I, I, I], I)(
+                c1, c2, c3)),
+            _bf16_entry("tpu3d_fused_sa_bwd_bf16_blocks", [L, I, I, I], I)(
+                groups, c1, c2, c3),
+            _bf16_entry("tpu3d_fused_sa_bwd_bf16_slice", [I, I, I], L)(
+                c1, c2, c3),
+            _bf16_entry("tpu3d_fused_sa_bwd_bf16_parts", [L, I, I, I, I], L)(
+                groups, S, c1, c2, c3),
+            _bf16_entry("tpu3d_fused_sa_bwd_bf16_aux", [L, I, I, I, I], L)(
+                groups, S, c1, c2, c3))
+
+
+def _as_lies(w, name, ndim):
+    """A weight's pointer and strides as it lies (any strides; f32 CUDA)."""
+    if w.device.type != "cuda" or w.dtype != torch.float32 or w.dim() != ndim:
+        raise ValueError(f"{name} must be an f32 CUDA tensor of {ndim} dims, "
+                         f"got {w.dtype} {tuple(w.shape)} on {w.device}")
+    return (w.data_ptr(), *w.stride())
+
+
+def _launch_backward_bf16(kernel, head, dims, outs, w1, b1, w2, grad, argmax,
+                          ppre):
+    """Launch kernel 6's or 8's bf16 backward (``kernel``
+    "fused_sa_bwd_bf16" or "fused_sa_slab_bwd_bf16"; either design). It
+    reads the gradient where and as it lies (bf16 or f32, any strides),
+    ppre and argmax, and W1, W2 (f32, as they lie) and b1, and forms and
+    rounds every operand itself: no pass runs before it. ``head`` are the
+    form's bf16 leading tensors, ``dims`` (R, [N,] M, S), ``outs`` its bf16
+    input gradients; the gather form runs its plan first and reads the
+    reached rows' count (one wait for the card) to size the buffer of their
+    d_x0. -> (dW1, db1, dW2, db2)."""
+    R, M, S = dims[0], dims[-2], dims[-1]
+    C1, C2, C3 = w1.shape[0], w1.shape[1], w2.shape[1]
+    dev = grad.device
+    _build.check_cuda_tensor(ppre, "ppre", torch.float32, 3)
+    _build.check_cuda_tensor(argmax, "argmax", torch.int32, 3)
+    if grad.device.type != "cuda" or grad.dtype not in (BF16, torch.float32):
+        raise ValueError(f"{kernel}'s gradient must be a bf16 or f32 CUDA "
+                         f"tensor, got {grad.dtype} on {grad.device}")
+    if grad.shape != (R, M, C3) or argmax.shape != grad.shape \
+            or ppre.shape != grad.shape or b1.shape != (C2,):
+        raise ValueError(f"{kernel}'s gradient, argmax and ppre must be "
+                         f"{(R, M, C3)}, b1 {(C2,)}")
+    b1 = b1.detach().contiguous()
+    _build.check_cuda_tensor(b1, "b1", torch.float32, 1)
+    raw = (*_as_lies(w1.detach(), "w1", 2), b1.data_ptr(),
+           *_as_lies(w2.detach(), "w2", 2), grad.data_ptr(),
+           int(grad.dtype == BF16), *grad.stride(), ppre.data_ptr(),
+           argmax.data_ptr())
+    mma, blocks, slice_, parts, aux_n = _bwd_bf16_sizes(R * M, S, C1, C2,
+                                                        C3)
+    if parts == 0:
+        raise ValueError(f"{kernel} does not take S={S}, C1={C1}, C2={C2}, "
+                         f"C3={C3}")
+    ws = torch.empty(blocks * slice_, dtype=torch.float32, device=dev)
+    sums = torch.empty(slice_ + C3, dtype=torch.float32, device=dev)
+    scratch = torch.empty(24 * parts, dtype=torch.uint8, device=dev)
+    aux = torch.empty(aux_n, dtype=torch.float32, device=dev)
+    if kernel == "fused_sa_bwd_bf16":
+        N = dims[1]
+        d32 = (None if mma and S <= BWD_TILE else
+               torch.empty(R, M, C1, dtype=torch.float32, device=dev))
+        _build.launch_part("fused_sa_bwd_bf16_plan", *raw, *dims, C1, C2, C3,
+                           blocks, (outs[1] if d32 is None else d32)
+                           .data_ptr(), scratch.data_ptr(), aux.data_ptr())
+        total = int(scratch[8 * parts:16 * parts].view(torch.int64)[-1])
+        rows = torch.empty(total, C1, dtype=BF16 if mma else torch.float32,
+                           device=dev)
+        inv = torch.empty(_bwd_inverse_ints(R, N, M, S), dtype=torch.int32,
+                          device=dev)
+        _build.launch(kernel, *(t.data_ptr() for t in head), *raw, *dims, C1,
+                      C2, C3, blocks, *(t.data_ptr() for t in outs),
+                      0 if d32 is None else d32.data_ptr(), ws.data_ptr(),
+                      scratch.data_ptr(), aux.data_ptr(), sums.data_ptr(),
+                      rows.data_ptr(), inv.data_ptr(), inv.numel())
+    else:
+        d32 = None if mma else torch.empty(outs[0].shape,
+                                           dtype=torch.float32, device=dev)
+        _build.launch(kernel, head[0].data_ptr(), *raw, *dims, C1, C2, C3,
+                      blocks, outs[0].data_ptr(),
+                      0 if d32 is None else d32.data_ptr(), ws.data_ptr(),
+                      scratch.data_ptr(), aux.data_ptr(), sums.data_ptr())
+    w1n, w2n = C1 * C2, C3 * C2
+    return (sums[:w1n].view(C1, C2), sums[w1n + w2n:slice_],
+            sums[w1n:w1n + w2n].view(C3, C2).t(), sums[slice_:])
 
 
 def fused_gathered_mlp_pool_bf16_backward(pre, idx, center, w1, b1, w2, b2,
-                                          grad, argmax, ppre, rows_out=None):
+                                          grad, argmax, ppre):
     """Kernel 6's bf16 backward alone -> (d_pre bf16, d_center bf16, dW1,
     db1, dW2, db2): the routed kernel (counted as ``fused_sa_bwd_bf16``;
-    the f32 form's plan and walk, its operands rounded where tpu3d's
-    kernel rounds them) for CUDA tensors, else the plain version.
-    ``rows_out`` receives the reached rows' bf16(d_x0), in f32, which d_pre
-    sums in ascending (group·S + slot) order (``reached_rows_sum``)."""
+    ``backward_bf16_design`` names its design) for CUDA tensors, the
+    gradient taken as it lies (bf16 or f32), else the plain version."""
     if pre.device.type == "cpu":
         return fused_gathered_mlp_pool_bf16_backward_plain(
             pre, idx, center, w1, b1, w2, b2, grad, argmax, ppre)
@@ -1986,12 +2101,10 @@ def fused_gathered_mlp_pool_bf16_backward(pre, idx, center, w1, b1, w2, b2,
         raise ValueError(f"the fused_sa backward does not take S={S}, "
                          f"C1={C1}, C2={C2}, C3={C3} (kernels_take)")
     d_pre = torch.empty(R, N, C1, dtype=BF16, device=pre.device)
-    d_center = torch.empty(R, M, C1, dtype=torch.float32, device=pre.device)
-    dw1, db1, dw2, db2 = _launch_backward(
+    d_center = torch.empty(R, M, C1, dtype=BF16, device=pre.device)
+    return (d_pre, d_center, *_launch_backward_bf16(
         "fused_sa_bwd_bf16", (pre, idx, center), (R, N, M, S),
-        (d_pre, d_center), w1, b1, w2, grad.float().contiguous(), argmax,
-        ppre, rows_out)
-    return d_pre, d_center.to(BF16), dw1, db1, dw2, db2
+        (d_pre, d_center), w1, b1, w2, grad, argmax, ppre))
 
 
 class _FusedGatheredMLPPoolBF16(torch.autograd.Function):
@@ -2007,8 +2120,7 @@ class _FusedGatheredMLPPoolBF16(torch.autograd.Function):
         pre, idx, center, w1, b1, w2, b2, argmax, ppre = ctx.saved_tensors
         d_pre, d_center, dw1, db1, dw2, db2 = \
             fused_gathered_mlp_pool_bf16_backward(
-                pre, idx, center, w1, b1, w2, b2, grad.contiguous(), argmax,
-                ppre)
+                pre, idx, center, w1, b1, w2, b2, grad, argmax, ppre)
         return d_pre, None, d_center, dw1, db1, dw2, db2
 
 
@@ -2033,8 +2145,9 @@ def fused_mlp_pool_bf16_train(x0, w1, b1, w2, b2):
 
 def fused_mlp_pool_bf16_backward(x0, w1, b1, w2, b2, grad, argmax, ppre):
     """Kernel 8's bf16 backward alone -> (d_x0 bf16, dW1, db1, dW2, db2):
-    the routed kernel (counted as ``fused_sa_slab_bwd_bf16``) for CUDA
-    tensors, else the plain version."""
+    the routed kernel (counted as ``fused_sa_slab_bwd_bf16``;
+    ``backward_bf16_design`` names its design) for CUDA tensors, the
+    gradient taken as it lies (bf16 or f32), else the plain version."""
     if x0.device.type == "cpu":
         return fused_mlp_pool_bf16_backward_plain(x0, w1, b1, w2, b2, grad,
                                                   argmax, ppre)
@@ -2042,11 +2155,10 @@ def fused_mlp_pool_bf16_backward(x0, w1, b1, w2, b2, grad, argmax, ppre):
     if not kernels_take(S, C1, C2, C3, "slab", True):
         raise ValueError(f"the fused_sa backward does not take S={S}, "
                          f"C1={C1}, C2={C2}, C3={C3} (kernels_take)")
-    d_x0 = torch.empty(R, M, S, C1, dtype=torch.float32, device=x0.device)
-    grads = _launch_backward("fused_sa_slab_bwd_bf16", (x0,), (R, M, S),
-                             (d_x0,), w1, b1, w2, grad.float().contiguous(),
-                             argmax, ppre)
-    return (d_x0.to(BF16), *grads)
+    d_x0 = torch.empty(R, M, S, C1, dtype=BF16, device=x0.device)
+    return (d_x0, *_launch_backward_bf16(
+        "fused_sa_slab_bwd_bf16", (x0,), (R, M, S), (d_x0,), w1, b1, w2,
+        grad, argmax, ppre))
 
 
 class _FusedMLPPoolBF16(torch.autograd.Function):
@@ -2059,8 +2171,8 @@ class _FusedMLPPoolBF16(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         x0, w1, b1, w2, b2, argmax, ppre = ctx.saved_tensors
-        return fused_mlp_pool_bf16_backward(x0, w1, b1, w2, b2,
-                                            grad.contiguous(), argmax, ppre)
+        return fused_mlp_pool_bf16_backward(x0, w1, b1, w2, b2, grad, argmax,
+                                            ppre)
 
 
 # kernel 9's bf16 training form: tpu3d's seven training kernels in their

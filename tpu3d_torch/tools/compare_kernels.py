@@ -86,11 +86,20 @@ script. Shapes:
   backward of the level's bf16 cast: contiguous f32), beside
   ``torch.gather``'s backward, with the sums.
 
+- the bf16 backwards of kernels 6 (``fused_sa_bwd_bf16``:
+  ``fused_gathered_mlp_pool_bf16_backward`` at default.yaml's RCNN SA_0
+  and SA_1 of the train step, B=16) and 8 (``fused_sa_slab_bwd_bf16``:
+  ``fused_mlp_pool_bf16_backward`` at quickstart's and smoke's SA_1 of
+  the train step), on a bf16 gradient routed two ways (``BWD_ROUTINGS``:
+  near the seeded step's reach, and full spread), each call also split by
+  launch (``kernel_bench.split_ms``: device ms of each kernel and copy,
+  and the host's read of the reached-row count).
+
 ``--only`` takes any of ``nearest_k``, ``fused_sa_bwd``, ``fps3nn``,
 ``fps``, ``three_interpolate_bwd``, ``group_points_bwd``, ``train_step``, ``fused_sa_fwd``,
 ``fused_sa_slab_bwd``, ``fused_sa_bn_train``, ``three_nn``,
-``fused_sa_slab_fwd``, ``fused_sa_fwd_bf16`` and ``group_points_bwd_bf16``
-(default: all).
+``fused_sa_slab_fwd``, ``fused_sa_fwd_bf16``, ``group_points_bwd_bf16``,
+``fused_sa_bwd_bf16`` and ``fused_sa_slab_bwd_bf16`` (default: all).
 
 Times are device times (``kernel_bench.cuda_ms``, beside this file: calls
 run back to back on the card behind a spin that outlasts their queueing),
@@ -166,7 +175,48 @@ def sa0_grouping(nearest_k, group_points):
 GROUPS = ("nearest_k", "fused_sa_bwd", "fps3nn", "fps",
           "three_interpolate_bwd", "group_points_bwd", "train_step", "fused_sa_fwd", "fused_sa_slab_bwd",
           "fused_sa_bn_train", "three_nn", "fused_sa_slab_fwd",
-          "fused_sa_fwd_bf16", "group_points_bwd_bf16")
+          "fused_sa_fwd_bf16", "group_points_bwd_bf16", "fused_sa_bwd_bf16",
+          "fused_sa_slab_bwd_bf16")
+# the routings of the bf16 backwards' inputs: "seeded", each group's live
+# channels (3 in 4) on one of two slots drawn for the group, near the
+# 1.7-2.0% of the slots that the seeded train step reaches; "full spread",
+# every channel live at a slot drawn uniformly over S
+BWD_ROUTINGS = ("seeded", "full spread")
+
+
+def bwd_bf16_inputs(route, R, N, M, S, widths, routing, seed):
+    """Seeded inputs of a bf16 backward of kernel 6 (``route`` "gather":
+    pre, idx, center) or 8 ("slab": x0), the weights, and a bf16 gradient
+    with its argmax and ppre under ``routing`` -> (inputs, grad, argmax,
+    ppre)."""
+    import torch
+
+    c1, c2, c3 = widths
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    lead = ((randn(R, N, c1).to(torch.bfloat16),
+             torch.randint(0, N, (R, M, S), generator=g, device="cuda",
+                           dtype=torch.int32),
+             randn(R, M, c1, scale=0.5).to(torch.bfloat16))
+            if route == "gather" else (randn(R, M, S, c1).to(torch.bfloat16),))
+    ins = (*lead, randn(c1, c2, scale=c1 ** -0.5), randn(c2, scale=0.1),
+           randn(c2, c3, scale=c2 ** -0.5), randn(c3, scale=0.1))
+    grad = randn(R, M, c3).to(torch.bfloat16)
+    if routing == "full spread":
+        arg = torch.randint(0, S, grad.shape, generator=g, device="cuda",
+                            dtype=torch.int32)
+        ppre = torch.ones(grad.shape, device="cuda")
+    else:
+        two = torch.randint(0, S, (R, M, 2), generator=g, device="cuda",
+                            dtype=torch.int32)
+        pick = torch.randint(0, 2, grad.shape, generator=g, device="cuda")
+        arg = torch.gather(two, 2, pick).contiguous()
+        ppre = torch.where(torch.rand(grad.shape, generator=g, device="cuda")
+                           < 0.75, 1.0, -1.0)
+    return ins, grad, arg, ppre
 
 
 def rcnn_levels(root):
@@ -658,6 +708,32 @@ def main() -> int:
             out["fused_sa_bn_train sum"] = bn_total
             print(f"{args.label}: fused_sa_bn_train, SA_0 + SA_1 forward "
                   f"and backward: {bn_total:.3f} ms", flush=True)
+    for group, form in (("fused_sa_bwd_bf16", "gather"),
+                        ("fused_sa_slab_bwd_bf16", "slab")):
+        if group not in only:
+            continue
+        from tpu3d_torch.ops import fused_sa as fs
+
+        bwd = (fs.fused_gathered_mlp_pool_bf16_backward if form == "gather"
+               else fs.fused_mlp_pool_bf16_backward)
+        for label, route, mode, R, N, M, S, widths in rcnn_levels(args.root):
+            if route != form or mode != "train" or (
+                    form == "gather" and not label.startswith("default")):
+                continue
+            for routing in BWD_ROUTINGS:
+                ins, grad, arg, ppre = bwd_bf16_inputs(
+                    route, R, N, M, S, widths, routing, R + M + S)
+                key = f"{group} {label} {routing}"
+                record(key, lambda: bwd(*ins, grad, arg, ppre), 5)
+                split = bench.split_ms(lambda: bwd(*ins, grad, arg, ppre))
+                out[f"{key} split"] = split
+                print(f"{args.label}: {key} split (ms, launches per call): "
+                      + ", ".join(f"{k} {v[0]:.4f} x{v[1]:g}" for k, v in
+                                  sorted(split.items(),
+                                         key=lambda kv: -kv[1][0])),
+                      flush=True)
+                del ins, grad, arg, ppre
+                torch.cuda.empty_cache()
     print(json.dumps(out))
     return 0
 

@@ -94,6 +94,58 @@ def cuda_ms(fn, reps: int) -> DeviceMs:
     return DeviceMs(device, queued, statistics.median(calls), covered)
 
 
+def split_ms(fn, reps: int = 3) -> dict:
+    """One call of ``fn`` split by launch: torch.profiler's device time
+    per kernel (its ``__global__`` name, read as ``parse_trace.py`` reads
+    a trace: torch's own under ``at::``) and per memcpy / memset, and the
+    host's waits on the card (``aten::_local_scalar_dense``: a tensor read
+    on the host), each in ms per call over ``reps`` calls from an idle
+    card after a warm-up -> {name: [ms per call, launches per call]}."""
+    import importlib.util
+    import os
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    spec = importlib.util.spec_from_file_location(
+        "parse_trace", Path(__file__).with_name("parse_trace.py"))
+    pt = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(pt)
+    fn()
+    torch.cuda.synchronize()
+    # a warm-up step the profiler discards, then ``reps`` calls, each from
+    # an idle card (so a host read waits for this call's work alone)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=torch.profiler.schedule(wait=0, warmup=1,
+                                                  active=reps,
+                                                  repeat=1)) as prof:
+        for _ in range(reps + 1):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        ops = pt.load_device_ops(path)
+    finally:
+        os.unlink(path)
+    out = {}
+    for cat, name, us, n in ops:
+        base, torch_own = pt.kernel_base(name) if cat == "kernel" else (
+            cat, False)
+        key = f"torch {base}" if torch_own else base
+        ms, k = out.get(key, (0.0, 0.0))
+        out[key] = [ms + us / 1e3 / reps, k + n / reps]
+    waits = [e for e in prof.events() if e.name == "aten::_local_scalar_dense"]
+    if waits:
+        out["host read"] = [sum(e.cpu_time_total for e in waits) / 1e3 / reps,
+                            len(waits) / reps]
+    return out
+
+
 @contextlib.contextmanager
 def record_nearest_k():
     """Records every nearest_k call the models make while open, as
