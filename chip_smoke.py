@@ -241,8 +241,15 @@ and no result line:
    as tpu3d's does); (a) each bf16 form against its plain version at the
    inputs that (b) recorded (kernel 3 at default's four FP levels, 5 at
    default's RCNN SA_0 and SA_1, 8 at quickstart's SA_1, 9 at the
-   BatchNorm RCNN's SA_0 and SA_1): kernel 3 equal to the bit, 5, 8 and 9
-   within BF16_FORM_BOUND of the plain output's largest value, each timed
+   BatchNorm RCNN's SA_0 and SA_1, the kernels line's rows; and apart, each
+   path in a report of its own, 5 at double's, quickstart's and smoke's
+   SA_0 and SA_1 (double), 8 at smoke's SA_1, S = 16, four groups a tile):
+   kernel 3 equal to the bit, 5, 8 and 9
+   within BF16_FORM_BOUND of the plain output's largest value and twice
+   equal to the bit, 5 and 8 on the design their C entry names
+   (tpu3d_fused_sa_bf16_design, held to fused_sa.eval_bf16_design), the
+   wgmma design at every call (and, from the configs, at every level the
+   five shipped configs fuse at eval), each printed, each timed
    beside its plain version, its library chain in bf16 and its f32 form,
    its bound at the bf16 peak; (d) ms per batch of both contracts in
    turns (f32, default, default, f32) and their peak memory; (e) one eval-CLI run (joint, phase 13's checkpoint) under
@@ -455,9 +462,9 @@ BN_TRAIN_PATH = f"default.yaml with RCNN.USE_BN train B={TRAIN_BATCH}"
 BF16_SOURCES = {
     "three_interpolate_bf16": ("tpu3d_torch/csrc/three_interpolate.cu",
                                "tpu3d/ops/interpolate.py:262"),
-    "fused_sa_bf16": ("tpu3d_torch/csrc/fused_sa_bf16.cuh",
+    "fused_sa_bf16": ("tpu3d_torch/csrc/fused_sa_wgmma_eval.cuh",
                       "tpu3d/ops/fused_sa.py:771"),
-    "fused_sa_slab_bf16": ("tpu3d_torch/csrc/fused_sa_bf16.cuh",
+    "fused_sa_slab_bf16": ("tpu3d_torch/csrc/fused_sa_wgmma_eval.cuh",
                            "tpu3d/ops/fused_sa.py:594"),
     "fused_sa_slab_bn_bf16": ("tpu3d_torch/csrc/fused_sa_bf16.cuh",
                               "tpu3d/ops/fused_sa.py:203"),
@@ -4636,10 +4643,64 @@ def compare_contracts(model, bf, f32, label, rpn_bound) -> dict:
     return figures
 
 
-def bf16_form_rows(report, calls):
+def eval_bf16_design(c1, c2, c3, where):
+    """The design kernels 5 and 8's bf16 eval entries run widths c1 -> c2 ->
+    c3 on, as their C entry decides it (``tpu3d_fused_sa_bf16_design``),
+    held to ``fused_sa.eval_bf16_design``."""
+    import ctypes
+
+    from tpu3d_torch.ops import _build
+    from tpu3d_torch.ops.fused_sa import eval_bf16_design as design
+
+    fn = _build.library("fused_sa").tpu3d_fused_sa_bf16_design
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    got = "wgmma" if fn(c1, c2, c3) else "parent"
+    check(got == design(c1, c2, c3), f"{where}: the C entry and "
+          f"eval_bf16_design disagree on {c1} -> {c2} -> {c3}")
+    return got
+
+
+def shipped_eval_designs() -> dict:
+    """The eval forms' design at every RCNN level the five shipped configs
+    fuse without BatchNorm at eval (B=2), from the C entry: each must be
+    the wgmma design -> {config: [(level, route, design)]}."""
+    from tpu3d_torch.config import cfg_from_file, fresh_cfg
+    from tpu3d_torch.ops.fused_sa import sa_route
+
+    out = {}
+    for name in ("default", "double", "quickstart", "smoke",
+                 "default_people"):
+        cfg = cfg_from_file(str(ROOT / "configs" / f"{name}.yaml"),
+                            fresh_cfg())
+        sa = cfg.RCNN.SA_CONFIG
+        n, R = cfg.RCNN.NUM_POINTS, BATCH * cfg.TEST.RPN_POST_NMS_TOP_N
+        rows = []
+        for k, m in enumerate(sa.NPOINTS):
+            if m == -1:
+                break
+            mlp = list(sa.MLPS[k])
+            route = sa_route((R, m, sa.NSAMPLE[k], mlp[0]), mlp, n,
+                             cfg.RCNN.USE_BN)
+            if route in ("gather", "slab"):
+                design = eval_bf16_design(*mlp, f"{name}.yaml SA_{k}")
+                check(design == "wgmma", f"{name}.yaml RCNN SA_{k} ({mlp}) "
+                      f"runs the eval forms' parent design")
+                rows.append((f"RCNN SA_{k}", route, design))
+            n = m
+        check(rows, f"{name}.yaml fuses no RCNN level at eval")
+        out[name] = rows
+    print(f"the bf16 eval forms' design at the shipped configs' fused "
+          f"levels: {out}")
+    return out
+
+
+def bf16_form_rows(report, calls, where):
     """(a): each recorded call of a bf16 form against its plain version,
     timed beside the plain version, its library chain in bf16 (cuBLAS for
-    the products) and its f32 form on the same values."""
+    the products) and its f32 form on the same values; the fused forms
+    twice equal to the bit, kernels 5 and 8 on the design their C entry
+    names (the wgmma design at every call of the shipped configs), at the
+    path ``where``."""
     import torch
     import torch.nn.functional as F
 
@@ -4673,18 +4734,29 @@ def bf16_form_rows(report, calls):
               f"round_w={round_w}: {ms:.4f} ms (f32 form {fms:.4f}), plain "
               f"{pms:.3f}, gather+sum in bf16 {lms:.4f}; equal to the bit")
 
-    def fused_row(name, got, ref, ms, pms, lms, fms, R, M, S, c1, c2, c3,
-                  in_bytes):
+    def fused_row(name, got, again, ref, ms, pms, lms, fms, R, M, S, c1, c2,
+                  c3, in_bytes):
         err, scale = _rel_err(got, ref)
-        check(err <= BF16_FORM_BOUND * scale, f"{name} differs from its "
-              f"plain version by {err} (largest {scale})")
+        check(err <= BF16_FORM_BOUND * scale, f"{name} at {where} differs "
+              f"from its plain version by {err} (largest {scale})")
+        check(torch.equal(got, again), f"{name} at {where}: two calls "
+              f"differ")
+        counts = {}
+        design = ""
+        if name != "fused_sa_slab_bn_bf16":
+            design = eval_bf16_design(c1, c2, c3, f"{name} at {where}")
+            check(design == "wgmma", f"{name} at {where} ({c1} -> {c2} -> "
+                  f"{c3}) ran the parent design")
+            counts = {"wgmma_calls": 1.0, "parent_calls": 0.0}
+            design = f" on the {design} design"
         ops = R * M * S * (2 * (c1 * c2 + c2 * c3) + 2 * c1 + 2 * c2 + 3 * c3)
         nbytes = in_bytes + 2 * (c1 * c2 + c2 * c3 + c2 + c3 + R * M * c3)
-        report.add(name, err, ms, pms, lms, nbytes, ops, f32_ms=fms)
-        print(f"{name} R={R} M={M} S={S} C={c1}->{c2}->{c3}: {ms:.3f} ms "
-              f"(f32 form {fms:.3f}), plain {pms:.3f}, bf16 cuBLAS chain "
-              f"{lms:.3f}, max_abs_err {err:.3e} of {scale:.3e}, "
-              f"{ops / ms / 1e9:.1f} TFLOP/s")
+        report.add(name, err, ms, pms, lms, nbytes, ops, f32_ms=fms,
+                   **counts)
+        print(f"{name} at {where} R={R} M={M} S={S} C={c1}->{c2}->{c3}"
+              f"{design}: {ms:.4f} ms (f32 form {fms:.4f}), plain {pms:.3f}, "
+              f"bf16 cuBLAS chain {lms:.4f}, max_abs_err {err:.3e} of "
+              f"{scale:.3e}, twice equal, {ops / ms / 1e9:.1f} TFLOP/s")
 
     with torch.no_grad():
         for args in calls.get("fused_sa_bf16", []):
@@ -4704,7 +4776,8 @@ def bf16_form_rows(report, calls):
             f32a = (pre.float(), idx, center.float(), w1.contiguous(), b1,
                     w2.contiguous(), b2)
             fused_row(
-                "fused_sa_bf16", got, ref,
+                "fused_sa_bf16", got, fs.fused_gathered_mlp_pool_bf16(*args),
+                ref,
                 cuda_ms(lambda: fs.fused_gathered_mlp_pool_bf16(*args), 10),
                 cuda_ms(lambda: fs.fused_gathered_mlp_pool_bf16_plain(*args),
                         3),
@@ -4727,7 +4800,7 @@ def bf16_form_rows(report, calls):
 
             f32a = (x0.float(), w1.contiguous(), b1, w2.contiguous(), b2)
             fused_row(
-                "fused_sa_slab_bf16", got, ref,
+                "fused_sa_slab_bf16", got, fs.fused_mlp_pool_bf16(*args), ref,
                 cuda_ms(lambda: fs.fused_mlp_pool_bf16(*args), 10),
                 cuda_ms(lambda: fs.fused_mlp_pool_bf16_plain(*args), 3),
                 cuda_ms(library, 5),
@@ -4752,7 +4825,8 @@ def bf16_form_rows(report, calls):
             f32a = (x0.float(), w1.contiguous(), w2.contiguous(), gammas,
                     betas, stats, eps)
             fused_row(
-                "fused_sa_slab_bn_bf16", got, ref,
+                "fused_sa_slab_bn_bf16", got, fs.fused_bn_mlp_pool_bf16(*args),
+                ref,
                 cuda_ms(lambda: fs.fused_bn_mlp_pool_bf16(*args), 10),
                 cuda_ms(lambda: fs.fused_sa_slab_bn_bf16_plain(
                     x0, packs, w1, w2), 3),
@@ -4783,28 +4857,33 @@ def eval_numerics(card: str) -> tuple[Report, dict, dict]:
     bn.RCNN.USE_BN = True
     dense = copy.deepcopy(default)
     dense.BF16_INFERENCE = True
-    cases = [  # (label, cfg, batch, which bf16 forms' calls to keep)
+    # (label, cfg, batch, the bf16 forms whose calls the kernels line's row
+    # takes from this path, those held and timed at this path apart)
+    cases = [
         ("default.yaml eval B=2", default, BATCH,
-         ("three_interpolate_bf16", "fused_sa_bf16")),
+         ("three_interpolate_bf16", "fused_sa_bf16"), ()),
         ("double.yaml eval B=4", cfg_from_file(
             str(ROOT / "configs" / "double.yaml"), fresh_cfg()),
-         DOUBLE_BATCH, ()),
+         DOUBLE_BATCH, (), ("fused_sa_bf16",)),
         (QUICK_PATH["eval"], cfg_from_file(
             str(ROOT / "configs" / "quickstart.yaml"), fresh_cfg()),
-         QUICK_EVAL_BATCH, ("fused_sa_slab_bf16",)),
+         QUICK_EVAL_BATCH, ("fused_sa_slab_bf16",), ("fused_sa_bf16",)),
         (SMOKE_PATH["eval"], cfg_from_file(
             str(ROOT / "configs" / "smoke.yaml"), fresh_cfg()),
-         SMOKE_BATCH, ()),
-        (BN_PATH, bn, BN_BATCH, ("fused_sa_slab_bn_bf16",))]
+         SMOKE_BATCH, (), ("fused_sa_bf16", "fused_sa_slab_bf16")),
+        (BN_PATH, bn, BN_BATCH, ("fused_sa_slab_bn_bf16",), ())]
     report = Report(peak_ops=PEAK_BF16_OPS_PER_S)
     launches, figures, calls = {}, {"card": card, "configs": {}}, {}
-    for label, cfg, batch, keep in cases:
+    figures["eval_bf16_designs"] = shipped_eval_designs()
+    path_calls = {}  # label: {form: calls held at that path apart}
+    for label, cfg, batch, keep, apart in cases:
         model = PointRCNN(cfg, mode="TEST", device=dev)
         model.load_state_dict(seeded_state_dict(model, SEED))
         pts = torch.from_numpy(random_scenes(batch, cfg.RPN.NUM_POINTS,
                                              SEED)).to(dev)
         f32 = contract_run(model, cfg, pts, True, label)
-        bf = contract_run(model, cfg, pts, False, label, record=bool(keep))
+        bf = contract_run(model, cfg, pts, False, label,
+                          record=bool(keep or apart))
         check_joint_outputs(cfg, bf["out"], batch, f"{label} (default "
                             f"contract)")
         # every f32 launch of a kernel with a bf16 form is the bf16 form's
@@ -4833,6 +4912,8 @@ def eval_numerics(card: str) -> tuple[Report, dict, dict]:
         for name in keep:
             calls[name] = bf["calls"][name]
             launches[name] = bf["launches"].get(name, 0)
+        if apart:
+            path_calls[label] = {name: bf["calls"][name] for name in apart}
         if cfg is default:
             f32_default = f32
             # (c) BF16_INFERENCE: true at default.yaml, under the default
@@ -4868,9 +4949,15 @@ def eval_numerics(card: str) -> tuple[Report, dict, dict]:
         torch.cuda.empty_cache()
     del f32_default
 
-    # (a) each bf16 form at the recorded calls
-    bf16_form_rows(report, calls)
+    # (a) each bf16 form at the recorded calls: the rows' paths, then
+    # kernels 5 and 8 at the other paths' calls, each path's report apart
+    bf16_form_rows(report, calls, "its row's path")
     del calls
+    path_reports = {}
+    for label, held in path_calls.items():
+        path_reports[label] = Report(peak_ops=PEAK_BF16_OPS_PER_S)
+        bf16_form_rows(path_reports[label], held, label)
+    del path_calls
     torch.cuda.empty_cache()
 
     # (e) the eval CLI, joint, under the default contract on phase 13's
@@ -4900,6 +4987,10 @@ def eval_numerics(card: str) -> tuple[Report, dict, dict]:
     print(f"eval CLI under the default contract ({card}): "
           f"{res['scenes_per_sec']:.2f} scenes/s after the first batch, "
           f"launches {cli_launches}")
+    figures["bf16_at_paths"] = {
+        label: {name: {"launches": figures["configs"][label][
+            "launches"].get(name, 0), **rep.row(name)} for name in rep.rows}
+        for label, rep in path_reports.items()}
     return report, launches, figures
 
 
@@ -6780,7 +6871,10 @@ def main() -> int:
                 for label, row in numerics["configs"].items()},
             "pn_train_launches": PN_TRAIN.get(name, 0),
             "pn_eval_launches": PN_EVAL.get(name, 0),
-            **bf16_report.row(name), "status": "ported"})
+            **bf16_report.row(name),
+            "at_paths": {label: rows[name] for label, rows in
+                         numerics["bf16_at_paths"].items() if name in rows},
+            "status": "ported"})
     # the bf16 training forms: launches on the path of phase 19 each was
     # timed at, and their other configs' (the slab forms also timed at
     # smoke.yaml's)

@@ -1,10 +1,13 @@
-"""The Python sides of two bf16 training kernels' Hopper designs, on the
-CPU: which design kernel 6's bf16 training forward runs a level's widths
-on (``fused_sa.train_bf16_design``, the C entry's ``takes`` mirrored), and
-how the grouping gather's bf16 backward takes its gradient as autograd
-hands it over (``grouping.grad_rows``; no cast or copy before the kernel).
-The kernels themselves are held on the card by
-``test_torch_kernels_cuda.py`` and ``chip_smoke.py``."""
+"""The Python sides of the bf16 kernels' Hopper designs, on the CPU: which
+design kernel 6's bf16 training forward runs a level's widths on
+(``fused_sa.train_bf16_design``, the C entry's ``takes`` mirrored), which
+design kernels 5 and 8's bf16 eval forms run (``fused_sa.eval_bf16_design``)
+and how that design packs short groups into a tile and pools them
+(``fused_sa.eval_groups_per_tile``, its walk emulated in numpy), and how
+the grouping gather's bf16 backward takes its gradient as autograd hands it
+over (``grouping.grad_rows``; no cast or copy before the kernel). The
+kernels themselves are held on the card by ``test_torch_kernels_cuda.py``
+and ``chip_smoke.py``."""
 
 import numpy as np
 import pytest
@@ -70,6 +73,121 @@ def test_wgmma_design_smem():
     assert smem(128, 128, 384, 3) > fused_sa.SMEM_MAX
     assert smem(128, 128, 384, 2) == 209920 <= fused_sa.SMEM_MAX
     assert smem(128, 128, 512, 2) > fused_sa.SMEM_MAX
+
+
+@pytest.mark.parametrize("widths, design", [
+    ((128, 128, 128), "wgmma"), ((128, 128, 256), "wgmma"),
+    ((128, 128, 384), "wgmma"), ((128, 128, 512), "wgmma"),
+    ((128, 128, 640), "parent"), ((128, 256, 128), "parent"),
+    ((256, 128, 128), "parent"), ((256, 384, 256), "parent"),
+    ((256, 256, 384), "parent"), ((64, 128, 128), "parent")], ids=str)
+def test_eval_bf16_design_by_width(widths, design):
+    """Kernels 5 and 8's bf16 eval forms: C1 = C2 = 128 (the products'
+    depth the design is built for, layer 1's columns one accumulator) and
+    C3 up to 512 fit the wgmma eval design's shared memory; the widened
+    RCNN's widths and every other shape kernels_take admits keep the
+    parent design, in both forms."""
+    assert fused_sa.eval_bf16_design(*widths) == design
+    for form in ("gather", "slab"):
+        assert kernels_take(64, *widths, form, False)
+        assert fused_sa.bf16_kernels_take(64, *widths)
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_shipped_eval_levels_take_the_wgmma_design(name):
+    """Every RCNN level that a shipped config's eval fuses without
+    BatchNorm, on the gather route (kernel 5) or the slab route (kernel 8),
+    runs its bf16 eval form on the wgmma design; quickstart and smoke fuse
+    one level on each route."""
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    cfg = cfg_from_file(str(root / "configs" / f"{name}.yaml"), fresh_cfg())
+    sa = cfg.RCNN.SA_CONFIG
+    n, R = cfg.RCNN.NUM_POINTS, 2 * cfg.TEST.RPN_POST_NMS_TOP_N
+    routes = []
+    for k, m in enumerate(sa.NPOINTS):
+        if m == -1:
+            break
+        mlp = list(sa.MLPS[k])
+        route = sa_route((R, m, sa.NSAMPLE[k], mlp[0]), mlp, n,
+                         cfg.RCNN.USE_BN)
+        if route in ("gather", "slab"):
+            routes.append(route)
+            assert fused_sa.eval_bf16_design(*mlp) == "wgmma", (name, k)
+        n = m
+    want = (["gather", "slab"] if name in ("quickstart", "smoke")
+            else ["gather", "gather"])
+    assert routes == want
+
+
+def test_eval_wgmma_design_smem():
+    """The eval layout's bytes (a1 in registers), of the 232448 a block may
+    take: at RCNN SA_0 (128 -> 128 -> 128) 128000 with three warpgroups, at
+    SA_1 (-> 256) 164864 with three, at C3 = 384 201728 with three; at 512
+    over with three and 214016 with two; at 640 over with two."""
+    smem = fused_sa.eval_wgmma_smem
+    assert smem(128, 128, 128, 3) == 128000
+    assert smem(128, 128, 256, 3) == 164864
+    assert smem(128, 128, 384, 3) == 201728 <= fused_sa.SMEM_MAX
+    assert smem(128, 128, 512, 3) > fused_sa.SMEM_MAX
+    assert smem(128, 128, 512, 2) == 214016 <= fused_sa.SMEM_MAX
+    assert smem(128, 128, 640, 2) > fused_sa.SMEM_MAX
+
+
+def _eval_pool_walk(a2, S):
+    """The wgmma eval design's pool over ``a2`` (groups, S, C) >= 0 as its
+    walk takes the slots: units of ``eval_groups_per_tile(S)`` groups, each
+    in ceil(S / 64) tiles of 64 consecutive slot rows; rows past a tile's
+    valid slots read as pads that would win (1e9) and are set to 0; each
+    warp's 16 rows reduced to a column max (a warp's valid rows all of one
+    group), the warps of a group combined, a group's tiles folded into a
+    running max -> ((groups, C) out, how often each group was written)."""
+    groups, _, C = a2.shape
+    G = fused_sa.eval_groups_per_tile(S)
+    W = 4 // G if G > 1 else 4
+    tiles = -(-S // 64)
+    flat = a2.reshape(groups * S, C)
+    out = np.zeros((groups, C))
+    writes = np.zeros(groups, dtype=int)
+    for unit in range(-(-groups // G)):
+        grp0 = unit * G
+        held = min(G, groups - grp0)
+        pool = None
+        for tile in range(tiles):
+            s0 = tile * 64
+            valid = min(64, held * S - s0)
+            row0 = grp0 * S + s0
+            rows = np.full((64, C), 1e9)
+            rows[:valid] = flat[row0:row0 + valid]
+            rows[valid:] = 0.0
+            warp_max = rows.reshape(4, 16, C).max(1)
+            for w in range(4):
+                owners = {(s0 + r) // S for r in range(16 * w, 16 * w + 16)
+                          if r < valid}
+                assert len(owners) <= 1
+            for k in range(held):
+                mx = warp_max[k * W:(k + 1) * W].max(0)
+                pool = mx if tile == 0 else np.maximum(pool, mx)
+                if tile == tiles - 1:
+                    out[grp0 + k] = pool
+                    writes[grp0 + k] += 1
+    return out, writes
+
+
+@pytest.mark.parametrize("S, G", [(16, 4), (24, 1), (32, 2), (64, 1),
+                                  (128, 1), (8, 1), (100, 1)])
+def test_eval_packing_rule(S, G):
+    """The packing rule (``eval_groups_per_tile``: 4 groups a tile at S 16,
+    2 at 32, else 1) and the walk it implies, emulated: at 133 groups (a
+    short last tile at S 16 and 32), every group written once with the max
+    over its S slots, no pad reaching the output."""
+    assert fused_sa.eval_groups_per_tile(S) == G
+    rng = np.random.default_rng(S)
+    a2 = np.maximum(rng.normal(size=(133, S, 24)), 0.0)
+    out, writes = _eval_pool_walk(a2, S)
+    assert (writes == 1).all()
+    np.testing.assert_array_equal(out, a2.max(1))
 
 
 def test_grad_rows_reads_the_layout():

@@ -893,9 +893,20 @@ def test_fused_sa_bwd_fixed_order_on_cuda(spread):
 # to its plain version to the bit (exact products, the same f32 sums in
 # neighbour order), the fused forms within 2^-6 of the plain output's
 # largest value (their f32 sums run in the tensor cores' order, so an x1 or
-# x2 can round to the other bf16 neighbour: a step or two at the output)
+# x2 can round to the other bf16 neighbour: a step or two at the output).
+# (R, M, S, C1, C2, C3): kernels 5 and 8 on the wgmma eval design
+# (fused_sa.eval_bf16_design) at S 64 (default's SA_0 and SA_1), 16 (four
+# groups a tile; R·M = 512, and 133, no multiple of 4), 24 (one padded
+# tile), 32 (two groups a tile; R·M = 65, odd), 128 (two tiles a group), 8
+# (one padded tile), C3 384 and 512 (two warpgroups a block); on the parent
+# design at C2 256 and C1 256 (kernel 9's eval form on the parent design
+# at every shape)
 BF16_FUSED = [(64, 128, 64, 128, 128, 128), (64, 32, 64, 128, 128, 256),
-              (16, 32, 16, 128, 128, 256), (8, 16, 24, 128, 256, 128),
+              (16, 32, 16, 128, 128, 256), (7, 19, 16, 128, 128, 128),
+              (9, 11, 24, 128, 128, 128), (5, 13, 32, 128, 128, 256),
+              (12, 16, 128, 128, 128, 256), (5, 13, 8, 128, 128, 128),
+              (6, 16, 32, 128, 128, 384), (4, 16, 64, 128, 128, 512),
+              (8, 16, 24, 128, 256, 128),
               (8, 8, 128, 256, 128, 384)]
 
 
@@ -940,14 +951,15 @@ def test_three_interpolate_bf16_on_cuda(round_w, c):
                                   "fused_sa_slab_bn_bf16"])
 @pytest.mark.parametrize("shape", BF16_FUSED, ids=str)
 def test_fused_bf16_forms_on_cuda(name, shape):
-    """Each fused bf16 form against its plain version on the card: S 64
-    (default's SA_0 and SA_1), 16 (smoke), 24 (a masked chunk tail) and
-    128 (two chunks), within 2^-6 of the largest value, counted once."""
+    """Each fused bf16 form against its plain version on the card at the
+    shapes of ``BF16_FUSED``, within 2^-6 of the largest value; two calls
+    equal to the bit, each counted once."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     R, M, S, C1, C2, C3 = shape
     x0, w1, b1, w2, b2, g = _bf16_fused_inputs(shape, 21)
     _build.reset_launches()
+    again = None
     if name == "fused_sa_bf16":
         N = 256
         pre = torch.randn(R, N, C1, generator=g, device="cuda").to(
@@ -958,9 +970,11 @@ def test_fused_bf16_forms_on_cuda(name, shape):
             torch.bfloat16)
         args = (pre, idx, center, w1, b1, w2, b2)
         got = fs.fused_gathered_mlp_pool_bf16(*args)
+        again = fs.fused_gathered_mlp_pool_bf16(*args)
         want = fs.fused_gathered_mlp_pool_bf16_plain(*args)
     elif name == "fused_sa_slab_bf16":
         got = fs.fused_mlp_pool_bf16(x0, w1, b1, w2, b2)
+        again = fs.fused_mlp_pool_bf16(x0, w1, b1, w2, b2)
         want = fs.fused_mlp_pool_bf16_plain(x0, w1, b1, w2, b2)
     else:
         gammas = [torch.rand(c, generator=g, device="cuda") + 0.5
@@ -971,14 +985,94 @@ def test_fused_bf16_forms_on_cuda(name, shape):
                   torch.rand(c, generator=g, device="cuda") + 0.5)
                  for c in (C1, C2, C3)]
         got = fs.fused_bn_mlp_pool_bf16(x0, w1, w2, gammas, betas, stats)
+        again = fs.fused_bn_mlp_pool_bf16(x0, w1, w2, gammas, betas, stats)
         packs = bn_packs([_bn_affine(m, v, gm, bt, 1e-5)[:2] for (m, v), gm,
                           bt in zip(stats, gammas, betas)])
         want = fs.fused_sa_slab_bn_bf16_plain(x0, packs, w1, w2)
     torch.cuda.synchronize()
-    assert _build.BF16_LAUNCHES[name] == 1
+    assert _build.BF16_LAUNCHES[name] == 2
+    assert torch.equal(got, again)
     assert got.dtype == torch.bfloat16 and got.shape == (R, M, C3)
     err = (got.float() - want.float()).abs().max().item()
     assert err <= 2.0 ** -6 * want.float().abs().max().item(), err
+
+
+# (R, M, S): the tiles the wgmma eval design pads, each with a short last
+# tile: S 8 and 24 (one padded tile a group), 16 (four groups a tile, R·M
+# = 133), 32 (two, R·M = 65), 40 and 100 (a padded second tile)
+BF16_PADDED = [(5, 13, 8), (9, 11, 24), (7, 19, 16), (5, 13, 32),
+               (4, 9, 40), (3, 7, 100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["gather", "slab"])
+@pytest.mark.parametrize("shape", BF16_PADDED, ids=str)
+def test_fused_bf16_eval_pads_on_cuda(form, shape):
+    """Kernels 5 and 8's bf16 eval forms where the rows that pad a tile
+    would win the max if they took part: a0 in [1, 2] with W1 <= 0 and b1
+    = 1, so that a zero row of a0 (a pad's) gives the largest a1 (1 in
+    every channel) and, through W2 >= 0, the largest x2 in every column,
+    some twice the slots' largest. Within 2^-6 of the plain output's
+    largest value, so no pad reaches the output."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    R, M, S = shape
+    C = 128
+    g = torch.Generator(device="cuda").manual_seed(S)
+
+    def rand(*s):
+        return torch.rand(*s, generator=g, device="cuda")
+
+    w1, b1 = -rand(C, C) / 192, torch.ones(C, device="cuda")
+    w2, b2 = rand(C, C) * C ** -0.5, torch.zeros(C, device="cuda")
+    _build.reset_launches()
+    if form == "gather":
+        N = 64
+        args = (rand(R, N, C).to(torch.bfloat16) + 1,
+                torch.randint(0, N, (R, M, S), generator=g, device="cuda",
+                              dtype=torch.int32),
+                torch.zeros(R, M, C, device="cuda").to(torch.bfloat16),
+                w1, b1, w2, b2)
+        got = fs.fused_gathered_mlp_pool_bf16(*args)
+        want = fs.fused_gathered_mlp_pool_bf16_plain(*args)
+        name = "fused_sa_bf16"
+    else:
+        args = ((rand(R, M, S, C) + 1).to(torch.bfloat16), w1, b1, w2, b2)
+        got = fs.fused_mlp_pool_bf16(*args)
+        want = fs.fused_mlp_pool_bf16_plain(*args)
+        name = "fused_sa_slab_bf16"
+    torch.cuda.synchronize()
+    assert _build.BF16_LAUNCHES[name] == 1
+    # a pad's row: a0 = 0, a1 = 1, each column's x2 its W2 column sum
+    pad = w2.to(torch.bfloat16).float().sum(0)
+    assert (want.float() / pad).max().item() < 0.6
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2.0 ** -6 * want.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths", [
+    (128, 128, 128), (128, 128, 256), (128, 128, 384), (128, 128, 512),
+    (128, 256, 128), (256, 128, 128), (256, 384, 256), (64, 128, 128)],
+    ids=str)
+def test_fused_bf16_eval_design_entry_on_cuda(widths):
+    """The C entries' own routing agrees with its mirrors: the eval forms'
+    design (``tpu3d_fused_sa_bf16_design``, ``fused_sa.eval_bf16_design``)
+    at each width, and the groups a tile packs
+    (``tpu3d_fused_sa_bf16_groups``, ``fused_sa.eval_groups_per_tile``) at
+    every S from 1 to 256."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import ctypes
+
+    lib = _build.library("fused_sa")
+    design = lib.tpu3d_fused_sa_bf16_design
+    design.argtypes, design.restype = [ctypes.c_int] * 3, ctypes.c_int
+    assert bool(design(*widths)) == (fs.eval_bf16_design(*widths) == "wgmma")
+    groups = lib.tpu3d_fused_sa_bf16_groups
+    groups.argtypes, groups.restype = [ctypes.c_int], ctypes.c_int
+    assert [groups(s) for s in range(1, 257)] == [
+        fs.eval_groups_per_tile(s) for s in range(1, 257)]
 
 
 # the bf16 training forms (precision.py's training contract). The gather's

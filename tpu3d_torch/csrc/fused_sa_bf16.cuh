@@ -52,10 +52,25 @@
 // walks its rows in ascending order and keeps the first strict maximum, the
 // shuffles keep the lower slot of two equal maxima, and a later chunk takes
 // over only above the running max.
-// Kernel 6's training form (tpu3d_fused_sa_train_bf16) runs on
-// fused_sa_wgmma.cuh's design (wgmma, weights resident in shared memory)
-// at every width that design takes; the wider ones, and the six other
-// entries, on this one.
+// Which entry runs which design (each routes by the widths alone):
+//   - tpu3d_fused_sa_bf16 and tpu3d_fused_sa_slab_bf16 (kernels 5 and 8's
+//     eval forms) run fused_sa_wgmma_eval.cuh's design (wgmma, weights
+//     resident in shared memory, a1 and the pool in registers, short groups
+//     packed into one tile; its own layout: the weights, per warpgroup a
+//     64-row a0 stage, centers and column maxima) where it takes the widths
+//     (C1 = C2 = 128, C3 a multiple of 128 up to 512;
+//     tpu3d_fused_sa_bf16_design), the wider ones this one;
+//   - tpu3d_fused_sa_train_bf16 (kernel 6's training form) runs
+//     fused_sa_wgmma.cuh's design (wgmma from shared memory, with the
+//     argmax and ppre of training; its layout: the weights, per warpgroup
+//     64-row a0 and a1 stages, centers and the pooling state) at C1 = C2 =
+//     128 and C3 up to 384 (tpu3d_fused_sa_train_bf16_wgmma), the wider
+//     ones this one;
+//   - tpu3d_fused_sa_slab_bn_bf16 (kernel 9's eval form) and
+//     tpu3d_fused_sa_slab_train_bf16 (kernel 8's training forward) run this
+//     one at every width. Its shared memory: a chunk of TM rows of a0 and a1
+//     (each row padded by kPad) and the running max (with its slot and x2
+//     in training), pick_mt.
 //
 // Included by fused_sa.cu (its library holds both numeric forms); the
 // kernels live in namespace fused_sa_bf16, the C entries at the end.
@@ -67,6 +82,7 @@
 #include <stdint.h>
 
 #include "fused_sa_wgmma.cuh"
+#include "fused_sa_wgmma_eval.cuh"
 #include "launch_check.cuh"
 
 namespace fused_sa_bf16 {
@@ -394,26 +410,53 @@ int launch(const bf16* src, const int* idx, const bf16* center,
 
 // pre (R, N, C1), center (R, M, C1), w1t (C2, C1), b1 (C2), w2t (C3, C2),
 // b2 (C3), out (R, M, C3): bf16; idx (R, M, S) i32 in [0, N).
+// The widths fused_sa_wgmma_eval.cuh takes run there, wider ones on the
+// design above.
 extern "C" int tpu3d_fused_sa_bf16(const __nv_bfloat16* pre, const int* idx,
                                    const __nv_bfloat16* center, const __nv_bfloat16* w1t,
                                    const __nv_bfloat16* b1, const __nv_bfloat16* w2t,
                                    const __nv_bfloat16* b2, int R, int N, int M, int S,
                                    int C1, int C2, int C3, __nv_bfloat16* out,
                                    void* stream) {
-  return fused_sa_bf16::launch<true, false, false>(
-      pre, idx, center, nullptr, w1t, b1, w2t, b2, R, N, M, S, C1, C2, C3,
-      out, nullptr, nullptr, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!fused_sa_wgmma_eval::takes(C1, C2, C3))
+    return fused_sa_bf16::launch<true, false, false>(
+        pre, idx, center, nullptr, w1t, b1, w2t, b2, R, N, M, S, C1, C2, C3,
+        out, nullptr, nullptr, s);
+  if (const int pending = tpu3d::pending_error(s)) return pending;
+  if (R < 1 || N < 1 || M < 1 || S < 1) return (int)cudaErrorInvalidValue;
+  return fused_sa_wgmma_eval::launch_eval<true>(pre, idx, center, w1t, b1,
+                                                w2t, b2, R, N, M, S, C1, C2,
+                                                C3, out, s);
 }
 
-// x0 (R, M, S, C1) bf16; weights and biases as above.
+// x0 (R, M, S, C1) bf16; weights and biases as above; routed as above.
 extern "C" int tpu3d_fused_sa_slab_bf16(const __nv_bfloat16* x0, const __nv_bfloat16* w1t,
                                         const __nv_bfloat16* b1, const __nv_bfloat16* w2t,
                                         const __nv_bfloat16* b2, int R, int M, int S,
                                         int C1, int C2, int C3, __nv_bfloat16* out,
                                         void* stream) {
-  return fused_sa_bf16::launch<false, false, false>(
-      x0, nullptr, nullptr, nullptr, w1t, b1, w2t, b2, R, 0, M, S, C1, C2, C3,
-      out, nullptr, nullptr, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!fused_sa_wgmma_eval::takes(C1, C2, C3))
+    return fused_sa_bf16::launch<false, false, false>(
+        x0, nullptr, nullptr, nullptr, w1t, b1, w2t, b2, R, 0, M, S, C1, C2,
+        C3, out, nullptr, nullptr, s);
+  if (const int pending = tpu3d::pending_error(s)) return pending;
+  if (R < 1 || M < 1 || S < 1) return (int)cudaErrorInvalidValue;
+  return fused_sa_wgmma_eval::launch_eval<false>(x0, nullptr, nullptr, w1t,
+                                                 b1, w2t, b2, R, 0, M, S, C1,
+                                                 C2, C3, out, s);
+}
+
+// 1 where tpu3d_fused_sa_bf16 and tpu3d_fused_sa_slab_bf16 run widths C1 ->
+// C2 -> C3 on the wgmma eval design, 0 where on the parent one.
+extern "C" int tpu3d_fused_sa_bf16_design(int C1, int C2, int C3) {
+  return fused_sa_wgmma_eval::takes(C1, C2, C3) ? 1 : 0;
+}
+
+// Groups of S slots the wgmma eval design packs into one 64-row tile.
+extern "C" int tpu3d_fused_sa_bf16_groups(int S) {
+  return S >= 1 ? fused_sa_wgmma_eval::groups_per_tile(S) : 0;
 }
 
 // x0 (R, M, S, C1) bf16; packs f32 [mul0 | add0 | mul1 | add1 | mul2 | add2].

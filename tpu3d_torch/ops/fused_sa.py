@@ -32,7 +32,9 @@ compute everything in f32 and are held to tpu3d's CPU path, which is f32
 too: every CPU forward and training step, and the card under the f32
 contracts (``TPU3D_F32_EVAL=1``; both ``TRAIN`` keys False). The bf16
 forms (``fused_gathered_mlp_pool_bf16``, ``fused_mlp_pool_bf16``,
-``fused_bn_mlp_pool_bf16``, kernels in ``csrc/fused_sa_bf16.cuh``) compute
+``fused_bn_mlp_pool_bf16``, entries in ``csrc/fused_sa_bf16.cuh``; the
+first two on ``csrc/fused_sa_wgmma_eval.cuh``'s design at the widths
+``eval_bf16_design`` names) compute
 as tpu3d's TPU kernels do: bf16 operands with f32 sums, every layer
 boundary rounded to bf16, a bf16 output; an eval on the card takes them by
 default, and so does a train step, through the training forms of the two
@@ -51,9 +53,12 @@ form), and the BatchNorm chain's training kernels ``_stats0_kernel``,
 ``_fwd_stats1_kernel``, ``_fwd_stats2_kernel``, ``_fwd_final_kernel``,
 ``_bwd_wave1_kernel``, ``_bwd_wave2_kernel`` and ``_bwd_apply_kernel``;
 the bf16 forms ``_nobn2_eval_kernel``, ``_nobn_eval_kernel`` and
-``_eval_chain_kernel`` in their own arithmetic (warp-level bf16
-``mma.sync`` products with f32 accumulators, a block of four warps per
-group, chunks of up to 64 slots staged in shared memory).
+``_eval_chain_kernel`` in their own arithmetic (the first two at the
+shipped widths on ``wgmma`` products from shared memory, the weights
+resident, each 64-row tile's max reduced in registers and short groups
+packed four or two to a tile; otherwise warp-level bf16 ``mma.sync``
+products with f32 accumulators, a block of four warps per group, chunks of
+up to 64 slots staged in shared memory).
 The two Dense layers make them bound by operations; one block per (row,
 center) loads its group into shared memory a chunk of slots at a time
 (gathered, or read from the slab; the slab form at S 16 and 32 packs
@@ -1548,7 +1553,8 @@ def fused_bn_mlp_pool(x0: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
 # the bf16 eval forms, under the accelerator's numerics contract
 # (precision.py): tpu3d's eval kernels in their own arithmetic, bf16
 # operands with f32 sums, rounded to bf16 at every layer boundary; the
-# kernels in csrc/fused_sa_bf16.cuh
+# entries in csrc/fused_sa_bf16.cuh (kernels 5 and 8 on
+# csrc/fused_sa_wgmma_eval.cuh's design where eval_bf16_design says so)
 # --------------------------------------------------------------------------
 
 BF16 = torch.bfloat16
@@ -1622,9 +1628,16 @@ def fused_sa_slab_bn_bf16_plain(x0, packs, w1, w2):
 
 def bf16_kernels_take(S: int, C1: int, C2: int, C3: int) -> bool:
     """Whether the bf16 kernels take a level of S slots per group and widths
-    C1 -> C2 -> C3 (``csrc/fused_sa_bf16.cuh``): C1 a multiple of 16, C2 and
-    C3 multiples of 128, and a chunk of 16 rows of a0 and a1 in bf16 with
-    the running max (with its slot and x2 in training) in shared memory.
+    C1 -> C2 -> C3: C1 a multiple of 16, C2 and C3 multiples of 128, and a
+    chunk of 16 rows of a0 and a1 in bf16 with the running max (with its
+    slot and x2 in training) in shared memory, the layout of
+    ``csrc/fused_sa_bf16.cuh``'s design, which every entry runs at widths
+    the wgmma designs do not take. Those take C1 = C2 = 128 with layouts of
+    their own: kernels 5 and 8's eval forms C3 up to 512
+    (``eval_bf16_design``, ``eval_wgmma_smem``), kernel 6's training
+    forward C3 up to 384 (``train_bf16_design``, ``wgmma_smem``); kernel
+    9's eval form and kernel 8's training forward run the parent design at
+    every width.
     Every shape tpu3d's ``fused_sa_supported`` admits with C1 + C2 below
     some 7000 passes."""
     smem = 16 * (C1 + 8 + C2 + 8) * 2 + 12 * C3
@@ -1639,10 +1652,11 @@ def _carve(n: int) -> int:
 
 def wgmma_smem(C1: int, C2: int, C3: int, warpgroups: int) -> int:
     """Bytes of shared memory the wgmma design of kernel 6's bf16 training
-    forward asks for (``csrc/fused_sa_wgmma.cuh``'s layout, 1024-byte
-    regions): the weights, per warpgroup a 64-row stage of a0, two center
-    rows and a 64-row a1, the biases, the pooling state, and room to align
-    them."""
+    forward (``fused_sa_train_bf16``) asks for (``csrc/fused_sa_wgmma.cuh``'s
+    layout, 1024-byte regions): the weights, per warpgroup a 64-row stage of
+    a0, two center rows and a 64-row a1, the biases, the pooling state (max,
+    argmax, ppre), and room to align them. The eval forms' wgmma design has
+    a layout of its own (``eval_wgmma_smem``)."""
     return sum(_carve(n) for n in (
         2 * C1 * C2, 2 * C2 * C3, 2 * warpgroups * 64 * C1,
         2 * warpgroups * 64 * C2, 2 * warpgroups * 2 * C1, 2 * C2, 2 * C3,
@@ -1660,6 +1674,42 @@ def train_bf16_design(C1: int, C2: int, C3: int) -> str:
     fits = (C1 == C2 == 128 and C3 >= 128 and C3 % 128 == 0
             and wgmma_smem(C1, C2, C3, 2) <= SMEM_MAX)
     return "wgmma" if fits else "parent"
+
+
+def eval_wgmma_smem(C1: int, C2: int, C3: int, warpgroups: int) -> int:
+    """Bytes of shared memory the wgmma design of kernels 5 and 8's bf16
+    eval forms (``fused_sa_bf16``, ``fused_sa_slab_bf16``) asks for
+    (``csrc/fused_sa_wgmma_eval.cuh``'s layout, 1024-byte regions): the
+    weights, per warpgroup a 64-row stage of a0 and two tiles' centers
+    (four each), the biases, per warpgroup each warp's column maxima (bf16)
+    and a group's running max, and room to align them (a1 stays in
+    registers)."""
+    return sum(_carve(n) for n in (
+        2 * C1 * C2, 2 * C2 * C3, 2 * warpgroups * 64 * C1,
+        2 * warpgroups * 2 * 4 * C1, 2 * C2, 2 * C3,
+        2 * warpgroups * 4 * C3, 2 * warpgroups * C3)) + 1024
+
+
+def eval_bf16_design(C1: int, C2: int, C3: int) -> str:
+    """The design kernels 5 and 8's bf16 eval forms run widths C1 -> C2 ->
+    C3 on (any S): "wgmma" (``csrc/fused_sa_wgmma_eval.cuh``: C1 = C2 =
+    128, C3 a multiple of 128 whose layout fits with two warpgroups a
+    block, three where they fit: C3 up to 512, three up to 384; every level
+    the shipped configs fuse at eval) or "parent" (``csrc/fused_sa_bf16.cuh``'s
+    design, which takes the rest: the widened RCNN's 256 -> 384 -> 256).
+    The C entry ``tpu3d_fused_sa_bf16_design`` decides the same."""
+    fits = (C1 == C2 == 128 and C3 >= 128 and C3 % 128 == 0
+            and eval_wgmma_smem(C1, C2, C3, 2) <= SMEM_MAX)
+    return "wgmma" if fits else "parent"
+
+
+def eval_groups_per_tile(S: int) -> int:
+    """Groups of S slots the wgmma eval design packs into one 64-row tile:
+    64 / S where S is a multiple of 16 that divides 64 (4 at S 16, 2 at 32,
+    1 at 64), so that a group's rows are whole warps' 16-row slices; else 1
+    (a group pads one tile, or takes ceil(S / 64) tiles and a running max).
+    The C entry ``tpu3d_fused_sa_bf16_groups`` gives the same."""
+    return 64 // S if S % 16 == 0 and 64 % S == 0 else 1
 
 
 def _check_bf16_kernel(x, name, ndim, S, C1, C2, C3, R, M):
@@ -1693,7 +1743,8 @@ def fused_gathered_mlp_pool_bf16(pre: torch.Tensor, idx: torch.Tensor,
     b1, w2 (C2, C3), b2 (any float dtype; rounded to bf16) -> (R, M, C3)
     bf16: max_s a2 of x0 = bf16(pre[idx] - center) through the no-BN chain
     with bf16 layer boundaries. The eval kernel (counted as
-    ``fused_sa_bf16``) for CUDA tensors, the plain version for CPU tensors;
+    ``fused_sa_bf16``, on the design ``eval_bf16_design`` names) for CUDA
+    tensors, the plain version for CPU tensors;
     where a gradient is needed, kernel 6's bf16 training form
     (``_FusedGatheredMLPPoolBF16``; on the CPU its plain version under
     autograd)."""
@@ -1743,8 +1794,9 @@ def fused_mlp_pool_bf16(x0: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                         w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     """The slab form's bf16 eval kernel (``_nobn_eval_kernel``): x0 (R, M,
     S, C1) bf16 -> (R, M, C3) bf16, the no-BN chain with bf16 layer
-    boundaries. The eval kernel (counted as ``fused_sa_slab_bf16``) for
-    CUDA tensors, the plain version for CPU tensors; where a gradient is
+    boundaries. The eval kernel (counted as ``fused_sa_slab_bf16``, on the
+    design ``eval_bf16_design`` names) for CUDA tensors, the plain version
+    for CPU tensors; where a gradient is
     needed, kernel 8's bf16 training form (``_FusedMLPPoolBF16``; on the
     CPU its plain version under autograd)."""
     args = (x0, w1, b1, w2, b2)

@@ -93,13 +93,21 @@ script. Shapes:
   the train step), on a bf16 gradient routed two ways (``BWD_ROUTINGS``:
   near the seeded step's reach, and full spread), each call also split by
   launch (``kernel_bench.split_ms``: device ms of each kernel and copy,
-  and the host's read of the reached-row count).
+  and the host's read of the reached-row count);
+- kernels 5 and 8's bf16 eval forms (``fused_sa_eval_bf16``:
+  ``fused_gathered_mlp_pool_bf16`` and ``fused_mlp_pool_bf16``, counted
+  as ``fused_sa_bf16`` and ``fused_sa_slab_bf16``) at every RCNN level of
+  the eval paths of default.yaml (B=2), double.yaml (B=4), quickstart.yaml
+  (B=8) and smoke.yaml (B=2) that fuses without BatchNorm, on seeded bf16
+  inputs of those shapes, each call also split by launch
+  (``kernel_bench.split_ms``), with the sums per forward.
 
 ``--only`` takes any of ``nearest_k``, ``fused_sa_bwd``, ``fps3nn``,
 ``fps``, ``three_interpolate_bwd``, ``group_points_bwd``, ``train_step``, ``fused_sa_fwd``,
 ``fused_sa_slab_bwd``, ``fused_sa_bn_train``, ``three_nn``,
 ``fused_sa_slab_fwd``, ``fused_sa_fwd_bf16``, ``group_points_bwd_bf16``,
-``fused_sa_bwd_bf16`` and ``fused_sa_slab_bwd_bf16`` (default: all).
+``fused_sa_bwd_bf16``, ``fused_sa_slab_bwd_bf16`` and
+``fused_sa_eval_bf16`` (default: all).
 
 Times are device times (``kernel_bench.cuda_ms``, beside this file: calls
 run back to back on the card behind a spin that outlasts their queueing),
@@ -176,7 +184,12 @@ GROUPS = ("nearest_k", "fused_sa_bwd", "fps3nn", "fps",
           "three_interpolate_bwd", "group_points_bwd", "train_step", "fused_sa_fwd", "fused_sa_slab_bwd",
           "fused_sa_bn_train", "three_nn", "fused_sa_slab_fwd",
           "fused_sa_fwd_bf16", "group_points_bwd_bf16", "fused_sa_bwd_bf16",
-          "fused_sa_slab_bwd_bf16")
+          "fused_sa_slab_bwd_bf16", "fused_sa_eval_bf16")
+# (config, eval B, train B) of the paths rcnn_levels reads; the eval forms'
+# group also reads double.yaml's
+PATHS = (("default", 2, 16), ("quickstart", 8, 4), ("smoke", 2, 2))
+EVAL_PATHS = (("default", 2, 16), ("double", 4, 16), ("quickstart", 8, 4),
+              ("smoke", 2, 2))
 # the routings of the bf16 backwards' inputs: "seeded", each group's live
 # channels (3 in 4) on one of two slots drawn for the group, near the
 # 1.7-2.0% of the slots that the seeded train step reaches; "full spread",
@@ -219,17 +232,16 @@ def bwd_bf16_inputs(route, R, N, M, S, widths, routing, seed):
     return ins, grad, arg, ppre
 
 
-def rcnn_levels(root):
-    """The RCNN SA levels the shipped configs fuse, at the shapes their
-    paths give them: [(label, route, R, N, M, S, (C1, C2, C3))], route
-    "gather" or "slab" (default.yaml's levels with USE_BN take the slab
-    route, as "bn")."""
+def rcnn_levels(root, paths=PATHS):
+    """The RCNN SA levels the shipped configs of ``paths`` fuse, at the
+    shapes their paths give them: [(label, route, mode, R, N, M, S, (C1, C2,
+    C3))], route "gather" or "slab" (default.yaml's levels with USE_BN take
+    the slab route, as "bn")."""
     from tpu3d_torch.config import cfg_from_file, fresh_cfg
     from tpu3d_torch.ops import sa_route
 
     out = []
-    for name, eval_b, train_b in (("default", 2, 16), ("quickstart", 8, 4),
-                                  ("smoke", 2, 2)):
+    for name, eval_b, train_b in paths:
         cfg = cfg_from_file(str(Path(root) / "configs" / f"{name}.yaml"),
                             fresh_cfg())
         sa = cfg.RCNN.SA_CONFIG
@@ -734,6 +746,49 @@ def main() -> int:
                       flush=True)
                 del ins, grad, arg, ppre
                 torch.cuda.empty_cache()
+    if "fused_sa_eval_bf16" in only:
+        from tpu3d_torch.ops import fused_sa as fs
+
+        sums = {}
+        for label, route, mode, R, N, M, S, (c1, c2, c3) in rcnn_levels(
+                args.root, EVAL_PATHS):
+            if mode != "eval" or route not in ("gather", "slab"):
+                continue
+            fg = torch.Generator(device="cuda").manual_seed(R + M + S + c3)
+
+            def randn(*shape, scale=1.0):
+                return torch.randn(*shape, generator=fg,
+                                   device="cuda") * scale
+
+            weights = (randn(c1, c2, scale=c1 ** -0.5), randn(c2, scale=0.1),
+                       randn(c2, c3, scale=c2 ** -0.5), randn(c3, scale=0.1))
+            if route == "gather":
+                name, fn = "fused_sa_bf16", fs.fused_gathered_mlp_pool_bf16
+                ins = (randn(R, N, c1).to(torch.bfloat16),
+                       torch.randint(0, N, (R, M, S), generator=fg,
+                                     device="cuda", dtype=torch.int32),
+                       randn(R, M, c1, scale=0.5).to(torch.bfloat16),
+                       *weights)
+            else:
+                name, fn = "fused_sa_slab_bf16", fs.fused_mlp_pool_bf16
+                ins = (randn(R, M, S, c1).to(torch.bfloat16), *weights)
+            key = f"{name} {label}"
+            with torch.no_grad():
+                ms = record(key, lambda: fn(*ins), 10)
+                split = bench.split_ms(lambda: fn(*ins))
+            out[f"{key} split"] = split
+            print(f"{args.label}: {key} split (ms, launches per call): "
+                  + ", ".join(f"{k} {v[0]:.4f} x{v[1]:g}" for k, v in
+                              sorted(split.items(), key=lambda kv: -kv[1][0])),
+                  flush=True)
+            path = f"{name} {label.split(' RCNN')[0]}"
+            sums[path] = sums.get(path, 0.0) + ms
+            del ins
+            torch.cuda.empty_cache()
+        for path, ms in sums.items():
+            out[f"{path} sum"] = ms
+            print(f"{args.label}: {path}, per forward: {ms:.4f} ms",
+                  flush=True)
     print(json.dumps(out))
     return 0
 
