@@ -279,7 +279,10 @@ and no result line:
    loss within the bounds above, two steps from one state equal to the
    bit, ms per step in turns (f32, default, default, f32) and the peak
    memory of both; then kernel 9's bf16 form at that step's calls (RCNN
-   SA_0 and SA_1): each of its seven entries against its plain piece on
+   SA_0 and SA_1): the design of each of its seven entries there, its
+   four products on the tensor cores (fused_sa_bn_wgmma.cuh; the C
+   entry's own predicate agreeing with fused_sa.bn_train_bf16_design),
+   each entry against its plain piece on
    the same inputs, timed beside it (bounds at BN_SLAB_FLIP_BOUND), the
    whole op through its autograd Function on BN_CHECK_ROWS rows equal to
    its passes composed directly and against autograd of the repaired plain
@@ -5105,6 +5108,12 @@ BF16_SOURCES.update({
                               "tpu3d/ops/grouping.py:559"),
     **{f"{k}_bf16": ("tpu3d_torch/csrc/fused_sa_bn.cu", SOURCES[k][1])
        for k in BN_TRAIN_KERNELS}})
+# kernel 9's four bf16 products run the tensor-core design at the BatchNorm
+# RCNN's levels (bn_train_bf16_design, required there by phase 19 (f))
+BF16_SOURCES.update({
+    f"{k}_bf16": ("tpu3d_torch/csrc/fused_sa_bn_wgmma.cuh", SOURCES[k][1])
+    for k in ("fused_sa_bn_stats1", "fused_sa_bn_stats2", "fused_sa_bn_wave1",
+              "fused_sa_bn_wave2")})
 
 
 @contextlib.contextmanager
@@ -5415,6 +5424,30 @@ def train_bf16_design(c1, c2, c3, label):
     check(bool(fn(c1, c2, c3)) == (got == "wgmma"), f"{label}: the C entry "
           f"and train_bf16_design disagree on {c1} -> {c2} -> {c3}")
     return got
+
+
+def bn_bf16_designs(c1, c2, c3, label) -> dict:
+    """The design each of kernel 9's seven bf16 entries runs a BatchNorm
+    level of widths c1 -> c2 -> c3 on: the four products as
+    ``bn_train_bf16_design`` names them ("wgmma" or "simt"), checked
+    against the C entry's own predicate (``tpu3d_fused_sa_bn_bf16_design``,
+    a bit a product), and stats0, final and apply, one pass each ("pass")
+    -> {entry: design}."""
+    import ctypes
+
+    from tpu3d_torch.ops import _build
+    from tpu3d_torch.ops.fused_sa import BN_BF16_PRODUCTS, \
+        bn_train_bf16_design
+
+    fn = _build.library("fused_sa_bn").tpu3d_fused_sa_bn_bf16_design
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    mask = fn(c1, c2, c3)
+    got = bn_train_bf16_design(c1, c2, c3)
+    entry = {name: "wgmma" if mask >> i & 1 else "simt"
+             for i, name in enumerate(BN_BF16_PRODUCTS)}
+    check(entry == got, f"{label}: the C entry and bn_train_bf16_design "
+          f"disagree on {c1} -> {c2} -> {c3}: {entry}, {got}")
+    return {name: got.get(name, "pass") for name in BN_BF16_FORMS}
 
 
 def bwd_bf16_design(c1, c2, c3, label):
@@ -5757,30 +5790,42 @@ def _turns(runs, batch, reps=3) -> tuple[dict, dict]:
 
 def bn_bf16_form_rows(report, calls, gen) -> dict:
     """Kernel 9's bf16 training form at the calls of the BatchNorm
-    RCNN's train step (RCNN SA_0 and SA_1): each of its seven entries
-    against its plain piece (``bn_pass_rows``); then the whole op through its
+    RCNN's train step (RCNN SA_0 and SA_1): the design of each of its seven
+    entries there (``bn_bf16_designs``: the four products on the tensor
+    cores, required), each entry against its plain piece
+    (``bn_pass_rows``); then the whole op through its
     autograd Function on the first BN_CHECK_ROWS rows, equal to its passes
     composed directly and to a second call to the bit, and against autograd
     of the repaired plain form (``fused_bn_mlp_pool_bf16_train_plain``);
     then the bf16 cuBLAS chain with batch-statistics BatchNorm
     (F.batch_norm) under autograd, forward and backward (the bounds:
-    BN_SLAB_FLIP_BOUND's comment) -> {level: that chain's ms}."""
+    BN_SLAB_FLIP_BOUND's comment) -> ({level: that chain's ms}, {level:
+    {entry: design}})."""
     import torch
     import torch.nn.functional as F
 
     from tpu3d_torch.ops import fused_sa as fs
 
     bf16 = torch.bfloat16
-    library = {}
+    library, designs = {}, {}
     for k, args in enumerate(calls):
         x0, w1, w2 = (t.detach() for t in args[:3])
         gammas = [t.detach() for t in args[3]]
         betas = [t.detach() for t in args[4]]
         eps = args[5]
         R, M, S, c1 = x0.shape
-        c3 = w2.shape[1]
+        c2, c3 = w1.shape[1], w2.shape[1]
         where = f"{BN_TRAIN_PATH}, RCNN SA_{k}"
         check(x0.dtype == bf16, f"{where}: x0 is {x0.dtype}")
+        # the design of each entry there: the four products on the tensor
+        # cores at both levels
+        designs[f"RCNN SA_{k}"] = got = bn_bf16_designs(c1, c2, c3, where)
+        print(f"kernel 9's bf16 entries at {where} ({c1} -> {c2} -> {c3}): "
+              + ", ".join(f"{name} {d}" for name, d in got.items()))
+        check(all(got[f"{name}_bf16"] == "wgmma" for name in (
+            "fused_sa_bn_stats1", "fused_sa_bn_stats2", "fused_sa_bn_wave1",
+            "fused_sa_bn_wave2")), f"{where}: kernel 9's bf16 products ran "
+              f"{got}, expected the tensor-core design")
         bn_pass_rows(report, where, x0, w1, w2, gammas, betas, eps, gen)
 
         # the whole op through its autograd Function on the first
@@ -5881,7 +5926,7 @@ def bn_bf16_form_rows(report, calls, gen) -> dict:
               f"autograd, forward and backward, at {where}: "
               f"{library[f'RCNN SA_{k}']:.3f} ms")
         torch.cuda.empty_cache()
-    return library
+    return library, designs
 
 
 def bn_rcnn_bf16(cfg, batch, card, report, gen) -> dict:
@@ -5967,7 +6012,8 @@ def bn_rcnn_bf16(cfg, batch, card, report, gen) -> dict:
           f"{peaks['f32']:.2f})")
     del model, weights
     torch.cuda.empty_cache()
-    row["library_chain_ms"] = bn_bf16_form_rows(report, calls, gen)
+    row["library_chain_ms"], row["bn_bf16_designs"] = bn_bf16_form_rows(
+        report, calls, gen)
     return row
 
 

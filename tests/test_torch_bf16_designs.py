@@ -5,7 +5,10 @@ design kernels 5 and 8's bf16 eval forms run (``fused_sa.eval_bf16_design``)
 and how that design packs short groups into a tile and pools them
 (``fused_sa.eval_groups_per_tile``, its walk emulated in numpy), and how
 the grouping gather's bf16 backward takes its gradient as autograd hands it
-over (``grouping.grad_rows``; no cast or copy before the kernel). The
+over (``grouping.grad_rows``; no cast or copy before the kernel), and which
+design each of kernel 9's bf16 products runs a BatchNorm level on
+(``fused_sa.bn_train_bf16_design``, ``bn_wgmma_smem``) with the weight
+operand it reads. The
 kernels themselves are held on the card by ``test_torch_kernels_cuda.py``
 and ``chip_smoke.py``."""
 
@@ -350,3 +353,85 @@ def test_bf16_fused_backward_takes_the_gradient_as_handed(monkeypatch, form,
     assert len(got) == len(want)
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+# kernel 9's bf16 products: the tensor-core design (csrc/fused_sa_bn_wgmma.cuh)
+# or the SIMT design, entry by entry, by width
+BN_PRODUCTS = list(fused_sa.BN_BF16_PRODUCTS)
+BN_WIDTHS = [
+    ((128, 128, 128), "wgmma wgmma wgmma wgmma"),
+    ((128, 128, 256), "wgmma wgmma wgmma wgmma"),
+    ((256, 384, 256), "simt simt simt simt"),
+    ((256, 256, 384), "simt simt simt simt"),
+    ((128, 128, 384), "wgmma simt simt wgmma"),
+    ((256, 128, 128), "simt wgmma wgmma simt"),
+    ((128, 256, 128), "wgmma simt simt simt"),
+    ((1024, 1024, 1024), "simt simt simt simt")]
+
+
+@pytest.mark.parametrize("widths, designs", BN_WIDTHS, ids=str)
+def test_bn_train_bf16_design_by_width(widths, designs):
+    """Each product's own widths decide: a layer (stats1 C1 -> C2, stats2
+    C2 -> C3) takes the tensor cores at depth 128 and width 128 or 256,
+    wave 1 at C2 = 128 and C3 128 or 256, wave 2 at C1 = C2 = 128; the
+    widened RCNN's widths and every other shape up to BN_MAX_WIDTH keep
+    the SIMT design, which kernels_take admits."""
+    got = fused_sa.bn_train_bf16_design(*widths)
+    assert list(got) == BN_PRODUCTS
+    assert " ".join(got.values()) == designs
+    assert kernels_take(64, *widths, "bn", True)
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_shipped_bn_levels_take_the_wgmma_design(name):
+    """Every RCNN level that a shipped config fuses with BatchNorm
+    (RCNN.USE_BN on: kernel 9's training form at each fused level) runs
+    all four of kernel 9's bf16 products on the tensor-core design."""
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    cfg = cfg_from_file(str(root / "configs" / f"{name}.yaml"), fresh_cfg())
+    sa = cfg.RCNN.SA_CONFIG
+    n, R = cfg.RCNN.NUM_POINTS, cfg.RCNN.ROI_PER_IMAGE
+    fused = 0
+    for k, m in enumerate(sa.NPOINTS):
+        if m == -1:
+            break
+        mlp = list(sa.MLPS[k])
+        if sa_route((R, m, sa.NSAMPLE[k], mlp[0]), mlp, n, True) != "plain":
+            fused += 1
+            assert set(fused_sa.bn_train_bf16_design(*mlp).values()) == {
+                "wgmma"}, (name, k, mlp)
+        n = m
+    assert fused >= 1
+
+
+def test_bn_wgmma_smem():
+    """The tensor-core design's layout, of the 232448 bytes a block may
+    take: a layer 95232 at width 128 (two blocks an SM) and 137216 at 256,
+    wave 1 146432 at C3 = 128 and all 232448 at 256, wave 2 212992; wave 1
+    at C3 = 384 and wave 2 at 256 over."""
+    smem = fused_sa.bn_wgmma_smem
+    assert smem("layer", 128, 128) == 95232
+    assert 2 * smem("layer", 128, 128) <= 228 * 1024
+    assert smem("layer", 128, 256) == 137216
+    assert smem("wave1", 128, 128) == 146432
+    assert smem("wave1", 256, 128) == 232448 == fused_sa.SMEM_MAX
+    assert smem("wave2", 128, 128) == 212992
+    assert smem("wave1", 384, 128) > fused_sa.SMEM_MAX
+    assert smem("wave2", 256, 256) > fused_sa.SMEM_MAX
+
+
+@pytest.mark.parametrize("design", ["wgmma", "simt"])
+def test_bn_bf16_weight_operand(design):
+    """The weight as kernel 9's bf16 products read it: cast to bf16 once
+    (laid out contiguously from a transposed view) on the tensor-core
+    design, f32 rounded to bf16 on the SIMT design; the same values."""
+    w = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(16, 24)).astype(np.float32))
+    got = fused_sa._operand(w.t(), torch.bfloat16, design)
+    assert got.is_contiguous() and got.shape == (24, 16)
+    assert got.dtype == (torch.bfloat16 if design == "wgmma"
+                         else torch.float32)
+    assert torch.equal(got.float(), w.t().to(torch.bfloat16).float())
+    assert fused_sa._operand(w, torch.float32, design) is w

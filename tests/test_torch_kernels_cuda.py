@@ -426,13 +426,30 @@ def _slab_close(a, b):
         _near(a, b, b.abs().max().item())
 
 
-def bn_pieces_check(name, x0, w1, w2, grad, gammas, betas, g):
+def _tensors(x):
+    """The tensors of a nest of tuples and lists, in order."""
+    if isinstance(x, (tuple, list)):
+        return [t for y in x for t in _tensors(y)]
+    return [x]
+
+
+def _twice(fn):
+    """fn's result, after a second call that gave the same bits."""
+    first, again = fn(), fn()
+    assert all(torch.equal(a, b)
+               for a, b in zip(_tensors(first), _tensors(again)))
+    return first
+
+
+def bn_pieces_check(name, x0, w1, w2, grad, gammas, betas, g,
+                    repeat=False):
     """Kernel ``name`` of the BatchNorm chain's training form against its
     plain piece on the same inputs: the f32 form on an f32 x0, the bf16
     entries (``*_bf16``) on a bf16 x0; the plain pieces' own statistics,
     x1, x2, argmax and d_y1 (see test_bn_train_kernels_match_plain_on_cuda
-    and test_bn_bf16_training_kernels_match_plain_on_cuda for the
-    bounds)."""
+    and test_bn_bf16_training_kernels_match_plain_on_cuda for the bounds).
+    ``repeat``: the kernel runs twice, both calls equal to the bit."""
+    run = _twice if repeat else (lambda fn: fn())
     R, M, S, _ = x0.shape
     n = R * M * S
     base = name.removesuffix("_bf16")
@@ -446,7 +463,7 @@ def bn_pieces_check(name, x0, w1, w2, grad, gammas, betas, g):
                  layers[-1][1].contiguous(), (w1, w2)[depth - 1]))
         want = fs.fused_sa_bn_stats_plain(depth, *args)
         if base == f"fused_sa_bn_stats{depth}":
-            got = fs.fused_sa_bn_stats(depth, *args)
+            got = run(lambda: fs.fused_sa_bn_stats(depth, *args))
             if depth:
                 (got, y), (want, wy) = got, want
                 _slab_close(y, wy)
@@ -464,7 +481,8 @@ def bn_pieces_check(name, x0, w1, w2, grad, gammas, betas, g):
     m2, a2 = layers[2][0].contiguous(), layers[2][1].contiguous()
     out, arg, at = fs.fused_sa_bn_final_plain(x2, m2, a2)
     if base == "fused_sa_bn_final":
-        for a, b in zip(fs.fused_sa_bn_final(x2, m2, a2), (out, arg, at)):
+        for a, b in zip(run(lambda: fs.fused_sa_bn_final(x2, m2, a2)),
+                        (out, arg, at)):
             assert a.dtype == b.dtype
             torch.testing.assert_close(a, b, rtol=0, atol=0)
         return
@@ -481,15 +499,15 @@ def bn_pieces_check(name, x0, w1, w2, grad, gammas, betas, g):
     dval = (d_y2 * layers[2][0]).contiguous()
     _, _, d_y1 = fs.fused_sa_bn_wave1_plain(x2, x1, pk, w2, dval, arg)
     if base == "fused_sa_bn_wave1":
-        got = fs.fused_sa_bn_wave1(x2, x1, pk, w2, dval, arg)
+        got = run(lambda: fs.fused_sa_bn_wave1(x2, x1, pk, w2, dval, arg))
         want = fs.fused_sa_bn_wave1_plain(x2, x1, pk, w2, dval, arg)
     elif base == "fused_sa_bn_wave2":
-        got = fs.fused_sa_bn_wave2(d_y1, x1, x0, pk, w1)
+        got = run(lambda: fs.fused_sa_bn_wave2(d_y1, x1, x0, pk, w1))
         want = fs.fused_sa_bn_wave2_plain(d_y1, x1, x0, pk, w1)
     else:
         _, _, d_y0 = fs.fused_sa_bn_wave2_plain(d_y1, x1, x0, pk, w1)
         want = [fs.fused_sa_bn_apply_plain(d_y0, x0, pk)]
-        got = [fs.fused_sa_bn_apply(d_y0.clone(), x0, pk)]
+        got = [run(lambda: fs.fused_sa_bn_apply(d_y0.clone(), x0, pk))]
         assert got[0].dtype == x0.dtype and d_y0.dtype == torch.float32
     for a, b in zip(got, want):
         if a.dim() == 4:
@@ -1366,6 +1384,65 @@ def test_bn_bf16_training_kernels_match_plain_on_cuda(name):
                         grad.to(torch.bfloat16), gammas, betas, g)
     assert _build.BF16_LAUNCHES[name] > 0
     assert sum(_build.LAUNCHES.values()) == 0
+
+
+# kernel 9's bf16 products by design (fs.bn_train_bf16_design), as
+# (R, M, S, C1, C2, C3): both shipped BatchNorm levels at S 64 (the
+# tensor-core design); both again at S 24 over 697 groups, 16 728 slots
+# (261 tiles of 64 and a tail of 24); the widened RCNN's 256 -> 384 -> 256
+# (the SIMT design)
+BN_DESIGN_CASES = [(16, 16, 64, 128, 128, 128), (16, 8, 64, 128, 128, 256),
+                   (41, 17, 24, 128, 128, 128), (41, 17, 24, 128, 128, 256),
+                   (4, 4, 16, 256, 384, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(fs.BN_BF16_PRODUCTS))
+@pytest.mark.parametrize("case", BN_DESIGN_CASES, ids=str)
+def test_bn_bf16_products_on_their_designs_on_cuda(name, case):
+    """Kernel 9's four bf16 products on the design bn_train_bf16_design
+    names (the tensor-core design at both shipped BatchNorm levels, with a
+    tail tile and without; the SIMT design at the widened RCNN's widths)
+    against their plain pieces, to phase 19 (f)'s bounds
+    (``bn_pieces_check``: bf16 slabs within one bf16 step, off at all in at
+    most 1 value in 1000; f32 slabs within 1e-4 of their largest value;
+    the reductions and weight gradients within 1e-3), each called twice
+    with the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    R, M, S, c1, c2, c3 = case
+    want = "simt" if c1 == 256 else "wgmma"
+    assert fs.bn_train_bf16_design(c1, c2, c3)[name] == want
+    x0, w1, _, w2, _, grad = _slab_inputs(R, M, S, c3, seed=R + S + c3,
+                                          c1=c1, c2=c2)
+    g = torch.Generator(device="cuda").manual_seed(S + 3)
+    gammas, betas, _, _ = _bn_params(g, c3, c1=c1, c2=c2)
+    _build.reset_launches()
+    bn_pieces_check(name, x0.to(torch.bfloat16), w1, w2,
+                    grad.to(torch.bfloat16), gammas, betas, g, repeat=True)
+    assert _build.BF16_LAUNCHES[name] == 2
+    assert sum(_build.LAUNCHES.values()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths", [
+    (128, 128, 128), (128, 128, 256), (128, 128, 384), (128, 128, 512),
+    (128, 256, 128), (256, 128, 128), (256, 384, 256), (256, 256, 384),
+    (1024, 1024, 1024)], ids=str)
+def test_bn_bf16_design_entry_on_cuda(widths):
+    """The C entry's design of kernel 9's bf16 products
+    (``tpu3d_fused_sa_bn_bf16_design``: bit i set where product i runs the
+    tensor-core design) agrees with ``fused_sa.bn_train_bf16_design``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels are built there")
+    import ctypes
+
+    fn = _build.library("fused_sa_bn").tpu3d_fused_sa_bn_bf16_design
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    mask = fn(*widths)
+    got = {name: "wgmma" if mask >> i & 1 else "simt"
+           for i, name in enumerate(fs.BN_BF16_PRODUCTS)}
+    assert got == fs.bn_train_bf16_design(*widths)
 
 
 @pytest.mark.cuda

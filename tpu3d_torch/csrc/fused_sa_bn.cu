@@ -44,11 +44,11 @@
 // per-channel vectors come in one pack: for layer l of width C_l, seven
 // vectors of C_l (mul, add, r, mu r, s, ca, cb), layer 0's first.
 //
-// Bound on the card: operations for the products (at SA_0 each is right at
-// the f32 ridge: 2·128·128 operations per slot against some 1.5 KB of slab
-// read and written), bytes for stats0, final and apply. Design of the
-// products, one register-tiled f32 SIMT kernel for each of their two
-// shapes:
+// Bound on the card: operations for the f32 form's products (at SA_0 each
+// is right at the f32 ridge: 2·128·128 operations per slot against some
+// 1.5 KB of slab read and written), bytes for stats0, final and apply and
+// for the bf16 form's products. The SIMT design of the products, one
+// register-tiled f32 kernel for each of their two shapes:
 //   - bn_row_gemm: out (P x N) = pro(A) (P x K) B (K x N), B a weight (W1,
 //     W2, W2^T or W1^T); 128 x 128 output tiles, 256 threads of 8 x 8
 //     outputs each; A's 128 x 16 slices and B's 16 x 128 slices land in
@@ -68,21 +68,35 @@
 // any P; offsets in size_t (default.yaml's SA_0 slab is 4.3 GB).
 //
 // Two forms, the kernels templated on the slab type T. The f32 form (T =
-// float, the entries without a suffix) is f32 throughout and held to the
-// plain f32 version. The bf16 form (T = __nv_bfloat16, the *_bf16 entries)
-// is tpu3d's arithmetic on its accelerator: x0, x1 and x2 are bf16 slabs
-// (x1 and x2 the rounded values _chain_to makes, half the f32 form's
-// bytes), every prologue's output is rounded to bf16 before it enters a
-// product (a0 and a1; d_x2 and d_x1, as tpu3d rounds them at :234, :261,
-// :278, :297) and the weights come rounded to bf16 (in f32), so each
-// product is of two bf16 values, exact in f32, and only the order of the
-// f32 sums differs from tpu3d's; the stats epilogue rounds x1 and x2 to
-// bf16 before writing and summing them; final pools ReLU(BN2(x2)) rounded
-// to bf16 (out in bf16); d_y1 and d_y0 stay f32 slabs (tpu3d keeps the
-// gradients of the BatchNorm outputs in f32), so apply writes d_x0 into a
-// bf16 slab of its own. The products run on the f32 form's register tiles
-// (a tensor-core form is later work); the per-channel sums keep the f32
-// form's f64 block partials in block order, so a step repeats to the bit.
+// float, the entries without a suffix) is f32 throughout, on the SIMT
+// design, and held to the plain f32 version. The bf16 form (T =
+// __nv_bfloat16, the *_bf16 entries) is tpu3d's arithmetic on its
+// accelerator: x0, x1 and x2 are bf16 slabs (x1 and x2 the rounded values
+// _chain_to makes, half the f32 form's bytes), every prologue's output is
+// rounded to bf16 before it enters a product (a0 and a1; d_x2 and d_x1, as
+// tpu3d rounds them at :234, :261, :278, :297) and the weights are bf16
+// values, so each product is of two bf16 values, exact in f32, and only
+// the order of the f32 sums differs from tpu3d's; the stats epilogue
+// rounds x1 and x2 to bf16 before writing and summing them; final pools
+// ReLU(BN2(x2)) rounded to bf16 (out in bf16); d_y1 and d_y0 stay f32
+// slabs (tpu3d keeps the gradients of the BatchNorm outputs in f32), so
+// apply writes d_x0 into a bf16 slab of its own. Its designs, entry by
+// entry:
+//   - stats1, stats2, wave1, wave2 (the products) on the tensor cores
+//     (fused_sa_bn_wgmma.cuh: wgmma, the bf16 weight resident in shared
+//     memory, each slab tile read once for the whole width and for both of
+//     a wave's products) where that design takes the entry's widths: at
+//     C1 = C2 = 128, C3 128 or 256, every BatchNorm level of the shipped
+//     configs; the weight comes in bf16 there;
+//   - at other widths (the widened RCNN's 256 -> 384 -> 256, up to 1024)
+//     the SIMT design above, the weights rounded to bf16 in f32 by the
+//     caller, its products on the f32 register tiles;
+//   - stats0, final and apply, one pass over a slab each, in the kernels
+//     below at every width.
+// tpu3d_fused_sa_bn_bf16_design names the design of each product entry
+// (ops/fused_sa.py::bn_train_bf16_design mirrors it); the per-channel sums
+// keep f64 block partials in block order in both designs, so a step
+// repeats to the bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -743,6 +757,13 @@ __global__ void __launch_bounds__(kThreads) bn_apply_kernel(
   }
 }
 
+}  // namespace
+
+// the bf16 products' tensor-core design, on the elementwise forms above
+#include "fused_sa_bn_wgmma.cuh"
+
+namespace {
+
 // --------------------------------------------------------------------------
 // host side
 
@@ -919,6 +940,69 @@ int apply(const float* dy0, const T* x0, const float* pk, long long P,
   return (int)cudaGetLastError();
 }
 
+// The bf16 form's products: the tensor-core design (fused_sa_bn_wgmma.cuh)
+// at the widths it takes, else the SIMT design above; the weight bf16 on
+// the first, f32 rounded to bf16 on the second. The tensor-core design's
+// grid is held to the partials the workspaces hold (the SIMT design's
+// sizes, tpu3d_fused_sa_bn_workspace).
+namespace bnw = fused_sa_bn_wgmma;
+
+// bit 0 stats1 (C1 -> C2), bit 1 stats2 (C2 -> C3), bit 2 wave1, bit 3
+// wave2: set where the entry runs the tensor-core design
+int bf16_design(int C1, int C2, int C3) {
+  return (bnw::takes(bnw::kLayer, C1, C2) ? 1 : 0) |
+         (bnw::takes(bnw::kLayer, C2, C3) ? 2 : 0) |
+         (bnw::takes(bnw::kWave1, C3, C2) ? 4 : 0) |
+         (bnw::takes(bnw::kWave2, C2, C1) ? 8 : 0);
+}
+
+int layer_bf16(const bf16* x, const float* mul, const float* add,
+               const void* w, long long P, int K, int N, bf16* y, double* ws,
+               double* sums, cudaStream_t stream) {
+  if (!bnw::takes(bnw::kLayer, K, N))
+    return layer(x, mul, add, static_cast<const float*>(w), P, K, N, y, ws,
+                 sums, stream);
+  if (const int pending = tpu3d::pending_error(stream)) return pending;
+  if (P < 1) return (int)cudaErrorInvalidValue;
+  return (int)bnw::run_layer(x, mul, add, static_cast<const bf16*>(w), P, N,
+                             y, ws, sums, row_blocks(P, N), stream);
+}
+
+int wave1_bf16(const bf16* x2, const bf16* x1, const float* pk,
+               const void* w2t, const float* dval, const int* argmax,
+               long long P, int S, int C1, int C2, int C3, float* dy1,
+               double* wsr, double* sums, float* wsd, float* dw2,
+               cudaStream_t stream) {
+  if (!bnw::takes(bnw::kWave1, C3, C2))
+    return wave1(x2, x1, pk, static_cast<const float*>(w2t), dval, argmax,
+                 P, S, C1, C2, C3, dy1, wsr, sums, wsd, dw2, stream);
+  if (const int pending = tpu3d::pending_error(stream)) return pending;
+  if (P < 1 || S < 1 || P % S || !width_ok(C1)) return (int)cudaErrorInvalidValue;
+  const long long most = std::min(
+      row_blocks(P, C2), dw_splits(P, (C2 / kBM) * (C3 / kBN)));
+  return (int)bnw::run_wave1(x2, x1, layer_of(pk, 1, C1, C2, C3),
+                             layer_of(pk, 2, C1, C2, C3),
+                             static_cast<const bf16*>(w2t), dval, argmax, P,
+                             S, C3, dy1, wsr, sums, wsd, dw2, most, stream);
+}
+
+int wave2_bf16(const float* dy1, const bf16* x1, const bf16* x0,
+               const float* pk, const void* w1t, long long P, int C1, int C2,
+               int C3, float* dy0, double* wsr, double* sums, float* wsd,
+               float* dw1, cudaStream_t stream) {
+  if (!bnw::takes(bnw::kWave2, C2, C1))
+    return wave2(dy1, x1, x0, pk, static_cast<const float*>(w1t), P, C1, C2,
+                 C3, dy0, wsr, sums, wsd, dw1, stream);
+  if (const int pending = tpu3d::pending_error(stream)) return pending;
+  if (P < 1 || !width_ok(C3)) return (int)cudaErrorInvalidValue;
+  const long long most = std::min(
+      row_blocks(P, C1), dw_splits(P, (C1 / kBM) * (C2 / kBN)));
+  return (int)bnw::run_wave2(dy1, x1, x0, layer_of(pk, 0, C1, C2, C3),
+                             layer_of(pk, 1, C1, C2, C3),
+                             static_cast<const bf16*>(w1t), P, dy0, wsr,
+                             sums, wsd, dw1, most, stream);
+}
+
 cudaStream_t as_stream(void* p) { return static_cast<cudaStream_t>(p); }
 
 }  // namespace
@@ -1001,8 +1085,16 @@ extern "C" int tpu3d_fused_sa_bn_apply(float* dy0, const float* x0,
 }
 
 // The bf16 form: the same arguments, the chain's slabs (x0, x1, x2) and
-// final's out in bf16; the weights (w, w2t, w1t) f32 rounded to bf16 by
-// the caller; dy1 and dy0 f32.
+// final's out in bf16; dy1 and dy0 f32; the weights (w, w2t, w1t) bf16
+// where the entry runs the tensor-core design (tpu3d_fused_sa_bn_bf16_design
+// below), else f32 rounded to bf16 by the caller.
+
+// The design of the bf16 form's four products at widths C1 -> C2 -> C3:
+// bit 0 stats1, bit 1 stats2, bit 2 wave1, bit 3 wave2 set where the
+// entry runs the tensor-core design, clear where the SIMT design.
+extern "C" int tpu3d_fused_sa_bn_bf16_design(int C1, int C2, int C3) {
+  return bf16_design(C1, C2, C3);
+}
 
 extern "C" int tpu3d_fused_sa_bn_stats0_bf16(const bf16* x0, long long P,
                                              int C1, double* ws, double* sums,
@@ -1011,11 +1103,12 @@ extern "C" int tpu3d_fused_sa_bn_stats0_bf16(const bf16* x0, long long P,
 }
 
 extern "C" int tpu3d_fused_sa_bn_layer_bf16(const bf16* x, const float* mul,
-                                            const float* add, const float* w,
+                                            const float* add, const void* w,
                                             long long P, int K, int N,
                                             bf16* y, double* ws, double* sums,
                                             void* stream_ptr) {
-  return layer(x, mul, add, w, P, K, N, y, ws, sums, as_stream(stream_ptr));
+  return layer_bf16(x, mul, add, w, P, K, N, y, ws, sums,
+                    as_stream(stream_ptr));
 }
 
 extern "C" int tpu3d_fused_sa_bn_final_bf16(const bf16* x2, const float* mul,
@@ -1028,20 +1121,20 @@ extern "C" int tpu3d_fused_sa_bn_final_bf16(const bf16* x2, const float* mul,
 }
 
 extern "C" int tpu3d_fused_sa_bn_wave1_bf16(
-    const bf16* x2, const bf16* x1, const float* pk, const float* w2t,
+    const bf16* x2, const bf16* x1, const float* pk, const void* w2t,
     const float* dval, const int* argmax, long long P, int S, int C1, int C2,
     int C3, float* dy1, double* wsr, double* sums, float* wsd, float* dw2,
     void* stream_ptr) {
-  return wave1(x2, x1, pk, w2t, dval, argmax, P, S, C1, C2, C3, dy1, wsr,
-               sums, wsd, dw2, as_stream(stream_ptr));
+  return wave1_bf16(x2, x1, pk, w2t, dval, argmax, P, S, C1, C2, C3, dy1,
+                    wsr, sums, wsd, dw2, as_stream(stream_ptr));
 }
 
 extern "C" int tpu3d_fused_sa_bn_wave2_bf16(
     const float* dy1, const bf16* x1, const bf16* x0, const float* pk,
-    const float* w1t, long long P, int C1, int C2, int C3, float* dy0,
+    const void* w1t, long long P, int C1, int C2, int C3, float* dy0,
     double* wsr, double* sums, float* wsd, float* dw1, void* stream_ptr) {
-  return wave2(dy1, x1, x0, pk, w1t, P, C1, C2, C3, dy0, wsr, sums, wsd, dw1,
-               as_stream(stream_ptr));
+  return wave2_bf16(dy1, x1, x0, pk, w1t, P, C1, C2, C3, dy0, wsr, sums, wsd,
+                    dw1, as_stream(stream_ptr));
 }
 
 // apply: d_x0 from dy0 (f32) and x0 (bf16) into dx0 (P x C1, bf16), rounded

@@ -9,8 +9,10 @@ BatchNorm chain's training passes in ``fused_sa_bn``; FPS+3NN and the
 long-row FPS alone in ``fps3nn``; each bf16 form in its f32
 form's source, ``fused_sa`` including ``fused_sa_bf16.cuh`` and through it
 ``fused_sa_wgmma.cuh`` (kernel 6's bf16 training forward on ``wgmma``) and
-``fused_sa_wgmma_eval.cuh`` (kernels 5 and 8's bf16 eval forms on it), but
-the routed backward's, ``fused_sa_bwd_bf16``, which shares
+``fused_sa_wgmma_eval.cuh`` (kernels 5 and 8's bf16 eval forms on it),
+``fused_sa_bn`` including ``fused_sa_bn_wgmma.cuh`` (kernel 9's four bf16
+products on ``wgmma``), but the routed backward's, ``fused_sa_bwd_bf16``,
+which shares
 ``fused_sa_bwd.cuh`` with ``fused_sa_bwd`` and holds the tensor-core design
 of ``fused_sa_bwd_mma.cuh``). Each source names its own ``nvcc``
 flags. The library's file name carries a hash of its source, the

@@ -1249,10 +1249,29 @@ def _entry(name, form):
     return name + "_bf16" if form == BF16 else name
 
 
-def _operand(w, form):
-    """A weight as the form's products take it: f32, rounded to bf16 in the
-    bf16 form; contiguous."""
-    return (_r16(w) if form == BF16 else w).contiguous()
+def _operand(w, form, design="simt"):
+    """A weight as the form's products take it, contiguous: f32 in the f32
+    form; in the bf16 form cast to bf16 once where the entry runs the
+    tensor-core design (``bn_train_bf16_design``), else f32 rounded to bf16
+    (the SIMT design's f32 slices)."""
+    if form != BF16:
+        return w.contiguous()
+    if design == "wgmma":  # one pass: cast and lay out
+        return w.to(BF16, memory_format=torch.contiguous_format)
+    return _r16(w).contiguous()
+
+
+def _bn_weight(w, name, form, kind, K, N):
+    """The weight operand of a product of depth K and width N in the slabs'
+    form (``_operand``), checked as the entry's design reads it: bf16 on
+    the tensor-core design, else f32; contiguous, 16-byte aligned."""
+    design = _bn_design(kind, K, N) if form == BF16 else "simt"
+    w = _operand(w, form, design)
+    _build.check_cuda_tensor(w, name, BF16 if design == "wgmma"
+                             else torch.float32, 2)
+    if w.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+    return w
 
 
 def _bn_workspace(kind, P, C, N, device, dtype):
@@ -1284,9 +1303,9 @@ def fused_sa_bn_stats(depth, x, mul=None, add=None, w=None):
         _build.launch(name, x.data_ptr(), P, K, ws.data_ptr(),
                       sums.data_ptr())
         return sums
-    w = _operand(w, form)
-    _check_tensors((mul, "mul", 1), (add, "add", 1), (w, "w", 2))
     N = w.shape[1]
+    w = _bn_weight(w, "w", form, "layer", K, N)
+    _check_tensors((mul, "mul", 1), (add, "add", 1))
     if mul.shape != (K,) or add.shape != (K,) or w.shape[0] != K:
         raise ValueError(f"stats{depth}: mul, add ({K},) and w ({K}, N) "
                          f"expected, got {tuple(mul.shape)}, "
@@ -1325,8 +1344,8 @@ def fused_sa_bn_wave1(x2, x1, pk, w2, dval, argmax):
     P, S, form = _check_bn(x2, x1)
     R, M, _, C3 = x2.shape
     C1, C2, _ = _widths(pk, x1, x2)
-    w2t = _operand(w2, form).t().contiguous()
-    _check_tensors((pk, "pk", 1), (w2t, "w2", 2), (dval, "dval", 3))
+    w2t = _bn_weight(w2.t(), "w2", form, "wave1", C3, C2)
+    _check_tensors((pk, "pk", 1), (dval, "dval", 3))
     _build.check_cuda_tensor(argmax, "argmax", torch.int32, 3)
     if (dval.shape != (R, M, C3) or argmax.shape != dval.shape
             or w2.shape != (C2, C3) or C1 % 128 or C1 > BN_MAX_WIDTH):
@@ -1357,8 +1376,8 @@ def fused_sa_bn_wave2(d_y1, x1, x0, pk, w1):
     P, _, form = _check_bn(x1, x0, grads=(d_y1,))
     C1, C2 = x0.shape[-1], x1.shape[-1]
     C3 = pk.numel() // 7 - C1 - C2
-    w1t = _operand(w1, form).t().contiguous()
-    _check_tensors((pk, "pk", 1), (w1t, "w1", 2))
+    w1t = _bn_weight(w1.t(), "w1", form, "wave2", C2, C1)
+    _check_tensors((pk, "pk", 1))
     if w1.shape != (C1, C2) or d_y1.shape != x1.shape or C3 % 128 \
             or not 0 < C3 <= BN_MAX_WIDTH:
         raise ValueError(f"wave 2: w1 {(C1, C2)}, d_y1 like x1 and a pack "
@@ -1701,6 +1720,71 @@ def eval_bf16_design(C1: int, C2: int, C3: int) -> str:
     fits = (C1 == C2 == 128 and C3 >= 128 and C3 % 128 == 0
             and eval_wgmma_smem(C1, C2, C3, 2) <= SMEM_MAX)
     return "wgmma" if fits else "parent"
+
+
+# kernel 9's bf16 products (csrc/fused_sa_bn.cu's *_bf16 entries), each on
+# the tensor-core design of csrc/fused_sa_bn_wgmma.cuh or the SIMT design,
+# by its own widths: its pass, the row product's depth K and width N
+BN_BF16_PRODUCTS = {"fused_sa_bn_stats1_bf16": "layer",
+                    "fused_sa_bn_stats2_bf16": "layer",
+                    "fused_sa_bn_wave1_bf16": "wave1",
+                    "fused_sa_bn_wave2_bf16": "wave2"}
+
+
+def bn_wgmma_smem(kind: str, K: int, N: int) -> int:
+    """Bytes of shared memory the tensor-core design of kernel 9's bf16
+    products asks for (``csrc/fused_sa_bn_wgmma.cuh``'s layout, 1024-byte
+    regions) for pass ``kind`` ("layer": stats1 or stats2; "wave1";
+    "wave2") at the row product's depth K and width N: the bf16 weight,
+    the A tile (64 x K) and a wave's ReLU(E) tile (64 x N), two stages of
+    raw rows (A, x1 beside wave 2's f32 d_y1, a wave's E; each row padded
+    by 16 bytes) and of wave 1's group rows (dval, argmax), the prologue's
+    and E's per-channel vectors, a layer's row and column norms and each
+    warp's chain sums, the warps' column sums, and room to align them."""
+    wave = kind != "layer"
+    a_bytes = 4 if kind == "wave2" else 2
+    vectors = {"layer": 2, "wave1": 4, "wave2": 5}[kind]
+    return sum(_carve(n) for n in (
+        2 * K * N, 2 * 64 * K, 2 * 64 * N if wave else 0,
+        2 * 64 * (a_bytes * K + 16),
+        2 * 64 * (2 * K + 16) if kind == "wave2" else 0,
+        2 * 64 * (2 * N + 16) if wave else 0,
+        2 * 8 * K if kind == "wave1" else 0, 4 * K * vectors,
+        16 * N if wave else 0, 0 if wave else 4 * (64 + N),
+        0 if wave else 4 * (4 if N == 256 else 2) * 8 * 64, 32 * N)) + 1024
+
+
+def _bn_design(kind: str, K: int, N: int) -> str:
+    """The design of one bf16 product of kernel 9 at depth K and width N
+    (``csrc/fused_sa_bn_wgmma.cuh``'s ``takes``): "wgmma" for a layer at K
+    = 128 and N 128 or 256, wave 1 (K = C3, N = C2) at N = 128 and K 128 or
+    256, wave 2 (K = C2, N = C1) at 128 and 128, where the layout fits;
+    else "simt"."""
+    shape = (K == 128 and N in (128, 256) if kind == "layer" else
+             N == 128 and K in (128, 256) if kind == "wave1" else
+             K == N == 128)
+    fits = shape and bn_wgmma_smem(kind, K, N) <= SMEM_MAX
+    return "wgmma" if fits else "simt"
+
+
+def bn_train_bf16_design(C1: int, C2: int, C3: int) -> dict[str, str]:
+    """The design each of kernel 9's bf16 products runs a BatchNorm level of
+    widths C1 -> C2 -> C3 on (any S), by entry: "wgmma"
+    (``csrc/fused_sa_bn_wgmma.cuh``: the tensor cores, the weight resident,
+    a wave's two products from one read of its slabs) or "simt" (the
+    f32 register tiles of ``csrc/fused_sa_bn.cu``). stats1 is the layer C1
+    -> C2, stats2 C2 -> C3, wave 1 of depth C3 and width C2, wave 2 of depth
+    C2 and width C1: both BatchNorm levels of the shipped configs (128 ->
+    128 -> 128 and -> 256) take the tensor cores at all four, the widened
+    RCNN's 256 -> 384 -> 256 the SIMT design at all four. stats0, final
+    and apply are one pass each, at every width. The C entry
+    ``tpu3d_fused_sa_bn_bf16_design`` decides the same."""
+    shapes = {"fused_sa_bn_stats1_bf16": (C1, C2),
+              "fused_sa_bn_stats2_bf16": (C2, C3),
+              "fused_sa_bn_wave1_bf16": (C3, C2),
+              "fused_sa_bn_wave2_bf16": (C2, C1)}
+    return {name: _bn_design(kind, *shapes[name])
+            for name, kind in BN_BF16_PRODUCTS.items()}
 
 
 def eval_groups_per_tile(S: int) -> int:

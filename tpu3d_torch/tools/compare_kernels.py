@@ -66,7 +66,11 @@ script. Shapes:
 - the BatchNorm chain's training op (``fused_bn_mlp_pool`` with batch
   statistics, forward and backward under autograd: the seven training
   kernels) at default.yaml's SA_0 and SA_1 with ``USE_BN`` of the train
-  step (B=16), and their sum;
+  step (B=16), and their sum; then kernel 9's seven bf16 entries there,
+  each on its own (``bn_bf16_calls``: the slab in bf16, driven as the
+  training op drives it, on the plain pieces' statistics, x1, x2, argmax
+  and d_y1), each call also split by launch (``kernel_bench.split_ms``),
+  with each entry's sum over the two levels (its time a step);
 - ``three_nn`` at every launch of the split route on the shipped configs
   (double.yaml's train SA_0, 16 x 32768 -> 4096; quickstart's SA_3, 64 ->
   16 at eval B=8 and train B=4; smoke's SA_2 and SA_3, 64 -> 32 and 32 ->
@@ -195,6 +199,59 @@ EVAL_PATHS = (("default", 2, 16), ("double", 4, 16), ("quickstart", 8, 4),
 # 1.7-2.0% of the slots that the seeded train step reaches; "full spread",
 # every channel live at a slot drawn uniformly over S
 BWD_ROUTINGS = ("seeded", "full spread")
+
+
+def bn_bf16_calls(fs, x0, w1, w2, gammas, betas, gen, eps=1e-5):
+    """Kernel 9's seven bf16 training entries on the bf16 slab x0, each
+    driven as the training op drives it, on the plain pieces' statistics,
+    x1, x2, argmax, d_y1 and d_y0 and the packs of their reductions (the
+    same inputs in either checkout) -> [(entry, call)], in the step's
+    order."""
+    import torch
+
+    n = x0.shape[0] * x0.shape[1] * x0.shape[2]
+    layers, stats, slabs, calls = [], [], [x0], []
+    for depth in range(3):
+        args = ((x0,) if depth == 0 else
+                (slabs[-1], layers[-1][0].contiguous(),
+                 layers[-1][1].contiguous(), (w1, w2)[depth - 1]))
+        calls.append((f"fused_sa_bn_stats{depth}_bf16",
+                      lambda d=depth, a=args: fs.fused_sa_bn_stats(d, *a)))
+        sums = fs.fused_sa_bn_stats_plain(depth, *args)
+        if depth:
+            sums, y = sums
+            slabs.append(y)
+        stats.append(fs._mean_var(sums, n, torch.float32))
+        layers.append(fs._layer_pack(*stats[-1], gammas[depth], betas[depth],
+                                     eps, n))
+    x1, x2 = slabs[1:]
+    m2, a2 = layers[2][0].contiguous(), layers[2][1].contiguous()
+    calls.append(("fused_sa_bn_final_bf16",
+                  lambda: fs.fused_sa_bn_final(x2, m2, a2)))
+    out, arg, at = fs.fused_sa_bn_final_plain(x2, m2, a2)
+    grad = torch.randn(out.shape, generator=gen, device=out.device)
+    d_y2 = torch.where(out > 0, grad.to(torch.bfloat16).float(), 0.0)
+    (mean2, var2), r2 = stats[2], layers[2][2]
+    layers[2] = fs._layer_pack(
+        mean2, var2, gammas[2], betas[2], eps, n, d_y2.sum(dim=(0, 1)),
+        (d_y2 * (at * r2 - mean2 * r2)).sum(dim=(0, 1)))
+    dval = (d_y2 * layers[2][0]).contiguous()
+    pk2 = fs._pack(layers)
+    calls.append(("fused_sa_bn_wave1_bf16",
+                  lambda: fs.fused_sa_bn_wave1(x2, x1, pk2, w2, dval, arg)))
+    sums, _, d_y1 = fs.fused_sa_bn_wave1_plain(x2, x1, pk2, w2, dval, arg)
+    layers[1] = fs._layer_pack(*stats[1], gammas[1], betas[1], eps, n,
+                               *sums.float())
+    pk1 = fs._pack(layers)
+    calls.append(("fused_sa_bn_wave2_bf16",
+                  lambda: fs.fused_sa_bn_wave2(d_y1, x1, x0, pk1, w1)))
+    sums, _, d_y0 = fs.fused_sa_bn_wave2_plain(d_y1, x1, x0, pk1, w1)
+    layers[0] = fs._layer_pack(*stats[0], gammas[0], betas[0], eps, n,
+                               *sums.float())
+    pk0 = fs._pack(layers)
+    calls.append(("fused_sa_bn_apply_bf16",
+                  lambda: fs.fused_sa_bn_apply(d_y0, x0, pk0)))
+    return calls
 
 
 def bwd_bf16_inputs(route, R, N, M, S, widths, routing, seed):
@@ -639,7 +696,7 @@ def main() -> int:
                                      fused_gathered_mlp_pool, fused_mlp_pool)
         from tpu3d_torch.ops import fused_sa as fs
 
-        bn_total = 0.0
+        bn_total, bn_bf16 = 0.0, {}
         for label, route, mode, R, N, M, S, (c1, c2, c3) in rcnn_levels(
                 args.root):
             fg = torch.Generator(device="cuda").manual_seed(R + M + S + c3)
@@ -695,6 +752,25 @@ def main() -> int:
                     bn_total += record(f"fused_sa_bn_train {label} forward "
                                        f"and backward", step, 3)
                     del leaves, grad
+                    torch.cuda.empty_cache()
+                    with torch.no_grad():
+                        calls = bn_bf16_calls(
+                            fs, x0.detach().to(torch.bfloat16), w1.detach(),
+                            w2.detach(), [t.detach() for t in gammas],
+                            [t.detach() for t in betas], fg)
+                        for name, fn in calls:
+                            key = f"{name} {label}"
+                            ms = record(key, fn, 3)
+                            split = bench.split_ms(fn)
+                            out[f"{key} split"] = split
+                            print(f"{args.label}: {key} split (ms, launches "
+                                  f"per call): " + ", ".join(
+                                      f"{k} {v[0]:.4f} x{v[1]:g}" for k, v in
+                                      sorted(split.items(),
+                                             key=lambda kv: -kv[1][0])),
+                                  flush=True)
+                            bn_bf16[name] = bn_bf16.get(name, 0.0) + ms
+                    del calls
                 del x0
                 torch.cuda.empty_cache()
                 continue
@@ -720,6 +796,13 @@ def main() -> int:
             out["fused_sa_bn_train sum"] = bn_total
             print(f"{args.label}: fused_sa_bn_train, SA_0 + SA_1 forward "
                   f"and backward: {bn_total:.3f} ms", flush=True)
+            for name, ms in bn_bf16.items():
+                out[f"{name} step sum"] = ms
+            out["fused_sa_bn_train_bf16 step sum"] = sum(bn_bf16.values())
+            print(f"{args.label}: kernel 9's bf16 entries, SA_0 + SA_1 (a "
+                  f"step): " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                         bn_bf16.items())
+                  + f"; in all {sum(bn_bf16.values()):.3f} ms", flush=True)
     for group, form in (("fused_sa_bwd_bf16", "gather"),
                         ("fused_sa_slab_bwd_bf16", "slab")):
         if group not in only:
