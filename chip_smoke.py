@@ -246,10 +246,14 @@ and no result line:
    SA_0 and SA_1 (double), 8 at smoke's SA_1, S = 16, four groups a tile):
    kernel 3 equal to the bit, 5, 8 and 9
    within BF16_FORM_BOUND of the plain output's largest value and twice
-   equal to the bit, 5 and 8 on the design their C entry names
-   (tpu3d_fused_sa_bf16_design, held to fused_sa.eval_bf16_design), the
-   wgmma design at every call (and, from the configs, at every level the
-   five shipped configs fuse at eval), each printed, each timed
+   equal to the bit, 9 also so at each of its calls on running
+   statistics whose folded scales take every sign and zero (a negative
+   mul2 pools the min) with contiguous bf16 weights, 5, 8 and 9 on the
+   design their C entry names
+   (tpu3d_fused_sa_bf16_design, and tpu3d_fused_sa_slab_bn_bf16_design for
+   9, held to fused_sa.eval_bf16_design), the wgmma design at every call
+   (and, from the configs, at every level the five shipped configs fuse at
+   eval), each printed, each timed
    beside its plain version, its library chain in bf16 and its f32 form,
    its bound at the bf16 peak; (d) ms per batch of both contracts in
    turns (f32, default, default, f32) and their peak memory; (e) one eval-CLI run (joint, phase 13's checkpoint) under
@@ -469,7 +473,7 @@ BF16_SOURCES = {
                       "tpu3d/ops/fused_sa.py:771"),
     "fused_sa_slab_bf16": ("tpu3d_torch/csrc/fused_sa_wgmma_eval.cuh",
                            "tpu3d/ops/fused_sa.py:594"),
-    "fused_sa_slab_bn_bf16": ("tpu3d_torch/csrc/fused_sa_bf16.cuh",
+    "fused_sa_slab_bn_bf16": ("tpu3d_torch/csrc/fused_sa_wgmma_eval.cuh",
                               "tpu3d/ops/fused_sa.py:203"),
 }
 BF16_OF = {"three_interpolate": "three_interpolate_bf16",
@@ -2354,6 +2358,10 @@ def bn_pass_rows(report, where, x0, w1, w2, gammas, betas, eps, gen):
             ops = n * ((0, l1, l2)[depth] + 3 * widths[depth]
                        + (3 * cin if depth else 0))
             nbytes = es * n * (cin + (widths[depth] if depth else 0))
+            if depth == 0:  # the one read of x0: its rate beside the card's
+                note += (f", the slab read at {nbytes / ms / 1e6:.1f} GB/s, "
+                         f"{nbytes / ms * 1e3 / PEAK_BYTES_PER_S:.1%} of "
+                         f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s")
             add(name, err, ms, pms, lms, nbytes + wbytes + 16 * widths[depth],
                 ops, f"mean/var max_abs_err {err:.3e}, Σx² {q_err:.2e} "
                 f"relative, Σx {s_err:.2e} of √(n·Σx²){note}")
@@ -4646,26 +4654,31 @@ def compare_contracts(model, bf, f32, label, rpn_bound) -> dict:
     return figures
 
 
-def eval_bf16_design(c1, c2, c3, where):
-    """The design kernels 5 and 8's bf16 eval entries run widths c1 -> c2 ->
-    c3 on, as their C entry decides it (``tpu3d_fused_sa_bf16_design``),
-    held to ``fused_sa.eval_bf16_design``."""
+def eval_bf16_design(c1, c2, c3, where, bn=False):
+    """The design a bf16 eval entry runs widths c1 -> c2 -> c3 on, as its C
+    entry decides it (kernels 5 and 8: ``tpu3d_fused_sa_bf16_design``;
+    ``bn``, kernel 9: ``tpu3d_fused_sa_slab_bn_bf16_design``), held to
+    ``fused_sa.eval_bf16_design``."""
     import ctypes
 
     from tpu3d_torch.ops import _build
     from tpu3d_torch.ops.fused_sa import eval_bf16_design as design
 
-    fn = _build.library("fused_sa").tpu3d_fused_sa_bf16_design
+    lib = _build.library("fused_sa")
+    fn = (lib.tpu3d_fused_sa_slab_bn_bf16_design if bn
+          else lib.tpu3d_fused_sa_bf16_design)
     fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
     got = "wgmma" if fn(c1, c2, c3) else "parent"
-    check(got == design(c1, c2, c3), f"{where}: the C entry and "
-          f"eval_bf16_design disagree on {c1} -> {c2} -> {c3}")
+    check(got == design(c1, c2, c3, bn), f"{where}: the C entry and "
+          f"eval_bf16_design disagree on {c1} -> {c2} -> {c3}"
+          f"{' with BatchNorm' if bn else ''}")
     return got
 
 
 def shipped_eval_designs() -> dict:
     """The eval forms' design at every RCNN level the five shipped configs
-    fuse without BatchNorm at eval (B=2), from the C entry: each must be
+    fuse at eval (B=2), without BatchNorm as shipped and with RCNN.USE_BN
+    set (kernel 9's form, route "bn"), from the C entries: each must be
     the wgmma design -> {config: [(level, route, design)]}."""
     from tpu3d_torch.config import cfg_from_file, fresh_cfg
     from tpu3d_torch.ops.fused_sa import sa_route
@@ -4678,18 +4691,22 @@ def shipped_eval_designs() -> dict:
         sa = cfg.RCNN.SA_CONFIG
         n, R = cfg.RCNN.NUM_POINTS, BATCH * cfg.TEST.RPN_POST_NMS_TOP_N
         rows = []
-        for k, m in enumerate(sa.NPOINTS):
-            if m == -1:
-                break
-            mlp = list(sa.MLPS[k])
-            route = sa_route((R, m, sa.NSAMPLE[k], mlp[0]), mlp, n,
-                             cfg.RCNN.USE_BN)
-            if route in ("gather", "slab"):
-                design = eval_bf16_design(*mlp, f"{name}.yaml SA_{k}")
-                check(design == "wgmma", f"{name}.yaml RCNN SA_{k} ({mlp}) "
-                      f"runs the eval forms' parent design")
-                rows.append((f"RCNN SA_{k}", route, design))
-            n = m
+        for bn in dict.fromkeys((bool(cfg.RCNN.USE_BN), True)):
+            n = cfg.RCNN.NUM_POINTS
+            for k, m in enumerate(sa.NPOINTS):
+                if m == -1:
+                    break
+                mlp = list(sa.MLPS[k])
+                route = sa_route((R, m, sa.NSAMPLE[k], mlp[0]), mlp, n, bn)
+                if route in ("gather", "slab"):
+                    design = eval_bf16_design(*mlp, f"{name}.yaml SA_{k}",
+                                              bn=bn)
+                    check(design == "wgmma", f"{name}.yaml RCNN SA_{k} "
+                          f"({mlp}{', USE_BN' if bn else ''}) runs the eval "
+                          f"forms' parent design")
+                    rows.append((f"RCNN SA_{k}", "bn" if bn else route,
+                                 design))
+                n = m
         check(rows, f"{name}.yaml fuses no RCNN level at eval")
         out[name] = rows
     print(f"the bf16 eval forms' design at the shipped configs' fused "
@@ -4701,7 +4718,7 @@ def bf16_form_rows(report, calls, where):
     """(a): each recorded call of a bf16 form against its plain version,
     timed beside the plain version, its library chain in bf16 (cuBLAS for
     the products) and its f32 form on the same values; the fused forms
-    twice equal to the bit, kernels 5 and 8 on the design their C entry
+    twice equal to the bit, kernels 5, 8 and 9 on the design their C entry
     names (the wgmma design at every call of the shipped configs), at the
     path ``where``."""
     import torch
@@ -4744,14 +4761,12 @@ def bf16_form_rows(report, calls, where):
               f"from its plain version by {err} (largest {scale})")
         check(torch.equal(got, again), f"{name} at {where}: two calls "
               f"differ")
-        counts = {}
-        design = ""
-        if name != "fused_sa_slab_bn_bf16":
-            design = eval_bf16_design(c1, c2, c3, f"{name} at {where}")
-            check(design == "wgmma", f"{name} at {where} ({c1} -> {c2} -> "
-                  f"{c3}) ran the parent design")
-            counts = {"wgmma_calls": 1.0, "parent_calls": 0.0}
-            design = f" on the {design} design"
+        design = eval_bf16_design(c1, c2, c3, f"{name} at {where}",
+                                  bn=name == "fused_sa_slab_bn_bf16")
+        check(design == "wgmma", f"{name} at {where} ({c1} -> {c2} -> "
+              f"{c3}) ran the parent design")
+        counts = {"wgmma_calls": 1.0, "parent_calls": 0.0}
+        design = f" on the {design} design"
         ops = R * M * S * (2 * (c1 * c2 + c2 * c3) + 2 * c1 + 2 * c2 + 3 * c3)
         nbytes = in_bytes + 2 * (c1 * c2 + c2 * c3 + c2 + c3 + R * M * c3)
         report.add(name, err, ms, pms, lms, nbytes, ops, f32_ms=fms,
@@ -4836,6 +4851,46 @@ def bf16_form_rows(report, calls, where):
                 cuda_ms(library, 5),
                 cuda_ms(lambda: fs.fused_bn_mlp_pool(*f32a), 10),
                 R, M, S, c1, c2, c3, 2 * x0.numel() + 8 * (c1 + c2 + c3))
+            signed_bn_eval(x0, w1, w2, where)
+
+
+def signed_bn_eval(x0, w1, w2, where):
+    """Kernel 9's eval form at a path's shape on running statistics whose
+    folded scales take every sign and zero at each layer (a negative mul2
+    pools the min of x2; the seeded model's are all positive), its weights
+    as contiguous bf16 (C1, C2) tensors: within BF16_FORM_BOUND of its
+    plain version, twice equal to the bit."""
+    import torch
+
+    from tpu3d_torch.ops import fused_sa as fs
+    from tpu3d_torch.tools.kernel_bench import bn_eval_layers
+
+    R, M, S, c1 = x0.shape
+    c2, c3 = w1.shape[1], w2.shape[1]
+    g = torch.Generator(device=x0.device).manual_seed(R * M + c3)
+    gammas, betas, stats = bn_eval_layers(g, (c1, c2, c3))
+    packs = fs.bn_packs([fs._bn_affine(m, v, ga, be, 1e-5)[:2] for
+                         (m, v), ga, be in zip(stats, gammas, betas)])
+    mul2 = packs[2 * (c1 + c2):2 * (c1 + c2) + c3]
+    check(bool((mul2 < 0).any() and (mul2 > 0).any() and (mul2 == 0).any()),
+          f"{where}: the signed scales lack a sign")
+    w1h, w2h = w1.to(torch.bfloat16), w2.to(torch.bfloat16)
+    args = (x0, w1h, w2h, gammas, betas, stats)
+    got = fs.fused_bn_mlp_pool_bf16(*args)
+    again = fs.fused_bn_mlp_pool_bf16(*args)
+    ref = fs.fused_sa_slab_bn_bf16_plain(x0, packs, w1h.float(), w2h.float())
+    torch.cuda.synchronize()
+    err, scale = _rel_err(got, ref)
+    check(err <= BF16_FORM_BOUND * scale, f"fused_sa_slab_bn_bf16 at {where} "
+          f"with scales of every sign differs from its plain version by "
+          f"{err} (largest {scale})")
+    check(torch.equal(got, again), f"fused_sa_slab_bn_bf16 at {where} with "
+          f"scales of every sign: two calls differ")
+    print(f"fused_sa_slab_bn_bf16 at {where} R={R} M={M} S={S} "
+          f"C={c1}->{c2}->{c3}, folded scales of every sign "
+          f"({int((mul2 < 0).sum())} of layer 2's {c3} negative, "
+          f"{int((mul2 == 0).sum())} zero), bf16 weights: max_abs_err "
+          f"{err:.3e} of {scale:.3e}, twice equal")
 
 
 def eval_numerics(card: str) -> tuple[Report, dict, dict]:

@@ -1,9 +1,10 @@
 """The Python sides of the bf16 kernels' Hopper designs, on the CPU: which
 design kernel 6's bf16 training forward runs a level's widths on
 (``fused_sa.train_bf16_design``, the C entry's ``takes`` mirrored), which
-design kernels 5 and 8's bf16 eval forms run (``fused_sa.eval_bf16_design``)
-and how that design packs short groups into a tile and pools them
-(``fused_sa.eval_groups_per_tile``, its walk emulated in numpy), and how
+design the bf16 eval forms of kernels 5 and 8 and of kernel 9 run
+(``fused_sa.eval_bf16_design``) and how that design packs short groups
+into a tile and pools them (``fused_sa.eval_groups_per_tile``, its walk
+emulated in numpy; under BatchNorm by layer 2's signs), and how
 the grouping gather's bf16 backward takes its gradient as autograd hands it
 over (``grouping.grad_rows``; no cast or copy before the kernel), and which
 design each of kernel 9's bf16 products runs a BatchNorm level on
@@ -136,6 +137,118 @@ def test_eval_wgmma_design_smem():
     assert smem(128, 128, 512, 3) > fused_sa.SMEM_MAX
     assert smem(128, 128, 512, 2) == 214016 <= fused_sa.SMEM_MAX
     assert smem(128, 128, 640, 2) > fused_sa.SMEM_MAX
+
+
+@pytest.mark.parametrize("widths, design", [
+    ((128, 128, 128), "wgmma"), ((128, 128, 256), "wgmma"),
+    ((128, 128, 384), "wgmma"), ((128, 128, 512), "wgmma"),
+    ((128, 128, 640), "parent"), ((256, 384, 256), "parent"),
+    ((128, 256, 128), "parent"), ((64, 128, 128), "parent")], ids=str)
+def test_bn_eval_bf16_design_by_width(widths, design):
+    """Kernel 9's bf16 eval form (``eval_bf16_design(..., bn=True)``): the
+    same widths as kernels 5 and 8's take the wgmma eval design, both
+    shipped BatchNorm levels (128 -> 128 -> 128 and -> 256) among them; the
+    widened BatchNorm RCNN's 256 -> 384 -> 256 keeps the parent design,
+    which the bf16 kernels take."""
+    assert fused_sa.eval_bf16_design(*widths, bn=True) == design
+    assert kernels_take(64, *widths, "bn", False)
+    assert fused_sa.bf16_kernels_take(64, *widths)
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_shipped_bn_eval_levels_take_the_wgmma_design(name):
+    """Every RCNN level a shipped config fuses at eval with RCNN.USE_BN set
+    (the slab route with BatchNorm: kernel 9's eval form) runs its bf16
+    form on the wgmma eval design."""
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    cfg = cfg_from_file(str(root / "configs" / f"{name}.yaml"), fresh_cfg())
+    sa = cfg.RCNN.SA_CONFIG
+    n, R = cfg.RCNN.NUM_POINTS, 2 * cfg.TEST.RPN_POST_NMS_TOP_N
+    fused = 0
+    for k, m in enumerate(sa.NPOINTS):
+        if m == -1:
+            break
+        mlp = list(sa.MLPS[k])
+        if sa_route((R, m, sa.NSAMPLE[k], mlp[0]), mlp, n, True) == "slab":
+            fused += 1
+            assert fused_sa.eval_bf16_design(*mlp, bn=True) == "wgmma", (
+                name, k, mlp)
+        n = m
+    assert fused >= 1
+
+
+def test_bn_eval_wgmma_design_smem():
+    """Kernel 9's eval layout (no centers, no biases; the packs in f32,
+    layer 2's column signs where b2 lies), of the 232448 bytes a block may
+    take: 123904 at RCNN SA_0 (128 -> 128 -> 128) and 161792 at SA_1 (->
+    256) with three warpgroups, 199680 at C3 = 384 with three; at 512 over
+    with three and 215040 with two; at 640 over with two."""
+    smem = fused_sa.eval_wgmma_smem
+    assert smem(128, 128, 128, 3, bn=True) == 123904
+    assert smem(128, 128, 256, 3, bn=True) == 161792
+    assert smem(128, 128, 384, 3, bn=True) == 199680 <= fused_sa.SMEM_MAX
+    assert smem(128, 128, 512, 3, bn=True) > fused_sa.SMEM_MAX
+    assert smem(128, 128, 512, 2, bn=True) == 215040 <= fused_sa.SMEM_MAX
+    assert smem(128, 128, 640, 2, bn=True) > fused_sa.SMEM_MAX
+
+
+def _bn_out(x, mul, add):
+    """Layer 2's output of bf16 values x (as f32) under the folded affine,
+    as the plain version rounds it: bf16(ReLU(x·mul + add))."""
+    return torch.relu(x * mul + add).to(torch.bfloat16).float()
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_bn_eval_pool_by_sign(seed):
+    """The BatchNorm eval form's pooling rule: f(x) = bf16(ReLU(x·mul +
+    add)) is monotone in x (non-decreasing where mul >= 0, non-increasing
+    where mul < 0, constant at mul = 0), so the kernel's single reduction,
+    the column max of bf16(v) with each column's sign flipped by mul's sign
+    bit (exact in bf16), the flip undone and f applied once, equals the max
+    over the slots of f(bf16(v)), on columns with ties (values drawn from
+    few steps), mul of every sign including +0 and -0, and add of every
+    sign."""
+    rng = np.random.default_rng(seed)
+    S, C = 64, 96
+    steps = rng.integers(-6, 7, size=(S, C)) * rng.choice(
+        [0.25, 1.0, 3.0], size=(1, C))
+    v = torch.from_numpy(steps + rng.normal(scale=1e-3, size=(S, C)) * (
+        rng.random((1, C)) < 0.5)).float().to(torch.bfloat16)
+    mul = torch.from_numpy(rng.normal(size=C)).float()
+    mul[::7], mul[3::11] = 0.0, -0.0
+    add = torch.from_numpy(rng.normal(size=C)).float()
+    add[::5] = 0.0
+    want = _bn_out(v.float(), mul, add).amax(0)
+    sign = ((torch.signbit(mul).to(torch.int32) << 15).to(torch.int16))
+    flipped = (v.view(torch.int16) ^ sign).view(torch.bfloat16)
+    pooled = (flipped.float().amax(0).to(torch.bfloat16).view(torch.int16)
+              ^ sign).view(torch.bfloat16)
+    got = _bn_out(pooled.float(), mul, add)
+    assert torch.equal(got, want)
+    # the rule is used: columns with mul < 0 pool the min of bf16(v)
+    neg = mul < 0
+    assert neg.any() and torch.equal(pooled[neg], v[:, neg].amin(0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+def test_bf16_weight_operand_is_the_transpose(dtype):
+    """The bf16 kernels' weight operand (``fused_sa._w16``) of a contiguous
+    (Cin, Cout) weight in any float dtype, square ones included (where a
+    wrong layout would raise nothing), is Wᵀ rounded to bf16 in contiguous
+    memory of its own, as the kernels read it through its data pointer."""
+    rng = np.random.default_rng(5)
+    for cin, cout in ((128, 128), (128, 256)):
+        w = torch.from_numpy(rng.normal(size=(cin, cout)).astype(
+            np.float32)).to(dtype)
+        got = fused_sa._w16(w)
+        assert got.dtype == torch.bfloat16 and got.shape == (cout, cin)
+        assert got.is_contiguous() and got.data_ptr() != w.data_ptr()
+        flat = got.flatten()
+        assert torch.equal(flat, w.T.to(torch.bfloat16).flatten())
+        assert torch.equal(flat.view(cout, cin), w.to(torch.bfloat16).T)
 
 
 def _eval_pool_walk(a2, S):

@@ -41,6 +41,7 @@ from tpu3d_torch.ops.interpolate import (backward_workspace,
                                          three_interpolate_plain)
 from tpu3d_torch.ops.sampling import (furthest_point_sample_plain,
                                       furthest_point_sample_with_3nn_plain)
+from tpu3d_torch.tools.kernel_bench import bn_eval_layers
 
 
 def _cloud(rng, b, n):
@@ -917,8 +918,8 @@ def test_fused_sa_bwd_fixed_order_on_cuda(spread):
 # groups a tile; R·M = 512, and 133, no multiple of 4), 24 (one padded
 # tile), 32 (two groups a tile; R·M = 65, odd), 128 (two tiles a group), 8
 # (one padded tile), C3 384 and 512 (two warpgroups a block); on the parent
-# design at C2 256 and C1 256 (kernel 9's eval form on the parent design
-# at every shape)
+# design at C2 256 and C1 256. Kernel 9's eval form takes the same designs
+# at the same widths (eval_bf16_design(..., bn=True))
 BF16_FUSED = [(64, 128, 64, 128, 128, 128), (64, 32, 64, 128, 128, 256),
               (16, 32, 16, 128, 128, 256), (7, 19, 16, 128, 128, 128),
               (9, 11, 24, 128, 128, 128), (5, 13, 32, 128, 128, 256),
@@ -1071,26 +1072,129 @@ def test_fused_bf16_eval_pads_on_cuda(form, shape):
 @pytest.mark.cuda
 @pytest.mark.parametrize("widths", [
     (128, 128, 128), (128, 128, 256), (128, 128, 384), (128, 128, 512),
-    (128, 256, 128), (256, 128, 128), (256, 384, 256), (64, 128, 128)],
-    ids=str)
+    (128, 128, 640), (128, 256, 128), (256, 128, 128), (256, 384, 256),
+    (64, 128, 128)], ids=str)
 def test_fused_bf16_eval_design_entry_on_cuda(widths):
     """The C entries' own routing agrees with its mirrors: the eval forms'
-    design (``tpu3d_fused_sa_bf16_design``, ``fused_sa.eval_bf16_design``)
-    at each width, and the groups a tile packs
-    (``tpu3d_fused_sa_bf16_groups``, ``fused_sa.eval_groups_per_tile``) at
-    every S from 1 to 256."""
+    design (``tpu3d_fused_sa_bf16_design`` for kernels 5 and 8,
+    ``tpu3d_fused_sa_slab_bn_bf16_design`` for kernel 9,
+    ``fused_sa.eval_bf16_design``) at each width, and the groups a tile
+    packs (``tpu3d_fused_sa_bf16_groups``, ``fused_sa.eval_groups_per_tile``)
+    at every S from 1 to 256."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     import ctypes
 
     lib = _build.library("fused_sa")
-    design = lib.tpu3d_fused_sa_bf16_design
-    design.argtypes, design.restype = [ctypes.c_int] * 3, ctypes.c_int
-    assert bool(design(*widths)) == (fs.eval_bf16_design(*widths) == "wgmma")
+    for bn, design in ((False, lib.tpu3d_fused_sa_bf16_design),
+                       (True, lib.tpu3d_fused_sa_slab_bn_bf16_design)):
+        design.argtypes, design.restype = [ctypes.c_int] * 3, ctypes.c_int
+        assert bool(design(*widths)) == (
+            fs.eval_bf16_design(*widths, bn=bn) == "wgmma")
     groups = lib.tpu3d_fused_sa_bf16_groups
     groups.argtypes, groups.restype = [ctypes.c_int], ctypes.c_int
     assert [groups(s) for s in range(1, 257)] == [
         fs.eval_groups_per_tile(s) for s in range(1, 257)]
+
+
+# kernel 9's bf16 eval form (R, M, S, C1, C2, C3): both shipped BatchNorm
+# levels at S 64 (the wgmma eval design; R·M 3200 and 800 units, neither a
+# multiple of the 396 warpgroups a round of 132 blocks runs), S 16 (four
+# groups a tile, R·M = 133), 24 (a padded tile), 32 (two groups a tile,
+# R·M = 65), 128 (two tiles a group and a running max); the widened
+# BatchNorm RCNN's 256 -> 384 -> 256 at S 128 (the parent design)
+BN_EVAL = [(25, 128, 64, 128, 128, 128), (25, 32, 64, 128, 128, 256),
+           (7, 19, 16, 128, 128, 128), (9, 11, 24, 128, 128, 256),
+           (5, 13, 32, 128, 128, 128), (6, 9, 128, 128, 128, 256),
+           (4, 8, 128, 256, 384, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BN_EVAL, ids=str)
+def test_bn_eval_bf16_on_its_design_on_cuda(shape):
+    """Kernel 9's bf16 eval form (``fused_bn_mlp_pool_bf16``) on the design
+    its C entry names (``tpu3d_fused_sa_slab_bn_bf16_design``, held to
+    ``fused_sa.eval_bf16_design(..., bn=True)``: wgmma at 128 -> 128 -> C3,
+    the parent at the widened widths) against its plain version within
+    2^-6 of the plain output's largest value (phase 18's BF16_FORM_BOUND),
+    with folded muls of every sign and zero at each layer (a negative mul2
+    pools the min of x2), and two calls equal to the bit, each counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import ctypes
+
+    R, M, S, C1, C2, C3 = shape
+    fn = _build.library("fused_sa").tpu3d_fused_sa_slab_bn_bf16_design
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    design = "wgmma" if fn(C1, C2, C3) else "parent"
+    assert design == fs.eval_bf16_design(C1, C2, C3, bn=True)
+    assert design == ("parent" if C1 == 256 else "wgmma")
+    x0, w1, _, w2, _, g = _bf16_fused_inputs(shape, 7 + S)
+    gammas, betas, stats = bn_eval_layers(g, (C1, C2, C3))
+    packs = bn_packs([_bn_affine(m, v, gm, bt, 1e-5)[:2] for (m, v), gm, bt
+                      in zip(stats, gammas, betas)])
+    mul2 = packs[2 * (C1 + C2):2 * (C1 + C2) + C3]
+    assert (mul2 < 0).any() and (mul2 > 0).any() and (mul2 == 0).any()
+    _build.reset_launches()
+    got = fs.fused_bn_mlp_pool_bf16(x0, w1, w2, gammas, betas, stats)
+    again = fs.fused_bn_mlp_pool_bf16(x0, w1, w2, gammas, betas, stats)
+    want = fs.fused_sa_slab_bn_bf16_plain(x0, packs, w1, w2)
+    torch.cuda.synchronize()
+    assert _build.BF16_LAUNCHES["fused_sa_slab_bn_bf16"] == 2
+    assert sum(_build.LAUNCHES.values()) == 0
+    assert torch.equal(got, again)
+    assert got.dtype == torch.bfloat16 and got.shape == (R, M, C3)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2.0 ** -6 * want.float().abs().max().item(), err
+
+
+# stats0 (R, M, S, C): P = R·M·S rows of 1, 5 and 100 (below one block's
+# 128), 33 621 (263 blocks, a short last one), 35 035 (two blocks an SM on
+# 132 SMs, a short last block), 67 983; widths 128, 256 and 1024
+STATS0 = [(1, 1, 1, 128), (1, 1, 5, 256), (1, 4, 25, 1024),
+          (3, 7, 1601, 128), (5, 7, 1001, 256), (17, 31, 129, 128),
+          (5, 7, 1001, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", STATS0, ids=str)
+def test_bn_stats0_streaming_on_cuda(dtype, shape):
+    """stats0 in both forms (``fused_sa_bn_stats0`` and ``_bf16``) at P with
+    a tail and below one block's share, C 128 / 256 / 1024: Σx² within
+    1e-5 relative of the plain piece and Σx within 1e-5·√(n·Σx²) per
+    channel (phase 19 (f)'s bounds); two calls equal to the bit; the
+    workspace from ``tpu3d_fused_sa_bn_workspace`` holds one partial per
+    block of the launch (min(ceil(P / 128), 2 per SM)), every one written,
+    and the sums are those partials added in block order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    R, M, S, C = shape
+    P = R * M * S
+    g = torch.Generator(device="cuda").manual_seed(P + C)
+    x = (torch.randn(R, M, S, C, generator=g, device="cuda") * 2 + 0.5).to(
+        getattr(torch, dtype))
+    name = fs._entry("fused_sa_bn_stats0", x.dtype)
+    _build.reset_launches()
+    got = _twice(lambda: fs.fused_sa_bn_stats(0, x))
+    want = fs.fused_sa_bn_stats_plain(0, x)
+    assert (_build.LAUNCHES | _build.BF16_LAUNCHES)[name] == 2
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0)
+    assert ((got[0] - want[0]).abs() <= 1e-5 * (P * want[1]).sqrt()).all()
+    ws = fs._bn_workspace(0, P, C, 0, x.device, torch.float64)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = min(-(-P // 128), 2 * sms)
+    assert ws.numel() == blocks * 2 * C
+    ws.fill_(float("nan"))
+    sums = torch.empty(2, C, dtype=torch.float64, device="cuda")
+    _build.launch(name, x.data_ptr(), P, C, ws.data_ptr(), sums.data_ptr())
+    torch.cuda.synchronize()
+    parts = ws.view(blocks, 2, C)
+    assert not parts.isnan().any()
+    acc = torch.zeros(2, C, dtype=torch.float64, device="cuda")
+    for b in range(blocks):
+        acc = acc + parts[b]
+    assert torch.equal(sums, acc) and torch.equal(sums, got)
 
 
 # the bf16 training forms (precision.py's training contract). The gather's
@@ -1349,6 +1453,70 @@ def test_fused_bf16_training_forms_on_cuda(form, shape, ties, routing):
     assert _build.BF16_LAUNCHES[names[0]] == 1
     assert _build.BF16_LAUNCHES[names[1]] == 1
     assert sum(_build.LAUNCHES.values()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fused_sa_bf16", "fused_sa_slab_bf16",
+                                  "fused_sa_slab_bn_bf16",
+                                  "fused_sa_train_bf16",
+                                  "fused_sa_slab_train_bf16"])
+def test_bf16_forms_take_bf16_weights_on_cuda(name):
+    """Each bf16 form that lays its weights out for the kernel (three eval
+    forms, two training forwards) gives the same bits from contiguous bf16
+    (Cin, Cout) weights as from their values in f32, at square widths
+    128 -> 128 -> 128 where a weight read untransposed would raise
+    nothing, and agrees with its plain version within 2^-6."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    shape = (16, 32, 64, 128, 128, 128)
+    R, M, S, C1, C2, C3 = shape
+    x0, w1, b1, w2, b2, g = _bf16_fused_inputs(shape, 43)
+    w1, w2 = w1.to(torch.bfloat16), w2.to(torch.bfloat16)
+    pre = torch.randn(R, 256, C1, generator=g, device="cuda").to(
+        torch.bfloat16)
+    idx = torch.randint(0, 256, (R, M, S), generator=g, device="cuda",
+                        dtype=torch.int32)
+    center = (0.5 * torch.randn(R, M, C1, generator=g, device="cuda")).to(
+        torch.bfloat16)
+    gammas, betas, stats = bn_eval_layers(g, (C1, C2, C3))
+    packs = bn_packs([_bn_affine(m, v, gm, bt, 1e-5)[:2] for (m, v), gm, bt
+                      in zip(stats, gammas, betas)])
+    forms = {
+        "fused_sa_bf16": (
+            lambda a, b: fs.fused_gathered_mlp_pool_bf16(
+                pre, idx, center, a, b1, b, b2),
+            lambda a, b: fs.fused_gathered_mlp_pool_bf16_plain(
+                pre, idx, center, a, b1, b, b2)),
+        "fused_sa_slab_bf16": (
+            lambda a, b: fs.fused_mlp_pool_bf16(x0, a, b1, b, b2),
+            lambda a, b: fs.fused_mlp_pool_bf16_plain(x0, a, b1, b, b2)),
+        "fused_sa_slab_bn_bf16": (
+            lambda a, b: fs.fused_bn_mlp_pool_bf16(x0, a, b, gammas, betas,
+                                                   stats),
+            lambda a, b: fs.fused_sa_slab_bn_bf16_plain(x0, packs, a, b)),
+        "fused_sa_train_bf16": (
+            lambda a, b: fs.fused_gathered_mlp_pool_bf16_train(
+                pre, idx, center, a, b1, b, b2)[0],
+            lambda a, b: fs.fused_gathered_mlp_pool_bf16_train_plain(
+                pre, idx, center, a, b1, b, b2)[0]),
+        "fused_sa_slab_train_bf16": (
+            lambda a, b: fs.fused_mlp_pool_bf16_train(x0, a, b1, b, b2)[0],
+            lambda a, b: fs.fused_mlp_pool_bf16_train_plain(
+                x0, a, b1, b, b2)[0]),
+    }
+    run, plain = forms[name]
+    assert w1.is_contiguous() and w2.is_contiguous()
+    _build.reset_launches()
+    with torch.no_grad():
+        got = run(w1, w2)
+        from_f32 = run(w1.float(), w2.float())
+        want = plain(w1.float(), w2.float())
+    torch.cuda.synchronize()
+    assert _build.BF16_LAUNCHES[name] == 2
+    assert torch.equal(got, from_f32)
+    assert got.dtype == torch.bfloat16 and got.shape == (R, M, C3)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2.0 ** -6 * want.float().abs().max().item(), err
 
 
 BN_BF16_ENTRIES = [f"{name}_bf16" for name in (

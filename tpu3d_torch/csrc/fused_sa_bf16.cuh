@@ -53,24 +53,25 @@
 // shuffles keep the lower slot of two equal maxima, and a later chunk takes
 // over only above the running max.
 // Which entry runs which design (each routes by the widths alone):
-//   - tpu3d_fused_sa_bf16 and tpu3d_fused_sa_slab_bf16 (kernels 5 and 8's
-//     eval forms) run fused_sa_wgmma_eval.cuh's design (wgmma, weights
-//     resident in shared memory, a1 and the pool in registers, short groups
-//     packed into one tile; its own layout: the weights, per warpgroup a
-//     64-row a0 stage, centers and column maxima) where it takes the widths
-//     (C1 = C2 = 128, C3 a multiple of 128 up to 512;
-//     tpu3d_fused_sa_bf16_design), the wider ones this one;
+//   - tpu3d_fused_sa_bf16, tpu3d_fused_sa_slab_bf16 (kernels 5 and 8's
+//     eval forms) and tpu3d_fused_sa_slab_bn_bf16 (kernel 9's) run
+//     fused_sa_wgmma_eval.cuh's design (wgmma, weights resident in shared
+//     memory, a1 and the pool in registers, short groups packed into one
+//     tile, kernel 9's affines in its epilogues; its own layout: the
+//     weights, per warpgroup a 64-row a0 stage, centers or packs, column
+//     maxima) where it takes the widths (C1 = C2 = 128, C3 a multiple of
+//     128 up to 512; tpu3d_fused_sa_bf16_design,
+//     tpu3d_fused_sa_slab_bn_bf16_design), the wider ones this one;
 //   - tpu3d_fused_sa_train_bf16 (kernel 6's training form) runs
 //     fused_sa_wgmma.cuh's design (wgmma from shared memory, with the
 //     argmax and ppre of training; its layout: the weights, per warpgroup
 //     64-row a0 and a1 stages, centers and the pooling state) at C1 = C2 =
 //     128 and C3 up to 384 (tpu3d_fused_sa_train_bf16_wgmma), the wider
 //     ones this one;
-//   - tpu3d_fused_sa_slab_bn_bf16 (kernel 9's eval form) and
-//     tpu3d_fused_sa_slab_train_bf16 (kernel 8's training forward) run this
-//     one at every width. Its shared memory: a chunk of TM rows of a0 and a1
-//     (each row padded by kPad) and the running max (with its slot and x2
-//     in training), pick_mt.
+//   - tpu3d_fused_sa_slab_train_bf16 (kernel 8's training forward) runs
+//     this one at every width. Its shared memory: a chunk of TM rows of a0
+//     and a1 (each row padded by kPad) and the running max (with its slot
+//     and x2 in training), pick_mt.
 //
 // Included by fused_sa.cu (its library holds both numeric forms); the
 // kernels live in namespace fused_sa_bf16, the C entries at the end.
@@ -425,9 +426,9 @@ extern "C" int tpu3d_fused_sa_bf16(const __nv_bfloat16* pre, const int* idx,
         out, nullptr, nullptr, s);
   if (const int pending = tpu3d::pending_error(s)) return pending;
   if (R < 1 || N < 1 || M < 1 || S < 1) return (int)cudaErrorInvalidValue;
-  return fused_sa_wgmma_eval::launch_eval<true>(pre, idx, center, w1t, b1,
-                                                w2t, b2, R, N, M, S, C1, C2,
-                                                C3, out, s);
+  return fused_sa_wgmma_eval::launch_eval<true, false>(
+      pre, idx, center, nullptr, w1t, b1, w2t, b2, R, N, M, S, C1, C2, C3,
+      out, s);
 }
 
 // x0 (R, M, S, C1) bf16; weights and biases as above; routed as above.
@@ -443,9 +444,9 @@ extern "C" int tpu3d_fused_sa_slab_bf16(const __nv_bfloat16* x0, const __nv_bflo
         C3, out, nullptr, nullptr, s);
   if (const int pending = tpu3d::pending_error(s)) return pending;
   if (R < 1 || M < 1 || S < 1) return (int)cudaErrorInvalidValue;
-  return fused_sa_wgmma_eval::launch_eval<false>(x0, nullptr, nullptr, w1t,
-                                                 b1, w2t, b2, R, 0, M, S, C1,
-                                                 C2, C3, out, s);
+  return fused_sa_wgmma_eval::launch_eval<false, false>(
+      x0, nullptr, nullptr, nullptr, w1t, b1, w2t, b2, R, 0, M, S, C1, C2, C3,
+      out, s);
 }
 
 // 1 where tpu3d_fused_sa_bf16 and tpu3d_fused_sa_slab_bf16 run widths C1 ->
@@ -459,14 +460,29 @@ extern "C" int tpu3d_fused_sa_bf16_groups(int S) {
   return S >= 1 ? fused_sa_wgmma_eval::groups_per_tile(S) : 0;
 }
 
-// x0 (R, M, S, C1) bf16; packs f32 [mul0 | add0 | mul1 | add1 | mul2 | add2].
+// x0 (R, M, S, C1) bf16; packs f32 [mul0 | add0 | mul1 | add1 | mul2 |
+// add2]. The widths fused_sa_wgmma_eval.cuh's BatchNorm form takes run
+// there, wider ones on the design above.
 extern "C" int tpu3d_fused_sa_slab_bn_bf16(const __nv_bfloat16* x0, const float* packs,
                                            const __nv_bfloat16* w1t, const __nv_bfloat16* w2t,
                                            int R, int M, int S, int C1, int C2,
                                            int C3, __nv_bfloat16* out, void* stream) {
-  return fused_sa_bf16::launch<false, true, false>(
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!fused_sa_wgmma_eval::takes(C1, C2, C3, true))
+    return fused_sa_bf16::launch<false, true, false>(
+        x0, nullptr, nullptr, packs, w1t, nullptr, w2t, nullptr, R, 0, M, S,
+        C1, C2, C3, out, nullptr, nullptr, s);
+  if (const int pending = tpu3d::pending_error(s)) return pending;
+  if (R < 1 || M < 1 || S < 1) return (int)cudaErrorInvalidValue;
+  return fused_sa_wgmma_eval::launch_eval<false, true>(
       x0, nullptr, nullptr, packs, w1t, nullptr, w2t, nullptr, R, 0, M, S, C1,
-      C2, C3, out, nullptr, nullptr, static_cast<cudaStream_t>(stream));
+      C2, C3, out, s);
+}
+
+// 1 where tpu3d_fused_sa_slab_bn_bf16 runs widths C1 -> C2 -> C3 on the
+// wgmma eval design, 0 where on the parent one.
+extern "C" int tpu3d_fused_sa_slab_bn_bf16_design(int C1, int C2, int C3) {
+  return fused_sa_wgmma_eval::takes(C1, C2, C3, true) ? 1 : 0;
 }
 
 // Kernel 6's bf16 training forward: the gather form's inputs as

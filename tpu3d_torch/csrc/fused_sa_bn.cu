@@ -92,7 +92,9 @@
 //     the SIMT design above, the weights rounded to bf16 in f32 by the
 //     caller, its products on the f32 register tiles;
 //   - stats0, final and apply, one pass over a slab each, in the kernels
-//     below at every width.
+//     below at every width; stats0 (both forms) as a streaming column
+//     reduction: 16-byte loads, kStatsUnroll of them in flight a thread
+//     before their sums, two blocks an SM.
 // tpu3d_fused_sa_bn_bf16_design names the design of each product entry
 // (ops/fused_sa.py::bn_train_bf16_design mirrors it); the per-channel sums
 // keep f64 block partials in block order in both designs, so a step
@@ -644,42 +646,86 @@ __global__ void __launch_bounds__(kThreads, 2) bn_dw_gemm(const DwArgs a) {
 // --------------------------------------------------------------------------
 // stats0, final and apply: one pass over a slab each
 
-// Per channel sum x and sum x^2 of x (P x C) over the block's run of rows:
-// thread (quad q, phase ph) takes channels 4q.. of rows ph, ph + phases,
-// ..., in f32 over 64-row chunks, f64 across them -> ws[block] (2 x C).
+// stats0 as a streaming column reduction. Its bound is the one read of the
+// slab, so what matters is the bytes in flight: a thread issues
+// kStatsUnroll independent 16-byte loads (8 bf16 or 4 f32 channels of
+// kStatsUnroll rows) before it adds any of them, and two blocks of 256
+// threads an SM keep 64 KB in flight there. kStatsRows rows at least a
+// block, two blocks an SM at most.
+constexpr int kStatsUnroll = 8;
+constexpr int kStatsRows = 128;
+constexpr int kStatsBlocksPerSm = 2;
+
+// 16 bytes of T (8 bf16 or 4 f32 channels) in f32
+__device__ __forceinline__ void unpack16(const uint4& u, float (&e)[4]) {
+  e[0] = __uint_as_float(u.x), e[1] = __uint_as_float(u.y);
+  e[2] = __uint_as_float(u.z), e[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void unpack16(const uint4& u, float (&e)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(h[j]);
+    e[2 * j] = f.x, e[2 * j + 1] = f.y;
+  }
+}
+
+// Per channel sum x and sum x^2 of x (P x C) over the block's run of rows
+// [r0, r0 + per_block): lane q of a row (L = C / V lanes a row, V channels
+// a 16-byte load) and phase ph (phases = 256 / L rows at once; threads past
+// them idle where L does not divide 256) takes channels V·q .. of rows
+// r0 + ph + phases·k; kStatsUnroll rows loaded at once, summed in f32
+// (their squares by fma), then added in f64 -> ws[block] (2 x C), the
+// phases added in order. Every thread's rows and order are fixed by P and
+// the grid, so the sums repeat to the bit.
 template <typename T>
-__global__ void __launch_bounds__(kThreads) bn_stats0_kernel(
-    const T* __restrict__ x, long long P, int C, long long per_block,
-    double* __restrict__ ws) {
-  extern __shared__ __align__(16) double dsm[];
-  const int Q = C / 4, phases = kThreads / Q;
-  const int q = threadIdx.x % Q, ph = threadIdx.x / Q;
+__global__ void __launch_bounds__(kThreads, kStatsBlocksPerSm)
+bn_stats0_kernel(const T* __restrict__ x, long long P, int C,
+                 long long per_block, double* __restrict__ ws) {
+  constexpr int V = 16 / sizeof(T);
+  __shared__ double dsm[kThreads * V * 2];
+  const int L = C / V, phases = kThreads / L;
+  const int q = threadIdx.x % L, ph = threadIdx.x / L;
   const long long r0 = (long long)blockIdx.x * per_block;
   const long long r1 = min(P, r0 + per_block);
-  double s[4] = {0.0, 0.0, 0.0, 0.0}, sq[4] = {0.0, 0.0, 0.0, 0.0};
-  if (ph < phases) {
-    for (long long c0 = r0 + ph; c0 < r1; c0 += 64LL * phases) {
-      float ps[4] = {0.f, 0.f, 0.f, 0.f}, pq[4] = {0.f, 0.f, 0.f, 0.f};
-      const long long c1 = min(r1, c0 + 64LL * phases);
-      for (long long p = c0; p < c1; p += phases) {
-        const float4 v = ld4f(x + (size_t)p * C + 4 * q);
-        const float e[4] = {v.x, v.y, v.z, v.w};
+  double s[V], sq[V];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+  for (int j = 0; j < V; ++j) s[j] = sq[j] = 0.0;
+  if (ph < phases) {
+    const uint4* col = reinterpret_cast<const uint4*>(x) + q;
+    const size_t row_vecs = (size_t)L;  // 16-byte vectors of a row
+    for (long long p0 = r0 + ph; p0 < r1;
+         p0 += (long long)phases * kStatsUnroll) {
+      uint4 v[kStatsUnroll];
+#pragma unroll
+      for (int u = 0; u < kStatsUnroll; ++u) {
+        const long long p = p0 + (long long)u * phases;
+        v[u] = p < r1 ? __ldg(col + (size_t)p * row_vecs)
+                      : make_uint4(0u, 0u, 0u, 0u);
+      }
+      float ps[V], pq[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j) ps[j] = pq[j] = 0.f;
+#pragma unroll
+      for (int u = 0; u < kStatsUnroll; ++u) {
+        float e[V];
+        unpack16(v[u], e);
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
           ps[j] += e[j];
-          pq[j] += e[j] * e[j];
+          pq[j] = fmaf(e[j], e[j], pq[j]);
         }
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < V; ++j) {
         s[j] += ps[j];
         sq[j] += pq[j];
       }
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      dsm[(ph * 2) * C + 4 * q + j] = s[j];
-      dsm[(ph * 2 + 1) * C + 4 * q + j] = sq[j];
+    for (int j = 0; j < V; ++j) {
+      dsm[(ph * 2) * C + V * q + j] = s[j];
+      dsm[(ph * 2 + 1) * C + V * q + j] = sq[j];
     }
   }
   __syncthreads();
@@ -797,6 +843,13 @@ int row_blocks(long long P, int N) {
   return (int)std::min(tiles, 2LL * sm_count());
 }
 
+// The blocks of stats0 over P slots: kStatsRows rows at least a block, as
+// many as the SMs hold at most; its workspace holds one partial each
+int stats0_blocks(long long P) {
+  const long long most = (long long)kStatsBlocksPerSm * sm_count();
+  return (int)std::min((P + kStatsRows - 1) / kStatsRows, most);
+}
+
 template <int PRO, int EPI, typename T>
 cudaError_t launch_row(const RowArgs& a, int blocks, double* sums,
                        cudaStream_t stream) {
@@ -841,12 +894,10 @@ int stats0(const T* x0, long long P, int C1, double* ws, double* sums,
            cudaStream_t stream) {
   if (const int pending = tpu3d::pending_error(stream)) return pending;
   if (P < 1 || !width_ok(C1)) return (int)cudaErrorInvalidValue;
-  const int blocks = row_blocks(P, 128);
+  const int blocks = stats0_blocks(P);
   const long long per_block = (P + blocks - 1) / blocks;
-  const int phases = kThreads / (C1 / 4);
-  const size_t smem = (size_t)(phases > 0 ? phases : 1) * 2 * C1 * 8;
-  bn_stats0_kernel<T><<<blocks, kThreads, smem, stream>>>(x0, P, C1,
-                                                          per_block, ws);
+  bn_stats0_kernel<T><<<blocks, kThreads, 0, stream>>>(x0, P, C1, per_block,
+                                                       ws);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)reduce<double>(ws, blocks, 2LL * C1, sums, stream);
@@ -1014,7 +1065,7 @@ cudaStream_t as_stream(void* p) { return static_cast<cudaStream_t>(p); }
 // C, Nb = N.
 extern "C" long long tpu3d_fused_sa_bn_workspace(int kind, long long P,
                                                  int C, int N) {
-  if (kind == 0) return (long long)row_blocks(P, 128) * 2 * C * 8;
+  if (kind == 0) return (long long)stats0_blocks(P) * 2 * C * 8;
   if (kind == 1) return (long long)row_blocks(P, N) * 2 * N * 8;
   return (long long)dw_splits(P, (C / kBM) * (N / kBN)) * C * N * 4;
 }

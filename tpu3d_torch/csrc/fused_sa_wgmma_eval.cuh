@@ -1,5 +1,6 @@
-// Kernels 5 and 8's bf16 eval forms (the gather and the slab form without
-// BatchNorm), redesigned for Hopper (sm_90a) on fused_sa_wgmma.cuh's
+// The bf16 eval forms of kernels 5 and 8 (the gather and the slab form
+// without BatchNorm) and of kernel 9 (the slab form with BatchNorm, on
+// running statistics), redesigned for Hopper (sm_90a) on fused_sa_wgmma.cuh's
 // machinery: warpgroup products (wgmma) from shared memory, the weights
 // resident in shared memory for the whole launch, the pool reduced in
 // registers, short groups packed into one tile.
@@ -13,12 +14,20 @@
 //     bf16 (R, M, S, C1) slab;
 // then _chain_nobn (:559): a0 = ReLU(x0); x1 = bf16(bf16(a0·W1) +
 // bf16(b1)); a1 = ReLU(x1); x2 = bf16(bf16(a1·W2) + bf16(b2)); out = max
-// over the S slots of ReLU(x2), in bf16; every product of bf16 operands
-// summed in f32. The products' f32 sums run in the tensor cores' order, so
-// the kernel is held to the plain versions
-// (ops/fused_sa.py::fused_gathered_mlp_pool_bf16_plain,
-// fused_mlp_pool_bf16_plain) within a tolerance; each group's arithmetic
-// is fixed, so two calls give the same bits.
+// over the S slots of ReLU(x2), in bf16;
+//   - _eval_chain_kernel (:203, called at :516-526; entry
+//     tpu3d_fused_sa_slab_bn_bf16, the BatchNorm form): the same slab, then
+//     _chain_to (:142) with the running statistics folded into one f32
+//     (mul, add) per layer: a_k = bf16(ReLU(x_k·mul_k + add_k)) (x0 the
+//     slab, x1 = bf16(a0·W1), x2 = bf16(a1·W2)), out = max over the S
+//     slots of a2, each multiply and add rounded on its own in f32 (no
+//     contraction), as ops/fused_sa.py::_bf16_acts_bn rounds them;
+// every product of bf16 operands summed in f32. The products' f32 sums
+// run in the tensor cores' order, so the kernel is held to the plain
+// versions (ops/fused_sa.py::fused_gathered_mlp_pool_bf16_plain,
+// fused_mlp_pool_bf16_plain, fused_sa_slab_bn_bf16_plain) within a
+// tolerance; each group's arithmetic is fixed, so two calls give the same
+// bits.
 //
 // Bound on the card: operations (2·S·(C1·C2 + C2·C3) per group in bf16
 // against 2·S·C1 bytes of input rows). The parent design
@@ -70,17 +79,31 @@
 //     thread that owns the column pair, and the bias and ReLU are applied
 //     as the group's row is written. No x2 tile, no walk down a column: a
 //     max of bf16 values is exact and independent of order.
+// The BatchNorm form puts its three affines where the biases go: a0's on
+// the way into the stage (each loaded x0 in f32 through mul0 and add0 of
+// the lane's fixed eight channels), a1's on layer 1's accumulator (mul1
+// and add1 at the fragment's columns), a2's after the pool. f(v) =
+// bf16(ReLU(bf16(v)·mul2 + add2)) is non-decreasing in v where mul2 >= 0
+// and non-increasing where mul2 < 0 (a trained gamma can be negative), so
+// the max of f over a group's slots is f of the max of bf16(v), or of its
+// min: one reduction takes both, each column's bf16(v) with its sign
+// flipped by mul2's sign bit (exact) before the column max, the flip
+// undone and f applied as the output is written. The packs and the sign
+// bits sit in shared memory in place of the centers and biases.
 // Shared memory (layout): 2·(C1·C2 + C2·C3) bytes of weights, per
-// warpgroup a 64-row stage of C1, two tiles' centers (four each), the
-// warps' column maxima and the running max: of the 232 448 bytes a block
-// may take on sm_90, 128 000 at the RCNN's SA_0 (128 -> 128 -> 128) and
-// 164 864 at its SA_1 (-> 256), three warpgroups at both. It takes C1 = C2
-// = 128 and C3 a multiple of 128 up to 512 (takes(), mirrored by
-// ops/fused_sa.py::eval_bf16_design): every level the shipped configs fuse
-// at eval; the widened RCNN's 256 -> 384 -> 256 keeps the parent design.
+// warpgroup a 64-row stage of C1, two tiles' centers (four each; none in
+// the BatchNorm form, which holds its packs instead), the warps' column
+// maxima and the running max: of the 232 448 bytes a block may take on
+// sm_90, 128 000 at the RCNN's SA_0 (128 -> 128 -> 128) and 164 864 at its
+// SA_1 (-> 256), with BatchNorm 123 904 and 161 792, three warpgroups at
+// all four. It takes C1 = C2 = 128 and C3 a multiple of 128 up to 512 in
+// both forms (takes(), mirrored by ops/fused_sa.py::eval_bf16_design):
+// every level the shipped configs fuse at eval, with BatchNorm set too;
+// the widened RCNN's 256 -> 384 -> 256 keeps the parent design.
 //
-// Included by fused_sa_bf16.cuh, whose C entries tpu3d_fused_sa_bf16 and
-// tpu3d_fused_sa_slab_bf16 route between the two designs by shape.
+// Included by fused_sa_bf16.cuh, whose C entries tpu3d_fused_sa_bf16,
+// tpu3d_fused_sa_slab_bf16 and tpu3d_fused_sa_slab_bn_bf16 route between
+// the two designs by shape.
 
 #pragma once
 
@@ -102,45 +125,51 @@ constexpr int kMaxGroups = kTile / 16;  // groups a packed tile holds
 
 // byte offsets in the block's shared memory, each region 1024-aligned
 struct Layout {
-  unsigned w1, w2, stage, ctr, b1, b2, part, pool, total;
+  unsigned w1, w2, stage, ctr, b1, b2, part, pool, packs, total;
 };
 
-// for `wgs` warpgroups a block
-__host__ __device__ inline Layout layout(int C1, int C2, int C3, int wgs) {
+// for `wgs` warpgroups a block; `bn` the BatchNorm form's layout: no
+// centers and no biases, the packs in f32 and, where b2 lies, layer 2's
+// column signs (bf16 sign bits)
+__host__ __device__ inline Layout layout(int C1, int C2, int C3, int wgs,
+                                         bool bn = false) {
   Layout L;
   unsigned at = 0;
   L.w1 = carve(at, 2u * C1 * C2);
   L.w2 = carve(at, 2u * C2 * C3);
   L.stage = carve(at, 2u * wgs * kTile * C1);
-  L.ctr = carve(at, 2u * wgs * 2 * kMaxGroups * C1);  // two tiles' centers
-  L.b1 = carve(at, 2u * C2);
+  // two tiles' centers
+  L.ctr = carve(at, bn ? 0u : 2u * wgs * 2 * kMaxGroups * C1);
+  L.b1 = carve(at, bn ? 0u : 2u * C2);
   L.b2 = carve(at, 2u * C3);
   L.part = carve(at, 2u * wgs * 4 * C3);  // each warp's column maxima
   L.pool = carve(at, 2u * wgs * C3);      // a group's running max
+  L.packs = carve(at, bn ? 8u * (C1 + C2 + C3) : 0u);
   L.total = at;
   return L;
 }
 
 // the dynamic shared memory asked for: the layout and room to align it
-inline size_t smem_bytes(int C1, int C2, int C3, int wgs) {
-  return (size_t)layout(C1, C2, C3, wgs).total + 1024;
+inline size_t smem_bytes(int C1, int C2, int C3, int wgs, bool bn = false) {
+  return (size_t)layout(C1, C2, C3, wgs, bn).total + 1024;
 }
 
 // Warpgroups a block: three where their stages fit beside the weights
 // (C3 up to 384), else two (512), 0 where neither fits.
-inline int warpgroups(int C1, int C2, int C3) {
-  return smem_bytes(C1, C2, C3, 3) <= kSmemMax   ? 3
-         : smem_bytes(C1, C2, C3, 2) <= kSmemMax ? 2
-                                                 : 0;
+inline int warpgroups(int C1, int C2, int C3, bool bn = false) {
+  return smem_bytes(C1, C2, C3, 3, bn) <= kSmemMax   ? 3
+         : smem_bytes(C1, C2, C3, 2, bn) <= kSmemMax ? 2
+                                                     : 0;
 }
 
-// Whether this design takes widths C1 -> C2 -> C3 (any S, R, M): C1 = C2
-// = 128 (the products' depth, built unrolled; layer 1's 128 columns are
-// one accumulator, layer 2's operand in registers), C3 a multiple of 128
-// (a wgmma's columns), and the layout in shared memory (C3 up to 512).
-inline bool takes(int C1, int C2, int C3) {
+// Whether this design takes widths C1 -> C2 -> C3 (any S, R, M) in the
+// form without BatchNorm or (bn) with it: C1 = C2 = 128 (the products'
+// depth, built unrolled; layer 1's 128 columns are one accumulator, layer
+// 2's operand in registers), C3 a multiple of 128 (a wgmma's columns), and
+// the layout in shared memory (C3 up to 512 in both forms).
+inline bool takes(int C1, int C2, int C3, bool bn = false) {
   return C1 == 128 && C2 == 128 && C3 >= 128 && C3 % 128 == 0 &&
-         warpgroups(C1, C2, C3) > 0;
+         warpgroups(C1, C2, C3, bn) > 0;
 }
 
 // Groups a 64-row tile packs: 64 / S where S is a multiple of 16 that
@@ -260,6 +289,72 @@ __device__ __forceinline__ void store_a0(unsigned char* stage,
   }
 }
 
+// The BatchNorm form's affine of a bf16 pair, as the plain version rounds
+// it: bf16(ReLU(x·mul + add)), the multiply and the add each rounded in
+// f32 (no contraction). q holds the pair's (mul, mul, add, add). The pair
+// is widened by bit moves, and ReLU rides on the conversion back
+// (cvt.rn.relu): x is bf16, and ReLU before the rounding gives what the
+// rounding before ReLU gives.
+__device__ __forceinline__ __nv_bfloat162 affine2(__nv_bfloat162 x,
+                                                  float4 q) {
+  const uint32_t u = *reinterpret_cast<const uint32_t*>(&x);
+  const float lo = __uint_as_float(u << 16);
+  const float hi = __uint_as_float(u & 0xffff0000u);
+  uint32_t r;
+  asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;"
+      : "=r"(r)
+      : "f"(__fadd_rn(__fmul_rn(hi, q.y), q.w)),
+        "f"(__fadd_rn(__fmul_rn(lo, q.x), q.z)));
+  return *reinterpret_cast<__nv_bfloat162*>(&r);
+}
+
+// The BatchNorm form's a0 of the thread's share into the stage in the
+// swizzle, zeros past the tile's valid rows: bf16(ReLU(x·mul0 + add0)) of
+// the lane's eight channels 8c .. 8c + 7 (layer 0's quads in shared
+// memory)
+template <int C1>
+__device__ __forceinline__ void store_a0_bn(unsigned char* stage,
+                                            const uint4 (&v)[kRowsPerThread],
+                                            const float4* quads0,
+                                            const Tile& T, int warp,
+                                            int lane) {
+  const int c = lane & 15, sub = lane >> 4;
+  float4 q[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) q[j] = quads0[4 * c + j];
+#pragma unroll
+  for (int i = 0; i < kRowsPerThread; ++i) {
+    const int row = 16 * warp + 2 * i + sub;
+    uint4 packed = make_uint4(0u, 0u, 0u, 0u);
+    if (row < T.valid) {
+      const __nv_bfloat162* xv =
+          reinterpret_cast<const __nv_bfloat162*>(&v[i]);
+      __nv_bfloat162* res = reinterpret_cast<__nv_bfloat162*>(&packed);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) res[j] = affine2(xv[j], q[j]);
+    }
+    *reinterpret_cast<uint4*>(
+        stage + fused_sa_wgmma::kmajor(kTile, row, c)) = packed;
+  }
+}
+
+// One layer's packs (mul, add: C floats each) as C / 2 quads (mul, mul,
+// add, add) of its column pairs, by the whole block
+__device__ __forceinline__ void stage_quads(const float* __restrict__ mul,
+                                            const float* __restrict__ add,
+                                            int C, float4* dst) {
+  for (int p = threadIdx.x; p < C / 2; p += blockDim.x)
+    dst[p] = make_float4(mul[2 * p], mul[2 * p + 1], add[2 * p],
+                         add[2 * p + 1]);
+}
+
+__device__ __forceinline__ uint32_t bits2(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+__device__ __forceinline__ __nv_bfloat162 from_bits2(uint32_t u) {
+  return *reinterpret_cast<__nv_bfloat162*>(&u);
+}
+
 // d (+)= A·Bᵀ for a 64 x 16 A tile in registers (a: the thread's four bf16
 // pairs, in its warp's 16 rows as mma.sync's A fragment lays them: rows g,
 // g + 8 at columns 2·q4, +1, then at 8 + 2·q4, +1) and a 128 x 16 B tile in
@@ -354,9 +449,6 @@ __device__ __forceinline__ void warp_column_max(__nv_bfloat162 (&m)[16],
   }
 }
 
-// C1 and C2 (the products' depths) are template arguments, so that each
-// product's wgmmas run unrolled; WG warpgroups a block; GATHER the gather
-// form (src = pre, idx and center read), else the slab form (src = x0)
 // the next tile of a warpgroup's walk after (u, ti)
 __device__ __forceinline__ void advance(int& u, int& ti, int tiles,
                                         int stride) {
@@ -366,26 +458,52 @@ __device__ __forceinline__ void advance(int& u, int& ti, int tiles,
   }
 }
 
-template <int C1, int C2, int WG, bool GATHER>
+// C1 and C2 (the products' depths) are template arguments, so that each
+// product's wgmmas run unrolled; WG warpgroups a block; GATHER the gather
+// form (src = pre, idx and center read), else the slab form (src = x0);
+// BN the slab form with BatchNorm (packs [mul0 | add0 | mul1 | add1 | mul2
+// | add2] in f32 for the biases; idx, center, b1, b2 unread)
+template <int C1, int C2, int WG, bool GATHER, bool BN>
 __global__ void __launch_bounds__(128 * WG, 1)
 eval_kernel(const bf16* __restrict__ src, const int* __restrict__ idx,
-            const bf16* __restrict__ center, const bf16* __restrict__ w1t,
-            const bf16* __restrict__ b1, const bf16* __restrict__ w2t,
-            const bf16* __restrict__ b2, int R, int N, int M, int S, int C3,
-            bf16* __restrict__ out) {
+            const bf16* __restrict__ center, const float* __restrict__ packs,
+            const bf16* __restrict__ w1t, const bf16* __restrict__ b1,
+            const bf16* __restrict__ w2t, const bf16* __restrict__ b2, int R,
+            int N, int M, int S, int C3, bf16* __restrict__ out) {
   using namespace fused_sa_wgmma;
   static_assert(C2 == kN, "layer 1's columns are one accumulator");
+  static_assert(!(GATHER && BN), "BatchNorm takes the slab form");
   extern __shared__ unsigned char eval_smem[];
   unsigned char* smem =
       eval_smem + ((1024u - (smem_u32(eval_smem) & 1023u)) & 1023u);
-  const Layout L = fused_sa_wgmma_eval::layout(C1, C2, C3, WG);
+  const Layout L = fused_sa_wgmma_eval::layout(C1, C2, C3, WG, BN);
   bf16* b1s = reinterpret_cast<bf16*>(smem + L.b1);
   bf16* b2s = reinterpret_cast<bf16*>(smem + L.b2);
-  // the weights and biases, once per block
+  // the BatchNorm form's packs as quads of column pairs, layer by layer
+  float4* quads0 = reinterpret_cast<float4*>(smem + L.packs);
+  float4* quads1 = quads0 + C1 / 2;
+  float4* quads2 = quads1 + C2 / 2;
+  // the weights and biases (the packs, and layer 2's column signs), once
+  // per block
   stage_operand(w1t, C2, C1, smem + L.w1);
   stage_operand(w2t, C3, C2, smem + L.w2);
-  for (int c = threadIdx.x; c < C2; c += 128 * WG) b1s[c] = b1[c];
-  for (int c = threadIdx.x; c < C3; c += 128 * WG) b2s[c] = b2[c];
+  if (BN) {
+    const float* mul1 = packs + 2 * C1;
+    const float* mul2 = mul1 + 2 * C2;
+    stage_quads(packs, packs + C1, C1, quads0);
+    stage_quads(mul1, mul1 + C2, C2, quads1);
+    stage_quads(mul2, mul2 + C3, C3, quads2);
+    // mul2's sign bit, as a bf16 sign: a column whose mul2 is negative
+    // pools the min of bf16(v), the max of its negation
+    unsigned short* sign = reinterpret_cast<unsigned short*>(b2s);
+    for (int c = threadIdx.x; c < C3; c += 128 * WG)
+      sign[c] = (unsigned short)((__float_as_uint(
+                                      packs[2 * (C1 + C2) + c]) >> 16) &
+                                  0x8000u);
+  } else {
+    for (int c = threadIdx.x; c < C2; c += 128 * WG) b1s[c] = b1[c];
+    for (int c = threadIdx.x; c < C3; c += 128 * WG) b2s[c] = b2[c];
+  }
   proxy_fence();
   __syncthreads();
 
@@ -408,6 +526,17 @@ eval_kernel(const bf16* __restrict__ src, const int* __restrict__ idx,
   const __nv_bfloat162 one = __float2bfloat162_rn(1.f);
   const __nv_bfloat162 lowest =
       __float2bfloat162_rn(__int_as_float((int)0xff800000u));  // -inf
+  // layer 2's column signs, a pair at a time
+  const uint32_t* sign2 = reinterpret_cast<const uint32_t*>(b2s);
+  const __nv_bfloat162* b2p = reinterpret_cast<const __nv_bfloat162*>(b2s);
+  // a group's pooled pair p (of the sign-flipped bf16(v) under BN) as the
+  // output pair: ReLU(bf16(m + b2)) (fma.rn.relu of m·1 + b2, which rounds
+  // the exact sum once, as add.rn does), or under BN the flip undone and
+  // layer 2's affine applied
+  auto finish = [&](__nv_bfloat162 m, int p) {
+    if (BN) return affine2(from_bits2(bits2(m) ^ sign2[p]), quads2[p]);
+    return __hfma2_relu(m, one, b2p[p]);
+  };
 
   // R·M < 2^31 (the wrapper checks it): group indices in 32 bits
   const int groups = R * M;
@@ -441,8 +570,11 @@ eval_kernel(const bf16* __restrict__ src, const int* __restrict__ idx,
     wg_bar(bar);  // this tile's centers are in, the last tile done
     const Tile T = tile_at(unit, tile, G, S, groups);
     const bool last = tile == tiles - 1;
-    store_a0<C1, GATHER>(cur, rows, ctrs + stage * kMaxGroups * C1, T, G,
-                         warp, lane);
+    if (BN)
+      store_a0_bn<C1>(cur, rows, quads0, T, warp, lane);
+    else
+      store_a0<C1, GATHER>(cur, rows, ctrs + stage * kMaxGroups * C1, T, G,
+                           warp, lane);
     // the next tile: its centers by cp.async, its rows into registers
     // (from the ids loaded a tile ago), in flight while this one computes;
     // then the ids of the tile after it
@@ -471,35 +603,49 @@ eval_kernel(const bf16* __restrict__ src, const int* __restrict__ idx,
     uint32_t a1f[C2 / 16][4];
 #pragma unroll
     for (int j = 0; j < C2 / 8; ++j) {
-      const __nv_bfloat162 bias =
-          *reinterpret_cast<const __nv_bfloat162*>(b1s + 8 * j + 2 * q4);
+      // the thread's columns 8j + 2·q4, + 1: their bias, or their quad
+      const int c = 8 * j + 2 * q4;
+      __nv_bfloat162 bias = one;
+      float4 q1 = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (BN)
+        q1 = quads1[c >> 1];
+      else
+        bias = *reinterpret_cast<const __nv_bfloat162*>(b1s + c);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
+        const __nv_bfloat162 x = __floats2bfloat162_rn(
+            acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
         // a1 = ReLU(bf16(bf16(v) + b1)), two columns at once: fma.rn of
-        // bf16(v)·1 + b1 rounds the exact sum once, as add.rn does
-        __nv_bfloat162 v = __hfma2_relu(
-            __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]),
-            one, bias);
-        a1f[j >> 1][2 * (j & 1) + h] = *reinterpret_cast<uint32_t*>(&v);
+        // bf16(v)·1 + b1 rounds the exact sum once, as add.rn does; under
+        // BN bf16(ReLU(bf16(v)·mul1 + add1))
+        const __nv_bfloat162 v =
+            BN ? affine2(x, q1) : __hfma2_relu(x, one, bias);
+        a1f[j >> 1][2 * (j & 1) + h] = bits2(v);
       }
     }
-    // layer 2 and the pool. a2 = ReLU(bf16(bf16(v) + b2)) is monotone in
-    // v, so the max of a2 over a group's slots is that function of the
-    // max of bf16(v): the rows are reduced first (rows past the valid slots
-    // -inf), the bias and ReLU applied once to each output pair
+    // layer 2 and the pool. The output a2 = f(bf16(v)) is monotone in v
+    // (ReLU(bf16(bf16(v) + b2)); under BN bf16(ReLU(bf16(v)·mul2 + add2)),
+    // non-decreasing where mul2 >= 0 and non-increasing where mul2 < 0), so
+    // the max of a2 over a group's slots is f of the max of bf16(v), or of
+    // its min where mul2 < 0: the rows are reduced first, as the max of
+    // bf16(v) with its sign flipped where mul2 is negative (exact; rows
+    // past the valid slots -inf), and f applied once to each output pair
     const int r0 = 16 * warp + g;
     const bool in0 = r0 < T.valid, in1 = r0 + 8 < T.valid;
-    const __nv_bfloat162* b2p = reinterpret_cast<const __nv_bfloat162*>(b2s);
     for (int n0 = 0; n0 < C3; n0 += kN) {
       product_rs<C2>(acc, a1f, w2s, C3, n0);
       __nv_bfloat162 m[16];
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
         // bf16(v) of both rows, two columns at once
-        const __nv_bfloat162 x0 =
-            __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
-        const __nv_bfloat162 x1 =
+        __nv_bfloat162 x0 = __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
+        __nv_bfloat162 x1 =
             __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+        if (BN) {
+          const uint32_t flip = sign2[(n0 >> 1) + 4 * j + q4];
+          x0 = from_bits2(bits2(x0) ^ flip);
+          x1 = from_bits2(bits2(x1) ^ flip);
+        }
         m[j] = __hmax2(in0 ? x0 : lowest, in1 ? x1 : lowest);
       }
       warp_column_max(m, lane);
@@ -510,8 +656,8 @@ eval_kernel(const bf16* __restrict__ src, const int* __restrict__ idx,
         if (warp < T.groups) {
           __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(
               out + (size_t)(T.grp0 + warp) * C3);
-          o[p0] = __hfma2_relu(m[0], one, b2p[p0]);
-          o[p0 + 4] = __hfma2_relu(m[1], one, b2p[p0 + 4]);
+          o[p0] = finish(m[0], p0);
+          o[p0 + 4] = finish(m[1], p0 + 4);
         }
       } else {
         part[warp * pairs + p0] = m[0];
@@ -536,8 +682,7 @@ eval_kernel(const bf16* __restrict__ src, const int* __restrict__ idx,
           }
         }
         reinterpret_cast<__nv_bfloat162*>(out + (size_t)(T.grp0 + k) *
-                                                    C3)[p] =
-            __hfma2_relu(mx, one, b2p[p]);
+                                                    C3)[p] = finish(mx, p);
       }
     }
     unit = nunit;
@@ -548,13 +693,13 @@ eval_kernel(const bf16* __restrict__ src, const int* __restrict__ idx,
   }
 }
 
-template <int C1, int C2, int WG, bool GATHER>
+template <int C1, int C2, int WG, bool GATHER, bool BN>
 int launch_widths(const bf16* src, const int* idx, const bf16* center,
-                  const bf16* w1t, const bf16* b1, const bf16* w2t,
-                  const bf16* b2, int R, int N, int M, int S, int C3,
-                  bf16* out, cudaStream_t stream) {
-  auto kern = eval_kernel<C1, C2, WG, GATHER>;
-  const size_t smem = smem_bytes(C1, C2, C3, WG);
+                  const float* packs, const bf16* w1t, const bf16* b1,
+                  const bf16* w2t, const bf16* b2, int R, int N, int M, int S,
+                  int C3, bf16* out, cudaStream_t stream) {
+  auto kern = eval_kernel<C1, C2, WG, GATHER, BN>;
+  const size_t smem = smem_bytes(C1, C2, C3, WG, BN);
   // above 48 KB a kernel must ask for its shared memory; the largest size
   // asked for so far stands
   static size_t granted = 0;
@@ -576,25 +721,27 @@ int launch_widths(const bf16* src, const int* idx, const bf16* center,
   const long long units = ((long long)R * M + G - 1) / G;
   const long long want = (units + WG - 1) / WG;
   const unsigned blocks = (unsigned)(want < sms ? want : sms);
-  kern<<<blocks, 128 * WG, smem, stream>>>(src, idx, center, w1t, b1, w2t,
-                                           b2, R, N, M, S, C3, out);
+  kern<<<blocks, 128 * WG, smem, stream>>>(src, idx, center, packs, w1t, b1,
+                                           w2t, b2, R, N, M, S, C3, out);
   return (int)cudaGetLastError();
 }
 
-// the caller checked takes(C1, C2, C3), R, M, S (and N) >= 1 and R·M <
-// 2^31; GATHER the gather form (src = pre), else the slab form (src = x0)
-template <bool GATHER>
+// the caller checked takes(C1, C2, C3, BN), R, M, S (and N) >= 1 and R·M <
+// 2^31; GATHER the gather form (src = pre), else the slab form (src = x0),
+// with BatchNorm where BN (packs, no biases)
+template <bool GATHER, bool BN>
 int launch_eval(const bf16* src, const int* idx, const bf16* center,
-                const bf16* w1t, const bf16* b1, const bf16* w2t,
-                const bf16* b2, int R, int N, int M, int S, int C1, int C2,
-                int C3, bf16* out, cudaStream_t stream) {
+                const float* packs, const bf16* w1t, const bf16* b1,
+                const bf16* w2t, const bf16* b2, int R, int N, int M, int S,
+                int C1, int C2, int C3, bf16* out, cudaStream_t stream) {
   if (C1 != 128 || C2 != 128) return (int)cudaErrorInvalidValue;
-  if (warpgroups(C1, C2, C3) == 3)
-    return launch_widths<128, 128, 3, GATHER>(src, idx, center, w1t, b1, w2t,
-                                              b2, R, N, M, S, C3, out,
-                                              stream);
-  return launch_widths<128, 128, 2, GATHER>(src, idx, center, w1t, b1, w2t,
-                                            b2, R, N, M, S, C3, out, stream);
+  if (warpgroups(C1, C2, C3, BN) == 3)
+    return launch_widths<128, 128, 3, GATHER, BN>(src, idx, center, packs,
+                                                  w1t, b1, w2t, b2, R, N, M,
+                                                  S, C3, out, stream);
+  return launch_widths<128, 128, 2, GATHER, BN>(src, idx, center, packs, w1t,
+                                                b1, w2t, b2, R, N, M, S, C3,
+                                                out, stream);
 }
 
 }  // namespace fused_sa_wgmma_eval

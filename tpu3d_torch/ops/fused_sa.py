@@ -1652,11 +1652,10 @@ def bf16_kernels_take(S: int, C1: int, C2: int, C3: int) -> bool:
     slot and x2 in training) in shared memory, the layout of
     ``csrc/fused_sa_bf16.cuh``'s design, which every entry runs at widths
     the wgmma designs do not take. Those take C1 = C2 = 128 with layouts of
-    their own: kernels 5 and 8's eval forms C3 up to 512
+    their own: the eval forms of kernels 5, 8 and 9 C3 up to 512
     (``eval_bf16_design``, ``eval_wgmma_smem``), kernel 6's training
     forward C3 up to 384 (``train_bf16_design``, ``wgmma_smem``); kernel
-    9's eval form and kernel 8's training forward run the parent design at
-    every width.
+    8's training forward runs the parent design at every width.
     Every shape tpu3d's ``fused_sa_supported`` admits with C1 + C2 below
     some 7000 passes."""
     smem = 16 * (C1 + 8 + C2 + 8) * 2 + 12 * C3
@@ -1695,30 +1694,37 @@ def train_bf16_design(C1: int, C2: int, C3: int) -> str:
     return "wgmma" if fits else "parent"
 
 
-def eval_wgmma_smem(C1: int, C2: int, C3: int, warpgroups: int) -> int:
-    """Bytes of shared memory the wgmma design of kernels 5 and 8's bf16
-    eval forms (``fused_sa_bf16``, ``fused_sa_slab_bf16``) asks for
-    (``csrc/fused_sa_wgmma_eval.cuh``'s layout, 1024-byte regions): the
-    weights, per warpgroup a 64-row stage of a0 and two tiles' centers
-    (four each), the biases, per warpgroup each warp's column maxima (bf16)
-    and a group's running max, and room to align them (a1 stays in
-    registers)."""
+def eval_wgmma_smem(C1: int, C2: int, C3: int, warpgroups: int,
+                    bn: bool = False) -> int:
+    """Bytes of shared memory the wgmma design of the bf16 eval forms asks
+    for (``csrc/fused_sa_wgmma_eval.cuh``'s layout, 1024-byte regions): the
+    weights, per warpgroup a 64-row stage of a0, the biases, per warpgroup
+    each warp's column maxima (bf16) and a group's running max, and room to
+    align them (a1 stays in registers). Kernels 5 and 8 (``bn`` False) add
+    two tiles' centers (four each) per warpgroup; kernel 9's form (``bn``)
+    has no centers and no biases but the packs in f32, with layer 2's
+    column signs where b2 lies."""
     return sum(_carve(n) for n in (
         2 * C1 * C2, 2 * C2 * C3, 2 * warpgroups * 64 * C1,
-        2 * warpgroups * 2 * 4 * C1, 2 * C2, 2 * C3,
-        2 * warpgroups * 4 * C3, 2 * warpgroups * C3)) + 1024
+        0 if bn else 2 * warpgroups * 2 * 4 * C1, 0 if bn else 2 * C2,
+        2 * C3, 2 * warpgroups * 4 * C3, 2 * warpgroups * C3,
+        8 * (C1 + C2 + C3) if bn else 0)) + 1024
 
 
-def eval_bf16_design(C1: int, C2: int, C3: int) -> str:
-    """The design kernels 5 and 8's bf16 eval forms run widths C1 -> C2 ->
-    C3 on (any S): "wgmma" (``csrc/fused_sa_wgmma_eval.cuh``: C1 = C2 =
-    128, C3 a multiple of 128 whose layout fits with two warpgroups a
-    block, three where they fit: C3 up to 512, three up to 384; every level
-    the shipped configs fuse at eval) or "parent" (``csrc/fused_sa_bf16.cuh``'s
-    design, which takes the rest: the widened RCNN's 256 -> 384 -> 256).
-    The C entry ``tpu3d_fused_sa_bf16_design`` decides the same."""
+def eval_bf16_design(C1: int, C2: int, C3: int, bn: bool = False) -> str:
+    """The design a bf16 eval form runs widths C1 -> C2 -> C3 on (any S):
+    kernels 5 and 8's (``bn`` False) and kernel 9's (``bn``, the BatchNorm
+    slab with its running statistics folded). "wgmma"
+    (``csrc/fused_sa_wgmma_eval.cuh``: C1 = C2 = 128, C3 a multiple of 128
+    whose layout (``eval_wgmma_smem``) fits with two warpgroups a block,
+    three where they fit: C3 up to 512, three up to 384, in both forms;
+    every level the shipped configs fuse at eval, with BatchNorm too) or
+    "parent" (``csrc/fused_sa_bf16.cuh``'s design, which takes the rest: the
+    widened RCNN's 256 -> 384 -> 256). The C entries
+    ``tpu3d_fused_sa_bf16_design`` and ``tpu3d_fused_sa_slab_bn_bf16_design``
+    decide the same."""
     fits = (C1 == C2 == 128 and C3 >= 128 and C3 % 128 == 0
-            and eval_wgmma_smem(C1, C2, C3, 2) <= SMEM_MAX)
+            and eval_wgmma_smem(C1, C2, C3, 2, bn) <= SMEM_MAX)
     return "wgmma" if fits else "parent"
 
 
@@ -1814,8 +1820,12 @@ def _eval_only(*tensors):
 
 
 def _w16(w: torch.Tensor) -> torch.Tensor:
-    """A (Cin, Cout) weight as the kernels read it: (Cout, Cin) bf16."""
-    return w.detach().T.to(BF16).contiguous()
+    """A (Cin, Cout) weight of any float dtype as the kernels read it:
+    (Cout, Cin) bf16 in its own contiguous memory. A non-bf16 weight is
+    cast and laid out in one pass; a bf16 one comes back from ``to`` as
+    the transposed view itself, which ``contiguous`` lays out."""
+    return w.detach().T.to(
+        BF16, memory_format=torch.contiguous_format).contiguous()
 
 
 def fused_gathered_mlp_pool_bf16(pre: torch.Tensor, idx: torch.Tensor,
@@ -1910,8 +1920,9 @@ def fused_bn_mlp_pool_bf16(x0: torch.Tensor, w1: torch.Tensor,
     """The BatchNorm slab's bf16 eval kernel (``_eval_chain_kernel``): x0
     (R, M, S, C1) bf16, the running ``stats`` ((mean, var) x3) folded into
     one f32 (mul, add) per layer as ``fused_bn_mlp_pool`` folds them ->
-    (R, M, C3) bf16. The kernel (counted as ``fused_sa_slab_bn_bf16``) for
-    CUDA tensors, the plain version for CPU tensors; no backward."""
+    (R, M, C3) bf16. The kernel (counted as ``fused_sa_slab_bn_bf16``, on
+    the design ``eval_bf16_design(..., bn=True)`` names) for CUDA tensors,
+    the plain version for CPU tensors; no backward."""
     packs = bn_packs([_bn_affine(m, v, g, b, eps)[:2]
                       for (m, v), g, b in zip(stats, gammas, betas)])
     if x0.device.type == "cpu":

@@ -66,7 +66,8 @@ script. Shapes:
 - the BatchNorm chain's training op (``fused_bn_mlp_pool`` with batch
   statistics, forward and backward under autograd: the seven training
   kernels) at default.yaml's SA_0 and SA_1 with ``USE_BN`` of the train
-  step (B=16), and their sum; then kernel 9's seven bf16 entries there,
+  step (B=16), and their sum, the f32 form's stats0 alone beside it; then
+  kernel 9's seven bf16 entries there,
   each on its own (``bn_bf16_calls``: the slab in bf16, driven as the
   training op drives it, on the plain pieces' statistics, x1, x2, argmax
   and d_y1), each call also split by launch (``kernel_bench.split_ms``),
@@ -98,12 +99,14 @@ script. Shapes:
   near the seeded step's reach, and full spread), each call also split by
   launch (``kernel_bench.split_ms``: device ms of each kernel and copy,
   and the host's read of the reached-row count);
-- kernels 5 and 8's bf16 eval forms (``fused_sa_eval_bf16``:
-  ``fused_gathered_mlp_pool_bf16`` and ``fused_mlp_pool_bf16``, counted
-  as ``fused_sa_bf16`` and ``fused_sa_slab_bf16``) at every RCNN level of
-  the eval paths of default.yaml (B=2), double.yaml (B=4), quickstart.yaml
-  (B=8) and smoke.yaml (B=2) that fuses without BatchNorm, on seeded bf16
-  inputs of those shapes, each call also split by launch
+- the bf16 eval forms of kernels 5, 8 and 9 (``fused_sa_eval_bf16``:
+  ``fused_gathered_mlp_pool_bf16``, ``fused_mlp_pool_bf16`` and
+  ``fused_bn_mlp_pool_bf16``, counted as ``fused_sa_bf16``,
+  ``fused_sa_slab_bf16`` and ``fused_sa_slab_bn_bf16``) at every RCNN
+  level of the eval paths of default.yaml (B=2; also with ``USE_BN``, on
+  seeded running statistics with a quarter of the gammas negative),
+  double.yaml (B=4), quickstart.yaml (B=8) and smoke.yaml (B=2), on seeded
+  bf16 inputs of those shapes, each call also split by launch
   (``kernel_bench.split_ms``), with the sums per forward.
 
 ``--only`` takes any of ``nearest_k``, ``fused_sa_bwd``, ``fps3nn``,
@@ -696,7 +699,7 @@ def main() -> int:
                                      fused_gathered_mlp_pool, fused_mlp_pool)
         from tpu3d_torch.ops import fused_sa as fs
 
-        bn_total, bn_bf16 = 0.0, {}
+        bn_total, bn_bf16, bn_f32_stats0 = 0.0, {}, 0.0
         for label, route, mode, R, N, M, S, (c1, c2, c3) in rcnn_levels(
                 args.root):
             fg = torch.Generator(device="cuda").manual_seed(R + M + S + c3)
@@ -739,6 +742,10 @@ def main() -> int:
                                lambda: fused_bn_mlp_pool(x0, w1, w2, gammas,
                                                          betas, stats), 10)
                 if mode == "train" and "fused_sa_bn_train" in only:
+                    with torch.no_grad():  # the f32 form's stats0 alone
+                        bn_f32_stats0 += record(
+                            f"fused_sa_bn_stats0 {label}",
+                            lambda: fs.fused_sa_bn_stats(0, x0), 5)
                     grad = randn(R, M, c3)
                     leaves = [t.requires_grad_() for t in
                               (x0, w1, w2, *gammas, *betas)]
@@ -796,6 +803,9 @@ def main() -> int:
             out["fused_sa_bn_train sum"] = bn_total
             print(f"{args.label}: fused_sa_bn_train, SA_0 + SA_1 forward "
                   f"and backward: {bn_total:.3f} ms", flush=True)
+            out["fused_sa_bn_stats0 step sum"] = bn_f32_stats0
+            print(f"{args.label}: fused_sa_bn_stats0 (f32), SA_0 + SA_1: "
+                  f"{bn_f32_stats0:.4f} ms", flush=True)
             for name, ms in bn_bf16.items():
                 out[f"{name} step sum"] = ms
             out["fused_sa_bn_train_bf16 step sum"] = sum(bn_bf16.values())
@@ -835,7 +845,7 @@ def main() -> int:
         sums = {}
         for label, route, mode, R, N, M, S, (c1, c2, c3) in rcnn_levels(
                 args.root, EVAL_PATHS):
-            if mode != "eval" or route not in ("gather", "slab"):
+            if mode != "eval":
                 continue
             fg = torch.Generator(device="cuda").manual_seed(R + M + S + c3)
 
@@ -852,9 +862,27 @@ def main() -> int:
                                      device="cuda", dtype=torch.int32),
                        randn(R, M, c1, scale=0.5).to(torch.bfloat16),
                        *weights)
-            else:
+            elif route == "slab":
                 name, fn = "fused_sa_slab_bf16", fs.fused_mlp_pool_bf16
                 ins = (randn(R, M, S, c1).to(torch.bfloat16), *weights)
+            else:
+                # kernel 9's form on running statistics, a quarter of each
+                # layer's gammas negative (mul < 0: the pool takes the min)
+                def bn_layer(c):
+                    sign = torch.where(torch.rand(c, generator=fg,
+                                                  device="cuda") < 0.25,
+                                       -1.0, 1.0)
+                    return ((0.5 + torch.rand(c, generator=fg,
+                                              device="cuda")) * sign,
+                            randn(c, scale=0.2),
+                            (randn(c, scale=0.3), 0.5 + torch.rand(
+                                c, generator=fg, device="cuda")))
+
+                layers = [bn_layer(c) for c in (c1, c2, c3)]
+                name, fn = "fused_sa_slab_bn_bf16", fs.fused_bn_mlp_pool_bf16
+                ins = (randn(R, M, S, c1).to(torch.bfloat16), weights[0],
+                       weights[2], [la[0] for la in layers],
+                       [la[1] for la in layers], [la[2] for la in layers])
             key = f"{name} {label}"
             with torch.no_grad():
                 ms = record(key, lambda: fn(*ins), 10)

@@ -1,6 +1,7 @@
 """The kernel clock, the recorders of the models' nearest-k and FPS calls,
 and the seeded nearest-k inputs that ``chip_smoke.py`` and
-``tools/compare_kernels.py`` share.
+``tools/compare_kernels.py`` share; the BatchNorm layers of every sign that
+``chip_smoke.py`` and the card tests hold kernel 9's eval form on.
 
 torch and the port are imported inside each function, never at import:
 ``compare_kernels.py`` loads this file from beside itself and then times
@@ -225,3 +226,24 @@ def dense_inputs(g):
     return ([(rpn[i + 1], rpn[i], 32, r)
              for i, r in enumerate((0.5, 1.0, 2.0, 4.0))]
             + [(rcnn[1], rcnn[0], 64, 0.2), (rcnn[2], rcnn[1], 64, 0.4)])
+
+
+def bn_eval_layers(g, widths):
+    """Three BatchNorm layers for kernel 9's eval form, drawn from the
+    card generator ``g``: gammas of both signs (a quarter negative) with
+    some exactly +0 and -0, betas, running (mean, var), so that each
+    folded mul is positive, negative or zero -> (gammas, betas, stats)."""
+    import torch
+
+    gammas, betas, stats = [], [], []
+    for c in widths:
+        u = torch.rand(c, generator=g, device=g.device)
+        gamma = (0.5 + torch.rand(c, generator=g, device=g.device)) * \
+            torch.where(u < 0.25, -1.0, 1.0)
+        gamma[::9] = 0.0
+        gamma[4::13] = -0.0
+        gammas.append(gamma)
+        betas.append(0.2 * torch.randn(c, generator=g, device=g.device))
+        stats.append((0.2 * torch.randn(c, generator=g, device=g.device),
+                      0.5 + torch.rand(c, generator=g, device=g.device)))
+    return gammas, betas, stats
